@@ -1,0 +1,108 @@
+"""Device policy of the port, and its CUDA kernels on the card.
+
+The first tests run everywhere: an entry point asked for no device runs on
+the CUDA card, and without one it raises instead of quietly using the CPU.
+Tests marked ``gpu`` need an NVIDIA card (and nvcc); they skip inside the
+test when there is none, so every worker collects the same tests.  On the
+card: ``python -m pytest tests/test_torch_gpu.py -m gpu``.
+"""
+
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from voicesplit_tpu_torch.config import load_config
+from voicesplit_tpu_torch.device import resolve_device
+from voicesplit_tpu_torch.dsp.processor import make_audio_processor
+from voicesplit_tpu_torch.models.masknet import make_masknet
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _config():
+    cfg = load_config(str(REPO / "configs" / "voicesplit.json"))
+    cfg.model.lstm_dim, cfg.model.fc1_dim = 8, 12  # keep the CPU-side build small
+    return cfg
+
+
+ENTRY_POINTS = {
+    "resolve_device": lambda: resolve_device(),
+    "make_audio_processor": lambda: make_audio_processor(_config()).device,
+    "make_masknet": lambda: next(make_masknet(_config()).parameters()).device,
+}
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
+def test_default_device_is_the_card_never_a_silent_cpu(entry):
+    if torch.cuda.is_available():
+        assert ENTRY_POINTS[entry]().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ENTRY_POINTS[entry]()
+
+
+def test_resolving_a_device_turns_tf32_off():
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    assert resolve_device("cpu").type == "cpu"
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bidirectional", [False, True])
+def test_lstm_kernels_match_plain_versions_on_card(dtype, bidirectional):
+    _need_card()
+    from voicesplit_tpu_torch.ops import lstm_cuda
+
+    g = torch.Generator().manual_seed(0)
+    T, H, B = 301, 400, 8 if bidirectional else 1
+    R = 2 * B if bidirectional else B
+    dt = getattr(torch, dtype)
+    xp = torch.randn(T, R, 4 * H, generator=g).to("cuda", dt)
+    ws = [(torch.rand(H, 4 * H, generator=g) * 0.1 - 0.05).to("cuda", dt) for _ in range(2)]
+    if bidirectional:
+        args, kernel, plain = (xp, *ws), lstm_cuda.bilstm_fwd, lstm_cuda.bilstm_fwd_ref
+    else:
+        h0, c0 = (torch.randn(R, H, generator=g).cuda() for _ in range(2))
+        args, kernel, plain = (xp, ws[0], h0, c0), lstm_cuda.lstm_fwd, lstm_cuda.lstm_fwd_ref
+    before = dict(lstm_cuda.LAUNCHES)
+    with torch.inference_mode():
+        got, want = kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    name = "bilstm_fwd" if bidirectional else "lstm_fwd"
+    assert lstm_cuda.LAUNCHES[name] == before[name] + 1
+    # fp32: summation order only; bf16: one flipped rounding of h may carry
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 8])
+def test_separate_runs_through_the_kernels_on_card(batch):
+    _need_card()
+    from voicesplit_tpu_torch import weights
+    from voicesplit_tpu_torch.cli.separate import separate_batch
+    from voicesplit_tpu_torch.ops import lstm_cuda
+
+    cfg = load_config(str(REPO / "configs" / "voicesplit.json"))
+    ap = make_audio_processor(cfg)
+    model = weights.init_random_(make_masknet(cfg), seed=0)
+    rng = np.random.default_rng(0)
+    mixed = (0.1 * rng.standard_normal((batch, 48000))).astype(np.float32)
+    emb = rng.standard_normal((batch, 256)).astype(np.float32)
+    lstm_cuda.reset_launch_counts()
+    out = separate_batch(model, ap, mixed, emb)
+    torch.cuda.synchronize()
+    assert out.shape == (batch, 48000) and bool(torch.isfinite(out).all())
+    want = {"lstm_fwd": 0, "bilstm_fwd": 1} if batch % 8 == 0 else {"lstm_fwd": 2, "bilstm_fwd": 0}
+    assert lstm_cuda.LAUNCHES == want

@@ -1,0 +1,15 @@
+"""PyTorch/CUDA port of voicesplit_tpu for NVIDIA Hopper (H100).
+
+The JAX package `voicesplit_tpu` stays the reference; this package imports
+nothing of it, nor JAX.  Ported so far: the serving path (spectrogram →
+eval-mode mask network → mixed-phase iSTFT), with the BiLSTM recurrence in
+hand-written CUDA kernels (`ops/lstm_cuda.py`, `csrc/lstm_fwd.cu`).
+
+Entry points run on the CUDA card unless the caller passes
+``device="cpu"``, where the kernels' plain PyTorch versions run instead.
+"""
+
+from voicesplit_tpu_torch.config import Config, load_config, load_config_from_str
+from voicesplit_tpu_torch.device import resolve_device
+
+__all__ = ["Config", "load_config", "load_config_from_str", "resolve_device"]

@@ -1,0 +1,74 @@
+"""Inference CLI: separate a target voice out of a mixture wav (PyTorch
+counterpart of `voicesplit_tpu/cli/separate.py`, non-streaming path).
+
+    python -m voicesplit_tpu_torch.cli.separate -c configs/voicesplit.json \
+        --weights weights.pt --mixed_wav mix.wav --emb emb.npy \
+        --output out.wav [--device cuda|cpu]
+
+Spectrogram of the mixture → mask network → ``mask * spec`` → iSTFT with
+the mixture phase (reference eval behavior, `utils/generic_utils.py:504`).
+``--weights`` is a file written by `voicesplit_tpu_torch.weights.save`.
+The device is the CUDA card unless ``--device cpu`` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from voicesplit_tpu_torch.dsp.processor import AudioProcessor
+from voicesplit_tpu_torch.models.masknet import MaskNet
+
+_NOT_PORTED = ("streaming", "sequence_parallel", "griffin_lim", "reference_wav")
+
+
+def separate_batch(
+    model: MaskNet, ap: AudioProcessor, mixed, emb
+) -> torch.Tensor:
+    """Mixtures ``[B, L]`` and d-vectors ``[B, emb]`` → separated ``[B, L]``
+    (float32, on the model's device)."""
+    dev = next(model.parameters()).device
+    mixed = torch.as_tensor(mixed, dtype=torch.float32, device=dev)
+    emb = torch.as_tensor(emb, dtype=torch.float32, device=dev)
+    with torch.inference_mode():
+        spec, phase = ap.wav2spec_batch(mixed)
+        mask = model(spec, emb)
+        return ap.spec2wav_batch(mask * spec, phase, length=mixed.shape[-1])
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Targeted voice separation (PyTorch)")
+    parser.add_argument("-c", "--config_path", type=str, required=True)
+    parser.add_argument("--weights", type=str, required=True, help="the port's .pt weights")
+    parser.add_argument("--mixed_wav", type=str, required=True)
+    parser.add_argument("--emb", type=str, required=True, help="*.npy d-vector")
+    parser.add_argument("--output", type=str, required=True)
+    parser.add_argument("--device", type=str, default=None, help="cuda (default) or cpu")
+    parser.add_argument("--streaming", action="store_true")
+    parser.add_argument("--sequence_parallel", action="store_true")
+    parser.add_argument("--griffin_lim", action="store_true")
+    parser.add_argument("--reference_wav", type=str, default=None)
+    args = parser.parse_args(argv)
+    for opt in _NOT_PORTED:
+        if getattr(args, opt):
+            raise NotImplementedError(f"--{opt} is not yet ported")
+
+    from voicesplit_tpu_torch import weights
+    from voicesplit_tpu_torch.config import load_config
+    from voicesplit_tpu_torch.dsp.processor import make_audio_processor
+    from voicesplit_tpu_torch.models.masknet import make_masknet
+
+    config = load_config(args.config_path)
+    ap = make_audio_processor(config, device=args.device)
+    model = weights.load(make_masknet(config, device=args.device), args.weights)
+    emb = np.load(args.emb).astype(np.float32).reshape(1, -1)
+    mixed = ap.load_wav(args.mixed_wav)
+    out = separate_batch(model, ap, mixed[None], emb)[0].cpu().numpy()
+    ap.save_wav(out, args.output)
+    print(f"wrote {args.output} ({len(out) / ap.sample_rate:.2f}s)")
+
+
+if __name__ == "__main__":
+    main()

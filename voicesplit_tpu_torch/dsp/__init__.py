@@ -1,0 +1,5 @@
+"""DSP front-end of the port: STFT/iSTFT, dB normalization, wav IO."""
+
+from voicesplit_tpu_torch.dsp.processor import AudioProcessor, make_audio_processor
+
+__all__ = ["AudioProcessor", "make_audio_processor"]

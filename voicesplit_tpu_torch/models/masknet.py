@@ -1,0 +1,169 @@
+"""The spectrogram-mask network in eval mode (PyTorch counterpart of
+`voicesplit_tpu/models/masknet.py`).
+
+    spec [B, T, F] → [B, 1, T, F] (NCHW: time is H, frequency is W)
+      conv1 1×7, conv2 7×1, then 5×5 with time dilation 1/2/4/8/16,
+      64 channels, BatchNorm (running statistics) + activation each,
+      symmetric "same" zero padding
+    1×1 conv → 8 channels → [B, T, 8F], frequency-major (index f·C + c)
+    concat the d-vector per frame → [B, T, 8F + emb]
+    BiLSTM(→ 2×400) → ReLU → fc1(600) → ReLU → fc2(601) → sigmoid (fp32)
+
+`activation="relu"` is VoiceFilter, `"mish"` VoiceSplit.  Parameters are
+float32 and cast to ``compute_dtype`` where they are used, as in JAX.  The
+JAX model flattens ``[B, T, F, 8]`` frequency-major (`masknet.py:495-506`);
+this port permutes its NCHW conv output to ``[B, T, F, 8]`` before the
+flatten, so the LSTM's ``w_ih`` rows line up with a JAX checkpoint's.
+
+Not ported yet: train mode, dropout, causal convs, extra dilated blocks
+and the streaming (unidirectional) model.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+from torch import nn
+
+from voicesplit_tpu_torch.config import Config
+from voicesplit_tpu_torch.device import DeviceLike, resolve_device
+from voicesplit_tpu_torch.models.lstm import BiLSTM
+from voicesplit_tpu_torch.ops.bn_act import bn_act_eval, mish
+
+__all__ = ["BatchNorm", "ConvBlock", "MaskNet", "make_masknet", "mish"]
+
+# (kernel (time, freq), dilation (time, freq)) of the seven 64-channel
+# layers (reference `models/voicefilter/model.py:17-54`)
+CONV_SPECS: List[Tuple[Tuple[int, int], Tuple[int, int]]] = [
+    ((1, 7), (1, 1)),
+    ((7, 1), (1, 1)),
+    ((5, 5), (1, 1)),
+    ((5, 5), (2, 1)),
+    ((5, 5), (4, 1)),
+    ((5, 5), (8, 1)),
+    ((5, 5), (16, 1)),
+]
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm parameters and running statistics under the JAX names
+    (params ``scale``/``bias``, batch_stats ``mean``/``var``)."""
+
+    def __init__(self, features: int, epsilon: float = 1e-5):
+        super().__init__()
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+
+class ConvBlock(nn.Module):
+    """"Same" Conv2D → BatchNorm (running statistics) → activation."""
+
+    def __init__(
+        self,
+        features: int,
+        in_features: int,
+        kernel: Tuple[int, int],
+        dilation: Tuple[int, int] = (1, 1),
+        activation: str = "relu",
+        compute_dtype=torch.float32,
+    ):
+        super().__init__()
+        kt, kf = kernel
+        dt, df = dilation
+        # the reference's explicit ZeroPad2d sizes
+        padding = ((kt - 1) * dt // 2, (kf - 1) * df // 2)
+        self.conv = nn.Conv2d(in_features, features, kernel, dilation=dilation, padding=padding)
+        self.bn = BatchNorm(features)
+        self.activation = activation
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, C, T, F]
+        cd = self.compute_dtype
+        c = self.conv
+        y = nn.functional.conv2d(
+            x.to(cd), c.weight.to(cd), c.bias.to(cd), padding=c.padding, dilation=c.dilation
+        )
+        bn = self.bn
+        return bn_act_eval(y, bn.scale, bn.bias, bn.mean, bn.var, self.activation, bn.epsilon)
+
+
+class MaskNet(nn.Module):
+    """Speaker-conditioned soft-mask network, eval mode."""
+
+    def __init__(
+        self,
+        num_freq: int = 601,
+        emb_dim: int = 256,
+        lstm_dim: int = 400,
+        fc1_dim: int = 600,
+        fc2_dim: int = 601,
+        conv_channels: int = 64,
+        conv_out_channels: int = 8,
+        activation: str = "relu",
+        compute_dtype=torch.float32,
+    ):
+        super().__init__()
+        self.num_freq = num_freq
+        self.emb_dim = emb_dim
+        self.conv_out_channels = conv_out_channels
+        self.compute_dtype = compute_dtype
+        specs = CONV_SPECS + [((1, 1), (1, 1))]
+        self.block_names = [f"conv{i + 1}" for i in range(len(specs))]
+        for i, ((k, d), name) in enumerate(zip(specs, self.block_names)):
+            cin = 1 if i == 0 else conv_channels
+            cout = conv_out_channels if i == len(specs) - 1 else conv_channels
+            self.add_module(name, ConvBlock(cout, cin, k, d, activation, compute_dtype))
+        self.lstm = BiLSTM(conv_out_channels * num_freq + emb_dim, lstm_dim, compute_dtype)
+        self.fc1 = nn.Linear(2 * lstm_dim, fc1_dim)
+        self.fc2 = nn.Linear(fc1_dim, fc2_dim)
+
+    def _dense(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        return x @ layer.weight.to(cd).t() + layer.bias.to(cd)
+
+    def conv_features(self, spec: torch.Tensor) -> torch.Tensor:
+        """``[B, T, F]`` → flattened conv features ``[B, T, 8F]`` (f·C + c)."""
+        B, T, F = spec.shape
+        x = spec.to(self.compute_dtype)[:, None]  # [B, 1, T, F]
+        for name in self.block_names:
+            x = getattr(self, name)(x)
+        return x.permute(0, 2, 3, 1).reshape(B, T, F * self.conv_out_channels)
+
+    def mask_head(self, features: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        B, T, _ = features.shape
+        cd = self.compute_dtype
+        emb_t = emb.to(cd)[:, None, :].expand(B, T, self.emb_dim)
+        x = torch.cat([features, emb_t], dim=-1)  # [B, T, 8F + emb]
+        x = torch.relu(self.lstm(x))  # post-LSTM ReLU of both reference models
+        x = torch.relu(self._dense(self.fc1, x))
+        return torch.sigmoid(self._dense(self.fc2, x).float())  # fp32 [B, T, F]
+
+    def forward(self, spec: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        return self.mask_head(self.conv_features(spec), emb)
+
+
+def make_masknet(config: Config, device: DeviceLike = None) -> MaskNet:
+    """Build the model selected by ``config.model_name`` ("voicefilter" ⇒
+    relu, "voicesplit" ⇒ mish) on `device` (the CUDA card by default)."""
+    m = config.model
+    if m.num_extra_dilated_blocks or m.causal:
+        raise NotImplementedError(
+            "extra dilated blocks and causal convs are not yet ported"
+        )
+    dev = resolve_device(device)
+    model = MaskNet(
+        num_freq=config.audio.active.num_freq,
+        emb_dim=m.emb_dim,
+        lstm_dim=m.lstm_dim,
+        fc1_dim=m.fc1_dim,
+        fc2_dim=m.fc2_dim,
+        conv_channels=m.conv_channels,
+        conv_out_channels=m.conv_out_channels,
+        activation="relu" if config.model_name == "voicefilter" else "mish",
+        compute_dtype=getattr(torch, config.train_config.compute_dtype),
+    )
+    return model.to(dev).eval()

@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""On-card smoke test of the PyTorch port's serving path (NVIDIA H100).
+"""On-card smoke test of the PyTorch port's serving and training paths
+(NVIDIA H100).
 
     python3 chip_smoke.py [--seed 0] [--profile DIR]
 
 Phases, each printing one JSON line:
 
 1. device   — the card's name and power limit (``nvidia-smi``).
-2. build    — compiles `voicesplit_tpu_torch/csrc/lstm_fwd.cu` with nvcc for
-   sm_90a into ``build/`` and prints ``ptxas -v`` (registers, shared memory,
-   spills) and each kernel's launch grid.
-3. kernels  — at H=400, T=301 holds ``lstm_fwd`` (B=1, random h0/c0) and
-   ``bilstm_fwd`` (B=8) against their plain PyTorch versions on the card, in
-   bf16 and fp32 operands (hs, cs, gates, and the final (h, c) of
-   ``lstm_fwd``), then times kernel, plain version and ``torch.nn.LSTM``
-   (cuDNN, a yardstick only: it also computes the input projection).
+2. build    — compiles every `voicesplit_tpu_torch/csrc/*.cu` with nvcc for
+   sm_90a into ``build/`` (one nvcc per source, all at once) and prints
+   ``ptxas -v`` (registers, shared memory, spills) and each kernel's grid.
+3. kernels  — at H=400, T=301 holds each kernel against its plain PyTorch
+   version on the card, in bf16 and fp32 operands: ``lstm_fwd`` (B=1,
+   random h0/c0; hs, cs, gates, final (h, c)), ``bilstm_fwd`` (B=8),
+   ``lstm_bwd`` (B=2, random dhs, dhf, dcf; dxp, dW_hh, dh0, dc0) and
+   ``bilstm_bwd`` (B=8; dxp, both dW_hh).  Then times kernel, plain version
+   and a cuDNN ``torch.nn.LSTM`` yardstick (its forward, or its
+   ``.backward()`` alone after a forward; both also cover the input
+   projection, which the kernels leave to a matmul).
 4. separate — builds the full-width `configs/voicesplit.json` model (bf16)
    with weights made from ``--seed``, zeroes the launch counters, runs
    `separate_batch` at B=1 and at B=8 on 3 s synthetic mixtures, reads the
@@ -22,19 +26,34 @@ Phases, each printing one JSON line:
    the card, and an unnormalized STFT→iSTFT round trip of the mixture).
    Prints the steady-state latency per batch (median and p75 of 40 calls)
    and audio-seconds per second.
+5. train    — the same model and config (si_snr loss, Adam; learning rate
+   1e-3, see TRAIN_LR) in train mode, weights from ``--seed``, synthetic 3 s batches at B=2 (the config's
+   batch; BiLSTM via ``lstm_fwd``/``lstm_bwd`` twice) and B=8 (one
+   ``bilstm_fwd``/``bilstm_bwd``).  For each: zeroes the launch counters,
+   runs one `make_train_step` step, reads the counters (exactly the
+   kernels' launches per step), checks a finite loss, grad_norm > 0 and
+   that every parameter and BatchNorm running statistic moved; then runs
+   the same step from the same weights through the plain LSTM versions on
+   the card and compares loss, grad_norm and the LSTM weights' gradients;
+   then prints the step time (p50, p75 of 20 synchronized steps after 3
+   warm ones), audio-seconds per second of training, the losses (which
+   must fall on the fixed batch) and gradient norms of those steps and
+   the peak device memory.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit line
 and, last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so
 the exit code is non-zero and no result line is printed.  It also exits
 non-zero without a card, or without the rest of the repository beside it.
 ``--profile DIR`` additionally writes a ``torch.profiler`` kernel table and
-trace of the B=1 and B=8 serving runs into DIR and reports the device's
-idle share under the profiler.
+trace of the serving runs and the train steps into DIR and reports the
+device's idle share under the profiler and the device time by kind of
+kernel.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import subprocess
 import sys
@@ -48,11 +67,41 @@ T_FRAMES, HIDDEN, IN_FEATURES = 301, 400, 8 * 601 + 256
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor core; fp32 CUDA cores
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
-# bf16: a different summation order can flip one bf16 rounding of h, which
-# then carries through the recurrence; fp32 (TF32 off) differs by order only.
+# bf16: a different summation order can flip one bf16 rounding of h (or, in
+# the backward, of dgates), which then carries through the recurrence; fp32
+# (TF32 off) differs by order only.  The backward's errors are taken
+# relative to each output's largest magnitude (gradients grow over the
+# reverse walk), the forward's are absolute (|h|, |c|, gates <~ 1).
 SEPARATE_TOL = 5e-2  # mask and peak-relative waveform error, kernel vs plain LSTM (bf16)
 ROUNDTRIP_MIN_SNR_DB = 60.0
 LATENCY_CALLS = 40  # p75 is then the highest percentile with ten calls beyond it
+TRAIN_WARM, TRAIN_STEPS = 3, 20
+# learning rate of the train phase: the JAX package's own training test's
+# (tests/test_train.py).  At the config's 1e-2 the sigmoid mask of the
+# random-weight model saturates after Adam's first step (measured on the
+# card: grad norm 27 at the first step, 4e-6 by the fifth), so the loss
+# could not show that training moves it.
+TRAIN_LR = 1e-3
+# one train step through the kernels vs through the plain LSTM versions, bf16
+# model: the forward's bf16 roundings that fall the other way (mask error
+# ~5e-4 in serving) and the backward's move loss, grad_norm and gradients
+TRAIN_TOL = {"loss_rel": 5e-3, "grad_norm_rel": 2e-2, "lstm_grad_peak_rel": 5e-2}
+TRAIN_LAUNCHES = {  # kernel launches per train step, by batch
+    2: {"lstm_fwd": 2, "bilstm_fwd": 0, "lstm_bwd": 2, "bilstm_bwd": 0},
+    8: {"lstm_fwd": 0, "bilstm_fwd": 1, "lstm_bwd": 0, "bilstm_bwd": 1},
+}
+REPLACES = {
+    "lstm_fwd": "voicesplit_tpu/ops/lstm_pallas.py:71",
+    "bilstm_fwd": "voicesplit_tpu/ops/lstm_pallas.py:251",
+    "lstm_bwd": "voicesplit_tpu/ops/lstm_pallas.py:135",
+    "bilstm_bwd": "voicesplit_tpu/ops/lstm_pallas.py:317",
+}
+SOURCES = {
+    "lstm_fwd": "voicesplit_tpu_torch/csrc/lstm_fwd.cu",
+    "bilstm_fwd": "voicesplit_tpu_torch/csrc/lstm_fwd.cu",
+    "lstm_bwd": "voicesplit_tpu_torch/csrc/lstm_bwd.cu",
+    "bilstm_bwd": "voicesplit_tpu_torch/csrc/lstm_bwd.cu",
+}
 
 
 def emit(phase: str, **fields) -> None:
@@ -103,6 +152,31 @@ def lstm_bound(directions: int, batch: int, dtype: str) -> dict:
     }
 
 
+def lstm_bwd_bound(directions: int, batch: int, dtype: str) -> dict:
+    """The same for the backward: W_hh, gates, cs, hs, dhs (and h0, c0, dhf,
+    dcf for one direction) read once, dxp, dW_hh (and dh0, dc0) written
+    once, and both products (dh_prev and dW_hh) at the operand type's peak."""
+    T, H, R = T_FRAMES, HIDDEN, directions * batch
+    op_bytes = 2 if dtype == "bfloat16" else 4
+    bytes_ = (
+        directions * H * 4 * H * op_bytes  # W_hh
+        + T * R * 4 * H * 4  # gates
+        + 3 * T * R * H * 4  # cs, hs, dhs
+        + (6 * R * H * 4 if directions == 1 else 0)  # h0, c0, dhf, dcf, dh0, dc0
+        + T * R * 4 * H * op_bytes  # dxp
+        + directions * H * 4 * H * 4  # dW_hh
+    )
+    flops = 2 * 2 * T * R * H * 4 * H
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return {
+        "bytes": bytes_,
+        "flops": flops,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+
+
 def phase_device(torch) -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -123,8 +197,11 @@ def phase_build(torch, lstm_cuda) -> None:
     lib, log = lstm_cuda.build()
     seconds = time.perf_counter() - t0
     grids = {
-        f"{name}_{dt}": lstm_cuda.launch_config(d, b, HIDDEN, getattr(torch, dt))
-        for name, d, b in (("lstm_fwd", 1, 1), ("bilstm_fwd", 2, 8))
+        f"{name}_{dt}": lstm_cuda.launch_config(d, b, HIDDEN, getattr(torch, dt), bwd)
+        for name, d, b, bwd in (
+            ("lstm_fwd", 1, 1, False), ("bilstm_fwd", 2, 8, False),
+            ("lstm_bwd", 1, 2, True), ("bilstm_bwd", 2, 8, True),
+        )
         for dt in ("bfloat16", "float32")
     }
     ptxas = [l.strip() for l in log.splitlines() if "ptxas" in l or "Used" in l or "spill" in l]
@@ -190,6 +267,69 @@ def phase_kernels(torch, lstm_cuda, seed: int) -> dict:
     return results
 
 
+def phase_bwd_kernels(torch, lstm_cuda, seed: int) -> dict:
+    """Backward kernels vs their plain versions on the card, both operand
+    types, on the forward's outputs for random inputs and random
+    cotangents; times at the training path's operand type (bf16)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(seed + 1)
+    T, H = T_FRAMES, HIDDEN
+    s = H ** -0.5
+    results = {}
+    for name, directions, batch in (("lstm_bwd", 1, 2), ("bilstm_bwd", 2, 8)):
+        R = directions * batch
+        xp32 = torch.randn(T, R, 4 * H, generator=g)
+        ws32 = [torch.empty(H, 4 * H).uniform_(-s, s, generator=g) for _ in range(directions)]
+        states = [torch.randn(R, H, generator=g).to(dev) for _ in range(4)]  # h0 c0 dhf dcf
+        dhs = torch.randn(T, R, H, generator=g).to(dev)
+        entry = {}
+        for dt in ("bfloat16", "float32"):
+            dtype = getattr(torch, dt)
+            xp = xp32.to(dev, dtype)
+            ws = [w.to(dev, dtype) for w in ws32]
+            with torch.inference_mode():
+                if directions == 1:
+                    hs, cs, gates = lstm_cuda.lstm_fwd_ref(xp, ws[0], *states[:2])
+                    args = (ws[0], gates, cs, hs, *states[:2], dhs, *states[2:], dtype)
+                    outs = ("dxp", "dwhh", "dh0", "dc0")
+                    kernel, plain = lstm_cuda.lstm_bwd, lstm_cuda.lstm_bwd_ref
+                else:
+                    hs, cs, gates = lstm_cuda.bilstm_fwd_ref(xp, ws[0], ws[1])
+                    args = (ws[0], ws[1], gates, cs, hs, dhs, dtype)
+                    outs = ("dxp", "dwhh_f", "dwhh_b")
+                    kernel, plain = lstm_cuda.bilstm_bwd, lstm_cuda.bilstm_bwd_ref
+                got = kernel(*args)
+                want = plain(*args)
+                torch.cuda.synchronize()
+            errs, rel = {}, {}
+            for k, a, b in zip(outs, got, want):
+                errs[k] = (a.float() - b.float()).abs().max().item()
+                rel[k] = errs[k] / b.float().abs().max().item()
+            finite = all(torch.isfinite(a).all().item() for a in got)
+            err = max(rel.values())
+            entry[dt] = {"max_abs_err": max(errs.values()), "max_peak_rel_err": err,
+                         "errors": errs, "peak_rel_errors": rel, "tol_peak_rel": TOL[dt]}
+            check(finite, f"{name} {dt}: non-finite output")
+            check(err <= TOL[dt], f"{name} {dt}: peak-relative err {err} > {TOL[dt]}")
+            with torch.inference_mode():
+                entry[dt]["ms"] = time_ms(torch, lambda: kernel(*args), iters=20)
+                entry[dt]["plain_ms"] = time_ms(torch, lambda: plain(*args), iters=3, warmup=1)
+        # yardstick: .backward() alone of a cuDNN LSTM over the model's LSTM
+        # input (it also computes the input projection's gradients)
+        lstm = torch.nn.LSTM(IN_FEATURES, H, batch_first=True, bidirectional=directions == 2)
+        lstm = lstm.to(dev, torch.bfloat16)
+        x = torch.randn(batch, T, IN_FEATURES, generator=g).to(dev, torch.bfloat16)
+        x.requires_grad_(True)
+        out, _ = lstm(x)
+        cot = torch.randn_like(out)
+        library_ms = time_ms(torch, lambda: out.backward(cot, retain_graph=True), iters=20)
+        results[name] = {"bf16": entry["bfloat16"], "fp32": entry["float32"],
+                         "library_ms": library_ms, **lstm_bwd_bound(directions, batch, "bfloat16")}
+        emit("kernels", kernel=name, batch=batch, T=T, H=H,
+             bound_fp32=lstm_bwd_bound(directions, batch, "float32"), **results[name])
+    return results
+
+
 def synthetic_batch(seed: int, batch: int, n: int, sr: int, emb_dim: int):
     """Two harmonic 'voices' plus noise per item, and unit-norm d-vectors."""
     rng = np.random.default_rng(seed)
@@ -209,17 +349,22 @@ def synthetic_batch(seed: int, batch: int, n: int, sr: int, emb_dim: int):
 
 
 class _PlainLSTM:
-    """Routes the model's LSTM calls to the plain versions while active."""
+    """Routes the kernel launches of `lstm_cuda` (forward and autograd
+    backward) to the plain versions on the card while active."""
+
+    NAMES = ("lstm_fwd", "bilstm_fwd", "lstm_bwd", "bilstm_bwd")
 
     def __init__(self, lstm_cuda):
         self.m = lstm_cuda
 
     def __enter__(self):
-        self.saved = (self.m.lstm_fwd, self.m.bilstm_fwd)
-        self.m.lstm_fwd, self.m.bilstm_fwd = self.m.lstm_fwd_ref, self.m.bilstm_fwd_ref
+        self.saved = {n: getattr(self.m, f"_launch_{n}") for n in self.NAMES}
+        for n in self.NAMES:
+            setattr(self.m, f"_launch_{n}", getattr(self.m, f"{n}_ref"))
 
     def __exit__(self, *exc):
-        self.m.lstm_fwd, self.m.bilstm_fwd = self.saved
+        for n, fn in self.saved.items():
+            setattr(self.m, f"_launch_{n}", fn)
 
 
 def phase_separate(torch, lstm_cuda, seed: int, profile_dir) -> dict:
@@ -289,6 +434,137 @@ def phase_separate(torch, lstm_cuda, seed: int, profile_dir) -> dict:
     return launches
 
 
+def train_batch(seed: int, batch: int, n: int, sr: int, emb_dim: int) -> dict:
+    """Target = one synthetic voice, mixture = target + another voice."""
+    target, emb = synthetic_batch(seed, batch, n, sr, emb_dim)
+    other, _ = synthetic_batch(seed + 1000, batch, n, sr, emb_dim)
+    return {"mixed_wav": target + other, "target_wav": target, "emb": emb,
+            "wav_len": np.full((batch,), n, np.int32)}
+
+
+def _snapshot(model, optimizer, state):
+    return ({k: v.detach().clone() for k, v in model.state_dict().items()},
+            copy.deepcopy(optimizer.state_dict()), state.step)
+
+
+def _restore(model, optimizer, state, snap) -> None:
+    model.load_state_dict(snap[0])
+    optimizer.load_state_dict(snap[1])
+    state.step = snap[2]
+
+
+def _lstm_grads(model) -> dict:
+    return {k: p.grad.detach().float().clone() for k, p in model.lstm.named_parameters()}
+
+
+def phase_train(torch, lstm_cuda, seed: int, profile_dir) -> dict:
+    from voicesplit_tpu_torch import weights
+    from voicesplit_tpu_torch.config import load_config
+    from voicesplit_tpu_torch.dsp.processor import make_audio_processor
+    from voicesplit_tpu_torch.models.masknet import make_masknet
+    from voicesplit_tpu_torch.train import create_train_state, make_optimizer, make_train_step
+
+    config = load_config(str(ROOT / "configs" / "voicesplit.json"))
+    config.train_config.learning_rate = TRAIN_LR
+    ap = make_audio_processor(config)
+    n = int(config.audio.audio_len * ap.sample_rate)
+    report = {"config": "configs/voicesplit.json", "loss_name": config.loss.loss_name,
+              "compute_dtype": config.train_config.compute_dtype, "learning_rate": TRAIN_LR,
+              "tolerances": TRAIN_TOL}
+    launches = {k: 0 for k in lstm_cuda.LAUNCHES}
+    for b in (2, 8):
+        model = weights.init_random_(make_masknet(config), seed)
+        optimizer = make_optimizer(config, model)
+        state = create_train_state(model, optimizer)
+        step = make_train_step(config, model, ap, optimizer)
+        batch = train_batch(seed + b, b, n, ap.sample_rate, config.model.emb_dim)
+        before = _snapshot(model, optimizer, state)
+
+        # the counted run of the training path: one step from fresh weights
+        torch.cuda.synchronize()
+        lstm_cuda.reset_launch_counts()
+        mk = step(state, batch)
+        torch.cuda.synchronize()
+        counted = dict(lstm_cuda.LAUNCHES)
+        for k, v in counted.items():
+            launches[k] += v
+        check(counted == TRAIN_LAUNCHES[b], f"B={b}: launches per step {counted}")
+        loss0, gn0 = float(mk["loss"]), float(mk["grad_norm"])
+        check(np.isfinite(loss0) and not bool(mk["loss_exploded"]), f"B={b}: loss {loss0}")
+        check(gn0 > 0 and np.isfinite(gn0), f"B={b}: grad_norm {gn0}")
+        unmoved = [k for k, v in model.state_dict().items() if torch.equal(v, before[0][k])]
+        check(not unmoved, f"B={b}: unchanged after a step: {unmoved}")
+
+        # the same step from the same weights through the plain versions
+        gk = _lstm_grads(model)
+        _restore(model, optimizer, state, before)
+        with _PlainLSTM(lstm_cuda):
+            mp = step(state, batch)
+        gp = _lstm_grads(model)
+        vs_plain = {
+            "loss_rel": abs(loss0 - float(mp["loss"])) / abs(float(mp["loss"])),
+            "grad_norm_rel": abs(gn0 - float(mp["grad_norm"])) / float(mp["grad_norm"]),
+            "lstm_grad_peak_rel": {
+                k: ((gk[k] - gp[k]).abs().max() / gp[k].abs().max()).item() for k in gk
+            },
+        }
+        for k, tol in TRAIN_TOL.items():
+            err = vs_plain[k]
+            err = max(err.values()) if isinstance(err, dict) else err
+            check(err <= tol, f"B={b}: kernels vs plain {k} {err} > {tol}")
+
+        # steady state: synchronized steps
+        for _ in range(TRAIN_WARM):
+            step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, metrics = [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            metrics.append(step(state, batch))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        losses = [float(m["loss"]) for m in metrics]
+        grad_norms = [float(m["grad_norm"]) for m in metrics]
+        check(all(np.isfinite(losses)), f"B={b}: non-finite loss in {losses}")
+        check(losses[-1] < loss0, f"B={b}: loss did not fall on a fixed batch: {loss0} -> {losses}")
+        p50, p75 = (float(np.percentile(times, q)) for q in (50, 75))
+        report[f"B{b}"] = {
+            "launches_per_step": counted, "first_loss": loss0, "first_grad_norm": gn0,
+            "kernels_vs_plain": vs_plain, "steps": TRAIN_STEPS,
+            "step_ms_p50": p50, "step_ms_p75": p75,
+            "audio_s_per_s": b * config.audio.audio_len / (p50 / 1e3),
+            "losses": losses, "grad_norms": grad_norms,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        }
+        if profile_dir:
+            report[f"B{b}"]["profile"] = profile(
+                torch, profile_dir, f"train_B{b}", lambda: step(state, batch)
+            )
+        del model, optimizer, state, step
+        torch.cuda.empty_cache()
+    emit("train", device=torch.cuda.get_device_name(0), **report)
+    return launches
+
+
+# kernel-name fragments → kind, for the device time split under --profile
+KERNEL_KINDS = (
+    ("lstm kernels", ("lstm_fwd_kernel", "lstm_bwd_kernel")),
+    ("convs", ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad")),
+    ("matmuls", ("gemm", "cutlass", "nvjet", "splitk")),
+    ("optimizer", ("multi_tensor", "foreach", "adam")),
+    ("layout", ("nchw", "nhwc", "transpose", "permute", "copy")),
+)
+
+
+def kernel_kind(name: str) -> str:
+    low = name.lower()
+    for kind, frags in KERNEL_KINDS:
+        if any(f in low for f in frags):
+            return kind
+    return "elementwise and other"
+
+
 def profile(torch, out_dir, tag, fn, runs: int = 5) -> dict:
     """Kernel time by name over `runs` calls (torch.profiler), written to
     out_dir; returns the device's busy share of the profiled wall time
@@ -311,11 +587,14 @@ def profile(torch, out_dir, tag, fn, runs: int = 5) -> dict:
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=30)
     (out / f"{tag}.txt").write_text(table)
     prof.export_chrome_trace(str(out / f"{tag}.json"))
-    kernel_ms = sum(
-        e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA
-    ) / 1e3
+    split: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kind = kernel_kind(e.name)
+            split[kind] = split.get(kind, 0.0) + e.time_range.elapsed_us() / 1e3 / runs
+    kernel_ms = sum(split.values()) * runs
     return {"runs": runs, "wall_ms": wall_ms, "kernel_ms": kernel_ms,
-            "idle_share": 1.0 - kernel_ms / wall_ms}
+            "idle_share": 1.0 - kernel_ms / wall_ms, "ms_per_run_by_kind": split}
 
 
 def main(argv=None) -> int:
@@ -336,19 +615,27 @@ def main(argv=None) -> int:
     smi_line = phase_device(torch)
     phase_build(torch, lstm_cuda)
     kern = phase_kernels(torch, lstm_cuda, args.seed)
-    launches = phase_separate(torch, lstm_cuda, args.seed, args.profile)
-    replaces = {"lstm_fwd": "voicesplit_tpu/ops/lstm_pallas.py:71",
-                "bilstm_fwd": "voicesplit_tpu/ops/lstm_pallas.py:251"}
+    kern.update(phase_bwd_kernels(torch, lstm_cuda, args.seed))
+    by_path = {
+        "separate": phase_separate(torch, lstm_cuda, args.seed, args.profile),
+        "train": phase_train(torch, lstm_cuda, args.seed, args.profile),
+    }
+    # each kernel's launches come from the counted run of the path it serves
+    home = {"lstm_fwd": "separate", "bilstm_fwd": "separate",
+            "lstm_bwd": "train", "bilstm_bwd": "train"}
     kernels = [
         {
-            "name": name, "route": "cuda", "source": "voicesplit_tpu_torch/csrc/lstm_fwd.cu",
-            "replaces": replaces[name], "launches": launches[name],
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": by_path[home[name]][name],
+            "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": r["bf16"]["max_abs_err"], "max_abs_err_fp32": r["fp32"]["max_abs_err"],
             "ms": r["bf16"]["ms"], "plain_ms": r["bf16"]["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         }
         for name, r in kern.items()
     ]
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} was not launched on its path")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -105,4 +105,88 @@ def test_separate_runs_through_the_kernels_on_card(batch):
     torch.cuda.synchronize()
     assert out.shape == (batch, 48000) and bool(torch.isfinite(out).all())
     want = {"lstm_fwd": 0, "bilstm_fwd": 1} if batch % 8 == 0 else {"lstm_fwd": 2, "bilstm_fwd": 0}
+    assert lstm_cuda.LAUNCHES == {**want, "lstm_bwd": 0, "bilstm_bwd": 0}  # serving: no backward
+
+
+def _backward_inputs(bidirectional, dtype, T=301, H=400, seed=0):
+    """Forward outputs of the plain version on the card, and random
+    cotangents, at the training path's shapes (B=2 one direction, B=8 two)."""
+    from voicesplit_tpu_torch.ops import lstm_cuda
+
+    g = torch.Generator().manual_seed(seed)
+    B = 8 if bidirectional else 2
+    R = 2 * B if bidirectional else B
+    dt = getattr(torch, dtype)
+    xp = torch.randn(T, R, 4 * H, generator=g).to("cuda", dt)
+    ws = [(torch.rand(H, 4 * H, generator=g) * 0.1 - 0.05).to("cuda", dt) for _ in range(2)]
+    dhs = torch.randn(T, R, H, generator=g).cuda()
+    if bidirectional:
+        hs, cs, gates = lstm_cuda.bilstm_fwd_ref(xp, ws[0], ws[1])
+        return (ws[0], ws[1], gates, cs, hs, dhs, dt)
+    h0, c0, dhf, dcf = (torch.randn(R, H, generator=g).cuda() for _ in range(4))
+    hs, cs, gates = lstm_cuda.lstm_fwd_ref(xp, ws[0], h0, c0)
+    return (ws[0], gates, cs, hs, h0, c0, dhs, dhf, dcf, dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bidirectional", [False, True])
+def test_lstm_backward_kernels_match_plain_versions_on_card(dtype, bidirectional):
+    _need_card()
+    from voicesplit_tpu_torch.ops import lstm_cuda
+
+    args = _backward_inputs(bidirectional, dtype)
+    name = "bilstm_bwd" if bidirectional else "lstm_bwd"
+    kernel = getattr(lstm_cuda, name)
+    plain = getattr(lstm_cuda, name + "_ref")
+    before = dict(lstm_cuda.LAUNCHES)
+    with torch.inference_mode():
+        got, want = kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    assert lstm_cuda.LAUNCHES[name] == before[name] + 1
+    # relative to the largest magnitude of each output: fp32 differs by
+    # summation order only; in bf16 one rounding of dgates that falls the
+    # other way carries back through the reverse walk
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        assert (a.float() - b.float()).abs().max().item() <= tol * b.float().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [2, 8])
+def test_train_step_runs_through_the_kernels_on_card(batch):
+    """Full-width `configs/voicesplit.json` train step (bf16, si_snr, Adam):
+    the LSTM's forward and backward kernels launch once per direction
+    (B=2) or once for both (B=8), the loss is finite and every parameter
+    and running statistic moves."""
+    _need_card()
+    from voicesplit_tpu_torch import weights
+    from voicesplit_tpu_torch.ops import lstm_cuda
+    from voicesplit_tpu_torch.train import create_train_state, make_optimizer, make_train_step
+
+    cfg = load_config(str(REPO / "configs" / "voicesplit.json"))
+    ap = make_audio_processor(cfg)
+    model = weights.init_random_(make_masknet(cfg), seed=0)
+    opt = make_optimizer(cfg, model)
+    state = create_train_state(model, opt)
+    rng = np.random.default_rng(0)
+    target = (0.1 * rng.standard_normal((batch, 48000))).astype(np.float32)
+    batch_ = {
+        "mixed_wav": target + (0.1 * rng.standard_normal((batch, 48000))).astype(np.float32),
+        "target_wav": target,
+        "emb": rng.standard_normal((batch, 256)).astype(np.float32),
+        "wav_len": np.full((batch,), 48000, np.int32),
+    }
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    lstm_cuda.reset_launch_counts()
+    m = make_train_step(cfg, model, ap, opt)(state, batch_)
+    torch.cuda.synchronize()
+    if batch % 8 == 0:
+        want = {"lstm_fwd": 0, "bilstm_fwd": 1, "lstm_bwd": 0, "bilstm_bwd": 1}
+    else:
+        want = {"lstm_fwd": 2, "bilstm_fwd": 0, "lstm_bwd": 2, "bilstm_bwd": 0}
     assert lstm_cuda.LAUNCHES == want
+    assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
+    for k, v in model.state_dict().items():
+        assert not torch.equal(v, before[k]), k

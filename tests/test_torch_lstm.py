@@ -1,16 +1,18 @@
-"""LSTM parity: the port's plain kernel versions and `BiLSTM` against the
-JAX package.
+"""LSTM parity: the port's plain kernel versions, their gradients and
+`BiLSTM` against the JAX package.
 
-The JAX side runs the Pallas kernels `_fwd_kernel` / `_fwd2_kernel` in
-interpret mode on the CPU (as `tests/test_pallas_lstm.py` does) through
-their launchers `_fwd` / `_fwd2` and the public `fused_lstm_scan` /
-`fused_bilstm_scan`.  Inputs are numpy arrays from a seeded generator.
+The JAX side runs the Pallas kernels `_fwd_kernel` / `_fwd2_kernel` /
+`_bwd_kernel` / `_bwd2_kernel` in interpret mode on the CPU (as
+`tests/test_pallas_lstm.py` does) through their launchers `_fwd` / `_fwd2`
+/ `_bwd` / `_bwd2` and the public `fused_lstm_scan` / `fused_bilstm_scan`
+(and their `jax.vjp`).  Inputs are numpy arrays from a seeded generator.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from voicesplit_tpu.models import lstm as jax_lstm
@@ -166,8 +168,183 @@ def test_wrappers_reject_bad_operands():
         lstm_cuda.lstm_fwd(xp.half(), w.half(), s, s)
 
 
-def test_backward_waits_for_training_slice():
+def _fwd_outputs(xp_j, w_j, h0, c0):
+    """Forward residuals of the Pallas kernel: (gates, cs, hs) time-major."""
+    hs, cs, gates = lstm_pallas._fwd(xp_j, w_j, jnp.asarray(h0), jnp.asarray(c0))
+    return gates, cs, hs
+
+
+def _t32(a):
+    return torch.from_numpy(_np(a))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lstm_bwd_ref_matches_pallas_bwd_kernel(dtype):
+    """`lstm_bwd_ref` (unshifted cs/hs, h0/c0 at t=0) against `_bwd` fed
+    the shifted copies `_fused_bwd` builds.  Tolerance as the forward's:
+    summation order only, and in bf16 both round dgates and h_prev to bf16
+    before fp32-accumulated products."""
+    rng = np.random.default_rng(10)
+    B = 3
+    xp_j, _ = _cast(_arr(rng, (T, B, 4 * H)), dtype)
+    w_j, w_t = _cast(_arr(rng, (H, 4 * H), 0.3), dtype)
+    h0, c0, dhf, dcf = (_arr(rng, (B, H)) for _ in range(4))
+    dhs = _arr(rng, (T, B, H))
+    gates, cs, hs = _fwd_outputs(xp_j, w_j, h0, c0)
+    cs_prev = jnp.concatenate([jnp.asarray(c0)[None], cs[:-1]])
+    hs_prev = jnp.concatenate([jnp.asarray(h0)[None], hs[:-1]])
+    want = lstm_pallas._bwd(
+        w_j, gates, cs_prev, hs_prev, jnp.asarray(dhs), jnp.asarray(dhf), jnp.asarray(dcf),
+        dxp_dtype=jnp.dtype(dtype),
+    )
+    got = lstm_cuda.lstm_bwd(
+        w_t, _t32(gates), _t32(cs), _t32(hs), *map(torch.from_numpy, (h0, c0, dhs, dhf, dcf)),
+        getattr(torch, dtype),
+    )
+    assert got[0].dtype == getattr(torch, dtype) and got[1].dtype == torch.float32
+    for name, a, b in zip(("dxp", "dwhh", "dh0", "dc0"), got, want):
+        np.testing.assert_allclose(a.float().numpy(), _np(b), atol=ATOL[dtype], err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bilstm_bwd_ref_matches_pallas_bwd2_kernel(dtype):
+    rng = np.random.default_rng(11)
+    B = 8
+    xp_j, _ = _cast(_arr(rng, (T, 2 * B, 4 * H)), dtype)
+    wf_j, wf_t = _cast(_arr(rng, (H, 4 * H), 0.3), dtype)
+    wb_j, wb_t = _cast(_arr(rng, (H, 4 * H), 0.3), dtype)
+    dhs = _arr(rng, (T, 2 * B, H))
+    zeros = jnp.zeros((2 * B, H), jnp.float32)
+    hs, cs, gates = lstm_pallas._fwd2(xp_j, wf_j, wb_j, zeros, zeros)
+    want = lstm_pallas._bwd2(
+        wf_j, wb_j, gates,
+        jnp.concatenate([zeros[None], cs[:-1]]), jnp.concatenate([zeros[None], hs[:-1]]),
+        jnp.asarray(dhs), dxp_dtype=jnp.dtype(dtype),
+    )
+    got = lstm_cuda.bilstm_bwd(
+        wf_t, wb_t, _t32(gates), _t32(cs), _t32(hs), torch.from_numpy(dhs), getattr(torch, dtype)
+    )
+    for name, a, b in zip(("dxp", "dwhh_f", "dwhh_b"), got, want):
+        np.testing.assert_allclose(a.float().numpy(), _np(b), atol=ATOL[dtype], err_msg=name)
+
+
+# grads through the public wrappers: fp32 summation order only; in bf16
+# dx_proj and dW_hh come back in bf16 on both sides, where a product summed
+# in another order can round to the neighbouring bf16 value (one ulp of the
+# largest elements, ~0.5, is 2e-3)
+GRAD_ATOL = {"float32": 1e-5, "bfloat16": 2e-3}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lstm_fwd_autograd_matches_jax_vjp(dtype):
+    """torch autograd through `lstm_fwd` (outputs hs and the final (h, c))
+    against `jax.vjp` of `fused_lstm_scan`: dx_proj, dW_hh, dh0, dc0."""
+    rng = np.random.default_rng(12)
+    B = 2
+    x_j, x_t = _cast(_arr(rng, (B, T, 4 * H)), dtype)
+    w_j, w_t = _cast(_arr(rng, (H, 4 * H), 0.3), dtype)
+    h0, c0 = _arr(rng, (B, H)), _arr(rng, (B, H))
+    # cotangents exactly representable in the output type
+    d_out_j, d_out_t = _cast(_arr(rng, (B, T, H)), dtype)
+    dhf_j, dhf_t = _cast(_arr(rng, (B, H)), dtype)
+    dcf_j, dcf_t = _cast(_arr(rng, (B, H)), dtype)
+    _, vjp = jax.vjp(lstm_pallas.fused_lstm_scan, x_j, w_j, jnp.asarray(h0), jnp.asarray(c0))
+    want = vjp((d_out_j, (dhf_j, dcf_j)))
+
+    x_t.requires_grad_(True), w_t.requires_grad_(True)
+    h0_t, c0_t = torch.from_numpy(h0).requires_grad_(), torch.from_numpy(c0).requires_grad_()
+    hs, cs, _ = lstm_cuda.lstm_fwd(x_t.transpose(0, 1).contiguous(), w_t, h0_t, c0_t)
+    loss = (
+        (hs.transpose(0, 1) * d_out_t.float()).sum()
+        + (hs[-1] * dhf_t.float()).sum()
+        + (cs[-1] * dcf_t.float()).sum()
+    )
+    loss.backward()
+    for name, a, b in zip(("dx_proj", "dw_hh", "dh0", "dc0"),
+                          (x_t.grad, w_t.grad, h0_t.grad, c0_t.grad), want):
+        assert a.dtype == {"dh0": torch.float32, "dc0": torch.float32}.get(name, x_t.dtype)
+        np.testing.assert_allclose(a.float().numpy(), _np(b), atol=GRAD_ATOL[dtype], err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bilstm_fwd_autograd_matches_jax_vjp(dtype):
+    """The module's two-direction layout (rows [B, 2B) time-reversed, output
+    flipped back) differentiated by torch against `jax.vjp` of
+    `fused_bilstm_scan`."""
+    rng = np.random.default_rng(13)
+    B = 8
+    xf_j, xf_t = _cast(_arr(rng, (B, T, 4 * H)), dtype)
+    xb_j, xb_t = _cast(_arr(rng, (B, T, 4 * H)), dtype)
+    wf_j, wf_t = _cast(_arr(rng, (H, 4 * H), 0.3), dtype)
+    wb_j, wb_t = _cast(_arr(rng, (H, 4 * H), 0.3), dtype)
+    df_j, df_t = _cast(_arr(rng, (B, T, H)), dtype)
+    db_j, db_t = _cast(_arr(rng, (B, T, H)), dtype)
+    _, vjp = jax.vjp(lstm_pallas.fused_bilstm_scan, xf_j, xb_j, wf_j, wb_j)
+    want = vjp((df_j, db_j))
+
+    leaves = [a.requires_grad_(True) for a in (xf_t, xb_t, wf_t, wb_t)]
+    xcat = torch.cat([xf_t.transpose(0, 1), xb_t.flip(1).transpose(0, 1)], dim=1)
+    hs, _, _ = lstm_cuda.bilstm_fwd(xcat.contiguous(), wf_t, wb_t)
+    out_f, out_b = hs[:, :B].transpose(0, 1), hs[:, B:].flip(0).transpose(0, 1)
+    ((out_f * df_t.float()).sum() + (out_b * db_t.float()).sum()).backward()
+    for name, a, b in zip(("dxp_f", "dxp_b", "dw_f", "dw_b"), (t.grad for t in leaves), want):
+        np.testing.assert_allclose(a.float().numpy(), _np(b), atol=GRAD_ATOL[dtype], err_msg=name)
+
+
+@pytest.mark.parametrize("B", [2, 8])
+def test_bilstm_module_grads_match_jax(B):
+    """`BiLSTM` parameter and input grads (both dispatch paths) against
+    `jax.grad` of the JAX module (fp32; its CPU path is `lax.scan`)."""
+    rng = np.random.default_rng(14)
+    F = 10
+    params = _bilstm_params(rng, F)
+    x, cot = _arr(rng, (B, T, F)), _arr(rng, (B, T, 2 * H))
+    jm = jax_lstm.BiLSTM(H, use_pallas=False)
+
+    def loss(p, xx):
+        return jnp.sum(jm.apply({"params": p}, xx) * cot)
+
+    gp, gx = jax.grad(loss, argnums=(0, 1))(params, jnp.asarray(x))
+    m = BiLSTM(F, H)
+    m.load_state_dict({k: torch.from_numpy(v) for k, v in params.items()})
+    x_t = torch.from_numpy(x).requires_grad_()
+    (m(x_t) * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(x_t.grad.numpy(), _np(gx), atol=1e-5)
+    for k, p in m.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), _np(gp[k]), atol=1e-5, err_msg=k)
+
+
+def test_nothing_is_saved_without_grad():
     xp = torch.zeros(T, 2, 4 * H, requires_grad=True)
-    hs, _, _ = lstm_cuda.lstm_fwd(xp, torch.zeros(H, 4 * H), torch.zeros(2, H), torch.zeros(2, H))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        hs.sum().backward()
+    args = (torch.zeros(H, 4 * H), torch.zeros(2, H), torch.zeros(2, H))
+    with torch.inference_mode():
+        hs, _, _ = lstm_cuda.lstm_fwd(xp, *args)
+    assert hs.grad_fn is None
+    hs, _, _ = lstm_cuda.lstm_fwd(xp, *args)
+    assert len(hs.grad_fn.saved_tensors) == 6
+
+
+def test_cs_before_the_last_step_is_not_differentiable():
+    xp = torch.zeros(T, 2, 4 * H, requires_grad=True)
+    _, cs, _ = lstm_cuda.lstm_fwd(xp, torch.zeros(H, 4 * H), torch.zeros(2, H), torch.zeros(2, H))
+    with pytest.raises(NotImplementedError, match="last step"):
+        cs[0].sum().backward()
+
+
+def test_backward_wrappers_reject_bad_operands():
+    R = 2
+    w = torch.zeros(H, 4 * H)
+    gates, seq, s = torch.zeros(T, R, 4 * H), torch.zeros(T, R, H), torch.zeros(R, H)
+    good = (w, gates, seq, seq, s, s, seq, s, s, torch.float32)
+    lstm_cuda.lstm_bwd(*good)
+    with pytest.raises(ValueError):
+        lstm_cuda.lstm_bwd(w.to(torch.bfloat16).t(), *good[1:])  # W_hh shape
+    with pytest.raises(ValueError):
+        lstm_cuda.lstm_bwd(w, gates.double(), *good[2:])  # gates not fp32
+    with pytest.raises(ValueError):
+        lstm_cuda.lstm_bwd(*good[:4], torch.zeros(3, H), *good[5:])  # h0 rows
+    with pytest.raises(TypeError):
+        lstm_cuda.lstm_bwd(*good[:-1], torch.float16)
+    with pytest.raises(ValueError):
+        lstm_cuda.bilstm_bwd(w, w, torch.zeros(T, 3, 4 * H), *([torch.zeros(T, 3, H)] * 3),
+                             torch.float32)  # odd row count

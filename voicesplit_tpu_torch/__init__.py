@@ -2,8 +2,10 @@
 
 The JAX package `voicesplit_tpu` stays the reference; this package imports
 nothing of it, nor JAX.  Ported so far: the serving path (spectrogram →
-eval-mode mask network → mixed-phase iSTFT), with the BiLSTM recurrence in
-hand-written CUDA kernels (`ops/lstm_cuda.py`, `csrc/lstm_fwd.cu`).
+eval-mode mask network → mixed-phase iSTFT) and the training step
+(`train/`: train-mode mask network, losses, Adam), with the BiLSTM
+recurrence and its backward in hand-written CUDA kernels
+(`ops/lstm_cuda.py`, `csrc/lstm_fwd.cu`, `csrc/lstm_bwd.cu`).
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``, where the kernels' plain PyTorch versions run instead.

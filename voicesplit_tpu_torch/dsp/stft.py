@@ -38,6 +38,14 @@ def num_frames(n_samples: int, n_fft: int, hop_length: int, center: bool = True)
     return 1 + (n_samples - n_fft) // hop_length
 
 
+def _constant(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A cached constant tensor.  Made outside inference mode even when the
+    first call comes from it, so that autograd (a train step) may use it
+    later."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(a).to(device)
+
+
 @lru_cache(maxsize=16)
 def _stft_basis(
     n_fft: int, win_length: int, window: str, device: torch.device
@@ -50,7 +58,7 @@ def _stft_basis(
     ang = 2.0 * np.pi * f * n / n_fft
     cos_b = (np.cos(ang) * w[:, None]).astype(np.float32)
     sin_b = (-np.sin(ang) * w[:, None]).astype(np.float32)
-    return torch.from_numpy(cos_b).to(device), torch.from_numpy(sin_b).to(device)
+    return _constant(cos_b, device), _constant(sin_b, device)
 
 
 @lru_cache(maxsize=16)
@@ -70,7 +78,7 @@ def _istft_basis(
         coef[-1, 0] = 1.0
     cos_i = (coef * np.cos(ang) / n_fft * w[None, :]).astype(np.float32)
     sin_i = (-coef * np.sin(ang) / n_fft * w[None, :]).astype(np.float32)
-    return torch.from_numpy(cos_i).to(device), torch.from_numpy(sin_i).to(device)
+    return _constant(cos_i, device), _constant(sin_i, device)
 
 
 @lru_cache(maxsize=None)
@@ -97,7 +105,7 @@ def _inverse_envelope(
     window: str, periodic: Optional[bool], device: torch.device,
 ) -> torch.Tensor:
     env = window_sumsquare(n_frames, n_fft, hop_length, win_length, window, periodic)
-    return torch.from_numpy(np.where(env > _TINY, env, 1.0).astype(np.float32)).to(device)
+    return _constant(np.where(env > _TINY, env, 1.0).astype(np.float32), device)
 
 
 def frame_signal(

@@ -1,1 +1,1 @@
-"""Eval-mode mask network and its BiLSTM."""
+"""The mask network (train and eval mode) and its BiLSTM."""

@@ -8,6 +8,8 @@ Parameters keep the JAX layout and names, ``{fwd,bwd}_w_ih [in, 4H]``,
 ``_w_hh [H, 4H]`` and ``_b [4H]``, gate order ``[i, f, g, o]``, so weights
 carry across from a JAX checkpoint unpermuted.
 
+Gradients reach ``{fwd,bwd}_{w_ih,w_hh,b}`` through the projection matmul
+and the kernels' autograd backward (`lstm_bwd` / `bilstm_bwd`).
 `UniLSTM` and the streaming carry are not ported yet.
 """
 

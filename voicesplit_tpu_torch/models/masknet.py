@@ -1,10 +1,10 @@
-"""The spectrogram-mask network in eval mode (PyTorch counterpart of
+"""The spectrogram-mask network (PyTorch counterpart of
 `voicesplit_tpu/models/masknet.py`).
 
     spec [B, T, F] → [B, 1, T, F] (NCHW: time is H, frequency is W)
       conv1 1×7, conv2 7×1, then 5×5 with time dilation 1/2/4/8/16,
-      64 channels, BatchNorm (running statistics) + activation each,
-      symmetric "same" zero padding
+      64 channels, BatchNorm + activation each, symmetric "same" zero
+      padding
     1×1 conv → 8 channels → [B, T, 8F], frequency-major (index f·C + c)
     concat the d-vector per frame → [B, T, 8F + emb]
     BiLSTM(→ 2×400) → ReLU → fc1(600) → ReLU → fc2(601) → sigmoid (fp32)
@@ -15,8 +15,17 @@ JAX model flattens ``[B, T, F, 8]`` frequency-major (`masknet.py:495-506`);
 this port permutes its NCHW conv output to ``[B, T, F, 8]`` before the
 flatten, so the LSTM's ``w_ih`` rows line up with a JAX checkpoint's.
 
-Not ported yet: train mode, dropout, causal convs, extra dilated blocks
-and the streaming (unidirectional) model.
+``model.train()`` selects train mode, as ``train=True`` does in JAX: each
+BatchNorm normalizes with the batch's statistics (`ops.bn_act.bn_act_train`)
+and moves its running statistics as flax does,
+``r ← 0.9·r + 0.1·batch`` with the biased variance and no gradient
+(``torch.nn.functional.batch_norm`` would use the unbiased variance).
+``model.eval()`` uses the running statistics.
+
+Dropout acts only in train mode, so a config with ``dropout > 0`` builds
+and serves; its train step is not ported yet (`train.make_train_step`
+raises).  Not ported yet: causal convs, extra dilated blocks and the
+streaming (unidirectional) model.
 """
 
 from __future__ import annotations
@@ -29,12 +38,16 @@ from torch import nn
 from voicesplit_tpu_torch.config import Config
 from voicesplit_tpu_torch.device import DeviceLike, resolve_device
 from voicesplit_tpu_torch.models.lstm import BiLSTM
-from voicesplit_tpu_torch.ops.bn_act import bn_act_eval, mish
+from voicesplit_tpu_torch.ops.bn_act import bn_act_eval, bn_act_train, mish
 
 __all__ = ["BatchNorm", "ConvBlock", "MaskNet", "make_masknet", "mish"]
 
 # (kernel (time, freq), dilation (time, freq)) of the seven 64-channel
 # layers (reference `models/voicefilter/model.py:17-54`)
+# flax's BatchNorm momentum (`voicesplit_tpu/models/masknet.py`):
+# r ← m·r + (1 − m)·batch
+_BN_MOMENTUM = 0.9
+
 CONV_SPECS: List[Tuple[Tuple[int, int], Tuple[int, int]]] = [
     ((1, 7), (1, 1)),
     ((7, 1), (1, 1)),
@@ -58,9 +71,16 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """flax's momentum update with the batch's biased statistics."""
+        m = _BN_MOMENTUM
+        self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+        self.var.copy_(m * self.var + (1.0 - m) * var)
+
 
 class ConvBlock(nn.Module):
-    """"Same" Conv2D → BatchNorm (running statistics) → activation."""
+    """"Same" Conv2D → BatchNorm → activation."""
 
     def __init__(
         self,
@@ -88,11 +108,15 @@ class ConvBlock(nn.Module):
             x.to(cd), c.weight.to(cd), c.bias.to(cd), padding=c.padding, dilation=c.dilation
         )
         bn = self.bn
+        if self.training:
+            y, mean, var = bn_act_train(y, bn.scale, bn.bias, self.activation, bn.epsilon)
+            bn.update_running(mean, var)
+            return y
         return bn_act_eval(y, bn.scale, bn.bias, bn.mean, bn.var, self.activation, bn.epsilon)
 
 
 class MaskNet(nn.Module):
-    """Speaker-conditioned soft-mask network, eval mode."""
+    """Speaker-conditioned soft-mask network (train or eval mode)."""
 
     def __init__(
         self,
@@ -148,12 +172,11 @@ class MaskNet(nn.Module):
 
 def make_masknet(config: Config, device: DeviceLike = None) -> MaskNet:
     """Build the model selected by ``config.model_name`` ("voicefilter" ⇒
-    relu, "voicesplit" ⇒ mish) on `device` (the CUDA card by default)."""
+    relu, "voicesplit" ⇒ mish) on `device` (the CUDA card by default), in
+    eval mode."""
     m = config.model
     if m.num_extra_dilated_blocks or m.causal:
-        raise NotImplementedError(
-            "extra dilated blocks and causal convs are not yet ported"
-        )
+        raise NotImplementedError("extra dilated blocks and causal convs are not yet ported")
     dev = resolve_device(device)
     model = MaskNet(
         num_freq=config.audio.active.num_freq,

@@ -1,1 +1,1 @@
-"""Serving-path operators: eval BatchNorm+activation and the LSTM kernels."""
+"""Operators: BatchNorm+activation (eval and train) and the LSTM kernels."""

@@ -1,21 +1,28 @@
-"""Forward LSTM recurrence kernels (CUDA, `csrc/lstm_fwd.cu`) and their
-plain PyTorch versions.
+"""LSTM recurrence kernels (CUDA, `csrc/`) and their plain PyTorch versions.
 
-``lstm_fwd`` replaces `voicesplit_tpu/ops/lstm_pallas.py::_fwd_kernel` (one
-direction from a given ``(h0, c0)``) and ``bilstm_fwd`` replaces
-``_fwd2_kernel`` (both directions in one pass, zero initial state).  Both
-take time-major inputs and return ``(hs, cs, gates)`` in float32, like the
-Pallas kernels; the source's header says how the kernel is laid out and
-what bounds it.
+Forward (`csrc/lstm_fwd.cu`): ``lstm_fwd`` replaces
+`voicesplit_tpu/ops/lstm_pallas.py::_fwd_kernel` (one direction from a
+given ``(h0, c0)``) and ``bilstm_fwd`` replaces ``_fwd2_kernel`` (both
+directions in one pass, zero initial state).  Both take time-major inputs
+and return ``(hs, cs, gates)`` in float32, like the Pallas kernels.
+
+Backward (`csrc/lstm_bwd.cu`): ``lstm_bwd`` replaces ``_bwd_kernel`` and
+``bilstm_bwd`` replaces ``_bwd2_kernel``: the reverse walk that gives
+``dxp`` (in the type of x), ``dW_hh`` (float32) and, for one direction,
+``dh0, dc0``.  They read ``hs[t-1]`` and ``cs[t-1]`` in place, where the
+JAX wrappers build shifted copies.  Each source's header says how the
+kernel is laid out and what bounds it.
 
 Dispatch: a CUDA tensor goes to the kernel, or the call raises; the plain
-versions (``lstm_fwd_ref``, ``bilstm_fwd_ref``) run only for tensors on the
-CPU.  Each wrapper adds one to ``LAUNCHES[name]`` per kernel launch.
+versions (``*_ref``) run only for tensors on the CPU.  Each kernel launch
+adds one to ``LAUNCHES[name]``.  ``lstm_fwd`` / ``bilstm_fwd`` are
+differentiable: their autograd backward runs ``lstm_bwd`` / ``bilstm_bwd``
+on the same dispatch rule.
 
 The kernels are compiled by ``nvcc`` for ``sm_90a`` into ``build/`` at the
-repository root on first use, from the source in the checkout, and loaded
-with ``ctypes``.  The backward kernels come with the training slice: until
-then the autograd backward raises.
+repository root on first use, from every source under ``csrc/`` (one
+``nvcc`` per source, all at once, then one link), and loaded with
+``ctypes``.
 """
 
 from __future__ import annotations
@@ -30,15 +37,14 @@ from typing import Optional, Tuple
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "lstm_fwd.cu"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = (*ARCH, "-shared")
 
 # kernel launches per wrapper, for showing that a run went through them
-LAUNCHES = {"lstm_fwd": 0, "bilstm_fwd": 0}
+LAUNCHES = {"lstm_fwd": 0, "bilstm_fwd": 0, "lstm_bwd": 0, "bilstm_bwd": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -59,25 +65,51 @@ def _nvcc() -> str:
 
 
 def build() -> Tuple[Path, str]:
-    """Compile the kernels if the source changed; returns ``(library, log)``.
+    """Compile the kernels if any source changed; returns ``(library, log)``.
 
-    The log holds ``ptxas -v`` (registers, shared memory, spills) of a fresh
-    build and is empty when an up-to-date library was found.
+    Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all
+    started together, and the objects are linked into one library named
+    by a hash of all sources and flags.  The log holds ``ptxas -v``
+    (registers, shared memory, spills) of a fresh build and is empty when
+    an up-to-date library was found.
     """
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"liblstm_fwd-{digest[:16]}.so"
+    srcs = sorted(CSRC.glob("*.cu"))
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    for src in srcs:
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    digest = h.hexdigest()[:16]
+    lib = BUILD_DIR / f"liblstm-{digest}.so"
     if lib.exists():
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{digest}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{src.stem}-{tag}.o" for src in srcs]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for src, obj in zip(srcs, objs)
+    ]
+    logs = []
+    for src, proc in zip(srcs, procs):
+        out, _ = proc.communicate()
+        logs.append(f"[{src.name}]\n{out}")
+        if proc.returncode != 0:
+            for p in procs:
+                p.wait()
+            raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{out}")
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
+    link = subprocess.run(
+        [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)], capture_output=True, text=True
     )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}{link.stderr}")
     os.replace(tmp, lib)  # atomic: a process building at the same time never loads half a file
-    return lib, proc.stdout + proc.stderr
+    return lib, "".join(logs) + link.stdout + link.stderr
 
 
 def _library() -> ctypes.CDLL:
@@ -86,14 +118,19 @@ def _library() -> ctypes.CDLL:
         path, _ = build()
         lib = ctypes.CDLL(str(path))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.lstm_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
-        lib.lstm_fwd.restype = i
-        lib.bilstm_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
-        lib.bilstm_fwd.restype = i
-        lib.lstm_launch_config.argtypes = [
-            i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(i), ctypes.POINTER(ctypes.c_longlong),
-        ]
-        lib.lstm_launch_config.restype = i
+        signatures = {
+            "lstm_fwd": [p] * 7 + [i] * 4 + [p],
+            "bilstm_fwd": [p] * 6 + [i] * 4 + [p],
+            "lstm_bwd": [p] * 13 + [i] * 4 + [p],
+            "bilstm_bwd": [p] * 9 + [i] * 4 + [p],
+        }
+        for name, argtypes in signatures.items():
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = i
+        out = [ctypes.POINTER(i), ctypes.POINTER(i), ctypes.POINTER(ctypes.c_longlong)]
+        for name in ("lstm_launch_config", "lstm_bwd_launch_config"):
+            getattr(lib, name).argtypes = [i, i, i, i, *out]
+            getattr(lib, name).restype = i
         lib.lstm_error_string.argtypes = [i]
         lib.lstm_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -106,15 +143,18 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel failed: CUDA error {err} ({msg})")
 
 
-def launch_config(directions: int, batch: int, hidden: int, dtype: torch.dtype) -> dict:
-    """Grid the kernel uses on the current card: blocks, hidden units per
+def launch_config(
+    directions: int, batch: int, hidden: int, dtype: torch.dtype, backward: bool
+) -> dict:
+    """Grid a kernel uses on the current card: blocks, hidden units per
     block and dynamic shared memory bytes."""
     blocks, units, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
-    err = _library().lstm_launch_config(
+    fn = _library().lstm_bwd_launch_config if backward else _library().lstm_launch_config
+    err = fn(
         directions, batch, hidden, int(dtype == torch.bfloat16),
         ctypes.byref(blocks), ctypes.byref(units), ctypes.byref(smem),
     )
-    _raise_on(err, "lstm_launch_config")
+    _raise_on(err, "launch_config")
     return {"blocks": blocks.value, "units": units.value, "smem_bytes": smem.value}
 
 
@@ -166,9 +206,89 @@ def bilstm_fwd_ref(xp, whh_f, whh_b):
     return torch.stack(hs), torch.stack(cs), torch.stack(gates)
 
 
+def _bwd_ref(ws, gates, cs, hs, h0, c0, dhs, dhf, dcf, x_dtype):
+    """The reverse walk of `_bwd_kernel` / `_bwd2_kernel` for D = len(ws)
+    directions of B = R / D rows each (row block d uses ``ws[d]``)."""
+    T, R, G = gates.shape
+    H = G // 4
+    D = len(ws)
+    B = R // D
+    op = ws[0].dtype
+    wf = [w.float() for w in ws]
+    dws = [torch.zeros(H, G, dtype=torch.float32, device=gates.device) for _ in ws]
+    dxp = torch.empty(T, R, G, dtype=x_dtype, device=gates.device)
+    dh_carry, dc_carry = dhf.float(), dcf.float()
+    for t in range(T - 1, -1, -1):
+        i, f, g, o = gates[t].split(H, dim=-1)
+        c_prev = cs[t - 1] if t else c0.float()
+        h_prev = hs[t - 1] if t else h0.float()
+        tc = torch.tanh(f * c_prev + i * g)
+        dh = dhs[t] + dh_carry
+        do = dh * tc
+        dct = dh * o * (1.0 - tc * tc) + dc_carry
+        dc_carry = dct * f
+        dgates = torch.cat(
+            [dct * g * i * (1.0 - i), dct * c_prev * f * (1.0 - f),
+             dct * i * (1.0 - g * g), do * o * (1.0 - o)],
+            dim=-1,
+        )
+        dxp[t] = dgates.to(x_dtype)
+        # the products take dgates and h_prev rounded to W_hh's type and
+        # accumulate in fp32, as the Pallas kernels' matrix products do
+        dgr = dgates.to(op).float()
+        hr = h_prev.to(op).float()
+        rows = [slice(d * B, (d + 1) * B) for d in range(D)]
+        dh_carry = torch.cat([dgr[r] @ w.t() for r, w in zip(rows, wf)], dim=0)
+        for r, dw in zip(rows, dws):
+            dw += hr[r].t() @ dgr[r]
+    return dxp, dws, dh_carry, dc_carry
+
+
+def lstm_bwd_ref(whh, gates, cs, hs, h0, c0, dhs, dhf, dcf, x_dtype):
+    """Backward of `lstm_fwd_ref` (`_bwd_kernel`): ``gates [T, B, 4H]``,
+    ``cs, hs, dhs [T, B, H]`` fp32 (unshifted: step t reads ``[t-1]``, or
+    ``h0, c0`` at t = 0), final-state cotangents ``dhf, dcf [B, H]`` →
+    ``dxp [T, B, 4H]`` in `x_dtype`, ``dwhh [H, 4H]`` fp32, ``dh0, dc0``."""
+    dxp, (dw,), dh0, dc0 = _bwd_ref((whh,), gates, cs, hs, h0, c0, dhs, dhf, dcf, x_dtype)
+    return dxp, dw, dh0, dc0
+
+
+def bilstm_bwd_ref(whh_f, whh_b, gates, cs, hs, dhs, x_dtype):
+    """Backward of `bilstm_fwd_ref` (`_bwd2_kernel`), zero initial state and
+    no final-state cotangent → ``dxp [T, 2B, 4H]`` in `x_dtype`,
+    ``dwhh_f, dwhh_b [H, 4H]`` fp32."""
+    R, H = hs.shape[1:]
+    zeros = torch.zeros(R, H, dtype=torch.float32, device=hs.device)
+    dxp, (dwf, dwb), _, _ = _bwd_ref(
+        (whh_f, whh_b), gates, cs, hs, zeros, zeros, dhs, zeros, zeros, x_dtype
+    )
+    return dxp, dwf, dwb
+
+
 # ---------------------------------------------------------------------------
-# Kernel launches
+# Checks and kernel launches
 # ---------------------------------------------------------------------------
+
+
+def _same_device_contiguous(tensors) -> None:
+    dev = tensors[0].device
+    for a in tensors:
+        if a.device != dev:
+            raise ValueError("all operands must be on one device")
+        if not a.is_contiguous():
+            raise ValueError("operands must be contiguous")
+
+
+def _check_weights(weights, dtype: torch.dtype, H: int) -> None:
+    for w in weights:
+        if w.dtype != dtype or tuple(w.shape) != (H, 4 * H):
+            raise ValueError(f"W_hh must be [{H}, {4 * H}] {dtype}, got {tuple(w.shape)} {w.dtype}")
+
+
+def _check_fp32(tensors, shape) -> None:
+    for s in tensors:
+        if s.dtype != torch.float32 or tuple(s.shape) != tuple(shape):
+            raise ValueError(f"expected {list(shape)} fp32, got {tuple(s.shape)} {s.dtype}")
 
 
 def _check(xp: torch.Tensor, rows: int, weights, states) -> Tuple[int, int]:
@@ -179,18 +299,33 @@ def _check(xp: torch.Tensor, rows: int, weights, states) -> Tuple[int, int]:
     T, H = xp.shape[0], xp.shape[2] // 4
     if T == 0 or rows == 0:
         raise ValueError("empty sequence or batch")
-    for w in weights:
-        if w.dtype != xp.dtype or tuple(w.shape) != (H, 4 * H):
-            raise ValueError(f"W_hh must be [{H}, {4 * H}] {xp.dtype}, got {tuple(w.shape)} {w.dtype}")
-    for s in states:
-        if s.dtype != torch.float32 or tuple(s.shape) != (rows, H):
-            raise ValueError(f"h0/c0 must be [{rows}, {H}] fp32, got {tuple(s.shape)} {s.dtype}")
-    for a in (xp, *weights, *states):
-        if a.device != xp.device:
-            raise ValueError("all operands must be on one device")
-        if not a.is_contiguous():
-            raise ValueError("operands must be contiguous")
+    _check_weights(weights, xp.dtype, H)
+    _check_fp32(states, (rows, H))
+    _same_device_contiguous((xp, *weights, *states))
     return T, H
+
+
+def _check_bwd(weights, gates, seqs, states, x_dtype) -> None:
+    if gates.dim() != 3 or gates.shape[2] % 4 or 0 in gates.shape:
+        raise ValueError(f"gates must be [T, R, 4H], got {tuple(gates.shape)}")
+    T, R, G = gates.shape
+    H = G // 4
+    if weights[0].dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"W_hh must be bf16 or fp32, got {weights[0].dtype}")
+    if x_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"x must be bf16 or fp32, got {x_dtype}")
+    _check_weights(weights, weights[0].dtype, H)
+    _check_fp32((gates,), (T, R, G))
+    _check_fp32(seqs, (T, R, H))
+    _check_fp32(states, (R, H))
+    _same_device_contiguous((*weights, gates, *seqs, *states))
+    if gates.device.type == "cuda" and x_dtype != weights[0].dtype:
+        # the kernel reads dgates back from dxp as the rounded product operand
+        raise ValueError(f"the kernel needs x in W_hh's type {weights[0].dtype}, got {x_dtype}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _outputs(xp: torch.Tensor, H: int):
@@ -207,8 +342,7 @@ def _launch_lstm_fwd(xp, whh, h0, c0):
         err = lib.lstm_fwd(
             xp.data_ptr(), whh.data_ptr(), h0.data_ptr(), c0.data_ptr(),
             hs.data_ptr(), cs.data_ptr(), gates.data_ptr(),
-            T, xp.shape[1], H, int(xp.dtype == torch.bfloat16),
-            torch.cuda.current_stream(xp.device).cuda_stream,
+            T, xp.shape[1], H, int(xp.dtype == torch.bfloat16), _stream(xp),
         )
     _raise_on(err, "lstm_fwd")
     LAUNCHES["lstm_fwd"] += 1
@@ -223,53 +357,151 @@ def _launch_bilstm_fwd(xp, whh_f, whh_b):
         err = lib.bilstm_fwd(
             xp.data_ptr(), whh_f.data_ptr(), whh_b.data_ptr(),
             hs.data_ptr(), cs.data_ptr(), gates.data_ptr(),
-            T, xp.shape[1] // 2, H, int(xp.dtype == torch.bfloat16),
-            torch.cuda.current_stream(xp.device).cuda_stream,
+            T, xp.shape[1] // 2, H, int(xp.dtype == torch.bfloat16), _stream(xp),
         )
     _raise_on(err, "bilstm_fwd")
     LAUNCHES["bilstm_fwd"] += 1
     return hs, cs, gates
 
 
+def _launch_lstm_bwd(whh, gates, cs, hs, h0, c0, dhs, dhf, dcf, x_dtype):
+    T, R, G = gates.shape
+    kw = dict(dtype=torch.float32, device=gates.device)
+    dxp = torch.empty(T, R, G, dtype=x_dtype, device=gates.device)
+    dw = torch.empty(G // 4, G, **kw)
+    dh0, dc0 = torch.empty(R, G // 4, **kw), torch.empty(R, G // 4, **kw)
+    lib = _library()
+    with torch.cuda.device(gates.device):
+        err = lib.lstm_bwd(
+            whh.data_ptr(), gates.data_ptr(), cs.data_ptr(), hs.data_ptr(),
+            h0.data_ptr(), c0.data_ptr(), dhs.data_ptr(), dhf.data_ptr(), dcf.data_ptr(),
+            dxp.data_ptr(), dw.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+            T, R, G // 4, int(whh.dtype == torch.bfloat16), _stream(gates),
+        )
+    _raise_on(err, "lstm_bwd")
+    LAUNCHES["lstm_bwd"] += 1
+    return dxp, dw, dh0, dc0
+
+
+def _launch_bilstm_bwd(whh_f, whh_b, gates, cs, hs, dhs, x_dtype):
+    T, R, G = gates.shape
+    dxp = torch.empty(T, R, G, dtype=x_dtype, device=gates.device)
+    dwf = torch.empty(G // 4, G, dtype=torch.float32, device=gates.device)
+    dwb = torch.empty_like(dwf)
+    lib = _library()
+    with torch.cuda.device(gates.device):
+        err = lib.bilstm_bwd(
+            whh_f.data_ptr(), whh_b.data_ptr(), gates.data_ptr(), cs.data_ptr(),
+            hs.data_ptr(), dhs.data_ptr(), dxp.data_ptr(), dwf.data_ptr(), dwb.data_ptr(),
+            T, R // 2, G // 4, int(whh_f.dtype == torch.bfloat16), _stream(gates),
+        )
+    _raise_on(err, "bilstm_bwd")
+    LAUNCHES["bilstm_bwd"] += 1
+    return dxp, dwf, dwb
+
+
+def _dispatch(device: torch.device, kernel, plain):
+    """The kernel for a CUDA tensor, the plain version for a CPU one."""
+    if device.type == "cuda":
+        return kernel
+    if device.type == "cpu":
+        return plain
+    raise ValueError(f"unsupported device {device}")
+
+
+def lstm_bwd(whh, gates, cs, hs, h0, c0, dhs, dhf, dcf, x_dtype):
+    """Backward of one direction (kernel on CUDA, plain version on the CPU);
+    see `lstm_bwd_ref` for shapes and dtypes."""
+    _check_bwd((whh,), gates, (cs, hs, dhs), (h0, c0, dhf, dcf), x_dtype)
+    fn = _dispatch(gates.device, _launch_lstm_bwd, lstm_bwd_ref)
+    return fn(whh, gates, cs, hs, h0, c0, dhs, dhf, dcf, x_dtype)
+
+
+def bilstm_bwd(whh_f, whh_b, gates, cs, hs, dhs, x_dtype):
+    """Backward of both directions (kernel on CUDA, plain version on the
+    CPU); see `bilstm_bwd_ref` for shapes and dtypes."""
+    if gates.dim() != 3 or gates.shape[1] % 2:
+        raise ValueError(f"gates must be [T, 2B, 4H], got {tuple(gates.shape)}")
+    _check_bwd((whh_f, whh_b), gates, (cs, hs, dhs), (), x_dtype)
+    fn = _dispatch(gates.device, _launch_bilstm_bwd, bilstm_bwd_ref)
+    return fn(whh_f, whh_b, gates, cs, hs, dhs, x_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Autograd: the backward kernels behind the forward ones
+# ---------------------------------------------------------------------------
+
+
+def _cs_cotangent(dcs: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The final cell state's cotangent; the kernels take no other of cs."""
+    if dcs is None:
+        return None
+    if dcs.shape[0] > 1 and bool(dcs[:-1].any()):
+        raise NotImplementedError("gradients reach cs only through its last step")
+    return dcs[-1].float().contiguous()
+
+
 class _LSTMFwd(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, xp, whh, h0, c0):
+    def forward(ctx, xp, whh, h0, c0, save):
         _check(xp, h0.shape[0], (whh,), (h0, c0))
-        if xp.device.type == "cuda":
-            return _launch_lstm_fwd(xp, whh, h0, c0)
-        if xp.device.type != "cpu":
-            raise ValueError(f"unsupported device {xp.device}")
-        return lstm_fwd_ref(xp, whh, h0, c0)
+        hs, cs, gates = _dispatch(xp.device, _launch_lstm_fwd, lstm_fwd_ref)(xp, whh, h0, c0)
+        ctx.mark_non_differentiable(gates)
+        ctx.set_materialize_grads(False)
+        ctx.x_dtype = xp.dtype
+        if save:
+            ctx.save_for_backward(whh, gates, cs, hs, h0, c0)
+        return hs, cs, gates
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError("training slice")
+    def backward(ctx, dhs, dcs, _dgates):
+        whh, gates, cs, hs, h0, c0 = ctx.saved_tensors
+        dcf = _cs_cotangent(dcs)
+        dhs = torch.zeros_like(hs) if dhs is None else dhs.float().contiguous()
+        dhf = torch.zeros_like(h0)
+        dcf = torch.zeros_like(c0) if dcf is None else dcf
+        dxp, dw, dh0, dc0 = lstm_bwd(whh, gates, cs, hs, h0, c0, dhs, dhf, dcf, ctx.x_dtype)
+        return dxp, dw.to(whh.dtype), dh0, dc0, None
 
 
 class _BiLSTMFwd(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, xp, whh_f, whh_b):
+    def forward(ctx, xp, whh_f, whh_b, save):
         if xp.dim() != 3 or xp.shape[1] % 2:
             raise ValueError(f"xp must be [T, 2B, 4H], got {tuple(xp.shape)}")
         _check(xp, xp.shape[1], (whh_f, whh_b), ())
-        if xp.device.type == "cuda":
-            return _launch_bilstm_fwd(xp, whh_f, whh_b)
-        if xp.device.type != "cpu":
-            raise ValueError(f"unsupported device {xp.device}")
-        return bilstm_fwd_ref(xp, whh_f, whh_b)
+        fn = _dispatch(xp.device, _launch_bilstm_fwd, bilstm_fwd_ref)
+        hs, cs, gates = fn(xp, whh_f, whh_b)
+        ctx.mark_non_differentiable(gates)
+        ctx.set_materialize_grads(False)
+        ctx.x_dtype = xp.dtype
+        if save:
+            ctx.save_for_backward(whh_f, whh_b, gates, cs, hs)
+        return hs, cs, gates
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError("training slice")
+    def backward(ctx, dhs, dcs, _dgates):
+        whh_f, whh_b, gates, cs, hs = ctx.saved_tensors
+        if dcs is not None and bool(dcs.any()):
+            raise NotImplementedError("the two-direction kernel takes no cotangent of cs")
+        dhs = torch.zeros_like(hs) if dhs is None else dhs.float().contiguous()
+        dxp, dwf, dwb = bilstm_bwd(whh_f, whh_b, gates, cs, hs, dhs, ctx.x_dtype)
+        return dxp, dwf.to(whh_f.dtype), dwb.to(whh_b.dtype), None
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def lstm_fwd(xp, whh, h0, c0):
     """One-direction recurrence (kernel on CUDA, plain version on the CPU);
-    see `lstm_fwd_ref` for shapes and dtypes."""
-    return _LSTMFwd.apply(xp, whh, h0, c0)
+    see `lstm_fwd_ref` for shapes and dtypes.  Differentiable in xp, whh,
+    h0, c0 through hs and the final cell state ``cs[-1]``."""
+    return _LSTMFwd.apply(xp, whh, h0, c0, _needs_grad(xp, whh, h0, c0))
 
 
 def bilstm_fwd(xp, whh_f, whh_b):
     """Two-direction recurrence (kernel on CUDA, plain version on the CPU);
-    see `bilstm_fwd_ref` for shapes and dtypes."""
-    return _BiLSTMFwd.apply(xp, whh_f, whh_b)
+    see `bilstm_fwd_ref` for shapes and dtypes.  Differentiable in xp and
+    both W_hh through hs."""
+    return _BiLSTMFwd.apply(xp, whh_f, whh_b, _needs_grad(xp, whh_f, whh_b))

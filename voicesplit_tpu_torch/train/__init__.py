@@ -1,0 +1,28 @@
+"""Training: optimizer and state, train/eval steps, EMA (counterpart of
+`voicesplit_tpu/train`, without the Trainer, data loading and checkpoints)."""
+
+from voicesplit_tpu_torch.train.state import (
+    TrainState,
+    create_train_state,
+    learning_rate,
+    make_optimizer,
+    param_count,
+)
+from voicesplit_tpu_torch.train.steps import (
+    make_ema_update,
+    make_eval_step,
+    make_multi_train_step,
+    make_train_step,
+)
+
+__all__ = [
+    "TrainState",
+    "create_train_state",
+    "learning_rate",
+    "make_ema_update",
+    "make_eval_step",
+    "make_multi_train_step",
+    "make_optimizer",
+    "make_train_step",
+    "param_count",
+]

@@ -1,0 +1,205 @@
+"""Train and eval steps (counterpart of `voicesplit_tpu/train/steps.py`).
+
+One train step: STFT of the raw waveform batch, the mask network in train
+mode, masking, the loss, backward through the LSTM kernels, the global
+norm of the unclipped gradients, optional clipping, and the Adam update.
+
+Loss paths (from the config, reference `train.py:74-79, 97-108`):
+
+- ``power_law_compression``: spectral loss between the masked and the
+  target normalized spectrograms;
+- ``si_snr``: both specs are inverted with the mixture phase through the
+  differentiable iSTFT and compared in the time domain with SI-SNR (PIT,
+  C = 1), masked by the true waveform length.
+
+A batch is a dict of ``mixed_wav [B, L]``, ``target_wav [B, L]``,
+``emb [B, E]`` and ``wav_len [B]``, as numpy arrays or tensors; the steps
+move them to the audio processor's device.  Metrics are tensors on that
+device, so a step does not wait for the card.  SpecAugment and dropout
+are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Mapping
+
+import torch
+from torch import nn
+
+from voicesplit_tpu_torch.config import Config
+from voicesplit_tpu_torch.dsp.processor import AudioProcessor
+from voicesplit_tpu_torch.losses import power_law_compressed_loss, si_snr, si_snr_with_pit
+from voicesplit_tpu_torch.train.state import (
+    TrainState,
+    clip_by_global_norm_,
+    global_norm,
+    learning_rate,
+)
+
+Batch = Mapping[str, object]
+Metrics = Dict[str, torch.Tensor]
+
+
+def _to_device(batch: Batch, device: torch.device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def _loss_from_outputs(
+    config: Config,
+    ap: AudioProcessor,
+    output_spec: torch.Tensor,  # [B, T, F] masked (normalized) spec
+    target_spec: torch.Tensor,  # [B, T, F]
+    mixed_phase: torch.Tensor,  # [B, T, F]
+    wav_len: torch.Tensor,  # [B] true sample counts
+) -> torch.Tensor:
+    if config.loss.loss_name == "si_snr":
+        est_wav = ap.spec2wav_batch(output_spec, mixed_phase)
+        tgt_wav = ap.spec2wav_batch(target_spec, mixed_phase)
+        return si_snr_with_pit(est_wav[:, None, :], tgt_wav[:, None, :], wav_len)
+    if config.loss.loss_name == "power_law_compression":
+        return power_law_compressed_loss(
+            output_spec, target_spec, config.loss.power, config.loss.complex_loss_ratio
+        )
+    raise ValueError(f"unknown loss {config.loss.loss_name!r}")
+
+
+def _check_not_yet_ported(config: Config) -> None:
+    tc = config.train_config
+    if tc.spec_aug_time or tc.spec_aug_freq:
+        raise NotImplementedError("SpecAugment (spec_aug_time/freq) is not yet ported")
+    if config.model.dropout:
+        raise NotImplementedError("dropout is not yet ported")
+
+
+def make_train_step(
+    config: Config, model: nn.Module, ap: AudioProcessor, optimizer: torch.optim.Optimizer
+) -> Callable[[TrainState, Batch], Metrics]:
+    """Build the ``(state, batch) -> metrics`` step for `model` and
+    `optimizer`, which `state` carries.
+
+    It updates the model's parameters and BatchNorm running statistics
+    and the optimizer in place, and adds one to ``state.step``.  Metrics:
+    ``loss``, ``grad_norm`` (global norm of the unclipped gradients) and
+    ``loss_exploded`` (non-finite or > 1e8, the reference's guard,
+    `train.py:115-117`).
+    """
+    _check_not_yet_ported(config)
+    tc = config.train_config
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def train_step(state: TrainState, batch: Batch) -> Metrics:
+        if state.model is not model or state.optimizer is not optimizer:
+            raise ValueError("the state carries another model or optimizer than this step's")
+        b = _to_device(batch, ap.device)
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        mixed_spec, mixed_phase = ap.wav2spec_batch(b["mixed_wav"])
+        target_spec, _ = ap.wav2spec_batch(b["target_wav"])
+        mask = model(mixed_spec, b["emb"])
+        loss = _loss_from_outputs(
+            config, ap, mask * mixed_spec, target_spec, mixed_phase, b["wav_len"]
+        )
+        loss.backward()
+        grads = [p.grad for p in params]
+        grad_norm = global_norm(grads)
+        if tc.grad_clip_norm:
+            clip_by_global_norm_(grads, grad_norm, tc.grad_clip_norm)
+        for group in optimizer.param_groups:
+            group["lr"] = learning_rate(config, state.step)
+        optimizer.step()
+        state.step += 1
+        loss = loss.detach().float()
+        return {
+            "loss": loss,
+            "grad_norm": grad_norm.detach(),
+            "loss_exploded": torch.logical_or(~torch.isfinite(loss), loss > 1e8),
+        }
+
+    return train_step
+
+
+def make_multi_train_step(
+    config: Config,
+    model: nn.Module,
+    ap: AudioProcessor,
+    optimizer: torch.optim.Optimizer,
+    steps_per_dispatch: int,
+) -> Callable[[TrainState, Batch], Metrics]:
+    """``(state, batches) -> metrics`` running K steps over a stacked batch
+    window ``[K, B, ...]``.  Metrics are the last step's loss and
+    grad_norm, ``loss_mean`` over the K steps and an any-step
+    ``loss_exploded``."""
+    single = make_train_step(config, model, ap, optimizer)
+
+    def multi(state: TrainState, batches: Batch) -> Metrics:
+        stacked = _to_device(batches, ap.device)
+        ms = [
+            single(state, {k: v[i] for k, v in stacked.items()})
+            for i in range(steps_per_dispatch)
+        ]
+        losses = torch.stack([m["loss"] for m in ms])
+        return {
+            "loss": ms[-1]["loss"],
+            "grad_norm": ms[-1]["grad_norm"],
+            "loss_exploded": torch.stack([m["loss_exploded"] for m in ms]).any(),
+            "loss_mean": losses.mean(),
+        }
+
+    return multi
+
+
+def make_eval_step(
+    config: Config, model: nn.Module, ap: AudioProcessor
+) -> Callable[[Batch], Metrics]:
+    """``batch -> metrics + artifacts``: the configured loss, SI-SNR of the
+    mixed-phase inversion per item (the reference's fast eval,
+    `utils/generic_utils.py:531-558`), and the mask and specs.  Runs the
+    model in eval mode and restores its mode after."""
+
+    def eval_step(batch: Batch) -> Metrics:
+        b = _to_device(batch, ap.device)
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad():
+                mixed_spec, mixed_phase = ap.wav2spec_batch(b["mixed_wav"])
+                target_spec, _ = ap.wav2spec_batch(b["target_wav"])
+                mask = model(mixed_spec, b["emb"])
+                output = mask * mixed_spec
+                loss = _loss_from_outputs(
+                    config, ap, output, target_spec, mixed_phase, b["wav_len"]
+                )
+                # the target's exact length: a clip off the hop grid would
+                # otherwise invert short
+                est_wav = ap.spec2wav_batch(
+                    output, mixed_phase, length=b["target_wav"].shape[-1]
+                )
+                snr = si_snr(est_wav, b["target_wav"], lengths=b["wav_len"])
+        finally:
+            model.train(was_training)
+        return {
+            "loss": loss.float(),
+            "si_snr": snr.float(),  # [B]
+            "mask": mask,
+            "est_spec": output,
+            "mixed_spec": mixed_spec,
+            "target_spec": target_spec,
+            "est_wav": est_wav,
+            "mixed_phase": mixed_phase,
+        }
+
+    return eval_step
+
+
+def make_ema_update(decay: float):
+    """Polyak/EMA parameter average ``ema ← d·ema + (1−d)·p`` over dicts of
+    tensors keyed alike (e.g. ``dict(model.named_parameters())``); returns
+    the new average.  Start the average at the current parameters."""
+
+    @torch.no_grad()
+    def ema_update(
+        ema_params: Mapping[str, torch.Tensor], params: Mapping[str, torch.Tensor]
+    ) -> Dict[str, torch.Tensor]:
+        return {k: decay * e + (1.0 - decay) * params[k] for k, e in ema_params.items()}
+
+    return ema_update

@@ -1,5 +1,6 @@
-"""Weights: JAX variable trees → the port's ``state_dict``, random weights
-from a seed, and save/load of the port's own weight files.
+"""Weights: JAX variable trees → the port's ``state_dict``, optax's Adam
+moments → the port's optimizer, random weights from a seed, and save/load
+of the port's own weight files.
 
 JAX names (flax variables of `voicesplit_tpu.models.masknet.MaskNet`):
 
@@ -10,8 +11,10 @@ JAX names (flax variables of `voicesplit_tpu.models.masknet.MaskNet`):
     params/fc{1,2}/{kernel [in, out], bias}
 
 Conv kernels go from HWIO to OIHW and Dense kernels are transposed; the
-LSTM keeps its JAX layout.  The trees are nested dicts of numpy arrays, so
-this module needs neither JAX nor flax.  Loading a JAX ``.msgpack``
+LSTM keeps its JAX layout.  The same mapping carries any tree shaped like
+``params``, such as Adam's first and second moments.  The trees are nested
+dicts of numpy arrays (optax states as their namedtuples), so this module
+needs neither JAX nor flax nor optax.  Loading a JAX ``.msgpack``
 checkpoint is not ported yet.
 """
 
@@ -27,29 +30,74 @@ from voicesplit_tpu_torch.models.masknet import MaskNet
 Tree = Mapping[str, object]
 
 
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _conv_names(params: Tree):
+    return sorted((k for k in params if k.startswith("conv")), key=lambda k: int(k[4:]))
+
+
+def params_from_jax(tree: Tree) -> Dict[str, torch.Tensor]:
+    """``{port parameter name: tensor}`` from any tree shaped like the JAX
+    ``params`` (the parameters, their gradients, Adam's moments)."""
+    out: Dict[str, torch.Tensor] = {}
+    for name in _conv_names(tree):
+        conv, bn = tree[name]["Conv_0"], tree[name]["BatchNorm_0"]
+        out[f"{name}.conv.weight"] = _t(np.transpose(np.asarray(conv["kernel"]), (3, 2, 0, 1)))
+        out[f"{name}.conv.bias"] = _t(conv["bias"])
+        out[f"{name}.bn.scale"] = _t(bn["scale"])
+        out[f"{name}.bn.bias"] = _t(bn["bias"])
+    for k, v in tree["lstm"].items():
+        out[f"lstm.{k}"] = _t(v)
+    for fc in ("fc1", "fc2"):
+        out[f"{fc}.weight"] = _t(np.asarray(tree[fc]["kernel"]).T)
+        out[f"{fc}.bias"] = _t(tree[fc]["bias"])
+    return out
+
+
 def state_dict_from_jax(params: Tree, batch_stats: Tree) -> Dict[str, torch.Tensor]:
     """The port's `MaskNet` state_dict from JAX ``params`` / ``batch_stats``."""
-
-    def t(a) -> torch.Tensor:
-        return torch.from_numpy(np.array(a, dtype=np.float32))
-
-    sd: Dict[str, torch.Tensor] = {}
-    conv_names = sorted((k for k in params if k.startswith("conv")), key=lambda k: int(k[4:]))
-    for name in conv_names:
-        conv, bn = params[name]["Conv_0"], params[name]["BatchNorm_0"]
+    sd = params_from_jax(params)
+    for name in _conv_names(batch_stats):
         stats = batch_stats[name]["BatchNorm_0"]
-        sd[f"{name}.conv.weight"] = t(np.transpose(np.asarray(conv["kernel"]), (3, 2, 0, 1)))
-        sd[f"{name}.conv.bias"] = t(conv["bias"])
-        sd[f"{name}.bn.scale"] = t(bn["scale"])
-        sd[f"{name}.bn.bias"] = t(bn["bias"])
-        sd[f"{name}.bn.mean"] = t(stats["mean"])
-        sd[f"{name}.bn.var"] = t(stats["var"])
-    for k, v in params["lstm"].items():
-        sd[f"lstm.{k}"] = t(v)
-    for fc in ("fc1", "fc2"):
-        sd[f"{fc}.weight"] = t(np.asarray(params[fc]["kernel"]).T)
-        sd[f"{fc}.bias"] = t(params[fc]["bias"])
+        sd[f"{name}.bn.mean"] = _t(stats["mean"])
+        sd[f"{name}.bn.var"] = _t(stats["var"])
     return sd
+
+
+def _adam_state(opt_state):
+    """The ``ScaleByAdamState`` (count, mu, nu) inside an optax chain state."""
+    if all(hasattr(opt_state, k) for k in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def optimizer_state_from_jax(
+    opt_state, model: MaskNet, optimizer: torch.optim.Optimizer
+) -> int:
+    """Load Adam's update count and moments from a JAX optax state (a tree of
+    numpy arrays, e.g. ``jax.device_get(state.opt_state)``) into
+    `optimizer`, whose parameters are `model`'s.  Returns the update
+    count, which the port's `TrainState.step` must carry for the
+    learning-rate schedule."""
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in the optimizer state")
+    count = int(np.asarray(adam.count))
+    mu, nu = params_from_jax(adam.mu), params_from_jax(adam.nu)
+    for name, p in model.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": mu[name].to(p.device, p.dtype),
+            "exp_avg_sq": nu[name].to(p.device, p.dtype),
+        }
+    return count
 
 
 def random_jax_variables(model: MaskNet, seed: int = 0) -> Tuple[dict, dict]:

@@ -2,7 +2,7 @@
 """On-card smoke test of the PyTorch port's serving and training paths
 (NVIDIA H100).
 
-    python3 chip_smoke.py [--seed 0] [--profile DIR]
+    python3 chip_smoke.py [--seed 0] [--profile DIR] [--phases a,b,...]
 
 Phases, each printing one JSON line:
 
@@ -39,6 +39,22 @@ Phases, each printing one JSON line:
    warm ones), audio-seconds per second of training, the losses (which
    must fall on the fixed batch) and gradient norms of those steps and
    the peak device memory.
+6. conv kernels — the three kernels of the fused conv chain
+   (``conv_bn_act_fwd``, ``conv_dgrad``, ``conv_wgrad``) against their plain
+   versions on the card: bf16 at the path's shape ``[2, 301, 601, 64]`` for
+   the (7,1) layer and the (5,5) layers of dilation 1 and 16, with and
+   without the prologue (mish, relu once); fp32 at a reduced shape; the
+   statistics and ``dbias`` in fp32; the first and last 32 time rows and 2
+   frequency columns on their own; two launches on the same inputs must
+   give the same bits.  Then times each kernel per layer kind at B=2 and
+   B=8 beside its plain version, its bound and a library yardstick that
+   the port never calls (cuDNN ``conv2d`` plus the eager BatchNorm +
+   activation pass; ``aten.convolution_backward``).
+7. train fused — the train phase again with ``VOICESPLIT_FUSED_CHAIN=1``
+   (conv2 … conv7 through the chain's kernels): exact launches per step
+   (6 + 6 + 6 conv kernels beside the LSTM's), the same step again
+   (reports whether it gave the same bits), through the plain versions on
+   the card and with the chain off, 20 timed steps.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit line
 and, last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so
@@ -47,7 +63,9 @@ non-zero without a card, or without the rest of the repository beside it.
 ``--profile DIR`` additionally writes a ``torch.profiler`` kernel table and
 trace of the serving runs and the train steps into DIR and reports the
 device's idle share under the profiler and the device time by kind of
-kernel.
+kernel.  ``--phases`` runs a subset (of kernels, bwd_kernels, separate,
+train, conv_kernels, train_fused; device and build always run) and ends
+with a line marked ``"partial"`` instead of the result lines.
 """
 
 from __future__ import annotations
@@ -55,6 +73,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import os
 import subprocess
 import sys
 import time
@@ -90,17 +109,56 @@ TRAIN_LAUNCHES = {  # kernel launches per train step, by batch
     2: {"lstm_fwd": 2, "bilstm_fwd": 0, "lstm_bwd": 2, "bilstm_bwd": 0},
     8: {"lstm_fwd": 0, "bilstm_fwd": 1, "lstm_bwd": 0, "bilstm_bwd": 1},
 }
+# The fused chain's kernels.  bf16: raw (or dx) is rounded once from an fp32
+# sum taken in another order than the plain version's, so an element may
+# round the other way: one bf16 ulp, at most 2^-7 = 7.8e-3 of the output's
+# peak.  The statistics and dbias sum rounded values over 3.6e5 positions
+# in another order (fp32), and a flipped rounding moves them by one ulp of
+# one term.  dW sums 0.36-1.45 M exact products in fp32 in another order.
+# All relative to each output's peak.
+CONV_TOL = {
+    "bfloat16": {"out": 1e-2, "sums": 1e-3, "dw": 1e-3},
+    "float32": {"out": 1e-4, "sums": 1e-4, "dw": 1e-4},
+}
+CONV_SHAPE = (2, T_FRAMES, 601, 64)  # the training path's activations at B=2
+CONV_SHAPE_FP32 = (1, 40, 150, 64)  # reduced: the fp32 kernels are the tests' instantiation
+CONV_LAYERS = {"7x1": ((7, 1), 1), "5x5-d1": ((5, 5), 1), "5x5-d16": ((5, 5), 16)}
+CONV_LAUNCHES = {"conv_bn_act_fwd": 6, "conv_dgrad": 6, "conv_wgrad": 6}  # per train step
+# fused step, kernels vs the plain versions on the card (same arithmetic).
+# The BatchNorm backward between two convs works in bf16, as in the JAX
+# package: its per-channel constants (mean, r, mean dz, mean dz·x̂) are
+# rounded to bf16, so a sum that differs in its last fp32 bits can round one
+# of them the other way and move a whole channel of d_raw together.  The
+# gradients of conv2 … conv7 are therefore held by direction (cosine) and
+# loosely by size, relative to each one's peak (the 64-element BatchNorm
+# bias gradients move most; measured on an H100: cosine >= 0.992, size
+# <= 0.15); loss, grad_norm and the running statistics are held tightly.
+FUSED_TOL = {"loss_rel": 5e-3, "grad_norm_rel": 2e-2, "grad_peak_rel": 0.3,
+             "grad_cosine_min": 0.98, "running_stat_abs": 1e-3}
+# fused step vs the unfused (eager) step from the same weights: besides the
+# above, the chain normalizes in fp32 and rounds once where the eager
+# BatchNorm rounds the scale, the shift and each step of mish to bf16, and
+# it takes the statistics inside the conv kernel (measured: cosine >= 0.988,
+# size <= 0.17, running statistics 7e-4)
+FUSED_VS_EAGER_TOL = {"loss_rel": 2e-2, "grad_norm_rel": 0.1, "grad_peak_rel": 0.3,
+                      "grad_cosine_min": 0.97, "running_stat_abs": 2e-2}
 REPLACES = {
     "lstm_fwd": "voicesplit_tpu/ops/lstm_pallas.py:71",
     "bilstm_fwd": "voicesplit_tpu/ops/lstm_pallas.py:251",
     "lstm_bwd": "voicesplit_tpu/ops/lstm_pallas.py:135",
     "bilstm_bwd": "voicesplit_tpu/ops/lstm_pallas.py:317",
+    "conv_bn_act_fwd": "voicesplit_tpu/ops/conv_fused.py:303",
+    "conv_dgrad": "voicesplit_tpu/ops/conv_fused.py:411",
+    "conv_wgrad": "voicesplit_tpu/ops/conv_fused.py:524",
 }
 SOURCES = {
     "lstm_fwd": "voicesplit_tpu_torch/csrc/lstm_fwd.cu",
     "bilstm_fwd": "voicesplit_tpu_torch/csrc/lstm_fwd.cu",
     "lstm_bwd": "voicesplit_tpu_torch/csrc/lstm_bwd.cu",
     "bilstm_bwd": "voicesplit_tpu_torch/csrc/lstm_bwd.cu",
+    "conv_bn_act_fwd": "voicesplit_tpu_torch/csrc/conv_fused.cu",
+    "conv_dgrad": "voicesplit_tpu_torch/csrc/conv_fused.cu",
+    "conv_wgrad": "voicesplit_tpu_torch/csrc/conv_fused.cu",
 }
 
 
@@ -192,9 +250,23 @@ def phase_device(torch) -> str:
     return line
 
 
-def phase_build(torch, lstm_cuda) -> None:
+def ptxas_summary(log: str, fragment: str) -> list:
+    """``function: registers, shared memory, spills`` of the kernels whose
+    (mangled) name holds `fragment`, from nvcc's ``-Xptxas -v`` output."""
+    out, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+        elif name and fragment in name and ("Used" in line or "spill" in line):
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
+    return out
+
+
+def phase_build(torch, lstm_cuda, conv_fused) -> None:
+    from voicesplit_tpu_torch.ops import _build
+
     t0 = time.perf_counter()
-    lib, log = lstm_cuda.build()
+    lib, log = _build.build()
     seconds = time.perf_counter() - t0
     grids = {
         f"{name}_{dt}": lstm_cuda.launch_config(d, b, HIDDEN, getattr(torch, dt), bwd)
@@ -204,8 +276,14 @@ def phase_build(torch, lstm_cuda) -> None:
         )
         for dt in ("bfloat16", "float32")
     }
-    ptxas = [l.strip() for l in log.splitlines() if "ptxas" in l or "Used" in l or "spill" in l]
-    emit("build", library=str(lib.relative_to(ROOT)), seconds=seconds, ptxas=ptxas, grids=grids)
+    for name in CONV_LAUNCHES:
+        for layer, ((kt, kf), _) in CONV_LAYERS.items():
+            for b in (2, 8):
+                grids[f"{name}_{layer}_B{b}"] = conv_fused.launch_config(
+                    name, (b, *CONV_SHAPE[1:]), kt, kf, torch.bfloat16)
+    emit("build", library=str(lib.relative_to(ROOT)), seconds=seconds,
+         ptxas_lstm=ptxas_summary(log, "lstm"), ptxas_conv=ptxas_summary(log, "conv"),
+         grids=grids)
 
 
 def phase_kernels(torch, lstm_cuda, seed: int) -> dict:
@@ -547,8 +625,369 @@ def phase_train(torch, lstm_cuda, seed: int, profile_dir) -> dict:
     return launches
 
 
+def conv_bound(kind: str, shape, kt: int, kf: int, dt: int, dtype: str) -> dict:
+    """Least time for one conv kernel: activations, weights and results each
+    moved once, against the products of the taps that fall inside the
+    tensor (a tap in the halo multiplies zeros and is not counted) at the
+    operand type's peak."""
+    B, T, F, C = shape
+    op = 2 if dtype == "bfloat16" else 4
+    act_bytes = B * T * F * C * op
+    w_elems = kt * kf * C * C
+    if kind == "conv_wgrad":
+        bytes_ = 2 * act_bytes + w_elems * 4 + 2 * C * 4  # x, d_raw; dW; inv, shift
+    elif kind == "conv_dgrad":
+        bytes_ = 2 * act_bytes + w_elems * op + C * 4  # d_raw, dx; W; dbias
+    else:
+        bytes_ = 2 * act_bytes + w_elems * op + 5 * C * 4  # x, raw; W; bias, inv, shift, stats
+    pad_t, pad_f = (kt - 1) * dt // 2, (kf - 1) // 2
+    rows = sum(max(0, T - abs(i * dt - pad_t)) for i in range(kt))
+    cols = sum(max(0, F - abs(j - pad_f)) for j in range(kf))
+    flops = 2 * C * C * B * rows * cols
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return {"bytes": bytes_, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _peak_rel(got, want) -> float:
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def _edge_errs(got, want) -> dict:
+    """Peak-relative error of the first and last 32 time rows and 2
+    frequency columns of a [B, T, F, C] output, each on its own."""
+    peak = want.float().abs().max()
+    cuts = {"rows_first32": (slice(None), slice(0, 32)), "rows_last32": (slice(None), slice(-32, None)),
+            "cols_first2": (slice(None), slice(None), slice(0, 2)),
+            "cols_last2": (slice(None), slice(None), slice(-2, None))}
+    return {k: ((got[c].float() - want[c].float()).abs().max() / peak).item()
+            for k, c in cuts.items()}
+
+
+def _conv_inputs(torch, shape, kt, kf, dtype, g):
+    """Random activations, cotangent, weights, bias and BatchNorm scalars of
+    one layer on the card; fan-in-scaled weights keep raw of order 1."""
+    dev = torch.device("cuda")
+    C = shape[-1]
+    x = torch.randn(shape, generator=g).to(dev, dtype)
+    d = torch.randn(shape, generator=g).to(dev, dtype)
+    w = (torch.randn(kt, kf, C, C, generator=g) * (kt * kf * C) ** -0.5).to(dev, dtype)
+    bias = (0.1 * torch.randn(C, generator=g)).to(dev)
+    mean, var = 0.2 * torch.randn(C, generator=g), torch.empty(C).uniform_(0.5, 2.0, generator=g)
+    scale, beta = torch.empty(C).uniform_(0.5, 1.5, generator=g), 0.1 * torch.randn(C, generator=g)
+    return x, d, w, bias, (mean.to(dev), var.to(dev), scale.to(dev), beta.to(dev))
+
+
+def _check_conv_case(torch, cf, case, shape, layer, act, dtype_name, g) -> dict:
+    """One layer and prologue through the three kernels and their plain
+    versions; raises on disagreement or on two launches that differ."""
+    (kt, kf), dt = CONV_LAYERS[layer]
+    dtype = getattr(torch, dtype_name)
+    tol = CONV_TOL[dtype_name]
+    x, d, w, bias, bn = _conv_inputs(torch, shape, kt, kf, dtype, g)
+    scal = cf._scal_table(*bn)
+    on = act is not None
+    wf = cf.pack_weight_flipped(w, dtype)
+    runs = {
+        "conv_bn_act_fwd": (cf.conv_bn_act_fwd, cf.conv_bn_act_fwd_ref, (x, w, bias, scal, dt, act, on),
+                            ("out", "sums")),
+        "conv_dgrad": (cf.conv_dgrad, cf.conv_dgrad_ref, (d, wf, dt), ("out", "sums")),
+        "conv_wgrad": (cf.conv_wgrad, cf.conv_wgrad_ref, (x, d, scal, kt, kf, dt, act, on), ("dw",)),
+    }
+    report = {}
+    with torch.inference_mode():
+        for name, (kernel, plain, args, kinds) in runs.items():
+            if name == "conv_dgrad" and on:
+                continue  # no prologue on this kernel: checked in the plain case
+            got, again, want = kernel(*args), kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            got, again, want = (o if isinstance(o, tuple) else (o,) for o in (got, again, want))
+            errs = {k: _peak_rel(a, b) for k, a, b in zip(kinds, got, want)}
+            if kinds[0] == "out":
+                errs.update({f"out_{k}": v for k, v in _edge_errs(got[0], want[0]).items()})
+            entry = {"errors": errs,
+                     "abs_err": (got[0].float() - want[0].float()).abs().max().item(),
+                     "share_of_elements_that_differ": (got[0] != want[0]).float().mean().item()}
+            for k, v in errs.items():
+                limit = tol["out" if k.startswith("out") else k]
+                check(np.isfinite(v) and v <= limit, f"{name} {case}: {k} error {v} > {limit}")
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{name} {case}: two launches on the same inputs differ")
+            report[name] = entry
+    return report
+
+
+def phase_conv_kernels(torch, cf, seed: int) -> dict:
+    """The fused chain's kernels vs their plain versions on the card, then
+    their times per layer kind and batch."""
+    import torch.nn.functional as F
+
+    from voicesplit_tpu_torch.ops import bn_act
+
+    g = torch.Generator(device="cpu").manual_seed(seed + 2)
+    cases = [("7x1", None), ("7x1", "mish"), ("5x5-d1", None), ("5x5-d1", "mish"),
+             ("5x5-d1", "relu"), ("5x5-d16", None), ("5x5-d16", "mish")]
+    worst = {name: {"bfloat16": 0.0, "float32": 0.0} for name in CONV_LAUNCHES}
+    agreement = {}
+    for dtype_name, shape in (("bfloat16", CONV_SHAPE), ("float32", CONV_SHAPE_FP32)):
+        for layer, act in cases:
+            case = f"{layer}/{act or 'plain'}/{dtype_name}"
+            agreement[case] = _check_conv_case(torch, cf, case, shape, layer, act, dtype_name, g)
+            for name, entry in agreement[case].items():
+                worst[name][dtype_name] = max(worst[name][dtype_name], entry["abs_err"])
+        torch.cuda.empty_cache()
+    # why the plain versions are one matrix product per tap and no library
+    # conv: cuDNN's fp32 weight gradient (TF32 off) against the plain version
+    # on the same bf16-valued operands, whose products are exact in fp32
+    (kt, kf), dt = CONV_LAYERS["5x5-d1"]
+    x, d, _, _, bn = _conv_inputs(torch, CONV_SHAPE, kt, kf, torch.bfloat16, g)
+    with torch.inference_mode():
+        want = cf.conv_wgrad_ref(x, d, cf._scal_table(*bn), kt, kf, dt, None, False)
+        lib = torch.ops.aten.convolution_backward(
+            d.float().permute(0, 3, 1, 2), x.float().permute(0, 3, 1, 2),
+            torch.empty(64, 64, kt, kf, device=x.device), None, (1, 1),
+            ((kt - 1) * dt // 2, (kf - 1) // 2), (dt, 1), False, (0, 0), 1, (False, True, False),
+        )[1].permute(2, 3, 1, 0)
+        library_fp32_wgrad_err = _peak_rel(lib, want)
+    del x, d, want, lib
+    emit("conv kernels", shape_bf16=list(CONV_SHAPE), shape_fp32=list(CONV_SHAPE_FP32),
+         tolerances_peak_rel=CONV_TOL, agreement=agreement,
+         cudnn_fp32_wgrad_vs_plain_peak_rel=library_fp32_wgrad_err)
+
+    # times: bf16, the chain's prologue (mish) on, per layer kind and batch
+    timing = {name: {} for name in CONV_LAUNCHES}
+    for b in (2, 8):
+        shape = (b, *CONV_SHAPE[1:])
+        iters = 5 if b == 2 else 3
+        for layer, ((kt, kf), dt) in CONV_LAYERS.items():
+            act = None if layer == "7x1" else "mish"  # the chain's first layer has no prologue
+            on = act is not None
+            x, d, w, bias, bn = _conv_inputs(torch, shape, kt, kf, torch.bfloat16, g)
+            scal = cf._scal_table(*bn)
+            wf = cf.pack_weight_flipped(w, torch.bfloat16)
+            pad = ((kt - 1) * dt // 2, (kf - 1) // 2)
+            # library yardsticks (never called by the port): cuDNN convs on
+            # channels-last bf16 views; for the forward also the eager
+            # BatchNorm + activation pass the prologue replaces
+            x_nchw, d_nchw = x.permute(0, 3, 1, 2), d.permute(0, 3, 1, 2)
+            w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            cbias = bias.to(torch.bfloat16)
+
+            def lib_fwd():
+                y = bn_act.bn_act_eval(x_nchw, bn[2], bn[3], bn[0], bn[1], act) if on else x_nchw
+                return F.conv2d(y, w_oihw, cbias, padding=pad, dilation=(dt, 1))
+
+            def lib_bwd(mask):
+                return torch.ops.aten.convolution_backward(
+                    d_nchw, x_nchw, w_oihw, None, (1, 1), pad, (dt, 1), False, (0, 0), 1, mask)
+
+            calls = {
+                "conv_bn_act_fwd": (lambda: cf.conv_bn_act_fwd(x, w, bias, scal, dt, act, on),
+                                    lambda: cf.conv_bn_act_fwd_ref(x, w, bias, scal, dt, act, on),
+                                    lib_fwd),
+                "conv_dgrad": (lambda: cf.conv_dgrad(d, wf, dt), lambda: cf.conv_dgrad_ref(d, wf, dt),
+                               lambda: lib_bwd((True, False, False))),
+                "conv_wgrad": (lambda: cf.conv_wgrad(x, d, scal, kt, kf, dt, act, on),
+                               lambda: cf.conv_wgrad_ref(x, d, scal, kt, kf, dt, act, on),
+                               lambda: lib_bwd((False, True, False))),
+            }
+            with torch.inference_mode():
+                for name, (kernel, plain, library) in calls.items():
+                    bound = conv_bound(name, shape, kt, kf, dt, "bfloat16")
+                    timing[name][f"B{b}/{layer}"] = {
+                        "ms": time_ms(torch, kernel, iters=iters, warmup=1),
+                        "plain_ms": time_ms(torch, plain, iters=2, warmup=1),
+                        "library_ms": time_ms(torch, library, iters=iters, warmup=1),
+                        **bound,
+                    }
+            del x, d, w, wf, x_nchw, d_nchw
+            torch.cuda.empty_cache()
+    emit("conv kernel times", dtype="bfloat16", prologue="mish (none on the 7x1 layer)",
+         library="cuDNN conv2d (+ eager BN + act) / aten.convolution_backward, channels-last bf16",
+         times=timing)
+    # the kernels line quotes the (5,5) dilation-1 layer at the config's batch
+    head = "B2/5x5-d1"
+    return {
+        name: {"bf16": {"max_abs_err": worst[name]["bfloat16"], **timing[name][head]},
+               "fp32": {"max_abs_err": worst[name]["float32"]},
+               "library_ms": timing[name][head]["library_ms"],
+               "bound_ms": timing[name][head]["bound_ms"], "bound_by": timing[name][head]["bound_by"],
+               "timed_at": head, "ms_by_batch_and_layer": {k: v["ms"] for k, v in timing[name].items()}}
+        for name in CONV_LAUNCHES
+    }
+
+
+class _PlainConv:
+    """Routes the kernel launches of `conv_fused` to the plain versions on
+    the card while active."""
+
+    def __init__(self, conv_fused):
+        self.m = conv_fused
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.m, f"_launch_{n}") for n in CONV_LAUNCHES}
+        for n in CONV_LAUNCHES:
+            setattr(self.m, f"_launch_{n}", getattr(self.m, f"{n}_ref"))
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.m, f"_launch_{n}", fn)
+
+
+def _chain_state(model) -> tuple:
+    """Gradients of conv2 … conv7 (weights, BatchNorm scale and bias) and
+    every running statistic after a step."""
+    grads = {k: p.grad.detach().float().clone() for k, p in model.named_parameters()
+             if k.split(".")[0] in {f"conv{i}" for i in range(2, 8)} and not k.endswith("conv.bias")}
+    stats = {k: v.detach().clone() for k, v in model.state_dict().items()
+             if k.endswith((".mean", ".var"))}
+    return grads, stats
+
+
+def _compare_steps(torch, m_a, st_a, m_b, st_b) -> dict:
+    """Step a against step b: loss, grad_norm, gradients (peak-relative and
+    cosine) and running statistics."""
+    (ga, ra), (gb, rb) = st_a, st_b
+    return {
+        "loss_rel": abs(float(m_a["loss"]) - float(m_b["loss"])) / abs(float(m_b["loss"])),
+        "grad_norm_rel": abs(float(m_a["grad_norm"]) - float(m_b["grad_norm"])) / float(m_b["grad_norm"]),
+        "grad_peak_rel": {k: _peak_rel(ga[k], gb[k]) for k in gb},
+        "grad_cosine": {k: torch.nn.functional.cosine_similarity(
+            ga[k].flatten(), gb[k].flatten(), dim=0).item() for k in gb},
+        "running_stat_abs": max((ra[k] - rb[k]).abs().max().item() for k in rb),
+    }
+
+
+def _check_step_agreement(what: str, cmp: dict, tol: dict) -> None:
+    for k, limit in tol.items():
+        if k == "grad_cosine_min":
+            v = min(cmp["grad_cosine"].values())
+            check(v >= limit, f"{what}: gradient cosine {v} < {limit}")
+            continue
+        v = cmp[k]
+        v = max(v.values()) if isinstance(v, dict) else v
+        check(np.isfinite(v) and v <= limit, f"{what}: {k} {v} > {limit}")
+
+
+def phase_train_fused(torch, lstm_cuda, cf, seed: int, profile_dir) -> dict:
+    """The train phase with the fused conv chain on: same model, config,
+    batches and learning rate."""
+    from voicesplit_tpu_torch import weights
+    from voicesplit_tpu_torch.config import load_config
+    from voicesplit_tpu_torch.dsp.processor import make_audio_processor
+    from voicesplit_tpu_torch.models.masknet import make_masknet
+    from voicesplit_tpu_torch.train import create_train_state, make_optimizer, make_train_step
+
+    config = load_config(str(ROOT / "configs" / "voicesplit.json"))
+    config.train_config.learning_rate = TRAIN_LR
+    ap = make_audio_processor(config)
+    n = int(config.audio.audio_len * ap.sample_rate)
+    report = {"config": "configs/voicesplit.json", "switch": "VOICESPLIT_FUSED_CHAIN=1",
+              "compute_dtype": config.train_config.compute_dtype, "learning_rate": TRAIN_LR,
+              "tolerances_vs_plain": FUSED_TOL, "tolerances_vs_eager": FUSED_VS_EAGER_TOL}
+    launches = {k: 0 for k in (*lstm_cuda.LAUNCHES, *cf.LAUNCHES)}
+    previous = os.environ.get("VOICESPLIT_FUSED_CHAIN")
+    os.environ["VOICESPLIT_FUSED_CHAIN"] = "1"
+    try:
+        for b in (2, 8):
+            model = weights.init_random_(make_masknet(config), seed)
+            optimizer = make_optimizer(config, model)
+            state = create_train_state(model, optimizer)
+            step = make_train_step(config, model, ap, optimizer)
+            batch = train_batch(seed + b, b, n, ap.sample_rate, config.model.emb_dim)
+            before = _snapshot(model, optimizer, state)
+
+            # the counted run: one step from fresh weights through the chain
+            torch.cuda.synchronize()
+            lstm_cuda.reset_launch_counts()
+            cf.reset_launch_counts()
+            mk = step(state, batch)
+            torch.cuda.synchronize()
+            counted = {**lstm_cuda.LAUNCHES, **cf.LAUNCHES}
+            for k, v in counted.items():
+                launches[k] += v
+            check(counted == {**TRAIN_LAUNCHES[b], **CONV_LAUNCHES}, f"B={b}: launches per step {counted}")
+            loss0, gn0 = float(mk["loss"]), float(mk["grad_norm"])
+            check(np.isfinite(loss0) and not bool(mk["loss_exploded"]), f"B={b}: loss {loss0}")
+            check(gn0 > 0 and np.isfinite(gn0), f"B={b}: grad_norm {gn0}")
+            unmoved = [k for k, v in model.state_dict().items() if torch.equal(v, before[0][k])]
+            check(not unmoved, f"B={b}: unchanged after a step: {unmoved}")
+            through_kernels = _chain_state(model)
+
+            # the same step through the kernels once more.  The chain's kernels
+            # give the same bits twice (checked in the conv kernels phase);
+            # whether the whole step does also depends on PyTorch's own
+            # backward kernels, so this is reported, not required
+            _restore(model, optimizer, state, before)
+            mr = step(state, batch)
+            again = _chain_state(model)
+            same_bits = float(mr["loss"]) == loss0 and all(
+                torch.equal(through_kernels[0][k], again[0][k]) for k in again[0])
+            del again
+
+            # (a) the same step through the conv kernels' plain versions
+            _restore(model, optimizer, state, before)
+            with _PlainConv(cf):
+                mp = step(state, batch)
+            vs_plain = _compare_steps(torch, mk, through_kernels, mp, _chain_state(model))
+            _check_step_agreement(f"B={b}: kernels vs plain", vs_plain, FUSED_TOL)
+
+            # (b) the same step with the chain off (the eager BatchNorm path)
+            _restore(model, optimizer, state, before)
+            os.environ["VOICESPLIT_FUSED_CHAIN"] = "0"
+            cf.reset_launch_counts()
+            me = step(state, batch)
+            os.environ["VOICESPLIT_FUSED_CHAIN"] = "1"
+            check(not any(cf.LAUNCHES.values()), f"B={b}: conv kernels ran with the chain off")
+            vs_eager = _compare_steps(torch, mk, through_kernels, me, _chain_state(model))
+            _check_step_agreement(f"B={b}: chain vs eager", vs_eager, FUSED_VS_EAGER_TOL)
+            _restore(model, optimizer, state, before)
+            del through_kernels
+
+            for _ in range(TRAIN_WARM):
+                step(state, batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times, metrics = [], []
+            for _ in range(TRAIN_STEPS):
+                t0 = time.perf_counter()
+                metrics.append(step(state, batch))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            losses = [float(m["loss"]) for m in metrics]
+            check(all(np.isfinite(losses)), f"B={b}: non-finite loss in {losses}")
+            check(losses[-1] < losses[0], f"B={b}: loss did not fall on a fixed batch: {losses}")
+            p50, p75 = (float(np.percentile(times, q)) for q in (50, 75))
+            report[f"B{b}"] = {
+                "launches_per_step": counted, "first_loss": loss0, "first_grad_norm": gn0,
+                "eager_first_loss": float(me["loss"]), "same_bits_twice": same_bits,
+                "kernels_vs_plain": vs_plain,
+                "chain_vs_eager": vs_eager, "steps": TRAIN_STEPS,
+                "step_ms_p50": p50, "step_ms_p75": p75,
+                "audio_s_per_s": b * config.audio.audio_len / (p50 / 1e3),
+                "losses": losses, "grad_norms": [float(m["grad_norm"]) for m in metrics],
+                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            }
+            if profile_dir:
+                report[f"B{b}"]["profile"] = profile(
+                    torch, profile_dir, f"train_fused_B{b}", lambda: step(state, batch)
+                )
+            del model, optimizer, state, step
+            torch.cuda.empty_cache()
+    finally:
+        if previous is None:
+            del os.environ["VOICESPLIT_FUSED_CHAIN"]
+        else:
+            os.environ["VOICESPLIT_FUSED_CHAIN"] = previous
+    emit("train fused", device=torch.cuda.get_device_name(0), **report)
+    return launches
+
+
 # kernel-name fragments → kind, for the device time split under --profile
 KERNEL_KINDS = (
+    ("conv chain kernels", ("conv_bn_act_fwd_kernel", "conv_dgrad_kernel", "conv_wgrad_kernel",
+                            "reduce_rows_kernel")),
     ("lstm kernels", ("lstm_fwd_kernel", "lstm_bwd_kernel")),
     ("convs", ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad")),
     ("matmuls", ("gemm", "cutlass", "nvjet", "splitk")),
@@ -597,11 +1036,21 @@ def profile(torch, out_dir, tag, fn, runs: int = 5) -> dict:
             "idle_share": 1.0 - kernel_ms / wall_ms, "ms_per_run_by_kind": split}
 
 
+PHASES = ("kernels", "bwd_kernels", "separate", "train", "conv_kernels", "train_fused")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--profile", type=str, default=None)
+    parser.add_argument("--phases", type=str, default=",".join(PHASES),
+                        help="comma-separated subset of: " + ", ".join(PHASES))
     args = parser.parse_args(argv)
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        parser.error(f"unknown phases {unknown}")
+    t_start = time.perf_counter()
 
     import torch
 
@@ -609,38 +1058,55 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from voicesplit_tpu_torch.device import set_fp32_precision
-    from voicesplit_tpu_torch.ops import lstm_cuda
+    from voicesplit_tpu_torch.ops import conv_fused, lstm_cuda
 
     set_fp32_precision()
     smi_line = phase_device(torch)
-    phase_build(torch, lstm_cuda)
-    kern = phase_kernels(torch, lstm_cuda, args.seed)
-    kern.update(phase_bwd_kernels(torch, lstm_cuda, args.seed))
-    by_path = {
-        "separate": phase_separate(torch, lstm_cuda, args.seed, args.profile),
-        "train": phase_train(torch, lstm_cuda, args.seed, args.profile),
-    }
+    phase_build(torch, lstm_cuda, conv_fused)
+    kern, by_path = {}, {}
+    if "kernels" in phases:
+        kern.update(phase_kernels(torch, lstm_cuda, args.seed))
+    if "bwd_kernels" in phases:
+        kern.update(phase_bwd_kernels(torch, lstm_cuda, args.seed))
+    if "separate" in phases:
+        by_path["separate"] = phase_separate(torch, lstm_cuda, args.seed, args.profile)
+    if "train" in phases:
+        by_path["train"] = phase_train(torch, lstm_cuda, args.seed, args.profile)
+    if "conv_kernels" in phases:
+        kern.update(phase_conv_kernels(torch, conv_fused, args.seed))
+    if "train_fused" in phases:
+        by_path["train_fused"] = phase_train_fused(
+            torch, lstm_cuda, conv_fused, args.seed, args.profile)
+    emit("total", wall_seconds=time.perf_counter() - t_start, phases=phases)
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    if set(phases) != set(PHASES):
+        print(smi_line)
+        print(json.dumps({"ok": True, "partial": phases, "device": device}))
+        return 0
     # each kernel's launches come from the counted run of the path it serves
     home = {"lstm_fwd": "separate", "bilstm_fwd": "separate",
-            "lstm_bwd": "train", "bilstm_bwd": "train"}
+            "lstm_bwd": "train", "bilstm_bwd": "train",
+            "conv_bn_act_fwd": "train_fused", "conv_dgrad": "train_fused",
+            "conv_wgrad": "train_fused"}
     kernels = [
         {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": by_path[home[name]][name],
-            "launches_by_path": {p: c[name] for p, c in by_path.items()},
+            "launches_by_path": {p: c.get(name, 0) for p, c in by_path.items()},
             "max_abs_err": r["bf16"]["max_abs_err"], "max_abs_err_fp32": r["fp32"]["max_abs_err"],
             "ms": r["bf16"]["ms"], "plain_ms": r["bf16"]["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **{k: r[k] for k in ("timed_at", "ms_by_batch_and_layer") if k in r},
         }
         for name, r in kern.items()
     ]
+    check(len(kernels) == len(home), f"{len(kernels)} kernels reported, {len(home)} ported")
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    print(json.dumps({"ok": True, "device": device}))
     return 0
 
 

@@ -1,0 +1,503 @@
+"""The port's fused conv chain (`voicesplit_tpu_torch/ops/conv_fused.py`)
+against the JAX package's (`voicesplit_tpu/ops/conv_fused.py`).
+
+On the CPU the port's wrappers run their plain versions and the JAX side
+runs its Pallas kernels in interpret mode, as `tests/test_conv_fused.py`
+does.  The port works on channels-last ``[B, T, F, C]``; the JAX kernels on
+frequency-folded, zero-margined frames.  The conversions between the two
+(fold, frame, folded weights, the folded scalar table and statistics) live
+here.  Geometry of `tests/test_conv_fused.py`: odd F (a real pad column in
+the fold), a (7,1), a (5,5) and a dilated (5,5) layer, C = 64.
+"""
+
+import json
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import voicesplit_tpu.ops.conv_fused as jcf
+from voicesplit_tpu.config import load_config_from_str as jax_config
+from voicesplit_tpu.dsp.processor import make_audio_processor as jax_audio_processor
+from voicesplit_tpu.models.masknet import MaskNet as JaxMaskNet
+from voicesplit_tpu.models.masknet import make_masknet as jax_make_masknet
+from voicesplit_tpu.ops.conv_fold import FOLD, fold_input, fold_kernel, unfold_output
+from voicesplit_tpu.train import state as jax_state
+from voicesplit_tpu.train import steps as jax_steps
+from voicesplit_tpu_torch import weights
+from voicesplit_tpu_torch.cli.separate import separate_batch
+from voicesplit_tpu_torch.config import load_config_from_str
+from voicesplit_tpu_torch.dsp.processor import make_audio_processor
+from voicesplit_tpu_torch.models.masknet import MaskNet, make_masknet
+from voicesplit_tpu_torch.ops import conv_fused as cf
+from voicesplit_tpu_torch.train import create_train_state, make_eval_step, make_optimizer, make_train_step
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+B, T, F, C = 2, 19, 37, 64
+SPECS = {"7x1": ((7, 1), 1), "5x5": ((5, 5), 1), "5x5-d2": ((5, 5), 2)}
+EPS = 1e-5
+GEOM = jcf.FrameGeom(T, F, FOLD * C, max((k[0] - 1) * d // 2 for k, d in SPECS.values()))
+# fp32, both sides: the same products summed in another order (the fold
+# splits each sum over parity slots); relative to each output's peak
+PEAK_TOL = 1e-4
+
+
+def _np(a):
+    return np.asarray(jnp.asarray(a).astype(jnp.float32))
+
+
+def _frame(x: np.ndarray, dtype=jnp.float32):
+    """[B, T, F, C] → the JAX kernels' zero-margined folded frame."""
+    return jcf.to_frame(fold_input(jnp.asarray(x).astype(dtype)), GEOM)
+
+
+def _unframe(frame) -> np.ndarray:
+    return _np(unfold_output(jcf.from_frame(frame, GEOM), F))
+
+
+def _unfold_channels(v) -> np.ndarray:
+    """A folded [2C] per-channel sum → [C]."""
+    return _np(v).reshape(FOLD, C).sum(0)
+
+
+def _assert_peak_close(got, want, tol, msg=""):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol * np.abs(want).max(), err_msg=msg)
+
+
+def _layer_inputs(seed, kt, kf):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, T, F, C)).astype(np.float32)
+    w = (0.08 * rng.standard_normal((kt, kf, C, C))).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(C)).astype(np.float32)
+    mean = (0.2 * rng.standard_normal(C)).astype(np.float32)
+    var = rng.uniform(0.5, 2.0, C).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, C).astype(np.float32)
+    beta = (0.1 * rng.standard_normal(C)).astype(np.float32)
+    return x, w, bias, (mean, var, scale, beta)
+
+
+def _scal_pair(bn):
+    """The scalar table in both packages' layouts."""
+    t = [torch.from_numpy(a) for a in bn]
+    return cf._scal_table(*t, eps=EPS), jcf._scal_table(*map(jnp.asarray, bn), eps=EPS)
+
+
+PROLOGUES = {"plain": (None, False), "mish": ("mish", True), "relu": ("relu", True)}
+
+
+@pytest.mark.parametrize("prologue", sorted(PROLOGUES))
+@pytest.mark.parametrize("spec", sorted(SPECS))
+def test_forward_plain_version_matches_pallas_kernel(spec, prologue):
+    (kt, kf), dt = SPECS[spec]
+    act, on = PROLOGUES[prologue]
+    x, w, bias, bn = _layer_inputs(1, kt, kf)
+    scal_t, scal_j = _scal_pair(bn)
+    wf = fold_kernel(jnp.asarray(w))
+    frame, stats = jcf._conv_fwd(
+        _frame(x), jcf._pack(wf), scal_j, jnp.tile(jnp.asarray(bias), FOLD)[None, :],
+        GEOM, kt, wf.shape[1], dt, act, on,
+    )
+    raw, st = cf.conv_bn_act_fwd(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(bias), scal_t, dt, act, on
+    )
+    assert raw.shape == (B, T, F, C) and raw.is_contiguous() and st.shape == (2, C)
+    _assert_peak_close(raw.numpy(), _unframe(frame), PEAK_TOL)
+    _assert_peak_close(st[0].numpy(), _unfold_channels(stats[0]), PEAK_TOL, "sum")
+    _assert_peak_close(st[1].numpy(), _unfold_channels(stats[1]), PEAK_TOL, "sum of squares")
+    n = B * T * F
+    for got, want in zip(cf._mean_var(st, n), jcf._mean_var(stats, n)):
+        np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-4)
+
+
+def test_forward_plain_version_matches_pallas_kernel_bf16():
+    """bf16 operands: both sides round the prologue's output and the raw
+    output to bf16; a sum taken in another order flips a rounding of raw
+    (one bf16 ulp of the peak ~ 8 is 3e-2; 1e-2 of the peak holds it), and
+    the statistics sum those rounded values."""
+    (kt, kf), dt = SPECS["5x5-d2"]
+    x, w, bias, bn = _layer_inputs(2, kt, kf)
+    scal_t, scal_j = _scal_pair(bn)
+    wf = fold_kernel(jnp.asarray(w).astype(jnp.bfloat16))
+    frame, stats = jcf._conv_fwd(
+        _frame(x, jnp.bfloat16), jcf._pack(wf), scal_j,
+        jnp.tile(jnp.asarray(bias), FOLD)[None, :], GEOM, kt, wf.shape[1], dt, "mish", True,
+    )
+    raw, st = cf.conv_bn_act_fwd(
+        torch.from_numpy(x).bfloat16(), torch.from_numpy(w).bfloat16(), torch.from_numpy(bias),
+        scal_t, dt, "mish", True,
+    )
+    assert raw.dtype == torch.bfloat16 and st.dtype == torch.float32
+    _assert_peak_close(raw.float().numpy(), _unframe(frame), 1e-2)
+    _assert_peak_close(st[0].numpy(), _unfold_channels(stats[0]), 1e-2, "sum")
+    _assert_peak_close(st[1].numpy(), _unfold_channels(stats[1]), 1e-2, "sum of squares")
+
+
+@pytest.mark.parametrize("spec", sorted(SPECS))
+def test_dgrad_plain_version_matches_pallas_kernel(spec):
+    (kt, kf), dt = SPECS[spec]
+    d_raw, w, _, _ = _layer_inputs(3, kt, kf)
+    wf = fold_kernel(jnp.asarray(w))
+    zero = jnp.zeros((8, FOLD * C), jnp.float32)
+    frame = _frame(d_raw)
+    out, dbias = jcf._conv_dgrad(
+        frame, frame, jcf._flip_packed(wf), zero, GEOM, kt, wf.shape[1], dt, None, prologue=False
+    )
+    wt = torch.from_numpy(w)
+    dx, db = cf.conv_dgrad(torch.from_numpy(d_raw), cf.pack_weight_flipped(wt, torch.float32), dt)
+    assert dx.shape == (B, T, F, C) and dx.is_contiguous() and db.shape == (C,)
+    _assert_peak_close(dx.numpy(), _unframe(out), PEAK_TOL)
+    _assert_peak_close(db.numpy(), _unfold_channels(dbias[0]), PEAK_TOL, "dbias")
+
+
+@pytest.mark.parametrize("prologue", sorted(PROLOGUES))
+@pytest.mark.parametrize("spec", sorted(SPECS))
+def test_wgrad_plain_version_matches_pallas_kernel(spec, prologue):
+    (kt, kf), dt = SPECS[spec]
+    act, on = PROLOGUES[prologue]
+    x, _, _, bn = _layer_inputs(4, kt, kf)
+    d_raw = np.random.default_rng(5).standard_normal((B, T, F, C)).astype(np.float32)
+    scal_t, scal_j = _scal_pair(bn)
+    zero = jnp.zeros((8, FOLD * C), jnp.float32)
+    kb = fold_kernel(jnp.zeros((kt, kf, 1, 1))).shape[1]
+    d_frame = _frame(d_raw)
+    dwf = jcf._conv_wgrad(
+        _frame(x), d_frame, d_frame, scal_j, zero, GEOM, kt, kb, dt, act, None,
+        lhs_prologue=on, rhs_prologue=False,
+    )
+    want = jcf._unfold_grad(dwf, kt, kf, C, C)
+    got = cf.conv_wgrad(torch.from_numpy(x), torch.from_numpy(d_raw), scal_t, kt, kf, dt, act, on)
+    assert got.shape == (kt, kf, C, C) and got.dtype == torch.float32
+    _assert_peak_close(got.numpy(), _np(want), PEAK_TOL)
+
+
+def test_flipped_weights_give_the_convs_data_gradient():
+    """`conv_dgrad` with `pack_weight_flipped` is autograd's gradient of the
+    forward conv with respect to its input (fp32, dilated)."""
+    (kt, kf), dt = SPECS["5x5-d2"]
+    x, w, bias, _ = _layer_inputs(6, kt, kf)
+    cot = np.random.default_rng(7).standard_normal((B, T, F, C)).astype(np.float32)
+    xt = torch.from_numpy(x).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    (cf._conv_core(xt, wt, dt) * torch.from_numpy(cot)).sum().backward()
+    dx, _ = cf.conv_dgrad(torch.from_numpy(cot), cf.pack_weight_flipped(wt.detach(), torch.float32), dt)
+    zero = torch.zeros(8, C)
+    dw = cf.conv_wgrad(torch.from_numpy(x), torch.from_numpy(cot), zero, kt, kf, dt, None, False)
+    _assert_peak_close(dx.numpy(), xt.grad.numpy(), 1e-5)
+    _assert_peak_close(dw.numpy(), wt.grad.numpy(), 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The chain against `make_chain`
+# ---------------------------------------------------------------------------
+
+
+def _chain_params(rng):
+    specs = list(SPECS.values())
+    ws = [(0.08 * rng.standard_normal((kt, kf, C, C))).astype(np.float32) for (kt, kf), _ in specs]
+    cbs = [(0.1 * rng.standard_normal(C)).astype(np.float32) for _ in specs]
+    scales = [(1.0 + 0.1 * rng.standard_normal(C)).astype(np.float32) for _ in specs[:-1]]
+    biases = [(0.1 * rng.standard_normal(C)).astype(np.float32) for _ in specs[:-1]]
+    return ws, cbs, scales, biases
+
+
+@pytest.mark.parametrize("act", ["mish", "relu"])
+def test_chain_matches_jax_make_chain(act):
+    """Value, statistics and all five gradients (fp32).  The inner layers'
+    conv-bias gradients are analytically zero (a train-mode BatchNorm
+    cancels a constant shift), so both sides hold summation noise there and
+    an absolute floor is the comparison, as in `tests/test_conv_fused.py`."""
+    rng = np.random.default_rng(8)
+    specs = list(SPECS.values())
+    params = _chain_params(rng)
+    y1 = rng.standard_normal((B, T, F, C)).astype(np.float32)
+    cot = rng.standard_normal((B, T, F, C)).astype(np.float32)
+    cot_j = fold_input(jnp.asarray(cot))  # zero pad column, as bn_act's backward emits
+
+    jchain = jcf.make_chain(specs, T, F, act, EPS)
+
+    def loss(y1f, ws, cbs, scales, biases):
+        raw, means, vars_ = jchain(y1f, ws, cbs, scales, biases)
+        return jnp.sum(raw * cot_j), (raw, means, vars_)
+
+    jparams = [tuple(jnp.asarray(a) for a in group) for group in params]
+    (_, (raw_j, means_j, vars_j)), grads_j = jax.value_and_grad(
+        loss, argnums=(0, 1, 2, 3, 4), has_aux=True
+    )(fold_input(jnp.asarray(y1)), *jparams)
+
+    y1_t = torch.from_numpy(y1).requires_grad_()
+    tparams = [tuple(torch.from_numpy(a).requires_grad_() for a in group) for group in params]
+    raw, means, vars_ = cf.make_chain(specs, act, EPS)(y1_t, *tparams)
+    assert not means[0].requires_grad and not vars_[-1].requires_grad
+    (raw * torch.from_numpy(cot)).sum().backward()
+
+    _assert_peak_close(raw.detach().numpy(), _np(unfold_output(raw_j, F)), PEAK_TOL, "raw")
+    for a, b in zip(means + vars_, tuple(means_j) + tuple(vars_j)):
+        np.testing.assert_allclose(a.numpy(), _np(b), rtol=1e-4, atol=1e-4)
+
+    _assert_peak_close(y1_t.grad.numpy(), _np(unfold_output(grads_j[0], F)), 5e-4, "d_y1")
+    names = ["d_W", "d_conv_bias", "d_scale", "d_bias"]
+    for name, got_group, want_group in zip(names, tparams, grads_j[1:]):
+        for idx, (p, want) in enumerate(zip(got_group, want_group)):
+            if name == "d_conv_bias":
+                np.testing.assert_allclose(
+                    p.grad.numpy(), _np(want), rtol=5e-3, atol=2e-3, err_msg=f"{name}[{idx}]"
+                )
+            else:
+                _assert_peak_close(p.grad.numpy(), _np(want), 5e-4, f"{name}[{idx}]")
+
+
+def test_chain_checks_its_arguments():
+    chain = cf.make_chain(list(SPECS.values()), "mish")
+    ws, cbs, scales, biases = (tuple(map(torch.from_numpy, g)) for g in _chain_params(np.random.default_rng(0)))
+    y1 = torch.zeros(B, T, F, C)
+    with pytest.raises(ValueError, match="BatchNorm affines"):
+        chain(y1, ws, cbs, scales[:-1], biases)
+    with pytest.raises(ValueError, match="unknown activation"):
+        cf.make_chain(list(SPECS.values()), "gelu")
+    with pytest.raises(ValueError, match="odd"):
+        cf.conv_bn_act_fwd(y1, torch.zeros(4, 5, C, C), cbs[0], torch.zeros(8, C), 1, None, False)
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        cf.conv_dgrad(y1.half(), torch.zeros(5, 5, C, C).half(), 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        cf.conv_dgrad(y1.transpose(1, 2), torch.zeros(5, 5, C, C), 1)
+    with pytest.raises(ValueError, match="prologue"):
+        cf.conv_wgrad(y1, y1, torch.zeros(8, C), 5, 5, 1, None, True)
+
+
+# ---------------------------------------------------------------------------
+# The model and the train step with the chain on
+# ---------------------------------------------------------------------------
+
+DIMS = dict(num_freq=37, emb_dim=16, lstm_dim=24, fc1_dim=20, fc2_dim=37, conv_channels=64)
+TM = 11
+
+
+def _port_on(monkeypatch, on=True):
+    monkeypatch.setenv("VOICESPLIT_FUSED_CHAIN", "1" if on else "0")
+
+
+def _model_inputs(seed):
+    rng = np.random.default_rng(seed)
+    spec = rng.uniform(0, 1, (2, TM, DIMS["num_freq"])).astype(np.float32)
+    emb = rng.standard_normal((2, DIMS["emb_dim"])).astype(np.float32)
+    cot = rng.standard_normal((2, TM, DIMS["num_freq"])).astype(np.float32)
+    return spec, emb, cot
+
+
+def _port_grads(port, spec, emb, cot):
+    port.zero_grad()
+    (port(torch.from_numpy(spec), torch.from_numpy(emb)) * torch.from_numpy(cot)).sum().backward()
+    return {k: p.grad.numpy().copy() for k, p in port.named_parameters()}
+
+
+def _assert_grads_close(got, want, rel):
+    """Per parameter, within `rel` of the model's largest gradient; the
+    conv biases under a train-mode BatchNorm hold only round-off."""
+    scale = max(np.abs(v).max() for v in want.values())
+    for k, v in want.items():
+        np.testing.assert_allclose(got[k], v, atol=rel * scale, rtol=0, err_msg=k)
+
+
+@pytest.mark.parametrize("activation", ["mish", "relu"])
+def test_masknet_chain_matches_jax_chain(activation, monkeypatch):
+    """Train-mode `MaskNet`, chain on in both packages (the JAX switch is
+    TPU-only, so its function is patched as `tests/test_conv_fused.py`
+    does): mask, every running statistic and every gradient (fp32).  The
+    inputs' seed keeps every pre-activation at least 1e-5 away from relu's
+    kink, where round-off alone would decide a gate."""
+    port = MaskNet(activation=activation, **DIMS).train()
+    params, stats = weights.random_jax_variables(port, seed=1)
+    port.load_state_dict(weights.state_dict_from_jax(params, stats))
+    spec, emb, cot = _model_inputs(5)
+    jm = JaxMaskNet(activation=activation, **DIMS)
+    monkeypatch.setattr(jcf, "fused_chain_enabled", lambda: True)
+
+    def loss(p):
+        mask, upd = jm.apply(
+            {"params": p, "batch_stats": stats}, jnp.asarray(spec), jnp.asarray(emb),
+            train=True, mutable=["batch_stats"],
+        )
+        return jnp.sum(mask * cot), (mask, upd["batch_stats"])
+
+    (_, (mask_j, new_stats)), grads = jax.value_and_grad(loss, has_aux=True)(params)
+
+    _port_on(monkeypatch)
+    assert port._use_fused_chain()
+    with torch.no_grad():
+        before = {k: v.clone() for k, v in port.state_dict().items()}
+        mask = port(torch.from_numpy(spec), torch.from_numpy(emb))
+        port.load_state_dict(before)
+    np.testing.assert_allclose(mask.numpy(), _np(mask_j), atol=2e-5)
+    got = _port_grads(port, spec, emb, cot)
+    want = {k: v.numpy() for k, v in weights.params_from_jax(jax.device_get(grads)).items()}
+    _assert_grads_close(got, want, 1e-4)
+    want_sd = weights.state_dict_from_jax(params, jax.device_get(new_stats))
+    for k, v in port.state_dict().items():
+        if k.endswith((".mean", ".var")):
+            np.testing.assert_allclose(v.numpy(), want_sd[k].numpy(), atol=1e-5, err_msg=k)
+            assert not torch.equal(v, before[k]), k
+
+
+@pytest.mark.parametrize(
+    "activation,dtype", [("mish", "float32"), ("relu", "float32"), ("mish", "bfloat16")]
+)
+def test_masknet_chain_on_matches_chain_off(activation, dtype, monkeypatch):
+    """The port with the chain on against itself with the chain off: mask,
+    gradients, running statistics.  fp32: sums in another order.  bf16: the
+    chain normalizes in fp32 before one rounding where the unfused op
+    rounds the scale, the shift and every step of the activation, and the
+    gradients pass back through six such layers: by size and direction.
+    (relu in bf16 is left out: the two roundings of z also decide gates
+    differently, which no elementwise tolerance describes.)"""
+    torch.manual_seed(0)
+    port = MaskNet(activation=activation, compute_dtype=getattr(torch, dtype), **DIMS).train()
+    weights.init_random_(port, seed=3)
+    spec, emb, cot = _model_inputs(4)
+    before = {k: v.clone() for k, v in port.state_dict().items()}
+    out = {}
+    for on in (False, True):
+        port.load_state_dict(before)
+        _port_on(monkeypatch, on)
+        assert port._use_fused_chain() == on
+        grads = _port_grads(port, spec, emb, cot)
+        with torch.no_grad():
+            port.load_state_dict(before)
+            mask = port(torch.from_numpy(spec), torch.from_numpy(emb)).numpy()
+        out[on] = (mask, grads, {k: v.numpy().copy() for k, v in port.state_dict().items()})
+    fp32 = dtype == "float32"
+    np.testing.assert_allclose(out[True][0], out[False][0], atol=2e-5 if fp32 else 2e-2)
+    for k, v in out[False][2].items():
+        if k.endswith((".mean", ".var")):
+            np.testing.assert_allclose(out[True][2][k], v, atol=1e-5 if fp32 else 2e-2, err_msg=k)
+    if fp32:
+        _assert_grads_close(out[True][1], out[False][1], 1e-4)
+    else:
+        signal = {k: v for k, v in out[False][1].items() if not k.endswith("conv.bias")}
+        _assert_grads_close(out[True][1], signal, 0.2)
+        for k, want in signal.items():
+            got = out[True][1][k].ravel()
+            cos = got @ want.ravel() / (np.linalg.norm(got) * np.linalg.norm(want))
+            assert cos >= (0.6 if k.startswith("conv") else 0.98), (k, cos)
+
+
+def test_eval_mode_and_narrow_models_ignore_the_switch(monkeypatch):
+    _port_on(monkeypatch)
+    port = MaskNet(activation="mish", **DIMS)
+    assert port.train()._use_fused_chain() and not port.eval()._use_fused_chain()
+    narrow = MaskNet(activation="mish", **{**DIMS, "conv_channels": 8}).train()
+    assert not narrow._use_fused_chain()  # 2·8 is no multiple of 128
+    _port_on(monkeypatch, False)
+    assert not port.train()._use_fused_chain()
+    assert not cf.fused_chain_enabled()
+
+
+HOP, FRAMES = 32, 24
+L = HOP * FRAMES
+LR = 1e-3
+
+
+def _config_text():
+    d = json.loads((REPO / "configs" / "voicesplit.json").read_text())
+    d["audio"]["voicefilter"].update(n_fft=128, hop_length=HOP, win_length=64, num_freq=65)
+    d["audio"]["audio_len"] = L / 16000
+    d["model"].update(conv_channels=64, lstm_dim=16, fc1_dim=24, fc2_dim=65, emb_dim=16)
+    d["train_config"].update(compute_dtype="float32", learning_rate=LR)
+    return json.dumps(d)
+
+
+def _batch(batch, seed):
+    rng = np.random.default_rng(seed)
+    t = np.arange(L) / 16000.0
+    target = 0.2 * np.sin(2 * np.pi * rng.uniform(100, 300, (batch, 1)) * t)
+    mixed = target + 0.2 * np.sin(2 * np.pi * rng.uniform(400, 900, (batch, 1)) * t)
+    mixed += 0.02 * rng.standard_normal((batch, L))
+    return {
+        "mixed_wav": mixed.astype(np.float32), "target_wav": target.astype(np.float32),
+        "emb": rng.standard_normal((batch, 16)).astype(np.float32),
+        "wav_len": np.full((batch,), L, np.int32),
+    }
+
+
+def test_train_step_with_the_chain_matches_jax(monkeypatch):
+    """One `make_train_step` step of each package with the chain on, from
+    the same weights and batch (fp32, si_snr, Adam), as
+    `tests/test_torch_train.py` compares them with the chain off: loss and
+    grad_norm to summation order, running statistics to 1e-5, the gradients
+    (read from Adam's first moment, 0.1·g) within 5e-3 of the model's
+    largest, every weight within 2·lr."""
+    text = _config_text()
+    jc, tc = jax_config(text), load_config_from_str(text)
+    model = make_masknet(tc, device="cpu")
+    params, stats = weights.random_jax_variables(model, 0)
+    model.load_state_dict(weights.state_dict_from_jax(params, stats))
+    ap = make_audio_processor(tc, device="cpu")
+    optimizer = make_optimizer(tc, model)
+    state = create_train_state(model, optimizer)
+    tx = jax_state.make_optimizer(jc)
+    jstate = jax_state.TrainState(
+        step=jnp.zeros((), jnp.int32), params=params, batch_stats=stats, opt_state=tx.init(params)
+    )
+    batch = _batch(2, seed=1)
+
+    monkeypatch.setattr(jcf, "fused_chain_enabled", lambda: True)
+    jstep = jax_steps.make_train_step(jc, jax_make_masknet(jc), jax_audio_processor(jc), tx, donate=False)
+    jstate, jm = jstep(jstate, batch)
+
+    _port_on(monkeypatch)
+    calls = []
+    chain_apply = cf._Chain.apply
+    monkeypatch.setattr(cf._Chain, "apply", lambda *a: calls.append(1) or chain_apply(*a))
+    m = make_train_step(tc, model, ap, optimizer)(state, batch)
+    assert calls == [1]  # the step went through the chain
+
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(float(m["grad_norm"]), float(jm["grad_norm"]), rtol=1e-4)
+    want_sd = weights.state_dict_from_jax(
+        jax.device_get(jstate.params), jax.device_get(jstate.batch_stats)
+    )
+    got_sd = model.state_dict()
+    for k, want in want_sd.items():
+        tol = 1e-5 if k.endswith((".mean", ".var")) else 2 * LR + 1e-7
+        np.testing.assert_allclose(got_sd[k].numpy(), want.numpy(), atol=tol, rtol=0, err_msg=k)
+    mu = weights.params_from_jax(weights._adam_state(jax.device_get(jstate.opt_state)).mu)
+    exp_avg = {k: optimizer.state[p]["exp_avg"].numpy() for k, p in model.named_parameters()}
+    _assert_grads_close(exp_avg, {k: v.numpy() for k, v in mu.items()}, 5e-3)
+
+
+def test_eval_step_and_serving_ignore_the_switch(monkeypatch):
+    """`make_eval_step` and `separate_batch` run the model in eval mode:
+    the same numbers with the switch on and off, and no call of the chain."""
+    tc = load_config_from_str(_config_text())
+    model = weights.init_random_(make_masknet(tc, device="cpu"), 1)
+    ap = make_audio_processor(tc, device="cpu")
+    batch = _batch(2, seed=2)
+    monkeypatch.setattr(
+        cf._Chain, "apply", lambda *a: pytest.fail("the chain ran in eval mode")
+    )
+    out = {}
+    for on in (False, True):
+        _port_on(monkeypatch, on)
+        model.train()  # the eval step switches to eval mode itself
+        ev = make_eval_step(tc, model, ap)(batch)
+        model.eval()  # serving: the mode `make_masknet` returns
+        out[on] = (float(ev["loss"]), separate_batch(model, ap, batch["mixed_wav"], batch["emb"]))
+    assert out[True][0] == out[False][0]
+    assert torch.equal(out[True][1], out[False][1])
+
+
+def test_a_cuda_device_without_a_card_still_raises(monkeypatch):
+    """The switch opens no quiet CPU path: the card is still the default."""
+    _port_on(monkeypatch)
+    tc = load_config_from_str(_config_text())
+    if torch.cuda.is_available():
+        assert next(make_masknet(tc).parameters()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_masknet(tc)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_masknet(tc, device="cuda")

@@ -190,3 +190,80 @@ def test_train_step_runs_through_the_kernels_on_card(batch):
     assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
     for k, v in model.state_dict().items():
         assert not torch.equal(v, before[k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layer", ["7x1", "5x5-d2"])
+def test_conv_chain_kernels_match_plain_versions_on_card(layer, dtype):
+    """`conv_bn_act_fwd`, `conv_dgrad` and `conv_wgrad` against their plain
+    versions at a small shape whose halo (dilation 2, F off the 128-wide
+    tile) is in play, mish prologue on."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import conv_fused as cf
+
+    (kt, kf), dil = {"7x1": ((7, 1), 1), "5x5-d2": ((5, 5), 2)}[layer]
+    g = torch.Generator().manual_seed(0)
+    dt = getattr(torch, dtype)
+    shape, C = (2, 13, 150, 64), 64
+    x = torch.randn(shape, generator=g).to("cuda", dt)
+    d = torch.randn(shape, generator=g).to("cuda", dt)
+    w = (torch.randn(kt, kf, C, C, generator=g) * (kt * kf * C) ** -0.5).to("cuda", dt)
+    bias = (0.1 * torch.randn(C, generator=g)).cuda()
+    scal = cf._scal_table(
+        0.2 * torch.randn(C, generator=g), torch.rand(C, generator=g) + 0.5,
+        torch.rand(C, generator=g) + 0.5, 0.1 * torch.randn(C, generator=g),
+    ).cuda()
+    wf = cf.pack_weight_flipped(w, dt)
+    before = dict(cf.LAUNCHES)
+    with torch.inference_mode():
+        got = (*cf.conv_bn_act_fwd(x, w, bias, scal, dil, "mish", True),
+               *cf.conv_dgrad(d, wf, dil),
+               cf.conv_wgrad(x, d, scal, kt, kf, dil, "mish", True))
+        want = (*cf.conv_bn_act_fwd_ref(x, w, bias, scal, dil, "mish", True),
+                *cf.conv_dgrad_ref(d, wf, dil),
+                cf.conv_wgrad_ref(x, d, scal, kt, kf, dil, "mish", True))
+    torch.cuda.synchronize()
+    assert cf.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    # relative to each output's peak.  fp32: summation order only.  bf16:
+    # raw and dx may round the other way once (one ulp is at most 2^-7 of
+    # the peak); the sums and dW add exact products in another order
+    tols = {"float32": [1e-4] * 5, "bfloat16": [1e-2, 1e-3, 1e-2, 1e-3, 1e-3]}[dtype]
+    for a, b, tol in zip(got, want, tols):
+        assert bool(torch.isfinite(a).all())
+        assert (a.float() - b.float()).abs().max().item() <= tol * b.float().abs().max().item()
+
+
+@pytest.mark.gpu
+def test_fused_train_step_runs_through_the_conv_kernels_on_card(monkeypatch):
+    """Full-width train step with `VOICESPLIT_FUSED_CHAIN=1` at the config's
+    batch: six launches of each conv kernel beside the LSTM's."""
+    _need_card()
+    from voicesplit_tpu_torch import weights
+    from voicesplit_tpu_torch.ops import conv_fused, lstm_cuda
+    from voicesplit_tpu_torch.train import create_train_state, make_optimizer, make_train_step
+
+    monkeypatch.setenv("VOICESPLIT_FUSED_CHAIN", "1")
+    cfg = load_config(str(REPO / "configs" / "voicesplit.json"))
+    ap = make_audio_processor(cfg)
+    model = weights.init_random_(make_masknet(cfg), seed=0)
+    opt = make_optimizer(cfg, model)
+    state = create_train_state(model, opt)
+    rng = np.random.default_rng(0)
+    target = (0.1 * rng.standard_normal((2, 48000))).astype(np.float32)
+    batch = {
+        "mixed_wav": target + (0.1 * rng.standard_normal((2, 48000))).astype(np.float32),
+        "target_wav": target,
+        "emb": rng.standard_normal((2, 256)).astype(np.float32),
+        "wav_len": np.full((2,), 48000, np.int32),
+    }
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    lstm_cuda.reset_launch_counts()
+    conv_fused.reset_launch_counts()
+    m = make_train_step(cfg, model, ap, opt)(state, batch)
+    torch.cuda.synchronize()
+    assert conv_fused.LAUNCHES == {"conv_bn_act_fwd": 6, "conv_dgrad": 6, "conv_wgrad": 6}
+    assert lstm_cuda.LAUNCHES == {"lstm_fwd": 2, "bilstm_fwd": 0, "lstm_bwd": 2, "bilstm_bwd": 0}
+    assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
+    for k, v in model.state_dict().items():
+        assert not torch.equal(v, before[k]), k

@@ -5,7 +5,10 @@ nothing of it, nor JAX.  Ported so far: the serving path (spectrogram →
 eval-mode mask network → mixed-phase iSTFT) and the training step
 (`train/`: train-mode mask network, losses, Adam), with the BiLSTM
 recurrence and its backward in hand-written CUDA kernels
-(`ops/lstm_cuda.py`, `csrc/lstm_fwd.cu`, `csrc/lstm_bwd.cu`).
+(`ops/lstm_cuda.py`, `csrc/lstm_fwd.cu`, `csrc/lstm_bwd.cu`), and the
+training step's fused conv chain (``VOICESPLIT_FUSED_CHAIN=1``) with its
+forward, data-gradient and weight-gradient kernels (`ops/conv_fused.py`,
+`csrc/conv_fused.cu`).
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``, where the kernels' plain PyTorch versions run instead.

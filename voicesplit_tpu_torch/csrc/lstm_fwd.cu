@@ -275,6 +275,7 @@ extern "C" int lstm_launch_config(int D, int B, int H, int bf16, int* blocks, in
   return cudaSuccess;
 }
 
-extern "C" const char* lstm_error_string(int err) {
+// The text of a cudaError_t, for every wrapper of this library.
+extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

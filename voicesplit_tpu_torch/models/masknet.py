@@ -22,6 +22,13 @@ and moves its running statistics as flax does,
 (``torch.nn.functional.batch_norm`` would use the unbiased variance).
 ``model.eval()`` uses the running statistics.
 
+With ``VOICESPLIT_FUSED_CHAIN=1`` a train-mode forward runs ``conv2`` …
+``conv7`` as one fused chain (`ops/conv_fused.py`, the JAX package's switch
+and conditions): their convs, the BatchNorm + activation between them and
+their batch statistics go through the chain's kernels in channels-last
+``[B, T, F, C]``; ``conv1``, ``conv7``'s own BatchNorm + activation and
+``conv8`` run as usual.  Eval mode never takes the chain.
+
 Dropout acts only in train mode, so a config with ``dropout > 0`` builds
 and serves; its train step is not ported yet (`train.make_train_step`
 raises).  Not ported yet: causal convs, extra dilated blocks and the
@@ -39,6 +46,7 @@ from voicesplit_tpu_torch.config import Config
 from voicesplit_tpu_torch.device import DeviceLike, resolve_device
 from voicesplit_tpu_torch.models.lstm import BiLSTM
 from voicesplit_tpu_torch.ops.bn_act import bn_act_eval, bn_act_train, mish
+from voicesplit_tpu_torch.ops.conv_fused import fused_chain_enabled, make_chain
 
 __all__ = ["BatchNorm", "ConvBlock", "MaskNet", "make_masknet", "mish"]
 
@@ -107,6 +115,10 @@ class ConvBlock(nn.Module):
         y = nn.functional.conv2d(
             x.to(cd), c.weight.to(cd), c.bias.to(cd), padding=c.padding, dilation=c.dilation
         )
+        return self.bn_act(y)
+
+    def bn_act(self, y: torch.Tensor) -> torch.Tensor:
+        """BatchNorm + activation of the raw conv output ``[B, C, T, F]``."""
         bn = self.bn
         if self.training:
             y, mean, var = bn_act_train(y, bn.scale, bn.bias, self.activation, bn.epsilon)
@@ -133,6 +145,7 @@ class MaskNet(nn.Module):
         super().__init__()
         self.num_freq = num_freq
         self.emb_dim = emb_dim
+        self.conv_channels = conv_channels
         self.conv_out_channels = conv_out_channels
         self.compute_dtype = compute_dtype
         specs = CONV_SPECS + [((1, 1), (1, 1))]
@@ -153,9 +166,43 @@ class MaskNet(nn.Module):
         """``[B, T, F]`` → flattened conv features ``[B, T, 8F]`` (f·C + c)."""
         B, T, F = spec.shape
         x = spec.to(self.compute_dtype)[:, None]  # [B, 1, T, F]
-        for name in self.block_names:
-            x = getattr(self, name)(x)
+        if self._use_fused_chain():
+            x = self._fused_chain_features(x)
+        else:
+            for name in self.block_names:
+                x = getattr(self, name)(x)
         return x.permute(0, 2, 3, 1).reshape(B, T, F * self.conv_out_channels)
+
+    def _use_fused_chain(self) -> bool:
+        """The JAX model's conditions (`masknet.py:385-395`; the port has no
+        causal mode): train mode, the switch, and a channel count that the
+        folded TPU layout takes.  The CUDA kernels take 64 channels; another
+        multiple of 64 raises on the card."""
+        return (
+            self.training and fused_chain_enabled() and (2 * self.conv_channels) % 128 == 0
+        )
+
+    def _fused_chain_features(self, x: torch.Tensor) -> torch.Tensor:
+        """``conv1`` as usual, the convs of ``conv2`` … ``conv7`` as one
+        fused chain, ``conv7``'s BatchNorm + activation on the chain's raw
+        output (it takes the statistics again), ``conv8`` as usual."""
+        blocks = [getattr(self, name) for name in self.block_names]
+        chain_blocks = blocks[1:-1]
+        specs = [(b.conv.kernel_size, b.conv.dilation[0]) for b in chain_blocks]
+        chain = make_chain(specs, chain_blocks[0].activation, chain_blocks[0].bn.epsilon)
+        y1 = blocks[0](x).permute(0, 2, 3, 1)  # [B, T, F, C]
+        raw, means, vars_ = chain(
+            y1,
+            # OIHW → [kt, kf, Cin, Cout]
+            tuple(b.conv.weight.permute(2, 3, 1, 0) for b in chain_blocks),
+            tuple(b.conv.bias for b in chain_blocks),
+            tuple(b.bn.scale for b in chain_blocks[:-1]),
+            tuple(b.bn.bias for b in chain_blocks[:-1]),
+        )
+        for b, mean, var in zip(chain_blocks[:-1], means, vars_):
+            b.bn.update_running(mean, var)
+        h = chain_blocks[-1].bn_act(raw.permute(0, 3, 1, 2))  # a channels-last NCHW view
+        return blocks[-1](h)
 
     def mask_head(self, features: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         B, T, _ = features.shape

@@ -1,1 +1,2 @@
-"""Operators: BatchNorm+activation (eval and train) and the LSTM kernels."""
+"""Operators: BatchNorm+activation (eval and train), the LSTM kernels, the
+fused conv chain and its kernels, and the kernels' build (`_build`)."""

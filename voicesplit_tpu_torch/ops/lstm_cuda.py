@@ -19,34 +19,23 @@ adds one to ``LAUNCHES[name]``.  ``lstm_fwd`` / ``bilstm_fwd`` are
 differentiable: their autograd backward runs ``lstm_bwd`` / ``bilstm_bwd``
 on the same dispatch rule.
 
-The kernels are compiled by ``nvcc`` for ``sm_90a`` into ``build/`` at the
-repository root on first use, from every source under ``csrc/`` (one
-``nvcc`` per source, all at once, then one link), and loaded with
-``ctypes``.
+The kernels are compiled and loaded by `ops/_build.py` (``nvcc`` for
+``sm_90a`` into ``build/`` at first use, ``ctypes``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
-CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
-COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-LINK_FLAGS = (*ARCH, "-shared")
+from voicesplit_tpu_torch.ops import _build
 
 # kernel launches per wrapper, for showing that a run went through them
 LAUNCHES = {"lstm_fwd": 0, "bilstm_fwd": 0, "lstm_bwd": 0, "bilstm_bwd": 0}
 
-_lib: Optional[ctypes.CDLL] = None
+_declared = False
 
 
 def reset_launch_counts() -> None:
@@ -54,93 +43,24 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    for cand in (
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-        shutil.which("nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the LSTM kernels cannot be built")
-
-
-def build() -> Tuple[Path, str]:
-    """Compile the kernels if any source changed; returns ``(library, log)``.
-
-    Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all
-    started together, and the objects are linked into one library named
-    by a hash of all sources and flags.  The log holds ``ptxas -v``
-    (registers, shared memory, spills) of a fresh build and is empty when
-    an up-to-date library was found.
-    """
-    srcs = sorted(CSRC.glob("*.cu"))
-    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
-    for src in srcs:
-        h.update(src.name.encode() + b"\0" + src.read_bytes())
-    digest = h.hexdigest()[:16]
-    lib = BUILD_DIR / f"liblstm-{digest}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = f"{digest}.{os.getpid()}"
-    nvcc = _nvcc()
-    objs = [BUILD_DIR / f"{src.stem}-{tag}.o" for src in srcs]
-    procs = [
-        subprocess.Popen(
-            [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        for src, obj in zip(srcs, objs)
-    ]
-    logs = []
-    for src, proc in zip(srcs, procs):
-        out, _ = proc.communicate()
-        logs.append(f"[{src.name}]\n{out}")
-        if proc.returncode != 0:
-            for p in procs:
-                p.wait()
-            raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{out}")
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    link = subprocess.run(
-        [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)], capture_output=True, text=True
-    )
-    for obj in objs:
-        obj.unlink(missing_ok=True)
-    if link.returncode != 0:
-        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}{link.stderr}")
-    os.replace(tmp, lib)  # atomic: a process building at the same time never loads half a file
-    return lib, "".join(logs) + link.stdout + link.stderr
-
-
 def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
+    global _declared
+    if not _declared:
         p, i = ctypes.c_void_p, ctypes.c_int
-        signatures = {
+        out = [ctypes.POINTER(i), ctypes.POINTER(i), ctypes.POINTER(ctypes.c_longlong)]
+        _build.declare({
             "lstm_fwd": [p] * 7 + [i] * 4 + [p],
             "bilstm_fwd": [p] * 6 + [i] * 4 + [p],
             "lstm_bwd": [p] * 13 + [i] * 4 + [p],
             "bilstm_bwd": [p] * 9 + [i] * 4 + [p],
-        }
-        for name, argtypes in signatures.items():
-            getattr(lib, name).argtypes = argtypes
-            getattr(lib, name).restype = i
-        out = [ctypes.POINTER(i), ctypes.POINTER(i), ctypes.POINTER(ctypes.c_longlong)]
-        for name in ("lstm_launch_config", "lstm_bwd_launch_config"):
-            getattr(lib, name).argtypes = [i, i, i, i, *out]
-            getattr(lib, name).restype = i
-        lib.lstm_error_string.argtypes = [i]
-        lib.lstm_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+            "lstm_launch_config": [i, i, i, i, *out],
+            "lstm_bwd_launch_config": [i, i, i, i, *out],
+        })
+        _declared = True
+    return _build.library()
 
 
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        msg = _library().lstm_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel failed: CUDA error {err} ({msg})")
+_raise_on = _build.raise_on
 
 
 def launch_config(
@@ -324,10 +244,6 @@ def _check_bwd(weights, gates, seqs, states, x_dtype) -> None:
         raise ValueError(f"the kernel needs x in W_hh's type {weights[0].dtype}, got {x_dtype}")
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _outputs(xp: torch.Tensor, H: int):
     T, R = xp.shape[:2]
     kw = dict(dtype=torch.float32, device=xp.device)
@@ -342,7 +258,7 @@ def _launch_lstm_fwd(xp, whh, h0, c0):
         err = lib.lstm_fwd(
             xp.data_ptr(), whh.data_ptr(), h0.data_ptr(), c0.data_ptr(),
             hs.data_ptr(), cs.data_ptr(), gates.data_ptr(),
-            T, xp.shape[1], H, int(xp.dtype == torch.bfloat16), _stream(xp),
+            T, xp.shape[1], H, int(xp.dtype == torch.bfloat16), _build.stream(xp),
         )
     _raise_on(err, "lstm_fwd")
     LAUNCHES["lstm_fwd"] += 1
@@ -357,7 +273,7 @@ def _launch_bilstm_fwd(xp, whh_f, whh_b):
         err = lib.bilstm_fwd(
             xp.data_ptr(), whh_f.data_ptr(), whh_b.data_ptr(),
             hs.data_ptr(), cs.data_ptr(), gates.data_ptr(),
-            T, xp.shape[1] // 2, H, int(xp.dtype == torch.bfloat16), _stream(xp),
+            T, xp.shape[1] // 2, H, int(xp.dtype == torch.bfloat16), _build.stream(xp),
         )
     _raise_on(err, "bilstm_fwd")
     LAUNCHES["bilstm_fwd"] += 1
@@ -376,7 +292,7 @@ def _launch_lstm_bwd(whh, gates, cs, hs, h0, c0, dhs, dhf, dcf, x_dtype):
             whh.data_ptr(), gates.data_ptr(), cs.data_ptr(), hs.data_ptr(),
             h0.data_ptr(), c0.data_ptr(), dhs.data_ptr(), dhf.data_ptr(), dcf.data_ptr(),
             dxp.data_ptr(), dw.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-            T, R, G // 4, int(whh.dtype == torch.bfloat16), _stream(gates),
+            T, R, G // 4, int(whh.dtype == torch.bfloat16), _build.stream(gates),
         )
     _raise_on(err, "lstm_bwd")
     LAUNCHES["lstm_bwd"] += 1
@@ -393,27 +309,18 @@ def _launch_bilstm_bwd(whh_f, whh_b, gates, cs, hs, dhs, x_dtype):
         err = lib.bilstm_bwd(
             whh_f.data_ptr(), whh_b.data_ptr(), gates.data_ptr(), cs.data_ptr(),
             hs.data_ptr(), dhs.data_ptr(), dxp.data_ptr(), dwf.data_ptr(), dwb.data_ptr(),
-            T, R // 2, G // 4, int(whh_f.dtype == torch.bfloat16), _stream(gates),
+            T, R // 2, G // 4, int(whh_f.dtype == torch.bfloat16), _build.stream(gates),
         )
     _raise_on(err, "bilstm_bwd")
     LAUNCHES["bilstm_bwd"] += 1
     return dxp, dwf, dwb
 
 
-def _dispatch(device: torch.device, kernel, plain):
-    """The kernel for a CUDA tensor, the plain version for a CPU one."""
-    if device.type == "cuda":
-        return kernel
-    if device.type == "cpu":
-        return plain
-    raise ValueError(f"unsupported device {device}")
-
-
 def lstm_bwd(whh, gates, cs, hs, h0, c0, dhs, dhf, dcf, x_dtype):
     """Backward of one direction (kernel on CUDA, plain version on the CPU);
     see `lstm_bwd_ref` for shapes and dtypes."""
     _check_bwd((whh,), gates, (cs, hs, dhs), (h0, c0, dhf, dcf), x_dtype)
-    fn = _dispatch(gates.device, _launch_lstm_bwd, lstm_bwd_ref)
+    fn = _build.dispatch(gates.device, _launch_lstm_bwd, lstm_bwd_ref)
     return fn(whh, gates, cs, hs, h0, c0, dhs, dhf, dcf, x_dtype)
 
 
@@ -423,7 +330,7 @@ def bilstm_bwd(whh_f, whh_b, gates, cs, hs, dhs, x_dtype):
     if gates.dim() != 3 or gates.shape[1] % 2:
         raise ValueError(f"gates must be [T, 2B, 4H], got {tuple(gates.shape)}")
     _check_bwd((whh_f, whh_b), gates, (cs, hs, dhs), (), x_dtype)
-    fn = _dispatch(gates.device, _launch_bilstm_bwd, bilstm_bwd_ref)
+    fn = _build.dispatch(gates.device, _launch_bilstm_bwd, bilstm_bwd_ref)
     return fn(whh_f, whh_b, gates, cs, hs, dhs, x_dtype)
 
 
@@ -445,7 +352,7 @@ class _LSTMFwd(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xp, whh, h0, c0, save):
         _check(xp, h0.shape[0], (whh,), (h0, c0))
-        hs, cs, gates = _dispatch(xp.device, _launch_lstm_fwd, lstm_fwd_ref)(xp, whh, h0, c0)
+        hs, cs, gates = _build.dispatch(xp.device, _launch_lstm_fwd, lstm_fwd_ref)(xp, whh, h0, c0)
         ctx.mark_non_differentiable(gates)
         ctx.set_materialize_grads(False)
         ctx.x_dtype = xp.dtype
@@ -470,7 +377,7 @@ class _BiLSTMFwd(torch.autograd.Function):
         if xp.dim() != 3 or xp.shape[1] % 2:
             raise ValueError(f"xp must be [T, 2B, 4H], got {tuple(xp.shape)}")
         _check(xp, xp.shape[1], (whh_f, whh_b), ())
-        fn = _dispatch(xp.device, _launch_bilstm_fwd, bilstm_fwd_ref)
+        fn = _build.dispatch(xp.device, _launch_bilstm_fwd, bilstm_fwd_ref)
         hs, cs, gates = fn(xp, whh_f, whh_b)
         ctx.mark_non_differentiable(gates)
         ctx.set_materialize_grads(False)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""On-card smoke test of the PyTorch port's serving and training paths
-(NVIDIA H100).
+"""On-card smoke test of the PyTorch port's serving and training paths and
+its training entry point (NVIDIA H100).
 
     python3 chip_smoke.py [--seed 0] [--profile DIR] [--phases a,b,...]
 
@@ -56,6 +56,33 @@ Phases, each printing one JSON line:
    (reports whether it gave the same bits), through the plain versions on
    the card and with the chain off, 20 timed steps.
 
+8. dilated conv kernels — the two kernels of the opt-in conv path
+   (``conv_dilated_fwd``, as forward and, with flipped weights, as data
+   gradient; ``conv_dilated_wgrad``) against their plain versions on the
+   card: bf16 at ``[2, 301, 601, 64]`` for the (7,1) layer and the (5,5)
+   layers of dilation 1 and 16, fp32 at a reduced shape; the forward also
+   against the same sum rounded once; edge rows and columns on their own;
+   the same bits twice.  Then times per layer kind at B=2 and B=8 beside the
+   bound, the plain version, a library yardstick the port never calls
+   (cuDNN ``conv2d``; ``aten.convolution_backward``) and the fused chain's
+   ``conv_dgrad`` / ``conv_wgrad`` for the same layer.
+9. separate dilated — the separate phase's model with
+   ``VOICESPLIT_PALLAS_CONV=1`` at B=1 and B=8: exactly 6
+   ``conv_dilated_fwd`` launches per call beside the LSTM's, mask and
+   waveform against the switch-off run, latency of both.
+10. trainer — writes a synthetic dataset (3 s clips) into a temporary
+   directory and, with the switch on, holds one step of the trainer's own
+   model and first batch against the plain versions and the switch-off step
+   (exact launches per step: 12 + 6 conv launches beside the LSTM's); runs
+   `voicesplit_tpu_torch.cli.train.main` at full width for 16 steps across
+   two checkpoint intervals with three validations (SDR and SI-SNRi on the
+   card) and checks the launches of the whole run, finite losses, a falling
+   validation loss, the checkpoint files and that the last one serves; then
+   a second run resumed from the middle checkpoint, whose final weights must
+   equal the uninterrupted run's.  Prints step time (p50, p75 between
+   summaries), audio-seconds per second and the share of `fit()`'s wall time
+   outside train steps.
+
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit line
 and, last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so
 the exit code is non-zero and no result line is printed.  It also exits
@@ -64,8 +91,9 @@ non-zero without a card, or without the rest of the repository beside it.
 trace of the serving runs and the train steps into DIR and reports the
 device's idle share under the profiler and the device time by kind of
 kernel.  ``--phases`` runs a subset (of kernels, bwd_kernels, separate,
-train, conv_kernels, train_fused; device and build always run) and ends
-with a line marked ``"partial"`` instead of the result lines.
+train, conv_kernels, train_fused, dilated_kernels, separate_dilated,
+trainer; device and build always run) and ends with a line marked
+``"partial"`` instead of the result lines.
 """
 
 from __future__ import annotations
@@ -142,6 +170,46 @@ FUSED_TOL = {"loss_rel": 5e-3, "grad_norm_rel": 2e-2, "grad_peak_rel": 0.3,
 # size <= 0.17, running statistics 7e-4)
 FUSED_VS_EAGER_TOL = {"loss_rel": 2e-2, "grad_norm_rel": 0.1, "grad_peak_rel": 0.3,
                       "grad_cosine_min": 0.97, "running_stat_abs": 2e-2}
+# The dilated conv kernels (`ops/conv_cuda.py`).  bf16 forward / data gradient:
+# the plain version keeps the TPU kernel's rounding (each of the kf frequency
+# taps' partial sums rounded to bf16, then added in bf16: up to 2·kf − 1
+# roundings of an output), the CUDA kernel sums every tap in fp32 and rounds
+# once.  Against the plain version an output may therefore differ by a few
+# bf16 ulps ("out": 2e-2 of the peak; one ulp is at most 2^-7 = 7.8e-3);
+# against the same sum rounded once (`conv_fused._conv_core`) by one flipped
+# rounding ("out_round_once": 1e-2, the fused chain's tolerance).  dW sums
+# exact products in fp32 in another order.  All relative to each output's peak.
+DILATED_TOL = {
+    "bfloat16": {"out": 2e-2, "out_round_once": 1e-2, "dw": 1e-3},
+    "float32": {"out": 1e-4, "out_round_once": 1e-4, "dw": 1e-4},
+}
+DILATED_SERVE_LAUNCHES = {"conv_dilated_fwd": 6, "conv_dilated_wgrad": 0}  # per serving call
+DILATED_TRAIN_LAUNCHES = {"conv_dilated_fwd": 12, "conv_dilated_wgrad": 6}  # per train step
+# serving with the switch on (bf16), mask (absolute, values in [0, 1]) and
+# waveform (relative to its peak): against the same call through the plain
+# versions on the card (which round each frequency tap's partial sum, see
+# above) and against the switch-off call (cuDNN sums in another order).  Six
+# layers whose conv outputs may round the other way, each followed by
+# BatchNorm with running statistics, which does not amplify them as a batch's
+# statistics do in training.
+SEPARATE_DILATED_TOL = 5e-3
+# One full-width train step with the switch on (bf16): through the kernels vs
+# through their plain versions (which round the forward as the TPU kernel
+# does) and vs the switch-off step (cuDNN convs).  BatchNorm + activation are
+# the eager op in all three, whose backward works in bf16 with per-channel
+# constants rounded to bf16 (see FUSED_TOL): a conv output that rounds the
+# other way can move a whole channel, so gradients are held by direction and
+# loosely by size, loss, grad_norm and running statistics more tightly.
+DILATED_STEP_TOL = {"loss_rel": 2e-2, "grad_norm_rel": 0.1, "grad_peak_rel": 0.3,
+                    "grad_cosine_min": 0.97, "running_stat_abs": 2e-2}
+# the trainer phase: steps, checkpoint interval, dataset sizes (3 s clips)
+TRAINER_STEPS, TRAINER_CKPT_EVERY, TRAINER_RESUME_AT = 16, 6, 6
+TRAINER_TRAIN_ITEMS, TRAINER_EVAL_ITEMS = 40, 4
+# a run resumed from the middle checkpoint against the uninterrupted one:
+# every parameter within this (absolute; ten steps of Adam at lr 1e-3 move a
+# weight by at most 1e-2).  The port's kernels give the same bits twice; the
+# library's backward kernels for conv1 and conv8 need not.
+TRAINER_RESUME_TOL = 1e-3
 REPLACES = {
     "lstm_fwd": "voicesplit_tpu/ops/lstm_pallas.py:71",
     "bilstm_fwd": "voicesplit_tpu/ops/lstm_pallas.py:251",
@@ -150,6 +218,8 @@ REPLACES = {
     "conv_bn_act_fwd": "voicesplit_tpu/ops/conv_fused.py:303",
     "conv_dgrad": "voicesplit_tpu/ops/conv_fused.py:411",
     "conv_wgrad": "voicesplit_tpu/ops/conv_fused.py:524",
+    "conv_dilated_fwd": "voicesplit_tpu/ops/conv_pallas.py:95",
+    "conv_dilated_wgrad": "voicesplit_tpu/ops/conv_pallas.py:234",
 }
 SOURCES = {
     "lstm_fwd": "voicesplit_tpu_torch/csrc/lstm_fwd.cu",
@@ -159,6 +229,8 @@ SOURCES = {
     "conv_bn_act_fwd": "voicesplit_tpu_torch/csrc/conv_fused.cu",
     "conv_dgrad": "voicesplit_tpu_torch/csrc/conv_fused.cu",
     "conv_wgrad": "voicesplit_tpu_torch/csrc/conv_fused.cu",
+    "conv_dilated_fwd": "voicesplit_tpu_torch/csrc/conv_dilated.cu",
+    "conv_dilated_wgrad": "voicesplit_tpu_torch/csrc/conv_dilated.cu",
 }
 
 
@@ -262,7 +334,7 @@ def ptxas_summary(log: str, fragment: str) -> list:
     return out
 
 
-def phase_build(torch, lstm_cuda, conv_fused) -> None:
+def phase_build(torch, lstm_cuda, conv_fused, conv_cuda) -> None:
     from voicesplit_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -280,6 +352,11 @@ def phase_build(torch, lstm_cuda, conv_fused) -> None:
         for layer, ((kt, kf), _) in CONV_LAYERS.items():
             for b in (2, 8):
                 grids[f"{name}_{layer}_B{b}"] = conv_fused.launch_config(
+                    name, (b, *CONV_SHAPE[1:]), kt, kf, torch.bfloat16)
+    for name in DILATED_TRAIN_LAUNCHES:
+        for layer, ((kt, kf), _) in CONV_LAYERS.items():
+            for b in (2, 8):
+                grids[f"{name}_{layer}_B{b}"] = conv_cuda.launch_config(
                     name, (b, *CONV_SHAPE[1:]), kt, kf, torch.bfloat16)
     emit("build", library=str(lib.relative_to(ROOT)), seconds=seconds,
          ptxas_lstm=ptxas_summary(log, "lstm"), ptxas_conv=ptxas_summary(log, "conv"),
@@ -426,18 +503,17 @@ def synthetic_batch(seed: int, batch: int, n: int, sr: int, emb_dim: int):
     return wav.astype(np.float32), emb.astype(np.float32)
 
 
-class _PlainLSTM:
-    """Routes the kernel launches of `lstm_cuda` (forward and autograd
-    backward) to the plain versions on the card while active."""
+class _PlainVersions:
+    """Routes the kernel launches of a kernel module (`lstm_cuda`,
+    `conv_fused`, `conv_cuda`) to the plain versions on the card while
+    active."""
 
-    NAMES = ("lstm_fwd", "bilstm_fwd", "lstm_bwd", "bilstm_bwd")
-
-    def __init__(self, lstm_cuda):
-        self.m = lstm_cuda
+    def __init__(self, module):
+        self.m = module
 
     def __enter__(self):
-        self.saved = {n: getattr(self.m, f"_launch_{n}") for n in self.NAMES}
-        for n in self.NAMES:
+        self.saved = {n: getattr(self.m, f"_launch_{n}") for n in self.m.LAUNCHES}
+        for n in self.saved:
             setattr(self.m, f"_launch_{n}", getattr(self.m, f"{n}_ref"))
 
     def __exit__(self, *exc):
@@ -477,7 +553,7 @@ def phase_separate(torch, lstm_cuda, seed: int, profile_dir) -> dict:
         with torch.inference_mode():
             spec, phase = ap.wav2spec_batch(mixed)
             mask = model(spec, emb)
-            with _PlainLSTM(lstm_cuda):
+            with _PlainVersions(lstm_cuda):
                 mask_plain = model(spec, emb)
                 out_plain = separate_batch(model, ap, mixed, emb)
             mag, ph = stft_magphase(mixed, ap.n_fft, ap.hop_length, ap.win_length)
@@ -490,13 +566,7 @@ def phase_separate(torch, lstm_cuda, seed: int, profile_dir) -> dict:
         check(wav_err <= SEPARATE_TOL, f"B={b}: waveform vs plain LSTM {wav_err} > {SEPARATE_TOL}")
         check(rt_snr >= ROUNDTRIP_MIN_SNR_DB, f"B={b}: STFT round trip {rt_snr} dB")
         ms = time_ms(torch, lambda: separate_batch(model, ap, mixed, emb), iters=10)
-        lat = []
-        for _ in range(LATENCY_CALLS):
-            t0 = time.perf_counter()
-            separate_batch(model, ap, mixed, emb)
-            torch.cuda.synchronize()
-            lat.append((time.perf_counter() - t0) * 1e3)
-        p50, p75 = (float(np.percentile(lat, q)) for q in (50, 75))
+        p50, p75 = _latency_ms(torch, lambda: separate_batch(model, ap, mixed, emb), LATENCY_CALLS)
         report[f"B{b}"] = {
             "samples": n, "mask_range": [float(mask.min()), float(mask.max())],
             "mask_err_vs_plain": mask_err, "wave_rel_err_vs_plain": wav_err,
@@ -576,7 +646,7 @@ def phase_train(torch, lstm_cuda, seed: int, profile_dir) -> dict:
         # the same step from the same weights through the plain versions
         gk = _lstm_grads(model)
         _restore(model, optimizer, state, before)
-        with _PlainLSTM(lstm_cuda):
+        with _PlainVersions(lstm_cuda):
             mp = step(state, batch)
         gp = _lstm_grads(model)
         vs_plain = {
@@ -636,6 +706,10 @@ def conv_bound(kind: str, shape, kt: int, kf: int, dt: int, dtype: str) -> dict:
     w_elems = kt * kf * C * C
     if kind == "conv_wgrad":
         bytes_ = 2 * act_bytes + w_elems * 4 + 2 * C * 4  # x, d_raw; dW; inv, shift
+    elif kind == "conv_dilated_wgrad":
+        bytes_ = 2 * act_bytes + w_elems * 4  # x, dy; dW
+    elif kind == "conv_dilated_fwd":
+        bytes_ = 2 * act_bytes + w_elems * op  # x, out; W
     elif kind == "conv_dgrad":
         bytes_ = 2 * act_bytes + w_elems * op + C * 4  # d_raw, dx; W; dbias
     else:
@@ -818,23 +892,6 @@ def phase_conv_kernels(torch, cf, seed: int) -> dict:
     }
 
 
-class _PlainConv:
-    """Routes the kernel launches of `conv_fused` to the plain versions on
-    the card while active."""
-
-    def __init__(self, conv_fused):
-        self.m = conv_fused
-
-    def __enter__(self):
-        self.saved = {n: getattr(self.m, f"_launch_{n}") for n in CONV_LAUNCHES}
-        for n in CONV_LAUNCHES:
-            setattr(self.m, f"_launch_{n}", getattr(self.m, f"{n}_ref"))
-
-    def __exit__(self, *exc):
-        for n, fn in self.saved.items():
-            setattr(self.m, f"_launch_{n}", fn)
-
-
 def _chain_state(model) -> tuple:
     """Gradients of conv2 … conv7 (weights, BatchNorm scale and bias) and
     every running statistic after a step."""
@@ -928,7 +985,7 @@ def phase_train_fused(torch, lstm_cuda, cf, seed: int, profile_dir) -> dict:
 
             # (a) the same step through the conv kernels' plain versions
             _restore(model, optimizer, state, before)
-            with _PlainConv(cf):
+            with _PlainVersions(cf):
                 mp = step(state, batch)
             vs_plain = _compare_steps(torch, mk, through_kernels, mp, _chain_state(model))
             _check_step_agreement(f"B={b}: kernels vs plain", vs_plain, FUSED_TOL)
@@ -984,8 +1041,424 @@ def phase_train_fused(torch, lstm_cuda, cf, seed: int, profile_dir) -> dict:
     return launches
 
 
+class _Env:
+    """Sets an environment variable while active and restores it after."""
+
+    def __init__(self, name: str, value: str):
+        self.name, self.value = name, value
+
+    def __enter__(self):
+        self.previous = os.environ.get(self.name)
+        os.environ[self.name] = self.value
+
+    def __exit__(self, *exc):
+        if self.previous is None:
+            del os.environ[self.name]
+        else:
+            os.environ[self.name] = self.previous
+
+
+def _latency_ms(torch, fn, calls: int):
+    """p50 and p75 of `calls` synchronized calls on the host clock."""
+    lat = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return tuple(float(np.percentile(lat, q)) for q in (50, 75))
+
+
+def _check_dilated_case(torch, cc, cf, case, shape, layer, dtype_name, g) -> dict:
+    """One layer through `conv_dilated_fwd` (as forward and as data gradient)
+    and `conv_dilated_wgrad` and their plain versions; raises on
+    disagreement or on two launches that differ."""
+    (kt, kf), dt = CONV_LAYERS[layer]
+    dtype = getattr(torch, dtype_name)
+    tol = DILATED_TOL[dtype_name]
+    x, d, w, _, _ = _conv_inputs(torch, shape, kt, kf, dtype, g)
+    wf = cc.flip_weight(w)
+    report = {}
+    with torch.inference_mode():
+        for what, (a, wt) in {"forward": (x, w), "data_gradient": (d, wf)}.items():
+            got, again = cc.conv_dilated_fwd(a, wt, dt), cc.conv_dilated_fwd(a, wt, dt)
+            want = cc.conv_dilated_fwd_ref(a, wt, dt)
+            once = cf._conv_core(a, wt, dt).to(dtype)  # every tap in fp32, one rounding
+            torch.cuda.synchronize()
+            errs = {"out": _peak_rel(got, want), "out_round_once": _peak_rel(got, once),
+                    **{f"out_{k}": v for k, v in _edge_errs(got, want).items()}}
+            for k, v in errs.items():
+                limit = tol["out_round_once" if k == "out_round_once" else "out"]
+                check(np.isfinite(v) and v <= limit,
+                      f"conv_dilated_fwd {what} {case}: {k} error {v} > {limit}")
+            check(torch.equal(got, again),
+                  f"conv_dilated_fwd {what} {case}: two launches on the same inputs differ")
+            report[what] = {
+                "errors": errs, "abs_err": (got.float() - want.float()).abs().max().item(),
+                "share_of_elements_that_differ": (got != want).float().mean().item(),
+                "plain_vs_round_once": _peak_rel(want, once)}
+            del got, again, want, once
+        got, again = cc.conv_dilated_wgrad(x, d, kt, kf, dt), cc.conv_dilated_wgrad(x, d, kt, kf, dt)
+        want = cc.conv_dilated_wgrad_ref(x, d, kt, kf, dt)
+        torch.cuda.synchronize()
+        err = _peak_rel(got, want)
+        check(np.isfinite(err) and err <= tol["dw"],
+              f"conv_dilated_wgrad {case}: dw error {err} > {tol['dw']}")
+        check(torch.equal(got, again),
+              f"conv_dilated_wgrad {case}: two launches on the same inputs differ")
+        report["weight_gradient"] = {"errors": {"dw": err},
+                                     "abs_err": (got - want).abs().max().item()}
+    return report
+
+
+def phase_dilated_kernels(torch, cc, cf, seed: int) -> dict:
+    """The dilated conv kernels vs their plain versions on the card, then
+    their times per layer kind and batch beside the bound, the plain
+    version, a library yardstick the port never calls and the fused chain's
+    kernels for the same layer."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cpu").manual_seed(seed + 3)
+    worst = {name: {"bfloat16": 0.0, "float32": 0.0} for name in DILATED_TRAIN_LAUNCHES}
+    agreement = {}
+    for dtype_name, shape in (("bfloat16", CONV_SHAPE), ("float32", CONV_SHAPE_FP32)):
+        for layer in CONV_LAYERS:
+            case = f"{layer}/{dtype_name}"
+            r = agreement[case] = _check_dilated_case(torch, cc, cf, case, shape, layer, dtype_name, g)
+            worst["conv_dilated_fwd"][dtype_name] = max(
+                worst["conv_dilated_fwd"][dtype_name], r["forward"]["abs_err"],
+                r["data_gradient"]["abs_err"])
+            worst["conv_dilated_wgrad"][dtype_name] = max(
+                worst["conv_dilated_wgrad"][dtype_name], r["weight_gradient"]["abs_err"])
+        torch.cuda.empty_cache()
+    emit("dilated conv kernels", shape_bf16=list(CONV_SHAPE), shape_fp32=list(CONV_SHAPE_FP32),
+         tolerances_peak_rel=DILATED_TOL, agreement=agreement)
+
+    timing = {name: {} for name in DILATED_TRAIN_LAUNCHES}
+    zero_scal = torch.zeros(8, 64, device="cuda")
+    for b in (2, 8):
+        shape = (b, *CONV_SHAPE[1:])
+        iters = 5 if b == 2 else 3
+        for layer, ((kt, kf), dt) in CONV_LAYERS.items():
+            x, d, w, _, _ = _conv_inputs(torch, shape, kt, kf, torch.bfloat16, g)
+            wf = cc.flip_weight(w)
+            pad = ((kt - 1) * dt // 2, (kf - 1) // 2)
+            x_nchw, d_nchw = x.permute(0, 3, 1, 2), d.permute(0, 3, 1, 2)
+            w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+            def lib_bwd(mask):
+                return torch.ops.aten.convolution_backward(
+                    d_nchw, x_nchw, w_oihw, None, (1, 1), pad, (dt, 1), False, (0, 0), 1, mask)
+
+            with torch.inference_mode():
+                bound = conv_bound("conv_dilated_fwd", shape, kt, kf, dt, "bfloat16")
+                timing["conv_dilated_fwd"][f"B{b}/{layer}"] = {
+                    "ms": time_ms(torch, lambda: cc.conv_dilated_fwd(x, w, dt), iters, warmup=1),
+                    "data_gradient_ms": time_ms(
+                        torch, lambda: cc.conv_dilated_fwd(d, wf, dt), iters, warmup=1),
+                    "plain_ms": time_ms(torch, lambda: cc.conv_dilated_fwd_ref(x, w, dt), 2, warmup=1),
+                    "library_ms": time_ms(
+                        torch, lambda: F.conv2d(x_nchw, w_oihw, None, padding=pad, dilation=(dt, 1)),
+                        iters, warmup=1),
+                    "library_data_gradient_ms": time_ms(
+                        torch, lambda: lib_bwd((True, False, False)), iters, warmup=1),
+                    "fused_chain_conv_dgrad_ms": time_ms(
+                        torch, lambda: cf.conv_dgrad(d, wf, dt), iters, warmup=1),
+                    **bound,
+                }
+                bound = conv_bound("conv_dilated_wgrad", shape, kt, kf, dt, "bfloat16")
+                timing["conv_dilated_wgrad"][f"B{b}/{layer}"] = {
+                    "ms": time_ms(torch, lambda: cc.conv_dilated_wgrad(x, d, kt, kf, dt), iters, warmup=1),
+                    "plain_ms": time_ms(
+                        torch, lambda: cc.conv_dilated_wgrad_ref(x, d, kt, kf, dt), 2, warmup=1),
+                    "library_ms": time_ms(torch, lambda: lib_bwd((False, True, False)), iters, warmup=1),
+                    "fused_chain_conv_wgrad_ms": time_ms(
+                        torch, lambda: cf.conv_wgrad(x, d, zero_scal, kt, kf, dt, None, False),
+                        iters, warmup=1),
+                    **bound,
+                }
+            del x, d, w, wf, x_nchw, d_nchw, w_oihw
+            torch.cuda.empty_cache()
+    emit("dilated conv kernel times", dtype="bfloat16",
+         library="cuDNN conv2d / aten.convolution_backward, channels-last bf16", times=timing)
+    head = "B2/5x5-d1"
+    return {
+        name: {"bf16": {"max_abs_err": worst[name]["bfloat16"], **timing[name][head]},
+               "fp32": {"max_abs_err": worst[name]["float32"]},
+               "library_ms": timing[name][head]["library_ms"],
+               "bound_ms": timing[name][head]["bound_ms"], "bound_by": timing[name][head]["bound_by"],
+               "timed_at": head, "ms_by_batch_and_layer": {k: v["ms"] for k, v in timing[name].items()}}
+        for name in DILATED_TRAIN_LAUNCHES
+    }
+
+
+def phase_separate_dilated(torch, lstm_cuda, cc, seed: int, profile_dir) -> dict:
+    """The separate phase's model and mixtures with `VOICESPLIT_PALLAS_CONV=1`:
+    conv2 … conv7 through `conv_dilated_fwd`, held at each batch size
+    against the same call through the plain versions and against the
+    switch-off run."""
+    from voicesplit_tpu_torch import weights
+    from voicesplit_tpu_torch.cli.separate import separate_batch
+    from voicesplit_tpu_torch.config import load_config
+    from voicesplit_tpu_torch.dsp.processor import make_audio_processor
+    from voicesplit_tpu_torch.models.masknet import make_masknet
+
+    config = load_config(str(ROOT / "configs" / "voicesplit.json"))
+    ap = make_audio_processor(config)
+    model = weights.init_random_(make_masknet(config), seed)
+    n = int(config.audio.audio_len * ap.sample_rate)
+    lstm_per_call = {1: {"lstm_fwd": 2, "bilstm_fwd": 0}, 8: {"lstm_fwd": 0, "bilstm_fwd": 1}}
+    launches = {k: 0 for k in (*lstm_cuda.LAUNCHES, *cc.LAUNCHES)}
+    report = {"switch": "VOICESPLIT_PALLAS_CONV=1", "tolerance": SEPARATE_DILATED_TOL}
+    for b in (1, 8):
+        mixed, emb = (torch.as_tensor(a, device="cuda")
+                      for a in synthetic_batch(seed + b, b, n, ap.sample_rate, config.model.emb_dim))
+        with _Env("VOICESPLIT_PALLAS_CONV", "1"):
+            # the counted run of this path: one serving call
+            torch.cuda.synchronize()
+            lstm_cuda.reset_launch_counts()
+            cc.reset_launch_counts()
+            out = separate_batch(model, ap, mixed, emb)
+            torch.cuda.synchronize()
+            counted = {**lstm_cuda.LAUNCHES, **cc.LAUNCHES}
+            want = {**{k: 0 for k in lstm_cuda.LAUNCHES}, **lstm_per_call[b], **DILATED_SERVE_LAUNCHES}
+            check(counted == want, f"B={b}: launches per call {counted}, expected {want}")
+            for k, v in counted.items():
+                launches[k] += v
+            with torch.inference_mode():
+                spec, _ = ap.wav2spec_batch(mixed)
+                mask = model(spec, emb)
+                cc.reset_launch_counts()
+                with _PlainVersions(cc):
+                    mask_plain = model(spec, emb)
+                    out_plain = separate_batch(model, ap, mixed, emb)
+            torch.cuda.synchronize()
+            check(not any(cc.LAUNCHES.values()), f"B={b}: the plain run launched a dilated kernel")
+            p50, p75 = _latency_ms(torch, lambda: separate_batch(model, ap, mixed, emb), LATENCY_CALLS)
+            prof = profile(torch, profile_dir, f"separate_dilated_B{b}",
+                           lambda: separate_batch(model, ap, mixed, emb)) if profile_dir else None
+        cc.reset_launch_counts()
+        out_off = separate_batch(model, ap, mixed, emb)
+        with torch.inference_mode():
+            mask_off = model(spec, emb)
+        torch.cuda.synchronize()
+        check(not any(cc.LAUNCHES.values()), f"B={b}: dilated kernels ran with the switch off")
+        off50, off75 = _latency_ms(torch, lambda: separate_batch(model, ap, mixed, emb), LATENCY_CALLS)
+        check(tuple(out.shape) == (b, n) and bool(torch.isfinite(out).all()), f"B={b}: output")
+        check(float(mask.min()) >= 0.0 and float(mask.max()) <= 1.0, f"B={b}: mask outside [0, 1]")
+        mask_err = (mask - mask_off).abs().max().item()
+        wav_err = ((out - out_off).abs().max() / out_off.abs().max()).item()
+        mask_err_plain = (mask - mask_plain).abs().max().item()
+        wav_err_plain = ((out - out_plain).abs().max() / out_plain.abs().max()).item()
+        check(mask_err_plain <= SEPARATE_DILATED_TOL, f"B={b}: mask vs plain conv {mask_err_plain}")
+        check(wav_err_plain <= SEPARATE_DILATED_TOL, f"B={b}: waveform vs plain conv {wav_err_plain}")
+        check(mask_err <= SEPARATE_DILATED_TOL, f"B={b}: mask vs switch off {mask_err}")
+        check(wav_err <= SEPARATE_DILATED_TOL, f"B={b}: waveform vs switch off {wav_err}")
+        report[f"B{b}"] = {
+            "launches_per_call": counted, "mask_err_vs_plain": mask_err_plain,
+            "wave_rel_err_vs_plain": wav_err_plain, "mask_err_vs_switch_off": mask_err,
+            "wave_rel_err_vs_switch_off": wav_err, "calls": LATENCY_CALLS,
+            "latency_ms_p50": p50, "latency_ms_p75": p75,
+            "switch_off_latency_ms_p50": off50, "switch_off_latency_ms_p75": off75,
+            "audio_s_per_s": b * config.audio.audio_len / (p50 / 1e3),
+        }
+        if prof:
+            report[f"B{b}"]["profile"] = prof
+    emit("separate dilated", device=torch.cuda.get_device_name(0), **report)
+    return launches
+
+
+def _trainer_config(tmp: Path, seed: int):
+    """`configs/voicesplit.json` at full width over a synthetic dataset on
+    disk; returns the config's path and the config."""
+    from voicesplit_tpu_torch.config import load_config
+    from voicesplit_tpu_torch.data.synthetic import build_synthetic_dataset
+
+    config = load_config(str(ROOT / "configs" / "voicesplit.json"))
+    config.dataset.train_dir, config.dataset.test_dir = str(tmp / "train"), str(tmp / "test")
+    tc = config.train_config
+    tc.learning_rate, tc.seed = TRAIN_LR, seed
+    tc.summary_interval = tc.check_interval = 1  # every step waits for the card: host-clock
+    tc.checkpoint_interval = TRAINER_CKPT_EVERY  # step times, and the guard on every step
+    sr = config.audio.active.sample_rate
+    for name, n_items, s in (("train", TRAINER_TRAIN_ITEMS, seed), ("test", TRAINER_EVAL_ITEMS, seed + 1)):
+        made = build_synthetic_dataset(
+            str(tmp / name), n_items, sample_rate=sr, audio_len=config.audio.audio_len,
+            emb_dim=config.model.emb_dim, fmt=config.dataset.format, seed=s)
+        check(len(made) == n_items, f"{name}: {len(made)} of {n_items} synthetic items written")
+    path = tmp / "config.json"
+    path.write_text(config.to_json())
+    return str(path), config
+
+
+def _read_metrics(log_dir: Path) -> list:
+    return [json.loads(line) for line in (log_dir / "metrics.jsonl").read_text().splitlines()]
+
+
+def phase_trainer(torch, lstm_cuda, cc, seed: int, profile_dir) -> dict:
+    """`cli.train.main` at full width with `VOICESPLIT_PALLAS_CONV=1` over a
+    synthetic dataset on disk: one step held against the plain versions and
+    the switch-off step, an uninterrupted run across checkpoints and
+    validations, and a run resumed from the middle checkpoint."""
+    import tempfile
+
+    from voicesplit_tpu_torch.cli.separate import separate_batch
+    from voicesplit_tpu_torch.cli.train import main as train_main
+    from voicesplit_tpu_torch.dsp.processor import make_audio_processor
+    from voicesplit_tpu_torch.models.masknet import make_masknet
+    from voicesplit_tpu_torch.train.checkpoint import (
+        list_checkpoints, load_checkpoint, load_model_variables)
+    from voicesplit_tpu_torch.train.trainer import Trainer
+
+    step_launches = {"lstm_fwd": 2, "bilstm_fwd": 0, "lstm_bwd": 2, "bilstm_bwd": 0,
+                     **DILATED_TRAIN_LAUNCHES}
+    report = {"config": "configs/voicesplit.json", "switch": "VOICESPLIT_PALLAS_CONV=1",
+              "learning_rate": TRAIN_LR, "steps": TRAINER_STEPS,
+              "checkpoint_interval": TRAINER_CKPT_EVERY, "train_items": TRAINER_TRAIN_ITEMS,
+              "eval_items": TRAINER_EVAL_ITEMS, "step_tolerances": DILATED_STEP_TOL,
+              "resume_tolerance_abs": TRAINER_RESUME_TOL}
+    with tempfile.TemporaryDirectory(prefix="voicesplit_smoke_") as tmp_name, \
+            _Env("VOICESPLIT_PALLAS_CONV", "1"):
+        tmp = Path(tmp_name)
+        t0 = time.perf_counter()
+        config_path, config = _trainer_config(tmp, seed)
+        report["dataset_seconds"] = time.perf_counter() - t0
+        b = config.train_config.batch_size
+
+        # (1) one step of the trainer's own model, optimizer and first batch
+        probe = Trainer(config, log_dir=str(tmp / "probe"), enable_tb=False)
+        model, state, step = probe.model, probe.state, probe.train_step
+        batch = next(probe.train_loader)
+        before = _snapshot(model, state.optimizer, state)
+        torch.cuda.synchronize()
+        lstm_cuda.reset_launch_counts()
+        cc.reset_launch_counts()
+        mk = step(state, batch)
+        torch.cuda.synchronize()
+        counted = {**lstm_cuda.LAUNCHES, **cc.LAUNCHES}
+        check(counted == step_launches, f"launches per step {counted}, expected {step_launches}")
+        loss0, gn0 = float(mk["loss"]), float(mk["grad_norm"])
+        check(np.isfinite(loss0) and not bool(mk["loss_exploded"]), f"loss {loss0}")
+        check(gn0 > 0 and np.isfinite(gn0), f"grad_norm {gn0}")
+        through_kernels = _chain_state(model)
+        _restore(model, state.optimizer, state, before)
+        with _PlainVersions(cc):
+            mp = step(state, batch)
+        vs_plain = _compare_steps(torch, mk, through_kernels, mp, _chain_state(model))
+        _check_step_agreement("trainer step: kernels vs plain", vs_plain, DILATED_STEP_TOL)
+        _restore(model, state.optimizer, state, before)
+        with _Env("VOICESPLIT_PALLAS_CONV", "0"):
+            cc.reset_launch_counts()
+            mo = step(state, batch)
+            check(not any(cc.LAUNCHES.values()), "dilated kernels ran with the switch off")
+        vs_off = _compare_steps(torch, mk, through_kernels, mo, _chain_state(model))
+        _check_step_agreement("trainer step: switch on vs off", vs_off, DILATED_STEP_TOL)
+        report["first_step"] = {"launches_per_step": counted, "loss": loss0, "grad_norm": gn0,
+                                "switch_off_loss": float(mo["loss"]),
+                                "kernels_vs_plain": vs_plain, "switch_on_vs_off": vs_off}
+        if profile_dir:
+            report["first_step"]["profile"] = profile(
+                torch, profile_dir, f"train_dilated_B{b}", lambda: step(state, batch))
+        probe.close()
+        del probe, model, state, step, through_kernels, before
+        torch.cuda.empty_cache()
+
+        # (2) the counted run of this slice's main path: the training CLI
+        run_a, run_b = tmp / "run_a", tmp / "run_b"
+        torch.cuda.synchronize()
+        lstm_cuda.reset_launch_counts()
+        cc.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        result = train_main(["-c", config_path, "--logs_path", str(run_a),
+                             "--max_steps", str(TRAINER_STEPS), "--eval_sdr"])
+        torch.cuda.synchronize()
+        launches = {**lstm_cuda.LAUNCHES, **cc.LAUNCHES}
+        peak_memory = torch.cuda.max_memory_allocated()
+        check(result.get("step") == TRAINER_STEPS and not result.get("exploded"), f"run: {result}")
+        # validations: at step 0 and at every checkpoint interval, one item per call
+        n_evals = 1 + TRAINER_STEPS // TRAINER_CKPT_EVERY
+        want = {k: v * TRAINER_STEPS for k, v in step_launches.items()}
+        want["lstm_fwd"] += 2 * n_evals * TRAINER_EVAL_ITEMS
+        want["conv_dilated_fwd"] += 6 * n_evals * TRAINER_EVAL_ITEMS
+        check(launches == want, f"launches of the run {launches}, expected {want}")
+
+        records = _read_metrics(run_a)
+        train = [r for r in records if "train_loss" in r]
+        evals = [r for r in records if "eval_loss" in r]
+        losses = [r["train_loss"] for r in train]
+        check(len(train) == TRAINER_STEPS and all(np.isfinite(losses)), f"train losses {losses}")
+        check(len(evals) == n_evals, f"{len(evals)} validations, expected {n_evals}")
+        # every step sees another batch, so the loss that must fall is the
+        # validation set's
+        eval_losses = [r["eval_loss"] for r in evals]
+        check(eval_losses[-1] < eval_losses[0], f"validation loss did not fall: {eval_losses}")
+        for r in evals:
+            vals = {k: r[k] for k in ("eval_loss", "eval_si_snr", "eval_sdr", "eval_si_snri")}
+            check(all(np.isfinite(v) for v in vals.values()), f"validation at {r['step']}: {vals}")
+        ckpts = [Path(p).name for p in list_checkpoints(str(run_a))]
+        steps_saved = sorted({*range(TRAINER_CKPT_EVERY, TRAINER_STEPS + 1, TRAINER_CKPT_EVERY),
+                              TRAINER_STEPS})
+        check(ckpts == [f"checkpoint_{k}.pt" for k in steps_saved], f"checkpoints {ckpts}")
+        check((run_a / "config.json").exists(), "no config copy beside the checkpoints")
+        final_a = load_checkpoint(str(run_a / f"checkpoint_{TRAINER_STEPS}.pt"))
+        check(final_a["step"] == TRAINER_STEPS and set(final_a) == {
+            "model", "batch_stats", "optimizer", "step", "config_str", "data_state"},
+            f"checkpoint payload {sorted(final_a)}")
+        # the checkpoint serves: weights into a fresh model, one clip separated
+        served = make_masknet(config)
+        served.load_state_dict(load_model_variables(
+            config, str(run_a / f"checkpoint_{TRAINER_STEPS}.pt")))
+        n = int(config.audio.audio_len * config.audio.active.sample_rate)
+        wav, emb = synthetic_batch(seed, 1, n, config.audio.active.sample_rate, config.model.emb_dim)
+        out = separate_batch(served, make_audio_processor(config), wav, emb)
+        check(tuple(out.shape) == (1, n) and bool(torch.isfinite(out).all()),
+              "the final checkpoint does not serve")
+        del served, out
+
+        deltas = np.diff([r["time"] for r in train]) * 1e3  # step to step, host clock
+        p50, p75 = (float(np.percentile(deltas, q)) for q in (50, 75))
+        wall = result["wall_seconds"]
+        in_steps = wall["train_step"] + wall["check"]
+        report["run"] = {
+            "launches": launches, "losses": losses,
+            "validations": [{k: v for k, v in r.items() if k != "time"} for r in evals],
+            "checkpoints": ckpts, "step_ms_p50": p50, "step_ms_p75": p75,
+            "audio_s_per_s_at_p50": b * config.audio.audio_len / (p50 / 1e3),
+            "audio_s_per_s_summaries_median": float(np.median(
+                [r["audio_sec_per_sec_per_chip"] for r in train])),
+            "audio_s_per_s_whole_fit": TRAINER_STEPS * b * config.audio.audio_len / wall["fit"],
+            "wall_seconds": wall, "share_outside_train_steps": 1.0 - in_steps / wall["fit"],
+            "max_memory_allocated_bytes": peak_memory,
+        }
+
+        # (3) a second run resumed from the middle checkpoint
+        resumed = train_main(["-c", config_path, "--logs_path", str(run_b), "--max_steps",
+                              str(TRAINER_STEPS), "--checkpoint_path",
+                              str(run_a / f"checkpoint_{TRAINER_RESUME_AT}.pt")])
+        check(resumed.get("step") == TRAINER_STEPS, f"resumed run: {resumed}")
+        first_b = [r for r in _read_metrics(run_b) if "train_loss" in r][0]
+        check(first_b["step"] == TRAINER_RESUME_AT + 1, f"resumed run began at {first_b['step']}")
+        final_b = load_checkpoint(str(run_b / f"checkpoint_{TRAINER_STEPS}.pt"))
+        diffs = {k: (final_a[g][k] - final_b[g][k]).abs().max().item()
+                 for g in ("model", "batch_stats") for k in final_a[g]}
+        worst = max(diffs, key=diffs.get)
+        check(diffs[worst] <= TRAINER_RESUME_TOL,
+              f"resumed run differs: {worst} by {diffs[worst]} > {TRAINER_RESUME_TOL}")
+        check(final_a["data_state"] == final_b["data_state"], "data-iterator states differ")
+        report["resume"] = {
+            "from_step": TRAINER_RESUME_AT, "max_abs_diff": diffs[worst], "worst": worst,
+            "same_bits": all(torch.equal(final_a[g][k], final_b[g][k])
+                             for g in ("model", "batch_stats") for k in final_a[g]),
+            "same_loss_at_resumed_step": first_b["train_loss"] == losses[TRAINER_RESUME_AT],
+            "data_state": final_b["data_state"],
+        }
+    emit("trainer", device=torch.cuda.get_device_name(0), **report)
+    return launches
+
+
 # kernel-name fragments → kind, for the device time split under --profile
 KERNEL_KINDS = (
+    ("dilated conv kernels", ("conv_dilated_fwd_kernel", "conv_dilated_wgrad_kernel")),
     ("conv chain kernels", ("conv_bn_act_fwd_kernel", "conv_dgrad_kernel", "conv_wgrad_kernel",
                             "reduce_rows_kernel")),
     ("lstm kernels", ("lstm_fwd_kernel", "lstm_bwd_kernel")),
@@ -1036,7 +1509,8 @@ def profile(torch, out_dir, tag, fn, runs: int = 5) -> dict:
             "idle_share": 1.0 - kernel_ms / wall_ms, "ms_per_run_by_kind": split}
 
 
-PHASES = ("kernels", "bwd_kernels", "separate", "train", "conv_kernels", "train_fused")
+PHASES = ("kernels", "bwd_kernels", "separate", "train", "conv_kernels", "train_fused",
+          "dilated_kernels", "separate_dilated", "trainer")
 
 
 def main(argv=None) -> int:
@@ -1058,11 +1532,11 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from voicesplit_tpu_torch.device import set_fp32_precision
-    from voicesplit_tpu_torch.ops import conv_fused, lstm_cuda
+    from voicesplit_tpu_torch.ops import conv_cuda, conv_fused, lstm_cuda
 
     set_fp32_precision()
     smi_line = phase_device(torch)
-    phase_build(torch, lstm_cuda, conv_fused)
+    phase_build(torch, lstm_cuda, conv_fused, conv_cuda)
     kern, by_path = {}, {}
     if "kernels" in phases:
         kern.update(phase_kernels(torch, lstm_cuda, args.seed))
@@ -1077,6 +1551,13 @@ def main(argv=None) -> int:
     if "train_fused" in phases:
         by_path["train_fused"] = phase_train_fused(
             torch, lstm_cuda, conv_fused, args.seed, args.profile)
+    if "dilated_kernels" in phases:
+        kern.update(phase_dilated_kernels(torch, conv_cuda, conv_fused, args.seed))
+    if "separate_dilated" in phases:
+        by_path["separate_dilated"] = phase_separate_dilated(
+            torch, lstm_cuda, conv_cuda, args.seed, args.profile)
+    if "trainer" in phases:
+        by_path["trainer"] = phase_trainer(torch, lstm_cuda, conv_cuda, args.seed, args.profile)
     emit("total", wall_seconds=time.perf_counter() - t_start, phases=phases)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -1088,7 +1569,8 @@ def main(argv=None) -> int:
     home = {"lstm_fwd": "separate", "bilstm_fwd": "separate",
             "lstm_bwd": "train", "bilstm_bwd": "train",
             "conv_bn_act_fwd": "train_fused", "conv_dgrad": "train_fused",
-            "conv_wgrad": "train_fused"}
+            "conv_wgrad": "train_fused",
+            "conv_dilated_fwd": "trainer", "conv_dilated_wgrad": "trainer"}
     kernels = [
         {
             "name": name, "route": "cuda", "source": SOURCES[name],

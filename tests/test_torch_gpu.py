@@ -267,3 +267,85 @@ def test_fused_train_step_runs_through_the_conv_kernels_on_card(monkeypatch):
     assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
     for k, v in model.state_dict().items():
         assert not torch.equal(v, before[k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layer", ["7x1", "5x5-d2"])
+def test_dilated_conv_kernels_match_plain_versions_on_card(layer, dtype):
+    """`conv_dilated_fwd` (as forward and, with flipped weights, as data
+    gradient) and `conv_dilated_wgrad` against their plain versions at a
+    small shape whose halo (dilation 2, F off the 128-wide tile) is in play."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import conv_cuda as cc
+
+    (kt, kf), dil = {"7x1": ((7, 1), 1), "5x5-d2": ((5, 5), 2)}[layer]
+    g = torch.Generator().manual_seed(0)
+    dt = getattr(torch, dtype)
+    shape, C = (2, 13, 150, 64), 64
+    x = torch.randn(shape, generator=g).to("cuda", dt)
+    d = torch.randn(shape, generator=g).to("cuda", dt)
+    w = (torch.randn(kt, kf, C, C, generator=g) * (kt * kf * C) ** -0.5).to("cuda", dt)
+    wf = cc.flip_weight(w)
+    before = dict(cc.LAUNCHES)
+    with torch.inference_mode():
+        got = (cc.conv_dilated_fwd(x, w, dil), cc.conv_dilated_fwd(d, wf, dil),
+               cc.conv_dilated_wgrad(x, d, kt, kf, dil))
+        want = (cc.conv_dilated_fwd_ref(x, w, dil), cc.conv_dilated_fwd_ref(d, wf, dil),
+                cc.conv_dilated_wgrad_ref(x, d, kt, kf, dil))
+    torch.cuda.synchronize()
+    assert cc.LAUNCHES == {"conv_dilated_fwd": before["conv_dilated_fwd"] + 2,
+                           "conv_dilated_wgrad": before["conv_dilated_wgrad"] + 1}
+    # relative to each output's peak.  fp32: summation order only.  bf16: the
+    # plain version rounds each frequency tap's partial sum (the TPU kernel's
+    # rounding), the kernel rounds once: a few bf16 ulps (2^-7 of the peak
+    # each at most); dW adds exact products in another order
+    tols = {"float32": [1e-4] * 3, "bfloat16": [2e-2, 2e-2, 1e-3]}[dtype]
+    for a, b, tol in zip(got, want, tols):
+        assert bool(torch.isfinite(a).all())
+        assert (a.float() - b.float()).abs().max().item() <= tol * b.float().abs().max().item()
+    with pytest.raises(NotImplementedError, match="64 channels"):
+        cc.conv_dilated_fwd(torch.zeros(1, 4, 4, 128, device="cuda"),
+                            torch.zeros(5, 5, 128, 128, device="cuda"), 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["serve", "train"])
+def test_dilated_conv_switch_runs_through_the_kernels_on_card(mode, monkeypatch):
+    """Full-width model with `VOICESPLIT_PALLAS_CONV=1`: six forward launches
+    per serving call; twelve and six weight-gradient launches per train step
+    at the config's batch, beside the LSTM's."""
+    _need_card()
+    from voicesplit_tpu_torch import weights
+    from voicesplit_tpu_torch.cli.separate import separate_batch
+    from voicesplit_tpu_torch.ops import conv_cuda, lstm_cuda
+    from voicesplit_tpu_torch.train import create_train_state, make_optimizer, make_train_step
+
+    monkeypatch.setenv("VOICESPLIT_PALLAS_CONV", "1")
+    cfg = load_config(str(REPO / "configs" / "voicesplit.json"))
+    ap = make_audio_processor(cfg)
+    model = weights.init_random_(make_masknet(cfg), seed=0)
+    rng = np.random.default_rng(0)
+    target = (0.1 * rng.standard_normal((2, 48000))).astype(np.float32)
+    mixed = target + (0.1 * rng.standard_normal((2, 48000))).astype(np.float32)
+    emb = rng.standard_normal((2, 256)).astype(np.float32)
+    lstm_cuda.reset_launch_counts()
+    conv_cuda.reset_launch_counts()
+    if mode == "serve":
+        out = separate_batch(model, ap, mixed, emb)
+        torch.cuda.synchronize()
+        assert out.shape == (2, 48000) and bool(torch.isfinite(out).all())
+        assert conv_cuda.LAUNCHES == {"conv_dilated_fwd": 6, "conv_dilated_wgrad": 0}
+        return
+    opt = make_optimizer(cfg, model)
+    state = create_train_state(model, opt)
+    batch = {"mixed_wav": mixed, "target_wav": target, "emb": emb,
+             "wav_len": np.full((2,), 48000, np.int32)}
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    m = make_train_step(cfg, model, ap, opt)(state, batch)
+    torch.cuda.synchronize()
+    assert conv_cuda.LAUNCHES == {"conv_dilated_fwd": 12, "conv_dilated_wgrad": 6}
+    assert lstm_cuda.LAUNCHES == {"lstm_fwd": 2, "bilstm_fwd": 0, "lstm_bwd": 2, "bilstm_bwd": 0}
+    assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
+    for k, v in model.state_dict().items():
+        assert not torch.equal(v, before[k]), k

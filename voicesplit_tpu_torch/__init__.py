@@ -2,13 +2,17 @@
 
 The JAX package `voicesplit_tpu` stays the reference; this package imports
 nothing of it, nor JAX.  Ported so far: the serving path (spectrogram →
-eval-mode mask network → mixed-phase iSTFT) and the training step
-(`train/`: train-mode mask network, losses, Adam), with the BiLSTM
-recurrence and its backward in hand-written CUDA kernels
-(`ops/lstm_cuda.py`, `csrc/lstm_fwd.cu`, `csrc/lstm_bwd.cu`), and the
+eval-mode mask network → mixed-phase iSTFT); the training step (`train/`:
+train-mode mask network, losses, Adam) and the training entry point around
+it (`cli/train.py`, `train/trainer.py`, `train/checkpoint.py`, `data/`,
+`eval/`, `utils/logging.py`).  Every kernel that the JAX package wrote in
+Pallas has a hand-written CUDA counterpart: the BiLSTM recurrence and its
+backward (`ops/lstm_cuda.py`, `csrc/lstm_fwd.cu`, `csrc/lstm_bwd.cu`), the
 training step's fused conv chain (``VOICESPLIT_FUSED_CHAIN=1``) with its
 forward, data-gradient and weight-gradient kernels (`ops/conv_fused.py`,
-`csrc/conv_fused.cu`).
+`csrc/conv_fused.cu`), and the opt-in dilated conv
+(``VOICESPLIT_PALLAS_CONV=1``) with its forward / data-gradient and
+weight-gradient kernels (`ops/conv_cuda.py`, `csrc/conv_dilated.cu`).
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``, where the kernels' plain PyTorch versions run instead.

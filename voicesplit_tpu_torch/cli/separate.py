@@ -7,7 +7,8 @@ counterpart of `voicesplit_tpu/cli/separate.py`, non-streaming path).
 
 Spectrogram of the mixture → mask network → ``mask * spec`` → iSTFT with
 the mixture phase (reference eval behavior, `utils/generic_utils.py:504`).
-``--weights`` is a file written by `voicesplit_tpu_torch.weights.save`.
+``--weights`` is a file written by `voicesplit_tpu_torch.weights.save` or a
+``checkpoint_<step>.pt`` of the port's trainer.
 The device is the CUDA card unless ``--device cpu`` is given.
 """
 
@@ -41,7 +42,8 @@ def separate_batch(
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Targeted voice separation (PyTorch)")
     parser.add_argument("-c", "--config_path", type=str, required=True)
-    parser.add_argument("--weights", type=str, required=True, help="the port's .pt weights")
+    parser.add_argument("--weights", type=str, required=True,
+                        help="the port's .pt weights, or a trainer's checkpoint_<step>.pt")
     parser.add_argument("--mixed_wav", type=str, required=True)
     parser.add_argument("--emb", type=str, required=True, help="*.npy d-vector")
     parser.add_argument("--output", type=str, required=True)
@@ -59,10 +61,15 @@ def main(argv=None):
     from voicesplit_tpu_torch.config import load_config
     from voicesplit_tpu_torch.dsp.processor import make_audio_processor
     from voicesplit_tpu_torch.models.masknet import make_masknet
+    from voicesplit_tpu_torch.train.checkpoint import is_checkpoint_name, load_model_variables
 
     config = load_config(args.config_path)
     ap = make_audio_processor(config, device=args.device)
-    model = weights.load(make_masknet(config, device=args.device), args.weights)
+    model = make_masknet(config, device=args.device)
+    if is_checkpoint_name(args.weights):
+        model.load_state_dict(load_model_variables(config, args.weights))
+    else:
+        weights.load(model, args.weights)
     emb = np.load(args.emb).astype(np.float32).reshape(1, -1)
     mixed = ap.load_wav(args.mixed_wav)
     out = separate_batch(model, ap, mixed[None], emb)[0].cpu().numpy()

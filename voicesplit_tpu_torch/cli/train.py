@@ -1,0 +1,81 @@
+"""Training CLI (PyTorch counterpart of `voicesplit_tpu/cli/train.py`;
+reference `train.py:140-163`).
+
+    python -m voicesplit_tpu_torch.cli.train -c config.json \
+        [--checkpoint_path checkpoint_<step>.pt] [--logs_path dir] \
+        [--max_steps N] [--eval_sdr] [--device cuda|cpu]
+
+Trains on the triplets under the config's ``dataset.train_dir``, validates on
+``dataset.test_dir``, and writes checkpoints, ``metrics.jsonl`` and a copy of
+the config into the logs directory.  ``--checkpoint_path`` resumes (full
+restore: weights, optimizer, step and the position in the data) or
+warm-starts (where shapes differ).  The device is the CUDA card unless
+``--device cpu`` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+_NOT_PORTED = ("online", "embeddings_dir", "coordinator", "num_processes", "process_id",
+               "debug_nans")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Train a voice-separation model (PyTorch)")
+    parser.add_argument("-c", "--config_path", type=str, required=True)
+    parser.add_argument("--checkpoint_path", type=str, default=None,
+                        help="checkpoint to resume (full) or warm-start (partial)")
+    parser.add_argument("--logs_path", type=str, default=None)
+    parser.add_argument("--model_parallel", type=int, default=1,
+                        help="model-axis size for the wide variant")
+    parser.add_argument("--max_steps", type=int, default=None)
+    parser.add_argument("--eval_sdr", action="store_true",
+                        help="compute SDR and SI-SNRi during eval (slower)")
+    parser.add_argument("--online", action="store_true",
+                        help="mix 2-speaker training batches on the fly from a "
+                             "speaker-per-directory corpus at dataset.train_dir "
+                             "instead of reading pre-mixed triplets")
+    parser.add_argument("--embeddings_dir", type=str, default=None,
+                        help="with --online: <speaker>.npy d-vectors")
+    parser.add_argument("--coordinator", type=str, default=None,
+                        help="several processes: coordinator address host:port")
+    parser.add_argument("--num_processes", type=int, default=None,
+                        help="several processes: their total number")
+    parser.add_argument("--process_id", type=int, default=None,
+                        help="several processes: this one's index")
+    parser.add_argument("--debug_nans", action="store_true",
+                        help="NaN-triage mode: name the first operation that gives a NaN")
+    parser.add_argument("--device", type=str, default=None, help="cuda (default) or cpu")
+    args = parser.parse_args(argv)
+    for opt in _NOT_PORTED:
+        if getattr(args, opt):
+            raise NotImplementedError(f"--{opt} is not yet ported")
+    if args.model_parallel > 1:
+        raise NotImplementedError("--model_parallel > 1 is not yet ported")
+
+    from voicesplit_tpu_torch.config import load_config
+    from voicesplit_tpu_torch.train.trainer import Trainer
+
+    config = load_config(args.config_path)
+    if args.logs_path:
+        config.train_config.logs_path = args.logs_path
+    os.makedirs(config.train_config.logs_path, exist_ok=True)
+
+    # keep a copy of the config next to the checkpoints (reference
+    # copy_config_file behavior, utils/generic_utils.py:583-594)
+    with open(os.path.join(config.train_config.logs_path, "config.json"), "w") as f:
+        f.write(config.to_json())
+
+    trainer = Trainer(config, checkpoint_path=args.checkpoint_path, device=args.device)
+    try:
+        result = trainer.fit(max_steps=args.max_steps, compute_sdr_in_eval=args.eval_sdr)
+    finally:
+        trainer.close()
+    print(f"done: {result}")
+    return {**result, "wall_seconds": dict(trainer.wall_seconds)}
+
+
+if __name__ == "__main__":
+    main()

@@ -21,7 +21,7 @@ from voicesplit_tpu_torch.config import AudioConfig, Config
 from voicesplit_tpu_torch.device import DeviceLike, resolve_device
 from voicesplit_tpu_torch.dsp import audio_io
 from voicesplit_tpu_torch.dsp.normalize import amp_to_db, db_to_amp, denormalize_db, normalize_db
-from voicesplit_tpu_torch.dsp.stft import istft_magphase, stft_magphase
+from voicesplit_tpu_torch.dsp.stft import istft_magphase, num_frames, stft_magphase
 
 
 class AudioProcessor:
@@ -85,6 +85,10 @@ class AudioProcessor:
         with torch.inference_mode():
             wav = self.spec2wav_batch(self._tensor(spec), self._tensor(phase))
         return wav.cpu().numpy()
+
+    def frames_for(self, n_samples: int) -> int:
+        """Spectrogram frames of a waveform of `n_samples`."""
+        return num_frames(n_samples, self.n_fft, self.hop_length)
 
     def load_wav(self, path: str) -> np.ndarray:
         return audio_io.load_wav(path, self.sample_rate)

@@ -29,6 +29,15 @@ their batch statistics go through the chain's kernels in channels-last
 ``[B, T, F, C]``; ``conv1``, ``conv7``'s own BatchNorm + activation and
 ``conv8`` run as usual.  Eval mode never takes the chain.
 
+With ``VOICESPLIT_PALLAS_CONV=1`` (`ops/conv_cuda.py`, the JAX package's
+switch) the layers that meet `conv_cuda.takes_layer` (``conv2`` … ``conv7``
+at 64 channels) compute their conv, and in training its two gradients, with
+the dilated-conv kernels, in train and in eval mode; BatchNorm + activation
+stay `ops/bn_act.py`, ``conv1`` and ``conv8`` the library conv.  The JAX
+model cannot run both switches at once (the chain drives the folded blocks,
+which the Pallas switch turns off), so a train-mode forward with both set
+raises.
+
 Dropout acts only in train mode, so a config with ``dropout > 0`` builds
 and serves; its train step is not ported yet (`train.make_train_step`
 raises).  Not ported yet: causal convs, extra dilated blocks and the
@@ -46,6 +55,7 @@ from voicesplit_tpu_torch.config import Config
 from voicesplit_tpu_torch.device import DeviceLike, resolve_device
 from voicesplit_tpu_torch.models.lstm import BiLSTM
 from voicesplit_tpu_torch.ops.bn_act import bn_act_eval, bn_act_train, mish
+from voicesplit_tpu_torch.ops.conv_cuda import conv2d_dilated_bias, pallas_conv_enabled, takes_layer
 from voicesplit_tpu_torch.ops.conv_fused import fused_chain_enabled, make_chain
 
 __all__ = ["BatchNorm", "ConvBlock", "MaskNet", "make_masknet", "mish"]
@@ -166,7 +176,14 @@ class MaskNet(nn.Module):
         """``[B, T, F]`` → flattened conv features ``[B, T, 8F]`` (f·C + c)."""
         B, T, F = spec.shape
         x = spec.to(self.compute_dtype)[:, None]  # [B, 1, T, F]
-        if self._use_fused_chain():
+        if pallas_conv_enabled():
+            if self._use_fused_chain():
+                raise ValueError(
+                    "VOICESPLIT_PALLAS_CONV=1 and VOICESPLIT_FUSED_CHAIN=1 are both set: "
+                    "a training forward takes one conv path, not both"
+                )
+            x = self._dilated_conv_features(x)
+        elif self._use_fused_chain():
             x = self._fused_chain_features(x)
         else:
             for name in self.block_names:
@@ -203,6 +220,27 @@ class MaskNet(nn.Module):
             b.bn.update_running(mean, var)
         h = chain_blocks[-1].bn_act(raw.permute(0, 3, 1, 2))  # a channels-last NCHW view
         return blocks[-1](h)
+
+    def _dilated_conv_features(self, x: torch.Tensor) -> torch.Tensor:
+        """Every block in turn; a layer that `conv_cuda.takes_layer` accepts
+        runs its conv through `conv_cuda.conv2d_dilated_bias` on channels-last
+        ``[B, T, F, C]``.  The first such layer copies NCHW to channels-last;
+        after it BatchNorm + activation keep that memory layout, so the
+        later permutes are views."""
+        for name in self.block_names:
+            block = getattr(self, name)
+            c = block.conv
+            w_shape = (*c.kernel_size, c.in_channels, c.out_channels)
+            if takes_layer(w_shape, c.dilation):
+                y = conv2d_dilated_bias(
+                    x.to(self.compute_dtype).permute(0, 2, 3, 1).contiguous(),
+                    c.weight.permute(2, 3, 1, 0),  # OIHW → [kt, kf, Cin, Cout]
+                    c.bias, c.dilation,
+                )
+                x = block.bn_act(y.permute(0, 3, 1, 2))
+            else:
+                x = block(x)
+        return x
 
     def mask_head(self, features: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         B, T, _ = features.shape

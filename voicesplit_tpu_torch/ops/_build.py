@@ -6,7 +6,7 @@ shared library in ``build/`` at the repository root, and the library is
 loaded with ``ctypes`` at first use.  The sources expose a plain C
 interface: every pointer and the stream is a ``void*``, every launch
 returns its ``cudaError_t`` and the Python wrapper raises on anything but 0.
-The kernel modules (`lstm_cuda`, `conv_fused`) declare the argument types of
+The kernel modules (`lstm_cuda`, `conv_fused`, `conv_cuda`) declare the argument types of
 their own functions on the library this module returns, and share the
 dispatch rule below: the kernel for a CUDA tensor, the plain version for a
 CPU one.
@@ -48,13 +48,14 @@ def build() -> Tuple[Path, str]:
 
     Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all
     started together, and the objects are linked into one library named
-    by a hash of all sources and flags.  The log holds ``ptxas -v``
+    by a hash of all sources, the headers they share (``csrc/*.cuh``) and
+    the flags.  The log holds ``ptxas -v``
     (registers, shared memory, spills) of a fresh build and is empty when
     an up-to-date library was found.
     """
     srcs = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
-    for src in srcs:
+    for src in sorted([*srcs, *CSRC.glob("*.cuh")]):  # a changed header is a new library
         h.update(src.name.encode() + b"\0" + src.read_bytes())
     digest = h.hexdigest()[:16]
     lib = BUILD_DIR / f"libvoicesplit-{digest}.so"

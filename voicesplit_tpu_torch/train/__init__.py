@@ -1,5 +1,7 @@
 """Training: optimizer and state, train/eval steps, EMA (counterpart of
-`voicesplit_tpu/train`, without the Trainer, data loading and checkpoints)."""
+`voicesplit_tpu/train`).  The `Trainer` is in `train.trainer`, checkpoints in
+`train.checkpoint`; they are imported from there, since they pull in the
+data and evaluation modules."""
 
 from voicesplit_tpu_torch.train.state import (
     TrainState,

@@ -1,0 +1,306 @@
+"""The training loop (counterpart of `voicesplit_tpu/train/trainer.py`), one
+process on one card.
+
+Capability of reference `train.py:25-163`: model selection from config,
+Adam, checkpoint resume (full or partial warm-start), epoch loop with
+validation at epoch start, per-batch step, loss-explosion guard, summaries
+every `summary_interval`, checkpoint + validation every
+`checkpoint_interval`.
+
+As in the JAX package: waveform batches go to the device from a background
+thread (`data/prefetch.py`); the explosion guard reads the metrics on its
+own cadence (`check_interval`), so a step does not otherwise wait for the
+card; checkpoints carry the data-iterator state for exact mid-epoch resume;
+throughput is reported as audio-seconds per second.
+
+Preemption safety: ``fit()`` installs SIGTERM/SIGINT handlers that request a
+stop; the loop then checkpoints at the next step boundary and returns
+cleanly with ``{"preempted": True}``, so the replacement job resumes
+mid-epoch from the saved data-iterator state.
+
+Not ported yet (each raises): a device mesh, ``model_parallel > 1``, several
+processes, ``debug_nans`` and the streaming (causal) model.
+"""
+
+from __future__ import annotations
+
+import os
+import signal
+import threading
+import time
+from typing import Dict, Optional
+
+import torch
+
+from voicesplit_tpu_torch.config import Config
+from voicesplit_tpu_torch.data.dataset import (
+    BatchIterator,
+    SeparationDataset,
+    discover_samples,
+    eval_dataloader,
+    make_train_iterator,
+)
+from voicesplit_tpu_torch.data.prefetch import DevicePrefetcher, to_device
+from voicesplit_tpu_torch.device import DeviceLike
+from voicesplit_tpu_torch.dsp.processor import AudioProcessor, make_audio_processor
+from voicesplit_tpu_torch.eval.validation import validate
+from voicesplit_tpu_torch.models.masknet import make_masknet
+from voicesplit_tpu_torch.train.checkpoint import (
+    AsyncCheckpointer,
+    load_checkpoint,
+    restore_train_state,
+)
+from voicesplit_tpu_torch.train.state import TrainState, create_train_state, make_optimizer
+from voicesplit_tpu_torch.train.steps import make_eval_step, make_train_step
+from voicesplit_tpu_torch.utils.logging import MetricsLogger
+from voicesplit_tpu_torch.weights import init_for_training_
+
+# what fit() spends its wall time on, by the host's clock (see `Trainer.wall_seconds`)
+_WALL_KEYS = ("data", "train_step", "check", "checkpoint", "validation")
+
+
+class Trainer:
+    def __init__(
+        self,
+        config: Config,
+        checkpoint_path: Optional[str] = None,
+        log_dir: Optional[str] = None,
+        mesh=None,
+        model_parallel: int = 1,
+        train_loader: Optional[BatchIterator] = None,
+        eval_loader: Optional[BatchIterator] = None,
+        enable_tb: bool = True,
+        prefetch_depth: int = 2,
+        debug_nans: bool = False,
+        streaming: Optional[bool] = None,
+        device: DeviceLike = None,
+    ):
+        if mesh is not None or model_parallel > 1:
+            raise NotImplementedError("a device mesh and model_parallel > 1 are not yet ported")
+        if debug_nans:
+            raise NotImplementedError("debug_nans is not yet ported")
+        if streaming or (streaming is None and config.model.causal):
+            raise NotImplementedError("the streaming (causal) model is not yet ported")
+        if torch.distributed.is_available() and torch.distributed.is_initialized():
+            raise NotImplementedError("training in several processes is not yet ported")
+        self.config = config
+        self.log_dir = log_dir or config.train_config.logs_path
+        self.ap: AudioProcessor = make_audio_processor(config, device=device)
+        self.device = self.ap.device
+        self.model = init_for_training_(
+            make_masknet(config, device=device), config.train_config.seed
+        )
+
+        if train_loader is None:
+            samples = discover_samples(config.dataset.train_dir, config.dataset.format)
+            ds = SeparationDataset(samples, self.ap, config.audio.audio_len, config.model.emb_dim)
+            train_loader = make_train_iterator(
+                ds, config.train_config.batch_size, seed=config.train_config.seed,
+                shard_id=0, num_shards=1,
+            )
+        self.train_loader = train_loader
+        self.eval_loader = eval_loader or eval_dataloader(config, self.ap)
+
+        optimizer = make_optimizer(config, self.model)
+        state = create_train_state(self.model, optimizer)
+        if checkpoint_path:
+            payload = load_checkpoint(checkpoint_path)
+            try:
+                restored, data_state = restore_train_state(payload, state)
+            except ValueError as e:  # name or shape mismatch ⇒ partial warm start
+                print(f" > Full restore failed ({e}); partial init")
+                state, _ = restore_train_state(
+                    payload, state, partial=True,
+                    reinit_layers=config.train_config.reinit_layers,
+                )
+            else:
+                # outside the except scope: a loader/data-state problem
+                # must surface loudly, not silently discard a good full
+                # restore (resetting step + Adam moments) as "mismatch"
+                state = restored
+                if data_state is not None:
+                    self.train_loader.load_state(data_state)
+                print(f" > Resumed checkpoint step {int(payload['step'])}")
+        self.state: TrainState = state
+
+        self.train_step = make_train_step(config, self.model, self.ap, optimizer)
+        self.eval_step = make_eval_step(config, self.model, self.ap)
+        self.logger = MetricsLogger(self.log_dir, self.ap.sample_rate, enable_tb=enable_tb)
+        self._audio_seconds_per_batch = config.train_config.batch_size * config.audio.audio_len
+        self._prefetch_depth = prefetch_depth
+        self._prefetch: Optional[DevicePrefetcher] = None  # built lazily at
+        # fit() so checkpoint restore above can rewind the loader before
+        # readahead starts
+        self._preempt_requested = False
+        self._ckpt_writer = AsyncCheckpointer()
+        # host-clock seconds of the last fit() by what the loop was doing;
+        # "train_step" is the time to enqueue the steps and "check" the wait
+        # for the card when the guard reads the metrics, so with
+        # check_interval = 1 the two together are the train steps' time
+        self.wall_seconds: Dict[str, float] = {}
+
+    # ------------------------------------------------------------------
+
+    def request_preemption(self) -> None:
+        """Ask ``fit()`` to checkpoint and return at the next step boundary."""
+        self._preempt_requested = True
+
+    def _handle_signal(self, signum, frame):  # noqa: ARG002 — signal API
+        if self._preempt_requested:
+            # second signal: the operator means it — escalate past the
+            # graceful path (default KeyboardInterrupt semantics)
+            raise KeyboardInterrupt
+        # os.write is async-signal-safe; print() can die on the stdout
+        # BufferedWriter lock if the signal lands mid-write
+        os.write(2, f" > Caught signal {signum}: checkpointing at next step boundary\n".encode())
+        self.request_preemption()
+
+    def _install_signal_handlers(self):
+        """SIGTERM/SIGINT → graceful checkpoint-and-exit.
+
+        Python only allows signal handlers on the main thread; inside a
+        worker thread (tests, notebook executors) this is a no-op and
+        `request_preemption()` remains the programmatic path.
+        """
+        if threading.current_thread() is not threading.main_thread():
+            return []
+        previous = []
+        for signum in (signal.SIGTERM, signal.SIGINT):
+            try:
+                previous.append((signum, signal.signal(signum, self._handle_signal)))
+            except (ValueError, OSError):  # non-main interpreter contexts
+                pass
+        return previous
+
+    def _put(self, batch):
+        return to_device(batch, self.device)
+
+    def _checkpoint(self, run_eval: bool, step: int, compute_sdr: bool, max_eval_items):
+        """Save (optionally + eval)."""
+        t0 = time.perf_counter()
+        data_state = (
+            self._prefetch.state if self._prefetch is not None else self.train_loader.state
+        )
+        # serialization + disk write overlap the next train steps;
+        # fit() flushes the writer before returning
+        path = self._ckpt_writer.save(self.log_dir, self.state, self.config, data_state)
+        print(f"Saved checkpoint to: {path}")
+        self.wall_seconds["checkpoint"] += time.perf_counter() - t0
+        if run_eval:
+            self._validate(step, compute_sdr, max_eval_items)
+
+    def _validate(self, step: int, compute_sdr: bool, max_eval_items) -> None:
+        t0 = time.perf_counter()
+        m = validate(
+            self.eval_step, self.eval_loader, self.logger, step,
+            max_items=max_eval_items, compute_sdr=compute_sdr,
+        )
+        print(f" > Eval @ step {step}: {m}")
+        self.wall_seconds["validation"] += time.perf_counter() - t0
+
+    def fit(
+        self,
+        max_steps: Optional[int] = None,
+        validate_at_epoch_start: bool = True,
+        compute_sdr_in_eval: bool = False,
+        max_eval_items: Optional[int] = 8,
+    ) -> Dict[str, float]:
+        """Run the epoch loop; returns the last metrics."""
+        c = self.config.train_config
+        restore_handlers = self._install_signal_handlers()
+        if self._prefetch is None and self._prefetch_depth > 0:
+            # assembles + device-places batches on a background thread so
+            # host work and the copy to the card overlap the device step
+            self._prefetch = DevicePrefetcher(
+                self.train_loader, place=self._put, depth=self._prefetch_depth
+            )
+        step = self.state.step
+        last: Dict[str, float] = {}
+        wall = self.wall_seconds = {k: 0.0 for k in _WALL_KEYS}
+        t_fit = t_window = time.perf_counter()
+        steps_in_window = 0
+        try:
+            for _epoch in range(c.epochs):
+                if validate_at_epoch_start:
+                    self._validate(step, compute_sdr_in_eval, max_eval_items)
+                for _ in range(self.train_loader.batches_per_epoch()):
+                    t0 = time.perf_counter()
+                    if self._prefetch is not None:
+                        batch = next(self._prefetch)
+                    else:
+                        batch = self._put(next(self.train_loader))
+                    t1 = time.perf_counter()
+                    metrics = self.train_step(self.state, batch)
+                    t2 = time.perf_counter()
+                    wall["data"] += t1 - t0
+                    wall["train_step"] += t2 - t1
+                    step += 1
+                    steps_in_window += 1
+
+                    # The guard rides its own cadence (check_interval) so a
+                    # large summary_interval cannot delay explosion detection.
+                    do_summary = step % c.summary_interval == 0
+                    do_check = do_summary or step % max(1, c.check_interval) == 0
+                    if do_check:
+                        loss = float(metrics["loss"])  # waits for the card
+                        exploded = bool(metrics["loss_exploded"])
+                        wall["check"] += time.perf_counter() - t2
+                        if exploded:
+                            print(f"Loss exploded to {loss:.2f} at step {step}!")
+                            return {"loss": loss, "exploded": True, "step": step}
+                    if do_summary:
+                        now = time.perf_counter()
+                        tput = self._audio_seconds_per_batch * steps_in_window / max(
+                            now - t_window, 1e-9
+                        )
+                        t_window, steps_in_window = now, 0
+                        last = {
+                            "loss": loss,
+                            "grad_norm": float(metrics["grad_norm"]),
+                            "audio_sec_per_sec_per_chip": tput,
+                        }
+                        self.logger.log_training(
+                            loss, step, grad_norm=last["grad_norm"],
+                            audio_sec_per_sec_per_chip=tput,
+                        )
+
+                    if self._preempt_requested:
+                        self._checkpoint(False, step, compute_sdr_in_eval, max_eval_items)
+                        print(f" > Preempted: checkpointed at step {step}, exiting")
+                        # clear the flag so a later fit() on this Trainer
+                        # trains instead of instantly re-preempting, and a
+                        # fresh SIGTERM gets the graceful path
+                        self._preempt_requested = False
+                        last.update({"step": step, "preempted": True})
+                        return last
+
+                    if step % c.checkpoint_interval == 0:
+                        self._checkpoint(True, step, compute_sdr_in_eval, max_eval_items)
+
+                    if max_steps is not None and step >= max_steps:
+                        if step % c.checkpoint_interval != 0:
+                            # final state off an interval boundary would
+                            # otherwise be silently dropped
+                            self._checkpoint(False, step, compute_sdr_in_eval, max_eval_items)
+                        last["step"] = step
+                        return last
+            if step > 0 and step % c.checkpoint_interval != 0:
+                self._checkpoint(False, step, compute_sdr_in_eval, max_eval_items)
+            last["step"] = step
+            return last
+        finally:
+            # a graceful exit (preemption included) must not drop an
+            # in-flight checkpoint write
+            t0 = time.perf_counter()
+            self._ckpt_writer.wait()
+            wall["checkpoint"] += time.perf_counter() - t0
+            wall["fit"] = time.perf_counter() - t_fit
+            for signum, handler in restore_handlers:
+                signal.signal(signum, handler)
+
+    def close(self) -> None:
+        """Stop the prefetch thread and close the log files."""
+        if self._prefetch is not None:
+            self._prefetch.close()
+            self._prefetch = None
+        self.logger.close()

@@ -14,12 +14,13 @@ Conv kernels go from HWIO to OIHW and Dense kernels are transposed; the
 LSTM keeps its JAX layout.  The same mapping carries any tree shaped like
 ``params``, such as Adam's first and second moments.  The trees are nested
 dicts of numpy arrays (optax states as their namedtuples), so this module
-needs neither JAX nor flax nor optax.  Loading a JAX ``.msgpack``
-checkpoint is not ported yet.
+needs neither JAX nor flax nor optax.  `train.checkpoint.load_jax_checkpoint`
+reads such trees from a JAX ``.msgpack`` checkpoint.
 """
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Dict, Mapping, Tuple
 
 import numpy as np
@@ -67,14 +68,24 @@ def state_dict_from_jax(params: Tree, batch_stats: Tree) -> Dict[str, torch.Tens
 
 
 def _adam_state(opt_state):
-    """The ``ScaleByAdamState`` (count, mu, nu) inside an optax chain state."""
-    if all(hasattr(opt_state, k) for k in ("count", "mu", "nu")):
+    """The ``ScaleByAdamState`` (count, mu, nu) inside an optax chain state,
+    given as optax's namedtuples or as the nested dicts a JAX checkpoint
+    holds (`train.checkpoint.load_jax_checkpoint`)."""
+    keys = ("count", "mu", "nu")
+    if all(hasattr(opt_state, k) for k in keys):
         return opt_state
-    if isinstance(opt_state, (tuple, list)):
-        for sub in opt_state:
-            found = _adam_state(sub)
-            if found is not None:
-                return found
+    if isinstance(opt_state, Mapping):
+        if all(k in opt_state for k in keys):
+            return SimpleNamespace(**{k: opt_state[k] for k in keys})
+        subs = list(opt_state.values())
+    elif isinstance(opt_state, (tuple, list)):
+        subs = opt_state
+    else:
+        return None
+    for sub in subs:
+        found = _adam_state(sub)
+        if found is not None:
+            return found
     return None
 
 
@@ -82,7 +93,8 @@ def optimizer_state_from_jax(
     opt_state, model: MaskNet, optimizer: torch.optim.Optimizer
 ) -> int:
     """Load Adam's update count and moments from a JAX optax state (a tree of
-    numpy arrays, e.g. ``jax.device_get(state.opt_state)``) into
+    numpy arrays, e.g. ``jax.device_get(state.opt_state)`` or a JAX
+    checkpoint's ``opt_state``) into
     `optimizer`, whose parameters are `model`'s.  Returns the update
     count, which the port's `TrainState.step` must carry for the
     learning-rate schedule."""
@@ -152,6 +164,41 @@ def init_random_(model: MaskNet, seed: int = 0) -> MaskNet:
     """Load random weights from `seed` (see `random_jax_variables`) in place."""
     sd = state_dict_from_jax(*random_jax_variables(model, seed))
     model.load_state_dict(sd)
+    return model
+
+
+def init_for_training_(model: MaskNet, seed: int = 0) -> MaskNet:
+    """A fresh model as the JAX package initializes it, in place, drawn from
+    a ``torch.Generator`` seeded with `seed` (the same distributions, not
+    the same numbers as ``model.init`` there): conv and dense kernels LeCun
+    normal (flax's truncated normal at ±2σ with its variance correction),
+    their biases 0, BatchNorm scale 1, bias 0, running mean 0 and variance
+    1, the LSTM uniform(±1/sqrt(H))."""
+    g = torch.Generator().manual_seed(seed)
+    fix = 0.87962566103423978  # std of a unit normal truncated at ±2
+
+    def lecun_(w: torch.Tensor, fan_in: int) -> None:
+        std = fan_in ** -0.5 / fix
+        fresh = torch.empty(w.shape)
+        torch.nn.init.trunc_normal_(fresh, 0.0, std, -2 * std, 2 * std, generator=g)
+        w.copy_(fresh)
+
+    with torch.no_grad():
+        for name in model.block_names:
+            block = getattr(model, name)
+            w = block.conv.weight  # [Cout, Cin, kt, kf]
+            lecun_(w, w.shape[1] * w.shape[2] * w.shape[3])
+            block.conv.bias.zero_()
+            block.bn.scale.fill_(1.0)
+            block.bn.bias.zero_()
+            block.bn.mean.zero_()
+            block.bn.var.fill_(1.0)
+        s = model.lstm.hidden ** -0.5
+        for p in model.lstm.parameters():
+            p.copy_(torch.empty(p.shape).uniform_(-s, s, generator=g))
+        for fc in (model.fc1, model.fc2):
+            lecun_(fc.weight, fc.weight.shape[1])
+            fc.bias.zero_()
     return model
 
 

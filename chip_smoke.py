@@ -9,7 +9,10 @@ Phases, each printing one JSON line:
 1. device   — the card's name and power limit (``nvidia-smi``).
 2. build    — compiles every `voicesplit_tpu_torch/csrc/*.cu` with nvcc for
    sm_90a into ``build/`` (one nvcc per source, all at once) and prints
-   ``ptxas -v`` (registers, shared memory, spills) and each kernel's grid.
+   ``ptxas -v`` (registers, shared memory, spills) and each kernel's grid;
+   the weight-gradient kernel's per layer and batch beside the blocks the
+   card holds at once (a launch with more fails the phase), its registers
+   and spilled bytes.
 3. kernels  — at H=400, T=301 holds each kernel against its plain PyTorch
    version on the card, in bf16 and fp32 operands: ``lstm_fwd`` (B=1,
    random h0/c0; hs, cs, gates, final (h, c)), ``bilstm_fwd`` (B=8),
@@ -42,17 +45,21 @@ Phases, each printing one JSON line:
 6. conv kernels — the three kernels of the fused conv chain
    (``conv_bn_act_fwd``, ``conv_dgrad``, ``conv_wgrad``) against their plain
    versions on the card: bf16 at the path's shape ``[2, 301, 601, 64]`` for
-   the (7,1) layer and the (5,5) layers of dilation 1 and 16, with and
-   without the prologue (mish, relu once); fp32 at a reduced shape; the
-   statistics and ``dbias`` in fp32; the first and last 32 time rows and 2
-   frequency columns on their own; two launches on the same inputs must
-   give the same bits.  Then times each kernel per layer kind at B=2 and
-   B=8 beside its plain version, its bound and a library yardstick that
-   the port never calls (cuDNN ``conv2d`` plus the eager BatchNorm +
-   activation pass; ``aten.convolution_backward``).
+   the (7,1) layer and the (5,5) layers of dilation 1 and 16 (``conv_wgrad``
+   also 2, 4 and 8: every layer of conv2 … conv7), with and without the
+   prologue (mish, relu once); fp32 at a reduced shape; the statistics and
+   ``dbias`` in fp32; the first and last 32 time rows and 2 frequency
+   columns on their own; two launches on the same inputs must give the same
+   bits, and ``conv_wgrad`` with a prologue the bits of
+   ``conv_dilated_wgrad`` on its prologue pass's output.  Then times each
+   kernel per layer kind at B=2 and B=8 beside its plain version, its bound
+   and a library yardstick that the port never calls (cuDNN ``conv2d`` plus
+   the eager BatchNorm + activation pass; ``aten.convolution_backward``),
+   ``conv_wgrad`` (its prologue pass inside its time, and on its own) at
+   all six layers with its sum over them per train step.
 7. train fused — the train phase again with ``VOICESPLIT_FUSED_CHAIN=1``
    (conv2 … conv7 through the chain's kernels): exact launches per step
-   (6 + 6 + 6 conv kernels beside the LSTM's), the same step again
+   (6 + 6 + 6 conv kernels and 5 prologue passes beside the LSTM's), the same step again
    (reports whether it gave the same bits), through the plain versions on
    the card and with the chain off, 20 timed steps.
 
@@ -60,12 +67,14 @@ Phases, each printing one JSON line:
    (``conv_dilated_fwd``, as forward and, with flipped weights, as data
    gradient; ``conv_dilated_wgrad``) against their plain versions on the
    card: bf16 at ``[2, 301, 601, 64]`` for the (7,1) layer and the (5,5)
-   layers of dilation 1 and 16, fp32 at a reduced shape; the forward also
-   against the same sum rounded once; edge rows and columns on their own;
-   the same bits twice.  Then times per layer kind at B=2 and B=8 beside the
-   bound, the plain version, a library yardstick the port never calls
-   (cuDNN ``conv2d``; ``aten.convolution_backward``) and the fused chain's
-   ``conv_dgrad`` / ``conv_wgrad`` for the same layer.
+   layers of dilation 1 and 16 (``conv_dilated_wgrad`` at all six layers of
+   conv2 … conv7), fp32 at a reduced shape; the forward also against the
+   same sum rounded once; edge rows and columns on their own; the same bits
+   twice.  Then times per layer kind at B=2 and B=8 beside the bound, the
+   plain version, a library yardstick the port never calls (cuDNN
+   ``conv2d``; ``aten.convolution_backward``) and the fused chain's
+   ``conv_dgrad`` for the same layer; ``conv_dilated_wgrad`` at all six
+   layers with its sum per train step.
 9. separate dilated — the separate phase's model with
    ``VOICESPLIT_PALLAS_CONV=1`` at B=1 and B=8: exactly 6
    ``conv_dilated_fwd`` launches per call beside the LSTM's, mask and
@@ -150,8 +159,15 @@ CONV_TOL = {
 }
 CONV_SHAPE = (2, T_FRAMES, 601, 64)  # the training path's activations at B=2
 CONV_SHAPE_FP32 = (1, 40, 150, 64)  # reduced: the fp32 kernels are the tests' instantiation
-CONV_LAYERS = {"7x1": ((7, 1), 1), "5x5-d1": ((5, 5), 1), "5x5-d16": ((5, 5), 16)}
-CONV_LAUNCHES = {"conv_bn_act_fwd": 6, "conv_dgrad": 6, "conv_wgrad": 6}  # per train step
+# conv2 … conv7 of the model, each layer kind once
+CONV_LAYERS = {"7x1": ((7, 1), 1), "5x5-d1": ((5, 5), 1), "5x5-d2": ((5, 5), 2),
+               "5x5-d4": ((5, 5), 4), "5x5-d8": ((5, 5), 8), "5x5-d16": ((5, 5), 16)}
+# where the tile kernels (forward, data gradient) are checked and timed; the
+# weight-gradient kernels at every layer of CONV_LAYERS
+TILE_LAYERS = ("7x1", "5x5-d1", "5x5-d16")
+CONV_KERNELS = ("conv_bn_act_fwd", "conv_dgrad", "conv_wgrad")
+# per train step; the prologue pass of conv_wgrad runs for conv3 … conv7
+CONV_LAUNCHES = {"conv_bn_act_fwd": 6, "conv_dgrad": 6, "conv_wgrad": 6, "conv_wgrad_prologue": 5}
 # fused step, kernels vs the plain versions on the card (same arithmetic).
 # The BatchNorm backward between two convs works in bf16, as in the JAX
 # package: its per-channel constants (mean, r, mean dz, mean dz·x̂) are
@@ -228,9 +244,9 @@ SOURCES = {
     "bilstm_bwd": "voicesplit_tpu_torch/csrc/lstm_bwd.cu",
     "conv_bn_act_fwd": "voicesplit_tpu_torch/csrc/conv_fused.cu",
     "conv_dgrad": "voicesplit_tpu_torch/csrc/conv_fused.cu",
-    "conv_wgrad": "voicesplit_tpu_torch/csrc/conv_fused.cu",
+    "conv_wgrad": "voicesplit_tpu_torch/csrc/conv_wgrad.cu",
     "conv_dilated_fwd": "voicesplit_tpu_torch/csrc/conv_dilated.cu",
-    "conv_dilated_wgrad": "voicesplit_tpu_torch/csrc/conv_dilated.cu",
+    "conv_dilated_wgrad": "voicesplit_tpu_torch/csrc/conv_wgrad.cu",
 }
 
 
@@ -334,7 +350,7 @@ def ptxas_summary(log: str, fragment: str) -> list:
     return out
 
 
-def phase_build(torch, lstm_cuda, conv_fused, conv_cuda) -> None:
+def phase_build(torch, lstm_cuda, conv_fused) -> None:
     from voicesplit_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -348,16 +364,21 @@ def phase_build(torch, lstm_cuda, conv_fused, conv_cuda) -> None:
         )
         for dt in ("bfloat16", "float32")
     }
-    for name in CONV_LAUNCHES:
-        for layer, ((kt, kf), _) in CONV_LAYERS.items():
-            for b in (2, 8):
-                grids[f"{name}_{layer}_B{b}"] = conv_fused.launch_config(
-                    name, (b, *CONV_SHAPE[1:]), kt, kf, torch.bfloat16)
-    for name in DILATED_TRAIN_LAUNCHES:
-        for layer, ((kt, kf), _) in CONV_LAYERS.items():
-            for b in (2, 8):
-                grids[f"{name}_{layer}_B{b}"] = conv_cuda.launch_config(
-                    name, (b, *CONV_SHAPE[1:]), kt, kf, torch.bfloat16)
+    # conv_bn_act_fwd, conv_dgrad and conv_dilated_fwd share the tile grid;
+    # conv_wgrad and conv_dilated_wgrad share the weight-gradient kernel
+    for layer, ((kt, kf), dt) in CONV_LAYERS.items():
+        for b in (2, 8):
+            shape = (b, *CONV_SHAPE[1:])
+            if layer in TILE_LAYERS:
+                grids[f"conv_tile_{layer}_B{b}"] = conv_fused.launch_config(
+                    shape, kt, kf, torch.bfloat16)
+            wg = grids[f"conv_wgrad_{layer}_B{b}"] = conv_fused.wgrad_launch_config(
+                shape, kt, kf, dt, torch.bfloat16)
+            check(wg["blocks"] <= wg["resident_blocks"],
+                  f"weight gradient {layer} B={b}: {wg['blocks']} blocks > {wg['resident_blocks']} resident")
+    for dtype in ("bfloat16", "float32"):
+        grids[f"conv_wgrad_5x5-d1_reduced_{dtype}"] = conv_fused.wgrad_launch_config(
+            CONV_SHAPE_FP32, 5, 5, 1, getattr(torch, dtype))
     emit("build", library=str(lib.relative_to(ROOT)), seconds=seconds,
          ptxas_lstm=ptxas_summary(log, "lstm"), ptxas_conv=ptxas_summary(log, "conv"),
          grids=grids)
@@ -724,6 +745,14 @@ def conv_bound(kind: str, shape, kt: int, kf: int, dt: int, dtype: str) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def _per_step(times: dict) -> dict:
+    """A kernel's time summed over conv2 … conv7 (one launch per layer), by
+    batch, beside the same sums of its library yardstick and bound."""
+    return {f"B{b}": {k: sum(times[f"B{b}/{layer}"][k] for layer in CONV_LAYERS)
+                      for k in ("ms", "library_ms", "bound_ms")}
+            for b in (2, 8)}
+
+
 def _peak_rel(got, want) -> float:
     return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
 
@@ -753,9 +782,11 @@ def _conv_inputs(torch, shape, kt, kf, dtype, g):
     return x, d, w, bias, (mean.to(dev), var.to(dev), scale.to(dev), beta.to(dev))
 
 
-def _check_conv_case(torch, cf, case, shape, layer, act, dtype_name, g) -> dict:
-    """One layer and prologue through the three kernels and their plain
-    versions; raises on disagreement or on two launches that differ."""
+def _check_conv_case(torch, cf, cc, case, shape, layer, act, dtype_name, g) -> dict:
+    """One layer and prologue through the three kernels (the tile kernels
+    only on TILE_LAYERS) and their plain versions; raises on disagreement or
+    on two launches that differ.  With a prologue, `conv_wgrad` must also
+    give the bits of `conv_dilated_wgrad` on the prologue pass's output."""
     (kt, kf), dt = CONV_LAYERS[layer]
     dtype = getattr(torch, dtype_name)
     tol = CONV_TOL[dtype_name]
@@ -774,6 +805,8 @@ def _check_conv_case(torch, cf, case, shape, layer, act, dtype_name, g) -> dict:
         for name, (kernel, plain, args, kinds) in runs.items():
             if name == "conv_dgrad" and on:
                 continue  # no prologue on this kernel: checked in the plain case
+            if name != "conv_wgrad" and layer not in TILE_LAYERS:
+                continue
             got, again, want = kernel(*args), kernel(*args), plain(*args)
             torch.cuda.synchronize()
             got, again, want = (o if isinstance(o, tuple) else (o,) for o in (got, again, want))
@@ -789,10 +822,21 @@ def _check_conv_case(torch, cf, case, shape, layer, act, dtype_name, g) -> dict:
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
                   f"{name} {case}: two launches on the same inputs differ")
             report[name] = entry
+        if on:
+            y, y_plain = cf.conv_wgrad_prologue(x, scal, act), cf._prologue(x, scal, act, True)
+            split = cc.conv_dilated_wgrad(y, d, kt, kf, dt)
+            torch.cuda.synchronize()
+            check(torch.equal(cf.conv_wgrad(x, d, scal, kt, kf, dt, act, on), split),
+                  f"conv_wgrad {case}: not the bits of conv_dilated_wgrad on its prologue's output")
+            err = _peak_rel(y, y_plain)
+            check(np.isfinite(err) and err <= tol["out"],
+                  f"conv_wgrad prologue {case}: error {err} > {tol['out']}")
+            report["conv_wgrad"]["prologue_vs_plain"] = {
+                "peak_rel": err, "share_of_elements_that_differ": (y != y_plain).float().mean().item()}
     return report
 
 
-def phase_conv_kernels(torch, cf, seed: int) -> dict:
+def phase_conv_kernels(torch, cf, cc, seed: int) -> dict:
     """The fused chain's kernels vs their plain versions on the card, then
     their times per layer kind and batch."""
     import torch.nn.functional as F
@@ -800,14 +844,16 @@ def phase_conv_kernels(torch, cf, seed: int) -> dict:
     from voicesplit_tpu_torch.ops import bn_act
 
     g = torch.Generator(device="cpu").manual_seed(seed + 2)
+    # the weight gradient alone on the layers outside TILE_LAYERS
     cases = [("7x1", None), ("7x1", "mish"), ("5x5-d1", None), ("5x5-d1", "mish"),
-             ("5x5-d1", "relu"), ("5x5-d16", None), ("5x5-d16", "mish")]
-    worst = {name: {"bfloat16": 0.0, "float32": 0.0} for name in CONV_LAUNCHES}
+             ("5x5-d1", "relu"), ("5x5-d2", "mish"), ("5x5-d4", "mish"), ("5x5-d8", "mish"),
+             ("5x5-d16", None), ("5x5-d16", "mish")]
+    worst = {name: {"bfloat16": 0.0, "float32": 0.0} for name in CONV_KERNELS}
     agreement = {}
     for dtype_name, shape in (("bfloat16", CONV_SHAPE), ("float32", CONV_SHAPE_FP32)):
         for layer, act in cases:
             case = f"{layer}/{act or 'plain'}/{dtype_name}"
-            agreement[case] = _check_conv_case(torch, cf, case, shape, layer, act, dtype_name, g)
+            agreement[case] = _check_conv_case(torch, cf, cc, case, shape, layer, act, dtype_name, g)
             for name, entry in agreement[case].items():
                 worst[name][dtype_name] = max(worst[name][dtype_name], entry["abs_err"])
         torch.cuda.empty_cache()
@@ -829,8 +875,9 @@ def phase_conv_kernels(torch, cf, seed: int) -> dict:
          tolerances_peak_rel=CONV_TOL, agreement=agreement,
          cudnn_fp32_wgrad_vs_plain_peak_rel=library_fp32_wgrad_err)
 
-    # times: bf16, the chain's prologue (mish) on, per layer kind and batch
-    timing = {name: {} for name in CONV_LAUNCHES}
+    # times: bf16, the chain's prologue (mish) on, per layer kind and batch;
+    # conv_wgrad's time holds its prologue pass, also timed on its own
+    timing = {name: {} for name in CONV_KERNELS}
     for b in (2, 8):
         shape = (b, *CONV_SHAPE[1:])
         iters = 5 if b == 2 else 3
@@ -868,6 +915,8 @@ def phase_conv_kernels(torch, cf, seed: int) -> dict:
             }
             with torch.inference_mode():
                 for name, (kernel, plain, library) in calls.items():
+                    if name != "conv_wgrad" and layer not in TILE_LAYERS:
+                        continue
                     bound = conv_bound(name, shape, kt, kf, dt, "bfloat16")
                     timing[name][f"B{b}/{layer}"] = {
                         "ms": time_ms(torch, kernel, iters=iters, warmup=1),
@@ -875,11 +924,14 @@ def phase_conv_kernels(torch, cf, seed: int) -> dict:
                         "library_ms": time_ms(torch, library, iters=iters, warmup=1),
                         **bound,
                     }
+                if on:
+                    timing["conv_wgrad"][f"B{b}/{layer}"]["prologue_pass_ms"] = time_ms(
+                        torch, lambda: cf.conv_wgrad_prologue(x, scal, act), iters=iters, warmup=1)
             del x, d, w, wf, x_nchw, d_nchw
             torch.cuda.empty_cache()
     emit("conv kernel times", dtype="bfloat16", prologue="mish (none on the 7x1 layer)",
          library="cuDNN conv2d (+ eager BN + act) / aten.convolution_backward, channels-last bf16",
-         times=timing)
+         times=timing, conv_wgrad_ms_per_step=_per_step(timing["conv_wgrad"]))
     # the kernels line quotes the (5,5) dilation-1 layer at the config's batch
     head = "B2/5x5-d1"
     return {
@@ -888,7 +940,7 @@ def phase_conv_kernels(torch, cf, seed: int) -> dict:
                "library_ms": timing[name][head]["library_ms"],
                "bound_ms": timing[name][head]["bound_ms"], "bound_by": timing[name][head]["bound_by"],
                "timed_at": head, "ms_by_batch_and_layer": {k: v["ms"] for k, v in timing[name].items()}}
-        for name in CONV_LAUNCHES
+        for name in CONV_KERNELS
     }
 
 
@@ -1070,17 +1122,18 @@ def _latency_ms(torch, fn, calls: int):
 
 
 def _check_dilated_case(torch, cc, cf, case, shape, layer, dtype_name, g) -> dict:
-    """One layer through `conv_dilated_fwd` (as forward and as data gradient)
-    and `conv_dilated_wgrad` and their plain versions; raises on
-    disagreement or on two launches that differ."""
+    """One layer through `conv_dilated_fwd` (as forward and as data gradient;
+    only on TILE_LAYERS) and `conv_dilated_wgrad` and their plain versions;
+    raises on disagreement or on two launches that differ."""
     (kt, kf), dt = CONV_LAYERS[layer]
     dtype = getattr(torch, dtype_name)
     tol = DILATED_TOL[dtype_name]
     x, d, w, _, _ = _conv_inputs(torch, shape, kt, kf, dtype, g)
     wf = cc.flip_weight(w)
     report = {}
+    tile_runs = {"forward": (x, w), "data_gradient": (d, wf)} if layer in TILE_LAYERS else {}
     with torch.inference_mode():
-        for what, (a, wt) in {"forward": (x, w), "data_gradient": (d, wf)}.items():
+        for what, (a, wt) in tile_runs.items():
             got, again = cc.conv_dilated_fwd(a, wt, dt), cc.conv_dilated_fwd(a, wt, dt)
             want = cc.conv_dilated_fwd_ref(a, wt, dt)
             once = cf._conv_core(a, wt, dt).to(dtype)  # every tap in fp32, one rounding
@@ -1125,9 +1178,10 @@ def phase_dilated_kernels(torch, cc, cf, seed: int) -> dict:
         for layer in CONV_LAYERS:
             case = f"{layer}/{dtype_name}"
             r = agreement[case] = _check_dilated_case(torch, cc, cf, case, shape, layer, dtype_name, g)
-            worst["conv_dilated_fwd"][dtype_name] = max(
-                worst["conv_dilated_fwd"][dtype_name], r["forward"]["abs_err"],
-                r["data_gradient"]["abs_err"])
+            if layer in TILE_LAYERS:
+                worst["conv_dilated_fwd"][dtype_name] = max(
+                    worst["conv_dilated_fwd"][dtype_name], r["forward"]["abs_err"],
+                    r["data_gradient"]["abs_err"])
             worst["conv_dilated_wgrad"][dtype_name] = max(
                 worst["conv_dilated_wgrad"][dtype_name], r["weight_gradient"]["abs_err"])
         torch.cuda.empty_cache()
@@ -1135,7 +1189,6 @@ def phase_dilated_kernels(torch, cc, cf, seed: int) -> dict:
          tolerances_peak_rel=DILATED_TOL, agreement=agreement)
 
     timing = {name: {} for name in DILATED_TRAIN_LAUNCHES}
-    zero_scal = torch.zeros(8, 64, device="cuda")
     for b in (2, 8):
         shape = (b, *CONV_SHAPE[1:])
         iters = 5 if b == 2 else 3
@@ -1151,36 +1204,36 @@ def phase_dilated_kernels(torch, cc, cf, seed: int) -> dict:
                     d_nchw, x_nchw, w_oihw, None, (1, 1), pad, (dt, 1), False, (0, 0), 1, mask)
 
             with torch.inference_mode():
-                bound = conv_bound("conv_dilated_fwd", shape, kt, kf, dt, "bfloat16")
-                timing["conv_dilated_fwd"][f"B{b}/{layer}"] = {
-                    "ms": time_ms(torch, lambda: cc.conv_dilated_fwd(x, w, dt), iters, warmup=1),
-                    "data_gradient_ms": time_ms(
-                        torch, lambda: cc.conv_dilated_fwd(d, wf, dt), iters, warmup=1),
-                    "plain_ms": time_ms(torch, lambda: cc.conv_dilated_fwd_ref(x, w, dt), 2, warmup=1),
-                    "library_ms": time_ms(
-                        torch, lambda: F.conv2d(x_nchw, w_oihw, None, padding=pad, dilation=(dt, 1)),
-                        iters, warmup=1),
-                    "library_data_gradient_ms": time_ms(
-                        torch, lambda: lib_bwd((True, False, False)), iters, warmup=1),
-                    "fused_chain_conv_dgrad_ms": time_ms(
-                        torch, lambda: cf.conv_dgrad(d, wf, dt), iters, warmup=1),
-                    **bound,
-                }
+                if layer in TILE_LAYERS:
+                    bound = conv_bound("conv_dilated_fwd", shape, kt, kf, dt, "bfloat16")
+                    timing["conv_dilated_fwd"][f"B{b}/{layer}"] = {
+                        "ms": time_ms(torch, lambda: cc.conv_dilated_fwd(x, w, dt), iters, warmup=1),
+                        "data_gradient_ms": time_ms(
+                            torch, lambda: cc.conv_dilated_fwd(d, wf, dt), iters, warmup=1),
+                        "plain_ms": time_ms(
+                            torch, lambda: cc.conv_dilated_fwd_ref(x, w, dt), 2, warmup=1),
+                        "library_ms": time_ms(
+                            torch, lambda: F.conv2d(x_nchw, w_oihw, None, padding=pad, dilation=(dt, 1)),
+                            iters, warmup=1),
+                        "library_data_gradient_ms": time_ms(
+                            torch, lambda: lib_bwd((True, False, False)), iters, warmup=1),
+                        "fused_chain_conv_dgrad_ms": time_ms(
+                            torch, lambda: cf.conv_dgrad(d, wf, dt), iters, warmup=1),
+                        **bound,
+                    }
                 bound = conv_bound("conv_dilated_wgrad", shape, kt, kf, dt, "bfloat16")
                 timing["conv_dilated_wgrad"][f"B{b}/{layer}"] = {
                     "ms": time_ms(torch, lambda: cc.conv_dilated_wgrad(x, d, kt, kf, dt), iters, warmup=1),
                     "plain_ms": time_ms(
                         torch, lambda: cc.conv_dilated_wgrad_ref(x, d, kt, kf, dt), 2, warmup=1),
                     "library_ms": time_ms(torch, lambda: lib_bwd((False, True, False)), iters, warmup=1),
-                    "fused_chain_conv_wgrad_ms": time_ms(
-                        torch, lambda: cf.conv_wgrad(x, d, zero_scal, kt, kf, dt, None, False),
-                        iters, warmup=1),
                     **bound,
                 }
             del x, d, w, wf, x_nchw, d_nchw, w_oihw
             torch.cuda.empty_cache()
     emit("dilated conv kernel times", dtype="bfloat16",
-         library="cuDNN conv2d / aten.convolution_backward, channels-last bf16", times=timing)
+         library="cuDNN conv2d / aten.convolution_backward, channels-last bf16", times=timing,
+         conv_dilated_wgrad_ms_per_step=_per_step(timing["conv_dilated_wgrad"]))
     head = "B2/5x5-d1"
     return {
         name: {"bf16": {"max_abs_err": worst[name]["bfloat16"], **timing[name][head]},
@@ -1458,9 +1511,11 @@ def phase_trainer(torch, lstm_cuda, cc, seed: int, profile_dir) -> dict:
 
 # kernel-name fragments → kind, for the device time split under --profile
 KERNEL_KINDS = (
-    ("dilated conv kernels", ("conv_dilated_fwd_kernel", "conv_dilated_wgrad_kernel")),
-    ("conv chain kernels", ("conv_bn_act_fwd_kernel", "conv_dgrad_kernel", "conv_wgrad_kernel",
-                            "reduce_rows_kernel")),
+    ("dilated conv kernels", ("conv_dilated_fwd_kernel",)),
+    ("conv chain kernels", ("conv_bn_act_fwd_kernel", "conv_dgrad_kernel", "reduce_rows_kernel")),
+    # the weight gradient of both conv paths (with the chain's prologue pass)
+    ("conv weight-gradient kernels", ("conv_wgrad_kernel", "wgrad_prologue_kernel",
+                                      "reduce_taps_kernel")),
     ("lstm kernels", ("lstm_fwd_kernel", "lstm_bwd_kernel")),
     ("convs", ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad")),
     ("matmuls", ("gemm", "cutlass", "nvjet", "splitk")),
@@ -1536,7 +1591,7 @@ def main(argv=None) -> int:
 
     set_fp32_precision()
     smi_line = phase_device(torch)
-    phase_build(torch, lstm_cuda, conv_fused, conv_cuda)
+    phase_build(torch, lstm_cuda, conv_fused)
     kern, by_path = {}, {}
     if "kernels" in phases:
         kern.update(phase_kernels(torch, lstm_cuda, args.seed))
@@ -1547,7 +1602,7 @@ def main(argv=None) -> int:
     if "train" in phases:
         by_path["train"] = phase_train(torch, lstm_cuda, args.seed, args.profile)
     if "conv_kernels" in phases:
-        kern.update(phase_conv_kernels(torch, conv_fused, args.seed))
+        kern.update(phase_conv_kernels(torch, conv_fused, conv_cuda, args.seed))
     if "train_fused" in phases:
         by_path["train_fused"] = phase_train_fused(
             torch, lstm_cuda, conv_fused, args.seed, args.profile)

@@ -1,0 +1,106 @@
+#!/usr/bin/env python3
+"""Times the PyTorch port's two conv weight-gradient wrappers on the card.
+
+    python3 scripts/port_wgrad_times.py [--root DIR] [--tag NAME] [--iters 10]
+
+Imports `voicesplit_tpu_torch` from DIR (default: this checkout) and builds
+its kernels there, so that an older tree unpacked with ``git archive`` into
+a git-ignored directory is timed by the same script in the same call (run
+parent, change, change, parent).  It uses only the wrappers' public calls,
+which are the same in every tree that has both kernels:
+
+- ``conv_fused.conv_wgrad`` with the chain's mish prologue (none on the
+  (7,1) layer, as the chain calls it), the prologue inside its time;
+- ``conv_cuda.conv_dilated_wgrad``;
+
+at the six layer kinds of conv2 … conv7 ((7,1), and (5,5) at time dilation
+1, 2, 4, 8, 16) on ``[B, 301, 601, 64]`` bf16 activations, B=2 and B=8.
+Each time is the mean of ``--iters`` calls after two warm ones, between
+CUDA events.  Prints one JSON line with the card's name and power limit,
+the times per layer and their sums over the six layers (one launch per
+layer and train step).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+LAYERS = {"7x1": ((7, 1), 1), "5x5-d1": ((5, 5), 1), "5x5-d2": ((5, 5), 2),
+          "5x5-d4": ((5, 5), 4), "5x5-d8": ((5, 5), 8), "5x5-d16": ((5, 5), 16)}
+SHAPE = (301, 601, 64)  # T, F, C of the model's conv activations (3 s clips)
+
+
+def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    parser.add_argument("--tag", default="")
+    parser.add_argument("--iters", type=int, default=10)
+    args = parser.parse_args(argv)
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("port_wgrad_times: no CUDA device", file=sys.stderr)
+        return 1
+    from voicesplit_tpu_torch.ops import _build
+    from voicesplit_tpu_torch.ops import conv_cuda as cc
+    from voicesplit_tpu_torch.ops import conv_fused as cf
+
+    if not Path(cf.__file__).resolve().is_relative_to(root):
+        print(f"port_wgrad_times: imported {cf.__file__}, not from {root}", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.library()
+    build_s = time.perf_counter() - t0
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    g = torch.Generator(device="cpu").manual_seed(0)
+    C = SHAPE[-1]
+    times = {"conv_wgrad": {}, "conv_dilated_wgrad": {}}
+    for b in (2, 8):
+        x = torch.randn(b, *SHAPE, generator=g).to("cuda", torch.bfloat16)
+        d = torch.randn(b, *SHAPE, generator=g).to("cuda", torch.bfloat16)
+        scal = cf._scal_table(0.2 * torch.randn(C, generator=g), torch.rand(C, generator=g) + 0.5,
+                              torch.rand(C, generator=g) + 0.5, 0.1 * torch.randn(C, generator=g)).cuda()
+        with torch.inference_mode():
+            for layer, ((kt, kf), dt) in LAYERS.items():
+                act = None if layer == "7x1" else "mish"
+                times["conv_wgrad"][f"B{b}/{layer}"] = time_ms(
+                    torch, lambda: cf.conv_wgrad(x, d, scal, kt, kf, dt, act, act is not None),
+                    args.iters)
+                times["conv_dilated_wgrad"][f"B{b}/{layer}"] = time_ms(
+                    torch, lambda: cc.conv_dilated_wgrad(x, d, kt, kf, dt), args.iters)
+        del x, d
+        torch.cuda.empty_cache()
+    per_step = {name: {f"B{b}": sum(t[f"B{b}/{layer}"] for layer in LAYERS) for b in (2, 8)}
+                for name, t in times.items()}
+    print(json.dumps({"tag": args.tag, "root": str(root), "device": torch.cuda.get_device_name(0),
+                      "nvidia_smi": smi, "build_seconds": build_s, "iters": args.iters,
+                      "ms": times, "ms_per_step": per_step}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

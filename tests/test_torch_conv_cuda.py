@@ -37,7 +37,9 @@ from voicesplit_tpu_torch.train import create_train_state, make_optimizer, make_
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 B, T, F, C = 2, 37, 37, 64
-SPECS = {"7x1": ((7, 1), 1), "5x5-d1": ((5, 5), 1), "5x5-d4": ((5, 5), 4), "5x5-d16": ((5, 5), 16)}
+# each layer kind of conv2 … conv7
+SPECS = {"7x1": ((7, 1), 1), "5x5-d1": ((5, 5), 1), "5x5-d2": ((5, 5), 2), "5x5-d4": ((5, 5), 4),
+         "5x5-d8": ((5, 5), 8), "5x5-d16": ((5, 5), 16)}
 # fp32, both sides: the same products summed in another order; relative to
 # each output's peak
 PEAK_TOL = 1e-4

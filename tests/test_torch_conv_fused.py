@@ -7,7 +7,10 @@ does.  The port works on channels-last ``[B, T, F, C]``; the JAX kernels on
 frequency-folded, zero-margined frames.  The conversions between the two
 (fold, frame, folded weights, the folded scalar table and statistics) live
 here.  Geometry of `tests/test_conv_fused.py`: odd F (a real pad column in
-the fold), a (7,1), a (5,5) and a dilated (5,5) layer, C = 64.
+the fold), C = 64; the kernel-level tests take each layer kind of conv2 …
+conv7 (a (7,1) layer and (5,5) layers of time dilation 1 … 16, the last
+three reaching past T), the chain the (7,1), a (5,5) and a dilated (5,5)
+layer.
 """
 
 import json
@@ -33,14 +36,18 @@ from voicesplit_tpu_torch.cli.separate import separate_batch
 from voicesplit_tpu_torch.config import load_config_from_str
 from voicesplit_tpu_torch.dsp.processor import make_audio_processor
 from voicesplit_tpu_torch.models.masknet import MaskNet, make_masknet
+from voicesplit_tpu_torch.ops import conv_cuda as cc
 from voicesplit_tpu_torch.ops import conv_fused as cf
 from voicesplit_tpu_torch.train import create_train_state, make_eval_step, make_optimizer, make_train_step
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 B, T, F, C = 2, 19, 37, 64
-SPECS = {"7x1": ((7, 1), 1), "5x5": ((5, 5), 1), "5x5-d2": ((5, 5), 2)}
+SPECS = {"7x1": ((7, 1), 1), "5x5": ((5, 5), 1), "5x5-d2": ((5, 5), 2), "5x5-d4": ((5, 5), 4),
+         "5x5-d8": ((5, 5), 8), "5x5-d16": ((5, 5), 16)}
+CHAIN_SPECS = [SPECS[k] for k in ("7x1", "5x5", "5x5-d2")]
 EPS = 1e-5
-GEOM = jcf.FrameGeom(T, F, FOLD * C, max((k[0] - 1) * d // 2 for k, d in SPECS.values()))
+# the JAX kernels' frame of each layer: time margin of its own reach
+GEOMS = {name: jcf.FrameGeom(T, F, FOLD * C, (k[0] - 1) * d // 2) for name, (k, d) in SPECS.items()}
 # fp32, both sides: the same products summed in another order (the fold
 # splits each sum over parity slots); relative to each output's peak
 PEAK_TOL = 1e-4
@@ -50,13 +57,13 @@ def _np(a):
     return np.asarray(jnp.asarray(a).astype(jnp.float32))
 
 
-def _frame(x: np.ndarray, dtype=jnp.float32):
+def _frame(x: np.ndarray, geom, dtype=jnp.float32):
     """[B, T, F, C] → the JAX kernels' zero-margined folded frame."""
-    return jcf.to_frame(fold_input(jnp.asarray(x).astype(dtype)), GEOM)
+    return jcf.to_frame(fold_input(jnp.asarray(x).astype(dtype)), geom)
 
 
-def _unframe(frame) -> np.ndarray:
-    return _np(unfold_output(jcf.from_frame(frame, GEOM), F))
+def _unframe(frame, geom) -> np.ndarray:
+    return _np(unfold_output(jcf.from_frame(frame, geom), F))
 
 
 def _unfold_channels(v) -> np.ndarray:
@@ -99,14 +106,14 @@ def test_forward_plain_version_matches_pallas_kernel(spec, prologue):
     scal_t, scal_j = _scal_pair(bn)
     wf = fold_kernel(jnp.asarray(w))
     frame, stats = jcf._conv_fwd(
-        _frame(x), jcf._pack(wf), scal_j, jnp.tile(jnp.asarray(bias), FOLD)[None, :],
-        GEOM, kt, wf.shape[1], dt, act, on,
+        _frame(x, GEOMS[spec]), jcf._pack(wf), scal_j, jnp.tile(jnp.asarray(bias), FOLD)[None, :],
+        GEOMS[spec], kt, wf.shape[1], dt, act, on,
     )
     raw, st = cf.conv_bn_act_fwd(
         torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(bias), scal_t, dt, act, on
     )
     assert raw.shape == (B, T, F, C) and raw.is_contiguous() and st.shape == (2, C)
-    _assert_peak_close(raw.numpy(), _unframe(frame), PEAK_TOL)
+    _assert_peak_close(raw.numpy(), _unframe(frame, GEOMS[spec]), PEAK_TOL)
     _assert_peak_close(st[0].numpy(), _unfold_channels(stats[0]), PEAK_TOL, "sum")
     _assert_peak_close(st[1].numpy(), _unfold_channels(stats[1]), PEAK_TOL, "sum of squares")
     n = B * T * F
@@ -124,15 +131,16 @@ def test_forward_plain_version_matches_pallas_kernel_bf16():
     scal_t, scal_j = _scal_pair(bn)
     wf = fold_kernel(jnp.asarray(w).astype(jnp.bfloat16))
     frame, stats = jcf._conv_fwd(
-        _frame(x, jnp.bfloat16), jcf._pack(wf), scal_j,
-        jnp.tile(jnp.asarray(bias), FOLD)[None, :], GEOM, kt, wf.shape[1], dt, "mish", True,
+        _frame(x, GEOMS["5x5-d2"], jnp.bfloat16), jcf._pack(wf), scal_j,
+        jnp.tile(jnp.asarray(bias), FOLD)[None, :], GEOMS["5x5-d2"], kt, wf.shape[1], dt, "mish",
+        True,
     )
     raw, st = cf.conv_bn_act_fwd(
         torch.from_numpy(x).bfloat16(), torch.from_numpy(w).bfloat16(), torch.from_numpy(bias),
         scal_t, dt, "mish", True,
     )
     assert raw.dtype == torch.bfloat16 and st.dtype == torch.float32
-    _assert_peak_close(raw.float().numpy(), _unframe(frame), 1e-2)
+    _assert_peak_close(raw.float().numpy(), _unframe(frame, GEOMS["5x5-d2"]), 1e-2)
     _assert_peak_close(st[0].numpy(), _unfold_channels(stats[0]), 1e-2, "sum")
     _assert_peak_close(st[1].numpy(), _unfold_channels(stats[1]), 1e-2, "sum of squares")
 
@@ -143,14 +151,15 @@ def test_dgrad_plain_version_matches_pallas_kernel(spec):
     d_raw, w, _, _ = _layer_inputs(3, kt, kf)
     wf = fold_kernel(jnp.asarray(w))
     zero = jnp.zeros((8, FOLD * C), jnp.float32)
-    frame = _frame(d_raw)
+    frame = _frame(d_raw, GEOMS[spec])
     out, dbias = jcf._conv_dgrad(
-        frame, frame, jcf._flip_packed(wf), zero, GEOM, kt, wf.shape[1], dt, None, prologue=False
+        frame, frame, jcf._flip_packed(wf), zero, GEOMS[spec], kt, wf.shape[1], dt, None,
+        prologue=False,
     )
     wt = torch.from_numpy(w)
     dx, db = cf.conv_dgrad(torch.from_numpy(d_raw), cf.pack_weight_flipped(wt, torch.float32), dt)
     assert dx.shape == (B, T, F, C) and dx.is_contiguous() and db.shape == (C,)
-    _assert_peak_close(dx.numpy(), _unframe(out), PEAK_TOL)
+    _assert_peak_close(dx.numpy(), _unframe(out, GEOMS[spec]), PEAK_TOL)
     _assert_peak_close(db.numpy(), _unfold_channels(dbias[0]), PEAK_TOL, "dbias")
 
 
@@ -164,15 +173,51 @@ def test_wgrad_plain_version_matches_pallas_kernel(spec, prologue):
     scal_t, scal_j = _scal_pair(bn)
     zero = jnp.zeros((8, FOLD * C), jnp.float32)
     kb = fold_kernel(jnp.zeros((kt, kf, 1, 1))).shape[1]
-    d_frame = _frame(d_raw)
+    d_frame = _frame(d_raw, GEOMS[spec])
     dwf = jcf._conv_wgrad(
-        _frame(x), d_frame, d_frame, scal_j, zero, GEOM, kt, kb, dt, act, None,
+        _frame(x, GEOMS[spec]), d_frame, d_frame, scal_j, zero, GEOMS[spec], kt, kb, dt, act, None,
         lhs_prologue=on, rhs_prologue=False,
     )
     want = jcf._unfold_grad(dwf, kt, kf, C, C)
     got = cf.conv_wgrad(torch.from_numpy(x), torch.from_numpy(d_raw), scal_t, kt, kf, dt, act, on)
     assert got.shape == (kt, kf, C, C) and got.dtype == torch.float32
     _assert_peak_close(got.numpy(), _np(want), PEAK_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", ["mish", "relu"])
+def test_prologue_pass_then_weight_gradient_is_conv_wgrad(act, dtype):
+    """`conv_wgrad` with its prologue is the prologue pass (`wgrad_prologue`)
+    followed by the prologue-free weight gradient (`conv_dilated_wgrad`), bit
+    for bit, as the CUDA kernels compute it; and both match the Pallas
+    kernel with its prologue in interpret mode.  bf16: both sides round the
+    activated input to bf16 before exact products, but XLA may compute the
+    activation with other roundings, which can move an element by one bf16
+    ulp; 1e-3 of dW's peak holds that (fp32: summation order only)."""
+    (kt, kf), dt = SPECS["5x5-d2"]
+    x, _, _, bn = _layer_inputs(9, kt, kf)
+    d_raw = np.random.default_rng(10).standard_normal((B, T, F, C)).astype(np.float32)
+    scal_t, scal_j = _scal_pair(bn)
+    td, jd = getattr(torch, dtype), getattr(jnp, dtype)
+    xt, dtt = torch.from_numpy(x).to(td), torch.from_numpy(d_raw).to(td)
+    y = cf.conv_wgrad_prologue(xt, scal_t, act)
+    assert y.dtype == td and torch.equal(y, cf._prologue(xt, scal_t, act, True))
+    split = cc.conv_dilated_wgrad(y, dtt, kt, kf, dt)
+    whole = cf.conv_wgrad(xt, dtt, scal_t, kt, kf, dt, act, True)
+    assert torch.equal(split, whole)
+    assert torch.equal(whole, cf.conv_wgrad_ref(xt, dtt, scal_t, kt, kf, dt, act, True))
+    zero = jnp.zeros((8, FOLD * C), jnp.float32)
+    kb = fold_kernel(jnp.zeros((kt, kf, 1, 1))).shape[1]
+    g = GEOMS["5x5-d2"]
+    d_frame = _frame(d_raw, g, jd)
+    dwf = jcf._conv_wgrad(
+        _frame(x, g, jd), d_frame, d_frame, scal_j, zero, g, kt, kb, dt, act, None,
+        lhs_prologue=True, rhs_prologue=False,
+    )
+    tol = PEAK_TOL if dtype == "float32" else 1e-3
+    _assert_peak_close(whole.numpy(), _np(jcf._unfold_grad(dwf, kt, kf, C, C)), tol)
+    with pytest.raises(ValueError, match="prologue needs act"):
+        cf.conv_wgrad_prologue(xt, scal_t, None)
 
 
 def test_flipped_weights_give_the_convs_data_gradient():
@@ -197,7 +242,7 @@ def test_flipped_weights_give_the_convs_data_gradient():
 
 
 def _chain_params(rng):
-    specs = list(SPECS.values())
+    specs = CHAIN_SPECS
     ws = [(0.08 * rng.standard_normal((kt, kf, C, C))).astype(np.float32) for (kt, kf), _ in specs]
     cbs = [(0.1 * rng.standard_normal(C)).astype(np.float32) for _ in specs]
     scales = [(1.0 + 0.1 * rng.standard_normal(C)).astype(np.float32) for _ in specs[:-1]]
@@ -212,7 +257,7 @@ def test_chain_matches_jax_make_chain(act):
     cancels a constant shift), so both sides hold summation noise there and
     an absolute floor is the comparison, as in `tests/test_conv_fused.py`."""
     rng = np.random.default_rng(8)
-    specs = list(SPECS.values())
+    specs = CHAIN_SPECS
     params = _chain_params(rng)
     y1 = rng.standard_normal((B, T, F, C)).astype(np.float32)
     cot = rng.standard_normal((B, T, F, C)).astype(np.float32)
@@ -252,13 +297,13 @@ def test_chain_matches_jax_make_chain(act):
 
 
 def test_chain_checks_its_arguments():
-    chain = cf.make_chain(list(SPECS.values()), "mish")
+    chain = cf.make_chain(CHAIN_SPECS, "mish")
     ws, cbs, scales, biases = (tuple(map(torch.from_numpy, g)) for g in _chain_params(np.random.default_rng(0)))
     y1 = torch.zeros(B, T, F, C)
     with pytest.raises(ValueError, match="BatchNorm affines"):
         chain(y1, ws, cbs, scales[:-1], biases)
     with pytest.raises(ValueError, match="unknown activation"):
-        cf.make_chain(list(SPECS.values()), "gelu")
+        cf.make_chain(CHAIN_SPECS, "gelu")
     with pytest.raises(ValueError, match="odd"):
         cf.conv_bn_act_fwd(y1, torch.zeros(4, 5, C, C), cbs[0], torch.zeros(8, C), 1, None, False)
     with pytest.raises(TypeError, match="bf16 or fp32"):

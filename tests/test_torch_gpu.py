@@ -234,6 +234,68 @@ def test_conv_chain_kernels_match_plain_versions_on_card(layer, dtype):
         assert (a.float() - b.float()).abs().max().item() <= tol * b.float().abs().max().item()
 
 
+# Weight-gradient cases: (kt, kf), dilation, [B, T, F].  More items than
+# resident blocks; T shorter than the dilated reach (T = 13 at dilation 16:
+# only the centre tap is inside); F off the 128- and 64-wide tiles; for
+# kf = 1 a dilation above 1 (several residues per column) and a column
+# shorter than the tap window.
+WGRAD_CASES = {
+    "5x5-d1-more-items-than-blocks": (((5, 5), 1), (2, 40, 300)),
+    "5x5-d16-T13": (((5, 5), 16), (2, 13, 150)),
+    "3x3-d2-F130": (((3, 3), 2), (1, 9, 130)),
+    "7x1-d1-more-items-than-blocks": (((7, 1), 1), (2, 40, 700)),
+    "7x1-d3-F70": (((7, 1), 3), (1, 29, 70)),
+    "7x1-d16-T13": (((7, 1), 16), (2, 13, 150)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(WGRAD_CASES))
+def test_wgrad_kernels_match_plain_versions_on_card(case, dtype):
+    """`conv_wgrad` (mish prologue) and `conv_dilated_wgrad` against their
+    plain versions: one launch never has more blocks than the card holds at
+    once, two launches give the same bits, and `conv_wgrad` gives the bits
+    of `conv_dilated_wgrad` on its prologue pass's output."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import conv_cuda as cc
+    from voicesplit_tpu_torch.ops import conv_fused as cf
+
+    ((kt, kf), dil), (b, t, f) = WGRAD_CASES[case]
+    g = torch.Generator().manual_seed(1)
+    dt = getattr(torch, dtype)
+    C = 64
+    x = torch.randn(b, t, f, C, generator=g).to("cuda", dt)
+    d = torch.randn(b, t, f, C, generator=g).to("cuda", dt)
+    scal = cf._scal_table(
+        0.2 * torch.randn(C, generator=g), torch.rand(C, generator=g) + 0.5,
+        torch.rand(C, generator=g) + 0.5, 0.1 * torch.randn(C, generator=g),
+    ).cuda()
+    grid = cf.wgrad_launch_config(x.shape, kt, kf, dil, dt)
+    assert grid["blocks"] <= grid["resident_blocks"]
+    if "more-items" in case:
+        assert grid["blocks"] == grid["resident_blocks"]
+    with torch.inference_mode():
+        got = cf.conv_wgrad(x, d, scal, kt, kf, dil, "mish", True)
+        again = cf.conv_wgrad(x, d, scal, kt, kf, dil, "mish", True)
+        y = cf.conv_wgrad_prologue(x, scal, "mish")
+        split = cc.conv_dilated_wgrad(y, d, kt, kf, dil)
+        want = cf.conv_wgrad_ref(x, d, scal, kt, kf, dil, "mish", True)
+        plain_dw = cc.conv_dilated_wgrad(x, d, kt, kf, dil)
+        plain_want = cc.conv_dilated_wgrad_ref(x, d, kt, kf, dil)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(got, split)
+    # fp32 and bf16 alike: exact products (bf16 x bf16 fits fp32) summed in
+    # another order; relative to each result's peak
+    tol = 1e-4 if dtype == "float32" else 1e-3
+    for a, w_ in ((got, want), (plain_dw, plain_want)):
+        assert a.shape == (kt, kf, C, C) and bool(torch.isfinite(a).all())
+        assert (a - w_).abs().max().item() <= tol * w_.abs().max().item()
+    if case.endswith("T13"):  # only the centre tap is inside the tensor
+        outside = [i for i in range(kt) if i != (kt - 1) // 2]
+        assert not got[outside].any() and not plain_dw[outside].any()
+
+
 @pytest.mark.gpu
 def test_fused_train_step_runs_through_the_conv_kernels_on_card(monkeypatch):
     """Full-width train step with `VOICESPLIT_FUSED_CHAIN=1` at the config's
@@ -262,7 +324,8 @@ def test_fused_train_step_runs_through_the_conv_kernels_on_card(monkeypatch):
     conv_fused.reset_launch_counts()
     m = make_train_step(cfg, model, ap, opt)(state, batch)
     torch.cuda.synchronize()
-    assert conv_fused.LAUNCHES == {"conv_bn_act_fwd": 6, "conv_dgrad": 6, "conv_wgrad": 6}
+    assert conv_fused.LAUNCHES == {"conv_bn_act_fwd": 6, "conv_dgrad": 6, "conv_wgrad": 6,
+                                   "conv_wgrad_prologue": 5}
     assert lstm_cuda.LAUNCHES == {"lstm_fwd": 2, "bilstm_fwd": 0, "lstm_bwd": 2, "bilstm_bwd": 0}
     assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
     for k, v in model.state_dict().items():

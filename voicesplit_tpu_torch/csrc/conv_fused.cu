@@ -1,11 +1,12 @@
-// Fused conv chain for Hopper (sm_90a): forward, data gradient, weight gradient.
+// Fused conv chain for Hopper (sm_90a): forward and data gradient.  The
+// chain's weight gradient, conv_wgrad, lives in conv_wgrad.cu.
 //
 // Replaces the TPU kernels in voicesplit_tpu/ops/conv_fused.py:
 //   conv_bn_act_fwd <- _fwd_kernel   (:303, launched by _conv_fwd   :365)
 //   conv_dgrad      <- _dgrad_kernel (:411, launched by _conv_dgrad :476)
-//   conv_wgrad      <- _wgrad_kernel (:524, launched by _conv_wgrad :583)
+//   (conv_wgrad     <- _wgrad_kernel (:524): conv_wgrad.cu)
 //
-// All three are "same" convolutions over channels-last activations
+// Both are "same" convolutions over channels-last activations
 // [B, T, F, C = 64] with weights [kt, kf, Cin, Cout], time dilation dt,
 // frequency dilation 1, odd kt and kf:
 //
@@ -16,8 +17,6 @@
 //                    the rounded raw)
 //   conv_dgrad       dx  = round(the same sum over d_raw with the flipped,
 //                    transposed weights the caller packs), dbias[c] = sum d_raw
-//   conv_wgrad       dW[i, j, c, co] = sum_{b,t,f} y[b, t + i*dt - pad_t, f + j - pad_f, c]
-//                                                  * d_raw[b, t, f, co]      (fp32)
 //
 // round() casts to the operand type (bf16 or fp32), every product
 // accumulates in fp32, the prologue runs in fp32 and is rounded before the
@@ -32,9 +31,9 @@
 // _wgrad_kernel (rhs_prologue), which make_chain never reaches: it
 // materializes d_raw in two plain passes.
 //
-// The block-level bodies (conv_tile, wgrad_tile), their helpers and the launch
-// shapes live in conv_tile.cuh, which conv_dilated.cu shares; this file holds
-// the chain's __global__ kernels, their launches and the C interface.
+// The block-level body (conv_tile), its helpers and the launch shapes live
+// in conv_tile.cuh, which conv_dilated.cu shares; this file holds the
+// chain's __global__ kernels, their launches and the C interface.
 //
 // Design.  bf16 operands go through the warp-level tensor-core product
 // mma.sync.m16n8k16 (bf16 in, fp32 accumulate), operands staged in shared
@@ -50,25 +49,20 @@
 //   tile goes through shared memory to the epilogue, which adds the bias,
 //   rounds, writes 16 bytes per thread and sums the statistics per column.
 //
-//   wgrad: grid (chunks, kt).  A block owns time tap i and every
-//   (b, t) row r with r = chunk (mod chunks); for each it stages 128
-//   positions of d_raw and the matching input row segment (prologue
-//   applied), and accumulates dW[i, 0..kf) in registers (kf x 64 x 64 fp32
-//   over 8 warps).  Positions are the contraction dimension.
-//
 // Reductions across blocks (blocks run in no order, unlike the TPU's grid):
 // every block writes its partial sums to scratch and a second small kernel
-// in this file adds them in a fixed order (in double), so the same inputs
-// give the same bits: no float atomics.
+// adds them in a fixed order (in double), so the same inputs give the same
+// bits: no float atomics.
 //
 // What bounds them on the card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16
 // dense), each input byte read once and each output byte written once: a
 // (5,5) layer at [8, 301, 601, 64] is 296 GFLOP against 370 MB, so
 // operations bound it (0.30 ms against 0.11 ms); the (7,1) layer is bound
-// by bytes.  This first version reaches neither: it waits for its loads
-// (no cp.async / TMA ring, two blocks per SM), recomputes the prologue for
-// each time tap that stages a row, and multiplies with mma.sync, not wgmma.
-// Those are later work.
+// by bytes.  conv_tile reaches neither yet: it waits for its loads (no
+// cp.async / TMA ring, two blocks per SM), conv_bn_act_fwd recomputes its
+// prologue for each time tap that stages a row, and it multiplies with
+// mma.sync, not wgmma.  conv_wgrad.cu's pipelined, whole-wave design is the
+// pattern for its redesign.
 
 #include "conv_tile.cuh"
 
@@ -88,14 +82,6 @@ __global__ void __launch_bounds__(kThreads, 2)
 conv_dgrad_kernel(const T* __restrict__ d_raw, const T* __restrict__ w, T* __restrict__ dx,
                   float* __restrict__ partials, int T_, int F, int kt, int kf, int dt) {
   conv_tile<T, kTileDgrad>(d_raw, w, nullptr, nullptr, dx, partials, T_, F, kt, kf, dt, kNone);
-}
-
-template <typename T, int KF>
-__global__ void __launch_bounds__(kThreads, 2)
-conv_wgrad_kernel(const T* __restrict__ x_in, const T* __restrict__ d_raw,
-                  const float* __restrict__ scal, float* __restrict__ partials, int B, int T_,
-                  int F, int kt, int dt, int act) {
-  wgrad_tile<T, KF>(x_in, d_raw, scal, partials, B, T_, F, kt, dt, act);
 }
 
 template <typename T>
@@ -142,47 +128,12 @@ cudaError_t launch_dgrad(const void* d_raw, const void* w, void* dx, void* dbias
   return cudaGetLastError();
 }
 
-template <typename T, int KF>
-cudaError_t launch_wgrad_kf(const void* x_in, const void* d_raw, const void* scal, void* dw,
-                            void* scratch, int B, int T_, int F, int kt, int dt, int act,
-                            cudaStream_t stream) {
-  LaunchConfig cfg;
-  cudaError_t err = wgrad_config<T>(B, T_, F, kt, KF, &cfg);
-  if (err != cudaSuccess) return err;
-  auto kernel = conv_wgrad_kernel<T, KF>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(cfg.smem));
-  if (err != cudaSuccess) return err;
-  float* partials = static_cast<float*>(scratch);
-  kernel<<<dim3(cfg.blocks, kt), cfg.threads, cfg.smem, stream>>>(
-      static_cast<const T*>(x_in), static_cast<const T*>(d_raw), static_cast<const float*>(scal),
-      partials, B, T_, F, kt, dt, act);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int width = kt * KF * kC * kC;
-  reduce_rows_kernel<4><<<(width + 31) / 32, dim3(32, 4), 0, stream>>>(
-      partials, cfg.blocks, width, static_cast<float*>(dw));
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_wgrad(const void* x_in, const void* d_raw, const void* scal, void* dw,
-                         void* scratch, int B, int T_, int F, int kt, int kf, int dt, int act,
-                         cudaStream_t stream) {
-  if (bad_shape(B, T_, F, kt, kf, dt) || act < kNone || act > kRelu) return cudaErrorInvalidValue;
-  switch (kf) {
-    case 1: return launch_wgrad_kf<T, 1>(x_in, d_raw, scal, dw, scratch, B, T_, F, kt, dt, act, stream);
-    case 3: return launch_wgrad_kf<T, 3>(x_in, d_raw, scal, dw, scratch, B, T_, F, kt, dt, act, stream);
-    case 5: return launch_wgrad_kf<T, 5>(x_in, d_raw, scal, dw, scratch, B, T_, F, kt, dt, act, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Every function returns its
 // cudaError_t; 0 is success.  `bf16` selects bf16 activations and weights,
 // otherwise fp32; bias, scal (the [8, 64] table: row 0 inv, row 1 shift),
-// stats, dbias, dw and scratch are fp32.  Activations are [B, T, F, 64],
+// stats, dbias and scratch are fp32.  Activations are [B, T, F, 64],
 // weights [kt, kf, 64, 64].  `act`: 0 no prologue, 1 mish, 2 relu.  `scratch`
 // holds the per-block partial sums (conv_fused_launch_config gives its size).
 
@@ -205,31 +156,12 @@ extern "C" int conv_dgrad(const void* d_raw, const void* w_flipped, void* dx, vo
               : launch_dgrad<float>(d_raw, w_flipped, dx, dbias, scratch, B, T, F, kt, kf, dt, s);
 }
 
-extern "C" int conv_wgrad(const void* x_in, const void* d_raw, const void* scal, void* dw,
-                          void* scratch, int B, int T, int F, int kt, int kf, int dt, int act,
-                          int bf16, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_wgrad<__nv_bfloat16>(x_in, d_raw, scal, dw, scratch, B, T, F, kt, kf, dt,
-                                            act, s)
-              : launch_wgrad<float>(x_in, d_raw, scal, dw, scratch, B, T, F, kt, kf, dt, act, s);
-}
-
-// Launch shape of a kernel: kind 0 forward, 1 dgrad, 2 wgrad (whose grid is
-// blocks x kt).
-extern "C" int conv_fused_launch_config(int kind, int B, int T, int F, int kt, int kf, int bf16,
-                                        int* blocks, int* threads, long long* smem,
-                                        long long* scratch) {
+// Launch shape of conv_bn_act_fwd and conv_dgrad (the same tile grid).
+extern "C" int conv_fused_launch_config(int B, int T, int F, int kt, int kf, int bf16, int* blocks,
+                                        int* threads, long long* smem, long long* scratch) {
   LaunchConfig cfg;
-  cudaError_t err;
-  if (kind == 2) {
-    err = bf16 ? wgrad_config<__nv_bfloat16>(B, T, F, kt, kf, &cfg)
-               : wgrad_config<float>(B, T, F, kt, kf, &cfg);
-  } else if (kind == 0 || kind == 1) {
-    err = bf16 ? tile_config<__nv_bfloat16>(B, T, F, kt, kf, &cfg)
-               : tile_config<float>(B, T, F, kt, kf, &cfg);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
+  cudaError_t err = bf16 ? tile_config<__nv_bfloat16>(B, T, F, kt, kf, &cfg)
+                         : tile_config<float>(B, T, F, kt, kf, &cfg);
   if (err != cudaSuccess) return err;
   *blocks = cfg.blocks;
   *threads = cfg.threads;

@@ -1,19 +1,18 @@
-// The "same" time-dilated conv over channels-last [B, T, F, 64] activations,
-// as two block-level bodies shared by conv_fused.cu and conv_dilated.cu:
-//
-//   conv_tile   two time rows x 128 frequency positions x 64 output channels
-//               per block: the forward conv (optionally with the fused chain's
-//               prologue, bias and output statistics) and, with tap-flipped,
-//               channel-transposed weights, the data gradient;
-//   wgrad_tile  one time tap and every n-th (b, t) row per block: the fp32
-//               weight gradient as per-block partials.
+// The "same" time-dilated conv over channels-last [B, T, F, 64] activations:
+// the block-level body conv_tile that conv_fused.cu and conv_dilated.cu share
+// (two time rows x 128 frequency positions x 64 output channels per block:
+// the forward conv, optionally with the fused chain's prologue, bias and
+// output statistics, and, with tap-flipped, channel-transposed weights, the
+// data gradient), and the helpers that conv_wgrad.cu's weight gradient
+// shares with it (operand types, the prologue's activation, ldmatrix,
+// mma.sync, launch-shape checks).
 //
 // Each .cu that includes this file is compiled on its own and defines its
-// own __global__ kernels around these bodies; everything here has internal
-// linkage.  The design (mma.sync.m16n8k16 for bf16, FMAs for fp32, padded
-// shared-memory rows for ldmatrix, predicated halo loads, cross-block sums by
+// own __global__ kernels; everything here has internal linkage.  conv_tile's
+// design (mma.sync.m16n8k16 for bf16, FMAs for fp32, padded shared-memory
+// rows for ldmatrix, predicated halo loads, cross-block sums by
 // reduce_rows_kernel in a fixed order) is described at the top of
-// conv_fused.cu.
+// conv_fused.cu; the weight gradient's at the top of conv_wgrad.cu.
 
 #pragma once
 
@@ -400,132 +399,6 @@ __global__ void reduce_rows_kernel(const float* __restrict__ in, int rows, int w
   }
 }
 
-// ---------------------------------------------------------------------------
-// Weight gradient
-// ---------------------------------------------------------------------------
-
-template <typename T>
-__host__ __device__ constexpr size_t wgrad_y_bytes(int kf) {
-  return align16(size_t(kTileF + kf - 1) * Ld<T>::value * sizeof(T));
-}
-template <typename T>
-__host__ __device__ constexpr size_t wgrad_smem_bytes(int kf) {
-  return wgrad_y_bytes<T>(kf) + align16(size_t(kTileF) * Ld<T>::value * sizeof(T));
-}
-
-// grid (chunks, kt); partials [chunks][kt][KF][64][64].  `scal` is read only
-// when act != kNone.
-template <typename T, int KF>
-__device__ __forceinline__ void wgrad_tile(const T* __restrict__ x_in,
-                                           const T* __restrict__ d_raw,
-                                           const float* __restrict__ scal,
-                                           float* __restrict__ partials, int B, int T_, int F,
-                                           int kt, int dt, int act) {
-  constexpr int LD = Ld<T>::value;
-  constexpr bool kTensorCore = sizeof(T) == 2;
-  constexpr int pad_f = (KF - 1) / 2;
-  constexpr int y_rows = kTileF + KF - 1;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int chunk = blockIdx.x, n_chunks = gridDim.x;
-  const int i = blockIdx.y;
-  const int pad_t = (kt - 1) * dt / 2;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* y_s = reinterpret_cast<T*>(smem_raw);                         // [y_rows][LD]
-  T* d_s = reinterpret_cast<T*>(smem_raw + wgrad_y_bytes<T>(KF));  // [kTileF][LD]
-  __shared__ float inv_s[kC], shift_s[kC];
-  if (tid < kC) {
-    inv_s[tid] = act != kNone ? scal[tid] : 0.0f;
-    shift_s[tid] = act != kNone ? scal[kC + tid] : 0.0f;
-  }
-  __syncthreads();
-
-  // tensor cores: warp (wm, wn) owns input channels [16 wm, +16) x output
-  // channels [32 wn, +32) of every frequency tap: acc[j][n8 tile][4].
-  // FMA: thread owns input channel tid / 4 x 16 output channels.
-  float acc[KF][4][4];
-#pragma unroll
-  for (int j = 0; j < KF; ++j) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) acc[j][k][0] = acc[j][k][1] = acc[j][k][2] = acc[j][k][3] = 0.0f;
-  }
-  const int wm = warp & 3, wn = warp >> 2;
-
-  for (int r = chunk; r < B * T_; r += n_chunks) {
-    const int b = r / T_, t = r % T_;
-    const int ti = t + i * dt - pad_t;
-    if (ti < 0 || ti >= T_) continue;  // the same for every thread of the block
-    const T* y_row = x_in + (size_t(b) * T_ + ti) * F * kC;
-    const T* d_row = d_raw + (size_t(b) * T_ + t) * F * kC;
-    for (int f0 = 0; f0 < F; f0 += kTileF) {
-      stage_row<T>(y_s, y_row, f0 - pad_f, y_rows, F, act, inv_s, shift_s, tid);
-      stage_row<T>(d_s, d_row, f0, kTileF, F, kNone, inv_s, shift_s, tid);
-      __syncthreads();
-      if constexpr (kTensorCore) {
-#pragma unroll 2
-        for (int ks = 0; ks < kTileF / 16; ++ks) {
-          uint32_t bf[2][4];
-#pragma unroll
-          for (int np = 0; np < 2; ++np) {
-            ldmatrix_x4_trans(bf[np], d_s + size_t(ks * 16 + (lane & 15)) * LD + wn * 32 +
-                                          np * 16 + (lane >> 4) * 8);
-          }
-          // A[m = channel][k = position] from y_s[position][channel]
-          const int krow = ks * 16 + (lane & 7) + ((lane >> 4) & 1) * 8;
-          const int mcol = wm * 16 + ((lane >> 3) & 1) * 8;
-#pragma unroll
-          for (int j = 0; j < KF; ++j) {
-            uint32_t a[4];
-            ldmatrix_x4_trans(a, y_s + size_t(krow + j) * LD + mcol);
-#pragma unroll
-            for (int nt = 0; nt < 4; ++nt) {
-              mma_bf16(acc[j][nt], a, bf[nt >> 1][(nt & 1) * 2], bf[nt >> 1][(nt & 1) * 2 + 1]);
-            }
-          }
-        }
-      } else {
-        const int c = tid >> 2, n0 = (tid & 3) * 16;
-        for (int p = 0; p < kTileF; ++p) {
-          float dv[16];
-#pragma unroll
-          for (int n = 0; n < 16; ++n) dv[n] = to_float(d_s[size_t(p) * LD + n0 + n]);
-#pragma unroll
-          for (int j = 0; j < KF; ++j) {
-            const float yv = to_float(y_s[size_t(p + j) * LD + c]);
-#pragma unroll
-            for (int n = 0; n < 16; ++n) {
-              acc[j][n >> 2][n & 3] = fmaf(yv, dv[n], acc[j][n >> 2][n & 3]);
-            }
-          }
-        }
-      }
-      __syncthreads();  // before the next tile overwrites the operands
-    }
-  }
-
-  float* part = partials + (size_t(chunk) * kt + i) * KF * kC * kC;
-  if constexpr (kTensorCore) {
-    const int g = lane >> 2, tig = lane & 3;
-#pragma unroll
-    for (int j = 0; j < KF; ++j) {
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        float* o = part + (size_t(j) * kC + wm * 16 + g) * kC + wn * 32 + nt * 8 + 2 * tig;
-        *reinterpret_cast<float2*>(o) = make_float2(acc[j][nt][0], acc[j][nt][1]);
-        *reinterpret_cast<float2*>(o + 8 * kC) = make_float2(acc[j][nt][2], acc[j][nt][3]);
-      }
-    }
-  } else {
-    const int c = tid >> 2, n0 = (tid & 3) * 16;
-#pragma unroll
-    for (int j = 0; j < KF; ++j) {
-#pragma unroll
-      for (int n = 0; n < 16; ++n) part[(size_t(j) * kC + c) * kC + n0 + n] = acc[j][n >> 2][n & 3];
-    }
-  }
-}
-
 struct LaunchConfig {
   int blocks, threads;
   size_t smem, scratch;  // dynamic shared memory bytes; fp32 scratch elements
@@ -553,23 +426,6 @@ cudaError_t tile_config(int B, int T_, int F, int kt, int kf, LaunchConfig* cfg)
   cfg->threads = kThreads;
   cfg->smem = tile_smem_bytes<T>(kf);
   cfg->scratch = size_t(blocks) * 2 * kC;
-  return cudaSuccess;
-}
-
-template <typename T>
-cudaError_t wgrad_config(int B, int T_, int F, int kt, int kf, LaunchConfig* cfg) {
-  if (bad_shape(B, T_, F, kt, kf, 1) || (kf != 1 && kf != 3 && kf != 5)) {
-    return cudaErrorInvalidValue;
-  }
-  int sms = 0;
-  cudaError_t err = sm_count(&sms);
-  if (err != cudaSuccess) return err;
-  long long chunks = (2LL * sms + kt - 1) / kt;  // about two blocks per SM in all
-  if (chunks > (long long)B * T_) chunks = (long long)B * T_;
-  cfg->blocks = int(chunks);  // times kt in y
-  cfg->threads = kThreads;
-  cfg->smem = wgrad_smem_bytes<T>(kf);
-  cfg->scratch = size_t(chunks) * kt * kf * kC * kC;
   return cudaSuccess;
 }
 

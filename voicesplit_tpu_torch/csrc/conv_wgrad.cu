@@ -1,0 +1,697 @@
+// Weight gradient of the "same" time-dilated conv for Hopper (sm_90a): the
+// fused chain's conv_wgrad and the opt-in path's conv_dilated_wgrad.
+//
+// Replaces the TPU kernels (the Python wrappers of the same names, in
+// ops/conv_fused.py and ops/conv_cuda.py, launch the C functions below)
+//   conv_wgrad         <- voicesplit_tpu/ops/conv_fused.py  _wgrad_kernel (:524, launched by
+//                         _conv_wgrad :583): conv_wgrad_prologue, then conv_wgrad
+//   conv_dilated_wgrad <- voicesplit_tpu/ops/conv_pallas.py _wgrad_kernel (:234, launched by
+//                         _conv_wgrad_core :292): conv_wgrad
+//
+// Channels-last activations [B, T, F, C = 64], time dilation dt, frequency
+// dilation 1, odd kt, kf in {1, 3, 5}:
+//
+//   dW[i, j, c, co] = sum_{b,t,f} y[b, t + i*dt - pad_t, f + j - pad_f, c] * d[b, t, f, co]  (fp32)
+//
+// a tap outside [0, T) x [0, F) contributing zero.  conv_dilated_wgrad takes
+// y = x.  conv_wgrad takes y = round(act(float(x) * inv[c] + shift[c])), the
+// previous layer's BatchNorm affine and activation (the chain's prologue,
+// every step rounded on its own as the plain version computes it); it is a
+// prologue pass that writes y once into a scratch tensor, then the same
+// weight-gradient kernel, so conv_wgrad on x gives the bits of
+// conv_dilated_wgrad on y.  The TPU kernel activates each window once and
+// runs every tap from it (conv_fused.py:557-582); here the prologue runs
+// once per input element per call, where the first version ran it once per
+// time tap that staged the row (40% of its time).
+//
+// What bounds it on the card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16 dense):
+// a (5,5) layer at [2, 301, 601, 64] is 74 GFLOP against 93 MB, bound by
+// operations (0.074 ms); the (7,1) layer (21 GFLOP) by bytes (0.028 ms).  The
+// prologue pass moves 2 x 46 MB at B=2 (0.028 ms at the memory rate).
+//
+// Design.
+//
+//   Work items (kf = 3, 5: conv_wgrad_kernel).  An item is (time tap i, row
+//   (b, t), 128 frequency positions); rows whose tap falls outside [0, T)
+//   are not items at all (at dilation 16 taps 0 and 4 skip 32 of every 301
+//   rows).  Items are numbered tap-major, row, then frequency tile, and
+//   block g of G takes the contiguous run [g N / G, (g+1) N / G): every block
+//   gets the same number of items, within one.  G is the number of blocks
+//   the card holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor x
+//   SMs; 2 x 132 on an H100) or N if smaller, so the launch is one whole
+//   wave and no block runs alone after it.  Blocks of different taps start
+//   at the same relative row and move at the same pace, so the kt blocks
+//   that read a row of d (and the overlapping rows of y) read it at about
+//   the same time and L2 serves the re-reads.
+//
+//   Work items (kf = 1: conv_wgrad_kf1_kernel).  dW of all kt <= 7 taps fits
+//   one block's registers (7 x 16 floats a thread), so one block owns every
+//   tap: an item is (row (b, t), 64 frequency positions), and the rows of a
+//   column come in residue-major order (t mod dt, then t), so that items t
+//   and t + dt share kt - 1 input rows.  The input rows stay in a ring of
+//   tiles in shared memory: an item loads its row of d and one new input
+//   row (all kt at the start of a run), and every row of y and d crosses
+//   from memory once per column instead of once per tap.  One block per SM
+//   (the ring, with a tile of zeros for rows outside [0, T), takes
+//   230,400 B); balanced runs as above.
+//
+//   Loads.  Each item stages its tiles of d and y (the y tile of a kf-wide
+//   tap 128 + kf - 1 positions, the halo zero-filled) into a three-stage
+//   ring in shared memory with cp.async (16 bytes a thread, src-size 0 for
+//   the halo), two items ahead of the one being multiplied; rows keep the
+//   16-byte padding that makes ldmatrix free of bank conflicts.  A stage
+//   waits only for its own copy group.  A frequency tile that ends past F
+//   multiplies only the 16-position steps that hold a position inside it.
+//
+//   Products.  bf16: mma.sync.m16n8k16 (fp32 accumulate); positions are the
+//   contraction dimension.  Warp (wm, wn) of 8 owns input channels
+//   [16 wm, +16) x output channels [32 wn, +32) of every tap: A = y^T read
+//   with ldmatrix.trans at row offset j for frequency tap j (any row address
+//   is legal for ldmatrix, which is why this is not wgmma: a shift of j rows
+//   of 128 bytes breaks wgmma's swizzled shared-memory layouts), B = d.
+//   fp32: FMAs on CUDA cores (not TF32), the tests' instantiation at reduced
+//   shapes.  dW lives in registers (kf x 16 or kt x 16 floats a thread).
+//
+//   Sums across blocks.  When its run moves to the next tap and at its
+//   end, a block writes its partial dW[i] to row g + i of the scratch
+//   (rows are unique: runs are contiguous and tap-major), so tap i's
+//   partials are one contiguous range of rows (kf = 1: row g holds every
+//   tap); reduce_taps_kernel adds each range in a fixed order, in double.
+//   No float atomics: the same inputs give the same bits.
+
+#include "conv_tile.cuh"
+
+namespace {
+
+constexpr int kStages = 3;  // cp.async ring depth
+
+// Items of one launch; block g takes [g * items / blocks, (g+1) * items / blocks).
+struct WgradWork {
+  int T, F, dt, pad_t, n_ft, blocks;
+  long long items;
+  int t_lo[kMaxTaps], n_rows[kMaxTaps];  // tap i's rows: t in [t_lo, t_lo + n_rows) per b
+  long long first[kMaxTaps + 1];         // tap i's items: [first[i], first[i + 1])
+};
+
+// Scratch rows [lo[i], hi[i]) hold tap i's per-block partials.
+struct TapRows {
+  int lo[kMaxTaps], hi[kMaxTaps];
+};
+
+struct Item {
+  int i, b, t, f0;
+};
+
+__device__ __forceinline__ Item decode(const WgradWork& w, long long item) {
+  int i = 0;
+  while (item >= w.first[i + 1]) ++i;  // a tap without items has first[i] == first[i + 1]
+  const long long l = item - w.first[i];
+  const int row = int(l / w.n_ft);
+  return {i, row / w.n_rows[i], w.t_lo[i] + row % w.n_rows[i], int(l - (long long)row * w.n_ft) * kTileF};
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <typename T, int KF>
+__host__ __device__ constexpr size_t wgrad_y_bytes() {
+  return align16(size_t(kTileF + KF - 1) * Ld<T>::value * sizeof(T));
+}
+template <typename T, int KF>
+__host__ __device__ constexpr size_t wgrad_stage_bytes() {
+  return wgrad_y_bytes<T, KF>() + align16(size_t(kTileF) * Ld<T>::value * sizeof(T));
+}
+
+// Issue one item's copies (y rows with halo, d rows) into a ring stage.
+template <typename T, int KF>
+__device__ __forceinline__ void load_item(unsigned char* stage, const T* __restrict__ y,
+                                          const T* __restrict__ d, const WgradWork& w,
+                                          long long item, int tid) {
+  constexpr int LD = Ld<T>::value;
+  constexpr int kVec = 16 / int(sizeof(T));  // elements per 16 bytes
+  constexpr int kPerRow = kC / kVec;
+  constexpr int y_rows = kTileF + KF - 1;
+  constexpr int pad_f = (KF - 1) / 2;
+  const Item it = decode(w, item);
+  const int ti = it.t + it.i * w.dt - w.pad_t;
+  const T* y_row = y + (size_t(it.b) * w.T + ti) * w.F * kC;
+  const T* d_row = d + (size_t(it.b) * w.T + it.t) * w.F * kC;
+  T* y_s = reinterpret_cast<T*>(stage);
+  T* d_s = reinterpret_cast<T*>(stage + wgrad_y_bytes<T, KF>());
+  for (int e = tid; e < (y_rows + kTileF) * kPerRow; e += kThreads) {
+    const int r = e / kPerRow, c = (e % kPerRow) * kVec;
+    const bool is_y = r < y_rows;
+    const int p = is_y ? r : r - y_rows;
+    const int f = it.f0 + p - (is_y ? pad_f : 0);
+    const bool inside = f >= 0 && f < w.F;
+    const T* row = is_y ? y_row : d_row;
+    T* dst = (is_y ? y_s : d_s) + size_t(p) * LD + c;
+    cp_async16(dst, inside ? row + size_t(f) * kC + c : row, inside ? 16 : 0);
+  }
+}
+
+// Write a block's partial dW[i, 0..KF) (layout [KF][64][64]) and zero the
+// accumulators.
+template <typename T, int KF>
+__device__ __forceinline__ void flush_partials(float (&acc)[KF][4][4], float* __restrict__ part,
+                                               int tid) {
+  if constexpr (sizeof(T) == 2) {
+    const int warp = tid >> 5, lane = tid & 31;
+    const int wm = warp & 3, wn = warp >> 2, gr = lane >> 2, tig = lane & 3;
+#pragma unroll
+    for (int j = 0; j < KF; ++j) {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        float* o = part + (size_t(j) * kC + wm * 16 + gr) * kC + wn * 32 + nt * 8 + 2 * tig;
+        *reinterpret_cast<float2*>(o) = make_float2(acc[j][nt][0], acc[j][nt][1]);
+        *reinterpret_cast<float2*>(o + 8 * kC) = make_float2(acc[j][nt][2], acc[j][nt][3]);
+        acc[j][nt][0] = acc[j][nt][1] = acc[j][nt][2] = acc[j][nt][3] = 0.0f;
+      }
+    }
+  } else {
+    const int c = tid >> 2, n0 = (tid & 3) * 16;
+#pragma unroll
+    for (int j = 0; j < KF; ++j) {
+#pragma unroll
+      for (int m = 0; m < 16; ++m) {
+        part[(size_t(j) * kC + c) * kC + n0 + m] = acc[j][m >> 2][m & 3];
+        acc[j][m >> 2][m & 3] = 0.0f;
+      }
+    }
+  }
+}
+
+// grid (blocks); partials [blocks + kt][KF][64][64], row g + i of block g for tap i.
+template <typename T, int KF>
+__global__ void __launch_bounds__(kThreads, 2)
+conv_wgrad_kernel(const T* __restrict__ y, const T* __restrict__ d, float* __restrict__ partials,
+                  const WgradWork work) {
+  constexpr int LD = Ld<T>::value;
+  constexpr bool kTensorCore = sizeof(T) == 2;
+  constexpr size_t kStage = wgrad_stage_bytes<T, KF>();
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = blockIdx.x;
+
+  __shared__ WgradWork w;  // indexed by tap below: shared, not the parameter space
+  if (tid == 0) w = work;
+  __syncthreads();
+  const long long it0 = (long long)g * w.items / w.blocks;
+  const int n = int((long long)(g + 1) * w.items / w.blocks - it0);
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];  // [kStages][y rows, d rows]
+
+  // tensor cores: warp (wm, wn) owns input channels [16 wm, +16) x output
+  // channels [32 wn, +32) of every frequency tap: acc[j][n8 tile][4].
+  // FMA: thread owns input channel tid / 4 x 16 output channels.
+  float acc[KF][4][4];
+#pragma unroll
+  for (int j = 0; j < KF; ++j) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[j][k][0] = acc[j][k][1] = acc[j][k][2] = acc[j][k][3] = 0.0f;
+  }
+  const int wm = warp & 3, wn = warp >> 2;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n) load_item<T, KF>(smem_raw + s * kStage, y, d, w, it0 + s, tid);
+    cp_async_commit();  // an empty group keeps the count uniform
+  }
+  int tap = -1;
+  for (int k = 0; k < n; ++k) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of item k have landed
+    __syncthreads();               // everyone's have; everyone is done with item k - 1's stage
+    if (k + kStages - 1 < n) {
+      load_item<T, KF>(smem_raw + ((k + kStages - 1) % kStages) * kStage, y, d, w,
+                       it0 + k + kStages - 1, tid);
+    }
+    cp_async_commit();
+
+    const Item it = decode(w, it0 + k);
+    if (it.i != tap) {
+      if (tap >= 0) flush_partials<T, KF>(acc, partials + (size_t(g) + tap) * KF * kC * kC, tid);
+      tap = it.i;
+    }
+    const T* y_s = reinterpret_cast<const T*>(smem_raw + (k % kStages) * kStage);
+    const T* d_s = reinterpret_cast<const T*>(smem_raw + (k % kStages) * kStage +
+                                              wgrad_y_bytes<T, KF>());
+    const int n_ks = min(kTileF, w.F - it.f0 + 15) / 16;  // steps holding a position < F
+    if constexpr (kTensorCore) {
+#pragma unroll 2
+      for (int ks = 0; ks < n_ks; ++ks) {
+        uint32_t bf[2][4];
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          ldmatrix_x4_trans(bf[np], d_s + size_t(ks * 16 + (lane & 15)) * LD + wn * 32 + np * 16 +
+                                        (lane >> 4) * 8);
+        }
+        // A[m = channel][k = position] from y_s[position][channel]
+        const int krow = ks * 16 + (lane & 7) + ((lane >> 4) & 1) * 8;
+        const int mcol = wm * 16 + ((lane >> 3) & 1) * 8;
+#pragma unroll
+        for (int j = 0; j < KF; ++j) {
+          uint32_t a[4];
+          ldmatrix_x4_trans(a, y_s + size_t(krow + j) * LD + mcol);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            mma_bf16(acc[j][nt], a, bf[nt >> 1][(nt & 1) * 2], bf[nt >> 1][(nt & 1) * 2 + 1]);
+          }
+        }
+      }
+    } else {
+      const int c = tid >> 2, n0 = (tid & 3) * 16;
+      for (int p = 0; p < n_ks * 16; ++p) {
+        float dv[16];
+#pragma unroll
+        for (int m = 0; m < 16; ++m) dv[m] = to_float(d_s[size_t(p) * LD + n0 + m]);
+#pragma unroll
+        for (int j = 0; j < KF; ++j) {
+          const float yv = to_float(y_s[size_t(p + j) * LD + c]);
+#pragma unroll
+          for (int m = 0; m < 16; ++m) acc[j][m >> 2][m & 3] = fmaf(yv, dv[m], acc[j][m >> 2][m & 3]);
+        }
+      }
+    }
+  }
+  if (tap >= 0) flush_partials<T, KF>(acc, partials + (size_t(g) + tap) * KF * kC * kC, tid);
+}
+
+// ---------------------------------------------------------------------------
+// kf = 1: every time tap in one block, a sliding window of input rows
+// ---------------------------------------------------------------------------
+
+// positions per item: 64 bf16 or 32 fp32 (the ring below must fit one block)
+template <typename T> constexpr int kColF = sizeof(T) == 2 ? 64 : 32;
+// input tiles in flight: an item brings at most kMaxTaps new ones and the
+// ring holds kStages items' worth, so no tile is overwritten while read
+constexpr int kYRing = kStages * kMaxTaps;
+
+// Items of the kf = 1 kernel: (b, frequency tile, row t), the rows of one
+// (b, tile) in residue-major order (t mod dt, then t), so that consecutive
+// items t, t + dt of one residue share kt - 1 of their input rows.
+struct ColumnWork {
+  int T, F, dt, kt, n_ft, blocks;
+  long long items;
+};
+
+struct ColItem {
+  int b, f0, t, q;  // q: rows of the same residue above t
+};
+
+template <typename T>
+__device__ __forceinline__ ColItem decode_col(const ColumnWork& w, long long item) {
+  const int per_b = w.n_ft * w.T;
+  const int b = int(item / per_b);
+  const int rem = int(item - (long long)b * per_b);
+  const int ft = rem / w.T;
+  int q = rem - ft * w.T, r = 0;
+  for (int len = (w.T + w.dt - 1) / w.dt; q >= len; len = (w.T - r + w.dt - 1) / w.dt) {
+    q -= len;
+    ++r;
+  }
+  return {b, ft * kColF<T>, r + q * w.dt, q};
+}
+
+template <typename T>
+__host__ __device__ constexpr size_t col_tile_bytes() {
+  return align16(size_t(kColF<T>) * Ld<T>::value * sizeof(T));
+}
+
+// One tile: kColF positions [f0, f0 + kColF) of a row, zero past F.
+template <typename T>
+__device__ __forceinline__ void load_col_tile(unsigned char* dst, const T* __restrict__ row, int f0,
+                                              int F, int tid) {
+  constexpr int LD = Ld<T>::value;
+  constexpr int kVec = 16 / int(sizeof(T));
+  constexpr int kPerRow = kC / kVec;
+  for (int e = tid; e < kColF<T> * kPerRow; e += kThreads) {
+    const int p = e / kPerRow, c = (e % kPerRow) * kVec;
+    const bool inside = f0 + p < F;
+    cp_async16(reinterpret_cast<T*>(dst) + size_t(p) * LD + c,
+               inside ? row + size_t(f0 + p) * kC + c : row, inside ? 16 : 0);
+  }
+}
+
+// grid (blocks); partials [blocks][kMaxTaps][64][64].  Input tiles get
+// sequence numbers in load order and live in ring slot seq % kYRing; item k
+// reads tap i from tile base_k + i, where base_k = base_{k-1} + 1 when item
+// k continues item k - 1's residue (one new tile: its last tap's row) and
+// the next unused number otherwise (kt new tiles).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+conv_wgrad_kf1_kernel(const T* __restrict__ y, const T* __restrict__ d, float* __restrict__ partials,
+                      const ColumnWork w) {
+  constexpr int LD = Ld<T>::value;
+  constexpr bool kTensorCore = sizeof(T) == 2;
+  constexpr size_t kTile = col_tile_bytes<T>();
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = blockIdx.x;
+  const long long it0 = (long long)g * w.items / w.blocks;
+  const int n = int((long long)(g + 1) * w.items / w.blocks - it0);
+  const int centre = (w.kt - 1) / 2;
+
+  // [kYRing] y tiles, [kStages] d tiles, one tile of zeros for the taps
+  // whose row is outside [0, T) (a branch per tap would keep the compiler
+  // from hoisting the operand loads above the products)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* const d_ring = smem_raw + kYRing * kTile;
+  T* const zeros = reinterpret_cast<T*>(d_ring + kStages * kTile);
+  for (int e = tid; e < int(kTile / 16); e += kThreads) {
+    reinterpret_cast<uint4*>(zeros)[e] = make_uint4(0, 0, 0, 0);
+  }  // visible after the first barrier of the loop, before any product
+
+  float acc[kMaxTaps][4][4];
+#pragma unroll
+  for (int i = 0; i < kMaxTaps; ++i) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[i][k][0] = acc[i][k][1] = acc[i][k][2] = acc[i][k][3] = 0.0f;
+  }
+  const int wm = warp & 3, wn = warp >> 2;
+
+  int issued = 0;  // producer: next tile sequence number
+  auto issue = [&](int k) {
+    const ColItem it = decode_col<T>(w, it0 + k);
+    const bool cont = k > 0 && it.q > 0;
+    const int base = cont ? issued - w.kt + 1 : issued;
+    for (int i = cont ? w.kt - 1 : 0; i < w.kt; ++i) {
+      const int row = it.t + (i - centre) * w.dt;
+      if (row >= 0 && row < w.T) {  // a row outside is never read: its taps are skipped
+        load_col_tile<T>(smem_raw + ((base + i) % kYRing) * kTile,
+                         y + (size_t(it.b) * w.T + row) * w.F * kC, it.f0, w.F, tid);
+      }
+    }
+    load_col_tile<T>(d_ring + (k % kStages) * kTile, d + (size_t(it.b) * w.T + it.t) * w.F * kC,
+                     it.f0, w.F, tid);
+    issued = base + w.kt;
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n) issue(s);
+    cp_async_commit();
+  }
+  int consumed = 0;  // consumer: the same sequence, one item behind the barrier
+  for (int k = 0; k < n; ++k) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (k + kStages - 1 < n) issue(k + kStages - 1);
+    cp_async_commit();
+
+    const ColItem it = decode_col<T>(w, it0 + k);
+    const int base = (k > 0 && it.q > 0) ? consumed - w.kt + 1 : consumed;
+    consumed = base + w.kt;
+    const T* ys[kMaxTaps];
+#pragma unroll
+    for (int i = 0; i < kMaxTaps; ++i) {
+      const int row = it.t + (i - centre) * w.dt;
+      ys[i] = (i < w.kt && row >= 0 && row < w.T)
+                  ? reinterpret_cast<const T*>(smem_raw + ((base + i) % kYRing) * kTile)
+                  : zeros;
+    }
+    const T* d_s = reinterpret_cast<const T*>(d_ring + (k % kStages) * kTile);
+    const int n_ks = min(kColF<T>, w.F - it.f0 + 15) / 16;
+    if constexpr (kTensorCore) {
+      const int krow = (lane & 7) + ((lane >> 4) & 1) * 8;
+      const int mcol = wm * 16 + ((lane >> 3) & 1) * 8;
+      for (int ks = 0; ks < n_ks; ++ks) {
+        uint32_t bf[2][4];
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          ldmatrix_x4_trans(bf[np], d_s + size_t(ks * 16 + (lane & 15)) * LD + wn * 32 + np * 16 +
+                                        (lane >> 4) * 8);
+        }
+#pragma unroll
+        for (int i = 0; i < kMaxTaps; ++i) {
+          uint32_t a[4];
+          ldmatrix_x4_trans(a, ys[i] + size_t(ks * 16 + krow) * LD + mcol);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            mma_bf16(acc[i][nt], a, bf[nt >> 1][(nt & 1) * 2], bf[nt >> 1][(nt & 1) * 2 + 1]);
+          }
+        }
+      }
+    } else {
+      const int c = tid >> 2, n0 = (tid & 3) * 16;
+      for (int p = 0; p < n_ks * 16; ++p) {
+        float dv[16];
+#pragma unroll
+        for (int m = 0; m < 16; ++m) dv[m] = to_float(d_s[size_t(p) * LD + n0 + m]);
+#pragma unroll
+        for (int i = 0; i < kMaxTaps; ++i) {
+          const float yv = to_float(ys[i][size_t(p) * LD + c]);
+#pragma unroll
+          for (int m = 0; m < 16; ++m) acc[i][m >> 2][m & 3] = fmaf(yv, dv[m], acc[i][m >> 2][m & 3]);
+        }
+      }
+    }
+  }
+  flush_partials<T, kMaxTaps>(acc, partials + size_t(g) * kMaxTaps * kC * kC, tid);
+}
+
+// out[i][c] = sum of in[r][c] over r in [lo[i], hi[i]) (rows `stride` floats
+// apart), added in a fixed order, in double (0 for an empty range).
+// grid (width / 32, groups), block (32, 4); out [groups][width].
+__global__ void reduce_taps_kernel(const float* __restrict__ in, int width, int stride,
+                                   const TapRows rows, float* __restrict__ out) {
+  __shared__ double part[4][32];
+  const int i = blockIdx.y, col = blockIdx.x * 32 + threadIdx.x;
+  int lo = rows.lo[0], hi = rows.hi[0];
+#pragma unroll
+  for (int k = 1; k < kMaxTaps; ++k) {  // constant indices: no local copy of the parameter
+    if (k == i) {
+      lo = rows.lo[k];
+      hi = rows.hi[k];
+    }
+  }
+  double a = 0.0;
+  if (col < width) {
+    for (int r = lo + threadIdx.y; r < hi; r += 4) a += double(in[size_t(r) * stride + col]);
+  }
+  part[threadIdx.y][threadIdx.x] = a;
+  __syncthreads();
+  if (threadIdx.y == 0 && col < width) {
+    out[size_t(i) * width + col] =
+        float((part[0][threadIdx.x] + part[1][threadIdx.x]) + (part[2][threadIdx.x] + part[3][threadIdx.x]));
+  }
+}
+
+// y = round(act(float(x) * inv[c] + shift[c])), 8 channels a thread.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+wgrad_prologue_kernel(const T* __restrict__ x, const float* __restrict__ scal, T* __restrict__ y,
+                      long long n8, int act) {
+  __shared__ float inv_s[kC], shift_s[kC];
+  if (threadIdx.x < kC) {
+    inv_s[threadIdx.x] = scal[threadIdx.x];
+    shift_s[threadIdx.x] = scal[kC + threadIdx.x];
+  }
+  __syncthreads();
+  for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x; e < n8;
+       e += (long long)gridDim.x * kThreads) {
+    const int c8 = int(e & 7) * 8;
+    float v[8];
+    load8(x + e * 8, v);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      v[k] = activate(__fadd_rn(__fmul_rn(v[k], inv_s[c8 + k]), shift_s[c8 + k]), act);
+    }
+    store8(y + e * 8, v);
+  }
+}
+
+struct WgradPlan {
+  WgradWork work;   // kf 3, 5
+  ColumnWork cols;  // kf 1
+  TapRows rows;     // the reduction: out [groups][width] from rows `stride` floats apart
+  int blocks, groups, width, stride;
+  int resident, registers, local_bytes;
+  size_t smem, scratch;  // dynamic shared memory bytes; fp32 scratch elements
+};
+
+// Shared memory, residency and registers of `kernel` on the current card.
+template <typename K>
+cudaError_t occupancy(K kernel, size_t smem, WgradPlan* p) {
+  p->smem = smem;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  p->resident = per_sm * sms;
+  p->registers = attr.numRegs;
+  p->local_bytes = int(attr.localSizeBytes);
+  return cudaSuccess;
+}
+
+template <typename T, int KF>
+cudaError_t plan_taps(int B, int T_, int F, int kt, int dt, WgradPlan* p) {
+  cudaError_t err = occupancy(conv_wgrad_kernel<T, KF>, kStages * wgrad_stage_bytes<T, KF>(), p);
+  if (err != cudaSuccess) return err;
+  WgradWork& w = p->work;
+  w.T = T_;
+  w.F = F;
+  w.dt = dt;
+  w.pad_t = (kt - 1) * dt / 2;
+  w.n_ft = (F + kTileF - 1) / kTileF;
+  w.first[0] = 0;
+  for (int i = 0; i < kMaxTaps; ++i) {
+    const int off = i * dt - w.pad_t;
+    const int lo = off < 0 ? -off : 0, hi = off > 0 ? T_ - off : T_;
+    w.t_lo[i] = lo;
+    w.n_rows[i] = (i < kt && hi > lo) ? hi - lo : 0;
+    w.first[i + 1] = w.first[i] + (long long)B * w.n_rows[i] * w.n_ft;
+  }
+  w.items = w.first[kt];
+  // the centre tap always has items; no block may be empty (its rows would
+  // fall inside a tap's range unwritten)
+  p->blocks = w.blocks = int(w.items < p->resident ? w.items : p->resident);
+  const long long G = w.blocks, N = w.items;
+  auto block_of = [&](long long item) { return int(((item + 1) * G - 1) / N); };
+  for (int i = 0; i < kMaxTaps; ++i) {
+    if (i >= kt || w.first[i] == w.first[i + 1]) {
+      p->rows.lo[i] = p->rows.hi[i] = 0;
+    } else {
+      p->rows.lo[i] = block_of(w.first[i]) + i;
+      p->rows.hi[i] = block_of(w.first[i + 1] - 1) + i + 1;
+    }
+  }
+  p->groups = kt;
+  p->width = p->stride = KF * kC * kC;
+  p->scratch = size_t(w.blocks + kt) * KF * kC * kC;
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t plan_columns(int B, int T_, int F, int kt, int dt, WgradPlan* p) {
+  cudaError_t err =
+      occupancy(conv_wgrad_kf1_kernel<T>, (kYRing + kStages + 1) * col_tile_bytes<T>(), p);
+  if (err != cudaSuccess) return err;
+  ColumnWork& w = p->cols;
+  w.T = T_;
+  w.F = F;
+  w.dt = dt;
+  w.kt = kt;
+  w.n_ft = (F + kColF<T> - 1) / kColF<T>;
+  w.items = (long long)B * w.n_ft * T_;
+  p->blocks = w.blocks = int(w.items < p->resident ? w.items : p->resident);
+  for (int i = 0; i < kMaxTaps; ++i) p->rows.lo[i] = p->rows.hi[i] = 0;
+  p->rows.hi[0] = w.blocks;  // one group: every block's partials of every tap
+  p->groups = 1;
+  p->width = kt * kC * kC;
+  p->stride = kMaxTaps * kC * kC;
+  p->scratch = size_t(w.blocks) * kMaxTaps * kC * kC;
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t plan(int B, int T_, int F, int kt, int kf, int dt, WgradPlan* p) {
+  if (bad_shape(B, T_, F, kt, kf, dt)) return cudaErrorInvalidValue;
+  switch (kf) {
+    case 1: return plan_columns<T>(B, T_, F, kt, dt, p);
+    case 3: return plan_taps<T, 3>(B, T_, F, kt, dt, p);
+    case 5: return plan_taps<T, 5>(B, T_, F, kt, dt, p);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t launch_wgrad(const void* y, const void* d, void* dw, void* scratch, int B, int T_,
+                         int F, int kt, int kf, int dt, cudaStream_t stream) {
+  WgradPlan p;
+  cudaError_t err = plan<T>(B, T_, F, kt, kf, dt, &p);
+  if (err != cudaSuccess) return err;
+  const T* y_ = static_cast<const T*>(y);
+  const T* d_ = static_cast<const T*>(d);
+  float* partials = static_cast<float*>(scratch);
+  switch (kf) {
+    case 1: conv_wgrad_kf1_kernel<T><<<p.blocks, kThreads, p.smem, stream>>>(y_, d_, partials, p.cols); break;
+    case 3: conv_wgrad_kernel<T, 3><<<p.blocks, kThreads, p.smem, stream>>>(y_, d_, partials, p.work); break;
+    default: conv_wgrad_kernel<T, 5><<<p.blocks, kThreads, p.smem, stream>>>(y_, d_, partials, p.work); break;
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  reduce_taps_kernel<<<dim3((p.width + 31) / 32, p.groups), dim3(32, 4), 0, stream>>>(
+      partials, p.width, p.stride, p.rows, static_cast<float*>(dw));
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_prologue(const void* x, const void* scal, void* y, int B, int T_, int F, int act,
+                            cudaStream_t stream) {
+  if (act != kMish && act != kRelu) return cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const long long n8 = (long long)B * T_ * F * (kC / 8);
+  // one wave: 8 blocks of 256 threads fill an SM's 2048 thread slots
+  const long long want = (n8 + kThreads - 1) / kThreads;
+  const int blocks = int(want < 8LL * sms ? want : 8LL * sms);
+  wgrad_prologue_kernel<T><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(scal), static_cast<T*>(y), n8, act);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C interface (loaded with ctypes).  Every function returns its
+// cudaError_t; 0 is success.  `bf16` selects bf16 activations, otherwise
+// fp32; scal (the chain's [8, 64] table: row 0 inv, row 1 shift), dw and
+// scratch are fp32.  Activations are [B, T, F, 64], dw [kt, kf, 64, 64].
+// `scratch` holds the per-block partial sums (conv_wgrad_launch_config gives
+// its size).
+
+// dW of the conv whose (already activated) input is y and output cotangent d.
+extern "C" int conv_wgrad(const void* y, const void* d, void* dw, void* scratch, int B, int T,
+                          int F, int kt, int kf, int dt, int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_wgrad<__nv_bfloat16>(y, d, dw, scratch, B, T, F, kt, kf, dt, s)
+              : launch_wgrad<float>(y, d, dw, scratch, B, T, F, kt, kf, dt, s);
+}
+
+// y = round(act(float(x) * inv[c] + shift[c])), act 1 mish or 2 relu.
+extern "C" int conv_wgrad_prologue(const void* x, const void* scal, void* y, int B, int T, int F,
+                                   int act, int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || T <= 0 || F <= 0) return cudaErrorInvalidValue;
+  return bf16 ? launch_prologue<__nv_bfloat16>(x, scal, y, B, T, F, act, s)
+              : launch_prologue<float>(x, scal, y, B, T, F, act, s);
+}
+
+// Launch shape of the weight-gradient kernel on the current card: blocks
+// (never more than `resident`, the blocks the card holds at once), threads,
+// dynamic shared memory, fp32 scratch elements, registers a thread and
+// local (spilled) bytes a thread.
+extern "C" int conv_wgrad_launch_config(int B, int T, int F, int kt, int kf, int dt, int bf16,
+                                        int* blocks, int* threads, long long* smem,
+                                        long long* scratch, int* resident, int* registers,
+                                        int* local_bytes) {
+  WgradPlan p;
+  cudaError_t err = bf16 ? plan<__nv_bfloat16>(B, T, F, kt, kf, dt, &p)
+                         : plan<float>(B, T, F, kt, kf, dt, &p);
+  if (err != cudaSuccess) return err;
+  *blocks = p.blocks;
+  *threads = kThreads;
+  *smem = static_cast<long long>(p.smem);
+  *scratch = static_cast<long long>(p.scratch);
+  *resident = p.resident;
+  *registers = p.registers;
+  *local_bytes = p.local_bytes;
+  return cudaSuccess;
+}

@@ -16,7 +16,8 @@ Kernels (each beside its plain version ``*_ref``):
   (`flip_weight`) the same kernel is the data gradient, as in
   `_vjp_bwd` (`:371-378`);
 - ``conv_dilated_wgrad`` replaces `_wgrad_kernel` (`:234`): the fp32 weight
-  gradient ``[kt, kf, Cin, Cout]``.
+  gradient ``[kt, kf, Cin, Cout]``, by the kernel of `csrc/conv_wgrad.cu`
+  that the fused chain's `conv_wgrad` also launches after its prologue pass.
 
 Layout: activations channels-last ``[B, T, F, C]`` (the JAX package's NHWC),
 weights ``[kt, kf, Cin, Cout]`` (HWIO).  Odd ``kt`` and ``kf``, frequency
@@ -40,19 +41,17 @@ fp32 operands (fp32 products on CUDA cores, not TF32).
 from __future__ import annotations
 
 import ctypes
-import functools
 import os
 from typing import Optional, Sequence, Tuple
 
 import torch
 
 from voicesplit_tpu_torch.ops import _build
-from voicesplit_tpu_torch.ops.conv_fused import KERNEL_CHANNELS, _padded
+from voicesplit_tpu_torch.ops.conv_fused import KERNEL_CHANNELS, _padded, launch_wgrad_kernel
 
 # kernel launches per wrapper, for showing that a run went through them
 LAUNCHES = {"conv_dilated_fwd": 0, "conv_dilated_wgrad": 0}
 
-_KIND = {"conv_dilated_fwd": 0, "conv_dilated_wgrad": 1}
 _WGRAD_KF = (1, 3, 5)  # frequency tap counts the weight-gradient kernel is built for
 _MAX_TAPS = 7
 
@@ -73,36 +72,11 @@ def _library() -> ctypes.CDLL:
     global _declared
     if not _declared:
         p, i = ctypes.c_void_p, ctypes.c_int
-        out = [ctypes.POINTER(i), ctypes.POINTER(i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2
         _build.declare({
             "conv_dilated_fwd": [p] * 3 + [i] * 7 + [p],
-            "conv_dilated_wgrad": [p] * 4 + [i] * 7 + [p],
-            "conv_dilated_launch_config": [i] * 7 + out,
         })
         _declared = True
     return _build.library()
-
-
-def launch_config(kind: str, shape: Sequence[int], kt: int, kf: int, dtype: torch.dtype) -> dict:
-    """Grid a kernel uses on the current card for activations of `shape`
-    ``[B, T, F, C]``: blocks, threads, dynamic shared memory bytes and the
-    fp32 scratch elements its cross-block reduction needs."""
-    return dict(_launch_config(kind, tuple(shape), kt, kf, dtype, torch.cuda.current_device()))
-
-
-@functools.lru_cache(maxsize=None)
-def _launch_config(kind, shape, kt, kf, dtype, device_index):
-    del device_index  # part of the key: the grid follows the card's SM count
-    B, T, F_, _ = shape
-    blocks, threads = ctypes.c_int(), ctypes.c_int()
-    smem, scratch = ctypes.c_longlong(), ctypes.c_longlong()
-    err = _library().conv_dilated_launch_config(
-        _KIND[kind], B, T, F_, kt, kf, int(dtype == torch.bfloat16),
-        ctypes.byref(blocks), ctypes.byref(threads), ctypes.byref(smem), ctypes.byref(scratch),
-    )
-    _build.raise_on(err, "conv_dilated_launch_config")
-    return {"blocks": blocks.value, "threads": threads.value, "smem_bytes": smem.value,
-            "scratch_floats": scratch.value}
 
 
 def flip_weight(w: torch.Tensor) -> torch.Tensor:
@@ -207,20 +181,8 @@ def _launch_conv_dilated_fwd(x, w, dt):
 
 
 def _launch_conv_dilated_wgrad(x, dy, kt, kf, dt):
-    B, T, F_, cin = x.shape
-    cout = dy.shape[-1]
-    _check_kernel_takes(cin, cout, kt, kf, wgrad=True)
-    dw = torch.empty(kt, kf, cin, cout, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        n = launch_config("conv_dilated_wgrad", x.shape, kt, kf, x.dtype)["scratch_floats"]
-    scratch = torch.empty(n, dtype=torch.float32, device=x.device)
-    lib = _library()
-    with torch.cuda.device(x.device):
-        err = lib.conv_dilated_wgrad(
-            x.data_ptr(), dy.data_ptr(), dw.data_ptr(), scratch.data_ptr(), B, T, F_, kt, kf, dt,
-            int(x.dtype == torch.bfloat16), _build.stream(x),
-        )
-    _build.raise_on(err, "conv_dilated_wgrad")
+    _check_kernel_takes(x.shape[-1], dy.shape[-1], kt, kf, wgrad=True)
+    dw = launch_wgrad_kernel(x, dy, kt, kf, dt)
     LAUNCHES["conv_dilated_wgrad"] += 1
     return dw
 

@@ -18,7 +18,10 @@ Kernels (each beside its plain version ``*_ref``):
   ``d_raw`` with tap-flipped, channel-transposed weights, and
   ``dbias = Σ d_raw`` per channel;
 - ``conv_wgrad`` replaces `_wgrad_kernel` (`:524`): the fp32 weight gradient,
-  its input recomputed from the raw tensor by the same prologue.
+  its input recomputed from the raw tensor by the same prologue: a
+  prologue pass writes the activated input once into a scratch tensor
+  (``LAUNCHES["conv_wgrad_prologue"]``), then the weight-gradient kernel of
+  `csrc/conv_wgrad.cu` that `conv_cuda.conv_dilated_wgrad` also launches.
 
 The Pallas kernels also carry a BN-backward prologue (``prologue=True`` of
 `_dgrad_kernel`, ``rhs_prologue`` of `_wgrad_kernel`) that `make_chain`
@@ -51,11 +54,10 @@ import torch.nn.functional as F
 from voicesplit_tpu_torch.ops import _build
 
 # kernel launches per wrapper, for showing that a run went through them
-LAUNCHES = {"conv_bn_act_fwd": 0, "conv_dgrad": 0, "conv_wgrad": 0}
+LAUNCHES = {"conv_bn_act_fwd": 0, "conv_dgrad": 0, "conv_wgrad": 0, "conv_wgrad_prologue": 0}
 
 KERNEL_CHANNELS = 64  # the CUDA kernels' channel count, in and out
 _ACT_CODE = {None: 0, "mish": 1, "relu": 2}
-_KIND = {"conv_bn_act_fwd": 0, "conv_dgrad": 1, "conv_wgrad": 2}
 
 # rows of the per-channel scalar table (fp32 [8, C])
 _S_INV, _S_SHIFT, _S_MEAN, _S_R, _S_MDZ, _S_MDZX = 0, 1, 2, 3, 4, 5
@@ -77,37 +79,61 @@ def _library() -> ctypes.CDLL:
     global _declared
     if not _declared:
         p, i = ctypes.c_void_p, ctypes.c_int
-        out = [ctypes.POINTER(i), ctypes.POINTER(i)] + [ctypes.POINTER(ctypes.c_longlong)] * 2
+        ip, lp = ctypes.POINTER(i), ctypes.POINTER(ctypes.c_longlong)
         _build.declare({
             "conv_bn_act_fwd": [p] * 7 + [i] * 8 + [p],
             "conv_dgrad": [p] * 5 + [i] * 7 + [p],
-            "conv_wgrad": [p] * 5 + [i] * 8 + [p],
-            "conv_fused_launch_config": [i] * 7 + out,
+            "conv_wgrad": [p] * 4 + [i] * 7 + [p],
+            "conv_wgrad_prologue": [p] * 3 + [i] * 5 + [p],
+            "conv_fused_launch_config": [i] * 6 + [ip, ip, lp, lp],
+            "conv_wgrad_launch_config": [i] * 7 + [ip, ip, lp, lp, ip, ip, ip],
         })
         _declared = True
     return _build.library()
 
 
-def launch_config(kind: str, shape: Sequence[int], kt: int, kf: int, dtype: torch.dtype) -> dict:
-    """Grid a kernel uses on the current card for activations of `shape`
-    ``[B, T, F, C]``: blocks, threads, dynamic shared memory bytes and the
-    fp32 scratch elements its cross-block reduction needs."""
-    return dict(_launch_config(kind, tuple(shape), kt, kf, dtype, torch.cuda.current_device()))
-
-
-@functools.lru_cache(maxsize=None)
-def _launch_config(kind, shape, kt, kf, dtype, device_index):
-    del device_index  # part of the key: the grid follows the card's SM count
+def launch_config(shape: Sequence[int], kt: int, kf: int, dtype: torch.dtype) -> dict:
+    """Grid of the tile kernels (`conv_bn_act_fwd`, `conv_dgrad` and
+    `conv_cuda.conv_dilated_fwd`) for activations of `shape` ``[B, T, F,
+    C]``: blocks, threads, dynamic shared memory bytes and the fp32 scratch
+    elements of the first two's cross-block sums."""
     B, T, F_, _ = shape
     blocks, threads = ctypes.c_int(), ctypes.c_int()
     smem, scratch = ctypes.c_longlong(), ctypes.c_longlong()
     err = _library().conv_fused_launch_config(
-        _KIND[kind], B, T, F_, kt, kf, int(dtype == torch.bfloat16),
+        B, T, F_, kt, kf, int(dtype == torch.bfloat16),
         ctypes.byref(blocks), ctypes.byref(threads), ctypes.byref(smem), ctypes.byref(scratch),
     )
     _build.raise_on(err, "conv_fused_launch_config")
     return {"blocks": blocks.value, "threads": threads.value, "smem_bytes": smem.value,
             "scratch_floats": scratch.value}
+
+
+def wgrad_launch_config(shape: Sequence[int], kt: int, kf: int, dt: int, dtype: torch.dtype) -> dict:
+    """Grid of the weight-gradient kernel (`conv_wgrad`,
+    `conv_cuda.conv_dilated_wgrad`) on the current card: blocks (one wave:
+    never more than ``resident_blocks``, what the card holds at once),
+    threads, dynamic shared memory bytes, the fp32 scratch elements of its
+    per-block partials, and its registers and local (spilled) bytes a
+    thread."""
+    return dict(_wgrad_launch_config(tuple(shape), kt, kf, dt, dtype, torch.cuda.current_device()))
+
+
+@functools.lru_cache(maxsize=None)
+def _wgrad_launch_config(shape, kt, kf, dt, dtype, device_index):
+    del device_index  # part of the key: the grid follows the card's SM count
+    B, T, F_, _ = shape
+    blocks, threads, resident, regs, local = (ctypes.c_int() for _ in range(5))
+    smem, scratch = ctypes.c_longlong(), ctypes.c_longlong()
+    err = _library().conv_wgrad_launch_config(
+        B, T, F_, kt, kf, dt, int(dtype == torch.bfloat16), ctypes.byref(blocks),
+        ctypes.byref(threads), ctypes.byref(smem), ctypes.byref(scratch), ctypes.byref(resident),
+        ctypes.byref(regs), ctypes.byref(local),
+    )
+    _build.raise_on(err, "conv_wgrad_launch_config")
+    return {"blocks": blocks.value, "threads": threads.value, "smem_bytes": smem.value,
+            "scratch_floats": scratch.value, "resident_blocks": resident.value,
+            "registers": regs.value, "local_bytes": local.value}
 
 
 # ---------------------------------------------------------------------------
@@ -223,6 +249,11 @@ def conv_dgrad_ref(d_raw, w_flipped, dt: int):
     return dx, d_raw.float().sum(dim=(0, 1, 2))
 
 
+def conv_wgrad_prologue_ref(x, scal, act: str):
+    """`conv_wgrad_ref`'s input: the prologue alone."""
+    return _prologue(x, scal, act, True)
+
+
 def conv_wgrad_ref(x_in, d_raw, scal, kt: int, kf: int, dt: int, act: Optional[str],
                    lhs_prologue: bool):
     """``dW[i, j, c, co] = Σ y[b, t + i·dt − pad_t, f + j − pad_f, c] ·
@@ -281,9 +312,9 @@ def _check_weight(w: torch.Tensor, x: torch.Tensor) -> None:
         )
 
 
-def _scratch(kind: str, x: torch.Tensor, kt: int, kf: int) -> torch.Tensor:
+def _scratch(x: torch.Tensor, kt: int, kf: int) -> torch.Tensor:
     with torch.cuda.device(x.device):
-        n = launch_config(kind, x.shape, kt, kf, x.dtype)["scratch_floats"]
+        n = launch_config(x.shape, kt, kf, x.dtype)["scratch_floats"]
     return torch.empty(n, dtype=torch.float32, device=x.device)
 
 
@@ -292,7 +323,7 @@ def _launch_conv_bn_act_fwd(x, w, bias, scal, dt, act, prologue):
     kt, kf = w.shape[:2]
     raw = torch.empty_like(x)
     stats = torch.empty(2, x.shape[-1], dtype=torch.float32, device=x.device)
-    scratch = _scratch("conv_bn_act_fwd", x, kt, kf)
+    scratch = _scratch(x, kt, kf)
     lib = _library()
     with torch.cuda.device(x.device):
         err = lib.conv_bn_act_fwd(
@@ -311,7 +342,7 @@ def _launch_conv_dgrad(d_raw, w_flipped, dt):
     kt, kf = w_flipped.shape[:2]
     dx = torch.empty_like(d_raw)
     dbias = torch.empty(C, dtype=torch.float32, device=d_raw.device)
-    scratch = _scratch("conv_dgrad", d_raw, kt, kf)
+    scratch = _scratch(d_raw, kt, kf)
     lib = _library()
     with torch.cuda.device(d_raw.device):
         err = lib.conv_dgrad(
@@ -324,18 +355,43 @@ def _launch_conv_dgrad(d_raw, w_flipped, dt):
     return dx, dbias
 
 
-def _launch_conv_wgrad(x_in, d_raw, scal, kt, kf, dt, act, lhs_prologue):
-    B, T, F_, C = x_in.shape
-    dw = torch.empty(kt, kf, C, C, dtype=torch.float32, device=x_in.device)
-    scratch = _scratch("conv_wgrad", x_in, kt, kf)
+def _launch_conv_wgrad_prologue(x, scal, act):
+    B, T, F_, _ = x.shape
+    y = torch.empty_like(x)
     lib = _library()
-    with torch.cuda.device(x_in.device):
+    with torch.cuda.device(x.device):
+        err = lib.conv_wgrad_prologue(
+            x.data_ptr(), scal.data_ptr(), y.data_ptr(), B, T, F_, _ACT_CODE[act],
+            int(x.dtype == torch.bfloat16), _build.stream(x),
+        )
+    _build.raise_on(err, "conv_wgrad_prologue")
+    LAUNCHES["conv_wgrad_prologue"] += 1
+    return y
+
+
+def launch_wgrad_kernel(y, d, kt, kf, dt):
+    """The weight-gradient kernel on CUDA tensors: ``dW`` fp32 ``[kt, kf, C,
+    C]`` of the conv whose (already activated) input is `y` and whose output
+    cotangent is `d`.  Counted by its callers, `conv_wgrad` and
+    `conv_cuda.conv_dilated_wgrad`."""
+    B, T, F_, C = y.shape
+    dw = torch.empty(kt, kf, C, C, dtype=torch.float32, device=y.device)
+    lib = _library()
+    with torch.cuda.device(y.device):
+        n = wgrad_launch_config(y.shape, kt, kf, dt, y.dtype)["scratch_floats"]
+        scratch = torch.empty(n, dtype=torch.float32, device=y.device)  # per-block partials
         err = lib.conv_wgrad(
-            x_in.data_ptr(), d_raw.data_ptr(), scal.data_ptr(), dw.data_ptr(),
-            scratch.data_ptr(), B, T, F_, kt, kf, dt, _ACT_CODE[act] if lhs_prologue else 0,
-            int(x_in.dtype == torch.bfloat16), _build.stream(x_in),
+            y.data_ptr(), d.data_ptr(), dw.data_ptr(), scratch.data_ptr(), B, T, F_, kt, kf, dt,
+            int(y.dtype == torch.bfloat16), _build.stream(y),
         )
     _build.raise_on(err, "conv_wgrad")
+    return dw
+
+
+def _launch_conv_wgrad(x_in, d_raw, scal, kt, kf, dt, act, lhs_prologue):
+    # the activated input: written once by the prologue pass, dropped after
+    y = _launch_conv_wgrad_prologue(x_in, scal, act) if lhs_prologue else x_in
+    dw = launch_wgrad_kernel(y, d_raw, kt, kf, dt)
     LAUNCHES["conv_wgrad"] += 1
     return dw
 
@@ -357,6 +413,15 @@ def conv_dgrad(d_raw, w_flipped, dt: int):
     _check_weight(w_flipped, d_raw)
     _check((d_raw,), w_flipped.shape, (), dt, None, False)
     return _build.dispatch(d_raw.device, _launch_conv_dgrad, conv_dgrad_ref)(d_raw, w_flipped, dt)
+
+
+def conv_wgrad_prologue(x, scal, act: str):
+    """``round(act(x·inv + shift))`` in x's type, the input `conv_wgrad`
+    multiplies (kernel on CUDA, plain version on the CPU)."""
+    C = x.shape[-1] if x.dim() == 4 else 0
+    _check((x,), (1, 1, C, C), (("scal", scal, (8, C)),), 1, act, True)
+    fn = _build.dispatch(x.device, _launch_conv_wgrad_prologue, conv_wgrad_prologue_ref)
+    return fn(x, scal, act)
 
 
 def conv_wgrad(x_in, d_raw, scal, kt: int, kf: int, dt: int, act: Optional[str],

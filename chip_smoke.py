@@ -10,9 +10,10 @@ Phases, each printing one JSON line:
 2. build    — compiles every `voicesplit_tpu_torch/csrc/*.cu` with nvcc for
    sm_90a into ``build/`` (one nvcc per source, all at once) and prints
    ``ptxas -v`` (registers, shared memory, spills) and each kernel's grid;
-   the weight-gradient kernel's per layer and batch beside the blocks the
-   card holds at once (a launch with more fails the phase), its registers
-   and spilled bytes.
+   the forward / data-gradient kernel's and the weight-gradient kernel's per
+   layer and batch (B=1, 2, 8; fp32 at the reduced shape) beside the blocks
+   the card holds at once (a launch with more fails the phase), their
+   registers and spilled bytes.
 3. kernels  — at H=400, T=301 holds each kernel against its plain PyTorch
    version on the card, in bf16 and fp32 operands: ``lstm_fwd`` (B=1,
    random h0/c0; hs, cs, gates, final (h, c)), ``bilstm_fwd`` (B=8),
@@ -45,18 +46,19 @@ Phases, each printing one JSON line:
 6. conv kernels — the three kernels of the fused conv chain
    (``conv_bn_act_fwd``, ``conv_dgrad``, ``conv_wgrad``) against their plain
    versions on the card: bf16 at the path's shape ``[2, 301, 601, 64]`` for
-   the (7,1) layer and the (5,5) layers of dilation 1 and 16 (``conv_wgrad``
-   also 2, 4 and 8: every layer of conv2 … conv7), with and without the
-   prologue (mish, relu once); fp32 at a reduced shape; the statistics and
+   every layer of conv2 … conv7 (the (7,1) layer and the (5,5) layers of
+   dilation 1 to 16), with and without the prologue (mish, relu once); fp32
+   at a reduced shape; the statistics and
    ``dbias`` in fp32; the first and last 32 time rows and 2 frequency
    columns on their own; two launches on the same inputs must give the same
    bits, and ``conv_wgrad`` with a prologue the bits of
    ``conv_dilated_wgrad`` on its prologue pass's output.  Then times each
    kernel per layer kind at B=2 and B=8 beside its plain version, its bound
    and a library yardstick that the port never calls (cuDNN ``conv2d`` plus
-   the eager BatchNorm + activation pass; ``aten.convolution_backward``),
-   ``conv_wgrad`` (its prologue pass inside its time, and on its own) at
-   all six layers with its sum over them per train step.
+   the eager BatchNorm + activation pass; ``aten.convolution_backward``) at
+   all six layers (``conv_wgrad`` with its prologue pass inside its time,
+   and the pass on its own), with each kernel's sum over them per train
+   step.
 7. train fused — the train phase again with ``VOICESPLIT_FUSED_CHAIN=1``
    (conv2 … conv7 through the chain's kernels): exact launches per step
    (6 + 6 + 6 conv kernels and 5 prologue passes beside the LSTM's), the same step again
@@ -66,15 +68,13 @@ Phases, each printing one JSON line:
 8. dilated conv kernels — the two kernels of the opt-in conv path
    (``conv_dilated_fwd``, as forward and, with flipped weights, as data
    gradient; ``conv_dilated_wgrad``) against their plain versions on the
-   card: bf16 at ``[2, 301, 601, 64]`` for the (7,1) layer and the (5,5)
-   layers of dilation 1 and 16 (``conv_dilated_wgrad`` at all six layers of
-   conv2 … conv7), fp32 at a reduced shape; the forward also against the
-   same sum rounded once; edge rows and columns on their own; the same bits
-   twice.  Then times per layer kind at B=2 and B=8 beside the bound, the
-   plain version, a library yardstick the port never calls (cuDNN
-   ``conv2d``; ``aten.convolution_backward``) and the fused chain's
-   ``conv_dgrad`` for the same layer; ``conv_dilated_wgrad`` at all six
-   layers with its sum per train step.
+   card: bf16 at ``[2, 301, 601, 64]`` for all six layers of conv2 … conv7,
+   fp32 at a reduced shape; the forward also against the same sum rounded
+   once; edge rows and columns on their own; the same bits twice.  Then
+   times per layer at B=2 and B=8 beside the bound, the plain version, a
+   library yardstick the port never calls (cuDNN ``conv2d``;
+   ``aten.convolution_backward``) and the fused chain's ``conv_dgrad`` for
+   the same layer, with the sums per serving call and train step.
 9. separate dilated — the separate phase's model with
    ``VOICESPLIT_PALLAS_CONV=1`` at B=1 and B=8: exactly 6
    ``conv_dilated_fwd`` launches per call beside the LSTM's, mask and
@@ -111,6 +111,7 @@ import argparse
 import copy
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -159,12 +160,10 @@ CONV_TOL = {
 }
 CONV_SHAPE = (2, T_FRAMES, 601, 64)  # the training path's activations at B=2
 CONV_SHAPE_FP32 = (1, 40, 150, 64)  # reduced: the fp32 kernels are the tests' instantiation
-# conv2 … conv7 of the model, each layer kind once
+# conv2 … conv7 of the model, each layer kind once; every conv kernel is
+# checked and timed at each
 CONV_LAYERS = {"7x1": ((7, 1), 1), "5x5-d1": ((5, 5), 1), "5x5-d2": ((5, 5), 2),
                "5x5-d4": ((5, 5), 4), "5x5-d8": ((5, 5), 8), "5x5-d16": ((5, 5), 16)}
-# where the tile kernels (forward, data gradient) are checked and timed; the
-# weight-gradient kernels at every layer of CONV_LAYERS
-TILE_LAYERS = ("7x1", "5x5-d1", "5x5-d16")
 CONV_KERNELS = ("conv_bn_act_fwd", "conv_dgrad", "conv_wgrad")
 # per train step; the prologue pass of conv_wgrad runs for conv3 … conv7
 CONV_LAUNCHES = {"conv_bn_act_fwd": 6, "conv_dgrad": 6, "conv_wgrad": 6, "conv_wgrad_prologue": 5}
@@ -243,9 +242,9 @@ SOURCES = {
     "lstm_bwd": "voicesplit_tpu_torch/csrc/lstm_bwd.cu",
     "bilstm_bwd": "voicesplit_tpu_torch/csrc/lstm_bwd.cu",
     "conv_bn_act_fwd": "voicesplit_tpu_torch/csrc/conv_fused.cu",
-    "conv_dgrad": "voicesplit_tpu_torch/csrc/conv_fused.cu",
+    "conv_dgrad": "voicesplit_tpu_torch/csrc/conv_fwd.cu",
     "conv_wgrad": "voicesplit_tpu_torch/csrc/conv_wgrad.cu",
-    "conv_dilated_fwd": "voicesplit_tpu_torch/csrc/conv_dilated.cu",
+    "conv_dilated_fwd": "voicesplit_tpu_torch/csrc/conv_fwd.cu",
     "conv_dilated_wgrad": "voicesplit_tpu_torch/csrc/conv_wgrad.cu",
 }
 
@@ -364,21 +363,27 @@ def phase_build(torch, lstm_cuda, conv_fused) -> None:
         )
         for dt in ("bfloat16", "float32")
     }
-    # conv_bn_act_fwd, conv_dgrad and conv_dilated_fwd share the tile grid;
-    # conv_wgrad and conv_dilated_wgrad share the weight-gradient kernel
+    # conv_dilated_fwd and conv_dgrad share the forward kernel body,
+    # conv_wgrad and conv_dilated_wgrad the weight-gradient kernel: each a
+    # whole wave at most, at the paths' batches (B=1: serving with the
+    # dilated switch) and in fp32 at the reduced shape
+    configs = {
+        "conv_dilated_fwd": lambda *a: conv_fused.fwd_launch_config(*a, dgrad=False),
+        "conv_dgrad": lambda *a: conv_fused.fwd_launch_config(*a, dgrad=True),
+        "conv_wgrad": conv_fused.wgrad_launch_config,
+    }
+    cases = [(name, f"B{b}", (b, *CONV_SHAPE[1:]), torch.bfloat16) for name in configs for b in (2, 8)]
+    cases += [("conv_dilated_fwd", "B1", (1, *CONV_SHAPE[1:]), torch.bfloat16)]
+    cases += [(name, "reduced_float32", CONV_SHAPE_FP32, torch.float32) for name in configs]
     for layer, ((kt, kf), dt) in CONV_LAYERS.items():
         for b in (2, 8):
-            shape = (b, *CONV_SHAPE[1:])
-            if layer in TILE_LAYERS:
-                grids[f"conv_tile_{layer}_B{b}"] = conv_fused.launch_config(
-                    shape, kt, kf, torch.bfloat16)
-            wg = grids[f"conv_wgrad_{layer}_B{b}"] = conv_fused.wgrad_launch_config(
-                shape, kt, kf, dt, torch.bfloat16)
-            check(wg["blocks"] <= wg["resident_blocks"],
-                  f"weight gradient {layer} B={b}: {wg['blocks']} blocks > {wg['resident_blocks']} resident")
-    for dtype in ("bfloat16", "float32"):
-        grids[f"conv_wgrad_5x5-d1_reduced_{dtype}"] = conv_fused.wgrad_launch_config(
-            CONV_SHAPE_FP32, 5, 5, 1, getattr(torch, dtype))
+            grids[f"conv_bn_act_fwd_{layer}_B{b}"] = conv_fused.launch_config(
+                (b, *CONV_SHAPE[1:]), kt, kf, torch.bfloat16)
+        for name, tag, shape, dtype in cases:
+            key = f"{name}_{layer}_{tag}"
+            gr = grids[key] = configs[name](shape, kt, kf, dt, dtype)
+            check(gr["blocks"] <= gr["resident_blocks"],
+                  f"{key}: {gr['blocks']} blocks > {gr['resident_blocks']} resident")
     emit("build", library=str(lib.relative_to(ROOT)), seconds=seconds,
          ptxas_lstm=ptxas_summary(log, "lstm"), ptxas_conv=ptxas_summary(log, "conv"),
          grids=grids)
@@ -745,11 +750,12 @@ def conv_bound(kind: str, shape, kt: int, kf: int, dt: int, dtype: str) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def _per_step(times: dict) -> dict:
-    """A kernel's time summed over conv2 … conv7 (one launch per layer), by
-    batch, beside the same sums of its library yardstick and bound."""
+def _per_step(times: dict, ms: str = "ms") -> dict:
+    """A kernel's time (`ms`) summed over conv2 … conv7 (one launch per
+    layer), by batch, beside the same sums of its library yardstick and
+    bound."""
     return {f"B{b}": {k: sum(times[f"B{b}/{layer}"][k] for layer in CONV_LAYERS)
-                      for k in ("ms", "library_ms", "bound_ms")}
+                      for k in (ms, "library_ms", "bound_ms")}
             for b in (2, 8)}
 
 
@@ -783,8 +789,8 @@ def _conv_inputs(torch, shape, kt, kf, dtype, g):
 
 
 def _check_conv_case(torch, cf, cc, case, shape, layer, act, dtype_name, g) -> dict:
-    """One layer and prologue through the three kernels (the tile kernels
-    only on TILE_LAYERS) and their plain versions; raises on disagreement or
+    """One layer and prologue through the three kernels and their plain
+    versions; raises on disagreement or
     on two launches that differ.  With a prologue, `conv_wgrad` must also
     give the bits of `conv_dilated_wgrad` on the prologue pass's output."""
     (kt, kf), dt = CONV_LAYERS[layer]
@@ -805,8 +811,6 @@ def _check_conv_case(torch, cf, cc, case, shape, layer, act, dtype_name, g) -> d
         for name, (kernel, plain, args, kinds) in runs.items():
             if name == "conv_dgrad" and on:
                 continue  # no prologue on this kernel: checked in the plain case
-            if name != "conv_wgrad" and layer not in TILE_LAYERS:
-                continue
             got, again, want = kernel(*args), kernel(*args), plain(*args)
             torch.cuda.synchronize()
             got, again, want = (o if isinstance(o, tuple) else (o,) for o in (got, again, want))
@@ -844,10 +848,9 @@ def phase_conv_kernels(torch, cf, cc, seed: int) -> dict:
     from voicesplit_tpu_torch.ops import bn_act
 
     g = torch.Generator(device="cpu").manual_seed(seed + 2)
-    # the weight gradient alone on the layers outside TILE_LAYERS
-    cases = [("7x1", None), ("7x1", "mish"), ("5x5-d1", None), ("5x5-d1", "mish"),
-             ("5x5-d1", "relu"), ("5x5-d2", "mish"), ("5x5-d4", "mish"), ("5x5-d8", "mish"),
-             ("5x5-d16", None), ("5x5-d16", "mish")]
+    # every layer without a prologue (conv_dgrad has none) and with mish,
+    # and relu once
+    cases = [(layer, act) for layer in CONV_LAYERS for act in (None, "mish")] + [("5x5-d1", "relu")]
     worst = {name: {"bfloat16": 0.0, "float32": 0.0} for name in CONV_KERNELS}
     agreement = {}
     for dtype_name, shape in (("bfloat16", CONV_SHAPE), ("float32", CONV_SHAPE_FP32)):
@@ -915,8 +918,6 @@ def phase_conv_kernels(torch, cf, cc, seed: int) -> dict:
             }
             with torch.inference_mode():
                 for name, (kernel, plain, library) in calls.items():
-                    if name != "conv_wgrad" and layer not in TILE_LAYERS:
-                        continue
                     bound = conv_bound(name, shape, kt, kf, dt, "bfloat16")
                     timing[name][f"B{b}/{layer}"] = {
                         "ms": time_ms(torch, kernel, iters=iters, warmup=1),
@@ -931,7 +932,7 @@ def phase_conv_kernels(torch, cf, cc, seed: int) -> dict:
             torch.cuda.empty_cache()
     emit("conv kernel times", dtype="bfloat16", prologue="mish (none on the 7x1 layer)",
          library="cuDNN conv2d (+ eager BN + act) / aten.convolution_backward, channels-last bf16",
-         times=timing, conv_wgrad_ms_per_step=_per_step(timing["conv_wgrad"]))
+         times=timing, ms_per_step={name: _per_step(timing[name]) for name in CONV_KERNELS})
     # the kernels line quotes the (5,5) dilation-1 layer at the config's batch
     head = "B2/5x5-d1"
     return {
@@ -1122,8 +1123,8 @@ def _latency_ms(torch, fn, calls: int):
 
 
 def _check_dilated_case(torch, cc, cf, case, shape, layer, dtype_name, g) -> dict:
-    """One layer through `conv_dilated_fwd` (as forward and as data gradient;
-    only on TILE_LAYERS) and `conv_dilated_wgrad` and their plain versions;
+    """One layer through `conv_dilated_fwd` (as forward and as data gradient)
+    and `conv_dilated_wgrad` and their plain versions;
     raises on disagreement or on two launches that differ."""
     (kt, kf), dt = CONV_LAYERS[layer]
     dtype = getattr(torch, dtype_name)
@@ -1131,9 +1132,8 @@ def _check_dilated_case(torch, cc, cf, case, shape, layer, dtype_name, g) -> dic
     x, d, w, _, _ = _conv_inputs(torch, shape, kt, kf, dtype, g)
     wf = cc.flip_weight(w)
     report = {}
-    tile_runs = {"forward": (x, w), "data_gradient": (d, wf)} if layer in TILE_LAYERS else {}
     with torch.inference_mode():
-        for what, (a, wt) in tile_runs.items():
+        for what, (a, wt) in {"forward": (x, w), "data_gradient": (d, wf)}.items():
             got, again = cc.conv_dilated_fwd(a, wt, dt), cc.conv_dilated_fwd(a, wt, dt)
             want = cc.conv_dilated_fwd_ref(a, wt, dt)
             once = cf._conv_core(a, wt, dt).to(dtype)  # every tap in fp32, one rounding
@@ -1178,10 +1178,9 @@ def phase_dilated_kernels(torch, cc, cf, seed: int) -> dict:
         for layer in CONV_LAYERS:
             case = f"{layer}/{dtype_name}"
             r = agreement[case] = _check_dilated_case(torch, cc, cf, case, shape, layer, dtype_name, g)
-            if layer in TILE_LAYERS:
-                worst["conv_dilated_fwd"][dtype_name] = max(
-                    worst["conv_dilated_fwd"][dtype_name], r["forward"]["abs_err"],
-                    r["data_gradient"]["abs_err"])
+            worst["conv_dilated_fwd"][dtype_name] = max(
+                worst["conv_dilated_fwd"][dtype_name], r["forward"]["abs_err"],
+                r["data_gradient"]["abs_err"])
             worst["conv_dilated_wgrad"][dtype_name] = max(
                 worst["conv_dilated_wgrad"][dtype_name], r["weight_gradient"]["abs_err"])
         torch.cuda.empty_cache()
@@ -1204,23 +1203,22 @@ def phase_dilated_kernels(torch, cc, cf, seed: int) -> dict:
                     d_nchw, x_nchw, w_oihw, None, (1, 1), pad, (dt, 1), False, (0, 0), 1, mask)
 
             with torch.inference_mode():
-                if layer in TILE_LAYERS:
-                    bound = conv_bound("conv_dilated_fwd", shape, kt, kf, dt, "bfloat16")
-                    timing["conv_dilated_fwd"][f"B{b}/{layer}"] = {
-                        "ms": time_ms(torch, lambda: cc.conv_dilated_fwd(x, w, dt), iters, warmup=1),
-                        "data_gradient_ms": time_ms(
-                            torch, lambda: cc.conv_dilated_fwd(d, wf, dt), iters, warmup=1),
-                        "plain_ms": time_ms(
-                            torch, lambda: cc.conv_dilated_fwd_ref(x, w, dt), 2, warmup=1),
-                        "library_ms": time_ms(
-                            torch, lambda: F.conv2d(x_nchw, w_oihw, None, padding=pad, dilation=(dt, 1)),
-                            iters, warmup=1),
-                        "library_data_gradient_ms": time_ms(
-                            torch, lambda: lib_bwd((True, False, False)), iters, warmup=1),
-                        "fused_chain_conv_dgrad_ms": time_ms(
-                            torch, lambda: cf.conv_dgrad(d, wf, dt), iters, warmup=1),
-                        **bound,
-                    }
+                bound = conv_bound("conv_dilated_fwd", shape, kt, kf, dt, "bfloat16")
+                timing["conv_dilated_fwd"][f"B{b}/{layer}"] = {
+                    "ms": time_ms(torch, lambda: cc.conv_dilated_fwd(x, w, dt), iters, warmup=1),
+                    "data_gradient_ms": time_ms(
+                        torch, lambda: cc.conv_dilated_fwd(d, wf, dt), iters, warmup=1),
+                    "plain_ms": time_ms(
+                        torch, lambda: cc.conv_dilated_fwd_ref(x, w, dt), 2, warmup=1),
+                    "library_ms": time_ms(
+                        torch, lambda: F.conv2d(x_nchw, w_oihw, None, padding=pad, dilation=(dt, 1)),
+                        iters, warmup=1),
+                    "library_data_gradient_ms": time_ms(
+                        torch, lambda: lib_bwd((True, False, False)), iters, warmup=1),
+                    "fused_chain_conv_dgrad_ms": time_ms(
+                        torch, lambda: cf.conv_dgrad(d, wf, dt), iters, warmup=1),
+                    **bound,
+                }
                 bound = conv_bound("conv_dilated_wgrad", shape, kt, kf, dt, "bfloat16")
                 timing["conv_dilated_wgrad"][f"B{b}/{layer}"] = {
                     "ms": time_ms(torch, lambda: cc.conv_dilated_wgrad(x, d, kt, kf, dt), iters, warmup=1),
@@ -1233,6 +1231,8 @@ def phase_dilated_kernels(torch, cc, cf, seed: int) -> dict:
             torch.cuda.empty_cache()
     emit("dilated conv kernel times", dtype="bfloat16",
          library="cuDNN conv2d / aten.convolution_backward, channels-last bf16", times=timing,
+         conv_dilated_fwd_ms_per_serving_call=_per_step(timing["conv_dilated_fwd"]),
+         conv_dilated_fwd_data_gradient_ms_per_step=_per_step(timing["conv_dilated_fwd"], "data_gradient_ms"),
          conv_dilated_wgrad_ms_per_step=_per_step(timing["conv_dilated_wgrad"]))
     head = "B2/5x5-d1"
     return {
@@ -1509,14 +1509,19 @@ def phase_trainer(torch, lstm_cuda, cc, seed: int, profile_dir) -> dict:
     return launches
 
 
-# kernel-name fragments → kind, for the device time split under --profile
-KERNEL_KINDS = (
+# kinds for the device time split under --profile.  The port's kernels:
+# every __global__ of voicesplit_tpu_torch/csrc by its whole name
+# (tests/test_torch_kernel_kinds.py holds the list complete), tried before
+# the library's name fragments.
+PORT_KERNEL_KINDS = (
     ("dilated conv kernels", ("conv_dilated_fwd_kernel",)),
     ("conv chain kernels", ("conv_bn_act_fwd_kernel", "conv_dgrad_kernel", "reduce_rows_kernel")),
     # the weight gradient of both conv paths (with the chain's prologue pass)
-    ("conv weight-gradient kernels", ("conv_wgrad_kernel", "wgrad_prologue_kernel",
-                                      "reduce_taps_kernel")),
+    ("conv weight-gradient kernels", ("conv_wgrad_kernel", "conv_wgrad_kf1_kernel",
+                                      "wgrad_prologue_kernel", "reduce_taps_kernel")),
     ("lstm kernels", ("lstm_fwd_kernel", "lstm_bwd_kernel")),
+)
+LIBRARY_KERNEL_KINDS = (
     ("convs", ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad")),
     ("matmuls", ("gemm", "cutlass", "nvjet", "splitk")),
     ("optimizer", ("multi_tensor", "foreach", "adam")),
@@ -1525,8 +1530,12 @@ KERNEL_KINDS = (
 
 
 def kernel_kind(name: str) -> str:
+    idents = set(re.findall(r"[A-Za-z_][A-Za-z0-9_]*", name))
+    for kind, names in PORT_KERNEL_KINDS:
+        if idents.intersection(names):
+            return kind
     low = name.lower()
-    for kind, frags in KERNEL_KINDS:
+    for kind, frags in LIBRARY_KERNEL_KINDS:
         if any(f in low for f in frags):
             return kind
     return "elementwise and other"

@@ -1,0 +1,151 @@
+#!/usr/bin/env python3
+"""Times the PyTorch port's conv kernel wrappers on the card.
+
+    python3 scripts/port_conv_times.py [--root DIR] [--tag NAME] [--iters 10] [--library]
+
+Imports `voicesplit_tpu_torch` from DIR (default: this checkout) and builds
+its kernels there, so that an older tree unpacked with ``git archive`` into
+a git-ignored directory is timed by the same script in the same call (run
+parent, change, change, parent).  It uses only the wrappers' public calls,
+which are the same in every tree since the port's fourth slice:
+
+- ``conv_cuda.conv_dilated_fwd`` as the forward (``fwd``) and, with flipped
+  weights, as the data gradient (``fwd_data_gradient``);
+- ``conv_fused.conv_dgrad`` (flipped weights, with its bias gradient);
+- ``conv_fused.conv_bn_act_fwd`` with the chain's mish prologue (none on
+  the (7,1) layer, as the chain calls it), bias and statistics;
+- ``conv_fused.conv_wgrad`` with the same prologue, its prologue pass inside
+  its time, and ``conv_cuda.conv_dilated_wgrad``;
+
+at the six layer kinds of conv2 … conv7 ((7,1), and (5,5) at time dilation
+1, 2, 4, 8, 16) on ``[B, 301, 601, 64]`` bf16 activations, B=2 and B=8.
+``--library`` adds cuDNN's time for the same function (``F.conv2d`` and
+``aten.convolution_backward`` on channels-last bf16; no BatchNorm pass),
+which the port never calls.  Each time is the mean of ``--iters`` calls
+after two warm ones, between CUDA events.  Prints one JSON line with the
+card's name and power limit, the times per layer and their sums over the
+six layers (one launch per layer; the dilated forward runs twice per train
+step, as forward and as data gradient).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+LAYERS = {"7x1": ((7, 1), 1), "5x5-d1": ((5, 5), 1), "5x5-d2": ((5, 5), 2),
+          "5x5-d4": ((5, 5), 4), "5x5-d8": ((5, 5), 8), "5x5-d16": ((5, 5), 16)}
+SHAPE = (301, 601, 64)  # T, F, C of the model's conv activations (3 s clips)
+
+
+def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    parser.add_argument("--tag", default="")
+    parser.add_argument("--iters", type=int, default=10)
+    parser.add_argument("--library", action="store_true")
+    args = parser.parse_args(argv)
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("port_conv_times: no CUDA device", file=sys.stderr)
+        return 1
+    from voicesplit_tpu_torch.ops import _build
+    from voicesplit_tpu_torch.ops import conv_cuda as cc
+    from voicesplit_tpu_torch.ops import conv_fused as cf
+
+    if not Path(cf.__file__).resolve().is_relative_to(root):
+        print(f"port_conv_times: imported {cf.__file__}, not from {root}", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.library()
+    build_s = time.perf_counter() - t0
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    g = torch.Generator(device="cpu").manual_seed(0)
+    C = SHAPE[-1]
+    names = ("conv_dilated_fwd", "conv_dilated_fwd_data_gradient", "conv_dgrad", "conv_bn_act_fwd",
+             "conv_wgrad", "conv_dilated_wgrad")
+    times = {name: {} for name in names}
+    library = {name: {} for name in ("conv2d", "data_gradient", "weight_gradient")}
+    for b in (2, 8):
+        x = torch.randn(b, *SHAPE, generator=g).to("cuda", torch.bfloat16)
+        d = torch.randn(b, *SHAPE, generator=g).to("cuda", torch.bfloat16)
+        bias = (0.1 * torch.randn(C, generator=g)).cuda()
+        scal = cf._scal_table(0.2 * torch.randn(C, generator=g), torch.rand(C, generator=g) + 0.5,
+                              torch.rand(C, generator=g) + 0.5, 0.1 * torch.randn(C, generator=g)).cuda()
+        with torch.inference_mode():
+            for layer, ((kt, kf), dt) in LAYERS.items():
+                act = None if layer == "7x1" else "mish"
+                on = act is not None
+                w = (torch.randn(kt, kf, C, C, generator=g) * (kt * kf * C) ** -0.5).to(
+                    "cuda", torch.bfloat16)
+                wf = cc.flip_weight(w)
+                key = f"B{b}/{layer}"
+                calls = {
+                    "conv_dilated_fwd": lambda: cc.conv_dilated_fwd(x, w, dt),
+                    "conv_dilated_fwd_data_gradient": lambda: cc.conv_dilated_fwd(d, wf, dt),
+                    "conv_dgrad": lambda: cf.conv_dgrad(d, wf, dt),
+                    "conv_bn_act_fwd": lambda: cf.conv_bn_act_fwd(x, w, bias, scal, dt, act, on),
+                    "conv_wgrad": lambda: cf.conv_wgrad(x, d, scal, kt, kf, dt, act, on),
+                    "conv_dilated_wgrad": lambda: cc.conv_dilated_wgrad(x, d, kt, kf, dt),
+                }
+                for name, fn in calls.items():
+                    times[name][key] = time_ms(torch, fn, args.iters)
+                if args.library:
+                    pad = ((kt - 1) * dt // 2, (kf - 1) // 2)
+                    x_nchw, d_nchw = x.permute(0, 3, 1, 2), d.permute(0, 3, 1, 2)
+                    w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+                    def lib_bwd(mask):
+                        return torch.ops.aten.convolution_backward(
+                            d_nchw, x_nchw, w_oihw, None, (1, 1), pad, (dt, 1), False, (0, 0), 1, mask)
+
+                    library["conv2d"][key] = time_ms(
+                        torch, lambda: F.conv2d(x_nchw, w_oihw, None, padding=pad, dilation=(dt, 1)),
+                        args.iters)
+                    library["data_gradient"][key] = time_ms(
+                        torch, lambda: lib_bwd((True, False, False)), args.iters)
+                    library["weight_gradient"][key] = time_ms(
+                        torch, lambda: lib_bwd((False, True, False)), args.iters)
+        del x, d
+        torch.cuda.empty_cache()
+
+    def per_step(t):
+        return {f"B{b}": sum(t[f"B{b}/{layer}"] for layer in LAYERS) for b in (2, 8)}
+
+    report = {"tag": args.tag, "root": str(root), "device": torch.cuda.get_device_name(0),
+              "nvidia_smi": smi, "build_seconds": build_s, "iters": args.iters,
+              "ms": times, "ms_per_step": {name: per_step(t) for name, t in times.items()}}
+    if args.library:
+        report["library_ms"] = library
+        report["library_ms_per_step"] = {name: per_step(t) for name, t in library.items()}
+    print(json.dumps(report))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

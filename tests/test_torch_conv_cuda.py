@@ -254,7 +254,13 @@ def test_wrappers_check_their_arguments():
         cc._check_kernel_takes(128, 64, 5, 5, wgrad=False)
     with pytest.raises(NotImplementedError, match="taps"):
         cc._check_kernel_takes(64, 64, 5, 7, wgrad=True)
-    cc._check_kernel_takes(64, 64, 7, 7, wgrad=False)
+    # the forward kernel: kf in (1, 3, 5); five time taps at kf = 5 (its ring
+    # of input rows and two weight buffers fill a block's shared memory)
+    for kt, kf in ((5, 7), (7, 5), (3, 2)):
+        with pytest.raises(NotImplementedError, match="taps"):
+            cc._check_kernel_takes(64, 64, kt, kf, wgrad=False)
+    for kt, kf in ((7, 1), (7, 3), (5, 5), (1, 5)):
+        cc._check_kernel_takes(64, 64, kt, kf, wgrad=False)
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,9 @@ from voicesplit_tpu_torch.dsp.processor import make_audio_processor
 from voicesplit_tpu_torch.models.masknet import make_masknet
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
+# conv2 … conv7 of the model, each layer kind once
+CONV_LAYERS = {"7x1": ((7, 1), 1), "5x5-d1": ((5, 5), 1), "5x5-d2": ((5, 5), 2),
+               "5x5-d4": ((5, 5), 4), "5x5-d8": ((5, 5), 8), "5x5-d16": ((5, 5), 16)}
 
 
 def _config():
@@ -194,15 +197,16 @@ def test_train_step_runs_through_the_kernels_on_card(batch):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("layer", ["7x1", "5x5-d2"])
+@pytest.mark.parametrize("layer", sorted(CONV_LAYERS))
 def test_conv_chain_kernels_match_plain_versions_on_card(layer, dtype):
     """`conv_bn_act_fwd`, `conv_dgrad` and `conv_wgrad` against their plain
-    versions at a small shape whose halo (dilation 2, F off the 128-wide
-    tile) is in play, mish prologue on."""
+    versions at a small shape whose halo (F off the 128-wide tile; T = 13,
+    odd and under the reach of dilations 4 to 16) is in play, mish prologue
+    on."""
     _need_card()
     from voicesplit_tpu_torch.ops import conv_fused as cf
 
-    (kt, kf), dil = {"7x1": ((7, 1), 1), "5x5-d2": ((5, 5), 2)}[layer]
+    (kt, kf), dil = CONV_LAYERS[layer]
     g = torch.Generator().manual_seed(0)
     dt = getattr(torch, dtype)
     shape, C = (2, 13, 150, 64), 64
@@ -296,6 +300,72 @@ def test_wgrad_kernels_match_plain_versions_on_card(case, dtype):
         assert not got[outside].any() and not plain_dw[outside].any()
 
 
+# Forward / data-gradient kernel cases: (kt, kf), dilation, [B, T, F].  B = 1
+# (serving); T not a multiple of an item's rows; F = 601 (an 89-position last
+# tile); T under the dilation-16 reach (19 < 32) and over it with several
+# residues; more items than resident blocks; kf = 3 and a dilated kf = 1.
+FWD_CASES = {
+    "5x5-d1-B1-F601": (((5, 5), 1), (1, 9, 601)),
+    "7x1-d1-B1-F601": (((7, 1), 1), (1, 11, 601)),
+    "5x5-d16-T19": (((5, 5), 16), (2, 19, 150)),
+    "5x5-d16-T45-F130": (((5, 5), 16), (1, 45, 130)),
+    "5x5-d1-more-items-than-blocks": (((5, 5), 1), (2, 41, 700)),
+    "7x1-d1-more-items-than-blocks": (((7, 1), 1), (2, 41, 700)),
+    "3x3-d2-F70": (((3, 3), 2), (2, 11, 70)),
+    "7x1-d3-F37": (((7, 1), 3), (1, 29, 37)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(FWD_CASES))
+def test_forward_kernels_match_plain_versions_on_card(case, dtype):
+    """`conv_dilated_fwd` and `conv_dgrad` (one kernel body) against their
+    plain versions and the sum rounded once: one launch never has more blocks
+    than the card holds at once, two launches give the same bits, and
+    `conv_dgrad`'s dx is the bits of `conv_dilated_fwd` on the same
+    operands."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import conv_cuda as cc
+    from voicesplit_tpu_torch.ops import conv_fused as cf
+
+    ((kt, kf), dil), (b, t, f) = FWD_CASES[case]
+    g = torch.Generator().manual_seed(2)
+    dt = getattr(torch, dtype)
+    C = 64
+    x = torch.randn(b, t, f, C, generator=g).to("cuda", dt)
+    w = (torch.randn(kt, kf, C, C, generator=g) * (kt * kf * C) ** -0.5).to("cuda", dt)
+    for dgrad in (False, True):
+        grid = cf.fwd_launch_config(x.shape, kt, kf, dil, dt, dgrad)
+        assert grid["blocks"] <= grid["resident_blocks"]
+        if "more-items" in case:
+            assert grid["blocks"] == grid["resident_blocks"]
+    with torch.inference_mode():
+        got, again = cc.conv_dilated_fwd(x, w, dil), cc.conv_dilated_fwd(x, w, dil)
+        dx, dbias = cf.conv_dgrad(x, w, dil)
+        dx2, dbias2 = cf.conv_dgrad(x, w, dil)
+        plain = cc.conv_dilated_fwd_ref(x, w, dil)
+        once = cf._conv_core(x, w, dil).to(dt)  # every tap in fp32, rounded once
+        want_dx, want_dbias = cf.conv_dgrad_ref(x, w, dil)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(dx, dx2) and torch.equal(dbias, dbias2)
+    assert torch.equal(dx, got)
+    assert got.shape == (b, t, f, C) and bool(torch.isfinite(got).all())
+    # relative to each output's peak.  fp32: summation order only.  bf16:
+    # against the sum rounded once one flipped rounding (2^-7 of the peak at
+    # most), against the plain version's per-frequency-tap rounding a few;
+    # dbias adds the same values in another order
+    tol = {"float32": (1e-4, 1e-4, 1e-4), "bfloat16": (1e-2, 2e-2, 1e-3)}[dtype]
+    for a, want, limit in ((got, once, tol[0]), (got, plain, tol[1]), (dx, want_dx, tol[0]),
+                           (dbias, want_dbias, tol[2])):
+        assert (a.float() - want.float()).abs().max().item() <= limit * want.float().abs().max().item()
+    # the first and last time rows and frequency columns on their own
+    peak = once.float().abs().max().item()
+    for cut in ((slice(None), slice(0, 2)), (slice(None), slice(-2, None)),
+                (slice(None), slice(None), slice(0, 2)), (slice(None), slice(None), slice(-2, None))):
+        assert (got[cut].float() - once[cut].float()).abs().max().item() <= tol[0] * peak
+
+
 @pytest.mark.gpu
 def test_fused_train_step_runs_through_the_conv_kernels_on_card(monkeypatch):
     """Full-width train step with `VOICESPLIT_FUSED_CHAIN=1` at the config's
@@ -334,15 +404,16 @@ def test_fused_train_step_runs_through_the_conv_kernels_on_card(monkeypatch):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("layer", ["7x1", "5x5-d2"])
+@pytest.mark.parametrize("layer", sorted(CONV_LAYERS))
 def test_dilated_conv_kernels_match_plain_versions_on_card(layer, dtype):
     """`conv_dilated_fwd` (as forward and, with flipped weights, as data
     gradient) and `conv_dilated_wgrad` against their plain versions at a
-    small shape whose halo (dilation 2, F off the 128-wide tile) is in play."""
+    small shape whose halo (F off the 128-wide tile; T = 13, odd and under
+    the reach of dilations 4 to 16) is in play."""
     _need_card()
     from voicesplit_tpu_torch.ops import conv_cuda as cc
 
-    (kt, kf), dil = {"7x1": ((7, 1), 1), "5x5-d2": ((5, 5), 2)}[layer]
+    (kt, kf), dil = CONV_LAYERS[layer]
     g = torch.Generator().manual_seed(0)
     dt = getattr(torch, dtype)
     shape, C = (2, 13, 150, 64), 64

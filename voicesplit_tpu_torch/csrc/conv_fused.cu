@@ -1,9 +1,10 @@
-// Fused conv chain for Hopper (sm_90a): forward and data gradient.  The
-// chain's weight gradient, conv_wgrad, lives in conv_wgrad.cu.
+// Fused conv chain for Hopper (sm_90a): the forward kernel.  The chain's
+// data gradient, conv_dgrad, lives in conv_fwd.cu, its weight gradient,
+// conv_wgrad, in conv_wgrad.cu.
 //
 // Replaces the TPU kernels in voicesplit_tpu/ops/conv_fused.py:
 //   conv_bn_act_fwd <- _fwd_kernel   (:303, launched by _conv_fwd   :365)
-//   conv_dgrad      <- _dgrad_kernel (:411, launched by _conv_dgrad :476)
+//   (conv_dgrad     <- _dgrad_kernel (:411): conv_fwd.cu)
 //   (conv_wgrad     <- _wgrad_kernel (:524): conv_wgrad.cu)
 //
 // Both are "same" convolutions over channels-last activations
@@ -32,8 +33,9 @@
 // materializes d_raw in two plain passes.
 //
 // The block-level body (conv_tile), its helpers and the launch shapes live
-// in conv_tile.cuh, which conv_dilated.cu shares; this file holds the
-// chain's __global__ kernels, their launches and the C interface.
+// in conv_tile.cuh; this file holds the __global__ kernel, its launch and
+// the C interface.  conv_dgrad's description stays here beside the forward's
+// because the two compute the same sum; conv_fwd.cu holds its design.
 //
 // Design.  bf16 operands go through the warp-level tensor-core product
 // mma.sync.m16n8k16 (bf16 in, fp32 accumulate), operands staged in shared
@@ -41,7 +43,7 @@
 // conflicts.  fp32 operands use fp32 FMAs on CUDA cores (not TF32); that
 // instantiation is for tests at reduced shapes.
 //
-//   forward / dgrad: one block computes two time rows x 128 frequency
+//   forward: one block computes two time rows x 128 frequency
 //   positions x 64 output channels.  For each time tap i it stages the two
 //   input rows (prologue applied while staging, halo zeroed) and the kf x
 //   64 x 64 weights of that tap row, then each of its 8 warps multiplies a
@@ -54,15 +56,16 @@
 // adds them in a fixed order (in double), so the same inputs give the same
 // bits: no float atomics.
 //
-// What bounds them on the card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16
+// What bounds it on the card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16
 // dense), each input byte read once and each output byte written once: a
 // (5,5) layer at [8, 301, 601, 64] is 296 GFLOP against 370 MB, so
 // operations bound it (0.30 ms against 0.11 ms); the (7,1) layer is bound
 // by bytes.  conv_tile reaches neither yet: it waits for its loads (no
 // cp.async / TMA ring, two blocks per SM), conv_bn_act_fwd recomputes its
 // prologue for each time tap that stages a row, and it multiplies with
-// mma.sync, not wgmma.  conv_wgrad.cu's pipelined, whole-wave design is the
-// pattern for its redesign.
+// mma.sync, not wgmma.  conv_fwd.cu's whole-wave design (a cp.async ring of
+// input rows, weights staged once per run or per item) is the pattern for
+// its redesign, with the prologue run once per element.
 
 #include "conv_tile.cuh"
 
@@ -74,14 +77,7 @@ conv_bn_act_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
                        const float* __restrict__ bias, const float* __restrict__ scal,
                        T* __restrict__ out, float* __restrict__ partials, int T_, int F, int kt,
                        int kf, int dt, int act) {
-  conv_tile<T, kTileFwd>(x, w, bias, scal, out, partials, T_, F, kt, kf, dt, act);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-conv_dgrad_kernel(const T* __restrict__ d_raw, const T* __restrict__ w, T* __restrict__ dx,
-                  float* __restrict__ partials, int T_, int F, int kt, int kf, int dt) {
-  conv_tile<T, kTileDgrad>(d_raw, w, nullptr, nullptr, dx, partials, T_, F, kt, kf, dt, kNone);
+  conv_tile<T>(x, w, bias, scal, out, partials, T_, F, kt, kf, dt, act);
 }
 
 template <typename T>
@@ -106,34 +102,12 @@ cudaError_t launch_fwd(const void* x, const void* w, const void* bias, const voi
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dgrad(const void* d_raw, const void* w, void* dx, void* dbias, void* scratch,
-                         int B, int T_, int F, int kt, int kf, int dt, cudaStream_t stream) {
-  if (bad_shape(B, T_, F, kt, kf, dt)) return cudaErrorInvalidValue;
-  LaunchConfig cfg;
-  cudaError_t err = tile_config<T>(B, T_, F, kt, kf, &cfg);
-  if (err != cudaSuccess) return err;
-  auto kernel = conv_dgrad_kernel<T>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(cfg.smem));
-  if (err != cudaSuccess) return err;
-  float* partials = static_cast<float*>(scratch);
-  kernel<<<cfg.blocks, cfg.threads, cfg.smem, stream>>>(
-      static_cast<const T*>(d_raw), static_cast<const T*>(w), static_cast<T*>(dx), partials, T_,
-      F, kt, kf, dt);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  // the first 64 columns of each block's 128 hold its share of dbias
-  reduce_rows_kernel<32><<<(kC + 31) / 32, dim3(32, 32), 0, stream>>>(
-      partials, 2 * cfg.blocks, kC, static_cast<float*>(dbias));
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Every function returns its
 // cudaError_t; 0 is success.  `bf16` selects bf16 activations and weights,
 // otherwise fp32; bias, scal (the [8, 64] table: row 0 inv, row 1 shift),
-// stats, dbias and scratch are fp32.  Activations are [B, T, F, 64],
+// stats and scratch are fp32.  Activations are [B, T, F, 64],
 // weights [kt, kf, 64, 64].  `act`: 0 no prologue, 1 mish, 2 relu.  `scratch`
 // holds the per-block partial sums (conv_fused_launch_config gives its size).
 
@@ -147,16 +121,7 @@ extern "C" int conv_bn_act_fwd(const void* x, const void* w, const void* bias, c
                                   s);
 }
 
-extern "C" int conv_dgrad(const void* d_raw, const void* w_flipped, void* dx, void* dbias,
-                          void* scratch, int B, int T, int F, int kt, int kf, int dt, int bf16,
-                          void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_dgrad<__nv_bfloat16>(d_raw, w_flipped, dx, dbias, scratch, B, T, F, kt, kf,
-                                            dt, s)
-              : launch_dgrad<float>(d_raw, w_flipped, dx, dbias, scratch, B, T, F, kt, kf, dt, s);
-}
-
-// Launch shape of conv_bn_act_fwd and conv_dgrad (the same tile grid).
+// Launch shape of conv_bn_act_fwd.
 extern "C" int conv_fused_launch_config(int B, int T, int F, int kt, int kf, int bf16, int* blocks,
                                         int* threads, long long* smem, long long* scratch) {
   LaunchConfig cfg;

@@ -1,0 +1,627 @@
+// Forward / data-gradient "same" time-dilated conv for Hopper (sm_90a): the
+// opt-in conv path's conv_dilated_fwd (VOICESPLIT_PALLAS_CONV=1; with
+// flipped weights also its data gradient) and the fused chain's conv_dgrad.
+//
+// Replaces the TPU kernels (the Python wrappers of the same names, in
+// ops/conv_cuda.py and ops/conv_fused.py, launch the C functions below)
+//   conv_dilated_fwd <- voicesplit_tpu/ops/conv_pallas.py _fwd_kernel   (:95, launched by
+//                       _conv_fwd_core :167; the data gradient with flipped weights :371-378)
+//   conv_dgrad       <- voicesplit_tpu/ops/conv_fused.py  _dgrad_kernel (:411, launched by
+//                       _conv_dgrad :476)
+//
+// Channels-last activations [B, T, F, C = 64], weights [kt, kf, Cin, Cout],
+// time dilation dt, frequency dilation 1, odd kt <= 7, kf in {1, 3, 5}:
+//
+//   out[b, t, f, co] = round(sum_{i,j,c} x[b, t + i*dt - pad_t, f + j - pad_f, c] * W[i, j, c, co])
+//   conv_dgrad also  dbias[c] = sum_{b,t,f} x[b, t, f, c]   (x = d_raw, fp32)
+//
+// round() casts to the operand type (bf16 or fp32), every product
+// accumulates in fp32, a tap outside [0, T) x [0, F) contributes zero.  The
+// TPU's conv_pallas kernel rounds each frequency tap's partial sum; this one
+// sums every tap in fp32 and rounds once.  Not carried over: the TPU kernels'
+// K-fold / N-fold, frequency fold, lane padding and halo frames, which feed
+// a 128-wide matrix unit; here the halo is a copy of zero bytes.
+//
+// What bounds it on the card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16 dense),
+// each input byte read once and each output byte written once: a (5,5)
+// layer at [2, 301, 601, 64] is 74 GFLOP against 93 MB, bound by operations
+// (0.074 ms); the (7,1) layer (21 GFLOP) by bytes (0.028 ms).
+//
+// Design.  The first version (conv_tile of conv_tile.cuh, still the body of
+// conv_bn_act_fwd) gave each block two rows x 128 positions and, for each
+// time tap, staged the two input rows and that tap's weights through
+// registers between two barriers: nothing was in flight while the tensor
+// cores worked, and per launch it moved 5.5-7.5x the input and 87-309 MB of
+// weights from L2 in 5.7 waves of blocks.  This one:
+//
+//   One wave, balanced runs.  G = cudaOccupancyMaxActiveBlocksPerMultiprocessor
+//   x SMs blocks (one a SM: the ring below takes most of its shared memory),
+//   or the item count if smaller; block g takes the contiguous run of items
+//   [g N / G, (g+1) N / G), so no block runs alone after the wave.
+//
+//   Items.  An item is R output rows x TF frequency positions x 64 output
+//   channels (bf16: R = 4, TF = 128; fp32: R = 1, TF = 16, the tests'
+//   instantiation).  In a (b, frequency tile) column the rows come in
+//   residue-major order (t mod dt, then t) and an item takes R consecutive
+//   rows of one residue, t, t + dt, ...: it reads the R + kt - 1 input rows
+//   t + (p - centre) dt, p < R + kt - 1, and the next item of the residue
+//   shares kt - 1 of them.  Input rows therefore cross from L2 about once per
+//   column instead of once per time tap that reads them.
+//
+//   Steps and the ring.  An item takes one step per time tap i; a step
+//   multiplies input row u + i of the item into output row u.  The item's
+//   input rows (TF + kf - 1 positions with the frequency halo) live in a
+//   ring of S = R + kt - 1 row tiles in shared memory, numbered in load order
+//   (slot = number mod S).  Row m < R is read last by step m, so during step
+//   m + 1 the next item of the residue loads its new row m into that slot
+//   (cp.async, 16 bytes a thread, src-size 0 for the halo and for rows
+//   outside [0, T)): by the item's end every new row is in flight or landed.
+//   An item that starts a residue or a run loads all its rows and waits once.
+//   (A ring with room for the next item's rows as well, loaded at the item's
+//   first step, was as fast: 0.083 against 0.081 ms on (7,1) at B=2, 0.171
+//   against 0.168 on (5,5) d1; NVIDIA H100 80GB HBM3, 700 W.)
+//
+//   Weights.  kf = 1 (the (7,1) layer): all kt taps, 57,344 B in bf16, are
+//   loaded once per block and stay.  kf = 3, 5: all 25 taps of a (5,5)
+//   layer (204,800 B) do not fit beside the ring, and splitting the output
+//   channels would read every input row twice and halve the products each
+//   operand load feeds.  So a step's kf x 64 x 64 weights (40,960 B) are
+//   double-buffered, loaded during the step before, and each staged byte
+//   serves R x 128 positions.  bf16 (5,5): ring 135,168 B + weights 81,920 B;
+//   (7,1): 163,840 + 57,344 B.
+//
+//   Layout.  Tiles keep rows of 64 channels without padding; the 16-byte
+//   chunks of row p are permuted by chunk ^ (p & 7), wgmma's 128-byte
+//   swizzle, so that ldmatrix (eight consecutive rows at one logical chunk)
+//   reads eight bank groups and a weight tile is a wgmma B operand as it is.
+//
+//   Products.  bf16: wgmma.m64n64k16 (fp32 accumulate).  Warpgroup wg of the
+//   two computes output rows 2 wg, 2 wg + 1 of the item, each as two m64
+//   tiles of 64 positions x all 64 output channels.  A = the activations,
+//   from registers: ldmatrix at the frequency tap's row shift j (a register
+//   operand has no swizzle constraint, which a shift of j rows of 128 bytes
+//   would break in shared memory); B = the tap's weights, read by wgmma from
+//   shared memory (k rows, n contiguous: the transposed B).  A is double-
+//   buffered in registers, so the next tap row's ldmatrix overlaps the
+//   current products.  A warpgroup whose output rows lie past T, or whose
+//   input rows at this tap all lie outside [0, T), skips the step.  (With
+//   mma.sync.m16n8k16 and the same layout, 2 A- and 4 B-ldmatrix per 16
+//   products per warp bound it by shared-memory reads: 0.206 against 0.172
+//   ms on (5,5) d1 at B=2, 0.088 against 0.085 on (7,1); wgmma reads each B
+//   tile once per warpgroup.)  fp32: FMAs on CUDA cores (not TF32).
+//
+//   Epilogue.  From registers: each quad of lanes swaps its bf16 pairs so
+//   that a lane holds 8 consecutive channels, written 16 bytes a lane (fp32:
+//   4 channels, 16 bytes).  conv_dgrad sums each input element once, from
+//   the A registers of the centre tap (time and frequency) of the item whose
+//   output row is its row, per lane in fp32 over the run; the block adds its
+//   lanes and warps in a fixed order into one partial row and
+//   reduce_rows_kernel adds the rows in a fixed order, in double.  No float
+//   atomics: the same inputs give the same bits.
+
+#include "conv_tile.cuh"
+
+namespace {
+
+// The shape of an item, by operand type and frequency taps.
+template <typename T, int KF>
+struct FwdShape {
+  static constexpr bool kTensorCore = sizeof(T) == 2;
+  static constexpr int R = kTensorCore ? 4 : 1;      // output rows
+  static constexpr int TF = kTensorCore ? 128 : 16;  // frequency positions
+  static constexpr int kRowElems = (TF + KF - 1) * kC;
+};
+
+// ring tiles: an item's input rows
+template <typename T, int KF>
+__host__ __device__ constexpr int ring_slots(int kt) {
+  return FwdShape<T, KF>::R + kt - 1;
+}
+
+// Element (row, channel) of a [rows][64] tile whose 16-byte chunks are
+// permuted by chunk ^ (row & 7): the 128-byte swizzle of wgmma's shared-memory
+// layouts, and eight consecutive rows at one logical chunk (an ldmatrix
+// phase) fall in eight bank groups.
+template <typename T>
+__device__ __forceinline__ int swz(int row, int ch) {
+  constexpr int kVec = 16 / int(sizeof(T));
+  return row * kC + ((ch / kVec) ^ (row & 7)) * kVec + ch % kVec;
+}
+
+// Items of one launch; block g takes [g * items / blocks, (g+1) * items / blocks).
+struct FwdWork {
+  int T, F, kt, dt, n_ft, n_col, blocks;  // n_col: items of one (b, frequency tile)
+  long long items;
+};
+
+struct FwdItem {
+  int b, f0, r, q;  // output rows r + (q R + u) dt for u < R, positions [f0, f0 + TF)
+};
+
+template <typename T, int KF>
+__device__ __forceinline__ FwdItem decode_fwd(const FwdWork& w, long long item) {
+  constexpr int R = FwdShape<T, KF>::R;
+  const long long per_b = (long long)w.n_ft * w.n_col;
+  const int b = int(item / per_b);
+  const long long rem = item - (long long)b * per_b;
+  const int ft = int(rem / w.n_col);
+  int q = int(rem - (long long)ft * w.n_col), r = 0;
+  for (int len = (w.T + w.dt - 1) / w.dt; q >= (len + R - 1) / R; len = (w.T - r + w.dt - 1) / w.dt) {
+    q -= (len + R - 1) / R;  // the items of residue r
+    ++r;
+  }
+  return {b, ft * FwdShape<T, KF>::TF, r, q};
+}
+
+// wgmma's 128-byte swizzle needs tiles on 1024-byte boundaries
+constexpr int kSmemAlign = 1024;
+
+template <typename T, int KF>
+size_t fwd_smem_bytes(int kt) {
+  const size_t ring = size_t(ring_slots<T, KF>(kt)) * FwdShape<T, KF>::kRowElems;
+  const size_t weights = size_t(KF == 1 ? kt : 2 * KF) * kC * kC;
+  return (ring + weights) * sizeof(T) + kSmemAlign;
+}
+
+// Input row t, positions [f_lo, f_lo + TF + KF - 1), into a ring tile; zero
+// outside [0, T) x [0, F).
+template <typename T, int KF>
+__device__ __forceinline__ void load_row(T* dst, const T* __restrict__ x, const FwdWork& w, int b,
+                                         int t, int f_lo, int tid) {
+  constexpr int kVec = 16 / int(sizeof(T));
+  constexpr int kChunks = kC / kVec;
+  constexpr int kPos = FwdShape<T, KF>::TF + KF - 1;
+  const bool row_ok = t >= 0 && t < w.T;
+  const T* row = x + (size_t(b) * w.T + (row_ok ? t : 0)) * w.F * kC;
+  for (int e = tid; e < kPos * kChunks; e += kThreads) {
+    const int p = e / kChunks, c = (e % kChunks) * kVec, f = f_lo + p;
+    const bool ok = row_ok && f >= 0 && f < w.F;
+    cp_async16(dst + swz<T>(p, c), ok ? row + size_t(f) * kC + c : x, ok ? 16 : 0);
+  }
+}
+
+// `rows` rows of 64 weights ([tap][j][c] rows, co along the row).
+template <typename T>
+__device__ __forceinline__ void load_weights(T* dst, const T* __restrict__ src, int rows, int tid) {
+  constexpr int kVec = 16 / int(sizeof(T));
+  constexpr int kChunks = kC / kVec;
+  for (int e = tid; e < rows * kChunks; e += kThreads) {
+    const int r = e / kChunks, c = (e % kChunks) * kVec;
+    cp_async16(dst + swz<T>(r, c), src + size_t(r) * kC + c, 16);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ uint32_t sel4(uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, int i) {
+  return i == 0 ? a0 : i == 1 ? a1 : i == 2 ? a2 : a3;
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// Shared-memory descriptor of a 16 x 64 bf16 B operand (rows k, 64 n-values
+// of 128 bytes each, 128-byte swizzle, n contiguous: wgmma's transposed B).
+// The next 8 rows of k lie 1024 bytes on.
+__device__ __forceinline__ uint64_t b_desc(const void* smem) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1024 >> 4) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// D (64 x 64 fp32; this warp's 16 rows in the mma.sync accumulator layout)
+// = A (64 x 16 bf16 from registers, this warp's 16 rows) x B (smem) + D if
+// accumulate.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[8][4], const uint32_t (&a)[4], uint64_t desc,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
+        "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]),
+        "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate)
+      : "memory");
+}
+
+// grid (blocks); out [B, T, F, 64]; DGRAD: partials [blocks][64], the
+// block's share of the input's column sums.
+template <typename T, int KF, bool DGRAD>
+__device__ __forceinline__ void conv_fwd_body(const T* __restrict__ x, const T* __restrict__ wt,
+                                              T* __restrict__ out, float* __restrict__ partials,
+                                              const FwdWork& w) {
+  using Shape = FwdShape<T, KF>;
+  constexpr int R = Shape::R, TF = Shape::TF;
+  constexpr bool kTensorCore = Shape::kTensorCore;
+  constexpr int kRowElems = Shape::kRowElems;
+  constexpr int kTapElems = KF * kC * kC;
+  constexpr int pad_f = (KF - 1) / 2;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = blockIdx.x;
+  const long long it0 = (long long)g * w.items / w.blocks;
+  const int n = int((long long)(g + 1) * w.items / w.blocks - it0);
+  const int kt = w.kt, centre = (kt - 1) / 2, S = ring_slots<T, KF>(kt);
+  // a continuing item's new rows loaded during the previous item, one a step
+  // into a slot that step frees; the rest (R >= kt) at its start
+  const int early = min(R, kt - 1);
+
+  // KF = 1: [kt][64][64] weights for the whole run; else [2][KF][64][64], one
+  // buffer per step in turn.  Then the ring [S][TF + KF - 1][64].
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const w_s = reinterpret_cast<T*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + kSmemAlign - 1) & ~uintptr_t(kSmemAlign - 1));
+  T* const ring = w_s + (KF == 1 ? kt : 2) * kTapElems;
+
+  // bf16: warpgroup wg = warp / 4 computes output rows 2 wg and 2 wg + 1 of
+  // the item; this warp's tile q = 2 r + x holds row 2 wg + r and 16 positions
+  // from pos(x), its slice of the x-th 64-position half (wgmma's m64 tile)
+  const int u0 = kTensorCore ? 2 * (warp >> 2) : 0;
+  auto pos = [&](int x) { return 64 * x + 16 * (warp & 3); };
+  float acc[4][8][4] = {};  // written only by wgmma after this
+  // DGRAD: column sums of the input, bf16: channels 16 kk + 2 tig + {0, 1,
+  // 8, 9} of this lane's rows; fp32: one channel's share
+  float ds[4][4] = {};
+  float dsum = 0.0f;
+  float acc32[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // fp32: 4 output channels of one position
+
+  load_weights<T>(w_s, wt, (KF == 1 ? kt : 1) * KF * kC, tid);
+  cp_async_commit();
+
+  int base = 0;  // the current item's first ring row number (slot = number mod S)
+  int s = 0;     // steps so far: the weight buffer of a step is s & 1
+  for (int k = 0; k < n; ++k) {
+    const FwdItem it = decode_fwd<T, KF>(w, it0 + k);
+    auto row_of = [&](const FwdItem& m, int p) { return m.r + (m.q * R + p - centre) * w.dt; };
+    if (k > 0 && it.q > 0) {
+      base += R;  // rows m < early were issued during the previous item
+      if (early < R) {
+        __syncthreads();  // every thread is done with the previous item's rows
+        for (int m = early; m < R; ++m) {
+          load_row<T, KF>(ring + ((base + kt - 1 + m) % S) * kRowElems, x, w, it.b,
+                          row_of(it, kt - 1 + m), it.f0 - pad_f, tid);
+        }
+        cp_async_commit();
+      }
+    } else {
+      __syncthreads();  // every thread is done with the ring
+      base += S;
+      for (int p = 0; p < S; ++p) {
+        load_row<T, KF>(ring + ((base + p) % S) * kRowElems, x, w, it.b, row_of(it, p),
+                        it.f0 - pad_f, tid);
+      }
+      cp_async_commit();
+    }
+    const FwdItem nx = k + 1 < n ? decode_fwd<T, KF>(w, it0 + k + 1) : FwdItem{0, 0, 0, 0};
+    const bool next_continues = nx.q > 0;  // the next item of this residue, in this run
+    const int t_out0 = row_of(it, u0 + centre);  // the warp(group)'s first output row
+    bool first = true;  // the item's first product replaces the accumulators
+
+    for (int i = 0; i < kt; ++i, ++s) {
+      cp_async_wait<0>();  // this step's weights and rows have landed (this thread's copies)
+      __syncthreads();     // everyone's; everyone is done with the previous step
+      if (KF > 1 && (k + 1 < n || i + 1 < kt)) {
+        load_weights<T>(w_s + ((s + 1) & 1) * kTapElems, wt + size_t((i + 1) % kt) * kTapElems,
+                        KF * kC, tid);
+      }
+      if (next_continues && i >= 1 && i - 1 < early) {
+        // its new row m = i - 1, into the slot of this item's row m, which
+        // step m was the last to read
+        load_row<T, KF>(ring + ((base + S + i - 1) % S) * kRowElems, x, w, nx.b,
+                        row_of(nx, kt - 1 + i - 1), nx.f0 - pad_f, tid);
+      }
+      cp_async_commit();
+
+      const T* w_tap = w_s + (KF == 1 ? i : (s & 1)) * kTapElems;
+      if constexpr (kTensorCore) {
+        // skip a step whose input rows are all outside [0, T) (zeros) or
+        // whose output rows all are: uniform over the warpgroup
+        const int t_lo = row_of(it, u0 + i), t_hi = row_of(it, u0 + 1 + i);
+        if (t_out0 < w.T && t_hi >= 0 && t_lo < w.T) {
+          const T* rows[2] = {ring + ((base + u0 + i) % S) * kRowElems,
+                              ring + ((base + u0 + 1 + i) % S) * kRowElems};
+          const bool sums = DGRAD && i == centre;
+          uint32_t a[2][4][4];  // A of tiles q, double-buffered across products
+#pragma unroll
+          for (int jk = 0; jk < KF * (kC / 16); ++jk) {
+            const int j = jk / (kC / 16), kk = jk % (kC / 16);
+            uint32_t (&af)[4][4] = a[jk & 1];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              ldmatrix_x4(af[q], rows[q / 2] + swz<T>(pos(q % 2) + (lane & 15) + j, kk * 16 + (lane >> 4) * 8));
+            }
+            if (sums && j == pad_f) {  // every input element is the centre of one output row
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                const float2 r0 = unpack_bf16(af[q][0]), r1 = unpack_bf16(af[q][1]);
+                const float2 r2 = unpack_bf16(af[q][2]), r3 = unpack_bf16(af[q][3]);
+                ds[kk][0] += r0.x + r1.x;
+                ds[kk][1] += r0.y + r1.y;
+                ds[kk][2] += r2.x + r3.x;
+                ds[kk][3] += r2.y + r3.y;
+              }
+            }
+            const uint64_t desc = b_desc(w_tap + (j * kC + kk * 16) * kC);
+            wgmma_fence();
+#pragma unroll
+            for (int q = 0; q < 4; ++q) wgmma_m64n64k16(acc[q], af[q], desc, first ? 0 : 1);
+            wgmma_commit();
+            wgmma_wait<1>();  // the product before this one is done: its A registers are free
+            first = false;
+          }
+          wgmma_wait<0>();  // before the next barrier frees the weights
+        }
+      } else {
+        // one position, 4 output channels a thread
+        const int m = tid >> 4, n0 = (tid & 15) * 4;
+        const int t_in = row_of(it, i);
+        if (t_out0 < w.T && t_in >= 0 && t_in < w.T) {
+          const T* a_row = ring + ((base + i) % S) * kRowElems;
+          for (int j = 0; j < KF; ++j) {
+#pragma unroll 4
+            for (int c = 0; c < kC; ++c) {
+              const float av = to_float(a_row[swz<T>(m + j, c)]);
+              const T* wr = w_tap + swz<T>(j * kC + c, n0);
+#pragma unroll
+              for (int nn = 0; nn < 4; ++nn) acc32[nn] = fmaf(av, to_float(wr[nn]), acc32[nn]);
+            }
+          }
+        }
+        if (DGRAD && i == centre) {
+          // each input element once: the item's row is the centre row of its
+          // output row
+          const int c = tid & 63, part = tid >> 6;
+          for (int p = part * (TF / 4); p < (part + 1) * (TF / 4); ++p) {
+            dsum += to_float(ring[((base + centre) % S) * kRowElems + swz<T>(p + pad_f, c)]);
+          }
+        }
+      }
+    }
+
+    // epilogue: round once, write 16 bytes a lane
+    if constexpr (kTensorCore) {
+      if (t_out0 < w.T) {
+        const int gr = lane >> 2, tig = lane & 3, quad = lane & ~3;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int t = row_of(it, u0 + q / 2 + centre);
+          T* const out_row = out + (size_t(it.b) * w.T + (t < w.T ? t : 0)) * w.F * kC;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int f = it.f0 + pos(q % 2) + gr + 8 * h;
+            uint32_t wd[8];  // channels 8 nt + 2 tig + {0, 1} of this lane's position
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt) wd[nt] = pack_bf16(acc[q][nt][2 * h], acc[q][nt][2 * h + 1]);
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              // round rr: lane tig sends its pair of tile 4 half + (tig + rr) mod 4 and
+              // receives the pair of tile 4 half + tig from lane (tig - rr) mod 4
+              uint32_t rot[4];
+#pragma unroll
+              for (int rr = 0; rr < 4; ++rr) {
+                const uint32_t v = sel4(wd[4 * half], wd[4 * half + 1], wd[4 * half + 2],
+                                        wd[4 * half + 3], (tig + rr) & 3);
+                rot[rr] = __shfl_sync(0xffffffffu, v, quad | ((tig - rr) & 3));
+              }
+              uint4 v;  // pairs from lanes 0, 1, 2, 3 of the quad
+              v.x = sel4(rot[0], rot[1], rot[2], rot[3], tig);
+              v.y = sel4(rot[0], rot[1], rot[2], rot[3], (tig + 3) & 3);
+              v.z = sel4(rot[0], rot[1], rot[2], rot[3], (tig + 2) & 3);
+              v.w = sel4(rot[0], rot[1], rot[2], rot[3], (tig + 1) & 3);
+              if (t < w.T && f < w.F) {
+                *reinterpret_cast<uint4*>(out_row + size_t(f) * kC + (4 * half + tig) * 8) = v;
+              }
+            }
+          }
+        }
+      }
+    } else {
+      const int m = tid >> 4, n0 = (tid & 15) * 4;
+      if (t_out0 < w.T && it.f0 + m < w.F) {
+        *reinterpret_cast<float4*>(out + ((size_t(it.b) * w.T + t_out0) * w.F + it.f0 + m) * kC + n0) =
+            make_float4(acc32[0], acc32[1], acc32[2], acc32[3]);
+      }
+      acc32[0] = acc32[1] = acc32[2] = acc32[3] = 0.0f;
+    }
+  }
+
+  if constexpr (DGRAD) {
+    __shared__ float red_s[kThreads / 32][kC];  // [warp or part][channel]
+    if constexpr (kTensorCore) {
+      // over the 8 lanes of one tig, in a fixed order; lane tig of the
+      // warp's first 4 holds channels 16 kk + 2 tig + {0, 1, 8, 9}
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float v = ds[kk][e];
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          if (lane < 4) red_s[warp][16 * kk + 2 * lane + (e & 1) + 8 * (e >> 1)] = v;
+        }
+      }
+    } else {
+      red_s[tid >> 6][tid & 63] = dsum;
+    }
+    __syncthreads();
+    if (tid < kC) {
+      constexpr int kParts = kTensorCore ? kThreads / 32 : kThreads / kC;
+      float v = 0.0f;
+#pragma unroll
+      for (int p = 0; p < kParts; ++p) v += red_s[p][tid];
+      partials[size_t(g) * kC + tid] = v;
+    }
+  }
+}
+
+template <typename T, int KF>
+__global__ void __launch_bounds__(kThreads, 1)
+conv_dilated_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
+                        const FwdWork work) {
+  conv_fwd_body<T, KF, false>(x, w, out, nullptr, work);
+}
+
+template <typename T, int KF>
+__global__ void __launch_bounds__(kThreads, 1)
+conv_dgrad_kernel(const T* __restrict__ d_raw, const T* __restrict__ w, T* __restrict__ dx,
+                  float* __restrict__ partials, const FwdWork work) {
+  conv_fwd_body<T, KF, true>(d_raw, w, dx, partials, work);
+}
+
+template <typename T, int KF, bool DGRAD>
+auto fwd_kernel() {
+  if constexpr (DGRAD) {
+    return conv_dgrad_kernel<T, KF>;
+  } else {
+    return conv_dilated_fwd_kernel<T, KF>;
+  }
+}
+
+struct FwdPlan {
+  FwdWork work;
+  int blocks, resident, registers, local_bytes;
+  size_t smem, scratch;  // dynamic shared memory bytes; fp32 scratch elements
+};
+
+template <typename T, int KF, bool DGRAD>
+cudaError_t plan_kf(int B, int T_, int F, int kt, int dt, FwdPlan* p) {
+  constexpr int R = FwdShape<T, KF>::R, TF = FwdShape<T, KF>::TF;
+  p->smem = fwd_smem_bytes<T, KF>(kt);
+  // fails when the ring and the weights do not fit one block's shared memory
+  cudaError_t err = occupancy(fwd_kernel<T, KF, DGRAD>(), p->smem, &p->resident, &p->registers,
+                              &p->local_bytes);
+  if (err != cudaSuccess) return err;
+  FwdWork& w = p->work;
+  w.T = T_;
+  w.F = F;
+  w.kt = kt;
+  w.dt = dt;
+  w.n_ft = (F + TF - 1) / TF;
+  w.n_col = 0;
+  for (int r = 0; r < dt && r < T_; ++r) {
+    const int len = (T_ - r + dt - 1) / dt;
+    w.n_col += (len + R - 1) / R;
+  }
+  w.items = (long long)B * w.n_ft * w.n_col;
+  p->blocks = w.blocks = int(w.items < p->resident ? w.items : p->resident);
+  p->scratch = DGRAD ? size_t(w.blocks) * kC : 0;
+  return cudaSuccess;
+}
+
+template <typename T, bool DGRAD>
+cudaError_t plan(int B, int T_, int F, int kt, int kf, int dt, FwdPlan* p) {
+  if (bad_shape(B, T_, F, kt, kf, dt)) return cudaErrorInvalidValue;
+  switch (kf) {
+    case 1: return plan_kf<T, 1, DGRAD>(B, T_, F, kt, dt, p);
+    case 3: return plan_kf<T, 3, DGRAD>(B, T_, F, kt, dt, p);
+    case 5: return plan_kf<T, 5, DGRAD>(B, T_, F, kt, dt, p);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t launch_fwd(const void* x, const void* w, void* out, int B, int T_, int F, int kt, int kf,
+                       int dt, cudaStream_t stream) {
+  FwdPlan p;
+  cudaError_t err = plan<T, false>(B, T_, F, kt, kf, dt, &p);
+  if (err != cudaSuccess) return err;
+  const T* x_ = static_cast<const T*>(x);
+  const T* w_ = static_cast<const T*>(w);
+  T* o_ = static_cast<T*>(out);
+  switch (kf) {
+    case 1: conv_dilated_fwd_kernel<T, 1><<<p.blocks, kThreads, p.smem, stream>>>(x_, w_, o_, p.work); break;
+    case 3: conv_dilated_fwd_kernel<T, 3><<<p.blocks, kThreads, p.smem, stream>>>(x_, w_, o_, p.work); break;
+    default: conv_dilated_fwd_kernel<T, 5><<<p.blocks, kThreads, p.smem, stream>>>(x_, w_, o_, p.work); break;
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dgrad(const void* d_raw, const void* w, void* dx, void* dbias, void* scratch,
+                         int B, int T_, int F, int kt, int kf, int dt, cudaStream_t stream) {
+  FwdPlan p;
+  cudaError_t err = plan<T, true>(B, T_, F, kt, kf, dt, &p);
+  if (err != cudaSuccess) return err;
+  const T* d_ = static_cast<const T*>(d_raw);
+  const T* w_ = static_cast<const T*>(w);
+  T* o_ = static_cast<T*>(dx);
+  float* partials = static_cast<float*>(scratch);
+  switch (kf) {
+    case 1: conv_dgrad_kernel<T, 1><<<p.blocks, kThreads, p.smem, stream>>>(d_, w_, o_, partials, p.work); break;
+    case 3: conv_dgrad_kernel<T, 3><<<p.blocks, kThreads, p.smem, stream>>>(d_, w_, o_, partials, p.work); break;
+    default: conv_dgrad_kernel<T, 5><<<p.blocks, kThreads, p.smem, stream>>>(d_, w_, o_, partials, p.work); break;
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  reduce_rows_kernel<32><<<(kC + 31) / 32, dim3(32, 32), 0, stream>>>(partials, p.blocks, kC,
+                                                                       static_cast<float*>(dbias));
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C interface (loaded with ctypes).  Every function returns its
+// cudaError_t; 0 is success.  `bf16` selects bf16 activations and weights,
+// otherwise fp32; dbias and scratch are fp32.  Activations are [B, T, F, 64],
+// weights [kt, kf, 64, 64] (conv_dgrad: flipped and transposed by the
+// caller).  `scratch` holds conv_dgrad's per-block partial sums
+// (conv_fwd_launch_config gives its size).
+
+extern "C" int conv_dilated_fwd(const void* x, const void* w, void* out, int B, int T, int F,
+                                int kt, int kf, int dt, int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_fwd<__nv_bfloat16>(x, w, out, B, T, F, kt, kf, dt, s)
+              : launch_fwd<float>(x, w, out, B, T, F, kt, kf, dt, s);
+}
+
+extern "C" int conv_dgrad(const void* d_raw, const void* w_flipped, void* dx, void* dbias,
+                          void* scratch, int B, int T, int F, int kt, int kf, int dt, int bf16,
+                          void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_dgrad<__nv_bfloat16>(d_raw, w_flipped, dx, dbias, scratch, B, T, F, kt, kf,
+                                            dt, s)
+              : launch_dgrad<float>(d_raw, w_flipped, dx, dbias, scratch, B, T, F, kt, kf, dt, s);
+}
+
+// Launch shape of conv_dilated_fwd (dgrad 0) or conv_dgrad (dgrad 1) on the
+// current card: blocks (never more than `resident`, the blocks the card
+// holds at once), threads, dynamic shared memory, fp32 scratch elements,
+// registers a thread and local (spilled) bytes a thread.
+extern "C" int conv_fwd_launch_config(int B, int T, int F, int kt, int kf, int dt, int bf16,
+                                      int dgrad, int* blocks, int* threads, long long* smem,
+                                      long long* scratch, int* resident, int* registers,
+                                      int* local_bytes) {
+  FwdPlan p;
+  cudaError_t err = bf16 ? (dgrad ? plan<__nv_bfloat16, true>(B, T, F, kt, kf, dt, &p)
+                                  : plan<__nv_bfloat16, false>(B, T, F, kt, kf, dt, &p))
+                         : (dgrad ? plan<float, true>(B, T, F, kt, kf, dt, &p)
+                                  : plan<float, false>(B, T, F, kt, kf, dt, &p));
+  if (err != cudaSuccess) return err;
+  *blocks = p.blocks;
+  *threads = kThreads;
+  *smem = static_cast<long long>(p.smem);
+  *scratch = static_cast<long long>(p.scratch);
+  *resident = p.resident;
+  *registers = p.registers;
+  *local_bytes = p.local_bytes;
+  return cudaSuccess;
+}

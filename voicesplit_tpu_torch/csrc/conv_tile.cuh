@@ -1,18 +1,18 @@
 // The "same" time-dilated conv over channels-last [B, T, F, 64] activations:
-// the block-level body conv_tile that conv_fused.cu and conv_dilated.cu share
-// (two time rows x 128 frequency positions x 64 output channels per block:
-// the forward conv, optionally with the fused chain's prologue, bias and
-// output statistics, and, with tap-flipped, channel-transposed weights, the
-// data gradient), and the helpers that conv_wgrad.cu's weight gradient
-// shares with it (operand types, the prologue's activation, ldmatrix,
-// mma.sync, launch-shape checks).
+// the block-level body conv_tile of the fused chain's forward kernel
+// conv_bn_act_fwd (conv_fused.cu: two time rows x 128 frequency positions x
+// 64 output channels per block, with the chain's prologue, bias and output
+// statistics), and the helpers that the other conv kernels share with it
+// (operand types, the prologue's activation, ldmatrix, mma.sync, cp.async,
+// occupancy, launch-shape checks, the fixed-order reduction).
 //
 // Each .cu that includes this file is compiled on its own and defines its
 // own __global__ kernels; everything here has internal linkage.  conv_tile's
 // design (mma.sync.m16n8k16 for bf16, FMAs for fp32, padded shared-memory
 // rows for ldmatrix, predicated halo loads, cross-block sums by
 // reduce_rows_kernel in a fixed order) is described at the top of
-// conv_fused.cu; the weight gradient's at the top of conv_wgrad.cu.
+// conv_fused.cu; the forward / data-gradient kernels' at the top of
+// conv_fwd.cu; the weight gradient's at the top of conv_wgrad.cu.
 
 #pragma once
 
@@ -161,6 +161,18 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 
 __host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
+// 16 bytes global -> shared, asynchronous; src_bytes 0 writes zeros and reads
+// nothing (the halo).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // Forward and data gradient: one tile kernel body
 // ---------------------------------------------------------------------------
@@ -183,15 +195,9 @@ __host__ __device__ constexpr size_t tile_smem_bytes(int kf) {
   return operands > epilogue ? operands : epilogue;
 }
 
-// kTileFwd:   conv_bn_act_fwd (prologue, bias, statistics of the output).
-// kTileDgrad: conv_dgrad (no prologue, no bias, column sums of the input).
-// kTilePlain: the conv alone (no prologue, no bias, no sums; `bias`, `scal`
-//             and `partials` are not read or written).
-// partials[block][128]: forward {sum[64], sum of squares[64]}, dgrad
-// {dbias[64], 0[64]}.
-enum TileMode : int { kTileFwd = 0, kTileDgrad = 1, kTilePlain = 2 };
-
-template <typename T, int MODE>
+// conv_bn_act_fwd: the prologue, bias and the statistics of the output;
+// partials[block][128] = {sum[64], sum of squares[64]}.
+template <typename T>
 __device__ __forceinline__ void conv_tile(const T* __restrict__ x, const T* __restrict__ w,
                                           const float* __restrict__ bias,
                                           const float* __restrict__ scal, T* __restrict__ out,
@@ -199,8 +205,6 @@ __device__ __forceinline__ void conv_tile(const T* __restrict__ x, const T* __re
                                           int kf, int dt, int act) {
   constexpr int LD = Ld<T>::value;
   constexpr bool kTensorCore = sizeof(T) == 2;
-  constexpr bool DGRAD = MODE == kTileDgrad;
-  constexpr bool FWD = MODE == kTileFwd;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int n_ft = (F + kTileF - 1) / kTileF;
@@ -220,9 +224,9 @@ __device__ __forceinline__ void conv_tile(const T* __restrict__ x, const T* __re
   __shared__ float inv_s[kC], shift_s[kC], bias_s[kC];
 
   if (tid < kC) {
-    inv_s[tid] = (FWD && act != kNone) ? scal[tid] : 0.0f;
-    shift_s[tid] = (FWD && act != kNone) ? scal[kC + tid] : 0.0f;
-    bias_s[tid] = FWD ? bias[tid] : 0.0f;
+    inv_s[tid] = act != kNone ? scal[tid] : 0.0f;
+    shift_s[tid] = act != kNone ? scal[kC + tid] : 0.0f;
+    bias_s[tid] = bias[tid];
   }
   __syncthreads();
 
@@ -230,11 +234,9 @@ __device__ __forceinline__ void conv_tile(const T* __restrict__ x, const T* __re
   float acc[16][4];
 #pragma unroll
   for (int k = 0; k < 16; ++k) acc[k][0] = acc[k][1] = acc[k][2] = acc[k][3] = 0.0f;
-  float dsum = 0.0f;  // dgrad: this thread's share of a column sum of the input
 
   const int tr = warp >> 2;          // which of the two time rows this warp works on
   const int m0 = (warp & 3) * 32;    // its 32 positions
-  const int i_center = (kt - 1) / 2;
 
   for (int i = 0; i < kt; ++i) {
     const T* rows[kRows];
@@ -256,15 +258,6 @@ __device__ __forceinline__ void conv_tile(const T* __restrict__ x, const T* __re
     }
     stage_dense<T>(w_s, w + size_t(i) * kf * kC * kC, kf * kC, tid);
     __syncthreads();
-
-    if (DGRAD && i == i_center) {
-      // dbias: every input element lies in the centre of exactly one tile
-      const int r = tid >> 7, c = tid & 63, half = (tid >> 6) & 1;
-      if ((r ? rows[1] : rows[0]) != nullptr) {
-        const T* col = a_s + (size_t(r) * a_rows + pad_f + half * 64) * LD + c;
-        for (int m = 0; m < 64; ++m) dsum += to_float(col[size_t(m) * LD]);
-      }
-    }
 
     if ((tr ? rows[1] : rows[0]) != nullptr) {  // the same for every thread of the warp
       const T* a_row = a_s + size_t(tr) * a_rows * LD;
@@ -353,28 +346,16 @@ __device__ __forceinline__ void conv_tile(const T* __restrict__ x, const T* __re
       store8(out + ((size_t(b) * T_ + t) * F + f) * kC + c8, v);
     }
   }
-  if constexpr (MODE == kTilePlain) {
-    return;
-  } else if constexpr (DGRAD) {
-    red_s[tid] = dsum;  // [row r][half][c]
-    __syncthreads();
-    if (tid < 2 * kC) {
-      float v = 0.0f;
-      if (tid < kC) v = (red_s[tid] + red_s[kC + tid]) + (red_s[2 * kC + tid] + red_s[3 * kC + tid]);
-      partials[size_t(blockIdx.x) * 2 * kC + tid] = v;
-    }
-  } else {
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      red_s[(tid >> 3) * 2 * kC + c8 + k] = s[k];
-      red_s[(tid >> 3) * 2 * kC + kC + c8 + k] = q[k];
-    }
-    __syncthreads();
-    if (tid < 2 * kC) {
-      float v = 0.0f;
-      for (int r = 0; r < kThreads / 8; ++r) v += red_s[r * 2 * kC + tid];
-      partials[size_t(blockIdx.x) * 2 * kC + tid] = v;
-    }
+  for (int k = 0; k < 8; ++k) {
+    red_s[(tid >> 3) * 2 * kC + c8 + k] = s[k];
+    red_s[(tid >> 3) * 2 * kC + kC + c8 + k] = q[k];
+  }
+  __syncthreads();
+  if (tid < 2 * kC) {
+    float v = 0.0f;
+    for (int r = 0; r < kThreads / 8; ++r) v += red_s[r * 2 * kC + tid];
+    partials[size_t(blockIdx.x) * 2 * kC + tid] = v;
   }
 }
 
@@ -409,6 +390,31 @@ cudaError_t sm_count(int* sms) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+// Blocks of `kernel` (kThreads threads, `smem` bytes of dynamic shared memory)
+// that the card holds at once, and its registers and local (spilled) bytes a
+// thread.  Sets the kernel's shared-memory limit, which a launch needs.
+template <typename K>
+cudaError_t occupancy(K kernel, size_t smem, int* resident, int* registers, int* local_bytes) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  *resident = per_sm * sms;
+  *registers = attr.numRegs;
+  *local_bytes = int(attr.localSizeBytes);
+  return cudaSuccess;
 }
 
 bool bad_shape(int B, int T_, int F, int kt, int kf, int dt) {

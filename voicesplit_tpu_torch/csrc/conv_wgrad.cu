@@ -110,16 +110,6 @@ __device__ __forceinline__ Item decode(const WgradWork& w, long long item) {
   return {i, row / w.n_rows[i], w.t_lo[i] + row % w.n_rows[i], int(l - (long long)row * w.n_ft) * kTileF};
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 template <typename T, int KF>
 __host__ __device__ constexpr size_t wgrad_y_bytes() {
   return align16(size_t(kTileF + KF - 1) * Ld<T>::value * sizeof(T));
@@ -520,24 +510,7 @@ struct WgradPlan {
 template <typename K>
 cudaError_t occupancy(K kernel, size_t smem, WgradPlan* p) {
   p->smem = smem;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return err;
-  int per_sm = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  err = sm_count(&sms);
-  if (err != cudaSuccess) return err;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  p->resident = per_sm * sms;
-  p->registers = attr.numRegs;
-  p->local_bytes = int(attr.localSizeBytes);
-  return cudaSuccess;
+  return occupancy(kernel, smem, &p->resident, &p->registers, &p->local_bytes);
 }
 
 template <typename T, int KF>

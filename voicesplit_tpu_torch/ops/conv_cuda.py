@@ -1,7 +1,7 @@
 """Time-dilated "same" 2-D convolution as two CUDA kernels
-(`csrc/conv_dilated.cu`), their plain PyTorch versions, the differentiable
-conv built on them and the routing condition that the mask network asks
-(counterpart of `voicesplit_tpu/ops/conv_pallas.py`).
+(`csrc/conv_fwd.cu`, `csrc/conv_wgrad.cu`), their plain PyTorch versions,
+the differentiable conv built on them and the routing condition that the
+mask network asks (counterpart of `voicesplit_tpu/ops/conv_pallas.py`).
 
 Opt-in with ``VOICESPLIT_PALLAS_CONV=1`` (the JAX package's variable): the
 heavy conv layers of the mask network, a (7,1) layer and five (5,5) layers
@@ -14,7 +14,8 @@ Kernels (each beside its plain version ``*_ref``):
 - ``conv_dilated_fwd`` replaces `_fwd_kernel` (`conv_pallas.py:95`): the
   "same" conv without bias; with tap-flipped, channel-transposed weights
   (`flip_weight`) the same kernel is the data gradient, as in
-  `_vjp_bwd` (`:371-378`);
+  `_vjp_bwd` (`:371-378`); its kernel body also serves the fused chain's
+  `conv_fused.conv_dgrad`;
 - ``conv_dilated_wgrad`` replaces `_wgrad_kernel` (`:234`): the fp32 weight
   gradient ``[kt, kf, Cin, Cout]``, by the kernel of `csrc/conv_wgrad.cu`
   that the fused chain's `conv_wgrad` also launches after its prologue pass.
@@ -34,8 +35,9 @@ tolerance and reports the difference), in fp32 by summation order only.
 
 Dispatch: a CUDA tensor goes to the kernel, or the call raises; the plain
 versions run only for tensors on the CPU.  Each kernel launch adds one to
-``LAUNCHES[name]``.  The kernels take 64 channels in and out and bf16 or
-fp32 operands (fp32 products on CUDA cores, not TF32).
+``LAUNCHES[name]``.  The kernels take 64 channels in and out, bf16 or fp32
+operands (fp32 products on CUDA cores, not TF32) and kf in (1, 3, 5), the
+forward at most `conv_fused.FWD_KERNEL_MAX_KT` time taps.
 """
 
 from __future__ import annotations
@@ -47,7 +49,9 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from voicesplit_tpu_torch.ops import _build
-from voicesplit_tpu_torch.ops.conv_fused import KERNEL_CHANNELS, _padded, launch_wgrad_kernel
+from voicesplit_tpu_torch.ops.conv_fused import (
+    KERNEL_CHANNELS, _padded, check_fwd_kernel_takes, launch_wgrad_kernel,
+)
 
 # kernel launches per wrapper, for showing that a run went through them
 LAUNCHES = {"conv_dilated_fwd": 0, "conv_dilated_wgrad": 0}
@@ -157,10 +161,12 @@ def _check_kernel_takes(cin: int, cout: int, kt: int, kf: int, wgrad: bool) -> N
         raise NotImplementedError(
             f"the CUDA kernels take {KERNEL_CHANNELS} channels in and out, got {cin} and {cout}"
         )
-    if kt > _MAX_TAPS or kf > _MAX_TAPS or (wgrad and kf not in _WGRAD_KF):
+    if not wgrad:
+        check_fwd_kernel_takes(kt, kf)
+    elif kt > _MAX_TAPS or kf not in _WGRAD_KF:
         raise NotImplementedError(
-            f"the CUDA kernels take at most {_MAX_TAPS} taps (weight gradient: kf in "
-            f"{_WGRAD_KF}), got ({kt}, {kf})"
+            f"the weight-gradient kernel takes at most {_MAX_TAPS} time taps and kf in "
+            f"{_WGRAD_KF}, got ({kt}, {kf})"
         )
 
 

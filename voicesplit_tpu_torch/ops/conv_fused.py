@@ -1,6 +1,7 @@
-"""Fused train-mode conv chain: three CUDA kernels (`csrc/conv_fused.cu`),
-their plain PyTorch versions, and the chain with its hand-written backward
-(counterpart of `voicesplit_tpu/ops/conv_fused.py`).
+"""Fused train-mode conv chain: three CUDA kernels (`csrc/conv_fused.cu`,
+`csrc/conv_fwd.cu`, `csrc/conv_wgrad.cu`), their plain PyTorch versions,
+and the chain with its hand-written backward (counterpart of
+`voicesplit_tpu/ops/conv_fused.py`).
 
 The chain runs the heavy conv stack of the mask network (a (7,1) layer and
 five (5,5) layers with time dilation 1..16) so that the BatchNorm affine and
@@ -16,7 +17,8 @@ Kernels (each beside its plain version ``*_ref``):
   sum of squares of the rounded ``raw``;
 - ``conv_dgrad`` replaces `_dgrad_kernel` (`:411`): the "same" conv of
   ``d_raw`` with tap-flipped, channel-transposed weights, and
-  ``dbias = Σ d_raw`` per channel;
+  ``dbias = Σ d_raw`` per channel, by the kernel body of `csrc/conv_fwd.cu`
+  that `conv_cuda.conv_dilated_fwd` also launches;
 - ``conv_wgrad`` replaces `_wgrad_kernel` (`:524`): the fp32 weight gradient,
   its input recomputed from the raw tensor by the same prologue: a
   prologue pass writes the activated input once into a scratch tensor
@@ -38,7 +40,7 @@ Dispatch: a CUDA tensor goes to the kernel, or the call raises; the plain
 versions run only for tensors on the CPU.  Each kernel launch adds one to
 ``LAUNCHES[name]``.  The kernels take C = 64 channels, odd kernel sizes,
 frequency dilation 1, and bf16 or fp32 operands (fp32 products on CUDA
-cores, not TF32).
+cores, not TF32); `conv_dgrad` the taps of `FWD_KERNEL_MAX_KT`.
 """
 
 from __future__ import annotations
@@ -57,6 +59,10 @@ from voicesplit_tpu_torch.ops import _build
 LAUNCHES = {"conv_bn_act_fwd": 0, "conv_dgrad": 0, "conv_wgrad": 0, "conv_wgrad_prologue": 0}
 
 KERNEL_CHANNELS = 64  # the CUDA kernels' channel count, in and out
+# time taps the forward / data-gradient kernels (`csrc/conv_fwd.cu`) take, by
+# frequency taps: an item's input rows in flight and the weights must fit one
+# block's shared memory
+FWD_KERNEL_MAX_KT = {1: 7, 3: 7, 5: 5}
 _ACT_CODE = {None: 0, "mish": 1, "relu": 2}
 
 # rows of the per-channel scalar table (fp32 [8, C])
@@ -86,6 +92,7 @@ def _library() -> ctypes.CDLL:
             "conv_wgrad": [p] * 4 + [i] * 7 + [p],
             "conv_wgrad_prologue": [p] * 3 + [i] * 5 + [p],
             "conv_fused_launch_config": [i] * 6 + [ip, ip, lp, lp],
+            "conv_fwd_launch_config": [i] * 8 + [ip, ip, lp, lp, ip, ip, ip],
             "conv_wgrad_launch_config": [i] * 7 + [ip, ip, lp, lp, ip, ip, ip],
         })
         _declared = True
@@ -93,10 +100,9 @@ def _library() -> ctypes.CDLL:
 
 
 def launch_config(shape: Sequence[int], kt: int, kf: int, dtype: torch.dtype) -> dict:
-    """Grid of the tile kernels (`conv_bn_act_fwd`, `conv_dgrad` and
-    `conv_cuda.conv_dilated_fwd`) for activations of `shape` ``[B, T, F,
+    """Grid of `conv_bn_act_fwd` for activations of `shape` ``[B, T, F,
     C]``: blocks, threads, dynamic shared memory bytes and the fp32 scratch
-    elements of the first two's cross-block sums."""
+    elements of its cross-block sums."""
     B, T, F_, _ = shape
     blocks, threads = ctypes.c_int(), ctypes.c_int()
     smem, scratch = ctypes.c_longlong(), ctypes.c_longlong()
@@ -109,6 +115,27 @@ def launch_config(shape: Sequence[int], kt: int, kf: int, dtype: torch.dtype) ->
             "scratch_floats": scratch.value}
 
 
+def fwd_launch_config(shape: Sequence[int], kt: int, kf: int, dt: int, dtype: torch.dtype,
+                      dgrad: bool) -> dict:
+    """Grid of the forward / data-gradient kernel (`conv_dgrad` with
+    ``dgrad``, else `conv_cuda.conv_dilated_fwd`) on the current card; the
+    keys of `wgrad_launch_config`, the scratch being `conv_dgrad`'s per-block
+    partial sums."""
+    B, T, F_, _ = shape
+    args = (B, T, F_, kt, kf, dt, int(dtype == torch.bfloat16), int(dgrad))
+    return dict(_one_wave_config("conv_fwd_launch_config", args, torch.cuda.current_device()))
+
+
+def check_fwd_kernel_takes(kt: int, kf: int) -> None:
+    """What the forward / data-gradient kernel is built for; anything else
+    raises on the card (it never goes to the library conv)."""
+    if kt > FWD_KERNEL_MAX_KT.get(kf, 0):
+        raise NotImplementedError(
+            f"the forward / data-gradient kernel takes at most {FWD_KERNEL_MAX_KT} time taps "
+            f"by frequency taps, got ({kt}, {kf})"
+        )
+
+
 def wgrad_launch_config(shape: Sequence[int], kt: int, kf: int, dt: int, dtype: torch.dtype) -> dict:
     """Grid of the weight-gradient kernel (`conv_wgrad`,
     `conv_cuda.conv_dilated_wgrad`) on the current card: blocks (one wave:
@@ -116,21 +143,21 @@ def wgrad_launch_config(shape: Sequence[int], kt: int, kf: int, dt: int, dtype: 
     threads, dynamic shared memory bytes, the fp32 scratch elements of its
     per-block partials, and its registers and local (spilled) bytes a
     thread."""
-    return dict(_wgrad_launch_config(tuple(shape), kt, kf, dt, dtype, torch.cuda.current_device()))
+    B, T, F_, _ = shape
+    args = (B, T, F_, kt, kf, dt, int(dtype == torch.bfloat16))
+    return dict(_one_wave_config("conv_wgrad_launch_config", args, torch.cuda.current_device()))
 
 
 @functools.lru_cache(maxsize=None)
-def _wgrad_launch_config(shape, kt, kf, dt, dtype, device_index):
+def _one_wave_config(entry: str, args: tuple, device_index: int) -> dict:
     del device_index  # part of the key: the grid follows the card's SM count
-    B, T, F_, _ = shape
     blocks, threads, resident, regs, local = (ctypes.c_int() for _ in range(5))
     smem, scratch = ctypes.c_longlong(), ctypes.c_longlong()
-    err = _library().conv_wgrad_launch_config(
-        B, T, F_, kt, kf, dt, int(dtype == torch.bfloat16), ctypes.byref(blocks),
-        ctypes.byref(threads), ctypes.byref(smem), ctypes.byref(scratch), ctypes.byref(resident),
-        ctypes.byref(regs), ctypes.byref(local),
+    err = getattr(_library(), entry)(
+        *args, ctypes.byref(blocks), ctypes.byref(threads), ctypes.byref(smem),
+        ctypes.byref(scratch), ctypes.byref(resident), ctypes.byref(regs), ctypes.byref(local),
     )
-    _build.raise_on(err, "conv_wgrad_launch_config")
+    _build.raise_on(err, entry)
     return {"blocks": blocks.value, "threads": threads.value, "smem_bytes": smem.value,
             "scratch_floats": scratch.value, "resident_blocks": resident.value,
             "registers": regs.value, "local_bytes": local.value}
@@ -340,11 +367,13 @@ def _launch_conv_bn_act_fwd(x, w, bias, scal, dt, act, prologue):
 def _launch_conv_dgrad(d_raw, w_flipped, dt):
     B, T, F_, C = d_raw.shape
     kt, kf = w_flipped.shape[:2]
+    check_fwd_kernel_takes(kt, kf)
     dx = torch.empty_like(d_raw)
     dbias = torch.empty(C, dtype=torch.float32, device=d_raw.device)
-    scratch = _scratch(d_raw, kt, kf)
     lib = _library()
     with torch.cuda.device(d_raw.device):
+        n = fwd_launch_config(d_raw.shape, kt, kf, dt, d_raw.dtype, dgrad=True)["scratch_floats"]
+        scratch = torch.empty(n, dtype=torch.float32, device=d_raw.device)  # per-block partials
         err = lib.conv_dgrad(
             d_raw.data_ptr(), w_flipped.data_ptr(), dx.data_ptr(), dbias.data_ptr(),
             scratch.data_ptr(), B, T, F_, kt, kf, dt,

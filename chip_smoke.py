@@ -10,10 +10,11 @@ Phases, each printing one JSON line:
 2. build    — compiles every `voicesplit_tpu_torch/csrc/*.cu` with nvcc for
    sm_90a into ``build/`` (one nvcc per source, all at once) and prints
    ``ptxas -v`` (registers, shared memory, spills) and each kernel's grid;
-   the forward / data-gradient kernel's and the weight-gradient kernel's per
-   layer and batch (B=1, 2, 8; fp32 at the reduced shape) beside the blocks
-   the card holds at once (a launch with more fails the phase), their
-   registers and spilled bytes.
+   the conv kernels' (the forward / data-gradient kernel body in its three
+   modes, the weight-gradient kernel) per layer and batch (B=1, 2, 8; fp32
+   at the reduced shape) beside the blocks the card holds at once, their
+   registers and spilled bytes (more blocks than resident, or any spilled
+   byte, fails the phase).
 3. kernels  — at H=400, T=301 holds each kernel against its plain PyTorch
    version on the card, in bf16 and fp32 operands: ``lstm_fwd`` (B=1,
    random h0/c0; hs, cs, gates, final (h, c)), ``bilstm_fwd`` (B=8),
@@ -56,12 +57,12 @@ Phases, each printing one JSON line:
    kernel per layer kind at B=2 and B=8 beside its plain version, its bound
    and a library yardstick that the port never calls (cuDNN ``conv2d`` plus
    the eager BatchNorm + activation pass; ``aten.convolution_backward``) at
-   all six layers (``conv_wgrad`` with its prologue pass inside its time,
-   and the pass on its own), with each kernel's sum over them per train
-   step.
+   all six layers (``conv_bn_act_fwd`` and ``conv_wgrad`` with their
+   prologue pass inside their time, and the pass on its own), with each
+   kernel's sum over them per train step.
 7. train fused — the train phase again with ``VOICESPLIT_FUSED_CHAIN=1``
    (conv2 … conv7 through the chain's kernels): exact launches per step
-   (6 + 6 + 6 conv kernels and 5 prologue passes beside the LSTM's), the same step again
+   (6 + 6 + 6 conv kernels and 10 prologue passes beside the LSTM's), the same step again
    (reports whether it gave the same bits), through the plain versions on
    the card and with the chain off, 20 timed steps.
 
@@ -165,8 +166,9 @@ CONV_SHAPE_FP32 = (1, 40, 150, 64)  # reduced: the fp32 kernels are the tests' i
 CONV_LAYERS = {"7x1": ((7, 1), 1), "5x5-d1": ((5, 5), 1), "5x5-d2": ((5, 5), 2),
                "5x5-d4": ((5, 5), 4), "5x5-d8": ((5, 5), 8), "5x5-d16": ((5, 5), 16)}
 CONV_KERNELS = ("conv_bn_act_fwd", "conv_dgrad", "conv_wgrad")
-# per train step; the prologue pass of conv_wgrad runs for conv3 … conv7
-CONV_LAUNCHES = {"conv_bn_act_fwd": 6, "conv_dgrad": 6, "conv_wgrad": 6, "conv_wgrad_prologue": 5}
+# per train step; the prologue pass runs for conv3 … conv7 twice, before
+# conv_bn_act_fwd and before conv_wgrad
+CONV_LAUNCHES = {"conv_bn_act_fwd": 6, "conv_dgrad": 6, "conv_wgrad": 6, "conv_wgrad_prologue": 10}
 # fused step, kernels vs the plain versions on the card (same arithmetic).
 # The BatchNorm backward between two convs works in bf16, as in the JAX
 # package: its per-channel constants (mean, r, mean dz, mean dz·x̂) are
@@ -241,7 +243,7 @@ SOURCES = {
     "bilstm_fwd": "voicesplit_tpu_torch/csrc/lstm_fwd.cu",
     "lstm_bwd": "voicesplit_tpu_torch/csrc/lstm_bwd.cu",
     "bilstm_bwd": "voicesplit_tpu_torch/csrc/lstm_bwd.cu",
-    "conv_bn_act_fwd": "voicesplit_tpu_torch/csrc/conv_fused.cu",
+    "conv_bn_act_fwd": "voicesplit_tpu_torch/csrc/conv_fwd.cu",
     "conv_dgrad": "voicesplit_tpu_torch/csrc/conv_fwd.cu",
     "conv_wgrad": "voicesplit_tpu_torch/csrc/conv_wgrad.cu",
     "conv_dilated_fwd": "voicesplit_tpu_torch/csrc/conv_fwd.cu",
@@ -363,27 +365,27 @@ def phase_build(torch, lstm_cuda, conv_fused) -> None:
         )
         for dt in ("bfloat16", "float32")
     }
-    # conv_dilated_fwd and conv_dgrad share the forward kernel body,
-    # conv_wgrad and conv_dilated_wgrad the weight-gradient kernel: each a
-    # whole wave at most, at the paths' batches (B=1: serving with the
-    # dilated switch) and in fp32 at the reduced shape
+    # conv_dilated_fwd, conv_dgrad and conv_bn_act_fwd share the forward
+    # kernel body, conv_wgrad and conv_dilated_wgrad the weight-gradient
+    # kernel: each a whole wave at most and no spilled byte, at the paths'
+    # batches (B=1: serving with the dilated switch) and in fp32 at the
+    # reduced shape
     configs = {
         "conv_dilated_fwd": lambda *a: conv_fused.fwd_launch_config(*a, dgrad=False),
         "conv_dgrad": lambda *a: conv_fused.fwd_launch_config(*a, dgrad=True),
+        "conv_bn_act_fwd": conv_fused.launch_config,
         "conv_wgrad": conv_fused.wgrad_launch_config,
     }
     cases = [(name, f"B{b}", (b, *CONV_SHAPE[1:]), torch.bfloat16) for name in configs for b in (2, 8)]
     cases += [("conv_dilated_fwd", "B1", (1, *CONV_SHAPE[1:]), torch.bfloat16)]
     cases += [(name, "reduced_float32", CONV_SHAPE_FP32, torch.float32) for name in configs]
     for layer, ((kt, kf), dt) in CONV_LAYERS.items():
-        for b in (2, 8):
-            grids[f"conv_bn_act_fwd_{layer}_B{b}"] = conv_fused.launch_config(
-                (b, *CONV_SHAPE[1:]), kt, kf, torch.bfloat16)
         for name, tag, shape, dtype in cases:
             key = f"{name}_{layer}_{tag}"
             gr = grids[key] = configs[name](shape, kt, kf, dt, dtype)
             check(gr["blocks"] <= gr["resident_blocks"],
                   f"{key}: {gr['blocks']} blocks > {gr['resident_blocks']} resident")
+            check(gr["local_bytes"] == 0, f"{key}: {gr['local_bytes']} local (spilled) bytes a thread")
     emit("build", library=str(lib.relative_to(ROOT)), seconds=seconds,
          ptxas_lstm=ptxas_summary(log, "lstm"), ptxas_conv=ptxas_summary(log, "conv"),
          grids=grids)
@@ -879,7 +881,8 @@ def phase_conv_kernels(torch, cf, cc, seed: int) -> dict:
          cudnn_fp32_wgrad_vs_plain_peak_rel=library_fp32_wgrad_err)
 
     # times: bf16, the chain's prologue (mish) on, per layer kind and batch;
-    # conv_wgrad's time holds its prologue pass, also timed on its own
+    # the times of conv_bn_act_fwd and conv_wgrad hold their prologue pass,
+    # also timed on its own
     timing = {name: {} for name in CONV_KERNELS}
     for b in (2, 8):
         shape = (b, *CONV_SHAPE[1:])
@@ -893,14 +896,16 @@ def phase_conv_kernels(torch, cf, cc, seed: int) -> dict:
             pad = ((kt - 1) * dt // 2, (kf - 1) // 2)
             # library yardsticks (never called by the port): cuDNN convs on
             # channels-last bf16 views; for the forward also the eager
-            # BatchNorm + activation pass the prologue replaces
+            # BatchNorm + activation pass the prologue replaces and the
+            # batch statistics (`torch.var_mean`)
             x_nchw, d_nchw = x.permute(0, 3, 1, 2), d.permute(0, 3, 1, 2)
             w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
             cbias = bias.to(torch.bfloat16)
 
             def lib_fwd():
                 y = bn_act.bn_act_eval(x_nchw, bn[2], bn[3], bn[0], bn[1], act) if on else x_nchw
-                return F.conv2d(y, w_oihw, cbias, padding=pad, dilation=(dt, 1))
+                raw = F.conv2d(y, w_oihw, cbias, padding=pad, dilation=(dt, 1))
+                return raw, torch.var_mean(raw, dim=(0, 2, 3), correction=0)
 
             def lib_bwd(mask):
                 return torch.ops.aten.convolution_backward(
@@ -926,12 +931,15 @@ def phase_conv_kernels(torch, cf, cc, seed: int) -> dict:
                         **bound,
                     }
                 if on:
-                    timing["conv_wgrad"][f"B{b}/{layer}"]["prologue_pass_ms"] = time_ms(
-                        torch, lambda: cf.conv_wgrad_prologue(x, scal, act), iters=iters, warmup=1)
+                    pass_ms = time_ms(torch, lambda: cf.conv_wgrad_prologue(x, scal, act),
+                                      iters=iters, warmup=1)
+                    for name in ("conv_bn_act_fwd", "conv_wgrad"):
+                        timing[name][f"B{b}/{layer}"]["prologue_pass_ms"] = pass_ms
             del x, d, w, wf, x_nchw, d_nchw
             torch.cuda.empty_cache()
     emit("conv kernel times", dtype="bfloat16", prologue="mish (none on the 7x1 layer)",
-         library="cuDNN conv2d (+ eager BN + act) / aten.convolution_backward, channels-last bf16",
+         library="cuDNN conv2d (+ eager BN + act, + var_mean) / aten.convolution_backward, "
+                 "channels-last bf16",
          times=timing, ms_per_step={name: _per_step(timing[name]) for name in CONV_KERNELS})
     # the kernels line quotes the (5,5) dilation-1 layer at the config's batch
     head = "B2/5x5-d1"
@@ -1516,9 +1524,11 @@ def phase_trainer(torch, lstm_cuda, cc, seed: int, profile_dir) -> dict:
 PORT_KERNEL_KINDS = (
     ("dilated conv kernels", ("conv_dilated_fwd_kernel",)),
     ("conv chain kernels", ("conv_bn_act_fwd_kernel", "conv_dgrad_kernel", "reduce_rows_kernel")),
-    # the weight gradient of both conv paths (with the chain's prologue pass)
+    # the chain's BatchNorm + activation before conv_bn_act_fwd and conv_wgrad
+    ("conv prologue passes", ("wgrad_prologue_kernel",)),
+    # the weight gradient of both conv paths
     ("conv weight-gradient kernels", ("conv_wgrad_kernel", "conv_wgrad_kf1_kernel",
-                                      "wgrad_prologue_kernel", "reduce_taps_kernel")),
+                                      "reduce_taps_kernel")),
     ("lstm kernels", ("lstm_fwd_kernel", "lstm_bwd_kernel")),
 )
 LIBRARY_KERNEL_KINDS = (

@@ -13,15 +13,18 @@ which are the same in every tree since the port's fourth slice:
   weights, as the data gradient (``fwd_data_gradient``);
 - ``conv_fused.conv_dgrad`` (flipped weights, with its bias gradient);
 - ``conv_fused.conv_bn_act_fwd`` with the chain's mish prologue (none on
-  the (7,1) layer, as the chain calls it), bias and statistics;
+  the (7,1) layer, as the chain calls it), bias and statistics, and
+  ``conv_fused.conv_wgrad_prologue``, the prologue pass alone (once per
+  batch: it does not depend on the layer);
 - ``conv_fused.conv_wgrad`` with the same prologue, its prologue pass inside
   its time, and ``conv_cuda.conv_dilated_wgrad``;
 
 at the six layer kinds of conv2 … conv7 ((7,1), and (5,5) at time dilation
 1, 2, 4, 8, 16) on ``[B, 301, 601, 64]`` bf16 activations, B=2 and B=8.
 ``--library`` adds cuDNN's time for the same function (``F.conv2d`` and
-``aten.convolution_backward`` on channels-last bf16; no BatchNorm pass),
-which the port never calls.  Each time is the mean of ``--iters`` calls
+``aten.convolution_backward`` on channels-last bf16; for the chain's forward
+also the eager BatchNorm + activation pass before the conv and
+``torch.var_mean`` of its output), which the port never calls.  Each time is the mean of ``--iters`` calls
 after two warm ones, between CUDA events.  Prints one JSON line with the
 card's name and power limit, the times per layer and their sums over the
 six layers (one launch per layer; the dilated forward runs twice per train
@@ -71,7 +74,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("port_conv_times: no CUDA device", file=sys.stderr)
         return 1
-    from voicesplit_tpu_torch.ops import _build
+    from voicesplit_tpu_torch.ops import _build, bn_act
     from voicesplit_tpu_torch.ops import conv_cuda as cc
     from voicesplit_tpu_torch.ops import conv_fused as cf
 
@@ -90,14 +93,19 @@ def main(argv=None) -> int:
     names = ("conv_dilated_fwd", "conv_dilated_fwd_data_gradient", "conv_dgrad", "conv_bn_act_fwd",
              "conv_wgrad", "conv_dilated_wgrad")
     times = {name: {} for name in names}
-    library = {name: {} for name in ("conv2d", "data_gradient", "weight_gradient")}
+    library = {name: {} for name in ("conv2d", "data_gradient", "weight_gradient", "chain_forward")}
+    prologue_pass = {}
     for b in (2, 8):
         x = torch.randn(b, *SHAPE, generator=g).to("cuda", torch.bfloat16)
         d = torch.randn(b, *SHAPE, generator=g).to("cuda", torch.bfloat16)
         bias = (0.1 * torch.randn(C, generator=g)).cuda()
-        scal = cf._scal_table(0.2 * torch.randn(C, generator=g), torch.rand(C, generator=g) + 0.5,
-                              torch.rand(C, generator=g) + 0.5, 0.1 * torch.randn(C, generator=g)).cuda()
+        bn = (0.2 * torch.randn(C, generator=g), torch.rand(C, generator=g) + 0.5,
+              torch.rand(C, generator=g) + 0.5, 0.1 * torch.randn(C, generator=g))
+        scal = cf._scal_table(*bn).cuda()
+        bn = [v.cuda() for v in bn]  # mean, var, scale, beta
         with torch.inference_mode():
+            prologue_pass[f"B{b}"] = time_ms(torch, lambda: cf.conv_wgrad_prologue(x, scal, "mish"),
+                                             args.iters)
             for layer, ((kt, kf), dt) in LAYERS.items():
                 act = None if layer == "7x1" else "mish"
                 on = act is not None
@@ -131,6 +139,14 @@ def main(argv=None) -> int:
                         torch, lambda: lib_bwd((True, False, False)), args.iters)
                     library["weight_gradient"][key] = time_ms(
                         torch, lambda: lib_bwd((False, True, False)), args.iters)
+                    cbias = bias.to(torch.bfloat16)
+
+                    def lib_chain():
+                        y = bn_act.bn_act_eval(x_nchw, bn[2], bn[3], bn[0], bn[1], act) if on else x_nchw
+                        raw = F.conv2d(y, w_oihw, cbias, padding=pad, dilation=(dt, 1))
+                        return raw, torch.var_mean(raw, dim=(0, 2, 3), correction=0)
+
+                    library["chain_forward"][key] = time_ms(torch, lib_chain, args.iters)
         del x, d
         torch.cuda.empty_cache()
 
@@ -139,7 +155,8 @@ def main(argv=None) -> int:
 
     report = {"tag": args.tag, "root": str(root), "device": torch.cuda.get_device_name(0),
               "nvidia_smi": smi, "build_seconds": build_s, "iters": args.iters,
-              "ms": times, "ms_per_step": {name: per_step(t) for name, t in times.items()}}
+              "ms": times, "ms_per_step": {name: per_step(t) for name, t in times.items()},
+              "prologue_pass_ms": prologue_pass}
     if args.library:
         report["library_ms"] = library
         report["library_ms_per_step"] = {name: per_step(t) for name, t in library.items()}

@@ -4,8 +4,9 @@ against the JAX package's (`voicesplit_tpu/ops/conv_fused.py`).
 On the CPU the port's wrappers run their plain versions and the JAX side
 runs its Pallas kernels in interpret mode, as `tests/test_conv_fused.py`
 does.  The chain against `make_chain`, the model and one train step with
-the chain on are in `tests/test_torch_chain_model.py`, which imports the
-helpers below.  The port works on channels-last ``[B, T, F, C]``; the JAX kernels on
+the chain on are in `tests/test_torch_chain_model.py`, the forward's bf16
+comparisons in `tests/test_torch_chain_fwd.py`; both import the helpers
+below.  The port works on channels-last ``[B, T, F, C]``; the JAX kernels on
 frequency-folded, zero-margined frames.  The conversions between the two
 (fold, frame, folded weights, the folded scalar table and statistics) live
 here.  Geometry of `tests/test_conv_fused.py`: odd F (a real pad column in
@@ -115,30 +116,6 @@ def test_forward_plain_version_matches_pallas_kernel(spec, prologue):
     n = B * T * F
     for got, want in zip(cf._mean_var(st, n), jcf._mean_var(stats, n)):
         np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-4)
-
-
-def test_forward_plain_version_matches_pallas_kernel_bf16():
-    """bf16 operands: both sides round the prologue's output and the raw
-    output to bf16; a sum taken in another order flips a rounding of raw
-    (one bf16 ulp of the peak ~ 8 is 3e-2; 1e-2 of the peak holds it), and
-    the statistics sum those rounded values."""
-    (kt, kf), dt = SPECS["5x5-d2"]
-    x, w, bias, bn = _layer_inputs(2, kt, kf)
-    scal_t, scal_j = _scal_pair(bn)
-    wf = fold_kernel(jnp.asarray(w).astype(jnp.bfloat16))
-    frame, stats = jcf._conv_fwd(
-        _frame(x, GEOMS["5x5-d2"], jnp.bfloat16), jcf._pack(wf), scal_j,
-        jnp.tile(jnp.asarray(bias), FOLD)[None, :], GEOMS["5x5-d2"], kt, wf.shape[1], dt, "mish",
-        True,
-    )
-    raw, st = cf.conv_bn_act_fwd(
-        torch.from_numpy(x).bfloat16(), torch.from_numpy(w).bfloat16(), torch.from_numpy(bias),
-        scal_t, dt, "mish", True,
-    )
-    assert raw.dtype == torch.bfloat16 and st.dtype == torch.float32
-    _assert_peak_close(raw.float().numpy(), _unframe(frame, GEOMS["5x5-d2"]), 1e-2)
-    _assert_peak_close(st[0].numpy(), _unfold_channels(stats[0]), 1e-2, "sum")
-    _assert_peak_close(st[1].numpy(), _unfold_channels(stats[1]), 1e-2, "sum of squares")
 
 
 @pytest.mark.parametrize("spec", sorted(SPECS))

@@ -7,6 +7,7 @@ test when there is none, so every worker collects the same tests.  On the
 card: ``python -m pytest tests/test_torch_gpu.py -m gpu``.
 """
 
+import importlib.util
 import pathlib
 
 import numpy as np
@@ -22,6 +23,11 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 # conv2 … conv7 of the model, each layer kind once
 CONV_LAYERS = {"7x1": ((7, 1), 1), "5x5-d1": ((5, 5), 1), "5x5-d2": ((5, 5), 2),
                "5x5-d4": ((5, 5), 4), "5x5-d8": ((5, 5), 8), "5x5-d16": ((5, 5), 16)}
+
+
+_spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)  # imports only the standard library and numpy at its top
 
 
 def _config():
@@ -228,7 +234,9 @@ def test_conv_chain_kernels_match_plain_versions_on_card(layer, dtype):
                 *cf.conv_dgrad_ref(d, wf, dil),
                 cf.conv_wgrad_ref(x, d, scal, kt, kf, dil, "mish", True))
     torch.cuda.synchronize()
-    assert cf.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    # the prologue pass runs before the forward and before the weight gradient
+    assert cf.LAUNCHES == {**{k: v + 1 for k, v in before.items()},
+                           "conv_wgrad_prologue": before["conv_wgrad_prologue"] + 2}
     # relative to each output's peak.  fp32: summation order only.  bf16:
     # raw and dx may round the other way once (one ulp is at most 2^-7 of
     # the peak); the sums and dW add exact products in another order
@@ -236,6 +244,48 @@ def test_conv_chain_kernels_match_plain_versions_on_card(layer, dtype):
     for a, b, tol in zip(got, want, tols):
         assert bool(torch.isfinite(a).all())
         assert (a.float() - b.float()).abs().max().item() <= tol * b.float().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("prologue", ["plain", "mish"])
+@pytest.mark.parametrize("layer", sorted(CONV_LAYERS))
+def test_chain_forward_kernel_matches_plain_version_on_card(layer, prologue, dtype):
+    """`conv_bn_act_fwd` at the main path's shape (bf16, `chip_smoke.py`'s
+    `CONV_SHAPE`) and at its reduced fp32 shape: raw and both statistics
+    within `chip_smoke.CONV_TOL` of the plain version (relative to each
+    output's peak), the same bits twice, one wave of blocks and no spilled
+    byte."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import conv_fused as cf
+
+    (kt, kf), dil = CONV_LAYERS[layer]
+    shape = chip_smoke.CONV_SHAPE if dtype == "bfloat16" else chip_smoke.CONV_SHAPE_FP32
+    tol = chip_smoke.CONV_TOL[dtype]
+    act, on = ("mish", True) if prologue == "mish" else (None, False)
+    g = torch.Generator().manual_seed(3)
+    dt = getattr(torch, dtype)
+    C = shape[-1]
+    x = torch.randn(shape, generator=g).to("cuda", dt)
+    w = (torch.randn(kt, kf, C, C, generator=g) * (kt * kf * C) ** -0.5).to("cuda", dt)
+    bias = (0.1 * torch.randn(C, generator=g)).cuda()
+    scal = cf._scal_table(
+        0.2 * torch.randn(C, generator=g), torch.rand(C, generator=g) + 0.5,
+        torch.rand(C, generator=g) + 0.5, 0.1 * torch.randn(C, generator=g),
+    ).cuda()
+    grid = cf.launch_config(shape, kt, kf, dil, dt)
+    assert grid["blocks"] <= grid["resident_blocks"] and grid["local_bytes"] == 0
+    with torch.inference_mode():
+        raw, stats = cf.conv_bn_act_fwd(x, w, bias, scal, dil, act, on)
+        raw2, stats2 = cf.conv_bn_act_fwd(x, w, bias, scal, dil, act, on)
+        want_raw, want_stats = cf.conv_bn_act_fwd_ref(x, w, bias, scal, dil, act, on)
+    torch.cuda.synchronize()
+    assert torch.equal(raw, raw2) and torch.equal(stats, stats2)
+    assert raw.shape == tuple(shape) and bool(torch.isfinite(raw).all())
+    for got, want, limit in ((raw, want_raw, tol["out"]), (stats[0], want_stats[0], tol["sums"]),
+                             (stats[1], want_stats[1], tol["sums"])):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= limit * want.float().abs().max().item()
 
 
 # Weight-gradient cases: (kt, kf), dilation, [B, T, F].  More items than
@@ -395,7 +445,7 @@ def test_fused_train_step_runs_through_the_conv_kernels_on_card(monkeypatch):
     m = make_train_step(cfg, model, ap, opt)(state, batch)
     torch.cuda.synchronize()
     assert conv_fused.LAUNCHES == {"conv_bn_act_fwd": 6, "conv_dgrad": 6, "conv_wgrad": 6,
-                                   "conv_wgrad_prologue": 5}
+                                   "conv_wgrad_prologue": 10}
     assert lstm_cuda.LAUNCHES == {"lstm_fwd": 2, "bilstm_fwd": 0, "lstm_bwd": 2, "bilstm_bwd": 0}
     assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
     for k, v in model.state_dict().items():

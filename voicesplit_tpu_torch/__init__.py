@@ -10,7 +10,7 @@ Pallas has a hand-written CUDA counterpart: the BiLSTM recurrence and its
 backward (`ops/lstm_cuda.py`, `csrc/lstm_fwd.cu`, `csrc/lstm_bwd.cu`), the
 training step's fused conv chain (``VOICESPLIT_FUSED_CHAIN=1``) with its
 forward, data-gradient and weight-gradient kernels (`ops/conv_fused.py`,
-`csrc/conv_fused.cu`, `csrc/conv_fwd.cu`, `csrc/conv_wgrad.cu`), and the
+`csrc/conv_fwd.cu`, `csrc/conv_wgrad.cu`), and the
 opt-in dilated conv (``VOICESPLIT_PALLAS_CONV=1``) with its forward /
 data-gradient and weight-gradient kernels (`ops/conv_cuda.py`, the same
 `csrc/conv_fwd.cu` and `csrc/conv_wgrad.cu`).

@@ -1,11 +1,15 @@
 // Forward / data-gradient "same" time-dilated conv for Hopper (sm_90a): the
 // opt-in conv path's conv_dilated_fwd (VOICESPLIT_PALLAS_CONV=1; with
-// flipped weights also its data gradient) and the fused chain's conv_dgrad.
+// flipped weights also its data gradient) and the fused chain's forward
+// conv_bn_act_fwd and data gradient conv_dgrad: one kernel body in three
+// modes (plain, dgrad, chain).
 //
 // Replaces the TPU kernels (the Python wrappers of the same names, in
 // ops/conv_cuda.py and ops/conv_fused.py, launch the C functions below)
 //   conv_dilated_fwd <- voicesplit_tpu/ops/conv_pallas.py _fwd_kernel   (:95, launched by
 //                       _conv_fwd_core :167; the data gradient with flipped weights :371-378)
+//   conv_bn_act_fwd  <- voicesplit_tpu/ops/conv_fused.py  _fwd_kernel   (:303, launched by
+//                       _conv_fwd :365)
 //   conv_dgrad       <- voicesplit_tpu/ops/conv_fused.py  _dgrad_kernel (:411, launched by
 //                       _conv_dgrad :476)
 //
@@ -14,25 +18,30 @@
 //
 //   out[b, t, f, co] = round(sum_{i,j,c} x[b, t + i*dt - pad_t, f + j - pad_f, c] * W[i, j, c, co])
 //   conv_dgrad also  dbias[c] = sum_{b,t,f} x[b, t, f, c]   (x = d_raw, fp32)
+//   conv_bn_act_fwd  raw = round(the same sum + bias[co]), stats[0, co] = sum raw,
+//                    stats[1, co] = sum raw^2 (fp32, of the rounded raw over [0, T) x [0, F))
 //
 // round() casts to the operand type (bf16 or fp32), every product
 // accumulates in fp32, a tap outside [0, T) x [0, F) contributes zero.  The
 // TPU's conv_pallas kernel rounds each frequency tap's partial sum; this one
-// sums every tap in fp32 and rounds once.  Not carried over: the TPU kernels'
-// K-fold / N-fold, frequency fold, lane padding and halo frames, which feed
-// a 128-wide matrix unit; here the halo is a copy of zero bytes.
+// sums every tap in fp32 and rounds once.  The chain's prologue (the previous
+// layer's BatchNorm affine and activation, round(act(x * inv + shift))) is
+// not in this kernel: the caller runs the prologue pass of conv_wgrad.cu
+// (conv_wgrad_prologue) first, once per element, and hands its output in as
+// x, so the halo stays zero after the activation as the TPU kernel's edge
+// masks keep it.  Not carried over: the TPU kernels' K-fold / N-fold,
+// frequency fold, lane padding and halo frames, which feed a 128-wide matrix
+// unit; here the halo is a copy of zero bytes.
 //
 // What bounds it on the card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16 dense),
 // each input byte read once and each output byte written once: a (5,5)
 // layer at [2, 301, 601, 64] is 74 GFLOP against 93 MB, bound by operations
 // (0.074 ms); the (7,1) layer (21 GFLOP) by bytes (0.028 ms).
 //
-// Design.  The first version (conv_tile of conv_tile.cuh, still the body of
-// conv_bn_act_fwd) gave each block two rows x 128 positions and, for each
-// time tap, staged the two input rows and that tap's weights through
-// registers between two barriers: nothing was in flight while the tensor
-// cores worked, and per launch it moved 5.5-7.5x the input and 87-309 MB of
-// weights from L2 in 5.7 waves of blocks.  This one:
+// Design.  The first version (two rows x 128 positions a block, each time
+// tap's input rows and weights staged through registers between two
+// barriers, 5.7 waves of blocks) left nothing in flight while the tensor
+// cores worked and moved 5.5-7.5x the input from L2.  This one:
 //
 //   One wave, balanced runs.  G = cudaOccupancyMaxActiveBlocksPerMultiprocessor
 //   x SMs blocks (one a SM: the ring below takes most of its shared memory),
@@ -92,16 +101,29 @@
 //
 //   Epilogue.  From registers: each quad of lanes swaps its bf16 pairs so
 //   that a lane holds 8 consecutive channels, written 16 bytes a lane (fp32:
-//   4 channels, 16 bytes).  conv_dgrad sums each input element once, from
-//   the A registers of the centre tap (time and frequency) of the item whose
-//   output row is its row, per lane in fp32 over the run; the block adds its
-//   lanes and warps in a fixed order into one partial row and
-//   reduce_rows_kernel adds the rows in a fixed order, in double.  No float
-//   atomics: the same inputs give the same bits.
+//   4 channels, 16 bytes).  conv_bn_act_fwd first adds the bias to the fp32
+//   sums and rounds once; then each warp passes every 8 positions x 32
+//   channels it wrote (zeros outside [0, T) x [0, F)) through a 512-byte
+//   stage in shared memory, and lane l adds channel l of that half in fp32,
+//   and its square, over the run (fp32: each thread its 4 channels).  Summed
+//   beside the accumulators in registers, the statistics spilled (255
+//   registers); the chain mode therefore zeroes its accumulators at each item
+//   and always accumulates, so that they are dead once written.
+//   conv_dgrad sums each input element once, from the A registers of the
+//   centre tap (time and frequency) of the item whose output row is its row,
+//   per lane in fp32 over the run.  Either way the block adds its lanes and
+//   warps in a fixed order into one partial row and reduce_rows_kernel adds
+//   the rows in a fixed order, in double.  No float atomics: the same inputs
+//   give the same bits.
 
 #include "conv_tile.cuh"
 
 namespace {
+
+// What the kernel body computes besides the conv: nothing (conv_dilated_fwd),
+// the input's column sums (conv_dgrad), or the bias and the output's
+// statistics (conv_bn_act_fwd).
+enum FwdMode : int { kFwdPlain = 0, kFwdDgrad = 1, kFwdChain = 2 };
 
 // The shape of an item, by operand type and frequency taps.
 template <typename T, int KF>
@@ -156,11 +178,14 @@ __device__ __forceinline__ FwdItem decode_fwd(const FwdWork& w, long long item) 
 // wgmma's 128-byte swizzle needs tiles on 1024-byte boundaries
 constexpr int kSmemAlign = 1024;
 
-template <typename T, int KF>
+// the chain's statistics: a row of 2 x 64 sums per warp, then the bias
+constexpr size_t kChainSmemBytes = (size_t(kThreads / 32) * 2 * kC + kC) * sizeof(float);
+
+template <typename T, int KF, int MODE>
 size_t fwd_smem_bytes(int kt) {
   const size_t ring = size_t(ring_slots<T, KF>(kt)) * FwdShape<T, KF>::kRowElems;
   const size_t weights = size_t(KF == 1 ? kt : 2 * KF) * kC * kC;
-  return (ring + weights) * sizeof(T) + kSmemAlign;
+  return (ring + weights) * sizeof(T) + (MODE == kFwdChain ? kChainSmemBytes : 0) + kSmemAlign;
 }
 
 // Input row t, positions [f_lo, f_lo + TF + KF - 1), into a ring tile; zero
@@ -242,12 +267,15 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[8][4], const uint32_t
       : "memory");
 }
 
-// grid (blocks); out [B, T, F, 64]; DGRAD: partials [blocks][64], the
-// block's share of the input's column sums.
-template <typename T, int KF, bool DGRAD>
+// grid (blocks); out [B, T, F, 64]; kFwdDgrad: partials [blocks][64], the
+// block's share of the input's column sums; kFwdChain: bias [64] and
+// partials [blocks][128], the block's share of the output's sums and sums
+// of squares.
+template <typename T, int KF, int MODE>
 __device__ __forceinline__ void conv_fwd_body(const T* __restrict__ x, const T* __restrict__ wt,
-                                              T* __restrict__ out, float* __restrict__ partials,
-                                              const FwdWork& w) {
+                                              const float* __restrict__ bias, T* __restrict__ out,
+                                              float* __restrict__ partials, const FwdWork& w) {
+  constexpr bool DGRAD = MODE == kFwdDgrad, CHAIN = MODE == kFwdChain;
   using Shape = FwdShape<T, KF>;
   constexpr int R = Shape::R, TF = Shape::TF;
   constexpr bool kTensorCore = Shape::kTensorCore;
@@ -270,6 +298,12 @@ __device__ __forceinline__ void conv_fwd_body(const T* __restrict__ x, const T* 
   T* const w_s = reinterpret_cast<T*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + kSmemAlign - 1) & ~uintptr_t(kSmemAlign - 1));
   T* const ring = w_s + (KF == 1 ? kt : 2) * kTapElems;
+  // CHAIN: [warp][sum 64, sum of squares 64] (bf16: the warp's stage of
+  // rounded outputs until the end), then the bias
+  float* const stat_s = reinterpret_cast<float*>(ring + S * kRowElems);
+  float* const stage = stat_s + warp * 2 * kC;
+  float* const bias_s = stat_s + (kThreads / 32) * 2 * kC;
+  if (CHAIN && tid < kC) bias_s[tid] = bias[tid];
 
   // bf16: warpgroup wg = warp / 4 computes output rows 2 wg and 2 wg + 1 of
   // the item; this warp's tile q = 2 r + x holds row 2 wg + r and 16 positions
@@ -282,6 +316,8 @@ __device__ __forceinline__ void conv_fwd_body(const T* __restrict__ x, const T* 
   float ds[4][4] = {};
   float dsum = 0.0f;
   float acc32[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // fp32: 4 output channels of one position
+  float st32[2][4] = {};  // CHAIN, fp32: sums and sums of squares of those channels over the run
+  float csum[2] = {}, csq[2] = {};  // CHAIN, bf16: those of channels l and 32 + l over the run
 
   load_weights<T>(w_s, wt, (KF == 1 ? kt : 1) * KF * kC, tid);
   cp_async_commit();
@@ -314,6 +350,16 @@ __device__ __forceinline__ void conv_fwd_body(const T* __restrict__ x, const T* 
     const bool next_continues = nx.q > 0;  // the next item of this residue, in this run
     const int t_out0 = row_of(it, u0 + centre);  // the warp(group)'s first output row
     bool first = true;  // the item's first product replaces the accumulators
+    if constexpr (CHAIN && kTensorCore) {
+      // CHAIN zeroes them instead and always accumulates, so that the
+      // accumulators are dead from the epilogue on: the statistics there
+      // need the registers
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) acc[q][nt][0] = acc[q][nt][1] = acc[q][nt][2] = acc[q][nt][3] = 0.0f;
+      }
+    }
 
     for (int i = 0; i < kt; ++i, ++s) {
       cp_async_wait<0>();  // this step's weights and rows have landed (this thread's copies)
@@ -362,7 +408,7 @@ __device__ __forceinline__ void conv_fwd_body(const T* __restrict__ x, const T* 
             const uint64_t desc = b_desc(w_tap + (j * kC + kk * 16) * kC);
             wgmma_fence();
 #pragma unroll
-            for (int q = 0; q < 4; ++q) wgmma_m64n64k16(acc[q], af[q], desc, first ? 0 : 1);
+            for (int q = 0; q < 4; ++q) wgmma_m64n64k16(acc[q], af[q], desc, CHAIN || !first);
             wgmma_commit();
             wgmma_wait<1>();  // the product before this one is done: its A registers are free
             first = false;
@@ -396,7 +442,7 @@ __device__ __forceinline__ void conv_fwd_body(const T* __restrict__ x, const T* 
       }
     }
 
-    // epilogue: round once, write 16 bytes a lane
+    // epilogue: (CHAIN: + bias) round once, write 16 bytes a lane
     if constexpr (kTensorCore) {
       if (t_out0 < w.T) {
         const int gr = lane >> 2, tig = lane & 3, quad = lane & ~3;
@@ -409,7 +455,14 @@ __device__ __forceinline__ void conv_fwd_body(const T* __restrict__ x, const T* 
             const int f = it.f0 + pos(q % 2) + gr + 8 * h;
             uint32_t wd[8];  // channels 8 nt + 2 tig + {0, 1} of this lane's position
 #pragma unroll
-            for (int nt = 0; nt < 8; ++nt) wd[nt] = pack_bf16(acc[q][nt][2 * h], acc[q][nt][2 * h + 1]);
+            for (int nt = 0; nt < 8; ++nt) {
+              float v0 = acc[q][nt][2 * h], v1 = acc[q][nt][2 * h + 1];
+              if constexpr (CHAIN) {
+                v0 += bias_s[8 * nt + 2 * tig];
+                v1 += bias_s[8 * nt + 2 * tig + 1];
+              }
+              wd[nt] = pack_bf16(v0, v1);
+            }
 #pragma unroll
             for (int half = 0; half < 2; ++half) {
               // round rr: lane tig sends its pair of tile 4 half + (tig + rr) mod 4 and
@@ -426,8 +479,22 @@ __device__ __forceinline__ void conv_fwd_body(const T* __restrict__ x, const T* 
               v.y = sel4(rot[0], rot[1], rot[2], rot[3], (tig + 3) & 3);
               v.z = sel4(rot[0], rot[1], rot[2], rot[3], (tig + 2) & 3);
               v.w = sel4(rot[0], rot[1], rot[2], rot[3], (tig + 1) & 3);
-              if (t < w.T && f < w.F) {
+              const bool inside = t < w.T && f < w.F;
+              if (inside) {
                 *reinterpret_cast<uint4*>(out_row + size_t(f) * kC + (4 * half + tig) * 8) = v;
+              }
+              if constexpr (CHAIN) {
+                // the warp's 8 positions x 32 channels (zero outside the
+                // tensor) through its stage; lane l sums channel 32 half + l
+                reinterpret_cast<uint4*>(stage)[lane] = inside ? v : make_uint4(0, 0, 0, 0);
+                __syncwarp();
+#pragma unroll
+                for (int p = 0; p < 8; ++p) {
+                  const float r = __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(stage)[32 * p + lane]);
+                  csum[half] += r;
+                  csq[half] += r * r;
+                }
+                __syncwarp();  // before the next tile overwrites the stage
               }
             }
           }
@@ -436,10 +503,48 @@ __device__ __forceinline__ void conv_fwd_body(const T* __restrict__ x, const T* 
     } else {
       const int m = tid >> 4, n0 = (tid & 15) * 4;
       if (t_out0 < w.T && it.f0 + m < w.F) {
+        float v[4];
+#pragma unroll
+        for (int nn = 0; nn < 4; ++nn) {
+          v[nn] = CHAIN ? acc32[nn] + bias_s[n0 + nn] : acc32[nn];
+          if constexpr (CHAIN) {
+            st32[0][nn] += v[nn];
+            st32[1][nn] += v[nn] * v[nn];
+          }
+        }
         *reinterpret_cast<float4*>(out + ((size_t(it.b) * w.T + t_out0) * w.F + it.f0 + m) * kC + n0) =
-            make_float4(acc32[0], acc32[1], acc32[2], acc32[3]);
+            make_float4(v[0], v[1], v[2], v[3]);
       }
       acc32[0] = acc32[1] = acc32[2] = acc32[3] = 0.0f;
+    }
+  }
+
+  if constexpr (CHAIN) {
+    // the warp's row of sums
+    if constexpr (kTensorCore) {
+      __syncwarp();  // its stage is free
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        stage[32 * half + lane] = csum[half];
+        stage[kC + 32 * half + lane] = csq[half];
+      }
+    } else {
+      // the warp's two positions (lanes l, l ^ 16)
+#pragma unroll
+      for (int s2 = 0; s2 < 2; ++s2) {
+#pragma unroll
+        for (int nn = 0; nn < 4; ++nn) {
+          const float v = st32[s2][nn] + __shfl_xor_sync(0xffffffffu, st32[s2][nn], 16);
+          if (lane < 16) stage[s2 * kC + (tid & 15) * 4 + nn] = v;
+        }
+      }
+    }
+    __syncthreads();
+    if (tid < 2 * kC) {
+      float v = 0.0f;
+#pragma unroll
+      for (int p = 0; p < kThreads / 32; ++p) v += stat_s[p * 2 * kC + tid];
+      partials[size_t(g) * 2 * kC + tid] = v;
     }
   }
 
@@ -477,19 +582,29 @@ template <typename T, int KF>
 __global__ void __launch_bounds__(kThreads, 1)
 conv_dilated_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
                         const FwdWork work) {
-  conv_fwd_body<T, KF, false>(x, w, out, nullptr, work);
+  conv_fwd_body<T, KF, kFwdPlain>(x, w, nullptr, out, nullptr, work);
 }
 
 template <typename T, int KF>
 __global__ void __launch_bounds__(kThreads, 1)
 conv_dgrad_kernel(const T* __restrict__ d_raw, const T* __restrict__ w, T* __restrict__ dx,
                   float* __restrict__ partials, const FwdWork work) {
-  conv_fwd_body<T, KF, true>(d_raw, w, dx, partials, work);
+  conv_fwd_body<T, KF, kFwdDgrad>(d_raw, w, nullptr, dx, partials, work);
 }
 
-template <typename T, int KF, bool DGRAD>
+template <typename T, int KF>
+__global__ void __launch_bounds__(kThreads, 1)
+conv_bn_act_fwd_kernel(const T* __restrict__ y, const T* __restrict__ w,
+                       const float* __restrict__ bias, T* __restrict__ raw,
+                       float* __restrict__ partials, const FwdWork work) {
+  conv_fwd_body<T, KF, kFwdChain>(y, w, bias, raw, partials, work);
+}
+
+template <typename T, int KF, int MODE>
 auto fwd_kernel() {
-  if constexpr (DGRAD) {
+  if constexpr (MODE == kFwdChain) {
+    return conv_bn_act_fwd_kernel<T, KF>;
+  } else if constexpr (MODE == kFwdDgrad) {
     return conv_dgrad_kernel<T, KF>;
   } else {
     return conv_dilated_fwd_kernel<T, KF>;
@@ -502,12 +617,12 @@ struct FwdPlan {
   size_t smem, scratch;  // dynamic shared memory bytes; fp32 scratch elements
 };
 
-template <typename T, int KF, bool DGRAD>
+template <typename T, int KF, int MODE>
 cudaError_t plan_kf(int B, int T_, int F, int kt, int dt, FwdPlan* p) {
   constexpr int R = FwdShape<T, KF>::R, TF = FwdShape<T, KF>::TF;
-  p->smem = fwd_smem_bytes<T, KF>(kt);
+  p->smem = fwd_smem_bytes<T, KF, MODE>(kt);
   // fails when the ring and the weights do not fit one block's shared memory
-  cudaError_t err = occupancy(fwd_kernel<T, KF, DGRAD>(), p->smem, &p->resident, &p->registers,
+  cudaError_t err = occupancy(fwd_kernel<T, KF, MODE>(), p->smem, &p->resident, &p->registers,
                               &p->local_bytes);
   if (err != cudaSuccess) return err;
   FwdWork& w = p->work;
@@ -523,17 +638,17 @@ cudaError_t plan_kf(int B, int T_, int F, int kt, int dt, FwdPlan* p) {
   }
   w.items = (long long)B * w.n_ft * w.n_col;
   p->blocks = w.blocks = int(w.items < p->resident ? w.items : p->resident);
-  p->scratch = DGRAD ? size_t(w.blocks) * kC : 0;
+  p->scratch = size_t(w.blocks) * (MODE == kFwdDgrad ? kC : MODE == kFwdChain ? 2 * kC : 0);
   return cudaSuccess;
 }
 
-template <typename T, bool DGRAD>
+template <typename T, int MODE>
 cudaError_t plan(int B, int T_, int F, int kt, int kf, int dt, FwdPlan* p) {
   if (bad_shape(B, T_, F, kt, kf, dt)) return cudaErrorInvalidValue;
   switch (kf) {
-    case 1: return plan_kf<T, 1, DGRAD>(B, T_, F, kt, dt, p);
-    case 3: return plan_kf<T, 3, DGRAD>(B, T_, F, kt, dt, p);
-    case 5: return plan_kf<T, 5, DGRAD>(B, T_, F, kt, dt, p);
+    case 1: return plan_kf<T, 1, MODE>(B, T_, F, kt, dt, p);
+    case 3: return plan_kf<T, 3, MODE>(B, T_, F, kt, dt, p);
+    case 5: return plan_kf<T, 5, MODE>(B, T_, F, kt, dt, p);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -542,7 +657,7 @@ template <typename T>
 cudaError_t launch_fwd(const void* x, const void* w, void* out, int B, int T_, int F, int kt, int kf,
                        int dt, cudaStream_t stream) {
   FwdPlan p;
-  cudaError_t err = plan<T, false>(B, T_, F, kt, kf, dt, &p);
+  cudaError_t err = plan<T, kFwdPlain>(B, T_, F, kt, kf, dt, &p);
   if (err != cudaSuccess) return err;
   const T* x_ = static_cast<const T*>(x);
   const T* w_ = static_cast<const T*>(w);
@@ -559,7 +674,7 @@ template <typename T>
 cudaError_t launch_dgrad(const void* d_raw, const void* w, void* dx, void* dbias, void* scratch,
                          int B, int T_, int F, int kt, int kf, int dt, cudaStream_t stream) {
   FwdPlan p;
-  cudaError_t err = plan<T, true>(B, T_, F, kt, kf, dt, &p);
+  cudaError_t err = plan<T, kFwdDgrad>(B, T_, F, kt, kf, dt, &p);
   if (err != cudaSuccess) return err;
   const T* d_ = static_cast<const T*>(d_raw);
   const T* w_ = static_cast<const T*>(w);
@@ -577,13 +692,48 @@ cudaError_t launch_dgrad(const void* d_raw, const void* w, void* dx, void* dbias
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_chain(const void* y, const void* w, const void* bias, void* raw, void* stats,
+                         void* scratch, int B, int T_, int F, int kt, int kf, int dt,
+                         cudaStream_t stream) {
+  FwdPlan p;
+  cudaError_t err = plan<T, kFwdChain>(B, T_, F, kt, kf, dt, &p);
+  if (err != cudaSuccess) return err;
+  const T* y_ = static_cast<const T*>(y);
+  const T* w_ = static_cast<const T*>(w);
+  const float* b_ = static_cast<const float*>(bias);
+  T* o_ = static_cast<T*>(raw);
+  float* partials = static_cast<float*>(scratch);
+  switch (kf) {
+    case 1: conv_bn_act_fwd_kernel<T, 1><<<p.blocks, kThreads, p.smem, stream>>>(y_, w_, b_, o_, partials, p.work); break;
+    case 3: conv_bn_act_fwd_kernel<T, 3><<<p.blocks, kThreads, p.smem, stream>>>(y_, w_, b_, o_, partials, p.work); break;
+    default: conv_bn_act_fwd_kernel<T, 5><<<p.blocks, kThreads, p.smem, stream>>>(y_, w_, b_, o_, partials, p.work); break;
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  reduce_rows_kernel<32><<<(2 * kC + 31) / 32, dim3(32, 32), 0, stream>>>(
+      partials, p.blocks, 2 * kC, static_cast<float*>(stats));
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t plan_mode(int B, int T_, int F, int kt, int kf, int dt, int mode, FwdPlan* p) {
+  switch (mode) {
+    case kFwdPlain: return plan<T, kFwdPlain>(B, T_, F, kt, kf, dt, p);
+    case kFwdDgrad: return plan<T, kFwdDgrad>(B, T_, F, kt, kf, dt, p);
+    case kFwdChain: return plan<T, kFwdChain>(B, T_, F, kt, kf, dt, p);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Every function returns its
 // cudaError_t; 0 is success.  `bf16` selects bf16 activations and weights,
-// otherwise fp32; dbias and scratch are fp32.  Activations are [B, T, F, 64],
-// weights [kt, kf, 64, 64] (conv_dgrad: flipped and transposed by the
-// caller).  `scratch` holds conv_dgrad's per-block partial sums
+// otherwise fp32; bias, stats ([2, 64]: sums, sums of squares), dbias and
+// scratch are fp32.  Activations are [B, T, F, 64], weights [kt, kf, 64, 64]
+// (conv_dgrad: flipped and transposed by the caller).  `scratch` holds the
+// per-block partial sums of conv_dgrad and conv_bn_act_fwd
 // (conv_fwd_launch_config gives its size).
 
 extern "C" int conv_dilated_fwd(const void* x, const void* w, void* out, int B, int T, int F,
@@ -591,6 +741,14 @@ extern "C" int conv_dilated_fwd(const void* x, const void* w, void* out, int B, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_fwd<__nv_bfloat16>(x, w, out, B, T, F, kt, kf, dt, s)
               : launch_fwd<float>(x, w, out, B, T, F, kt, kf, dt, s);
+}
+
+extern "C" int conv_bn_act_fwd(const void* y, const void* w, const void* bias, void* raw,
+                               void* stats, void* scratch, int B, int T, int F, int kt, int kf,
+                               int dt, int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_chain<__nv_bfloat16>(y, w, bias, raw, stats, scratch, B, T, F, kt, kf, dt, s)
+              : launch_chain<float>(y, w, bias, raw, stats, scratch, B, T, F, kt, kf, dt, s);
 }
 
 extern "C" int conv_dgrad(const void* d_raw, const void* w_flipped, void* dx, void* dbias,
@@ -602,19 +760,18 @@ extern "C" int conv_dgrad(const void* d_raw, const void* w_flipped, void* dx, vo
               : launch_dgrad<float>(d_raw, w_flipped, dx, dbias, scratch, B, T, F, kt, kf, dt, s);
 }
 
-// Launch shape of conv_dilated_fwd (dgrad 0) or conv_dgrad (dgrad 1) on the
-// current card: blocks (never more than `resident`, the blocks the card
-// holds at once), threads, dynamic shared memory, fp32 scratch elements,
-// registers a thread and local (spilled) bytes a thread.
+// Launch shape of conv_dilated_fwd (mode 0), conv_dgrad (mode 1) or
+// conv_bn_act_fwd (mode 2) on the current card: blocks (never more than
+// `resident`, the blocks the card holds at once), threads, dynamic shared
+// memory, fp32 scratch elements, registers a thread and local (spilled)
+// bytes a thread.
 extern "C" int conv_fwd_launch_config(int B, int T, int F, int kt, int kf, int dt, int bf16,
-                                      int dgrad, int* blocks, int* threads, long long* smem,
+                                      int mode, int* blocks, int* threads, long long* smem,
                                       long long* scratch, int* resident, int* registers,
                                       int* local_bytes) {
   FwdPlan p;
-  cudaError_t err = bf16 ? (dgrad ? plan<__nv_bfloat16, true>(B, T, F, kt, kf, dt, &p)
-                                  : plan<__nv_bfloat16, false>(B, T, F, kt, kf, dt, &p))
-                         : (dgrad ? plan<float, true>(B, T, F, kt, kf, dt, &p)
-                                  : plan<float, false>(B, T, F, kt, kf, dt, &p));
+  cudaError_t err = bf16 ? plan_mode<__nv_bfloat16>(B, T, F, kt, kf, dt, mode, &p)
+                         : plan_mode<float>(B, T, F, kt, kf, dt, mode, &p);
   if (err != cudaSuccess) return err;
   *blocks = p.blocks;
   *threads = kThreads;

@@ -1,7 +1,6 @@
-"""Fused train-mode conv chain: three CUDA kernels (`csrc/conv_fused.cu`,
-`csrc/conv_fwd.cu`, `csrc/conv_wgrad.cu`), their plain PyTorch versions,
-and the chain with its hand-written backward (counterpart of
-`voicesplit_tpu/ops/conv_fused.py`).
+"""Fused train-mode conv chain: three CUDA kernels (`csrc/conv_fwd.cu`,
+`csrc/conv_wgrad.cu`), their plain PyTorch versions, and the chain with its
+hand-written backward (counterpart of `voicesplit_tpu/ops/conv_fused.py`).
 
 The chain runs the heavy conv stack of the mask network (a (7,1) layer and
 five (5,5) layers with time dilation 1..16) so that the BatchNorm affine and
@@ -14,7 +13,11 @@ Kernels (each beside its plain version ``*_ref``):
 
 - ``conv_bn_act_fwd`` replaces `_fwd_kernel` (`conv_fused.py:303`):
   ``raw = round(conv(prologue(x)) + bias)`` and the fp32 per-channel sum and
-  sum of squares of the rounded ``raw``;
+  sum of squares of the rounded ``raw``.  With a prologue, the prologue pass
+  of `conv_wgrad` (``LAUNCHES["conv_wgrad_prologue"]``) writes the activated
+  input once into a scratch tensor; then the kernel body of `csrc/conv_fwd.cu`
+  that `conv_cuda.conv_dilated_fwd` also launches adds the bias and takes the
+  statistics in its epilogue;
 - ``conv_dgrad`` replaces `_dgrad_kernel` (`:411`): the "same" conv of
   ``d_raw`` with tap-flipped, channel-transposed weights, and
   ``dbias = Σ d_raw`` per channel, by the kernel body of `csrc/conv_fwd.cu`
@@ -40,7 +43,8 @@ Dispatch: a CUDA tensor goes to the kernel, or the call raises; the plain
 versions run only for tensors on the CPU.  Each kernel launch adds one to
 ``LAUNCHES[name]``.  The kernels take C = 64 channels, odd kernel sizes,
 frequency dilation 1, and bf16 or fp32 operands (fp32 products on CUDA
-cores, not TF32); `conv_dgrad` the taps of `FWD_KERNEL_MAX_KT`.
+cores, not TF32); `conv_bn_act_fwd` and `conv_dgrad` the taps of
+`FWD_KERNEL_MAX_KT`.
 """
 
 from __future__ import annotations
@@ -55,7 +59,9 @@ import torch.nn.functional as F
 
 from voicesplit_tpu_torch.ops import _build
 
-# kernel launches per wrapper, for showing that a run went through them
+# kernel launches per wrapper, for showing that a run went through them;
+# "conv_wgrad_prologue" counts every prologue pass, `conv_bn_act_fwd`'s and
+# `conv_wgrad`'s
 LAUNCHES = {"conv_bn_act_fwd": 0, "conv_dgrad": 0, "conv_wgrad": 0, "conv_wgrad_prologue": 0}
 
 KERNEL_CHANNELS = 64  # the CUDA kernels' channel count, in and out
@@ -63,7 +69,7 @@ KERNEL_CHANNELS = 64  # the CUDA kernels' channel count, in and out
 # frequency taps: an item's input rows in flight and the weights must fit one
 # block's shared memory
 FWD_KERNEL_MAX_KT = {1: 7, 3: 7, 5: 5}
-_ACT_CODE = {None: 0, "mish": 1, "relu": 2}
+_ACT_CODE = {"mish": 1, "relu": 2}  # the prologue pass's activation
 
 # rows of the per-channel scalar table (fp32 [8, C])
 _S_INV, _S_SHIFT, _S_MEAN, _S_R, _S_MDZ, _S_MDZX = 0, 1, 2, 3, 4, 5
@@ -87,11 +93,10 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         ip, lp = ctypes.POINTER(i), ctypes.POINTER(ctypes.c_longlong)
         _build.declare({
-            "conv_bn_act_fwd": [p] * 7 + [i] * 8 + [p],
+            "conv_bn_act_fwd": [p] * 6 + [i] * 7 + [p],
             "conv_dgrad": [p] * 5 + [i] * 7 + [p],
             "conv_wgrad": [p] * 4 + [i] * 7 + [p],
             "conv_wgrad_prologue": [p] * 3 + [i] * 5 + [p],
-            "conv_fused_launch_config": [i] * 6 + [ip, ip, lp, lp],
             "conv_fwd_launch_config": [i] * 8 + [ip, ip, lp, lp, ip, ip, ip],
             "conv_wgrad_launch_config": [i] * 7 + [ip, ip, lp, lp, ip, ip, ip],
         })
@@ -99,20 +104,11 @@ def _library() -> ctypes.CDLL:
     return _build.library()
 
 
-def launch_config(shape: Sequence[int], kt: int, kf: int, dtype: torch.dtype) -> dict:
-    """Grid of `conv_bn_act_fwd` for activations of `shape` ``[B, T, F,
-    C]``: blocks, threads, dynamic shared memory bytes and the fp32 scratch
-    elements of its cross-block sums."""
-    B, T, F_, _ = shape
-    blocks, threads = ctypes.c_int(), ctypes.c_int()
-    smem, scratch = ctypes.c_longlong(), ctypes.c_longlong()
-    err = _library().conv_fused_launch_config(
-        B, T, F_, kt, kf, int(dtype == torch.bfloat16),
-        ctypes.byref(blocks), ctypes.byref(threads), ctypes.byref(smem), ctypes.byref(scratch),
-    )
-    _build.raise_on(err, "conv_fused_launch_config")
-    return {"blocks": blocks.value, "threads": threads.value, "smem_bytes": smem.value,
-            "scratch_floats": scratch.value}
+def launch_config(shape: Sequence[int], kt: int, kf: int, dt: int, dtype: torch.dtype) -> dict:
+    """Grid of `conv_bn_act_fwd` for activations of `shape` ``[B, T, F, C]``
+    on the current card; the keys of `wgrad_launch_config`, the scratch being
+    its per-block partial sums and sums of squares."""
+    return _fwd_config(shape, kt, kf, dt, dtype, 2)
 
 
 def fwd_launch_config(shape: Sequence[int], kt: int, kf: int, dt: int, dtype: torch.dtype,
@@ -121,8 +117,13 @@ def fwd_launch_config(shape: Sequence[int], kt: int, kf: int, dt: int, dtype: to
     ``dgrad``, else `conv_cuda.conv_dilated_fwd`) on the current card; the
     keys of `wgrad_launch_config`, the scratch being `conv_dgrad`'s per-block
     partial sums."""
+    return _fwd_config(shape, kt, kf, dt, dtype, int(dgrad))
+
+
+def _fwd_config(shape, kt, kf, dt, dtype, mode: int) -> dict:
+    # mode: 0 conv_dilated_fwd, 1 conv_dgrad, 2 conv_bn_act_fwd (one kernel body)
     B, T, F_, _ = shape
-    args = (B, T, F_, kt, kf, dt, int(dtype == torch.bfloat16), int(dgrad))
+    args = (B, T, F_, kt, kf, dt, int(dtype == torch.bfloat16), mode)
     return dict(_one_wave_config("conv_fwd_launch_config", args, torch.cuda.current_device()))
 
 
@@ -339,25 +340,22 @@ def _check_weight(w: torch.Tensor, x: torch.Tensor) -> None:
         )
 
 
-def _scratch(x: torch.Tensor, kt: int, kf: int) -> torch.Tensor:
-    with torch.cuda.device(x.device):
-        n = launch_config(x.shape, kt, kf, x.dtype)["scratch_floats"]
-    return torch.empty(n, dtype=torch.float32, device=x.device)
-
-
 def _launch_conv_bn_act_fwd(x, w, bias, scal, dt, act, prologue):
-    B, T, F_, _ = x.shape
+    B, T, F_, C = x.shape
     kt, kf = w.shape[:2]
+    check_fwd_kernel_takes(kt, kf)
+    # the activated input: written once by the prologue pass, dropped after
+    y = _launch_conv_wgrad_prologue(x, scal, act) if prologue else x
     raw = torch.empty_like(x)
-    stats = torch.empty(2, x.shape[-1], dtype=torch.float32, device=x.device)
-    scratch = _scratch(x, kt, kf)
+    stats = torch.empty(2, C, dtype=torch.float32, device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
+        n = launch_config(x.shape, kt, kf, dt, x.dtype)["scratch_floats"]
+        scratch = torch.empty(n, dtype=torch.float32, device=x.device)  # per-block partials
         err = lib.conv_bn_act_fwd(
-            x.data_ptr(), w.data_ptr(), bias.data_ptr(), scal.data_ptr(),
-            raw.data_ptr(), stats.data_ptr(), scratch.data_ptr(),
-            B, T, F_, kt, kf, dt, _ACT_CODE[act] if prologue else 0,
-            int(x.dtype == torch.bfloat16), _build.stream(x),
+            y.data_ptr(), w.data_ptr(), bias.data_ptr(), raw.data_ptr(), stats.data_ptr(),
+            scratch.data_ptr(), B, T, F_, kt, kf, dt, int(x.dtype == torch.bfloat16),
+            _build.stream(x),
         )
     _build.raise_on(err, "conv_bn_act_fwd")
     LAUNCHES["conv_bn_act_fwd"] += 1

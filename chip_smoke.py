@@ -56,7 +56,8 @@ Phases, each printing one JSON line:
    ``conv_dilated_wgrad`` on its prologue pass's output.  Then times each
    kernel per layer kind at B=2 and B=8 beside its plain version, its bound
    and a library yardstick that the port never calls (cuDNN ``conv2d`` plus
-   the eager BatchNorm + activation pass; ``aten.convolution_backward``) at
+   the eager BatchNorm + activation pass and ``torch.var_mean``;
+   ``aten.convolution_backward``) at
    all six layers (``conv_bn_act_fwd`` and ``conv_wgrad`` with their
    prologue pass inside their time, and the pass on its own), with each
    kernel's sum over them per train step.

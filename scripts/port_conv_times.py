@@ -24,11 +24,11 @@ at the six layer kinds of conv2 … conv7 ((7,1), and (5,5) at time dilation
 ``--library`` adds cuDNN's time for the same function (``F.conv2d`` and
 ``aten.convolution_backward`` on channels-last bf16; for the chain's forward
 also the eager BatchNorm + activation pass before the conv and
-``torch.var_mean`` of its output), which the port never calls.  Each time is the mean of ``--iters`` calls
-after two warm ones, between CUDA events.  Prints one JSON line with the
-card's name and power limit, the times per layer and their sums over the
-six layers (one launch per layer; the dilated forward runs twice per train
-step, as forward and as data gradient).
+``torch.var_mean`` of its output), which the port never calls.  Each time
+is the mean of ``--iters`` calls after two warm ones, between CUDA events.
+Prints one JSON line with the card's name and power limit, the times per
+layer and their sums over the six layers (one launch per layer; the dilated
+forward runs twice per train step, as forward and as data gradient).
 """
 
 from __future__ import annotations

@@ -653,66 +653,48 @@ cudaError_t plan(int B, int T_, int F, int kt, int kf, int dt, FwdPlan* p) {
   }
 }
 
+// The kernel of MODE for kf frequency taps on `args`, then its work.
+template <typename T, int MODE, typename... Args>
+cudaError_t launch_body(const FwdPlan& p, int kf, cudaStream_t stream, Args... args) {
+  switch (kf) {
+    case 1: fwd_kernel<T, 1, MODE>()<<<p.blocks, kThreads, p.smem, stream>>>(args..., p.work); break;
+    case 3: fwd_kernel<T, 3, MODE>()<<<p.blocks, kThreads, p.smem, stream>>>(args..., p.work); break;
+    default: fwd_kernel<T, 5, MODE>()<<<p.blocks, kThreads, p.smem, stream>>>(args..., p.work); break;
+  }
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_fwd(const void* x, const void* w, void* out, int B, int T_, int F, int kt, int kf,
                        int dt, cudaStream_t stream) {
   FwdPlan p;
   cudaError_t err = plan<T, kFwdPlain>(B, T_, F, kt, kf, dt, &p);
   if (err != cudaSuccess) return err;
+  return launch_body<T, kFwdPlain>(p, kf, stream, static_cast<const T*>(x), static_cast<const T*>(w),
+                                   static_cast<T*>(out));
+}
+
+// conv_dgrad (sums: dbias [64]) or conv_bn_act_fwd (bias; sums: stats [2][64]):
+// the kernel, then its per-block partial rows added in a fixed order.
+template <typename T, int MODE>
+cudaError_t launch_with_sums(const void* x, const void* w, const float* bias, void* out,
+                             void* sums, void* scratch, int B, int T_, int F, int kt, int kf,
+                             int dt, cudaStream_t stream) {
+  FwdPlan p;
+  cudaError_t err = plan<T, MODE>(B, T_, F, kt, kf, dt, &p);
+  if (err != cudaSuccess) return err;
   const T* x_ = static_cast<const T*>(x);
   const T* w_ = static_cast<const T*>(w);
-  T* o_ = static_cast<T*>(out);
-  switch (kf) {
-    case 1: conv_dilated_fwd_kernel<T, 1><<<p.blocks, kThreads, p.smem, stream>>>(x_, w_, o_, p.work); break;
-    case 3: conv_dilated_fwd_kernel<T, 3><<<p.blocks, kThreads, p.smem, stream>>>(x_, w_, o_, p.work); break;
-    default: conv_dilated_fwd_kernel<T, 5><<<p.blocks, kThreads, p.smem, stream>>>(x_, w_, o_, p.work); break;
-  }
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_dgrad(const void* d_raw, const void* w, void* dx, void* dbias, void* scratch,
-                         int B, int T_, int F, int kt, int kf, int dt, cudaStream_t stream) {
-  FwdPlan p;
-  cudaError_t err = plan<T, kFwdDgrad>(B, T_, F, kt, kf, dt, &p);
-  if (err != cudaSuccess) return err;
-  const T* d_ = static_cast<const T*>(d_raw);
-  const T* w_ = static_cast<const T*>(w);
-  T* o_ = static_cast<T*>(dx);
   float* partials = static_cast<float*>(scratch);
-  switch (kf) {
-    case 1: conv_dgrad_kernel<T, 1><<<p.blocks, kThreads, p.smem, stream>>>(d_, w_, o_, partials, p.work); break;
-    case 3: conv_dgrad_kernel<T, 3><<<p.blocks, kThreads, p.smem, stream>>>(d_, w_, o_, partials, p.work); break;
-    default: conv_dgrad_kernel<T, 5><<<p.blocks, kThreads, p.smem, stream>>>(d_, w_, o_, partials, p.work); break;
+  if constexpr (MODE == kFwdChain) {
+    err = launch_body<T, MODE>(p, kf, stream, x_, w_, bias, static_cast<T*>(out), partials);
+  } else {
+    err = launch_body<T, MODE>(p, kf, stream, x_, w_, static_cast<T*>(out), partials);
   }
-  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  reduce_rows_kernel<32><<<(kC + 31) / 32, dim3(32, 32), 0, stream>>>(partials, p.blocks, kC,
-                                                                       static_cast<float*>(dbias));
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_chain(const void* y, const void* w, const void* bias, void* raw, void* stats,
-                         void* scratch, int B, int T_, int F, int kt, int kf, int dt,
-                         cudaStream_t stream) {
-  FwdPlan p;
-  cudaError_t err = plan<T, kFwdChain>(B, T_, F, kt, kf, dt, &p);
-  if (err != cudaSuccess) return err;
-  const T* y_ = static_cast<const T*>(y);
-  const T* w_ = static_cast<const T*>(w);
-  const float* b_ = static_cast<const float*>(bias);
-  T* o_ = static_cast<T*>(raw);
-  float* partials = static_cast<float*>(scratch);
-  switch (kf) {
-    case 1: conv_bn_act_fwd_kernel<T, 1><<<p.blocks, kThreads, p.smem, stream>>>(y_, w_, b_, o_, partials, p.work); break;
-    case 3: conv_bn_act_fwd_kernel<T, 3><<<p.blocks, kThreads, p.smem, stream>>>(y_, w_, b_, o_, partials, p.work); break;
-    default: conv_bn_act_fwd_kernel<T, 5><<<p.blocks, kThreads, p.smem, stream>>>(y_, w_, b_, o_, partials, p.work); break;
-  }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  reduce_rows_kernel<32><<<(2 * kC + 31) / 32, dim3(32, 32), 0, stream>>>(
-      partials, p.blocks, 2 * kC, static_cast<float*>(stats));
+  const int width = MODE == kFwdChain ? 2 * kC : kC;
+  reduce_rows_kernel<32><<<(width + 31) / 32, dim3(32, 32), 0, stream>>>(
+      partials, p.blocks, width, static_cast<float*>(sums));
   return cudaGetLastError();
 }
 
@@ -747,17 +729,21 @@ extern "C" int conv_bn_act_fwd(const void* y, const void* w, const void* bias, v
                                void* stats, void* scratch, int B, int T, int F, int kt, int kf,
                                int dt, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_chain<__nv_bfloat16>(y, w, bias, raw, stats, scratch, B, T, F, kt, kf, dt, s)
-              : launch_chain<float>(y, w, bias, raw, stats, scratch, B, T, F, kt, kf, dt, s);
+  const float* b = static_cast<const float*>(bias);
+  return bf16 ? launch_with_sums<__nv_bfloat16, kFwdChain>(y, w, b, raw, stats, scratch, B, T, F,
+                                                           kt, kf, dt, s)
+              : launch_with_sums<float, kFwdChain>(y, w, b, raw, stats, scratch, B, T, F, kt, kf,
+                                                   dt, s);
 }
 
 extern "C" int conv_dgrad(const void* d_raw, const void* w_flipped, void* dx, void* dbias,
                           void* scratch, int B, int T, int F, int kt, int kf, int dt, int bf16,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_dgrad<__nv_bfloat16>(d_raw, w_flipped, dx, dbias, scratch, B, T, F, kt, kf,
-                                            dt, s)
-              : launch_dgrad<float>(d_raw, w_flipped, dx, dbias, scratch, B, T, F, kt, kf, dt, s);
+  return bf16 ? launch_with_sums<__nv_bfloat16, kFwdDgrad>(d_raw, w_flipped, nullptr, dx, dbias,
+                                                           scratch, B, T, F, kt, kf, dt, s)
+              : launch_with_sums<float, kFwdDgrad>(d_raw, w_flipped, nullptr, dx, dbias, scratch, B,
+                                                   T, F, kt, kf, dt, s);
 }
 
 // Launch shape of conv_dilated_fwd (mode 0), conv_dgrad (mode 1) or

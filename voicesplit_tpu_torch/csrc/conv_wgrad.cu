@@ -638,7 +638,8 @@ extern "C" int conv_wgrad(const void* y, const void* d, void* dw, void* scratch,
               : launch_wgrad<float>(y, d, dw, scratch, B, T, F, kt, kf, dt, s);
 }
 
-// y = round(act(float(x) * inv[c] + shift[c])), act 1 mish or 2 relu.
+// y = round(act(float(x) * inv[c] + shift[c])), act 1 mish or 2 relu; also
+// the input of conv_bn_act_fwd (conv_fwd.cu) on a layer with a prologue.
 extern "C" int conv_wgrad_prologue(const void* x, const void* scal, void* y, int B, int T, int F,
                                    int act, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -325,6 +325,25 @@ def lstm_bwd_bound(directions: int, batch: int, dtype: str) -> dict:
     }
 
 
+def lstm_dwhh_bound(directions: int, batch: int, dtype: str) -> dict:
+    """The same for the dW_hh kernel alone: hs (and h0 for one direction)
+    and dxp read once, dW_hh written once, its product at the operand
+    type's peak."""
+    T, H, R = T_FRAMES, HIDDEN, directions * batch
+    op_bytes = 2 if dtype == "bfloat16" else 4
+    bytes_ = (
+        T * R * H * 4  # hs
+        + (R * H * 4 if directions == 1 else 0)  # h0
+        + T * R * 4 * H * op_bytes  # dxp
+        + directions * H * 4 * H * 4  # dW_hh
+    )
+    flops = 2 * T * R * H * 4 * H
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return {"bytes": bytes_, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def phase_device(torch) -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -483,6 +502,7 @@ def phase_bwd_kernels(torch, lstm_cuda, seed: int) -> dict:
                     outs = ("dxp", "dwhh_f", "dwhh_b")
                     kernel, plain = lstm_cuda.bilstm_bwd, lstm_cuda.bilstm_bwd_ref
                 got = kernel(*args)
+                again = kernel(*args)
                 want = plain(*args)
                 torch.cuda.synchronize()
             errs, rel = {}, {}
@@ -490,14 +510,22 @@ def phase_bwd_kernels(torch, lstm_cuda, seed: int) -> dict:
                 errs[k] = (a.float() - b.float()).abs().max().item()
                 rel[k] = errs[k] / b.float().abs().max().item()
             finite = all(torch.isfinite(a).all().item() for a in got)
+            same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
             err = max(rel.values())
             entry[dt] = {"max_abs_err": max(errs.values()), "max_peak_rel_err": err,
-                         "errors": errs, "peak_rel_errors": rel, "tol_peak_rel": TOL[dt]}
+                         "errors": errs, "peak_rel_errors": rel, "tol_peak_rel": TOL[dt],
+                         "same_bits_twice": same_bits}
             check(finite, f"{name} {dt}: non-finite output")
             check(err <= TOL[dt], f"{name} {dt}: peak-relative err {err} > {TOL[dt]}")
+            check(same_bits, f"{name} {dt}: two launches on the same inputs differ")
+            # the dW_hh kernel alone, on this call's dxp (the walk is the rest)
+            h_init = states[0] if directions == 1 else None
+            dwhh = lambda: lstm_cuda.lstm_dwhh(hs, h_init, got[0], directions, dtype)  # noqa: E731
             with torch.inference_mode():
                 entry[dt]["ms"] = time_ms(torch, lambda: kernel(*args), iters=20)
+                entry[dt]["dwhh_ms"] = time_ms(torch, dwhh, iters=20)
                 entry[dt]["plain_ms"] = time_ms(torch, lambda: plain(*args), iters=3, warmup=1)
+            entry[dt]["dwhh_bound"] = lstm_dwhh_bound(directions, batch, dt)
         # yardstick: .backward() alone of a cuDNN LSTM over the model's LSTM
         # input (it also computes the input projection's gradients)
         lstm = torch.nn.LSTM(IN_FEATURES, H, batch_first=True, bidirectional=directions == 2)
@@ -1530,7 +1558,7 @@ PORT_KERNEL_KINDS = (
     # the weight gradient of both conv paths
     ("conv weight-gradient kernels", ("conv_wgrad_kernel", "conv_wgrad_kf1_kernel",
                                       "reduce_taps_kernel")),
-    ("lstm kernels", ("lstm_fwd_kernel", "lstm_bwd_kernel")),
+    ("lstm kernels", ("lstm_fwd_kernel", "lstm_bwd_kernel", "lstm_dwhh_kernel")),
 )
 LIBRARY_KERNEL_KINDS = (
     ("convs", ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad")),

@@ -1,0 +1,146 @@
+#!/usr/bin/env python3
+"""Times the PyTorch port's LSTM kernel wrappers on the card.
+
+    python3 scripts/port_lstm_times.py [--root DIR] [--tag NAME] [--iters 20] [--library]
+
+Imports `voicesplit_tpu_torch` from DIR (default: this checkout) and builds
+its kernels there, so that an older tree unpacked with ``git archive`` into
+a git-ignored directory is timed by the same script in the same call (run
+parent, change, change, parent).  It uses only the wrappers' public calls,
+which are the same in every tree since the port's second slice, at the
+shapes of their paths (T=301 frames, H=400 units):
+
+- ``lstm_cuda.lstm_fwd`` at B=1 (serving) and B=2 (training), one direction;
+- ``lstm_cuda.bilstm_fwd`` at B=8, both directions;
+- ``lstm_cuda.lstm_bwd`` at B=2 and ``lstm_cuda.bilstm_bwd`` at B=8, on the
+  forward kernel's outputs and random cotangents;
+- where the tree has it, ``lstm_cuda.lstm_dwhh``, the dW_hh kernel that the
+  two backward wrappers launch after their reverse walk, alone on the same
+  inputs (``walk_ms`` is then the backward's time less it);
+
+with bf16 and fp32 operands.  ``--library`` adds cuDNN's ``torch.nn.LSTM``
+(bf16) over the model's LSTM input, forward and ``.backward()`` alone, which
+the port never calls (both also cover the input projection).  Each time is
+the mean of ``--iters`` calls after two warm ones, between CUDA events.
+Prints one JSON line with the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+T_FRAMES, HIDDEN, IN_FEATURES = 301, 400, 8 * 601 + 256
+FORWARD = {"lstm_fwd_B1": (1, 1), "lstm_fwd_B2": (1, 2), "bilstm_fwd_B8": (2, 8)}
+BACKWARD = {"lstm_bwd_B2": (1, 2), "bilstm_bwd_B8": (2, 8)}
+
+
+def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    parser.add_argument("--tag", default="")
+    parser.add_argument("--iters", type=int, default=20)
+    parser.add_argument("--library", action="store_true")
+    args = parser.parse_args(argv)
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("port_lstm_times: no CUDA device", file=sys.stderr)
+        return 1
+    from voicesplit_tpu_torch.ops import _build, lstm_cuda
+
+    if not Path(lstm_cuda.__file__).resolve().is_relative_to(root):
+        print(f"port_lstm_times: imported {lstm_cuda.__file__}, not from {root}", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.library()
+    build_s = time.perf_counter() - t0
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    dev = torch.device("cuda")
+    T, H = T_FRAMES, HIDDEN
+    s = H ** -0.5
+    dwhh = getattr(lstm_cuda, "lstm_dwhh", None)
+    times: dict = {}
+    for dt in ("bfloat16", "float32"):
+        dtype = getattr(torch, dt)
+        g = torch.Generator(device="cpu").manual_seed(0)
+        entry = times[dt] = {}
+        for key, (d, b) in {**FORWARD, **BACKWARD}.items():
+            R = d * b
+            xp = torch.randn(T, R, 4 * H, generator=g).to(dev, dtype)
+            ws = [torch.empty(H, 4 * H).uniform_(-s, s, generator=g).to(dev, dtype) for _ in range(d)]
+            h0, c0, dhf, dcf = (torch.randn(R, H, generator=g).to(dev) for _ in range(4))
+            dhs = torch.randn(T, R, H, generator=g).to(dev)
+            with torch.inference_mode():
+                if d == 1:
+                    fwd = lambda: lstm_cuda.lstm_fwd(xp, ws[0], h0, c0)  # noqa: E731
+                else:
+                    fwd = lambda: lstm_cuda.bilstm_fwd(xp, ws[0], ws[1])  # noqa: E731
+                if key in FORWARD:
+                    entry[key] = time_ms(torch, fwd, args.iters)
+                    continue
+                hs, cs, gates = fwd()
+                if d == 1:
+                    bwd = lambda: lstm_cuda.lstm_bwd(  # noqa: E731
+                        ws[0], gates, cs, hs, h0, c0, dhs, dhf, dcf, dtype)
+                    dxp = bwd()[0]
+                else:
+                    bwd = lambda: lstm_cuda.bilstm_bwd(ws[0], ws[1], gates, cs, hs, dhs, dtype)  # noqa: E731
+                    dxp = bwd()[0]
+                entry[key] = time_ms(torch, bwd, args.iters)
+                if dwhh is not None:
+                    h_init = h0 if d == 1 else None
+                    entry[f"{key}/dwhh"] = time_ms(
+                        torch, lambda: dwhh(hs, h_init, dxp, d, dtype), args.iters)
+                    entry[f"{key}/walk"] = entry[key] - entry[f"{key}/dwhh"]
+            del xp, ws, dhs
+        torch.cuda.empty_cache()
+
+    report = {"tag": args.tag, "root": str(root), "device": torch.cuda.get_device_name(0),
+              "nvidia_smi": smi, "build_seconds": build_s, "iters": args.iters, "T": T, "H": H,
+              "ms": times}
+    if args.library:
+        g = torch.Generator(device="cpu").manual_seed(1)
+        library = report["library_ms"] = {}
+        for key, (d, b) in {**FORWARD, **BACKWARD}.items():
+            lstm = torch.nn.LSTM(IN_FEATURES, H, batch_first=True, bidirectional=d == 2)
+            lstm = lstm.to(dev, torch.bfloat16)
+            x = torch.randn(b, T, IN_FEATURES, generator=g).to(dev, torch.bfloat16)
+            if key in FORWARD:
+                with torch.inference_mode():
+                    library[key] = time_ms(torch, lambda: lstm(x), args.iters)
+            else:
+                x.requires_grad_(True)
+                out, _ = lstm(x)
+                cot = torch.randn_like(out)
+                library[key] = time_ms(
+                    torch, lambda: out.backward(cot, retain_graph=True), args.iters)
+    print(json.dumps(report))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

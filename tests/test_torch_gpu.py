@@ -117,13 +117,15 @@ def test_separate_runs_through_the_kernels_on_card(batch):
     assert lstm_cuda.LAUNCHES == {**want, "lstm_bwd": 0, "bilstm_bwd": 0}  # serving: no backward
 
 
-def _backward_inputs(bidirectional, dtype, T=301, H=400, seed=0):
+def _backward_inputs(bidirectional, dtype, T=301, H=400, B=None, seed=0):
     """Forward outputs of the plain version on the card, and random
-    cotangents, at the training path's shapes (B=2 one direction, B=8 two)."""
+    cotangents, by default at the training path's shapes (B=2 one
+    direction, B=8 two)."""
     from voicesplit_tpu_torch.ops import lstm_cuda
 
     g = torch.Generator().manual_seed(seed)
-    B = 8 if bidirectional else 2
+    if B is None:
+        B = 8 if bidirectional else 2
     R = 2 * B if bidirectional else B
     dt = getattr(torch, dtype)
     xp = torch.randn(T, R, 4 * H, generator=g).to("cuda", dt)
@@ -159,6 +161,63 @@ def test_lstm_backward_kernels_match_plain_versions_on_card(dtype, bidirectional
     tol = 1e-4 if dtype == "float32" else 2e-2
     for a, b in zip(got, want):
         assert bool(torch.isfinite(a).all())
+        assert (a.float() - b.float()).abs().max().item() <= tol * b.float().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bidirectional", [False, True])
+def test_lstm_dwhh_kernel_matches_plain_version_on_card(dtype, bidirectional):
+    """The dW_hh kernel alone at the training path's shapes (B=2 one
+    direction from (h0, c0), B=8 two from the zero state): both sides
+    multiply the same rounded operands and accumulate in fp32, so only the
+    order of the sum over T * B rows (up to 2,408) differs, in either
+    operand type: 1e-4 of the peak, as the fp32 backward's."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import lstm_cuda
+
+    args = _backward_inputs(bidirectional, dtype)
+    dt = getattr(torch, dtype)
+    if bidirectional:
+        hs, h0, directions = args[4], None, 2
+    else:
+        hs, h0, directions = args[3], args[4], 1
+    g = torch.Generator().manual_seed(1)
+    dg = torch.randn(*hs.shape[:2], 4 * hs.shape[2], generator=g).to("cuda", dt)
+    before = dict(lstm_cuda.LAUNCHES)
+    got = lstm_cuda.lstm_dwhh(hs, h0, dg, directions, dt)
+    want = lstm_cuda.lstm_dwhh_ref(hs, h0, dg, directions, dt)
+    again = lstm_cuda.lstm_dwhh(hs, h0, dg, directions, dt)
+    torch.cuda.synchronize()
+    assert lstm_cuda.LAUNCHES == before  # counted by the backward call that launches it
+    for a, b, c in zip(got, want, again):
+        assert bool(torch.isfinite(a).all()) and torch.equal(a, c)
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+# shapes the path does not take: units not a multiple of the blocks that
+# share them (H = 40: some blocks own none), one and three rows, one step
+ODD_SHAPES = [(1, 1, 40), (7, 1, 40), (7, 3, 40), (5, 3, 24)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ODD_SHAPES, ids=lambda s: "T{}-B{}-H{}".format(*s))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bidirectional", [False, True])
+def test_lstm_backward_kernels_at_odd_shapes_on_card(bidirectional, dtype, shape):
+    _need_card()
+    from voicesplit_tpu_torch.ops import lstm_cuda
+
+    T, B, H = shape
+    args = _backward_inputs(bidirectional, dtype, T=T, H=H, B=B, seed=T + B)
+    name = "bilstm_bwd" if bidirectional else "lstm_bwd"
+    kernel, plain = getattr(lstm_cuda, name), getattr(lstm_cuda, name + "_ref")
+    with torch.inference_mode():
+        got, again, want = kernel(*args), kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == "float32" else 2e-2  # as at the path's shapes
+    for a, b, c in zip(got, want, again):
+        assert bool(torch.isfinite(a).all()) and torch.equal(a, c)
         assert (a.float() - b.float()).abs().max().item() <= tol * b.float().abs().max().item()
 
 

@@ -3,7 +3,8 @@
 // conv_wgrad.cu: the weight-gradient kernels and the chain's prologue pass):
 // channels, tile widths, operand types, the prologue's activation, ldmatrix,
 // mma.sync, cp.async, occupancy, launch-shape checks and the fixed-order
-// reduction of per-block partial rows.
+// reduction of per-block partial rows.  lstm_bwd.cu takes its ldmatrix and
+// mma.sync pieces from here too, for the dW_hh product.
 //
 // Each .cu that includes this file is compiled on its own and defines its
 // own __global__ kernels; everything here has internal linkage.  Each

@@ -17,53 +17,55 @@
 //   dgates = [dct g i(1-i), dct c[t-1] f(1-f), dct i (1-g^2), dh tc o(1-o)]
 //   dc    <- dct * f
 //   dh_rec <- round(dgates) . W_hh[j, :]^T            (all 4H columns)
-//   dW_hh[j, :] += round(h[t-1, r, j]) * round(dgates[r, :])
+// and, off the sequential chain, for each direction d over its rows:
+//   dW_d[j, q] = sum_{t, r} round(h[t-1, r, j]) * round(dgates[t, r, q])
 // where round() casts to the operand type (bf16 or fp32) as the Pallas
 // kernel does before its matrix products, and every product accumulates in
 // fp32.  dxp = dgates in the operand type; dW_hh is fp32.  h[t-1] and
 // c[t-1] are read in place from the forward's hs and cs (h0 and c0 at
 // t = 0), so the shifted copies the JAX wrapper builds are not needed.
 //
-// Design: a persistent cooperative kernel, one block per U = ceil(H/#SMs)
-// hidden units (U = 4 at H = 400 on 132 SMs: 100 blocks), one grid-wide
-// barrier per step, as in lstm_fwd.cu.  What differs from the forward:
-//   - The recurrent product runs the other way: dh_rec[j] needs row j of
-//     W_hh across all 4H gate columns, so a block keeps the ROWS of W_hh
-//     for its units in shared memory (U x 4H: 12.8 KB per direction in
-//     bf16 at H = 400).
-//   - dgates[t+1] of all units is needed by every block.  The owning
-//     block writes it to dxp (which has the operand type, so dxp IS the
-//     rounded product operand); after the barrier every block stages all
-//     of it, R x 4H, through L2 (__ldcg, 8 rows at a time) into shared
-//     memory.
-//   - dW_hh = sum_t h[t-1]^T dgates[t] lies off the sequential chain.  It
-//     is accumulated in the walk, in shared memory: the staged dgates[t+1]
-//     rows are exactly what the block's own rows of dW_hh (its U units x
-//     4H columns, fp32, 25.6 KB per direction) need, so the product reuses
-//     the reads the recurrence makes anyway, each block owns distinct rows
-//     (no atomics), and dW_hh is written once at the end.  A second tiled
-//     kernel over all T*R rows would read h and dgates from device memory
-//     once more; this one reads nothing extra.
-//   - Step order, after the barrier of step t+1: stage dgates[t+1], form
-//     dh_rec for own units and add round(h[t]) x dgates[t+1] into dW_hh,
-//     then compute own 4U columns of dgates[t] (dc carried in shared
-//     memory) and write them to dxp[t].  After step 0, one more staging
-//     gives dh0 and the h0 term of dW_hh (one direction only: the
-//     two-direction kernel starts from zero state, whose terms are zero).
-// R = D * B rows; CUDA-core FMAs: one warp per dh_prev dot product (four
-// partial sums per lane, warp-shuffle reduction), and for dW_hh each
-// thread owns columns q of the block's rows, so the loop carries no index
-// division.  Tensor-core products, fewer barriers and CUDA graphs are
-// later work.
+// Two kernels, launched one after the other by the same C function:
 //
-// What bounds it on the card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16 dense),
+// lstm_bwd_kernel, the reverse walk: a persistent cooperative kernel, one
+// block per U = ceil(H/#SMs) hidden units (U = 4 at H = 400 on 132 SMs: 100
+// blocks), one grid-wide barrier per step, as in lstm_fwd.cu.
+//   - The recurrent product runs the other way from the forward's: dh_rec[j]
+//     needs row j of W_hh across all 4H gate columns, so a block keeps the
+//     ROWS of W_hh for its units in shared memory (U x 4H: 12.8 KB per
+//     direction in bf16 at H = 400).
+//   - dgates[t+1] of all units is needed by every block.  The owning block
+//     writes it to dxp (which has the operand type, so dxp IS the rounded
+//     product operand); after the barrier every block stages all of it,
+//     R x 4H, through L2 (__ldcg, 8 rows at a time) into shared memory and
+//     forms dh_rec for its own units, then computes its own 4U columns of
+//     dgates[t] (dc carried in shared memory) and writes them to dxp[t].
+//     After step 0, one more staging gives dh0 (one direction).
+//   R = D * B rows; CUDA-core FMAs: one warp per dh_prev dot product (four
+//   partial sums per lane, warp-shuffle reduction).
+//
+// lstm_dwhh_kernel, dW_hh after the walk: one product of M = H by N = 4H
+// with depth K = T * B per direction over the saved hs (h0 at t = 0) and
+// dxp, so the walk carries no dW work on its sequential chain.  Blocks of
+// 64 units x 64 gate columns, grid (ceil(H/64), ceil(4H/64), D): 175 blocks
+// a direction at H = 400.  Each block walks K in chunks of 32 rows; every
+// thread loads its 8 elements of the next chunk into registers while the
+// block multiplies the current one, h rounded to the operand type on its
+// way into shared memory.  bf16: mma.sync.m16n8k16 with ldmatrix.trans of
+// both operands (the fragment code of conv_wgrad.cu), fp32 accumulate;
+// fp32: FMAs on CUDA cores (not TF32).  Each output belongs to one block
+// and sums its K rows in order: the same inputs give the same bits.
+//
+// What bounds them on the card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16 dense),
 // counting each input byte read once and each output byte written once,
 // both products at the bf16 rate:
 //   lstm_bwd,  B = 2, T = 301, H = 400, bf16: ~12.5 MB and 1.54 GFLOP
 //              -> memory-bound, ~3.7 us; launched twice per training step.
 //   bilstm_bwd, B = 8 (16 rows), bf16: ~77 MB and 12.3 GFLOP
 //              -> memory-bound, ~23 us; launched once per training step.
-// The real limit of this design is neither: it is the T = 301 dependent
+//   dW_hh alone: ~5.5 MB / 0.77 GFLOP at B = 2 and ~17 MB / 6.2 GFLOP at
+//              B = 8, memory-bound at ~1.6 and ~5 us.
+// The real limit of the walk is neither: it is the T = 301 dependent
 // steps, each ending in one grid-wide barrier, and the per-step CUDA-core
 // products.
 
@@ -74,16 +76,14 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "conv_tile.cuh"  // kThreads, to_float, align16, ldmatrix, mma.sync, sm_count
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;          // dot products per pass, one per warp
 constexpr int kRowChunk = 8;                   // rows of dgates staged at a time
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
@@ -95,16 +95,12 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_float(from_float<T>(x));
 }
 
-__host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
-
 // Shared memory: W_hh rows [D][U][4H] (T), staged dgates [kRowChunk][4H]
-// (T), dW_hh rows [D][U][4H] (fp32), then [R][U] fp32 each for the rounded
-// h of the staged step, the recurrent dh and the carried dc.
+// (T), then [R][U] fp32 each for the recurrent dh and the carried dc.
 template <typename T>
 __host__ __device__ constexpr size_t smem_bytes(int D, int R, int H, int U) {
   return align16(size_t(D) * U * 4 * H * sizeof(T)) +
-         align16(size_t(kRowChunk) * 4 * H * sizeof(T)) +
-         (size_t(D) * U * 4 * H + 3 * size_t(R) * U) * sizeof(float);
+         align16(size_t(kRowChunk) * 4 * H * sizeof(T)) + 2 * size_t(R) * U * sizeof(float);
 }
 
 template <typename T, int D>
@@ -113,15 +109,11 @@ lstm_bwd_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
                 const T* __restrict__ w1,        // [H, 4H], rows [B, 2B) (D == 2)
                 const float* __restrict__ gates, // [T, R, 4H] activated
                 const float* __restrict__ cs,    // [T, R, H]
-                const float* __restrict__ hs,    // [T, R, H]
-                const float* __restrict__ h0,    // [R, H] or null (zero state)
                 const float* __restrict__ c0,    // [R, H] or null (zero state)
                 const float* __restrict__ dhs,   // [T, R, H]
                 const float* __restrict__ dhf,   // [R, H] or null (zero)
                 const float* __restrict__ dcf,   // [R, H] or null (zero)
                 T* dxp,                          // [T, R, 4H]; read back across blocks
-                float* __restrict__ dw0,         // [H, 4H]
-                float* __restrict__ dw1,         // [H, 4H] (D == 2)
                 float* __restrict__ dh0,         // [R, H] or null
                 float* __restrict__ dc0,         // [R, H] or null
                 int T_, int B, int H, int U) {
@@ -130,19 +122,17 @@ lstm_bwd_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
   const int G4 = 4 * H;  // gate columns of one row
   const int u0 = blockIdx.x * U;
   const int tid = threadIdx.x;
-  const int n_w = D * U * G4;  // shared elements of W_hh rows and of dW_hh rows
+  const int n_w = D * U * G4;  // shared elements of W_hh rows
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* w_s = reinterpret_cast<T*>(smem_raw);  // [D][U][4H]
   unsigned char* p = smem_raw + align16(size_t(n_w) * sizeof(T));
   T* dg_s = reinterpret_cast<T*>(p);  // [kRowChunk][4H]
   p += align16(size_t(kRowChunk) * G4 * sizeof(T));
-  float* dw_s = reinterpret_cast<float*>(p);  // [D][U][4H]
-  float* hr_s = dw_s + n_w;                   // [R][U]
-  float* dhr_s = hr_s + size_t(R) * U;        // [R][U]
-  float* dc_s = dhr_s + size_t(R) * U;        // [R][U]
+  float* dhr_s = reinterpret_cast<float*>(p);  // [R][U]
+  float* dc_s = dhr_s + size_t(R) * U;         // [R][U]
 
-  // This block's rows of each W_hh (contiguous in device memory), zeroed dW.
+  // This block's rows of each W_hh (contiguous in device memory).
   for (int e = tid; e < n_w; e += kThreads) {
     const int d = e / (U * G4);
     const int u = (e / G4) % U;
@@ -150,7 +140,6 @@ lstm_bwd_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
     const int j = u0 + u;
     const T* W = d ? w1 : w0;
     w_s[e] = j < H ? W[size_t(j) * G4 + q] : from_float<T>(0.0f);
-    dw_s[e] = 0.0f;
   }
   for (int e = tid; e < R * U; e += kThreads) {
     const int r = e / U, j = u0 + e % U;
@@ -162,21 +151,9 @@ lstm_bwd_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
 
   const int warp = tid / 32, lane = tid % 32;
   // s is the step whose dgates are staged; t = s - 1 is the step computed.
+  // Step 0's dgates are staged only for dh0 (one direction).
   for (int s = T_; s >= 0; --s) {
     if (s < T_ && (D == 1 || s > 0)) {
-      // round(h[s-1]) of own units: the h_prev of step s, for dW_hh
-      for (int e = tid; e < R * U; e += kThreads) {
-        const int r = e / U, j = u0 + e % U;
-        float h = 0.0f;
-        if (j < H) {
-          if (s > 0) {
-            h = hs[(size_t(s - 1) * R + r) * H + j];
-          } else if (h0 != nullptr) {
-            h = h0[size_t(r) * H + j];
-          }
-        }
-        hr_s[e] = round_to<T>(h);
-      }
       const T* dg_step = dxp + size_t(s) * R * G4;
       for (int r0 = 0; r0 < R; r0 += kRowChunk) {
         const int rc = min(kRowChunk, R - r0);
@@ -208,22 +185,6 @@ lstm_bwd_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
           float acc = (a0 + a1) + (a2 + a3);
           for (int m = 16; m > 0; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
           if (lane == 0) dhr_s[size_t(r0) * U + o] = acc;
-        }
-
-        // dW[d][u][q] += sum over staged rows r of direction d: hr[r, u] * dgates[r, q]
-        for (int d = 0; d < D; ++d) {
-          const int r_lo = max(r0, d * B), r_hi = min(r0 + rc, D == 2 ? (d + 1) * B : R);
-          if (r_lo >= r_hi) continue;
-          for (int u = 0; u < U; ++u) {
-            float* dw = dw_s + (size_t(d) * U + u) * G4;
-            for (int q = tid; q < G4; q += kThreads) {
-              float acc = dw[q];
-              for (int r = r_lo; r < r_hi; ++r) {
-                acc = fmaf(hr_s[r * U + u], to_float(dg_s[size_t(r - r0) * G4 + q]), acc);
-              }
-              dw[q] = acc;
-            }
-          }
         }
         __syncthreads();  // before the next chunk overwrites dg_s
       }
@@ -266,26 +227,147 @@ lstm_bwd_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
       dc0[size_t(r) * H + j] = dc_s[e];
     }
   }
-  for (int e = tid; e < n_w; e += kThreads) {
-    const int d = e / (U * G4);
-    const int u = (e / G4) % U;
-    const int q = e % G4;
-    const int j = u0 + u;
-    if (j < H) (d ? dw1 : dw0)[size_t(j) * G4 + q] = dw_s[e];
+}
+
+// ---------------------------------------------------------------------------
+// dW_hh after the walk
+// ---------------------------------------------------------------------------
+
+constexpr int kDwTile = 64;   // units j and gate columns q of a block's dW tile
+constexpr int kDwK = 32;      // rows (t, r) staged per chunk
+constexpr int kDwPer = kDwK * kDwTile / kThreads;  // elements of each operand a thread stages
+template <typename T> struct DwLd {  // tile row stride in shared memory: + 16 bytes
+  static constexpr int value = kDwTile + 16 / int(sizeof(T));
+};
+
+// dW_d[j, q] = sum over k = (t, r) of round(h_prev[t, r, j]) * dxp[t, r, q]
+// for the B rows r of direction d = blockIdx.z; grid (ceil(H/64),
+// ceil(4H/64), D).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+lstm_dwhh_kernel(const float* __restrict__ hs,  // [T, R, H]
+                 const float* __restrict__ h0,  // [R, H] or null (zero state)
+                 const T* __restrict__ dxp,     // [T, R, 4H]
+                 float* __restrict__ dw0,       // [H, 4H], rows [0, B)
+                 float* __restrict__ dw1,       // [H, 4H], rows [B, 2B) (D == 2)
+                 int T_, int B, int D, int H) {
+  constexpr int LD = DwLd<T>::value;
+  constexpr bool kTensorCore = sizeof(T) == 2;
+  __shared__ __align__(16) T h_s[kDwK * LD];  // round(h_prev)[k][j]
+  __shared__ __align__(16) T d_s[kDwK * LD];  // dgates[k][q]
+  const int d = blockIdx.z;
+  const int j0 = blockIdx.x * kDwTile, q0 = blockIdx.y * kDwTile;
+  const int R = D * B, G4 = 4 * H, K = T_ * B;
+  const int tid = threadIdx.x;
+
+  float hv[kDwPer];
+  T dv[kDwPer];
+  // rows [k0, k0 + kDwK) of both operands into registers; zeros outside
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < kDwPer; ++i) {
+      const int e = tid + i * kThreads;
+      const int k = k0 + e / kDwTile, c = e % kDwTile;
+      float h = 0.0f;
+      T g = from_float<T>(0.0f);
+      if (k < K) {
+        const int t = k / B, r = d * B + k % B;
+        if (j0 + c < H) {
+          if (t > 0) {
+            h = hs[(size_t(t - 1) * R + r) * H + j0 + c];
+          } else if (h0 != nullptr) {
+            h = h0[size_t(r) * H + j0 + c];
+          }
+        }
+        if (q0 + c < G4) g = dxp[(size_t(t) * R + r) * G4 + q0 + c];
+      }
+      hv[i] = h;
+      dv[i] = g;
+    }
+  };
+
+  // bf16: warp (wm, wn) owns units [16 wm, +16) x columns [32 wn, +32):
+  // acc[n8 tile][4].  fp32: thread owns unit tid / 4 x 16 columns.
+  float acc[4][4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) acc[k][0] = acc[k][1] = acc[k][2] = acc[k][3] = 0.0f;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int wm = warp & 3, wn = warp >> 2;
+
+  fetch(0);
+  for (int k0 = 0; k0 < K; k0 += kDwK) {
+    __syncthreads();  // everyone is done with the previous chunk
+#pragma unroll
+    for (int i = 0; i < kDwPer; ++i) {
+      const int e = tid + i * kThreads;
+      h_s[(e / kDwTile) * LD + e % kDwTile] = from_float<T>(hv[i]);
+      d_s[(e / kDwTile) * LD + e % kDwTile] = dv[i];
+    }
+    __syncthreads();
+    if (k0 + kDwK < K) fetch(k0 + kDwK);  // in flight while this chunk multiplies
+    if constexpr (kTensorCore) {
+#pragma unroll
+      for (int ks = 0; ks < kDwK / 16; ++ks) {
+        uint32_t bf[2][4];
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          ldmatrix_x4_trans(bf[np], d_s + (ks * 16 + (lane & 15)) * LD + wn * 32 + np * 16 +
+                                        (lane >> 4) * 8);
+        }
+        // A[m = unit][k = row] from h_s[row][unit]
+        uint32_t a[4];
+        ldmatrix_x4_trans(a, h_s + (ks * 16 + (lane & 7) + ((lane >> 4) & 1) * 8) * LD + wm * 16 +
+                                 ((lane >> 3) & 1) * 8);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          mma_bf16(acc[nt], a, bf[nt >> 1][(nt & 1) * 2], bf[nt >> 1][(nt & 1) * 2 + 1]);
+        }
+      }
+    } else {
+      const int c = tid >> 2, n0 = (tid & 3) * 16;
+#pragma unroll 4
+      for (int k = 0; k < kDwK; ++k) {
+        const float hk = to_float(h_s[k * LD + c]);
+#pragma unroll
+        for (int m = 0; m < 16; ++m) {
+          acc[m >> 2][m & 3] = fmaf(hk, to_float(d_s[k * LD + n0 + m]), acc[m >> 2][m & 3]);
+        }
+      }
+    }
+  }
+
+  float* dw = d ? dw1 : dw0;
+  if constexpr (kTensorCore) {
+    const int gr = lane >> 2, tig = lane & 3;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int q = q0 + wn * 32 + nt * 8 + 2 * tig;  // even, and 4H is even: q + 1 < 4H too
+      const int j = j0 + wm * 16 + gr;
+      if (q >= G4) continue;
+      if (j < H) *reinterpret_cast<float2*>(dw + size_t(j) * G4 + q) = make_float2(acc[nt][0], acc[nt][1]);
+      if (j + 8 < H) {
+        *reinterpret_cast<float2*>(dw + size_t(j + 8) * G4 + q) = make_float2(acc[nt][2], acc[nt][3]);
+      }
+    }
+  } else {
+    const int j = j0 + (tid >> 2), n0 = q0 + (tid & 3) * 16;
+    if (j < H) {
+#pragma unroll
+      for (int m = 0; m < 16; ++m) {
+        if (n0 + m < G4) dw[size_t(j) * G4 + n0 + m] = acc[m >> 2][m & 3];
+      }
+    }
   }
 }
+
+// ---------------------------------------------------------------------------
+// Launches
+// ---------------------------------------------------------------------------
 
 struct LaunchConfig {
   int blocks, units;
   size_t smem;
 };
-
-cudaError_t sm_count(int* sms) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-}
 
 template <typename T>
 cudaError_t launch_config(int D, int B, int H, LaunchConfig* cfg) {
@@ -298,6 +380,18 @@ cudaError_t launch_config(int D, int B, int H, LaunchConfig* cfg) {
   return cudaSuccess;
 }
 
+template <typename T>
+cudaError_t launch_dwhh(const void* hs, const void* h0, const void* dxp, void* dw0, void* dw1,
+                        int T_, int B, int D, int H, void* stream) {
+  if (T_ <= 0 || B <= 0 || H <= 0 || (D != 1 && D != 2)) return cudaErrorInvalidValue;
+  const dim3 grid((H + kDwTile - 1) / kDwTile, (4 * H + kDwTile - 1) / kDwTile, D);
+  lstm_dwhh_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(hs), static_cast<const float*>(h0), static_cast<const T*>(dxp),
+      static_cast<float*>(dw0), static_cast<float*>(dw1), T_, B, D, H);
+  return cudaGetLastError();
+}
+
+// The reverse walk, then dW_hh from its dxp.
 template <typename T, int D>
 cudaError_t launch(const void* w0, const void* w1, const void* gates, const void* cs,
                    const void* hs, const void* h0, const void* c0, const void* dhs,
@@ -322,24 +416,22 @@ cudaError_t launch(const void* w0, const void* w1, const void* gates, const void
   const T* w1_t = static_cast<const T*>(w1);
   const float* gates_t = static_cast<const float*>(gates);
   const float* cs_t = static_cast<const float*>(cs);
-  const float* hs_t = static_cast<const float*>(hs);
-  const float* h0_t = static_cast<const float*>(h0);
   const float* c0_t = static_cast<const float*>(c0);
   const float* dhs_t = static_cast<const float*>(dhs);
   const float* dhf_t = static_cast<const float*>(dhf);
   const float* dcf_t = static_cast<const float*>(dcf);
   T* dxp_t = static_cast<T*>(dxp);
-  float* dw0_t = static_cast<float*>(dw0);
-  float* dw1_t = static_cast<float*>(dw1);
   float* dh0_t = static_cast<float*>(dh0);
   float* dc0_t = static_cast<float*>(dc0);
   int units = cfg.units;
-  void* args[] = {&w0_t, &w1_t, &gates_t, &cs_t, &hs_t, &h0_t, &c0_t, &dhs_t, &dhf_t,
-                  &dcf_t, &dxp_t, &dw0_t, &dw1_t, &dh0_t, &dc0_t, &T_, &B, &H, &units};
+  void* args[] = {&w0_t, &w1_t, &gates_t, &cs_t, &c0_t, &dhs_t, &dhf_t, &dcf_t,
+                  &dxp_t, &dh0_t, &dc0_t, &T_, &B, &H, &units};
   err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(cfg.blocks), dim3(kThreads),
                                     args, cfg.smem, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_dwhh<T>(hs, h0, dxp, dw0, dw1, T_, B, D, H, stream);
 }
 
 }  // namespace
@@ -374,8 +466,18 @@ extern "C" int bilstm_bwd(const void* whh_f, const void* whh_b, const void* gate
                                  stream);
 }
 
-// Launch shape of the two functions above: blocks, units per block and
-// dynamic shared memory in bytes, for D directions of B rows each.
+// dW_hh alone, the second kernel of the two functions above: D directions
+// of B rows each; hs [T, D*B, H], h0 [D*B, H] or null (zero state), dxp
+// [T, D*B, 4H] in the operand type; dwhh_f (rows [0, B)) and, for D = 2,
+// dwhh_b (rows [B, 2B)) [H, 4H].
+extern "C" int lstm_dwhh(const void* hs, const void* h0, const void* dxp, void* dwhh_f,
+                         void* dwhh_b, int T, int B, int D, int H, int bf16, void* stream) {
+  return bf16 ? launch_dwhh<__nv_bfloat16>(hs, h0, dxp, dwhh_f, dwhh_b, T, B, D, H, stream)
+              : launch_dwhh<float>(hs, h0, dxp, dwhh_f, dwhh_b, T, B, D, H, stream);
+}
+
+// Launch shape of the walk: blocks, units per block and dynamic shared
+// memory in bytes, for D directions of B rows each.
 extern "C" int lstm_bwd_launch_config(int D, int B, int H, int bf16, int* blocks, int* units,
                                       long long* smem) {
   LaunchConfig cfg;

@@ -8,14 +8,17 @@ and return ``(hs, cs, gates)`` in float32, like the Pallas kernels.
 
 Backward (`csrc/lstm_bwd.cu`): ``lstm_bwd`` replaces ``_bwd_kernel`` and
 ``bilstm_bwd`` replaces ``_bwd2_kernel``: the reverse walk that gives
-``dxp`` (in the type of x), ``dW_hh`` (float32) and, for one direction,
-``dh0, dc0``.  They read ``hs[t-1]`` and ``cs[t-1]`` in place, where the
-JAX wrappers build shifted copies.  Each source's header says how the
-kernel is laid out and what bounds it.
+``dxp`` (in the type of x) and, for one direction, ``dh0, dc0``, then the
+dW_hh kernel (``lstm_dwhh``, float32 ``dW_hh`` from the saved ``hs`` and
+``dxp``), both launched by one call.  They read ``hs[t-1]`` and ``cs[t-1]``
+in place, where the JAX wrappers build shifted copies.  Each source's
+header says how the kernel is laid out and what bounds it.
 
 Dispatch: a CUDA tensor goes to the kernel, or the call raises; the plain
 versions (``*_ref``) run only for tensors on the CPU.  Each kernel launch
-adds one to ``LAUNCHES[name]``.  ``lstm_fwd`` / ``bilstm_fwd`` are
+adds one to ``LAUNCHES[name]`` (``lstm_bwd`` / ``bilstm_bwd`` count their
+call, which launches the walk and the dW_hh kernel; ``lstm_dwhh`` alone,
+which only tests and timings call, counts nothing).  ``lstm_fwd`` / ``bilstm_fwd`` are
 differentiable: their autograd backward runs ``lstm_bwd`` / ``bilstm_bwd``
 on the same dispatch rule.
 
@@ -53,6 +56,7 @@ def _library() -> ctypes.CDLL:
             "bilstm_fwd": [p] * 6 + [i] * 4 + [p],
             "lstm_bwd": [p] * 13 + [i] * 4 + [p],
             "bilstm_bwd": [p] * 9 + [i] * 4 + [p],
+            "lstm_dwhh": [p] * 5 + [i] * 5 + [p],
             "lstm_launch_config": [i, i, i, i, *out],
             "lstm_bwd_launch_config": [i, i, i, i, *out],
         })
@@ -126,22 +130,49 @@ def bilstm_fwd_ref(xp, whh_f, whh_b):
     return torch.stack(hs), torch.stack(cs), torch.stack(gates)
 
 
+def lstm_dwhh_ref(hs, h0, dg, directions, dtype):
+    """dW_hh of `directions` directions of B = R / directions rows each:
+    ``dW_d = sum_t round(h_prev[t, rows_d])^T @ round(dg[t, rows_d])`` with
+    ``h_prev[t] = hs[t-1]`` (``h0`` at t = 0; None is the zero state) and
+    round() the cast to `dtype` (W_hh's type), accumulated in fp32 from the
+    last step to the first, as the reverse walk of `_bwd_kernel` /
+    `_bwd2_kernel` adds it.  ``hs [T, R, H]`` fp32, ``dg [T, R, 4H]`` (the
+    dgates, or dxp) → a tuple of ``[H, 4H]`` fp32, one per direction."""
+    T, R, H = hs.shape
+    B = R // directions
+    rows = [slice(d * B, (d + 1) * B) for d in range(directions)]
+    dws = [torch.zeros(H, 4 * H, dtype=torch.float32, device=hs.device) for _ in rows]
+    for t in range(T - 1, -1, -1):
+        if t:
+            h_prev = hs[t - 1]
+        elif h0 is not None:
+            h_prev = h0.float()
+        else:
+            continue  # the zero state adds nothing
+        hr = h_prev.to(dtype).float()
+        dgr = dg[t].to(dtype).float()
+        for r, dw in zip(rows, dws):
+            dw += hr[r].t() @ dgr[r]
+    return tuple(dws)
+
+
 def _bwd_ref(ws, gates, cs, hs, h0, c0, dhs, dhf, dcf, x_dtype):
     """The reverse walk of `_bwd_kernel` / `_bwd2_kernel` for D = len(ws)
-    directions of B = R / D rows each (row block d uses ``ws[d]``)."""
+    directions of B = R / D rows each (row block d uses ``ws[d]``), then
+    dW_hh from `lstm_dwhh_ref`, as the kernels split it."""
     T, R, G = gates.shape
     H = G // 4
     D = len(ws)
     B = R // D
     op = ws[0].dtype
     wf = [w.float() for w in ws]
-    dws = [torch.zeros(H, G, dtype=torch.float32, device=gates.device) for _ in ws]
     dxp = torch.empty(T, R, G, dtype=x_dtype, device=gates.device)
+    dgr_all = torch.empty(T, R, G, dtype=op, device=gates.device)
     dh_carry, dc_carry = dhf.float(), dcf.float()
+    rows = [slice(d * B, (d + 1) * B) for d in range(D)]
     for t in range(T - 1, -1, -1):
         i, f, g, o = gates[t].split(H, dim=-1)
         c_prev = cs[t - 1] if t else c0.float()
-        h_prev = hs[t - 1] if t else h0.float()
         tc = torch.tanh(f * c_prev + i * g)
         dh = dhs[t] + dh_carry
         do = dh * tc
@@ -153,14 +184,12 @@ def _bwd_ref(ws, gates, cs, hs, h0, c0, dhs, dhf, dcf, x_dtype):
             dim=-1,
         )
         dxp[t] = dgates.to(x_dtype)
-        # the products take dgates and h_prev rounded to W_hh's type and
-        # accumulate in fp32, as the Pallas kernels' matrix products do
-        dgr = dgates.to(op).float()
-        hr = h_prev.to(op).float()
-        rows = [slice(d * B, (d + 1) * B) for d in range(D)]
+        # the product takes dgates rounded to W_hh's type and accumulates in
+        # fp32, as the Pallas kernels' matrix products do
+        dgr_all[t] = dgates.to(op)
+        dgr = dgr_all[t].float()
         dh_carry = torch.cat([dgr[r] @ w.t() for r, w in zip(rows, wf)], dim=0)
-        for r, dw in zip(rows, dws):
-            dw += hr[r].t() @ dgr[r]
+    dws = lstm_dwhh_ref(hs, h0, dgr_all, D, op)
     return dxp, dws, dh_carry, dc_carry
 
 
@@ -314,6 +343,43 @@ def _launch_bilstm_bwd(whh_f, whh_b, gates, cs, hs, dhs, x_dtype):
     _raise_on(err, "bilstm_bwd")
     LAUNCHES["bilstm_bwd"] += 1
     return dxp, dwf, dwb
+
+
+def _launch_lstm_dwhh(hs, h0, dg, directions, dtype):
+    T, R, H = hs.shape
+    dws = tuple(torch.empty(H, 4 * H, dtype=torch.float32, device=hs.device)
+                for _ in range(directions))
+    lib = _library()
+    with torch.cuda.device(hs.device):
+        err = lib.lstm_dwhh(
+            hs.data_ptr(), None if h0 is None else h0.data_ptr(), dg.data_ptr(),
+            dws[0].data_ptr(), None if directions == 1 else dws[1].data_ptr(),
+            T, R // directions, directions, H, int(dtype == torch.bfloat16), _build.stream(hs),
+        )
+    _raise_on(err, "lstm_dwhh")
+    return dws
+
+
+def lstm_dwhh(hs, h0, dg, directions, dtype):
+    """The dW_hh kernel alone (kernel on CUDA, plain version on the CPU),
+    as `lstm_bwd` / `bilstm_bwd` launch it after their walk; see
+    `lstm_dwhh_ref` for shapes.  On the card `dg` is the walk's dxp, in the
+    operand type `dtype`."""
+    if hs.dim() != 3 or directions not in (1, 2) or hs.shape[1] % directions or 0 in hs.shape:
+        raise ValueError(f"hs must be [T, R, H] with R a multiple of {directions}, got {tuple(hs.shape)}")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the operand type must be bf16 or fp32, got {dtype}")
+    T, R, H = hs.shape
+    _check_fp32((hs,), (T, R, H))
+    if h0 is not None:
+        _check_fp32((h0,), (R, H))
+    if tuple(dg.shape) != (T, R, 4 * H):
+        raise ValueError(f"dg must be [{T}, {R}, {4 * H}], got {tuple(dg.shape)}")
+    _same_device_contiguous((hs, dg) if h0 is None else (hs, h0, dg))
+    if hs.device.type == "cuda" and dg.dtype != dtype:
+        raise ValueError(f"the kernel reads dg (dxp) in the operand type {dtype}, got {dg.dtype}")
+    fn = _build.dispatch(hs.device, _launch_lstm_dwhh, lstm_dwhh_ref)
+    return fn(hs, h0, dg, directions, dtype)
 
 
 def lstm_bwd(whh, gates, cs, hs, h0, c0, dhs, dhf, dcf, x_dtype):

@@ -9,7 +9,10 @@ Phases, each printing one JSON line:
 1. device   — the card's name and power limit (``nvidia-smi``).
 2. build    — compiles every `voicesplit_tpu_torch/csrc/*.cu` with nvcc for
    sm_90a into ``build/`` (one nvcc per source, all at once) and prints
-   ``ptxas -v`` (registers, shared memory, spills) and each kernel's grid;
+   ``ptxas -v`` (registers, shared memory, spills) and each kernel's grid
+   (the LSTM backward walk's also its cluster size, threads, the clusters
+   the card holds at once, which must be at least one, and its registers
+   and spilled bytes);
    the conv kernels' (the forward / data-gradient kernel body in its three
    modes, the weight-gradient kernel) per layer and batch (B=1, 2, 8; fp32
    at the reduced shape) beside the blocks the card holds at once, their
@@ -19,10 +22,12 @@ Phases, each printing one JSON line:
    version on the card, in bf16 and fp32 operands: ``lstm_fwd`` (B=1,
    random h0/c0; hs, cs, gates, final (h, c)), ``bilstm_fwd`` (B=8),
    ``lstm_bwd`` (B=2, random dhs, dhf, dcf; dxp, dW_hh, dh0, dc0) and
-   ``bilstm_bwd`` (B=8; dxp, both dW_hh).  Then times kernel, plain version
-   and a cuDNN ``torch.nn.LSTM`` yardstick (its forward, or its
-   ``.backward()`` alone after a forward; both also cover the input
-   projection, which the kernels leave to a matmul).
+   ``bilstm_bwd`` (B=8; dxp, both dW_hh; two launches must give the same
+   bits).  Then times kernel, plain version and a cuDNN ``torch.nn.LSTM``
+   yardstick (its forward, or its ``.backward()`` alone after a forward;
+   both also cover the input projection, which the kernels leave to a
+   matmul), and the backward's dW_hh kernel alone (``dwhh_ms``) beside its
+   bound.
 4. separate — builds the full-width `configs/voicesplit.json` model (bf16)
    with weights made from ``--seed``, zeroes the launch counters, runs
    `separate_batch` at B=1 and at B=8 on 3 s synthetic mixtures, reads the
@@ -385,6 +390,11 @@ def phase_build(torch, lstm_cuda, conv_fused) -> None:
         )
         for dt in ("bfloat16", "float32")
     }
+    # the backward walk: one cluster of 16 blocks a direction, which the
+    # card must hold at least once
+    for key, gr in grids.items():
+        if key.startswith(("lstm_bwd", "bilstm_bwd")):
+            check(gr["max_active_clusters"] >= 1, f"{key}: no cluster fits the card ({gr})")
     # conv_dilated_fwd, conv_dgrad and conv_bn_act_fwd share the forward
     # kernel body, conv_wgrad and conv_dilated_wgrad the weight-gradient
     # kernel: each a whole wave at most and no spilled byte, at the paths'

@@ -20,29 +20,40 @@
 // and, off the sequential chain, for each direction d over its rows:
 //   dW_d[j, q] = sum_{t, r} round(h[t-1, r, j]) * round(dgates[t, r, q])
 // where round() casts to the operand type (bf16 or fp32) as the Pallas
-// kernel does before its matrix products, and every product accumulates in
-// fp32.  dxp = dgates in the operand type; dW_hh is fp32.  h[t-1] and
-// c[t-1] are read in place from the forward's hs and cs (h0 and c0 at
-// t = 0), so the shifted copies the JAX wrapper builds are not needed.
+// kernel does before its matrix products (lstm_pallas.py:176, :359), and
+// every product accumulates in fp32.  dxp = dgates in the operand type;
+// dW_hh is fp32.  h[t-1] and c[t-1] are read in place from the forward's
+// hs and cs (h0 and c0 at t = 0), so the shifted copies the JAX wrapper
+// builds are not needed.  One C call launches two kernels: the walk, then
+// the dW_hh product over what the walk wrote.
 //
-// Two kernels, launched one after the other by the same C function:
-//
-// lstm_bwd_kernel, the reverse walk: a persistent cooperative kernel, one
-// block per U = ceil(H/#SMs) hidden units (U = 4 at H = 400 on 132 SMs: 100
-// blocks), one grid-wide barrier per step, as in lstm_fwd.cu.
-//   - The recurrent product runs the other way from the forward's: dh_rec[j]
-//     needs row j of W_hh across all 4H gate columns, so a block keeps the
-//     ROWS of W_hh for its units in shared memory (U x 4H: 12.8 KB per
-//     direction in bf16 at H = 400).
-//   - dgates[t+1] of all units is needed by every block.  The owning block
-//     writes it to dxp (which has the operand type, so dxp IS the rounded
-//     product operand); after the barrier every block stages all of it,
-//     R x 4H, through L2 (__ldcg, 8 rows at a time) into shared memory and
-//     forms dh_rec for its own units, then computes its own 4U columns of
-//     dgates[t] (dc carried in shared memory) and writes them to dxp[t].
-//     After step 0, one more staging gives dh0 (one direction).
-//   R = D * B rows; CUDA-core FMAs: one warp per dh_prev dot product (four
-//   partial sums per lane, warp-shuffle reduction).
+// lstm_bwd_kernel, the reverse walk: one thread-block cluster of C = 16
+// blocks per direction (non-portable cluster size), D clusters that never
+// talk to each other, so there is no cooperative launch and no grid-wide
+// barrier.  Block k of a cluster owns the U = ceil(H / C) units J_k
+// (U = 25 at H = 400; with H < 16 U some blocks own none) and keeps, for
+// the whole walk, the COLUMNS {j, H+j, 2H+j, 3H+j : j in J_k} of its
+// direction's W_hh for all H rows: exactly the dgates columns it computes
+// itself, so no step stages dgates from L2 (the grid-barrier design before
+// it staged all R x 4H of them into every block, every step).  Per step t:
+//   1. dh of its own (row, unit) pairs: the C partial dh_rec it received
+//      in the previous step, added in rank order, plus dhs[t];
+//   2. its 4U columns of dgates[t] (dc carried in registers), written to
+//      dxp[t] and, rounded, to shared memory;
+//   3. the partial P_k[r, j] = sum_{q owned} round(dgates[r, q]) W[j, q]
+//      for all H units j (one thread per j, CUDA-core FMAs, rows in chunks
+//      of 2, 4 or 8 kept in registers), each pushed as fp32 into slot
+//      [k][r][j - J_m] of its owner m through distributed shared memory;
+//   4. one cluster barrier (arrive with release, wait with acquire); while
+//      the peers arrive, the block loads step t-1's gates, c[t-2] and
+//      dhs[t-1] of its pairs into registers: they do not depend on the
+//      recurrence.
+// The receive slots are double-buffered: step t's partials go to slot
+// t mod 2 and are summed at step t-1.  A block writes that slot again at
+// step t-2, after the barrier of step t-1, which no peer reaches before it
+// has summed the slot; so one barrier a step suffices.  After step 0 (one direction) dh0 is the sum of
+// the last partials and dc0 the carried dc.  Threads: one per unit j of the
+// product, rounded up to a warp, at most 512 (416 at H = 400).
 //
 // lstm_dwhh_kernel, dW_hh after the walk: one product of M = H by N = 4H
 // with depth K = T * B per direction over the saved hs (h0 at t = 0) and
@@ -53,8 +64,21 @@
 // block multiplies the current one, h rounded to the operand type on its
 // way into shared memory.  bf16: mma.sync.m16n8k16 with ldmatrix.trans of
 // both operands (the fragment code of conv_wgrad.cu), fp32 accumulate;
-// fp32: FMAs on CUDA cores (not TF32).  Each output belongs to one block
-// and sums its K rows in order: the same inputs give the same bits.
+// fp32: FMAs on CUDA cores (not TF32).
+//
+// Sum order, fixed, so the same inputs give the same bits: dh_rec of a unit
+// is its C partials added in rank order 0 .. C-1, each partial summing its
+// block's owned columns in the order (gate, unit); dW_hh[j, q] belongs to
+// one block of the dW kernel, which sums its K rows in increasing (t, r)
+// order (mma.sync: 16 at a time).  No float atomics.
+//
+// Shared memory of the walk, per block at H = 400 (C = 16, U = 25): W_hh
+// columns H x 4U (80,000 B bf16, 160,000 B fp32), rounded dgates 4U x B
+// rows padded to the row chunk (fp32), receive slots 2 x C x B x U (fp32):
+//   lstm_bwd   B = 2:  87,200 B bf16, 167,200 B fp32;
+//   bilstm_bwd B = 8: 108,800 B bf16, 188,800 B fp32 (227 KB available).
+// W_hh's columns grow as H^2 / C: at H = 800 they take 320 KB in bf16, more
+// than a block has, and the launch returns an error (the wrapper raises).
 //
 // What bounds them on the card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16 dense),
 // counting each input byte read once and each output byte written once,
@@ -66,8 +90,8 @@
 //   dW_hh alone: ~5.5 MB / 0.77 GFLOP at B = 2 and ~17 MB / 6.2 GFLOP at
 //              B = 8, memory-bound at ~1.6 and ~5 us.
 // The real limit of the walk is neither: it is the T = 301 dependent
-// steps, each ending in one grid-wide barrier, and the per-step CUDA-core
-// products.
+// steps, each a CUDA-core product (B x H x 4U FMAs a block) and one cluster
+// barrier.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -76,14 +100,11 @@
 #include <cstddef>
 #include <cstdint>
 
-#include "conv_tile.cuh"  // kThreads, to_float, align16, ldmatrix, mma.sync, sm_count
+#include "conv_tile.cuh"  // kThreads, to_float, align16, ldmatrix, mma.sync
 
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int kWarps = kThreads / 32;          // dot products per pass, one per warp
-constexpr int kRowChunk = 8;                   // rows of dgates staged at a time
 
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
@@ -91,20 +112,46 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
   return __float2bfloat16(x);
 }
 
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_float(from_float<T>(x));
+// ---------------------------------------------------------------------------
+// The reverse walk
+// ---------------------------------------------------------------------------
+
+constexpr int kCluster = 16;     // blocks of one direction's cluster
+constexpr int kMaxThreads = 512; // threads of a walk block at most
+constexpr int kPairs = 4;        // (row, unit) pairs of a thread at most
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// Shared memory: W_hh rows [D][U][4H] (T), staged dgates [kRowChunk][4H]
-// (T), then [R][U] fp32 each for the recurrent dh and the carried dc.
+// Launch shape of the walk for B rows a direction.
+struct WalkShape {
+  int units, threads, rows_chunk, rows_padded;
+  size_t smem;
+};
+
 template <typename T>
-__host__ __device__ constexpr size_t smem_bytes(int D, int R, int H, int U) {
-  return align16(size_t(D) * U * 4 * H * sizeof(T)) +
-         align16(size_t(kRowChunk) * 4 * H * sizeof(T)) + 2 * size_t(R) * U * sizeof(float);
+WalkShape walk_shape(int B, int H) {
+  WalkShape w;
+  w.units = (H + kCluster - 1) / kCluster;
+  w.threads = H > kMaxThreads ? kMaxThreads : (H + 31) / 32 * 32;
+  w.rows_chunk = B >= 5 ? 8 : B >= 3 ? 4 : 2;
+  w.rows_padded = (B + w.rows_chunk - 1) / w.rows_chunk * w.rows_chunk;
+  // W_hh columns [4U][H] (T), rounded dgates [4U][rows_padded] (fp32),
+  // receive slots [2][C][B][U] (fp32)
+  w.smem = align16(size_t(4) * w.units * H * sizeof(T)) +
+           align16(size_t(4) * w.units * w.rows_padded * sizeof(float)) +
+           size_t(2) * kCluster * B * w.units * sizeof(float);
+  return w;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+// Grid D * kCluster blocks in clusters of kCluster; cluster d walks
+// direction d.  RC rows of the partial product at a time.
+template <typename T, int D, int RC>
+__global__ void __launch_bounds__(kMaxThreads, 1)
 lstm_bwd_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
                 const T* __restrict__ w1,        // [H, 4H], rows [B, 2B) (D == 2)
                 const float* __restrict__ gates, // [T, R, 4H] activated
@@ -113,118 +160,153 @@ lstm_bwd_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
                 const float* __restrict__ dhs,   // [T, R, H]
                 const float* __restrict__ dhf,   // [R, H] or null (zero)
                 const float* __restrict__ dcf,   // [R, H] or null (zero)
-                T* dxp,                          // [T, R, 4H]; read back across blocks
+                T* __restrict__ dxp,             // [T, R, 4H]
                 float* __restrict__ dh0,         // [R, H] or null
                 float* __restrict__ dc0,         // [R, H] or null
-                int T_, int B, int H, int U) {
-  cg::grid_group grid = cg::this_grid();
-  const int R = D * B;
-  const int G4 = 4 * H;  // gate columns of one row
-  const int u0 = blockIdx.x * U;
-  const int tid = threadIdx.x;
-  const int n_w = D * U * G4;  // shared elements of W_hh rows
+                int T_, int B, int H, int U, int RP) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = int(cluster.block_rank());
+  const int d = D == 2 ? int(blockIdx.x) / kCluster : 0;
+  const int R = D * B;           // rows of the arrays, all directions
+  const int G4 = 4 * H;          // gate columns of one row
+  const int NQ = 4 * U;          // columns a block holds (zero past its units)
+  const int u0 = k * U;
+  const int Uk = max(0, min(U, H - u0));  // units this block owns
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const T* __restrict__ W = d ? w1 : w0;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* w_s = reinterpret_cast<T*>(smem_raw);  // [D][U][4H]
-  unsigned char* p = smem_raw + align16(size_t(n_w) * sizeof(T));
-  T* dg_s = reinterpret_cast<T*>(p);  // [kRowChunk][4H]
-  p += align16(size_t(kRowChunk) * G4 * sizeof(T));
-  float* dhr_s = reinterpret_cast<float*>(p);  // [R][U]
-  float* dc_s = dhr_s + size_t(R) * U;         // [R][U]
+  T* w_s = reinterpret_cast<T*>(smem_raw);  // [4U][H]: q = g * U + u is column g H + u0 + u
+  float* dg_s = reinterpret_cast<float*>(smem_raw + align16(size_t(NQ) * H * sizeof(T)));  // [4U][RP]
+  float* recv = dg_s + align16(size_t(NQ) * RP * sizeof(float)) / sizeof(float);  // [2][C][B][U]
 
-  // This block's rows of each W_hh (contiguous in device memory).
-  for (int e = tid; e < n_w; e += kThreads) {
-    const int d = e / (U * G4);
-    const int u = (e / G4) % U;
-    const int q = e % G4;
-    const int j = u0 + u;
-    const T* W = d ? w1 : w0;
-    w_s[e] = j < H ? W[size_t(j) * G4 + q] : from_float<T>(0.0f);
+  for (int e = tid; e < NQ * H; e += nt) {
+    const int j = e / NQ, q = e % NQ;  // consecutive threads: a run of one row of W_hh
+    const int g = q / U, u = q % U;
+    w_s[size_t(q) * H + j] = u < Uk ? W[size_t(j) * G4 + g * H + u0 + u] : from_float<T>(0.0f);
   }
-  for (int e = tid; e < R * U; e += kThreads) {
-    const int r = e / U, j = u0 + e % U;
-    const bool in = j < H;
-    dc_s[e] = (dcf != nullptr && in) ? dcf[size_t(r) * H + j] : 0.0f;
-    dhr_s[e] = (dhf != nullptr && in) ? dhf[size_t(r) * H + j] : 0.0f;
+  for (int e = tid; e < NQ * RP; e += nt) dg_s[e] = 0.0f;
+
+  // this thread's (row, unit) pairs and their registers
+  int pr[kPairs], pu[kPairs];
+  bool on[kPairs];
+  float gi[kPairs], gf[kPairs], gg[kPairs], go[kPairs], cp[kPairs], dd[kPairs], dc[kPairs];
+#pragma unroll
+  for (int p = 0; p < kPairs; ++p) {
+    const int e = tid + p * nt;
+    pr[p] = e / U;
+    pu[p] = e % U;
+    on[p] = e < B * U && pu[p] < Uk;
+    dc[p] = (on[p] && dcf != nullptr) ? dcf[size_t(d * B + pr[p]) * H + u0 + pu[p]] : 0.0f;
   }
-  __syncthreads();
-
-  const int warp = tid / 32, lane = tid % 32;
-  // s is the step whose dgates are staged; t = s - 1 is the step computed.
-  // Step 0's dgates are staged only for dh0 (one direction).
-  for (int s = T_; s >= 0; --s) {
-    if (s < T_ && (D == 1 || s > 0)) {
-      const T* dg_step = dxp + size_t(s) * R * G4;
-      for (int r0 = 0; r0 < R; r0 += kRowChunk) {
-        const int rc = min(kRowChunk, R - r0);
-        // stage rows [r0, r0 + rc) of dgates[s] as 4-byte words (4H * sizeof(T)
-        // is a multiple of 4); written by other blocks: bypass L1
-        const unsigned int* src =
-            reinterpret_cast<const unsigned int*>(dg_step + size_t(r0) * G4);
-        unsigned int* dst = reinterpret_cast<unsigned int*>(dg_s);
-        const int words = int(size_t(rc) * G4 * sizeof(T) / 4);
-        for (int e = tid; e < words; e += kThreads) dst[e] = __ldcg(src + e);
-        __syncthreads();
-
-        // dh_rec[r, u] = sum_q dgates[r, q] * W[j, q], one warp per (r, u)
-        const int n_out = rc * U;
-        for (int o = warp; o < n_out; o += kWarps) {  // warp-uniform
-          const int rl = o / U, u = o % U;
-          const int d = (D == 2 && r0 + rl >= B) ? 1 : 0;
-          const T* w = w_s + (size_t(d) * U + u) * G4;
-          const T* g = dg_s + size_t(rl) * G4;
-          float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
-          int q = lane;
-          for (; q + 96 < G4; q += 128) {
-            a0 = fmaf(to_float(g[q]), to_float(w[q]), a0);
-            a1 = fmaf(to_float(g[q + 32]), to_float(w[q + 32]), a1);
-            a2 = fmaf(to_float(g[q + 64]), to_float(w[q + 64]), a2);
-            a3 = fmaf(to_float(g[q + 96]), to_float(w[q + 96]), a3);
-          }
-          for (; q < G4; q += 32) a0 = fmaf(to_float(g[q]), to_float(w[q]), a0);
-          float acc = (a0 + a1) + (a2 + a3);
-          for (int m = 16; m > 0; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
-          if (lane == 0) dhr_s[size_t(r0) * U + o] = acc;
-        }
-        __syncthreads();  // before the next chunk overwrites dg_s
-      }
-    }
-    if (s == 0) break;
-
-    // step t = s - 1: own units' columns of dgates[t]
-    const int t = s - 1;
-    for (int e = tid; e < R * U; e += kThreads) {
-      const int r = e / U, j = u0 + e % U;
-      if (j >= H) continue;
-      const size_t row = size_t(t) * R + r;
+  // step s's inputs of the pairs, none of which depends on the recurrence
+  auto prefetch = [&](int s) {
+#pragma unroll
+    for (int p = 0; p < kPairs; ++p) {
+      if (!on[p]) continue;
+      const int j = u0 + pu[p];
+      const size_t row = size_t(s) * R + d * B + pr[p];
       const float* gt = gates + row * G4;
-      const float i = gt[j], f = gt[H + j], g = gt[2 * H + j], o = gt[3 * H + j];
-      float c_prev = 0.0f;
-      if (t > 0) {
-        c_prev = cs[(row - R) * H + j];
-      } else if (c0 != nullptr) {
-        c_prev = c0[size_t(r) * H + j];
+      gi[p] = gt[j];
+      gf[p] = gt[H + j];
+      gg[p] = gt[2 * H + j];
+      go[p] = gt[3 * H + j];
+      if (s > 0) {
+        cp[p] = cs[(row - R) * H + j];
+      } else {
+        cp[p] = c0 != nullptr ? c0[size_t(d * B + pr[p]) * H + j] : 0.0f;
       }
-      const float tc = tanhf(f * c_prev + i * g);
-      const float dh = dhs[row * H + j] + dhr_s[e];
-      const float dout = dh * tc;
-      const float dct = dh * o * (1.0f - tc * tc) + dc_s[e];
-      dc_s[e] = dct * f;
-      T* dx = dxp + row * G4;
-      dx[j] = from_float<T>(dct * g * i * (1.0f - i));
-      dx[H + j] = from_float<T>(dct * c_prev * f * (1.0f - f));
-      dx[2 * H + j] = from_float<T>(dct * i * (1.0f - g * g));
-      dx[3 * H + j] = from_float<T>(dout * o * (1.0f - o));
+      dd[p] = dhs[row * H + j];
     }
-    grid.sync();  // the whole dgates[t] is in dxp before any block stages it
+  };
+  prefetch(T_ - 1);
+  cluster.sync();  // every block of the cluster runs and has its W_hh columns
+
+  for (int s = T_ - 1; s >= 0; --s) {
+    const float* in = recv + size_t((s + 1) & 1) * kCluster * B * U;  // step s+1's partials
+    // 1, 2: own columns of dgates[s]
+#pragma unroll
+    for (int p = 0; p < kPairs; ++p) {
+      if (!on[p]) continue;
+      const int r = pr[p], u = pu[p], j = u0 + u;
+      float rec = 0.0f;
+      if (s == T_ - 1) {
+        if (dhf != nullptr) rec = dhf[size_t(d * B + r) * H + j];
+      } else {
+        for (int m = 0; m < kCluster; ++m) rec += in[(size_t(m) * B + r) * U + u];
+      }
+      const float i = gi[p], f = gf[p], g = gg[p], o = go[p], c_prev = cp[p];
+      const float dh = dd[p] + rec;
+      const float tc = tanhf(f * c_prev + i * g);
+      const float dout = dh * tc;
+      const float dct = dh * o * (1.0f - tc * tc) + dc[p];
+      dc[p] = dct * f;
+      const T v[4] = {from_float<T>(dct * g * i * (1.0f - i)),
+                      from_float<T>(dct * c_prev * f * (1.0f - f)),
+                      from_float<T>(dct * i * (1.0f - g * g)),
+                      from_float<T>(dout * o * (1.0f - o))};
+      T* dx = dxp + (size_t(s) * R + d * B + r) * G4 + j;
+#pragma unroll
+      for (int gate = 0; gate < 4; ++gate) {
+        dx[gate * H] = v[gate];
+        dg_s[(gate * U + u) * RP + r] = to_float(v[gate]);
+      }
+    }
+    __syncthreads();
+
+    // 3: partial dh_rec of every unit from the owned columns, to its owner
+    float* out = recv + size_t(s & 1) * kCluster * B * U + size_t(k) * B * U;
+    for (int jj = tid; jj < H; jj += nt) {
+      float* dst = cluster.map_shared_rank(out, jj / U) + jj % U;
+      for (int r0 = 0; r0 < B; r0 += RC) {
+        float acc[RC];
+#pragma unroll
+        for (int i = 0; i < RC; ++i) acc[i] = 0.0f;
+#pragma unroll 4
+        for (int q = 0; q < NQ; ++q) {
+          const float w = to_float(w_s[size_t(q) * H + jj]);
+          const float* gq = dg_s + q * RP + r0;
+          float gv[RC];
+          if constexpr (RC == 2) {
+            const float2 a = *reinterpret_cast<const float2*>(gq);
+            gv[0] = a.x;
+            gv[1] = a.y;
+          } else {
+#pragma unroll
+            for (int i = 0; i < RC; i += 4) {
+              const float4 a = *reinterpret_cast<const float4*>(gq + i);
+              gv[i] = a.x;
+              gv[i + 1] = a.y;
+              gv[i + 2] = a.z;
+              gv[i + 3] = a.w;
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < RC; ++i) acc[i] = fmaf(gv[i], w, acc[i]);
+        }
+#pragma unroll
+        for (int i = 0; i < RC; ++i) {
+          if (r0 + i < B) dst[size_t(r0 + i) * U] = acc[i];
+        }
+      }
+    }
+
+    // 4: one cluster barrier; the next step's inputs load while it fills
+    cluster_arrive();
+    if (s > 0) prefetch(s - 1);
+    cluster_wait();
   }
 
   if (D == 1) {
-    for (int e = tid; e < R * U; e += kThreads) {
-      const int r = e / U, j = u0 + e % U;
-      if (j >= H) continue;
-      dh0[size_t(r) * H + j] = dhr_s[e];
-      dc0[size_t(r) * H + j] = dc_s[e];
+    const float* in = recv;  // step 0's partials (slot 0)
+#pragma unroll
+    for (int p = 0; p < kPairs; ++p) {
+      if (!on[p]) continue;
+      const int r = pr[p], u = pu[p];
+      float rec = 0.0f;
+      for (int m = 0; m < kCluster; ++m) rec += in[(size_t(m) * B + r) * U + u];
+      dh0[size_t(r) * H + u0 + u] = rec;
+      dc0[size_t(r) * H + u0 + u] = dc[p];
     }
   }
 }
@@ -364,20 +446,80 @@ lstm_dwhh_kernel(const float* __restrict__ hs,  // [T, R, H]
 // Launches
 // ---------------------------------------------------------------------------
 
-struct LaunchConfig {
-  int blocks, units;
-  size_t smem;
+// What the walk's launch needs and gets on this card.
+struct WalkInfo {
+  WalkShape shape;
+  int clusters;     // cudaOccupancyMaxActiveClusters (0: it cannot run)
+  int registers;    // a thread
+  int local_bytes;  // spilled, a thread
 };
 
-template <typename T>
-cudaError_t launch_config(int D, int B, int H, LaunchConfig* cfg) {
-  int sms = 0;
-  cudaError_t err = sm_count(&sms);
+struct BwdArgs {
+  const void *w0, *w1, *gates, *cs, *hs, *h0, *c0, *dhs, *dhf, *dcf;
+  void *dxp, *dw0, *dw1, *dh0, *dc0;
+  int steps, B, H;
+};
+
+// Sets the walk kernel's attributes and reads its occupancy into `info`;
+// launches it when `args` is given and a cluster fits.
+template <typename T, int D, int RC>
+cudaError_t walk(const WalkShape& ws, int B, int H, const BwdArgs* args, cudaStream_t stream,
+                 WalkInfo* info) {
+  auto kernel = lstm_bwd_kernel<T, D, RC>;
+  info->shape = ws;
+  info->clusters = 0;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
-  cfg->units = (H + sms - 1) / sms;  // at most one block per SM
-  cfg->blocks = (H + cfg->units - 1) / cfg->units;
-  cfg->smem = smem_bytes<T>(D, D * B, H, cfg->units);
-  return cudaSuccess;
+  info->registers = attr.numRegs;
+  info->local_bytes = int(attr.localSizeBytes);
+  int dev = 0, optin = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  if (ws.smem > size_t(optin) || B * ws.units > kPairs * ws.threads) {
+    return args == nullptr ? cudaSuccess : cudaErrorInvalidConfiguration;
+  }
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(ws.smem));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(D * kCluster);
+  config.blockDim = dim3(ws.threads);
+  config.dynamicSmemBytes = ws.smem;
+  config.stream = stream;
+  cudaLaunchAttribute cluster_dim[1];
+  cluster_dim[0].id = cudaLaunchAttributeClusterDimension;
+  cluster_dim[0].val.clusterDim.x = kCluster;
+  cluster_dim[0].val.clusterDim.y = 1;
+  cluster_dim[0].val.clusterDim.z = 1;
+  config.attrs = cluster_dim;
+  config.numAttrs = 1;
+  err = cudaOccupancyMaxActiveClusters(&info->clusters, (const void*)kernel, &config);
+  if (err != cudaSuccess) return err;
+  if (args == nullptr) return cudaSuccess;
+  if (info->clusters < 1) return cudaErrorInvalidConfiguration;
+  err = cudaLaunchKernelEx(&config, kernel, static_cast<const T*>(args->w0),
+                           static_cast<const T*>(args->w1), static_cast<const float*>(args->gates),
+                           static_cast<const float*>(args->cs), static_cast<const float*>(args->c0),
+                           static_cast<const float*>(args->dhs), static_cast<const float*>(args->dhf),
+                           static_cast<const float*>(args->dcf), static_cast<T*>(args->dxp),
+                           static_cast<float*>(args->dh0), static_cast<float*>(args->dc0), args->steps,
+                           B, H, ws.units, ws.rows_padded);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t walk(int B, int H, const BwdArgs* args, cudaStream_t stream, WalkInfo* info) {
+  const WalkShape ws = walk_shape<T>(B, H);
+  switch (ws.rows_chunk) {
+    case 2: return walk<T, D, 2>(ws, B, H, args, stream, info);
+    case 4: return walk<T, D, 4>(ws, B, H, args, stream, info);
+    default: return walk<T, D, 8>(ws, B, H, args, stream, info);
+  }
 }
 
 template <typename T>
@@ -393,45 +535,12 @@ cudaError_t launch_dwhh(const void* hs, const void* h0, const void* dxp, void* d
 
 // The reverse walk, then dW_hh from its dxp.
 template <typename T, int D>
-cudaError_t launch(const void* w0, const void* w1, const void* gates, const void* cs,
-                   const void* hs, const void* h0, const void* c0, const void* dhs,
-                   const void* dhf, const void* dcf, void* dxp, void* dw0, void* dw1,
-                   void* dh0, void* dc0, int T_, int B, int H, void* stream) {
-  if (T_ <= 0 || B <= 0 || H <= 0) return cudaErrorInvalidValue;
-  LaunchConfig cfg;
-  cudaError_t err = launch_config<T>(D, B, H, &cfg);
+cudaError_t launch(const BwdArgs& a, void* stream) {
+  if (a.steps <= 0 || a.B <= 0 || a.H <= 0) return cudaErrorInvalidValue;
+  WalkInfo info;
+  cudaError_t err = walk<T, D>(a.B, a.H, &a, static_cast<cudaStream_t>(stream), &info);
   if (err != cudaSuccess) return err;
-  auto kernel = lstm_bwd_kernel<T, D>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(cfg.smem));
-  if (err != cudaSuccess) return err;
-  int per_sm = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, cfg.smem);
-  if (err != cudaSuccess) return err;
-  err = sm_count(&sms);
-  if (err != cudaSuccess) return err;
-  if (per_sm * sms < cfg.blocks) return cudaErrorCooperativeLaunchTooLarge;
-
-  const T* w0_t = static_cast<const T*>(w0);
-  const T* w1_t = static_cast<const T*>(w1);
-  const float* gates_t = static_cast<const float*>(gates);
-  const float* cs_t = static_cast<const float*>(cs);
-  const float* c0_t = static_cast<const float*>(c0);
-  const float* dhs_t = static_cast<const float*>(dhs);
-  const float* dhf_t = static_cast<const float*>(dhf);
-  const float* dcf_t = static_cast<const float*>(dcf);
-  T* dxp_t = static_cast<T*>(dxp);
-  float* dh0_t = static_cast<float*>(dh0);
-  float* dc0_t = static_cast<float*>(dc0);
-  int units = cfg.units;
-  void* args[] = {&w0_t, &w1_t, &gates_t, &cs_t, &c0_t, &dhs_t, &dhf_t, &dcf_t,
-                  &dxp_t, &dh0_t, &dc0_t, &T_, &B, &H, &units};
-  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(cfg.blocks), dim3(kThreads),
-                                    args, cfg.smem, static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return err;
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_dwhh<T>(hs, h0, dxp, dw0, dw1, T_, B, D, H, stream);
+  return launch_dwhh<T>(a.hs, a.h0, a.dxp, a.dw0, a.dw1, a.steps, a.B, D, a.H, stream);
 }
 
 }  // namespace
@@ -446,10 +555,9 @@ extern "C" int lstm_bwd(const void* whh, const void* gates, const void* cs, cons
                         const void* h0, const void* c0, const void* dhs, const void* dhf,
                         const void* dcf, void* dxp, void* dwhh, void* dh0, void* dc0, int T,
                         int B, int H, int bf16, void* stream) {
-  return bf16 ? launch<__nv_bfloat16, 1>(whh, nullptr, gates, cs, hs, h0, c0, dhs, dhf, dcf,
-                                         dxp, dwhh, nullptr, dh0, dc0, T, B, H, stream)
-              : launch<float, 1>(whh, nullptr, gates, cs, hs, h0, c0, dhs, dhf, dcf, dxp,
-                                 dwhh, nullptr, dh0, dc0, T, B, H, stream);
+  const BwdArgs a{whh, nullptr, gates, cs, hs, h0, c0, dhs, dhf, dcf,
+                  dxp, dwhh, nullptr, dh0, dc0, T, B, H};
+  return bf16 ? launch<__nv_bfloat16, 1>(a, stream) : launch<float, 1>(a, stream);
 }
 
 // Both directions, zero initial state: gates, cs, hs, dhs over 2B rows with
@@ -458,12 +566,9 @@ extern "C" int bilstm_bwd(const void* whh_f, const void* whh_b, const void* gate
                           const void* cs, const void* hs, const void* dhs, void* dxp,
                           void* dwhh_f, void* dwhh_b, int T, int B, int H, int bf16,
                           void* stream) {
-  return bf16 ? launch<__nv_bfloat16, 2>(whh_f, whh_b, gates, cs, hs, nullptr, nullptr, dhs,
-                                         nullptr, nullptr, dxp, dwhh_f, dwhh_b, nullptr,
-                                         nullptr, T, B, H, stream)
-              : launch<float, 2>(whh_f, whh_b, gates, cs, hs, nullptr, nullptr, dhs, nullptr,
-                                 nullptr, dxp, dwhh_f, dwhh_b, nullptr, nullptr, T, B, H,
-                                 stream);
+  const BwdArgs a{whh_f, whh_b, gates, cs, hs, nullptr, nullptr, dhs, nullptr, nullptr,
+                  dxp, dwhh_f, dwhh_b, nullptr, nullptr, T, B, H};
+  return bf16 ? launch<__nv_bfloat16, 2>(a, stream) : launch<float, 2>(a, stream);
 }
 
 // dW_hh alone, the second kernel of the two functions above: D directions
@@ -476,16 +581,31 @@ extern "C" int lstm_dwhh(const void* hs, const void* h0, const void* dxp, void* 
               : launch_dwhh<float>(hs, h0, dxp, dwhh_f, dwhh_b, T, B, D, H, stream);
 }
 
-// Launch shape of the walk: blocks, units per block and dynamic shared
-// memory in bytes, for D directions of B rows each.
+// The walk's launch for D directions of B rows each on this card: blocks,
+// units per block, dynamic shared memory in bytes, cluster size, threads
+// per block, clusters the card holds at once (0: the walk cannot launch),
+// and registers and spilled bytes a thread.
 extern "C" int lstm_bwd_launch_config(int D, int B, int H, int bf16, int* blocks, int* units,
-                                      long long* smem) {
-  LaunchConfig cfg;
-  cudaError_t err = bf16 ? launch_config<__nv_bfloat16>(D, B, H, &cfg)
-                         : launch_config<float>(D, B, H, &cfg);
+                                      long long* smem, int* cluster, int* threads, int* clusters,
+                                      int* registers, int* local_bytes) {
+  if (B <= 0 || H <= 0 || (D != 1 && D != 2)) return cudaErrorInvalidValue;
+  WalkInfo info;
+  cudaError_t err;
+  if (D == 1) {
+    err = bf16 ? walk<__nv_bfloat16, 1>(B, H, nullptr, nullptr, &info)
+               : walk<float, 1>(B, H, nullptr, nullptr, &info);
+  } else {
+    err = bf16 ? walk<__nv_bfloat16, 2>(B, H, nullptr, nullptr, &info)
+               : walk<float, 2>(B, H, nullptr, nullptr, &info);
+  }
   if (err != cudaSuccess) return err;
-  *blocks = cfg.blocks;
-  *units = cfg.units;
-  *smem = static_cast<long long>(cfg.smem);
+  *blocks = D * kCluster;
+  *units = info.shape.units;
+  *smem = static_cast<long long>(info.shape.smem);
+  *cluster = kCluster;
+  *threads = info.shape.threads;
+  *clusters = info.clusters;
+  *registers = info.registers;
+  *local_bytes = info.local_bytes;
   return cudaSuccess;
 }

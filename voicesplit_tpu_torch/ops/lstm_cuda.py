@@ -58,7 +58,7 @@ def _library() -> ctypes.CDLL:
             "bilstm_bwd": [p] * 9 + [i] * 4 + [p],
             "lstm_dwhh": [p] * 5 + [i] * 5 + [p],
             "lstm_launch_config": [i, i, i, i, *out],
-            "lstm_bwd_launch_config": [i, i, i, i, *out],
+            "lstm_bwd_launch_config": [i, i, i, i, *out, *[ctypes.POINTER(i)] * 5],
         })
         _declared = True
     return _build.library()
@@ -71,15 +71,34 @@ def launch_config(
     directions: int, batch: int, hidden: int, dtype: torch.dtype, backward: bool
 ) -> dict:
     """Grid a kernel uses on the current card: blocks, hidden units per
-    block and dynamic shared memory bytes."""
-    blocks, units, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
-    fn = _library().lstm_bwd_launch_config if backward else _library().lstm_launch_config
-    err = fn(
-        directions, batch, hidden, int(dtype == torch.bfloat16),
-        ctypes.byref(blocks), ctypes.byref(units), ctypes.byref(smem),
-    )
+    block and dynamic shared memory bytes; for the backward walk also its
+    cluster size, threads a block, the clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``; 0: it cannot launch) and the
+    registers and spilled bytes a thread."""
+    ints = [ctypes.c_int() for _ in range(7)]
+    smem = ctypes.c_longlong()
+    refs = [ctypes.byref(ints[0]), ctypes.byref(ints[1]), ctypes.byref(smem)]
+    lib = _library()
+    args = (directions, batch, hidden, int(dtype == torch.bfloat16))
+    if backward:
+        err = lib.lstm_bwd_launch_config(*args, *refs, *map(ctypes.byref, ints[2:]))
+    else:
+        err = lib.lstm_launch_config(*args, *refs)
     _raise_on(err, "launch_config")
-    return {"blocks": blocks.value, "units": units.value, "smem_bytes": smem.value}
+    out = {"blocks": ints[0].value, "units": ints[1].value, "smem_bytes": smem.value}
+    if backward:
+        keys = ("cluster", "threads", "max_active_clusters", "registers", "local_bytes")
+        out.update(zip(keys, (v.value for v in ints[2:])))
+    return out
+
+
+def _raise_on_walk(err: int, name: str, directions: int, batch: int, hidden: int, dtype) -> None:
+    """Raises for a failed backward launch, with the walk's launch shape
+    (a cluster that does not fit the card, or shared memory past its limit,
+    is refused)."""
+    if err != 0:
+        cfg = launch_config(directions, batch, hidden, dtype, backward=True)
+        _raise_on(err, f"{name} (walk launch {cfg})")
 
 
 # ---------------------------------------------------------------------------
@@ -323,7 +342,7 @@ def _launch_lstm_bwd(whh, gates, cs, hs, h0, c0, dhs, dhf, dcf, x_dtype):
             dxp.data_ptr(), dw.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
             T, R, G // 4, int(whh.dtype == torch.bfloat16), _build.stream(gates),
         )
-    _raise_on(err, "lstm_bwd")
+    _raise_on_walk(err, "lstm_bwd", 1, R, G // 4, whh.dtype)
     LAUNCHES["lstm_bwd"] += 1
     return dxp, dw, dh0, dc0
 
@@ -340,7 +359,7 @@ def _launch_bilstm_bwd(whh_f, whh_b, gates, cs, hs, dhs, x_dtype):
             hs.data_ptr(), dhs.data_ptr(), dxp.data_ptr(), dwf.data_ptr(), dwb.data_ptr(),
             T, R // 2, G // 4, int(whh_f.dtype == torch.bfloat16), _build.stream(gates),
         )
-    _raise_on(err, "bilstm_bwd")
+    _raise_on_walk(err, "bilstm_bwd", 2, R // 2, G // 4, whh_f.dtype)
     LAUNCHES["bilstm_bwd"] += 1
     return dxp, dwf, dwb
 

@@ -117,39 +117,92 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
 // ---------------------------------------------------------------------------
 
 constexpr int kCluster = 16;     // blocks of one direction's cluster
-constexpr int kMaxThreads = 512; // threads of a walk block at most
-constexpr int kPairs = 4;        // (row, unit) pairs of a thread at most
-
+constexpr int kMaxThreads = 448; // threads of a walk block at most (144 registers each)
+// bf16: the W_hh columns a warp multiplies stay in its registers as mma.sync
+// A fragments, kMTiles tiles of 16 units by at most kMaxKS k-steps of 16
+constexpr int kMTiles = 2;
+constexpr int kMaxKS = 7;
 __device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
 }
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
+// The address of `p` (this block's shared memory) in block `rank` of the
+// cluster, and a store there.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
 
-// Launch shape of the walk for B rows a direction.
+// Launch shape of the walk for B rows a direction.  q, the columns a block
+// owns (4U, zero past its units), is padded to `k_padded`; rows of `ld`
+// elements.
+//   bf16: rounded dgates [rows_padded = B to whole n8 tiles][ld] (the
+//         mma's B operand; ld = k_padded + 8 so that the 32-bit loads of a
+//         fragment meet no bank conflict); W_hh lives in registers.
+//   fp32: W_hh columns [h_padded][ld] (ld an odd number of 16-byte units:
+//         the 16-byte loads of consecutive rows meet no bank conflict),
+//         rounded dgates [k_padded][rows_padded = B to the row chunk], and
+//         each unit's owner and place in the owner's slot, (j / U) << 16 |
+//         j % U, so the walk divides nothing.
+// Both: receive slots [2][C][B][U] (fp32), and the state of the B x U
+// (row, unit) pairs: step inputs (gates, c[t-1], dhs) and dc [7][B U]
+// (fp32, each element read and written by one thread), (r << 16 | u) [B U].
 struct WalkShape {
-  int units, threads, rows_chunk, rows_padded;
+  int units, threads, rows_chunk, rows_padded, k_padded, ld, h_padded;
   size_t smem;
 };
 
 template <typename T>
 WalkShape walk_shape(int B, int H) {
+  constexpr bool kTensorCore = sizeof(T) == 2;
   WalkShape w;
   w.units = (H + kCluster - 1) / kCluster;
   w.threads = H > kMaxThreads ? kMaxThreads : (H + 31) / 32 * 32;
-  w.rows_chunk = B >= 5 ? 8 : B >= 3 ? 4 : 2;
-  w.rows_padded = (B + w.rows_chunk - 1) / w.rows_chunk * w.rows_chunk;
-  // W_hh columns [4U][H] (T), rounded dgates [4U][rows_padded] (fp32),
-  // receive slots [2][C][B][U] (fp32)
-  w.smem = align16(size_t(4) * w.units * H * sizeof(T)) +
-           align16(size_t(4) * w.units * w.rows_padded * sizeof(float)) +
-           size_t(2) * kCluster * B * w.units * sizeof(float);
+  w.h_padded = (H + 7) / 8 * 8;
+  const size_t recv = align16(size_t(2) * kCluster * B * w.units * sizeof(float)) +
+                      align16(size_t(8) * B * w.units * sizeof(float));
+  if (kTensorCore) {
+    w.rows_chunk = 8;
+    w.rows_padded = (B + 7) / 8 * 8;
+    w.k_padded = (4 * w.units + 15) / 16 * 16;
+    w.ld = w.k_padded + 8;
+    w.smem = align16(size_t(w.rows_padded) * w.ld * sizeof(T)) + recv;
+  } else {
+    // rows of the partial product kept in registers at a time
+    w.rows_chunk = B >= 5 ? 8 : B >= 3 ? 4 : 2;
+    w.rows_padded = (B + w.rows_chunk - 1) / w.rows_chunk * w.rows_chunk;
+    w.k_padded = (4 * w.units + 3) / 4 * 4;
+    w.ld = w.k_padded + ((w.k_padded / 4) % 2 == 0 ? 4 : 0);
+    w.smem = align16(size_t(w.h_padded) * w.ld * sizeof(T)) +
+             align16(size_t(w.k_padded) * w.rows_padded * sizeof(float)) + recv +
+             size_t(w.h_padded) * sizeof(int);
+  }
   return w;
 }
 
+// Whether the register-held W_hh fragments cover this shape (shared memory
+// aside).
+template <typename T>
+bool walk_fits(const WalkShape& w, int H) {
+  if (sizeof(T) == 2) {
+    return (H + 15) / 16 <= kMTiles * (w.threads / 32) && w.k_padded / 16 <= kMaxKS;
+  }
+  return true;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return uint32_t(__bfloat16_as_ushort(lo)) | (uint32_t(__bfloat16_as_ushort(hi)) << 16);
+}
+
 // Grid D * kCluster blocks in clusters of kCluster; cluster d walks
-// direction d.  RC rows of the partial product at a time.
+// direction d.  RC rows of the fp32 partial product at a time.
 template <typename T, int D, int RC>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 lstm_bwd_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
@@ -163,84 +216,131 @@ lstm_bwd_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
                 T* __restrict__ dxp,             // [T, R, 4H]
                 float* __restrict__ dh0,         // [R, H] or null
                 float* __restrict__ dc0,         // [R, H] or null
-                int T_, int B, int H, int U, int RP) {
+                int T_, int B, int H, int U, int RP, int KP, int LD, int HP) {
+  constexpr bool kTensorCore = sizeof(T) == 2;
   cg::cluster_group cluster = cg::this_cluster();
   const int k = int(cluster.block_rank());
   const int d = D == 2 ? int(blockIdx.x) / kCluster : 0;
   const int R = D * B;           // rows of the arrays, all directions
   const int G4 = 4 * H;          // gate columns of one row
-  const int NQ = 4 * U;          // columns a block holds (zero past its units)
+  const int NQ = 4 * U;          // columns a block owns (zero past its units)
+  const int NP = B * U;          // (row, unit) pairs, those past Uk idle
   const int u0 = k * U;
   const int Uk = max(0, min(U, H - u0));  // units this block owns
   const int tid = threadIdx.x, nt = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, warps = nt >> 5;
+  const int gr = lane >> 2, tig = lane & 3;
   const T* __restrict__ W = d ? w1 : w0;
+  const int slot = kCluster * B * U;  // floats of one receive slot
+
+  // W_hh[j, column of owned q], zero outside
+  auto w_at = [&](int j, int q) {
+    const int u = q % U;
+    return (j < H && q < NQ && u < Uk) ? W[size_t(j) * G4 + (q / U) * H + u0 + u]
+                                       : from_float<T>(0.0f);
+  };
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* w_s = reinterpret_cast<T*>(smem_raw);  // [4U][H]: q = g * U + u is column g H + u0 + u
-  float* dg_s = reinterpret_cast<float*>(smem_raw + align16(size_t(NQ) * H * sizeof(T)));  // [4U][RP]
-  float* recv = dg_s + align16(size_t(NQ) * RP * sizeof(float)) / sizeof(float);  // [2][C][B][U]
+  // bf16: dg_a [RP][LD] (T); fp32: w_s [HP][LD] (T), dg_s [KP][RP]; then
+  // the receive slots, the pairs' state and, fp32, own_s [HP]
+  T* dg_a = reinterpret_cast<T*>(smem_raw);
+  T* w_s = reinterpret_cast<T*>(smem_raw);
+  float* dg_s = reinterpret_cast<float*>(smem_raw + align16(size_t(HP) * LD * sizeof(T)));
+  const size_t dg_bytes = kTensorCore ? size_t(RP) * LD * sizeof(T)
+                                      : align16(size_t(HP) * LD * sizeof(T)) + size_t(KP) * RP * sizeof(float);
+  float* recv = reinterpret_cast<float*>(smem_raw + align16(dg_bytes));  // [2][C][B][U]
+  float* st_s = recv + align16(size_t(2) * slot * sizeof(float)) / sizeof(float);  // [7][NP]
+  int* ru_s = reinterpret_cast<int*>(st_s + 7 * NP);                                 // [NP]
+  int* own_s = reinterpret_cast<int*>(st_s + align16(size_t(8) * NP * sizeof(float)) / sizeof(float));
+  float* const gi_s = st_s;
+  float* const gf_s = st_s + NP;
+  float* const gg_s = st_s + 2 * NP;
+  float* const go_s = st_s + 3 * NP;
+  float* const cp_s = st_s + 4 * NP;
+  float* const dd_s = st_s + 5 * NP;
+  float* const dc_s = st_s + 6 * NP;
+  for (int e = tid; e < int(dg_bytes / 4); e += nt) reinterpret_cast<float*>(smem_raw)[e] = 0.0f;
+  __syncthreads();
 
-  for (int e = tid; e < NQ * H; e += nt) {
-    const int j = e / NQ, q = e % NQ;  // consecutive threads: a run of one row of W_hh
-    const int g = q / U, u = q % U;
-    w_s[size_t(q) * H + j] = u < Uk ? W[size_t(j) * G4 + g * H + u0 + u] : from_float<T>(0.0f);
-  }
-  for (int e = tid; e < NQ * RP; e += nt) dg_s[e] = 0.0f;
-
-  // this thread's (row, unit) pairs and their registers
-  int pr[kPairs], pu[kPairs];
-  bool on[kPairs];
-  float gi[kPairs], gf[kPairs], gg[kPairs], go[kPairs], cp[kPairs], dd[kPairs], dc[kPairs];
+  // bf16: warp w multiplies the 16-unit tiles w and w + warps; their W_hh
+  // columns as A fragments (rows gr, gr + 8, columns 2 tig, 2 tig + 8), and
+  // where each of its units' partials go in the owner's slot 0 (~0: none)
+  uint32_t wa[kMTiles][kMaxKS][4];
+  uint32_t to[kMTiles][2];
+  bool tile_on[kMTiles];  // warp-uniform: mma.sync needs the whole warp
+  if constexpr (kTensorCore) {
 #pragma unroll
-  for (int p = 0; p < kPairs; ++p) {
-    const int e = tid + p * nt;
-    pr[p] = e / U;
-    pu[p] = e % U;
-    on[p] = e < B * U && pu[p] < Uk;
-    dc[p] = (on[p] && dcf != nullptr) ? dcf[size_t(d * B + pr[p]) * H + u0 + pu[p]] : 0.0f;
+    for (int mt = 0; mt < kMTiles; ++mt) {
+      const int m0 = (warp + mt * warps) * 16;
+      tile_on[mt] = m0 < H;
+#pragma unroll
+      for (int ks = 0; ks < kMaxKS; ++ks) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = m0 + gr + (i & 1) * 8, q = ks * 16 + 2 * tig + (i >> 1) * 8;
+          wa[mt][ks][i] = pack_bf16(w_at(j, q), w_at(j, q + 1));
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = m0 + gr + h * 8;
+        to[mt][h] = j < H ? cluster_addr(recv + k * B * U + j % U, j / U) : ~0u;
+      }
+    }
+  } else {
+    for (int e = tid; e < HP * LD; e += nt) w_s[e] = w_at(e / LD, e % LD);
+    for (int j = tid; j < HP; j += nt) own_s[j] = (j / U) << 16 | (j % U);
+  }
+
+  // the pairs of this thread: e = tid, tid + nt, ...; their state stays in
+  // shared memory, each element read and written by this thread only
+  for (int e = tid; e < NP; e += nt) {
+    const int r = e / U, u = e % U;
+    ru_s[e] = u < Uk ? (r << 16 | u) : -1;
+    dc_s[e] = (u < Uk && dcf != nullptr) ? dcf[size_t(d * B + r) * H + u0 + u] : 0.0f;
   }
   // step s's inputs of the pairs, none of which depends on the recurrence
   auto prefetch = [&](int s) {
-#pragma unroll
-    for (int p = 0; p < kPairs; ++p) {
-      if (!on[p]) continue;
-      const int j = u0 + pu[p];
-      const size_t row = size_t(s) * R + d * B + pr[p];
+    for (int e = tid; e < NP; e += nt) {
+      const int ru = ru_s[e];
+      if (ru < 0) continue;
+      const int r = ru >> 16, j = u0 + (ru & 0xffff);
+      const size_t row = size_t(s) * R + d * B + r;
       const float* gt = gates + row * G4;
-      gi[p] = gt[j];
-      gf[p] = gt[H + j];
-      gg[p] = gt[2 * H + j];
-      go[p] = gt[3 * H + j];
+      gi_s[e] = gt[j];
+      gf_s[e] = gt[H + j];
+      gg_s[e] = gt[2 * H + j];
+      go_s[e] = gt[3 * H + j];
       if (s > 0) {
-        cp[p] = cs[(row - R) * H + j];
+        cp_s[e] = cs[(row - R) * H + j];
       } else {
-        cp[p] = c0 != nullptr ? c0[size_t(d * B + pr[p]) * H + j] : 0.0f;
+        cp_s[e] = c0 != nullptr ? c0[size_t(d * B + r) * H + j] : 0.0f;
       }
-      dd[p] = dhs[row * H + j];
+      dd_s[e] = dhs[row * H + j];
     }
   };
   prefetch(T_ - 1);
-  cluster.sync();  // every block of the cluster runs and has its W_hh columns
+  cluster.sync();  // every block of the cluster runs and has set up its shared memory
 
   for (int s = T_ - 1; s >= 0; --s) {
-    const float* in = recv + size_t((s + 1) & 1) * kCluster * B * U;  // step s+1's partials
+    const float* in = recv + ((s + 1) & 1) * slot;  // step s+1's partials
     // 1, 2: own columns of dgates[s]
-#pragma unroll
-    for (int p = 0; p < kPairs; ++p) {
-      if (!on[p]) continue;
-      const int r = pr[p], u = pu[p], j = u0 + u;
+    for (int e = tid; e < NP; e += nt) {
+      const int ru = ru_s[e];
+      if (ru < 0) continue;
+      const int r = ru >> 16, u = ru & 0xffff, j = u0 + u;
       float rec = 0.0f;
       if (s == T_ - 1) {
         if (dhf != nullptr) rec = dhf[size_t(d * B + r) * H + j];
       } else {
-        for (int m = 0; m < kCluster; ++m) rec += in[(size_t(m) * B + r) * U + u];
+        for (int m = 0; m < kCluster; ++m) rec += in[(m * B + r) * U + u];
       }
-      const float i = gi[p], f = gf[p], g = gg[p], o = go[p], c_prev = cp[p];
-      const float dh = dd[p] + rec;
+      const float i = gi_s[e], f = gf_s[e], g = gg_s[e], o = go_s[e], c_prev = cp_s[e];
+      const float dh = dd_s[e] + rec;
       const float tc = tanhf(f * c_prev + i * g);
       const float dout = dh * tc;
-      const float dct = dh * o * (1.0f - tc * tc) + dc[p];
-      dc[p] = dct * f;
+      const float dct = dh * o * (1.0f - tc * tc) + dc_s[e];
+      dc_s[e] = dct * f;
       const T v[4] = {from_float<T>(dct * g * i * (1.0f - i)),
                       from_float<T>(dct * c_prev * f * (1.0f - f)),
                       from_float<T>(dct * i * (1.0f - g * g)),
@@ -249,44 +349,88 @@ lstm_bwd_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
 #pragma unroll
       for (int gate = 0; gate < 4; ++gate) {
         dx[gate * H] = v[gate];
-        dg_s[(gate * U + u) * RP + r] = to_float(v[gate]);
+        if constexpr (kTensorCore) {
+          dg_a[r * LD + gate * U + u] = v[gate];
+        } else {
+          dg_s[(gate * U + u) * RP + r] = to_float(v[gate]);
+        }
       }
     }
     __syncthreads();
 
     // 3: partial dh_rec of every unit from the owned columns, to its owner
-    float* out = recv + size_t(s & 1) * kCluster * B * U + size_t(k) * B * U;
-    for (int jj = tid; jj < H; jj += nt) {
-      float* dst = cluster.map_shared_rank(out, jj / U) + jj % U;
-      for (int r0 = 0; r0 < B; r0 += RC) {
-        float acc[RC];
+    const uint32_t out = uint32_t((s & 1) * slot) * 4;  // this step's slot, in bytes
+    if constexpr (kTensorCore) {
+      // P^T[j, r] = sum_q W[j, q] dg[r, q]: mma.sync.m16n8k16 with A = the
+      // W_hh fragments in registers and B = 8 rows of dgates (32-bit loads:
+      // [n][k] is the "col" B); the warp's two tiles interleave
+      const int KS = KP / 16;
+      for (int r0 = 0; r0 < RP; r0 += 8) {
+        float acc[kMTiles][4];
 #pragma unroll
-        for (int i = 0; i < RC; ++i) acc[i] = 0.0f;
-#pragma unroll 4
-        for (int q = 0; q < NQ; ++q) {
-          const float w = to_float(w_s[size_t(q) * H + jj]);
-          const float* gq = dg_s + q * RP + r0;
-          float gv[RC];
-          if constexpr (RC == 2) {
-            const float2 a = *reinterpret_cast<const float2*>(gq);
-            gv[0] = a.x;
-            gv[1] = a.y;
-          } else {
+        for (int mt = 0; mt < kMTiles; ++mt) acc[mt][0] = acc[mt][1] = acc[mt][2] = acc[mt][3] = 0.0f;
 #pragma unroll
-            for (int i = 0; i < RC; i += 4) {
-              const float4 a = *reinterpret_cast<const float4*>(gq + i);
-              gv[i] = a.x;
-              gv[i + 1] = a.y;
-              gv[i + 2] = a.z;
-              gv[i + 3] = a.w;
+        for (int ks = 0; ks < kMaxKS; ++ks) {
+          if (ks < KS) {
+            const T* brow = dg_a + (r0 + gr) * LD + ks * 16 + 2 * tig;
+            const uint32_t b0 = *reinterpret_cast<const uint32_t*>(brow);
+            const uint32_t b1 = *reinterpret_cast<const uint32_t*>(brow + 8);
+#pragma unroll
+            for (int mt = 0; mt < kMTiles; ++mt) {
+              if (tile_on[mt]) mma_bf16(acc[mt], wa[mt][ks], b0, b1);
+            }
+          }
+        }
+        // acc[mt][e]: unit m0 + gr + (e >> 1) 8, row r0 + 2 tig + (e & 1)
+#pragma unroll
+        for (int mt = 0; mt < kMTiles; ++mt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = r0 + 2 * tig + (e & 1);
+            const uint32_t dst = to[mt][e >> 1];
+            if (dst != ~0u && r < B) st_cluster(dst + out + uint32_t(r * U) * 4, acc[mt][e]);
+          }
+        }
+      }
+    } else {
+      // CUDA cores: thread jj, RC rows in registers, 4 columns a load
+      for (int jj = tid; jj < H; jj += nt) {
+        const int own = own_s[jj];
+        const uint32_t dst = cluster_addr(recv + k * B * U + (own & 0xffff), own >> 16) + out;
+        const T* wrow = w_s + size_t(jj) * LD;
+        for (int r0 = 0; r0 < B; r0 += RC) {
+          float acc[RC];
+#pragma unroll
+          for (int i = 0; i < RC; ++i) acc[i] = 0.0f;
+          for (int q = 0; q < KP; q += 4) {
+            const float4 w = *reinterpret_cast<const float4*>(wrow + q);
+            const float wv[4] = {to_float(w.x), to_float(w.y), to_float(w.z), to_float(w.w)};
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const float* gq = dg_s + (q + c) * RP + r0;
+              float gv[RC];
+              if constexpr (RC == 2) {
+                const float2 a = *reinterpret_cast<const float2*>(gq);
+                gv[0] = a.x;
+                gv[1] = a.y;
+              } else {
+#pragma unroll
+                for (int i = 0; i < RC; i += 4) {
+                  const float4 a = *reinterpret_cast<const float4*>(gq + i);
+                  gv[i] = a.x;
+                  gv[i + 1] = a.y;
+                  gv[i + 2] = a.z;
+                  gv[i + 3] = a.w;
+                }
+              }
+#pragma unroll
+              for (int i = 0; i < RC; ++i) acc[i] = fmaf(gv[i], wv[c], acc[i]);
             }
           }
 #pragma unroll
-          for (int i = 0; i < RC; ++i) acc[i] = fmaf(gv[i], w, acc[i]);
-        }
-#pragma unroll
-        for (int i = 0; i < RC; ++i) {
-          if (r0 + i < B) dst[size_t(r0 + i) * U] = acc[i];
+          for (int i = 0; i < RC; ++i) {
+            if (r0 + i < B) st_cluster(dst + uint32_t((r0 + i) * U) * 4, acc[i]);
+          }
         }
       }
     }
@@ -298,15 +442,14 @@ lstm_bwd_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
   }
 
   if (D == 1) {
-    const float* in = recv;  // step 0's partials (slot 0)
-#pragma unroll
-    for (int p = 0; p < kPairs; ++p) {
-      if (!on[p]) continue;
-      const int r = pr[p], u = pu[p];
+    for (int e = tid; e < NP; e += nt) {  // step 0's partials are in slot 0
+      const int ru = ru_s[e];
+      if (ru < 0) continue;
+      const int r = ru >> 16, u = ru & 0xffff;
       float rec = 0.0f;
-      for (int m = 0; m < kCluster; ++m) rec += in[(size_t(m) * B + r) * U + u];
+      for (int m = 0; m < kCluster; ++m) rec += recv[(m * B + r) * U + u];
       dh0[size_t(r) * H + u0 + u] = rec;
-      dc0[size_t(r) * H + u0 + u] = dc[p];
+      dc0[size_t(r) * H + u0 + u] = dc_s[e];
     }
   }
 }
@@ -316,16 +459,19 @@ lstm_bwd_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
 // ---------------------------------------------------------------------------
 
 constexpr int kDwTile = 64;   // units j and gate columns q of a block's dW tile
-constexpr int kDwK = 32;      // rows (t, r) staged per chunk
-constexpr int kDwPer = kDwK * kDwTile / kThreads;  // elements of each operand a thread stages
+constexpr int kDwK = 64;      // rows (t, r) staged per chunk
 template <typename T> struct DwLd {  // tile row stride in shared memory: + 16 bytes
   static constexpr int value = kDwTile + 16 / int(sizeof(T));
 };
 
 // dW_d[j, q] = sum over k = (t, r) of round(h_prev[t, r, j]) * dxp[t, r, q]
 // for the B rows r of direction d = blockIdx.z; grid (ceil(H/64),
-// ceil(4H/64), D).
-template <typename T>
+// ceil(4H/64), D).  A thread stages 16-byte pieces of a chunk: 4 units of
+// h (fp32) and 16 bytes of dxp, whole vectors when kVec (H a multiple of 4
+// and 16-byte aligned rows), else element by element.  Each piece's row k
+// is kept as (t, r) and moves by kDwK rows a chunk, so the walk over K
+// divides nothing.
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 lstm_dwhh_kernel(const float* __restrict__ hs,  // [T, R, H]
                  const float* __restrict__ h0,  // [R, H] or null (zero state)
@@ -335,36 +481,82 @@ lstm_dwhh_kernel(const float* __restrict__ hs,  // [T, R, H]
                  int T_, int B, int D, int H) {
   constexpr int LD = DwLd<T>::value;
   constexpr bool kTensorCore = sizeof(T) == 2;
+  constexpr int DV = 16 / int(sizeof(T));                       // dxp elements a piece
+  constexpr int kHPer = kDwK * kDwTile / 4 / kThreads;          // h pieces a thread: 4
+  constexpr int kDPer = kDwK * kDwTile / DV / kThreads;         // dxp pieces: 2 bf16, 4 fp32
+  constexpr int kHRows = kThreads / (kDwTile / 4), kDRows = kThreads / (kDwTile / DV);
   __shared__ __align__(16) T h_s[kDwK * LD];  // round(h_prev)[k][j]
   __shared__ __align__(16) T d_s[kDwK * LD];  // dgates[k][q]
   const int d = blockIdx.z;
   const int j0 = blockIdx.x * kDwTile, q0 = blockIdx.y * kDwTile;
   const int R = D * B, G4 = 4 * H, K = T_ * B;
   const int tid = threadIdx.x;
+  const int hc = (tid % (kDwTile / 4)) * 4, dcol = (tid % (kDwTile / DV)) * DV;
 
-  float hv[kDwPer];
-  T dv[kDwPer];
-  // rows [k0, k0 + kDwK) of both operands into registers; zeros outside
-  auto fetch = [&](int k0) {
+  // rows (t, r) of the pieces, and how far a chunk moves them
+  int ht[kHPer], hr[kHPer], dt[kDPer], dr[kDPer];
 #pragma unroll
-    for (int i = 0; i < kDwPer; ++i) {
-      const int e = tid + i * kThreads;
-      const int k = k0 + e / kDwTile, c = e % kDwTile;
-      float h = 0.0f;
-      T g = from_float<T>(0.0f);
-      if (k < K) {
-        const int t = k / B, r = d * B + k % B;
-        if (j0 + c < H) {
-          if (t > 0) {
-            h = hs[(size_t(t - 1) * R + r) * H + j0 + c];
-          } else if (h0 != nullptr) {
-            h = h0[size_t(r) * H + j0 + c];
-          }
+  for (int i = 0; i < kHPer; ++i) {
+    const int k = tid / (kDwTile / 4) + i * kHRows;
+    ht[i] = k / B;
+    hr[i] = k % B;
+  }
+#pragma unroll
+  for (int i = 0; i < kDPer; ++i) {
+    const int k = tid / (kDwTile / DV) + i * kDRows;
+    dt[i] = k / B;
+    dr[i] = k % B;
+  }
+  const int move_t = kDwK / B, move_r = kDwK % B;
+  auto advance = [&](int& t, int& r) {
+    t += move_t;
+    r += move_r;
+    if (r >= B) {
+      r -= B;
+      ++t;
+    }
+  };
+
+  float hv[kHPer][4];
+  uint4 dv[kDPer];
+  // the pieces of the current rows into registers; zeros outside
+  auto fetch = [&]() {
+#pragma unroll
+    for (int i = 0; i < kHPer; ++i) {
+      const float* src = nullptr;
+      if (ht[i] < T_) {
+        if (ht[i] > 0) {
+          src = hs + (size_t(ht[i] - 1) * R + d * B + hr[i]) * H;
+        } else if (h0 != nullptr) {
+          src = h0 + size_t(d * B + hr[i]) * H;
         }
-        if (q0 + c < G4) g = dxp[(size_t(t) * R + r) * G4 + q0 + c];
       }
-      hv[i] = h;
-      dv[i] = g;
+      const int j = j0 + hc;
+      if constexpr (kVec) {
+        const float4 v = (src != nullptr && j < H) ? *reinterpret_cast<const float4*>(src + j)
+                                                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        hv[i][0] = v.x;
+        hv[i][1] = v.y;
+        hv[i][2] = v.z;
+        hv[i][3] = v.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) hv[i][e] = (src != nullptr && j + e < H) ? src[j + e] : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kDPer; ++i) {
+      const T* src = dt[i] < T_ ? dxp + (size_t(dt[i]) * R + d * B + dr[i]) * G4 : nullptr;
+      const int q = q0 + dcol;
+      if constexpr (kVec) {
+        dv[i] = (src != nullptr && q < G4) ? *reinterpret_cast<const uint4*>(src + q)
+                                           : make_uint4(0u, 0u, 0u, 0u);
+      } else {
+        __align__(16) T tmp[DV];
+#pragma unroll
+        for (int e = 0; e < DV; ++e) tmp[e] = (src != nullptr && q + e < G4) ? src[q + e] : from_float<T>(0.0f);
+        dv[i] = *reinterpret_cast<const uint4*>(tmp);
+      }
     }
   };
 
@@ -376,17 +568,25 @@ lstm_dwhh_kernel(const float* __restrict__ hs,  // [T, R, H]
   const int warp = tid >> 5, lane = tid & 31;
   const int wm = warp & 3, wn = warp >> 2;
 
-  fetch(0);
+  fetch();
   for (int k0 = 0; k0 < K; k0 += kDwK) {
     __syncthreads();  // everyone is done with the previous chunk
 #pragma unroll
-    for (int i = 0; i < kDwPer; ++i) {
-      const int e = tid + i * kThreads;
-      h_s[(e / kDwTile) * LD + e % kDwTile] = from_float<T>(hv[i]);
-      d_s[(e / kDwTile) * LD + e % kDwTile] = dv[i];
+    for (int i = 0; i < kHPer; ++i) {
+      T* dst = h_s + (tid / (kDwTile / 4) + i * kHRows) * LD + hc;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dst[e] = from_float<T>(hv[i][e]);
+    }
+#pragma unroll
+    for (int i = 0; i < kDPer; ++i) {
+      *reinterpret_cast<uint4*>(d_s + (tid / (kDwTile / DV) + i * kDRows) * LD + dcol) = dv[i];
     }
     __syncthreads();
-    if (k0 + kDwK < K) fetch(k0 + kDwK);  // in flight while this chunk multiplies
+#pragma unroll
+    for (int i = 0; i < kHPer; ++i) advance(ht[i], hr[i]);
+#pragma unroll
+    for (int i = 0; i < kDPer; ++i) advance(dt[i], dr[i]);
+    if (k0 + kDwK < K) fetch();  // in flight while this chunk multiplies
     if constexpr (kTensorCore) {
 #pragma unroll
       for (int ks = 0; ks < kDwK / 16; ++ks) {
@@ -478,7 +678,7 @@ cudaError_t walk(const WalkShape& ws, int B, int H, const BwdArgs* args, cudaStr
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  if (ws.smem > size_t(optin) || B * ws.units > kPairs * ws.threads) {
+  if (ws.smem > size_t(optin) || !walk_fits<T>(ws, H)) {
     return args == nullptr ? cudaSuccess : cudaErrorInvalidConfiguration;
   }
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(ws.smem));
@@ -507,7 +707,7 @@ cudaError_t walk(const WalkShape& ws, int B, int H, const BwdArgs* args, cudaStr
                            static_cast<const float*>(args->dhs), static_cast<const float*>(args->dhf),
                            static_cast<const float*>(args->dcf), static_cast<T*>(args->dxp),
                            static_cast<float*>(args->dh0), static_cast<float*>(args->dc0), args->steps,
-                           B, H, ws.units, ws.rows_padded);
+                           B, H, ws.units, ws.rows_padded, ws.k_padded, ws.ld, ws.h_padded);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -515,10 +715,14 @@ cudaError_t walk(const WalkShape& ws, int B, int H, const BwdArgs* args, cudaStr
 template <typename T, int D>
 cudaError_t walk(int B, int H, const BwdArgs* args, cudaStream_t stream, WalkInfo* info) {
   const WalkShape ws = walk_shape<T>(B, H);
-  switch (ws.rows_chunk) {
-    case 2: return walk<T, D, 2>(ws, B, H, args, stream, info);
-    case 4: return walk<T, D, 4>(ws, B, H, args, stream, info);
-    default: return walk<T, D, 8>(ws, B, H, args, stream, info);
+  if constexpr (sizeof(T) == 2) {
+    return walk<T, D, 8>(ws, B, H, args, stream, info);
+  } else {
+    switch (ws.rows_chunk) {
+      case 2: return walk<T, D, 2>(ws, B, H, args, stream, info);
+      case 4: return walk<T, D, 4>(ws, B, H, args, stream, info);
+      default: return walk<T, D, 8>(ws, B, H, args, stream, info);
+    }
   }
 }
 
@@ -527,7 +731,10 @@ cudaError_t launch_dwhh(const void* hs, const void* h0, const void* dxp, void* d
                         int T_, int B, int D, int H, void* stream) {
   if (T_ <= 0 || B <= 0 || H <= 0 || (D != 1 && D != 2)) return cudaErrorInvalidValue;
   const dim3 grid((H + kDwTile - 1) / kDwTile, (4 * H + kDwTile - 1) / kDwTile, D);
-  lstm_dwhh_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const bool vec = H % 4 == 0 && aligned(hs) && aligned(h0) && aligned(dxp);
+  auto kernel = vec ? lstm_dwhh_kernel<T, true> : lstm_dwhh_kernel<T, false>;
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(hs), static_cast<const float*>(h0), static_cast<const T*>(dxp),
       static_cast<float*>(dw0), static_cast<float*>(dw1), T_, B, D, H);
   return cudaGetLastError();

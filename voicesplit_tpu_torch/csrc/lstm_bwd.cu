@@ -117,43 +117,68 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
 // ---------------------------------------------------------------------------
 
 constexpr int kCluster = 16;     // blocks of one direction's cluster
-constexpr int kMaxThreads = 448; // threads of a walk block at most (144 registers each)
+constexpr int kWalkThreads = 384; // threads of a walk block: 12 warps, up to 168 registers each
 // bf16: the W_hh columns a warp multiplies stay in its registers as mma.sync
 // A fragments, kMTiles tiles of 16 units by at most kMaxKS k-steps of 16
-constexpr int kMTiles = 2;
+// owned columns: 4U <= 112 columns (H <= 448) and H <= 12 x 3 x 16 = 576
+constexpr int kMTiles = 3;
 constexpr int kMaxKS = 7;
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
+constexpr int kPairs = 2;        // (row, unit) pairs of a thread at most
+
 // The address of `p` (this block's shared memory) in block `rank` of the
-// cluster, and a store there.
+// cluster.
 __device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
   uint32_t r;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(rank));
   return r;
 }
-__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
-  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+// v into another block's shared memory at `addr`, counted as 16 bytes on
+// that block's mbarrier at `bar` (both shared::cluster addresses).
+__device__ __forceinline__ void send4(uint32_t addr, float4 v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];\n"
+               ::"r"(addr), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar) : "memory");
+}
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(bar));
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(a) : "memory");
+}
+// One arrival that also expects `bytes` more on the barrier's current phase.
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(bar));
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(a), "r"(bytes)
+               : "memory");
+}
+// Waits until the phase of parity `parity` has completed; traps instead of
+// hanging if it never does (a fault, not a slow step: ~10 s).
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(bar));
+  const long long t0 = clock64();
+  uint32_t done = 0;
+  while (true) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        " selp.b32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 34)) __trap();
+  }
 }
 
 // Launch shape of the walk for B rows a direction.  q, the columns a block
 // owns (4U, zero past its units), is padded to `k_padded`; rows of `ld`
 // elements.
-//   bf16: rounded dgates [rows_padded = B to whole n8 tiles][ld] (the
-//         mma's B operand; ld = k_padded + 8 so that the 32-bit loads of a
-//         fragment meet no bank conflict); W_hh lives in registers.
+//   bf16: rounded dgates [2][rows_padded = B to whole n8 tiles][ld] (the
+//         mma's B operand, two buffers by step parity; ld = k_padded + 8 so
+//         that the 32-bit loads of a fragment meet no bank conflict); W_hh
+//         lives in registers.
 //   fp32: W_hh columns [h_padded][ld] (ld an odd number of 16-byte units:
 //         the 16-byte loads of consecutive rows meet no bank conflict),
-//         rounded dgates [k_padded][rows_padded = B to the row chunk], and
+//         rounded dgates [2][k_padded][rows_padded = B to the row chunk], and
 //         each unit's owner and place in the owner's slot, (j / U) << 16 |
 //         j % U, so the walk divides nothing.
-// Both: receive slots [2][C][B][U] (fp32), and the state of the B x U
-// (row, unit) pairs: step inputs (gates, c[t-1], dhs) and dc [7][B U]
-// (fp32, each element read and written by one thread), (r << 16 | u) [B U].
+// Both: receive slots [2][C][B][U] (fp32) and their two mbarriers.
 struct WalkShape {
   int units, threads, rows_chunk, rows_padded, k_padded, ld, h_padded;
   size_t smem;
@@ -164,47 +189,46 @@ WalkShape walk_shape(int B, int H) {
   constexpr bool kTensorCore = sizeof(T) == 2;
   WalkShape w;
   w.units = (H + kCluster - 1) / kCluster;
-  w.threads = H > kMaxThreads ? kMaxThreads : (H + 31) / 32 * 32;
-  w.h_padded = (H + 7) / 8 * 8;
-  const size_t recv = align16(size_t(2) * kCluster * B * w.units * sizeof(float)) +
-                      align16(size_t(8) * B * w.units * sizeof(float));
+  w.threads = kWalkThreads;
+  const int u4 = (w.units + 3) / 4 * 4;
+  const size_t tail = size_t(3) * kCluster * B * u4 * sizeof(float) + 16;
+  size_t dg;
   if (kTensorCore) {
+    w.h_padded = (H + 15) / 16 * 16;  // whole m16 tiles of units
     w.rows_chunk = 8;
     w.rows_padded = (B + 7) / 8 * 8;
     w.k_padded = (4 * w.units + 15) / 16 * 16;
-    w.ld = w.k_padded + 8;
-    w.smem = align16(size_t(w.rows_padded) * w.ld * sizeof(T)) + recv;
+    // every k-step of the register-held fragments reads inside a row
+    w.ld = (w.k_padded > 16 * kMaxKS ? w.k_padded : 16 * kMaxKS) + 8;
+    dg = size_t(2) * w.rows_padded * w.ld * sizeof(T);
   } else {
+    w.h_padded = (H + 7) / 8 * 8;
     // rows of the partial product kept in registers at a time
     w.rows_chunk = B >= 5 ? 8 : B >= 3 ? 4 : 2;
     w.rows_padded = (B + w.rows_chunk - 1) / w.rows_chunk * w.rows_chunk;
     w.k_padded = (4 * w.units + 3) / 4 * 4;
     w.ld = w.k_padded + ((w.k_padded / 4) % 2 == 0 ? 4 : 0);
-    w.smem = align16(size_t(w.h_padded) * w.ld * sizeof(T)) +
-             align16(size_t(w.k_padded) * w.rows_padded * sizeof(float)) + recv +
-             size_t(w.h_padded) * sizeof(int);
+    dg = size_t(2) * w.k_padded * w.rows_padded * sizeof(float);
   }
+  w.smem = align16(size_t(w.h_padded) * w.ld * sizeof(T)) + align16(dg) + tail +
+           (kTensorCore ? 0 : size_t(w.h_padded) * sizeof(int));
   return w;
 }
 
-// Whether the register-held W_hh fragments cover this shape (shared memory
-// aside).
+// Whether the walk's registers cover this shape (shared memory aside).
 template <typename T>
-bool walk_fits(const WalkShape& w, int H) {
+bool walk_fits(const WalkShape& w, int B, int H) {
+  if (B * w.units > kPairs * w.threads) return false;
   if (sizeof(T) == 2) {
     return (H + 15) / 16 <= kMTiles * (w.threads / 32) && w.k_padded / 16 <= kMaxKS;
   }
   return true;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return uint32_t(__bfloat16_as_ushort(lo)) | (uint32_t(__bfloat16_as_ushort(hi)) << 16);
-}
-
 // Grid D * kCluster blocks in clusters of kCluster; cluster d walks
 // direction d.  RC rows of the fp32 partial product at a time.
 template <typename T, int D, int RC>
-__global__ void __launch_bounds__(kMaxThreads, 1)
+__global__ void __launch_bounds__(kWalkThreads, 1)
 lstm_bwd_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
                 const T* __restrict__ w1,        // [H, 4H], rows [B, 2B) (D == 2)
                 const float* __restrict__ gates, // [T, R, 4H] activated
@@ -224,14 +248,19 @@ lstm_bwd_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
   const int R = D * B;           // rows of the arrays, all directions
   const int G4 = 4 * H;          // gate columns of one row
   const int NQ = 4 * U;          // columns a block owns (zero past its units)
-  const int NP = B * U;          // (row, unit) pairs, those past Uk idle
   const int u0 = k * U;
   const int Uk = max(0, min(U, H - u0));  // units this block owns
   const int tid = threadIdx.x, nt = blockDim.x;
   const int warp = tid >> 5, lane = tid & 31, warps = nt >> 5;
   const int gr = lane >> 2, tig = lane & 3;
   const T* __restrict__ W = d ? w1 : w0;
-  const int slot = kCluster * B * U;  // floats of one receive slot
+  const int U4 = (U + 3) / 4 * 4;      // a row of a block's units, in whole 16 bytes
+  const int slot = kCluster * B * U4;  // floats of one receive slot [C][B][U4]
+  // Blocks [0, senders) own units.  The others hold only zero columns: they
+  // send nothing, receive nothing and skip the walk.  A block receives the
+  // partials of its units from every sender each step.
+  const int senders = (H + U - 1) / U;
+  const uint32_t slot_bytes = Uk > 0 ? uint32_t(senders * B * U4) * 4 : 0;
 
   // W_hh[j, column of owned q], zero outside
   auto w_at = [&](int j, int q) {
@@ -241,32 +270,41 @@ lstm_bwd_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
   };
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  // bf16: dg_a [RP][LD] (T); fp32: w_s [HP][LD] (T), dg_s [KP][RP]; then
-  // the receive slots, the pairs' state and, fp32, own_s [HP]
-  T* dg_a = reinterpret_cast<T*>(smem_raw);
+  // W_hh columns w_s [HP][LD] (T: bf16 only until its fragments are in
+  // registers); rounded dgates, bf16 dg_a [2][RP][LD] (T), fp32 dg_s
+  // [2][KP][RP]; the receive slots [2][C][B][U4], the partials to send
+  // [C][B][U4], two mbarriers and, fp32,
+  // own_s [HP]
+  const int dg_stride = kTensorCore ? RP * LD : KP * RP;  // elements of one dgates buffer
   T* w_s = reinterpret_cast<T*>(smem_raw);
-  float* dg_s = reinterpret_cast<float*>(smem_raw + align16(size_t(HP) * LD * sizeof(T)));
-  const size_t dg_bytes = kTensorCore ? size_t(RP) * LD * sizeof(T)
-                                      : align16(size_t(HP) * LD * sizeof(T)) + size_t(KP) * RP * sizeof(float);
-  float* recv = reinterpret_cast<float*>(smem_raw + align16(dg_bytes));  // [2][C][B][U]
-  float* st_s = recv + align16(size_t(2) * slot * sizeof(float)) / sizeof(float);  // [7][NP]
-  int* ru_s = reinterpret_cast<int*>(st_s + 7 * NP);                                 // [NP]
-  int* own_s = reinterpret_cast<int*>(st_s + align16(size_t(8) * NP * sizeof(float)) / sizeof(float));
-  float* const gi_s = st_s;
-  float* const gf_s = st_s + NP;
-  float* const gg_s = st_s + 2 * NP;
-  float* const go_s = st_s + 3 * NP;
-  float* const cp_s = st_s + 4 * NP;
-  float* const dd_s = st_s + 5 * NP;
-  float* const dc_s = st_s + 6 * NP;
-  for (int e = tid; e < int(dg_bytes / 4); e += nt) reinterpret_cast<float*>(smem_raw)[e] = 0.0f;
+  unsigned char* dg_raw = smem_raw + align16(size_t(HP) * LD * sizeof(T));
+  T* dg_a = reinterpret_cast<T*>(dg_raw);
+  float* dg_s = reinterpret_cast<float*>(dg_raw);
+  const size_t dg_bytes = size_t(2) * dg_stride * (kTensorCore ? sizeof(T) : sizeof(float));
+  float* recv = reinterpret_cast<float*>(dg_raw + align16(dg_bytes));
+  float* stage = recv + 2 * slot;  // this step's partials by owner [C][B][U4]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(stage + slot);
+  int* own_s = reinterpret_cast<int*>(bars + 2);
+  for (int e = tid; e < int(dg_bytes / 4); e += nt) reinterpret_cast<float*>(dg_raw)[e] = 0.0f;
+  for (int e = tid; e < HP * LD; e += nt) w_s[e] = w_at(e / LD, e % LD);
+  if constexpr (!kTensorCore) {
+    for (int j = tid; j < HP; j += nt) own_s[j] = (j / U) << 16 | (j % U);
+  }
+  if (tid == 0) {
+    bar_init(bars);
+    bar_init(bars + 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // slot s & 1 receives step s's partials: arm the first two steps
+    bar_expect(bars + ((T_ - 1) & 1), slot_bytes);
+    if (T_ >= 2) bar_expect(bars + ((T_ - 2) & 1), slot_bytes);
+  }
   __syncthreads();
 
-  // bf16: warp w multiplies the 16-unit tiles w and w + warps; their W_hh
-  // columns as A fragments (rows gr, gr + 8, columns 2 tig, 2 tig + 8), and
-  // where each of its units' partials go in the owner's slot 0 (~0: none)
+  // bf16: warp w multiplies the 16-unit tiles w, w + warps, ...; their W_hh
+  // columns as A fragments (ldmatrix from w_s, once), and the owner and
+  // place of each of its units, owner << 16 | place (-1: none)
   uint32_t wa[kMTiles][kMaxKS][4];
-  uint32_t to[kMTiles][2];
+  int to[kMTiles][2];
   bool tile_on[kMTiles];  // warp-uniform: mma.sync needs the whole warp
   if constexpr (kTensorCore) {
 #pragma unroll
@@ -275,72 +313,82 @@ lstm_bwd_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
       tile_on[mt] = m0 < H;
 #pragma unroll
       for (int ks = 0; ks < kMaxKS; ++ks) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int j = m0 + gr + (i & 1) * 8, q = ks * 16 + 2 * tig + (i >> 1) * 8;
-          wa[mt][ks][i] = pack_bf16(w_at(j, q), w_at(j, q + 1));
-        }
+        // zeros for a tile past H (and, from w_s, for k-steps past 4U): the
+        // walk multiplies every tile and k-step without a branch
+        wa[mt][ks][0] = wa[mt][ks][1] = wa[mt][ks][2] = wa[mt][ks][3] = 0u;
+        if (tile_on[mt]) ldmatrix_x4(wa[mt][ks], w_s + (m0 + (lane & 15)) * LD + ks * 16 + (lane >> 4) * 8);
       }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int j = m0 + gr + h * 8;
-        to[mt][h] = j < H ? cluster_addr(recv + k * B * U + j % U, j / U) : ~0u;
+        to[mt][h] = j < H ? (j / U) << 16 | (j % U) : -1;
       }
     }
-  } else {
-    for (int e = tid; e < HP * LD; e += nt) w_s[e] = w_at(e / LD, e % LD);
-    for (int j = tid; j < HP; j += nt) own_s[j] = (j / U) << 16 | (j % U);
   }
 
-  // the pairs of this thread: e = tid, tid + nt, ...; their state stays in
-  // shared memory, each element read and written by this thread only
-  for (int e = tid; e < NP; e += nt) {
-    const int r = e / U, u = e % U;
-    ru_s[e] = u < Uk ? (r << 16 | u) : -1;
-    dc_s[e] = (u < Uk && dcf != nullptr) ? dcf[size_t(d * B + r) * H + u0 + u] : 0.0f;
+  // this thread's (row, unit) pairs e = tid + p nt, r << 16 | u (-1: none),
+  // and their registers
+  int ru[kPairs];
+  float gi[kPairs], gf[kPairs], gg[kPairs], go[kPairs], cp[kPairs], dd[kPairs], dc[kPairs];
+#pragma unroll
+  for (int p = 0; p < kPairs; ++p) {
+    const int e = tid + p * nt, r = e / U, u = e % U;
+    ru[p] = e < B * U && u < Uk ? r << 16 | u : -1;
+    dc[p] = (ru[p] >= 0 && dcf != nullptr) ? dcf[size_t(d * B + r) * H + u0 + u] : 0.0f;
   }
   // step s's inputs of the pairs, none of which depends on the recurrence
   auto prefetch = [&](int s) {
-    for (int e = tid; e < NP; e += nt) {
-      const int ru = ru_s[e];
-      if (ru < 0) continue;
-      const int r = ru >> 16, j = u0 + (ru & 0xffff);
+#pragma unroll
+    for (int p = 0; p < kPairs; ++p) {
+      if (ru[p] < 0) continue;
+      const int r = ru[p] >> 16, j = u0 + (ru[p] & 0xffff);
       const size_t row = size_t(s) * R + d * B + r;
       const float* gt = gates + row * G4;
-      gi_s[e] = gt[j];
-      gf_s[e] = gt[H + j];
-      gg_s[e] = gt[2 * H + j];
-      go_s[e] = gt[3 * H + j];
+      gi[p] = gt[j];
+      gf[p] = gt[H + j];
+      gg[p] = gt[2 * H + j];
+      go[p] = gt[3 * H + j];
       if (s > 0) {
-        cp_s[e] = cs[(row - R) * H + j];
+        cp[p] = cs[(row - R) * H + j];
       } else {
-        cp_s[e] = c0 != nullptr ? c0[size_t(d * B + r) * H + j] : 0.0f;
+        cp[p] = c0 != nullptr ? c0[size_t(d * B + r) * H + j] : 0.0f;
       }
-      dd_s[e] = dhs[row * H + j];
+      dd[p] = dhs[row * H + j];
     }
   };
   prefetch(T_ - 1);
-  cluster.sync();  // every block of the cluster runs and has set up its shared memory
+  cluster.sync();  // every block runs, with its barriers armed and W_hh set up
 
-  for (int s = T_ - 1; s >= 0; --s) {
-    const float* in = recv + ((s + 1) & 1) * slot;  // step s+1's partials
+  uint32_t parity = 0;  // bit x: parity of slot x's phase to wait for
+  for (int s = Uk > 0 ? T_ - 1 : -1; s >= 0; --s) {
+    const int in_slot = (s + 1) & 1;  // step s+1's partials
+    if (s < T_ - 1) {
+      bar_wait(bars + in_slot, (parity >> in_slot) & 1);
+      parity ^= 1u << in_slot;
+      // the slot's next phase receives step s-1's partials
+      if (tid == 0 && s >= 1) bar_expect(bars + in_slot, slot_bytes);
+    }
+    const float* in = recv + in_slot * slot;
+    T* dga = dg_a + (s & 1) * dg_stride;
+    float* dgs = dg_s + (s & 1) * dg_stride;
     // 1, 2: own columns of dgates[s]
-    for (int e = tid; e < NP; e += nt) {
-      const int ru = ru_s[e];
-      if (ru < 0) continue;
-      const int r = ru >> 16, u = ru & 0xffff, j = u0 + u;
+#pragma unroll
+    for (int p = 0; p < kPairs; ++p) {
+      if (ru[p] < 0) continue;
+      const int r = ru[p] >> 16, u = ru[p] & 0xffff, j = u0 + u;
       float rec = 0.0f;
       if (s == T_ - 1) {
         if (dhf != nullptr) rec = dhf[size_t(d * B + r) * H + j];
       } else {
-        for (int m = 0; m < kCluster; ++m) rec += in[(m * B + r) * U + u];
+        // the partials of (r, u), one a sender, added in rank order
+        for (int m = 0; m < senders; ++m) rec += in[(m * B + r) * U4 + u];
       }
-      const float i = gi_s[e], f = gf_s[e], g = gg_s[e], o = go_s[e], c_prev = cp_s[e];
-      const float dh = dd_s[e] + rec;
+      const float i = gi[p], f = gf[p], g = gg[p], o = go[p], c_prev = cp[p];
+      const float dh = dd[p] + rec;
       const float tc = tanhf(f * c_prev + i * g);
       const float dout = dh * tc;
-      const float dct = dh * o * (1.0f - tc * tc) + dc_s[e];
-      dc_s[e] = dct * f;
+      const float dct = dh * o * (1.0f - tc * tc) + dc[p];
+      dc[p] = dct * f;
       const T v[4] = {from_float<T>(dct * g * i * (1.0f - i)),
                       from_float<T>(dct * c_prev * f * (1.0f - f)),
                       from_float<T>(dct * i * (1.0f - g * g)),
@@ -350,108 +398,124 @@ lstm_bwd_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
       for (int gate = 0; gate < 4; ++gate) {
         dx[gate * H] = v[gate];
         if constexpr (kTensorCore) {
-          dg_a[r * LD + gate * U + u] = v[gate];
+          dga[r * LD + gate * U + u] = v[gate];
         } else {
-          dg_s[(gate * U + u) * RP + r] = to_float(v[gate]);
+          dgs[(gate * U + u) * RP + r] = to_float(v[gate]);
         }
       }
     }
+    // dgates[s] complete; every warp is also past step s+1's product, whose
+    // buffer step s-1 writes
     __syncthreads();
 
-    // 3: partial dh_rec of every unit from the owned columns, to its owner
-    const uint32_t out = uint32_t((s & 1) * slot) * 4;  // this step's slot, in bytes
-    if constexpr (kTensorCore) {
-      // P^T[j, r] = sum_q W[j, q] dg[r, q]: mma.sync.m16n8k16 with A = the
-      // W_hh fragments in registers and B = 8 rows of dgates (32-bit loads:
-      // [n][k] is the "col" B); the warp's two tiles interleave
-      const int KS = KP / 16;
-      for (int r0 = 0; r0 < RP; r0 += 8) {
-        float acc[kMTiles][4];
+    // 3: partial dh_rec of every unit from the owned columns, sent to its
+    // owner's slot s & 1 (after step 0 only one direction needs it: dh0)
+    if (s > 0 || D == 1) {
+      const uint32_t out = uint32_t((s & 1) * slot) * 4;  // the slot, in bytes
+      const uint32_t bar_off = uint32_t(s & 1) * 8;
+      if constexpr (kTensorCore) {
+        // P^T[j, r] = sum_q W[j, q] dg[r, q]: mma.sync.m16n8k16 with A = the
+        // W_hh fragments in registers and B = 8 rows of dgates (32-bit
+        // loads: [n][k] is the "col" B); the warp's tiles interleave
+        for (int r0 = 0; r0 < RP; r0 += 8) {
+          // even and odd k-steps in two accumulators, added at the end:
+          // two chains of dependent products, not one
+          float acc[2][kMTiles][4];
 #pragma unroll
-        for (int mt = 0; mt < kMTiles; ++mt) acc[mt][0] = acc[mt][1] = acc[mt][2] = acc[mt][3] = 0.0f;
+          for (int c = 0; c < 2; ++c) {
 #pragma unroll
-        for (int ks = 0; ks < kMaxKS; ++ks) {
-          if (ks < KS) {
-            const T* brow = dg_a + (r0 + gr) * LD + ks * 16 + 2 * tig;
+            for (int mt = 0; mt < kMTiles; ++mt) acc[c][mt][0] = acc[c][mt][1] = acc[c][mt][2] = acc[c][mt][3] = 0.0f;
+          }
+#pragma unroll
+          for (int ks = 0; ks < kMaxKS; ++ks) {
+            const T* brow = dga + (r0 + gr) * LD + ks * 16 + 2 * tig;
             const uint32_t b0 = *reinterpret_cast<const uint32_t*>(brow);
             const uint32_t b1 = *reinterpret_cast<const uint32_t*>(brow + 8);
 #pragma unroll
-            for (int mt = 0; mt < kMTiles; ++mt) {
-              if (tile_on[mt]) mma_bf16(acc[mt], wa[mt][ks], b0, b1);
+            for (int mt = 0; mt < kMTiles; ++mt) mma_bf16(acc[ks & 1][mt], wa[mt][ks], b0, b1);
+          }
+          // acc[.][mt][e]: unit m0 + gr + (e >> 1) 8, row r0 + 2 tig + (e & 1)
+          const int r = r0 + 2 * tig;
+#pragma unroll
+          for (int mt = 0; mt < kMTiles; ++mt) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int own = to[mt][h];
+              if (own < 0 || r >= B) continue;
+              float* st = stage + ((own >> 16) * B + r) * U4 + (own & 0xffff);
+              st[0] = acc[0][mt][2 * h] + acc[1][mt][2 * h];
+              if (r + 1 < B) st[U4] = acc[0][mt][2 * h + 1] + acc[1][mt][2 * h + 1];
             }
           }
         }
-        // acc[mt][e]: unit m0 + gr + (e >> 1) 8, row r0 + 2 tig + (e & 1)
+      } else {
+        // CUDA cores: thread jj, RC rows in registers, 4 columns a load
+        for (int jj = tid; jj < H; jj += nt) {
+          const int own = own_s[jj];
+          float* st = stage + (own >> 16) * B * U4 + (own & 0xffff);
+          const T* wrow = w_s + size_t(jj) * LD;
+          for (int r0 = 0; r0 < B; r0 += RC) {
+            float acc[RC];
 #pragma unroll
-        for (int mt = 0; mt < kMTiles; ++mt) {
+            for (int i = 0; i < RC; ++i) acc[i] = 0.0f;
+            for (int q = 0; q < KP; q += 4) {
+              const float4 w = *reinterpret_cast<const float4*>(wrow + q);
+              const float wv[4] = {to_float(w.x), to_float(w.y), to_float(w.z), to_float(w.w)};
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = r0 + 2 * tig + (e & 1);
-            const uint32_t dst = to[mt][e >> 1];
-            if (dst != ~0u && r < B) st_cluster(dst + out + uint32_t(r * U) * 4, acc[mt][e]);
-          }
-        }
-      }
-    } else {
-      // CUDA cores: thread jj, RC rows in registers, 4 columns a load
-      for (int jj = tid; jj < H; jj += nt) {
-        const int own = own_s[jj];
-        const uint32_t dst = cluster_addr(recv + k * B * U + (own & 0xffff), own >> 16) + out;
-        const T* wrow = w_s + size_t(jj) * LD;
-        for (int r0 = 0; r0 < B; r0 += RC) {
-          float acc[RC];
+              for (int c = 0; c < 4; ++c) {
+                const float* gq = dgs + (q + c) * RP + r0;
+                float gv[RC];
+                if constexpr (RC == 2) {
+                  const float2 a = *reinterpret_cast<const float2*>(gq);
+                  gv[0] = a.x;
+                  gv[1] = a.y;
+                } else {
 #pragma unroll
-          for (int i = 0; i < RC; ++i) acc[i] = 0.0f;
-          for (int q = 0; q < KP; q += 4) {
-            const float4 w = *reinterpret_cast<const float4*>(wrow + q);
-            const float wv[4] = {to_float(w.x), to_float(w.y), to_float(w.z), to_float(w.w)};
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              const float* gq = dg_s + (q + c) * RP + r0;
-              float gv[RC];
-              if constexpr (RC == 2) {
-                const float2 a = *reinterpret_cast<const float2*>(gq);
-                gv[0] = a.x;
-                gv[1] = a.y;
-              } else {
-#pragma unroll
-                for (int i = 0; i < RC; i += 4) {
-                  const float4 a = *reinterpret_cast<const float4*>(gq + i);
-                  gv[i] = a.x;
-                  gv[i + 1] = a.y;
-                  gv[i + 2] = a.z;
-                  gv[i + 3] = a.w;
+                  for (int i = 0; i < RC; i += 4) {
+                    const float4 a = *reinterpret_cast<const float4*>(gq + i);
+                    gv[i] = a.x;
+                    gv[i + 1] = a.y;
+                    gv[i + 2] = a.z;
+                    gv[i + 3] = a.w;
+                  }
                 }
+#pragma unroll
+                for (int i = 0; i < RC; ++i) acc[i] = fmaf(gv[i], wv[c], acc[i]);
               }
-#pragma unroll
-              for (int i = 0; i < RC; ++i) acc[i] = fmaf(gv[i], wv[c], acc[i]);
             }
-          }
 #pragma unroll
-          for (int i = 0; i < RC; ++i) {
-            if (r0 + i < B) st_cluster(dst + uint32_t((r0 + i) * U) * 4, acc[i]);
+            for (int i = 0; i < RC; ++i) {
+              if (r0 + i < B) st[(r0 + i) * U4] = acc[i];
+            }
           }
         }
       }
+      // every owner's rows [B][U4] go out as 16-byte pieces
+      __syncthreads();
+      const int pieces = B * U4 / 4;  // of one owner
+      for (int e = tid; e < senders * pieces; e += nt) {
+        const int m = e / pieces, c = e % pieces;
+        const float4 v = *reinterpret_cast<const float4*>(stage + m * B * U4 + c * 4);
+        send4(cluster_addr(recv + k * B * U4 + c * 4, m) + out, v, cluster_addr(bars, m) + bar_off);
+      }
     }
-
-    // 4: one cluster barrier; the next step's inputs load while it fills
-    cluster_arrive();
+    // 4: the next step's inputs load while the partials travel
     if (s > 0) prefetch(s - 1);
-    cluster_wait();
   }
 
-  if (D == 1) {
-    for (int e = tid; e < NP; e += nt) {  // step 0's partials are in slot 0
-      const int ru = ru_s[e];
-      if (ru < 0) continue;
-      const int r = ru >> 16, u = ru & 0xffff;
+  if (D == 1 && Uk > 0) {
+    bar_wait(bars, parity & 1);  // step 0's partials, in slot 0
+#pragma unroll
+    for (int p = 0; p < kPairs; ++p) {
+      if (ru[p] < 0) continue;
+      const int r = ru[p] >> 16, u = ru[p] & 0xffff;
       float rec = 0.0f;
-      for (int m = 0; m < kCluster; ++m) rec += recv[(m * B + r) * U + u];
+      for (int m = 0; m < senders; ++m) rec += recv[(m * B + r) * U4 + u];
       dh0[size_t(r) * H + u0 + u] = rec;
-      dc0[size_t(r) * H + u0 + u] = dc_s[e];
+      dc0[size_t(r) * H + u0 + u] = dc[p];
     }
   }
+  cluster.sync();  // no block leaves while a peer may still write to it
 }
 
 // ---------------------------------------------------------------------------
@@ -678,7 +742,7 @@ cudaError_t walk(const WalkShape& ws, int B, int H, const BwdArgs* args, cudaStr
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  if (ws.smem > size_t(optin) || !walk_fits<T>(ws, H)) {
+  if (ws.smem > size_t(optin) || !walk_fits<T>(ws, B, H)) {
     return args == nullptr ? cudaSuccess : cudaErrorInvalidConfiguration;
   }
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(ws.smem));

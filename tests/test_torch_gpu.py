@@ -195,6 +195,24 @@ def test_lstm_dwhh_kernel_matches_plain_version_on_card(dtype, bidirectional):
         assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lstm_backward_raises_where_its_walk_does_not_fit_on_card(dtype):
+    """At H=800 a block's W_hh columns exceed what the walk holds (bf16:
+    registers, fp32: shared memory): the launch is refused and the wrapper
+    raises, with no fallback to the plain version."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import lstm_cuda
+
+    args = _backward_inputs(False, dtype, T=3, H=800, B=2)
+    cfg = lstm_cuda.launch_config(1, 2, 800, getattr(torch, dtype), backward=True)
+    assert cfg["max_active_clusters"] == 0
+    before = dict(lstm_cuda.LAUNCHES)
+    with pytest.raises(RuntimeError, match="lstm_bwd"):
+        lstm_cuda.lstm_bwd(*args)
+    assert lstm_cuda.LAUNCHES == before
+
+
 # shapes the path does not take: units not a multiple of the blocks that
 # share them (H = 40: some blocks own none), one and three rows, one step
 ODD_SHAPES = [(1, 1, 40), (7, 1, 40), (7, 3, 40), (5, 3, 24)]

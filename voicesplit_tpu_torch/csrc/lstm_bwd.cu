@@ -29,56 +29,77 @@
 //
 // lstm_bwd_kernel, the reverse walk: one thread-block cluster of C = 16
 // blocks per direction (non-portable cluster size), D clusters that never
-// talk to each other, so there is no cooperative launch and no grid-wide
-// barrier.  Block k of a cluster owns the U = ceil(H / C) units J_k
-// (U = 25 at H = 400; with H < 16 U some blocks own none) and keeps, for
-// the whole walk, the COLUMNS {j, H+j, 2H+j, 3H+j : j in J_k} of its
-// direction's W_hh for all H rows: exactly the dgates columns it computes
-// itself, so no step stages dgates from L2 (the grid-barrier design before
-// it staged all R x 4H of them into every block, every step).  Per step t:
-//   1. dh of its own (row, unit) pairs: the C partial dh_rec it received
-//      in the previous step, added in rank order, plus dhs[t];
-//   2. its 4U columns of dgates[t] (dc carried in registers), written to
-//      dxp[t] and, rounded, to shared memory;
-//   3. the partial P_k[r, j] = sum_{q owned} round(dgates[r, q]) W[j, q]
-//      for all H units j (one thread per j, CUDA-core FMAs, rows in chunks
-//      of 2, 4 or 8 kept in registers), each pushed as fp32 into slot
-//      [k][r][j - J_m] of its owner m through distributed shared memory;
-//   4. one cluster barrier (arrive with release, wait with acquire); while
-//      the peers arrive, the block loads step t-1's gates, c[t-2] and
-//      dhs[t-1] of its pairs into registers: they do not depend on the
+// talk to each other: no cooperative launch, no grid-wide barrier.  Why:
+// the design before it (one cooperative grid of 100 blocks, a grid.sync()
+// a step, all R x 4H dgates of a step staged from L2 into every block, and
+// dW_hh accumulated in the walk) took 6.7 us a step at B = 2.
+//   Ownership.  Block k owns the U = ceil(H / C) units J_k (U = 25 at
+//   H = 400; the blocks past ceil(H / U) own none and skip the walk) and
+//   holds, for the whole walk, the COLUMNS {j, H+j, 2H+j, 3H+j : j in J_k}
+//   of its direction's W_hh for all H rows: exactly the dgates columns it
+//   computes itself, so no step stages dgates at all.
+//   Per step t, block k:
+//   1. waits for the partials dh_rec of its units from every owning block
+//      (an mbarrier of its own, armed for the bytes it expects), and adds
+//      them in rank order to dhs[t];
+//   2. computes its 4U columns of dgates[t] (dc carried in registers),
+//      writes them to dxp[t] and, rounded, to shared memory;
+//   3. computes the partial P_k[r, j] = sum_{q owned} round(dgates[r, q])
+//      W[j, q] for all H units j and its direction's rows r, stages it by
+//      owner and sends each owner m its [B][U] rows as 16-byte st.async
+//      stores into m's receive slot [k][r][u], each counting its bytes on
+//      m's mbarrier;
+//   4. loads step t-1's gates, c[t-2] and dhs[t-1] of its (row, unit) pairs
+//      into registers while the partials travel: they do not depend on the
 //      recurrence.
-// The receive slots are double-buffered: step t's partials go to slot
-// t mod 2 and are summed at step t-1.  A block writes that slot again at
-// step t-2, after the barrier of step t-1, which no peer reaches before it
-// has summed the slot; so one barrier a step suffices.  After step 0 (one direction) dh0 is the sum of
-// the last partials and dc0 the carried dc.  Threads: one per unit j of the
-// product, rounded up to a warp, at most 512 (416 at H = 400).
+//   A block waits only for what it needs, when it needs it: no block waits
+//   for all sixteen to reach a barrier.  Two receive slots, each with its
+//   mbarrier: step t's partials go to slot t mod 2 and are summed at step
+//   t-1.  A sender writes a slot again only two steps later, after it has
+//   received the receiver's partials of the step between, which the
+//   receiver sends after it has summed the slot and armed its barrier
+//   again; so no slot is overwritten while it is read, and no partial
+//   counts on a phase that is not its own.  A wait that never ends traps
+//   (a fault, not a hang).  After step 0 (one direction) dh0 is the sum of
+//   the last partials and dc0 the carried dc.
+//   Products.  bf16: mma.sync.m16n8k16 with W_hh as A: each of the 12
+//   warps keeps three 16-unit tiles of its block's columns (7 k-steps of
+//   16, 4U <= 112) in registers for the whole walk, loaded once with
+//   ldmatrix; B is 8 rows of dgates; every tile and k-step is multiplied
+//   without a branch (zero fragments where there is nothing), even and odd
+//   k-steps in two accumulators.  The W_hh a step multiplies thus never
+//   crosses shared memory (reading it there every step cost more than the
+//   products).  fp32: CUDA-core FMAs over the columns in shared memory, one
+//   thread per unit j, 2, 4 or 8 rows in registers.  No tensor cores are
+//   used for fp32 operands (TF32 would round them).
 //
 // lstm_dwhh_kernel, dW_hh after the walk: one product of M = H by N = 4H
 // with depth K = T * B per direction over the saved hs (h0 at t = 0) and
 // dxp, so the walk carries no dW work on its sequential chain.  Blocks of
 // 64 units x 64 gate columns, grid (ceil(H/64), ceil(4H/64), D): 175 blocks
-// a direction at H = 400.  Each block walks K in chunks of 32 rows; every
-// thread loads its 8 elements of the next chunk into registers while the
-// block multiplies the current one, h rounded to the operand type on its
-// way into shared memory.  bf16: mma.sync.m16n8k16 with ldmatrix.trans of
-// both operands (the fragment code of conv_wgrad.cu), fp32 accumulate;
+// a direction at H = 400.  Each block walks K in chunks of 64 rows; every
+// thread loads its 16-byte pieces of the next chunk into registers while
+// the block multiplies the current one, h rounded to the operand type on
+// its way into shared memory.  bf16: mma.sync.m16n8k16 with ldmatrix.trans
+// of both operands (the fragment code of conv_wgrad.cu), fp32 accumulate;
 // fp32: FMAs on CUDA cores (not TF32).
 //
 // Sum order, fixed, so the same inputs give the same bits: dh_rec of a unit
-// is its C partials added in rank order 0 .. C-1, each partial summing its
-// block's owned columns in the order (gate, unit); dW_hh[j, q] belongs to
-// one block of the dW kernel, which sums its K rows in increasing (t, r)
-// order (mma.sync: 16 at a time).  No float atomics.
+// is its partials added in rank order 0 .. senders - 1, each partial its
+// block's owned columns summed by mma.sync (bf16) or in the order (gate,
+// unit) (fp32); dW_hh[j, q] belongs to one block of the dW kernel, which
+// sums its K rows in increasing (t, r) order (mma.sync: 16 at a time).  No
+// float atomics.
 //
 // Shared memory of the walk, per block at H = 400 (C = 16, U = 25): W_hh
-// columns H x 4U (80,000 B bf16, 160,000 B fp32), rounded dgates 4U x B
-// rows padded to the row chunk (fp32), receive slots 2 x C x B x U (fp32):
-//   lstm_bwd   B = 2:  87,200 B bf16, 167,200 B fp32;
-//   bilstm_bwd B = 8: 108,800 B bf16, 188,800 B fp32 (227 KB available).
-// W_hh's columns grow as H^2 / C: at H = 800 they take 320 KB in bf16, more
-// than a block has, and the launch returns an error (the wrapper raises).
+// columns [H][4U padded] (bf16 97 KB, staged once for the fragments; fp32
+// 166 KB, read every step), rounded dgates (two buffers), receive slots
+// [2][C][B][U padded to 28] and the staged partials [C][B][28] (fp32):
+//   lstm_bwd   B = 2: 110,608 B bf16, 173,968 B fp32;
+//   bilstm_bwd B = 8: 142,864 B bf16, 211,024 B fp32 (227 KB available).
+// Limits, checked before the launch (the wrapper raises): bf16 needs
+// 4U <= 112 (H <= 448); fp32 needs its columns in shared memory.  At
+// H = 800 neither holds (bf16 4U = 200; fp32 640 KB of columns).
 //
 // What bounds them on the card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16 dense),
 // counting each input byte read once and each output byte written once,
@@ -87,11 +108,11 @@
 //              -> memory-bound, ~3.7 us; launched twice per training step.
 //   bilstm_bwd, B = 8 (16 rows), bf16: ~77 MB and 12.3 GFLOP
 //              -> memory-bound, ~23 us; launched once per training step.
-//   dW_hh alone: ~5.5 MB / 0.77 GFLOP at B = 2 and ~17 MB / 6.2 GFLOP at
-//              B = 8, memory-bound at ~1.6 and ~5 us.
+//   dW_hh alone: ~5.5 MB / 0.77 GFLOP at B = 2 and ~28 MB / 6.2 GFLOP at
+//              B = 8 (both directions), memory-bound at ~1.6 and ~8.4 us.
 // The real limit of the walk is neither: it is the T = 301 dependent
-// steps, each a CUDA-core product (B x H x 4U FMAs a block) and one cluster
-// barrier.
+// steps, each a wait for the partials, the step's elementwise work, a
+// small product and one exchange through distributed shared memory.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -168,19 +189,20 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
 
 // Launch shape of the walk for B rows a direction.  q, the columns a block
 // owns (4U, zero past its units), is padded to `k_padded`; rows of `ld`
-// elements.
-//   bf16: rounded dgates [2][rows_padded = B to whole n8 tiles][ld] (the
-//         mma's B operand, two buffers by step parity; ld = k_padded + 8 so
-//         that the 32-bit loads of a fragment meet no bank conflict); W_hh
-//         lives in registers.
-//   fp32: W_hh columns [h_padded][ld] (ld an odd number of 16-byte units:
-//         the 16-byte loads of consecutive rows meet no bank conflict),
-//         rounded dgates [2][k_padded][rows_padded = B to the row chunk], and
-//         each unit's owner and place in the owner's slot, (j / U) << 16 |
-//         j % U, so the walk divides nothing.
-// Both: receive slots [2][C][B][U] (fp32) and their two mbarriers.
+// elements; W_hh columns [h_padded][ld] (T).
+//   bf16: W_hh's columns staged once for the register-held fragments;
+//         rounded dgates [2][rows_padded = B to whole n8 tiles][ld] (the
+//         mma's B operand, two buffers by step parity; ld = k_padded + 8, at
+//         least 7 k-steps, so that the 32-bit loads of a fragment meet no
+//         bank conflict).
+//   fp32: W_hh's columns read every step (ld an odd number of 16-byte
+//         units: the 16-byte loads of consecutive rows meet no bank
+//         conflict); rounded dgates [2][k_padded][rows_padded = B to the row
+//         chunk].
+// Both: receive slots [2][C][B][U4] and the partials to send [C][B][U4]
+// (fp32, U4 = U to whole 16 bytes), and two mbarriers.
 struct WalkShape {
-  int units, threads, rows_chunk, rows_padded, k_padded, ld, h_padded;
+  int units, rows_chunk, rows_padded, k_padded, ld, h_padded;
   size_t smem;
 };
 
@@ -189,7 +211,6 @@ WalkShape walk_shape(int B, int H) {
   constexpr bool kTensorCore = sizeof(T) == 2;
   WalkShape w;
   w.units = (H + kCluster - 1) / kCluster;
-  w.threads = kWalkThreads;
   const int u4 = (w.units + 3) / 4 * 4;
   const size_t tail = size_t(3) * kCluster * B * u4 * sizeof(float) + 16;
   size_t dg;
@@ -210,17 +231,16 @@ WalkShape walk_shape(int B, int H) {
     w.ld = w.k_padded + ((w.k_padded / 4) % 2 == 0 ? 4 : 0);
     dg = size_t(2) * w.k_padded * w.rows_padded * sizeof(float);
   }
-  w.smem = align16(size_t(w.h_padded) * w.ld * sizeof(T)) + align16(dg) + tail +
-           (kTensorCore ? 0 : size_t(w.h_padded) * sizeof(int));
+  w.smem = align16(size_t(w.h_padded) * w.ld * sizeof(T)) + align16(dg) + tail;
   return w;
 }
 
 // Whether the walk's registers cover this shape (shared memory aside).
 template <typename T>
 bool walk_fits(const WalkShape& w, int B, int H) {
-  if (B * w.units > kPairs * w.threads) return false;
+  if (B * w.units > kPairs * kWalkThreads) return false;
   if (sizeof(T) == 2) {
-    return (H + 15) / 16 <= kMTiles * (w.threads / 32) && w.k_padded / 16 <= kMaxKS;
+    return (H + 15) / 16 <= kMTiles * (kWalkThreads / 32) && w.k_padded / 16 <= kMaxKS;
   }
   return true;
 }
@@ -273,8 +293,7 @@ lstm_bwd_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
   // W_hh columns w_s [HP][LD] (T: bf16 only until its fragments are in
   // registers); rounded dgates, bf16 dg_a [2][RP][LD] (T), fp32 dg_s
   // [2][KP][RP]; the receive slots [2][C][B][U4], the partials to send
-  // [C][B][U4], two mbarriers and, fp32,
-  // own_s [HP]
+  // [C][B][U4] and two mbarriers
   const int dg_stride = kTensorCore ? RP * LD : KP * RP;  // elements of one dgates buffer
   T* w_s = reinterpret_cast<T*>(smem_raw);
   unsigned char* dg_raw = smem_raw + align16(size_t(HP) * LD * sizeof(T));
@@ -284,12 +303,8 @@ lstm_bwd_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
   float* recv = reinterpret_cast<float*>(dg_raw + align16(dg_bytes));
   float* stage = recv + 2 * slot;  // this step's partials by owner [C][B][U4]
   uint64_t* bars = reinterpret_cast<uint64_t*>(stage + slot);
-  int* own_s = reinterpret_cast<int*>(bars + 2);
   for (int e = tid; e < int(dg_bytes / 4); e += nt) reinterpret_cast<float*>(dg_raw)[e] = 0.0f;
   for (int e = tid; e < HP * LD; e += nt) w_s[e] = w_at(e / LD, e % LD);
-  if constexpr (!kTensorCore) {
-    for (int j = tid; j < HP; j += nt) own_s[j] = (j / U) << 16 | (j % U);
-  }
   if (tid == 0) {
     bar_init(bars);
     bar_init(bars + 1);
@@ -451,8 +466,7 @@ lstm_bwd_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
       } else {
         // CUDA cores: thread jj, RC rows in registers, 4 columns a load
         for (int jj = tid; jj < H; jj += nt) {
-          const int own = own_s[jj];
-          float* st = stage + (own >> 16) * B * U4 + (own & 0xffff);
+          float* st = stage + (jj / U) * B * U4 + jj % U;
           const T* wrow = w_s + size_t(jj) * LD;
           for (int r0 = 0; r0 < B; r0 += RC) {
             float acc[RC];
@@ -751,7 +765,7 @@ cudaError_t walk(const WalkShape& ws, int B, int H, const BwdArgs* args, cudaStr
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(D * kCluster);
-  config.blockDim = dim3(ws.threads);
+  config.blockDim = dim3(kWalkThreads);
   config.dynamicSmemBytes = ws.smem;
   config.stream = stream;
   cudaLaunchAttribute cluster_dim[1];
@@ -874,7 +888,7 @@ extern "C" int lstm_bwd_launch_config(int D, int B, int H, int bf16, int* blocks
   *units = info.shape.units;
   *smem = static_cast<long long>(info.shape.smem);
   *cluster = kCluster;
-  *threads = info.shape.threads;
+  *threads = kWalkThreads;
   *clusters = info.clusters;
   *registers = info.registers;
   *local_bytes = info.local_bytes;

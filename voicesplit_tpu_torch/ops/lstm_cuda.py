@@ -18,9 +18,9 @@ Dispatch: a CUDA tensor goes to the kernel, or the call raises; the plain
 versions (``*_ref``) run only for tensors on the CPU.  Each kernel launch
 adds one to ``LAUNCHES[name]`` (``lstm_bwd`` / ``bilstm_bwd`` count their
 call, which launches the walk and the dW_hh kernel; ``lstm_dwhh`` alone,
-which only tests and timings call, counts nothing).  ``lstm_fwd`` / ``bilstm_fwd`` are
-differentiable: their autograd backward runs ``lstm_bwd`` / ``bilstm_bwd``
-on the same dispatch rule.
+which only tests and timings call, counts nothing).  ``lstm_fwd`` /
+``bilstm_fwd`` are differentiable: their autograd backward runs
+``lstm_bwd`` / ``bilstm_bwd`` on the same dispatch rule.
 
 The kernels are compiled and loaded by `ops/_build.py` (``nvcc`` for
 ``sm_90a`` into ``build/`` at first use, ``ctypes``).

@@ -95,11 +95,13 @@
 // columns [H][4U padded] (bf16 97 KB, staged once for the fragments; fp32
 // 166 KB, read every step), rounded dgates (two buffers), receive slots
 // [2][C][B][U padded to 28] and the staged partials [C][B][28] (fp32):
-//   lstm_bwd   B = 2: 110,608 B bf16, 173,968 B fp32;
-//   bilstm_bwd B = 8: 142,864 B bf16, 211,024 B fp32 (227 KB available).
+//   lstm_bwd   B = 2: 110,608 B bf16, 172,368 B fp32;
+//   bilstm_bwd B = 8: 142,864 B bf16, 209,424 B fp32 (227 KB available).
 // Limits, checked before the launch (the wrapper raises): bf16 needs
-// 4U <= 112 (H <= 448); fp32 needs its columns in shared memory.  At
-// H = 800 neither holds (bf16 4U = 200; fp32 640 KB of columns).
+// 4U <= 112 (H <= 448) and B U <= 2 x 384 pairs; both need their shared
+// memory, which at H = 400 holds up to 23 rows a direction in bf16 and 11
+// in fp32.  At H = 800 neither fits (bf16 4U = 200; fp32 640 KB of
+// columns).
 //
 // What bounds them on the card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16 dense),
 // counting each input byte read once and each output byte written once,

@@ -131,6 +131,13 @@ T_FRAMES, HIDDEN, IN_FEATURES = 301, 400, 8 * 601 + 256
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor core; fp32 CUDA cores
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# rows a direction past what one cluster of the LSTM walks holds at H=400
+# (bf16 backward 23, fp32 11): the forward and backward kernels phases also
+# run both directions at this batch, over row groups of clusters
+ROW_GROUP_BATCH = 24
+# the forward's grid route (lstm_fwd_grid_kernel): a block's columns of W_hh
+# do not fit the cluster walk at configs/voicesplit_wide.json's lstm_dim
+GRID_HIDDEN = 800
 # bf16: a different summation order can flip one bf16 rounding of h (or, in
 # the backward, of dgates), which then carries through the recurrence; fp32
 # (TF32 off) differs by order only.  The backward's errors are taken
@@ -235,6 +242,7 @@ TRAINER_TRAIN_ITEMS, TRAINER_EVAL_ITEMS = 40, 4
 TRAINER_RESUME_TOL = 1e-3
 REPLACES = {
     "lstm_fwd": "voicesplit_tpu/ops/lstm_pallas.py:71",
+    "lstm_fwd_grid": "voicesplit_tpu/ops/lstm_pallas.py:71",
     "bilstm_fwd": "voicesplit_tpu/ops/lstm_pallas.py:251",
     "lstm_bwd": "voicesplit_tpu/ops/lstm_pallas.py:135",
     "bilstm_bwd": "voicesplit_tpu/ops/lstm_pallas.py:317",
@@ -246,6 +254,7 @@ REPLACES = {
 }
 SOURCES = {
     "lstm_fwd": "voicesplit_tpu_torch/csrc/lstm_fwd.cu",
+    "lstm_fwd_grid": "voicesplit_tpu_torch/csrc/lstm_fwd.cu",
     "bilstm_fwd": "voicesplit_tpu_torch/csrc/lstm_fwd.cu",
     "lstm_bwd": "voicesplit_tpu_torch/csrc/lstm_bwd.cu",
     "bilstm_bwd": "voicesplit_tpu_torch/csrc/lstm_bwd.cu",
@@ -255,6 +264,9 @@ SOURCES = {
     "conv_dilated_fwd": "voicesplit_tpu_torch/csrc/conv_fwd.cu",
     "conv_dilated_wgrad": "voicesplit_tpu_torch/csrc/conv_wgrad.cu",
 }
+# kernels that the paths do not launch (the `kernels` line lists them with
+# "main_path": false)
+OFF_PATH = ("lstm_fwd_grid",)
 
 
 def emit(phase: str, **fields) -> None:
@@ -281,11 +293,11 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def lstm_bound(directions: int, batch: int, dtype: str) -> dict:
+def lstm_bound(directions: int, batch: int, dtype: str, H: int = HIDDEN) -> dict:
     """Least time for the recurrence: each input byte read once, each output
     byte written once, and the recurrent products at the operand type's
     peak."""
-    T, H, R = T_FRAMES, HIDDEN, directions * batch
+    T, R = T_FRAMES, directions * batch
     op_bytes = 2 if dtype == "bfloat16" else 4
     bytes_ = (
         T * R * 4 * H * op_bytes  # xp
@@ -383,18 +395,25 @@ def phase_build(torch, lstm_cuda, conv_fused) -> None:
     lib, log = _build.build()
     seconds = time.perf_counter() - t0
     grids = {
-        f"{name}_{dt}": lstm_cuda.launch_config(d, b, HIDDEN, getattr(torch, dt), bwd)
+        f"{name}_B{b}_{dt}": lstm_cuda.launch_config(d, b, HIDDEN, getattr(torch, dt), bwd)
         for name, d, b, bwd in (
-            ("lstm_fwd", 1, 1, False), ("bilstm_fwd", 2, 8, False),
+            ("lstm_fwd", 1, 1, False), ("lstm_fwd", 1, 2, False), ("bilstm_fwd", 2, 8, False),
+            ("bilstm_fwd", 2, ROW_GROUP_BATCH, False),
             ("lstm_bwd", 1, 2, True), ("bilstm_bwd", 2, 8, True),
+            ("bilstm_bwd", 2, ROW_GROUP_BATCH, True),
         )
         for dt in ("bfloat16", "float32")
     }
-    # the backward walk: one cluster of 16 blocks a direction, which the
-    # card must hold at least once
+    # both LSTM walks: clusters of 16 blocks, one a direction and row group,
+    # which the card must hold at least once, with no spilled byte; the
+    # forward at H=400 on the cluster walk, at H=800 on the grid route
     for key, gr in grids.items():
-        if key.startswith(("lstm_bwd", "bilstm_bwd")):
-            check(gr["max_active_clusters"] >= 1, f"{key}: no cluster fits the card ({gr})")
+        check(gr.get("route", "cluster") == "cluster", f"{key}: not on the cluster walk ({gr})")
+        check(gr["max_active_clusters"] >= 1, f"{key}: no cluster fits the card ({gr})")
+        check(gr["local_bytes"] == 0, f"{key}: {gr['local_bytes']} local (spilled) bytes a thread")
+    key = f"lstm_fwd_B1_H{GRID_HIDDEN}_bfloat16"
+    grids[key] = lstm_cuda.launch_config(1, 1, GRID_HIDDEN, torch.bfloat16, False)
+    check(grids[key]["route"] == "grid", f"{key}: not on the grid route ({grids[key]})")
     # conv_dilated_fwd, conv_dgrad and conv_bn_act_fwd share the forward
     # kernel body, conv_wgrad and conv_dilated_wgrad the weight-gradient
     # kernel: each a whole wave at most and no spilled byte, at the paths'
@@ -421,113 +440,150 @@ def phase_build(torch, lstm_cuda, conv_fused) -> None:
          grids=grids)
 
 
-def phase_kernels(torch, lstm_cuda, seed: int) -> dict:
-    """Kernel vs plain version on the card, both operand types; times at the
-    path's operand type (bf16)."""
+def _fwd_case(torch, lstm_cuda, g, directions: int, batch: int, H: int, route: str,
+              timed: bool) -> dict:
+    """One forward kernel against its plain version on the card at (batch,
+    H), both operand types: errors, two launches with the same bits, the
+    route they took; with `timed`, kernel and plain times."""
     dev = torch.device("cuda")
-    g = torch.Generator(device="cpu").manual_seed(seed)
-    T, H = T_FRAMES, HIDDEN
+    T, R = T_FRAMES, directions * batch
     s = H ** -0.5
-    results = {}
-    for name, directions, batch in (("lstm_fwd", 1, 1), ("bilstm_fwd", 2, 8)):
-        R = directions * batch
-        xp32 = torch.randn(T, R, 4 * H, generator=g)
-        ws32 = [torch.empty(H, 4 * H).uniform_(-s, s, generator=g) for _ in range(directions)]
-        h0 = torch.randn(R, H, generator=g).to(dev)
-        c0 = torch.randn(R, H, generator=g).to(dev)
-        entry = {}
-        for dt in ("bfloat16", "float32"):
-            dtype = getattr(torch, dt)
-            xp = xp32.to(dev, dtype)
-            ws = [w.to(dev, dtype) for w in ws32]
-            if directions == 1:
-                args = (xp, ws[0], h0, c0)
-                kernel, plain = lstm_cuda.lstm_fwd, lstm_cuda.lstm_fwd_ref
-            else:
-                args = (xp, ws[0], ws[1])
-                kernel, plain = lstm_cuda.bilstm_fwd, lstm_cuda.bilstm_fwd_ref
-            with torch.inference_mode():
-                got = kernel(*args)
-                want = plain(*args)
-                torch.cuda.synchronize()
-            errs = {
-                k: (a - b).abs().max().item()
-                for k, a, b in zip(("hs", "cs", "gates"), got, want)
-            }
-            if directions == 1:
-                errs["h_final"] = (got[0][-1] - want[0][-1]).abs().max().item()
-                errs["c_final"] = (got[1][-1] - want[1][-1]).abs().max().item()
-            finite = all(torch.isfinite(a).all().item() for a in got)
-            err = max(errs.values())
-            entry[dt] = {"max_abs_err": err, "errors": errs, "tol": TOL[dt]}
-            check(finite, f"{name} {dt}: non-finite output")
-            check(err <= TOL[dt], f"{name} {dt}: max abs err {err} > {TOL[dt]}")
+    xp32 = torch.randn(T, R, 4 * H, generator=g)
+    ws32 = [torch.empty(H, 4 * H).uniform_(-s, s, generator=g) for _ in range(directions)]
+    h0 = torch.randn(R, H, generator=g).to(dev)
+    c0 = torch.randn(R, H, generator=g).to(dev)
+    name = "lstm_fwd" if directions == 1 else "bilstm_fwd"
+    entry = {}
+    for dt in ("bfloat16", "float32"):
+        dtype = getattr(torch, dt)
+        xp = xp32.to(dev, dtype)
+        ws = [w.to(dev, dtype) for w in ws32]
+        if directions == 1:
+            args = (xp, ws[0], h0, c0)
+            kernel, plain = lstm_cuda.lstm_fwd, lstm_cuda.lstm_fwd_ref
+        else:
+            args = (xp, ws[0], ws[1])
+            kernel, plain = lstm_cuda.bilstm_fwd, lstm_cuda.bilstm_fwd_ref
+        routes = dict(lstm_cuda.ROUTES)
+        with torch.inference_mode():
+            got = kernel(*args)
+            again = kernel(*args)
+            want = plain(*args)
+            torch.cuda.synchronize()
+        took = {k: v - routes[k] for k, v in lstm_cuda.ROUTES.items()}
+        errs = {
+            k: (a - b).abs().max().item()
+            for k, a, b in zip(("hs", "cs", "gates"), got, want)
+        }
+        if directions == 1:
+            errs["h_final"] = (got[0][-1] - want[0][-1]).abs().max().item()
+            errs["c_final"] = (got[1][-1] - want[1][-1]).abs().max().item()
+        finite = all(torch.isfinite(a).all().item() for a in got)
+        same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
+        err = max(errs.values())
+        entry[dt] = {"max_abs_err": err, "errors": errs, "tol": TOL[dt], "same_bits_twice": same_bits,
+                     "routes": took}
+        check(finite, f"{name} B={batch} H={H} {dt}: non-finite output")
+        check(err <= TOL[dt], f"{name} B={batch} H={H} {dt}: max abs err {err} > {TOL[dt]}")
+        check(same_bits, f"{name} B={batch} H={H} {dt}: two launches on the same inputs differ")
+        check(took[route] == 2, f"{name} B={batch} H={H} {dt}: routes {took}, wanted {route}")
+        if timed:
             with torch.inference_mode():
                 entry[dt]["ms"] = time_ms(torch, lambda: kernel(*args), iters=20)
                 entry[dt]["plain_ms"] = time_ms(torch, lambda: plain(*args), iters=3, warmup=1)
-        # yardstick: cuDNN LSTM over the model's LSTM input (incl. projection)
-        lstm = torch.nn.LSTM(IN_FEATURES, H, batch_first=True, bidirectional=directions == 2)
-        # bf16 weights are compacted on every call (torch's flatten_parameters
-        # takes only fp16/fp32/fp64), which this yardstick includes
-        lstm = lstm.to(dev, torch.bfloat16)
-        x = torch.randn(batch, T, IN_FEATURES, generator=g).to(dev, torch.bfloat16)
-        with torch.inference_mode():
-            library_ms = time_ms(torch, lambda: lstm(x), iters=20)
+    return entry
+
+
+def _cudnn_lstm_ms(torch, g, directions: int, batch: int, H: int) -> float:
+    """Yardstick: cuDNN LSTM's forward over the model's LSTM input (incl.
+    the input projection), bf16; its weights are compacted on every call
+    (torch's flatten_parameters takes only fp16/fp32/fp64)."""
+    dev = torch.device("cuda")
+    lstm = torch.nn.LSTM(IN_FEATURES, H, batch_first=True, bidirectional=directions == 2)
+    lstm = lstm.to(dev, torch.bfloat16)
+    x = torch.randn(batch, T_FRAMES, IN_FEATURES, generator=g).to(dev, torch.bfloat16)
+    with torch.inference_mode():
+        return time_ms(torch, lambda: lstm(x), iters=20)
+
+
+def phase_kernels(torch, lstm_cuda, seed: int) -> dict:
+    """Forward kernels vs their plain versions on the card, both operand
+    types, at the paths' shapes on the cluster walk, at ROW_GROUP_BATCH rows
+    a direction (row groups) and at GRID_HIDDEN on the grid route; times at
+    the path's operand type (bf16)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    T, H = T_FRAMES, HIDDEN
+    results = {}
+    for name, directions, batch in (("lstm_fwd", 1, 1), ("bilstm_fwd", 2, 8)):
+        entry = _fwd_case(torch, lstm_cuda, g, directions, batch, H, "cluster", timed=True)
         results[name] = {"bf16": entry["bfloat16"], "fp32": entry["float32"],
-                         "library_ms": library_ms, **lstm_bound(directions, batch, "bfloat16")}
+                         "library_ms": _cudnn_lstm_ms(torch, g, directions, batch, H),
+                         **lstm_bound(directions, batch, "bfloat16")}
         emit("kernels", kernel=name, batch=batch, T=T, H=H,
              bound_fp32=lstm_bound(directions, batch, "float32"), **results[name])
+    entry = _fwd_case(torch, lstm_cuda, g, 2, ROW_GROUP_BATCH, H, "cluster", timed=True)
+    results["bilstm_fwd"]["row_groups"] = {
+        "batch": ROW_GROUP_BATCH, "bf16": entry["bfloat16"], "fp32": entry["float32"],
+        **lstm_bound(2, ROW_GROUP_BATCH, "bfloat16")}
+    emit("kernels", kernel="bilstm_fwd", T=T, H=H, **results["bilstm_fwd"]["row_groups"])
+    # the grid route, which no path of the port takes at H=400
+    entry = _fwd_case(torch, lstm_cuda, g, 1, 1, GRID_HIDDEN, "grid", timed=True)
+    results["lstm_fwd_grid"] = {"bf16": entry["bfloat16"], "fp32": entry["float32"],
+                                "library_ms": _cudnn_lstm_ms(torch, g, 1, 1, GRID_HIDDEN),
+                                **lstm_bound(1, 1, "bfloat16", GRID_HIDDEN)}
+    emit("kernels", kernel="lstm_fwd_grid", batch=1, T=T, H=GRID_HIDDEN,
+         bound_fp32=lstm_bound(1, 1, "float32", GRID_HIDDEN), **results["lstm_fwd_grid"])
     return results
 
 
-def phase_bwd_kernels(torch, lstm_cuda, seed: int) -> dict:
-    """Backward kernels vs their plain versions on the card, both operand
-    types, on the forward's outputs for random inputs and random
-    cotangents; times at the training path's operand type (bf16)."""
+def _bwd_case(torch, lstm_cuda, g, directions: int, batch: int, timed: bool) -> dict:
+    """One backward kernel against its plain version on the card at `batch`
+    rows a direction, both operand types, on the plain forward's outputs for
+    random inputs and random cotangents: peak-relative errors, two launches
+    with the same bits; with `timed`, kernel, plain and the dW_hh kernel
+    alone."""
     dev = torch.device("cuda")
-    g = torch.Generator(device="cpu").manual_seed(seed + 1)
-    T, H = T_FRAMES, HIDDEN
+    T, H, R = T_FRAMES, HIDDEN, directions * batch
     s = H ** -0.5
-    results = {}
-    for name, directions, batch in (("lstm_bwd", 1, 2), ("bilstm_bwd", 2, 8)):
-        R = directions * batch
-        xp32 = torch.randn(T, R, 4 * H, generator=g)
-        ws32 = [torch.empty(H, 4 * H).uniform_(-s, s, generator=g) for _ in range(directions)]
-        states = [torch.randn(R, H, generator=g).to(dev) for _ in range(4)]  # h0 c0 dhf dcf
-        dhs = torch.randn(T, R, H, generator=g).to(dev)
-        entry = {}
-        for dt in ("bfloat16", "float32"):
-            dtype = getattr(torch, dt)
-            xp = xp32.to(dev, dtype)
-            ws = [w.to(dev, dtype) for w in ws32]
-            with torch.inference_mode():
-                if directions == 1:
-                    hs, cs, gates = lstm_cuda.lstm_fwd_ref(xp, ws[0], *states[:2])
-                    args = (ws[0], gates, cs, hs, *states[:2], dhs, *states[2:], dtype)
-                    outs = ("dxp", "dwhh", "dh0", "dc0")
-                    kernel, plain = lstm_cuda.lstm_bwd, lstm_cuda.lstm_bwd_ref
-                else:
-                    hs, cs, gates = lstm_cuda.bilstm_fwd_ref(xp, ws[0], ws[1])
-                    args = (ws[0], ws[1], gates, cs, hs, dhs, dtype)
-                    outs = ("dxp", "dwhh_f", "dwhh_b")
-                    kernel, plain = lstm_cuda.bilstm_bwd, lstm_cuda.bilstm_bwd_ref
-                got = kernel(*args)
-                again = kernel(*args)
-                want = plain(*args)
-                torch.cuda.synchronize()
-            errs, rel = {}, {}
-            for k, a, b in zip(outs, got, want):
-                errs[k] = (a.float() - b.float()).abs().max().item()
-                rel[k] = errs[k] / b.float().abs().max().item()
-            finite = all(torch.isfinite(a).all().item() for a in got)
-            same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
-            err = max(rel.values())
-            entry[dt] = {"max_abs_err": max(errs.values()), "max_peak_rel_err": err,
-                         "errors": errs, "peak_rel_errors": rel, "tol_peak_rel": TOL[dt],
-                         "same_bits_twice": same_bits}
-            check(finite, f"{name} {dt}: non-finite output")
-            check(err <= TOL[dt], f"{name} {dt}: peak-relative err {err} > {TOL[dt]}")
-            check(same_bits, f"{name} {dt}: two launches on the same inputs differ")
+    xp32 = torch.randn(T, R, 4 * H, generator=g)
+    ws32 = [torch.empty(H, 4 * H).uniform_(-s, s, generator=g) for _ in range(directions)]
+    states = [torch.randn(R, H, generator=g).to(dev) for _ in range(4)]  # h0 c0 dhf dcf
+    dhs = torch.randn(T, R, H, generator=g).to(dev)
+    name = "lstm_bwd" if directions == 1 else "bilstm_bwd"
+    entry = {}
+    for dt in ("bfloat16", "float32"):
+        dtype = getattr(torch, dt)
+        xp = xp32.to(dev, dtype)
+        ws = [w.to(dev, dtype) for w in ws32]
+        with torch.inference_mode():
+            if directions == 1:
+                hs, cs, gates = lstm_cuda.lstm_fwd_ref(xp, ws[0], *states[:2])
+                args = (ws[0], gates, cs, hs, *states[:2], dhs, *states[2:], dtype)
+                outs = ("dxp", "dwhh", "dh0", "dc0")
+                kernel, plain = lstm_cuda.lstm_bwd, lstm_cuda.lstm_bwd_ref
+            else:
+                hs, cs, gates = lstm_cuda.bilstm_fwd_ref(xp, ws[0], ws[1])
+                args = (ws[0], ws[1], gates, cs, hs, dhs, dtype)
+                outs = ("dxp", "dwhh_f", "dwhh_b")
+                kernel, plain = lstm_cuda.bilstm_bwd, lstm_cuda.bilstm_bwd_ref
+            got = kernel(*args)
+            again = kernel(*args)
+            want = plain(*args)
+            torch.cuda.synchronize()
+        errs, rel = {}, {}
+        for k, a, b in zip(outs, got, want):
+            errs[k] = (a.float() - b.float()).abs().max().item()
+            rel[k] = errs[k] / b.float().abs().max().item()
+        finite = all(torch.isfinite(a).all().item() for a in got)
+        same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
+        err = max(rel.values())
+        entry[dt] = {"max_abs_err": max(errs.values()), "max_peak_rel_err": err,
+                     "errors": errs, "peak_rel_errors": rel, "tol_peak_rel": TOL[dt],
+                     "same_bits_twice": same_bits}
+        check(finite, f"{name} B={batch} {dt}: non-finite output")
+        check(err <= TOL[dt], f"{name} B={batch} {dt}: peak-relative err {err} > {TOL[dt]}")
+        check(same_bits, f"{name} B={batch} {dt}: two launches on the same inputs differ")
+        if timed:
             # the dW_hh kernel alone, on this call's dxp (the walk is the rest)
             h_init = states[0] if directions == 1 else None
             dwhh = lambda: lstm_cuda.lstm_dwhh(hs, h_init, got[0], directions, dtype)  # noqa: E731
@@ -536,6 +592,19 @@ def phase_bwd_kernels(torch, lstm_cuda, seed: int) -> dict:
                 entry[dt]["dwhh_ms"] = time_ms(torch, dwhh, iters=20)
                 entry[dt]["plain_ms"] = time_ms(torch, lambda: plain(*args), iters=3, warmup=1)
             entry[dt]["dwhh_bound"] = lstm_dwhh_bound(directions, batch, dt)
+    return entry
+
+
+def phase_bwd_kernels(torch, lstm_cuda, seed: int) -> dict:
+    """Backward kernels vs their plain versions on the card, both operand
+    types, at the training path's shapes and at ROW_GROUP_BATCH rows a
+    direction (row groups); times at the path's operand type (bf16)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(seed + 1)
+    T, H = T_FRAMES, HIDDEN
+    results = {}
+    for name, directions, batch in (("lstm_bwd", 1, 2), ("bilstm_bwd", 2, 8)):
+        entry = _bwd_case(torch, lstm_cuda, g, directions, batch, timed=True)
         # yardstick: .backward() alone of a cuDNN LSTM over the model's LSTM
         # input (it also computes the input projection's gradients)
         lstm = torch.nn.LSTM(IN_FEATURES, H, batch_first=True, bidirectional=directions == 2)
@@ -549,6 +618,11 @@ def phase_bwd_kernels(torch, lstm_cuda, seed: int) -> dict:
                          "library_ms": library_ms, **lstm_bwd_bound(directions, batch, "bfloat16")}
         emit("kernels", kernel=name, batch=batch, T=T, H=H,
              bound_fp32=lstm_bwd_bound(directions, batch, "float32"), **results[name])
+    entry = _bwd_case(torch, lstm_cuda, g, 2, ROW_GROUP_BATCH, timed=True)
+    results["bilstm_bwd"]["row_groups"] = {
+        "batch": ROW_GROUP_BATCH, "bf16": entry["bfloat16"], "fp32": entry["float32"],
+        **lstm_bwd_bound(2, ROW_GROUP_BATCH, "bfloat16")}
+    emit("kernels", kernel="bilstm_bwd", T=T, H=H, **results["bilstm_bwd"]["row_groups"])
     return results
 
 
@@ -588,6 +662,15 @@ class _PlainVersions:
             setattr(self.m, f"_launch_{n}", fn)
 
 
+def _check_forward_routes(lstm_cuda, launches: dict, what: str) -> int:
+    """Checks that every forward launch counted in `launches` took the
+    cluster walk at the path's H=400; returns the grid route's launches (0)."""
+    walk, grid = lstm_cuda.ROUTES["cluster"], lstm_cuda.ROUTES["grid"]
+    fwd = launches["lstm_fwd"] + launches["bilstm_fwd"]
+    check(walk == fwd and grid == 0, f"{what}: forward routes {lstm_cuda.ROUTES}, {fwd} launches")
+    return grid
+
+
 def phase_separate(torch, lstm_cuda, seed: int, profile_dir) -> dict:
     from voicesplit_tpu_torch import weights
     from voicesplit_tpu_torch.cli.separate import separate_batch
@@ -611,6 +694,8 @@ def phase_separate(torch, lstm_cuda, seed: int, profile_dir) -> dict:
     launches = dict(lstm_cuda.LAUNCHES)
     check(launches["lstm_fwd"] >= 2, f"lstm_fwd launches {launches['lstm_fwd']} < 2 (B=1)")
     check(launches["bilstm_fwd"] >= 1, f"bilstm_fwd launches {launches['bilstm_fwd']} < 1 (B=8)")
+    # every forward launch on the cluster walk (lstm_fwd_kernel)
+    launches["lstm_fwd_grid"] = _check_forward_routes(lstm_cuda, launches, "serving")
 
     report = {"launches": launches, "params": sum(p.numel() for p in model.parameters())}
     for b, out in outs.items():
@@ -704,6 +789,7 @@ def phase_train(torch, lstm_cuda, seed: int, profile_dir) -> dict:
         for k, v in counted.items():
             launches[k] += v
         check(counted == TRAIN_LAUNCHES[b], f"B={b}: launches per step {counted}")
+        _check_forward_routes(lstm_cuda, counted, f"train B={b}")
         loss0, gn0 = float(mk["loss"]), float(mk["grad_norm"])
         check(np.isfinite(loss0) and not bool(mk["loss_exploded"]), f"B={b}: loss {loss0}")
         check(gn0 > 0 and np.isfinite(gn0), f"B={b}: grad_norm {gn0}")
@@ -1568,7 +1654,8 @@ PORT_KERNEL_KINDS = (
     # the weight gradient of both conv paths
     ("conv weight-gradient kernels", ("conv_wgrad_kernel", "conv_wgrad_kf1_kernel",
                                       "reduce_taps_kernel")),
-    ("lstm kernels", ("lstm_fwd_kernel", "lstm_bwd_kernel", "lstm_dwhh_kernel")),
+    ("lstm kernels", ("lstm_fwd_kernel", "lstm_fwd_grid_kernel", "lstm_bwd_kernel",
+                      "lstm_dwhh_kernel")),
 )
 LIBRARY_KERNEL_KINDS = (
     ("convs", ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad")),
@@ -1679,7 +1766,7 @@ def main(argv=None) -> int:
         print(json.dumps({"ok": True, "partial": phases, "device": device}))
         return 0
     # each kernel's launches come from the counted run of the path it serves
-    home = {"lstm_fwd": "separate", "bilstm_fwd": "separate",
+    home = {"lstm_fwd": "separate", "bilstm_fwd": "separate", "lstm_fwd_grid": "separate",
             "lstm_bwd": "train", "bilstm_bwd": "train",
             "conv_bn_act_fwd": "train_fused", "conv_dgrad": "train_fused",
             "conv_wgrad": "train_fused",
@@ -1692,13 +1779,17 @@ def main(argv=None) -> int:
             "max_abs_err": r["bf16"]["max_abs_err"], "max_abs_err_fp32": r["fp32"]["max_abs_err"],
             "ms": r["bf16"]["ms"], "plain_ms": r["bf16"]["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("timed_at", "ms_by_batch_and_layer") if k in r},
+            **{k: r[k] for k in ("timed_at", "ms_by_batch_and_layer", "row_groups") if k in r},
         }
         for name, r in kern.items()
     ]
     check(len(kernels) == len(home), f"{len(kernels)} kernels reported, {len(home)} ported")
     for k in kernels:
-        check(k["launches"] > 0, f"{k['name']} was not launched on its path")
+        # the forward's grid route serves only shapes the cluster walk cannot
+        # hold (H=800), which no path of the port takes: checked and timed in
+        # the kernels phase, launched no time on the paths
+        k["main_path"] = k["name"] not in OFF_PATH
+        check(k["launches"] > 0 or not k["main_path"], f"{k['name']} was not launched on its path")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": device}))

@@ -239,6 +239,101 @@ def test_lstm_backward_kernels_at_odd_shapes_on_card(bidirectional, dtype, shape
         assert (a.float() - b.float()).abs().max().item() <= tol * b.float().abs().max().item()
 
 
+def _forward_inputs(bidirectional, dtype, T, H, B, seed):
+    from voicesplit_tpu_torch.ops import lstm_cuda
+
+    g = torch.Generator().manual_seed(seed)
+    R = 2 * B if bidirectional else B
+    dt = getattr(torch, dtype)
+    xp = torch.randn(T, R, 4 * H, generator=g).to("cuda", dt)
+    ws = [(torch.rand(H, 4 * H, generator=g) * 0.1 - 0.05).to("cuda", dt) for _ in range(2)]
+    if bidirectional:
+        return (xp, *ws), lstm_cuda.bilstm_fwd, lstm_cuda.bilstm_fwd_ref
+    h0, c0 = (torch.randn(R, H, generator=g).cuda() for _ in range(2))
+    return (xp, ws[0], h0, c0), lstm_cuda.lstm_fwd, lstm_cuda.lstm_fwd_ref
+
+
+def _forward_matches_twice(bidirectional, dtype, T, H, B, route):
+    """The forward kernel against its plain version, twice on the same
+    inputs (the same bits), through `route`; its tolerance as at the path's
+    shapes (fp32: order of summation; bf16: one flipped rounding of h)."""
+    from voicesplit_tpu_torch.ops import lstm_cuda
+
+    args, kernel, plain = _forward_inputs(bidirectional, dtype, T, H, B, seed=T + B + H)
+    routes = dict(lstm_cuda.ROUTES)
+    with torch.inference_mode():
+        got, again, want = kernel(*args), kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    assert lstm_cuda.ROUTES[route] == routes[route] + 2
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for a, b, c in zip(got, want, again):
+        assert bool(torch.isfinite(a).all()) and torch.equal(a, c)
+        assert (a - b).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ODD_SHAPES, ids=lambda s: "T{}-B{}-H{}".format(*s))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bidirectional", [False, True])
+def test_lstm_forward_kernels_at_odd_shapes_on_card(bidirectional, dtype, shape):
+    """The cluster walk where some blocks own no unit (H=40: 2 of 16), with
+    one and three rows and one step."""
+    _need_card()
+    T, B, H = shape
+    _forward_matches_twice(bidirectional, dtype, T, H, B, "cluster")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [24, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bidirectional", [False, True])
+def test_lstm_kernels_over_row_groups_on_card(bidirectional, dtype, batch):
+    """More rows a direction than one cluster of the backward walk holds at
+    H=400 (bf16 23, fp32 11): both walks split them over row groups, one
+    cluster each (at 64 rows always more than one), and match their plain
+    versions with the same bits twice."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import lstm_cuda
+
+    T, H = 41, 400
+    D = 2 if bidirectional else 1
+    dt = getattr(torch, dtype)
+    for backward in (False, True):
+        cfg = lstm_cuda.launch_config(D, batch, H, dt, backward=backward)
+        assert cfg["groups"] == -(-batch // cfg["rows"]) and (batch < 64 or cfg["groups"] >= 2), cfg
+        assert cfg["blocks"] == D * cfg["groups"] * cfg["cluster"], cfg
+    _forward_matches_twice(bidirectional, dtype, T, H, batch, "cluster")
+    args = _backward_inputs(bidirectional, dtype, T=T, H=H, B=batch, seed=batch)
+    name = "bilstm_bwd" if bidirectional else "lstm_bwd"
+    kernel, plain = getattr(lstm_cuda, name), getattr(lstm_cuda, name + "_ref")
+    before = dict(lstm_cuda.LAUNCHES)
+    with torch.inference_mode():
+        got, again, want = kernel(*args), kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    assert lstm_cuda.LAUNCHES[name] == before[name] + 2
+    tol = 1e-4 if dtype == "float32" else 2e-2  # as at the path's shapes
+    for a, b, c in zip(got, want, again):
+        assert bool(torch.isfinite(a).all()) and torch.equal(a, c)
+        assert (a.float() - b.float()).abs().max().item() <= tol * b.float().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bidirectional", [False, True])
+def test_lstm_forward_takes_the_grid_route_where_the_walk_does_not_fit_on_card(bidirectional):
+    """At H=800 a block's columns of W_hh do not fit the cluster walk in bf16
+    (320 KB): the route is chosen from the shape before the launch, and the
+    grid route launches and matches its plain version."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import lstm_cuda
+
+    D = 2 if bidirectional else 1
+    cfg = lstm_cuda.launch_config(D, 1, 800, torch.bfloat16, backward=False)
+    assert cfg["route"] == "grid" and cfg["cluster"] == 0, cfg
+    assert cfg["resident_blocks"] >= cfg["blocks"], cfg
+    assert lstm_cuda.launch_config(D, 1, 400, torch.bfloat16, backward=False)["route"] == "cluster"
+    _forward_matches_twice(bidirectional, "bfloat16", 31, 800, 1, "grid")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("batch", [2, 8])
 def test_train_step_runs_through_the_kernels_on_card(batch):

@@ -123,23 +123,17 @@
 #include <cstddef>
 #include <cstdint>
 
-#include "conv_tile.cuh"  // kThreads, to_float, align16, ldmatrix, mma.sync
+#include "conv_tile.cuh"     // kThreads, to_float, align16, ldmatrix, mma.sync
+#include "lstm_cluster.cuh"  // kCluster, the cluster primitives, owned columns, row groups
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 // ---------------------------------------------------------------------------
 // The reverse walk
 // ---------------------------------------------------------------------------
 
-constexpr int kCluster = 16;     // blocks of one direction's cluster
 constexpr int kWalkThreads = 384; // threads of a walk block: 12 warps, up to 168 registers each
 // bf16: the W_hh columns a warp multiplies stay in its registers as mma.sync
 // A fragments, kMTiles tiles of 16 units by at most kMaxKS k-steps of 16
@@ -148,48 +142,7 @@ constexpr int kMTiles = 3;
 constexpr int kMaxKS = 7;
 constexpr int kPairs = 2;        // (row, unit) pairs of a thread at most
 
-// The address of `p` (this block's shared memory) in block `rank` of the
-// cluster.
-__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(rank));
-  return r;
-}
-// v into another block's shared memory at `addr`, counted as 16 bytes on
-// that block's mbarrier at `bar` (both shared::cluster addresses).
-__device__ __forceinline__ void send4(uint32_t addr, float4 v, uint32_t bar) {
-  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];\n"
-               ::"r"(addr), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar) : "memory");
-}
-__device__ __forceinline__ void bar_init(uint64_t* bar) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(bar));
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(a) : "memory");
-}
-// One arrival that also expects `bytes` more on the barrier's current phase.
-__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(bar));
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(a), "r"(bytes)
-               : "memory");
-}
-// Waits until the phase of parity `parity` has completed; traps instead of
-// hanging if it never does (a fault, not a slow step: ~10 s).
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(bar));
-  const long long t0 = clock64();
-  uint32_t done = 0;
-  while (true) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
-        " selp.b32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(a), "r"(parity) : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1ll << 34)) __trap();
-  }
-}
-
-// Launch shape of the walk for B rows a direction.  q, the columns a block
+// Launch shape of the walk for B rows a cluster.  q, the columns a block
 // owns (4U, zero past its units), is padded to `k_padded`; rows of `ld`
 // elements; W_hh columns [h_padded][ld] (T).
 //   bf16: W_hh's columns staged once for the register-held fragments;
@@ -247,8 +200,10 @@ bool walk_fits(const WalkShape& w, int B, int H) {
   return true;
 }
 
-// Grid D * kCluster blocks in clusters of kCluster; cluster d walks
-// direction d.  RC rows of the fp32 partial product at a time.
+// Grid D * G * kCluster blocks in clusters of kCluster; cluster c walks
+// row group c % G of direction c / G: the direction's rows [g BC, g BC +
+// Br), Br = min(BC, B - g BC).  RC rows of the fp32 partial product at a
+// time.
 template <typename T, int D, int RC>
 __global__ void __launch_bounds__(kWalkThreads, 1)
 lstm_bwd_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
@@ -262,11 +217,14 @@ lstm_bwd_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
                 T* __restrict__ dxp,             // [T, R, 4H]
                 float* __restrict__ dh0,         // [R, H] or null
                 float* __restrict__ dc0,         // [R, H] or null
-                int T_, int B, int H, int U, int RP, int KP, int LD, int HP) {
+                int T_, int B, int H, int G, int BC, int U, int RP, int KP, int LD, int HP) {
   constexpr bool kTensorCore = sizeof(T) == 2;
   cg::cluster_group cluster = cg::this_cluster();
   const int k = int(cluster.block_rank());
-  const int d = D == 2 ? int(blockIdx.x) / kCluster : 0;
+  const int c_id = int(blockIdx.x) / kCluster;
+  const int d = c_id / G;
+  const int row0 = d * B + (c_id % G) * BC;  // the cluster's first row in the arrays
+  const int Br = min(BC, B - (c_id % G) * BC);  // and its rows
   const int R = D * B;           // rows of the arrays, all directions
   const int G4 = 4 * H;          // gate columns of one row
   const int NQ = 4 * U;          // columns a block owns (zero past its units)
@@ -277,25 +235,18 @@ lstm_bwd_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
   const int gr = lane >> 2, tig = lane & 3;
   const T* __restrict__ W = d ? w1 : w0;
   const int U4 = (U + 3) / 4 * 4;      // a row of a block's units, in whole 16 bytes
-  const int slot = kCluster * B * U4;  // floats of one receive slot [C][B][U4]
+  const int slot = kCluster * Br * U4;  // floats of one receive slot [C][Br][U4]
   // Blocks [0, senders) own units.  The others hold only zero columns: they
   // send nothing, receive nothing and skip the walk.  A block receives the
   // partials of its units from every sender each step.
   const int senders = (H + U - 1) / U;
-  const uint32_t slot_bytes = Uk > 0 ? uint32_t(senders * B * U4) * 4 : 0;
-
-  // W_hh[j, column of owned q], zero outside
-  auto w_at = [&](int j, int q) {
-    const int u = q % U;
-    return (j < H && q < NQ && u < Uk) ? W[size_t(j) * G4 + (q / U) * H + u0 + u]
-                                       : from_float<T>(0.0f);
-  };
+  const uint32_t slot_bytes = Uk > 0 ? uint32_t(senders * Br * U4) * 4 : 0;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // W_hh columns w_s [HP][LD] (T: bf16 only until its fragments are in
   // registers); rounded dgates, bf16 dg_a [2][RP][LD] (T), fp32 dg_s
-  // [2][KP][RP]; the receive slots [2][C][B][U4], the partials to send
-  // [C][B][U4] and two mbarriers
+  // [2][KP][RP]; the receive slots [2][C][Br][U4], the partials to send
+  // [C][Br][U4] and two mbarriers
   const int dg_stride = kTensorCore ? RP * LD : KP * RP;  // elements of one dgates buffer
   T* w_s = reinterpret_cast<T*>(smem_raw);
   unsigned char* dg_raw = smem_raw + align16(size_t(HP) * LD * sizeof(T));
@@ -303,10 +254,14 @@ lstm_bwd_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
   float* dg_s = reinterpret_cast<float*>(dg_raw);
   const size_t dg_bytes = size_t(2) * dg_stride * (kTensorCore ? sizeof(T) : sizeof(float));
   float* recv = reinterpret_cast<float*>(dg_raw + align16(dg_bytes));
-  float* stage = recv + 2 * slot;  // this step's partials by owner [C][B][U4]
+  float* stage = recv + 2 * slot;  // this step's partials by owner [C][Br][U4]
   uint64_t* bars = reinterpret_cast<uint64_t*>(stage + slot);
   for (int e = tid; e < int(dg_bytes / 4); e += nt) reinterpret_cast<float*>(dg_raw)[e] = 0.0f;
-  for (int e = tid; e < HP * LD; e += nt) w_s[e] = w_at(e / LD, e % LD);
+  // W_hh[j, column of owned q] at [j][q]
+  stage_owned_columns(w_s, HP, LD, W, H, U, u0, Uk, [](int a, int b, int& j, int& q) {
+    j = a;
+    q = b;
+  });
   if (tid == 0) {
     bar_init(bars);
     bar_init(bars + 1);
@@ -350,8 +305,8 @@ lstm_bwd_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
 #pragma unroll
   for (int p = 0; p < kPairs; ++p) {
     const int e = tid + p * nt, r = e / U, u = e % U;
-    ru[p] = e < B * U && u < Uk ? r << 16 | u : -1;
-    dc[p] = (ru[p] >= 0 && dcf != nullptr) ? dcf[size_t(d * B + r) * H + u0 + u] : 0.0f;
+    ru[p] = e < Br * U && u < Uk ? r << 16 | u : -1;
+    dc[p] = (ru[p] >= 0 && dcf != nullptr) ? dcf[size_t(row0 + r) * H + u0 + u] : 0.0f;
   }
   // step s's inputs of the pairs, none of which depends on the recurrence
   auto prefetch = [&](int s) {
@@ -359,7 +314,7 @@ lstm_bwd_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
     for (int p = 0; p < kPairs; ++p) {
       if (ru[p] < 0) continue;
       const int r = ru[p] >> 16, j = u0 + (ru[p] & 0xffff);
-      const size_t row = size_t(s) * R + d * B + r;
+      const size_t row = size_t(s) * R + row0 + r;
       const float* gt = gates + row * G4;
       gi[p] = gt[j];
       gf[p] = gt[H + j];
@@ -368,7 +323,7 @@ lstm_bwd_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
       if (s > 0) {
         cp[p] = cs[(row - R) * H + j];
       } else {
-        cp[p] = c0 != nullptr ? c0[size_t(d * B + r) * H + j] : 0.0f;
+        cp[p] = c0 != nullptr ? c0[size_t(row0 + r) * H + j] : 0.0f;
       }
       dd[p] = dhs[row * H + j];
     }
@@ -395,10 +350,10 @@ lstm_bwd_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
       const int r = ru[p] >> 16, u = ru[p] & 0xffff, j = u0 + u;
       float rec = 0.0f;
       if (s == T_ - 1) {
-        if (dhf != nullptr) rec = dhf[size_t(d * B + r) * H + j];
+        if (dhf != nullptr) rec = dhf[size_t(row0 + r) * H + j];
       } else {
         // the partials of (r, u), one a sender, added in rank order
-        for (int m = 0; m < senders; ++m) rec += in[(m * B + r) * U4 + u];
+        for (int m = 0; m < senders; ++m) rec += in[(m * Br + r) * U4 + u];
       }
       const float i = gi[p], f = gf[p], g = gg[p], o = go[p], c_prev = cp[p];
       const float dh = dd[p] + rec;
@@ -410,7 +365,7 @@ lstm_bwd_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
                       from_float<T>(dct * c_prev * f * (1.0f - f)),
                       from_float<T>(dct * i * (1.0f - g * g)),
                       from_float<T>(dout * o * (1.0f - o))};
-      T* dx = dxp + (size_t(s) * R + d * B + r) * G4 + j;
+      T* dx = dxp + (size_t(s) * R + row0 + r) * G4 + j;
 #pragma unroll
       for (int gate = 0; gate < 4; ++gate) {
         dx[gate * H] = v[gate];
@@ -458,19 +413,19 @@ lstm_bwd_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
               const int own = to[mt][h];
-              if (own < 0 || r >= B) continue;
-              float* st = stage + ((own >> 16) * B + r) * U4 + (own & 0xffff);
+              if (own < 0 || r >= Br) continue;
+              float* st = stage + ((own >> 16) * Br + r) * U4 + (own & 0xffff);
               st[0] = acc[0][mt][2 * h] + acc[1][mt][2 * h];
-              if (r + 1 < B) st[U4] = acc[0][mt][2 * h + 1] + acc[1][mt][2 * h + 1];
+              if (r + 1 < Br) st[U4] = acc[0][mt][2 * h + 1] + acc[1][mt][2 * h + 1];
             }
           }
         }
       } else {
         // CUDA cores: thread jj, RC rows in registers, 4 columns a load
         for (int jj = tid; jj < H; jj += nt) {
-          float* st = stage + (jj / U) * B * U4 + jj % U;
+          float* st = stage + (jj / U) * Br * U4 + jj % U;
           const T* wrow = w_s + size_t(jj) * LD;
-          for (int r0 = 0; r0 < B; r0 += RC) {
+          for (int r0 = 0; r0 < Br; r0 += RC) {
             float acc[RC];
 #pragma unroll
             for (int i = 0; i < RC; ++i) acc[i] = 0.0f;
@@ -501,18 +456,18 @@ lstm_bwd_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
             }
 #pragma unroll
             for (int i = 0; i < RC; ++i) {
-              if (r0 + i < B) st[(r0 + i) * U4] = acc[i];
+              if (r0 + i < Br) st[(r0 + i) * U4] = acc[i];
             }
           }
         }
       }
-      // every owner's rows [B][U4] go out as 16-byte pieces
+      // every owner's rows [Br][U4] go out as 16-byte pieces
       __syncthreads();
-      const int pieces = B * U4 / 4;  // of one owner
+      const int pieces = Br * U4 / 4;  // of one owner
       for (int e = tid; e < senders * pieces; e += nt) {
         const int m = e / pieces, c = e % pieces;
-        const float4 v = *reinterpret_cast<const float4*>(stage + m * B * U4 + c * 4);
-        send4(cluster_addr(recv + k * B * U4 + c * 4, m) + out, v, cluster_addr(bars, m) + bar_off);
+        const float4 v = *reinterpret_cast<const float4*>(stage + m * Br * U4 + c * 4);
+        send4(cluster_addr(recv + k * Br * U4 + c * 4, m) + out, v, cluster_addr(bars, m) + bar_off);
       }
     }
     // 4: the next step's inputs load while the partials travel
@@ -526,9 +481,9 @@ lstm_bwd_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
       if (ru[p] < 0) continue;
       const int r = ru[p] >> 16, u = ru[p] & 0xffff;
       float rec = 0.0f;
-      for (int m = 0; m < senders; ++m) rec += recv[(m * B + r) * U4 + u];
-      dh0[size_t(r) * H + u0 + u] = rec;
-      dc0[size_t(r) * H + u0 + u] = dc[p];
+      for (int m = 0; m < senders; ++m) rec += recv[(m * Br + r) * U4 + u];
+      dh0[size_t(row0 + r) * H + u0 + u] = rec;
+      dc0[size_t(row0 + r) * H + u0 + u] = dc[p];
     }
   }
   cluster.sync();  // no block leaves while a peer may still write to it
@@ -726,60 +681,23 @@ lstm_dwhh_kernel(const float* __restrict__ hs,  // [T, R, H]
 // Launches
 // ---------------------------------------------------------------------------
 
-// What the walk's launch needs and gets on this card.
-struct WalkInfo {
-  WalkShape shape;
-  int clusters;     // cudaOccupancyMaxActiveClusters (0: it cannot run)
-  int registers;    // a thread
-  int local_bytes;  // spilled, a thread
-};
-
 struct BwdArgs {
   const void *w0, *w1, *gates, *cs, *hs, *h0, *c0, *dhs, *dhf, *dcf;
   void *dxp, *dw0, *dw1, *dh0, *dc0;
   int steps, B, H;
 };
 
-// Sets the walk kernel's attributes and reads its occupancy into `info`;
-// launches it when `args` is given and a cluster fits.
+// The walk's row groups and launch on this card for B rows a direction (in
+// `info`; info->clusters 0 if it cannot run); launches it when `args` is
+// given, or returns an error if it cannot run.
 template <typename T, int D, int RC>
 cudaError_t walk(const WalkShape& ws, int B, int H, const BwdArgs* args, cudaStream_t stream,
-                 WalkInfo* info) {
+                 ClusterLaunch* info) {
   auto kernel = lstm_bwd_kernel<T, D, RC>;
-  info->shape = ws;
-  info->clusters = 0;
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  info->registers = attr.numRegs;
-  info->local_bytes = int(attr.localSizeBytes);
-  int dev = 0, optin = 0;
-  err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  if (ws.smem > size_t(optin) || !walk_fits<T>(ws, B, H)) {
-    return args == nullptr ? cudaSuccess : cudaErrorInvalidConfiguration;
-  }
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(ws.smem));
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(D * kCluster);
-  config.blockDim = dim3(kWalkThreads);
-  config.dynamicSmemBytes = ws.smem;
-  config.stream = stream;
-  cudaLaunchAttribute cluster_dim[1];
-  cluster_dim[0].id = cudaLaunchAttributeClusterDimension;
-  cluster_dim[0].val.clusterDim.x = kCluster;
-  cluster_dim[0].val.clusterDim.y = 1;
-  cluster_dim[0].val.clusterDim.z = 1;
-  config.attrs = cluster_dim;
-  config.numAttrs = 1;
-  err = cudaOccupancyMaxActiveClusters(&info->clusters, (const void*)kernel, &config);
-  if (err != cudaSuccess) return err;
-  if (args == nullptr) return cudaSuccess;
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config(kernel, D * info->groups, kWalkThreads, stream, &config, &attr, info);
+  if (err != cudaSuccess || args == nullptr) return err;
   if (info->clusters < 1) return cudaErrorInvalidConfiguration;
   err = cudaLaunchKernelEx(&config, kernel, static_cast<const T*>(args->w0),
                            static_cast<const T*>(args->w1), static_cast<const float*>(args->gates),
@@ -787,14 +705,27 @@ cudaError_t walk(const WalkShape& ws, int B, int H, const BwdArgs* args, cudaStr
                            static_cast<const float*>(args->dhs), static_cast<const float*>(args->dhf),
                            static_cast<const float*>(args->dcf), static_cast<T*>(args->dxp),
                            static_cast<float*>(args->dh0), static_cast<float*>(args->dc0), args->steps,
-                           B, H, ws.units, ws.rows_padded, ws.k_padded, ws.ld, ws.h_padded);
+                           B, H, info->groups, info->rows, ws.units, ws.rows_padded, ws.k_padded,
+                           ws.ld, ws.h_padded);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 template <typename T, int D>
-cudaError_t walk(int B, int H, const BwdArgs* args, cudaStream_t stream, WalkInfo* info) {
-  const WalkShape ws = walk_shape<T>(B, H);
+cudaError_t walk(int B, int H, const BwdArgs* args, cudaStream_t stream, ClusterLaunch* info) {
+  *info = {};
+  int optin = 0;
+  cudaError_t err = smem_optin(&optin);
+  if (err != cudaSuccess) return err;
+  auto fits = [&](int rows) {
+    const WalkShape w = walk_shape<T>(rows, H);
+    return w.smem <= size_t(optin) && walk_fits<T>(w, rows, H);
+  };
+  if (!row_groups(B, kPairs * kWalkThreads, fits, &info->groups, &info->rows)) {
+    return args == nullptr ? cudaSuccess : cudaErrorInvalidConfiguration;  // no row fits
+  }
+  const WalkShape ws = walk_shape<T>(info->rows, H);
+  info->smem = ws.smem;
   if constexpr (sizeof(T) == 2) {
     return walk<T, D, 8>(ws, B, H, args, stream, info);
   } else {
@@ -824,7 +755,7 @@ cudaError_t launch_dwhh(const void* hs, const void* h0, const void* dxp, void* d
 template <typename T, int D>
 cudaError_t launch(const BwdArgs& a, void* stream) {
   if (a.steps <= 0 || a.B <= 0 || a.H <= 0) return cudaErrorInvalidValue;
-  WalkInfo info;
+  ClusterLaunch info;
   cudaError_t err = walk<T, D>(a.B, a.H, &a, static_cast<cudaStream_t>(stream), &info);
   if (err != cudaSuccess) return err;
   return launch_dwhh<T>(a.hs, a.h0, a.dxp, a.dw0, a.dw1, a.steps, a.B, D, a.H, stream);
@@ -871,12 +802,13 @@ extern "C" int lstm_dwhh(const void* hs, const void* h0, const void* dxp, void* 
 // The walk's launch for D directions of B rows each on this card: blocks,
 // units per block, dynamic shared memory in bytes, cluster size, threads
 // per block, clusters the card holds at once (0: the walk cannot launch),
-// and registers and spilled bytes a thread.
+// registers and spilled bytes a thread, row groups a direction (one
+// cluster each) and rows a cluster.
 extern "C" int lstm_bwd_launch_config(int D, int B, int H, int bf16, int* blocks, int* units,
                                       long long* smem, int* cluster, int* threads, int* clusters,
-                                      int* registers, int* local_bytes) {
+                                      int* registers, int* local_bytes, int* groups, int* rows) {
   if (B <= 0 || H <= 0 || (D != 1 && D != 2)) return cudaErrorInvalidValue;
-  WalkInfo info;
+  ClusterLaunch info;
   cudaError_t err;
   if (D == 1) {
     err = bf16 ? walk<__nv_bfloat16, 1>(B, H, nullptr, nullptr, &info)
@@ -886,13 +818,15 @@ extern "C" int lstm_bwd_launch_config(int D, int B, int H, int bf16, int* blocks
                : walk<float, 2>(B, H, nullptr, nullptr, &info);
   }
   if (err != cudaSuccess) return err;
-  *blocks = D * kCluster;
-  *units = info.shape.units;
-  *smem = static_cast<long long>(info.shape.smem);
+  *blocks = D * info.groups * kCluster;
+  *units = (H + kCluster - 1) / kCluster;
+  *smem = static_cast<long long>(info.smem);
   *cluster = kCluster;
   *threads = kWalkThreads;
   *clusters = info.clusters;
   *registers = info.registers;
   *local_bytes = info.local_bytes;
+  *groups = info.groups;
+  *rows = info.rows;
   return cudaSuccess;
 }

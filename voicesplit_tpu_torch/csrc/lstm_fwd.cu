@@ -17,31 +17,75 @@
 // fp32.  Outputs hs, cs [T, R, H] and the activated gates [T, R, 4H] are
 // fp32, as on the TPU.
 //
-// Design: a persistent cooperative kernel.  The Pallas kernel keeps the
-// whole W_hh (1.28 MB in bf16 at H = 400) resident in VMEM; an SM has at
-// most 227 KB of shared memory, so here the hidden units are split across
-// blocks.  Block b owns U consecutive units (U = ceil(H / #SMs): 4 at
-// H = 400 on 132 SMs, so 100 blocks, all co-resident) and keeps their 4U
-// gate columns of each W_hh in shared memory for all T steps (25.6 KB per
-// direction in bf16, 51.2 KB in fp32).  Each step the block stages h[t-1]
-// for all rows from hs in global memory (L2, __ldcg), rounds it to the
-// operand type, computes its R x 4U gate pre-activations with CUDA-core
-// FMAs (8 threads per dot product, reduced with warp shuffles), applies
-// the cell update for its units (their c stays in shared memory), writes
-// hs, cs and gates, and crosses a grid-wide barrier
-// (cooperative_groups::this_grid().sync()) so that the next step sees the
-// whole new h.  R = D * B <= 16 rows on the serving path, so CUDA cores
-// suffice; tensor-core products (mma.sync / wgmma), TMA and CUDA graphs are
-// later work.
+// Two routes, chosen from the shape before the launch (lstm_launch_config
+// reports which):
 //
-// What bounds it on the card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16 dense),
+// lstm_fwd_kernel, the cluster walk (every shape it holds: H <= 448 in bf16,
+// rows and shared memory as below).  One thread-block cluster of C = 16
+// blocks (non-portable size) per direction and row group; clusters never
+// talk to each other.
+//   Ownership.  Block k owns the U = ceil(H / C) units J_k (U = 25 at
+//   H = 400; blocks past ceil(H / U) own none and skip the walk, and no
+//   block counts on bytes from them) and holds, for the whole walk, the
+//   columns {g H + j : j in J_k, g = 0..3} of its direction's W_hh for all
+//   H rows: exactly the pre-activations it needs, so no block computes
+//   another's gates.  The backward walk (lstm_bwd.cu) owns the same columns.
+//   Per step t, block k:
+//   1. waits on its own mbarrier for all of h[t-1] of its rows (h0 at t = 0,
+//      staged before the walk);
+//   2. computes its 4U pre-activations of each row and the cell update of
+//      its units (c carried in registers, the next step's xp loaded into
+//      registers while the step's h travels);
+//   3. writes hs, cs and the gates of its units (fp32);
+//   4. sends its [rows][U] slice of h[t], rounded to the operand type and
+//      padded with zeros to UP units (whole 16 bytes), to every block that
+//      owns units, as 16-byte st.async stores into the receiver's slot
+//      [r][k UP + u], each counting its bytes on the receiver's mbarrier.
+//   A receive slot is a row of K = senders x UP operand values per row
+//   (zeros where no unit is): the product runs over K with W_hh's rows laid
+//   out the same way.  Two slots, each with its mbarrier: h[t] goes to slot
+//   t mod 2 and is read at step t+1.  A sender writes a slot again only two
+//   steps later, after it has received the receiver's h of the step
+//   between, which the receiver sends after it has finished reading the
+//   slot (a __syncthreads lies between) and armed its barrier again for the
+//   slot's next phase; so no slot is overwritten while it is read, and no
+//   byte counts on a phase that is not its own.  The armed count is rows x
+//   senders x UP x the operand's size: every owner receives from every
+//   sender, itself included.  A wait that never ends traps (a fault, not a
+//   hang).
+//   Product.  CUDA-core FMAs over the columns in shared memory
+//   [4U][K + 8], eight threads a dot product (each a fixed slice of K,
+//   added by shuffles in a fixed order), 1, 2, 4 or 8 rows at a time.
+//   No tensor cores are used for fp32 operands (TF32 would round them).
+//   Row groups.  A direction's rows go to G clusters of at most the rows a
+//   cluster holds (registers: rows x U <= 2 x 384 (row, unit) pairs;
+//   shared memory), spread evenly; clusters past the ones the card holds
+//   at once wait to be scheduled.
+//
+// lstm_fwd_grid_kernel, the grid route (lstm_fwd_grid in chip_smoke.py's
+// kernels line), for the shapes the walk cannot hold (H = 800: a block's
+// columns would be 320 KB in bf16): the port's first forward kernel, a
+// persistent cooperative grid.  Block b owns U = ceil(H / #SMs) units (7 at H = 800
+// on 132 SMs, 115 blocks, all co-resident) and keeps their 4U gate columns
+// of each W_hh in shared memory; each step it stages all of h[t-1] from L2,
+// multiplies on CUDA cores (8 threads a dot product), applies the cell
+// update of its units and crosses a grid-wide barrier
+// (cooperative_groups::this_grid().sync()).
+//
+// Sum order, fixed, so the same inputs give the same bits: each lane adds
+// its slice of K in order, the eight lanes by a fixed shuffle tree.  No
+// float atomics.
+//
+// What bounds them on the card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16 dense),
 // counting each input byte read once and each output byte written once:
 //   lstm_fwd,  B = 1, T = 301, H = 400, bf16: ~5.1 MB and 0.39 GFLOP
-//              -> memory-bound, ~1.5 us; launched twice per forward.
+//              -> memory-bound, ~1.5 us; launched twice per B=1 serve call
+//              and per B=2 train step.
 //   bilstm_fwd, B = 8 (16 rows), bf16: ~64 MB and 6.2 GFLOP
-//              -> memory-bound, ~19 us; launched once per forward.
-// The real limit of this design is neither: it is the T = 301 dependent
-// steps, each ending in one grid-wide barrier.
+//              -> memory-bound, ~19 us; launched once per B=8 call or step.
+// The real limit of the walk is neither: it is the T = 301 dependent steps,
+// each a wait for h, a small product, the cell update and one all-gather
+// through distributed shared memory.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -50,49 +94,259 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "conv_tile.cuh"     // kThreads, to_float, align16
+#include "lstm_cluster.cuh"  // kCluster, the cluster primitives, owned columns, row groups
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kLanes = 8;                      // threads sharing one dot product
-constexpr int kGroups = kThreads / kLanes;     // dot products per pass
-constexpr int kRowChunk = 16;                  // rows of h staged at a time
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+__device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 
 template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_float(from_float<T>(x));
 }
 
-__device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
+// ---------------------------------------------------------------------------
+// The cluster walk
+// ---------------------------------------------------------------------------
 
-__host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
+constexpr int kWalkThreads = 384;  // threads of a walk block: 12 warps
+constexpr int kPairs = 2;          // (row, unit) pairs of a thread at most
+constexpr int kLanes = 8;          // CUDA-core product: threads of one dot product
+
+// Launch shape of the walk for `rows` rows a cluster (T elements unless
+// said): W_hh's owned columns w_s [q_padded][ldw] (column q = g U + u, row
+// k = m UP + u' for unit m U + u', zero elsewhere); receive slots
+// [2][rows_padded][ldh]; this step's h to send [rows_padded][UP]; the
+// product [rows_padded][4U] (fp32); two mbarriers.  K = senders x UP is
+// padded to kp; ldw = ldh = kp + 8 so that the eight lanes of a dot product
+// and the four dot products of a warp meet no bank conflict.
+struct FwdShape {
+  int units, unit_pad, kp, ldw, ldh, rows_chunk, rows_padded, q_padded;
+  size_t smem;
+};
 
 template <typename T>
-__host__ __device__ constexpr size_t smem_bytes(int D, int R, int H, int U) {
+FwdShape fwd_shape(int rows, int H) {
+  FwdShape s;
+  s.units = (H + kCluster - 1) / kCluster;
+  const int per16 = 16 / int(sizeof(T));  // operand values in 16 bytes
+  s.unit_pad = (s.units + per16 - 1) / per16 * per16;
+  const int senders = (H + s.units - 1) / s.units;
+  s.kp = (senders * s.unit_pad + 7) / 8 * 8;
+  s.ldw = s.ldh = s.kp + 8;
+  s.rows_chunk = rows >= 8 ? 8 : rows >= 4 ? 4 : rows >= 2 ? 2 : 1;
+  s.rows_padded = (rows + s.rows_chunk - 1) / s.rows_chunk * s.rows_chunk;
+  s.q_padded = 4 * s.units;
+  s.smem = align16(size_t(s.q_padded) * s.ldw * sizeof(T)) +
+           align16(size_t(2) * s.rows_padded * s.ldh * sizeof(T)) +
+           align16(size_t(s.rows_padded) * s.unit_pad * sizeof(T)) +
+           align16(size_t(s.rows_padded) * 4 * s.units * sizeof(float)) + 16;
+  return s;
+}
+
+// Whether the walk's registers cover `rows` rows a cluster (shared memory
+// aside).
+bool fwd_walk_fits(const FwdShape& s, int rows) { return rows * s.units <= kPairs * kWalkThreads; }
+
+// Grid D * G * kCluster blocks in clusters of kCluster; cluster c walks row
+// group c % G of direction c / G: the direction's rows [g BC, g BC + Br),
+// Br = min(BC, B - g BC).  RC rows of the product at a time.
+template <typename T, int RC>
+__global__ void __launch_bounds__(kWalkThreads, 1)
+lstm_fwd_kernel(const T* __restrict__ xp,      // [T, R, 4H]
+                const T* __restrict__ w0,      // [H, 4H], rows [0, B)
+                const T* __restrict__ w1,      // [H, 4H], rows [B, 2B) (D == 2)
+                const float* __restrict__ h0,  // [R, H] or null (zero state)
+                const float* __restrict__ c0,  // [R, H] or null (zero state)
+                float* __restrict__ hs,        // [T, R, H]
+                float* __restrict__ cs,        // [T, R, H]
+                float* __restrict__ gates,     // [T, R, 4H]
+                int T_, int B, int H, int G, int BC, int U, int UP, int KP, int LDW, int LDH,
+                int RP) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = int(cluster.block_rank());
+  const int c_id = int(blockIdx.x) / kCluster;
+  const int d = c_id / G;
+  const int row0 = d * B + (c_id % G) * BC;     // the cluster's first row in the arrays
+  const int Br = min(BC, B - (c_id % G) * BC);  // and its rows
+  const int R = int(gridDim.x) / (kCluster * G) * B;  // rows of the arrays, all directions
+  const int G4 = 4 * H;
+  const int NQ = 4 * U;  // columns a block owns (zero past its units)
+  const int u0 = k * U;
+  const int Uk = max(0, min(U, H - u0));  // units this block owns
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const T* __restrict__ W = d ? w1 : w0;
+  constexpr int kPer16 = 16 / int(sizeof(T));  // operand values in a 16-byte piece
+  // Blocks [0, senders) own units and receive all of h from each other
+  // every step; the others skip the walk.
+  const int senders = (H + U - 1) / U;
+  const uint32_t step_bytes = uint32_t(senders * Br * UP) * sizeof(T);
+  const int slot = RP * LDH;  // elements of one receive slot
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* w_s = reinterpret_cast<T*>(smem_raw);
+  T* recv = reinterpret_cast<T*>(smem_raw + align16(size_t(NQ) * LDW * sizeof(T)));
+  T* stage = recv + 2 * slot;  // [RP][UP]
+  float* pre = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(stage) +
+                                        align16(size_t(RP) * UP * sizeof(T)));  // [RP][NQ]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(reinterpret_cast<unsigned char*>(pre) +
+                                               align16(size_t(RP) * NQ * sizeof(float)));
+  // zeros: what no one sends (padding units, rows past Br, K past
+  // senders x UP) must multiply as 0
+  for (int e = tid; e < 2 * slot + RP * UP; e += nt) recv[e] = from_float<T>(0.0f);
+  __syncthreads();
+  // W_hh[unit of k, column q] at [q][k]
+  stage_owned_columns(w_s, NQ, LDW, W, H, U, u0, Uk, [U, UP](int a, int b, int& j, int& q) {
+    q = a;
+    j = b % UP < U ? b / UP * U + b % UP : -1;
+  });
+  // slot 1 holds h[-1] = round(h0) for step 0
+  if (h0 != nullptr && Uk > 0) {
+    for (int e = tid; e < Br * H; e += nt) {
+      const int r = e / H, j = e % H;
+      recv[slot + r * LDH + j / U * UP + j % U] = from_float<T>(h0[size_t(row0 + r) * H + j]);
+    }
+  }
+  if (tid == 0) {
+    bar_init(bars);
+    bar_init(bars + 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // slot t & 1 receives h[t] for t <= T-2: arm the first two
+    if (Uk > 0 && T_ >= 2) bar_expect(bars, step_bytes);
+    if (Uk > 0 && T_ >= 3) bar_expect(bars + 1, step_bytes);
+  }
+
+  // this thread's (row, unit) pairs e = tid + p nt, r << 16 | u (-1: none),
+  // their cell state and the step's four xp values
+  int ru[kPairs];
+  float c[kPairs], xv[kPairs][4];
+#pragma unroll
+  for (int p = 0; p < kPairs; ++p) {
+    const int e = tid + p * nt, r = e / U, u = e % U;
+    ru[p] = e < Br * U && u < Uk ? r << 16 | u : -1;
+    c[p] = (ru[p] >= 0 && c0 != nullptr) ? c0[size_t(row0 + r) * H + u0 + u] : 0.0f;
+  }
+  auto prefetch = [&](int t) {
+#pragma unroll
+    for (int p = 0; p < kPairs; ++p) {
+      if (ru[p] < 0) continue;
+      const T* x = xp + (size_t(t) * R + row0 + (ru[p] >> 16)) * G4 + u0 + (ru[p] & 0xffff);
+#pragma unroll
+      for (int g = 0; g < 4; ++g) xv[p][g] = to_float(x[g * H]);
+    }
+  };
+  prefetch(0);
+  cluster.sync();  // every block runs, with its barriers armed and its slots set up
+
+  const int group = tid / kLanes, gl = tid % kLanes, groups = nt / kLanes;
+  const int items = NQ * (RP / RC);  // (column, row chunk) dot products
+  uint32_t parity = 0;  // bit x: parity of slot x's phase to wait for
+  for (int t = 0; Uk > 0 && t < T_; ++t) {
+    const int in_slot = (t + 1) & 1;  // h[t-1]
+    if (t > 0) {
+      bar_wait(bars + in_slot, (parity >> in_slot) & 1);
+      parity ^= 1u << in_slot;
+      // the slot's next phase receives h[t+1]
+      if (tid == 0 && t + 1 <= T_ - 2) bar_expect(bars + in_slot, step_bytes);
+    }
+    const T* hin = recv + in_slot * slot;
+    // 2: pre[r][q] = sum_k round(h[r][k]) W[k][q], same trip count in
+    // every thread (the shuffles need the whole warp)
+    for (int ib = 0; ib < items; ib += groups) {
+      const int it = ib + group;
+      const bool active = it < items;
+      const int q = it % NQ, r0 = it / NQ * RC;
+      float acc[RC];
+#pragma unroll
+      for (int i = 0; i < RC; ++i) acc[i] = 0.0f;
+      if (active) {
+        const T* w = w_s + q * LDW;
+        for (int kk = gl; kk < KP; kk += kLanes) {
+          const float wv = to_float(w[kk]);
+#pragma unroll
+          for (int i = 0; i < RC; ++i) acc[i] = fmaf(to_float(hin[(r0 + i) * LDH + kk]), wv, acc[i]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RC; ++i) {
+        acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 4);
+        acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 2);
+        acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 1);
+      }
+      if (active && gl == 0) {
+#pragma unroll
+        for (int i = 0; i < RC; ++i) {
+          if (r0 + i < Br) pre[(r0 + i) * NQ + q] = acc[i];
+        }
+      }
+    }
+    __syncthreads();  // pre complete
+    // 2, 3: the cell update of the pairs; h rounded into the send stage
+#pragma unroll
+    for (int p = 0; p < kPairs; ++p) {
+      if (ru[p] < 0) continue;
+      const int r = ru[p] >> 16, u = ru[p] & 0xffff, j = u0 + u;
+      const float* pr = pre + r * NQ;
+      const float i = sigmoid(xv[p][0] + pr[u]);
+      const float f = sigmoid(xv[p][1] + pr[U + u]);
+      const float g = tanhf(xv[p][2] + pr[2 * U + u]);
+      const float o = sigmoid(xv[p][3] + pr[3 * U + u]);
+      c[p] = f * c[p] + i * g;
+      const float h = o * tanhf(c[p]);
+      const size_t row = size_t(t) * R + row0 + r;
+      hs[row * H + j] = h;
+      cs[row * H + j] = c[p];
+      float* gt = gates + row * G4 + j;
+      gt[0] = i;
+      gt[H] = f;
+      gt[2 * H] = g;
+      gt[3 * H] = o;
+      stage[r * UP + u] = from_float<T>(h);
+    }
+    __syncthreads();  // the stage is complete; every read of pre and of slot in_slot is done
+    // 4: h[t] to every owner's slot t & 1 (the last step's h is not needed)
+    if (t < T_ - 1) {
+      const int pieces = Br * (UP / kPer16);  // 16-byte pieces to each owner
+      const uint32_t bar_off = uint32_t(t & 1) * 8;
+      for (int e = tid; e < senders * pieces; e += nt) {
+        const int m = e / pieces, pc = e % pieces;
+        const int r = pc / (UP / kPer16), col = pc % (UP / kPer16) * kPer16;
+        const float4 v = *reinterpret_cast<const float4*>(stage + r * UP + col);
+        T* dst = recv + (t & 1) * slot + r * LDH + k * UP + col;
+        send4(cluster_addr(dst, m), v, cluster_addr(bars, m) + bar_off);
+      }
+    }
+    if (t + 1 < T_) prefetch(t + 1);  // loads while h travels
+  }
+  cluster.sync();  // no block leaves while a peer may still write to it
+}
+
+// ---------------------------------------------------------------------------
+// The grid route
+// ---------------------------------------------------------------------------
+
+constexpr int kGroups = kThreads / kLanes;  // dot products per pass
+constexpr int kRowChunk = 16;               // rows of h staged at a time
+
+template <typename T>
+__host__ __device__ constexpr size_t grid_smem_bytes(int D, int R, int H, int U) {
   return align16(size_t(D) * 4 * U * H * sizeof(T)) +
          (size_t(kRowChunk) * H + size_t(R) * 4 * U + size_t(R) * U) * sizeof(float);
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-lstm_fwd_kernel(const T* __restrict__ xp,     // [T, R, 4H]
-                const T* __restrict__ w0,     // [H, 4H], rows [0, B)
-                const T* __restrict__ w1,     // [H, 4H], rows [B, 2B) (D == 2)
-                const float* __restrict__ h0, // [R, H] or null (zero state)
-                const float* __restrict__ c0, // [R, H] or null (zero state)
-                float* hs,                    // [T, R, H]; read back across blocks
-                float* __restrict__ cs,       // [T, R, H]
-                float* __restrict__ gates,    // [T, R, 4H]
-                int T_, int B, int H, int U) {
+lstm_fwd_grid_kernel(const T* __restrict__ xp,     // [T, R, 4H]
+                     const T* __restrict__ w0,     // [H, 4H], rows [0, B)
+                     const T* __restrict__ w1,     // [H, 4H], rows [B, 2B) (D == 2)
+                     const float* __restrict__ h0, // [R, H] or null (zero state)
+                     const float* __restrict__ c0, // [R, H] or null (zero state)
+                     float* hs,                    // [T, R, H]; read back across blocks
+                     float* __restrict__ cs,       // [T, R, H]
+                     float* __restrict__ gates,    // [T, R, 4H]
+                     int T_, int B, int H, int U) {
   cg::grid_group grid = cg::this_grid();
   const int R = D * B;
   const int G = 4 * U;  // gate columns owned by this block
@@ -181,97 +435,189 @@ lstm_fwd_kernel(const T* __restrict__ xp,     // [T, R, 4H]
   }
 }
 
-struct LaunchConfig {
-  int blocks, units;
-  size_t smem;
+// ---------------------------------------------------------------------------
+// Launches
+// ---------------------------------------------------------------------------
+
+struct FwdArgs {
+  const void *xp, *w0, *w1, *h0, *c0;
+  void *hs, *cs, *gates;
+  int steps, B, H;
 };
 
-template <typename T>
-cudaError_t launch_config(int D, int B, int H, LaunchConfig* cfg) {
+// The route and launch on this card for D directions of B rows each.
+struct FwdLaunch {
+  bool walk;           // the cluster walk (else the grid route)
+  ClusterLaunch info;  // walk: row groups, shared memory, clusters, registers
+  FwdShape shape;      // walk
+  int grid_blocks, grid_units;  // grid route: blocks, units a block
+  size_t grid_smem;
+  int grid_resident;   // grid route: blocks the card holds at once
+};
+
+// The walk's occupancy on this card into `info`, and its launch when `a` is
+// given and the card holds a cluster.
+template <typename T, int RC>
+cudaError_t walk(const FwdShape& s, int D, const FwdArgs* a, cudaStream_t stream, ClusterLaunch* info) {
+  auto kernel = lstm_fwd_kernel<T, RC>;
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config(kernel, D * info->groups, kWalkThreads, stream, &config, &attr, info);
+  // a launch shape only, or no cluster fits the card: nothing launched
+  if (err != cudaSuccess || a == nullptr || info->clusters < 1) return err;
+  err = cudaLaunchKernelEx(&config, kernel, static_cast<const T*>(a->xp),
+                           static_cast<const T*>(a->w0), static_cast<const T*>(a->w1),
+                           static_cast<const float*>(a->h0), static_cast<const float*>(a->c0),
+                           static_cast<float*>(a->hs), static_cast<float*>(a->cs),
+                           static_cast<float*>(a->gates), a->steps, a->B, a->H, info->groups,
+                           info->rows, s.units, s.unit_pad, s.kp, s.ldw, s.ldh, s.rows_padded);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t grid_route(FwdLaunch* fl, const FwdArgs* a, cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  cfg->units = (H + sms - 1) / sms;  // at most one block per SM
-  cfg->blocks = (H + cfg->units - 1) / cfg->units;
-  cfg->smem = smem_bytes<T>(D, D * B, H, cfg->units);
-  return cudaSuccess;
-}
-
-template <typename T, int D>
-cudaError_t launch(const void* xp, const void* w0, const void* w1, const void* h0,
-                   const void* c0, void* hs, void* cs, void* gates, int T_, int B, int H,
-                   void* stream) {
-  if (T_ <= 0 || B <= 0 || H <= 0) return cudaErrorInvalidValue;
-  LaunchConfig cfg;
-  cudaError_t err = launch_config<T>(D, B, H, &cfg);
-  if (err != cudaSuccess) return err;
-  auto kernel = lstm_fwd_kernel<T, D>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(cfg.smem));
+  const int B = a->B, H = a->H;
+  fl->grid_units = (H + sms - 1) / sms;  // at most one block per SM
+  fl->grid_blocks = (H + fl->grid_units - 1) / fl->grid_units;
+  fl->grid_smem = grid_smem_bytes<T>(D, D * B, H, fl->grid_units);
+  auto kernel = lstm_fwd_grid_kernel<T, D>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(fl->grid_smem));
   if (err != cudaSuccess) return err;
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, cfg.smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, fl->grid_smem);
   if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (per_sm * sms < cfg.blocks) return cudaErrorCooperativeLaunchTooLarge;
-
-  const T* xp_t = static_cast<const T*>(xp);
-  const T* w0_t = static_cast<const T*>(w0);
-  const T* w1_t = static_cast<const T*>(w1);
-  const float* h0_t = static_cast<const float*>(h0);
-  const float* c0_t = static_cast<const float*>(c0);
-  float* hs_t = static_cast<float*>(hs);
-  float* cs_t = static_cast<float*>(cs);
-  float* gates_t = static_cast<float*>(gates);
-  int units = cfg.units;
+  fl->grid_resident = per_sm * sms;
+  if (a->xp == nullptr) return cudaSuccess;  // the launch shape only
+  if (fl->grid_resident < fl->grid_blocks) return cudaErrorCooperativeLaunchTooLarge;
+  const T* xp_t = static_cast<const T*>(a->xp);
+  const T* w0_t = static_cast<const T*>(a->w0);
+  const T* w1_t = static_cast<const T*>(a->w1);
+  const float* h0_t = static_cast<const float*>(a->h0);
+  const float* c0_t = static_cast<const float*>(a->c0);
+  float* hs_t = static_cast<float*>(a->hs);
+  float* cs_t = static_cast<float*>(a->cs);
+  float* gates_t = static_cast<float*>(a->gates);
+  int steps = a->steps, rows = B, hidden = H, units = fl->grid_units;
   void* args[] = {&xp_t, &w0_t, &w1_t, &h0_t, &c0_t, &hs_t, &cs_t, &gates_t,
-                  &T_, &B, &H, &units};
-  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(cfg.blocks),
-                                    dim3(kThreads), args, cfg.smem,
-                                    static_cast<cudaStream_t>(stream));
+                  &steps, &rows, &hidden, &units};
+  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(fl->grid_blocks), dim3(kThreads), args,
+                                    fl->grid_smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// Chooses the route from the shape and the card before anything launches
+// (the walk wherever a cluster holds a row and the card holds a cluster,
+// else the grid route), then launches it when a->xp is set, else only
+// fills `fl`.
+template <typename T, int D>
+cudaError_t launch(const FwdArgs* a, cudaStream_t stream, FwdLaunch* fl) {
+  *fl = {};
+  int optin = 0;
+  cudaError_t err = smem_optin(&optin);
+  if (err != cudaSuccess) return err;
+  const int H = a->H;
+  auto fits = [&](int rows) {
+    const FwdShape s = fwd_shape<T>(rows, H);
+    return s.smem <= size_t(optin) && fwd_walk_fits(s, rows);
+  };
+  const FwdArgs* run = a->xp != nullptr ? a : nullptr;
+  if (row_groups(a->B, kPairs * kWalkThreads, fits, &fl->info.groups, &fl->info.rows)) {
+    fl->shape = fwd_shape<T>(fl->info.rows, H);
+    fl->info.smem = fl->shape.smem;
+    switch (fl->shape.rows_chunk) {
+      case 1: err = walk<T, 1>(fl->shape, D, run, stream, &fl->info); break;
+      case 2: err = walk<T, 2>(fl->shape, D, run, stream, &fl->info); break;
+      case 4: err = walk<T, 4>(fl->shape, D, run, stream, &fl->info); break;
+      default: err = walk<T, 8>(fl->shape, D, run, stream, &fl->info); break;
+    }
+    if (err != cudaSuccess) return err;
+    fl->walk = fl->info.clusters >= 1;
+    if (fl->walk) return cudaSuccess;
+  }
+  return grid_route<T, D>(fl, a, stream);
+}
+
+template <int D>
+cudaError_t launch(const FwdArgs& a, int bf16, void* stream, FwdLaunch* fl) {
+  if (a.steps <= 0 || a.B <= 0 || a.H <= 0) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch<__nv_bfloat16, D>(&a, s, fl) : launch<float, D>(&a, s, fl);
 }
 
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Every function returns its
 // cudaError_t; 0 is success.  `bf16` selects bf16 operands (xp, W_hh),
-// otherwise fp32.  h0 / c0 / hs / cs / gates are fp32.
+// otherwise fp32.  h0 / c0 / hs / cs / gates are fp32.  `route`, where
+// given, receives the route launched: 1 the cluster walk, 0 the grid route.
 
 // One direction: xp [T, B, 4H], whh [H, 4H], h0 and c0 [B, H].
 extern "C" int lstm_fwd(const void* xp, const void* whh, const void* h0, const void* c0,
                         void* hs, void* cs, void* gates, int T, int B, int H, int bf16,
-                        void* stream) {
-  return bf16 ? launch<__nv_bfloat16, 1>(xp, whh, nullptr, h0, c0, hs, cs, gates, T, B, H, stream)
-              : launch<float, 1>(xp, whh, nullptr, h0, c0, hs, cs, gates, T, B, H, stream);
+                        void* stream, int* route) {
+  const FwdArgs a{xp, whh, nullptr, h0, c0, hs, cs, gates, T, B, H};
+  FwdLaunch fl;
+  const cudaError_t err = launch<1>(a, bf16, stream, &fl);
+  if (route != nullptr) *route = fl.walk ? 1 : 0;
+  return err;
 }
 
 // Both directions, zero initial state: xp [T, 2B, 4H], rows [B, 2B) already
 // time-reversed; whh_f and whh_b [H, 4H].
 extern "C" int bilstm_fwd(const void* xp, const void* whh_f, const void* whh_b, void* hs,
-                          void* cs, void* gates, int T, int B, int H, int bf16, void* stream) {
-  return bf16 ? launch<__nv_bfloat16, 2>(xp, whh_f, whh_b, nullptr, nullptr, hs, cs, gates, T,
-                                         B, H, stream)
-              : launch<float, 2>(xp, whh_f, whh_b, nullptr, nullptr, hs, cs, gates, T, B, H,
-                                 stream);
+                          void* cs, void* gates, int T, int B, int H, int bf16, void* stream,
+                          int* route) {
+  const FwdArgs a{xp, whh_f, whh_b, nullptr, nullptr, hs, cs, gates, T, B, H};
+  FwdLaunch fl;
+  const cudaError_t err = launch<2>(a, bf16, stream, &fl);
+  if (route != nullptr) *route = fl.walk ? 1 : 0;
+  return err;
 }
 
-// Launch shape the two functions above use: blocks, units per block and
-// dynamic shared memory in bytes, for D directions of B rows each.
-extern "C" int lstm_launch_config(int D, int B, int H, int bf16, int* blocks, int* units,
-                                  long long* smem) {
-  LaunchConfig cfg;
-  cudaError_t err = bf16 ? launch_config<__nv_bfloat16>(D, B, H, &cfg)
-                         : launch_config<float>(D, B, H, &cfg);
+// The launch the two functions above make for D directions of B rows each
+// on this card: route (1 the cluster walk, 0 the grid route), blocks, units
+// a block, dynamic shared memory in bytes; the walk's cluster size, threads
+// a block, clusters the card holds at once, registers and spilled bytes a
+// thread, row groups a direction and rows a cluster (the grid route: 0
+// cluster, 256 threads, the blocks it holds at once in `clusters`, 0 for
+// the rest).
+extern "C" int lstm_launch_config(int D, int B, int H, int bf16, int* route, int* blocks,
+                                  int* units, long long* smem, int* cluster, int* threads,
+                                  int* clusters, int* registers, int* local_bytes, int* groups,
+                                  int* rows) {
+  if (D != 1 && D != 2) return cudaErrorInvalidValue;
+  const FwdArgs a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1, B, H};
+  FwdLaunch fl;
+  const cudaError_t err = D == 1 ? launch<1>(a, bf16, nullptr, &fl) : launch<2>(a, bf16, nullptr, &fl);
   if (err != cudaSuccess) return err;
-  *blocks = cfg.blocks;
-  *units = cfg.units;
-  *smem = static_cast<long long>(cfg.smem);
+  *route = fl.walk ? 1 : 0;
+  if (fl.walk) {
+    *blocks = D * fl.info.groups * kCluster;
+    *units = fl.shape.units;
+    *smem = static_cast<long long>(fl.info.smem);
+    *cluster = kCluster;
+    *threads = kWalkThreads;
+    *clusters = fl.info.clusters;
+    *registers = fl.info.registers;
+    *local_bytes = fl.info.local_bytes;
+    *groups = fl.info.groups;
+    *rows = fl.info.rows;
+  } else {
+    *blocks = fl.grid_blocks;
+    *units = fl.grid_units;
+    *smem = static_cast<long long>(fl.grid_smem);
+    *cluster = 0;
+    *threads = kThreads;
+    *clusters = fl.grid_resident;
+    *registers = *local_bytes = *groups = *rows = 0;
+  }
   return cudaSuccess;
 }
 

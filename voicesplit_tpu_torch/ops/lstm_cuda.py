@@ -37,28 +37,33 @@ from voicesplit_tpu_torch.ops import _build
 
 # kernel launches per wrapper, for showing that a run went through them
 LAUNCHES = {"lstm_fwd": 0, "bilstm_fwd": 0, "lstm_bwd": 0, "bilstm_bwd": 0}
+# the forward wrappers' launches by route: "cluster" (`lstm_fwd_kernel`, the
+# cluster walk) and "grid" (`lstm_fwd_grid_kernel`, the shapes the walk
+# cannot hold)
+ROUTES = {"cluster": 0, "grid": 0}
 
 _declared = False
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, ROUTES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _library() -> ctypes.CDLL:
     global _declared
     if not _declared:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        out = [ctypes.POINTER(i), ctypes.POINTER(i), ctypes.POINTER(ctypes.c_longlong)]
+        p, i, pi = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+        out = [pi, pi, ctypes.POINTER(ctypes.c_longlong), *[pi] * 7]
         _build.declare({
-            "lstm_fwd": [p] * 7 + [i] * 4 + [p],
-            "bilstm_fwd": [p] * 6 + [i] * 4 + [p],
+            "lstm_fwd": [p] * 7 + [i] * 4 + [p, pi],
+            "bilstm_fwd": [p] * 6 + [i] * 4 + [p, pi],
             "lstm_bwd": [p] * 13 + [i] * 4 + [p],
             "bilstm_bwd": [p] * 9 + [i] * 4 + [p],
             "lstm_dwhh": [p] * 5 + [i] * 5 + [p],
-            "lstm_launch_config": [i, i, i, i, *out],
-            "lstm_bwd_launch_config": [i, i, i, i, *out, *[ctypes.POINTER(i)] * 5],
+            "lstm_launch_config": [i, i, i, i, pi, *out],
+            "lstm_bwd_launch_config": [i, i, i, i, *out],
         })
         _declared = True
     return _build.library()
@@ -70,25 +75,33 @@ _raise_on = _build.raise_on
 def launch_config(
     directions: int, batch: int, hidden: int, dtype: torch.dtype, backward: bool
 ) -> dict:
-    """Grid a kernel uses on the current card: blocks, hidden units per
-    block and dynamic shared memory bytes; for the backward walk also its
-    cluster size, threads a block, the clusters the card holds at once
-    (``cudaOccupancyMaxActiveClusters``; 0: it cannot launch) and the
-    registers and spilled bytes a thread."""
-    ints = [ctypes.c_int() for _ in range(7)]
+    """Launch a kernel makes on the current card for `directions`
+    directions of `batch` rows each: blocks, hidden units per block, dynamic
+    shared memory bytes, cluster size, threads a block, the clusters the
+    card holds at once (``cudaOccupancyMaxActiveClusters``; 0: it cannot
+    launch), registers and spilled bytes a thread, row groups a direction
+    (one cluster each) and rows a cluster.  The forward's also names its
+    route, chosen from the shape: "cluster" (the walk) or "grid" (the grid
+    route: ``cluster`` 0, and the blocks the card holds at once under
+    ``resident_blocks``)."""
+    route, ints = ctypes.c_int(), [ctypes.c_int() for _ in range(9)]
     smem = ctypes.c_longlong()
-    refs = [ctypes.byref(ints[0]), ctypes.byref(ints[1]), ctypes.byref(smem)]
+    refs = [ctypes.byref(ints[0]), ctypes.byref(ints[1]), ctypes.byref(smem),
+            *map(ctypes.byref, ints[2:])]
     lib = _library()
     args = (directions, batch, hidden, int(dtype == torch.bfloat16))
     if backward:
-        err = lib.lstm_bwd_launch_config(*args, *refs, *map(ctypes.byref, ints[2:]))
+        err = lib.lstm_bwd_launch_config(*args, *refs)
     else:
-        err = lib.lstm_launch_config(*args, *refs)
+        err = lib.lstm_launch_config(*args, ctypes.byref(route), *refs)
     _raise_on(err, "launch_config")
-    out = {"blocks": ints[0].value, "units": ints[1].value, "smem_bytes": smem.value}
-    if backward:
-        keys = ("cluster", "threads", "max_active_clusters", "registers", "local_bytes")
-        out.update(zip(keys, (v.value for v in ints[2:])))
+    keys = ("blocks", "units", "cluster", "threads", "max_active_clusters", "registers",
+            "local_bytes", "groups", "rows")
+    out = dict(zip(keys, (v.value for v in ints)), smem_bytes=smem.value)
+    if not backward:
+        out["route"] = "cluster" if route.value else "grid"
+        if out["route"] == "grid":
+            out["resident_blocks"] = out.pop("max_active_clusters")
     return out
 
 
@@ -298,33 +311,40 @@ def _outputs(xp: torch.Tensor, H: int):
     return torch.empty(T, R, H, **kw), torch.empty(T, R, H, **kw), torch.empty(T, R, 4 * H, **kw)
 
 
+def _count_forward(name: str, route: ctypes.c_int) -> None:
+    LAUNCHES[name] += 1
+    ROUTES["cluster" if route.value else "grid"] += 1
+
+
 def _launch_lstm_fwd(xp, whh, h0, c0):
     T, H = xp.shape[0], whh.shape[0]
     hs, cs, gates = _outputs(xp, H)
-    lib = _library()
+    lib, route = _library(), ctypes.c_int()
     with torch.cuda.device(xp.device):
         err = lib.lstm_fwd(
             xp.data_ptr(), whh.data_ptr(), h0.data_ptr(), c0.data_ptr(),
             hs.data_ptr(), cs.data_ptr(), gates.data_ptr(),
             T, xp.shape[1], H, int(xp.dtype == torch.bfloat16), _build.stream(xp),
+            ctypes.byref(route),
         )
     _raise_on(err, "lstm_fwd")
-    LAUNCHES["lstm_fwd"] += 1
+    _count_forward("lstm_fwd", route)
     return hs, cs, gates
 
 
 def _launch_bilstm_fwd(xp, whh_f, whh_b):
     T, H = xp.shape[0], whh_f.shape[0]
     hs, cs, gates = _outputs(xp, H)
-    lib = _library()
+    lib, route = _library(), ctypes.c_int()
     with torch.cuda.device(xp.device):
         err = lib.bilstm_fwd(
             xp.data_ptr(), whh_f.data_ptr(), whh_b.data_ptr(),
             hs.data_ptr(), cs.data_ptr(), gates.data_ptr(),
             T, xp.shape[1] // 2, H, int(xp.dtype == torch.bfloat16), _build.stream(xp),
+            ctypes.byref(route),
         )
     _raise_on(err, "bilstm_fwd")
-    LAUNCHES["bilstm_fwd"] += 1
+    _count_forward("bilstm_fwd", route)
     return hs, cs, gates
 
 

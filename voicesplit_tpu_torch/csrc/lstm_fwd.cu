@@ -91,10 +91,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstddef>
 #include <cstdint>
 
-#include "conv_tile.cuh"     // kThreads, to_float, align16
+#include "conv_tile.cuh"     // kThreads, to_float, align16, ldmatrix, mma.sync
 #include "lstm_cluster.cuh"  // kCluster, the cluster primitives, owned columns, row groups
 
 namespace cg = cooperative_groups;
@@ -111,17 +112,30 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
 // The cluster walk
 // ---------------------------------------------------------------------------
 
-constexpr int kWalkThreads = 384;  // threads of a walk block: 12 warps
+constexpr int kWalkThreads = 384;  // threads of a walk block
+constexpr int kWarps = kWalkThreads / 32;
 constexpr int kPairs = 2;          // (row, unit) pairs of a thread at most
 constexpr int kLanes = 8;          // CUDA-core product: threads of one dot product
+// bf16: the W_hh columns stay in registers as mma.sync A fragments, warp w
+// holding k-steps w, w + 12, w + 24 of all kMTiles tiles of 16 owned columns:
+// 4U <= 112 (H <= 448) and K <= 12 x 3 x 16 = 576
+constexpr int kMTiles = 7;
+constexpr int kKSteps = 3;
 
 // Launch shape of the walk for `rows` rows a cluster (T elements unless
 // said): W_hh's owned columns w_s [q_padded][ldw] (column q = g U + u, row
 // k = m UP + u' for unit m U + u', zero elsewhere); receive slots
-// [2][rows_padded][ldh]; this step's h to send [rows_padded][UP]; the
-// product [rows_padded][4U] (fp32); two mbarriers.  K = senders x UP is
-// padded to kp; ldw = ldh = kp + 8 so that the eight lanes of a dot product
-// and the four dot products of a warp meet no bank conflict.
+// [2][rows_padded][ldh]; this step's h to send [rows_padded][UP]; two
+// mbarriers.  K = senders x UP is padded to kp.
+//   bf16: w_s staged once for the register-held fragments (q_padded = 112,
+//         ldw = kp + 8: ldmatrix meets no bank conflict); then the same
+//         bytes hold each warp's partial product [12][rows_padded][4U]
+//         (fp32); rows padded to whole n8 tiles; ldh = kp + 8: the 32-bit
+//         loads of a B fragment meet no bank conflict.
+//   fp32: w_s read every step and the product [rows_padded][4U] (fp32);
+//         ldw = ldh = kp + 8: the eight lanes of a dot product and the four
+//         dot products of a warp meet no bank conflict; rows padded to the
+//         rows of a dot product (1, 2, 4 or 8).
 struct FwdShape {
   int units, unit_pad, kp, ldw, ldh, rows_chunk, rows_padded, q_padded;
   size_t smem;
@@ -129,26 +143,40 @@ struct FwdShape {
 
 template <typename T>
 FwdShape fwd_shape(int rows, int H) {
+  constexpr bool kTensorCore = sizeof(T) == 2;
   FwdShape s;
   s.units = (H + kCluster - 1) / kCluster;
   const int per16 = 16 / int(sizeof(T));  // operand values in 16 bytes
   s.unit_pad = (s.units + per16 - 1) / per16 * per16;
   const int senders = (H + s.units - 1) / s.units;
-  s.kp = (senders * s.unit_pad + 7) / 8 * 8;
+  const int step = kTensorCore ? 16 : 8;
+  s.kp = (senders * s.unit_pad + step - 1) / step * step;
   s.ldw = s.ldh = s.kp + 8;
-  s.rows_chunk = rows >= 8 ? 8 : rows >= 4 ? 4 : rows >= 2 ? 2 : 1;
+  s.rows_chunk = kTensorCore || rows >= 8 ? 8 : rows >= 4 ? 4 : rows >= 2 ? 2 : 1;
   s.rows_padded = (rows + s.rows_chunk - 1) / s.rows_chunk * s.rows_chunk;
-  s.q_padded = 4 * s.units;
-  s.smem = align16(size_t(s.q_padded) * s.ldw * sizeof(T)) +
-           align16(size_t(2) * s.rows_padded * s.ldh * sizeof(T)) +
-           align16(size_t(s.rows_padded) * s.unit_pad * sizeof(T)) +
-           align16(size_t(s.rows_padded) * 4 * s.units * sizeof(float)) + 16;
+  size_t w_bytes, pre_bytes;
+  if (kTensorCore) {
+    s.q_padded = 16 * kMTiles;
+    w_bytes = std::max(size_t(s.q_padded) * s.ldw * sizeof(T),
+                       size_t(kWarps) * s.rows_padded * 4 * s.units * sizeof(float));
+    pre_bytes = 0;
+  } else {
+    s.q_padded = 4 * s.units;
+    w_bytes = size_t(s.q_padded) * s.ldw * sizeof(T);
+    pre_bytes = size_t(s.rows_padded) * 4 * s.units * sizeof(float);
+  }
+  s.smem = align16(w_bytes) + align16(size_t(2) * s.rows_padded * s.ldh * sizeof(T)) +
+           align16(size_t(s.rows_padded) * s.unit_pad * sizeof(T)) + align16(pre_bytes) + 16;
   return s;
 }
 
 // Whether the walk's registers cover `rows` rows a cluster (shared memory
 // aside).
-bool fwd_walk_fits(const FwdShape& s, int rows) { return rows * s.units <= kPairs * kWalkThreads; }
+template <typename T>
+bool fwd_walk_fits(const FwdShape& s, int rows) {
+  if (rows * s.units > kPairs * kWalkThreads) return false;
+  return sizeof(T) != 2 || (4 * s.units <= 16 * kMTiles && s.kp <= 16 * kKSteps * kWarps);
+}
 
 // Grid D * G * kCluster blocks in clusters of kCluster; cluster c walks row
 // group c % G of direction c / G: the direction's rows [g BC, g BC + Br),
@@ -165,6 +193,7 @@ lstm_fwd_kernel(const T* __restrict__ xp,      // [T, R, 4H]
                 float* __restrict__ gates,     // [T, R, 4H]
                 int T_, int B, int H, int G, int BC, int U, int UP, int KP, int LDW, int LDH,
                 int RP) {
+  constexpr bool kTensorCore = sizeof(T) == 2;
   cg::cluster_group cluster = cg::this_cluster();
   const int k = int(cluster.block_rank());
   const int c_id = int(blockIdx.x) / kCluster;
@@ -177,6 +206,7 @@ lstm_fwd_kernel(const T* __restrict__ xp,      // [T, R, 4H]
   const int u0 = k * U;
   const int Uk = max(0, min(U, H - u0));  // units this block owns
   const int tid = threadIdx.x, nt = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, gr = lane >> 2, tig = lane & 3;
   const T* __restrict__ W = d ? w1 : w0;
   constexpr int kPer16 = 16 / int(sizeof(T));  // operand values in a 16-byte piece
   // Blocks [0, senders) own units and receive all of h from each other
@@ -185,20 +215,29 @@ lstm_fwd_kernel(const T* __restrict__ xp,      // [T, R, 4H]
   const uint32_t step_bytes = uint32_t(senders * Br * UP) * sizeof(T);
   const int slot = RP * LDH;  // elements of one receive slot
 
+  const int QP = kTensorCore ? 16 * kMTiles : NQ;  // rows of w_s
+  const int KS = KP / 16;                           // bf16: k-steps of the product
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  // W_hh's columns w_s [QP][LDW]; bf16: then the warps' partial products
+  // part [kWarps][RP][NQ] (fp32) in the same bytes
   T* w_s = reinterpret_cast<T*>(smem_raw);
-  T* recv = reinterpret_cast<T*>(smem_raw + align16(size_t(NQ) * LDW * sizeof(T)));
+  float* part = reinterpret_cast<float*>(smem_raw);
+  const size_t w_cols = size_t(QP) * LDW * sizeof(T);
+  const size_t w_part = kTensorCore ? size_t(kWarps) * RP * NQ * sizeof(float) : 0;
+  const size_t w_bytes = w_cols > w_part ? w_cols : w_part;
+  T* recv = reinterpret_cast<T*>(smem_raw + align16(w_bytes));
   T* stage = recv + 2 * slot;  // [RP][UP]
+  // fp32: the product [RP][NQ]
   float* pre = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(stage) +
-                                        align16(size_t(RP) * UP * sizeof(T)));  // [RP][NQ]
-  uint64_t* bars = reinterpret_cast<uint64_t*>(reinterpret_cast<unsigned char*>(pre) +
-                                               align16(size_t(RP) * NQ * sizeof(float)));
+                                        align16(size_t(RP) * UP * sizeof(T)));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<unsigned char*>(pre) + (kTensorCore ? 0 : align16(size_t(RP) * NQ * sizeof(float))));
   // zeros: what no one sends (padding units, rows past Br, K past
   // senders x UP) must multiply as 0
   for (int e = tid; e < 2 * slot + RP * UP; e += nt) recv[e] = from_float<T>(0.0f);
   __syncthreads();
   // W_hh[unit of k, column q] at [q][k]
-  stage_owned_columns(w_s, NQ, LDW, W, H, U, u0, Uk, [U, UP](int a, int b, int& j, int& q) {
+  stage_owned_columns(w_s, QP, LDW, W, H, U, u0, Uk, [U, UP](int a, int b, int& j, int& q) {
     q = a;
     j = b % UP < U ? b / UP * U + b % UP : -1;
   });
@@ -238,7 +277,23 @@ lstm_fwd_kernel(const T* __restrict__ xp,      // [T, R, 4H]
     }
   };
   prefetch(0);
-  cluster.sync();  // every block runs, with its barriers armed and its slots set up
+  // bf16: warp w's k-steps w + 12 i of every 16-column tile as A fragments
+  // (ldmatrix from w_s, once; zeros past K), multiplied every step without a
+  // branch
+  uint32_t wa[kMTiles][kKSteps][4];
+  if constexpr (kTensorCore) {
+    __syncthreads();  // w_s staged
+#pragma unroll
+    for (int mt = 0; mt < kMTiles; ++mt) {
+#pragma unroll
+      for (int i = 0; i < kKSteps; ++i) {
+        const int ks = warp + i * kWarps;
+        wa[mt][i][0] = wa[mt][i][1] = wa[mt][i][2] = wa[mt][i][3] = 0u;
+        if (ks < KS) ldmatrix_x4(wa[mt][i], w_s + (mt * 16 + (lane & 15)) * LDW + ks * 16 + (lane >> 4) * 8);
+      }
+    }
+  }
+  cluster.sync();  // every block runs, with its barriers armed, its slots set up and W_hh read
 
   const int group = tid / kLanes, gl = tid % kLanes, groups = nt / kLanes;
   const int items = NQ * (RP / RC);  // (column, row chunk) dot products
@@ -252,47 +307,91 @@ lstm_fwd_kernel(const T* __restrict__ xp,      // [T, R, 4H]
       if (tid == 0 && t + 1 <= T_ - 2) bar_expect(bars + in_slot, step_bytes);
     }
     const T* hin = recv + in_slot * slot;
-    // 2: pre[r][q] = sum_k round(h[r][k]) W[k][q], same trip count in
-    // every thread (the shuffles need the whole warp)
-    for (int ib = 0; ib < items; ib += groups) {
-      const int it = ib + group;
-      const bool active = it < items;
-      const int q = it % NQ, r0 = it / NQ * RC;
-      float acc[RC];
+    if constexpr (kTensorCore) {
+      // 2: part[warp][r][q] = sum over the warp's k-steps of round(h[r][k])
+      // W[k][q]: mma.sync.m16n8k16, A = the W_hh fragments, B = 8 rows of h
+      // (32-bit loads: [n][k] is the "col" B; zeros past K)
+      float* pw = part + warp * RP * NQ;
+      for (int r0 = 0; r0 < RP; r0 += 8) {
+        float acc[kMTiles][4];
 #pragma unroll
-      for (int i = 0; i < RC; ++i) acc[i] = 0.0f;
-      if (active) {
-        const T* w = w_s + q * LDW;
-        for (int kk = gl; kk < KP; kk += kLanes) {
-          const float wv = to_float(w[kk]);
+        for (int mt = 0; mt < kMTiles; ++mt) acc[mt][0] = acc[mt][1] = acc[mt][2] = acc[mt][3] = 0.0f;
 #pragma unroll
-          for (int i = 0; i < RC; ++i) acc[i] = fmaf(to_float(hin[(r0 + i) * LDH + kk]), wv, acc[i]);
+        for (int i = 0; i < kKSteps; ++i) {
+          const int ks = warp + i * kWarps;
+          const T* brow = hin + (r0 + gr) * LDH + ks * 16 + 2 * tig;
+          const uint32_t b0 = ks < KS ? *reinterpret_cast<const uint32_t*>(brow) : 0u;
+          const uint32_t b1 = ks < KS ? *reinterpret_cast<const uint32_t*>(brow + 8) : 0u;
+#pragma unroll
+          for (int mt = 0; mt < kMTiles; ++mt) mma_bf16(acc[mt], wa[mt][i], b0, b1);
+        }
+        // acc[mt][e]: column mt 16 + gr + (e >> 1) 8, row r0 + 2 tig + (e & 1)
+        const int r = r0 + 2 * tig;
+#pragma unroll
+        for (int mt = 0; mt < kMTiles; ++mt) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int q = mt * 16 + gr + h * 8;
+            if (q >= NQ) continue;
+            if (r < Br) pw[r * NQ + q] = acc[mt][2 * h];
+            if (r + 1 < Br) pw[(r + 1) * NQ + q] = acc[mt][2 * h + 1];
+          }
         }
       }
+    } else {
+      // 2: pre[r][q] = sum_k round(h[r][k]) W[k][q], same trip count in
+      // every thread (the shuffles need the whole warp)
+      for (int ib = 0; ib < items; ib += groups) {
+        const int it = ib + group;
+        const bool active = it < items;
+        const int q = it % NQ, r0 = it / NQ * RC;
+        float acc[RC];
 #pragma unroll
-      for (int i = 0; i < RC; ++i) {
-        acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 4);
-        acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 2);
-        acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 1);
-      }
-      if (active && gl == 0) {
+        for (int i = 0; i < RC; ++i) acc[i] = 0.0f;
+        if (active) {
+          const T* w = w_s + q * LDW;
+          for (int kk = gl; kk < KP; kk += kLanes) {
+            const float wv = to_float(w[kk]);
+#pragma unroll
+            for (int i = 0; i < RC; ++i) acc[i] = fmaf(to_float(hin[(r0 + i) * LDH + kk]), wv, acc[i]);
+          }
+        }
 #pragma unroll
         for (int i = 0; i < RC; ++i) {
-          if (r0 + i < Br) pre[(r0 + i) * NQ + q] = acc[i];
+          acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 4);
+          acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 2);
+          acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 1);
+        }
+        if (active && gl == 0) {
+#pragma unroll
+          for (int i = 0; i < RC; ++i) {
+            if (r0 + i < Br) pre[(r0 + i) * NQ + q] = acc[i];
+          }
         }
       }
     }
-    __syncthreads();  // pre complete
+    __syncthreads();  // the product complete
     // 2, 3: the cell update of the pairs; h rounded into the send stage
 #pragma unroll
     for (int p = 0; p < kPairs; ++p) {
       if (ru[p] < 0) continue;
       const int r = ru[p] >> 16, u = ru[p] & 0xffff, j = u0 + u;
-      const float* pr = pre + r * NQ;
-      const float i = sigmoid(xv[p][0] + pr[u]);
-      const float f = sigmoid(xv[p][1] + pr[U + u]);
-      const float g = tanhf(xv[p][2] + pr[2 * U + u]);
-      const float o = sigmoid(xv[p][3] + pr[3 * U + u]);
+      float pg[4];  // the four gates' products
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        if constexpr (kTensorCore) {
+          // the partials of the warps that hold k-steps, added in warp order
+          const float* pp = part + r * NQ + g * U + u;
+          pg[g] = pp[0];
+          for (int w = 1; w < min(kWarps, KS); ++w) pg[g] += pp[w * RP * NQ];
+        } else {
+          pg[g] = pre[r * NQ + g * U + u];
+        }
+      }
+      const float i = sigmoid(xv[p][0] + pg[0]);
+      const float f = sigmoid(xv[p][1] + pg[1]);
+      const float g = tanhf(xv[p][2] + pg[2]);
+      const float o = sigmoid(xv[p][3] + pg[3]);
       c[p] = f * c[p] + i * g;
       const float h = o * tanhf(c[p]);
       const size_t row = size_t(t) * R + row0 + r;
@@ -305,7 +404,7 @@ lstm_fwd_kernel(const T* __restrict__ xp,      // [T, R, 4H]
       gt[3 * H] = o;
       stage[r * UP + u] = from_float<T>(h);
     }
-    __syncthreads();  // the stage is complete; every read of pre and of slot in_slot is done
+    __syncthreads();  // the stage is complete; every read of the product and of slot in_slot is done
     // 4: h[t] to every owner's slot t & 1 (the last step's h is not needed)
     if (t < T_ - 1) {
       const int pieces = Br * (UP / kPer16);  // 16-byte pieces to each owner
@@ -525,7 +624,7 @@ cudaError_t launch(const FwdArgs* a, cudaStream_t stream, FwdLaunch* fl) {
   const int H = a->H;
   auto fits = [&](int rows) {
     const FwdShape s = fwd_shape<T>(rows, H);
-    return s.smem <= size_t(optin) && fwd_walk_fits(s, rows);
+    return s.smem <= size_t(optin) && fwd_walk_fits<T>(s, rows);
   };
   const FwdArgs* run = a->xp != nullptr ? a : nullptr;
   if (row_groups(a->B, kPairs * kWalkThreads, fits, &fl->info.groups, &fl->info.rows)) {

@@ -258,9 +258,11 @@ lstm_fwd_kernel(const T* __restrict__ xp,      // [T, R, 4H]
   }
 
   // this thread's (row, unit) pairs e = tid + p nt, r << 16 | u (-1: none),
-  // their cell state and the step's four xp values
+  // their cell state and the step's four xp values (kept in the operand
+  // type until the cell update, so that nothing waits for the loads before)
   int ru[kPairs];
-  float c[kPairs], xv[kPairs][4];
+  float c[kPairs];
+  T xv[kPairs][4];
 #pragma unroll
   for (int p = 0; p < kPairs; ++p) {
     const int e = tid + p * nt, r = e / U, u = e % U;
@@ -273,7 +275,7 @@ lstm_fwd_kernel(const T* __restrict__ xp,      // [T, R, 4H]
       if (ru[p] < 0) continue;
       const T* x = xp + (size_t(t) * R + row0 + (ru[p] >> 16)) * G4 + u0 + (ru[p] & 0xffff);
 #pragma unroll
-      for (int g = 0; g < 4; ++g) xv[p][g] = to_float(x[g * H]);
+      for (int g = 0; g < 4; ++g) xv[p][g] = x[g * H];
     }
   };
   prefetch(0);
@@ -377,21 +379,26 @@ lstm_fwd_kernel(const T* __restrict__ xp,      // [T, R, 4H]
       if (ru[p] < 0) continue;
       const int r = ru[p] >> 16, u = ru[p] & 0xffff, j = u0 + u;
       float pg[4];  // the four gates' products
+      if constexpr (kTensorCore) {
+        // every warp's partial (zero where it holds no k-step), loaded
+        // together, then added in warp order
 #pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        if constexpr (kTensorCore) {
-          // the partials of the warps that hold k-steps, added in warp order
-          const float* pp = part + r * NQ + g * U + u;
-          pg[g] = pp[0];
-          for (int w = 1; w < min(kWarps, KS); ++w) pg[g] += pp[w * RP * NQ];
-        } else {
-          pg[g] = pre[r * NQ + g * U + u];
+        for (int g = 0; g < 4; ++g) {
+          float v[kWarps];
+#pragma unroll
+          for (int w = 0; w < kWarps; ++w) v[w] = part[(w * RP + r) * NQ + g * U + u];
+          pg[g] = v[0];
+#pragma unroll
+          for (int w = 1; w < kWarps; ++w) pg[g] += v[w];
         }
+      } else {
+#pragma unroll
+        for (int g = 0; g < 4; ++g) pg[g] = pre[r * NQ + g * U + u];
       }
-      const float i = sigmoid(xv[p][0] + pg[0]);
-      const float f = sigmoid(xv[p][1] + pg[1]);
-      const float g = tanhf(xv[p][2] + pg[2]);
-      const float o = sigmoid(xv[p][3] + pg[3]);
+      const float i = sigmoid(to_float(xv[p][0]) + pg[0]);
+      const float f = sigmoid(to_float(xv[p][1]) + pg[1]);
+      const float g = tanhf(to_float(xv[p][2]) + pg[2]);
+      const float o = sigmoid(to_float(xv[p][3]) + pg[3]);
       c[p] = f * c[p] + i * g;
       const float h = o * tanhf(c[p]);
       const size_t row = size_t(t) * R + row0 + r;

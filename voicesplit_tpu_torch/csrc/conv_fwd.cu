@@ -238,13 +238,6 @@ __device__ __forceinline__ uint64_t b_desc(const void* smem) {
          (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
 }
 
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
 
 // D (64 x 64 fp32; this warp's 16 rows in the mma.sync accumulator layout)
 // = A (64 x 16 bf16 from registers, this warp's 16 rows) x B (smem) + D if

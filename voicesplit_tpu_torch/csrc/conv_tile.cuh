@@ -2,9 +2,10 @@
 // gradient kernel body of conv_dilated_fwd, conv_bn_act_fwd and conv_dgrad;
 // conv_wgrad.cu: the weight-gradient kernels and the chain's prologue pass):
 // channels, tile widths, operand types, the prologue's activation, ldmatrix,
-// mma.sync, cp.async, occupancy, launch-shape checks and the fixed-order
-// reduction of per-block partial rows.  lstm_bwd.cu takes its ldmatrix and
-// mma.sync pieces from here too, for the dW_hh product.
+// mma.sync, wgmma's ordering, cp.async, occupancy, launch-shape checks and
+// the fixed-order reduction of per-block partial rows.  lstm_bwd.cu takes its
+// ldmatrix and mma.sync pieces from here too, for the dW_hh product, and
+// lstm_fwd.cu its ldmatrix and wgmma pieces, for the forward walk's product.
 //
 // Each .cu that includes this file is compiled on its own and defines its
 // own __global__ kernels; everything here has internal linkage.  Each
@@ -98,6 +99,17 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// wgmma's ordering: before the first product that reads registers other
+// instructions wrote; closing a group of products; waiting until at most N
+// groups are in flight.
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 __host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) & ~size_t(15); }

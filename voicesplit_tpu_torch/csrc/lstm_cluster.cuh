@@ -43,6 +43,12 @@ __device__ __forceinline__ void send4(uint32_t addr, float4 v, uint32_t bar) {
   asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];\n"
                ::"r"(addr), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar) : "memory");
 }
+// This thread's view of shared memory that generic stores (st.async
+// included) wrote, ordered before its reads through the async proxy
+// (wgmma's operands in shared memory).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 __device__ __forceinline__ void bar_init(uint64_t* bar) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(bar));
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(a) : "memory");

@@ -116,22 +116,59 @@ constexpr int kWalkThreads = 384;  // threads of a walk block
 constexpr int kWarps = kWalkThreads / 32;
 constexpr int kPairs = 2;          // (row, unit) pairs of a thread at most
 constexpr int kLanes = 8;          // CUDA-core product: threads of one dot product
-// bf16: the W_hh columns stay in registers as mma.sync A fragments, warp w
-// holding k-steps w, w + 12, w + 24 of all kMTiles tiles of 16 owned columns:
-// 4U <= 112 (H <= 448) and K <= 12 x 3 x 16 = 576
-constexpr int kMTiles = 7;
-constexpr int kKSteps = 3;
+// bf16: the W_hh columns stay in registers as wgmma A fragments, warpgroup g
+// holding k-steps g, g + 3, ..., g + 30 of both 64-column tiles of owned
+// columns: 4U <= 128 (H <= 512) and K <= 3 x 11 x 16 = 528
+constexpr int kWarpGroups = kWarps / 4;
+constexpr int kMTiles = 2;
+constexpr int kKSteps = 11;
+
+// D (64 x 8 fp32; this warp's 16 rows in the mma.sync accumulator layout)
+// = A (64 x 16 bf16 from registers, this warp's 16 rows) x B (16 x 8 from
+// shared memory, K-major: `desc`) + D if accumulate.
+__device__ __forceinline__ void wgmma_m64n8k16(float (&d)[4], const uint32_t (&a)[4], uint64_t desc,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate)
+      : "memory");
+}
+
+// Shared-memory descriptor of a K-major bf16 B operand of 8 rows and 16 k
+// without swizzle: two 8 x 8 core matrices of 128 contiguous bytes, the
+// second 128 bytes after the first (both byte offsets 128: N = 8 has no
+// second row group).
+__device__ __forceinline__ uint64_t b_desc(const void* smem) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(128 >> 4) << 16) | (uint64_t(128 >> 4) << 32);
+}
+
+// Where h[r][k] (row r of the cluster, k = m UP + u for unit u of block m)
+// lies in a receive slot, in elements.  bf16: 8 x 8 core matrices
+// [r / 8][k / 8][r % 8][k % 8] (wgmma's K-major B without swizzle; a 16-byte
+// piece of a block's units is a row of one); fp32: rows [r][k] of ld.
+template <typename T>
+__device__ __forceinline__ int slot_at(int r, int k, int KP, int ld) {
+  if constexpr (sizeof(T) == 2) {
+    return ((r >> 3) * (KP >> 3) + (k >> 3)) * 64 + (r & 7) * 8 + (k & 7);
+  } else {
+    return r * ld + k;
+  }
+}
 
 // Launch shape of the walk for `rows` rows a cluster (T elements unless
 // said): W_hh's owned columns w_s [q_padded][ldw] (column q = g U + u, row
 // k = m UP + u' for unit m U + u', zero elsewhere); receive slots
 // [2][rows_padded][ldh]; this step's h to send [rows_padded][UP]; two
 // mbarriers.  K = senders x UP is padded to kp.
-//   bf16: w_s staged once for the register-held fragments (q_padded = 112,
+//   bf16: w_s staged once for the register-held fragments (q_padded = 128,
 //         ldw = kp + 8: ldmatrix meets no bank conflict); then the same
-//         bytes hold each warp's partial product [12][rows_padded][4U]
-//         (fp32); rows padded to whole n8 tiles; ldh = kp + 8: the 32-bit
-//         loads of a B fragment meet no bank conflict.
+//         bytes hold each warpgroup's partial product [3][rows_padded][4U]
+//         (fp32); rows padded to whole n8 tiles; slots of core matrices
+//         (slot_at), ldh = kp.
 //   fp32: w_s read every step and the product [rows_padded][4U] (fp32);
 //         ldw = ldh = kp + 8: the eight lanes of a dot product and the four
 //         dot products of a warp meet no bank conflict; rows padded to the
@@ -151,14 +188,15 @@ FwdShape fwd_shape(int rows, int H) {
   const int senders = (H + s.units - 1) / s.units;
   const int step = kTensorCore ? 16 : 8;
   s.kp = (senders * s.unit_pad + step - 1) / step * step;
-  s.ldw = s.ldh = s.kp + 8;
+  s.ldw = s.kp + 8;
+  s.ldh = kTensorCore ? s.kp : s.kp + 8;
   s.rows_chunk = kTensorCore || rows >= 8 ? 8 : rows >= 4 ? 4 : rows >= 2 ? 2 : 1;
   s.rows_padded = (rows + s.rows_chunk - 1) / s.rows_chunk * s.rows_chunk;
   size_t w_bytes, pre_bytes;
   if (kTensorCore) {
-    s.q_padded = 16 * kMTiles;
+    s.q_padded = 64 * kMTiles;
     w_bytes = std::max(size_t(s.q_padded) * s.ldw * sizeof(T),
-                       size_t(kWarps) * s.rows_padded * 4 * s.units * sizeof(float));
+                       size_t(kWarpGroups) * s.rows_padded * 4 * s.units * sizeof(float));
     pre_bytes = 0;
   } else {
     s.q_padded = 4 * s.units;
@@ -175,7 +213,7 @@ FwdShape fwd_shape(int rows, int H) {
 template <typename T>
 bool fwd_walk_fits(const FwdShape& s, int rows) {
   if (rows * s.units > kPairs * kWalkThreads) return false;
-  return sizeof(T) != 2 || (4 * s.units <= 16 * kMTiles && s.kp <= 16 * kKSteps * kWarps);
+  return sizeof(T) != 2 || (4 * s.units <= 64 * kMTiles && s.kp <= 16 * kKSteps * kWarpGroups);
 }
 
 // Grid D * G * kCluster blocks in clusters of kCluster; cluster c walks row
@@ -207,6 +245,7 @@ lstm_fwd_kernel(const T* __restrict__ xp,      // [T, R, 4H]
   const int Uk = max(0, min(U, H - u0));  // units this block owns
   const int tid = threadIdx.x, nt = blockDim.x;
   const int warp = tid >> 5, lane = tid & 31, gr = lane >> 2, tig = lane & 3;
+  const int wg = warp >> 2, wq = warp & 3;  // warpgroup, and warp in it
   const T* __restrict__ W = d ? w1 : w0;
   constexpr int kPer16 = 16 / int(sizeof(T));  // operand values in a 16-byte piece
   // Blocks [0, senders) own units and receive all of h from each other
@@ -215,15 +254,15 @@ lstm_fwd_kernel(const T* __restrict__ xp,      // [T, R, 4H]
   const uint32_t step_bytes = uint32_t(senders * Br * UP) * sizeof(T);
   const int slot = RP * LDH;  // elements of one receive slot
 
-  const int QP = kTensorCore ? 16 * kMTiles : NQ;  // rows of w_s
+  const int QP = kTensorCore ? 64 * kMTiles : NQ;  // rows of w_s
   const int KS = KP / 16;                           // bf16: k-steps of the product
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  // W_hh's columns w_s [QP][LDW]; bf16: then the warps' partial products
-  // part [kWarps][RP][NQ] (fp32) in the same bytes
+  // W_hh's columns w_s [QP][LDW]; bf16: then the warpgroups' partial
+  // products part [kWarpGroups][RP][NQ] (fp32) in the same bytes
   T* w_s = reinterpret_cast<T*>(smem_raw);
   float* part = reinterpret_cast<float*>(smem_raw);
   const size_t w_cols = size_t(QP) * LDW * sizeof(T);
-  const size_t w_part = kTensorCore ? size_t(kWarps) * RP * NQ * sizeof(float) : 0;
+  const size_t w_part = kTensorCore ? size_t(kWarpGroups) * RP * NQ * sizeof(float) : 0;
   const size_t w_bytes = w_cols > w_part ? w_cols : w_part;
   T* recv = reinterpret_cast<T*>(smem_raw + align16(w_bytes));
   T* stage = recv + 2 * slot;  // [RP][UP]
@@ -245,7 +284,7 @@ lstm_fwd_kernel(const T* __restrict__ xp,      // [T, R, 4H]
   if (h0 != nullptr && Uk > 0) {
     for (int e = tid; e < Br * H; e += nt) {
       const int r = e / H, j = e % H;
-      recv[slot + r * LDH + j / U * UP + j % U] = from_float<T>(h0[size_t(row0 + r) * H + j]);
+      recv[slot + slot_at<T>(r, j / U * UP + j % U, KP, LDH)] = from_float<T>(h0[size_t(row0 + r) * H + j]);
     }
   }
   if (tid == 0) {
@@ -279,9 +318,9 @@ lstm_fwd_kernel(const T* __restrict__ xp,      // [T, R, 4H]
     }
   };
   prefetch(0);
-  // bf16: warp w's k-steps w + 12 i of every 16-column tile as A fragments
-  // (ldmatrix from w_s, once; zeros past K), multiplied every step without a
-  // branch
+  // bf16: warpgroup g's k-steps g + 3 i of both 64-column tiles as A
+  // fragments, this warp's 16 columns of each (ldmatrix from w_s, once;
+  // zeros past K), multiplied every step without a branch
   uint32_t wa[kMTiles][kKSteps][4];
   if constexpr (kTensorCore) {
     __syncthreads();  // w_s staged
@@ -289,9 +328,11 @@ lstm_fwd_kernel(const T* __restrict__ xp,      // [T, R, 4H]
     for (int mt = 0; mt < kMTiles; ++mt) {
 #pragma unroll
       for (int i = 0; i < kKSteps; ++i) {
-        const int ks = warp + i * kWarps;
+        const int ks = wg + i * kWarpGroups;
         wa[mt][i][0] = wa[mt][i][1] = wa[mt][i][2] = wa[mt][i][3] = 0u;
-        if (ks < KS) ldmatrix_x4(wa[mt][i], w_s + (mt * 16 + (lane & 15)) * LDW + ks * 16 + (lane >> 4) * 8);
+        if (ks < KS) {
+          ldmatrix_x4(wa[mt][i], w_s + (mt * 64 + wq * 16 + (lane & 15)) * LDW + ks * 16 + (lane >> 4) * 8);
+        }
       }
     }
   }
@@ -310,30 +351,31 @@ lstm_fwd_kernel(const T* __restrict__ xp,      // [T, R, 4H]
     }
     const T* hin = recv + in_slot * slot;
     if constexpr (kTensorCore) {
-      // 2: part[warp][r][q] = sum over the warp's k-steps of round(h[r][k])
-      // W[k][q]: mma.sync.m16n8k16, A = the W_hh fragments, B = 8 rows of h
-      // (32-bit loads: [n][k] is the "col" B; zeros past K)
-      float* pw = part + warp * RP * NQ;
+      // 2: part[g][r][q] = sum over warpgroup g's k-steps of round(h[r][k])
+      // W[k][q]: wgmma.m64n8k16, A = the W_hh fragments, B = 8 rows of h
+      // from the slot's core matrices (a k-step past K multiplies k-step 0
+      // by zero fragments)
+      fence_proxy_async();  // h came by st.async; wgmma reads it through the async proxy
+      float* pw = part + wg * RP * NQ;
       for (int r0 = 0; r0 < RP; r0 += 8) {
-        float acc[kMTiles][4];
-#pragma unroll
-        for (int mt = 0; mt < kMTiles; ++mt) acc[mt][0] = acc[mt][1] = acc[mt][2] = acc[mt][3] = 0.0f;
+        float acc[kMTiles][4] = {};  // written only by wgmma after this
+        wgmma_fence();
 #pragma unroll
         for (int i = 0; i < kKSteps; ++i) {
-          const int ks = warp + i * kWarps;
-          const T* brow = hin + (r0 + gr) * LDH + ks * 16 + 2 * tig;
-          const uint32_t b0 = ks < KS ? *reinterpret_cast<const uint32_t*>(brow) : 0u;
-          const uint32_t b1 = ks < KS ? *reinterpret_cast<const uint32_t*>(brow + 8) : 0u;
+          const int ks = wg + i * kWarpGroups;
+          const uint64_t desc = b_desc(hin + slot_at<T>(r0, (ks < KS ? ks : 0) * 16, KP, LDH));
 #pragma unroll
-          for (int mt = 0; mt < kMTiles; ++mt) mma_bf16(acc[mt], wa[mt][i], b0, b1);
+          for (int mt = 0; mt < kMTiles; ++mt) wgmma_m64n8k16(acc[mt], wa[mt][i], desc, i > 0);
         }
-        // acc[mt][e]: column mt 16 + gr + (e >> 1) 8, row r0 + 2 tig + (e & 1)
+        wgmma_commit();
+        wgmma_wait<0>();
+        // acc[mt][e]: column mt 64 + wq 16 + gr + (e >> 1) 8, row r0 + 2 tig + (e & 1)
         const int r = r0 + 2 * tig;
 #pragma unroll
         for (int mt = 0; mt < kMTiles; ++mt) {
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const int q = mt * 16 + gr + h * 8;
+            const int q = mt * 64 + wq * 16 + gr + h * 8;
             if (q >= NQ) continue;
             if (r < Br) pw[r * NQ + q] = acc[mt][2 * h];
             if (r + 1 < Br) pw[(r + 1) * NQ + q] = acc[mt][2 * h + 1];
@@ -380,16 +422,15 @@ lstm_fwd_kernel(const T* __restrict__ xp,      // [T, R, 4H]
       const int r = ru[p] >> 16, u = ru[p] & 0xffff, j = u0 + u;
       float pg[4];  // the four gates' products
       if constexpr (kTensorCore) {
-        // every warp's partial (zero where it holds no k-step), loaded
-        // together, then added in warp order
+        // the warpgroups' partials, loaded together, then added in order
 #pragma unroll
         for (int g = 0; g < 4; ++g) {
-          float v[kWarps];
+          float v[kWarpGroups];
 #pragma unroll
-          for (int w = 0; w < kWarps; ++w) v[w] = part[(w * RP + r) * NQ + g * U + u];
+          for (int w = 0; w < kWarpGroups; ++w) v[w] = part[(w * RP + r) * NQ + g * U + u];
           pg[g] = v[0];
 #pragma unroll
-          for (int w = 1; w < kWarps; ++w) pg[g] += v[w];
+          for (int w = 1; w < kWarpGroups; ++w) pg[g] += v[w];
         }
       } else {
 #pragma unroll
@@ -420,7 +461,7 @@ lstm_fwd_kernel(const T* __restrict__ xp,      // [T, R, 4H]
         const int m = e / pieces, pc = e % pieces;
         const int r = pc / (UP / kPer16), col = pc % (UP / kPer16) * kPer16;
         const float4 v = *reinterpret_cast<const float4*>(stage + r * UP + col);
-        T* dst = recv + (t & 1) * slot + r * LDH + k * UP + col;
+        T* dst = recv + (t & 1) * slot + slot_at<T>(r, k * UP + col, KP, LDH);
         send4(cluster_addr(dst, m), v, cluster_addr(bars, m) + bar_off);
       }
     }

@@ -102,7 +102,8 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-__device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
+// sigmoid(x) = (1 + tanh(x / 2)) / 2: one tanh, no division
+__device__ __forceinline__ float sigmoid(float x) { return fmaf(0.5f, tanhf(0.5f * x), 0.5f); }
 
 template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_float(from_float<T>(x));

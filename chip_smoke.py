@@ -9,31 +9,36 @@ Phases, each printing one JSON line:
 1. device   — the card's name and power limit (``nvidia-smi``).
 2. build    — compiles every `voicesplit_tpu_torch/csrc/*.cu` with nvcc for
    sm_90a into ``build/`` (one nvcc per source, all at once) and prints
-   ``ptxas -v`` (registers, shared memory, spills) and each kernel's grid
-   (the LSTM backward walk's also its cluster size, threads, the clusters
-   the card holds at once, which must be at least one, and its registers
-   and spilled bytes);
+   ``ptxas -v`` (registers, shared memory, spills) and each kernel's grid:
+   the LSTM walks' (forward and backward at the paths' batches and at
+   ROW_GROUP_BATCH rows a direction) with their cluster size, threads, row
+   groups and rows a cluster, the clusters the card holds at once (at least
+   one), registers and spilled bytes (none), the forward's route, which
+   must be the cluster walk at H=400 and the grid route at GRID_HIDDEN;
    the conv kernels' (the forward / data-gradient kernel body in its three
    modes, the weight-gradient kernel) per layer and batch (B=1, 2, 8; fp32
    at the reduced shape) beside the blocks the card holds at once, their
    registers and spilled bytes (more blocks than resident, or any spilled
    byte, fails the phase).
 3. kernels  — at H=400, T=301 holds each kernel against its plain PyTorch
-   version on the card, in bf16 and fp32 operands: ``lstm_fwd`` (B=1,
-   random h0/c0; hs, cs, gates, final (h, c)), ``bilstm_fwd`` (B=8),
-   ``lstm_bwd`` (B=2, random dhs, dhf, dcf; dxp, dW_hh, dh0, dc0) and
-   ``bilstm_bwd`` (B=8; dxp, both dW_hh; two launches must give the same
-   bits).  Then times kernel, plain version and a cuDNN ``torch.nn.LSTM``
-   yardstick (its forward, or its ``.backward()`` alone after a forward;
-   both also cover the input projection, which the kernels leave to a
-   matmul), and the backward's dW_hh kernel alone (``dwhh_ms``) beside its
-   bound.
+   version on the card, in bf16 and fp32 operands, with two launches on the
+   same inputs giving the same bits: ``lstm_fwd`` (B=1, random h0/c0; hs,
+   cs, gates, final (h, c)), ``bilstm_fwd`` (B=8, and ROW_GROUP_BATCH rows
+   a direction), both on the cluster walk, ``lstm_fwd`` at GRID_HIDDEN on
+   the grid route (``lstm_fwd_grid``), ``lstm_bwd`` (B=2, random dhs, dhf,
+   dcf; dxp, dW_hh, dh0, dc0) and ``bilstm_bwd`` (B=8 and ROW_GROUP_BATCH;
+   dxp, both dW_hh).  Then times kernel, plain version and a cuDNN
+   ``torch.nn.LSTM`` yardstick (its forward, or its ``.backward()`` alone
+   after a forward; both also cover the input projection, which the kernels
+   leave to a matmul), and the backward's dW_hh kernel alone (``dwhh_ms``)
+   beside its bound.
 4. separate — builds the full-width `configs/voicesplit.json` model (bf16)
    with weights made from ``--seed``, zeroes the launch counters, runs
    `separate_batch` at B=1 and at B=8 on 3 s synthetic mixtures, reads the
    counters, and checks the output (48000 finite samples, mask in [0, 1],
    agreement with the same model run through the plain LSTM versions on
-   the card, and an unnormalized STFT→iSTFT round trip of the mixture).
+   the card, and an unnormalized STFT→iSTFT round trip of the mixture);
+   every forward launch must have taken the cluster walk.
    Prints the steady-state latency per batch (median and p75 of 40 calls)
    and audio-seconds per second.
 5. train    — the same model and config (si_snr loss, Adam; learning rate
@@ -99,8 +104,10 @@ Phases, each printing one JSON line:
    summaries), audio-seconds per second and the share of `fit()`'s wall time
    outside train steps.
 
-Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit line
-and, last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so
+Then a ``{"kernels": [...]}`` line (each kernel's ``main_path``: false for
+the forward's grid route, which no path takes and which is launched only in
+the kernels phase), the ``nvidia-smi`` name/power-limit line and, last,
+``{"ok": true, "device": {...}}``.  Any failed check raises, so
 the exit code is non-zero and no result line is printed.  It also exits
 non-zero without a card, or without the rest of the repository beside it.
 ``--profile DIR`` additionally writes a ``torch.profiler`` kernel table and

@@ -28,8 +28,11 @@
 // the dW_hh product over what the walk wrote.
 //
 // lstm_bwd_kernel, the reverse walk: one thread-block cluster of C = 16
-// blocks per direction (non-portable cluster size), D clusters that never
-// talk to each other: no cooperative launch, no grid-wide barrier.  Why:
+// blocks per direction and row group (non-portable cluster size), clusters
+// that never talk to each other: no cooperative launch, no grid-wide
+// barrier.  The cluster primitives, the staging of a block's W_hh columns
+// and the row groups are lstm_cluster.cuh's, shared with the forward walk
+// (lstm_fwd.cu).  Why:
 // the design before it (one cooperative grid of 100 blocks, a grid.sync()
 // a step, all R x 4H dgates of a step staged from L2 into every block, and
 // dW_hh accumulated in the walk) took 6.7 us a step at B = 2.
@@ -91,17 +94,24 @@
 // sums its K rows in increasing (t, r) order (mma.sync: 16 at a time).  No
 // float atomics.
 //
+// Row groups.  A direction's B rows go to G clusters of at most the rows
+// one holds (rows x U <= 2 x 384 (row, unit) pairs and shared memory: at
+// H = 400 23 rows in bf16, 11 in fp32), spread evenly (24 rows: two
+// clusters of 12 in bf16, three of 8 in fp32); the grid is D x G clusters,
+// and those past the ones the card holds at once (7 on an H100) wait to be
+// scheduled.  dW_hh sums over all rows after the walk, as before.
+//
 // Shared memory of the walk, per block at H = 400 (C = 16, U = 25): W_hh
 // columns [H][4U padded] (bf16 97 KB, staged once for the fragments; fp32
 // 166 KB, read every step), rounded dgates (two buffers), receive slots
-// [2][C][B][U padded to 28] and the staged partials [C][B][28] (fp32):
+// [2][C][rows][U padded to 28] and the staged partials [C][rows][28]
+// (fp32):
 //   lstm_bwd   B = 2: 110,608 B bf16, 172,368 B fp32;
-//   bilstm_bwd B = 8: 142,864 B bf16, 209,424 B fp32 (227 KB available).
+//   bilstm_bwd B = 8: 142,864 B bf16, 209,424 B fp32 (227 KB available);
+//              B = 24: 168,208 B bf16 (12 rows a cluster), 209,424 B fp32.
 // Limits, checked before the launch (the wrapper raises): bf16 needs
-// 4U <= 112 (H <= 448) and B U <= 2 x 384 pairs; both need their shared
-// memory, which at H = 400 holds up to 23 rows a direction in bf16 and 11
-// in fp32.  At H = 800 neither fits (bf16 4U = 200; fp32 640 KB of
-// columns).
+// 4U <= 112 (H <= 448); both need one row of shared memory.  At H = 800
+// neither fits (bf16 4U = 200; fp32 640 KB of columns).
 //
 // What bounds them on the card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16 dense),
 // counting each input byte read once and each output byte written once,

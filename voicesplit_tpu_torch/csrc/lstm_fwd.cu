@@ -17,13 +17,15 @@
 // fp32.  Outputs hs, cs [T, R, H] and the activated gates [T, R, 4H] are
 // fp32, as on the TPU.
 //
-// Two routes, chosen from the shape before the launch (lstm_launch_config
-// reports which):
+// Two routes, chosen from the shape and the card before anything launches
+// (lstm_launch_config reports which):
 //
-// lstm_fwd_kernel, the cluster walk (every shape it holds: H <= 448 in bf16,
-// rows and shared memory as below).  One thread-block cluster of C = 16
-// blocks (non-portable size) per direction and row group; clusters never
-// talk to each other.
+// lstm_fwd_kernel, the cluster walk, for every shape it holds (bf16:
+// H <= 512; rows and shared memory as below).  One thread-block cluster of
+// C = 16 blocks (non-portable size) of 384 threads per direction and row
+// group; clusters never talk to each other.  Why: the design before it (PR
+// 1's, kept below as the grid route) staged all of h[t-1] from L2 into
+// each of 100 blocks and crossed a grid.sync() every step: 3.3 us a step.
 //   Ownership.  Block k owns the U = ceil(H / C) units J_k (U = 25 at
 //   H = 400; blocks past ceil(H / U) own none and skip the walk, and no
 //   block counts on bytes from them) and holds, for the whole walk, the
@@ -34,47 +36,62 @@
 //   1. waits on its own mbarrier for all of h[t-1] of its rows (h0 at t = 0,
 //      staged before the walk);
 //   2. computes its 4U pre-activations of each row and the cell update of
-//      its units (c carried in registers, the next step's xp loaded into
-//      registers while the step's h travels);
-//   3. writes hs, cs and the gates of its units (fp32);
+//      its units (c carried in registers; the step's xp loaded into
+//      registers during the step before);
+//   3. writes hs, cs and the gates of its units (fp32; consecutive threads
+//      take consecutive units, so each gate's stores are coalesced);
 //   4. sends its [rows][U] slice of h[t], rounded to the operand type and
-//      padded with zeros to UP units (whole 16 bytes), to every block that
-//      owns units, as 16-byte st.async stores into the receiver's slot
-//      [r][k UP + u], each counting its bytes on the receiver's mbarrier.
-//   A receive slot is a row of K = senders x UP operand values per row
-//   (zeros where no unit is): the product runs over K with W_hh's rows laid
-//   out the same way.  Two slots, each with its mbarrier: h[t] goes to slot
-//   t mod 2 and is read at step t+1.  A sender writes a slot again only two
-//   steps later, after it has received the receiver's h of the step
-//   between, which the receiver sends after it has finished reading the
-//   slot (a __syncthreads lies between) and armed its barrier again for the
-//   slot's next phase; so no slot is overwritten while it is read, and no
-//   byte counts on a phase that is not its own.  The armed count is rows x
-//   senders x UP x the operand's size: every owner receives from every
-//   sender, itself included.  A wait that never ends traps (a fault, not a
-//   hang).
-//   Product.  CUDA-core FMAs over the columns in shared memory
-//   [4U][K + 8], eight threads a dot product (each a fixed slice of K,
-//   added by shuffles in a fixed order), 1, 2, 4 or 8 rows at a time.
-//   No tensor cores are used for fp32 operands (TF32 would round them).
+//      padded with zeros to UP units, to every block that owns units
+//      (itself included), as 16-byte st.async stores, each counting its
+//      bytes on the receiver's mbarrier; then loads the next step's xp.
+//   The h all-gather.  A receive slot holds K = senders x UP operand values
+//   a row (zeros where no unit is) and the product runs over K with W_hh's
+//   rows laid out the same way.  Two slots, each with its mbarrier: h[t]
+//   goes to slot t mod 2 and is read at step t+1.  A sender writes a slot
+//   again only two steps later, after it has received the receiver's h of
+//   the step between, which the receiver sends after it has finished
+//   reading the slot (a __syncthreads lies between) and armed its barrier
+//   again for the slot's next phase; so no slot is overwritten while it is
+//   read, and no byte counts on a phase that is not its own.  The armed
+//   count is rows x senders x UP x the operand's size: every owner receives
+//   from every sender.  A wait that never ends traps (a fault, not a hang).
+//   Products.  bf16: wgmma.m64n8k16.  The 4U owned columns are two 64-row
+//   A tiles; warpgroup g of the three holds k-steps g, g + 3, ..., g + 30 of
+//   both as A fragments in registers for the whole walk (loaded once with
+//   ldmatrix; 88 registers), so the W_hh a step multiplies never crosses
+//   shared memory.  B is 8 rows of h read from the slot by descriptor: a
+//   bf16 slot is laid out as 8 x 8 core matrices (K-major, no swizzle), of
+//   which each 16-byte piece a sender stores is one row.  Each warpgroup's
+//   partial product goes to shared memory (over the staged columns) and the
+//   cell update adds the three in order.  fp32: CUDA-core FMAs over the
+//   columns in shared memory, eight threads a dot product (each a fixed
+//   slice of K, added by shuffles in a fixed order), 1, 2, 4 or 8 rows at a
+//   time; no tensor cores, which would round fp32 operands to TF32.
 //   Row groups.  A direction's rows go to G clusters of at most the rows a
-//   cluster holds (registers: rows x U <= 2 x 384 (row, unit) pairs;
-//   shared memory), spread evenly; clusters past the ones the card holds
-//   at once wait to be scheduled.
+//   cluster holds (rows x U <= 2 x 384 (row, unit) pairs; shared memory),
+//   spread evenly; clusters past the ones the card holds at once (7 on an
+//   H100) wait to be scheduled.
+//   Shared memory a block at H = 400: bf16 150,032 B up to 8 rows (W_hh's
+//   columns [128][520], reused for the partials; slots [2][8 x 512]),
+//   183,824 B at 24 rows, up to 30 rows; fp32 186,576 B (1 row) to 215,696
+//   B (8 rows; columns [100][456], read every step), up to 8 rows.
 //
 // lstm_fwd_grid_kernel, the grid route (lstm_fwd_grid in chip_smoke.py's
 // kernels line), for the shapes the walk cannot hold (H = 800: a block's
-// columns would be 320 KB in bf16): the port's first forward kernel, a
-// persistent cooperative grid.  Block b owns U = ceil(H / #SMs) units (7 at H = 800
-// on 132 SMs, 115 blocks, all co-resident) and keeps their 4U gate columns
-// of each W_hh in shared memory; each step it stages all of h[t-1] from L2,
-// multiplies on CUDA cores (8 threads a dot product), applies the cell
-// update of its units and crosses a grid-wide barrier
-// (cooperative_groups::this_grid().sync()).
+// columns would be 200 x 800 values, 320 KB in bf16): the port's first
+// forward kernel, a persistent cooperative grid.  Block b owns U = ceil(H /
+// #SMs) units (7 at H = 800 on 132 SMs, 115 blocks, all co-resident) and
+// keeps their 4U gate columns of each W_hh in shared memory; each step it
+// stages all of h[t-1] from L2, multiplies on CUDA cores (8 threads a dot
+// product), applies the cell update of its units and crosses a grid-wide
+// barrier (cooperative_groups::this_grid().sync()).  A shape neither route
+// holds (fp32, two directions, H = 800: 230 KB of shared memory) is refused
+// before the launch, as before.
 //
-// Sum order, fixed, so the same inputs give the same bits: each lane adds
-// its slice of K in order, the eight lanes by a fixed shuffle tree.  No
-// float atomics.
+// Sum order, fixed, so the same inputs give the same bits: wgmma's own
+// order within a warpgroup, then the three partials in order (bf16); each
+// lane's slice of K in order, then a fixed shuffle tree (fp32, and the grid
+// route).  No float atomics.
 //
 // What bounds them on the card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16 dense),
 // counting each input byte read once and each output byte written once:
@@ -84,7 +101,8 @@
 //   bilstm_fwd, B = 8 (16 rows), bf16: ~64 MB and 6.2 GFLOP
 //              -> memory-bound, ~19 us; launched once per B=8 call or step.
 // The real limit of the walk is neither: it is the T = 301 dependent steps,
-// each a wait for h, a small product, the cell update and one all-gather
+// each a wait for h, a product of 8 rows (a wgmma of N = 8 costs about its
+// fixed minimum whatever its FLOPs), the cell update and one all-gather
 // through distributed shared memory.
 
 #include <cooperative_groups.h>
@@ -596,7 +614,7 @@ struct FwdArgs {
 // The route and launch on this card for D directions of B rows each.
 struct FwdLaunch {
   bool walk;           // the cluster walk (else the grid route)
-  ClusterLaunch info;  // walk: row groups, shared memory, clusters, registers
+  ClusterLaunch info;  // walk: row groups, shared memory, clusters; registers of either
   FwdShape shape;      // walk
   int grid_blocks, grid_units;  // grid route: blocks, units a block
   size_t grid_smem;
@@ -641,6 +659,11 @@ cudaError_t grid_route(FwdLaunch* fl, const FwdArgs* a, cudaStream_t stream) {
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, fl->grid_smem);
   if (err != cudaSuccess) return err;
   fl->grid_resident = per_sm * sms;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return err;
+  fl->info.registers = fa.numRegs;
+  fl->info.local_bytes = int(fa.localSizeBytes);
   if (a->xp == nullptr) return cudaSuccess;  // the launch shape only
   if (fl->grid_resident < fl->grid_blocks) return cudaErrorCooperativeLaunchTooLarge;
   const T* xp_t = static_cast<const T*>(a->xp);
@@ -734,8 +757,8 @@ extern "C" int bilstm_fwd(const void* xp, const void* whh_f, const void* whh_b, 
 // a block, dynamic shared memory in bytes; the walk's cluster size, threads
 // a block, clusters the card holds at once, registers and spilled bytes a
 // thread, row groups a direction and rows a cluster (the grid route: 0
-// cluster, 256 threads, the blocks it holds at once in `clusters`, 0 for
-// the rest).
+// cluster, 256 threads, the blocks it holds at once in `clusters`, no row
+// groups).
 extern "C" int lstm_launch_config(int D, int B, int H, int bf16, int* route, int* blocks,
                                   int* units, long long* smem, int* cluster, int* threads,
                                   int* clusters, int* registers, int* local_bytes, int* groups,
@@ -764,7 +787,9 @@ extern "C" int lstm_launch_config(int D, int B, int H, int bf16, int* route, int
     *cluster = 0;
     *threads = kThreads;
     *clusters = fl.grid_resident;
-    *registers = *local_bytes = *groups = *rows = 0;
+    *registers = fl.info.registers;
+    *local_bytes = fl.info.local_bytes;
+    *groups = *rows = 0;
   }
   return cudaSuccess;
 }

@@ -4,15 +4,21 @@ Forward (`csrc/lstm_fwd.cu`): ``lstm_fwd`` replaces
 `voicesplit_tpu/ops/lstm_pallas.py::_fwd_kernel` (one direction from a
 given ``(h0, c0)``) and ``bilstm_fwd`` replaces ``_fwd2_kernel`` (both
 directions in one pass, zero initial state).  Both take time-major inputs
-and return ``(hs, cs, gates)`` in float32, like the Pallas kernels.
+and return ``(hs, cs, gates)`` in float32, like the Pallas kernels.  The
+kernel is chosen from the shape before the launch: the cluster walk
+(``lstm_fwd_kernel``) wherever it holds the shape (every shape of the
+model at H=400), else the grid route (``lstm_fwd_grid_kernel``, H=800);
+``ROUTES`` counts the forward launches by route.
 
 Backward (`csrc/lstm_bwd.cu`): ``lstm_bwd`` replaces ``_bwd_kernel`` and
 ``bilstm_bwd`` replaces ``_bwd2_kernel``: the reverse walk that gives
 ``dxp`` (in the type of x) and, for one direction, ``dh0, dc0``, then the
 dW_hh kernel (``lstm_dwhh``, float32 ``dW_hh`` from the saved ``hs`` and
 ``dxp``), both launched by one call.  They read ``hs[t-1]`` and ``cs[t-1]``
-in place, where the JAX wrappers build shifted copies.  Each source's
-header says how the kernel is laid out and what bounds it.
+in place, where the JAX wrappers build shifted copies.  Both walks split a
+direction's rows into row groups, one thread-block cluster each, so they
+take any batch of which one row fits (`launch_config` reports the groups).
+Each source's header says how the kernel is laid out and what bounds it.
 
 Dispatch: a CUDA tensor goes to the kernel, or the call raises; the plain
 versions (``*_ref``) run only for tensors on the CPU.  Each kernel launch
@@ -107,8 +113,8 @@ def launch_config(
 
 def _raise_on_walk(err: int, name: str, directions: int, batch: int, hidden: int, dtype) -> None:
     """Raises for a failed backward launch, with the walk's launch shape
-    (a cluster that does not fit the card, or shared memory past its limit,
-    is refused)."""
+    (a shape of which not one row fits a cluster, in registers or shared
+    memory, is refused)."""
     if err != 0:
         cfg = launch_config(directions, batch, hidden, dtype, backward=True)
         _raise_on(err, f"{name} (walk launch {cfg})")

@@ -23,9 +23,9 @@
 // lstm_fwd_kernel, the cluster walk, for every shape it holds (bf16:
 // H <= 512; rows and shared memory as below).  One thread-block cluster of
 // C = 16 blocks (non-portable size) of 384 threads per direction and row
-// group; clusters never talk to each other.  Why: the design before it (PR
-// 1's, kept below as the grid route) staged all of h[t-1] from L2 into
-// each of 100 blocks and crossed a grid.sync() every step: 3.3 us a step.
+// group; clusters never talk to each other.  Why: the design before it
+// (kept below as the grid route) staged all of h[t-1] from L2 into each of
+// 100 blocks and crossed a grid.sync() every step: 3.3 us a step.
 //   Ownership.  Block k owns the U = ceil(H / C) units J_k (U = 25 at
 //   H = 400; blocks past ceil(H / U) own none and skip the walk, and no
 //   block counts on bytes from them) and holds, for the whole walk, the

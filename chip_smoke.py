@@ -128,6 +128,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -185,6 +186,10 @@ CONV_SHAPE_FP32 = (1, 40, 150, 64)  # reduced: the fp32 kernels are the tests' i
 # checked and timed at each
 CONV_LAYERS = {"7x1": ((7, 1), 1), "5x5-d1": ((5, 5), 1), "5x5-d2": ((5, 5), 2),
                "5x5-d4": ((5, 5), 4), "5x5-d8": ((5, 5), 8), "5x5-d16": ((5, 5), 16)}
+# the wide config's extra dilated block (configs/voicesplit_wide.json),
+# checked and timed at B=2 beside the six
+WIDE_CONV_LAYERS = {"5x5-d32": ((5, 5), 32)}
+ALL_CONV_LAYERS = {**CONV_LAYERS, **WIDE_CONV_LAYERS}
 CONV_KERNELS = ("conv_bn_act_fwd", "conv_dgrad", "conv_wgrad")
 # per train step; the prologue pass runs for conv3 … conv7 twice, before
 # conv_bn_act_fwd and before conv_wgrad
@@ -239,6 +244,28 @@ SEPARATE_DILATED_TOL = 5e-3
 # loosely by size, loss, grad_norm and running statistics more tightly.
 DILATED_STEP_TOL = {"loss_rel": 2e-2, "grad_norm_rel": 0.1, "grad_peak_rel": 0.3,
                     "grad_cosine_min": 0.97, "running_stat_abs": 2e-2}
+# The wide config (lstm_dim 800: the LSTM's grid routes; one extra (5,5)
+# block at time dilation 32, so seven kernel layers on the conv routes), at
+# its batch B=2: launches per train step by conv route
+WIDE_CONFIG = "configs/voicesplit_wide.json"
+WIDE_KERNEL_LAYERS = 7
+WIDE_CONV_ROUTES = ("unfused", "pallas_conv", "fused_chain")
+WIDE_TRAIN_LAUNCHES = {"lstm_fwd": 2, "bilstm_fwd": 0, "lstm_bwd": 2, "bilstm_bwd": 0}
+WIDE_CONV_LAUNCHES = {
+    "unfused": {},
+    "pallas_conv": {"conv_dilated_fwd": 2 * WIDE_KERNEL_LAYERS, "conv_dilated_wgrad": WIDE_KERNEL_LAYERS},
+    # the prologue pass runs for every chain layer but the first, twice
+    "fused_chain": {"conv_bn_act_fwd": WIDE_KERNEL_LAYERS, "conv_dgrad": WIDE_KERNEL_LAYERS,
+                    "conv_wgrad": WIDE_KERNEL_LAYERS, "conv_wgrad_prologue": 2 * (WIDE_KERNEL_LAYERS - 1)},
+}
+WIDE_TRAIN_STEPS = 8  # timed steps on a fixed batch, each route
+# the training CLI on each route: steps, checkpoint interval (two
+# checkpoints, which the evaluate phase reads), synthetic 3 s clips
+WIDE_CLI_STEPS, WIDE_CLI_CKPT_EVERY = 4, 2
+WIDE_CLI_TRAIN_ITEMS, WIDE_CLI_EVAL_ITEMS = 8, 2
+# cli/test.py's SDR on the card (batched float32 projection) against the
+# host's float64 one: tests/test_torch_eval.py's tolerance
+EVAL_SDR_TOL_DB = 0.05
 # the trainer phase: steps, checkpoint interval, dataset sizes (3 s clips)
 TRAINER_STEPS, TRAINER_CKPT_EVERY, TRAINER_RESUME_AT = 16, 6, 6
 TRAINER_TRAIN_ITEMS, TRAINER_EVAL_ITEMS = 40, 4
@@ -252,7 +279,9 @@ REPLACES = {
     "lstm_fwd_grid": "voicesplit_tpu/ops/lstm_pallas.py:71",
     "bilstm_fwd": "voicesplit_tpu/ops/lstm_pallas.py:251",
     "lstm_bwd": "voicesplit_tpu/ops/lstm_pallas.py:135",
+    "lstm_bwd_grid": "voicesplit_tpu/ops/lstm_pallas.py:135",
     "bilstm_bwd": "voicesplit_tpu/ops/lstm_pallas.py:317",
+    "bilstm_bwd_grid": "voicesplit_tpu/ops/lstm_pallas.py:317",
     "conv_bn_act_fwd": "voicesplit_tpu/ops/conv_fused.py:303",
     "conv_dgrad": "voicesplit_tpu/ops/conv_fused.py:411",
     "conv_wgrad": "voicesplit_tpu/ops/conv_fused.py:524",
@@ -264,7 +293,9 @@ SOURCES = {
     "lstm_fwd_grid": "voicesplit_tpu_torch/csrc/lstm_fwd.cu",
     "bilstm_fwd": "voicesplit_tpu_torch/csrc/lstm_fwd.cu",
     "lstm_bwd": "voicesplit_tpu_torch/csrc/lstm_bwd.cu",
+    "lstm_bwd_grid": "voicesplit_tpu_torch/csrc/lstm_bwd.cu",
     "bilstm_bwd": "voicesplit_tpu_torch/csrc/lstm_bwd.cu",
+    "bilstm_bwd_grid": "voicesplit_tpu_torch/csrc/lstm_bwd.cu",
     "conv_bn_act_fwd": "voicesplit_tpu_torch/csrc/conv_fwd.cu",
     "conv_dgrad": "voicesplit_tpu_torch/csrc/conv_fwd.cu",
     "conv_wgrad": "voicesplit_tpu_torch/csrc/conv_wgrad.cu",
@@ -272,8 +303,9 @@ SOURCES = {
     "conv_dilated_wgrad": "voicesplit_tpu_torch/csrc/conv_wgrad.cu",
 }
 # kernels that the paths do not launch (the `kernels` line lists them with
-# "main_path": false)
-OFF_PATH = ("lstm_fwd_grid",)
+# "main_path": false): the two-direction backward's grid route, checked and
+# timed in the backward kernels phase at H=800 and B=8
+OFF_PATH = ("bilstm_bwd_grid",)
 
 
 def emit(phase: str, **fields) -> None:
@@ -324,11 +356,11 @@ def lstm_bound(directions: int, batch: int, dtype: str, H: int = HIDDEN) -> dict
     }
 
 
-def lstm_bwd_bound(directions: int, batch: int, dtype: str) -> dict:
+def lstm_bwd_bound(directions: int, batch: int, dtype: str, H: int = HIDDEN) -> dict:
     """The same for the backward: W_hh, gates, cs, hs, dhs (and h0, c0, dhf,
     dcf for one direction) read once, dxp, dW_hh (and dh0, dc0) written
     once, and both products (dh_prev and dW_hh) at the operand type's peak."""
-    T, H, R = T_FRAMES, HIDDEN, directions * batch
+    T, R = T_FRAMES, directions * batch
     op_bytes = 2 if dtype == "bfloat16" else 4
     bytes_ = (
         directions * H * 4 * H * op_bytes  # W_hh
@@ -349,11 +381,11 @@ def lstm_bwd_bound(directions: int, batch: int, dtype: str) -> dict:
     }
 
 
-def lstm_dwhh_bound(directions: int, batch: int, dtype: str) -> dict:
+def lstm_dwhh_bound(directions: int, batch: int, dtype: str, H: int = HIDDEN) -> dict:
     """The same for the dW_hh kernel alone: hs (and h0 for one direction)
     and dxp read once, dW_hh written once, its product at the operand
     type's peak."""
-    T, H, R = T_FRAMES, HIDDEN, directions * batch
+    T, R = T_FRAMES, directions * batch
     op_bytes = 2 if dtype == "bfloat16" else 4
     bytes_ = (
         T * R * H * 4  # hs
@@ -418,9 +450,18 @@ def phase_build(torch, lstm_cuda, conv_fused) -> None:
         check(gr.get("route", "cluster") == "cluster", f"{key}: not on the cluster walk ({gr})")
         check(gr["max_active_clusters"] >= 1, f"{key}: no cluster fits the card ({gr})")
         check(gr["local_bytes"] == 0, f"{key}: {gr['local_bytes']} local (spilled) bytes a thread")
-    key = f"lstm_fwd_B1_H{GRID_HIDDEN}_bfloat16"
-    grids[key] = lstm_cuda.launch_config(1, 1, GRID_HIDDEN, torch.bfloat16, False)
-    check(grids[key]["route"] == "grid", f"{key}: not on the grid route ({grids[key]})")
+    # at GRID_HIDDEN (the wide config) both the forward (serving B=1, training
+    # B=2) and the backward (B=2 and two directions at B=8, both types) on
+    # the grid route, with every block resident at once and no spilled byte
+    wide = [("lstm_fwd", 1, 1, False, "bfloat16"), ("lstm_fwd", 1, 2, False, "bfloat16")]
+    wide += [(name, d, b, True, dt) for name, d, b in (("lstm_bwd", 1, 2), ("bilstm_bwd", 2, 8))
+             for dt in ("bfloat16", "float32")]
+    for name, d, b, bwd, dt in wide:
+        key = f"{name}_B{b}_H{GRID_HIDDEN}_{dt}"
+        gr = grids[key] = lstm_cuda.launch_config(d, b, GRID_HIDDEN, getattr(torch, dt), bwd)
+        check(gr["route"] == "grid", f"{key}: not on the grid route ({gr})")
+        check(gr["resident_blocks"] >= gr["blocks"], f"{key}: more blocks than resident ({gr})")
+        check(gr["local_bytes"] == 0, f"{key}: {gr['local_bytes']} local (spilled) bytes a thread")
     # conv_dilated_fwd, conv_dgrad and conv_bn_act_fwd share the forward
     # kernel body, conv_wgrad and conv_dilated_wgrad the weight-gradient
     # kernel: each a whole wave at most and no spilled byte, at the paths'
@@ -435,7 +476,7 @@ def phase_build(torch, lstm_cuda, conv_fused) -> None:
     cases = [(name, f"B{b}", (b, *CONV_SHAPE[1:]), torch.bfloat16) for name in configs for b in (2, 8)]
     cases += [("conv_dilated_fwd", "B1", (1, *CONV_SHAPE[1:]), torch.bfloat16)]
     cases += [(name, "reduced_float32", CONV_SHAPE_FP32, torch.float32) for name in configs]
-    for layer, ((kt, kf), dt) in CONV_LAYERS.items():
+    for layer, ((kt, kf), dt) in ALL_CONV_LAYERS.items():
         for name, tag, shape, dtype in cases:
             key = f"{name}_{layer}_{tag}"
             gr = grids[key] = configs[name](shape, kt, kf, dt, dtype)
@@ -543,14 +584,15 @@ def phase_kernels(torch, lstm_cuda, seed: int) -> dict:
     return results
 
 
-def _bwd_case(torch, lstm_cuda, g, directions: int, batch: int, timed: bool) -> dict:
+def _bwd_case(torch, lstm_cuda, g, directions: int, batch: int, timed: bool, H: int = HIDDEN,
+              route: str = "cluster") -> dict:
     """One backward kernel against its plain version on the card at `batch`
-    rows a direction, both operand types, on the plain forward's outputs for
-    random inputs and random cotangents: peak-relative errors, two launches
-    with the same bits; with `timed`, kernel, plain and the dW_hh kernel
-    alone."""
+    rows a direction and H units, both operand types, on the plain forward's
+    outputs for random inputs and random cotangents: peak-relative errors,
+    two launches with the same bits, both on `route`; with `timed`, kernel,
+    plain and the dW_hh kernel alone."""
     dev = torch.device("cuda")
-    T, H, R = T_FRAMES, HIDDEN, directions * batch
+    T, R = T_FRAMES, directions * batch
     s = H ** -0.5
     xp32 = torch.randn(T, R, 4 * H, generator=g)
     ws32 = [torch.empty(H, 4 * H).uniform_(-s, s, generator=g) for _ in range(directions)]
@@ -573,8 +615,10 @@ def _bwd_case(torch, lstm_cuda, g, directions: int, batch: int, timed: bool) -> 
                 args = (ws[0], ws[1], gates, cs, hs, dhs, dtype)
                 outs = ("dxp", "dwhh_f", "dwhh_b")
                 kernel, plain = lstm_cuda.bilstm_bwd, lstm_cuda.bilstm_bwd_ref
+            routes = dict(lstm_cuda.ROUTES_BWD)
             got = kernel(*args)
             again = kernel(*args)
+            took = {k: v - routes[k] for k, v in lstm_cuda.ROUTES_BWD.items()}
             want = plain(*args)
             torch.cuda.synchronize()
         errs, rel = {}, {}
@@ -586,10 +630,12 @@ def _bwd_case(torch, lstm_cuda, g, directions: int, batch: int, timed: bool) -> 
         err = max(rel.values())
         entry[dt] = {"max_abs_err": max(errs.values()), "max_peak_rel_err": err,
                      "errors": errs, "peak_rel_errors": rel, "tol_peak_rel": TOL[dt],
-                     "same_bits_twice": same_bits}
-        check(finite, f"{name} B={batch} {dt}: non-finite output")
-        check(err <= TOL[dt], f"{name} B={batch} {dt}: peak-relative err {err} > {TOL[dt]}")
-        check(same_bits, f"{name} B={batch} {dt}: two launches on the same inputs differ")
+                     "same_bits_twice": same_bits, "routes": took}
+        what = f"{name} B={batch} H={H} {dt}"
+        check(finite, f"{what}: non-finite output")
+        check(err <= TOL[dt], f"{what}: peak-relative err {err} > {TOL[dt]}")
+        check(same_bits, f"{what}: two launches on the same inputs differ")
+        check(took[route] == 2, f"{what}: routes {took}, wanted {route}")
         if timed:
             # the dW_hh kernel alone, on this call's dxp (the walk is the rest)
             h_init = states[0] if directions == 1 else None
@@ -598,33 +644,50 @@ def _bwd_case(torch, lstm_cuda, g, directions: int, batch: int, timed: bool) -> 
                 entry[dt]["ms"] = time_ms(torch, lambda: kernel(*args), iters=20)
                 entry[dt]["dwhh_ms"] = time_ms(torch, dwhh, iters=20)
                 entry[dt]["plain_ms"] = time_ms(torch, lambda: plain(*args), iters=3, warmup=1)
-            entry[dt]["dwhh_bound"] = lstm_dwhh_bound(directions, batch, dt)
+            entry[dt]["dwhh_bound"] = lstm_dwhh_bound(directions, batch, dt, H)
     return entry
+
+
+def _cudnn_lstm_bwd_ms(torch, g, directions: int, batch: int, H: int) -> float:
+    """Yardstick: .backward() alone of a cuDNN LSTM over the model's LSTM
+    input, bf16 (it also computes the input projection's gradients)."""
+    dev = torch.device("cuda")
+    lstm = torch.nn.LSTM(IN_FEATURES, H, batch_first=True, bidirectional=directions == 2)
+    lstm = lstm.to(dev, torch.bfloat16)
+    x = torch.randn(batch, T_FRAMES, IN_FEATURES, generator=g).to(dev, torch.bfloat16)
+    x.requires_grad_(True)
+    out, _ = lstm(x)
+    cot = torch.randn_like(out)
+    return time_ms(torch, lambda: out.backward(cot, retain_graph=True), iters=20)
 
 
 def phase_bwd_kernels(torch, lstm_cuda, seed: int) -> dict:
     """Backward kernels vs their plain versions on the card, both operand
-    types, at the training path's shapes and at ROW_GROUP_BATCH rows a
-    direction (row groups); times at the path's operand type (bf16)."""
-    dev = torch.device("cuda")
+    types, at the training path's shapes on the cluster walk, at
+    ROW_GROUP_BATCH rows a direction (row groups) and at GRID_HIDDEN (the
+    wide config's training batch B=2, and two directions at B=8) on the grid
+    route; times at the path's operand type (bf16)."""
     g = torch.Generator(device="cpu").manual_seed(seed + 1)
     T, H = T_FRAMES, HIDDEN
     results = {}
     for name, directions, batch in (("lstm_bwd", 1, 2), ("bilstm_bwd", 2, 8)):
         entry = _bwd_case(torch, lstm_cuda, g, directions, batch, timed=True)
-        # yardstick: .backward() alone of a cuDNN LSTM over the model's LSTM
-        # input (it also computes the input projection's gradients)
-        lstm = torch.nn.LSTM(IN_FEATURES, H, batch_first=True, bidirectional=directions == 2)
-        lstm = lstm.to(dev, torch.bfloat16)
-        x = torch.randn(batch, T, IN_FEATURES, generator=g).to(dev, torch.bfloat16)
-        x.requires_grad_(True)
-        out, _ = lstm(x)
-        cot = torch.randn_like(out)
-        library_ms = time_ms(torch, lambda: out.backward(cot, retain_graph=True), iters=20)
         results[name] = {"bf16": entry["bfloat16"], "fp32": entry["float32"],
-                         "library_ms": library_ms, **lstm_bwd_bound(directions, batch, "bfloat16")}
+                         "library_ms": _cudnn_lstm_bwd_ms(torch, g, directions, batch, H),
+                         **lstm_bwd_bound(directions, batch, "bfloat16")}
         emit("kernels", kernel=name, batch=batch, T=T, H=H,
              bound_fp32=lstm_bwd_bound(directions, batch, "float32"), **results[name])
+    # the grid route, which the wide config's training takes
+    for name, directions, batch in (("lstm_bwd", 1, 2), ("bilstm_bwd", 2, 8)):
+        entry = _bwd_case(torch, lstm_cuda, g, directions, batch, timed=True, H=GRID_HIDDEN,
+                          route="grid")
+        results[f"{name}_grid"] = {
+            "bf16": entry["bfloat16"], "fp32": entry["float32"],
+            "library_ms": _cudnn_lstm_bwd_ms(torch, g, directions, batch, GRID_HIDDEN),
+            **lstm_bwd_bound(directions, batch, "bfloat16", GRID_HIDDEN)}
+        emit("kernels", kernel=f"{name}_grid", batch=batch, T=T, H=GRID_HIDDEN,
+             bound_fp32=lstm_bwd_bound(directions, batch, "float32", GRID_HIDDEN),
+             **results[f"{name}_grid"])
     entry = _bwd_case(torch, lstm_cuda, g, 2, ROW_GROUP_BATCH, timed=True)
     results["bilstm_bwd"]["row_groups"] = {
         "batch": ROW_GROUP_BATCH, "bf16": entry["bfloat16"], "fp32": entry["float32"],
@@ -669,13 +732,26 @@ class _PlainVersions:
             setattr(self.m, f"_launch_{n}", fn)
 
 
-def _check_forward_routes(lstm_cuda, launches: dict, what: str) -> int:
-    """Checks that every forward launch counted in `launches` took the
-    cluster walk at the path's H=400; returns the grid route's launches (0)."""
-    walk, grid = lstm_cuda.ROUTES["cluster"], lstm_cuda.ROUTES["grid"]
+LSTM_WRAPPERS = ("lstm_fwd", "bilstm_fwd", "lstm_bwd", "bilstm_bwd")
+
+
+def _check_routes(lstm_cuda, launches: dict, what: str, route: str = "cluster") -> dict:
+    """Checks that every LSTM launch counted in `launches` (the wrappers'
+    counts since the counters were zeroed), forward and backward, took
+    `route`: the cluster walk at H=400, the grid route at GRID_HIDDEN.
+    Returns `launches` with each wrapper's count under its own name for the
+    cluster walk and under ``<name>_grid`` for the grid route, as the
+    kernels line names them."""
     fwd = launches["lstm_fwd"] + launches["bilstm_fwd"]
-    check(walk == fwd and grid == 0, f"{what}: forward routes {lstm_cuda.ROUTES}, {fwd} launches")
-    return grid
+    bwd = launches["lstm_bwd"] + launches["bilstm_bwd"]
+    for kind, routes, n in (("forward", lstm_cuda.ROUTES, fwd), ("backward", lstm_cuda.ROUTES_BWD, bwd)):
+        check(routes[route] == n and sum(routes.values()) == n,
+              f"{what}: {kind} routes {routes}, {n} launches, wanted {route}")
+    out = dict(launches)
+    for k in LSTM_WRAPPERS:
+        out[f"{k}_grid"] = launches[k] if route == "grid" else 0
+        out[k] = launches[k] if route == "cluster" else 0
+    return out
 
 
 def phase_separate(torch, lstm_cuda, seed: int, profile_dir) -> dict:
@@ -702,7 +778,7 @@ def phase_separate(torch, lstm_cuda, seed: int, profile_dir) -> dict:
     check(launches["lstm_fwd"] >= 2, f"lstm_fwd launches {launches['lstm_fwd']} < 2 (B=1)")
     check(launches["bilstm_fwd"] >= 1, f"bilstm_fwd launches {launches['bilstm_fwd']} < 1 (B=8)")
     # every forward launch on the cluster walk (lstm_fwd_kernel)
-    launches["lstm_fwd_grid"] = _check_forward_routes(lstm_cuda, launches, "serving")
+    launches = _check_routes(lstm_cuda, launches, "serving")
 
     report = {"launches": launches, "params": sum(p.numel() for p in model.parameters())}
     for b, out in outs.items():
@@ -796,7 +872,7 @@ def phase_train(torch, lstm_cuda, seed: int, profile_dir) -> dict:
         for k, v in counted.items():
             launches[k] += v
         check(counted == TRAIN_LAUNCHES[b], f"B={b}: launches per step {counted}")
-        _check_forward_routes(lstm_cuda, counted, f"train B={b}")
+        _check_routes(lstm_cuda, counted, f"train B={b}")
         loss0, gn0 = float(mk["loss"]), float(mk["grad_norm"])
         check(np.isfinite(loss0) and not bool(mk["loss_exploded"]), f"B={b}: loss {loss0}")
         check(gn0 > 0 and np.isfinite(gn0), f"B={b}: grad_norm {gn0}")
@@ -884,6 +960,13 @@ def conv_bound(kind: str, shape, kt: int, kf: int, dt: int, dtype: str) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def _timed_conv_layers() -> list:
+    """The (batch, layer) pairs the conv phases time: conv2 … conv7's six
+    layer kinds at B=2 and B=8, and the wide config's extra block (time
+    dilation 32) at its batch, B=2."""
+    return [(b, layer) for b in (2, 8) for layer in CONV_LAYERS] + [(2, layer) for layer in WIDE_CONV_LAYERS]
+
+
 def _per_step(times: dict, ms: str = "ms") -> dict:
     """A kernel's time (`ms`) summed over conv2 … conv7 (one launch per
     layer), by batch, beside the same sums of its library yardstick and
@@ -927,7 +1010,7 @@ def _check_conv_case(torch, cf, cc, case, shape, layer, act, dtype_name, g) -> d
     versions; raises on disagreement or
     on two launches that differ.  With a prologue, `conv_wgrad` must also
     give the bits of `conv_dilated_wgrad` on the prologue pass's output."""
-    (kt, kf), dt = CONV_LAYERS[layer]
+    (kt, kf), dt = ALL_CONV_LAYERS[layer]
     dtype = getattr(torch, dtype_name)
     tol = CONV_TOL[dtype_name]
     x, d, w, bias, bn = _conv_inputs(torch, shape, kt, kf, dtype, g)
@@ -984,7 +1067,7 @@ def phase_conv_kernels(torch, cf, cc, seed: int) -> dict:
     g = torch.Generator(device="cpu").manual_seed(seed + 2)
     # every layer without a prologue (conv_dgrad has none) and with mish,
     # and relu once
-    cases = [(layer, act) for layer in CONV_LAYERS for act in (None, "mish")] + [("5x5-d1", "relu")]
+    cases = [(layer, act) for layer in ALL_CONV_LAYERS for act in (None, "mish")] + [("5x5-d1", "relu")]
     worst = {name: {"bfloat16": 0.0, "float32": 0.0} for name in CONV_KERNELS}
     agreement = {}
     for dtype_name, shape in (("bfloat16", CONV_SHAPE), ("float32", CONV_SHAPE_FP32)):
@@ -1016,59 +1099,59 @@ def phase_conv_kernels(torch, cf, cc, seed: int) -> dict:
     # the times of conv_bn_act_fwd and conv_wgrad hold their prologue pass,
     # also timed on its own
     timing = {name: {} for name in CONV_KERNELS}
-    for b in (2, 8):
+    for b, layer in _timed_conv_layers():
         shape = (b, *CONV_SHAPE[1:])
         iters = 5 if b == 2 else 3
-        for layer, ((kt, kf), dt) in CONV_LAYERS.items():
-            act = None if layer == "7x1" else "mish"  # the chain's first layer has no prologue
-            on = act is not None
-            x, d, w, bias, bn = _conv_inputs(torch, shape, kt, kf, torch.bfloat16, g)
-            scal = cf._scal_table(*bn)
-            wf = cf.pack_weight_flipped(w, torch.bfloat16)
-            pad = ((kt - 1) * dt // 2, (kf - 1) // 2)
-            # library yardsticks (never called by the port): cuDNN convs on
-            # channels-last bf16 views; for the forward also the eager
-            # BatchNorm + activation pass the prologue replaces and the
-            # batch statistics (`torch.var_mean`)
-            x_nchw, d_nchw = x.permute(0, 3, 1, 2), d.permute(0, 3, 1, 2)
-            w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-            cbias = bias.to(torch.bfloat16)
+        (kt, kf), dt = ALL_CONV_LAYERS[layer]
+        act = None if layer == "7x1" else "mish"  # the chain's first layer has no prologue
+        on = act is not None
+        x, d, w, bias, bn = _conv_inputs(torch, shape, kt, kf, torch.bfloat16, g)
+        scal = cf._scal_table(*bn)
+        wf = cf.pack_weight_flipped(w, torch.bfloat16)
+        pad = ((kt - 1) * dt // 2, (kf - 1) // 2)
+        # library yardsticks (never called by the port): cuDNN convs on
+        # channels-last bf16 views; for the forward also the eager
+        # BatchNorm + activation pass the prologue replaces and the
+        # batch statistics (`torch.var_mean`)
+        x_nchw, d_nchw = x.permute(0, 3, 1, 2), d.permute(0, 3, 1, 2)
+        w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        cbias = bias.to(torch.bfloat16)
 
-            def lib_fwd():
-                y = bn_act.bn_act_eval(x_nchw, bn[2], bn[3], bn[0], bn[1], act) if on else x_nchw
-                raw = F.conv2d(y, w_oihw, cbias, padding=pad, dilation=(dt, 1))
-                return raw, torch.var_mean(raw, dim=(0, 2, 3), correction=0)
+        def lib_fwd():
+            y = bn_act.bn_act_eval(x_nchw, bn[2], bn[3], bn[0], bn[1], act) if on else x_nchw
+            raw = F.conv2d(y, w_oihw, cbias, padding=pad, dilation=(dt, 1))
+            return raw, torch.var_mean(raw, dim=(0, 2, 3), correction=0)
 
-            def lib_bwd(mask):
-                return torch.ops.aten.convolution_backward(
-                    d_nchw, x_nchw, w_oihw, None, (1, 1), pad, (dt, 1), False, (0, 0), 1, mask)
+        def lib_bwd(mask):
+            return torch.ops.aten.convolution_backward(
+                d_nchw, x_nchw, w_oihw, None, (1, 1), pad, (dt, 1), False, (0, 0), 1, mask)
 
-            calls = {
-                "conv_bn_act_fwd": (lambda: cf.conv_bn_act_fwd(x, w, bias, scal, dt, act, on),
-                                    lambda: cf.conv_bn_act_fwd_ref(x, w, bias, scal, dt, act, on),
-                                    lib_fwd),
-                "conv_dgrad": (lambda: cf.conv_dgrad(d, wf, dt), lambda: cf.conv_dgrad_ref(d, wf, dt),
-                               lambda: lib_bwd((True, False, False))),
-                "conv_wgrad": (lambda: cf.conv_wgrad(x, d, scal, kt, kf, dt, act, on),
-                               lambda: cf.conv_wgrad_ref(x, d, scal, kt, kf, dt, act, on),
-                               lambda: lib_bwd((False, True, False))),
-            }
-            with torch.inference_mode():
-                for name, (kernel, plain, library) in calls.items():
-                    bound = conv_bound(name, shape, kt, kf, dt, "bfloat16")
-                    timing[name][f"B{b}/{layer}"] = {
-                        "ms": time_ms(torch, kernel, iters=iters, warmup=1),
-                        "plain_ms": time_ms(torch, plain, iters=2, warmup=1),
-                        "library_ms": time_ms(torch, library, iters=iters, warmup=1),
-                        **bound,
-                    }
-                if on:
-                    pass_ms = time_ms(torch, lambda: cf.conv_wgrad_prologue(x, scal, act),
-                                      iters=iters, warmup=1)
-                    for name in ("conv_bn_act_fwd", "conv_wgrad"):
-                        timing[name][f"B{b}/{layer}"]["prologue_pass_ms"] = pass_ms
-            del x, d, w, wf, x_nchw, d_nchw
-            torch.cuda.empty_cache()
+        calls = {
+            "conv_bn_act_fwd": (lambda: cf.conv_bn_act_fwd(x, w, bias, scal, dt, act, on),
+                                lambda: cf.conv_bn_act_fwd_ref(x, w, bias, scal, dt, act, on),
+                                lib_fwd),
+            "conv_dgrad": (lambda: cf.conv_dgrad(d, wf, dt), lambda: cf.conv_dgrad_ref(d, wf, dt),
+                           lambda: lib_bwd((True, False, False))),
+            "conv_wgrad": (lambda: cf.conv_wgrad(x, d, scal, kt, kf, dt, act, on),
+                           lambda: cf.conv_wgrad_ref(x, d, scal, kt, kf, dt, act, on),
+                           lambda: lib_bwd((False, True, False))),
+        }
+        with torch.inference_mode():
+            for name, (kernel, plain, library) in calls.items():
+                bound = conv_bound(name, shape, kt, kf, dt, "bfloat16")
+                timing[name][f"B{b}/{layer}"] = {
+                    "ms": time_ms(torch, kernel, iters=iters, warmup=1),
+                    "plain_ms": time_ms(torch, plain, iters=2, warmup=1),
+                    "library_ms": time_ms(torch, library, iters=iters, warmup=1),
+                    **bound,
+                }
+            if on:
+                pass_ms = time_ms(torch, lambda: cf.conv_wgrad_prologue(x, scal, act),
+                                  iters=iters, warmup=1)
+                for name in ("conv_bn_act_fwd", "conv_wgrad"):
+                    timing[name][f"B{b}/{layer}"]["prologue_pass_ms"] = pass_ms
+        del x, d, w, wf, x_nchw, d_nchw
+        torch.cuda.empty_cache()
     emit("conv kernel times", dtype="bfloat16", prologue="mish (none on the 7x1 layer)",
          library="cuDNN conv2d (+ eager BN + act, + var_mean) / aten.convolution_backward, "
                  "channels-last bf16",
@@ -1085,11 +1168,12 @@ def phase_conv_kernels(torch, cf, cc, seed: int) -> dict:
     }
 
 
-def _chain_state(model) -> tuple:
-    """Gradients of conv2 … conv7 (weights, BatchNorm scale and bias) and
-    every running statistic after a step."""
+def _chain_state(model, last: int = 7) -> tuple:
+    """Gradients of conv2 … conv<last> (weights, BatchNorm scale and bias)
+    and every running statistic after a step."""
     grads = {k: p.grad.detach().float().clone() for k, p in model.named_parameters()
-             if k.split(".")[0] in {f"conv{i}" for i in range(2, 8)} and not k.endswith("conv.bias")}
+             if k.split(".")[0] in {f"conv{i}" for i in range(2, last + 1)}
+             and not k.endswith("conv.bias")}
     stats = {k: v.detach().clone() for k, v in model.state_dict().items()
              if k.endswith((".mean", ".var"))}
     return grads, stats
@@ -1266,7 +1350,7 @@ def _check_dilated_case(torch, cc, cf, case, shape, layer, dtype_name, g) -> dic
     """One layer through `conv_dilated_fwd` (as forward and as data gradient)
     and `conv_dilated_wgrad` and their plain versions;
     raises on disagreement or on two launches that differ."""
-    (kt, kf), dt = CONV_LAYERS[layer]
+    (kt, kf), dt = ALL_CONV_LAYERS[layer]
     dtype = getattr(torch, dtype_name)
     tol = DILATED_TOL[dtype_name]
     x, d, w, _, _ = _conv_inputs(torch, shape, kt, kf, dtype, g)
@@ -1315,7 +1399,7 @@ def phase_dilated_kernels(torch, cc, cf, seed: int) -> dict:
     worst = {name: {"bfloat16": 0.0, "float32": 0.0} for name in DILATED_TRAIN_LAUNCHES}
     agreement = {}
     for dtype_name, shape in (("bfloat16", CONV_SHAPE), ("float32", CONV_SHAPE_FP32)):
-        for layer in CONV_LAYERS:
+        for layer in ALL_CONV_LAYERS:
             case = f"{layer}/{dtype_name}"
             r = agreement[case] = _check_dilated_case(torch, cc, cf, case, shape, layer, dtype_name, g)
             worst["conv_dilated_fwd"][dtype_name] = max(
@@ -1328,47 +1412,47 @@ def phase_dilated_kernels(torch, cc, cf, seed: int) -> dict:
          tolerances_peak_rel=DILATED_TOL, agreement=agreement)
 
     timing = {name: {} for name in DILATED_TRAIN_LAUNCHES}
-    for b in (2, 8):
+    for b, layer in _timed_conv_layers():
         shape = (b, *CONV_SHAPE[1:])
         iters = 5 if b == 2 else 3
-        for layer, ((kt, kf), dt) in CONV_LAYERS.items():
-            x, d, w, _, _ = _conv_inputs(torch, shape, kt, kf, torch.bfloat16, g)
-            wf = cc.flip_weight(w)
-            pad = ((kt - 1) * dt // 2, (kf - 1) // 2)
-            x_nchw, d_nchw = x.permute(0, 3, 1, 2), d.permute(0, 3, 1, 2)
-            w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        (kt, kf), dt = ALL_CONV_LAYERS[layer]
+        x, d, w, _, _ = _conv_inputs(torch, shape, kt, kf, torch.bfloat16, g)
+        wf = cc.flip_weight(w)
+        pad = ((kt - 1) * dt // 2, (kf - 1) // 2)
+        x_nchw, d_nchw = x.permute(0, 3, 1, 2), d.permute(0, 3, 1, 2)
+        w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
 
-            def lib_bwd(mask):
-                return torch.ops.aten.convolution_backward(
-                    d_nchw, x_nchw, w_oihw, None, (1, 1), pad, (dt, 1), False, (0, 0), 1, mask)
+        def lib_bwd(mask):
+            return torch.ops.aten.convolution_backward(
+                d_nchw, x_nchw, w_oihw, None, (1, 1), pad, (dt, 1), False, (0, 0), 1, mask)
 
-            with torch.inference_mode():
-                bound = conv_bound("conv_dilated_fwd", shape, kt, kf, dt, "bfloat16")
-                timing["conv_dilated_fwd"][f"B{b}/{layer}"] = {
-                    "ms": time_ms(torch, lambda: cc.conv_dilated_fwd(x, w, dt), iters, warmup=1),
-                    "data_gradient_ms": time_ms(
-                        torch, lambda: cc.conv_dilated_fwd(d, wf, dt), iters, warmup=1),
-                    "plain_ms": time_ms(
-                        torch, lambda: cc.conv_dilated_fwd_ref(x, w, dt), 2, warmup=1),
-                    "library_ms": time_ms(
-                        torch, lambda: F.conv2d(x_nchw, w_oihw, None, padding=pad, dilation=(dt, 1)),
-                        iters, warmup=1),
-                    "library_data_gradient_ms": time_ms(
-                        torch, lambda: lib_bwd((True, False, False)), iters, warmup=1),
-                    "fused_chain_conv_dgrad_ms": time_ms(
-                        torch, lambda: cf.conv_dgrad(d, wf, dt), iters, warmup=1),
-                    **bound,
-                }
-                bound = conv_bound("conv_dilated_wgrad", shape, kt, kf, dt, "bfloat16")
-                timing["conv_dilated_wgrad"][f"B{b}/{layer}"] = {
-                    "ms": time_ms(torch, lambda: cc.conv_dilated_wgrad(x, d, kt, kf, dt), iters, warmup=1),
-                    "plain_ms": time_ms(
-                        torch, lambda: cc.conv_dilated_wgrad_ref(x, d, kt, kf, dt), 2, warmup=1),
-                    "library_ms": time_ms(torch, lambda: lib_bwd((False, True, False)), iters, warmup=1),
-                    **bound,
-                }
-            del x, d, w, wf, x_nchw, d_nchw, w_oihw
-            torch.cuda.empty_cache()
+        with torch.inference_mode():
+            bound = conv_bound("conv_dilated_fwd", shape, kt, kf, dt, "bfloat16")
+            timing["conv_dilated_fwd"][f"B{b}/{layer}"] = {
+                "ms": time_ms(torch, lambda: cc.conv_dilated_fwd(x, w, dt), iters, warmup=1),
+                "data_gradient_ms": time_ms(
+                    torch, lambda: cc.conv_dilated_fwd(d, wf, dt), iters, warmup=1),
+                "plain_ms": time_ms(
+                    torch, lambda: cc.conv_dilated_fwd_ref(x, w, dt), 2, warmup=1),
+                "library_ms": time_ms(
+                    torch, lambda: F.conv2d(x_nchw, w_oihw, None, padding=pad, dilation=(dt, 1)),
+                    iters, warmup=1),
+                "library_data_gradient_ms": time_ms(
+                    torch, lambda: lib_bwd((True, False, False)), iters, warmup=1),
+                "fused_chain_conv_dgrad_ms": time_ms(
+                    torch, lambda: cf.conv_dgrad(d, wf, dt), iters, warmup=1),
+                **bound,
+            }
+            bound = conv_bound("conv_dilated_wgrad", shape, kt, kf, dt, "bfloat16")
+            timing["conv_dilated_wgrad"][f"B{b}/{layer}"] = {
+                "ms": time_ms(torch, lambda: cc.conv_dilated_wgrad(x, d, kt, kf, dt), iters, warmup=1),
+                "plain_ms": time_ms(
+                    torch, lambda: cc.conv_dilated_wgrad_ref(x, d, kt, kf, dt), 2, warmup=1),
+                "library_ms": time_ms(torch, lambda: lib_bwd((False, True, False)), iters, warmup=1),
+                **bound,
+            }
+        del x, d, w, wf, x_nchw, d_nchw, w_oihw
+        torch.cuda.empty_cache()
     emit("dilated conv kernel times", dtype="bfloat16",
          library="cuDNN conv2d / aten.convolution_backward, channels-last bf16", times=timing,
          conv_dilated_fwd_ms_per_serving_call=_per_step(timing["conv_dilated_fwd"]),
@@ -1461,24 +1545,27 @@ def phase_separate_dilated(torch, lstm_cuda, cc, seed: int, profile_dir) -> dict
     return launches
 
 
-def _trainer_config(tmp: Path, seed: int):
-    """`configs/voicesplit.json` at full width over a synthetic dataset on
-    disk; returns the config's path and the config."""
+def _trainer_config(tmp: Path, seed: int, name: str = "voicesplit.json",
+                    n_train: int = TRAINER_TRAIN_ITEMS, n_eval: int = TRAINER_EVAL_ITEMS,
+                    ckpt_every: int = TRAINER_CKPT_EVERY):
+    """`configs/<name>` at full width over a synthetic dataset on disk
+    (`n_train` and `n_eval` 3 s clips, checkpoints every `ckpt_every`
+    steps); returns the config's path and the config."""
     from voicesplit_tpu_torch.config import load_config
     from voicesplit_tpu_torch.data.synthetic import build_synthetic_dataset
 
-    config = load_config(str(ROOT / "configs" / "voicesplit.json"))
+    config = load_config(str(ROOT / "configs" / name))
     config.dataset.train_dir, config.dataset.test_dir = str(tmp / "train"), str(tmp / "test")
     tc = config.train_config
     tc.learning_rate, tc.seed = TRAIN_LR, seed
     tc.summary_interval = tc.check_interval = 1  # every step waits for the card: host-clock
-    tc.checkpoint_interval = TRAINER_CKPT_EVERY  # step times, and the guard on every step
+    tc.checkpoint_interval = ckpt_every  # step times, and the guard on every step
     sr = config.audio.active.sample_rate
-    for name, n_items, s in (("train", TRAINER_TRAIN_ITEMS, seed), ("test", TRAINER_EVAL_ITEMS, seed + 1)):
+    for split, n_items, s in (("train", n_train, seed), ("test", n_eval, seed + 1)):
         made = build_synthetic_dataset(
-            str(tmp / name), n_items, sample_rate=sr, audio_len=config.audio.audio_len,
+            str(tmp / split), n_items, sample_rate=sr, audio_len=config.audio.audio_len,
             emb_dim=config.model.emb_dim, fmt=config.dataset.format, seed=s)
-        check(len(made) == n_items, f"{name}: {len(made)} of {n_items} synthetic items written")
+        check(len(made) == n_items, f"{split}: {len(made)} of {n_items} synthetic items written")
     path = tmp / "config.json"
     path.write_text(config.to_json())
     return str(path), config
@@ -1493,8 +1580,6 @@ def phase_trainer(torch, lstm_cuda, cc, seed: int, profile_dir) -> dict:
     synthetic dataset on disk: one step held against the plain versions and
     the switch-off step, an uninterrupted run across checkpoints and
     validations, and a run resumed from the middle checkpoint."""
-    import tempfile
-
     from voicesplit_tpu_torch.cli.separate import separate_batch
     from voicesplit_tpu_torch.cli.train import main as train_main
     from voicesplit_tpu_torch.dsp.processor import make_audio_processor
@@ -1649,6 +1734,343 @@ def phase_trainer(torch, lstm_cuda, cc, seed: int, profile_dir) -> dict:
     return launches
 
 
+def _route_env(route: str):
+    """The environment of a conv route: "unfused" (library convs), "pallas_conv"
+    (`VOICESPLIT_PALLAS_CONV=1`) or "fused_chain" (`VOICESPLIT_FUSED_CHAIN=1`)."""
+    import contextlib
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(_Env("VOICESPLIT_PALLAS_CONV", "1" if route == "pallas_conv" else "0"))
+    stack.enter_context(_Env("VOICESPLIT_FUSED_CHAIN", "1" if route == "fused_chain" else "0"))
+    return stack
+
+
+def _reset_counts(torch, *modules) -> None:
+    """Zeroes the launch counters of kernel `modules` once the card is idle."""
+    torch.cuda.synchronize()
+    for m in modules:
+        m.reset_launch_counts()
+
+
+def _counts(torch, *modules) -> dict:
+    """The launch counters of kernel `modules` once the card is idle."""
+    torch.cuda.synchronize()
+    out: dict = {}
+    for m in modules:
+        out.update(m.LAUNCHES)
+    return out
+
+
+def _add(total: dict, counted: dict) -> None:
+    for k, v in counted.items():
+        total[k] = total.get(k, 0) + v
+
+
+def phase_separate_wide(torch, lstm_cuda, cc, seed: int, profile_dir, tmp: Path) -> dict:
+    """`configs/voicesplit_wide.json` served at B=1: `separate_batch` (both
+    LSTM directions on the forward's grid route, the extra dilated block
+    through cuDNN, then with `VOICESPLIT_PALLAS_CONV=1` through
+    `conv_dilated_fwd`, 7 launches a call) and the serving CLI on a
+    synthetic mixture, held against the plain LSTM versions and the switch-off
+    call; latency p50 and p75."""
+    from voicesplit_tpu_torch import weights
+    from voicesplit_tpu_torch.cli.separate import main as separate_main
+    from voicesplit_tpu_torch.cli.separate import separate_batch
+    from voicesplit_tpu_torch.config import load_config
+    from voicesplit_tpu_torch.data.synthetic import build_synthetic_dataset
+    from voicesplit_tpu_torch.dsp.processor import make_audio_processor
+    from voicesplit_tpu_torch.models.masknet import make_masknet
+
+    config = load_config(str(ROOT / WIDE_CONFIG))
+    ap = make_audio_processor(config)
+    model = weights.init_random_(make_masknet(config), seed)
+    n = int(config.audio.audio_len * ap.sample_rate)
+    mixed, emb = (torch.as_tensor(a, device="cuda")
+                  for a in synthetic_batch(seed + 11, 1, n, ap.sample_rate, config.model.emb_dim))
+    zero = {k: 0 for k in (*lstm_cuda.LAUNCHES, *cc.LAUNCHES)}
+    launches: dict = {}
+    report = {"config": WIDE_CONFIG, "params": sum(p.numel() for p in model.parameters()),
+              "blocks": model.block_names, "tolerance_vs_plain": SEPARATE_TOL,
+              "tolerance_switch": SEPARATE_DILATED_TOL}
+
+    # the counted run of the path: one serving call
+    _reset_counts(torch, lstm_cuda, cc)
+    out = separate_batch(model, ap, mixed, emb)
+    counted = _counts(torch, lstm_cuda, cc)
+    check(counted == {**zero, "lstm_fwd": 2}, f"launches per call {counted}")
+    counted = _check_routes(lstm_cuda, counted, "separate wide", "grid")
+    _add(launches, counted)
+    check(tuple(out.shape) == (1, n) and bool(torch.isfinite(out).all()), "output")
+    with torch.inference_mode():
+        spec, _ = ap.wav2spec_batch(mixed)
+        mask = model(spec, emb)
+        with _PlainVersions(lstm_cuda):
+            mask_plain = model(spec, emb)
+            out_plain = separate_batch(model, ap, mixed, emb)
+    check(float(mask.min()) >= 0.0 and float(mask.max()) <= 1.0, "mask outside [0, 1]")
+    mask_err = (mask - mask_plain).abs().max().item()
+    wav_err = ((out - out_plain).abs().max() / out_plain.abs().max()).item()
+    check(mask_err <= SEPARATE_TOL, f"mask vs plain LSTM {mask_err} > {SEPARATE_TOL}")
+    check(wav_err <= SEPARATE_TOL, f"waveform vs plain LSTM {wav_err} > {SEPARATE_TOL}")
+    p50, p75 = _latency_ms(torch, lambda: separate_batch(model, ap, mixed, emb), LATENCY_CALLS)
+    report["B1"] = {"launches_per_call": counted, "samples": n,
+                    "mask_range": [float(mask.min()), float(mask.max())],
+                    "mask_err_vs_plain": mask_err, "wave_rel_err_vs_plain": wav_err,
+                    "device_ms_mean": time_ms(torch, lambda: separate_batch(model, ap, mixed, emb), 10),
+                    "calls": LATENCY_CALLS, "latency_ms_p50": p50, "latency_ms_p75": p75,
+                    "audio_s_per_s": config.audio.audio_len / (p50 / 1e3)}
+    if profile_dir:
+        report["B1"]["profile"] = profile(
+            torch, profile_dir, "separate_wide_B1", lambda: separate_batch(model, ap, mixed, emb))
+
+    # the dilated switch: the extra block's conv (dilation 32) on its kernel
+    with _route_env("pallas_conv"):
+        _reset_counts(torch, lstm_cuda, cc)
+        out_on = separate_batch(model, ap, mixed, emb)
+        counted = _counts(torch, lstm_cuda, cc)
+        check(counted == {**zero, "lstm_fwd": 2, "conv_dilated_fwd": WIDE_KERNEL_LAYERS},
+              f"launches per call with the switch {counted}")
+        counted = _check_routes(lstm_cuda, counted, "separate wide, switch", "grid")
+        _add(launches, counted)
+        with torch.inference_mode():
+            mask_on = model(spec, emb)
+        on50, on75 = _latency_ms(torch, lambda: separate_batch(model, ap, mixed, emb), LATENCY_CALLS)
+    mask_err = (mask_on - mask).abs().max().item()
+    wav_err = ((out_on - out).abs().max() / out.abs().max()).item()
+    check(mask_err <= SEPARATE_DILATED_TOL, f"switch: mask vs switch off {mask_err}")
+    check(wav_err <= SEPARATE_DILATED_TOL, f"switch: waveform vs switch off {wav_err}")
+    report["B1_dilated_switch"] = {"launches_per_call": counted, "mask_err_vs_switch_off": mask_err,
+                                   "wave_rel_err_vs_switch_off": wav_err, "latency_ms_p50": on50,
+                                   "latency_ms_p75": on75}
+
+    # the serving CLI on a synthetic mixture and d-vector, weights from a file
+    made = build_synthetic_dataset(str(tmp / "serve"), 1, sample_rate=ap.sample_rate,
+                                   audio_len=config.audio.audio_len, emb_dim=config.model.emb_dim,
+                                   fmt=config.dataset.format, seed=seed)
+    mix_path = made[0]
+    emb_path = mix_path.replace("-mixed.wav", "-emb.npy")
+    weights.save(model, str(tmp / "wide.pt"))
+    _reset_counts(torch, lstm_cuda, cc)
+    t0 = time.perf_counter()
+    separate_main(["-c", str(ROOT / WIDE_CONFIG), "--weights", str(tmp / "wide.pt"),
+                   "--mixed_wav", mix_path, "--emb", emb_path, "--output", str(tmp / "out.wav")])
+    cli_s = time.perf_counter() - t0
+    counted = _check_routes(lstm_cuda, _counts(torch, lstm_cuda, cc), "separate CLI", "grid")
+    _add(launches, counted)
+    wav = ap.load_wav(str(tmp / "out.wav"))
+    check(wav.shape == (n,) and bool(np.isfinite(wav).all()), f"CLI output {wav.shape}")
+    report["cli"] = {"launches": counted, "seconds": cli_s, "samples": int(wav.shape[0])}
+    emit("separate wide", device=torch.cuda.get_device_name(0), **report)
+    return launches
+
+
+def phase_train_wide(torch, lstm_cuda, cf, cc, seed: int, profile_dir, tmp: Path):
+    """`configs/voicesplit_wide.json` trained at B=2 on each conv route: one
+    counted step (the LSTM's forward and backward on their grid routes, the
+    conv kernels at the extra block's dilation 32 on the kernel routes)
+    against the plain versions, timed steps on a fixed batch whose loss must
+    fall; then the training CLI on each route over a synthetic dataset, with
+    two checkpoints and three validations.  Returns the launches and the
+    unfused run's directory and config (for the evaluate phase)."""
+    from voicesplit_tpu_torch import weights
+    from voicesplit_tpu_torch.cli.train import main as train_main
+    from voicesplit_tpu_torch.config import load_config
+    from voicesplit_tpu_torch.dsp.processor import make_audio_processor
+    from voicesplit_tpu_torch.models.masknet import make_masknet
+    from voicesplit_tpu_torch.train import create_train_state, make_optimizer, make_train_step
+    from voicesplit_tpu_torch.train.checkpoint import list_checkpoints
+
+    config = load_config(str(ROOT / WIDE_CONFIG))
+    config.train_config.learning_rate = TRAIN_LR
+    ap = make_audio_processor(config)
+    n = int(config.audio.audio_len * ap.sample_rate)
+    b = config.train_config.batch_size
+    check(b == 2 and config.model.lstm_dim == GRID_HIDDEN, f"the wide config's batch {b}")
+    modules = (lstm_cuda, cf, cc)
+    zero = {k: 0 for m in modules for k in m.LAUNCHES}
+    plain_of = {"pallas_conv": (cc, DILATED_STEP_TOL), "fused_chain": (cf, FUSED_TOL)}
+    last = 7 + config.model.num_extra_dilated_blocks  # the last kernel layer
+    batch = train_batch(seed + b, b, n, ap.sample_rate, config.model.emb_dim)
+    launches: dict = {}
+    report = {"config": WIDE_CONFIG, "compute_dtype": config.train_config.compute_dtype,
+              "learning_rate": TRAIN_LR, "batch": b}
+    for route in WIDE_CONV_ROUTES:
+        with _route_env(route):
+            model = weights.init_random_(make_masknet(config), seed)
+            optimizer = make_optimizer(config, model)
+            state = create_train_state(model, optimizer)
+            step = make_train_step(config, model, ap, optimizer)
+            before = _snapshot(model, optimizer, state)
+
+            # the counted run: one step from fresh weights
+            _reset_counts(torch, *modules)
+            mk = step(state, batch)
+            counted = _counts(torch, *modules)
+            want = {**zero, **WIDE_TRAIN_LAUNCHES, **WIDE_CONV_LAUNCHES[route]}
+            check(counted == want, f"{route}: launches per step {counted}, expected {want}")
+            counted = _check_routes(lstm_cuda, counted, f"train wide {route}", "grid")
+            _add(launches, counted)
+            loss0, gn0 = float(mk["loss"]), float(mk["grad_norm"])
+            check(np.isfinite(loss0) and not bool(mk["loss_exploded"]), f"{route}: loss {loss0}")
+            check(gn0 > 0 and np.isfinite(gn0), f"{route}: grad_norm {gn0}")
+            unmoved = [k for k, v in model.state_dict().items() if torch.equal(v, before[0][k])]
+            check(not unmoved, f"{route}: unchanged after a step: {unmoved}")
+
+            # the same step through the plain versions: the LSTM's on the
+            # library-conv route (as the train phase), the conv kernels' on
+            # the kernel routes (as the train fused and trainer phases)
+            if route == "unfused":
+                gk = _lstm_grads(model)
+                _restore(model, optimizer, state, before)
+                with _PlainVersions(lstm_cuda):
+                    mp = step(state, batch)
+                gp = _lstm_grads(model)
+                vs_plain = {
+                    "loss_rel": abs(loss0 - float(mp["loss"])) / abs(float(mp["loss"])),
+                    "grad_norm_rel": abs(gn0 - float(mp["grad_norm"])) / float(mp["grad_norm"]),
+                    "lstm_grad_peak_rel": {
+                        k: ((gk[k] - gp[k]).abs().max() / gp[k].abs().max()).item() for k in gk},
+                }
+                for k, tol in TRAIN_TOL.items():
+                    err = vs_plain[k]
+                    err = max(err.values()) if isinstance(err, dict) else err
+                    check(err <= tol, f"{route}: kernels vs plain {k} {err} > {tol}")
+            else:
+                module, tol = plain_of[route]
+                through_kernels = _chain_state(model, last)
+                _restore(model, optimizer, state, before)
+                with _PlainVersions(module):
+                    mp = step(state, batch)
+                vs_plain = _compare_steps(torch, mk, through_kernels, mp, _chain_state(model, last))
+                _check_step_agreement(f"{route}: kernels vs plain", vs_plain, tol)
+                del through_kernels
+            _restore(model, optimizer, state, before)
+
+            for _ in range(TRAIN_WARM):
+                step(state, batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times, metrics = [], []
+            for _ in range(WIDE_TRAIN_STEPS):
+                t0 = time.perf_counter()
+                metrics.append(step(state, batch))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            losses = [float(m["loss"]) for m in metrics]
+            check(all(np.isfinite(losses)), f"{route}: non-finite loss in {losses}")
+            check(losses[-1] < loss0, f"{route}: loss did not fall on a fixed batch: {loss0} -> {losses}")
+            p50, p75 = (float(np.percentile(times, q)) for q in (50, 75))
+            report[route] = {
+                "launches_per_step": counted, "first_loss": loss0, "first_grad_norm": gn0,
+                "kernels_vs_plain": vs_plain, "steps": WIDE_TRAIN_STEPS,
+                "step_ms_p50": p50, "step_ms_p75": p75,
+                "audio_s_per_s": b * config.audio.audio_len / (p50 / 1e3), "losses": losses,
+                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            }
+            if profile_dir:
+                report[route]["profile"] = profile(
+                    torch, profile_dir, f"train_wide_{route}_B{b}", lambda: step(state, batch))
+            del model, optimizer, state, step, before
+            torch.cuda.empty_cache()
+
+    # the training entry point on each route: checkpoints and validations
+    config_path, cli_config = _trainer_config(
+        tmp, seed, Path(WIDE_CONFIG).name, WIDE_CLI_TRAIN_ITEMS, WIDE_CLI_EVAL_ITEMS, WIDE_CLI_CKPT_EVERY)
+    n_evals = 1 + WIDE_CLI_STEPS // WIDE_CLI_CKPT_EVERY
+    report["cli"] = {"steps": WIDE_CLI_STEPS, "checkpoint_interval": WIDE_CLI_CKPT_EVERY,
+                     "train_items": WIDE_CLI_TRAIN_ITEMS, "eval_items": WIDE_CLI_EVAL_ITEMS}
+    for route in WIDE_CONV_ROUTES:
+        run = tmp / f"run_{route}"
+        with _route_env(route):
+            _reset_counts(torch, *modules)
+            result = train_main(["-c", config_path, "--logs_path", str(run),
+                                 "--max_steps", str(WIDE_CLI_STEPS), "--eval_sdr"])
+            counted = _counts(torch, *modules)
+        check(result.get("step") == WIDE_CLI_STEPS and not result.get("exploded"), f"{route}: {result}")
+        # every step's launches, and a serving forward per validation item
+        # (eval mode: the fused chain is off, the dilated switch on)
+        want = {k: v * WIDE_CLI_STEPS for k, v in {**zero, **WIDE_TRAIN_LAUNCHES,
+                                                   **WIDE_CONV_LAUNCHES[route]}.items()}
+        want["lstm_fwd"] += 2 * n_evals * WIDE_CLI_EVAL_ITEMS
+        if route == "pallas_conv":
+            want["conv_dilated_fwd"] += WIDE_KERNEL_LAYERS * n_evals * WIDE_CLI_EVAL_ITEMS
+        check(counted == want, f"{route} CLI: launches {counted}, expected {want}")
+        counted = _check_routes(lstm_cuda, counted, f"train wide CLI {route}", "grid")
+        _add(launches, counted)
+        records = _read_metrics(run)
+        losses = [r["train_loss"] for r in records if "train_loss" in r]
+        evals = [r for r in records if "eval_loss" in r]
+        check(len(losses) == WIDE_CLI_STEPS and all(np.isfinite(losses)), f"{route} CLI: losses {losses}")
+        check(len(evals) == n_evals and all(np.isfinite(r["eval_sdr"]) for r in evals),
+              f"{route} CLI: validations {evals}")
+        ckpts = [Path(p).name for p in list_checkpoints(str(run))]
+        steps_saved = range(WIDE_CLI_CKPT_EVERY, WIDE_CLI_STEPS + 1, WIDE_CLI_CKPT_EVERY)
+        check(ckpts == [f"checkpoint_{k}.pt" for k in steps_saved], f"{route} CLI: checkpoints {ckpts}")
+        report["cli"][route] = {"launches": counted, "losses": losses, "checkpoints": ckpts,
+                                "eval_sdr": [r["eval_sdr"] for r in evals],
+                                "wall_seconds": result["wall_seconds"]}
+    emit("train wide", device=torch.cuda.get_device_name(0), **report)
+    return launches, tmp / "run_unfused", cli_config
+
+
+def phase_evaluate(torch, lstm_cuda, seed: int, tmp: Path, run, config) -> dict:
+    """`cli/test.py` on the last checkpoint of the wide model that the train
+    wide phase wrote (the SDR on the card, and once more on the host, which
+    must agree), then `cli/sweep.py` over both checkpoints of that run: the
+    metrics finite, the best-checkpoint copies and the curve written.
+    Without the train wide phase it first trains its own run."""
+    from voicesplit_tpu_torch.cli.sweep import main as sweep_main
+    from voicesplit_tpu_torch.cli.test import main as test_main
+    from voicesplit_tpu_torch.cli.train import main as train_main
+    from voicesplit_tpu_torch.train.checkpoint import list_checkpoints
+
+    if run is None:
+        config_path, config = _trainer_config(
+            tmp, seed, Path(WIDE_CONFIG).name, WIDE_CLI_TRAIN_ITEMS, WIDE_CLI_EVAL_ITEMS,
+            WIDE_CLI_CKPT_EVERY)
+        run = tmp / "run_unfused"
+        with _route_env("unfused"):
+            train_main(["-c", config_path, "--logs_path", str(run), "--max_steps", str(WIDE_CLI_STEPS)])
+    ckpts = list_checkpoints(str(run))
+    check(len(ckpts) == 2, f"checkpoints {ckpts}")
+    launches: dict = {}
+    report = {"config": WIDE_CONFIG, "checkpoints": [Path(p).name for p in ckpts],
+              "test_items": WIDE_CLI_EVAL_ITEMS}
+    with _route_env("unfused"):
+        _reset_counts(torch, lstm_cuda)
+        t0 = time.perf_counter()
+        metrics = test_main(["--checkpoint_path", ckpts[-1], "--test_dir", config.dataset.test_dir])
+        test_s = time.perf_counter() - t0
+        test_counted = _check_routes(lstm_cuda, _counts(torch, lstm_cuda), "cli test", "grid")
+        _add(launches, test_counted)
+        check(sorted(metrics) == ["loss", "sdr", "si_snr", "si_snri"]
+              and all(np.isfinite(v) for v in metrics.values()), f"cli test: {metrics}")
+        host = test_main(["--checkpoint_path", ckpts[-1], "--test_dir", config.dataset.test_dir,
+                          "--sdr_backend", "host"])
+        sdr_diff = abs(metrics["sdr"] - host["sdr"])
+        check(sdr_diff <= EVAL_SDR_TOL_DB, f"cli test: SDR on the card vs host {sdr_diff} dB")
+        _reset_counts(torch, lstm_cuda)
+        t0 = time.perf_counter()
+        swept = sweep_main(["--checkpoints_path", str(run), "--test_dir", config.dataset.test_dir])
+        sweep_s = time.perf_counter() - t0
+        sweep_counted = _check_routes(lstm_cuda, _counts(torch, lstm_cuda), "cli sweep", "grid")
+        _add(launches, sweep_counted)
+    check(swept["n_checkpoints"] == 2 and swept["best_path"] in ckpts, f"cli sweep: {swept}")
+    copies = sorted(p.name for p in run.iterdir() if p.name.startswith(("best_", "sdr_curve")))
+    check(copies == ["best_checkpoint.pt", "best_loss_checkpoint.pt", "sdr_curve.npy"],
+          f"cli sweep wrote {copies}")
+    curve = np.load(run / "sdr_curve.npy")
+    check(curve.shape == (2, 2) and bool(np.isfinite(curve).all()), f"sdr curve {curve}")
+    report.update(test=metrics, test_seconds=test_s, test_launches=test_counted,
+                  sweep_launches=sweep_counted,
+                  host_sdr=host["sdr"], sdr_card_vs_host_db=sdr_diff, sdr_tolerance_db=EVAL_SDR_TOL_DB,
+                  sweep={k: v for k, v in swept.items() if k != "results"},
+                  sweep_results=[{k: v for k, v in r.items() if k != "path"} for r in swept["results"]],
+                  sweep_seconds=sweep_s, curve=curve.tolist())
+    emit("evaluate", device=torch.cuda.get_device_name(0), **report)
+    return launches
+
+
 # kinds for the device time split under --profile.  The port's kernels:
 # every __global__ of voicesplit_tpu_torch/csrc by its whole name
 # (tests/test_torch_kernel_kinds.py holds the list complete), tried before
@@ -1662,7 +2084,7 @@ PORT_KERNEL_KINDS = (
     ("conv weight-gradient kernels", ("conv_wgrad_kernel", "conv_wgrad_kf1_kernel",
                                       "reduce_taps_kernel")),
     ("lstm kernels", ("lstm_fwd_kernel", "lstm_fwd_grid_kernel", "lstm_bwd_kernel",
-                      "lstm_dwhh_kernel")),
+                      "lstm_bwd_grid_kernel", "lstm_dwhh_kernel")),
 )
 LIBRARY_KERNEL_KINDS = (
     ("convs", ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad")),
@@ -1717,7 +2139,8 @@ def profile(torch, out_dir, tag, fn, runs: int = 5) -> dict:
 
 
 PHASES = ("kernels", "bwd_kernels", "separate", "train", "conv_kernels", "train_fused",
-          "dilated_kernels", "separate_dilated", "trainer")
+          "dilated_kernels", "separate_dilated", "trainer", "separate_wide", "train_wide",
+          "evaluate")
 
 
 def main(argv=None) -> int:
@@ -1765,6 +2188,20 @@ def main(argv=None) -> int:
             torch, lstm_cuda, conv_cuda, args.seed, args.profile)
     if "trainer" in phases:
         by_path["trainer"] = phase_trainer(torch, lstm_cuda, conv_cuda, args.seed, args.profile)
+    with tempfile.TemporaryDirectory(prefix="voicesplit_wide_") as wide_tmp:
+        tmp, run, run_config = Path(wide_tmp), None, None
+        if "separate_wide" in phases:
+            (tmp / "serve").mkdir()
+            by_path["separate_wide"] = phase_separate_wide(
+                torch, lstm_cuda, conv_cuda, args.seed, args.profile, tmp / "serve")
+        if "train_wide" in phases:
+            (tmp / "train").mkdir()
+            by_path["train_wide"], run, run_config = phase_train_wide(
+                torch, lstm_cuda, conv_fused, conv_cuda, args.seed, args.profile, tmp / "train")
+        if "evaluate" in phases:
+            (tmp / "evaluate").mkdir()
+            by_path["evaluate"] = phase_evaluate(
+                torch, lstm_cuda, args.seed, tmp / "evaluate", run, run_config)
     emit("total", wall_seconds=time.perf_counter() - t_start, phases=phases)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -1773,8 +2210,9 @@ def main(argv=None) -> int:
         print(json.dumps({"ok": True, "partial": phases, "device": device}))
         return 0
     # each kernel's launches come from the counted run of the path it serves
-    home = {"lstm_fwd": "separate", "bilstm_fwd": "separate", "lstm_fwd_grid": "separate",
+    home = {"lstm_fwd": "separate", "bilstm_fwd": "separate", "lstm_fwd_grid": "separate_wide",
             "lstm_bwd": "train", "bilstm_bwd": "train",
+            "lstm_bwd_grid": "train_wide", "bilstm_bwd_grid": "train_wide",
             "conv_bn_act_fwd": "train_fused", "conv_dgrad": "train_fused",
             "conv_wgrad": "train_fused",
             "conv_dilated_fwd": "trainer", "conv_dilated_wgrad": "trainer"}
@@ -1792,9 +2230,10 @@ def main(argv=None) -> int:
     ]
     check(len(kernels) == len(home), f"{len(kernels)} kernels reported, {len(home)} ported")
     for k in kernels:
-        # the forward's grid route serves only shapes the cluster walk cannot
-        # hold (H=800), which no path of the port takes: checked and timed in
-        # the kernels phase, launched no time on the paths
+        # the grid routes serve the shapes the cluster walks cannot hold
+        # (H=800, the wide config); the wide paths take the one-direction
+        # ones at B=1 and B=2, the two-direction backward only at a batch
+        # that is a multiple of 8
         k["main_path"] = k["name"] not in OFF_PATH
         check(k["launches"] > 0 or not k["main_path"], f"{k['name']} was not launched on its path")
     print(json.dumps({"kernels": kernels}))

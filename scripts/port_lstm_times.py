@@ -8,7 +8,7 @@ its kernels there, so that an older tree unpacked with ``git archive`` into
 a git-ignored directory is timed by the same script in the same call (run
 parent, change, change, parent).  It uses only the wrappers' public calls,
 which are the same in every tree since the port's second slice, at the
-shapes of their paths (T=301 frames, H=400 units):
+shapes of their paths (T=301 frames, H=400 units unless said):
 
 - ``lstm_cuda.lstm_fwd`` at B=1 (serving) and B=2 (training), one direction;
 - ``lstm_cuda.bilstm_fwd`` at B=8, both directions;
@@ -17,6 +17,10 @@ shapes of their paths (T=301 frames, H=400 units):
 - both two-direction wrappers at B=24 rows a direction, more than one
   cluster of the backward walk holds (a tree that refuses the shape gets
   its error instead of a time);
+- at H=800 (`configs/voicesplit_wide.json`) ``lstm_fwd`` at B=1 and B=2,
+  ``lstm_bwd`` at B=2 and ``bilstm_bwd`` at B=8, the backward on the plain
+  forward's outputs (the two-direction forward refuses fp32 at H=800), and
+  the route each took where the tree counts routes;
 - where the tree has it, ``lstm_cuda.lstm_dwhh``, the dW_hh kernel that the
   two backward wrappers launch after their reverse walk, alone on the same
   inputs (``walk_ms`` is then the backward's time less it);
@@ -37,11 +41,16 @@ import sys
 import time
 from pathlib import Path
 
-T_FRAMES, HIDDEN, IN_FEATURES = 301, 400, 8 * 601 + 256
-FORWARD = {"lstm_fwd_B1": (1, 1), "lstm_fwd_B2": (1, 2), "bilstm_fwd_B8": (2, 8),
-           "bilstm_fwd_B24": (2, 24)}
-BACKWARD = {"lstm_bwd_B2": (1, 2), "bilstm_bwd_B8": (2, 8), "bilstm_bwd_B24": (2, 24)}
-LIBRARY = ("lstm_fwd_B1", "lstm_fwd_B2", "bilstm_fwd_B8", "lstm_bwd_B2", "bilstm_bwd_B8")
+T_FRAMES, HIDDEN, WIDE, IN_FEATURES = 301, 400, 800, 8 * 601 + 256
+# name: (directions, rows a direction, hidden units)
+FORWARD = {"lstm_fwd_B1": (1, 1, HIDDEN), "lstm_fwd_B2": (1, 2, HIDDEN),
+           "bilstm_fwd_B8": (2, 8, HIDDEN), "bilstm_fwd_B24": (2, 24, HIDDEN),
+           "lstm_fwd_B1_H800": (1, 1, WIDE), "lstm_fwd_B2_H800": (1, 2, WIDE)}
+BACKWARD = {"lstm_bwd_B2": (1, 2, HIDDEN), "bilstm_bwd_B8": (2, 8, HIDDEN),
+            "bilstm_bwd_B24": (2, 24, HIDDEN),
+            "lstm_bwd_B2_H800": (1, 2, WIDE), "bilstm_bwd_B8_H800": (2, 8, WIDE)}
+LIBRARY = ("lstm_fwd_B1", "lstm_fwd_B2", "bilstm_fwd_B8", "lstm_bwd_B2", "bilstm_bwd_B8",
+           "lstm_fwd_B1_H800", "lstm_fwd_B2_H800", "lstm_bwd_B2_H800", "bilstm_bwd_B8_H800")
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -85,16 +94,17 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     dev = torch.device("cuda")
-    T, H = T_FRAMES, HIDDEN
-    s = H ** -0.5
+    T = T_FRAMES
     dwhh = getattr(lstm_cuda, "lstm_dwhh", None)
+    routes_bwd = getattr(lstm_cuda, "ROUTES_BWD", None)
     times: dict = {}
     for dt in ("bfloat16", "float32"):
         dtype = getattr(torch, dt)
         g = torch.Generator(device="cpu").manual_seed(0)
         entry = times[dt] = {}
-        for key, (d, b) in {**FORWARD, **BACKWARD}.items():
+        for key, (d, b, H) in {**FORWARD, **BACKWARD}.items():
             R = d * b
+            s = H ** -0.5
             xp = torch.randn(T, R, 4 * H, generator=g).to(dev, dtype)
             ws = [torch.empty(H, 4 * H).uniform_(-s, s, generator=g).to(dev, dtype) for _ in range(d)]
             h0, c0, dhf, dcf = (torch.randn(R, H, generator=g).to(dev) for _ in range(4))
@@ -107,17 +117,25 @@ def main(argv=None) -> int:
                 if key in FORWARD:
                     entry[key] = time_ms(torch, fwd, args.iters)
                     continue
-                hs, cs, gates = fwd()
+                if H == HIDDEN:
+                    hs, cs, gates = fwd()
+                elif d == 1:  # the plain forward on the card
+                    hs, cs, gates = lstm_cuda.lstm_fwd_ref(xp, ws[0], h0, c0)
+                else:
+                    hs, cs, gates = lstm_cuda.bilstm_fwd_ref(xp, ws[0], ws[1])
                 if d == 1:
                     bwd = lambda: lstm_cuda.lstm_bwd(  # noqa: E731
                         ws[0], gates, cs, hs, h0, c0, dhs, dhf, dcf, dtype)
                 else:
                     bwd = lambda: lstm_cuda.bilstm_bwd(ws[0], ws[1], gates, cs, hs, dhs, dtype)  # noqa: E731
                 try:
+                    before = dict(routes_bwd) if routes_bwd is not None else None
                     dxp = bwd()[0]
                 except RuntimeError as err:  # a walk that does not hold the shape
                     entry[key] = f"refused: {err}"
                     continue
+                if routes_bwd is not None:
+                    entry[f"{key}/route"] = [k for k in routes_bwd if routes_bwd[k] != before[k]]
                 entry[key] = time_ms(torch, bwd, args.iters)
                 if dwhh is not None:
                     h_init = h0 if d == 1 else None
@@ -128,13 +146,13 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
     report = {"tag": args.tag, "root": str(root), "device": torch.cuda.get_device_name(0),
-              "nvidia_smi": smi, "build_seconds": build_s, "iters": args.iters, "T": T, "H": H,
+              "nvidia_smi": smi, "build_seconds": build_s, "iters": args.iters, "T": T,
               "ms": times}
     if args.library:
         g = torch.Generator(device="cpu").manual_seed(1)
         library = report["library_ms"] = {}
         for key in LIBRARY:
-            d, b = {**FORWARD, **BACKWARD}[key]
+            d, b, H = {**FORWARD, **BACKWARD}[key]
             lstm = torch.nn.LSTM(IN_FEATURES, H, batch_first=True, bidirectional=d == 2)
             lstm = lstm.to(dev, torch.bfloat16)
             x = torch.randn(b, T, IN_FEATURES, generator=g).to(dev, torch.bfloat16)

@@ -197,20 +197,38 @@ def test_lstm_dwhh_kernel_matches_plain_version_on_card(dtype, bidirectional):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_lstm_backward_raises_where_its_walk_does_not_fit_on_card(dtype):
-    """At H=800 a block's W_hh columns exceed what the walk holds (bf16:
-    registers, fp32: shared memory): the launch is refused and the wrapper
-    raises, with no fallback to the plain version."""
+@pytest.mark.parametrize("bidirectional", [False, True])
+def test_lstm_backward_takes_the_grid_route_where_the_walk_does_not_fit_on_card(bidirectional, dtype):
+    """At H=800 (configs/voicesplit_wide.json) a block's W_hh columns exceed
+    what the cluster walk holds (bf16: registers, fp32: shared memory): the
+    backward takes the grid route, chosen from the shape before the launch,
+    at the wide path's batches (B=2 one direction, B=8 two, T=301), with all
+    its blocks resident; it matches its plain version (the path's tolerances)
+    with the same bits twice, and each launch is counted by route."""
     _need_card()
     from voicesplit_tpu_torch.ops import lstm_cuda
 
-    args = _backward_inputs(False, dtype, T=3, H=800, B=2)
-    cfg = lstm_cuda.launch_config(1, 2, 800, getattr(torch, dtype), backward=True)
-    assert cfg["max_active_clusters"] == 0
-    before = dict(lstm_cuda.LAUNCHES)
-    with pytest.raises(RuntimeError, match="lstm_bwd"):
-        lstm_cuda.lstm_bwd(*args)
-    assert lstm_cuda.LAUNCHES == before
+    D, B, H = (2, 8, 800) if bidirectional else (1, 2, 800)
+    dt = getattr(torch, dtype)
+    cfg = lstm_cuda.launch_config(D, B, H, dt, backward=True)
+    assert cfg["route"] == "grid" and cfg["cluster"] == 0, cfg
+    assert cfg["resident_blocks"] >= cfg["blocks"] and cfg["local_bytes"] == 0, cfg
+    # W_hh's rows sit in shared memory but for two directions in fp32
+    assert cfg["w_shared"] == (not (bidirectional and dtype == "float32")), cfg
+    assert lstm_cuda.launch_config(D, B, 400, dt, backward=True)["route"] == "cluster"
+    args = _backward_inputs(bidirectional, dtype, T=301, H=H, B=B, seed=H + B)
+    name = "bilstm_bwd" if bidirectional else "lstm_bwd"
+    kernel, plain = getattr(lstm_cuda, name), getattr(lstm_cuda, name + "_ref")
+    before, routes = dict(lstm_cuda.LAUNCHES), dict(lstm_cuda.ROUTES_BWD)
+    with torch.inference_mode():
+        got, again, want = kernel(*args), kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    assert lstm_cuda.LAUNCHES[name] == before[name] + 2
+    assert lstm_cuda.ROUTES_BWD == {"cluster": routes["cluster"], "grid": routes["grid"] + 2}
+    tol = 1e-4 if dtype == "float32" else 2e-2  # as at the path's shapes
+    for a, b, c in zip(got, want, again):
+        assert bool(torch.isfinite(a).all()) and torch.equal(a, c)
+        assert (a.float() - b.float()).abs().max().item() <= tol * b.float().abs().max().item()
 
 
 # shapes the path does not take: units not a multiple of the blocks that
@@ -705,3 +723,133 @@ def test_dilated_conv_switch_runs_through_the_kernels_on_card(mode, monkeypatch)
     assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
     for k, v in model.state_dict().items():
         assert not torch.equal(v, before[k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [20, 50, 301])
+def test_conv_kernels_at_time_dilation_32_on_card(T, dtype):
+    """The five conv kernels (`conv_dilated_fwd` as forward and as data
+    gradient, `conv_dilated_wgrad`, `conv_bn_act_fwd` with the mish
+    prologue, `conv_dgrad`, `conv_wgrad`) at the wide config's extra block,
+    (5,5) at time dilation 32, against their plain versions with the
+    tolerances above.  T = 20: every tap but the centre lies outside
+    [0, T); T = 50: the ±32 taps reach real rows, the ±64 taps do not;
+    T = 301: the path's frames, each residue of 32 holding 9-10 rows."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import conv_cuda as cc
+    from voicesplit_tpu_torch.ops import conv_fused as cf
+
+    (kt, kf), dil, C = (5, 5), 32, 64
+    g = torch.Generator().manual_seed(T)
+    dt = getattr(torch, dtype)
+    shape = (2, T, 601 if T == 301 else 150, C)
+    x = torch.randn(shape, generator=g).to("cuda", dt)
+    d = torch.randn(shape, generator=g).to("cuda", dt)
+    w = (torch.randn(kt, kf, C, C, generator=g) * (kt * kf * C) ** -0.5).to("cuda", dt)
+    bias = (0.1 * torch.randn(C, generator=g)).cuda()
+    scal = cf._scal_table(
+        0.2 * torch.randn(C, generator=g), torch.rand(C, generator=g) + 0.5,
+        torch.rand(C, generator=g) + 0.5, 0.1 * torch.randn(C, generator=g),
+    ).cuda()
+    wf, wfc = cc.flip_weight(w), cf.pack_weight_flipped(w, dt)
+    with torch.inference_mode():
+        calls = {
+            "conv_dilated_fwd": (lambda: (cc.conv_dilated_fwd(x, w, dil), cc.conv_dilated_fwd(d, wf, dil)),
+                                 lambda: (cc.conv_dilated_fwd_ref(x, w, dil), cc.conv_dilated_fwd_ref(d, wf, dil)),
+                                 {"float32": [1e-4] * 2, "bfloat16": [2e-2] * 2}),
+            "conv_dilated_wgrad": (lambda: (cc.conv_dilated_wgrad(x, d, kt, kf, dil),),
+                                   lambda: (cc.conv_dilated_wgrad_ref(x, d, kt, kf, dil),),
+                                   {"float32": [1e-4], "bfloat16": [1e-3]}),
+            "conv_bn_act_fwd": (lambda: cf.conv_bn_act_fwd(x, w, bias, scal, dil, "mish", True),
+                                lambda: cf.conv_bn_act_fwd_ref(x, w, bias, scal, dil, "mish", True),
+                                {"float32": [1e-4] * 2, "bfloat16": [1e-2, 1e-3]}),
+            "conv_dgrad": (lambda: cf.conv_dgrad(d, wfc, dil), lambda: cf.conv_dgrad_ref(d, wfc, dil),
+                           {"float32": [1e-4] * 2, "bfloat16": [1e-2, 1e-3]}),
+            "conv_wgrad": (lambda: (cf.conv_wgrad(x, d, scal, kt, kf, dil, "mish", True),),
+                           lambda: (cf.conv_wgrad_ref(x, d, scal, kt, kf, dil, "mish", True),),
+                           {"float32": [1e-4], "bfloat16": [1e-3]}),
+        }
+        for name, (kernel, plain, tols) in calls.items():
+            got, again, want = kernel(), kernel(), plain()
+            torch.cuda.synchronize()
+            for a, c, b, tol in zip(got, again, want, tols[dtype]):
+                assert bool(torch.isfinite(a).all()) and torch.equal(a, c), name
+                err = (a.float() - b.float()).abs().max().item()
+                assert err <= tol * b.float().abs().max().item(), (name, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["unfused", "pallas_conv", "fused_chain"])
+def test_wide_train_step_runs_through_the_kernels_on_card(route, monkeypatch):
+    """Full-width `configs/voicesplit_wide.json` train step at its batch
+    (B=2) on each conv route: the LSTM's forward and backward on their grid
+    routes (H=800), the extra block's conv (dilation 32) on the kernel
+    routes (seven kernel layers), a finite loss and every parameter and
+    running statistic moved."""
+    _need_card()
+    from voicesplit_tpu_torch import weights
+    from voicesplit_tpu_torch.ops import conv_cuda, conv_fused, lstm_cuda
+    from voicesplit_tpu_torch.train import create_train_state, make_optimizer, make_train_step
+
+    monkeypatch.setenv("VOICESPLIT_PALLAS_CONV", "1" if route == "pallas_conv" else "0")
+    monkeypatch.setenv("VOICESPLIT_FUSED_CHAIN", "1" if route == "fused_chain" else "0")
+    cfg = load_config(str(REPO / "configs" / "voicesplit_wide.json"))
+    ap = make_audio_processor(cfg)
+    model = weights.init_random_(make_masknet(cfg), seed=0)
+    opt = make_optimizer(cfg, model)
+    state = create_train_state(model, opt)
+    rng = np.random.default_rng(0)
+    target = (0.1 * rng.standard_normal((2, 48000))).astype(np.float32)
+    batch = {"mixed_wav": target + (0.1 * rng.standard_normal((2, 48000))).astype(np.float32),
+             "target_wav": target, "emb": rng.standard_normal((2, 256)).astype(np.float32),
+             "wav_len": np.full((2,), 48000, np.int32)}
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    for m in (lstm_cuda, conv_cuda, conv_fused):
+        m.reset_launch_counts()
+    m = make_train_step(cfg, model, ap, opt)(state, batch)
+    torch.cuda.synchronize()
+    assert lstm_cuda.LAUNCHES == {"lstm_fwd": 2, "bilstm_fwd": 0, "lstm_bwd": 2, "bilstm_bwd": 0}
+    assert lstm_cuda.ROUTES == {"cluster": 0, "grid": 2} == lstm_cuda.ROUTES_BWD
+    dilated = {"conv_dilated_fwd": 14, "conv_dilated_wgrad": 7}
+    chain = {"conv_bn_act_fwd": 7, "conv_dgrad": 7, "conv_wgrad": 7, "conv_wgrad_prologue": 12}
+    assert conv_cuda.LAUNCHES == (dilated if route == "pallas_conv" else dict.fromkeys(dilated, 0))
+    assert conv_fused.LAUNCHES == (chain if route == "fused_chain" else dict.fromkeys(chain, 0))
+    assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
+    for k, v in model.state_dict().items():
+        assert not torch.equal(v, before[k]), k
+
+
+@pytest.mark.gpu
+def test_wide_separate_runs_through_the_grid_route_on_card():
+    """`configs/voicesplit_wide.json` served at B=1: both directions through
+    the forward's grid route, 48000 finite samples, the mask within the
+    separate phase's tolerance of the plain LSTM versions'."""
+    _need_card()
+    from voicesplit_tpu_torch import weights
+    from voicesplit_tpu_torch.cli.separate import separate_batch
+    from voicesplit_tpu_torch.ops import lstm_cuda
+
+    cfg = load_config(str(REPO / "configs" / "voicesplit_wide.json"))
+    ap = make_audio_processor(cfg)
+    model = weights.init_random_(make_masknet(cfg), seed=0)
+    rng = np.random.default_rng(1)
+    mixed = (0.1 * rng.standard_normal((1, 48000))).astype(np.float32)
+    emb = rng.standard_normal((1, 256)).astype(np.float32)
+    lstm_cuda.reset_launch_counts()
+    out = separate_batch(model, ap, mixed, emb)
+    torch.cuda.synchronize()
+    assert out.shape == (1, 48000) and bool(torch.isfinite(out).all())
+    assert lstm_cuda.LAUNCHES == {"lstm_fwd": 2, "bilstm_fwd": 0, "lstm_bwd": 0, "bilstm_bwd": 0}
+    assert lstm_cuda.ROUTES == {"cluster": 0, "grid": 2}
+    with torch.inference_mode():
+        spec, _ = ap.wav2spec_batch(torch.as_tensor(mixed, device="cuda"))
+        e = torch.as_tensor(emb, device="cuda")
+        mask = model(spec, e)
+        saved = lstm_cuda._launch_lstm_fwd
+        lstm_cuda._launch_lstm_fwd = lstm_cuda.lstm_fwd_ref
+        try:
+            mask_plain = model(spec, e)
+        finally:
+            lstm_cuda._launch_lstm_fwd = saved
+    assert (mask - mask_plain).abs().max().item() <= chip_smoke.SEPARATE_TOL

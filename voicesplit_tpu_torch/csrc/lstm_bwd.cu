@@ -24,10 +24,14 @@
 // every product accumulates in fp32.  dxp = dgates in the operand type;
 // dW_hh is fp32.  h[t-1] and c[t-1] are read in place from the forward's
 // hs and cs (h0 and c0 at t = 0), so the shifted copies the JAX wrapper
-// builds are not needed.  One C call launches two kernels: the walk, then
-// the dW_hh product over what the walk wrote.
+// builds are not needed.  One C call launches two kernels: the reverse
+// walk, then the dW_hh product over what the walk wrote.  The walk takes one
+// of two routes, chosen from the shape and the card before anything launches
+// (lstm_bwd_launch_config reports which): the cluster walk wherever a
+// cluster holds one row and the card holds a cluster (every shape of the
+// model at H = 400), else the grid route (H = 800).
 //
-// lstm_bwd_kernel, the reverse walk: one thread-block cluster of C = 16
+// lstm_bwd_kernel, the cluster walk: one thread-block cluster of C = 16
 // blocks per direction and row group (non-portable cluster size), clusters
 // that never talk to each other: no cooperative launch, no grid-wide
 // barrier.  The cluster primitives, the staging of a block's W_hh columns
@@ -90,7 +94,8 @@
 // Sum order, fixed, so the same inputs give the same bits: dh_rec of a unit
 // is its partials added in rank order 0 .. senders - 1, each partial its
 // block's owned columns summed by mma.sync (bf16) or in the order (gate,
-// unit) (fp32); dW_hh[j, q] belongs to one block of the dW kernel, which
+// unit) (fp32); on the grid route each lane's columns in order, then a fixed
+// shuffle tree; dW_hh[j, q] belongs to one block of the dW kernel, which
 // sums its K rows in increasing (t, r) order (mma.sync: 16 at a time).  No
 // float atomics.
 //
@@ -109,9 +114,28 @@
 //   lstm_bwd   B = 2: 110,608 B bf16, 172,368 B fp32;
 //   bilstm_bwd B = 8: 142,864 B bf16, 209,424 B fp32 (227 KB available);
 //              B = 24: 168,208 B bf16 (12 rows a cluster), 209,424 B fp32.
-// Limits, checked before the launch (the wrapper raises): bf16 needs
-// 4U <= 112 (H <= 448); both need one row of shared memory.  At H = 800
-// neither fits (bf16 4U = 200; fp32 640 KB of columns).
+// Limits, checked before the launch: bf16 needs 4U <= 112 (H <= 448); both
+// need one row of shared memory.  At H = 800 neither fits (bf16 4U = 200;
+// fp32 640 KB of columns): those shapes take the grid route.
+//
+// lstm_bwd_grid_kernel, the grid route (lstm_bwd_grid and bilstm_bwd_grid in
+// chip_smoke.py's kernels line; configs/voicesplit_wide.json's lstm_dim
+// 800): the port's first backward design, a persistent cooperative
+// grid, with dW_hh taken off it.  Block b owns U = ceil(H / #SMs) units (7
+// at H = 800 on 132 SMs: 115 blocks, one an SM, all resident at once, which
+// the launch checks first: more blocks than the card holds is refused, not
+// hung) and keeps its U rows of each W_hh [U][4H] in shared memory.  Per
+// reverse step it stages all R x 4H dgates of the step after from dxp (which
+// every block wrote before the last barrier) through L2 in chunks of 8
+// rows, forms dh_rec of its units on CUDA cores (a warp a dot product of 4H,
+// four partial sums a lane, then a shuffle tree), computes its units' 4U
+// columns of dgates into dxp and crosses one grid.sync().  Shared memory at
+// H = 800: W_hh rows 44.8 KB a direction in bf16 (89.6 KB fp32) + staged
+// dgates 51.2 KB (102.4 KB fp32) + 2 R U floats, which fits but for two
+// directions in fp32 (281.6 KB): there the rows are read through L2 (__ldg)
+// at every step, chosen from the shape.  dW_hh is lstm_dwhh_kernel's, after
+// the walk, as on the cluster walk: the same dxp gives the same dW_hh bits
+// on either route.
 //
 // What bounds them on the card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16 dense),
 // counting each input byte read once and each output byte written once,
@@ -122,9 +146,13 @@
 //              -> memory-bound, ~23 us; launched once per training step.
 //   dW_hh alone: ~5.5 MB / 0.77 GFLOP at B = 2 and ~28 MB / 6.2 GFLOP at
 //              B = 8 (both directions), memory-bound at ~1.6 and ~8.4 us.
+//   H = 800 (grid route), bf16: lstm_bwd B = 2 ~33 MB / 6.2 GFLOP, ~9.8 us;
+//              bilstm_bwd B = 8 ~169 MB / 49 GFLOP, ~51 us (memory-bound).
 // The real limit of the walk is neither: it is the T = 301 dependent
 // steps, each a wait for the partials, the step's elementwise work, a
-// small product and one exchange through distributed shared memory.
+// small product and one exchange through distributed shared memory; on the
+// grid route each step's staging of all dgates from L2, CUDA-core products
+// and grid barrier.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -688,6 +716,163 @@ lstm_dwhh_kernel(const float* __restrict__ hs,  // [T, R, H]
 }
 
 // ---------------------------------------------------------------------------
+// The grid route
+// ---------------------------------------------------------------------------
+
+constexpr int kGridWarps = kThreads / 32;  // dot products a pass, one a warp
+constexpr int kGridRowChunk = 8;           // rows of dgates staged at a time
+
+// Shared memory of the grid route: the block's rows of W_hh [D][U][4H] (T)
+// when `w_shared` (else they are read through L2), staged dgates
+// [kGridRowChunk][4H] (T), then [R][U] fp32 each for the recurrent dh and
+// the carried dc.
+template <typename T>
+size_t grid_bwd_smem(int D, int R, int H, int U, bool w_shared) {
+  return (w_shared ? align16(size_t(D) * U * 4 * H * sizeof(T)) : 0) +
+         align16(size_t(kGridRowChunk) * 4 * H * sizeof(T)) + 2 * size_t(R) * U * sizeof(float);
+}
+
+__device__ __forceinline__ float ldg_float(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_float(const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); }
+
+// Block b owns units [b U, b U + U) of every row.  Per reverse step t it
+// stages dgates[t+1] of all rows from dxp (written by every block before the
+// last grid barrier) through L2, forms dh_rec of its units as dot products
+// with its rows of W_hh (one warp each, four partial sums a lane, then a
+// shuffle tree), computes its units' columns of dgates[t] into dxp and
+// crosses one grid barrier.  kWShared: W_hh's rows in shared memory, else
+// read through L2 at every step.
+template <typename T, int D, bool kWShared>
+__global__ void __launch_bounds__(kThreads)
+lstm_bwd_grid_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
+                     const T* __restrict__ w1,        // [H, 4H], rows [B, 2B) (D == 2)
+                     const float* __restrict__ gates, // [T, R, 4H] activated
+                     const float* __restrict__ cs,    // [T, R, H]
+                     const float* __restrict__ c0,    // [R, H] or null (zero state)
+                     const float* __restrict__ dhs,   // [T, R, H]
+                     const float* __restrict__ dhf,   // [R, H] or null (zero)
+                     const float* __restrict__ dcf,   // [R, H] or null (zero)
+                     T* dxp,                          // [T, R, 4H]; read back across blocks
+                     float* __restrict__ dh0,         // [R, H] or null
+                     float* __restrict__ dc0,         // [R, H] or null
+                     int T_, int B, int H, int U) {
+  cg::grid_group grid = cg::this_grid();
+  const int R = D * B;
+  const int G4 = 4 * H;  // gate columns of one row
+  const int u0 = blockIdx.x * U;
+  const int tid = threadIdx.x;
+  const int n_w = kWShared ? D * U * G4 : 0;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* w_s = reinterpret_cast<T*>(smem_raw);  // [D][U][4H]
+  T* dg_s = reinterpret_cast<T*>(smem_raw + align16(size_t(n_w) * sizeof(T)));  // [chunk][4H]
+  float* dhr_s = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(dg_s) +
+                                          align16(size_t(kGridRowChunk) * G4 * sizeof(T)));  // [R][U]
+  float* dc_s = dhr_s + size_t(R) * U;  // [R][U]
+
+  // this block's rows of each W_hh (contiguous in device memory)
+  for (int e = tid; e < n_w; e += kThreads) {
+    const int d = e / (U * G4), u = (e / G4) % U, q = e % G4, j = u0 + u;
+    w_s[e] = j < H ? (d ? w1 : w0)[size_t(j) * G4 + q] : from_float<T>(0.0f);
+  }
+  for (int e = tid; e < R * U; e += kThreads) {
+    const int r = e / U, j = u0 + e % U;
+    const bool in = j < H;
+    dc_s[e] = (dcf != nullptr && in) ? dcf[size_t(r) * H + j] : 0.0f;
+    dhr_s[e] = (dhf != nullptr && in) ? dhf[size_t(r) * H + j] : 0.0f;
+  }
+  __syncthreads();
+
+  const int warp = tid / 32, lane = tid % 32;
+  // s is the step whose dgates are staged; t = s - 1 is the step computed
+  for (int s = T_; s >= 0; --s) {
+    if (s < T_ && (D == 1 || s > 0)) {  // after step 0 only dh0 needs it
+      const T* dg_step = dxp + size_t(s) * R * G4;
+      for (int r0 = 0; r0 < R; r0 += kGridRowChunk) {
+        const int rc = min(kGridRowChunk, R - r0);
+        // rows [r0, r0 + rc) of dgates[s] as 4-byte words (4H * sizeof(T) is
+        // a multiple of 4), written by other blocks: bypass L1
+        const unsigned int* src = reinterpret_cast<const unsigned int*>(dg_step + size_t(r0) * G4);
+        unsigned int* dst = reinterpret_cast<unsigned int*>(dg_s);
+        const int words = int(size_t(rc) * G4 * sizeof(T) / 4);
+        for (int e = tid; e < words; e += kThreads) dst[e] = __ldcg(src + e);
+        __syncthreads();
+
+        // dh_rec[r, u] = sum_q dgates[r, q] * W[j, q], one warp per (r, u)
+        for (int o = warp; o < rc * U; o += kGridWarps) {  // warp-uniform
+          const int rl = o / U, u = o % U, j = u0 + u;
+          if (j >= H) continue;
+          const int d = (D == 2 && r0 + rl >= B) ? 1 : 0;
+          const T* g = dg_s + size_t(rl) * G4;
+          float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+          int q = lane;
+          if constexpr (kWShared) {
+            const T* w = w_s + (size_t(d) * U + u) * G4;
+            for (; q + 96 < G4; q += 128) {
+              a0 = fmaf(to_float(g[q]), to_float(w[q]), a0);
+              a1 = fmaf(to_float(g[q + 32]), to_float(w[q + 32]), a1);
+              a2 = fmaf(to_float(g[q + 64]), to_float(w[q + 64]), a2);
+              a3 = fmaf(to_float(g[q + 96]), to_float(w[q + 96]), a3);
+            }
+            for (; q < G4; q += 32) a0 = fmaf(to_float(g[q]), to_float(w[q]), a0);
+          } else {
+            const T* w = (d ? w1 : w0) + size_t(j) * G4;
+            for (; q + 96 < G4; q += 128) {
+              a0 = fmaf(to_float(g[q]), ldg_float(w + q), a0);
+              a1 = fmaf(to_float(g[q + 32]), ldg_float(w + q + 32), a1);
+              a2 = fmaf(to_float(g[q + 64]), ldg_float(w + q + 64), a2);
+              a3 = fmaf(to_float(g[q + 96]), ldg_float(w + q + 96), a3);
+            }
+            for (; q < G4; q += 32) a0 = fmaf(to_float(g[q]), ldg_float(w + q), a0);
+          }
+          float acc = (a0 + a1) + (a2 + a3);
+          for (int m = 16; m > 0; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
+          if (lane == 0) dhr_s[size_t(r0 + rl) * U + u] = acc;
+        }
+        __syncthreads();  // before the next chunk overwrites dg_s
+      }
+    }
+    if (s == 0) break;
+
+    // step t = s - 1: own units' columns of dgates[t]
+    const int t = s - 1;
+    for (int e = tid; e < R * U; e += kThreads) {
+      const int r = e / U, j = u0 + e % U;
+      if (j >= H) continue;
+      const size_t row = size_t(t) * R + r;
+      const float* gt = gates + row * G4;
+      const float i = gt[j], f = gt[H + j], g = gt[2 * H + j], o = gt[3 * H + j];
+      float c_prev = 0.0f;
+      if (t > 0) {
+        c_prev = cs[(row - R) * H + j];
+      } else if (c0 != nullptr) {
+        c_prev = c0[size_t(r) * H + j];
+      }
+      const float tc = tanhf(f * c_prev + i * g);
+      const float dh = dhs[row * H + j] + dhr_s[e];
+      const float dout = dh * tc;
+      const float dct = dh * o * (1.0f - tc * tc) + dc_s[e];
+      dc_s[e] = dct * f;
+      T* dx = dxp + row * G4;
+      dx[j] = from_float<T>(dct * g * i * (1.0f - i));
+      dx[H + j] = from_float<T>(dct * c_prev * f * (1.0f - f));
+      dx[2 * H + j] = from_float<T>(dct * i * (1.0f - g * g));
+      dx[3 * H + j] = from_float<T>(dout * o * (1.0f - o));
+    }
+    grid.sync();  // the whole dgates[t] is in dxp before any block stages it
+  }
+
+  if (D == 1) {
+    for (int e = tid; e < R * U; e += kThreads) {
+      const int r = e / U, j = u0 + e % U;
+      if (j >= H) continue;
+      dh0[size_t(r) * H + j] = dhr_s[e];
+      dc0[size_t(r) * H + j] = dc_s[e];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launches
 // ---------------------------------------------------------------------------
 
@@ -697,9 +882,9 @@ struct BwdArgs {
   int steps, B, H;
 };
 
-// The walk's row groups and launch on this card for B rows a direction (in
-// `info`; info->clusters 0 if it cannot run); launches it when `args` is
-// given, or returns an error if it cannot run.
+// The walk's launch on this card for B rows a direction (in `info`;
+// info->clusters 0 if the card holds no cluster); launches it when `args`
+// is given and it can run.
 template <typename T, int D, int RC>
 cudaError_t walk(const WalkShape& ws, int B, int H, const BwdArgs* args, cudaStream_t stream,
                  ClusterLaunch* info) {
@@ -707,8 +892,8 @@ cudaError_t walk(const WalkShape& ws, int B, int H, const BwdArgs* args, cudaStr
   cudaLaunchConfig_t config;
   cudaLaunchAttribute attr;
   cudaError_t err = cluster_config(kernel, D * info->groups, kWalkThreads, stream, &config, &attr, info);
-  if (err != cudaSuccess || args == nullptr) return err;
-  if (info->clusters < 1) return cudaErrorInvalidConfiguration;
+  // a launch shape only, or no cluster fits the card: nothing launched
+  if (err != cudaSuccess || args == nullptr || info->clusters < 1) return err;
   err = cudaLaunchKernelEx(&config, kernel, static_cast<const T*>(args->w0),
                            static_cast<const T*>(args->w1), static_cast<const float*>(args->gates),
                            static_cast<const float*>(args->cs), static_cast<const float*>(args->c0),
@@ -721,6 +906,20 @@ cudaError_t walk(const WalkShape& ws, int B, int H, const BwdArgs* args, cudaStr
   return cudaGetLastError();
 }
 
+// The route and launch on this card for D directions of B rows each.
+struct BwdLaunch {
+  bool walk;           // the cluster walk (else the grid route)
+  ClusterLaunch info;  // walk: row groups, shared memory, clusters; registers of either
+  int grid_blocks, grid_units;  // grid route: blocks, units a block
+  size_t grid_smem;
+  int grid_resident;   // grid route: blocks the card holds at once
+  bool grid_w_shared;  // grid route: W_hh's rows in shared memory (else through L2)
+};
+
+// The walk's row groups and occupancy on this card into `info` (info->groups
+// 0 if not one row fits a cluster, info->clusters 0 if the card holds no
+// cluster); launches it when `args` is given and it can run, else launches
+// nothing.
 template <typename T, int D>
 cudaError_t walk(int B, int H, const BwdArgs* args, cudaStream_t stream, ClusterLaunch* info) {
   *info = {};
@@ -732,7 +931,8 @@ cudaError_t walk(int B, int H, const BwdArgs* args, cudaStream_t stream, Cluster
     return w.smem <= size_t(optin) && walk_fits<T>(w, rows, H);
   };
   if (!row_groups(B, kPairs * kWalkThreads, fits, &info->groups, &info->rows)) {
-    return args == nullptr ? cudaSuccess : cudaErrorInvalidConfiguration;  // no row fits
+    info->groups = info->rows = 0;  // no row fits
+    return cudaSuccess;
   }
   const WalkShape ws = walk_shape<T>(info->rows, H);
   info->smem = ws.smem;
@@ -745,6 +945,63 @@ cudaError_t walk(int B, int H, const BwdArgs* args, cudaStream_t stream, Cluster
       default: return walk<T, D, 8>(ws, B, H, args, stream, info);
     }
   }
+}
+
+// The grid route's launch on this card into `bl`, and the launch when `args`
+// is given: one block per U = ceil(H / SMs) units, all resident at once
+// (else cudaErrorCooperativeLaunchTooLarge, before anything launches), W_hh's
+// rows in shared memory where they fit beside the staged dgates.
+template <typename T, int D>
+cudaError_t grid_route(int B, int H, const BwdArgs* args, cudaStream_t stream, BwdLaunch* bl) {
+  int sms = 0, optin = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  err = smem_optin(&optin);
+  if (err != cudaSuccess) return err;
+  const int U = (H + sms - 1) / sms;  // at most one block per SM
+  bl->grid_units = U;
+  bl->grid_blocks = (H + U - 1) / U;
+  bl->grid_w_shared = grid_bwd_smem<T>(D, D * B, H, U, true) <= size_t(optin);
+  bl->grid_smem = grid_bwd_smem<T>(D, D * B, H, U, bl->grid_w_shared);
+  auto kernel = bl->grid_w_shared ? lstm_bwd_grid_kernel<T, D, true> : lstm_bwd_grid_kernel<T, D, false>;
+  err = occupancy(kernel, bl->grid_smem, &bl->grid_resident, &bl->info.registers, &bl->info.local_bytes);
+  if (err == cudaErrorInvalidConfiguration) {  // not one block fits an SM
+    bl->grid_resident = 0;
+    err = cudaSuccess;
+  }
+  if (err != cudaSuccess || args == nullptr) return err;
+  if (bl->grid_resident < bl->grid_blocks) return cudaErrorCooperativeLaunchTooLarge;
+  const T* w0_t = static_cast<const T*>(args->w0);
+  const T* w1_t = static_cast<const T*>(args->w1);
+  const float* gates_t = static_cast<const float*>(args->gates);
+  const float* cs_t = static_cast<const float*>(args->cs);
+  const float* c0_t = static_cast<const float*>(args->c0);
+  const float* dhs_t = static_cast<const float*>(args->dhs);
+  const float* dhf_t = static_cast<const float*>(args->dhf);
+  const float* dcf_t = static_cast<const float*>(args->dcf);
+  T* dxp_t = static_cast<T*>(args->dxp);
+  float* dh0_t = static_cast<float*>(args->dh0);
+  float* dc0_t = static_cast<float*>(args->dc0);
+  int steps = args->steps, rows = B, hidden = H, units = U;
+  void* kargs[] = {&w0_t, &w1_t, &gates_t, &cs_t, &c0_t, &dhs_t, &dhf_t, &dcf_t,
+                   &dxp_t, &dh0_t, &dc0_t, &steps, &rows, &hidden, &units};
+  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(bl->grid_blocks), dim3(kThreads), kargs,
+                                    bl->grid_smem, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// Chooses the route from the shape and the card before anything launches
+// (the walk wherever a cluster holds a row and the card holds a cluster,
+// else the grid route), then launches it when `args` is given, else only
+// fills `bl`.
+template <typename T, int D>
+cudaError_t choose_route(int B, int H, const BwdArgs* args, cudaStream_t stream, BwdLaunch* bl) {
+  *bl = {};
+  cudaError_t err = walk<T, D>(B, H, args, stream, &bl->info);
+  bl->walk = bl->info.groups > 0 && bl->info.clusters >= 1;
+  if (err != cudaSuccess || bl->walk) return err;
+  return grid_route<T, D>(B, H, args, stream, bl);
 }
 
 template <typename T>
@@ -761,12 +1018,13 @@ cudaError_t launch_dwhh(const void* hs, const void* h0, const void* dxp, void* d
   return cudaGetLastError();
 }
 
-// The reverse walk, then dW_hh from its dxp.
+// The reverse walk on its route, then dW_hh from its dxp.
 template <typename T, int D>
-cudaError_t launch(const BwdArgs& a, void* stream) {
+cudaError_t launch(const BwdArgs& a, void* stream, int* walked) {
   if (a.steps <= 0 || a.B <= 0 || a.H <= 0) return cudaErrorInvalidValue;
-  ClusterLaunch info;
-  cudaError_t err = walk<T, D>(a.B, a.H, &a, static_cast<cudaStream_t>(stream), &info);
+  BwdLaunch bl;
+  cudaError_t err = choose_route<T, D>(a.B, a.H, &a, static_cast<cudaStream_t>(stream), &bl);
+  if (walked != nullptr) *walked = bl.walk ? 1 : 0;
   if (err != cudaSuccess) return err;
   return launch_dwhh<T>(a.hs, a.h0, a.dxp, a.dw0, a.dw1, a.steps, a.B, D, a.H, stream);
 }
@@ -775,17 +1033,18 @@ cudaError_t launch(const BwdArgs& a, void* stream) {
 
 // Plain C interface (loaded with ctypes).  Every function returns its
 // cudaError_t; 0 is success.  `bf16` selects bf16 operands (W_hh, dxp),
-// otherwise fp32.  Everything else is fp32.
+// otherwise fp32.  Everything else is fp32.  `route`, where given, receives
+// the walk's route: 1 the cluster walk, 0 the grid route.
 
 // One direction: whh [H, 4H]; gates [T, B, 4H]; cs, hs, dhs [T, B, H];
 // h0, c0, dhf, dcf, dh0, dc0 [B, H]; dxp [T, B, 4H]; dwhh [H, 4H].
 extern "C" int lstm_bwd(const void* whh, const void* gates, const void* cs, const void* hs,
                         const void* h0, const void* c0, const void* dhs, const void* dhf,
                         const void* dcf, void* dxp, void* dwhh, void* dh0, void* dc0, int T,
-                        int B, int H, int bf16, void* stream) {
+                        int B, int H, int bf16, void* stream, int* route) {
   const BwdArgs a{whh, nullptr, gates, cs, hs, h0, c0, dhs, dhf, dcf,
                   dxp, dwhh, nullptr, dh0, dc0, T, B, H};
-  return bf16 ? launch<__nv_bfloat16, 1>(a, stream) : launch<float, 1>(a, stream);
+  return bf16 ? launch<__nv_bfloat16, 1>(a, stream, route) : launch<float, 1>(a, stream, route);
 }
 
 // Both directions, zero initial state: gates, cs, hs, dhs over 2B rows with
@@ -793,10 +1052,10 @@ extern "C" int lstm_bwd(const void* whh, const void* gates, const void* cs, cons
 extern "C" int bilstm_bwd(const void* whh_f, const void* whh_b, const void* gates,
                           const void* cs, const void* hs, const void* dhs, void* dxp,
                           void* dwhh_f, void* dwhh_b, int T, int B, int H, int bf16,
-                          void* stream) {
+                          void* stream, int* route) {
   const BwdArgs a{whh_f, whh_b, gates, cs, hs, nullptr, nullptr, dhs, nullptr, nullptr,
                   dxp, dwhh_f, dwhh_b, nullptr, nullptr, T, B, H};
-  return bf16 ? launch<__nv_bfloat16, 2>(a, stream) : launch<float, 2>(a, stream);
+  return bf16 ? launch<__nv_bfloat16, 2>(a, stream, route) : launch<float, 2>(a, stream, route);
 }
 
 // dW_hh alone, the second kernel of the two functions above: D directions
@@ -809,34 +1068,51 @@ extern "C" int lstm_dwhh(const void* hs, const void* h0, const void* dxp, void* 
               : launch_dwhh<float>(hs, h0, dxp, dwhh_f, dwhh_b, T, B, D, H, stream);
 }
 
-// The walk's launch for D directions of B rows each on this card: blocks,
-// units per block, dynamic shared memory in bytes, cluster size, threads
-// per block, clusters the card holds at once (0: the walk cannot launch),
-// registers and spilled bytes a thread, row groups a direction (one
-// cluster each) and rows a cluster.
-extern "C" int lstm_bwd_launch_config(int D, int B, int H, int bf16, int* blocks, int* units,
-                                      long long* smem, int* cluster, int* threads, int* clusters,
-                                      int* registers, int* local_bytes, int* groups, int* rows) {
+// The walk's launch for D directions of B rows each on this card: route (1
+// the cluster walk, 0 the grid route), blocks, units per block, dynamic
+// shared memory in bytes; the cluster walk's cluster size, threads per
+// block, clusters the card holds at once (0: the walk cannot launch),
+// registers and spilled bytes a thread, row groups a direction (one cluster
+// each) and rows a cluster (the grid route: 0 cluster, 256 threads, the
+// blocks it holds at once in `clusters`, no row groups); `w_shared` 1 where
+// the grid route keeps W_hh's rows in shared memory, 0 where it reads them
+// through L2 (and on the walk).
+extern "C" int lstm_bwd_launch_config(int D, int B, int H, int bf16, int* route, int* blocks,
+                                      int* units, long long* smem, int* cluster, int* threads,
+                                      int* clusters, int* registers, int* local_bytes, int* groups,
+                                      int* rows, int* w_shared) {
   if (B <= 0 || H <= 0 || (D != 1 && D != 2)) return cudaErrorInvalidValue;
-  ClusterLaunch info;
+  BwdLaunch bl;
   cudaError_t err;
   if (D == 1) {
-    err = bf16 ? walk<__nv_bfloat16, 1>(B, H, nullptr, nullptr, &info)
-               : walk<float, 1>(B, H, nullptr, nullptr, &info);
+    err = bf16 ? choose_route<__nv_bfloat16, 1>(B, H, nullptr, nullptr, &bl)
+               : choose_route<float, 1>(B, H, nullptr, nullptr, &bl);
   } else {
-    err = bf16 ? walk<__nv_bfloat16, 2>(B, H, nullptr, nullptr, &info)
-               : walk<float, 2>(B, H, nullptr, nullptr, &info);
+    err = bf16 ? choose_route<__nv_bfloat16, 2>(B, H, nullptr, nullptr, &bl)
+               : choose_route<float, 2>(B, H, nullptr, nullptr, &bl);
   }
   if (err != cudaSuccess) return err;
-  *blocks = D * info.groups * kCluster;
-  *units = (H + kCluster - 1) / kCluster;
-  *smem = static_cast<long long>(info.smem);
-  *cluster = kCluster;
-  *threads = kWalkThreads;
-  *clusters = info.clusters;
-  *registers = info.registers;
-  *local_bytes = info.local_bytes;
-  *groups = info.groups;
-  *rows = info.rows;
+  *route = bl.walk ? 1 : 0;
+  *w_shared = !bl.walk && bl.grid_w_shared ? 1 : 0;
+  *registers = bl.info.registers;
+  *local_bytes = bl.info.local_bytes;
+  if (bl.walk) {
+    *blocks = D * bl.info.groups * kCluster;
+    *units = (H + kCluster - 1) / kCluster;
+    *smem = static_cast<long long>(bl.info.smem);
+    *cluster = kCluster;
+    *threads = kWalkThreads;
+    *clusters = bl.info.clusters;
+    *groups = bl.info.groups;
+    *rows = bl.info.rows;
+  } else {
+    *blocks = bl.grid_blocks;
+    *units = bl.grid_units;
+    *smem = static_cast<long long>(bl.grid_smem);
+    *cluster = 0;
+    *threads = kThreads;
+    *clusters = bl.grid_resident;
+    *groups = *rows = 0;
+  }
   return cudaSuccess;
 }

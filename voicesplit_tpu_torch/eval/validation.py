@@ -37,17 +37,22 @@ def validate(
     logger: Optional[MetricsLogger] = None,
     step: int = 0,
     max_items: Optional[int] = None,
+    log_sample: bool = True,
     compute_sdr: bool = True,
+    sdr_backend: str = "auto",
 ) -> Dict[str, float]:
     """Returns mean metrics: loss, si_snr, sdr, si_snri.
 
     `eval_step` is `train.make_eval_step`'s ``batch -> metrics``; it carries
     the model and decides the device.
 
-    SDR backend: where the eval step ran on the card, the batched projection
-    on that device (`metrics.sdr_and_si_snri_batch`, < 0.01 dB off the host
-    values); on the CPU, the per-item float64 numpy projection (exactly the
-    reference's mir_eval-on-CPU arrangement, `generic_utils.py:509`).
+    ``sdr_backend``: "host" = the per-item float64 numpy projection (exactly
+    the reference's mir_eval-on-CPU arrangement, `generic_utils.py:509`);
+    "device" = the batched projection on the device the eval step ran on
+    (`metrics.sdr_and_si_snri_batch`, < 0.01 dB off the host values);
+    "auto" picks "device" when the eval step ran on the card, else "host".
+    ``log_sample``: with a logger, the first item's audio, spectrograms and
+    mask go to it (`MetricsLogger.log_evaluation`).
 
     ``max_items`` caps the number of evaluated ITEMS (not batches).
     Per-item metrics (si_snr/sdr/si_snri) exclude the loader's pad
@@ -55,6 +60,8 @@ def validate(
     true item count, so a padded final batch contributes its duplicated
     item's loss with slight extra weight inside that one batch mean.
     """
+    if sdr_backend not in ("auto", "host", "device"):
+        raise ValueError(f"sdr_backend must be auto, host or device, got {sdr_backend!r}")
     losses, loss_weights, snrs, sdrs, snris = [], [], [], [], []
     n_batches = loader.batches_per_epoch()
     if max_items is not None:
@@ -77,7 +84,10 @@ def validate(
         loss_weights.append(n_valid)
         snrs.extend(_np(out["si_snr"])[:n_valid].tolist())
         if compute_sdr:
-            if est_wav.device.type == "cuda":
+            backend = sdr_backend
+            if backend == "auto":
+                backend = "device" if est_wav.device.type == "cuda" else "host"
+            if backend == "device":
                 dev = est_wav.device
                 with torch.no_grad():
                     sdr_b, snri_b = sdr_and_si_snri_batch(
@@ -100,7 +110,7 @@ def validate(
                     est, tgt, mix = est_all[i][:n], target[i][:n], mixed[i][:n]
                     sdrs.append(bss_eval_sdr(tgt, est))
                     snris.append(si_snr_improvement(est, tgt, mix))
-        if logger is not None and not first_logged:
+        if logger is not None and log_sample and not first_logged:
             first_logged = True
             logger.log_evaluation(
                 test_loss=losses[-1],

@@ -2,9 +2,10 @@
 `voicesplit_tpu/models/masknet.py`).
 
     spec [B, T, F] → [B, 1, T, F] (NCHW: time is H, frequency is W)
-      conv1 1×7, conv2 7×1, then 5×5 with time dilation 1/2/4/8/16,
-      64 channels, BatchNorm + activation each, symmetric "same" zero
-      padding
+      conv1 1×7, conv2 7×1, then 5×5 with time dilation 1/2/4/8/16
+      (and 32·2^i for each of ``num_extra_dilated_blocks``, the wide
+      variant), 64 channels, BatchNorm + activation each, symmetric "same"
+      zero padding
     1×1 conv → 8 channels → [B, T, 8F], frequency-major (index f·C + c)
     concat the d-vector per frame → [B, T, 8F + emb]
     BiLSTM(→ 2×400) → ReLU → fc1(600) → ReLU → fc2(601) → sigmoid (fp32)
@@ -27,11 +28,13 @@ With ``VOICESPLIT_FUSED_CHAIN=1`` a train-mode forward runs ``conv2`` …
 and conditions): their convs, the BatchNorm + activation between them and
 their batch statistics go through the chain's kernels in channels-last
 ``[B, T, F, C]``; ``conv1``, ``conv7``'s own BatchNorm + activation and
-``conv8`` run as usual.  Eval mode never takes the chain.
+``conv8`` run as usual (with extra dilated blocks the chain runs to the
+last of them, whose BatchNorm + activation runs as usual, as in JAX).
+Eval mode never takes the chain.
 
 With ``VOICESPLIT_PALLAS_CONV=1`` (`ops/conv_cuda.py`, the JAX package's
 switch) the layers that meet `conv_cuda.takes_layer` (``conv2`` … ``conv7``
-at 64 channels) compute their conv, and in training its two gradients, with
+and the extra dilated blocks, at 64 channels) compute their conv, and in training its two gradients, with
 the dilated-conv kernels, in train and in eval mode; BatchNorm + activation
 stay `ops/bn_act.py`, ``conv1`` and ``conv8`` the library conv.  The JAX
 model cannot run both switches at once (the chain drives the folded blocks,
@@ -40,8 +43,8 @@ raises.
 
 Dropout acts only in train mode, so a config with ``dropout > 0`` builds
 and serves; its train step is not ported yet (`train.make_train_step`
-raises).  Not ported yet: causal convs, extra dilated blocks and the
-streaming (unidirectional) model.
+raises).  Not ported yet: causal convs and the streaming (unidirectional)
+model.
 """
 
 from __future__ import annotations
@@ -58,13 +61,15 @@ from voicesplit_tpu_torch.ops.bn_act import bn_act_eval, bn_act_train, mish
 from voicesplit_tpu_torch.ops.conv_cuda import conv2d_dilated_bias, pallas_conv_enabled, takes_layer
 from voicesplit_tpu_torch.ops.conv_fused import fused_chain_enabled, make_chain
 
-__all__ = ["BatchNorm", "ConvBlock", "MaskNet", "make_masknet", "mish"]
+__all__ = ["BatchNorm", "ConvBlock", "MaskNet", "extra_dilated_specs", "make_masknet", "mish"]
 
-# (kernel (time, freq), dilation (time, freq)) of the seven 64-channel
-# layers (reference `models/voicefilter/model.py:17-54`)
 # flax's BatchNorm momentum (`voicesplit_tpu/models/masknet.py`):
 # r ← m·r + (1 − m)·batch
 _BN_MOMENTUM = 0.9
+
+# (kernel (time, freq), dilation (time, freq)) of the seven 64-channel
+# layers (reference `models/voicefilter/model.py:17-54`); a model with extra
+# dilated blocks appends `extra_dilated_specs` to them
 
 CONV_SPECS: List[Tuple[Tuple[int, int], Tuple[int, int]]] = [
     ((1, 7), (1, 1)),
@@ -75,6 +80,13 @@ CONV_SPECS: List[Tuple[Tuple[int, int], Tuple[int, int]]] = [
     ((5, 5), (8, 1)),
     ((5, 5), (16, 1)),
 ]
+
+
+def extra_dilated_specs(n: int) -> List[Tuple[Tuple[int, int], Tuple[int, int]]]:
+    """The wide variant's extra (5, 5) blocks after ``conv7``, continuing
+    the dilation doubling: time dilation 32·2^i for block i (JAX
+    `masknet.py:345-346`)."""
+    return [((5, 5), (32 * 2 ** i, 1)) for i in range(n)]
 
 
 class BatchNorm(nn.Module):
@@ -150,6 +162,7 @@ class MaskNet(nn.Module):
         conv_channels: int = 64,
         conv_out_channels: int = 8,
         activation: str = "relu",
+        num_extra_dilated_blocks: int = 0,
         compute_dtype=torch.float32,
     ):
         super().__init__()
@@ -158,7 +171,7 @@ class MaskNet(nn.Module):
         self.conv_channels = conv_channels
         self.conv_out_channels = conv_out_channels
         self.compute_dtype = compute_dtype
-        specs = CONV_SPECS + [((1, 1), (1, 1))]
+        specs = CONV_SPECS + extra_dilated_specs(num_extra_dilated_blocks) + [((1, 1), (1, 1))]
         self.block_names = [f"conv{i + 1}" for i in range(len(specs))]
         for i, ((k, d), name) in enumerate(zip(specs, self.block_names)):
             cin = 1 if i == 0 else conv_channels
@@ -200,9 +213,11 @@ class MaskNet(nn.Module):
         )
 
     def _fused_chain_features(self, x: torch.Tensor) -> torch.Tensor:
-        """``conv1`` as usual, the convs of ``conv2`` … ``conv7`` as one
-        fused chain, ``conv7``'s BatchNorm + activation on the chain's raw
-        output (it takes the statistics again), ``conv8`` as usual."""
+        """``conv1`` as usual, the convs of every block between it and the
+        1×1 projection (``conv2`` … ``conv7`` and any extra dilated block)
+        as one fused chain, the last chain block's BatchNorm + activation on
+        the chain's raw output (it takes the statistics again), the
+        projection as usual."""
         blocks = [getattr(self, name) for name in self.block_names]
         chain_blocks = blocks[1:-1]
         specs = [(b.conv.kernel_size, b.conv.dilation[0]) for b in chain_blocks]
@@ -260,8 +275,8 @@ def make_masknet(config: Config, device: DeviceLike = None) -> MaskNet:
     relu, "voicesplit" ⇒ mish) on `device` (the CUDA card by default), in
     eval mode."""
     m = config.model
-    if m.num_extra_dilated_blocks or m.causal:
-        raise NotImplementedError("extra dilated blocks and causal convs are not yet ported")
+    if m.causal:
+        raise NotImplementedError("causal convs are not yet ported")
     dev = resolve_device(device)
     model = MaskNet(
         num_freq=config.audio.active.num_freq,
@@ -272,6 +287,7 @@ def make_masknet(config: Config, device: DeviceLike = None) -> MaskNet:
         conv_channels=m.conv_channels,
         conv_out_channels=m.conv_out_channels,
         activation="relu" if config.model_name == "voicefilter" else "mish",
+        num_extra_dilated_blocks=m.num_extra_dilated_blocks,
         compute_dtype=getattr(torch, config.train_config.compute_dtype),
     )
     return model.to(dev).eval()

@@ -18,7 +18,10 @@ dW_hh kernel (``lstm_dwhh``, float32 ``dW_hh`` from the saved ``hs`` and
 in place, where the JAX wrappers build shifted copies.  Both walks split a
 direction's rows into row groups, one thread-block cluster each, so they
 take any batch of which one row fits (`launch_config` reports the groups).
-Each source's header says how the kernel is laid out and what bounds it.
+Where not one row fits (H=800), the walk takes the grid route
+(``lstm_bwd_grid_kernel``), chosen from the shape before the launch, as the
+forward's; ``ROUTES_BWD`` counts the backward launches by route.  Each
+source's header says how the kernel is laid out and what bounds it.
 
 Dispatch: a CUDA tensor goes to the kernel, or the call raises; the plain
 versions (``*_ref``) run only for tensors on the CPU.  Each kernel launch
@@ -47,12 +50,15 @@ LAUNCHES = {"lstm_fwd": 0, "bilstm_fwd": 0, "lstm_bwd": 0, "bilstm_bwd": 0}
 # cluster walk) and "grid" (`lstm_fwd_grid_kernel`, the shapes the walk
 # cannot hold)
 ROUTES = {"cluster": 0, "grid": 0}
+# the backward wrappers' launches by route: "cluster" (`lstm_bwd_kernel`) and
+# "grid" (`lstm_bwd_grid_kernel`)
+ROUTES_BWD = {"cluster": 0, "grid": 0}
 
 _declared = False
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, ROUTES):
+    for counts in (LAUNCHES, ROUTES, ROUTES_BWD):
         for k in counts:
             counts[k] = 0
 
@@ -65,11 +71,11 @@ def _library() -> ctypes.CDLL:
         _build.declare({
             "lstm_fwd": [p] * 7 + [i] * 4 + [p, pi],
             "bilstm_fwd": [p] * 6 + [i] * 4 + [p, pi],
-            "lstm_bwd": [p] * 13 + [i] * 4 + [p],
-            "bilstm_bwd": [p] * 9 + [i] * 4 + [p],
+            "lstm_bwd": [p] * 13 + [i] * 4 + [p, pi],
+            "bilstm_bwd": [p] * 9 + [i] * 4 + [p, pi],
             "lstm_dwhh": [p] * 5 + [i] * 5 + [p],
             "lstm_launch_config": [i, i, i, i, pi, *out],
-            "lstm_bwd_launch_config": [i, i, i, i, *out],
+            "lstm_bwd_launch_config": [i, i, i, i, pi, *out, pi],
         })
         _declared = True
     return _build.library()
@@ -86,35 +92,37 @@ def launch_config(
     shared memory bytes, cluster size, threads a block, the clusters the
     card holds at once (``cudaOccupancyMaxActiveClusters``; 0: it cannot
     launch), registers and spilled bytes a thread, row groups a direction
-    (one cluster each) and rows a cluster.  The forward's also names its
-    route, chosen from the shape: "cluster" (the walk) or "grid" (the grid
-    route: ``cluster`` 0, and the blocks the card holds at once under
-    ``resident_blocks``)."""
-    route, ints = ctypes.c_int(), [ctypes.c_int() for _ in range(9)]
+    (one cluster each) and rows a cluster, and the route, chosen from the
+    shape: "cluster" (the walk) or "grid" (the grid route: ``cluster`` 0,
+    and the blocks the card holds at once under ``resident_blocks``; the
+    backward's also ``w_shared``, whether W_hh's rows sit in shared memory
+    or are read through L2)."""
+    route, w_shared, ints = ctypes.c_int(), ctypes.c_int(), [ctypes.c_int() for _ in range(9)]
     smem = ctypes.c_longlong()
     refs = [ctypes.byref(ints[0]), ctypes.byref(ints[1]), ctypes.byref(smem),
             *map(ctypes.byref, ints[2:])]
     lib = _library()
     args = (directions, batch, hidden, int(dtype == torch.bfloat16))
     if backward:
-        err = lib.lstm_bwd_launch_config(*args, *refs)
+        err = lib.lstm_bwd_launch_config(*args, ctypes.byref(route), *refs, ctypes.byref(w_shared))
     else:
         err = lib.lstm_launch_config(*args, ctypes.byref(route), *refs)
     _raise_on(err, "launch_config")
     keys = ("blocks", "units", "cluster", "threads", "max_active_clusters", "registers",
             "local_bytes", "groups", "rows")
     out = dict(zip(keys, (v.value for v in ints)), smem_bytes=smem.value)
-    if not backward:
-        out["route"] = "cluster" if route.value else "grid"
-        if out["route"] == "grid":
-            out["resident_blocks"] = out.pop("max_active_clusters")
+    out["route"] = "cluster" if route.value else "grid"
+    if out["route"] == "grid":
+        out["resident_blocks"] = out.pop("max_active_clusters")
+        if backward:
+            out["w_shared"] = bool(w_shared.value)
     return out
 
 
 def _raise_on_walk(err: int, name: str, directions: int, batch: int, hidden: int, dtype) -> None:
     """Raises for a failed backward launch, with the walk's launch shape
-    (a shape of which not one row fits a cluster, in registers or shared
-    memory, is refused)."""
+    (on the grid route, a grid of more blocks than the card holds at once is
+    refused before the launch)."""
     if err != 0:
         cfg = launch_config(directions, batch, hidden, dtype, backward=True)
         _raise_on(err, f"{name} (walk launch {cfg})")
@@ -317,9 +325,9 @@ def _outputs(xp: torch.Tensor, H: int):
     return torch.empty(T, R, H, **kw), torch.empty(T, R, H, **kw), torch.empty(T, R, 4 * H, **kw)
 
 
-def _count_forward(name: str, route: ctypes.c_int) -> None:
+def _count(name: str, route: ctypes.c_int, routes: dict) -> None:
     LAUNCHES[name] += 1
-    ROUTES["cluster" if route.value else "grid"] += 1
+    routes["cluster" if route.value else "grid"] += 1
 
 
 def _launch_lstm_fwd(xp, whh, h0, c0):
@@ -334,7 +342,7 @@ def _launch_lstm_fwd(xp, whh, h0, c0):
             ctypes.byref(route),
         )
     _raise_on(err, "lstm_fwd")
-    _count_forward("lstm_fwd", route)
+    _count("lstm_fwd", route, ROUTES)
     return hs, cs, gates
 
 
@@ -350,7 +358,7 @@ def _launch_bilstm_fwd(xp, whh_f, whh_b):
             ctypes.byref(route),
         )
     _raise_on(err, "bilstm_fwd")
-    _count_forward("bilstm_fwd", route)
+    _count("bilstm_fwd", route, ROUTES)
     return hs, cs, gates
 
 
@@ -360,16 +368,17 @@ def _launch_lstm_bwd(whh, gates, cs, hs, h0, c0, dhs, dhf, dcf, x_dtype):
     dxp = torch.empty(T, R, G, dtype=x_dtype, device=gates.device)
     dw = torch.empty(G // 4, G, **kw)
     dh0, dc0 = torch.empty(R, G // 4, **kw), torch.empty(R, G // 4, **kw)
-    lib = _library()
+    lib, route = _library(), ctypes.c_int()
     with torch.cuda.device(gates.device):
         err = lib.lstm_bwd(
             whh.data_ptr(), gates.data_ptr(), cs.data_ptr(), hs.data_ptr(),
             h0.data_ptr(), c0.data_ptr(), dhs.data_ptr(), dhf.data_ptr(), dcf.data_ptr(),
             dxp.data_ptr(), dw.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
             T, R, G // 4, int(whh.dtype == torch.bfloat16), _build.stream(gates),
+            ctypes.byref(route),
         )
     _raise_on_walk(err, "lstm_bwd", 1, R, G // 4, whh.dtype)
-    LAUNCHES["lstm_bwd"] += 1
+    _count("lstm_bwd", route, ROUTES_BWD)
     return dxp, dw, dh0, dc0
 
 
@@ -378,15 +387,16 @@ def _launch_bilstm_bwd(whh_f, whh_b, gates, cs, hs, dhs, x_dtype):
     dxp = torch.empty(T, R, G, dtype=x_dtype, device=gates.device)
     dwf = torch.empty(G // 4, G, dtype=torch.float32, device=gates.device)
     dwb = torch.empty_like(dwf)
-    lib = _library()
+    lib, route = _library(), ctypes.c_int()
     with torch.cuda.device(gates.device):
         err = lib.bilstm_bwd(
             whh_f.data_ptr(), whh_b.data_ptr(), gates.data_ptr(), cs.data_ptr(),
             hs.data_ptr(), dhs.data_ptr(), dxp.data_ptr(), dwf.data_ptr(), dwb.data_ptr(),
             T, R // 2, G // 4, int(whh_f.dtype == torch.bfloat16), _build.stream(gates),
+            ctypes.byref(route),
         )
     _raise_on_walk(err, "bilstm_bwd", 2, R // 2, G // 4, whh_f.dtype)
-    LAUNCHES["bilstm_bwd"] += 1
+    _count("bilstm_bwd", route, ROUTES_BWD)
     return dxp, dwf, dwb
 
 

@@ -259,6 +259,17 @@ WIDE_CONV_LAUNCHES = {
                     "conv_wgrad": WIDE_KERNEL_LAYERS, "conv_wgrad_prologue": 2 * (WIDE_KERNEL_LAYERS - 1)},
 }
 WIDE_TRAIN_STEPS = 8  # timed steps on a fixed batch, each route
+# A wide step on a conv kernel route against its plain versions.  bf16:
+# against plain versions that round once as the kernels do (the dilated
+# route's own plain forward rounds each frequency tap as the TPU kernel
+# does: seven such layers moved one BatchNorm bias gradient of the wide
+# model by 0.30 of its peak, cosine 0.985, where the same step in fp32
+# agrees to 5e-6; the round-once plain versions leave 0.14, cosine 0.996),
+# with the tolerances of the narrow phases (FUSED_TOL, DILATED_STEP_TOL).
+# fp32 (the same model in fp32 compute): summation order only, as the fp32
+# kernel checks (measured on an H100: 5e-6 of a gradient's peak)
+WIDE_FP32_STEP_TOL = {"loss_rel": 1e-5, "grad_norm_rel": 1e-4, "grad_peak_rel": 1e-4,
+                      "grad_cosine_min": 0.9999, "running_stat_abs": 1e-5}
 # the training CLI on each route: steps, checkpoint interval (two
 # checkpoints, which the evaluate phase reads), synthetic 3 s clips
 WIDE_CLI_STEPS, WIDE_CLI_CKPT_EVERY = 4, 2
@@ -451,9 +462,11 @@ def phase_build(torch, lstm_cuda, conv_fused) -> None:
         check(gr["max_active_clusters"] >= 1, f"{key}: no cluster fits the card ({gr})")
         check(gr["local_bytes"] == 0, f"{key}: {gr['local_bytes']} local (spilled) bytes a thread")
     # at GRID_HIDDEN (the wide config) both the forward (serving B=1, training
-    # B=2) and the backward (B=2 and two directions at B=8, both types) on
+    # B=2, two directions at B=8 in both types) and the backward (B=2 and two
+    # directions at B=8, both types) on
     # the grid route, with every block resident at once and no spilled byte
     wide = [("lstm_fwd", 1, 1, False, "bfloat16"), ("lstm_fwd", 1, 2, False, "bfloat16")]
+    wide += [("bilstm_fwd", 2, 8, False, dt) for dt in ("bfloat16", "float32")]
     wide += [(name, d, b, True, dt) for name, d, b in (("lstm_bwd", 1, 2), ("bilstm_bwd", 2, 8))
              for dt in ("bfloat16", "float32")]
     for name, d, b, bwd, dt in wide:
@@ -717,15 +730,23 @@ def synthetic_batch(seed: int, batch: int, n: int, sr: int, emb_dim: int):
 class _PlainVersions:
     """Routes the kernel launches of a kernel module (`lstm_cuda`,
     `conv_fused`, `conv_cuda`) to the plain versions on the card while
-    active."""
+    active.  `round_once`: `conv_cuda`'s forward through the plain conv
+    that sums every tap in fp32 and rounds once, as its kernel does
+    (`conv_fused._conv_core`), instead of its plain version, which rounds
+    each frequency tap's partial sum as the TPU kernel does; the other
+    modules' plain versions already round once."""
 
-    def __init__(self, module):
-        self.m = module
+    def __init__(self, module, round_once: bool = False):
+        self.m, self.round_once = module, round_once
 
     def __enter__(self):
         self.saved = {n: getattr(self.m, f"_launch_{n}") for n in self.m.LAUNCHES}
         for n in self.saved:
             setattr(self.m, f"_launch_{n}", getattr(self.m, f"{n}_ref"))
+        if self.round_once and "conv_dilated_fwd" in self.saved:
+            from voicesplit_tpu_torch.ops import conv_fused
+
+            self.m._launch_conv_dilated_fwd = lambda x, w, dt: conv_fused._conv_core(x, w, dt).to(x.dtype)
 
     def __exit__(self, *exc):
         for n, fn in self.saved.items():
@@ -1196,12 +1217,14 @@ def _compare_steps(torch, m_a, st_a, m_b, st_b) -> dict:
 def _check_step_agreement(what: str, cmp: dict, tol: dict) -> None:
     for k, limit in tol.items():
         if k == "grad_cosine_min":
-            v = min(cmp["grad_cosine"].values())
-            check(v >= limit, f"{what}: gradient cosine {v} < {limit}")
+            cos = cmp["grad_cosine"]
+            v = min(cos.values())
+            check(v >= limit, f"{what}: gradient cosine {v} < {limit} ({min(cos, key=cos.get)})")
             continue
         v = cmp[k]
+        where = f" ({max(v, key=v.get)})" if isinstance(v, dict) else ""
         v = max(v.values()) if isinstance(v, dict) else v
-        check(np.isfinite(v) and v <= limit, f"{what}: {k} {v} > {limit}")
+        check(np.isfinite(v) and v <= limit, f"{what}: {k} {v} > {limit}{where}")
 
 
 def phase_train_fused(torch, lstm_cuda, cf, seed: int, profile_dir) -> dict:
@@ -1864,6 +1887,31 @@ def phase_separate_wide(torch, lstm_cuda, cc, seed: int, profile_dir, tmp: Path)
     return launches
 
 
+def _fp32_step_vs_plain(torch, config, ap, batch, seed: int, module, last: int) -> dict:
+    """One train step of `config`'s model in fp32 compute through the
+    kernels of `module` against the same step through its plain versions:
+    held to WIDE_FP32_STEP_TOL (summation order only)."""
+    from voicesplit_tpu_torch import weights
+    from voicesplit_tpu_torch.models.masknet import make_masknet
+    from voicesplit_tpu_torch.train import create_train_state, make_optimizer, make_train_step
+
+    config = copy.deepcopy(config)
+    config.train_config.compute_dtype = "float32"
+    model = weights.init_random_(make_masknet(config), seed)
+    optimizer = make_optimizer(config, model)
+    state = create_train_state(model, optimizer)
+    step = make_train_step(config, model, ap, optimizer)
+    before = _snapshot(model, optimizer, state)
+    mk = step(state, batch)
+    through_kernels = _chain_state(model, last)
+    _restore(model, optimizer, state, before)
+    with _PlainVersions(module):
+        mp = step(state, batch)
+    cmp = _compare_steps(torch, mk, through_kernels, mp, _chain_state(model, last))
+    _check_step_agreement("fp32: kernels vs plain", cmp, WIDE_FP32_STEP_TOL)
+    return cmp
+
+
 def phase_train_wide(torch, lstm_cuda, cf, cc, seed: int, profile_dir, tmp: Path):
     """`configs/voicesplit_wide.json` trained at B=2 on each conv route: one
     counted step (the LSTM's forward and backward on their grid routes, the
@@ -1939,11 +1987,13 @@ def phase_train_wide(torch, lstm_cuda, cf, cc, seed: int, profile_dir, tmp: Path
                 module, tol = plain_of[route]
                 through_kernels = _chain_state(model, last)
                 _restore(model, optimizer, state, before)
-                with _PlainVersions(module):
+                with _PlainVersions(module, round_once=True):
                     mp = step(state, batch)
                 vs_plain = _compare_steps(torch, mk, through_kernels, mp, _chain_state(model, last))
                 _check_step_agreement(f"{route}: kernels vs plain", vs_plain, tol)
                 del through_kernels
+                vs_plain = {"bf16_round_once": vs_plain,
+                            "fp32": _fp32_step_vs_plain(torch, config, ap, batch, seed, module, last)}
             _restore(model, optimizer, state, before)
 
             for _ in range(TRAIN_WARM):

@@ -353,6 +353,21 @@ def test_lstm_forward_takes_the_grid_route_where_the_walk_does_not_fit_on_card(b
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_two_direction_forward_at_wide_hidden_on_card(dtype):
+    """`bilstm_fwd` at H=800 and B=8 (a wide model's batch that takes the
+    two-direction kernel): on the grid route in both types, fp32 with 8 rows
+    of h staged at a time (16 do not fit beside the columns), matching its
+    plain version with the same bits twice."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import lstm_cuda
+
+    cfg = lstm_cuda.launch_config(2, 8, 800, getattr(torch, dtype), backward=False)
+    assert cfg["route"] == "grid" and cfg["resident_blocks"] >= cfg["blocks"], cfg
+    _forward_matches_twice(True, dtype, 31, 800, 8, "grid")
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("batch", [2, 8])
 def test_train_step_runs_through_the_kernels_on_card(batch):
     """Full-width `configs/voicesplit.json` train step (bf16, si_snr, Adam):

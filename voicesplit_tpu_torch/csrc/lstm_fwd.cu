@@ -84,9 +84,10 @@
 // keeps their 4U gate columns of each W_hh in shared memory; each step it
 // stages all of h[t-1] from L2, multiplies on CUDA cores (8 threads a dot
 // product), applies the cell update of its units and crosses a grid-wide
-// barrier (cooperative_groups::this_grid().sync()).  A shape neither route
-// holds (fp32, two directions, H = 800: 230 KB of shared memory) is refused
-// before the launch, as before.
+// barrier (cooperative_groups::this_grid().sync()), 16 rows of h staged at
+// a time, or 8 where 16 do not fit beside the columns (two directions in
+// fp32 at H = 800: 232,640 B with 16, 207,040 B with 8).  A shape neither
+// route holds is refused before the launch.
 //
 // Sum order, fixed, so the same inputs give the same bits: wgmma's own
 // order within a warpgroup, then the three partials in order (bf16); each
@@ -494,12 +495,13 @@ lstm_fwd_kernel(const T* __restrict__ xp,      // [T, R, 4H]
 // ---------------------------------------------------------------------------
 
 constexpr int kGroups = kThreads / kLanes;  // dot products per pass
-constexpr int kRowChunk = 16;               // rows of h staged at a time
+constexpr int kRowChunk = 16;               // rows of h staged at a time, where they fit
 
+// Shared memory of the grid route with `chunk` rows of h staged at a time.
 template <typename T>
-__host__ __device__ constexpr size_t grid_smem_bytes(int D, int R, int H, int U) {
+__host__ __device__ constexpr size_t grid_smem_bytes(int D, int R, int H, int U, int chunk) {
   return align16(size_t(D) * 4 * U * H * sizeof(T)) +
-         (size_t(kRowChunk) * H + size_t(R) * 4 * U + size_t(R) * U) * sizeof(float);
+         (size_t(chunk) * H + size_t(R) * 4 * U + size_t(R) * U) * sizeof(float);
 }
 
 template <typename T, int D>
@@ -512,7 +514,7 @@ lstm_fwd_grid_kernel(const T* __restrict__ xp,     // [T, R, 4H]
                      float* hs,                    // [T, R, H]; read back across blocks
                      float* __restrict__ cs,       // [T, R, H]
                      float* __restrict__ gates,    // [T, R, 4H]
-                     int T_, int B, int H, int U) {
+                     int T_, int B, int H, int U, int RC) {  // RC: rows of h staged at a time
   cg::grid_group grid = cg::this_grid();
   const int R = D * B;
   const int G = 4 * U;  // gate columns owned by this block
@@ -522,7 +524,7 @@ lstm_fwd_grid_kernel(const T* __restrict__ xp,     // [T, R, 4H]
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* w_s = reinterpret_cast<T*>(smem_raw);  // [D][G][H]
   float* h_s = reinterpret_cast<float*>(smem_raw + align16(size_t(D) * G * H * sizeof(T)));
-  float* pre_s = h_s + size_t(kRowChunk) * H;  // [R][G]
+  float* pre_s = h_s + size_t(RC) * H;  // [R][G]
   float* c_s = pre_s + size_t(R) * G;          // [R][U]
 
   // This block's gate columns of W_hh, column q = gate * U + unit.
@@ -543,8 +545,8 @@ lstm_fwd_grid_kernel(const T* __restrict__ xp,     // [T, R, 4H]
   const int group = tid / kLanes, lane = tid % kLanes;
   for (int t = 0; t < T_; ++t) {
     const float* h_prev = t > 0 ? hs + size_t(t - 1) * R * H : h0;
-    for (int r0 = 0; r0 < R; r0 += kRowChunk) {
-      const int rc = min(kRowChunk, R - r0);
+    for (int r0 = 0; r0 < R; r0 += RC) {
+      const int rc = min(RC, R - r0);
       for (int e = tid; e < rc * H; e += kThreads) {
         const size_t idx = size_t(r0) * H + e;
         float h = 0.0f;
@@ -617,6 +619,7 @@ struct FwdLaunch {
   ClusterLaunch info;  // walk: row groups, shared memory, clusters; registers of either
   FwdShape shape;      // walk
   int grid_blocks, grid_units;  // grid route: blocks, units a block
+  int grid_chunk;      // grid route: rows of h staged at a time
   size_t grid_smem;
   int grid_resident;   // grid route: blocks the card holds at once
 };
@@ -651,7 +654,17 @@ cudaError_t grid_route(FwdLaunch* fl, const FwdArgs* a, cudaStream_t stream) {
   const int B = a->B, H = a->H;
   fl->grid_units = (H + sms - 1) / sms;  // at most one block per SM
   fl->grid_blocks = (H + fl->grid_units - 1) / fl->grid_units;
-  fl->grid_smem = grid_smem_bytes<T>(D, D * B, H, fl->grid_units);
+  // kRowChunk rows of h staged at a time, fewer where those do not fit
+  // beside the columns (two directions in fp32 at H = 800: 8)
+  int optin = 0;
+  err = smem_optin(&optin);
+  if (err != cudaSuccess) return err;
+  fl->grid_chunk = kRowChunk;
+  while (fl->grid_chunk > 1 &&
+         grid_smem_bytes<T>(D, D * B, H, fl->grid_units, fl->grid_chunk) > size_t(optin)) {
+    fl->grid_chunk /= 2;
+  }
+  fl->grid_smem = grid_smem_bytes<T>(D, D * B, H, fl->grid_units, fl->grid_chunk);
   auto kernel = lstm_fwd_grid_kernel<T, D>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(fl->grid_smem));
   if (err != cudaSuccess) return err;
@@ -674,9 +687,9 @@ cudaError_t grid_route(FwdLaunch* fl, const FwdArgs* a, cudaStream_t stream) {
   float* hs_t = static_cast<float*>(a->hs);
   float* cs_t = static_cast<float*>(a->cs);
   float* gates_t = static_cast<float*>(a->gates);
-  int steps = a->steps, rows = B, hidden = H, units = fl->grid_units;
+  int steps = a->steps, rows = B, hidden = H, units = fl->grid_units, chunk = fl->grid_chunk;
   void* args[] = {&xp_t, &w0_t, &w1_t, &h0_t, &c0_t, &hs_t, &cs_t, &gates_t,
-                  &steps, &rows, &hidden, &units};
+                  &steps, &rows, &hidden, &units, &chunk};
   err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(fl->grid_blocks), dim3(kThreads), args,
                                     fl->grid_smem, stream);
   if (err != cudaSuccess) return err;

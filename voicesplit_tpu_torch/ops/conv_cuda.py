@@ -5,7 +5,9 @@ mask network asks (counterpart of `voicesplit_tpu/ops/conv_pallas.py`).
 
 Opt-in with ``VOICESPLIT_PALLAS_CONV=1`` (the JAX package's variable): the
 heavy conv layers of the mask network, a (7,1) layer and five (5,5) layers
-with time dilation 1..16 over ``[B, T, F=601, C=64]``, then compute their
+with time dilation 1..16 over ``[B, T, F=601, C=64]`` (and the wide variant's
+extra (5,5) blocks at time dilation 32·2^i, `configs/voicesplit_wide.json`:
+32, whose outer taps reach 64 rows to each side), then compute their
 convolution, its data gradient and its weight gradient with the kernels of
 this module instead of the library's conv.
 

@@ -3,7 +3,8 @@
 hand-written backward (counterpart of `voicesplit_tpu/ops/conv_fused.py`).
 
 The chain runs the heavy conv stack of the mask network (a (7,1) layer and
-five (5,5) layers with time dilation 1..16) so that the BatchNorm affine and
+five (5,5) layers with time dilation 1..16, and the wide variant's extra
+(5,5) blocks at 32·2^i) so that the BatchNorm affine and
 the activation *between* two convs never become a tensor of their own: each
 conv applies the previous layer's ``act(x·inv + shift)`` to its input on the
 fly (the prologue) and sums its own output's per-channel statistics while it

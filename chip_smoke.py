@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""On-card smoke test of the PyTorch port's serving and training paths and
-its training entry point (NVIDIA H100).
+"""On-card smoke test of the PyTorch port's serving and training paths, its
+training and evaluation entry points, at `configs/voicesplit.json` and at
+the wide `configs/voicesplit_wide.json` (NVIDIA H100).
 
     python3 chip_smoke.py [--seed 0] [--profile DIR] [--phases a,b,...]
 
@@ -13,8 +14,11 @@ Phases, each printing one JSON line:
    the LSTM walks' (forward and backward at the paths' batches and at
    ROW_GROUP_BATCH rows a direction) with their cluster size, threads, row
    groups and rows a cluster, the clusters the card holds at once (at least
-   one), registers and spilled bytes (none), the forward's route, which
-   must be the cluster walk at H=400 and the grid route at GRID_HIDDEN;
+   one), registers and spilled bytes (none), both walks' routes, which
+   must be the cluster walk at H=400 and the grid route at GRID_HIDDEN
+   (the forward at B=1, 2 and two directions at B=8, the backward at B=2
+   and two directions at B=8, each with its blocks, resident blocks,
+   registers and spills, and the backward's ``w_shared``);
    the conv kernels' (the forward / data-gradient kernel body in its three
    modes, the weight-gradient kernel) per layer and batch (B=1, 2, 8; fp32
    at the reduced shape) beside the blocks the card holds at once, their
@@ -27,7 +31,9 @@ Phases, each printing one JSON line:
    a direction), both on the cluster walk, ``lstm_fwd`` at GRID_HIDDEN on
    the grid route (``lstm_fwd_grid``), ``lstm_bwd`` (B=2, random dhs, dhf,
    dcf; dxp, dW_hh, dh0, dc0) and ``bilstm_bwd`` (B=8 and ROW_GROUP_BATCH;
-   dxp, both dW_hh).  Then times kernel, plain version and a cuDNN
+   dxp, both dW_hh), and both at GRID_HIDDEN on the backward's grid route
+   (``lstm_bwd_grid`` B=2, ``bilstm_bwd_grid`` B=8), each launch counted
+   by route.  Then times kernel, plain version and a cuDNN
    ``torch.nn.LSTM`` yardstick (its forward, or its ``.backward()`` alone
    after a forward; both also cover the input projection, which the kernels
    leave to a matmul), and the backward's dW_hh kernel alone (``dwhh_ms``)
@@ -58,7 +64,8 @@ Phases, each printing one JSON line:
    (``conv_bn_act_fwd``, ``conv_dgrad``, ``conv_wgrad``) against their plain
    versions on the card: bf16 at the path's shape ``[2, 301, 601, 64]`` for
    every layer of conv2 … conv7 (the (7,1) layer and the (5,5) layers of
-   dilation 1 to 16), with and without the prologue (mish, relu once); fp32
+   dilation 1 to 16) and the wide config's extra block (dilation 32), with
+   and without the prologue (mish, relu once); fp32
    at a reduced shape; the statistics and
    ``dbias`` in fp32; the first and last 32 time rows and 2 frequency
    columns on their own; two launches on the same inputs must give the same
@@ -80,8 +87,8 @@ Phases, each printing one JSON line:
 8. dilated conv kernels — the two kernels of the opt-in conv path
    (``conv_dilated_fwd``, as forward and, with flipped weights, as data
    gradient; ``conv_dilated_wgrad``) against their plain versions on the
-   card: bf16 at ``[2, 301, 601, 64]`` for all six layers of conv2 … conv7,
-   fp32 at a reduced shape; the forward also against the same sum rounded
+   card: bf16 at ``[2, 301, 601, 64]`` for all six layers of conv2 … conv7
+   and the wide config's extra block (dilation 32), fp32 at a reduced shape; the forward also against the same sum rounded
    once; edge rows and columns on their own; the same bits twice.  Then
    times per layer at B=2 and B=8 beside the bound, the plain version, a
    library yardstick the port never calls (cuDNN ``conv2d``;
@@ -103,10 +110,28 @@ Phases, each printing one JSON line:
    equal the uninterrupted run's.  Prints step time (p50, p75 between
    summaries), audio-seconds per second and the share of `fit()`'s wall time
    outside train steps.
+11. separate wide — `configs/voicesplit_wide.json` (H=800, one extra (5,5)
+   block at time dilation 32) served at B=1: `separate_batch` with both
+   LSTM directions on the forward's grid route (against the plain LSTM
+   versions), again with ``VOICESPLIT_PALLAS_CONV=1`` (7 ``conv_dilated_fwd``
+   launches; against the switch-off call), and through the serving CLI;
+   latency p50, p75.
+12. train wide — the wide config at B=2 on each conv route (library convs,
+   the dilated switch, the fused chain): one counted step (exact launches,
+   forward and backward on their grid routes), held against the plain
+   versions (the LSTM's; the conv kernels' in bf16 against plain versions
+   that round once as the kernels do, and in fp32 compute), 8 timed steps
+   whose loss must fall, peak memory; then `cli.train.main` on each route
+   for 4 steps with checkpoints at 2 and 4 and three validations.
+13. evaluate — `cli.test.main` on the last checkpoint of the train wide
+   phase's library-conv run (SDR on the card, and on the host, which must
+   agree within EVAL_SDR_TOL_DB), then `cli.sweep.main` over both
+   checkpoints: finite metrics, the best-checkpoint copies and the curve.
 
 Then a ``{"kernels": [...]}`` line (each kernel's ``main_path``: false for
-the forward's grid route, which no path takes and which is launched only in
-the kernels phase), the ``nvidia-smi`` name/power-limit line and, last,
+the two-direction backward's grid route, which no path takes and which is
+launched only in the backward kernels phase), the ``nvidia-smi``
+name/power-limit line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so
 the exit code is non-zero and no result line is printed.  It also exits
 non-zero without a card, or without the rest of the repository beside it.
@@ -115,7 +140,8 @@ trace of the serving runs and the train steps into DIR and reports the
 device's idle share under the profiler and the device time by kind of
 kernel.  ``--phases`` runs a subset (of kernels, bwd_kernels, separate,
 train, conv_kernels, train_fused, dilated_kernels, separate_dilated,
-trainer; device and build always run) and ends with a line marked
+trainer, separate_wide, train_wide, evaluate; device and build always run)
+and ends with a line marked
 ``"partial"`` instead of the result lines.
 """
 

@@ -525,7 +525,7 @@ lstm_fwd_grid_kernel(const T* __restrict__ xp,     // [T, R, 4H]
   T* w_s = reinterpret_cast<T*>(smem_raw);  // [D][G][H]
   float* h_s = reinterpret_cast<float*>(smem_raw + align16(size_t(D) * G * H * sizeof(T)));
   float* pre_s = h_s + size_t(RC) * H;  // [R][G]
-  float* c_s = pre_s + size_t(R) * G;          // [R][U]
+  float* c_s = pre_s + size_t(R) * G;   // [R][U]
 
   // This block's gate columns of W_hh, column q = gate * U + unit.
   for (int e = tid; e < D * G * H; e += kThreads) {

@@ -28,15 +28,16 @@ With ``VOICESPLIT_FUSED_CHAIN=1`` a train-mode forward runs ``conv2`` …
 and conditions): their convs, the BatchNorm + activation between them and
 their batch statistics go through the chain's kernels in channels-last
 ``[B, T, F, C]``; ``conv1``, ``conv7``'s own BatchNorm + activation and
-``conv8`` run as usual (with extra dilated blocks the chain runs to the
-last of them, whose BatchNorm + activation runs as usual, as in JAX).
-Eval mode never takes the chain.
+the 1×1 projection ``conv8`` run as usual (with extra dilated blocks the
+chain runs to the last of them, whose own BatchNorm + activation runs as
+usual, as in JAX).  Eval mode never takes the chain.
 
 With ``VOICESPLIT_PALLAS_CONV=1`` (`ops/conv_cuda.py`, the JAX package's
 switch) the layers that meet `conv_cuda.takes_layer` (``conv2`` … ``conv7``
-and the extra dilated blocks, at 64 channels) compute their conv, and in training its two gradients, with
-the dilated-conv kernels, in train and in eval mode; BatchNorm + activation
-stay `ops/bn_act.py`, ``conv1`` and ``conv8`` the library conv.  The JAX
+and the extra dilated blocks, at 64 channels) compute their conv, and in
+training its two gradients, with the dilated-conv kernels, in train and in
+eval mode; BatchNorm + activation stay `ops/bn_act.py`, ``conv1`` and the
+1×1 projection the library conv.  The JAX
 model cannot run both switches at once (the chain drives the folded blocks,
 which the Pallas switch turns off), so a train-mode forward with both set
 raises.
@@ -70,7 +71,6 @@ _BN_MOMENTUM = 0.9
 # (kernel (time, freq), dilation (time, freq)) of the seven 64-channel
 # layers (reference `models/voicefilter/model.py:17-54`); a model with extra
 # dilated blocks appends `extra_dilated_specs` to them
-
 CONV_SPECS: List[Tuple[Tuple[int, int], Tuple[int, int]]] = [
     ((1, 7), (1, 1)),
     ((7, 1), (1, 1)),

@@ -28,8 +28,9 @@ Phases, each printing one JSON line:
    version on the card, in bf16 and fp32 operands, with two launches on the
    same inputs giving the same bits: ``lstm_fwd`` (B=1, random h0/c0; hs,
    cs, gates, final (h, c)), ``bilstm_fwd`` (B=8, and ROW_GROUP_BATCH rows
-   a direction), both on the cluster walk, ``lstm_fwd`` at GRID_HIDDEN on
-   the grid route (``lstm_fwd_grid``), ``lstm_bwd`` (B=2, random dhs, dhf,
+   a direction), both on the cluster walk, ``lstm_fwd`` (B=1) and
+   ``bilstm_fwd`` (B=8) at GRID_HIDDEN on the grid route
+   (``lstm_fwd_grid``, ``bilstm_fwd_grid``), ``lstm_bwd`` (B=2, random dhs, dhf,
    dcf; dxp, dW_hh, dh0, dc0) and ``bilstm_bwd`` (B=8 and ROW_GROUP_BATCH;
    dxp, both dW_hh), and both at GRID_HIDDEN on the backward's grid route
    (``lstm_bwd_grid`` B=2, ``bilstm_bwd_grid`` B=8), each launch counted
@@ -126,7 +127,8 @@ Phases, each printing one JSON line:
 13. evaluate — `cli.test.main` on the last checkpoint of the train wide
    phase's library-conv run (SDR on the card, and on the host, which must
    agree within EVAL_SDR_TOL_DB), then `cli.sweep.main` over both
-   checkpoints: finite metrics, the best-checkpoint copies and the curve.
+   checkpoints (batches padded to 8 on the card: ``bilstm_fwd`` on the grid
+   route): finite metrics, the best-checkpoint copies and the curve.
 
 Then a ``{"kernels": [...]}`` line (each kernel's ``main_path``: false for
 the two-direction backward's grid route, which no path takes and which is
@@ -178,6 +180,11 @@ GRID_HIDDEN = 800
 # relative to each output's largest magnitude (gradients grow over the
 # reverse walk), the forward's are absolute (|h|, |c|, gates <~ 1).
 SEPARATE_TOL = 5e-2  # mask and peak-relative waveform error, kernel vs plain LSTM (bf16)
+# the same at the wide config (GRID_HIDDEN): its random-weight mask spans
+# only about [0.45, 0.57], so 5e-2 would pass a badly wrong LSTM output; the
+# grid route's flipped bf16 roundings move it by 4.9e-4 (mask) and 2.7e-4
+# (waveform) on an H100, and a tenth of the spread is 1.2e-2
+WIDE_SEPARATE_TOL = 5e-3
 ROUNDTRIP_MIN_SNR_DB = 60.0
 LATENCY_CALLS = 40  # p75 is then the highest percentile with ten calls beyond it
 TRAIN_WARM, TRAIN_STEPS = 3, 20
@@ -244,7 +251,7 @@ FUSED_VS_EAGER_TOL = {"loss_rel": 2e-2, "grad_norm_rel": 0.1, "grad_peak_rel": 0
 # roundings of an output), the CUDA kernel sums every tap in fp32 and rounds
 # once.  Against the plain version an output may therefore differ by a few
 # bf16 ulps ("out": 2e-2 of the peak; one ulp is at most 2^-7 = 7.8e-3);
-# against the same sum rounded once (`conv_fused._conv_core`) by one flipped
+# against the same sum rounded once (`conv_dilated_fwd_round_once_ref`) by one flipped
 # rounding ("out_round_once": 1e-2, the fused chain's tolerance).  dW sums
 # exact products in fp32 in another order.  All relative to each output's peak.
 DILATED_TOL = {
@@ -315,6 +322,7 @@ REPLACES = {
     "lstm_fwd": "voicesplit_tpu/ops/lstm_pallas.py:71",
     "lstm_fwd_grid": "voicesplit_tpu/ops/lstm_pallas.py:71",
     "bilstm_fwd": "voicesplit_tpu/ops/lstm_pallas.py:251",
+    "bilstm_fwd_grid": "voicesplit_tpu/ops/lstm_pallas.py:251",
     "lstm_bwd": "voicesplit_tpu/ops/lstm_pallas.py:135",
     "lstm_bwd_grid": "voicesplit_tpu/ops/lstm_pallas.py:135",
     "bilstm_bwd": "voicesplit_tpu/ops/lstm_pallas.py:317",
@@ -329,6 +337,7 @@ SOURCES = {
     "lstm_fwd": "voicesplit_tpu_torch/csrc/lstm_fwd.cu",
     "lstm_fwd_grid": "voicesplit_tpu_torch/csrc/lstm_fwd.cu",
     "bilstm_fwd": "voicesplit_tpu_torch/csrc/lstm_fwd.cu",
+    "bilstm_fwd_grid": "voicesplit_tpu_torch/csrc/lstm_fwd.cu",
     "lstm_bwd": "voicesplit_tpu_torch/csrc/lstm_bwd.cu",
     "lstm_bwd_grid": "voicesplit_tpu_torch/csrc/lstm_bwd.cu",
     "bilstm_bwd": "voicesplit_tpu_torch/csrc/lstm_bwd.cu",
@@ -613,13 +622,17 @@ def phase_kernels(torch, lstm_cuda, seed: int) -> dict:
         "batch": ROW_GROUP_BATCH, "bf16": entry["bfloat16"], "fp32": entry["float32"],
         **lstm_bound(2, ROW_GROUP_BATCH, "bfloat16")}
     emit("kernels", kernel="bilstm_fwd", T=T, H=H, **results["bilstm_fwd"]["row_groups"])
-    # the grid route, which no path of the port takes at H=400
-    entry = _fwd_case(torch, lstm_cuda, g, 1, 1, GRID_HIDDEN, "grid", timed=True)
-    results["lstm_fwd_grid"] = {"bf16": entry["bfloat16"], "fp32": entry["float32"],
-                                "library_ms": _cudnn_lstm_ms(torch, g, 1, 1, GRID_HIDDEN),
-                                **lstm_bound(1, 1, "bfloat16", GRID_HIDDEN)}
-    emit("kernels", kernel="lstm_fwd_grid", batch=1, T=T, H=GRID_HIDDEN,
-         bound_fp32=lstm_bound(1, 1, "float32", GRID_HIDDEN), **results["lstm_fwd_grid"])
+    # the grid route at GRID_HIDDEN: one direction as the wide config serves
+    # and trains it, two at B=8 as the evaluation sweep's padded batches run
+    for name, directions, batch in (("lstm_fwd", 1, 1), ("bilstm_fwd", 2, 8)):
+        entry = _fwd_case(torch, lstm_cuda, g, directions, batch, GRID_HIDDEN, "grid", timed=True)
+        results[f"{name}_grid"] = {
+            "bf16": entry["bfloat16"], "fp32": entry["float32"],
+            "library_ms": _cudnn_lstm_ms(torch, g, directions, batch, GRID_HIDDEN),
+            **lstm_bound(directions, batch, "bfloat16", GRID_HIDDEN)}
+        emit("kernels", kernel=f"{name}_grid", batch=batch, T=T, H=GRID_HIDDEN,
+             bound_fp32=lstm_bound(directions, batch, "float32", GRID_HIDDEN),
+             **results[f"{name}_grid"])
     return results
 
 
@@ -756,11 +769,11 @@ def synthetic_batch(seed: int, batch: int, n: int, sr: int, emb_dim: int):
 class _PlainVersions:
     """Routes the kernel launches of a kernel module (`lstm_cuda`,
     `conv_fused`, `conv_cuda`) to the plain versions on the card while
-    active.  `round_once`: `conv_cuda`'s forward through the plain conv
-    that sums every tap in fp32 and rounds once, as its kernel does
-    (`conv_fused._conv_core`), instead of its plain version, which rounds
-    each frequency tap's partial sum as the TPU kernel does; the other
-    modules' plain versions already round once."""
+    active.  `round_once`: `conv_cuda`'s forward through
+    `conv_dilated_fwd_round_once_ref`, which sums every tap in fp32 and
+    rounds once as its kernel does, instead of its plain version, which
+    rounds each frequency tap's partial sum as the TPU kernel does; the
+    other modules' plain versions already round once."""
 
     def __init__(self, module, round_once: bool = False):
         self.m, self.round_once = module, round_once
@@ -770,9 +783,7 @@ class _PlainVersions:
         for n in self.saved:
             setattr(self.m, f"_launch_{n}", getattr(self.m, f"{n}_ref"))
         if self.round_once and "conv_dilated_fwd" in self.saved:
-            from voicesplit_tpu_torch.ops import conv_fused
-
-            self.m._launch_conv_dilated_fwd = lambda x, w, dt: conv_fused._conv_core(x, w, dt).to(x.dtype)
+            self.m._launch_conv_dilated_fwd = self.m.conv_dilated_fwd_round_once_ref
 
     def __exit__(self, *exc):
         for n, fn in self.saved.items():
@@ -1395,7 +1406,7 @@ def _latency_ms(torch, fn, calls: int):
     return tuple(float(np.percentile(lat, q)) for q in (50, 75))
 
 
-def _check_dilated_case(torch, cc, cf, case, shape, layer, dtype_name, g) -> dict:
+def _check_dilated_case(torch, cc, case, shape, layer, dtype_name, g) -> dict:
     """One layer through `conv_dilated_fwd` (as forward and as data gradient)
     and `conv_dilated_wgrad` and their plain versions;
     raises on disagreement or on two launches that differ."""
@@ -1409,7 +1420,7 @@ def _check_dilated_case(torch, cc, cf, case, shape, layer, dtype_name, g) -> dic
         for what, (a, wt) in {"forward": (x, w), "data_gradient": (d, wf)}.items():
             got, again = cc.conv_dilated_fwd(a, wt, dt), cc.conv_dilated_fwd(a, wt, dt)
             want = cc.conv_dilated_fwd_ref(a, wt, dt)
-            once = cf._conv_core(a, wt, dt).to(dtype)  # every tap in fp32, one rounding
+            once = cc.conv_dilated_fwd_round_once_ref(a, wt, dt)
             torch.cuda.synchronize()
             errs = {"out": _peak_rel(got, want), "out_round_once": _peak_rel(got, once),
                     **{f"out_{k}": v for k, v in _edge_errs(got, want).items()}}
@@ -1450,7 +1461,7 @@ def phase_dilated_kernels(torch, cc, cf, seed: int) -> dict:
     for dtype_name, shape in (("bfloat16", CONV_SHAPE), ("float32", CONV_SHAPE_FP32)):
         for layer in ALL_CONV_LAYERS:
             case = f"{layer}/{dtype_name}"
-            r = agreement[case] = _check_dilated_case(torch, cc, cf, case, shape, layer, dtype_name, g)
+            r = agreement[case] = _check_dilated_case(torch, cc, case, shape, layer, dtype_name, g)
             worst["conv_dilated_fwd"][dtype_name] = max(
                 worst["conv_dilated_fwd"][dtype_name], r["forward"]["abs_err"],
                 r["data_gradient"]["abs_err"])
@@ -1839,7 +1850,7 @@ def phase_separate_wide(torch, lstm_cuda, cc, seed: int, profile_dir, tmp: Path)
     zero = {k: 0 for k in (*lstm_cuda.LAUNCHES, *cc.LAUNCHES)}
     launches: dict = {}
     report = {"config": WIDE_CONFIG, "params": sum(p.numel() for p in model.parameters()),
-              "blocks": model.block_names, "tolerance_vs_plain": SEPARATE_TOL,
+              "blocks": model.block_names, "tolerance_vs_plain": WIDE_SEPARATE_TOL,
               "tolerance_switch": SEPARATE_DILATED_TOL}
 
     # the counted run of the path: one serving call
@@ -1859,8 +1870,8 @@ def phase_separate_wide(torch, lstm_cuda, cc, seed: int, profile_dir, tmp: Path)
     check(float(mask.min()) >= 0.0 and float(mask.max()) <= 1.0, "mask outside [0, 1]")
     mask_err = (mask - mask_plain).abs().max().item()
     wav_err = ((out - out_plain).abs().max() / out_plain.abs().max()).item()
-    check(mask_err <= SEPARATE_TOL, f"mask vs plain LSTM {mask_err} > {SEPARATE_TOL}")
-    check(wav_err <= SEPARATE_TOL, f"waveform vs plain LSTM {wav_err} > {SEPARATE_TOL}")
+    check(mask_err <= WIDE_SEPARATE_TOL, f"mask vs plain LSTM {mask_err} > {WIDE_SEPARATE_TOL}")
+    check(wav_err <= WIDE_SEPARATE_TOL, f"waveform vs plain LSTM {wav_err} > {WIDE_SEPARATE_TOL}")
     p50, p75 = _latency_ms(torch, lambda: separate_batch(model, ap, mixed, emb), LATENCY_CALLS)
     report["B1"] = {"launches_per_call": counted, "samples": n,
                     "mask_range": [float(mask.min()), float(mask.max())],
@@ -2287,6 +2298,7 @@ def main(argv=None) -> int:
         return 0
     # each kernel's launches come from the counted run of the path it serves
     home = {"lstm_fwd": "separate", "bilstm_fwd": "separate", "lstm_fwd_grid": "separate_wide",
+            "bilstm_fwd_grid": "evaluate",
             "lstm_bwd": "train", "bilstm_bwd": "train",
             "lstm_bwd_grid": "train_wide", "bilstm_bwd_grid": "train_wide",
             "conv_bn_act_fwd": "train_fused", "conv_dgrad": "train_fused",

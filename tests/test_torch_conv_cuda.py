@@ -104,10 +104,26 @@ def test_forward_plain_version_keeps_the_pallas_rounding():
     want = _np(jcp.conv2d_pallas(jnp.asarray(x).astype(jnp.bfloat16),
                                  jnp.asarray(w).astype(jnp.bfloat16), (dt, 1)))
     got = cc.conv_dilated_fwd_ref(xb, wb, dt).float().numpy()
-    from voicesplit_tpu_torch.ops.conv_fused import _conv_core
-
-    once = _conv_core(xb, wb, dt).bfloat16().float().numpy()
+    once = cc.conv_dilated_fwd_round_once_ref(xb, wb, dt).float().numpy()
     assert (got != want).mean() < 0.25 * (once != want).mean()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("spec", ["5x5-d1", "5x5-d16"])
+def test_round_once_plain_version_rounds_the_pallas_sum_once(spec, dtype):
+    """The plain version with the CUDA kernel's rounding against the Pallas
+    kernel's fp32 conv of the same (type-rounded) operands: fp32 up to
+    summation order (PEAK_TOL); bf16 one rounding of each output, at most
+    2^-9 of its magnitude, so 2^-8 of the peak leaves room for the order."""
+    (kt, kf), dt = SPECS[spec]
+    x, _, w = _inputs(3, kt, kf)
+    td = getattr(torch, dtype)
+    xt, wt = torch.from_numpy(x).to(td), torch.from_numpy(w).to(td)
+    want = _np(jcp.conv2d_pallas(jnp.asarray(xt.float().numpy()), jnp.asarray(wt.float().numpy()),
+                                 (dt, 1)))
+    got = cc.conv_dilated_fwd_round_once_ref(xt, wt, dt)
+    assert got.shape == (B, T, F, C) and got.dtype == td and got.is_contiguous()
+    _assert_peak_close(got.float().numpy(), want, PEAK_TOL if dtype == "float32" else 2.0 ** -8)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -600,7 +600,7 @@ def test_forward_kernels_match_plain_versions_on_card(case, dtype):
         dx, dbias = cf.conv_dgrad(x, w, dil)
         dx2, dbias2 = cf.conv_dgrad(x, w, dil)
         plain = cc.conv_dilated_fwd_ref(x, w, dil)
-        once = cf._conv_core(x, w, dil).to(dt)  # every tap in fp32, rounded once
+        once = cc.conv_dilated_fwd_round_once_ref(x, w, dil)  # every tap in fp32, rounded once
         want_dx, want_dbias = cf.conv_dgrad_ref(x, w, dil)
     torch.cuda.synchronize()
     assert torch.equal(got, again) and torch.equal(dx, dx2) and torch.equal(dbias, dbias2)
@@ -867,4 +867,4 @@ def test_wide_separate_runs_through_the_grid_route_on_card():
             mask_plain = model(spec, e)
         finally:
             lstm_cuda._launch_lstm_fwd = saved
-    assert (mask - mask_plain).abs().max().item() <= chip_smoke.SEPARATE_TOL
+    assert (mask - mask_plain).abs().max().item() <= chip_smoke.WIDE_SEPARATE_TOL

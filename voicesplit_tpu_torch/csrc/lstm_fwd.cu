@@ -76,8 +76,8 @@
 //   183,824 B at 24 rows, up to 30 rows; fp32 186,576 B (1 row) to 215,696
 //   B (8 rows; columns [100][456], read every step), up to 8 rows.
 //
-// lstm_fwd_grid_kernel, the grid route (lstm_fwd_grid in chip_smoke.py's
-// kernels line), for the shapes the walk cannot hold (H = 800: a block's
+// lstm_fwd_grid_kernel, the grid route (lstm_fwd_grid and bilstm_fwd_grid in
+// chip_smoke.py's kernels line), for the shapes the walk cannot hold (H = 800: a block's
 // columns would be 200 x 800 values, 320 KB in bf16): the port's first
 // forward kernel, a persistent cooperative grid.  Block b owns U = ceil(H /
 // #SMs) units (7 at H = 800 on 132 SMs, 115 blocks, all co-resident) and

@@ -34,6 +34,8 @@ it meets the Pallas kernel in interpret mode tightly.  The CUDA kernel sums
 all taps in fp32 and rounds once, which is more exact; in bf16 the two
 differ by a few roundings of the output (`chip_smoke.py` states the
 tolerance and reports the difference), in fp32 by summation order only.
+``conv_dilated_fwd_round_once_ref`` is the plain version with the CUDA
+kernel's rounding.
 
 Dispatch: a CUDA tensor goes to the kernel, or the call raises; the plain
 versions run only for tensors on the CPU.  Each kernel launch adds one to
@@ -52,7 +54,7 @@ import torch
 
 from voicesplit_tpu_torch.ops import _build
 from voicesplit_tpu_torch.ops.conv_fused import (
-    KERNEL_CHANNELS, _padded, check_fwd_kernel_takes, launch_wgrad_kernel,
+    KERNEL_CHANNELS, _conv_core, _padded, check_fwd_kernel_takes, launch_wgrad_kernel,
 )
 
 # kernel launches per wrapper, for showing that a run went through them
@@ -114,6 +116,14 @@ def conv_dilated_fwd_ref(x: torch.Tensor, w: torch.Tensor, dt: int) -> torch.Ten
         z = z.to(x.dtype)
         acc = z if acc is None else acc + z
     return acc.contiguous()
+
+
+def conv_dilated_fwd_round_once_ref(x: torch.Tensor, w: torch.Tensor, dt: int) -> torch.Tensor:
+    """The same conv with the CUDA kernel's rounding: every tap summed in
+    fp32, rounded once to the output type.  In fp32 it equals
+    `conv_dilated_fwd_ref` up to summation order; in bf16 it is what the
+    kernel is held to without the Pallas kernel's per-tap roundings."""
+    return _conv_core(x, w, dt).to(x.dtype).contiguous()
 
 
 def conv_dilated_wgrad_ref(x: torch.Tensor, dy: torch.Tensor, kt: int, kf: int,

@@ -15,10 +15,12 @@ Phases, each printing one JSON line:
    ROW_GROUP_BATCH rows a direction) with their cluster size, threads, row
    groups and rows a cluster, the clusters the card holds at once (at least
    one), registers and spilled bytes (none), both walks' routes, which
-   must be the cluster walk at H=400 and the grid route at GRID_HIDDEN
-   (the forward at B=1, 2 and two directions at B=8, the backward at B=2
-   and two directions at B=8, each with its blocks, resident blocks,
-   registers and spills, and the backward's ``w_shared``);
+   must be the cluster walk at H=400 and, at GRID_HIDDEN, WIDE_ROUTES in
+   bf16 (the split walk: the forward at B=1, 2 and two directions at B=8,
+   every cluster of the launch resident at once) and the grid route in fp32
+   and where the clusters are not all resident (two directions at B=24),
+   each with its blocks, resident blocks or clusters, registers and spills,
+   and the grid backward's ``w_shared``);
    the conv kernels' (the forward / data-gradient kernel body in its three
    modes, the weight-gradient kernel) per layer and batch (B=1, 2, 8; fp32
    at the reduced shape) beside the blocks the card holds at once, their
@@ -29,7 +31,8 @@ Phases, each printing one JSON line:
    same inputs giving the same bits: ``lstm_fwd`` (B=1, random h0/c0; hs,
    cs, gates, final (h, c)), ``bilstm_fwd`` (B=8, and ROW_GROUP_BATCH rows
    a direction), both on the cluster walk, ``lstm_fwd`` (B=1) and
-   ``bilstm_fwd`` (B=8) at GRID_HIDDEN on the grid route
+   ``bilstm_fwd`` (B=8) at GRID_HIDDEN on the split walk in bf16
+   (``lstm_fwd_split``, ``bilstm_fwd_split``) and on the grid route in fp32
    (``lstm_fwd_grid``, ``bilstm_fwd_grid``), ``lstm_bwd`` (B=2, random dhs, dhf,
    dcf; dxp, dW_hh, dh0, dc0) and ``bilstm_bwd`` (B=8 and ROW_GROUP_BATCH;
    dxp, both dW_hh), and both at GRID_HIDDEN on the backward's grid route
@@ -113,13 +116,13 @@ Phases, each printing one JSON line:
    outside train steps.
 11. separate wide — `configs/voicesplit_wide.json` (H=800, one extra (5,5)
    block at time dilation 32) served at B=1: `separate_batch` with both
-   LSTM directions on the forward's grid route (against the plain LSTM
+   LSTM directions on the forward's split walk (against the plain LSTM
    versions), again with ``VOICESPLIT_PALLAS_CONV=1`` (7 ``conv_dilated_fwd``
    launches; against the switch-off call), and through the serving CLI;
    latency p50, p75.
 12. train wide — the wide config at B=2 on each conv route (library convs,
    the dilated switch, the fused chain): one counted step (exact launches,
-   forward and backward on their grid routes), held against the plain
+   forward and backward on WIDE_ROUTES), held against the plain
    versions (the LSTM's; the conv kernels' in bf16 against plain versions
    that round once as the kernels do, and in fp32 compute), 8 timed steps
    whose loss must fall, peak memory; then `cli.train.main` on each route
@@ -127,12 +130,12 @@ Phases, each printing one JSON line:
 13. evaluate — `cli.test.main` on the last checkpoint of the train wide
    phase's library-conv run (SDR on the card, and on the host, which must
    agree within EVAL_SDR_TOL_DB), then `cli.sweep.main` over both
-   checkpoints (batches padded to 8 on the card: ``bilstm_fwd`` on the grid
-   route): finite metrics, the best-checkpoint copies and the curve.
+   checkpoints (batches padded to 8 on the card: ``bilstm_fwd`` on the
+   split walk): finite metrics, the best-checkpoint copies and the curve.
 
 Then a ``{"kernels": [...]}`` line (each kernel's ``main_path``: false for
-the two-direction backward's grid route, which no path takes and which is
-launched only in the backward kernels phase), the ``nvidia-smi``
+the routes no path takes, OFF_PATH, launched only in the kernels phases),
+the ``nvidia-smi``
 name/power-limit line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so
 the exit code is non-zero and no result line is printed.  It also exits
@@ -171,9 +174,16 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # (bf16 backward 23, fp32 11): the forward and backward kernels phases also
 # run both directions at this batch, over row groups of clusters
 ROW_GROUP_BATCH = 24
-# the forward's grid route (lstm_fwd_grid_kernel): a block's columns of W_hh
-# do not fit the cluster walk at configs/voicesplit_wide.json's lstm_dim
+# configs/voicesplit_wide.json's lstm_dim: a block's columns of W_hh do not
+# fit the cluster walk, so bf16 takes the split walk (two clusters a
+# direction and row group) and fp32 the grid route (lstm_fwd_grid_kernel,
+# lstm_bwd_grid_kernel)
 GRID_HIDDEN = 800
+# the routes the wide config's bf16 paths take at GRID_HIDDEN
+WIDE_ROUTES = {"forward": "split", "backward": "grid"}
+# where the clusters of a split walk are not all resident at once (two
+# directions of 24 rows: 8 clusters of 16, of 7 an H100 holds): the grid route
+NOT_RESIDENT_BATCH = 24
 # bf16: a different summation order can flip one bf16 rounding of h (or, in
 # the backward, of dgates), which then carries through the recurrence; fp32
 # (TF32 off) differs by order only.  The backward's errors are taken
@@ -182,7 +192,7 @@ GRID_HIDDEN = 800
 SEPARATE_TOL = 5e-2  # mask and peak-relative waveform error, kernel vs plain LSTM (bf16)
 # the same at the wide config (GRID_HIDDEN): its random-weight mask spans
 # only about [0.45, 0.57], so 5e-2 would pass a badly wrong LSTM output; the
-# grid route's flipped bf16 roundings move it by 4.9e-4 (mask) and 2.7e-4
+# grid route's flipped bf16 roundings moved it by 4.9e-4 (mask) and 2.7e-4
 # (waveform) on an H100, and a tenth of the spread is 1.2e-2
 WIDE_SEPARATE_TOL = 5e-3
 ROUNDTRIP_MIN_SNR_DB = 60.0
@@ -277,7 +287,7 @@ SEPARATE_DILATED_TOL = 5e-3
 # loosely by size, loss, grad_norm and running statistics more tightly.
 DILATED_STEP_TOL = {"loss_rel": 2e-2, "grad_norm_rel": 0.1, "grad_peak_rel": 0.3,
                     "grad_cosine_min": 0.97, "running_stat_abs": 2e-2}
-# The wide config (lstm_dim 800: the LSTM's grid routes; one extra (5,5)
+# The wide config (lstm_dim 800: the LSTM's WIDE_ROUTES; one extra (5,5)
 # block at time dilation 32, so seven kernel layers on the conv routes), at
 # its batch B=2: launches per train step by conv route
 WIDE_CONFIG = "configs/voicesplit_wide.json"
@@ -321,8 +331,10 @@ TRAINER_RESUME_TOL = 1e-3
 REPLACES = {
     "lstm_fwd": "voicesplit_tpu/ops/lstm_pallas.py:71",
     "lstm_fwd_grid": "voicesplit_tpu/ops/lstm_pallas.py:71",
+    "lstm_fwd_split": "voicesplit_tpu/ops/lstm_pallas.py:71",
     "bilstm_fwd": "voicesplit_tpu/ops/lstm_pallas.py:251",
     "bilstm_fwd_grid": "voicesplit_tpu/ops/lstm_pallas.py:251",
+    "bilstm_fwd_split": "voicesplit_tpu/ops/lstm_pallas.py:251",
     "lstm_bwd": "voicesplit_tpu/ops/lstm_pallas.py:135",
     "lstm_bwd_grid": "voicesplit_tpu/ops/lstm_pallas.py:135",
     "bilstm_bwd": "voicesplit_tpu/ops/lstm_pallas.py:317",
@@ -336,8 +348,10 @@ REPLACES = {
 SOURCES = {
     "lstm_fwd": "voicesplit_tpu_torch/csrc/lstm_fwd.cu",
     "lstm_fwd_grid": "voicesplit_tpu_torch/csrc/lstm_fwd.cu",
+    "lstm_fwd_split": "voicesplit_tpu_torch/csrc/lstm_fwd.cu",
     "bilstm_fwd": "voicesplit_tpu_torch/csrc/lstm_fwd.cu",
     "bilstm_fwd_grid": "voicesplit_tpu_torch/csrc/lstm_fwd.cu",
+    "bilstm_fwd_split": "voicesplit_tpu_torch/csrc/lstm_fwd.cu",
     "lstm_bwd": "voicesplit_tpu_torch/csrc/lstm_bwd.cu",
     "lstm_bwd_grid": "voicesplit_tpu_torch/csrc/lstm_bwd.cu",
     "bilstm_bwd": "voicesplit_tpu_torch/csrc/lstm_bwd.cu",
@@ -349,9 +363,10 @@ SOURCES = {
     "conv_dilated_wgrad": "voicesplit_tpu_torch/csrc/conv_wgrad.cu",
 }
 # kernels that the paths do not launch (the `kernels` line lists them with
-# "main_path": false): the two-direction backward's grid route, checked and
-# timed in the backward kernels phase at H=800 and B=8
-OFF_PATH = ("bilstm_bwd_grid",)
+# "main_path": false): the forward's grid route, which only fp32 takes at
+# H=800, and the two-direction backward's grid route (B=8), checked and timed
+# in the kernels phases
+OFF_PATH = ("lstm_fwd_grid", "bilstm_fwd_grid", "bilstm_bwd_grid")
 
 
 def emit(phase: str, **fields) -> None:
@@ -490,25 +505,34 @@ def phase_build(torch, lstm_cuda, conv_fused) -> None:
         for dt in ("bfloat16", "float32")
     }
     # both LSTM walks: clusters of 16 blocks, one a direction and row group,
-    # which the card must hold at least once, with no spilled byte; the
-    # forward at H=400 on the cluster walk, at H=800 on the grid route
+    # which the card must hold at least once, with no spilled byte, at H=400
+    # on the cluster walk
     for key, gr in grids.items():
         check(gr.get("route", "cluster") == "cluster", f"{key}: not on the cluster walk ({gr})")
         check(gr["max_active_clusters"] >= 1, f"{key}: no cluster fits the card ({gr})")
         check(gr["local_bytes"] == 0, f"{key}: {gr['local_bytes']} local (spilled) bytes a thread")
-    # at GRID_HIDDEN (the wide config) both the forward (serving B=1, training
-    # B=2, two directions at B=8 in both types) and the backward (B=2 and two
-    # directions at B=8, both types) on
-    # the grid route, with every block resident at once and no spilled byte
-    wide = [("lstm_fwd", 1, 1, False, "bfloat16"), ("lstm_fwd", 1, 2, False, "bfloat16")]
-    wide += [("bilstm_fwd", 2, 8, False, dt) for dt in ("bfloat16", "float32")]
-    wide += [(name, d, b, True, dt) for name, d, b in (("lstm_bwd", 1, 2), ("bilstm_bwd", 2, 8))
-             for dt in ("bfloat16", "float32")]
+    # at GRID_HIDDEN (the wide config) the forward (serving B=1, training B=2,
+    # two directions at B=8) and the backward (B=2 and two directions at B=8)
+    # on WIDE_ROUTES in bf16, the grid route in fp32 and where the split
+    # walk's clusters are not all resident at once (NOT_RESIDENT_BATCH): every
+    # cluster or block of the launch resident at once and no spilled byte
+    wide = [(name, d, b, bwd, dt) for name, d, b, bwd in (
+        ("lstm_fwd", 1, 1, False), ("lstm_fwd", 1, 2, False), ("bilstm_fwd", 2, 8, False),
+        ("lstm_bwd", 1, 2, True), ("bilstm_bwd", 2, 8, True)) for dt in ("bfloat16", "float32")]
+    wide += [(name, 2, NOT_RESIDENT_BATCH, bwd, "bfloat16")
+             for name, bwd in (("bilstm_fwd", False), ("bilstm_bwd", True))]
     for name, d, b, bwd, dt in wide:
         key = f"{name}_B{b}_H{GRID_HIDDEN}_{dt}"
         gr = grids[key] = lstm_cuda.launch_config(d, b, GRID_HIDDEN, getattr(torch, dt), bwd)
-        check(gr["route"] == "grid", f"{key}: not on the grid route ({gr})")
-        check(gr["resident_blocks"] >= gr["blocks"], f"{key}: more blocks than resident ({gr})")
+        want = WIDE_ROUTES["backward" if bwd else "forward"]
+        if dt == "float32" or b == NOT_RESIDENT_BATCH:
+            want = "grid"
+        check(gr["route"] == want, f"{key}: not on the {want} route ({gr})")
+        if want == "grid":
+            check(gr["resident_blocks"] >= gr["blocks"], f"{key}: more blocks than resident ({gr})")
+        else:
+            check(gr["max_active_clusters"] >= gr["blocks"] // gr["cluster"],
+                  f"{key}: more clusters than resident ({gr})")
         check(gr["local_bytes"] == 0, f"{key}: {gr['local_bytes']} local (spilled) bytes a thread")
     # conv_dilated_fwd, conv_dgrad and conv_bn_act_fwd share the forward
     # kernel body, conv_wgrad and conv_dilated_wgrad the weight-gradient
@@ -537,10 +561,10 @@ def phase_build(torch, lstm_cuda, conv_fused) -> None:
 
 
 def _fwd_case(torch, lstm_cuda, g, directions: int, batch: int, H: int, route: str,
-              timed: bool) -> dict:
+              timed: bool, dtypes=("bfloat16", "float32")) -> dict:
     """One forward kernel against its plain version on the card at (batch,
-    H), both operand types: errors, two launches with the same bits, the
-    route they took; with `timed`, kernel and plain times."""
+    H), in `dtypes`: errors, two launches with the same bits, the route they
+    took; with `timed`, kernel and plain times."""
     dev = torch.device("cuda")
     T, R = T_FRAMES, directions * batch
     s = H ** -0.5
@@ -550,7 +574,7 @@ def _fwd_case(torch, lstm_cuda, g, directions: int, batch: int, H: int, route: s
     c0 = torch.randn(R, H, generator=g).to(dev)
     name = "lstm_fwd" if directions == 1 else "bilstm_fwd"
     entry = {}
-    for dt in ("bfloat16", "float32"):
+    for dt in dtypes:
         dtype = getattr(torch, dt)
         xp = xp32.to(dev, dtype)
         ws = [w.to(dev, dtype) for w in ws32]
@@ -605,8 +629,9 @@ def _cudnn_lstm_ms(torch, g, directions: int, batch: int, H: int) -> float:
 def phase_kernels(torch, lstm_cuda, seed: int) -> dict:
     """Forward kernels vs their plain versions on the card, both operand
     types, at the paths' shapes on the cluster walk, at ROW_GROUP_BATCH rows
-    a direction (row groups) and at GRID_HIDDEN on the grid route; times at
-    the path's operand type (bf16)."""
+    a direction (row groups) and at GRID_HIDDEN (bf16 on the split walk,
+    fp32 on the grid route); times at the path's operand type (bf16) and on
+    the grid route in fp32."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     T, H = T_FRAMES, HIDDEN
     results = {}
@@ -622,17 +647,18 @@ def phase_kernels(torch, lstm_cuda, seed: int) -> dict:
         "batch": ROW_GROUP_BATCH, "bf16": entry["bfloat16"], "fp32": entry["float32"],
         **lstm_bound(2, ROW_GROUP_BATCH, "bfloat16")}
     emit("kernels", kernel="bilstm_fwd", T=T, H=H, **results["bilstm_fwd"]["row_groups"])
-    # the grid route at GRID_HIDDEN: one direction as the wide config serves
-    # and trains it, two at B=8 as the evaluation sweep's padded batches run
+    # at GRID_HIDDEN: one direction as the wide config serves and trains it,
+    # two at B=8 as the evaluation sweep's padded batches run; bf16 on the
+    # split walk, fp32 on the grid route
     for name, directions, batch in (("lstm_fwd", 1, 1), ("bilstm_fwd", 2, 8)):
-        entry = _fwd_case(torch, lstm_cuda, g, directions, batch, GRID_HIDDEN, "grid", timed=True)
-        results[f"{name}_grid"] = {
-            "bf16": entry["bfloat16"], "fp32": entry["float32"],
-            "library_ms": _cudnn_lstm_ms(torch, g, directions, batch, GRID_HIDDEN),
-            **lstm_bound(directions, batch, "bfloat16", GRID_HIDDEN)}
-        emit("kernels", kernel=f"{name}_grid", batch=batch, T=T, H=GRID_HIDDEN,
-             bound_fp32=lstm_bound(directions, batch, "float32", GRID_HIDDEN),
-             **results[f"{name}_grid"])
+        library_ms = _cudnn_lstm_ms(torch, g, directions, batch, GRID_HIDDEN)
+        for route, dt, key in (("split", "bfloat16", "bf16"), ("grid", "float32", "fp32")):
+            entry = _fwd_case(torch, lstm_cuda, g, directions, batch, GRID_HIDDEN, route, timed=True,
+                              dtypes=(dt,))
+            results[f"{name}_{route}"] = {key: entry[dt], "library_ms": library_ms,
+                                          **lstm_bound(directions, batch, dt, GRID_HIDDEN)}
+            emit("kernels", kernel=f"{name}_{route}", batch=batch, T=T, H=GRID_HIDDEN,
+                 **results[f"{name}_{route}"])
     return results
 
 
@@ -793,22 +819,31 @@ class _PlainVersions:
 LSTM_WRAPPERS = ("lstm_fwd", "bilstm_fwd", "lstm_bwd", "bilstm_bwd")
 
 
-def _check_routes(lstm_cuda, launches: dict, what: str, route: str = "cluster") -> dict:
+def _route_name(name: str, route: str) -> str:
+    """A wrapper's name on `route` as the kernels line names it: the cluster
+    walk under the wrapper's own name, the others with the route appended."""
+    return name if route == "cluster" else f"{name}_{route}"
+
+
+def _check_routes(lstm_cuda, launches: dict, what: str, routes=None) -> dict:
     """Checks that every LSTM launch counted in `launches` (the wrappers'
-    counts since the counters were zeroed), forward and backward, took
-    `route`: the cluster walk at H=400, the grid route at GRID_HIDDEN.
-    Returns `launches` with each wrapper's count under its own name for the
-    cluster walk and under ``<name>_grid`` for the grid route, as the
-    kernels line names them."""
+    counts since the counters were zeroed) took its route: `routes` maps
+    "forward" and "backward" to a route of `lstm_cuda.ROUTES` /
+    `ROUTES_BWD` (default: the cluster walk, as at H=400; WIDE_ROUTES at
+    GRID_HIDDEN).  Returns `launches` with each wrapper's count under its
+    name on that route (`_route_name`), zero under its other routes' names,
+    as the kernels line names them."""
+    routes = routes or {"forward": "cluster", "backward": "cluster"}
     fwd = launches["lstm_fwd"] + launches["bilstm_fwd"]
     bwd = launches["lstm_bwd"] + launches["bilstm_bwd"]
-    for kind, routes, n in (("forward", lstm_cuda.ROUTES, fwd), ("backward", lstm_cuda.ROUTES_BWD, bwd)):
-        check(routes[route] == n and sum(routes.values()) == n,
-              f"{what}: {kind} routes {routes}, {n} launches, wanted {route}")
+    for kind, counts, n in (("forward", lstm_cuda.ROUTES, fwd), ("backward", lstm_cuda.ROUTES_BWD, bwd)):
+        check(counts[routes[kind]] == n and sum(counts.values()) == n,
+              f"{what}: {kind} routes {counts}, {n} launches, wanted {routes[kind]}")
     out = dict(launches)
     for k in LSTM_WRAPPERS:
-        out[f"{k}_grid"] = launches[k] if route == "grid" else 0
-        out[k] = launches[k] if route == "cluster" else 0
+        kind = "backward" if k.endswith("bwd") else "forward"
+        for route in ("cluster", "split", "grid"):
+            out[_route_name(k, route)] = launches[k] if route == routes[kind] else 0
     return out
 
 
@@ -1828,7 +1863,7 @@ def _add(total: dict, counted: dict) -> None:
 
 def phase_separate_wide(torch, lstm_cuda, cc, seed: int, profile_dir, tmp: Path) -> dict:
     """`configs/voicesplit_wide.json` served at B=1: `separate_batch` (both
-    LSTM directions on the forward's grid route, the extra dilated block
+    LSTM directions on the forward's split walk, the extra dilated block
     through cuDNN, then with `VOICESPLIT_PALLAS_CONV=1` through
     `conv_dilated_fwd`, 7 launches a call) and the serving CLI on a
     synthetic mixture, held against the plain LSTM versions and the switch-off
@@ -1858,7 +1893,7 @@ def phase_separate_wide(torch, lstm_cuda, cc, seed: int, profile_dir, tmp: Path)
     out = separate_batch(model, ap, mixed, emb)
     counted = _counts(torch, lstm_cuda, cc)
     check(counted == {**zero, "lstm_fwd": 2}, f"launches per call {counted}")
-    counted = _check_routes(lstm_cuda, counted, "separate wide", "grid")
+    counted = _check_routes(lstm_cuda, counted, "separate wide", WIDE_ROUTES)
     _add(launches, counted)
     check(tuple(out.shape) == (1, n) and bool(torch.isfinite(out).all()), "output")
     with torch.inference_mode():
@@ -1890,7 +1925,7 @@ def phase_separate_wide(torch, lstm_cuda, cc, seed: int, profile_dir, tmp: Path)
         counted = _counts(torch, lstm_cuda, cc)
         check(counted == {**zero, "lstm_fwd": 2, "conv_dilated_fwd": WIDE_KERNEL_LAYERS},
               f"launches per call with the switch {counted}")
-        counted = _check_routes(lstm_cuda, counted, "separate wide, switch", "grid")
+        counted = _check_routes(lstm_cuda, counted, "separate wide, switch", WIDE_ROUTES)
         _add(launches, counted)
         with torch.inference_mode():
             mask_on = model(spec, emb)
@@ -1915,7 +1950,7 @@ def phase_separate_wide(torch, lstm_cuda, cc, seed: int, profile_dir, tmp: Path)
     separate_main(["-c", str(ROOT / WIDE_CONFIG), "--weights", str(tmp / "wide.pt"),
                    "--mixed_wav", mix_path, "--emb", emb_path, "--output", str(tmp / "out.wav")])
     cli_s = time.perf_counter() - t0
-    counted = _check_routes(lstm_cuda, _counts(torch, lstm_cuda, cc), "separate CLI", "grid")
+    counted = _check_routes(lstm_cuda, _counts(torch, lstm_cuda, cc), "separate CLI", WIDE_ROUTES)
     _add(launches, counted)
     wav = ap.load_wav(str(tmp / "out.wav"))
     check(wav.shape == (n,) and bool(np.isfinite(wav).all()), f"CLI output {wav.shape}")
@@ -1951,7 +1986,7 @@ def _fp32_step_vs_plain(torch, config, ap, batch, seed: int, module, last: int) 
 
 def phase_train_wide(torch, lstm_cuda, cf, cc, seed: int, profile_dir, tmp: Path):
     """`configs/voicesplit_wide.json` trained at B=2 on each conv route: one
-    counted step (the LSTM's forward and backward on their grid routes, the
+    counted step (the LSTM's forward and backward on WIDE_ROUTES, the
     conv kernels at the extra block's dilation 32 on the kernel routes)
     against the plain versions, timed steps on a fixed batch whose loss must
     fall; then the training CLI on each route over a synthetic dataset, with
@@ -1993,7 +2028,7 @@ def phase_train_wide(torch, lstm_cuda, cf, cc, seed: int, profile_dir, tmp: Path
             counted = _counts(torch, *modules)
             want = {**zero, **WIDE_TRAIN_LAUNCHES, **WIDE_CONV_LAUNCHES[route]}
             check(counted == want, f"{route}: launches per step {counted}, expected {want}")
-            counted = _check_routes(lstm_cuda, counted, f"train wide {route}", "grid")
+            counted = _check_routes(lstm_cuda, counted, f"train wide {route}", WIDE_ROUTES)
             _add(launches, counted)
             loss0, gn0 = float(mk["loss"]), float(mk["grad_norm"])
             check(np.isfinite(loss0) and not bool(mk["loss_exploded"]), f"{route}: loss {loss0}")
@@ -2082,7 +2117,7 @@ def phase_train_wide(torch, lstm_cuda, cf, cc, seed: int, profile_dir, tmp: Path
         if route == "pallas_conv":
             want["conv_dilated_fwd"] += WIDE_KERNEL_LAYERS * n_evals * WIDE_CLI_EVAL_ITEMS
         check(counted == want, f"{route} CLI: launches {counted}, expected {want}")
-        counted = _check_routes(lstm_cuda, counted, f"train wide CLI {route}", "grid")
+        counted = _check_routes(lstm_cuda, counted, f"train wide CLI {route}", WIDE_ROUTES)
         _add(launches, counted)
         records = _read_metrics(run)
         losses = [r["train_loss"] for r in records if "train_loss" in r]
@@ -2128,7 +2163,7 @@ def phase_evaluate(torch, lstm_cuda, seed: int, tmp: Path, run, config) -> dict:
         t0 = time.perf_counter()
         metrics = test_main(["--checkpoint_path", ckpts[-1], "--test_dir", config.dataset.test_dir])
         test_s = time.perf_counter() - t0
-        test_counted = _check_routes(lstm_cuda, _counts(torch, lstm_cuda), "cli test", "grid")
+        test_counted = _check_routes(lstm_cuda, _counts(torch, lstm_cuda), "cli test", WIDE_ROUTES)
         _add(launches, test_counted)
         check(sorted(metrics) == ["loss", "sdr", "si_snr", "si_snri"]
               and all(np.isfinite(v) for v in metrics.values()), f"cli test: {metrics}")
@@ -2140,7 +2175,7 @@ def phase_evaluate(torch, lstm_cuda, seed: int, tmp: Path, run, config) -> dict:
         t0 = time.perf_counter()
         swept = sweep_main(["--checkpoints_path", str(run), "--test_dir", config.dataset.test_dir])
         sweep_s = time.perf_counter() - t0
-        sweep_counted = _check_routes(lstm_cuda, _counts(torch, lstm_cuda), "cli sweep", "grid")
+        sweep_counted = _check_routes(lstm_cuda, _counts(torch, lstm_cuda), "cli sweep", WIDE_ROUTES)
         _add(launches, sweep_counted)
     check(swept["n_checkpoints"] == 2 and swept["best_path"] in ckpts, f"cli sweep: {swept}")
     copies = sorted(p.name for p in run.iterdir() if p.name.startswith(("best_", "sdr_curve")))
@@ -2170,8 +2205,8 @@ PORT_KERNEL_KINDS = (
     # the weight gradient of both conv paths
     ("conv weight-gradient kernels", ("conv_wgrad_kernel", "conv_wgrad_kf1_kernel",
                                       "reduce_taps_kernel")),
-    ("lstm kernels", ("lstm_fwd_kernel", "lstm_fwd_grid_kernel", "lstm_bwd_kernel",
-                      "lstm_bwd_grid_kernel", "lstm_dwhh_kernel")),
+    ("lstm kernels", ("lstm_fwd_kernel", "lstm_fwd_split_kernel", "lstm_fwd_grid_kernel",
+                      "lstm_bwd_kernel", "lstm_bwd_grid_kernel", "lstm_dwhh_kernel")),
 )
 LIBRARY_KERNEL_KINDS = (
     ("convs", ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad")),
@@ -2297,20 +2332,25 @@ def main(argv=None) -> int:
         print(json.dumps({"ok": True, "partial": phases, "device": device}))
         return 0
     # each kernel's launches come from the counted run of the path it serves
-    home = {"lstm_fwd": "separate", "bilstm_fwd": "separate", "lstm_fwd_grid": "separate_wide",
-            "bilstm_fwd_grid": "evaluate",
+    home = {"lstm_fwd": "separate", "bilstm_fwd": "separate",
+            "lstm_fwd_split": "separate_wide", "bilstm_fwd_split": "evaluate",
+            "lstm_fwd_grid": "separate_wide", "bilstm_fwd_grid": "evaluate",
             "lstm_bwd": "train", "bilstm_bwd": "train",
             "lstm_bwd_grid": "train_wide", "bilstm_bwd_grid": "train_wide",
             "conv_bn_act_fwd": "train_fused", "conv_dgrad": "train_fused",
             "conv_wgrad": "train_fused",
             "conv_dilated_fwd": "trainer", "conv_dilated_wgrad": "trainer"}
+    # each kernel's figures in the type its path runs (bf16), or, for a route
+    # that only fp32 takes (the forward's grid route at GRID_HIDDEN), in fp32
     kernels = [
         {
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": by_path[home[name]][name],
+            "replaces": REPLACES[name], "launches": by_path[home[name]].get(name, 0),
             "launches_by_path": {p: c.get(name, 0) for p, c in by_path.items()},
-            "max_abs_err": r["bf16"]["max_abs_err"], "max_abs_err_fp32": r["fp32"]["max_abs_err"],
-            "ms": r["bf16"]["ms"], "plain_ms": r["bf16"]["plain_ms"],
+            "dtype": "bfloat16" if "bf16" in r else "float32",
+            "max_abs_err": r.get("bf16", r.get("fp32"))["max_abs_err"],
+            "max_abs_err_fp32": r["fp32"]["max_abs_err"] if "fp32" in r else None,
+            "ms": r.get("bf16", r.get("fp32"))["ms"], "plain_ms": r.get("bf16", r.get("fp32"))["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **{k: r[k] for k in ("timed_at", "ms_by_batch_and_layer", "row_groups") if k in r},
         }
@@ -2318,10 +2358,10 @@ def main(argv=None) -> int:
     ]
     check(len(kernels) == len(home), f"{len(kernels)} kernels reported, {len(home)} ported")
     for k in kernels:
-        # the grid routes serve the shapes the cluster walks cannot hold
-        # (H=800, the wide config); the wide paths take the one-direction
-        # ones at B=1 and B=2, the two-direction backward only at a batch
-        # that is a multiple of 8
+        # the split walks and grid routes serve the shapes the cluster walks
+        # cannot hold (H=800, the wide config): the wide paths take
+        # WIDE_ROUTES in bf16 at B=1 and B=2 and, forward, two directions at
+        # B=8 (the evaluation sweep); the grid routes off them are OFF_PATH
         k["main_path"] = k["name"] not in OFF_PATH
         check(k["launches"] > 0 or not k["main_path"], f"{k['name']} was not launched on its path")
     print(json.dumps({"kernels": kernels}))

@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
-"""Where a step of the port's forward LSTM walk spends its cycles, on the card.
+"""Where a step of the port's forward LSTM walks spends its cycles, on the card.
 
-    python3 scripts/port_lstm_phases.py [--root DIR] [--work DIR] [--tag NAME]
+    python3 scripts/port_lstm_phases.py [--root DIR] [--work DIR] [--tag NAME] [--walks cluster,split]
 
 Copies DIR's `voicesplit_tpu_torch` (default: this checkout's) into WORK
 (default: ``compare/phases-<tag>``, git-ignored), adds ``clock64()``
-counters to the copy's `csrc/lstm_fwd.cu` (thread 0 and thread 352, the
-first warp and the last, of block 0; the steps after the first) and a C
-entry that reads them, builds the copy and runs ``lstm_fwd`` at B=1 and B=2
-and ``bilstm_fwd`` at B=8 and B=24 (T=301, H=400, bf16 and fp32).  Prints
-one JSON line per case: its time (CUDA events, the mean of 10 calls, with
-the counters in: a little above the kernel's own) and the mean cycles a
-step of
+counters to the copy's `csrc/lstm_fwd.cu` and a C entry that reads them,
+builds the copy and runs each walk (the steps after the first; CUDA events
+around 10 calls with the counters in, a little above the kernel's own time).
+Prints one JSON line per case with the mean cycles a step of each phase.
+
+The cluster walk (``lstm_fwd_kernel``; ``lstm_fwd`` at B=1 and B=2,
+``bilstm_fwd`` at B=8 and B=24; T=301, H=400, bf16 and fp32), thread 0 and
+thread 352 (the first warp and the last) of block 0:
 
 - ``wait``: waiting for h[t-1] on the mbarrier;
 - ``product``: the step's product, up to this thread's last partial (bf16;
@@ -20,9 +21,29 @@ step of
 - ``cell``: the cell update and the __syncthreads after it;
 - ``send``: sending h[t] and loading the next step's xp.
 
-The counters are patched into the copy at fixed places of the walk's source
-(the script stops if one is not found), so they time the tree as it is;
-the checkout itself is not touched.
+The split walk (``lstm_fwd_split_kernel``, where the tree has it;
+``lstm_fwd`` at B=1 and B=2, ``bilstm_fwd`` at B=8; T=301, H=800, bf16),
+thread 0 of block 0 (the first cluster of the pair), thread 352 of block 0
+(the warp that publishes h to the other cluster) and thread 0 of block 16
+(the second cluster):
+
+- ``wait``: waiting for this cluster's h[t-1] on the mbarrier;
+- ``product_local``: the product's k-steps issued before the other
+  cluster's h is needed;
+- ``counter``: thread 0 spinning on the other cluster's counter and issuing
+  the bulk copy of its h (the other threads pass at once);
+- ``copy``: waiting for that copy on the mbarrier;
+- ``product``: the rest of the product, up to the accumulators' wait;
+- ``partials``: the warpgroups' partials into shared memory and the
+  __syncthreads that completes them;
+- ``cell``: the cell update and the __syncthreads after it;
+- ``send``: sending h[t] (thread 0: to this cluster's owners by st.async;
+  thread 352: to the pair's global slot, then the counter) and loading the
+  next step's xp.
+
+The counters are patched into the copy at fixed places of each walk's
+source (the script stops if one is not found), so they time the tree as it
+is; the checkout itself is not touched.
 """
 
 from __future__ import annotations
@@ -35,14 +56,19 @@ import subprocess
 import sys
 from pathlib import Path
 
-T_FRAMES, HIDDEN = 301, 400
-CASES = (("lstm_fwd", 1, 1), ("lstm_fwd", 1, 2), ("bilstm_fwd", 2, 8), ("bilstm_fwd", 2, 24))
+T_FRAMES = 301
+CLUSTER_CASES = (("lstm_fwd", 1, 1), ("lstm_fwd", 1, 2), ("bilstm_fwd", 2, 8), ("bilstm_fwd", 2, 24))
+SPLIT_CASES = (("lstm_fwd", 1, 1), ("lstm_fwd", 1, 2), ("bilstm_fwd", 2, 8))
 PHASES = ("wait", "product", "sync", "cell", "send")
+SPLIT_PHASES = ("wait", "product_local", "counter", "copy", "product", "partials", "cell", "send")
 
-# (text of the walk, text that replaces it)
+GLOBALS = ("namespace cg = cooperative_groups;\n\nnamespace {",
+           "namespace cg = cooperative_groups;\n__device__ unsigned long long g_phases[8];\n"
+           "__device__ unsigned long long g_split[24];\n\nnamespace {")
+# The cluster walk's region of the source, and (text of the walk, text that
+# replaces it) within it
+CLUSTER_REGION = ("lstm_fwd_kernel(const T* __restrict__ xp", "// The split walk")
 PATCHES = (
-    ("namespace cg = cooperative_groups;\n\nnamespace {",
-     "namespace cg = cooperative_groups;\n__device__ unsigned long long g_phases[8];\n\nnamespace {"),
     ("  uint32_t parity = 0;  // bit x: parity of slot x's phase to wait for\n"
      "  for (int t = 0; Uk > 0 && t < T_; ++t) {",
      "  uint32_t parity = 0;  // bit x: parity of slot x's phase to wait for\n"
@@ -69,20 +95,92 @@ PATCHES = (
      "  if (blockIdx.x == 0 && tid == 352) for (int i = 0; i < 3; ++i) g_phases[5 + i] = pa[i] / (pa[5] ? pa[5] : 1);\n"
      "  cluster.sync();  // no block leaves while a peer may still write to it"),
 )
+# the split walk's
+SPLIT_REGION = ("lstm_fwd_split_kernel(const __nv_bfloat16* __restrict__ xp", "// The grid route")
+SPLIT_PATCHES = (
+    ("  uint32_t parity = 0;  // bit x: parity of barrier x's phase to wait for\n"
+     "  for (int t = 0; m >= 0 && t < T_; ++t) {",
+     "  uint32_t parity = 0;  // bit x: parity of barrier x's phase to wait for\n"
+     "  unsigned long long pa[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};\n"
+     "  long long tA, tB, tE0, tE1, tE2, tW, tC, tD, tS;\n"
+     "  for (int t = 0; m >= 0 && t < T_; ++t) {\n"
+     "    tA = clock64();"),
+    ("    T* hin = recv + in_slot * slot;",
+     "    tB = clock64();\n    tE0 = tE1 = tE2 = tB;\n    T* hin = recv + in_slot * slot;"),
+    ("      const int rb = 2 + in_slot;\n", "      const int rb = 2 + in_slot;\n      tE0 = clock64();\n"),
+    ("      bar_wait_asm(bars + rb, ",
+     "      tE1 = clock64();\n      bar_wait_asm(bars + rb, "),
+    ("      parity ^= uint32_t(go) << rb;\n",
+     "      parity ^= uint32_t(go) << rb;\n      tE2 = clock64();\n"),
+    ("    wgmma_wait<0>();\n", "    wgmma_wait<0>();\n    tW = clock64();\n"),
+    ("    __syncthreads();  // the product complete",
+     "    __syncthreads();  // the product complete\n    tC = clock64();"),
+    ("    __syncthreads();  // the stage is complete; every read of the product and of slot in_slot is done",
+     "    __syncthreads();  // the stage is complete; every read of the product and of slot in_slot is done\n"
+     "    tD = clock64();"),
+    ("    if (t + 1 < T_) prefetch(t + 1);  // loads while h travels\n",
+     "    if (t + 1 < T_) prefetch(t + 1);  // loads while h travels\n"
+     "    tS = clock64();\n"
+     "    if (t > 0) { pa[0] += tB - tA; pa[1] += tE0 - tB; pa[2] += tE1 - tE0; pa[3] += tE2 - tE1;"
+     " pa[4] += tW - tE2; pa[5] += tC - tW; pa[6] += tD - tC; pa[7] += tS - tD; pa[8] += 1; }\n"),
+    ("  cluster.sync();  // no block leaves while a peer may still write to it",
+     "  {\n    const int at = blockIdx.x == 0 && tid == 0 ? 0 : blockIdx.x == 0 && tid == 352 ? 8"
+     " : blockIdx.x == kCluster && tid == 0 ? 16 : -1;\n"
+     "    if (at >= 0) for (int i = 0; i < 8; ++i) g_split[at + i] = pa[i] / (pa[8] ? pa[8] : 1);\n  }\n"
+     "  cluster.sync();  // no block leaves while a peer may still write to it"),
+)
 READER = """
 extern "C" int lstm_fwd_phases(unsigned long long* host) {
   return cudaMemcpyFromSymbol(host, g_phases, sizeof(unsigned long long) * 8);
 }
+extern "C" int lstm_fwd_split_phases(unsigned long long* host) {
+  return cudaMemcpyFromSymbol(host, g_split, sizeof(unsigned long long) * 24);
+}
 """
 
 
-def patch(src: Path) -> None:
-    text = src.read_text()
-    for old, new in PATCHES:
-        if text.count(old) != 1:
+def _patch_region(text: str, region, patches, src: Path) -> str:
+    start = text.find(region[0])
+    end = text.find(region[1], start)
+    if start < 0 or end < 0:
+        raise SystemExit(f"port_lstm_phases: {src} does not hold the region {region}")
+    part = text[start:end]
+    for old, new in patches:
+        if part.count(old) != 1:
             raise SystemExit(f"port_lstm_phases: {src} does not hold the walk this script patches:\n{old}")
-        text = text.replace(old, new)
-    src.write_text(text + READER)
+        part = part.replace(old, new)
+    return text[:start] + part + text[end:]
+
+
+def patch(src: Path) -> bool:
+    """Patches the counters into `src`; True if it holds the split walk."""
+    text = src.read_text()
+    if text.count(GLOBALS[0]) != 1:
+        raise SystemExit(f"port_lstm_phases: {src} does not hold:\n{GLOBALS[0]}")
+    text = text.replace(*GLOBALS)
+    split = SPLIT_REGION[0] in text
+    if split:
+        text = _patch_region(text, SPLIT_REGION, SPLIT_PATCHES, src)
+        text = _patch_region(text, CLUSTER_REGION, PATCHES, src)
+        src.write_text(text + READER)
+    else:  # a tree before the split walk: the cluster walk ends at the grid route
+        text = _patch_region(text, (CLUSTER_REGION[0], SPLIT_REGION[1]), PATCHES, src)
+        src.write_text(text + READER.split('extern "C" int lstm_fwd_split_phases')[0])
+    return split
+
+
+def _timed(torch, run) -> float:
+    with torch.inference_mode():
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            run()
+        end.record()
+        end.synchronize()
+    return start.elapsed_time(end) / 10
 
 
 def main(argv=None) -> int:
@@ -91,12 +189,14 @@ def main(argv=None) -> int:
     parser.add_argument("--root", default=str(repo))
     parser.add_argument("--tag", default="this")
     parser.add_argument("--work", default=None)
+    parser.add_argument("--walks", default="cluster,split")
     args = parser.parse_args(argv)
+    walks = set(args.walks.split(","))
     work = Path(args.work or repo / "compare" / f"phases-{args.tag}").resolve()
     shutil.rmtree(work, ignore_errors=True)
     shutil.copytree(Path(args.root).resolve() / "voicesplit_tpu_torch", work / "voicesplit_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    patch(work / "voicesplit_tpu_torch" / "csrc" / "lstm_fwd.cu")
+    has_split = patch(work / "voicesplit_tpu_torch" / "csrc" / "lstm_fwd.cu")
     sys.path.insert(0, str(work))
 
     import torch
@@ -108,41 +208,45 @@ def main(argv=None) -> int:
 
     lib = lstm_cuda._library()
     lib.lstm_fwd_phases.argtypes = [ctypes.c_void_p]
+    if has_split:
+        lib.lstm_fwd_split_phases.argtypes = [ctypes.c_void_p]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
-    buf = (ctypes.c_ulonglong * 8)()
-    T, H = T_FRAMES, HIDDEN
     g = torch.Generator().manual_seed(0)
-    for name, D, B in CASES:
-        for dt in (torch.bfloat16, torch.float32):
-            R = D * B
-            xp = torch.randn(T, R, 4 * H, generator=g).to("cuda", dt)
-            ws = [(torch.rand(H, 4 * H, generator=g) * 0.1 - 0.05).to("cuda", dt) for _ in range(2)]
-            h0 = torch.zeros(R, H, device="cuda")
-            c0 = torch.zeros_like(h0)
-            if D == 1:
-                run = lambda: lstm_cuda.lstm_fwd(xp, ws[0], h0, c0)  # noqa: E731
-            else:
-                run = lambda: lstm_cuda.bilstm_fwd(xp, ws[0], ws[1])  # noqa: E731
-            with torch.inference_mode():
-                for _ in range(3):
-                    run()
-                torch.cuda.synchronize()
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                start.record()
-                for _ in range(10):
-                    run()
-                end.record()
-                end.synchronize()
+    cases = [("cluster", *c, 400, dt) for c in CLUSTER_CASES for dt in (torch.bfloat16, torch.float32)
+             if "cluster" in walks]
+    if has_split and "split" in walks:
+        cases += [("split", *c, 800, torch.bfloat16) for c in SPLIT_CASES]
+    for walk, name, D, B, H, dt in cases:
+        T, R = T_FRAMES, D * B
+        xp = torch.randn(T, R, 4 * H, generator=g).to("cuda", dt)
+        s = H ** -0.5
+        ws = [torch.empty(H, 4 * H).uniform_(-s, s, generator=g).to("cuda", dt) for _ in range(2)]
+        h0 = torch.zeros(R, H, device="cuda")
+        c0 = torch.zeros_like(h0)
+        if D == 1:
+            run = lambda: lstm_cuda.lstm_fwd(xp, ws[0], h0, c0)  # noqa: E731
+        else:
+            run = lambda: lstm_cuda.bilstm_fwd(xp, ws[0], ws[1])  # noqa: E731
+        routes = dict(lstm_cuda.ROUTES)
+        ms = _timed(torch, run)
+        took = [k for k, v in lstm_cuda.ROUTES.items() if v != routes[k]]
+        out = {"tag": args.tag, "root": str(Path(args.root).resolve()), "nvidia_smi": smi,
+               "walk": walk, "route": took, "kernel": name, "batch": B, "H": H,
+               "dtype": str(dt).removeprefix("torch."), "ms_with_counters": ms}
+        if walk == "cluster":
+            buf = (ctypes.c_ulonglong * 8)()
             lstm_cuda._raise_on(lib.lstm_fwd_phases(ctypes.addressof(buf)), "lstm_fwd_phases")
             cycles = list(buf)
-            print(json.dumps({
-                "tag": args.tag, "root": str(Path(args.root).resolve()), "nvidia_smi": smi,
-                "kernel": name, "batch": B, "dtype": str(dt).removeprefix("torch."),
-                "ms_with_counters": start.elapsed_time(end) / 10,
-                "cycles_a_step_thread0": dict(zip(PHASES, cycles[:5])),
-                "cycles_a_step_thread352": dict(zip(PHASES[:3], cycles[5:8])),
-            }), flush=True)
+            out["cycles_a_step_thread0"] = dict(zip(PHASES, cycles[:5]))
+            out["cycles_a_step_thread352"] = dict(zip(PHASES[:3], cycles[5:8]))
+        else:
+            buf = (ctypes.c_ulonglong * 24)()
+            lstm_cuda._raise_on(lib.lstm_fwd_split_phases(ctypes.addressof(buf)), "lstm_fwd_split_phases")
+            cycles = list(buf)
+            for i, who in enumerate(("block0_thread0", "block0_thread352", "block16_thread0")):
+                out[f"cycles_a_step_{who}"] = dict(zip(SPLIT_PHASES, cycles[8 * i:8 * i + 8]))
+        print(json.dumps(out), flush=True)
     return 0
 
 

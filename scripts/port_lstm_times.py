@@ -2,6 +2,7 @@
 """Times the PyTorch port's LSTM kernel wrappers on the card.
 
     python3 scripts/port_lstm_times.py [--root DIR] [--tag NAME] [--iters 20] [--library]
+    python3 scripts/port_lstm_times.py --compare PARENT_DIR [--iters 20] [--library]
 
 Imports `voicesplit_tpu_torch` from DIR (default: this checkout) and builds
 its kernels there, so that an older tree unpacked with ``git archive`` into
@@ -18,9 +19,11 @@ shapes of their paths (T=301 frames, H=400 units unless said):
   cluster of the backward walk holds (a tree that refuses the shape gets
   its error instead of a time);
 - at H=800 (`configs/voicesplit_wide.json`) ``lstm_fwd`` at B=1 and B=2,
-  ``lstm_bwd`` at B=2 and ``bilstm_bwd`` at B=8, the backward on the plain
-  forward's outputs (the two-direction forward refuses fp32 at H=800), and
-  the route each took where the tree counts routes;
+  ``bilstm_fwd`` at B=8 (the evaluation sweep's padded batch), ``lstm_bwd``
+  at B=2 and ``bilstm_bwd`` at B=8, the backward on the plain forward's
+  outputs;
+- for every entry the route it took (``<entry>/route``), where the tree
+  counts routes;
 - where the tree has it, ``lstm_cuda.lstm_dwhh``, the dW_hh kernel that the
   two backward wrappers launch after their reverse walk, alone on the same
   inputs (``walk_ms`` is then the backward's time less it);
@@ -30,6 +33,12 @@ with bf16 and fp32 operands.  ``--library`` adds cuDNN's ``torch.nn.LSTM``
 the port never calls (both also cover the input projection).  Each time is
 the mean of ``--iters`` calls after two warm ones, between CUDA events.
 Prints one JSON line with the card's name and power limit.
+
+``--compare PARENT_DIR`` runs the script four times in one call, each in a
+fresh process: the parent tree, this one, this one, the parent (tags
+``parent``, ``change``, ``change``, ``parent``; ``--library`` on the first
+run of this tree), prints the four lines, then one line that sets each
+entry's mean time in the change beside the parent's, with their ratio.
 """
 
 from __future__ import annotations
@@ -45,12 +54,14 @@ T_FRAMES, HIDDEN, WIDE, IN_FEATURES = 301, 400, 800, 8 * 601 + 256
 # name: (directions, rows a direction, hidden units)
 FORWARD = {"lstm_fwd_B1": (1, 1, HIDDEN), "lstm_fwd_B2": (1, 2, HIDDEN),
            "bilstm_fwd_B8": (2, 8, HIDDEN), "bilstm_fwd_B24": (2, 24, HIDDEN),
-           "lstm_fwd_B1_H800": (1, 1, WIDE), "lstm_fwd_B2_H800": (1, 2, WIDE)}
+           "lstm_fwd_B1_H800": (1, 1, WIDE), "lstm_fwd_B2_H800": (1, 2, WIDE),
+           "bilstm_fwd_B8_H800": (2, 8, WIDE)}
 BACKWARD = {"lstm_bwd_B2": (1, 2, HIDDEN), "bilstm_bwd_B8": (2, 8, HIDDEN),
             "bilstm_bwd_B24": (2, 24, HIDDEN),
             "lstm_bwd_B2_H800": (1, 2, WIDE), "bilstm_bwd_B8_H800": (2, 8, WIDE)}
 LIBRARY = ("lstm_fwd_B1", "lstm_fwd_B2", "bilstm_fwd_B8", "lstm_bwd_B2", "bilstm_bwd_B8",
-           "lstm_fwd_B1_H800", "lstm_fwd_B2_H800", "lstm_bwd_B2_H800", "bilstm_bwd_B8_H800")
+           "lstm_fwd_B1_H800", "lstm_fwd_B2_H800", "bilstm_fwd_B8_H800", "lstm_bwd_B2_H800",
+           "bilstm_bwd_B8_H800")
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -72,7 +83,10 @@ def main(argv=None) -> int:
     parser.add_argument("--tag", default="")
     parser.add_argument("--iters", type=int, default=20)
     parser.add_argument("--library", action="store_true")
+    parser.add_argument("--compare", default=None)
     args = parser.parse_args(argv)
+    if args.compare:
+        return compare(args)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
 
@@ -96,6 +110,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     T = T_FRAMES
     dwhh = getattr(lstm_cuda, "lstm_dwhh", None)
+    routes_fwd = getattr(lstm_cuda, "ROUTES", None)
     routes_bwd = getattr(lstm_cuda, "ROUTES_BWD", None)
     times: dict = {}
     for dt in ("bfloat16", "float32"):
@@ -115,6 +130,14 @@ def main(argv=None) -> int:
                 else:
                     fwd = lambda: lstm_cuda.bilstm_fwd(xp, ws[0], ws[1])  # noqa: E731
                 if key in FORWARD:
+                    before = dict(routes_fwd) if routes_fwd is not None else None
+                    try:
+                        fwd()
+                    except RuntimeError as err:  # a tree that refuses the shape
+                        entry[key] = f"refused: {err}"
+                        continue
+                    if routes_fwd is not None:
+                        entry[f"{key}/route"] = [k for k in routes_fwd if routes_fwd[k] != before[k]]
                     entry[key] = time_ms(torch, fwd, args.iters)
                     continue
                 if H == HIDDEN:
@@ -166,6 +189,39 @@ def main(argv=None) -> int:
                 library[key] = time_ms(
                     torch, lambda: out.backward(cot, retain_graph=True), args.iters)
     print(json.dumps(report))
+    return 0
+
+
+def compare(args) -> int:
+    """Parent, change, change, parent in fresh processes; the four lines and
+    a summary line of means and ratios (change / parent)."""
+    here = Path(__file__).resolve()
+    runs = [("parent", args.compare), ("change", str(here.parents[1])), ("change", str(here.parents[1])),
+            ("parent", args.compare)]
+    reports = []
+    for i, (tag, root) in enumerate(runs):
+        cmd = [sys.executable, str(here), "--root", root, "--tag", tag, "--iters", str(args.iters)]
+        if args.library and i == 1:
+            cmd.append("--library")
+        out = subprocess.run(cmd, capture_output=True, text=True)
+        if out.returncode != 0:
+            print(out.stdout + out.stderr, file=sys.stderr)
+            return out.returncode
+        line = out.stdout.strip().splitlines()[-1]
+        print(line, flush=True)
+        reports.append(json.loads(line))
+    summary: dict = {}
+    for dt in ("bfloat16", "float32"):
+        for key in {**FORWARD, **BACKWARD}:
+            got = {tag: [r["ms"][dt].get(key) for r in reports if r["tag"] == tag] for tag in ("parent", "change")}
+            if all(isinstance(v, float) for vals in got.values() for v in vals):
+                p, c = (sum(got[t]) / len(got[t]) for t in ("parent", "change"))
+                summary[f"{key}/{dt}"] = {"parent_ms": p, "change_ms": c, "ratio": c / p,
+                                          "route": reports[1]["ms"][dt].get(f"{key}/route")}
+            else:
+                summary[f"{key}/{dt}"] = {"parent": got["parent"], "change": got["change"]}
+    print(json.dumps({"compare": summary, "nvidia_smi": reports[0]["nvidia_smi"],
+                      "library_ms": reports[1].get("library_ms")}))
     return 0
 
 

@@ -336,35 +336,94 @@ def test_lstm_kernels_over_row_groups_on_card(bidirectional, dtype, batch):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("bidirectional", [False, True])
-def test_lstm_forward_takes_the_grid_route_where_the_walk_does_not_fit_on_card(bidirectional):
-    """At H=800 a block's columns of W_hh do not fit the cluster walk in bf16
-    (320 KB): the route is chosen from the shape before the launch, and the
-    grid route launches and matches its plain version."""
+def test_lstm_forward_takes_the_grid_route_where_the_walk_does_not_fit_on_card(bidirectional, dtype):
+    """At H=800 a block's columns of W_hh do not fit the cluster walk (bf16
+    320 KB): the route is chosen from the shape before the launch, the split
+    walk (two clusters a direction and row group, every cluster resident at
+    once) in bf16 and the grid route in fp32, and it launches and matches its
+    plain version."""
     _need_card()
     from voicesplit_tpu_torch.ops import lstm_cuda
 
     D = 2 if bidirectional else 1
-    cfg = lstm_cuda.launch_config(D, 1, 800, torch.bfloat16, backward=False)
-    assert cfg["route"] == "grid" and cfg["cluster"] == 0, cfg
-    assert cfg["resident_blocks"] >= cfg["blocks"], cfg
-    assert lstm_cuda.launch_config(D, 1, 400, torch.bfloat16, backward=False)["route"] == "cluster"
-    _forward_matches_twice(bidirectional, "bfloat16", 31, 800, 1, "grid")
+    dt = getattr(torch, dtype)
+    cfg = lstm_cuda.launch_config(D, 1, 800, dt, backward=False)
+    if dtype == "bfloat16":
+        assert cfg["route"] == "split" and cfg["cluster"] == 16 and cfg["blocks"] == 32 * D, cfg
+        assert cfg["max_active_clusters"] >= 2 * D and cfg["local_bytes"] == 0, cfg
+    else:
+        assert cfg["route"] == "grid" and cfg["cluster"] == 0, cfg
+        assert cfg["resident_blocks"] >= cfg["blocks"], cfg
+    assert lstm_cuda.launch_config(D, 1, 400, dt, backward=False)["route"] == "cluster"
+    _forward_matches_twice(bidirectional, dtype, 31, 800, 1, cfg["route"])
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_two_direction_forward_at_wide_hidden_on_card(dtype):
     """`bilstm_fwd` at H=800 and B=8 (a wide model's batch that takes the
-    two-direction kernel): on the grid route in both types, fp32 with 8 rows
-    of h staged at a time (16 do not fit beside the columns), matching its
-    plain version with the same bits twice."""
+    two-direction kernel, as the evaluation sweep pads to): bf16 on the
+    split walk (four clusters), fp32 on the grid route with 8 rows of h
+    staged at a time (16 do not fit beside the columns), matching its plain
+    version with the same bits twice."""
     _need_card()
     from voicesplit_tpu_torch.ops import lstm_cuda
 
     cfg = lstm_cuda.launch_config(2, 8, 800, getattr(torch, dtype), backward=False)
+    if dtype == "bfloat16":
+        assert cfg["route"] == "split" and cfg["max_active_clusters"] >= 4, cfg
+    else:
+        assert cfg["route"] == "grid" and cfg["resident_blocks"] >= cfg["blocks"], cfg
+    _forward_matches_twice(True, dtype, 31, 800, 8, cfg["route"])
+
+
+# the split walk's shapes: (T, rows a direction) at H=800, bf16: the paths'
+# (serving 1, training 2, the sweep's 8), odd rows (3, and 9: one past an
+# 8-row tile), 16 (two whole tiles), one step and two
+SPLIT_SHAPES = [(301, 1), (301, 2), (41, 3), (301, 8), (41, 9), (41, 16), (1, 1), (2, 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SPLIT_SHAPES, ids=lambda s: "T{}-B{}".format(*s))
+@pytest.mark.parametrize("bidirectional", [False, True])
+def test_lstm_forward_split_walk_on_card(bidirectional, shape):
+    """The forward's split walk at H=800 in bf16: the route reported before
+    the launch (a pair of 16-block clusters a direction and row group, every
+    cluster resident at once, no spill up to 8 rows, one 8-row tile),
+    agreement with the plain version within the path's tolerance, the same
+    bits twice and each launch counted under "split"."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import lstm_cuda
+
+    T, B = shape
+    D = 2 if bidirectional else 1
+    cfg = lstm_cuda.launch_config(D, B, 800, torch.bfloat16, backward=False)
+    assert cfg["route"] == "split" and cfg["units"] == 32, cfg
+    assert cfg["local_bytes"] == 0 or cfg["rows"] > 8, cfg
+    assert cfg["blocks"] == 2 * D * cfg["groups"] * cfg["cluster"], cfg
+    assert cfg["max_active_clusters"] >= 2 * D * cfg["groups"], cfg
+    before = dict(lstm_cuda.LAUNCHES)
+    _forward_matches_twice(bidirectional, "bfloat16", T, 800, B, "split")
+    name = "bilstm_fwd" if bidirectional else "lstm_fwd"
+    assert lstm_cuda.LAUNCHES[name] == before[name] + 2
+
+
+@pytest.mark.gpu
+def test_split_walk_not_started_where_its_clusters_are_not_all_resident_on_card():
+    """Two directions of 24 rows at H=800 in bf16 need eight 16-block clusters
+    (two row groups of 12, a pair each), one more than an H100 holds at once:
+    the route is decided from the shape before the launch, and it is the grid
+    route, which launches and matches its plain version."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import lstm_cuda
+
+    split = lstm_cuda.launch_config(2, 16, 800, torch.bfloat16, backward=False)
+    assert split["route"] == "split" and split["max_active_clusters"] < 8, split
+    cfg = lstm_cuda.launch_config(2, 24, 800, torch.bfloat16, backward=False)
     assert cfg["route"] == "grid" and cfg["resident_blocks"] >= cfg["blocks"], cfg
-    _forward_matches_twice(True, dtype, 31, 800, 8, "grid")
+    _forward_matches_twice(True, "bfloat16", 9, 800, 24, "grid")
 
 
 @pytest.mark.gpu
@@ -798,8 +857,8 @@ def test_conv_kernels_at_time_dilation_32_on_card(T, dtype):
 @pytest.mark.parametrize("route", ["unfused", "pallas_conv", "fused_chain"])
 def test_wide_train_step_runs_through_the_kernels_on_card(route, monkeypatch):
     """Full-width `configs/voicesplit_wide.json` train step at its batch
-    (B=2) on each conv route: the LSTM's forward and backward on their grid
-    routes (H=800), the extra block's conv (dilation 32) on the kernel
+    (B=2) on each conv route: the LSTM's forward on its split walk and its
+    backward on the grid route (H=800), the extra block's conv (dilation 32) on the kernel
     routes (seven kernel layers), a finite loss and every parameter and
     running statistic moved."""
     _need_card()
@@ -825,7 +884,8 @@ def test_wide_train_step_runs_through_the_kernels_on_card(route, monkeypatch):
     m = make_train_step(cfg, model, ap, opt)(state, batch)
     torch.cuda.synchronize()
     assert lstm_cuda.LAUNCHES == {"lstm_fwd": 2, "bilstm_fwd": 0, "lstm_bwd": 2, "bilstm_bwd": 0}
-    assert lstm_cuda.ROUTES == {"cluster": 0, "grid": 2} == lstm_cuda.ROUTES_BWD
+    assert lstm_cuda.ROUTES == {"cluster": 0, "split": 2, "grid": 0}
+    assert lstm_cuda.ROUTES_BWD == {"cluster": 0, "grid": 2}
     dilated = {"conv_dilated_fwd": 14, "conv_dilated_wgrad": 7}
     chain = {"conv_bn_act_fwd": 7, "conv_dgrad": 7, "conv_wgrad": 7, "conv_wgrad_prologue": 12}
     assert conv_cuda.LAUNCHES == (dilated if route == "pallas_conv" else dict.fromkeys(dilated, 0))
@@ -838,8 +898,9 @@ def test_wide_train_step_runs_through_the_kernels_on_card(route, monkeypatch):
 @pytest.mark.gpu
 def test_wide_separate_runs_through_the_grid_route_on_card():
     """`configs/voicesplit_wide.json` served at B=1: both directions through
-    the forward's grid route, 48000 finite samples, the mask within the
-    separate phase's tolerance of the plain LSTM versions'."""
+    the forward's split walk (the grid route before it), 48000 finite
+    samples, the mask within the wide serving tolerance of the plain LSTM
+    versions'."""
     _need_card()
     from voicesplit_tpu_torch import weights
     from voicesplit_tpu_torch.cli.separate import separate_batch
@@ -856,7 +917,7 @@ def test_wide_separate_runs_through_the_grid_route_on_card():
     torch.cuda.synchronize()
     assert out.shape == (1, 48000) and bool(torch.isfinite(out).all())
     assert lstm_cuda.LAUNCHES == {"lstm_fwd": 2, "bilstm_fwd": 0, "lstm_bwd": 0, "bilstm_bwd": 0}
-    assert lstm_cuda.ROUTES == {"cluster": 0, "grid": 2}
+    assert lstm_cuda.ROUTES == {"cluster": 0, "split": 2, "grid": 0}
     with torch.inference_mode():
         spec, _ = ap.wav2spec_batch(torch.as_tensor(mixed, device="cuda"))
         e = torch.as_tensor(emb, device="cuda")

@@ -22,6 +22,11 @@
 namespace {
 
 constexpr int kCluster = 16;  // blocks of one cluster (non-portable size)
+// the split walks (two clusters a direction and row group): units a block
+// owns, threads a block, rows a pair holds at most (two 8-row tiles)
+constexpr int kSplitUnits = 32;
+constexpr int kSplitThreads = 384;
+constexpr int kSplitMaxRows = 16;
 
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
@@ -76,6 +81,105 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// Across the two clusters of a split walk (lstm_fwd.cu, lstm_bwd.cu): the
+// clusters share no shared memory, so a block publishes what the other
+// cluster needs in a global buffer (through L2) and announces it on an
+// integer counter of its cluster; a receiver waits for the counter to reach
+// the count of all the other cluster's blocks for that step, then copies
+// the bytes into its own shared memory with one bulk copy (cp.async.bulk)
+// counted on an mbarrier of its own.  The counters only count: every float
+// is summed in a fixed order by the block that owns it.
+// ---------------------------------------------------------------------------
+
+// One more publication on `counter`, ordered after every write this thread
+// made or observed before it (release, gpu scope).  A block publishes after
+// a barrier that follows its writes to the global buffer.
+__device__ __forceinline__ void counter_release_add(unsigned int* counter) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(counter) : "memory");
+}
+// Waits until *counter >= target (acquire, gpu scope), then orders what it
+// observed before this thread's later bulk copies (the async proxy); traps
+// instead of hanging if the count never comes (a fault, not a slow step:
+// ~10 s).
+__device__ __forceinline__ void counter_wait(const unsigned int* counter, unsigned int target) {
+  const long long t0 = clock64();
+  while (true) {
+    unsigned int v;
+    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(counter) : "memory");
+    if (v >= target) break;
+    if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
+// memory into this block's shared memory, counted on this block's `bar`.
+__device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const uint32_t b = static_cast<uint32_t>(__cvta_generic_to_shared(bar));
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+               ::"r"(d), "l"(src), "r"(bytes), "r"(b) : "memory");
+}
+
+// The split walks wait between two wgmma with more in flight.  A loop or
+// branch in C++ there makes ptxas fence and serialize every wgmma of the
+// kernel ("wgmma.mma_async instructions are serialized", C7520), so these
+// two waits keep their loops inside one asm statement each.
+//
+// bar_wait's loop in one asm statement: waits until the phase of parity
+// `parity` of `bar` has completed; traps if it never does (~10 s).
+__device__ __forceinline__ void bar_wait_asm(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(bar));
+  asm volatile(
+      "{\n .reg .pred p;\n .reg .u64 t0, t1;\n"
+      " mov.u64 t0, %%clock64;\n"
+      "BAR_WAIT:\n"
+      " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], %1;\n"
+      " @p bra BAR_DONE;\n"
+      " mov.u64 t1, %%clock64;\n sub.u64 t1, t1, t0;\n"
+      " setp.gt.u64 p, t1, 17179869184;\n @p trap;\n"
+      " bra BAR_WAIT;\n"
+      "BAR_DONE:\n}\n" ::"r"(a), "r"(parity) : "memory");
+}
+// Where `leader` is set: counter_wait(counter, target) (trap after ~10 s),
+// then `copies` (1 or 2) bulk copies of `bytes` each, src0 -> dst0 and src1
+// -> dst1 (global -> this block's shared memory), expected on `bar` (one
+// arrival and their bytes).  Elsewhere nothing.  One asm statement.
+__device__ __forceinline__ void fetch_after_count(int leader, const unsigned int* counter, unsigned int target,
+                                                  uint64_t* bar, uint32_t bytes, int copies, void* dst0,
+                                                  const void* src0, void* dst1, const void* src1) {
+  const uint32_t b = static_cast<uint32_t>(__cvta_generic_to_shared(bar));
+  const uint32_t d0 = static_cast<uint32_t>(__cvta_generic_to_shared(dst0));
+  const uint32_t d1 = static_cast<uint32_t>(__cvta_generic_to_shared(dst1));
+  asm volatile(
+      "{\n .reg .pred p, q;\n .reg .u32 v, n;\n .reg .u64 t0, t1;\n"
+      " setp.ne.b32 q, %0, 0;\n @!q bra FETCH_DONE;\n"
+      " mov.u64 t0, %%clock64;\n"
+      "FETCH_SPIN:\n"
+      " ld.acquire.gpu.global.u32 v, [%1];\n"
+      " setp.ge.u32 p, v, %2;\n @p bra FETCH_GOT;\n"
+      " mov.u64 t1, %%clock64;\n sub.u64 t1, t1, t0;\n"
+      " setp.gt.u64 p, t1, 17179869184;\n @p trap;\n"
+      " bra FETCH_SPIN;\n"
+      "FETCH_GOT:\n"
+      " fence.proxy.async.global;\n"
+      " mul.lo.u32 n, %4, %5;\n"
+      " mbarrier.arrive.expect_tx.shared::cta.b64 _, [%3], n;\n"
+      " cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%6], [%7], %4, [%3];\n"
+      " setp.gt.s32 p, %5, 1;\n"
+      " @p cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%8], [%9], %4, [%3];\n"
+      "FETCH_DONE:\n}\n" ::"r"(leader),
+      "l"(counter), "r"(target), "r"(b), "r"(bytes), "r"(copies), "r"(d0), "l"(src0), "r"(d1), "l"(src1)
+      : "memory");
+}
+
+// Where a split walk's counters and buffers lie in its exchange memory:
+// counter x of pair p at counters + (2 p + x) * kCounterStride (one 128-byte
+// line each, so that the two clusters' counters are never polled on one
+// line), then each pair's buffer of `pair_elems` elements.
+constexpr int kCounterStride = 32;
+inline size_t split_counter_bytes(int pairs) { return size_t(2) * pairs * kCounterStride * 4; }
+
 // Block `u0 / U`'s columns of W [H, 4H] into shared memory: element e of
 // w_s [n][ld] is W[j, g H + u0 + u] for (j, q = g U + u) = at(e / ld, e % ld),
 // zero where j is no unit (j < 0 or j >= H) or q no owned column (u >= Uk,
@@ -124,9 +228,10 @@ inline cudaError_t smem_optin(int* bytes) {
 }
 
 // Sets `kernel`'s attributes for info->smem bytes and a non-portable cluster
-// of kCluster blocks, fills `config` (with `attr`) for `n_clusters` clusters
-// of `threads` threads on `stream`, and reads the kernel's registers and
-// spills and the clusters the card holds at once into `info`.
+// of kCluster blocks, fills `config` (with `attr`, one attribute) for
+// `n_clusters` clusters of `threads` threads on `stream`, and reads the
+// kernel's registers and spills and the clusters the card holds at once into
+// `info`.
 template <typename Kernel>
 cudaError_t cluster_config(Kernel kernel, int n_clusters, int threads, cudaStream_t stream,
                            cudaLaunchConfig_t* config, cudaLaunchAttribute* attr,
@@ -153,6 +258,22 @@ cudaError_t cluster_config(Kernel kernel, int n_clusters, int threads, cudaStrea
   config->attrs = attr;
   config->numAttrs = 1;
   return cudaOccupancyMaxActiveClusters(&info->clusters, (const void*)kernel, config);
+}
+
+// Launches a split walk configured by cluster_config (`config`, whose
+// `attrs` has room for a second attribute) as a cooperative launch, so that
+// the runtime too refuses to start fewer blocks than all: the two clusters
+// of a pair wait on each other, and a cluster left waiting to be scheduled
+// would hang its partner.  The caller has checked that the card holds every
+// cluster at once.
+template <typename Kernel, typename... Args>
+cudaError_t split_launch(Kernel kernel, cudaLaunchConfig_t* config, cudaLaunchAttribute* attrs, Args... args) {
+  attrs[1].id = cudaLaunchAttributeCooperative;
+  attrs[1].val.cooperative = 1;
+  config->numAttrs = 2;
+  const cudaError_t err = cudaLaunchKernelEx(config, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace

@@ -17,8 +17,10 @@
 // fp32.  Outputs hs, cs [T, R, H] and the activated gates [T, R, 4H] are
 // fp32, as on the TPU.
 //
-// Two routes, chosen from the shape and the card before anything launches
-// (lstm_launch_config reports which):
+// Three routes, chosen from the shape and the card before anything launches
+// (lstm_launch_config reports which): the cluster walk wherever one cluster
+// holds the shape, else in bf16 the split walk wherever a pair of clusters
+// holds it and the card holds all its clusters at once, else the grid route.
 //
 // lstm_fwd_kernel, the cluster walk, for every shape it holds (bf16:
 // H <= 512; rows and shared memory as below).  One thread-block cluster of
@@ -76,9 +78,70 @@
 //   183,824 B at 24 rows, up to 30 rows; fp32 186,576 B (1 row) to 215,696
 //   B (8 rows; columns [100][456], read every step), up to 8 rows.
 //
+// lstm_fwd_split_kernel, the split walk (lstm_fwd_split and bilstm_fwd_split
+// in chip_smoke.py's kernels line), for bf16 shapes one cluster cannot hold
+// (H = 800, configs/voicesplit_wide.json: a block of 16 would own 50 units,
+// 200 x 800 columns, 320 KB): two clusters of 16 blocks per direction and
+// row group, clusters 2p and 2p + 1 for pair p.
+//   Ownership.  U = 32 units a block: ceil(H / 32) owners (25 at H = 800),
+//   the first ceil(owners / 2) in the pair's first cluster (13), the rest in
+//   its second (12; blocks past them own none and only meet at the cluster
+//   barriers).  Owner m holds the 4U = 128 columns {g H + j : j in [32 m,
+//   32 m + 32)} of W_hh for all rows, exactly two 64-column wgmma tiles,
+//   over K = owners x 32 = 800 (no padding between owners).
+//   W_hh.  A k-step of 16 rows of both tiles is 8 KB; K is 50 k-steps.
+//   Warpgroup wg multiplies the virtual k-steps v = wg + 3 i, i < 17 (zero
+//   past K), v standing for k-step (v + first local k-step) mod 50, so that
+//   each cluster's own units come first.  Its first 10 are A fragments in
+//   registers (80 registers of 168 at 384 threads, loaded once), the other
+//   7 are read by wgmma from shared memory through descriptors: atoms of
+//   64 columns x 4 k-steps with the 128-byte swizzle, 2 atoms a tile and
+//   warpgroup (96 KB; the canonical
+//   layout without a swizzle gave the same bits and, while the wgmma were
+//   still serialized, the same time; the two were not timed apart after).
+//   The h exchange.  Within a cluster as on the cluster walk: each owner
+//   sends its [rows][32] slice of h[t], rounded, as 16-byte st.async stores
+//   counted on the receiver's mbarrier, into receive slot t mod 2 (core
+//   matrices [rows / 8][K / 8][8][8], wgmma's K-major B).  Across the pair,
+//   through L2 (lstm_cluster.cuh): the last warp writes the same slice into
+//   the pair's global slot t mod 2 (the same layout), then adds one to its
+//   cluster's counter (red.release.gpu); at step t + 1 thread 0 of each
+//   block of the other cluster waits for that counter to reach (t + 1) x
+//   the cluster's owners (ld.acquire.gpu; a wait that never ends traps),
+//   then copies the other cluster's units of each 8-row tile into its own
+//   slot with one bulk copy (cp.async.bulk) counted on a second mbarrier of
+//   the slot.  The global slots are reused by the same argument as the
+//   receive slots: a block writes slot t mod 2 again only after it has
+//   received every block's h[t+1], which each block sends after reading
+//   h[t].  Counters and slots are zeroed on the stream before the launch.
+//   A step.  Wait for this cluster's h[t-1]; issue the first 8 virtual
+//   k-steps of each warpgroup (24 k-steps, local in either cluster) as
+//   wgmma; wait for the other cluster's h[t-1] (counter, bulk copy); issue
+//   the other 9; the warpgroups' partials add in order in the cell update,
+//   as on the cluster walk; send h[t].  No C++ branch lies between two
+//   wgmma in flight: ptxas fences and serializes every wgmma of a kernel in
+//   which one does (C7520), which tripled the product's time.  The waits
+//   keep their loops inside asm (lstm_cluster.cuh), k-step offsets are
+//   selects, and step 0 passes the remote wait as a completed phase.
+//   Co-residency.  The clusters of a pair wait on each other, so the launch
+//   needs every cluster resident at once: the route is taken only where
+//   cudaOccupancyMaxActiveClusters covers all 2 x directions x row groups
+//   clusters (7 on an H100: B = 1, 2 and two directions at B = 8 need 2, 2
+//   and 4), and the launch is cooperative (cudaLaunchAttributeCooperative
+//   beside the cluster dimension), so the runtime refuses rather than
+//   starts part of it.  Rows: at most 16 a pair (two 8-row tiles).
+//   Shared memory at H = 800, bf16: 137,760 B up to 8 rows (W_hh atoms 96
+//   KB + 1 KB for their alignment, slots 25.6 KB, partials 12 KB), 176,160 B
+//   at 9-16 rows, whose two row tiles multiply one after the other (the
+//   second without a wait); 168 registers, no spill up to 8 rows (256 bytes
+//   a thread at 9-16, a shape no path takes).  H <= 736 would leave fewer than
+//   24 local k-steps in a cluster and H > 1024 more than 66 k-steps: there,
+//   the grid route.
+//
 // lstm_fwd_grid_kernel, the grid route (lstm_fwd_grid and bilstm_fwd_grid in
-// chip_smoke.py's kernels line), for the shapes the walk cannot hold (H = 800: a block's
-// columns would be 200 x 800 values, 320 KB in bf16): the port's first
+// chip_smoke.py's kernels line), for the shapes neither walk holds (fp32 at
+// H = 800, whose W_hh is 10.24 MB a direction; a split walk whose clusters
+// are not all resident at once, such as two directions of 24 rows): the port's first
 // forward kernel, a persistent cooperative grid.  Block b owns U = ceil(H /
 // #SMs) units (7 at H = 800 on 132 SMs, 115 blocks, all co-resident) and
 // keeps their 4U gate columns of each W_hh in shared memory; each step it
@@ -90,9 +153,10 @@
 // route holds is refused before the launch.
 //
 // Sum order, fixed, so the same inputs give the same bits: wgmma's own
-// order within a warpgroup, then the three partials in order (bf16); each
-// lane's slice of K in order, then a fixed shuffle tree (fp32, and the grid
-// route).  No float atomics.
+// order within a warpgroup (on the split walk its virtual k-steps in
+// order), then the three partials in order (bf16); each lane's slice of K
+// in order, then a fixed shuffle tree (fp32, and the grid route).  No float
+// atomics; the split walk's counters only count.
 //
 // What bounds them on the card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16 dense),
 // counting each input byte read once and each output byte written once:
@@ -491,6 +555,389 @@ lstm_fwd_kernel(const T* __restrict__ xp,      // [T, R, 4H]
 }
 
 // ---------------------------------------------------------------------------
+// The split walk
+// ---------------------------------------------------------------------------
+
+// k-steps of each 64-column tile that a warpgroup holds in registers; one
+// more spills (120 bytes a thread at 11, and the walk ran 17% slower)
+constexpr int kSplitRegKSteps = 10;
+// k-steps a warpgroup multiplies, registers and shared memory together: a
+// compile-time count, so that no wgmma sits on a branch (ptxas serializes
+// wgmma issued on a path it cannot prove uniform); K is padded with zero
+// k-steps up to 3 x this.  17 covers H <= 800 (50 k-steps), 22 H <= 1024.
+constexpr int kSplitKStepsWG[] = {17, 22};
+// k-steps a warpgroup multiplies before it waits for the other cluster's h:
+// its first 8, virtual k-steps 0 .. 23, which are this cluster's own units
+// in either cluster of a pair of at least 24 owners (H > 736)
+constexpr int kSplitLocalWG = 8;
+constexpr int kSplitMinOwners = 2 * kSplitLocalWG * kWarpGroups / (kSplitUnits / 16);
+
+// A split walk's W_hh columns in shared memory: K-major atoms of 64 rows
+// (columns q) by 64 k (four k-steps) with the 128-byte swizzle, 8 KB each
+// and 1024-byte aligned: element (q, c) at byte (q / 8) 1024 + (q % 8) 128 +
+// ((2 c / 16) ^ (q % 8)) 16 + 2 c % 16, the layout CUTLASS gives a K-major
+// A operand.
+constexpr int kAtomBytes = 8192;
+__device__ __forceinline__ int sw128_at(int q, int c) {
+  return (q >> 3) * 1024 + (q & 7) * 128 + ((((2 * c) >> 4) ^ (q & 7)) << 4) + ((2 * c) & 15);
+}
+// Shared-memory descriptor of k-step s (0..3) of such an atom: the start
+// advanced by 32 bytes a k-step, 8-row groups 1024 bytes apart (stride byte
+// offset), the 128-byte swizzle (layout type 1).
+__device__ __forceinline__ uint64_t a_desc(const void* atom, int s) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(atom)) + 32u * uint32_t(s);
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32) |
+         (uint64_t(1) << 62);
+}
+
+// D (64 x 8 fp32) += A (64 x 16 bf16 from shared memory: `da`) x B (16 x 8
+// from shared memory, K-major: `db`).
+__device__ __forceinline__ void wgmma_m64n8k16_ss(float (&d)[4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(1)
+      : "memory");
+}
+
+// Launch shape of the split walk for `rows` rows a pair (bf16): `owners`
+// blocks of kSplitUnits units (`first` of them in the pair's first cluster,
+// the rest in its second), K = owners x 32 (`kp`, no padding between
+// blocks' units) in `ksteps` k-steps of 16, of which 3 x reg_wg in registers
+// and the rest in shared memory (each warpgroup ksteps_wg in all, zero
+// past K); rows padded to whole 8-row tiles.
+// Shared memory: W_hh's columns of the shared-memory k-steps a_s
+// [3 warpgroups][2 tiles][atoms of 4 k-steps] (sw128_at; 1024-byte aligned,
+// so 1024 bytes more are asked for), receive slots
+// [2][rows_padded x kp] (core matrices, as the cluster walk's), the
+// warpgroups' partial products [3][rows_padded][128] (fp32), this step's h
+// to send [rows_padded][32] and four mbarriers.  Global exchange memory:
+// two counters and two slots [2][rows_padded x kp] a pair.
+struct SplitShape {
+  int owners, first, kp, ksteps, ksteps_wg, reg_wg, rows_padded;
+  size_t smem, pair_elems;
+};
+
+SplitShape split_shape(int rows, int H) {
+  SplitShape s;
+  s.owners = (H + kSplitUnits - 1) / kSplitUnits;
+  s.first = (s.owners + 1) / 2;
+  s.kp = s.owners * kSplitUnits;
+  s.ksteps = s.kp / 16;
+  s.rows_padded = (rows + 7) / 8 * 8;
+  s.reg_wg = kSplitRegKSteps;
+  s.ksteps_wg = 0;  // no schedule holds K
+  for (const int n : kSplitKStepsWG) {
+    if (s.ksteps_wg == 0 && kWarpGroups * n >= s.ksteps) s.ksteps_wg = n;
+  }
+  s.pair_elems = size_t(2) * s.rows_padded * s.kp;
+  const int atoms = (s.ksteps_wg - s.reg_wg + 3) / 4;  // a warpgroup's, each tile
+  s.smem = 1024 + size_t(kWarpGroups) * kMTiles * atoms * kAtomBytes + s.pair_elems * 2 +
+           size_t(kWarpGroups) * s.rows_padded * 4 * kSplitUnits * 4 + size_t(s.rows_padded) * kSplitUnits * 2 +
+           4 * 8;
+  return s;
+}
+
+// Grid 2 D G kCluster blocks in clusters of kCluster; clusters 2p and 2p + 1
+// walk pair p: row group p % G of direction p / G, the direction's rows
+// [g BC, g BC + Br), Br = min(BC, B - g BC).  RT 8-row tiles of h, KW
+// k-steps a warpgroup.
+template <int RT, int KW>
+__global__ void __launch_bounds__(kSplitThreads, 1)
+lstm_fwd_split_kernel(const __nv_bfloat16* __restrict__ xp,  // [T, R, 4H]
+                      const __nv_bfloat16* __restrict__ w0,  // [H, 4H], rows [0, B)
+                      const __nv_bfloat16* __restrict__ w1,  // [H, 4H], rows [B, 2B) (D == 2)
+                      const float* __restrict__ h0,          // [R, H] or null (zero state)
+                      const float* __restrict__ c0,          // [R, H] or null (zero state)
+                      float* __restrict__ hs,                // [T, R, H]
+                      float* __restrict__ cs,                // [T, R, H]
+                      float* __restrict__ gates,             // [T, R, 4H]
+                      unsigned int* counters,                // exchange memory, zeroed
+                      __nv_bfloat16* xbuf,                   // [pairs][2][RP x KP]
+                      int T_, int B, int H, int G, int BC, int NO, int N0, int KP) {
+  using T = __nv_bfloat16;
+  constexpr int U = kSplitUnits, NQ = 4 * kSplitUnits, RP = 8 * RT;
+  constexpr int KR = kSplitRegKSteps;  // in registers, then KW - KR in shared memory
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = int(cluster.block_rank());
+  const int c_id = int(blockIdx.x) / kCluster;
+  const int pair = c_id / 2, half = c_id % 2;
+  const int d = pair / G, grp = pair % G;
+  const int row0 = d * B + grp * BC;     // the pair's first row in the arrays
+  const int Br = min(BC, B - grp * BC);  // and its rows
+  const int R = int(gridDim.x) / (2 * kCluster * G) * B;  // rows of the arrays, all directions
+  const int G4 = 4 * H;
+  // owners [0, N0) in the pair's first cluster, [N0, NO) in its second; a
+  // block of rank k owns units [32 m, 32 m + 32) of owner index m
+  const int n_mine = half ? NO - N0 : N0, n_other = half ? N0 : NO - N0;
+  const int base_mine = half ? N0 : 0, base_other = half ? 0 : N0;
+  const int m = k < n_mine ? base_mine + k : -1;
+  const int u0 = max(m, 0) * U;
+  const int Uk = m < 0 ? 0 : max(0, min(U, H - u0));
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, gr = lane >> 2, tig = lane & 3;
+  const int wg = warp >> 2, wq = warp & 3;
+  const T* __restrict__ W = d ? w1 : w0;
+  const int KS = KP / 16;
+  const int slot = RP * KP;  // elements of one receive slot
+  // Warpgroup wg multiplies the virtual k-steps v = wg + 3 i, i < KW, which
+  // are k-step (v + ks_lo) mod KS of K (none past KS): this cluster's own
+  // units first, so that i < kSplitLocalWG needs only this cluster's h.
+  const int ks_lo = base_mine * (U / 16);
+  auto ks_of = [&](int i) {  // -1: past K
+    const int v = wg + kWarpGroups * i;
+    return v < KS ? (v + ks_lo) % KS : -1;
+  };
+  unsigned int* my_count = counters + (2 * pair + half) * kCounterStride;
+  const unsigned int* other_count = counters + (2 * pair + 1 - half) * kCounterStride;
+  T* xb = xbuf + size_t(pair) * 2 * slot;  // the pair's two slots in global memory
+  const uint32_t local_bytes = uint32_t(n_mine * Br * U) * sizeof(T);
+  const uint32_t tile_bytes = uint32_t(n_other * U / 8) * 128;  // the other cluster's units, one tile
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kAtoms = (KW - KR + 3) / 4;  // a warpgroup's atoms of each tile
+  unsigned char* a_s = smem_raw + ((1024 - (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) & 1023)) & 1023);
+  T* recv = reinterpret_cast<T*>(a_s + kWarpGroups * kMTiles * kAtoms * kAtomBytes);  // [2][slot]
+  float* part = reinterpret_cast<float*>(recv + 2 * slot);           // [3][RP][NQ]
+  T* stage = reinterpret_cast<T*>(part + kWarpGroups * RP * NQ);     // [RP][U]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(stage + RP * U);      // local [2], remote [2]
+  // A[q][kk] = W_hh[kk, g H + u0 + u] for owned column q = g U + u; zero
+  // past H and past the block's units.  Loaded by a volatile asm: the
+  // compiler may neither repeat the load at every step instead of keeping
+  // the fragments in registers nor drop it.
+  auto w_at = [&](int q, int kk) -> unsigned short {
+    const int u = q % U;
+    if (kk >= H || u >= Uk) return 0;
+    unsigned short v;
+    asm volatile("ld.global.nc.u16 %0, [%1];\n" : "=h"(v) : "l"(W + size_t(kk) * G4 + (q / U) * H + u0 + u));
+    return v;
+  };
+  if (m >= 0) {
+    for (int e = tid; e < 2 * slot; e += nt) recv[e] = from_float<T>(0.0f);
+    for (int e = tid; e < RP * U; e += nt) stage[e] = from_float<T>(0.0f);
+    // each warpgroup's shared-memory k-steps i = KR + j, both tiles: atom
+    // j / 4 of (warpgroup, tile), its k-step j % 4 (zeros past K and in
+    // the atoms' unused k-steps)
+    for (int e = tid; e < kWarpGroups * kMTiles * kAtoms * 4096; e += nt) {
+      const int atom = e >> 12, o = e & 4095;  // elements of an atom, in (q, c) order
+      const int w = atom / (kMTiles * kAtoms), mt = atom / kAtoms % kMTiles, j = atom % kAtoms * 4 + (o & 63) / 16;
+      const int q = o >> 6, c = o & 63;
+      const int v = w + kWarpGroups * (KR + j);
+      const int kk = ((v + ks_lo) % KS) * 16 + c % 16;
+      *reinterpret_cast<unsigned short*>(a_s + atom * kAtomBytes + sw128_at(q, c)) =
+          v < KS && j < KW - KR ? w_at(mt * 64 + q, kk) : 0;
+    }
+    __syncthreads();
+    // slot 1 holds h[-1] = round(h0) for step 0, all units
+    if (h0 != nullptr) {
+      for (int e = tid; e < Br * H; e += nt) {
+        const int r = e / H, j = e % H;
+        recv[slot + slot_at<T>(r, j, KP, KP)] = from_float<T>(h0[size_t(row0 + r) * H + j]);
+      }
+    }
+  }
+  if (tid == 0) {
+    for (int i = 0; i < 4; ++i) bar_init(bars + i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // local slot t & 1 receives this cluster's h[t] for t <= T-2: arm the
+    // first two; a remote barrier is armed when its copy is issued
+    if (m >= 0 && T_ >= 2) bar_expect(bars, local_bytes);
+    if (m >= 0 && T_ >= 3) bar_expect(bars + 1, local_bytes);
+  }
+
+  // the register k-steps i < KR of both tiles as A fragments, this warp's
+  // 16 columns of each, straight from W_hh (once; zeros past K)
+  uint32_t wa[kMTiles][KR][4];
+#pragma unroll
+  for (int mt = 0; mt < kMTiles; ++mt) {
+#pragma unroll
+    for (int i = 0; i < KR; ++i) {
+      const int ks = ks_of(i);
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr) {
+        const int q = mt * 64 + wq * 16 + gr + (rr & 1) * 8;
+        const int kk = ks * 16 + 2 * tig + (rr >> 1) * 8;
+        const uint32_t lo = ks >= 0 ? w_at(q, kk) : 0, hi = ks >= 0 ? w_at(q, kk + 1) : 0;
+        wa[mt][i][rr] = lo | (hi << 16);
+      }
+    }
+  }
+
+  // this thread's (row, unit) pairs e = tid + p nt, r << 16 | u (-1: none),
+  // their cell state and the step's four xp values
+  int ru[kPairs];
+  float c[kPairs];
+  T xv[kPairs][4];
+#pragma unroll
+  for (int p = 0; p < kPairs; ++p) {
+    const int e = tid + p * nt, r = e / U, u = e % U;
+    ru[p] = e < Br * U && u < Uk ? r << 16 | u : -1;
+    c[p] = (ru[p] >= 0 && c0 != nullptr) ? c0[size_t(row0 + r) * H + u0 + u] : 0.0f;
+  }
+  auto prefetch = [&](int t) {
+#pragma unroll
+    for (int p = 0; p < kPairs; ++p) {
+      if (ru[p] < 0) continue;
+      const T* x = xp + (size_t(t) * R + row0 + (ru[p] >> 16)) * G4 + u0 + (ru[p] & 0xffff);
+#pragma unroll
+      for (int g = 0; g < 4; ++g) xv[p][g] = x[g * H];
+    }
+  };
+  prefetch(0);
+  fence_proxy_async();  // a_s and h0 written here; wgmma reads them through the async proxy
+  cluster.sync();  // every block runs, with its barriers armed and its slots set up
+
+  // this warpgroup's atoms of W_hh's columns (its shared-memory k-steps)
+  const uint64_t a_base = a_desc(a_s + wg * kMTiles * kAtoms * kAtomBytes, 0);
+  uint32_t parity = 0;  // bit x: parity of barrier x's phase to wait for
+  for (int t = 0; m >= 0 && t < T_; ++t) {
+    const int in_slot = (t + 1) & 1;  // h[t-1]
+    if (t > 0) {
+      bar_wait(bars + in_slot, (parity >> in_slot) & 1);
+      parity ^= 1u << in_slot;
+      // the slot's next phase receives h[t+1]
+      if (tid == 0 && t + 1 <= T_ - 2) bar_expect(bars + in_slot, local_bytes);
+    }
+    T* hin = recv + in_slot * slot;
+    fence_proxy_async();  // h came by st.async; wgmma reads it through the async proxy
+    // 2: the product, for each 8-row tile of h each warpgroup its virtual
+    // k-steps in order into one set of accumulators; before i =
+    // kSplitLocalWG of the first tile, the other cluster's h[t-1] is copied
+    // in.  No wgmma sits on a branch (a k-step past K multiplies zero
+    // fragments by k-step 0; the tiles are unrolled).
+    //
+    // The other cluster's h[t-1]: published in the pair's global slot once
+    // all its owners have counted; one bulk copy a tile of 8 rows, issued
+    // by thread 0 (no C++ branch: see fetch_after_count).  Where not `go`
+    // (step 0, whose h0 is all here, and the second row tile, whose h came
+    // with the first) it fetches nothing and waits for the phase that has
+    // completed last.
+    auto remote = [&](bool go) {
+      const int rb = 2 + in_slot;
+      const size_t off0 = size_t(in_slot) * slot + size_t(base_other) * U * 8, off1 = off0 + size_t(KP) * 8;
+      fetch_after_count(tid == 0 && go, other_count, uint32_t(t) * uint32_t(n_other), bars + rb, tile_bytes,
+                        RT, recv + off0, xb + off0, recv + off1, xb + off1);
+      bar_wait_asm(bars + rb, ((parity >> rb) & 1) ^ uint32_t(!go));
+      parity ^= uint32_t(go) << rb;
+    };
+    const uint64_t h_desc = b_desc(hin);
+    float* pw = part + wg * RP * NQ;
+    // one row tile after the other (unrolled: as a loop ptxas serializes the
+    // wgmma; two tiles spill 256 bytes a thread)
+#pragma unroll
+    for (int rt = 0; rt < RT; ++rt) {
+      float acc[kMTiles][4];
+#pragma unroll
+      for (int mt = 0; mt < kMTiles; ++mt) acc[mt][0] = acc[mt][1] = acc[mt][2] = acc[mt][3] = 0.0f;
+      // virtual k-step i of row tile rt into the accumulators.  Descriptors
+      // as base + offset, the offset without a branch: a branch between two
+      // wgmma makes ptxas fence every wgmma after it (WARPGROUP.ARRIVE),
+      // which tripled the product's time.
+      auto product = [&](int i) {
+        const int v = wg + kWarpGroups * i;
+        int ks = v + ks_lo;
+        ks = ks >= KS ? ks - KS : ks;
+        ks = v < KS ? ks : 0;
+        // slot_at(rt 8, ks 16) in 16-byte units: rt KP + ks 16
+        const uint64_t db = h_desc + uint64_t(rt * KP + ks * 16);
+#pragma unroll
+        for (int mt = 0; mt < kMTiles; ++mt) {
+          if (i < KR) {
+            wgmma_m64n8k16(acc[mt], wa[mt][i < KR ? i : 0], db, 1);
+          } else {
+            const int j = i < KR ? 0 : i - KR;
+            wgmma_m64n8k16_ss(acc[mt], a_base + uint64_t(((mt * kAtoms + j / 4) * kAtomBytes + j % 4 * 32) >> 4), db);
+          }
+        }
+      };
+      wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < kSplitLocalWG; ++i) product(i);
+      remote(t > 0 && rt == 0);
+      wgmma_fence();
+#pragma unroll
+      for (int i = kSplitLocalWG; i < KW; ++i) product(i);
+      wgmma_commit();
+      wgmma_wait<0>();
+      // acc[mt][e]: column mt 64 + wq 16 + gr + (e >> 1) 8, row rt 8 + 2 tig + (e & 1)
+      const int r = rt * 8 + 2 * tig;
+#pragma unroll
+      for (int mt = 0; mt < kMTiles; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int q = mt * 64 + wq * 16 + gr + h * 8;
+          if (r < Br) pw[r * NQ + q] = acc[mt][2 * h];
+          if (r + 1 < Br) pw[(r + 1) * NQ + q] = acc[mt][2 * h + 1];
+        }
+      }
+    }
+    __syncthreads();  // the product complete
+    // 2, 3: the cell update of the pairs; h rounded into the send stage
+#pragma unroll
+    for (int p = 0; p < kPairs; ++p) {
+      if (ru[p] < 0) continue;
+      const int r = ru[p] >> 16, u = ru[p] & 0xffff, j = u0 + u;
+      float pg[4];  // the warpgroups' partials, added in order
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        float v[kWarpGroups];
+#pragma unroll
+        for (int w = 0; w < kWarpGroups; ++w) v[w] = part[(w * RP + r) * NQ + g * U + u];
+        pg[g] = v[0];
+#pragma unroll
+        for (int w = 1; w < kWarpGroups; ++w) pg[g] += v[w];
+      }
+      const float i = sigmoid(to_float(xv[p][0]) + pg[0]);
+      const float f = sigmoid(to_float(xv[p][1]) + pg[1]);
+      const float g = tanhf(to_float(xv[p][2]) + pg[2]);
+      const float o = sigmoid(to_float(xv[p][3]) + pg[3]);
+      c[p] = f * c[p] + i * g;
+      const float h = o * tanhf(c[p]);
+      const size_t row = size_t(t) * R + row0 + r;
+      hs[row * H + j] = h;
+      cs[row * H + j] = c[p];
+      float* gt = gates + row * G4 + j;
+      gt[0] = i;
+      gt[H] = f;
+      gt[2 * H] = g;
+      gt[3 * H] = o;
+      stage[r * U + u] = from_float<T>(h);
+    }
+    __syncthreads();  // the stage is complete; every read of the product and of slot in_slot is done
+    // 4: h[t] (the last step's is not needed): warps 0-10 to this cluster's
+    // owners' slot t & 1 by st.async; the last warp to the pair's global
+    // slot t & 1, then one count on this cluster's counter
+    if (t < T_ - 1) {
+      constexpr int kPieces = U / 8;  // 16-byte pieces of a row
+      const int pieces = Br * kPieces;
+      T* out = recv + (t & 1) * slot;
+      if (warp < kWarps - 1) {
+        const uint32_t bar_off = uint32_t(t & 1) * 8;
+        for (int e = tid; e < n_mine * pieces; e += nt - 32) {
+          const int to = e / pieces, pc = e % pieces;
+          const int r = pc / kPieces, col = pc % kPieces * 8;
+          const float4 v = *reinterpret_cast<const float4*>(stage + r * U + col);
+          send4(cluster_addr(out + slot_at<T>(r, m * U + col, KP, KP), to), v, cluster_addr(bars, to) + bar_off);
+        }
+      } else {
+        T* gout = xb + (t & 1) * slot;
+        for (int pc = lane; pc < pieces; pc += 32) {
+          const int r = pc / kPieces, col = pc % kPieces * 8;
+          *reinterpret_cast<float4*>(gout + slot_at<T>(r, m * U + col, KP, KP)) =
+              *reinterpret_cast<const float4*>(stage + r * U + col);
+        }
+        __syncwarp();
+        if (lane == 0) counter_release_add(my_count);
+      }
+    }
+    if (t + 1 < T_) prefetch(t + 1);  // loads while h travels
+  }
+  cluster.sync();  // no block leaves while a peer may still write to it
+}
+
+// ---------------------------------------------------------------------------
 // The grid route
 // ---------------------------------------------------------------------------
 
@@ -611,13 +1058,19 @@ struct FwdArgs {
   const void *xp, *w0, *w1, *h0, *c0;
   void *hs, *cs, *gates;
   int steps, B, H;
+  void* exchange;          // the split walk's exchange memory (zeroed here before its launch)
+  size_t exchange_bytes;   // its size
 };
+
+enum Route : int { kGrid = 0, kWalk = 1, kSplit = 2 };
 
 // The route and launch on this card for D directions of B rows each.
 struct FwdLaunch {
-  bool walk;           // the cluster walk (else the grid route)
-  ClusterLaunch info;  // walk: row groups, shared memory, clusters; registers of either
-  FwdShape shape;      // walk
+  int route;           // kWalk (the cluster walk), kSplit (the split walk) or kGrid
+  ClusterLaunch info;  // walks: row groups, shared memory, clusters; registers of any route
+  FwdShape shape;      // the cluster walk
+  SplitShape split;    // the split walk
+  size_t exchange;     // the split walk: bytes of exchange memory it needs
   int grid_blocks, grid_units;  // grid route: blocks, units a block
   int grid_chunk;      // grid route: rows of h staged at a time
   size_t grid_smem;
@@ -642,6 +1095,33 @@ cudaError_t walk(const FwdShape& s, int D, const FwdArgs* a, cudaStream_t stream
                            info->rows, s.units, s.unit_pad, s.kp, s.ldw, s.ldh, s.rows_padded);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// The split walk's occupancy on this card into `fl->info`, and its launch
+// when `a` is given and the card holds all its clusters at once: the
+// exchange memory zeroed on `stream`, then the walk.
+template <int RT, int KW>
+cudaError_t split_walk(FwdLaunch* fl, int D, const FwdArgs* a, cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  const SplitShape& s = fl->split;
+  const int pairs = D * fl->info.groups;
+  auto kernel = lstm_fwd_split_kernel<RT, KW>;
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attrs[2];
+  cudaError_t err = cluster_config(kernel, 2 * pairs, kSplitThreads, stream, &config, attrs, &fl->info);
+  // a launch shape only, or the card does not hold every cluster at once:
+  // nothing launched
+  if (err != cudaSuccess || a == nullptr || fl->info.clusters < 2 * pairs) return err;
+  if (a->exchange == nullptr || a->exchange_bytes < fl->exchange) return cudaErrorInvalidValue;
+  err = cudaMemsetAsync(a->exchange, 0, fl->exchange, stream);
+  if (err != cudaSuccess) return err;
+  unsigned char* ex = static_cast<unsigned char*>(a->exchange);
+  return split_launch(kernel, &config, attrs, static_cast<const T*>(a->xp), static_cast<const T*>(a->w0),
+                      static_cast<const T*>(a->w1), static_cast<const float*>(a->h0),
+                      static_cast<const float*>(a->c0), static_cast<float*>(a->hs), static_cast<float*>(a->cs),
+                      static_cast<float*>(a->gates), reinterpret_cast<unsigned int*>(ex),
+                      reinterpret_cast<T*>(ex + split_counter_bytes(pairs)), a->steps, a->B, a->H,
+                      fl->info.groups, fl->info.rows, s.owners, s.first, s.kp);
 }
 
 template <typename T, int D>
@@ -696,10 +1176,11 @@ cudaError_t grid_route(FwdLaunch* fl, const FwdArgs* a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Chooses the route from the shape and the card before anything launches
-// (the walk wherever a cluster holds a row and the card holds a cluster,
-// else the grid route), then launches it when a->xp is set, else only
-// fills `fl`.
+// Chooses the route from the shape and the card before anything launches:
+// the cluster walk wherever a cluster holds a row and the card holds a
+// cluster; else, in bf16, the split walk wherever a pair holds a row and the
+// card holds all its clusters at once; else the grid route.  Then launches
+// it when a->xp is set, else only fills `fl`.
 template <typename T, int D>
 cudaError_t launch(const FwdArgs* a, cudaStream_t stream, FwdLaunch* fl) {
   *fl = {};
@@ -722,9 +1203,37 @@ cudaError_t launch(const FwdArgs* a, cudaStream_t stream, FwdLaunch* fl) {
       default: err = walk<T, 8>(fl->shape, D, run, stream, &fl->info); break;
     }
     if (err != cudaSuccess) return err;
-    fl->walk = fl->info.clusters >= 1;
-    if (fl->walk) return cudaSuccess;
+    if (fl->info.clusters >= 1) {
+      fl->route = kWalk;
+      return cudaSuccess;
+    }
   }
+  if constexpr (sizeof(T) == 2) {
+    auto split_fits = [&](int rows) {
+      const SplitShape s = split_shape(rows, H);
+      return s.owners >= kSplitMinOwners && s.first <= kCluster && s.ksteps_wg > 0 && s.smem <= size_t(optin);
+    };
+    fl->info = {};
+    if (row_groups(a->B, kSplitMaxRows, split_fits, &fl->info.groups, &fl->info.rows)) {
+      fl->split = split_shape(fl->info.rows, H);
+      fl->info.smem = fl->split.smem;
+      const int pairs = D * fl->info.groups;
+      fl->exchange = split_counter_bytes(pairs) + size_t(pairs) * fl->split.pair_elems * sizeof(T);
+      const bool two = fl->split.rows_padded > 8, wide = fl->split.ksteps_wg > kSplitKStepsWG[0];
+      err = two ? (wide ? split_walk<2, kSplitKStepsWG[1]>(fl, D, run, stream)
+                        : split_walk<2, kSplitKStepsWG[0]>(fl, D, run, stream))
+                : (wide ? split_walk<1, kSplitKStepsWG[1]>(fl, D, run, stream)
+                        : split_walk<1, kSplitKStepsWG[0]>(fl, D, run, stream));
+      if (err != cudaSuccess) return err;
+      if (fl->info.clusters >= 2 * pairs) {
+        fl->route = kSplit;
+        return cudaSuccess;
+      }
+    }
+    fl->info = {};
+    fl->exchange = 0;
+  }
+  fl->route = kGrid;
   return grid_route<T, D>(fl, a, stream);
 }
 
@@ -740,57 +1249,77 @@ cudaError_t launch(const FwdArgs& a, int bf16, void* stream, FwdLaunch* fl) {
 // Plain C interface (loaded with ctypes).  Every function returns its
 // cudaError_t; 0 is success.  `bf16` selects bf16 operands (xp, W_hh),
 // otherwise fp32.  h0 / c0 / hs / cs / gates are fp32.  `route`, where
-// given, receives the route launched: 1 the cluster walk, 0 the grid route.
+// given, receives the route launched: 1 the cluster walk, 2 the split walk,
+// 0 the grid route.  `exchange` is scratch memory of `exchange_bytes` bytes
+// (at least what lstm_fwd_exchange_bytes reports for the shape; null where
+// that is 0), which the split walk uses and zeroes on the stream first.
 
 // One direction: xp [T, B, 4H], whh [H, 4H], h0 and c0 [B, H].
 extern "C" int lstm_fwd(const void* xp, const void* whh, const void* h0, const void* c0,
                         void* hs, void* cs, void* gates, int T, int B, int H, int bf16,
-                        void* stream, int* route) {
-  const FwdArgs a{xp, whh, nullptr, h0, c0, hs, cs, gates, T, B, H};
+                        void* exchange, long long exchange_bytes, void* stream, int* route) {
+  const FwdArgs a{xp, whh, nullptr, h0, c0, hs, cs, gates, T, B, H, exchange, size_t(exchange_bytes)};
   FwdLaunch fl;
   const cudaError_t err = launch<1>(a, bf16, stream, &fl);
-  if (route != nullptr) *route = fl.walk ? 1 : 0;
+  if (route != nullptr) *route = fl.route;
   return err;
 }
 
 // Both directions, zero initial state: xp [T, 2B, 4H], rows [B, 2B) already
 // time-reversed; whh_f and whh_b [H, 4H].
 extern "C" int bilstm_fwd(const void* xp, const void* whh_f, const void* whh_b, void* hs,
-                          void* cs, void* gates, int T, int B, int H, int bf16, void* stream,
-                          int* route) {
-  const FwdArgs a{xp, whh_f, whh_b, nullptr, nullptr, hs, cs, gates, T, B, H};
+                          void* cs, void* gates, int T, int B, int H, int bf16, void* exchange,
+                          long long exchange_bytes, void* stream, int* route) {
+  const FwdArgs a{xp, whh_f, whh_b, nullptr, nullptr, hs, cs, gates, T, B, H, exchange, size_t(exchange_bytes)};
   FwdLaunch fl;
   const cudaError_t err = launch<2>(a, bf16, stream, &fl);
-  if (route != nullptr) *route = fl.walk ? 1 : 0;
+  if (route != nullptr) *route = fl.route;
+  return err;
+}
+
+namespace {
+cudaError_t fwd_config(int D, int B, int H, int bf16, FwdLaunch* fl) {
+  if (D != 1 && D != 2) return cudaErrorInvalidValue;
+  const FwdArgs a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1, B, H, nullptr, 0};
+  return D == 1 ? launch<1>(a, bf16, nullptr, fl) : launch<2>(a, bf16, nullptr, fl);
+}
+}  // namespace
+
+// Bytes of exchange memory the two functions above need for D directions of
+// B rows each on this card (0 but on the split walk).
+extern "C" int lstm_fwd_exchange_bytes(int D, int B, int H, int bf16, long long* bytes) {
+  FwdLaunch fl;
+  const cudaError_t err = fwd_config(D, B, H, bf16, &fl);
+  *bytes = static_cast<long long>(fl.exchange);
   return err;
 }
 
 // The launch the two functions above make for D directions of B rows each
-// on this card: route (1 the cluster walk, 0 the grid route), blocks, units
-// a block, dynamic shared memory in bytes; the walk's cluster size, threads
-// a block, clusters the card holds at once, registers and spilled bytes a
-// thread, row groups a direction and rows a cluster (the grid route: 0
-// cluster, 256 threads, the blocks it holds at once in `clusters`, no row
-// groups).
+// on this card: route (1 the cluster walk, 2 the split walk, 0 the grid
+// route), blocks, units a block, dynamic shared memory in bytes; the walks'
+// cluster size, threads a block, clusters the card holds at once, registers
+// and spilled bytes a thread, row groups a direction (one cluster each on
+// the cluster walk, a pair of clusters on the split walk) and rows a group
+// (the grid route: 0 cluster, 256 threads, the blocks it holds at once in
+// `clusters`, no row groups).
 extern "C" int lstm_launch_config(int D, int B, int H, int bf16, int* route, int* blocks,
                                   int* units, long long* smem, int* cluster, int* threads,
                                   int* clusters, int* registers, int* local_bytes, int* groups,
                                   int* rows) {
-  if (D != 1 && D != 2) return cudaErrorInvalidValue;
-  const FwdArgs a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1, B, H};
   FwdLaunch fl;
-  const cudaError_t err = D == 1 ? launch<1>(a, bf16, nullptr, &fl) : launch<2>(a, bf16, nullptr, &fl);
+  const cudaError_t err = fwd_config(D, B, H, bf16, &fl);
   if (err != cudaSuccess) return err;
-  *route = fl.walk ? 1 : 0;
-  if (fl.walk) {
-    *blocks = D * fl.info.groups * kCluster;
-    *units = fl.shape.units;
+  *route = fl.route;
+  *registers = fl.info.registers;
+  *local_bytes = fl.info.local_bytes;
+  if (fl.route != kGrid) {
+    const bool split = fl.route == kSplit;
+    *blocks = D * fl.info.groups * kCluster * (split ? 2 : 1);
+    *units = split ? kSplitUnits : fl.shape.units;
     *smem = static_cast<long long>(fl.info.smem);
     *cluster = kCluster;
     *threads = kWalkThreads;
     *clusters = fl.info.clusters;
-    *registers = fl.info.registers;
-    *local_bytes = fl.info.local_bytes;
     *groups = fl.info.groups;
     *rows = fl.info.rows;
   } else {
@@ -800,8 +1329,6 @@ extern "C" int lstm_launch_config(int D, int B, int H, int bf16, int* route, int
     *cluster = 0;
     *threads = kThreads;
     *clusters = fl.grid_resident;
-    *registers = fl.info.registers;
-    *local_bytes = fl.info.local_bytes;
     *groups = *rows = 0;
   }
   return cudaSuccess;

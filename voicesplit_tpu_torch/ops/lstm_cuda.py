@@ -7,8 +7,12 @@ directions in one pass, zero initial state).  Both take time-major inputs
 and return ``(hs, cs, gates)`` in float32, like the Pallas kernels.  The
 kernel is chosen from the shape before the launch: the cluster walk
 (``lstm_fwd_kernel``) wherever it holds the shape (every shape of the
-model at H=400), else the grid route (``lstm_fwd_grid_kernel``, H=800);
-``ROUTES`` counts the forward launches by route.
+model at H=400), else in bf16 the split walk (``lstm_fwd_split_kernel``:
+two clusters a direction and row group, H=800) wherever the card holds all
+its clusters at once, else the grid route (``lstm_fwd_grid_kernel``: fp32
+at H=800); ``ROUTES`` counts the forward launches by route.  The split walk
+takes scratch memory for its exchange between the two clusters, which the
+wrapper allocates (``_exchange``) and the kernel's C function zeroes.
 
 Backward (`csrc/lstm_bwd.cu`): ``lstm_bwd`` replaces ``_bwd_kernel`` and
 ``bilstm_bwd`` replaces ``_bwd2_kernel``: the reverse walk that gives
@@ -38,6 +42,7 @@ The kernels are compiled and loaded by `ops/_build.py` (``nvcc`` for
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -47,9 +52,10 @@ from voicesplit_tpu_torch.ops import _build
 # kernel launches per wrapper, for showing that a run went through them
 LAUNCHES = {"lstm_fwd": 0, "bilstm_fwd": 0, "lstm_bwd": 0, "bilstm_bwd": 0}
 # the forward wrappers' launches by route: "cluster" (`lstm_fwd_kernel`, the
-# cluster walk) and "grid" (`lstm_fwd_grid_kernel`, the shapes the walk
-# cannot hold)
-ROUTES = {"cluster": 0, "grid": 0}
+# cluster walk), "split" (`lstm_fwd_split_kernel`, two clusters a direction
+# and row group: bf16 shapes one cluster cannot hold) and "grid"
+# (`lstm_fwd_grid_kernel`, the shapes neither walk holds)
+ROUTES = {"cluster": 0, "split": 0, "grid": 0}
 # the backward wrappers' launches by route: "cluster" (`lstm_bwd_kernel`) and
 # "grid" (`lstm_bwd_grid_kernel`)
 ROUTES_BWD = {"cluster": 0, "grid": 0}
@@ -67,10 +73,12 @@ def _library() -> ctypes.CDLL:
     global _declared
     if not _declared:
         p, i, pi = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
-        out = [pi, pi, ctypes.POINTER(ctypes.c_longlong), *[pi] * 7]
+        ll, pll = ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)
+        out = [pi, pi, pll, *[pi] * 7]
         _build.declare({
-            "lstm_fwd": [p] * 7 + [i] * 4 + [p, pi],
-            "bilstm_fwd": [p] * 6 + [i] * 4 + [p, pi],
+            "lstm_fwd": [p] * 7 + [i] * 4 + [p, ll, p, pi],
+            "bilstm_fwd": [p] * 6 + [i] * 4 + [p, ll, p, pi],
+            "lstm_fwd_exchange_bytes": [i] * 4 + [pll],
             "lstm_bwd": [p] * 13 + [i] * 4 + [p, pi],
             "bilstm_bwd": [p] * 9 + [i] * 4 + [p, pi],
             "lstm_dwhh": [p] * 5 + [i] * 5 + [p],
@@ -93,7 +101,9 @@ def launch_config(
     card holds at once (``cudaOccupancyMaxActiveClusters``; 0: it cannot
     launch), registers and spilled bytes a thread, row groups a direction
     (one cluster each) and rows a cluster, and the route, chosen from the
-    shape: "cluster" (the walk) or "grid" (the grid route: ``cluster`` 0,
+    shape: "cluster" (the walk), "split" (the split walk: two clusters a
+    direction and row group, ``blocks`` all of them, each row group a pair)
+    or "grid" (the grid route: ``cluster`` 0,
     and the blocks the card holds at once under ``resident_blocks``; the
     backward's also ``w_shared``, whether W_hh's rows sit in shared memory
     or are read through L2)."""
@@ -111,12 +121,35 @@ def launch_config(
     keys = ("blocks", "units", "cluster", "threads", "max_active_clusters", "registers",
             "local_bytes", "groups", "rows")
     out = dict(zip(keys, (v.value for v in ints)), smem_bytes=smem.value)
-    out["route"] = "cluster" if route.value else "grid"
+    out["route"] = _ROUTE_NAMES[route.value]
     if out["route"] == "grid":
         out["resident_blocks"] = out.pop("max_active_clusters")
         if backward:
             out["w_shared"] = bool(w_shared.value)
     return out
+
+
+# the route numbers the C functions report
+_ROUTE_NAMES = {0: "grid", 1: "cluster", 2: "split"}
+
+
+@functools.lru_cache(maxsize=None)
+def _exchange_bytes(directions: int, batch: int, hidden: int, bf16: int, device_index: int) -> int:
+    n = ctypes.c_longlong()
+    err = _library().lstm_fwd_exchange_bytes(directions, batch, hidden, bf16, ctypes.byref(n))
+    _raise_on(err, "lstm_fwd_exchange_bytes")
+    return n.value
+
+
+def _exchange(directions: int, batch: int, hidden: int, dtype: torch.dtype, device):
+    """Scratch memory of the split walk for this launch (None, 0 on the
+    other routes), on the current device: the kernel's C function zeroes it
+    on the stream before the walk."""
+    n = _exchange_bytes(directions, batch, hidden, int(dtype == torch.bfloat16),
+                        torch.cuda.current_device())
+    if n == 0:
+        return None, 0
+    return torch.empty(n, dtype=torch.uint8, device=device), n
 
 
 def _raise_on_walk(err: int, name: str, directions: int, batch: int, hidden: int, dtype) -> None:
@@ -327,7 +360,7 @@ def _outputs(xp: torch.Tensor, H: int):
 
 def _count(name: str, route: ctypes.c_int, routes: dict) -> None:
     LAUNCHES[name] += 1
-    routes["cluster" if route.value else "grid"] += 1
+    routes[_ROUTE_NAMES[route.value]] += 1
 
 
 def _launch_lstm_fwd(xp, whh, h0, c0):
@@ -335,11 +368,12 @@ def _launch_lstm_fwd(xp, whh, h0, c0):
     hs, cs, gates = _outputs(xp, H)
     lib, route = _library(), ctypes.c_int()
     with torch.cuda.device(xp.device):
+        ex, ex_bytes = _exchange(1, xp.shape[1], H, xp.dtype, xp.device)
         err = lib.lstm_fwd(
             xp.data_ptr(), whh.data_ptr(), h0.data_ptr(), c0.data_ptr(),
             hs.data_ptr(), cs.data_ptr(), gates.data_ptr(),
-            T, xp.shape[1], H, int(xp.dtype == torch.bfloat16), _build.stream(xp),
-            ctypes.byref(route),
+            T, xp.shape[1], H, int(xp.dtype == torch.bfloat16),
+            None if ex is None else ex.data_ptr(), ex_bytes, _build.stream(xp), ctypes.byref(route),
         )
     _raise_on(err, "lstm_fwd")
     _count("lstm_fwd", route, ROUTES)
@@ -351,11 +385,12 @@ def _launch_bilstm_fwd(xp, whh_f, whh_b):
     hs, cs, gates = _outputs(xp, H)
     lib, route = _library(), ctypes.c_int()
     with torch.cuda.device(xp.device):
+        ex, ex_bytes = _exchange(2, xp.shape[1] // 2, H, xp.dtype, xp.device)
         err = lib.bilstm_fwd(
             xp.data_ptr(), whh_f.data_ptr(), whh_b.data_ptr(),
             hs.data_ptr(), cs.data_ptr(), gates.data_ptr(),
-            T, xp.shape[1] // 2, H, int(xp.dtype == torch.bfloat16), _build.stream(xp),
-            ctypes.byref(route),
+            T, xp.shape[1] // 2, H, int(xp.dtype == torch.bfloat16),
+            None if ex is None else ex.data_ptr(), ex_bytes, _build.stream(xp), ctypes.byref(route),
         )
     _raise_on(err, "bilstm_fwd")
     _count("bilstm_fwd", route, ROUTES)

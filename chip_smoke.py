@@ -35,8 +35,9 @@ Phases, each printing one JSON line:
    (``lstm_fwd_split``, ``bilstm_fwd_split``) and on the grid route in fp32
    (``lstm_fwd_grid``, ``bilstm_fwd_grid``), ``lstm_bwd`` (B=2, random dhs, dhf,
    dcf; dxp, dW_hh, dh0, dc0) and ``bilstm_bwd`` (B=8 and ROW_GROUP_BATCH;
-   dxp, both dW_hh), and both at GRID_HIDDEN on the backward's grid route
-   (``lstm_bwd_grid`` B=2, ``bilstm_bwd_grid`` B=8), each launch counted
+   dxp, both dW_hh), and both at GRID_HIDDEN on the backward's split walk
+   in bf16 (``lstm_bwd_split`` B=2, ``bilstm_bwd_split`` B=8) and grid route
+   in fp32 (``lstm_bwd_grid``, ``bilstm_bwd_grid``), each launch counted
    by route.  Then times kernel, plain version and a cuDNN
    ``torch.nn.LSTM`` yardstick (its forward, or its ``.backward()`` alone
    after a forward; both also cover the input projection, which the kernels
@@ -180,7 +181,7 @@ ROW_GROUP_BATCH = 24
 # lstm_bwd_grid_kernel)
 GRID_HIDDEN = 800
 # the routes the wide config's bf16 paths take at GRID_HIDDEN
-WIDE_ROUTES = {"forward": "split", "backward": "grid"}
+WIDE_ROUTES = {"forward": "split", "backward": "split"}
 # where the clusters of a split walk are not all resident at once (two
 # directions of 24 rows: 8 clusters of 16, of 7 an H100 holds): the grid route
 NOT_RESIDENT_BATCH = 24
@@ -337,8 +338,10 @@ REPLACES = {
     "bilstm_fwd_split": "voicesplit_tpu/ops/lstm_pallas.py:251",
     "lstm_bwd": "voicesplit_tpu/ops/lstm_pallas.py:135",
     "lstm_bwd_grid": "voicesplit_tpu/ops/lstm_pallas.py:135",
+    "lstm_bwd_split": "voicesplit_tpu/ops/lstm_pallas.py:135",
     "bilstm_bwd": "voicesplit_tpu/ops/lstm_pallas.py:317",
     "bilstm_bwd_grid": "voicesplit_tpu/ops/lstm_pallas.py:317",
+    "bilstm_bwd_split": "voicesplit_tpu/ops/lstm_pallas.py:317",
     "conv_bn_act_fwd": "voicesplit_tpu/ops/conv_fused.py:303",
     "conv_dgrad": "voicesplit_tpu/ops/conv_fused.py:411",
     "conv_wgrad": "voicesplit_tpu/ops/conv_fused.py:524",
@@ -354,8 +357,10 @@ SOURCES = {
     "bilstm_fwd_split": "voicesplit_tpu_torch/csrc/lstm_fwd.cu",
     "lstm_bwd": "voicesplit_tpu_torch/csrc/lstm_bwd.cu",
     "lstm_bwd_grid": "voicesplit_tpu_torch/csrc/lstm_bwd.cu",
+    "lstm_bwd_split": "voicesplit_tpu_torch/csrc/lstm_bwd.cu",
     "bilstm_bwd": "voicesplit_tpu_torch/csrc/lstm_bwd.cu",
     "bilstm_bwd_grid": "voicesplit_tpu_torch/csrc/lstm_bwd.cu",
+    "bilstm_bwd_split": "voicesplit_tpu_torch/csrc/lstm_bwd.cu",
     "conv_bn_act_fwd": "voicesplit_tpu_torch/csrc/conv_fwd.cu",
     "conv_dgrad": "voicesplit_tpu_torch/csrc/conv_fwd.cu",
     "conv_wgrad": "voicesplit_tpu_torch/csrc/conv_wgrad.cu",
@@ -363,10 +368,10 @@ SOURCES = {
     "conv_dilated_wgrad": "voicesplit_tpu_torch/csrc/conv_wgrad.cu",
 }
 # kernels that the paths do not launch (the `kernels` line lists them with
-# "main_path": false): the forward's grid route, which only fp32 takes at
-# H=800, and the two-direction backward's grid route (B=8), checked and timed
-# in the kernels phases
-OFF_PATH = ("lstm_fwd_grid", "bilstm_fwd_grid", "bilstm_bwd_grid")
+# "main_path": false): the grid routes, which only fp32 takes at H=800, and
+# the two-direction backward at H=800 (B=8; the wide config trains at B=2),
+# checked and timed in the kernels phases
+OFF_PATH = ("lstm_fwd_grid", "bilstm_fwd_grid", "lstm_bwd_grid", "bilstm_bwd_grid", "bilstm_bwd_split")
 
 
 def emit(phase: str, **fields) -> None:
@@ -663,11 +668,12 @@ def phase_kernels(torch, lstm_cuda, seed: int) -> dict:
 
 
 def _bwd_case(torch, lstm_cuda, g, directions: int, batch: int, timed: bool, H: int = HIDDEN,
-              route: str = "cluster") -> dict:
+              route: str = "cluster", dtypes=("bfloat16", "float32")) -> dict:
     """One backward kernel against its plain version on the card at `batch`
-    rows a direction and H units, both operand types, on the plain forward's
+    rows a direction and H units, in `dtypes`, on the plain forward's
     outputs for random inputs and random cotangents: peak-relative errors,
-    two launches with the same bits, both on `route`; with `timed`, kernel,
+    two launches with the same bits, both on `route`, and the call's dW_hh
+    the bits of the dW_hh kernel alone on its dxp; with `timed`, kernel,
     plain and the dW_hh kernel alone."""
     dev = torch.device("cuda")
     T, R = T_FRAMES, directions * batch
@@ -678,7 +684,7 @@ def _bwd_case(torch, lstm_cuda, g, directions: int, batch: int, timed: bool, H: 
     dhs = torch.randn(T, R, H, generator=g).to(dev)
     name = "lstm_bwd" if directions == 1 else "bilstm_bwd"
     entry = {}
-    for dt in ("bfloat16", "float32"):
+    for dt in dtypes:
         dtype = getattr(torch, dt)
         xp = xp32.to(dev, dtype)
         ws = [w.to(dev, dtype) for w in ws32]
@@ -714,10 +720,16 @@ def _bwd_case(torch, lstm_cuda, g, directions: int, batch: int, timed: bool, H: 
         check(err <= TOL[dt], f"{what}: peak-relative err {err} > {TOL[dt]}")
         check(same_bits, f"{what}: two launches on the same inputs differ")
         check(took[route] == 2, f"{what}: routes {took}, wanted {route}")
+        # dW_hh is the dW_hh kernel's on every route: the same bits alone on
+        # this call's dxp
+        h_init = states[0] if directions == 1 else None
+        dwhh = lambda: lstm_cuda.lstm_dwhh(hs, h_init, got[0], directions, dtype)  # noqa: E731
+        with torch.inference_mode():
+            alone = dwhh()
+        check(all(torch.equal(a, b) for a, b in zip(alone, got[1:1 + directions])),
+              f"{what}: dW_hh differs from the dW_hh kernel on the same dxp")
         if timed:
             # the dW_hh kernel alone, on this call's dxp (the walk is the rest)
-            h_init = states[0] if directions == 1 else None
-            dwhh = lambda: lstm_cuda.lstm_dwhh(hs, h_init, got[0], directions, dtype)  # noqa: E731
             with torch.inference_mode():
                 entry[dt]["ms"] = time_ms(torch, lambda: kernel(*args), iters=20)
                 entry[dt]["dwhh_ms"] = time_ms(torch, dwhh, iters=20)
@@ -755,17 +767,17 @@ def phase_bwd_kernels(torch, lstm_cuda, seed: int) -> dict:
                          **lstm_bwd_bound(directions, batch, "bfloat16")}
         emit("kernels", kernel=name, batch=batch, T=T, H=H,
              bound_fp32=lstm_bwd_bound(directions, batch, "float32"), **results[name])
-    # the grid route, which the wide config's training takes
+    # at GRID_HIDDEN: bf16 on the split walk, which the wide config's training
+    # takes (B=2), fp32 on the grid route
     for name, directions, batch in (("lstm_bwd", 1, 2), ("bilstm_bwd", 2, 8)):
-        entry = _bwd_case(torch, lstm_cuda, g, directions, batch, timed=True, H=GRID_HIDDEN,
-                          route="grid")
-        results[f"{name}_grid"] = {
-            "bf16": entry["bfloat16"], "fp32": entry["float32"],
-            "library_ms": _cudnn_lstm_bwd_ms(torch, g, directions, batch, GRID_HIDDEN),
-            **lstm_bwd_bound(directions, batch, "bfloat16", GRID_HIDDEN)}
-        emit("kernels", kernel=f"{name}_grid", batch=batch, T=T, H=GRID_HIDDEN,
-             bound_fp32=lstm_bwd_bound(directions, batch, "float32", GRID_HIDDEN),
-             **results[f"{name}_grid"])
+        library_ms = _cudnn_lstm_bwd_ms(torch, g, directions, batch, GRID_HIDDEN)
+        for route, dt, key in (("split", "bfloat16", "bf16"), ("grid", "float32", "fp32")):
+            entry = _bwd_case(torch, lstm_cuda, g, directions, batch, timed=True, H=GRID_HIDDEN,
+                              route=route, dtypes=(dt,))
+            results[f"{name}_{route}"] = {key: entry[dt], "library_ms": library_ms,
+                                          **lstm_bwd_bound(directions, batch, dt, GRID_HIDDEN)}
+            emit("kernels", kernel=f"{name}_{route}", batch=batch, T=T, H=GRID_HIDDEN,
+                 **results[f"{name}_{route}"])
     entry = _bwd_case(torch, lstm_cuda, g, 2, ROW_GROUP_BATCH, timed=True)
     results["bilstm_bwd"]["row_groups"] = {
         "batch": ROW_GROUP_BATCH, "bf16": entry["bfloat16"], "fp32": entry["float32"],
@@ -2206,7 +2218,8 @@ PORT_KERNEL_KINDS = (
     ("conv weight-gradient kernels", ("conv_wgrad_kernel", "conv_wgrad_kf1_kernel",
                                       "reduce_taps_kernel")),
     ("lstm kernels", ("lstm_fwd_kernel", "lstm_fwd_split_kernel", "lstm_fwd_grid_kernel",
-                      "lstm_bwd_kernel", "lstm_bwd_grid_kernel", "lstm_dwhh_kernel")),
+                      "lstm_bwd_kernel", "lstm_bwd_split_kernel", "lstm_bwd_grid_kernel",
+                      "lstm_dwhh_kernel")),
 )
 LIBRARY_KERNEL_KINDS = (
     ("convs", ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad")),
@@ -2336,6 +2349,7 @@ def main(argv=None) -> int:
             "lstm_fwd_split": "separate_wide", "bilstm_fwd_split": "evaluate",
             "lstm_fwd_grid": "separate_wide", "bilstm_fwd_grid": "evaluate",
             "lstm_bwd": "train", "bilstm_bwd": "train",
+            "lstm_bwd_split": "train_wide", "bilstm_bwd_split": "train_wide",
             "lstm_bwd_grid": "train_wide", "bilstm_bwd_grid": "train_wide",
             "conv_bn_act_fwd": "train_fused", "conv_dgrad": "train_fused",
             "conv_wgrad": "train_fused",

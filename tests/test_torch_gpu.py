@@ -201,20 +201,28 @@ def test_lstm_dwhh_kernel_matches_plain_version_on_card(dtype, bidirectional):
 def test_lstm_backward_takes_the_grid_route_where_the_walk_does_not_fit_on_card(bidirectional, dtype):
     """At H=800 (configs/voicesplit_wide.json) a block's W_hh columns exceed
     what the cluster walk holds (bf16: registers, fp32: shared memory): the
-    backward takes the grid route, chosen from the shape before the launch,
-    at the wide path's batches (B=2 one direction, B=8 two, T=301), with all
-    its blocks resident; it matches its plain version (the path's tolerances)
-    with the same bits twice, and each launch is counted by route."""
+    backward takes, chosen from the shape before the launch, the split walk
+    in bf16 (two clusters a direction and row group, every cluster resident
+    at once) and the grid route in fp32 (all its blocks resident), at the
+    wide path's batches (B=2 one direction, B=8 two, T=301); it matches its
+    plain version (the path's tolerances) with the same bits twice, and each
+    launch is counted by route."""
     _need_card()
     from voicesplit_tpu_torch.ops import lstm_cuda
 
     D, B, H = (2, 8, 800) if bidirectional else (1, 2, 800)
     dt = getattr(torch, dtype)
     cfg = lstm_cuda.launch_config(D, B, H, dt, backward=True)
-    assert cfg["route"] == "grid" and cfg["cluster"] == 0, cfg
-    assert cfg["resident_blocks"] >= cfg["blocks"] and cfg["local_bytes"] == 0, cfg
-    # W_hh's rows sit in shared memory but for two directions in fp32
-    assert cfg["w_shared"] == (not (bidirectional and dtype == "float32")), cfg
+    if dtype == "bfloat16":
+        route = "split"
+        assert cfg["route"] == route and cfg["cluster"] == 16 and cfg["blocks"] == 32 * D, cfg
+        assert cfg["max_active_clusters"] >= 2 * D and cfg["local_bytes"] == 0, cfg
+    else:
+        route = "grid"
+        assert cfg["route"] == route and cfg["cluster"] == 0, cfg
+        assert cfg["resident_blocks"] >= cfg["blocks"] and cfg["local_bytes"] == 0, cfg
+        # W_hh's rows sit in shared memory but for two directions
+        assert cfg["w_shared"] == (not bidirectional), cfg
     assert lstm_cuda.launch_config(D, B, 400, dt, backward=True)["route"] == "cluster"
     args = _backward_inputs(bidirectional, dtype, T=301, H=H, B=B, seed=H + B)
     name = "bilstm_bwd" if bidirectional else "lstm_bwd"
@@ -224,11 +232,74 @@ def test_lstm_backward_takes_the_grid_route_where_the_walk_does_not_fit_on_card(
         got, again, want = kernel(*args), kernel(*args), plain(*args)
     torch.cuda.synchronize()
     assert lstm_cuda.LAUNCHES[name] == before[name] + 2
-    assert lstm_cuda.ROUTES_BWD == {"cluster": routes["cluster"], "grid": routes["grid"] + 2}
+    assert lstm_cuda.ROUTES_BWD == {k: v + (2 if k == route else 0) for k, v in routes.items()}
     tol = 1e-4 if dtype == "float32" else 2e-2  # as at the path's shapes
     for a, b, c in zip(got, want, again):
         assert bool(torch.isfinite(a).all()) and torch.equal(a, c)
         assert (a.float() - b.float()).abs().max().item() <= tol * b.float().abs().max().item()
+
+
+# the backward split walk's shapes at H=800, bf16: (T, rows a direction,
+# directions): the paths' (training 2, two directions at 8), odd rows (3;
+# 9 in one direction: two row groups, two pairs), one step and two
+BWD_SPLIT_SHAPES = [(301, 2, 1), (301, 8, 2), (41, 3, 1), (41, 3, 2), (41, 9, 1), (1, 1, 1), (2, 2, 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", BWD_SPLIT_SHAPES, ids=lambda s: "T{}-B{}-D{}".format(*s))
+def test_lstm_backward_split_walk_on_card(shape):
+    """The backward's split walk at H=800 in bf16: the route reported before
+    the launch (pairs of 16-block clusters, every cluster resident at once,
+    no spill), agreement with the plain version within the path's
+    tolerance, the same bits twice, each launch counted under "split", and
+    dW_hh the bits of the dW_hh kernel alone on the call's dxp (the same
+    kernel on every route)."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import lstm_cuda
+
+    T, B, D = shape
+    bidirectional = D == 2
+    cfg = lstm_cuda.launch_config(D, B, 800, torch.bfloat16, backward=True)
+    assert cfg["route"] == "split" and cfg["units"] == 32 and cfg["local_bytes"] == 0, cfg
+    assert cfg["blocks"] == 2 * D * cfg["groups"] * cfg["cluster"], cfg
+    assert cfg["max_active_clusters"] >= 2 * D * cfg["groups"], cfg
+    args = _backward_inputs(bidirectional, "bfloat16", T=T, H=800, B=B, seed=T + B)
+    name = "bilstm_bwd" if bidirectional else "lstm_bwd"
+    kernel, plain = getattr(lstm_cuda, name), getattr(lstm_cuda, name + "_ref")
+    routes = dict(lstm_cuda.ROUTES_BWD)
+    with torch.inference_mode():
+        got, again, want = kernel(*args), kernel(*args), plain(*args)
+        hs, h0 = (args[3], args[4]) if D == 1 else (args[4], None)
+        alone = lstm_cuda.lstm_dwhh(hs, h0, got[0], D, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert lstm_cuda.ROUTES_BWD["split"] == routes["split"] + 2
+    for a, b, c in zip(got, want, again):
+        assert bool(torch.isfinite(a).all()) and torch.equal(a, c)
+        assert (a.float() - b.float()).abs().max().item() <= 2e-2 * b.float().abs().max().item()
+    for a, b in zip(alone, got[1:1 + D]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_backward_split_walk_not_started_where_its_clusters_are_not_all_resident_on_card():
+    """Two directions of 9 rows at H=800 in bf16: the backward's pairs hold 8
+    rows, so two row groups a direction, eight 16-block clusters, one more
+    than an H100 holds at once: the grid route, decided from the shape before
+    the launch, which launches and matches its plain version."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import lstm_cuda
+
+    cfg = lstm_cuda.launch_config(2, 9, 800, torch.bfloat16, backward=True)
+    assert cfg["route"] == "grid" and cfg["resident_blocks"] >= cfg["blocks"], cfg
+    assert lstm_cuda.launch_config(2, 8, 800, torch.bfloat16, backward=True)["max_active_clusters"] < 8
+    args = _backward_inputs(True, "bfloat16", T=9, H=800, B=9, seed=9)
+    routes = dict(lstm_cuda.ROUTES_BWD)
+    with torch.inference_mode():
+        got, want = lstm_cuda.bilstm_bwd(*args), lstm_cuda.bilstm_bwd_ref(*args)
+    torch.cuda.synchronize()
+    assert lstm_cuda.ROUTES_BWD["grid"] == routes["grid"] + 1
+    for a, b in zip(got, want):
+        assert (a.float() - b.float()).abs().max().item() <= 2e-2 * b.float().abs().max().item()
 
 
 # shapes the path does not take: units not a multiple of the blocks that
@@ -857,8 +928,8 @@ def test_conv_kernels_at_time_dilation_32_on_card(T, dtype):
 @pytest.mark.parametrize("route", ["unfused", "pallas_conv", "fused_chain"])
 def test_wide_train_step_runs_through_the_kernels_on_card(route, monkeypatch):
     """Full-width `configs/voicesplit_wide.json` train step at its batch
-    (B=2) on each conv route: the LSTM's forward on its split walk and its
-    backward on the grid route (H=800), the extra block's conv (dilation 32) on the kernel
+    (B=2) on each conv route: the LSTM's forward and backward on their
+    split walks (H=800), the extra block's conv (dilation 32) on the kernel
     routes (seven kernel layers), a finite loss and every parameter and
     running statistic moved."""
     _need_card()
@@ -884,8 +955,7 @@ def test_wide_train_step_runs_through_the_kernels_on_card(route, monkeypatch):
     m = make_train_step(cfg, model, ap, opt)(state, batch)
     torch.cuda.synchronize()
     assert lstm_cuda.LAUNCHES == {"lstm_fwd": 2, "bilstm_fwd": 0, "lstm_bwd": 2, "bilstm_bwd": 0}
-    assert lstm_cuda.ROUTES == {"cluster": 0, "split": 2, "grid": 0}
-    assert lstm_cuda.ROUTES_BWD == {"cluster": 0, "grid": 2}
+    assert lstm_cuda.ROUTES == {"cluster": 0, "split": 2, "grid": 0} == lstm_cuda.ROUTES_BWD
     dilated = {"conv_dilated_fwd": 14, "conv_dilated_wgrad": 7}
     chain = {"conv_bn_act_fwd": 7, "conv_dgrad": 7, "conv_wgrad": 7, "conv_wgrad_prologue": 12}
     assert conv_cuda.LAUNCHES == (dilated if route == "pallas_conv" else dict.fromkeys(dilated, 0))

@@ -26,10 +26,12 @@
 // hs and cs (h0 and c0 at t = 0), so the shifted copies the JAX wrapper
 // builds are not needed.  One C call launches two kernels: the reverse
 // walk, then the dW_hh product over what the walk wrote.  The walk takes one
-// of two routes, chosen from the shape and the card before anything launches
-// (lstm_bwd_launch_config reports which): the cluster walk wherever a
-// cluster holds one row and the card holds a cluster (every shape of the
-// model at H = 400), else the grid route (H = 800).
+// of three routes, chosen from the shape and the card before anything
+// launches (lstm_bwd_launch_config reports which): the cluster walk wherever
+// a cluster holds one row and the card holds a cluster (every shape of the
+// model at H = 400), else in bf16 the split walk wherever a pair of clusters
+// holds a row and the card holds all its clusters at once (H = 800), else
+// the grid route (fp32 at H = 800).
 //
 // lstm_bwd_kernel, the cluster walk: one thread-block cluster of C = 16
 // blocks per direction and row group (non-portable cluster size), clusters
@@ -94,10 +96,11 @@
 // Sum order, fixed, so the same inputs give the same bits: dh_rec of a unit
 // is its partials added in rank order 0 .. senders - 1, each partial its
 // block's owned columns summed by mma.sync (bf16) or in the order (gate,
-// unit) (fp32); on the grid route each lane's columns in order, then a fixed
-// shuffle tree; dW_hh[j, q] belongs to one block of the dW kernel, which
-// sums its K rows in increasing (t, r) order (mma.sync: 16 at a time).  No
-// float atomics.
+// unit) (fp32), on the split walk by wgmma over the k-steps in order; on
+// the grid route each lane's columns in order, then a fixed shuffle tree;
+// dW_hh[j, q] belongs to one block of the dW kernel, which sums its K rows
+// in increasing (t, r) order (mma.sync: 16 at a time).  No float atomics;
+// the split walk's counters only count.
 //
 // Row groups.  A direction's B rows go to G clusters of at most the rows
 // one holds (rows x U <= 2 x 384 (row, unit) pairs and shared memory: at
@@ -116,11 +119,47 @@
 //              B = 24: 168,208 B bf16 (12 rows a cluster), 209,424 B fp32.
 // Limits, checked before the launch: bf16 needs 4U <= 112 (H <= 448); both
 // need one row of shared memory.  At H = 800 neither fits (bf16 4U = 200;
-// fp32 640 KB of columns): those shapes take the grid route.
+// fp32 640 KB of columns): those shapes take the split walk (bf16) or the
+// grid route.
+//
+// lstm_bwd_split_kernel, the split walk (lstm_bwd_split and
+// bilstm_bwd_split in chip_smoke.py's kernels line), for bf16 shapes one
+// cluster cannot hold: two clusters of 16 blocks per direction and row
+// group, owning the units and columns of the forward's split walk
+// (lstm_fwd.cu: 25 owners of 32 units at H = 800, 13 in the first cluster).
+//   A step s.  Wait for the partials of step s+1 (this cluster's by
+//   st.async on one mbarrier of slot (s+1) mod 2; the other cluster's: its
+//   counter, then one bulk copy counted on a second mbarrier, as the
+//   forward's exchange, lstm_cluster.cuh), add each unit's 25 partials in
+//   rank order 0 .. 24 to dhs[s], compute the block's 128 dgates columns
+//   into dxp and, rounded, into shared memory as the product's B operand;
+//   multiply P[j, r] = sum_q W_hh[j, q] round(dgates[r, q]) for every unit
+//   j; stage P by owner in the receive slot this step has read (no block
+//   writes it before this block has sent), send each owner its [rows][32]
+//   slice: this cluster's by 16-byte st.async into slot s mod 2 (warps
+//   0-7), the other cluster's into the pair's global slot s mod 2 (warps
+//   8-11, then one count, red.release.gpu).  The waits come before any
+//   wgmma of the step, so none sits between two in flight.  Step 0's
+//   partials give dh0 (two directions exchange them all the same: a walk
+//   that left before spilled).
+//   Products.  wgmma.m64n8k16 with A = W_hh[j, owned q] (64 units by 16
+//   columns) and B = the 8 rows of dgates: 13 tiles of 64 units by 8
+//   k-steps.  Warpgroup wg multiplies tiles wg + 3 c, c < 5 (slots past the
+//   13th tile multiply the last tile's and drop the result, so that every
+//   warpgroup runs the same wgmma), k-steps outer: c = 0 from registers (32
+//   registers), c = 1 .. 4 from swizzled atoms in shared memory (160 KB for
+//   10 tiles).  Two register tiles a warpgroup spilled 128 bytes a thread.
+//   Rows: at most 8 a pair; more take more row groups where the card holds
+//   their clusters (one direction at 9-16 rows: four clusters), else the
+//   grid route (two directions at 9 rows: eight clusters).
+//   Shared memory at H = 800: 218,144 B (atoms 160 KB + 1 KB for their
+//   alignment, dgates 2 KB, receive slots 2 x 25.6 KB); 164 registers, no
+//   spill.  Exchange memory: 1.28 MB a pair (global slots [2][receiver][25
+//   senders][8][32] fp32), whose counters are zeroed before the launch.
 //
 // lstm_bwd_grid_kernel, the grid route (lstm_bwd_grid and bilstm_bwd_grid in
-// chip_smoke.py's kernels line; configs/voicesplit_wide.json's lstm_dim
-// 800): the port's first backward design, a persistent cooperative
+// chip_smoke.py's kernels line; fp32 at configs/voicesplit_wide.json's
+// lstm_dim 800): the port's first backward design, a persistent cooperative
 // grid, with dW_hh taken off it.  Block b owns U = ceil(H / #SMs) units (7
 // at H = 800 on 132 SMs: 115 blocks, one an SM, all resident at once, which
 // the launch checks first: more blocks than the card holds is refused, not
@@ -146,13 +185,14 @@
 //              -> memory-bound, ~23 us; launched once per training step.
 //   dW_hh alone: ~5.5 MB / 0.77 GFLOP at B = 2 and ~28 MB / 6.2 GFLOP at
 //              B = 8 (both directions), memory-bound at ~1.6 and ~8.4 us.
-//   H = 800 (grid route), bf16: lstm_bwd B = 2 ~33 MB / 6.2 GFLOP, ~9.8 us;
+//   H = 800 (split walk), bf16: lstm_bwd B = 2 ~33 MB / 6.2 GFLOP, ~9.8 us;
 //              bilstm_bwd B = 8 ~169 MB / 49 GFLOP, ~51 us (memory-bound).
 // The real limit of the walk is neither: it is the T = 301 dependent
 // steps, each a wait for the partials, the step's elementwise work, a
-// small product and one exchange through distributed shared memory; on the
-// grid route each step's staging of all dgates from L2, CUDA-core products
-// and grid barrier.
+// small product and one exchange through distributed shared memory (on the
+// split walk also one through L2, whose latency a step waits out whole); on
+// the grid route each step's staging of all dgates from L2, CUDA-core
+// products and grid barrier.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -716,6 +756,353 @@ lstm_dwhh_kernel(const float* __restrict__ hs,  // [T, R, H]
 }
 
 // ---------------------------------------------------------------------------
+// The split walk
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdWarpGroups = kWalkThreads / 128;
+// 64-unit tiles of the product a warpgroup multiplies: tiles wg + 3 c, c <
+// kBwdTileSlots (15 slots for the 13 tiles of H = 800; a slot past the last
+// tile multiplies and drops its result, so that no wgmma sits on a branch),
+// the first kBwdRegTiles of them from registers (all 8 k-steps: 32
+// registers; two spilled 128 bytes a thread), the others from shared memory
+constexpr int kBwdTileSlots = 5;
+constexpr int kBwdRegTiles = 1;
+constexpr int kBwdSplitMaxRows = 8;  // rows a pair holds (one 8-row tile)
+constexpr int kSplitPairs = 1;       // (row, unit) pairs of a thread: 8 x 32 <= 384
+
+// Launch shape of the backward split walk for `rows` rows a pair (bf16):
+// `owners` blocks of kSplitUnits units, `first` of them in the pair's first
+// cluster; `mtiles` 64-unit tiles of the product (units past H zero).
+// Shared memory: W_hh's columns of the shared-memory tiles as swizzled
+// atoms (lstm_cluster.cuh) [mtiles - 3 kBwdRegTiles][2 atoms of 4 k-steps]
+// (1024-byte aligned), this step's dgates as the product's B operand
+// [8][128] (bf16, core matrices), receive slots [2][owners][8][32] (fp32;
+// step s stages the partials it sends in slot (s + 1) & 1, which it has
+// read and no block writes before it has sent them), four mbarriers.  Exchange
+// memory: two counters a pair, then a pair's global slots [2][receiver
+// owner][sender owner][8][32] (fp32).
+struct BwdSplitShape {
+  int owners, first, mtiles;
+  size_t smem, pair_bytes;
+};
+
+BwdSplitShape bwd_split_shape(int H) {
+  BwdSplitShape s;
+  s.owners = (H + kSplitUnits - 1) / kSplitUnits;
+  s.first = (s.owners + 1) / 2;
+  s.mtiles = (H + 63) / 64;
+  const int smem_tiles = s.mtiles - kBwdWarpGroups * kBwdRegTiles;
+  const size_t slot = size_t(s.owners) * kBwdSplitMaxRows * kSplitUnits * 4;
+  s.smem = 1024 + size_t(smem_tiles > 0 ? smem_tiles : 0) * 2 * kAtomBytes +
+           size_t(kBwdSplitMaxRows) * 4 * kSplitUnits * 2 + 2 * slot + 4 * 8;
+  s.pair_bytes = 2 * size_t(s.owners) * slot;
+  return s;
+}
+
+bool bwd_split_fits(const BwdSplitShape& s, int rows, size_t optin) {
+  return rows <= kBwdSplitMaxRows && s.owners >= 2 && s.first <= kCluster &&
+         s.mtiles > kBwdWarpGroups * kBwdRegTiles && s.mtiles <= kBwdWarpGroups * kBwdTileSlots &&
+         s.smem <= optin;
+}
+
+// p[0] + p[stride] + ... + p[(n - 1) stride] in that order, the loads
+// eight at a time ahead of the adds (a loop of dependent load-adds took 750
+// cycles a step for 25 partials)
+__device__ __forceinline__ float sum_partials(const float* p, int stride, int n) {
+  float total = 0.0f;
+  for (int x0 = 0; x0 < n; x0 += 8) {
+    float v[8];
+#pragma unroll
+    for (int x = 0; x < 8; ++x) v[x] = x0 + x < n ? p[(x0 + x) * stride] : 0.0f;
+#pragma unroll
+    for (int x = 0; x < 8; ++x) {
+      if (x0 + x < n) total += v[x];
+    }
+  }
+  return total;
+}
+
+// Grid 2 D G kCluster blocks in clusters of kCluster; clusters 2p and 2p + 1
+// walk pair p: row group p % G of direction p / G, the direction's rows
+// [g BC, g BC + Br), Br = min(BC, B - g BC).
+template <int D>
+__global__ void __launch_bounds__(kWalkThreads, 1)
+lstm_bwd_split_kernel(const __nv_bfloat16* __restrict__ w0,  // [H, 4H], rows [0, B)
+                      const __nv_bfloat16* __restrict__ w1,  // [H, 4H], rows [B, 2B) (D == 2)
+                      const float* __restrict__ gates,       // [T, R, 4H] activated
+                      const float* __restrict__ cs,          // [T, R, H]
+                      const float* __restrict__ c0,          // [R, H] or null (zero state)
+                      const float* __restrict__ dhs,         // [T, R, H]
+                      const float* __restrict__ dhf,         // [R, H] or null (zero)
+                      const float* __restrict__ dcf,         // [R, H] or null (zero)
+                      __nv_bfloat16* __restrict__ dxp,       // [T, R, 4H]
+                      float* __restrict__ dh0,               // [R, H] or null
+                      float* __restrict__ dc0,               // [R, H] or null
+                      unsigned int* counters,                // exchange memory: counters zeroed
+                      float* xbuf,                           // [pairs][2][NO][NO][8][32]
+                      int T_, int B, int H, int G, int BC, int NO, int N0, int MT) {
+  using T = __nv_bfloat16;
+  constexpr int U = kSplitUnits, NQ = 4 * kSplitUnits, RP = kBwdSplitMaxRows;
+  constexpr int KS = NQ / 16;  // k-steps of the product: the owned columns
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = int(cluster.block_rank());
+  const int c_id = int(blockIdx.x) / kCluster;
+  const int pair = c_id / 2, half = c_id % 2;
+  const int d = pair / G, grp = pair % G;
+  const int row0 = d * B + grp * BC;
+  const int Br = min(BC, B - grp * BC);
+  const int R = D * B;
+  const int G4 = 4 * H;
+  const int n_mine = half ? NO - N0 : N0, n_other = half ? N0 : NO - N0;
+  const int base_mine = half ? N0 : 0, base_other = half ? 0 : N0;
+  const int m = k < n_mine ? base_mine + k : -1;  // owner index (-1: none)
+  const int u0 = max(m, 0) * U;
+  const int Uk = m < 0 ? 0 : max(0, min(U, H - u0));
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, gr = lane >> 2, tig = lane & 3;
+  const int wg = warp >> 2, wq = warp & 3;
+  const T* __restrict__ W = d ? w1 : w0;
+  const int part = RP * U;           // floats of one sender's partials in a slot
+  const int slot = NO * part;        // floats of one receive slot [NO][RP][U]
+  unsigned int* my_count = counters + (2 * pair + half) * kCounterStride;
+  const unsigned int* other_count = counters + (2 * pair + 1 - half) * kCounterStride;
+  float* xb = xbuf + size_t(pair) * 2 * NO * slot;  // the pair's global slots [2][receiver][slot]
+  const uint32_t local_bytes = uint32_t(n_mine * Br * U) * 4;
+  const uint32_t remote_bytes = uint32_t(n_other * part) * 4;
+  const int smem_tiles = MT - kBwdWarpGroups * kBwdRegTiles;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* a_s = smem_raw + ((1024 - (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) & 1023)) & 1023);
+  T* dgb = reinterpret_cast<T*>(a_s + size_t(smem_tiles) * 2 * kAtomBytes);  // [RP][NQ] core matrices
+  float* recv = reinterpret_cast<float*>(dgb + RP * NQ);  // [2][NO][RP][U]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(recv + 2 * slot);  // local [2], remote [2]
+  // A[j][q] = W_hh[j, g H + u0 + u] for owned column q = g U + u (zero past
+  // H and past the block's units)
+  auto w_at = [&](int j, int q) -> unsigned short {
+    const int u = q % U;
+    return j < H && u < Uk ? ld_bits(W + size_t(j) * G4 + (q / U) * H + u0 + u) : 0;
+  };
+  if (m >= 0) {
+    for (int e = tid; e < RP * NQ; e += nt) dgb[e] = from_float<T>(0.0f);
+    // tiles 3 kBwdRegTiles + st: two atoms of 4 k-steps each
+    for (int e = tid; e < smem_tiles * 2 * 4096; e += nt) {
+      const int atom = e >> 12, o = e & 4095;
+      const int jj = o >> 6, c = o & 63;
+      const int j = (kBwdWarpGroups * kBwdRegTiles + atom / 2) * 64 + jj, q = (atom % 2) * 64 + c;
+      *reinterpret_cast<unsigned short*>(a_s + atom * kAtomBytes + sw128_at(jj, c)) = w_at(j, q);
+    }
+  }
+  if (tid == 0) {
+    for (int i = 0; i < 4; ++i) bar_init(bars + i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // local slot s & 1 receives step s's partials: arm the first two
+    if (m >= 0) bar_expect(bars + ((T_ - 1) & 1), local_bytes);
+    if (m >= 0 && T_ >= 2) bar_expect(bars + ((T_ - 2) & 1), local_bytes);
+  }
+
+  // the register tiles wg + 3 c, c < kBwdRegTiles, all k-steps, as A
+  // fragments: this warp's 16 units of each
+  uint32_t wa[kBwdRegTiles][KS][4];
+#pragma unroll
+  for (int c = 0; c < kBwdRegTiles; ++c) {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr) {
+        const int j = (wg + kBwdWarpGroups * c) * 64 + wq * 16 + gr + (rr & 1) * 8;
+        const int q = ks * 16 + 2 * tig + (rr >> 1) * 8;
+        wa[c][ks][rr] = uint32_t(w_at(j, q)) | (uint32_t(w_at(j, q + 1)) << 16);
+      }
+    }
+  }
+  // the shared-memory tile slots' atoms, formed at each use from one
+  // address (a slot past the last tile reads the last tile's and drops the
+  // result; descriptors held in registers spilled)
+  const uint32_t a_addr = static_cast<uint32_t>(__cvta_generic_to_shared(a_s));
+  const uint64_t dg_desc = b_desc(dgb);
+
+  // this thread's (row, unit) pair e = tid (at most 8 rows x 32 units, one
+  // a thread), r << 16 | u (-1: none), and its registers
+  int ru[kSplitPairs];
+  float gi[kSplitPairs], gf[kSplitPairs], gg[kSplitPairs], go[kSplitPairs], cp[kSplitPairs], dd[kSplitPairs], dc[kSplitPairs];
+#pragma unroll
+  for (int p = 0; p < kSplitPairs; ++p) {
+    const int e = tid + p * nt, r = e / U, u = e % U;
+    ru[p] = e < Br * U && u < Uk ? r << 16 | u : -1;
+    dc[p] = (ru[p] >= 0 && dcf != nullptr) ? dcf[size_t(row0 + r) * H + u0 + u] : 0.0f;
+  }
+  auto prefetch = [&](int s) {
+#pragma unroll
+    for (int p = 0; p < kSplitPairs; ++p) {
+      if (ru[p] < 0) continue;
+      const int r = ru[p] >> 16, j = u0 + (ru[p] & 0xffff);
+      const size_t row = size_t(s) * R + row0 + r;
+      const float* gt = gates + row * G4;
+      gi[p] = gt[j];
+      gf[p] = gt[H + j];
+      gg[p] = gt[2 * H + j];
+      go[p] = gt[3 * H + j];
+      if (s > 0) {
+        cp[p] = cs[(row - R) * H + j];
+      } else {
+        cp[p] = c0 != nullptr ? c0[size_t(row0 + r) * H + j] : 0.0f;
+      }
+      dd[p] = dhs[row * H + j];
+    }
+  };
+  prefetch(T_ - 1);
+  fence_proxy_async();  // a_s and dgb written here; wgmma reads them through the async proxy
+  cluster.sync();  // every block runs, with its barriers armed
+
+  uint32_t parity = 0;  // bit x: parity of barrier x's phase to wait for
+  // the partials of step `s` in slot s & 1: this cluster's by st.async,
+  // the other cluster's by one bulk copy once its owners have counted s's
+  auto receive = [&](int s) {
+    const int sl = s & 1;
+    bar_wait(bars + sl, (parity >> sl) & 1);
+    parity ^= 1u << sl;
+    // the slot's next phase receives step s - 2's partials
+    if (tid == 0 && s >= 2) bar_expect(bars + sl, local_bytes);
+    const int rb = 2 + sl;
+    if (tid == 0) {
+      counter_wait(other_count, uint32_t(T_ - s) * uint32_t(n_other));
+      bar_expect(bars + rb, remote_bytes);
+      const size_t off = size_t(base_other) * part;
+      bulk_copy_g2s(recv + sl * slot + off, xb + (size_t(sl) * NO + m) * slot + off, remote_bytes, bars + rb);
+    }
+    bar_wait(bars + rb, (parity >> rb) & 1);
+    parity ^= 1u << rb;
+    return recv + sl * slot;
+  };
+  for (int s = m >= 0 ? T_ - 1 : -1; s >= 0; --s) {
+    const float* in = s < T_ - 1 ? receive(s + 1) : nullptr;
+    // 1, 2: own columns of dgates[s]
+#pragma unroll
+    for (int p = 0; p < kSplitPairs; ++p) {
+      if (ru[p] < 0) continue;
+      const int r = ru[p] >> 16, u = ru[p] & 0xffff, j = u0 + u;
+      float rec = 0.0f;
+      if (s == T_ - 1) {
+        if (dhf != nullptr) rec = dhf[size_t(row0 + r) * H + j];
+      } else {
+        rec = sum_partials(in + r * U + u, part, NO);
+      }
+      const float i = gi[p], f = gf[p], g = gg[p], o = go[p], c_prev = cp[p];
+      const float dh = dd[p] + rec;
+      const float tc = tanhf(f * c_prev + i * g);
+      const float dout = dh * tc;
+      const float dct = dh * o * (1.0f - tc * tc) + dc[p];
+      dc[p] = dct * f;
+      const T v[4] = {from_float<T>(dct * g * i * (1.0f - i)),
+                      from_float<T>(dct * c_prev * f * (1.0f - f)),
+                      from_float<T>(dct * i * (1.0f - g * g)),
+                      from_float<T>(dout * o * (1.0f - o))};
+      T* dx = dxp + (size_t(s) * R + row0 + r) * G4 + j;
+#pragma unroll
+      for (int gate = 0; gate < 4; ++gate) {
+        dx[gate * H] = v[gate];
+        const int q = gate * U + u;
+        dgb[(q >> 3) * 64 + r * 8 + (q & 7)] = v[gate];  // core matrices [q / 8][r][q % 8]
+      }
+    }
+    fence_proxy_async();  // dgb written here; wgmma reads it through the async proxy
+    __syncthreads();      // dgates[s] complete; every read of the slot is done
+    // 3: P[j, r] = sum_q W[j, q] round(dgates[r, q]) for every unit j:
+    // wgmma, A = W_hh's columns (registers, then shared memory), B = the 8
+    // rows of dgates; the tile slots in order
+    float acc[kBwdTileSlots][4];
+#pragma unroll
+    for (int c = 0; c < kBwdTileSlots; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.0f;
+    // a zero the compiler cannot see through: the descriptors below are
+    // formed at every step, not hoisted out of the walk into registers
+    // (48 of them), which spilled
+    uint32_t zero;
+    asm volatile("mov.u32 %0, 0;\n" : "=r"(zero));
+    wgmma_fence();
+    // k-steps outer, tile slots inner: five independent accumulators in
+    // turn (tiles outer chained eight dependent wgmma on one accumulator)
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const uint64_t db = dg_desc + uint64_t(ks * 16 + zero);  // core matrices of k-step ks: 256 bytes on
+#pragma unroll
+      for (int c = 0; c < kBwdTileSlots; ++c) {
+        if (c < kBwdRegTiles) {
+          wgmma_m64n8k16(acc[c], wa[c < kBwdRegTiles ? c : 0][ks], db, 1);
+        } else {
+          const int tile = min(wg + kBwdWarpGroups * c, MT - 1) - kBwdWarpGroups * kBwdRegTiles;
+          const uint64_t da = a_desc_at(a_addr + uint32_t(tile * 2 * kAtomBytes + (ks / 4) * kAtomBytes +
+                                                          (ks % 4) * 32) + zero);
+          wgmma_m64n8k16_ss(acc[c], da, db);
+        }
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    // acc[c][e]: unit (wg + 3 c) 64 + wq 16 + gr + (e >> 1) 8, row 2 tig + (e & 1);
+    // staged by owner [j / 32][r][j % 32] in the slot this step has read
+    float* stage = recv + ((s + 1) & 1) * slot;
+#pragma unroll
+    for (int c = 0; c < kBwdTileSlots; ++c) {
+      const int tile = wg + kBwdWarpGroups * c;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = tile * 64 + wq * 16 + gr + h * 8, r = 2 * tig;
+        if (tile >= MT || j >= H) continue;
+        float* st = stage + (j / U) * part + j % U;
+        if (r < Br) st[r * U] = acc[c][2 * h];
+        if (r + 1 < Br) st[(r + 1) * U] = acc[c][2 * h + 1];
+      }
+    }
+    __syncthreads();  // the partials staged
+    // 4: every owner's [Br][32] slice: warps 0-7 to this cluster's owners'
+    // slot s & 1 by st.async; warps 8-11 to the other cluster's owners'
+    // global slots s & 1, then one count on this cluster's counter.  Step
+    // 0's partials give dh0; two directions, which have none, exchange them
+    // all the same (a walk that left the loop before spilled 40 bytes a
+    // thread)
+    {
+      constexpr int kPieces = U / 4;  // 16-byte pieces of a row
+      const int pieces = Br * kPieces;
+      const int sl = s & 1;
+      if (warp < 8) {
+        const uint32_t bar_off = uint32_t(sl) * 8;
+        for (int e = tid; e < n_mine * pieces; e += 256) {
+          const int to = e / pieces, pc = e % pieces;
+          const int r = pc / kPieces, col = pc % kPieces * 4;
+          const int src = (base_mine + to) * part + r * U + col;
+          const float4 v = *reinterpret_cast<const float4*>(stage + src);
+          send4(cluster_addr(recv + sl * slot + m * part + r * U + col, to), v, cluster_addr(bars, to) + bar_off);
+        }
+      } else {
+        for (int e = tid - 256; e < n_other * pieces; e += 128) {
+          const int to = e / pieces, pc = e % pieces;
+          const int r = pc / kPieces, col = pc % kPieces * 4;
+          const int dst_owner = base_other + to;
+          *reinterpret_cast<float4*>(xb + (size_t(sl) * NO + dst_owner) * slot + m * part + r * U + col) =
+              *reinterpret_cast<const float4*>(stage + dst_owner * part + r * U + col);
+        }
+        asm volatile("bar.sync 1, 128;\n" ::: "memory");  // warps 8-11: every write above is done
+        if (tid == 256) counter_release_add(my_count);
+      }
+    }
+    // 5: the next step's inputs load while the partials travel
+    if (s > 0) prefetch(s - 1);
+  }
+
+  if (m >= 0) {
+    const float* in = receive(0);  // step 0's partials: dh0 (two directions: none)
+#pragma unroll
+    for (int p = 0; p < kSplitPairs; ++p) {
+      if (ru[p] < 0 || dh0 == nullptr) continue;
+      const int r = ru[p] >> 16, u = ru[p] & 0xffff;
+      dh0[size_t(row0 + r) * H + u0 + u] = sum_partials(in + r * U + u, part, NO);
+      dc0[size_t(row0 + r) * H + u0 + u] = dc[p];
+    }
+  }
+  cluster.sync();  // no block leaves while a peer may still write to it
+}
+
+// ---------------------------------------------------------------------------
 // The grid route
 // ---------------------------------------------------------------------------
 
@@ -880,7 +1267,11 @@ struct BwdArgs {
   const void *w0, *w1, *gates, *cs, *hs, *h0, *c0, *dhs, *dhf, *dcf;
   void *dxp, *dw0, *dw1, *dh0, *dc0;
   int steps, B, H;
+  void* exchange;         // the split walk's exchange memory (its counters zeroed here before its launch)
+  size_t exchange_bytes;  // its size
 };
+
+enum Route : int { kGrid = 0, kWalk = 1, kSplit = 2 };
 
 // The walk's launch on this card for B rows a direction (in `info`;
 // info->clusters 0 if the card holds no cluster); launches it when `args`
@@ -908,8 +1299,10 @@ cudaError_t walk(const WalkShape& ws, int B, int H, const BwdArgs* args, cudaStr
 
 // The route and launch on this card for D directions of B rows each.
 struct BwdLaunch {
-  bool walk;           // the cluster walk (else the grid route)
-  ClusterLaunch info;  // walk: row groups, shared memory, clusters; registers of either
+  int route;           // kWalk (the cluster walk), kSplit (the split walk) or kGrid
+  ClusterLaunch info;  // walks: row groups, shared memory, clusters; registers of any route
+  BwdSplitShape split; // the split walk
+  size_t exchange;     // the split walk: bytes of exchange memory it needs
   int grid_blocks, grid_units;  // grid route: blocks, units a block
   size_t grid_smem;
   int grid_resident;   // grid route: blocks the card holds at once
@@ -991,16 +1384,69 @@ cudaError_t grid_route(int B, int H, const BwdArgs* args, cudaStream_t stream, B
   return cudaGetLastError();
 }
 
-// Chooses the route from the shape and the card before anything launches
-// (the walk wherever a cluster holds a row and the card holds a cluster,
-// else the grid route), then launches it when `args` is given, else only
-// fills `bl`.
+// The split walk's occupancy on this card into `bl->info` (its row groups
+// and shape already there), and its launch when `args` is given and the card
+// holds all its clusters at once: the counters zeroed on `stream`, then the
+// walk.
+template <int D>
+cudaError_t split_walk(BwdLaunch* bl, int B, int H, const BwdArgs* args, cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  const BwdSplitShape& s = bl->split;
+  const int pairs = D * bl->info.groups;
+  auto kernel = lstm_bwd_split_kernel<D>;
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attrs[2];
+  cudaError_t err = cluster_config(kernel, 2 * pairs, kWalkThreads, stream, &config, attrs, &bl->info);
+  if (err != cudaSuccess || args == nullptr || bl->info.clusters < 2 * pairs) return err;
+  if (args->exchange == nullptr || args->exchange_bytes < bl->exchange) return cudaErrorInvalidValue;
+  err = cudaMemsetAsync(args->exchange, 0, split_counter_bytes(pairs), stream);
+  if (err != cudaSuccess) return err;
+  unsigned char* ex = static_cast<unsigned char*>(args->exchange);
+  return split_launch(kernel, &config, attrs, static_cast<const T*>(args->w0), static_cast<const T*>(args->w1),
+                      static_cast<const float*>(args->gates), static_cast<const float*>(args->cs),
+                      static_cast<const float*>(args->c0), static_cast<const float*>(args->dhs),
+                      static_cast<const float*>(args->dhf), static_cast<const float*>(args->dcf),
+                      static_cast<T*>(args->dxp), static_cast<float*>(args->dh0), static_cast<float*>(args->dc0),
+                      reinterpret_cast<unsigned int*>(ex), reinterpret_cast<float*>(ex + split_counter_bytes(pairs)),
+                      args->steps, B, H, bl->info.groups, bl->info.rows, s.owners, s.first, s.mtiles);
+}
+
+// Chooses the route from the shape and the card before anything launches:
+// the cluster walk wherever a cluster holds a row and the card holds a
+// cluster; else, in bf16, the split walk wherever a pair holds a row and the
+// card holds all its clusters at once; else the grid route.  Then launches
+// it when `args` is given, else only fills `bl`.
 template <typename T, int D>
 cudaError_t choose_route(int B, int H, const BwdArgs* args, cudaStream_t stream, BwdLaunch* bl) {
   *bl = {};
   cudaError_t err = walk<T, D>(B, H, args, stream, &bl->info);
-  bl->walk = bl->info.groups > 0 && bl->info.clusters >= 1;
-  if (err != cudaSuccess || bl->walk) return err;
+  if (err != cudaSuccess) return err;
+  if (bl->info.groups > 0 && bl->info.clusters >= 1) {
+    bl->route = kWalk;
+    return cudaSuccess;
+  }
+  if constexpr (sizeof(T) == 2) {
+    int optin = 0;
+    err = smem_optin(&optin);
+    if (err != cudaSuccess) return err;
+    bl->info = {};
+    bl->split = bwd_split_shape(H);
+    auto fits = [&](int rows) { return bwd_split_fits(bl->split, rows, size_t(optin)); };
+    if (row_groups(B, kBwdSplitMaxRows, fits, &bl->info.groups, &bl->info.rows)) {
+      bl->info.smem = bl->split.smem;
+      const int pairs = D * bl->info.groups;
+      bl->exchange = split_counter_bytes(pairs) + size_t(pairs) * bl->split.pair_bytes;
+      err = split_walk<D>(bl, B, H, args, stream);
+      if (err != cudaSuccess) return err;
+      if (bl->info.clusters >= 2 * pairs) {
+        bl->route = kSplit;
+        return cudaSuccess;
+      }
+    }
+    bl->info = {};
+    bl->exchange = 0;
+  }
+  bl->route = kGrid;
   return grid_route<T, D>(B, H, args, stream, bl);
 }
 
@@ -1020,11 +1466,11 @@ cudaError_t launch_dwhh(const void* hs, const void* h0, const void* dxp, void* d
 
 // The reverse walk on its route, then dW_hh from its dxp.
 template <typename T, int D>
-cudaError_t launch(const BwdArgs& a, void* stream, int* walked) {
+cudaError_t launch(const BwdArgs& a, void* stream, int* route) {
   if (a.steps <= 0 || a.B <= 0 || a.H <= 0) return cudaErrorInvalidValue;
   BwdLaunch bl;
   cudaError_t err = choose_route<T, D>(a.B, a.H, &a, static_cast<cudaStream_t>(stream), &bl);
-  if (walked != nullptr) *walked = bl.walk ? 1 : 0;
+  if (route != nullptr) *route = bl.route;
   if (err != cudaSuccess) return err;
   return launch_dwhh<T>(a.hs, a.h0, a.dxp, a.dw0, a.dw1, a.steps, a.B, D, a.H, stream);
 }
@@ -1034,16 +1480,20 @@ cudaError_t launch(const BwdArgs& a, void* stream, int* walked) {
 // Plain C interface (loaded with ctypes).  Every function returns its
 // cudaError_t; 0 is success.  `bf16` selects bf16 operands (W_hh, dxp),
 // otherwise fp32.  Everything else is fp32.  `route`, where given, receives
-// the walk's route: 1 the cluster walk, 0 the grid route.
+// the walk's route: 1 the cluster walk, 2 the split walk, 0 the grid route.
+// `exchange` is scratch memory of `exchange_bytes` bytes (at least what
+// lstm_bwd_exchange_bytes reports for the shape; null where that is 0),
+// which the split walk uses and whose counters it zeroes on the stream first.
 
 // One direction: whh [H, 4H]; gates [T, B, 4H]; cs, hs, dhs [T, B, H];
 // h0, c0, dhf, dcf, dh0, dc0 [B, H]; dxp [T, B, 4H]; dwhh [H, 4H].
 extern "C" int lstm_bwd(const void* whh, const void* gates, const void* cs, const void* hs,
                         const void* h0, const void* c0, const void* dhs, const void* dhf,
                         const void* dcf, void* dxp, void* dwhh, void* dh0, void* dc0, int T,
-                        int B, int H, int bf16, void* stream, int* route) {
+                        int B, int H, int bf16, void* exchange, long long exchange_bytes, void* stream,
+                        int* route) {
   const BwdArgs a{whh, nullptr, gates, cs, hs, h0, c0, dhs, dhf, dcf,
-                  dxp, dwhh, nullptr, dh0, dc0, T, B, H};
+                  dxp, dwhh, nullptr, dh0, dc0, T, B, H, exchange, size_t(exchange_bytes)};
   return bf16 ? launch<__nv_bfloat16, 1>(a, stream, route) : launch<float, 1>(a, stream, route);
 }
 
@@ -1051,10 +1501,10 @@ extern "C" int lstm_bwd(const void* whh, const void* gates, const void* cs, cons
 // rows [B, 2B) time-reversed; whh_f, whh_b, dwhh_f, dwhh_b [H, 4H].
 extern "C" int bilstm_bwd(const void* whh_f, const void* whh_b, const void* gates,
                           const void* cs, const void* hs, const void* dhs, void* dxp,
-                          void* dwhh_f, void* dwhh_b, int T, int B, int H, int bf16,
-                          void* stream, int* route) {
+                          void* dwhh_f, void* dwhh_b, int T, int B, int H, int bf16, void* exchange,
+                          long long exchange_bytes, void* stream, int* route) {
   const BwdArgs a{whh_f, whh_b, gates, cs, hs, nullptr, nullptr, dhs, nullptr, nullptr,
-                  dxp, dwhh_f, dwhh_b, nullptr, nullptr, T, B, H};
+                  dxp, dwhh_f, dwhh_b, nullptr, nullptr, T, B, H, exchange, size_t(exchange_bytes)};
   return bf16 ? launch<__nv_bfloat16, 2>(a, stream, route) : launch<float, 2>(a, stream, route);
 }
 
@@ -1068,37 +1518,52 @@ extern "C" int lstm_dwhh(const void* hs, const void* h0, const void* dxp, void* 
               : launch_dwhh<float>(hs, h0, dxp, dwhh_f, dwhh_b, T, B, D, H, stream);
 }
 
+namespace {
+cudaError_t bwd_config(int D, int B, int H, int bf16, BwdLaunch* bl) {
+  if (B <= 0 || H <= 0 || (D != 1 && D != 2)) return cudaErrorInvalidValue;
+  if (D == 1) {
+    return bf16 ? choose_route<__nv_bfloat16, 1>(B, H, nullptr, nullptr, bl)
+                : choose_route<float, 1>(B, H, nullptr, nullptr, bl);
+  }
+  return bf16 ? choose_route<__nv_bfloat16, 2>(B, H, nullptr, nullptr, bl)
+              : choose_route<float, 2>(B, H, nullptr, nullptr, bl);
+}
+}  // namespace
+
+// Bytes of exchange memory the two walks above need for D directions of B
+// rows each on this card (0 but on the split walk).
+extern "C" int lstm_bwd_exchange_bytes(int D, int B, int H, int bf16, long long* bytes) {
+  BwdLaunch bl;
+  const cudaError_t err = bwd_config(D, B, H, bf16, &bl);
+  *bytes = static_cast<long long>(bl.exchange);
+  return err;
+}
+
 // The walk's launch for D directions of B rows each on this card: route (1
-// the cluster walk, 0 the grid route), blocks, units per block, dynamic
-// shared memory in bytes; the cluster walk's cluster size, threads per
-// block, clusters the card holds at once (0: the walk cannot launch),
+// the cluster walk, 2 the split walk, 0 the grid route), blocks, units per
+// block, dynamic shared memory in bytes; the walks' cluster size, threads
+// per block, clusters the card holds at once (0: the walk cannot launch),
 // registers and spilled bytes a thread, row groups a direction (one cluster
-// each) and rows a cluster (the grid route: 0 cluster, 256 threads, the
-// blocks it holds at once in `clusters`, no row groups); `w_shared` 1 where
-// the grid route keeps W_hh's rows in shared memory, 0 where it reads them
-// through L2 (and on the walk).
+// each on the cluster walk, a pair on the split walk) and rows a group (the
+// grid route: 0 cluster, 256 threads, the blocks it holds at once in
+// `clusters`, no row groups); `w_shared` 1 where the grid route keeps W_hh's
+// rows in shared memory, 0 where it reads them through L2 (and on the
+// walks).
 extern "C" int lstm_bwd_launch_config(int D, int B, int H, int bf16, int* route, int* blocks,
                                       int* units, long long* smem, int* cluster, int* threads,
                                       int* clusters, int* registers, int* local_bytes, int* groups,
                                       int* rows, int* w_shared) {
-  if (B <= 0 || H <= 0 || (D != 1 && D != 2)) return cudaErrorInvalidValue;
   BwdLaunch bl;
-  cudaError_t err;
-  if (D == 1) {
-    err = bf16 ? choose_route<__nv_bfloat16, 1>(B, H, nullptr, nullptr, &bl)
-               : choose_route<float, 1>(B, H, nullptr, nullptr, &bl);
-  } else {
-    err = bf16 ? choose_route<__nv_bfloat16, 2>(B, H, nullptr, nullptr, &bl)
-               : choose_route<float, 2>(B, H, nullptr, nullptr, &bl);
-  }
+  const cudaError_t err = bwd_config(D, B, H, bf16, &bl);
   if (err != cudaSuccess) return err;
-  *route = bl.walk ? 1 : 0;
-  *w_shared = !bl.walk && bl.grid_w_shared ? 1 : 0;
+  *route = bl.route;
+  *w_shared = bl.route == kGrid && bl.grid_w_shared ? 1 : 0;
   *registers = bl.info.registers;
   *local_bytes = bl.info.local_bytes;
-  if (bl.walk) {
-    *blocks = D * bl.info.groups * kCluster;
-    *units = (H + kCluster - 1) / kCluster;
+  if (bl.route != kGrid) {
+    const bool split = bl.route == kSplit;
+    *blocks = D * bl.info.groups * kCluster * (split ? 2 : 1);
+    *units = split ? kSplitUnits : (H + kCluster - 1) / kCluster;
     *smem = static_cast<long long>(bl.info.smem);
     *cluster = kCluster;
     *threads = kWalkThreads;

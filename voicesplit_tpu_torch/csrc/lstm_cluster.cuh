@@ -1,12 +1,15 @@
-// What the LSTM walks share (lstm_fwd.cu: the forward walk; lstm_bwd.cu:
-// the reverse walk): a direction's rows run on thread-block clusters of
+// What the LSTM walks share (lstm_fwd.cu: the forward walks; lstm_bwd.cu:
+// the reverse walks): a direction's rows run on thread-block clusters of
 // kCluster blocks, block k owning the U = ceil(H / kCluster) hidden units
 // J_k = [k U, k U + U) and the 4U columns {g H + j : j in J_k, g = 0..3} of
 // its direction's W_hh; blocks exchange what a step produces point to point
 // through distributed shared memory, with 16-byte st.async stores counted on
-// the receiver's mbarrier.  Here: the cluster primitives, the owned columns
-// of W_hh, and the split of a direction's rows into row groups, one cluster
-// each.
+// the receiver's mbarrier.  The split walks (H = 800 in bf16) run a
+// direction and row group on a pair of clusters, kSplitUnits units a block,
+// and exchange across the pair through L2 (below).  Here: the cluster
+// primitives, the wgmma pieces of the bf16 products, the exchange across a
+// pair, the owned columns of W_hh, the split of a direction's rows into row
+// groups, one cluster or pair each, and the launches.
 //
 // Each .cu that includes this file is compiled on its own; everything here
 // has internal linkage.  Each walk's design is described at the top of its
@@ -82,13 +85,85 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // ---------------------------------------------------------------------------
+// wgmma pieces of the walks' bf16 products (m64n8k16: 64 rows of A by 8 rows
+// of the other operand), and a split walk's W_hh in shared memory
+// ---------------------------------------------------------------------------
+
+// D (64 x 8 fp32; this warp's 16 rows in the mma.sync accumulator layout)
+// = A (64 x 16 bf16 from registers, this warp's 16 rows) x B (16 x 8 from
+// shared memory, K-major: `desc`) + D if accumulate.
+__device__ __forceinline__ void wgmma_m64n8k16(float (&d)[4], const uint32_t (&a)[4], uint64_t desc,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate)
+      : "memory");
+}
+
+// Shared-memory descriptor of a K-major bf16 B operand of 8 rows and 16 k
+// without swizzle: two 8 x 8 core matrices of 128 contiguous bytes, the
+// second 128 bytes after the first (both byte offsets 128: N = 8 has no
+// second row group).
+__device__ __forceinline__ uint64_t b_desc(const void* smem) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(128 >> 4) << 16) | (uint64_t(128 >> 4) << 32);
+}
+
+// A split walk's W_hh columns in shared memory: K-major atoms of 64 rows
+// (columns q) by 64 k (four k-steps) with the 128-byte swizzle, 8 KB each
+// and 1024-byte aligned: element (q, c) at byte (q / 8) 1024 + (q % 8) 128 +
+// ((2 c / 16) ^ (q % 8)) 16 + 2 c % 16, the layout CUTLASS gives a K-major
+// A operand.
+constexpr int kAtomBytes = 8192;
+__device__ __forceinline__ int sw128_at(int q, int c) {
+  return (q >> 3) * 1024 + (q & 7) * 128 + ((((2 * c) >> 4) ^ (q & 7)) << 4) + ((2 * c) & 15);
+}
+// Shared-memory descriptor of k-step s (0..3) of such an atom: the start
+// advanced by 32 bytes a k-step, 8-row groups 1024 bytes apart (stride byte
+// offset), the 128-byte swizzle (layout type 1).
+__device__ __forceinline__ uint64_t a_desc_at(uint32_t addr) {  // a shared::cta address
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32) |
+         (uint64_t(1) << 62);
+}
+__device__ __forceinline__ uint64_t a_desc(const void* atom, int s) {
+  return a_desc_at(static_cast<uint32_t>(__cvta_generic_to_shared(atom)) + 32u * uint32_t(s));
+}
+
+// D (64 x 8 fp32) += A (64 x 16 bf16 from shared memory: `da`) x B (16 x 8
+// from shared memory, K-major: `db`).
+__device__ __forceinline__ void wgmma_m64n8k16_ss(float (&d)[4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(1)
+      : "memory");
+}
+
+// The bits of one bf16 of W_hh, by a volatile asm: the compiler may neither
+// load it again at every step, in place of keeping the fragments it fills
+// in registers, nor drop the load.
+__device__ __forceinline__ unsigned short ld_bits(const __nv_bfloat16* p) {
+  unsigned short v;
+  asm volatile("ld.global.nc.u16 %0, [%1];\n" : "=h"(v) : "l"(p));
+  return v;
+}
+
+// ---------------------------------------------------------------------------
 // Across the two clusters of a split walk (lstm_fwd.cu, lstm_bwd.cu): the
 // clusters share no shared memory, so a block publishes what the other
 // cluster needs in a global buffer (through L2) and announces it on an
 // integer counter of its cluster; a receiver waits for the counter to reach
 // the count of all the other cluster's blocks for that step, then copies
 // the bytes into its own shared memory with one bulk copy (cp.async.bulk)
-// counted on an mbarrier of its own.  The counters only count: every float
+// counted on an mbarrier of its own.  The global buffer has two slots by
+// step parity, reused as the receive slots are: a block writes a slot again
+// only after it has received every block's next step, which each block
+// sends after it has copied the slot.  The counters only count: every float
 // is summed in a fixed order by the block that owns it.
 // ---------------------------------------------------------------------------
 
@@ -121,10 +196,10 @@ __device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src, uint32
                ::"r"(d), "l"(src), "r"(bytes), "r"(b) : "memory");
 }
 
-// The split walks wait between two wgmma with more in flight.  A loop or
-// branch in C++ there makes ptxas fence and serialize every wgmma of the
-// kernel ("wgmma.mma_async instructions are serialized", C7520), so these
-// two waits keep their loops inside one asm statement each.
+// The forward's split walk waits between two wgmma with more in flight.
+// A loop or branch in C++ there makes ptxas fence and serialize every wgmma
+// of the kernel ("wgmma.mma_async instructions are serialized", C7520), so
+// these two waits keep their loops inside one asm statement each.
 //
 // bar_wait's loop in one asm statement: waits until the phase of parity
 // `parity` of `bar` has completed; traps if it never does (~10 s).
@@ -176,7 +251,7 @@ __device__ __forceinline__ void fetch_after_count(int leader, const unsigned int
 // Where a split walk's counters and buffers lie in its exchange memory:
 // counter x of pair p at counters + (2 p + x) * kCounterStride (one 128-byte
 // line each, so that the two clusters' counters are never polled on one
-// line), then each pair's buffer of `pair_elems` elements.
+// line), then each pair's global slots.
 constexpr int kCounterStride = 32;
 inline size_t split_counter_bytes(int pairs) { return size_t(2) * pairs * kCounterStride * 4; }
 

@@ -207,29 +207,6 @@ constexpr int kWarpGroups = kWarps / 4;
 constexpr int kMTiles = 2;
 constexpr int kKSteps = 11;
 
-// D (64 x 8 fp32; this warp's 16 rows in the mma.sync accumulator layout)
-// = A (64 x 16 bf16 from registers, this warp's 16 rows) x B (16 x 8 from
-// shared memory, K-major: `desc`) + D if accumulate.
-__device__ __forceinline__ void wgmma_m64n8k16(float (&d)[4], const uint32_t (&a)[4], uint64_t desc,
-                                               int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate)
-      : "memory");
-}
-
-// Shared-memory descriptor of a K-major bf16 B operand of 8 rows and 16 k
-// without swizzle: two 8 x 8 core matrices of 128 contiguous bytes, the
-// second 128 bytes after the first (both byte offsets 128: N = 8 has no
-// second row group).
-__device__ __forceinline__ uint64_t b_desc(const void* smem) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(128 >> 4) << 16) | (uint64_t(128 >> 4) << 32);
-}
-
 // Where h[r][k] (row r of the cluster, k = m UP + u for unit u of block m)
 // lies in a receive slot, in elements.  bf16: 8 x 8 core matrices
 // [r / 8][k / 8][r % 8][k % 8] (wgmma's K-major B without swizzle; a 16-byte
@@ -572,36 +549,6 @@ constexpr int kSplitKStepsWG[] = {17, 22};
 constexpr int kSplitLocalWG = 8;
 constexpr int kSplitMinOwners = 2 * kSplitLocalWG * kWarpGroups / (kSplitUnits / 16);
 
-// A split walk's W_hh columns in shared memory: K-major atoms of 64 rows
-// (columns q) by 64 k (four k-steps) with the 128-byte swizzle, 8 KB each
-// and 1024-byte aligned: element (q, c) at byte (q / 8) 1024 + (q % 8) 128 +
-// ((2 c / 16) ^ (q % 8)) 16 + 2 c % 16, the layout CUTLASS gives a K-major
-// A operand.
-constexpr int kAtomBytes = 8192;
-__device__ __forceinline__ int sw128_at(int q, int c) {
-  return (q >> 3) * 1024 + (q & 7) * 128 + ((((2 * c) >> 4) ^ (q & 7)) << 4) + ((2 * c) & 15);
-}
-// Shared-memory descriptor of k-step s (0..3) of such an atom: the start
-// advanced by 32 bytes a k-step, 8-row groups 1024 bytes apart (stride byte
-// offset), the 128-byte swizzle (layout type 1).
-__device__ __forceinline__ uint64_t a_desc(const void* atom, int s) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(atom)) + 32u * uint32_t(s);
-  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32) |
-         (uint64_t(1) << 62);
-}
-
-// D (64 x 8 fp32) += A (64 x 16 bf16 from shared memory: `da`) x B (16 x 8
-// from shared memory, K-major: `db`).
-__device__ __forceinline__ void wgmma_m64n8k16_ss(float (&d)[4], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "l"(da), "l"(db), "r"(1)
-      : "memory");
-}
-
 // Launch shape of the split walk for `rows` rows a pair (bf16): `owners`
 // blocks of kSplitUnits units (`first` of them in the pair's first cluster,
 // the rest in its second), K = owners x 32 (`kp`, no padding between
@@ -704,15 +651,10 @@ lstm_fwd_split_kernel(const __nv_bfloat16* __restrict__ xp,  // [T, R, 4H]
   T* stage = reinterpret_cast<T*>(part + kWarpGroups * RP * NQ);     // [RP][U]
   uint64_t* bars = reinterpret_cast<uint64_t*>(stage + RP * U);      // local [2], remote [2]
   // A[q][kk] = W_hh[kk, g H + u0 + u] for owned column q = g U + u; zero
-  // past H and past the block's units.  Loaded by a volatile asm: the
-  // compiler may neither repeat the load at every step instead of keeping
-  // the fragments in registers nor drop it.
+  // past H and past the block's units (ld_bits: loaded once)
   auto w_at = [&](int q, int kk) -> unsigned short {
     const int u = q % U;
-    if (kk >= H || u >= Uk) return 0;
-    unsigned short v;
-    asm volatile("ld.global.nc.u16 %0, [%1];\n" : "=h"(v) : "l"(W + size_t(kk) * G4 + (q / U) * H + u0 + u));
-    return v;
+    return kk < H && u < Uk ? ld_bits(W + size_t(kk) * G4 + (q / U) * H + u0 + u) : 0;
   };
   if (m >= 0) {
     for (int e = tid; e < 2 * slot; e += nt) recv[e] = from_float<T>(0.0f);

@@ -22,9 +22,11 @@ dW_hh kernel (``lstm_dwhh``, float32 ``dW_hh`` from the saved ``hs`` and
 in place, where the JAX wrappers build shifted copies.  Both walks split a
 direction's rows into row groups, one thread-block cluster each, so they
 take any batch of which one row fits (`launch_config` reports the groups).
-Where not one row fits (H=800), the walk takes the grid route
-(``lstm_bwd_grid_kernel``), chosen from the shape before the launch, as the
-forward's; ``ROUTES_BWD`` counts the backward launches by route.  Each
+Where not one row fits (H=800), the walk takes in bf16 the split walk
+(``lstm_bwd_split_kernel``, two clusters a direction and row group of at most
+8 rows, where the card holds all its clusters at once), else the grid
+route (``lstm_bwd_grid_kernel``), chosen from the shape before the launch,
+as the forward's; ``ROUTES_BWD`` counts the backward launches by route.  Each
 source's header says how the kernel is laid out and what bounds it.
 
 Dispatch: a CUDA tensor goes to the kernel, or the call raises; the plain
@@ -56,9 +58,9 @@ LAUNCHES = {"lstm_fwd": 0, "bilstm_fwd": 0, "lstm_bwd": 0, "bilstm_bwd": 0}
 # and row group: bf16 shapes one cluster cannot hold) and "grid"
 # (`lstm_fwd_grid_kernel`, the shapes neither walk holds)
 ROUTES = {"cluster": 0, "split": 0, "grid": 0}
-# the backward wrappers' launches by route: "cluster" (`lstm_bwd_kernel`) and
-# "grid" (`lstm_bwd_grid_kernel`)
-ROUTES_BWD = {"cluster": 0, "grid": 0}
+# the backward wrappers' launches by route: "cluster" (`lstm_bwd_kernel`),
+# "split" (`lstm_bwd_split_kernel`) and "grid" (`lstm_bwd_grid_kernel`)
+ROUTES_BWD = {"cluster": 0, "split": 0, "grid": 0}
 
 _declared = False
 
@@ -79,8 +81,9 @@ def _library() -> ctypes.CDLL:
             "lstm_fwd": [p] * 7 + [i] * 4 + [p, ll, p, pi],
             "bilstm_fwd": [p] * 6 + [i] * 4 + [p, ll, p, pi],
             "lstm_fwd_exchange_bytes": [i] * 4 + [pll],
-            "lstm_bwd": [p] * 13 + [i] * 4 + [p, pi],
-            "bilstm_bwd": [p] * 9 + [i] * 4 + [p, pi],
+            "lstm_bwd": [p] * 13 + [i] * 4 + [p, ll, p, pi],
+            "bilstm_bwd": [p] * 9 + [i] * 4 + [p, ll, p, pi],
+            "lstm_bwd_exchange_bytes": [i] * 4 + [pll],
             "lstm_dwhh": [p] * 5 + [i] * 5 + [p],
             "lstm_launch_config": [i, i, i, i, pi, *out],
             "lstm_bwd_launch_config": [i, i, i, i, pi, *out, pi],
@@ -134,18 +137,21 @@ _ROUTE_NAMES = {0: "grid", 1: "cluster", 2: "split"}
 
 
 @functools.lru_cache(maxsize=None)
-def _exchange_bytes(directions: int, batch: int, hidden: int, bf16: int, device_index: int) -> int:
+def _exchange_bytes(directions: int, batch: int, hidden: int, bf16: int, backward: bool,
+                    device_index: int) -> int:
     n = ctypes.c_longlong()
-    err = _library().lstm_fwd_exchange_bytes(directions, batch, hidden, bf16, ctypes.byref(n))
-    _raise_on(err, "lstm_fwd_exchange_bytes")
+    name = "lstm_bwd_exchange_bytes" if backward else "lstm_fwd_exchange_bytes"
+    err = getattr(_library(), name)(directions, batch, hidden, bf16, ctypes.byref(n))
+    _raise_on(err, name)
     return n.value
 
 
-def _exchange(directions: int, batch: int, hidden: int, dtype: torch.dtype, device):
+def _exchange(directions: int, batch: int, hidden: int, dtype: torch.dtype, device,
+              backward: bool = False):
     """Scratch memory of the split walk for this launch (None, 0 on the
-    other routes), on the current device: the kernel's C function zeroes it
-    on the stream before the walk."""
-    n = _exchange_bytes(directions, batch, hidden, int(dtype == torch.bfloat16),
+    other routes), on the current device: the kernel's C function zeroes
+    what needs it on the stream before the walk."""
+    n = _exchange_bytes(directions, batch, hidden, int(dtype == torch.bfloat16), backward,
                         torch.cuda.current_device())
     if n == 0:
         return None, 0
@@ -405,12 +411,13 @@ def _launch_lstm_bwd(whh, gates, cs, hs, h0, c0, dhs, dhf, dcf, x_dtype):
     dh0, dc0 = torch.empty(R, G // 4, **kw), torch.empty(R, G // 4, **kw)
     lib, route = _library(), ctypes.c_int()
     with torch.cuda.device(gates.device):
+        ex, ex_bytes = _exchange(1, R, G // 4, whh.dtype, gates.device, backward=True)
         err = lib.lstm_bwd(
             whh.data_ptr(), gates.data_ptr(), cs.data_ptr(), hs.data_ptr(),
             h0.data_ptr(), c0.data_ptr(), dhs.data_ptr(), dhf.data_ptr(), dcf.data_ptr(),
             dxp.data_ptr(), dw.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-            T, R, G // 4, int(whh.dtype == torch.bfloat16), _build.stream(gates),
-            ctypes.byref(route),
+            T, R, G // 4, int(whh.dtype == torch.bfloat16),
+            None if ex is None else ex.data_ptr(), ex_bytes, _build.stream(gates), ctypes.byref(route),
         )
     _raise_on_walk(err, "lstm_bwd", 1, R, G // 4, whh.dtype)
     _count("lstm_bwd", route, ROUTES_BWD)
@@ -424,11 +431,12 @@ def _launch_bilstm_bwd(whh_f, whh_b, gates, cs, hs, dhs, x_dtype):
     dwb = torch.empty_like(dwf)
     lib, route = _library(), ctypes.c_int()
     with torch.cuda.device(gates.device):
+        ex, ex_bytes = _exchange(2, R // 2, G // 4, whh_f.dtype, gates.device, backward=True)
         err = lib.bilstm_bwd(
             whh_f.data_ptr(), whh_b.data_ptr(), gates.data_ptr(), cs.data_ptr(),
             hs.data_ptr(), dhs.data_ptr(), dxp.data_ptr(), dwf.data_ptr(), dwb.data_ptr(),
-            T, R // 2, G // 4, int(whh_f.dtype == torch.bfloat16), _build.stream(gates),
-            ctypes.byref(route),
+            T, R // 2, G // 4, int(whh_f.dtype == torch.bfloat16),
+            None if ex is None else ex.data_ptr(), ex_bytes, _build.stream(gates), ctypes.byref(route),
         )
     _raise_on_walk(err, "bilstm_bwd", 2, R // 2, G // 4, whh_f.dtype)
     _count("bilstm_bwd", route, ROUTES_BWD)

@@ -153,7 +153,7 @@
 //   their clusters (one direction at 9-16 rows: four clusters), else the
 //   grid route (two directions at 9 rows: eight clusters).
 //   Shared memory at H = 800: 218,144 B (atoms 160 KB + 1 KB for their
-//   alignment, dgates 2 KB, receive slots 2 x 25.6 KB); 164 registers, no
+//   alignment, dgates 2 KB, receive slots 2 x 25.6 KB); 154 registers, no
 //   spill.  Exchange memory: 1.28 MB a pair (global slots [2][receiver][25
 //   senders][8][32] fp32), whose counters are zeroed before the launch.
 //
@@ -805,23 +805,6 @@ bool bwd_split_fits(const BwdSplitShape& s, int rows, size_t optin) {
          s.smem <= optin;
 }
 
-// p[0] + p[stride] + ... + p[(n - 1) stride] in that order, the loads
-// eight at a time ahead of the adds (a loop of dependent load-adds took 750
-// cycles a step for 25 partials)
-__device__ __forceinline__ float sum_partials(const float* p, int stride, int n) {
-  float total = 0.0f;
-  for (int x0 = 0; x0 < n; x0 += 8) {
-    float v[8];
-#pragma unroll
-    for (int x = 0; x < 8; ++x) v[x] = x0 + x < n ? p[(x0 + x) * stride] : 0.0f;
-#pragma unroll
-    for (int x = 0; x < 8; ++x) {
-      if (x0 + x < n) total += v[x];
-    }
-  }
-  return total;
-}
-
 // Grid 2 D G kCluster blocks in clusters of kCluster; clusters 2p and 2p + 1
 // walk pair p: row group p % G of direction p / G, the direction's rows
 // [g BC, g BC + Br), Br = min(BC, B - g BC).
@@ -880,7 +863,7 @@ lstm_bwd_split_kernel(const __nv_bfloat16* __restrict__ w0,  // [H, 4H], rows [0
   // H and past the block's units)
   auto w_at = [&](int j, int q) -> unsigned short {
     const int u = q % U;
-    return j < H && u < Uk ? ld_bits(W + size_t(j) * G4 + (q / U) * H + u0 + u) : 0;
+    return j < H && u < Uk ? __bfloat16_as_ushort(W[size_t(j) * G4 + (q / U) * H + u0 + u]) : 0;
   };
   if (m >= 0) {
     for (int e = tid; e < RP * NQ; e += nt) dgb[e] = from_float<T>(0.0f);
@@ -985,7 +968,8 @@ lstm_bwd_split_kernel(const __nv_bfloat16* __restrict__ w0,  // [H, 4H], rows [0
       if (s == T_ - 1) {
         if (dhf != nullptr) rec = dhf[size_t(row0 + r) * H + j];
       } else {
-        rec = sum_partials(in + r * U + u, part, NO);
+        // the partials of (r, u), one a sender, added in rank order
+        for (int x = 0; x < NO; ++x) rec += in[x * part + r * U + u];
       }
       const float i = gi[p], f = gf[p], g = gg[p], o = go[p], c_prev = cp[p];
       const float dh = dd[p] + rec;
@@ -1013,17 +997,10 @@ lstm_bwd_split_kernel(const __nv_bfloat16* __restrict__ w0,  // [H, 4H], rows [0
     float acc[kBwdTileSlots][4];
 #pragma unroll
     for (int c = 0; c < kBwdTileSlots; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.0f;
-    // a zero the compiler cannot see through: the descriptors below are
-    // formed at every step, not hoisted out of the walk into registers
-    // (48 of them), which spilled
-    uint32_t zero;
-    asm volatile("mov.u32 %0, 0;\n" : "=r"(zero));
     wgmma_fence();
-    // k-steps outer, tile slots inner: five independent accumulators in
-    // turn (tiles outer chained eight dependent wgmma on one accumulator)
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
-      const uint64_t db = dg_desc + uint64_t(ks * 16 + zero);  // core matrices of k-step ks: 256 bytes on
+      const uint64_t db = dg_desc + uint64_t(ks * 16);  // core matrices of k-step ks: 256 bytes on
 #pragma unroll
       for (int c = 0; c < kBwdTileSlots; ++c) {
         if (c < kBwdRegTiles) {
@@ -1031,7 +1008,7 @@ lstm_bwd_split_kernel(const __nv_bfloat16* __restrict__ w0,  // [H, 4H], rows [0
         } else {
           const int tile = min(wg + kBwdWarpGroups * c, MT - 1) - kBwdWarpGroups * kBwdRegTiles;
           const uint64_t da = a_desc_at(a_addr + uint32_t(tile * 2 * kAtomBytes + (ks / 4) * kAtomBytes +
-                                                          (ks % 4) * 32) + zero);
+                                                          (ks % 4) * 32));
           wgmma_m64n8k16_ss(acc[c], da, db);
         }
       }
@@ -1095,7 +1072,9 @@ lstm_bwd_split_kernel(const __nv_bfloat16* __restrict__ w0,  // [H, 4H], rows [0
     for (int p = 0; p < kSplitPairs; ++p) {
       if (ru[p] < 0 || dh0 == nullptr) continue;
       const int r = ru[p] >> 16, u = ru[p] & 0xffff;
-      dh0[size_t(row0 + r) * H + u0 + u] = sum_partials(in + r * U + u, part, NO);
+      float rec = 0.0f;
+      for (int x = 0; x < NO; ++x) rec += in[x * part + r * U + u];
+      dh0[size_t(row0 + r) * H + u0 + u] = rec;
       dc0[size_t(row0 + r) * H + u0 + u] = dc[p];
     }
   }

@@ -144,15 +144,6 @@ __device__ __forceinline__ void wgmma_m64n8k16_ss(float (&d)[4], uint64_t da, ui
       : "memory");
 }
 
-// The bits of one bf16 of W_hh, by a volatile asm: the compiler may neither
-// load it again at every step, in place of keeping the fragments it fills
-// in registers, nor drop the load.
-__device__ __forceinline__ unsigned short ld_bits(const __nv_bfloat16* p) {
-  unsigned short v;
-  asm volatile("ld.global.nc.u16 %0, [%1];\n" : "=h"(v) : "l"(p));
-  return v;
-}
-
 // ---------------------------------------------------------------------------
 // Across the two clusters of a split walk (lstm_fwd.cu, lstm_bwd.cu): the
 // clusters share no shared memory, so a block publishes what the other

@@ -133,10 +133,10 @@
 //   Shared memory at H = 800, bf16: 137,760 B up to 8 rows (W_hh atoms 96
 //   KB + 1 KB for their alignment, slots 25.6 KB, partials 12 KB), 176,160 B
 //   at 9-16 rows, whose two row tiles multiply one after the other (the
-//   second without a wait); 168 registers, no spill up to 8 rows (256 bytes
-//   a thread at 9-16, a shape no path takes).  H <= 736 would leave fewer than
-//   24 local k-steps in a cluster and H > 1024 more than 66 k-steps: there,
-//   the grid route.
+//   second without a wait); 168 registers, no spill up to 8 rows (280 bytes
+//   a thread at 9-16, a shape no path takes).  H <= 736 would leave fewer
+//   than 24 local k-steps in a cluster and H > 800 more than 51 k-steps:
+//   there, the grid route.
 //
 // lstm_fwd_grid_kernel, the grid route (lstm_fwd_grid and bilstm_fwd_grid in
 // chip_smoke.py's kernels line), for the shapes neither walk holds (fp32 at
@@ -541,8 +541,8 @@ constexpr int kSplitRegKSteps = 10;
 // k-steps a warpgroup multiplies, registers and shared memory together: a
 // compile-time count, so that no wgmma sits on a branch (ptxas serializes
 // wgmma issued on a path it cannot prove uniform); K is padded with zero
-// k-steps up to 3 x this.  17 covers H <= 800 (50 k-steps), 22 H <= 1024.
-constexpr int kSplitKStepsWG[] = {17, 22};
+// k-steps up to 3 x this: H <= 800 (50 k-steps)
+constexpr int kSplitKStepsWG = 17;
 // k-steps a warpgroup multiplies before it waits for the other cluster's h:
 // its first 8, virtual k-steps 0 .. 23, which are this cluster's own units
 // in either cluster of a pair of at least 24 owners (H > 736)
@@ -553,7 +553,7 @@ constexpr int kSplitMinOwners = 2 * kSplitLocalWG * kWarpGroups / (kSplitUnits /
 // blocks of kSplitUnits units (`first` of them in the pair's first cluster,
 // the rest in its second), K = owners x 32 (`kp`, no padding between
 // blocks' units) in `ksteps` k-steps of 16, of which 3 x reg_wg in registers
-// and the rest in shared memory (each warpgroup ksteps_wg in all, zero
+// and the rest in shared memory (each warpgroup kSplitKStepsWG in all, zero
 // past K); rows padded to whole 8-row tiles.
 // Shared memory: W_hh's columns of the shared-memory k-steps a_s
 // [3 warpgroups][2 tiles][atoms of 4 k-steps] (sw128_at; 1024-byte aligned,
@@ -563,7 +563,7 @@ constexpr int kSplitMinOwners = 2 * kSplitLocalWG * kWarpGroups / (kSplitUnits /
 // to send [rows_padded][32] and four mbarriers.  Global exchange memory:
 // two counters and two slots [2][rows_padded x kp] a pair.
 struct SplitShape {
-  int owners, first, kp, ksteps, ksteps_wg, reg_wg, rows_padded;
+  int owners, first, kp, ksteps, reg_wg, rows_padded;
   size_t smem, pair_elems;
 };
 
@@ -575,12 +575,8 @@ SplitShape split_shape(int rows, int H) {
   s.ksteps = s.kp / 16;
   s.rows_padded = (rows + 7) / 8 * 8;
   s.reg_wg = kSplitRegKSteps;
-  s.ksteps_wg = 0;  // no schedule holds K
-  for (const int n : kSplitKStepsWG) {
-    if (s.ksteps_wg == 0 && kWarpGroups * n >= s.ksteps) s.ksteps_wg = n;
-  }
   s.pair_elems = size_t(2) * s.rows_padded * s.kp;
-  const int atoms = (s.ksteps_wg - s.reg_wg + 3) / 4;  // a warpgroup's, each tile
+  const int atoms = (kSplitKStepsWG - s.reg_wg + 3) / 4;  // a warpgroup's, each tile
   s.smem = 1024 + size_t(kWarpGroups) * kMTiles * atoms * kAtomBytes + s.pair_elems * 2 +
            size_t(kWarpGroups) * s.rows_padded * 4 * kSplitUnits * 4 + size_t(s.rows_padded) * kSplitUnits * 2 +
            4 * 8;
@@ -589,9 +585,8 @@ SplitShape split_shape(int rows, int H) {
 
 // Grid 2 D G kCluster blocks in clusters of kCluster; clusters 2p and 2p + 1
 // walk pair p: row group p % G of direction p / G, the direction's rows
-// [g BC, g BC + Br), Br = min(BC, B - g BC).  RT 8-row tiles of h, KW
-// k-steps a warpgroup.
-template <int RT, int KW>
+// [g BC, g BC + Br), Br = min(BC, B - g BC).  RT 8-row tiles of h.
+template <int RT>
 __global__ void __launch_bounds__(kSplitThreads, 1)
 lstm_fwd_split_kernel(const __nv_bfloat16* __restrict__ xp,  // [T, R, 4H]
                       const __nv_bfloat16* __restrict__ w0,  // [H, 4H], rows [0, B)
@@ -606,7 +601,7 @@ lstm_fwd_split_kernel(const __nv_bfloat16* __restrict__ xp,  // [T, R, 4H]
                       int T_, int B, int H, int G, int BC, int NO, int N0, int KP) {
   using T = __nv_bfloat16;
   constexpr int U = kSplitUnits, NQ = 4 * kSplitUnits, RP = 8 * RT;
-  constexpr int KR = kSplitRegKSteps;  // in registers, then KW - KR in shared memory
+  constexpr int KR = kSplitRegKSteps, KW = kSplitKStepsWG;  // in registers, then KW - KR in shared memory
   cg::cluster_group cluster = cg::this_cluster();
   const int k = int(cluster.block_rank());
   const int c_id = int(blockIdx.x) / kCluster;
@@ -651,10 +646,10 @@ lstm_fwd_split_kernel(const __nv_bfloat16* __restrict__ xp,  // [T, R, 4H]
   T* stage = reinterpret_cast<T*>(part + kWarpGroups * RP * NQ);     // [RP][U]
   uint64_t* bars = reinterpret_cast<uint64_t*>(stage + RP * U);      // local [2], remote [2]
   // A[q][kk] = W_hh[kk, g H + u0 + u] for owned column q = g U + u; zero
-  // past H and past the block's units (ld_bits: loaded once)
+  // past H and past the block's units
   auto w_at = [&](int q, int kk) -> unsigned short {
     const int u = q % U;
-    return kk < H && u < Uk ? ld_bits(W + size_t(kk) * G4 + (q / U) * H + u0 + u) : 0;
+    return kk < H && u < Uk ? __bfloat16_as_ushort(W[size_t(kk) * G4 + (q / U) * H + u0 + u]) : 0;
   };
   if (m >= 0) {
     for (int e = tid; e < 2 * slot; e += nt) recv[e] = from_float<T>(0.0f);
@@ -1042,12 +1037,12 @@ cudaError_t walk(const FwdShape& s, int D, const FwdArgs* a, cudaStream_t stream
 // The split walk's occupancy on this card into `fl->info`, and its launch
 // when `a` is given and the card holds all its clusters at once: the
 // exchange memory zeroed on `stream`, then the walk.
-template <int RT, int KW>
+template <int RT>
 cudaError_t split_walk(FwdLaunch* fl, int D, const FwdArgs* a, cudaStream_t stream) {
   using T = __nv_bfloat16;
   const SplitShape& s = fl->split;
   const int pairs = D * fl->info.groups;
-  auto kernel = lstm_fwd_split_kernel<RT, KW>;
+  auto kernel = lstm_fwd_split_kernel<RT>;
   cudaLaunchConfig_t config;
   cudaLaunchAttribute attrs[2];
   cudaError_t err = cluster_config(kernel, 2 * pairs, kSplitThreads, stream, &config, attrs, &fl->info);
@@ -1153,7 +1148,7 @@ cudaError_t launch(const FwdArgs* a, cudaStream_t stream, FwdLaunch* fl) {
   if constexpr (sizeof(T) == 2) {
     auto split_fits = [&](int rows) {
       const SplitShape s = split_shape(rows, H);
-      return s.owners >= kSplitMinOwners && s.first <= kCluster && s.ksteps_wg > 0 && s.smem <= size_t(optin);
+      return s.owners >= kSplitMinOwners && kWarpGroups * kSplitKStepsWG >= s.ksteps && s.smem <= size_t(optin);
     };
     fl->info = {};
     if (row_groups(a->B, kSplitMaxRows, split_fits, &fl->info.groups, &fl->info.rows)) {
@@ -1161,11 +1156,7 @@ cudaError_t launch(const FwdArgs* a, cudaStream_t stream, FwdLaunch* fl) {
       fl->info.smem = fl->split.smem;
       const int pairs = D * fl->info.groups;
       fl->exchange = split_counter_bytes(pairs) + size_t(pairs) * fl->split.pair_elems * sizeof(T);
-      const bool two = fl->split.rows_padded > 8, wide = fl->split.ksteps_wg > kSplitKStepsWG[0];
-      err = two ? (wide ? split_walk<2, kSplitKStepsWG[1]>(fl, D, run, stream)
-                        : split_walk<2, kSplitKStepsWG[0]>(fl, D, run, stream))
-                : (wide ? split_walk<1, kSplitKStepsWG[1]>(fl, D, run, stream)
-                        : split_walk<1, kSplitKStepsWG[0]>(fl, D, run, stream));
+      err = fl->split.rows_padded > 8 ? split_walk<2>(fl, D, run, stream) : split_walk<1>(fl, D, run, stream);
       if (err != cudaSuccess) return err;
       if (fl->info.clusters >= 2 * pairs) {
         fl->route = kSplit;

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where a step of the port's forward LSTM walks spends its cycles, on the card.
 
-    python3 scripts/port_lstm_phases.py [--root DIR] [--work DIR] [--tag NAME] [--walks cluster,split]
+    python3 scripts/port_lstm_phases.py [--root DIR] [--work DIR] [--tag NAME] [--walks cluster,split,split_bwd]
 
 Copies DIR's `voicesplit_tpu_torch` (default: this checkout's) into WORK
 (default: ``compare/phases-<tag>``, git-ignored), adds ``clock64()``
-counters to the copy's `csrc/lstm_fwd.cu` and a C entry that reads them,
+counters to the copy's `csrc/lstm_fwd.cu` (and, where the tree has the
+backward's split walk, `csrc/lstm_bwd.cu`) and C entries that read them,
 builds the copy and runs each walk (the steps after the first; CUDA events
 around 10 calls with the counters in, a little above the kernel's own time).
 Prints one JSON line per case with the mean cycles a step of each phase.
@@ -41,6 +42,20 @@ thread 0 of block 0 (the first cluster of the pair), thread 352 of block 0
   thread 352: to the pair's global slot, then the counter) and loading the
   next step's xp.
 
+The backward's split walk (``lstm_bwd_split_kernel``, where the tree has
+it; ``lstm_bwd`` at B=2, ``bilstm_bwd`` at B=8; T=301, H=800, bf16, on the
+plain forward's outputs), thread 0 and thread 256 (the first warp that
+writes to the global slot) of block 0 and thread 0 of block 16:
+
+- ``receive``: waiting for step s+1's partials: this cluster's on the
+  mbarrier, the other cluster's counter and bulk copy;
+- ``dgates``: adding each unit's partials and computing its dgates;
+- ``sync``: the __syncthreads before the product;
+- ``product``: issuing the product and waiting for it;
+- ``stage``: the partials into shared memory and the __syncthreads after;
+- ``send``: sending them (warps 0-7 by st.async, 8-11 to the global slot,
+  then the counter) and loading the next step's inputs.
+
 The counters are patched into the copy at fixed places of each walk's
 source (the script stops if one is not found), so they time the tree as it
 is; the checkout itself is not touched.
@@ -61,6 +76,38 @@ CLUSTER_CASES = (("lstm_fwd", 1, 1), ("lstm_fwd", 1, 2), ("bilstm_fwd", 2, 8), (
 SPLIT_CASES = (("lstm_fwd", 1, 1), ("lstm_fwd", 1, 2), ("bilstm_fwd", 2, 8))
 PHASES = ("wait", "product", "sync", "cell", "send")
 SPLIT_PHASES = ("wait", "product_local", "counter", "copy", "product", "partials", "cell", "send")
+BWD_CASES = (("lstm_bwd", 1, 2), ("bilstm_bwd", 2, 8))
+BWD_PHASES = ("receive", "dgates", "sync", "product", "stage", "send")
+BWD_GLOBALS = ("namespace cg = cooperative_groups;\n\nnamespace {",
+               "namespace cg = cooperative_groups;\n__device__ unsigned long long g_bwd_split[24];\n\nnamespace {")
+BWD_REGION = ("lstm_bwd_split_kernel(const __nv_bfloat16* __restrict__ w0", "// The grid route")
+BWD_PATCHES = (
+    ("  for (int s = m >= 0 ? T_ - 1 : -1; s >= 0; --s) {\n    const float* in = s < T_ - 1 ? receive(s + 1) : nullptr;",
+     "  unsigned long long pa[7] = {0, 0, 0, 0, 0, 0, 0};\n  long long t0, t1, t2, t3, t4, t5, t6;\n"
+     "  for (int s = m >= 0 ? T_ - 1 : -1; s >= 0; --s) {\n    t0 = clock64();\n"
+     "    const float* in = s < T_ - 1 ? receive(s + 1) : nullptr;\n    t1 = clock64();"),
+    ("    fence_proxy_async();  // dgb written here; wgmma reads it through the async proxy\n"
+     "    __syncthreads();      // dgates[s] complete; every read of the slot is done",
+     "    t2 = clock64();\n    fence_proxy_async();  // dgb written here; wgmma reads it through the async proxy\n"
+     "    __syncthreads();      // dgates[s] complete; every read of the slot is done\n    t3 = clock64();"),
+    ("    wgmma_commit();\n    wgmma_wait<0>();\n", "    wgmma_commit();\n    wgmma_wait<0>();\n    t4 = clock64();\n"),
+    ("    __syncthreads();  // the partials staged\n", "    __syncthreads();  // the partials staged\n    t5 = clock64();\n"),
+    ("    // 5: the next step's inputs load while the partials travel\n    if (s > 0) prefetch(s - 1);\n",
+     "    // 5: the next step's inputs load while the partials travel\n    if (s > 0) prefetch(s - 1);\n"
+     "    t6 = clock64();\n"
+     "    if (s < T_ - 1 && s > 0) { pa[0] += t1 - t0; pa[1] += t2 - t1; pa[2] += t3 - t2; pa[3] += t4 - t3;"
+     " pa[4] += t5 - t4; pa[5] += t6 - t5; pa[6] += 1; }\n"),
+    ("  cluster.sync();  // no block leaves while a peer may still write to it\n}",
+     "  {\n    const int at = blockIdx.x == 0 && tid == 0 ? 0 : blockIdx.x == 0 && tid == 256 ? 8"
+     " : blockIdx.x == kCluster && tid == 0 ? 16 : -1;\n"
+     "    if (at >= 0) for (int i = 0; i < 6; ++i) g_bwd_split[at + i] = pa[i] / (pa[6] ? pa[6] : 1);\n  }\n"
+     "  cluster.sync();  // no block leaves while a peer may still write to it\n}"),
+)
+BWD_READER = """
+extern "C" int lstm_bwd_split_phases(unsigned long long* host) {
+  return cudaMemcpyFromSymbol(host, g_bwd_split, sizeof(unsigned long long) * 24);
+}
+"""
 
 GLOBALS = ("namespace cg = cooperative_groups;\n\nnamespace {",
            "namespace cg = cooperative_groups;\n__device__ unsigned long long g_phases[8];\n"
@@ -169,6 +216,19 @@ def patch(src: Path) -> bool:
     return split
 
 
+def patch_bwd(src: Path) -> bool:
+    """Patches the counters into the backward's split walk of `src`; False
+    if the tree has none."""
+    text = src.read_text()
+    if BWD_REGION[0] not in text:
+        return False
+    if text.count(BWD_GLOBALS[0]) != 1:
+        raise SystemExit(f"port_lstm_phases: {src} does not hold:\n{BWD_GLOBALS[0]}")
+    text = _patch_region(text.replace(*BWD_GLOBALS), BWD_REGION, BWD_PATCHES, src)
+    src.write_text(text + BWD_READER)
+    return True
+
+
 def _timed(torch, run) -> float:
     with torch.inference_mode():
         for _ in range(3):
@@ -189,7 +249,7 @@ def main(argv=None) -> int:
     parser.add_argument("--root", default=str(repo))
     parser.add_argument("--tag", default="this")
     parser.add_argument("--work", default=None)
-    parser.add_argument("--walks", default="cluster,split")
+    parser.add_argument("--walks", default="cluster,split,split_bwd")
     args = parser.parse_args(argv)
     walks = set(args.walks.split(","))
     work = Path(args.work or repo / "compare" / f"phases-{args.tag}").resolve()
@@ -197,6 +257,7 @@ def main(argv=None) -> int:
     shutil.copytree(Path(args.root).resolve() / "voicesplit_tpu_torch", work / "voicesplit_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
     has_split = patch(work / "voicesplit_tpu_torch" / "csrc" / "lstm_fwd.cu")
+    has_bwd = patch_bwd(work / "voicesplit_tpu_torch" / "csrc" / "lstm_bwd.cu")
     sys.path.insert(0, str(work))
 
     import torch
@@ -210,6 +271,8 @@ def main(argv=None) -> int:
     lib.lstm_fwd_phases.argtypes = [ctypes.c_void_p]
     if has_split:
         lib.lstm_fwd_split_phases.argtypes = [ctypes.c_void_p]
+    if has_bwd:
+        lib.lstm_bwd_split_phases.argtypes = [ctypes.c_void_p]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     g = torch.Generator().manual_seed(0)
@@ -246,6 +309,32 @@ def main(argv=None) -> int:
             cycles = list(buf)
             for i, who in enumerate(("block0_thread0", "block0_thread352", "block16_thread0")):
                 out[f"cycles_a_step_{who}"] = dict(zip(SPLIT_PHASES, cycles[8 * i:8 * i + 8]))
+        print(json.dumps(out), flush=True)
+    for name, D, B in BWD_CASES if has_bwd and "split_bwd" in walks else ():
+        T, H, dt, R = T_FRAMES, 800, torch.bfloat16, D * B
+        xp = torch.randn(T, R, 4 * H, generator=g).to("cuda", dt)
+        ws = [torch.empty(H, 4 * H).uniform_(-H ** -0.5, H ** -0.5, generator=g).to("cuda", dt)
+              for _ in range(2)]
+        states = [torch.randn(R, H, generator=g).cuda() for _ in range(4)]  # h0 c0 dhf dcf
+        dhs = torch.randn(T, R, H, generator=g).cuda()
+        with torch.inference_mode():
+            if D == 1:
+                hs, cs, gates = lstm_cuda.lstm_fwd_ref(xp, ws[0], *states[:2])
+                run = lambda: lstm_cuda.lstm_bwd(  # noqa: E731
+                    ws[0], gates, cs, hs, *states[:2], dhs, *states[2:], dt)
+            else:
+                hs, cs, gates = lstm_cuda.bilstm_fwd_ref(xp, ws[0], ws[1])
+                run = lambda: lstm_cuda.bilstm_bwd(ws[0], ws[1], gates, cs, hs, dhs, dt)  # noqa: E731
+        routes = dict(lstm_cuda.ROUTES_BWD)
+        ms = _timed(torch, run)
+        buf = (ctypes.c_ulonglong * 24)()
+        lstm_cuda._raise_on(lib.lstm_bwd_split_phases(ctypes.addressof(buf)), "lstm_bwd_split_phases")
+        cycles = list(buf)
+        out = {"tag": args.tag, "root": str(Path(args.root).resolve()), "nvidia_smi": smi,
+               "walk": "split_bwd", "route": [k for k, v in lstm_cuda.ROUTES_BWD.items() if v != routes[k]],
+               "kernel": name, "batch": B, "H": H, "dtype": "bfloat16", "ms_with_counters": ms}
+        for i, who in enumerate(("block0_thread0", "block0_thread256", "block16_thread0")):
+            out[f"cycles_a_step_{who}"] = dict(zip(BWD_PHASES, cycles[8 * i:8 * i + 6]))
         print(json.dumps(out), flush=True)
     return 0
 

@@ -38,7 +38,8 @@ Phases, each printing one JSON line:
    dxp, both dW_hh), and both at GRID_HIDDEN on the backward's split walk
    in bf16 (``lstm_bwd_split`` B=2, ``bilstm_bwd_split`` B=8) and grid route
    in fp32 (``lstm_bwd_grid``, ``bilstm_bwd_grid``), each launch counted
-   by route.  Then times kernel, plain version and a cuDNN
+   by route, and each backward's dW_hh the bits of the dW_hh kernel alone
+   on the call's dxp.  Then times kernel, plain version and a cuDNN
    ``torch.nn.LSTM`` yardstick (its forward, or its ``.backward()`` alone
    after a forward; both also cover the input projection, which the kernels
    leave to a matmul), and the backward's dW_hh kernel alone (``dwhh_ms``)

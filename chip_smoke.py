@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch port's serving and training paths, its
-training and evaluation entry points, at `configs/voicesplit.json` and at
-the wide `configs/voicesplit_wide.json` (NVIDIA H100).
+training, preprocessing and evaluation entry points, at
+`configs/voicesplit.json` and at the wide `configs/voicesplit_wide.json`
+(NVIDIA H100).
 
     python3 chip_smoke.py [--seed 0] [--profile DIR] [--phases a,b,...]
 
@@ -134,6 +135,30 @@ Phases, each printing one JSON line:
    agree within EVAL_SDR_TOL_DB), then `cli.sweep.main` over both
    checkpoints (batches padded to 8 on the card: ``bilstm_fwd`` on the
    split walk): finite metrics, the best-checkpoint copies and the curve.
+14. preprocess — writes a speaker-per-directory corpus (CORPUS_SPEAKERS ×
+   CORPUS_UTTERANCES synthetic voices of CORPUS_SECONDS from ``--seed``) and
+   two triplet CSVs, runs `cli.preprocess.main` with ``--save_specs`` on the
+   card (a spawned pool of PREPROCESS_WORKERS) and checks the triplets
+   written and the spectrograms against the host's (SPEC_TOL); writes each
+   triplet's spectral d-vector as its ``*-emb.npy``; holds the native
+   loader's first three batches to the Python iterator's; runs
+   `cli.train.main` for PREPROCESS_STEPS steps over the triplets with
+   ``VOICESPLIT_PALLAS_CONV=1`` through the native loader: exact launches,
+   a finite loss, every compiled library under ``build/``.  Prints
+   preprocessing seconds a triplet, step p50 / p75, `fit()`'s wall seconds
+   by activity and its data-wait share.
+15. trainer online — `configs/voicesplit.json` with dropout and SpecAugment
+   (ONLINE_DROPOUT, ONLINE_SPEC_AUG): one regularized step of an online
+   batch (exact launches, every parameter moved, against the same step
+   through the plain LSTM versions with the same generators, TRAIN_TOL;
+   dropout's keep share within KEEP_SHARE_TOL, SpecAugment's bands within
+   their limits); `cli.train.main --online --emb_mode spectral` for
+   ONLINE_STEPS steps (checkpoints every ONLINE_CKPT_EVERY), a run resumed
+   from the middle checkpoint (TRAINER_RESUME_TOL), and a
+   ``Trainer(debug_nans=True)`` whose loader poisons batch NAN_BATCH, which
+   must stop one step later with a report naming an op.  Prints step p50 /
+   p75 beside the trainer phase's, the data-wait share and, under
+   ``--profile``, the regularizers' device time.
 
 Then a ``{"kernels": [...]}`` line (each kernel's ``main_path``: false for
 the routes no path takes, OFF_PATH, launched only in the kernels phases),
@@ -147,7 +172,8 @@ trace of the serving runs and the train steps into DIR and reports the
 device's idle share under the profiler and the device time by kind of
 kernel.  ``--phases`` runs a subset (of kernels, bwd_kernels, separate,
 train, conv_kernels, train_fused, dilated_kernels, separate_dilated,
-trainer, separate_wide, train_wide, evaluate; device and build always run)
+trainer, separate_wide, train_wide, evaluate, preprocess, trainer_online;
+device and build always run)
 and ends with a line marked
 ``"partial"`` instead of the result lines.
 """
@@ -330,6 +356,23 @@ TRAINER_TRAIN_ITEMS, TRAINER_EVAL_ITEMS = 40, 4
 # weight by at most 1e-2).  The port's kernels give the same bits twice; the
 # library's backward kernels for conv1 and conv8 need not.
 TRAINER_RESUME_TOL = 1e-3
+# the preprocess phase: a speaker-per-directory corpus (speakers × utterances
+# of CORPUS_SECONDS, 16 kHz) and a CSV of triplets mixed by `cli.preprocess`
+# (a spawned pool of PREPROCESS_WORKERS), then `cli.train` over the triplets
+# with the dilated switch through the native loader
+CORPUS_SPEAKERS, CORPUS_UTTERANCES, CORPUS_SECONDS = 6, 3, 4.0
+PREPROCESS_TRAIN_ROWS, PREPROCESS_TEST_ROWS, PREPROCESS_WORKERS = 24, 4, 4
+PREPROCESS_STEPS, PREPROCESS_CKPT_EVERY = 8, 4
+# spectrograms written on the card against the same wavs' on the host
+# (normalized dB, values in [0, 1])
+SPEC_TOL = 1e-4
+NATIVE_BATCH_TOL = 2e-7  # native loader vs Python iterator (wav samples)
+# the trainer_online phase: `cli.train --online --emb_mode spectral` with the
+# JAX package's regularizer probe values (scripts/run_reg_probes.py:72-73)
+ONLINE_DROPOUT, ONLINE_SPEC_AUG = 0.3, (24, 40)
+ONLINE_STEPS, ONLINE_CKPT_EVERY = 12, 6
+KEEP_SHARE_TOL = 0.01  # dropout's keep share against 1 - rate
+NAN_BATCH = 2  # the debug_nans run's loader poisons this batch (0-based)
 REPLACES = {
     "lstm_fwd": "voicesplit_tpu/ops/lstm_pallas.py:71",
     "lstm_fwd_grid": "voicesplit_tpu/ops/lstm_pallas.py:71",
@@ -375,7 +418,11 @@ SOURCES = {
 OFF_PATH = ("lstm_fwd_grid", "bilstm_fwd_grid", "lstm_bwd_grid", "bilstm_bwd_grid", "bilstm_bwd_split")
 
 
+REPORTS: dict = {}  # each phase's printed fields, by phase name
+
+
 def emit(phase: str, **fields) -> None:
+    REPORTS[phase] = fields
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
@@ -1842,6 +1889,396 @@ def phase_trainer(torch, lstm_cuda, cc, seed: int, profile_dir) -> dict:
     return launches
 
 
+def _speaker_corpus(tmp: Path, seed: int) -> Path:
+    """A speaker-per-directory corpus of synthetic voices from `seed`
+    (`data/synthetic.py`'s signal helper), and two triplet CSVs (train and
+    test, with a header); made once per temporary directory."""
+    from voicesplit_tpu_torch.data.synthetic import _speaker_wav
+    from voicesplit_tpu_torch.dsp.audio_io import save_wav_float
+
+    root = tmp / "corpus"
+    if root.exists():
+        return root
+    sr, rng = 16000, np.random.default_rng(seed)
+    n = int(CORPUS_SECONDS * sr)
+    for s in range(CORPUS_SPEAKERS):
+        (root / f"spk{s}").mkdir(parents=True)
+        for k in range(CORPUS_UTTERANCES):
+            save_wav_float(_speaker_wav(rng, s, n, sr), str(root / f"spk{s}" / f"u{k}.wav"), sr)
+    for name, rows in (("train.csv", PREPROCESS_TRAIN_ROWS), ("test.csv", PREPROCESS_TEST_ROWS)):
+        lines = ["clean_utterance,embedding_utterance,interference_utterance"]
+        for _ in range(rows):
+            a, b = rng.choice(CORPUS_SPEAKERS, 2, replace=False)
+            k, e = rng.choice(CORPUS_UTTERANCES, 2, replace=False)
+            lines.append(f"spk{a}/u{k}.wav,spk{a}/u{e}.wav,spk{b}/u{rng.integers(CORPUS_UTTERANCES)}.wav")
+        (root / name).write_text("\n".join(lines) + "\n")
+    return root
+
+
+def _corpus_config(tmp: Path, seed: int, train_dir: Path, test_dir: Path, name: str, **model):
+    """`configs/voicesplit.json` at full width (bf16) over the given
+    directories, summaries and the guard every step; returns its path and
+    the config."""
+    from voicesplit_tpu_torch.config import load_config
+
+    config = load_config(str(ROOT / "configs" / "voicesplit.json"))
+    config.dataset.train_dir, config.dataset.test_dir = str(train_dir), str(test_dir)
+    tc = config.train_config
+    tc.learning_rate, tc.seed = TRAIN_LR, seed
+    tc.summary_interval = tc.check_interval = 1
+    for k, v in model.items():
+        setattr(config.model if hasattr(config.model, k) else tc, k, v)
+    path = tmp / name
+    path.write_text(config.to_json())
+    return str(path), config
+
+
+def _preprocessed(tmp: Path, seed: int):
+    """The corpus's CSVs mixed by `cli.preprocess` on the card (spectrograms
+    too) under ``tmp/mixed``, each triplet with a spectral d-vector of its
+    reference utterance as ``*-emb.npy``; made once.  Returns the output
+    directory and the seconds of each part."""
+    from voicesplit_tpu_torch.cli.preprocess import main as preprocess_main
+    from voicesplit_tpu_torch.dsp.audio_io import load_wav
+    from voicesplit_tpu_torch.models.speaker_encoder import spectral_dvector
+
+    out = tmp / "mixed"
+    if out.exists():
+        return out, None
+    corpus = _speaker_corpus(tmp, seed)
+    config_path, config = _corpus_config(tmp, seed, corpus, corpus, "preprocess.json")
+    t0 = time.perf_counter()
+    written = preprocess_main(["-c", config_path, "-r", str(corpus), "-d", str(corpus / "train.csv"),
+                               "-t", str(corpus / "test.csv"), "-o", str(out), "--save_specs",
+                               "--num_workers", str(PREPROCESS_WORKERS)])
+    t1 = time.perf_counter()
+    check(written == {"train": PREPROCESS_TRAIN_ROWS, "test": PREPROCESS_TEST_ROWS},
+          f"triplets written {written}")
+    fmt, sr = config.dataset.format, config.audio.active.sample_rate
+    for ref in sorted(out.glob("*/" + fmt.emb_wav)):
+        emb = spectral_dvector(load_wav(str(ref), sr), sr, emb_dim=config.model.emb_dim)
+        np.save(str(ref).replace(fmt.emb_wav[1:], fmt.emb[1:]), emb)
+    return out, {"preprocess_cli": t1 - t0, "spectral_embeddings": time.perf_counter() - t1}
+
+
+def _step_ms(log_dir: Path) -> tuple:
+    """p50 and p75 of the host-clock time between consecutive summaries
+    (one a step) of a training run."""
+    deltas = np.diff([r["time"] for r in _read_metrics(log_dir) if "train_loss" in r]) * 1e3
+    return tuple(float(np.percentile(deltas, q)) for q in (50, 75))
+
+
+def phase_preprocess(torch, lstm_cuda, cc, seed: int, tmp: Path) -> dict:
+    """Offline preprocessing on the card, then the training CLI over its
+    output through the native loader with the dilated switch: triplets
+    written, spectrograms against the host's, the native loader's batches
+    against the Python iterator's, exact launches, a finite loss, every
+    compiled library under ``build/``."""
+    from voicesplit_tpu_torch.cli.train import main as train_main
+    from voicesplit_tpu_torch.config import load_config
+    from voicesplit_tpu_torch.data import native_loader
+    from voicesplit_tpu_torch.data.dataset import BatchIterator, SeparationDataset, discover_samples
+    from voicesplit_tpu_torch.dsp.audio_io import load_wav
+    from voicesplit_tpu_torch.dsp.processor import make_audio_processor
+    from voicesplit_tpu_torch.ops import _build
+
+    out, seconds = _preprocessed(tmp, seed)
+    check(seconds is not None, "the preprocess phase runs first on its directory")
+    n_triplets = PREPROCESS_TRAIN_ROWS + PREPROCESS_TEST_ROWS
+    config = load_config(str(tmp / "preprocess.json"))
+    fmt, sr = config.dataset.format, config.audio.active.sample_rate
+    # spectrograms written on the card against the host's of the same wavs
+    host_ap = make_audio_processor(config, device="cpu")
+    spec_err = 0.0
+    for saved in sorted(out.glob("*/*.npy")):
+        if saved.name.endswith(fmt.emb[1:]):
+            continue
+        wav = load_wav(str(saved)[: -len(".npy")] + ".wav", sr)
+        host, _ = host_ap.wav2spec(wav)
+        spec_err = max(spec_err, float(np.abs(np.load(saved) - host).max()))
+    n_specs = len([p for p in out.glob("*/*.npy") if not p.name.endswith(fmt.emb[1:])])
+    check(n_specs == 2 * n_triplets, f"{n_specs} spectrograms for {n_triplets} triplets")
+    check(spec_err <= SPEC_TOL, f"card spectrograms vs host: {spec_err} > {SPEC_TOL}")
+
+    # the native loader's first batches against the Python iterator's
+    ds = SeparationDataset(discover_samples(str(out / "train"), fmt), host_ap,
+                           config.audio.audio_len, config.model.emb_dim)
+    nat = native_loader.NativeBatchIterator(ds, 2, seed=seed, n_threads=2)
+    py = BatchIterator(ds, 2, seed=seed)
+    batch_err = 0.0
+    for _ in range(3):
+        a, b = next(nat), next(py)
+        for k in ("emb", "mixed_wav", "target_wav"):
+            batch_err = max(batch_err, float(np.abs(a[k] - b[k]).max()))
+        check(np.array_equal(a["wav_len"], b["wav_len"]), "native loader: wav_len differs")
+    nat.close()
+    check(batch_err <= NATIVE_BATCH_TOL, f"native vs Python batches {batch_err}")
+
+    # the training CLI over the preprocessed triplets
+    step_launches = {"lstm_fwd": 2, "bilstm_fwd": 0, "lstm_bwd": 2, "bilstm_bwd": 0,
+                     **DILATED_TRAIN_LAUNCHES}
+    config_path, config = _corpus_config(tmp, seed, out / "train", out / "test", "mixed.json",
+                                         checkpoint_interval=PREPROCESS_CKPT_EVERY)
+    run = tmp / "run_mixed"
+    with _Env("VOICESPLIT_PALLAS_CONV", "1"), _Env("VOICESPLIT_FUSED_CHAIN", "0"):
+        _reset_counts(torch, lstm_cuda, cc)
+        result = train_main(["-c", config_path, "--logs_path", str(run),
+                             "--max_steps", str(PREPROCESS_STEPS)])
+        launches = _counts(torch, lstm_cuda, cc)
+    check(result["train_loader"] == "NativeBatchIterator", f"train loader {result['train_loader']}")
+    check(result.get("step") == PREPROCESS_STEPS and not result.get("exploded")
+          and np.isfinite(result["loss"]), f"run: {result}")
+    # validations: at each epoch start and every checkpoint interval
+    n_evals = (-(-PREPROCESS_STEPS // (PREPROCESS_TRAIN_ROWS // config.train_config.batch_size))
+               + PREPROCESS_STEPS // PREPROCESS_CKPT_EVERY)
+    want = {k: v * PREPROCESS_STEPS for k, v in step_launches.items()}
+    want["lstm_fwd"] += 2 * n_evals * PREPROCESS_TEST_ROWS
+    want["conv_dilated_fwd"] += 6 * n_evals * PREPROCESS_TEST_ROWS
+    check(launches == want, f"launches of the run {launches}, expected {want}")
+    build_dir = (ROOT / "build").resolve()
+    libs = [_build.build()[0].resolve(), native_loader.library_path().resolve()]
+    check(all(p.exists() and p.parent == build_dir for p in libs), f"libraries {libs}")
+    p50, p75 = _step_ms(run)
+    wall = result["wall_seconds"]
+    emit("preprocess", device=torch.cuda.get_device_name(0), config="configs/voicesplit.json",
+         switch="VOICESPLIT_PALLAS_CONV=1", corpus={
+             "speakers": CORPUS_SPEAKERS, "utterances": CORPUS_UTTERANCES,
+             "seconds": CORPUS_SECONDS},
+         triplets={"train": PREPROCESS_TRAIN_ROWS, "test": PREPROCESS_TEST_ROWS},
+         workers=PREPROCESS_WORKERS, seconds=seconds,
+         preprocess_s_per_triplet=seconds["preprocess_cli"] / n_triplets,
+         spec_max_abs_err_vs_host=spec_err, spec_tolerance=SPEC_TOL,
+         native_vs_python_max_abs_err=batch_err, train_loader=result["train_loader"],
+         libraries=[str(p.relative_to(ROOT.resolve())) for p in libs],
+         steps=PREPROCESS_STEPS, launches=launches, launches_per_step=step_launches,
+         final_loss=result["loss"], step_ms_p50=p50, step_ms_p75=p75, wall_seconds=wall,
+         data_wait_share_of_fit=wall["data"] / wall["fit"])
+    return launches
+
+
+class _PoisonedLoader:
+    """An iterator whose batch number `at` (0-based) carries a NaN in its
+    mixed waveform; state and length are the wrapped iterator's."""
+
+    def __init__(self, inner, at: int):
+        self.inner, self.at, self.count = inner, at, 0
+
+    def batches_per_epoch(self):
+        return self.inner.batches_per_epoch()
+
+    @property
+    def state(self):
+        return self.inner.state
+
+    def load_state(self, state):
+        self.inner.load_state(state)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        batch = next(self.inner)
+        if self.count == self.at:
+            batch["mixed_wav"][0, 7] = np.nan
+        self.count += 1
+        return batch
+
+
+def phase_trainer_online(torch, lstm_cuda, seed: int, profile_dir, tmp: Path) -> dict:
+    """`cli.train --online --emb_mode spectral` over the corpus with dropout
+    and SpecAugment: one regularized step against the plain LSTM versions
+    with the same generators (the keep share and the bands recorded), a run
+    across a checkpoint, a run resumed from it, and a `debug_nans` run whose
+    loader poisons a batch."""
+    from voicesplit_tpu_torch.cli.train import main as train_main
+    from voicesplit_tpu_torch.data.online import OnlineMixIterator, discover_utterances
+    from voicesplit_tpu_torch.dsp import augment
+    from voicesplit_tpu_torch.dsp.processor import make_audio_processor
+    from voicesplit_tpu_torch.models.masknet import make_masknet
+    from voicesplit_tpu_torch.train import create_train_state, make_optimizer, make_train_step
+    from voicesplit_tpu_torch.train import steps as steps_mod
+    from voicesplit_tpu_torch.train.checkpoint import load_checkpoint
+    from voicesplit_tpu_torch.train.trainer import Trainer
+    from voicesplit_tpu_torch.weights import init_for_training_
+
+    out, _ = _preprocessed(tmp, seed)
+    corpus = _speaker_corpus(tmp, seed)
+    sa_time, sa_freq = ONLINE_SPEC_AUG
+    config_path, config = _corpus_config(
+        tmp, seed, corpus, out / "test", "online.json", dropout=ONLINE_DROPOUT,
+        spec_aug_time=sa_time, spec_aug_freq=sa_freq, checkpoint_interval=ONLINE_CKPT_EVERY)
+    step_launches = TRAIN_LAUNCHES[config.train_config.batch_size]
+    active = config.audio.active
+
+    def online():
+        return OnlineMixIterator(
+            discover_utterances(str(corpus)), config.train_config.batch_size,
+            sample_rate=active.sample_rate, audio_len=config.audio.audio_len,
+            hop_length=active.hop_length, emb_dim=config.model.emb_dim, emb_mode="spectral",
+            seed=config.train_config.seed)
+
+    report = {"config": "configs/voicesplit.json", "dropout": ONLINE_DROPOUT,
+              "spec_aug": {"time": sa_time, "freq": sa_freq,
+                           "n": config.train_config.spec_aug_n},
+              "steps": ONLINE_STEPS, "checkpoint_interval": ONLINE_CKPT_EVERY,
+              "tolerances": TRAIN_TOL, "resume_tolerance_abs": TRAINER_RESUME_TOL}
+    with _route_env("unfused"):
+        # (1) one regularized step, recorded, against the plain LSTM versions
+        ap = make_audio_processor(config)
+        model = init_for_training_(make_masknet(config), seed)
+        optimizer = make_optimizer(config, model)
+        state = create_train_state(model, optimizer)
+        step = make_train_step(config, model, ap, optimizer)
+        batch = next(online())
+        kept, bands = [], []
+        draw_keep = model.draw_dropout_keep
+
+        def recording_keep(shape, keep_prob, generator):
+            keep = draw_keep(shape, keep_prob, generator)
+            kept.append((int(keep.sum()), keep.numel()))
+            return keep
+
+        def recording_mask(spec, generator, max_time, max_freq, n_masks):
+            drawn = augment.draw_spec_bands(generator, spec.shape, max_time, max_freq, n_masks)
+            bands.append(drawn)
+            return augment.apply_spec_bands(spec, drawn)
+
+        model.draw_dropout_keep = recording_keep
+        steps_mod.spec_time_freq_mask, real_mask = recording_mask, steps_mod.spec_time_freq_mask
+        before = _snapshot(model, optimizer, state)
+        try:
+            _reset_counts(torch, lstm_cuda)
+            mk = step(state, batch)
+            counted = _counts(torch, lstm_cuda)
+            gk = _lstm_grads(model)
+            after_k = {k: v.clone() for k, v in model.state_dict().items()}
+            unmoved = [k for k, v in after_k.items() if torch.equal(v, before[0][k])]
+            _restore(model, optimizer, state, before)
+            again = step(state, batch)
+            same_bits = float(again["loss"]) == float(mk["loss"]) and all(
+                torch.equal(v, after_k[k]) for k, v in model.state_dict().items())
+            _restore(model, optimizer, state, before)
+            with _PlainVersions(lstm_cuda):
+                mp = step(state, batch)
+            gp = _lstm_grads(model)
+        finally:
+            steps_mod.spec_time_freq_mask = real_mask
+            model.draw_dropout_keep = draw_keep
+        check(counted == step_launches, f"regularized step launches {counted}")
+        check(not unmoved, f"unchanged after a regularized step: {unmoved}")
+        check(np.isfinite(float(mk["loss"])) and not bool(mk["loss_exploded"]),
+              f"regularized step loss {float(mk['loss'])}")
+        vs_plain = {
+            "loss_rel": abs(float(mk["loss"]) - float(mp["loss"])) / abs(float(mp["loss"])),
+            "grad_norm_rel": abs(float(mk["grad_norm"]) - float(mp["grad_norm"]))
+            / float(mp["grad_norm"]),
+            "lstm_grad_peak_rel": {k: _peak_rel(gk[k], gp[k]) for k in gk},
+        }
+        for k, tol in TRAIN_TOL.items():
+            err = vs_plain[k]
+            err = max(err.values()) if isinstance(err, dict) else err
+            check(err <= tol, f"regularized step: kernels vs plain {k} {err} > {tol}")
+        # 3 steps drew: kernels, kernels again, plain versions; each draws 2
+        # dropout sites and one set of bands
+        check(len(kept) == 6 and len(bands) == 3, f"draws {len(kept)}, {len(bands)}")
+        keep_share = sum(k for k, _ in kept[:2]) / sum(n for _, n in kept[:2])
+        check(abs(keep_share - (1 - ONLINE_DROPOUT)) <= KEEP_SHARE_TOL, f"keep share {keep_share}")
+        widest = {}
+        for axis, limit in (("time", sa_time), ("freq", sa_freq)):
+            start, width = bands[0][axis]
+            widest[axis] = int(width.max())
+            check(int(width.min()) >= 0 and widest[axis] <= limit, f"{axis} band {widest[axis]}")
+            check(bool((start >= 0).all()), f"{axis} band start < 0")
+        same_draws = all(torch.equal(bands[0][a][i], bands[2][a][i])
+                         for a in ("time", "freq") for i in (0, 1))
+        check(same_draws, "the plain-version step drew other bands")
+        report["regularized_step"] = {
+            "launches": counted, "loss": float(mk["loss"]), "grad_norm": float(mk["grad_norm"]),
+            "kernels_vs_plain": vs_plain, "same_bits_twice": same_bits,
+            "dropout_keep_share": keep_share, "widest_band": widest}
+        if profile_dir:
+            spec = torch.rand((2, T_FRAMES, active.num_freq), device="cuda").bfloat16()
+            feats = torch.rand((2, T_FRAMES, 8 * active.num_freq + config.model.emb_dim),
+                               device="cuda").bfloat16()
+            hidden = torch.rand((2, T_FRAMES, 2 * config.model.lstm_dim), device="cuda").bfloat16()
+            model.train()
+
+            def regularizers():
+                g = steps_mod.step_generator(steps_mod.SPEC_AUG_SEED, 0, torch.device("cuda"))
+                augment.spec_time_freq_mask(spec, g, sa_time, sa_freq, config.train_config.spec_aug_n)
+                gd = steps_mod.step_generator(steps_mod.DROPOUT_SEED, 0, torch.device("cuda"))
+                model._drop(feats, gd)
+                model._drop(hidden, gd)
+
+            report["regularizers_profile"] = profile(torch, profile_dir, "regularizers", regularizers)
+            report["regularized_step_profile"] = profile(
+                torch, profile_dir, "train_regularized_B2", lambda: step(state, batch))
+        initial = {k: v.clone() for k, v in before[0].items()}
+        del model, optimizer, state, step, before, after_k, gk, gp
+        torch.cuda.empty_cache()
+
+        # (2) the counted run of this phase's path: the training CLI, online
+        run_a, run_b = tmp / "online_a", tmp / "online_b"
+        _reset_counts(torch, lstm_cuda)
+        result = train_main(["-c", config_path, "--logs_path", str(run_a), "--max_steps",
+                             str(ONLINE_STEPS), "--online", "--emb_mode", "spectral"])
+        launches = _counts(torch, lstm_cuda)
+        check(result["train_loader"] == "OnlineMixIterator", f"loader {result['train_loader']}")
+        check(result.get("step") == ONLINE_STEPS and not result.get("exploded")
+              and np.isfinite(result["loss"]), f"online run: {result}")
+        # validations: at each epoch start and every checkpoint interval
+        n_evals = -(-ONLINE_STEPS // online().batches_per_epoch()) + ONLINE_STEPS // ONLINE_CKPT_EVERY
+        want = {k: v * ONLINE_STEPS for k, v in step_launches.items()}
+        want["lstm_fwd"] += 2 * n_evals * PREPROCESS_TEST_ROWS
+        check(launches == want, f"launches of the online run {launches}, expected {want}")
+        final_a = load_checkpoint(str(run_a / f"checkpoint_{ONLINE_STEPS}.pt"))
+        unmoved = [k for k, v in final_a["model"].items()
+                   if torch.equal(v, initial[k].cpu())]
+        check(not unmoved, f"parameters that never moved: {unmoved}")
+        losses = [r["train_loss"] for r in _read_metrics(run_a) if "train_loss" in r]
+        check(len(losses) == ONLINE_STEPS and all(np.isfinite(losses)), f"losses {losses}")
+        p50, p75 = _step_ms(run_a)
+        wall = result["wall_seconds"]
+
+        # (3) resumed from the middle checkpoint
+        resumed = train_main(["-c", config_path, "--logs_path", str(run_b), "--max_steps",
+                              str(ONLINE_STEPS), "--online", "--emb_mode", "spectral",
+                              "--checkpoint_path", str(run_a / f"checkpoint_{ONLINE_CKPT_EVERY}.pt")])
+        check(resumed.get("step") == ONLINE_STEPS, f"resumed run: {resumed}")
+        final_b = load_checkpoint(str(run_b / f"checkpoint_{ONLINE_STEPS}.pt"))
+        diffs = {k: (final_a[g][k] - final_b[g][k]).abs().max().item()
+                 for g in ("model", "batch_stats") for k in final_a[g]}
+        worst = max(diffs, key=diffs.get)
+        check(diffs[worst] <= TRAINER_RESUME_TOL, f"resumed online run differs: {worst} by "
+              f"{diffs[worst]} > {TRAINER_RESUME_TOL}")
+        check(final_a["data_state"] == final_b["data_state"], "data-iterator states differ")
+        losses_b = [r["train_loss"] for r in _read_metrics(run_b) if "train_loss" in r]
+
+        # (4) NaN triage on the card
+        tr = Trainer(config, log_dir=str(tmp / "nan"), enable_tb=False, debug_nans=True,
+                     train_loader=_PoisonedLoader(online(), NAN_BATCH))
+        res = tr.fit(max_steps=NAN_BATCH + 4, validate_at_epoch_start=False)
+        tr.close()
+        check(res.get("exploded") is True and res["step"] == NAN_BATCH + 1,
+              f"debug_nans run: {({k: v for k, v in res.items() if k != 'nan_report'})}")
+        first_line = res["nan_report"].splitlines()[0]
+        check(re.match(r"nan or inf in the output of \S+", first_line) is not None,
+              f"the NaN report names no op: {first_line}")
+    trainer_p50 = REPORTS.get("trainer", {}).get("run", {}).get("step_ms_p50")
+    report["run"] = {
+        "launches": launches, "launches_per_step": step_launches, "losses": losses,
+        "step_ms_p50": p50, "step_ms_p75": p75, "trainer_phase_step_ms_p50": trainer_p50,
+        "wall_seconds": wall, "data_wait_share_of_fit": wall["data"] / wall["fit"]}
+    report["resume"] = {
+        "from_step": ONLINE_CKPT_EVERY, "max_abs_diff": diffs[worst], "worst": worst,
+        "same_bits": all(torch.equal(final_a[g][k], final_b[g][k])
+                         for g in ("model", "batch_stats") for k in final_a[g]),
+        "same_losses_after_resume": losses_b == losses[ONLINE_CKPT_EVERY:]}
+    report["debug_nans"] = {"step": res["step"], "report_first_line": first_line}
+    emit("trainer online", device=torch.cuda.get_device_name(0), **report)
+    return launches
+
+
 def _route_env(route: str):
     """The environment of a conv route: "unfused" (library convs), "pallas_conv"
     (`VOICESPLIT_PALLAS_CONV=1`) or "fused_chain" (`VOICESPLIT_FUSED_CHAIN=1`)."""
@@ -2276,7 +2713,7 @@ def profile(torch, out_dir, tag, fn, runs: int = 5) -> dict:
 
 PHASES = ("kernels", "bwd_kernels", "separate", "train", "conv_kernels", "train_fused",
           "dilated_kernels", "separate_dilated", "trainer", "separate_wide", "train_wide",
-          "evaluate")
+          "evaluate", "preprocess", "trainer_online")
 
 
 def main(argv=None) -> int:
@@ -2338,6 +2775,13 @@ def main(argv=None) -> int:
             (tmp / "evaluate").mkdir()
             by_path["evaluate"] = phase_evaluate(
                 torch, lstm_cuda, args.seed, tmp / "evaluate", run, run_config)
+    with tempfile.TemporaryDirectory(prefix="voicesplit_corpus_") as corpus_tmp:
+        if "preprocess" in phases:
+            by_path["preprocess"] = phase_preprocess(
+                torch, lstm_cuda, conv_cuda, args.seed, Path(corpus_tmp))
+        if "trainer_online" in phases:
+            by_path["trainer_online"] = phase_trainer_online(
+                torch, lstm_cuda, args.seed, args.profile, Path(corpus_tmp))
     emit("total", wall_seconds=time.perf_counter() - t_start, phases=phases)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

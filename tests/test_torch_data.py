@@ -196,8 +196,12 @@ def test_loader_factories_match_jax(factory, data_dir):
 
 
 def test_make_train_iterator_is_the_python_iterator(data_dir):
+    """`prefer_native=False` names the Python iterator (the native one is
+    `test_torch_native_loader.py`'s)."""
+    from voicesplit_tpu_torch.data.native_loader import make_train_iterator
+
     _, (_, _, tset) = _datasets(data_dir)
-    it = tds.make_train_iterator(tset, 2, seed=11, shard_id=0, num_shards=1)
+    it = make_train_iterator(tset, 2, prefer_native=False, seed=11, shard_id=0, num_shards=1)
     assert type(it) is tds.BatchIterator
     _assert_same_batch(next(it), next(tds.BatchIterator(tset, **ITERATORS["shuffled"])))
 

@@ -999,3 +999,170 @@ def test_wide_separate_runs_through_the_grid_route_on_card():
         finally:
             lstm_cuda._launch_lstm_fwd = saved
     assert (mask - mask_plain).abs().max().item() <= chip_smoke.WIDE_SEPARATE_TOL
+
+
+class _RaisingPlainVersions:
+    """Makes the LSTM's plain versions raise while active: a card run that
+    reaches one fails."""
+
+    NAMES = ("lstm_fwd_ref", "bilstm_fwd_ref", "lstm_bwd_ref", "bilstm_bwd_ref")
+
+    def __enter__(self):
+        from voicesplit_tpu_torch.ops import lstm_cuda
+
+        self.saved = {n: getattr(lstm_cuda, n) for n in self.NAMES}
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("a plain LSTM version ran on the card's path")
+
+        for n in self.NAMES:
+            setattr(lstm_cuda, n, refuse)
+
+    def __exit__(self, *exc):
+        from voicesplit_tpu_torch.ops import lstm_cuda
+
+        for n, fn in self.saved.items():
+            setattr(lstm_cuda, n, fn)
+
+
+def _card_batch(batch, seed=0, n=48000):
+    rng = np.random.default_rng(seed)
+    target = (0.1 * rng.standard_normal((batch, n))).astype(np.float32)
+    return {"mixed_wav": target + (0.1 * rng.standard_normal((batch, n))).astype(np.float32),
+            "target_wav": target, "emb": rng.standard_normal((batch, 256)).astype(np.float32),
+            "wav_len": np.full((batch,), n, np.int32)}
+
+
+@pytest.mark.gpu
+def test_regularized_train_step_on_card():
+    """Full-width train step (bf16, B=2) with dropout 0.3 and SpecAugment
+    (24 frames, 40 bins): the LSTM kernels launch as without them and no
+    plain version runs; the step's draws (both dropout masks, the bands)
+    are the same bits twice at one step and other bits at the next; the
+    keep share is within 0.01 of 0.7; the loss is finite."""
+    _need_card()
+    from voicesplit_tpu_torch import weights
+    from voicesplit_tpu_torch.dsp import augment
+    from voicesplit_tpu_torch.ops import lstm_cuda
+    from voicesplit_tpu_torch.train import create_train_state, make_optimizer, make_train_step
+    from voicesplit_tpu_torch.train import steps as steps_mod
+
+    cfg = load_config(str(REPO / "configs" / "voicesplit.json"))
+    cfg.model.dropout = 0.3
+    cfg.train_config.spec_aug_time, cfg.train_config.spec_aug_freq = 24, 40
+    ap = make_audio_processor(cfg)
+    model = weights.init_random_(make_masknet(cfg), seed=0)
+    opt = make_optimizer(cfg, model)
+    state = create_train_state(model, opt)
+    step = make_train_step(cfg, model, ap, opt)
+    draws, real_draw = [], model.draw_dropout_keep
+
+    def keep(shape, keep_prob, generator):
+        k = real_draw(shape, keep_prob, generator)
+        assert k.device.type == "cuda"
+        draws.append(k.clone())
+        return k
+
+    def mask(spec, generator, *limits):
+        bands = augment.draw_spec_bands(generator, spec.shape, *limits)
+        draws.append(torch.cat([t for pair in bands.values() for t in pair], dim=1))
+        return augment.apply_spec_bands(spec, bands)
+
+    model.draw_dropout_keep = keep
+    saved_mask, steps_mod.spec_time_freq_mask = steps_mod.spec_time_freq_mask, mask
+    try:
+        with _RaisingPlainVersions():
+            lstm_cuda.reset_launch_counts()
+            m = step(state, _card_batch(2))
+            torch.cuda.synchronize()
+            assert lstm_cuda.LAUNCHES == {"lstm_fwd": 2, "bilstm_fwd": 0, "lstm_bwd": 2,
+                                          "bilstm_bwd": 0}
+            state.step = 0  # the same step's draws again, then the next step's
+            step(state, _card_batch(2))
+            step(state, _card_batch(2))
+    finally:
+        steps_mod.spec_time_freq_mask = saved_mask
+    assert np.isfinite(float(m["loss"])) and not bool(m["loss_exploded"])
+    first, again, after = draws[:3], draws[3:6], draws[6:]
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert not any(torch.equal(a, b) for a, b in zip(first, after))
+    bands, drop = first[0], first[1:]
+    assert int(bands[:, 2:4].max()) <= 24 and int(bands[:, 6:8].max()) <= 40
+    share = sum(int(k.sum()) for k in drop) / sum(k.numel() for k in drop)
+    assert abs(share - 0.7) <= 0.01
+
+
+@pytest.mark.gpu
+def test_native_loader_feeds_a_card_step(tmp_path):
+    """Synthetic 3 s triplets through the native loader, placed on the card
+    as the trainer places them, into one full-width train step through the
+    kernels."""
+    _need_card()
+    from voicesplit_tpu_torch import weights
+    from voicesplit_tpu_torch.data.dataset import SeparationDataset, discover_samples
+    from voicesplit_tpu_torch.data.native_loader import NativeBatchIterator
+    from voicesplit_tpu_torch.data.prefetch import to_device
+    from voicesplit_tpu_torch.data.synthetic import build_synthetic_dataset
+    from voicesplit_tpu_torch.ops import lstm_cuda
+    from voicesplit_tpu_torch.train import create_train_state, make_optimizer, make_train_step
+
+    cfg = load_config(str(REPO / "configs" / "voicesplit.json"))
+    build_synthetic_dataset(str(tmp_path), 4, fmt=cfg.dataset.format, seed=0)
+    ap = make_audio_processor(cfg)
+    ds = SeparationDataset(discover_samples(str(tmp_path), cfg.dataset.format), ap,
+                           cfg.audio.audio_len)
+    it = NativeBatchIterator(ds, 2, seed=1, n_threads=2)
+    batch = to_device(next(it), ap.device)
+    it.close()
+    assert batch["mixed_wav"].device.type == "cuda" and batch["mixed_wav"].shape == (2, 48000)
+    model = weights.init_random_(make_masknet(cfg), seed=0)
+    opt = make_optimizer(cfg, model)
+    lstm_cuda.reset_launch_counts()
+    m = make_train_step(cfg, model, ap, opt)(create_train_state(model, opt), batch)
+    torch.cuda.synchronize()
+    assert lstm_cuda.LAUNCHES == {"lstm_fwd": 2, "bilstm_fwd": 0, "lstm_bwd": 2, "bilstm_bwd": 0}
+    assert np.isfinite(float(m["loss"]))
+
+
+@pytest.mark.gpu
+def test_debug_nans_names_an_op_on_card(tmp_path):
+    """`Trainer(debug_nans=True)` on the card, a NaN in batch 2: caught at
+    step 3, the report names the op that met it first."""
+    _need_card()
+    from voicesplit_tpu_torch.data.dataset import IteratorState
+    from voicesplit_tpu_torch.data.synthetic import build_synthetic_dataset
+    from voicesplit_tpu_torch.train.trainer import Trainer
+
+    class Poisoned:
+        count = 0
+
+        def batches_per_epoch(self):
+            return 100
+
+        @property
+        def state(self):
+            return IteratorState()
+
+        def load_state(self, state):
+            pass
+
+        def __iter__(self):
+            return self
+
+        def __next__(self):
+            b = _card_batch(2, seed=self.count)
+            if self.count == 2:
+                b["mixed_wav"][0, 7] = np.nan
+            self.count += 1
+            return b
+
+    cfg = load_config(str(REPO / "configs" / "voicesplit.json"))
+    build_synthetic_dataset(str(tmp_path / "test"), 1, fmt=cfg.dataset.format, seed=0)
+    cfg.dataset.test_dir = str(tmp_path / "test")
+    tr = Trainer(cfg, log_dir=str(tmp_path / "logs"), train_loader=Poisoned(), enable_tb=False,
+                 debug_nans=True)
+    res = tr.fit(max_steps=6, validate_at_epoch_start=False)
+    tr.close()
+    assert res["exploded"] is True and res["step"] == 3
+    first = res["nan_report"].splitlines()[0]
+    assert first.startswith("nan or inf in the output of "), first

@@ -142,20 +142,6 @@ def test_masknet_train_mode_grads_and_running_stats_match_jax(activation, batch)
             np.testing.assert_allclose(v.numpy(), want_sd[k].numpy(), atol=1e-6, err_msg=k)
 
 
-def test_dropout_and_spec_augment_are_not_ported_yet():
-    """Both act only in training, so only the train step refuses them."""
-    cfg = load_config_from_str(_config_text("float32", "si_snr", "voicesplit"))
-    cfg.model.dropout = 0.1
-    model = make_masknet(cfg, device="cpu")
-    ap = make_audio_processor(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="dropout"):
-        make_train_step(cfg, model, ap, make_optimizer(cfg, model))
-    cfg.model.dropout = 0.0
-    cfg.train_config.spec_aug_time = 4
-    with pytest.raises(NotImplementedError, match="SpecAugment"):
-        make_train_step(cfg, model, ap, make_optimizer(cfg, model))
-
-
 def test_dropout_config_serves_in_eval_mode():
     """A model trained with dropout is served as the JAX package serves it
     (dropout off in eval mode): `separate_batch` against the JAX model's
@@ -326,10 +312,15 @@ def test_train_step_matches_jax(case):
     before = {k: v.clone() for k, v in pair.model.state_dict().items()}
     jstate, jm = pair.jax_step()(pair.jstate, batch)
     m = pair.port_step()(pair.state, batch)
+    assert_step_matches_jax(pair, before, jstate, jm, m, dtype == "float32")
+
+
+def assert_step_matches_jax(pair, before, jstate, jm, m, fp32):
+    """One step of each package from the same state, held at the
+    tolerances that `test_train_step_matches_jax` states."""
     assert pair.state.step == 1 and int(jstate.step) == 1
     assert not bool(m["loss_exploded"])
     want_sd, got_sd = pair.jax_state_dict(jstate), pair.model.state_dict()
-    fp32 = dtype == "float32"
     np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=1e-5 if fp32 else 5e-3)
     np.testing.assert_allclose(
         float(m["grad_norm"]), float(jm["grad_norm"]), rtol=1e-4 if fp32 else 5e-2

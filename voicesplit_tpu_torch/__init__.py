@@ -3,9 +3,11 @@
 The JAX package `voicesplit_tpu` stays the reference; this package imports
 nothing of it, nor JAX.  Ported so far: the serving path (spectrogram →
 eval-mode mask network → mixed-phase iSTFT); the training step (`train/`:
-train-mode mask network, losses, Adam) and the training entry point around
-it (`cli/train.py`, `train/trainer.py`, `train/checkpoint.py`, `data/`,
-`eval/`, `utils/logging.py`).  Every kernel that the JAX package wrote in
+train-mode mask network, losses, Adam, dropout and SpecAugment) and the
+training entry point around it (`cli/train.py`, `train/trainer.py`,
+`train/checkpoint.py`, `data/` with the native C++ loader and online
+mixing, `eval/`, `utils/logging.py`); offline preprocessing
+(`cli/preprocess.py`); evaluation (`cli/test.py`, `cli/sweep.py`).  Every kernel that the JAX package wrote in
 Pallas has a hand-written CUDA counterpart: the BiLSTM recurrence and its
 backward (`ops/lstm_cuda.py`, `csrc/lstm_fwd.cu`, `csrc/lstm_bwd.cu`), the
 training step's fused conv chain (``VOICESPLIT_FUSED_CHAIN=1``) with its

@@ -3,23 +3,30 @@ reference `train.py:140-163`).
 
     python -m voicesplit_tpu_torch.cli.train -c config.json \
         [--checkpoint_path checkpoint_<step>.pt] [--logs_path dir] \
-        [--max_steps N] [--eval_sdr] [--device cuda|cpu]
+        [--max_steps N] [--eval_sdr] [--online [--emb_mode pseudo|spectral] \
+        [--embeddings_dir DIR]] [--debug_nans] [--device cuda|cpu]
 
-Trains on the triplets under the config's ``dataset.train_dir``, validates on
-``dataset.test_dir``, and writes checkpoints, ``metrics.jsonl`` and a copy of
-the config into the logs directory.  ``--checkpoint_path`` resumes (full
-restore: weights, optimizer, step and the position in the data) or
-warm-starts (where shapes differ).  The device is the CUDA card unless
-``--device cpu`` is given.
+Trains on the triplets under the config's ``dataset.train_dir`` (read by the
+native loader), or with ``--online`` on 2-speaker mixtures made afresh each
+epoch from the speaker-per-directory corpus there (`data/online.py`; d-vectors
+from ``--embeddings_dir``'s ``<speaker>.npy``, else per ``--emb_mode``);
+validates on ``dataset.test_dir``, and writes checkpoints, ``metrics.jsonl``
+and a copy of the config into the logs directory.  ``--checkpoint_path``
+resumes (full restore: weights, optimizer, step and the position in the
+data) or warm-starts (where shapes differ).  ``--debug_nans`` checks the
+guard every step and names the first op with a non-finite output
+(`train/trainer.py`).  The device is the CUDA card unless ``--device cpu``
+is given.  Returns the result of ``fit()`` with ``wall_seconds`` and the
+train loader's class name.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+from glob import glob
 
-_NOT_PORTED = ("online", "embeddings_dir", "coordinator", "num_processes", "process_id",
-               "debug_nans")
+_NOT_PORTED = ("coordinator", "num_processes", "process_id")
 
 
 def main(argv=None):
@@ -37,6 +44,10 @@ def main(argv=None):
                         help="mix 2-speaker training batches on the fly from a "
                              "speaker-per-directory corpus at dataset.train_dir "
                              "instead of reading pre-mixed triplets")
+    parser.add_argument("--emb_mode", choices=["pseudo", "spectral"], default="pseudo",
+                        help="--online, for speakers without a precomputed embedding: "
+                             "pseudo = identity tokens, spectral = training-free "
+                             "signal-derived d-vectors of the reference utterance")
     parser.add_argument("--embeddings_dir", type=str, default=None,
                         help="with --online: <speaker>.npy d-vectors")
     parser.add_argument("--coordinator", type=str, default=None,
@@ -46,7 +57,9 @@ def main(argv=None):
     parser.add_argument("--process_id", type=int, default=None,
                         help="several processes: this one's index")
     parser.add_argument("--debug_nans", action="store_true",
-                        help="NaN-triage mode: name the first operation that gives a NaN")
+                        help="NaN-triage mode: check the explosion guard every step, keep "
+                             "the pre-step state, and on explosion re-run the failing step "
+                             "op by op to name the first op with a non-finite output")
     parser.add_argument("--device", type=str, default=None, help="cuda (default) or cpu")
     args = parser.parse_args(argv)
     for opt in _NOT_PORTED:
@@ -68,13 +81,36 @@ def main(argv=None):
     with open(os.path.join(config.train_config.logs_path, "config.json"), "w") as f:
         f.write(config.to_json())
 
-    trainer = Trainer(config, checkpoint_path=args.checkpoint_path, device=args.device)
+    train_loader = None
+    if args.online:
+        from voicesplit_tpu_torch.data.online import OnlineMixIterator, discover_utterances
+
+        embeddings = None
+        if args.embeddings_dir:
+            embeddings = {os.path.splitext(os.path.basename(p))[0]: p
+                          for p in glob(os.path.join(args.embeddings_dir, "*.npy"))}
+        active = config.audio.active
+        train_loader = OnlineMixIterator(
+            discover_utterances(config.dataset.train_dir),
+            config.train_config.batch_size,
+            sample_rate=active.sample_rate,
+            audio_len=config.audio.audio_len,
+            hop_length=active.hop_length,
+            emb_dim=config.model.emb_dim,
+            embeddings=embeddings,
+            emb_mode=args.emb_mode,
+            seed=config.train_config.seed,
+        )
+
+    trainer = Trainer(config, checkpoint_path=args.checkpoint_path, train_loader=train_loader,
+                      debug_nans=args.debug_nans, device=args.device)
     try:
         result = trainer.fit(max_steps=args.max_steps, compute_sdr_in_eval=args.eval_sdr)
     finally:
         trainer.close()
     print(f"done: {result}")
-    return {**result, "wall_seconds": dict(trainer.wall_seconds)}
+    return {**result, "wall_seconds": dict(trainer.wall_seconds),
+            "train_loader": type(trainer.train_loader).__name__}
 
 
 if __name__ == "__main__":

@@ -22,8 +22,7 @@ JAX package's changes:
 Reads ``.npy`` embeddings and the reference's torch ``.pt`` files; failed
 GE2E extractions saved as the scalar-``[0]`` sentinel are dropped at
 discovery (reference filters them at collate, `utils/dataset.py:94,127`).
-The JAX package's native C++ loader is not ported yet; `make_train_iterator`
-returns the Python iterator.
+The native C++ loader with the same schedule is `data/native_loader.py`.
 """
 
 from __future__ import annotations
@@ -293,10 +292,3 @@ def test_dataloader(config: Config, ap: AudioProcessor) -> BatchIterator:
         shuffle=False, seed=0, shard_id=0, num_shards=1,
         drop_last=False, pad_last=True,
     )
-
-
-def make_train_iterator(dataset: SeparationDataset, batch_size: int, **kwargs) -> BatchIterator:
-    """The training iterator over `dataset` (counterpart of
-    `voicesplit_tpu/data/native_loader.py::make_train_iterator`, whose
-    Python branch is the only one ported)."""
-    return BatchIterator(dataset, batch_size, **kwargs)

@@ -42,15 +42,21 @@ model cannot run both switches at once (the chain drives the folded blocks,
 which the Pallas switch turns off), so a train-mode forward with both set
 raises.
 
-Dropout acts only in train mode, so a config with ``dropout > 0`` builds
-and serves; its train step is not ported yet (`train.make_train_step`
-raises).  Not ported yet: causal convs and the streaming (unidirectional)
-model.
+Dropout (``dropout`` > 0) acts only in train mode, at the JAX model's two
+sites (`masknet.py:519, :526`): on the concatenated ``[B, T, 8F + emb]``
+input of the BiLSTM and on ``relu(lstm(x))`` before ``fc1``.  It is flax's
+arithmetic, ``where(keep, x / keep_prob, 0)`` in the compute dtype (the
+keep probability rounded to that dtype first, as JAX's weak-typed scalar
+is), with the keep mask drawn from the generator the train-mode forward is
+given (`forward(..., dropout_generator=g)`); without one it raises, as
+flax does without a ``dropout`` rng.  `draw_dropout_keep` draws the masks,
+one call per site in that order.  Not ported yet: causal convs and the
+streaming (unidirectional) model.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -164,9 +170,11 @@ class MaskNet(nn.Module):
         activation: str = "relu",
         num_extra_dilated_blocks: int = 0,
         compute_dtype=torch.float32,
+        dropout: float = 0.0,
     ):
         super().__init__()
         self.num_freq = num_freq
+        self.dropout = float(dropout)
         self.emb_dim = emb_dim
         self.conv_channels = conv_channels
         self.conv_out_channels = conv_out_channels
@@ -257,17 +265,38 @@ class MaskNet(nn.Module):
                 x = block(x)
         return x
 
-    def mask_head(self, features: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def draw_dropout_keep(self, shape, keep_prob: float,
+                          generator: torch.Generator) -> torch.Tensor:
+        """One dropout site's keep mask: bool, True with `keep_prob`."""
+        return torch.rand(shape, generator=generator, device=generator.device) < keep_prob
+
+    def _drop(self, x: torch.Tensor, generator) -> torch.Tensor:
+        if not self.training or self.dropout == 0.0:
+            return x
+        if self.dropout == 1.0:
+            return torch.zeros_like(x)
+        if generator is None:
+            raise ValueError(
+                f"a train-mode forward with dropout {self.dropout} needs a dropout_generator")
+        keep_prob = 1.0 - self.dropout
+        keep = self.draw_dropout_keep(tuple(x.shape), keep_prob, generator).to(x.device)
+        return torch.where(keep, x / torch.tensor(keep_prob, dtype=x.dtype), 0.0)
+
+    def mask_head(self, features: torch.Tensor, emb: torch.Tensor,
+                  dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         B, T, _ = features.shape
         cd = self.compute_dtype
         emb_t = emb.to(cd)[:, None, :].expand(B, T, self.emb_dim)
         x = torch.cat([features, emb_t], dim=-1)  # [B, T, 8F + emb]
+        x = self._drop(x, dropout_generator)
         x = torch.relu(self.lstm(x))  # post-LSTM ReLU of both reference models
+        x = self._drop(x, dropout_generator)
         x = torch.relu(self._dense(self.fc1, x))
         return torch.sigmoid(self._dense(self.fc2, x).float())  # fp32 [B, T, F]
 
-    def forward(self, spec: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        return self.mask_head(self.conv_features(spec), emb)
+    def forward(self, spec: torch.Tensor, emb: torch.Tensor,
+                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.mask_head(self.conv_features(spec), emb, dropout_generator)
 
 
 def make_masknet(config: Config, device: DeviceLike = None) -> MaskNet:
@@ -289,5 +318,6 @@ def make_masknet(config: Config, device: DeviceLike = None) -> MaskNet:
         activation="relu" if config.model_name == "voicefilter" else "mish",
         num_extra_dilated_blocks=m.num_extra_dilated_blocks,
         compute_dtype=getattr(torch, config.train_config.compute_dtype),
+        dropout=m.dropout,
     )
     return model.to(dev).eval()

@@ -77,10 +77,13 @@ def _payload(state: TrainState, config: Config, data_state: Optional[IteratorSta
     }
 
 
-def _write(payload: dict, path: str) -> None:
+def _write(payload: dict, path: str, keep: Optional[int]) -> None:
     tmp = path + ".tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)  # atomic — a preempted process never leaves a torn file
+    if keep:
+        for old in list_checkpoints(os.path.dirname(path))[:-keep]:
+            os.remove(old)
 
 
 def save_checkpoint(
@@ -88,12 +91,14 @@ def save_checkpoint(
     state: TrainState,
     config: Config,
     data_state: Optional[IteratorState] = None,
+    keep: Optional[int] = None,
 ) -> str:
-    """Write ``checkpoint_<step>.pt``."""
+    """Write ``checkpoint_<step>.pt``; with `keep`, remove all but the newest
+    `keep` checkpoints of `log_dir`."""
     os.makedirs(log_dir, exist_ok=True)
     payload = _payload(state, config, data_state)
     path = os.path.join(log_dir, CKPT_PATTERN % payload["step"])
-    _write(payload, path)
+    _write(payload, path, keep)
     return path
 
 
@@ -120,7 +125,10 @@ class AsyncCheckpointer:
         state: TrainState,
         config: Config,
         data_state: Optional[IteratorState] = None,
+        keep: Optional[int] = None,
     ) -> str:
+        """Start writing ``checkpoint_<step>.pt`` (pruning to the newest
+        `keep`, as `save_checkpoint`); returns its path."""
         self.wait()
         os.makedirs(log_dir, exist_ok=True)
         payload = _payload(state, config, data_state)
@@ -128,7 +136,7 @@ class AsyncCheckpointer:
 
         def _run():
             try:
-                _write(payload, path)
+                _write(payload, path, keep)
             except BaseException as e:  # surfaced on the next save/wait
                 self._error = e
 

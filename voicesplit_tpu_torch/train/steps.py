@@ -15,8 +15,17 @@ Loss paths (from the config, reference `train.py:74-79, 97-108`):
 A batch is a dict of ``mixed_wav [B, L]``, ``target_wav [B, L]``,
 ``emb [B, E]`` and ``wav_len [B]``, as numpy arrays or tensors; the steps
 move them to the audio processor's device.  Metrics are tensors on that
-device, so a step does not wait for the card.  SpecAugment and dropout
-are not ported yet and raise.
+device, so a step does not wait for the card.
+
+Train-time regularizers (off by default), as in the JAX step: SpecAugment
+(``spec_aug_time`` / ``spec_aug_freq``) corrupts the mask net's input and
+the mask multiplies the clean mixture spec; dropout (``model.dropout``)
+acts at the model's two sites.  Their generators are seeded from the step
+counter on the step's device, ``(0x5A, step)`` for SpecAugment and
+``(0xD0, step)`` for dropout, as the JAX step folds the step into
+``PRNGKey(0x5A)`` and ``PRNGKey(0xD0)``: a run is deterministic and a
+resumed run draws what the uninterrupted one would.  The bits are torch's,
+not JAX's streams.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import torch
 from torch import nn
 
 from voicesplit_tpu_torch.config import Config
+from voicesplit_tpu_torch.dsp.augment import spec_time_freq_mask
 from voicesplit_tpu_torch.dsp.processor import AudioProcessor
 from voicesplit_tpu_torch.losses import power_law_compressed_loss, si_snr, si_snr_with_pit
 from voicesplit_tpu_torch.train.state import (
@@ -63,12 +73,14 @@ def _loss_from_outputs(
     raise ValueError(f"unknown loss {config.loss.loss_name!r}")
 
 
-def _check_not_yet_ported(config: Config) -> None:
-    tc = config.train_config
-    if tc.spec_aug_time or tc.spec_aug_freq:
-        raise NotImplementedError("SpecAugment (spec_aug_time/freq) is not yet ported")
-    if config.model.dropout:
-        raise NotImplementedError("dropout is not yet ported")
+SPEC_AUG_SEED = 0x5A
+DROPOUT_SEED = 0xD0
+
+
+def step_generator(tag: int, step: int, device: torch.device) -> torch.Generator:
+    """A generator on `device` seeded from ``(tag, step)``; seeding reads no
+    device memory, so it costs no wait for the card."""
+    return torch.Generator(device=device).manual_seed((tag << 32) + int(step))
 
 
 def make_train_step(
@@ -83,8 +95,9 @@ def make_train_step(
     ``loss_exploded`` (non-finite or > 1e8, the reference's guard,
     `train.py:115-117`).
     """
-    _check_not_yet_ported(config)
     tc = config.train_config
+    sa_time, sa_freq, sa_n = tc.spec_aug_time, tc.spec_aug_freq, tc.spec_aug_n
+    dropout = config.model.dropout
     params = [p for p in model.parameters() if p.requires_grad]
 
     def train_step(state: TrainState, batch: Batch) -> Metrics:
@@ -95,7 +108,16 @@ def make_train_step(
         optimizer.zero_grad(set_to_none=True)
         mixed_spec, mixed_phase = ap.wav2spec_batch(b["mixed_wav"])
         target_spec, _ = ap.wav2spec_batch(b["target_wav"])
-        mask = model(mixed_spec, b["emb"])
+        net_in = mixed_spec
+        if sa_time or sa_freq:
+            net_in = spec_time_freq_mask(
+                mixed_spec, step_generator(SPEC_AUG_SEED, state.step, ap.device),
+                sa_time, sa_freq, sa_n,
+            )
+        drop_gen = step_generator(DROPOUT_SEED, state.step, ap.device) if dropout else None
+        mask = model(net_in, b["emb"], dropout_generator=drop_gen)
+        # the estimate multiplies the clean mixture spec: SpecAugment
+        # corrupts the mask net's input, not the signal path
         loss = _loss_from_outputs(
             config, ap, mask * mixed_spec, target_spec, mixed_phase, b["wav_len"]
         )

@@ -18,19 +18,37 @@ stop; the loop then checkpoints at the next step boundary and returns
 cleanly with ``{"preempted": True}``, so the replacement job resumes
 mid-epoch from the saved data-iterator state.
 
+The default train loader is the native C++ loader
+(`data/native_loader.py`, ``n_threads = max(2, num_workers)``), as in the
+JAX package; it raises where it cannot be built.
+
+NaN triage (``debug_nans=True``): the guard is checked every step and the
+pre-step model, optimizer and BatchNorm state is kept (a copy on the card,
+about 230 MB at full width); on explosion the failing step is re-run from
+that copy on the same device, the forward under `NanOpMode` (a
+``TorchFunctionMode`` that raises at the first torch function whose output
+is not finite) and the backward under
+``torch.autograd.detect_anomaly(check_nan=True)``; ``fit()`` returns the
+report under ``"nan_report"``.  The ctypes kernel wrappers are not torch
+functions, so a non-finite value out of a kernel is named at the first op
+after it.
+
 Not ported yet (each raises): a device mesh, ``model_parallel > 1``, several
-processes, ``debug_nans`` and the streaming (causal) model.
+processes and the streaming (causal) model.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import signal
 import threading
 import time
+import traceback
 from typing import Dict, Optional
 
 import torch
+from torch.overrides import TorchFunctionMode
 
 from voicesplit_tpu_torch.config import Config
 from voicesplit_tpu_torch.data.dataset import (
@@ -38,8 +56,8 @@ from voicesplit_tpu_torch.data.dataset import (
     SeparationDataset,
     discover_samples,
     eval_dataloader,
-    make_train_iterator,
 )
+from voicesplit_tpu_torch.data.native_loader import make_train_iterator
 from voicesplit_tpu_torch.data.prefetch import DevicePrefetcher, to_device
 from voicesplit_tpu_torch.device import DeviceLike
 from voicesplit_tpu_torch.dsp.processor import AudioProcessor, make_audio_processor
@@ -49,6 +67,7 @@ from voicesplit_tpu_torch.train.checkpoint import (
     AsyncCheckpointer,
     load_checkpoint,
     restore_train_state,
+    save_checkpoint,
 )
 from voicesplit_tpu_torch.train.state import TrainState, create_train_state, make_optimizer
 from voicesplit_tpu_torch.train.steps import make_eval_step, make_train_step
@@ -57,6 +76,44 @@ from voicesplit_tpu_torch.weights import init_for_training_
 
 # what fit() spends its wall time on, by the host's clock (see `Trainer.wall_seconds`)
 _WALL_KEYS = ("data", "train_step", "check", "checkpoint", "validation")
+
+
+def _tensors(tree):
+    if torch.is_tensor(tree):
+        yield tree
+    elif isinstance(tree, (list, tuple)):
+        for t in tree:
+            yield from _tensors(t)
+    elif isinstance(tree, dict):
+        for t in tree.values():
+            yield from _tensors(t)
+
+
+class NanOpMode(TorchFunctionMode):
+    """Raises FloatingPointError at the first torch function whose output
+    holds a non-finite float.  An output that is one of its inputs (an
+    in-place update, ``as_tensor`` of a tensor) and an attribute read (e.g.
+    ``.grad``) are no new values and are skipped.  Every op waits for the
+    device: a triage mode."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if getattr(func, "__name__", None) == "__get__":
+            return out
+        inputs = list(_tensors((args, kwargs)))
+        for t in _tensors(out):
+            if not t.is_floating_point() or any(t is i for i in inputs):
+                continue
+            if not bool(torch.isfinite(t).all()):
+                seen = "an input was already non-finite" if any(
+                    i.is_floating_point() and not bool(torch.isfinite(i).all()) for i in inputs
+                ) else "every input was finite"
+                name = getattr(func, "__qualname__", None) or getattr(func, "__name__", str(func))
+                raise FloatingPointError(
+                    f"nan or inf in the output of {name} (shape {tuple(t.shape)}, "
+                    f"{t.dtype}; {seen})")
+        return out
 
 
 class Trainer:
@@ -73,12 +130,11 @@ class Trainer:
         prefetch_depth: int = 2,
         debug_nans: bool = False,
         streaming: Optional[bool] = None,
+        async_checkpoint: bool = True,
         device: DeviceLike = None,
     ):
         if mesh is not None or model_parallel > 1:
             raise NotImplementedError("a device mesh and model_parallel > 1 are not yet ported")
-        if debug_nans:
-            raise NotImplementedError("debug_nans is not yet ported")
         if streaming or (streaming is None and config.model.causal):
             raise NotImplementedError("the streaming (causal) model is not yet ported")
         if torch.distributed.is_available() and torch.distributed.is_initialized():
@@ -96,7 +152,7 @@ class Trainer:
             ds = SeparationDataset(samples, self.ap, config.audio.audio_len, config.model.emb_dim)
             train_loader = make_train_iterator(
                 ds, config.train_config.batch_size, seed=config.train_config.seed,
-                shard_id=0, num_shards=1,
+                shard_id=0, num_shards=1, n_threads=max(2, config.train_config.num_workers),
             )
         self.train_loader = train_loader
         self.eval_loader = eval_loader or eval_dataloader(config, self.ap)
@@ -132,7 +188,8 @@ class Trainer:
         # fit() so checkpoint restore above can rewind the loader before
         # readahead starts
         self._preempt_requested = False
-        self._ckpt_writer = AsyncCheckpointer()
+        self._ckpt_writer = AsyncCheckpointer() if async_checkpoint else None
+        self.debug_nans = debug_nans
         # host-clock seconds of the last fit() by what the loop was doing;
         # "train_step" is the time to enqueue the steps and "check" the wait
         # for the card when the guard reads the metrics, so with
@@ -181,13 +238,48 @@ class Trainer:
         data_state = (
             self._prefetch.state if self._prefetch is not None else self.train_loader.state
         )
-        # serialization + disk write overlap the next train steps;
-        # fit() flushes the writer before returning
-        path = self._ckpt_writer.save(self.log_dir, self.state, self.config, data_state)
+        if self._ckpt_writer is not None:
+            # serialization + disk write overlap the next train steps;
+            # fit() flushes the writer before returning
+            path = self._ckpt_writer.save(self.log_dir, self.state, self.config, data_state)
+        else:
+            path = save_checkpoint(self.log_dir, self.state, self.config, data_state)
         print(f"Saved checkpoint to: {path}")
         self.wall_seconds["checkpoint"] += time.perf_counter() - t0
         if run_eval:
             self._validate(step, compute_sdr, max_eval_items)
+
+    def _pre_step_copy(self):
+        """The step counter, model (parameters and BatchNorm statistics) and
+        optimizer state, copied on their device."""
+        st = self.state
+        return (st.step, {k: v.detach().clone() for k, v in st.model.state_dict().items()},
+                copy.deepcopy(st.optimizer.state_dict()))
+
+    def _locate_nan(self, pre_step, batch) -> str:
+        """Re-run the failing step from the pre-step copy: the forward under
+        `NanOpMode`, the backward under autograd's anomaly mode; returns a
+        report naming the first op with a non-finite output, with the
+        traceback."""
+        print(" > debug_nans: re-running the failing step op by op...")
+        st = self.state
+        st.step, model_sd, opt_sd = pre_step
+        st.model.load_state_dict(model_sd)
+        st.optimizer.load_state_dict(opt_sd)
+        st.optimizer.zero_grad(set_to_none=True)  # the failed step's gradients
+        try:
+            with torch.autograd.detect_anomaly(check_nan=True), NanOpMode():
+                self.train_step(st, batch)
+        except (FloatingPointError, RuntimeError) as e:
+            tb = traceback.format_exc()
+            print(tb)
+            bad = [k for k, v in batch.items()
+                   if torch.is_floating_point(torch.as_tensor(v))
+                   and not bool(torch.isfinite(torch.as_tensor(v)).all())]
+            note = f"the batch's {', '.join(bad)} hold non-finite values\n" if bad else ""
+            return f"{e}\n{note}{tb}"
+        return ("no non-finite value reproduced: the loss exceeded the guard's threshold "
+                "without a non-finite intermediate")
 
     def _validate(self, step: int, compute_sdr: bool, max_eval_items) -> None:
         t0 = time.perf_counter()
@@ -230,6 +322,7 @@ class Trainer:
                     else:
                         batch = self._put(next(self.train_loader))
                     t1 = time.perf_counter()
+                    pre_step = self._pre_step_copy() if self.debug_nans else None
                     metrics = self.train_step(self.state, batch)
                     t2 = time.perf_counter()
                     wall["data"] += t1 - t0
@@ -239,15 +332,19 @@ class Trainer:
 
                     # The guard rides its own cadence (check_interval) so a
                     # large summary_interval cannot delay explosion detection.
+                    check_every = 1 if self.debug_nans else max(1, c.check_interval)
                     do_summary = step % c.summary_interval == 0
-                    do_check = do_summary or step % max(1, c.check_interval) == 0
+                    do_check = do_summary or step % check_every == 0
                     if do_check:
                         loss = float(metrics["loss"])  # waits for the card
                         exploded = bool(metrics["loss_exploded"])
                         wall["check"] += time.perf_counter() - t2
                         if exploded:
                             print(f"Loss exploded to {loss:.2f} at step {step}!")
-                            return {"loss": loss, "exploded": True, "step": step}
+                            out = {"loss": loss, "exploded": True, "step": step}
+                            if self.debug_nans:
+                                out["nan_report"] = self._locate_nan(pre_step, batch)
+                            return out
                     if do_summary:
                         now = time.perf_counter()
                         tput = self._audio_seconds_per_batch * steps_in_window / max(
@@ -292,15 +389,20 @@ class Trainer:
             # a graceful exit (preemption included) must not drop an
             # in-flight checkpoint write
             t0 = time.perf_counter()
-            self._ckpt_writer.wait()
+            if self._ckpt_writer is not None:
+                self._ckpt_writer.wait()
             wall["checkpoint"] += time.perf_counter() - t0
             wall["fit"] = time.perf_counter() - t_fit
             for signum, handler in restore_handlers:
                 signal.signal(signum, handler)
 
     def close(self) -> None:
-        """Stop the prefetch thread and close the log files."""
+        """Stop the prefetch thread and the loader's threads, and close the
+        log files."""
         if self._prefetch is not None:
             self._prefetch.close()
             self._prefetch = None
+        close_loader = getattr(self.train_loader, "close", None)
+        if close_loader is not None:
+            close_loader()
         self.logger.close()

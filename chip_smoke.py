@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch port's serving and training paths, its
-training, preprocessing and evaluation entry points, at
+training, preprocessing and evaluation entry points, streaming separation and
+Griffin-Lim, at
 `configs/voicesplit.json` and at the wide `configs/voicesplit_wide.json`
 (NVIDIA H100).
 
@@ -159,6 +160,32 @@ Phases, each printing one JSON line:
    must stop one step later with a report naming an op.  Prints step p50 /
    p75 beside the trainer phase's, the data-wait share and, under
    ``--profile``, the regularizers' device time.
+16. dsp — Griffin-Lim and the other audio backends: `cli.separate.main
+   --griffin_lim` on a 3 s clip (the config's 60 rounds), Griffin-Lim on the
+   card against the same call on the CPU from the same angles
+   (GRIFFIN_LIM_CARD_TOL), its spectral convergence after the first and the
+   last round (no worse), and the wavernn and waveglow processors' (linear
+   and mel) ``wav2spec_batch`` → ``spec2wav_batch`` against the CPU
+   (BACKEND_ROUNDTRIP_TOL of the waveform's peak).  Prints Griffin-Lim's
+   seconds a call.
+17. streaming — `streaming.StreamingSeparator` at full width in bf16, chunks
+   of STREAM_CHUNK frames (STREAM_CASES): the causal model at B=1 and B=8,
+   the symmetric one with ``VOICESPLIT_PALLAS_CONV=1`` and without, each a
+   counted 3 s stream with exact launches a chunk (``lstm_fwd`` 1 on the
+   cluster walk, and 6 ``conv_dilated_fwd`` with the switch; no conv kernel
+   for a causal model), the algorithmic latency (STREAM_LATENCY), the same
+   stream through the plain versions (WIDE_SEPARATE_TOL), the per-chunk
+   p50 / p75 of STREAM_TIMED_CHUNKS chunks, the real-time factor and
+   audio-seconds a second; the causal B=1 stream's output before a
+   perturbation of its input unchanged; chunk 50 against 25 in fp32
+   (STREAM_INVARIANCE_TOL) and, measured, in bf16.
+18. train streaming — the causal config's streaming model at B=2 with
+   ``VOICESPLIT_PALLAS_CONV=1``: one counted step (``lstm_fwd`` 1,
+   ``lstm_bwd`` 1, no conv kernel), every parameter moved, against the
+   plain LSTM versions (TRAIN_TOL), timed steps, peak memory; `cli.train.main`
+   for STREAM_TRAIN_STEPS steps with checkpoints; a random BiLSTM checkpoint
+   through `cli.convert_streaming.main`, served by `cli.separate.main
+   --streaming`: the same bits as `StreamingSeparator.separate`.
 
 Then a ``{"kernels": [...]}`` line (each kernel's ``main_path``: false for
 the routes no path takes, OFF_PATH, launched only in the kernels phases),
@@ -172,8 +199,8 @@ trace of the serving runs and the train steps into DIR and reports the
 device's idle share under the profiler and the device time by kind of
 kernel.  ``--phases`` runs a subset (of kernels, bwd_kernels, separate,
 train, conv_kernels, train_fused, dilated_kernels, separate_dilated,
-trainer, separate_wide, train_wide, evaluate, preprocess, trainer_online;
-device and build always run)
+trainer, separate_wide, train_wide, evaluate, preprocess, trainer_online, dsp,
+streaming, train_streaming; device and build always run)
 and ends with a line marked
 ``"partial"`` instead of the result lines.
 """
@@ -373,6 +400,30 @@ ONLINE_DROPOUT, ONLINE_SPEC_AUG = 0.3, (24, 40)
 ONLINE_STEPS, ONLINE_CKPT_EVERY = 12, 6
 KEEP_SHARE_TOL = 0.01  # dropout's keep share against 1 - rate
 NAN_BATCH = 2  # the debug_nans run's loader poisons this batch (0-based)
+# the dsp phase: Griffin-Lim on the card against the CPU from the same angles
+# after the config's 60 rounds (peak-relative), and the wavernn / waveglow
+# processors' analysis and synthesis (peak-relative, the issue's bound)
+GRIFFIN_LIM_CARD_TOL = 1e-3
+BACKEND_ROUNDTRIP_TOL = 1e-4
+GRIFFIN_LIM_CALLS = 5
+# the streaming phase: chunk, cases (causal, batch, VOICESPLIT_PALLAS_CONV),
+# launches a chunk by switch, algorithmic latency by causal (samples)
+STREAM_CHUNK = 50
+STREAM_CASES = {"causal_B1": (True, 1, "0"), "symmetric_switch_B1": (False, 1, "1"),
+                "symmetric_B1": (False, 1, "0"), "causal_B8": (True, 8, "0")}
+STREAM_LAUNCHES = {"0": {"lstm_fwd": 1}, "1": {"lstm_fwd": 1, "conv_dilated_fwd": 6}}
+STREAM_LATENCY = {True: 1040, False: 11440}
+STREAM_WARM_CHUNKS, STREAM_TIMED_CHUNKS = 4, 48
+# chunk 50 against chunk 25 in fp32 compute: tests/test_streaming.py:54's bound
+STREAM_INVARIANCE_TOL = 2e-4
+# the causal stream's output before a perturbation of its input at this
+# sample (mid-chunk) against the unperturbed stream, relative to its peak
+STREAM_PERTURB_AT, STREAM_CAUSAL_TOL = 35000, 1e-6
+# the train_streaming phase
+STREAM_TRAIN_LAUNCHES = {"lstm_fwd": 1, "lstm_bwd": 1}
+STREAM_TRAIN_TIMED = 12
+STREAM_TRAIN_STEPS, STREAM_TRAIN_CKPT_EVERY = 8, 4
+STREAM_TRAIN_ITEMS, STREAM_EVAL_ITEMS = 16, 2
 REPLACES = {
     "lstm_fwd": "voicesplit_tpu/ops/lstm_pallas.py:71",
     "lstm_fwd_grid": "voicesplit_tpu/ops/lstm_pallas.py:71",
@@ -2643,6 +2694,388 @@ def phase_evaluate(torch, lstm_cuda, seed: int, tmp: Path, run, config) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The remaining DSP, streaming separation and the streaming model's training
+# ---------------------------------------------------------------------------
+
+
+def phase_dsp(torch, lstm_cuda, seed: int, tmp: Path) -> dict:
+    """Griffin-Lim and the wavernn / waveglow processors on the card: the
+    serving CLI with ``--griffin_lim`` (the config's 60 rounds), Griffin-Lim
+    against the same call on the CPU from the same angles, its spectral
+    convergence after the first and the last round, and each backend's
+    ``wav2spec_batch`` → ``spec2wav_batch`` against the CPU."""
+    from voicesplit_tpu_torch import weights
+    from voicesplit_tpu_torch.cli.separate import main as separate_main
+    from voicesplit_tpu_torch.config import AudioConfig, load_config
+    from voicesplit_tpu_torch.dsp.griffin_lim import griffin_lim, griffin_lim_angles
+    from voicesplit_tpu_torch.dsp.processor import AudioProcessor, make_audio_processor
+    from voicesplit_tpu_torch.dsp.stft import stft_magphase
+    from voicesplit_tpu_torch.models.masknet import make_masknet
+
+    config = load_config(str(ROOT / "configs" / "voicesplit.json"))
+    ap = make_audio_processor(config)
+    ap_cpu = make_audio_processor(config, device="cpu")
+    sr, n = ap.sample_rate, int(config.audio.audio_len * ap.sample_rate)
+    wav, emb = synthetic_batch(seed + 21, 1, n, sr, config.model.emb_dim)
+    report = {"config": "configs/voicesplit.json", "griffin_lim_iters": ap.griffin_lim_iters,
+              "tolerance_card_vs_cpu": GRIFFIN_LIM_CARD_TOL,
+              "backend_tolerance_card_vs_cpu": BACKEND_ROUNDTRIP_TOL}
+
+    # the serving CLI with Griffin-Lim phase estimation
+    weights.save(weights.init_random_(make_masknet(config), seed), str(tmp / "w.pt"))
+    ap.save_wav(wav[0], str(tmp / "mix.wav"))
+    np.save(tmp / "emb.npy", emb[0])
+    _reset_counts(torch, lstm_cuda)
+    t0 = time.perf_counter()
+    separate_main(["-c", str(ROOT / "configs" / "voicesplit.json"), "--weights", str(tmp / "w.pt"),
+                   "--mixed_wav", str(tmp / "mix.wav"), "--emb", str(tmp / "emb.npy"),
+                   "--output", str(tmp / "gl.wav"), "--griffin_lim"])
+    cli_s = time.perf_counter() - t0
+    launches = _counts(torch, lstm_cuda)
+    check(launches == {**{k: 0 for k in launches}, "lstm_fwd": 2}, f"CLI launches {launches}")
+    launches = _check_routes(lstm_cuda, launches, "dsp: separate --griffin_lim")
+    out = ap.load_wav(str(tmp / "gl.wav"))
+    check(out.shape == (n,) and bool(np.isfinite(out).all()), f"CLI output {out.shape}")
+    report["cli_griffin_lim"] = {"seconds": cli_s, "samples": int(out.shape[0]),
+                                 "launches": launches}
+
+    # Griffin-Lim on the card against the CPU from the same angles
+    mixed = torch.as_tensor(wav, device=ap.device)
+    mag = stft_magphase(mixed, ap.n_fft, ap.hop_length, ap.win_length)[0] ** ap.power
+    angles = griffin_lim_angles(mag.shape, torch.Generator().manual_seed(seed))
+    times = []
+    for _ in range(GRIFFIN_LIM_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y_card = ap.griffin_lim_batch(mag, angles=angles)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    y_cpu = ap_cpu.griffin_lim_batch(mag.cpu(), angles=angles)
+    gl_err = _peak_rel(y_card.cpu(), y_cpu)
+    check(bool(torch.isfinite(y_card).all()) and tuple(y_card.shape) == (1, n), "Griffin-Lim output")
+    check(gl_err <= GRIFFIN_LIM_CARD_TOL, f"Griffin-Lim card vs CPU {gl_err} > {GRIFFIN_LIM_CARD_TOL}")
+
+    def convergence(rounds: int) -> float:
+        y = griffin_lim(mag, ap.n_fft, ap.hop_length, ap.win_length, rounds, angles=angles)
+        got = stft_magphase(y, ap.n_fft, ap.hop_length, ap.win_length)[0]
+        return float(torch.linalg.vector_norm(got - mag) / torch.linalg.vector_norm(mag))
+
+    sc_first, sc_last = convergence(1), convergence(ap.griffin_lim_iters)
+    check(sc_last <= sc_first, f"spectral convergence {sc_first} after 1 round, {sc_last} after last")
+    report["griffin_lim"] = {
+        "shape": list(mag.shape), "calls": GRIFFIN_LIM_CALLS,
+        "seconds_p50": float(np.median(times)), "seconds_all": times,
+        "card_vs_cpu_peak_rel": gl_err,
+        "spectral_convergence_first_round": sc_first, "spectral_convergence_last_round": sc_last}
+
+    # the wavernn and waveglow processors, linear and mel
+    backends = {}
+    for backend in ("wavernn", "waveglow"):
+        for mel_spec in (False, True):
+            cfg = AudioConfig(backend=backend, mel_spec=mel_spec)
+            on_card, on_cpu = AudioProcessor(cfg), AudioProcessor(cfg, device="cpu")
+            y = synthetic_batch(seed + 22, 1, int(config.audio.audio_len * on_card.sample_rate),
+                                on_card.sample_rate, config.model.emb_dim)[0]
+            rec = {}
+            for name, p in (("card", on_card), ("cpu", on_cpu)):
+                spec, phase = p.wav2spec_batch(torch.as_tensor(y, device=p.device))
+                rec[name] = (spec.cpu(), p.spec2wav_batch(spec, phase).cpu())
+            # the spectrogram's difference is reported, not held: a quiet bin's
+            # dB or ln carries its sum's relative round-off (1.3e-4 wavernn,
+            # 1.8e-3 waveglow on an H100); the waveform is what is held
+            spec_err = float((rec["card"][0] - rec["cpu"][0]).abs().max())
+            wav_err = _peak_rel(rec["card"][1], rec["cpu"][1])
+            key = f"{backend}{'_mel' if mel_spec else ''}"
+            check(bool(torch.isfinite(rec["card"][1]).all()), f"{key}: non-finite")
+            check(wav_err <= BACKEND_ROUNDTRIP_TOL,
+                  f"{key}: card vs CPU waveform {wav_err} > {BACKEND_ROUNDTRIP_TOL}")
+            backends[key] = {"spec_shape": list(rec["card"][0].shape),
+                             "spec_max_abs_err": spec_err, "wave_peak_rel": wav_err}
+    report["backends"] = backends
+    emit("dsp", device=torch.cuda.get_device_name(0), **report)
+    return launches
+
+
+def _stream_config(causal: bool, dtype: str = "bfloat16"):
+    from voicesplit_tpu_torch.config import load_config
+
+    config = load_config(str(ROOT / "configs" / "voicesplit.json"))
+    config.model.causal = causal  # set in code, as the JAX package's tests do
+    config.train_config.compute_dtype = dtype
+    return config
+
+
+def _streamer(config, seed: int, chunk: int = STREAM_CHUNK):
+    from voicesplit_tpu_torch import weights
+    from voicesplit_tpu_torch.models.masknet import make_masknet
+    from voicesplit_tpu_torch.streaming import StreamingSeparator
+
+    model = weights.init_random_(make_masknet(config, streaming=True), seed)
+    return StreamingSeparator(config, model, chunk)
+
+
+def phase_streaming(torch, lstm_cuda, cc, cf, seed: int, profile_dir) -> dict:
+    """The streaming engine at full width in bf16 with random weights: (a) the
+    causal model at B=1, (b) the symmetric model with
+    `VOICESPLIT_PALLAS_CONV=1` at B=1 and, for its latency, without, (c) the
+    causal model at B=8.  Each:
+    a counted 3 s stream (exact launches a chunk), the same stream through
+    the plain versions, per-chunk latency; (a) also a perturbation of the
+    future input; then chunk-size invariance (50 against 25 frames)."""
+    report = {"chunk_frames": STREAM_CHUNK, "tolerance_vs_plain": WIDE_SEPARATE_TOL,
+              "invariance_tolerance_fp32": STREAM_INVARIANCE_TOL, "streams": {}}
+    launches: dict = {}
+    zero = {k: 0 for k in (*lstm_cuda.LAUNCHES, *cc.LAUNCHES, *cf.LAUNCHES)}
+    for name, (causal, B, switch) in STREAM_CASES.items():
+        config = _stream_config(causal)
+        with _Env("VOICESPLIT_PALLAS_CONV", switch):
+            sep = _streamer(config, seed)
+            sr = sep.ap.sample_rate
+            n = int(config.audio.audio_len * sr)
+            chunk_s = sep.chunk_samples / sr
+            check(sep.latency_samples == STREAM_LATENCY[causal],
+                  f"{name}: latency {sep.latency_samples} samples")
+            wav, emb = synthetic_batch(seed + 31 + B, B, n, sr, config.model.emb_dim)
+            # `separate` pads to whole chunks covering the latency, as JAX's does
+            chunks = (n + (-n) % sep.chunk_samples + sep.latency_samples) // sep.chunk_samples + 1
+
+            # the counted run of the path: one stream, chunk by chunk
+            _reset_counts(torch, lstm_cuda, cc, cf)
+            out = sep.separate(wav, emb)
+            counted = _counts(torch, lstm_cuda, cc, cf)
+            want = {**zero, **{k: v * chunks for k, v in STREAM_LAUNCHES[switch].items()}}
+            check(counted == want, f"{name}: launches for {chunks} chunks {counted}, expected {want}")
+            counted = _check_routes(lstm_cuda, counted, f"streaming {name}")
+            _add(launches, counted)
+            check(out.shape == (B, n) and bool(np.isfinite(out).all()), f"{name}: output {out.shape}")
+            with _PlainVersions(lstm_cuda), _PlainVersions(cc, round_once=True):
+                out_plain = sep.separate(wav, emb)
+            err = _peak_rel(torch.from_numpy(out), torch.from_numpy(out_plain))
+            check(err <= WIDE_SEPARATE_TOL, f"{name}: stream vs plain {err} > {WIDE_SEPARATE_TOL}")
+
+            # per-chunk latency, the state carried from chunk to chunk
+            state = sep.init_state(B)
+            cs = sep.chunk_samples
+            lat = []
+            for i in range(STREAM_WARM_CHUNKS + STREAM_TIMED_CHUNKS):
+                piece = wav[:, (i * cs) % (n - cs):][:, :cs]
+                t0 = time.perf_counter()
+                state, o = sep.process_chunk(state, piece, emb)
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t0) * 1e3)
+            lat = lat[STREAM_WARM_CHUNKS:]
+            p50, p75 = (float(np.percentile(lat, q)) for q in (50, 75))
+            entry = {"batch": B, "causal": causal, "switch": switch == "1",
+                     "latency_samples": sep.latency_samples,
+                     "latency_ms_algorithmic": sep.latency_samples / sr * 1e3,
+                     "chunks_counted": chunks, "launches_per_chunk": {
+                         k: v // chunks for k, v in counted.items() if v},
+                     "peak_rel_vs_plain": err, "chunks_timed": STREAM_TIMED_CHUNKS,
+                     "chunk_ms_p50": p50, "chunk_ms_p75": p75,
+                     "real_time_factor_p50": p50 / (chunk_s * 1e3),
+                     "audio_s_per_s_p50": B * chunk_s / (p50 / 1e3)}
+            if profile_dir:
+                entry["profile"] = prof = profile(torch, profile_dir, f"streaming_{name}",
+                                                  lambda: sep.process_chunk(state, piece, emb))
+                # the device's idle share of the unprofiled chunk time
+                entry["idle_share_of_p50"] = 1.0 - prof["kernel_ms"] / prof["runs"] / p50
+            if causal and B == 1:
+                # a perturbation of the future: the samples emitted before it
+                # (one latency and one hop earlier) do not move
+                s = STREAM_PERTURB_AT
+                other = wav.copy()
+                other[:, s:] = synthetic_batch(seed + 99, 1, n - s, sr, config.model.emb_dim)[0]
+                moved = sep.separate(other, emb)
+                keep = s - sep.latency_samples - sep.hop
+                before = float(np.abs(moved[:, :keep] - out[:, :keep]).max())
+                after = float(np.abs(moved[:, s:] - out[:, s:]).max())
+                check(before <= STREAM_CAUSAL_TOL * float(np.abs(out).max()),
+                      f"{name}: output before the perturbation moved by {before}")
+                check(after > 0.0, f"{name}: the perturbation changed nothing")
+                entry["perturbation"] = {"at_sample": s, "unchanged_samples": keep,
+                                         "max_abs_change_before": before,
+                                         "same_bits_before": before == 0.0,
+                                         "max_abs_change_after": after}
+            report["streams"][name] = entry
+            del sep
+    # chunk-size invariance: fp32 compute within the JAX test's bound; bf16
+    # measured (its carry is rounded at other chunk boundaries)
+    for dtype in ("float32", "bfloat16"):
+        config = _stream_config(True, dtype)
+        wav, emb = synthetic_batch(seed + 41, 1, int(config.audio.audio_len * 16000), 16000,
+                                   config.model.emb_dim)
+        a = _streamer(config, seed, STREAM_CHUNK).separate(wav, emb)
+        b = _streamer(config, seed, STREAM_CHUNK // 2).separate(wav, emb)
+        diff = float(np.abs(a - b).max())
+        if dtype == "float32":
+            check(diff <= STREAM_INVARIANCE_TOL, f"chunk-size invariance (fp32) {diff}")
+        report[f"chunk_{STREAM_CHUNK}_vs_{STREAM_CHUNK // 2}_{dtype}"] = {
+            "max_abs_diff": diff, "peak": float(np.abs(a).max())}
+    emit("streaming", device=torch.cuda.get_device_name(0), **report)
+    return launches
+
+
+def phase_train_streaming(torch, lstm_cuda, cc, cf, seed: int, profile_dir) -> dict:
+    """The streaming (causal) model's training at full width with
+    `VOICESPLIT_PALLAS_CONV=1`, which no causal layer takes: one counted step
+    at B=2 held against the plain LSTM versions, timed steps, then
+    `cli.train.main` (the `Trainer` builds the streaming model from the
+    causal config) with checkpoints; then a random BiLSTM checkpoint through
+    `cli.convert_streaming.main` served by `cli.separate.main --streaming`
+    against `StreamingSeparator.separate` on the same weights."""
+    from voicesplit_tpu_torch import weights
+    from voicesplit_tpu_torch.cli.convert_streaming import main as convert_main
+    from voicesplit_tpu_torch.cli.separate import main as separate_main
+    from voicesplit_tpu_torch.cli.train import main as train_main
+    from voicesplit_tpu_torch.config import load_config
+    from voicesplit_tpu_torch.dsp.processor import make_audio_processor
+    from voicesplit_tpu_torch.models.masknet import make_masknet
+    from voicesplit_tpu_torch.streaming import StreamingSeparator
+    from voicesplit_tpu_torch.train import create_train_state, make_optimizer, make_train_step
+    from voicesplit_tpu_torch.train.checkpoint import (
+        config_from_checkpoint, list_checkpoints, load_model_variables, save_checkpoint)
+
+    zero = {k: 0 for k in (*lstm_cuda.LAUNCHES, *cc.LAUNCHES, *cf.LAUNCHES)}
+    step_launches = {**zero, **STREAM_TRAIN_LAUNCHES}
+    report = {"switch": "VOICESPLIT_PALLAS_CONV=1", "learning_rate": TRAIN_LR,
+              "tolerances": TRAIN_TOL, "cli_steps": STREAM_TRAIN_STEPS,
+              "checkpoint_interval": STREAM_TRAIN_CKPT_EVERY}
+    with tempfile.TemporaryDirectory(prefix="voicesplit_stream_") as tmp_name, \
+            _Env("VOICESPLIT_PALLAS_CONV", "1"):
+        tmp = Path(tmp_name)
+        config_path, config = _trainer_config(tmp, seed, n_train=STREAM_TRAIN_ITEMS,
+                                              n_eval=STREAM_EVAL_ITEMS,
+                                              ckpt_every=STREAM_TRAIN_CKPT_EVERY)
+        config.model.causal = True
+        Path(config_path).write_text(config.to_json())
+        ap = make_audio_processor(config)
+        b, sr = config.train_config.batch_size, ap.sample_rate
+        n = int(config.audio.audio_len * sr)
+
+        # (1) one counted step of the streaming model from random weights
+        model = weights.init_random_(make_masknet(config, streaming=True), seed)
+        check(model.causal and model.streaming, "not the streaming causal model")
+        optimizer = make_optimizer(config, model)
+        state = create_train_state(model, optimizer)
+        step = make_train_step(config, model, ap, optimizer)
+        batch = train_batch(seed + 51, b, n, sr, config.model.emb_dim)
+        before = _snapshot(model, optimizer, state)
+        _reset_counts(torch, lstm_cuda, cc, cf)
+        mk = step(state, batch)
+        counted = _counts(torch, lstm_cuda, cc, cf)
+        check(counted == step_launches, f"launches per step {counted}, expected {step_launches}")
+        counted = _check_routes(lstm_cuda, counted, "train streaming")
+        launches = dict(counted)
+        loss0, gn0 = float(mk["loss"]), float(mk["grad_norm"])
+        check(np.isfinite(loss0) and not bool(mk["loss_exploded"]), f"loss {loss0}")
+        check(gn0 > 0 and np.isfinite(gn0), f"grad_norm {gn0}")
+        unmoved = [k for k, v in model.state_dict().items() if torch.equal(v, before[0][k])]
+        check(not unmoved, f"unchanged after a step: {unmoved}")
+        gk = _lstm_grads(model)
+        _restore(model, optimizer, state, before)
+        with _PlainVersions(lstm_cuda):
+            mp = step(state, batch)
+        gp = _lstm_grads(model)
+        vs_plain = {
+            "loss_rel": abs(loss0 - float(mp["loss"])) / abs(float(mp["loss"])),
+            "grad_norm_rel": abs(gn0 - float(mp["grad_norm"])) / float(mp["grad_norm"]),
+            "lstm_grad_peak_rel": {k: _peak_rel(gk[k], gp[k]) for k in gk},
+        }
+        for k, tol in TRAIN_TOL.items():
+            err = vs_plain[k]
+            err = max(err.values()) if isinstance(err, dict) else err
+            check(err <= tol, f"train streaming: kernels vs plain {k} {err} > {tol}")
+        for _ in range(TRAIN_WARM):
+            step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        for _ in range(STREAM_TRAIN_TIMED):
+            t0 = time.perf_counter()
+            losses.append(step(state, batch)["loss"])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        losses = [float(v) for v in losses]
+        check(all(np.isfinite(losses)) and losses[-1] < loss0, f"losses {loss0} -> {losses}")
+        report["step"] = {
+            "batch": b, "launches_per_step": {k: v for k, v in counted.items() if v},
+            "first_loss": loss0, "first_grad_norm": gn0, "kernels_vs_plain": vs_plain,
+            "steps_timed": STREAM_TRAIN_TIMED, "losses": losses,
+            "step_ms_p50": float(np.percentile(times, 50)),
+            "step_ms_p75": float(np.percentile(times, 75)),
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+        if profile_dir:
+            report["step"]["profile"] = profile(torch, profile_dir, "train_streaming_B2",
+                                                lambda: step(state, batch))
+        del model, optimizer, state, step
+        torch.cuda.empty_cache()
+
+        # (2) the training CLI on the causal config
+        run = tmp / "run"
+        _reset_counts(torch, lstm_cuda, cc, cf)
+        result = train_main(["-c", config_path, "--logs_path", str(run),
+                             "--max_steps", str(STREAM_TRAIN_STEPS)])
+        counted = _counts(torch, lstm_cuda, cc, cf)
+        check(result.get("step") == STREAM_TRAIN_STEPS and not result.get("exploded"),
+              f"run: {result}")
+        n_evals = 1 + STREAM_TRAIN_STEPS // STREAM_TRAIN_CKPT_EVERY
+        want = {k: v * STREAM_TRAIN_STEPS for k, v in step_launches.items()}
+        want["lstm_fwd"] += n_evals * STREAM_EVAL_ITEMS  # one item a validation call
+        check(counted == want, f"launches of the run {counted}, expected {want}")
+        _add(launches, _check_routes(lstm_cuda, counted, "train streaming CLI"))
+        train = [r for r in _read_metrics(run) if "train_loss" in r]
+        run_losses = [r["train_loss"] for r in train]
+        check(len(train) == STREAM_TRAIN_STEPS and all(np.isfinite(run_losses)),
+              f"train losses {run_losses}")
+        ckpts = [Path(p).name for p in list_checkpoints(str(run))]
+        want_ckpts = [f"checkpoint_{k}.pt" for k in range(
+            STREAM_TRAIN_CKPT_EVERY, STREAM_TRAIN_STEPS + 1, STREAM_TRAIN_CKPT_EVERY)]
+        check(ckpts == want_ckpts, f"checkpoints {ckpts}")
+        load_model_variables(config, str(run / ckpts[-1]), streaming=True)  # raises on a misfit
+        deltas = np.diff([r["time"] for r in train]) * 1e3
+        report["cli"] = {"launches": counted, "losses": run_losses, "checkpoints": ckpts,
+                         "step_ms_p50": float(np.percentile(deltas, 50)),
+                         "step_ms_p75": float(np.percentile(deltas, 75)),
+                         "wall_seconds": result["wall_seconds"]}
+
+        # (3) a BiLSTM checkpoint converted and served by the streaming CLI
+        offline = load_config(str(ROOT / "configs" / "voicesplit.json"))
+        bilstm = weights.init_random_(make_masknet(offline), seed + 1)
+        src = save_checkpoint(str(tmp / "offline"), create_train_state(
+            bilstm, make_optimizer(offline, bilstm)), offline)
+        del bilstm
+        converted = convert_main(["--checkpoint_path", src, "--output_dir", str(tmp / "stream")])
+        sconfig = config_from_checkpoint(converted)
+        check(sconfig.model.causal, "the converted config is not causal")
+        (tmp / "stream.json").write_text(sconfig.to_json())
+        wav, emb = synthetic_batch(seed + 61, 1, n, sr, config.model.emb_dim)
+        ap.save_wav(wav[0], str(tmp / "mix.wav"))
+        np.save(tmp / "emb.npy", emb[0])
+        _reset_counts(torch, lstm_cuda, cc, cf)
+        t0 = time.perf_counter()
+        separate_main(["-c", str(tmp / "stream.json"), "--weights", converted,
+                       "--mixed_wav", str(tmp / "mix.wav"), "--emb", str(tmp / "emb.npy"),
+                       "--output", str(tmp / "served.wav"), "--streaming"])
+        cli_s = time.perf_counter() - t0
+        served_launches = _counts(torch, lstm_cuda, cc, cf)
+        check(served_launches["lstm_fwd"] > 0 and sum(served_launches.values()) ==
+              served_launches["lstm_fwd"], f"served launches {served_launches}")
+        _add(launches, _check_routes(lstm_cuda, served_launches, "separate --streaming"))
+        smodel = make_masknet(sconfig, streaming=True)
+        smodel.load_state_dict(load_model_variables(sconfig, converted, streaming=True))
+        want = StreamingSeparator(sconfig, smodel).separate(ap.load_wav(str(tmp / "mix.wav"))[None],
+                                                            emb)[0]
+        ap.save_wav(want, str(tmp / "want.wav"))
+        served, expected = ap.load_wav(str(tmp / "served.wav")), ap.load_wav(str(tmp / "want.wav"))
+        check(served.shape == expected.shape == (n,) and np.array_equal(served, expected),
+              "separate --streaming differs from StreamingSeparator.separate")
+        report["convert_and_serve"] = {"converted": Path(converted).name, "seconds": cli_s,
+                                       "launches": served_launches, "same_bits": True}
+    emit("train streaming", device=torch.cuda.get_device_name(0), **report)
+    return launches
+
+
 # kinds for the device time split under --profile.  The port's kernels:
 # every __global__ of voicesplit_tpu_torch/csrc by its whole name
 # (tests/test_torch_kernel_kinds.py holds the list complete), tried before
@@ -2713,7 +3146,7 @@ def profile(torch, out_dir, tag, fn, runs: int = 5) -> dict:
 
 PHASES = ("kernels", "bwd_kernels", "separate", "train", "conv_kernels", "train_fused",
           "dilated_kernels", "separate_dilated", "trainer", "separate_wide", "train_wide",
-          "evaluate", "preprocess", "trainer_online")
+          "evaluate", "preprocess", "trainer_online", "dsp", "streaming", "train_streaming")
 
 
 def main(argv=None) -> int:
@@ -2782,6 +3215,15 @@ def main(argv=None) -> int:
         if "trainer_online" in phases:
             by_path["trainer_online"] = phase_trainer_online(
                 torch, lstm_cuda, args.seed, args.profile, Path(corpus_tmp))
+    with tempfile.TemporaryDirectory(prefix="voicesplit_dsp_") as dsp_tmp:
+        if "dsp" in phases:
+            by_path["dsp"] = phase_dsp(torch, lstm_cuda, args.seed, Path(dsp_tmp))
+    if "streaming" in phases:
+        by_path["streaming"] = phase_streaming(
+            torch, lstm_cuda, conv_cuda, conv_fused, args.seed, args.profile)
+    if "train_streaming" in phases:
+        by_path["train_streaming"] = phase_train_streaming(
+            torch, lstm_cuda, conv_cuda, conv_fused, args.seed, args.profile)
     emit("total", wall_seconds=time.perf_counter() - t_start, phases=phases)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -1166,3 +1166,101 @@ def test_debug_nans_names_an_op_on_card(tmp_path):
     assert res["exploded"] is True and res["step"] == 3
     first = res["nan_report"].splitlines()[0]
     assert first.startswith("nan or inf in the output of "), first
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("T", [25, 50])
+def test_carried_lstm_fwd_chunks_match_plain_on_card(T, batch):
+    """Streaming's use of `lstm_fwd`: four chained chunks, each from the
+    previous launch's final (h, c) rounded to bf16 as `UniLSTM` rounds the
+    carry, against the same chain through the plain version (bf16 operands,
+    H=400): the kernel route, each chunk's hs / cs and the final state."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import lstm_cuda
+
+    g = torch.Generator().manual_seed(T + batch)
+    H = 400
+    w = (torch.rand(H, 4 * H, generator=g) * 0.1 - 0.05).to("cuda", torch.bfloat16)
+    xs = [torch.randn(T, batch, 4 * H, generator=g).to("cuda", torch.bfloat16) for _ in range(4)]
+    state = {k: [torch.zeros(batch, H, device="cuda")] * 2 for k in ("kernel", "plain")}
+    lstm_cuda.reset_launch_counts()
+    with torch.inference_mode():
+        for xp in xs:
+            for name, fn in (("kernel", lstm_cuda.lstm_fwd), ("plain", lstm_cuda.lstm_fwd_ref)):
+                h0, c0 = (s.to(torch.bfloat16).float().contiguous() for s in state[name])
+                hs, cs, _ = fn(xp, w, h0, c0)
+                state[name] = [hs[-1], cs[-1]]
+                if name == "kernel":
+                    got = (hs, cs)
+            for a, b in zip(got, (hs, cs)):
+                assert (a - b).abs().max().item() <= 2e-2  # bf16: one flipped rounding of h
+    torch.cuda.synchronize()
+    assert lstm_cuda.LAUNCHES["lstm_fwd"] == 4 and lstm_cuda.ROUTES["cluster"] == 4
+    for a, b in zip(state["kernel"], state["plain"]):
+        assert (a - b).abs().max().item() <= 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layer", sorted(CONV_LAYERS))
+def test_conv_dilated_fwd_on_the_streaming_window_on_card(layer):
+    """The symmetric streaming model's conv window, [1, 180, 601, 64] bf16
+    (130 frames of history and a chunk of 50): each layer against the plain
+    version that rounds once as the kernel does, and the edge rows alone."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import conv_cuda
+
+    (kt, kf), dt = CONV_LAYERS[layer]
+    g = torch.Generator().manual_seed(kt * 100 + dt)
+    x = torch.randn(1, 180, 601, 64, generator=g).to("cuda", torch.bfloat16)
+    w = (torch.randn(kt, kf, 64, 64, generator=g) / (kt * kf * 64) ** 0.5).to("cuda", torch.bfloat16)
+    with torch.inference_mode():
+        got = conv_cuda.conv_dilated_fwd(x, w, dt)
+        want = conv_cuda.conv_dilated_fwd_round_once_ref(x, w, dt)
+    peak = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs()
+    assert err.max().item() <= 1e-2 * peak  # bf16: one rounding of the output either way
+    edge = (kt - 1) * dt // 2
+    if edge:
+        assert err[:, :edge].max().item() <= 1e-2 * peak
+        assert err[:, -edge:].max().item() <= 1e-2 * peak
+
+
+@pytest.mark.gpu
+def test_causal_stream_matches_plain_versions_on_card():
+    """The causal streaming model at full width in bf16: one `lstm_fwd` a
+    chunk and no conv kernel even with the dilated switch on, and the
+    stream within 5e-3 of its peak of the same stream through the plain
+    LSTM version."""
+    _need_card()
+    import os
+
+    from voicesplit_tpu_torch import weights
+    from voicesplit_tpu_torch.ops import conv_cuda, lstm_cuda
+    from voicesplit_tpu_torch.streaming import StreamingSeparator
+
+    cfg = load_config(str(REPO / "configs" / "voicesplit.json"))
+    cfg.model.causal = True
+    model = weights.init_random_(make_masknet(cfg, streaming=True), seed=0)
+    sep = StreamingSeparator(cfg, model, 50)
+    rng = np.random.default_rng(0)
+    wav = (0.1 * rng.standard_normal((1, 16000))).astype(np.float32)
+    emb = rng.standard_normal((1, 256)).astype(np.float32)
+    before = os.environ.get("VOICESPLIT_PALLAS_CONV")
+    os.environ["VOICESPLIT_PALLAS_CONV"] = "1"
+    try:
+        lstm_cuda.reset_launch_counts()
+        conv_cuda.reset_launch_counts()
+        out = sep.separate(wav, emb)
+        torch.cuda.synchronize()
+    finally:
+        if before is None:
+            del os.environ["VOICESPLIT_PALLAS_CONV"]
+        else:
+            os.environ["VOICESPLIT_PALLAS_CONV"] = before
+    chunks = (16000 + sep.latency_samples) // sep.chunk_samples + 1
+    assert lstm_cuda.LAUNCHES["lstm_fwd"] == chunks and not any(conv_cuda.LAUNCHES.values())
+    with chip_smoke._PlainVersions(lstm_cuda):
+        plain = sep.separate(wav, emb)
+    assert out.shape == (1, 16000) and np.isfinite(out).all()
+    assert np.abs(out - plain).max() <= 5e-3 * np.abs(plain).max()

@@ -126,8 +126,9 @@ def test_make_masknet_reads_config():
     assert model.conv1.activation == "mish"
     assert model.lstm.fwd_w_ih.shape == (8 * 601 + 256, 32)
     cfg.model.causal = True
-    with pytest.raises(NotImplementedError):
-        make_masknet(cfg, device="cpu")
+    causal = make_masknet(cfg, device="cpu")
+    assert causal.causal and causal.conv_context_right == 0
+    assert causal.lstm.fwd_w_ih.shape == (8 * 601 + 256, 32)
 
 
 def test_port_imports_nothing_of_jax():

@@ -1,0 +1,425 @@
+"""Streaming separation: the port's `UniLSTM`, causal and streaming
+`MaskNet` and `StreamingSeparator` against the JAX package's.
+
+Narrow widths in the style of `tests/test_streaming.py` (LSTM 24, fc1 32,
+4 conv channels, 2 out channels) at the voicefilter backend's full
+frequency axis (F = 601), which the streaming engine's STFT fixes.  The
+JAX-layout variables come from `weights.random_jax_variables` and go to
+the JAX model as they are and to the port through `state_dict_from_jax`.
+On the CPU the JAX LSTM runs its `lax.scan` path, except where a test
+calls `fused_lstm_scan` itself (the Pallas kernel in interpret mode), and
+the port runs the kernels' plain versions.
+
+Tolerances (fp32 unless stated): features, masks and h to 1e-5, the cell
+state to 1e-5 of its peak (summation order of the convs and matmuls), whole streams to 1e-6 absolute on
+outputs of peak ~2e-3 (the issue's bar is 2e-4), chunk-size invariance to
+1e-7.  bf16: the carry path is held to the Pallas kernel in interpret mode
+within 1e-2 (one bf16 rounding of |h|, |c| <~ 2 at each chunk boundary,
+as `tests/test_torch_lstm.py::WRAPPER_ATOL`).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from voicesplit_tpu.config import Config as JaxConfig
+from voicesplit_tpu.models import lstm as jax_lstm
+from voicesplit_tpu.models.masknet import make_masknet as jax_make_masknet
+from voicesplit_tpu.ops import lstm_pallas
+from voicesplit_tpu.streaming import StreamingSeparator as JaxStreamingSeparator
+from voicesplit_tpu_torch import weights
+from voicesplit_tpu_torch.config import Config
+from voicesplit_tpu_torch.models import masknet as masknet_module
+from voicesplit_tpu_torch.models.lstm import UniLSTM
+from voicesplit_tpu_torch.models.masknet import make_masknet
+from voicesplit_tpu_torch.ops import conv_cuda, lstm_cuda
+from voicesplit_tpu_torch.streaming import StreamingSeparator
+
+SR = 16000
+EMB = 256
+FEATURE_ATOL = 1e-5
+STREAM_ATOL = 1e-6
+INVARIANCE_ATOL = 1e-7
+BF16_CARRY_ATOL = 1e-2
+
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    """Several test processes share one machine: two PyTorch threads each."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
+def _configs(causal: bool, dtype: str = "float32", extra: int = 0):
+    out = []
+    for cls in (JaxConfig, Config):
+        c = cls()
+        c.model_name = "voicesplit"
+        c.model.lstm_dim, c.model.fc1_dim = 24, 32
+        c.model.conv_channels, c.model.conv_out_channels = 4, 2
+        c.model.num_extra_dilated_blocks = extra
+        c.model.causal = causal
+        c.train_config.compute_dtype = dtype
+        out.append(c)
+    return out
+
+
+def _pair(causal: bool, dtype: str = "float32", seed: int = 0, extra: int = 0):
+    """The streaming model of both packages with the same random weights."""
+    jc, tc = _configs(causal, dtype, extra)
+    model = make_masknet(tc, streaming=True, device="cpu")
+    params, stats = weights.random_jax_variables(model, seed)
+    model.load_state_dict(weights.state_dict_from_jax(params, stats))
+    return jc, tc, jax_make_masknet(jc, streaming=True), model, {"params": params, "batch_stats": stats}
+
+
+def _wav(n=SR * 2, seed=0):
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / SR
+    return (0.05 * np.sin(2 * np.pi * 220 * t) + 0.01 * rng.standard_normal(n)).astype(np.float32)
+
+
+def _emb(B=1, seed=1):
+    return np.random.default_rng(seed).standard_normal((B, EMB)).astype(np.float32)
+
+
+def _np(x):
+    return np.array(jnp.asarray(x).astype(jnp.float32))
+
+
+def _route_as_full_width(monkeypatch):
+    """At 4 channels no layer meets the dilated-conv kernel's condition (64
+    channels): ask it of each layer's shape at 64, as the full-width model
+    has them."""
+    takes = conv_cuda.takes_layer
+    monkeypatch.setattr(masknet_module, "takes_layer",
+                        lambda w, d: takes((*w[:2], 64, 64) if w[2] == w[3] == 4 else w, d))
+
+
+def _spy(monkeypatch, module, name, calls):
+    fn = getattr(module, name)
+
+    def spy(*a, **k):
+        calls[name] = calls.get(name, 0) + 1
+        return fn(*a, **k)
+
+    monkeypatch.setattr(module, name, spy)
+
+
+# ---------------------------------------------------------------------------
+# UniLSTM
+# ---------------------------------------------------------------------------
+
+F_IN, H, T = 10, 16, 13
+
+
+def _uni_params(seed):
+    rng = np.random.default_rng(seed)
+    s = H ** -0.5
+    return {
+        "fwd_w_ih": rng.uniform(-s, s, (F_IN, 4 * H)).astype(np.float32),
+        "fwd_w_hh": rng.uniform(-s, s, (H, 4 * H)).astype(np.float32),
+        "fwd_b": rng.uniform(-s, s, (4 * H,)).astype(np.float32),
+    }
+
+
+def _uni(params, dtype=torch.float32):
+    m = UniLSTM(F_IN, H, dtype)
+    m.load_state_dict({k: torch.from_numpy(v) for k, v in params.items()})
+    return m
+
+
+@pytest.mark.parametrize("split", [1, 6, 12])
+def test_unilstm_one_shot_equals_two_chunks_with_carry(split):
+    """The carry threads the recurrence exactly (fp32, same bits)."""
+    params = _uni_params(0)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((2, T, F_IN)).astype(np.float32))
+    m = _uni(params)
+    with torch.inference_mode():
+        full, (h, c) = m(x)
+        a, carry = m(x[:, :split])
+        b, (h2, c2) = m(x[:, split:], carry)
+    assert torch.equal(torch.cat([a, b], dim=1), full)
+    assert torch.equal(h2, h) and torch.equal(c2, c)
+
+
+@pytest.mark.parametrize("with_carry", [False, True])
+def test_unilstm_matches_jax(with_carry):
+    """Outputs and final carry against the JAX `UniLSTM` (fp32)."""
+    params = _uni_params(2)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((3, T, F_IN)).astype(np.float32)
+    carry = tuple(rng.standard_normal((3, H)).astype(np.float32) for _ in range(2))
+    jm = jax_lstm.UniLSTM(H)
+    out_j, (h_j, c_j) = jm.apply(
+        {"params": params}, jnp.asarray(x), tuple(map(jnp.asarray, carry)) if with_carry else None)
+    with torch.inference_mode():
+        out, (h, c) = _uni(params)(
+            torch.from_numpy(x), tuple(map(torch.from_numpy, carry)) if with_carry else None)
+    np.testing.assert_allclose(out.numpy(), _np(out_j), atol=1e-5)
+    np.testing.assert_allclose(h.numpy(), _np(h_j), atol=1e-5)
+    np.testing.assert_allclose(c.numpy(), _np(c_j), atol=1e-5)
+
+
+@pytest.mark.parametrize("chunk", [4, 7])
+def test_unilstm_bf16_carry_matches_fused_lstm_scan(chunk):
+    """bf16 chunks chained through the carry against the JAX arithmetic of
+    `UniLSTM` on the TPU path: the projection in bf16, then
+    `fused_lstm_scan` (the Pallas kernel in interpret mode) from the carry
+    cast to bf16, which comes back in bf16."""
+    params = _uni_params(4)
+    x = np.random.default_rng(5).standard_normal((2, 3 * chunk, F_IN)).astype(np.float32)
+    bf = jnp.bfloat16
+    w_ih, w_hh, b = (jnp.asarray(params[k]).astype(bf) for k in ("fwd_w_ih", "fwd_w_hh", "fwd_b"))
+    m = _uni(params, torch.bfloat16)
+    h_j = c_j = jnp.zeros((2, H), bf)
+    carry = None
+    for i in range(3):
+        xs = x[:, i * chunk:(i + 1) * chunk]
+        xp = jnp.asarray(xs).astype(bf) @ w_ih + b
+        out_j, (h_j, c_j) = lstm_pallas.fused_lstm_scan(xp, w_hh, h_j.astype(bf), c_j.astype(bf))
+        with torch.inference_mode():
+            out, carry = m(torch.from_numpy(xs), carry)
+        assert out.dtype == carry[0].dtype == carry[1].dtype == torch.bfloat16
+        # the stream keeps its carry in fp32 between chunks, as JAX's does
+        carry = tuple(s.float() for s in carry)
+        np.testing.assert_allclose(out.float().numpy(), _np(out_j), atol=BF16_CARRY_ATOL)
+        np.testing.assert_allclose(carry[0].numpy(), _np(h_j), atol=BF16_CARRY_ATOL)
+        np.testing.assert_allclose(carry[1].numpy(), _np(c_j), atol=BF16_CARRY_ATOL)
+
+
+@pytest.mark.parametrize("B", [2, 8])
+def test_unilstm_launches_one_direction_only(B, monkeypatch):
+    """One `lstm_fwd` a call and never the two-direction kernel, at any batch."""
+    calls = {}
+    for name in ("lstm_fwd", "bilstm_fwd"):
+        _spy(monkeypatch, lstm_cuda, name, calls)
+    with torch.inference_mode():
+        _uni(_uni_params(6))(torch.zeros(B, T, F_IN))
+    assert calls == {"lstm_fwd": 1}
+
+
+# ---------------------------------------------------------------------------
+# The streaming and causal MaskNet
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_streaming_masknet_matches_jax(causal):
+    """Mask and carry of `make_masknet(streaming=True)` from a random carry."""
+    jc, _, jm, model, variables = _pair(causal, seed=3)
+    rng = np.random.default_rng(4)
+    spec = rng.uniform(0, 1, (2, 40, 601)).astype(np.float32)
+    emb = _emb(2, 5)
+    carry = tuple(rng.standard_normal((2, 24)).astype(np.float32) for _ in range(2))
+    mask_j, (h_j, c_j) = jm.apply(
+        variables, jnp.asarray(spec), jnp.asarray(emb), lstm_carry=tuple(map(jnp.asarray, carry)))
+    with torch.inference_mode():
+        mask, (h, c) = model(torch.from_numpy(spec), torch.from_numpy(emb),
+                             lstm_carry=tuple(map(torch.from_numpy, carry)))
+    assert mask.shape == (2, 40, 601) and h.shape == c.shape == (2, 24)
+    np.testing.assert_allclose(mask.numpy(), _np(mask_j), atol=FEATURE_ATOL)
+    np.testing.assert_allclose(h.numpy(), _np(h_j), atol=FEATURE_ATOL)
+    # the cell state is unbounded (|c| ~ 12 here): relative to its peak
+    c_j = _np(c_j)
+    np.testing.assert_allclose(c.numpy(), c_j, atol=FEATURE_ATOL * np.abs(c_j).max())
+
+
+@pytest.mark.parametrize("extra", [0, 1])
+def test_causal_conv_features_match_jax(extra):
+    """The causal conv stack ((2e, 0) time padding) against JAX's, with and
+    without an extra dilated block (fp32)."""
+    _, _, jm, model, variables = _pair(True, seed=6, extra=extra)
+    spec = np.random.default_rng(7).uniform(0, 1, (1, 70, 601)).astype(np.float32)
+    want = jm.apply(variables, jnp.asarray(spec), method=jm.conv_features)
+    with torch.inference_mode():
+        got = model.conv_features(torch.from_numpy(spec))
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=FEATURE_ATOL)
+
+
+def test_context_properties_match_jax():
+    for causal in (False, True):
+        for extra in (0, 1):
+            _, _, jm, model, _ = _pair(causal, extra=extra)
+            for name in ("conv_context", "conv_context_left", "conv_context_right"):
+                assert getattr(model, name) == getattr(jm, name), (causal, extra, name)
+
+
+def test_causal_features_ignore_future():
+    """Frame t's features do not move whatever follows t."""
+    _, _, _, model, _ = _pair(True, seed=8)
+    assert model.conv_context_right == 0 and model.conv_context_left == 2 * model.conv_context
+    rng = np.random.default_rng(3)
+    T_, t = 160, 100
+    spec = rng.uniform(0, 1, (1, T_, 601)).astype(np.float32)
+    scrambled = spec.copy()
+    scrambled[:, t + 1:] = rng.uniform(0, 1, (1, T_ - t - 1, 601))
+    with torch.inference_mode():
+        a = model.conv_features(torch.from_numpy(spec))
+        b = model.conv_features(torch.from_numpy(scrambled))
+    assert torch.equal(a[:, : t + 1], b[:, : t + 1])
+    assert (a[:, t + 1:] - b[:, t + 1:]).abs().max() > 1e-4
+
+
+def test_causal_tail_frames_see_recent_input():
+    """A window ending at frame t gives frame t the full pass's features."""
+    _, _, _, model, _ = _pair(True, seed=9)
+    ctx = model.conv_context_left
+    spec = np.random.default_rng(5).uniform(0, 1, (1, 260, 601)).astype(np.float32)
+    with torch.inference_mode():
+        full = model.conv_features(torch.from_numpy(spec))
+        for t in (ctx, 180, 259):
+            feats = model.conv_features(torch.from_numpy(spec[:, t - ctx: t + 1]))
+            np.testing.assert_allclose(feats[:, -1].numpy(), full[:, t].numpy(), atol=1e-6)
+
+
+def test_windowed_conv_features_match_full_pass():
+    """±conv_context frames are the symmetric stack's whole receptive field."""
+    _, _, _, model, _ = _pair(False, seed=10)
+    ctx = model.conv_context
+    spec = np.random.default_rng(7).uniform(0, 1, (1, 4 * ctx + 12, 601)).astype(np.float32)
+    with torch.inference_mode():
+        full = model.conv_features(torch.from_numpy(spec))
+        for t in (ctx, ctx + 5, 3 * ctx + 11):
+            feats = model.conv_features(torch.from_numpy(spec[:, t - ctx: t + ctx + 1]))
+            np.testing.assert_allclose(feats[:, ctx].numpy(), full[:, t].numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_causal_layers_never_reach_a_conv_kernel(train, monkeypatch):
+    """With both conv switches set, a causal model runs the library conv
+    only (the kernels compute the symmetric "same" conv): no dilated-conv
+    call, no fused chain, and the switch-off result."""
+    _, _, _, model, _ = _pair(True, seed=11)
+    model.conv_channels = 64  # the fused chain's channel condition, so only `causal` refuses it
+    spec = torch.from_numpy(np.random.default_rng(1).uniform(0, 1, (2, 30, 601)).astype(np.float32))
+    model.train(train)
+    with torch.no_grad():
+        want = model.conv_features(spec)
+    calls = {}
+    _spy(monkeypatch, masknet_module, "conv2d_dilated_bias", calls)
+    _spy(monkeypatch, masknet_module, "make_chain", calls)
+    _route_as_full_width(monkeypatch)
+    monkeypatch.setenv("VOICESPLIT_PALLAS_CONV", "1")
+    monkeypatch.setenv("VOICESPLIT_FUSED_CHAIN", "1")
+    with torch.no_grad():
+        got = model.conv_features(spec)
+    assert calls == {}
+    if not train:  # train mode moves the running statistics between the two calls
+        assert torch.equal(got, want)
+
+
+def test_make_masknet_streaming_shapes():
+    _, tc = _configs(True)
+    model = make_masknet(tc, streaming=True, device="cpu")
+    assert model.causal and model.streaming and isinstance(model.lstm, UniLSTM)
+    assert model.fc1.weight.shape == (32, 24)
+    assert {k for k in model.state_dict() if k.startswith("lstm.")} == {
+        "lstm.fwd_w_ih", "lstm.fwd_w_hh", "lstm.fwd_b"}
+    offline = make_masknet(tc, device="cpu")  # causal convs under a BiLSTM head
+    assert offline.causal and not offline.streaming and offline.fc1.weight.shape == (32, 48)
+
+
+# ---------------------------------------------------------------------------
+# StreamingSeparator
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("chunk", [20, 50])
+@pytest.mark.parametrize("causal", [False, True])
+def test_separate_matches_jax(causal, chunk):
+    """A whole stream through both separators on the same weights (fp32)."""
+    jc, tc, _, model, variables = _pair(causal, seed=12)
+    wav, emb = _wav()[None], _emb()
+    want = JaxStreamingSeparator(jc, variables, chunk_frames=chunk).separate(wav, emb)
+    got = StreamingSeparator(tc, model, chunk, device="cpu").separate(wav, emb)
+    assert got.shape == want.shape == wav.shape
+    assert np.abs(want).max() > 1e-4  # the stream carries signal
+    np.testing.assert_allclose(got, want, atol=STREAM_ATOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_chunk_size_invariance(causal):
+    _, tc, _, model, _ = _pair(causal, seed=13)
+    wav, emb = _wav(seed=2)[None], _emb(seed=3)
+    small = StreamingSeparator(tc, model, 20, device="cpu").separate(wav, emb)
+    large = StreamingSeparator(tc, model, 60, device="cpu").separate(wav, emb)
+    np.testing.assert_allclose(small, large, atol=INVARIANCE_ATOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_latency_and_context_equal_jax(causal):
+    jc, tc, _, model, variables = _pair(causal)
+    want = JaxStreamingSeparator(jc, variables, chunk_frames=40)
+    got = StreamingSeparator(tc, model, 40, device="cpu")
+    assert got.latency_samples == want.latency_samples == (1040 if causal else 11440)
+    for name in ("ctx_left", "ctx_right", "hist_frames", "chunk_samples"):
+        assert getattr(got, name) == getattr(want, name), name
+    np.testing.assert_array_equal(got._env.numpy(), want._env)
+
+
+def test_stream_state_shapes_and_dtypes():
+    _, tc, _, model, _ = _pair(False)
+    sep = StreamingSeparator(tc, model, 30, device="cpu")
+    st = sep.init_state(2)
+    assert st.sample_tail.shape == (2, sep.n_fft - sep.hop)
+    assert st.spec_hist.shape == (2, 2 * sep.ctx, 601)
+    assert st.lstm_h.shape == (2, 24)
+    st2, out = sep.process_chunk(st, np.zeros((2, sep.chunk_samples), np.float32), _emb(2))
+    assert out.shape == (2, sep.chunk_samples) and bool(torch.isfinite(out).all())
+    for name in ("sample_tail", "spec_hist", "phase_hist", "lstm_h", "lstm_c", "ola_tail"):
+        assert getattr(st2, name).dtype == torch.float32, name
+        assert getattr(st2, name).shape == getattr(st, name).shape, name
+
+
+def test_bf16_model_keeps_a_float32_state():
+    _, tc, _, model, _ = _pair(True, dtype="bfloat16")
+    sep = StreamingSeparator(tc, model, 20, device="cpu")
+    st = sep.init_state(1)
+    for _ in range(3):
+        st, out = sep.process_chunk(st, _wav(sep.chunk_samples)[None], _emb())
+    assert st.lstm_h.dtype == st.lstm_c.dtype == torch.float32
+    # the carry was rounded to bf16 where the model took it in and gave it out
+    assert torch.equal(st.lstm_h, st.lstm_h.to(torch.bfloat16).float())
+    assert bool(torch.isfinite(out).all())
+
+
+def test_chunk_length_validated():
+    _, tc, _, model, _ = _pair(False)
+    sep = StreamingSeparator(tc, model, 30, device="cpu")
+    with pytest.raises(ValueError, match="chunk must be"):
+        sep.process_chunk(sep.init_state(1), np.zeros((1, 100), np.float32), _emb())
+
+
+def test_refuses_other_backends_and_offline_models():
+    _, tc, _, model, _ = _pair(False)
+    tc.audio.backend = "wavernn"
+    with pytest.raises(NotImplementedError, match="voicefilter"):
+        StreamingSeparator(tc, model, device="cpu")
+    tc.audio.backend = "voicefilter"
+    with pytest.raises(ValueError, match="streaming model"):
+        StreamingSeparator(tc, make_masknet(tc, device="cpu"), device="cpu")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_chunk_launches(causal, monkeypatch):
+    """One `lstm_fwd` a chunk; with `VOICESPLIT_PALLAS_CONV=1` six
+    dilated-conv calls a chunk for the symmetric stack (conv2 … conv7) and
+    none for the causal one.  On the CPU the calls run the plain versions."""
+    _, tc, _, model, _ = _pair(causal, seed=14)
+    monkeypatch.setenv("VOICESPLIT_PALLAS_CONV", "1")
+    calls = {}
+    for name in ("lstm_fwd", "bilstm_fwd"):
+        _spy(monkeypatch, lstm_cuda, name, calls)
+    _spy(monkeypatch, masknet_module, "conv2d_dilated_bias", calls)
+    _route_as_full_width(monkeypatch)
+    sep = StreamingSeparator(tc, model, 20, device="cpu")
+    st = sep.init_state(1)
+    for _ in range(2):
+        st, _ = sep.process_chunk(st, _wav(sep.chunk_samples)[None], _emb())
+    want = {"lstm_fwd": 2} if causal else {"lstm_fwd": 2, "conv2d_dilated_bias": 12}
+    assert calls == want

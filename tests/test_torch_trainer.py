@@ -223,12 +223,18 @@ def test_explosion_guard_rides_the_check_cadence(check_interval, summary_interva
 
 def test_parts_not_yet_ported_raise(workspace, tmp_path):
     config = load_config_from_str(_config_text(workspace))
-    for kwargs in ({"mesh": object()}, {"model_parallel": 2}, {"streaming": True}):
+    for kwargs in ({"mesh": object()}, {"model_parallel": 2}):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             Trainer(config, log_dir=str(tmp_path), device="cpu", **kwargs)
+    # the streaming model and a causal config build (their training is
+    # held to the JAX package's in tests/test_torch_streaming_train.py)
+    tr = Trainer(config, log_dir=str(tmp_path), device="cpu", streaming=True, enable_tb=False)
+    tr.close()
+    assert tr.model.streaming and not tr.model.causal
     config.model.causal = True
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        Trainer(config, log_dir=str(tmp_path), device="cpu")
+    tr = Trainer(config, log_dir=str(tmp_path), device="cpu", enable_tb=False)
+    tr.close()
+    assert tr.model.streaming and tr.model.causal
 
 
 CLI_FLAGS = {

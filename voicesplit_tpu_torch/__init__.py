@@ -7,7 +7,11 @@ train-mode mask network, losses, Adam, dropout and SpecAugment) and the
 training entry point around it (`cli/train.py`, `train/trainer.py`,
 `train/checkpoint.py`, `data/` with the native C++ loader and online
 mixing, `eval/`, `utils/logging.py`); offline preprocessing
-(`cli/preprocess.py`); evaluation (`cli/test.py`, `cli/sweep.py`).  Every kernel that the JAX package wrote in
+(`cli/preprocess.py`); evaluation (`cli/test.py`, `cli/sweep.py`);
+streaming separation (`streaming.py`: causal convs, the forward-only
+`UniLSTM` with its carry, streaming training and `cli/convert_streaming.py`)
+and the rest of the DSP (Griffin-Lim, the wavernn and waveglow backends,
+loudness).  Every kernel that the JAX package wrote in
 Pallas has a hand-written CUDA counterpart: the BiLSTM recurrence and its
 backward (`ops/lstm_cuda.py`, `csrc/lstm_fwd.cu`, `csrc/lstm_bwd.cu`), the
 training step's fused conv chain (``VOICESPLIT_FUSED_CHAIN=1``) with its

@@ -1,12 +1,18 @@
 """Inference CLI: separate a target voice out of a mixture wav (PyTorch
-counterpart of `voicesplit_tpu/cli/separate.py`, non-streaming path).
+counterpart of `voicesplit_tpu/cli/separate.py`).
 
     python -m voicesplit_tpu_torch.cli.separate -c configs/voicesplit.json \
         --weights weights.pt --mixed_wav mix.wav --emb emb.npy \
-        --output out.wav [--device cuda|cpu]
+        --output out.wav [--streaming [--chunk_frames N]] [--griffin_lim] \
+        [--device cuda|cpu]
 
 Spectrogram of the mixture → mask network → ``mask * spec`` → iSTFT with
-the mixture phase (reference eval behavior, `utils/generic_utils.py:504`).
+the mixture phase (reference eval behavior, `utils/generic_utils.py:504`);
+``--griffin_lim`` re-estimates the phase instead (`dsp/griffin_lim.py`).
+``--streaming`` runs the chunked low-latency engine (`streaming.py`) over the
+streaming model (forward-only LSTM; causal convs where the config says so),
+whose weights come from a streaming checkpoint, e.g. one written by
+`cli.convert_streaming`.
 ``--weights`` is a file written by `voicesplit_tpu_torch.weights.save` or a
 ``checkpoint_<step>.pt`` of the port's trainer.
 The device is the CUDA card unless ``--device cpu`` is given.
@@ -22,7 +28,7 @@ import torch
 from voicesplit_tpu_torch.dsp.processor import AudioProcessor
 from voicesplit_tpu_torch.models.masknet import MaskNet
 
-_NOT_PORTED = ("streaming", "sequence_parallel", "griffin_lim", "reference_wav")
+_NOT_PORTED = ("sequence_parallel", "reference_wav")
 
 
 def separate_batch(
@@ -49,6 +55,7 @@ def main(argv=None):
     parser.add_argument("--output", type=str, required=True)
     parser.add_argument("--device", type=str, default=None, help="cuda (default) or cpu")
     parser.add_argument("--streaming", action="store_true")
+    parser.add_argument("--chunk_frames", type=int, default=50)
     parser.add_argument("--sequence_parallel", action="store_true")
     parser.add_argument("--griffin_lim", action="store_true")
     parser.add_argument("--reference_wav", type=str, default=None)
@@ -65,14 +72,26 @@ def main(argv=None):
 
     config = load_config(args.config_path)
     ap = make_audio_processor(config, device=args.device)
-    model = make_masknet(config, device=args.device)
+    model = make_masknet(config, streaming=args.streaming, device=args.device)
     if is_checkpoint_name(args.weights):
-        model.load_state_dict(load_model_variables(config, args.weights))
+        model.load_state_dict(load_model_variables(config, args.weights, args.streaming))
     else:
         weights.load(model, args.weights)
     emb = np.load(args.emb).astype(np.float32).reshape(1, -1)
     mixed = ap.load_wav(args.mixed_wav)
-    out = separate_batch(model, ap, mixed[None], emb)[0].cpu().numpy()
+    if args.streaming:
+        from voicesplit_tpu_torch.streaming import StreamingSeparator
+
+        sep = StreamingSeparator(config, model, args.chunk_frames, device=args.device)
+        out = sep.separate(mixed[None], emb)[0]
+    elif args.griffin_lim:
+        spec, _ = ap.wav2spec(mixed)
+        with torch.inference_mode():
+            net_in = torch.as_tensor(spec[None], device=ap.device)
+            mask = model(net_in, torch.as_tensor(emb, device=ap.device))[0].cpu().numpy()
+        out = ap.spec2wav(mask * spec, None)
+    else:
+        out = separate_batch(model, ap, mixed[None], emb)[0].cpu().numpy()
     ap.save_wav(out, args.output)
     print(f"wrote {args.output} ({len(out) / ap.sample_rate:.2f}s)")
 

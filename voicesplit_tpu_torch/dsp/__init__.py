@@ -1,4 +1,5 @@
-"""DSP front-end of the port: STFT/iSTFT, dB normalization, wav IO."""
+"""DSP front-end of the port: STFT/iSTFT, dB normalization and preemphasis,
+Griffin-Lim, mel filterbanks, the three audio backends, loudness, wav IO."""
 
 from voicesplit_tpu_torch.dsp.processor import AudioProcessor, make_audio_processor
 

@@ -10,7 +10,10 @@ carry across from a JAX checkpoint unpermuted.
 
 Gradients reach ``{fwd,bwd}_{w_ih,w_hh,b}`` through the projection matmul
 and the kernels' autograd backward (`lstm_bwd` / `bilstm_bwd`).
-`UniLSTM` and the streaming carry are not ported yet.
+
+`UniLSTM`, the streaming model's forward-only LSTM, takes and returns its
+``(h, c)`` carry, so that streaming inference threads the state across
+chunks (`streaming.py`).
 """
 
 from __future__ import annotations
@@ -54,20 +57,16 @@ def lstm_scan(
     return torch.stack(outs, dim=1), (h, c)
 
 
-class BiLSTM(nn.Module):
-    """Bidirectional LSTM; ``[B, T, in]`` → ``[B, T, 2H]`` (fwd ∥ bwd).
+class _LSTMBase(nn.Module):
+    """The parameters of `directions`, each ``{d}_w_ih [in, 4H]``,
+    ``{d}_w_hh [H, 4H]``, ``{d}_b [4H]``."""
 
-    Same dispatch as the JAX module (`models/lstm.py:145-160`): a batch
-    that is a multiple of 8 runs both directions in one `bilstm_fwd`
-    launch; any other batch runs `lstm_fwd` once per direction, the
-    backward one on time-flipped input whose output is flipped back."""
-
-    def __init__(self, in_features: int, hidden: int, compute_dtype=torch.float32):
+    def __init__(self, in_features: int, hidden: int, compute_dtype, directions):
         super().__init__()
         self.hidden = hidden
         self.compute_dtype = compute_dtype
         H4 = 4 * hidden
-        for d in ("fwd", "bwd"):
+        for d in directions:
             self.register_parameter(f"{d}_w_ih", nn.Parameter(torch.empty(in_features, H4)))
             self.register_parameter(f"{d}_w_hh", nn.Parameter(torch.empty(hidden, H4)))
             self.register_parameter(f"{d}_b", nn.Parameter(torch.empty(H4)))
@@ -79,6 +78,48 @@ class BiLSTM(nn.Module):
         with torch.no_grad():
             for p in self.parameters():
                 p.uniform_(-s, s, generator=generator)
+
+
+class UniLSTM(_LSTMBase):
+    """Forward-only LSTM; ``[B, T, in]`` and an optional carry ``(h, c)``
+    ``[B, H]`` → ``([B, T, H], (h, c))``, all in the compute dtype.
+
+    As the JAX module (`models/lstm.py:112-128`): the incoming carry is cast
+    to the compute dtype (in bf16 it is rounded at every chunk boundary,
+    `fused_lstm_scan` returning it in x's dtype), then one `lstm_fwd` from it;
+    the outgoing carry is the last step's ``(h, c)``.  It never takes the
+    two-direction kernel."""
+
+    def __init__(self, in_features: int, hidden: int, compute_dtype=torch.float32):
+        super().__init__(in_features, hidden, compute_dtype, ("fwd",))
+
+    def forward(
+        self, x: torch.Tensor, carry: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+        B = x.shape[0]
+        cd = self.compute_dtype
+        xp = x.to(cd) @ self.fwd_w_ih.to(cd) + self.fwd_b.to(cd)  # [B, T, 4H]
+        if carry is None:
+            h0 = c0 = torch.zeros(B, self.hidden, dtype=torch.float32, device=x.device)
+        else:
+            # the kernel takes fp32 states: round to the compute dtype first
+            h0, c0 = (s.to(cd).float().contiguous() for s in carry)
+        hs, cs, _ = lstm_cuda.lstm_fwd(
+            xp.transpose(0, 1).contiguous(), self.fwd_w_hh.to(cd), h0, c0
+        )
+        return hs.transpose(0, 1).to(cd), (hs[-1].to(cd), cs[-1].to(cd))
+
+
+class BiLSTM(_LSTMBase):
+    """Bidirectional LSTM; ``[B, T, in]`` → ``[B, T, 2H]`` (fwd ∥ bwd).
+
+    Same dispatch as the JAX module (`models/lstm.py:145-160`): a batch
+    that is a multiple of 8 runs both directions in one `bilstm_fwd`
+    launch; any other batch runs `lstm_fwd` once per direction, the
+    backward one on time-flipped input whose output is flipped back."""
+
+    def __init__(self, in_features: int, hidden: int, compute_dtype=torch.float32):
+        super().__init__(in_features, hidden, compute_dtype, ("fwd", "bwd"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B = x.shape[0]

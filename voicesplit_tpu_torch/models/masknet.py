@@ -50,8 +50,18 @@ keep probability rounded to that dtype first, as JAX's weak-typed scalar
 is), with the keep mask drawn from the generator the train-mode forward is
 given (`forward(..., dropout_generator=g)`); without one it raises, as
 flax does without a ``dropout`` rng.  `draw_dropout_keep` draws the masks,
-one call per site in that order.  Not ported yet: causal convs and the
-streaming (unidirectional) model.
+one call per site in that order.
+
+``streaming=True`` swaps the BiLSTM for a `UniLSTM` whose carry ``(h, c)``
+`mask_head` and ``forward`` take and return (``fc1`` then reads ``[H]``
+features), the streaming engine's model (`streaming.py`).  ``causal=True``
+pads every conv's time axis ``(2e, 0)`` instead of ``(e, e)`` (``e`` = half
+the dilated time extent), so output frame t reads input frames up to t only
+and the stack needs no lookahead (`conv_context_right` 0).  A causal layer
+always runs the library conv, after an explicit `torch.nn.functional.pad`:
+the JAX model sends causal layers to ``nn.Conv`` (`masknet.py:246-248`)
+and turns the fused chain off (`:384-395`), and both conv kernels compute
+the symmetric "same" conv, so neither switch reaches a causal model.
 """
 
 from __future__ import annotations
@@ -63,7 +73,7 @@ from torch import nn
 
 from voicesplit_tpu_torch.config import Config
 from voicesplit_tpu_torch.device import DeviceLike, resolve_device
-from voicesplit_tpu_torch.models.lstm import BiLSTM
+from voicesplit_tpu_torch.models.lstm import BiLSTM, UniLSTM
 from voicesplit_tpu_torch.ops.bn_act import bn_act_eval, bn_act_train, mish
 from voicesplit_tpu_torch.ops.conv_cuda import conv2d_dilated_bias, pallas_conv_enabled, takes_layer
 from voicesplit_tpu_torch.ops.conv_fused import fused_chain_enabled, make_chain
@@ -116,7 +126,8 @@ class BatchNorm(nn.Module):
 
 
 class ConvBlock(nn.Module):
-    """"Same" Conv2D → BatchNorm → activation."""
+    """"Same" Conv2D → BatchNorm → activation; with `causal` the time axis
+    is padded ``(2e, 0)`` instead of ``(e, e)``."""
 
     def __init__(
         self,
@@ -126,22 +137,29 @@ class ConvBlock(nn.Module):
         dilation: Tuple[int, int] = (1, 1),
         activation: str = "relu",
         compute_dtype=torch.float32,
+        causal: bool = False,
     ):
         super().__init__()
         kt, kf = kernel
         dt, df = dilation
         # the reference's explicit ZeroPad2d sizes
-        padding = ((kt - 1) * dt // 2, (kf - 1) * df // 2)
+        self.time_pad = (kt - 1) * dt // 2
+        padding = (0 if causal else self.time_pad, (kf - 1) * df // 2)
         self.conv = nn.Conv2d(in_features, features, kernel, dilation=dilation, padding=padding)
         self.bn = BatchNorm(features)
         self.activation = activation
         self.compute_dtype = compute_dtype
+        self.causal = causal
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, C, T, F]
         cd = self.compute_dtype
         c = self.conv
+        x = x.to(cd)
+        if self.causal and self.time_pad:
+            # (2e, 0) in time; frequency keeps the conv's symmetric padding
+            x = nn.functional.pad(x, (0, 0, 2 * self.time_pad, 0))
         y = nn.functional.conv2d(
-            x.to(cd), c.weight.to(cd), c.bias.to(cd), padding=c.padding, dilation=c.dilation
+            x, c.weight.to(cd), c.bias.to(cd), padding=c.padding, dilation=c.dilation
         )
         return self.bn_act(y)
 
@@ -156,7 +174,9 @@ class ConvBlock(nn.Module):
 
 
 class MaskNet(nn.Module):
-    """Speaker-conditioned soft-mask network (train or eval mode)."""
+    """Speaker-conditioned soft-mask network (train or eval mode); with
+    `streaming` a forward-only LSTM with a carry, with `causal` a conv stack
+    without lookahead."""
 
     def __init__(
         self,
@@ -171,10 +191,14 @@ class MaskNet(nn.Module):
         num_extra_dilated_blocks: int = 0,
         compute_dtype=torch.float32,
         dropout: float = 0.0,
+        streaming: bool = False,
+        causal: bool = False,
     ):
         super().__init__()
         self.num_freq = num_freq
         self.dropout = float(dropout)
+        self.streaming = streaming
+        self.causal = causal
         self.emb_dim = emb_dim
         self.conv_channels = conv_channels
         self.conv_out_channels = conv_out_channels
@@ -184,20 +208,44 @@ class MaskNet(nn.Module):
         for i, ((k, d), name) in enumerate(zip(specs, self.block_names)):
             cin = 1 if i == 0 else conv_channels
             cout = conv_out_channels if i == len(specs) - 1 else conv_channels
-            self.add_module(name, ConvBlock(cout, cin, k, d, activation, compute_dtype))
-        self.lstm = BiLSTM(conv_out_channels * num_freq + emb_dim, lstm_dim, compute_dtype)
-        self.fc1 = nn.Linear(2 * lstm_dim, fc1_dim)
+            self.add_module(name, ConvBlock(cout, cin, k, d, activation, compute_dtype, causal))
+        lstm = UniLSTM if streaming else BiLSTM
+        self.lstm = lstm(conv_out_channels * num_freq + emb_dim, lstm_dim, compute_dtype)
+        self.fc1 = nn.Linear(lstm_dim if streaming else 2 * lstm_dim, fc1_dim)
         self.fc2 = nn.Linear(fc1_dim, fc2_dim)
 
     def _dense(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype
         return x @ layer.weight.to(cd).t() + layer.bias.to(cd)
 
+    @property
+    def conv_context(self) -> int:
+        """One side of the stack's time receptive field, the sum of its
+        layers' half extents: 3 + 2 + 4 + 8 + 16 + 32 = 65 frames, and 64
+        more for each extra dilated block (JAX `masknet.py:47-54, :424-428`)."""
+        return sum(getattr(self, name).time_pad for name in self.block_names)
+
+    @property
+    def conv_context_left(self) -> int:
+        """Past frames each output frame depends on: a causal stack folds
+        its whole receptive field into the past."""
+        return 2 * self.conv_context if self.causal else self.conv_context
+
+    @property
+    def conv_context_right(self) -> int:
+        """Future frames each output frame depends on (the streaming
+        lookahead); 0 when causal."""
+        return 0 if self.causal else self.conv_context
+
     def conv_features(self, spec: torch.Tensor) -> torch.Tensor:
         """``[B, T, F]`` → flattened conv features ``[B, T, 8F]`` (f·C + c)."""
         B, T, F = spec.shape
         x = spec.to(self.compute_dtype)[:, None]  # [B, 1, T, F]
-        if pallas_conv_enabled():
+        if self.causal:
+            # the library conv only: the conv kernels compute "same" convs
+            for name in self.block_names:
+                x = getattr(self, name)(x)
+        elif pallas_conv_enabled():
             if self._use_fused_chain():
                 raise ValueError(
                     "VOICESPLIT_PALLAS_CONV=1 and VOICESPLIT_FUSED_CHAIN=1 are both set: "
@@ -212,12 +260,13 @@ class MaskNet(nn.Module):
         return x.permute(0, 2, 3, 1).reshape(B, T, F * self.conv_out_channels)
 
     def _use_fused_chain(self) -> bool:
-        """The JAX model's conditions (`masknet.py:385-395`; the port has no
-        causal mode): train mode, the switch, and a channel count that the
-        folded TPU layout takes.  The CUDA kernels take 64 channels; another
-        multiple of 64 raises on the card."""
+        """The JAX model's conditions (`masknet.py:385-395`): train mode, not
+        causal, the switch, and a channel count that the folded TPU layout
+        takes.  The CUDA kernels take 64 channels; another multiple of 64
+        raises on the card."""
         return (
-            self.training and fused_chain_enabled() and (2 * self.conv_channels) % 128 == 0
+            self.training and not self.causal and fused_chain_enabled()
+            and (2 * self.conv_channels) % 128 == 0
         )
 
     def _fused_chain_features(self, x: torch.Tensor) -> torch.Tensor:
@@ -283,29 +332,37 @@ class MaskNet(nn.Module):
         return torch.where(keep, x / torch.tensor(keep_prob, dtype=x.dtype), 0.0)
 
     def mask_head(self, features: torch.Tensor, emb: torch.Tensor,
-                  dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                  dropout_generator: Optional[torch.Generator] = None,
+                  lstm_carry: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        """The mask ``[B, T, F]`` (fp32); a streaming model returns
+        ``(mask, (h, c))``, the LSTM's carry after the last frame."""
         B, T, _ = features.shape
         cd = self.compute_dtype
         emb_t = emb.to(cd)[:, None, :].expand(B, T, self.emb_dim)
         x = torch.cat([features, emb_t], dim=-1)  # [B, T, 8F + emb]
         x = self._drop(x, dropout_generator)
-        x = torch.relu(self.lstm(x))  # post-LSTM ReLU of both reference models
+        if self.streaming:
+            x, carry = self.lstm(x, lstm_carry)
+        else:
+            x = self.lstm(x)
+        x = torch.relu(x)  # post-LSTM ReLU of both reference models
         x = self._drop(x, dropout_generator)
         x = torch.relu(self._dense(self.fc1, x))
-        return torch.sigmoid(self._dense(self.fc2, x).float())  # fp32 [B, T, F]
+        mask = torch.sigmoid(self._dense(self.fc2, x).float())  # fp32 [B, T, F]
+        return (mask, carry) if self.streaming else mask
 
     def forward(self, spec: torch.Tensor, emb: torch.Tensor,
-                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return self.mask_head(self.conv_features(spec), emb, dropout_generator)
+                dropout_generator: Optional[torch.Generator] = None,
+                lstm_carry: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        return self.mask_head(self.conv_features(spec), emb, dropout_generator, lstm_carry)
 
 
-def make_masknet(config: Config, device: DeviceLike = None) -> MaskNet:
+def make_masknet(config: Config, streaming: bool = False, device: DeviceLike = None) -> MaskNet:
     """Build the model selected by ``config.model_name`` ("voicefilter" ⇒
-    relu, "voicesplit" ⇒ mish) on `device` (the CUDA card by default), in
-    eval mode."""
+    relu, "voicesplit" ⇒ mish), causal as ``config.model.causal`` says and
+    with the streaming LSTM when `streaming`, on `device` (the CUDA card by
+    default), in eval mode."""
     m = config.model
-    if m.causal:
-        raise NotImplementedError("causal convs are not yet ported")
     dev = resolve_device(device)
     model = MaskNet(
         num_freq=config.audio.active.num_freq,
@@ -319,5 +376,7 @@ def make_masknet(config: Config, device: DeviceLike = None) -> MaskNet:
         num_extra_dilated_blocks=m.num_extra_dilated_blocks,
         compute_dtype=getattr(torch, config.train_config.compute_dtype),
         dropout=m.dropout,
+        streaming=streaming,
+        causal=m.causal,
     )
     return model.to(dev).eval()

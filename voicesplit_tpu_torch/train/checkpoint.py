@@ -22,8 +22,9 @@ JAX package into trees of numpy arrays, which
 into the port.  It decodes flax's msgpack extension types itself and needs
 the ``msgpack`` package, nothing of JAX or flax.
 
-Not ported yet: `bilstm_to_streaming_sd` and
-`convert_bilstm_checkpoint_to_streaming` (they wait for the streaming model).
+`bilstm_to_streaming_sd` and `convert_bilstm_checkpoint_to_streaming` seed
+the streaming model (forward-only LSTM, `MaskNet(streaming=True)`) from an
+offline BiLSTM checkpoint of either package.
 """
 
 from __future__ import annotations
@@ -192,17 +193,22 @@ def _shape_mismatches(loaded: Mapping[str, torch.Tensor], model: nn.Module) -> L
     return bad
 
 
-def load_model_variables(config: Config, checkpoint_path: str) -> Dict[str, torch.Tensor]:
+def load_model_variables(
+    config: Config, checkpoint_path: str, streaming: bool = False
+) -> Dict[str, torch.Tensor]:
     """Inference-ready ``state_dict`` (parameters and running statistics) of
-    the config's model from a trainer checkpoint; raises where the
-    checkpoint does not fit the model, before anything is loaded."""
+    the config's model (the streaming one with `streaming`) from a trainer
+    checkpoint; raises where the checkpoint does not fit the model, before
+    anything is loaded."""
     from voicesplit_tpu_torch.models.masknet import make_masknet
 
     payload = load_checkpoint(checkpoint_path)
     sd = {**payload["model"], **payload["batch_stats"]}
-    bad = _shape_mismatches(sd, make_masknet(config, device="meta"))
+    bad = _shape_mismatches(sd, make_masknet(config, streaming=streaming, device="meta"))
     if bad:
-        raise ValueError(f"checkpoint {checkpoint_path!r} does not fit the model: " + "; ".join(bad))
+        raise ValueError(
+            f"checkpoint {checkpoint_path!r} does not fit the "
+            f"{'streaming ' if streaming else ''}model: " + "; ".join(bad))
     return sd
 
 
@@ -235,6 +241,64 @@ def restore_train_state(
     state.step = int(payload["step"])
     data_state = IteratorState.from_dict(payload.get("data_state", IteratorState().to_dict()))
     return state, data_state
+
+
+def bilstm_to_streaming_sd(
+    model_sd: Mapping[str, torch.Tensor], lstm_dim: int
+) -> Dict[str, torch.Tensor]:
+    """A BiLSTM model's ``state_dict`` → the streaming (forward-only LSTM)
+    model's, as `voicesplit_tpu/train/checkpoint.py::bilstm_to_streaming_sd`:
+
+    - ``lstm.fwd_*`` copied, ``lstm.bwd_*`` dropped;
+    - ``fc1``: the BiLSTM head computes ``h_f @ W_f + h_b @ W_b``; collapsing
+      it to ``h_f @ (W_f + W_b)`` is exact where ``h_b ≈ h_f`` and keeps the
+      head's input scale.  ``fc1.weight`` is ``[fc1, 2H]`` here (JAX's
+      kernel rows are these columns);
+    - everything else (convs, BatchNorm, fc2) copied.
+    """
+    H = lstm_dim
+    w = torch.as_tensor(model_sd["fc1.weight"])
+    if w.shape[1] != 2 * H:
+        raise ValueError(
+            f"fc1 input features {w.shape[1]} != 2*lstm_dim {2 * H}: not a BiLSTM checkpoint")
+    out = {k: v for k, v in model_sd.items()
+           if not k.startswith("lstm.bwd_") and k != "fc1.weight"}
+    out["fc1.weight"] = w[:, :H] + w[:, H:]
+    return out
+
+
+def convert_bilstm_checkpoint_to_streaming(
+    ckpt_path: str, out_dir: str, causal: Optional[bool] = None, device=None,
+) -> str:
+    """An offline BiLSTM checkpoint (the port's ``.pt`` or the JAX package's
+    ``.msgpack``) → a streaming-model ``checkpoint_0.pt`` in `out_dir`, for
+    causal fine-tuning (`Trainer` on its config) or serving.
+
+    `causal` sets ``config.model.causal`` in the written config (default
+    True: the zero-lookahead geometry).  The step is 0 and the optimizer
+    state fresh: a warm start, not a resume.  The model is built on
+    `device` (the CUDA card unless the CPU is named).  Returns the path."""
+    from voicesplit_tpu_torch.models.masknet import make_masknet
+    from voicesplit_tpu_torch.train.state import create_train_state, make_optimizer
+    from voicesplit_tpu_torch.weights import state_dict_from_jax
+
+    if ckpt_path.endswith(".msgpack"):
+        payload = load_jax_checkpoint(ckpt_path)
+        sd = state_dict_from_jax(payload["params"], payload["batch_stats"])
+    else:
+        payload = load_checkpoint(ckpt_path)
+        sd = {**payload["model"], **payload["batch_stats"]}
+    config = load_config_from_str(payload["config_str"])
+    config.model.causal = True if causal is None else causal
+    model = make_masknet(config, streaming=True, device=device)
+    sd = bilstm_to_streaming_sd(sd, config.model.lstm_dim)
+    bad = _shape_mismatches(sd, model)
+    if bad:
+        raise ValueError(f"checkpoint {ckpt_path!r} does not fit the streaming model: "
+                         + "; ".join(bad))
+    model.load_state_dict(sd)
+    state = create_train_state(model, make_optimizer(config, model))
+    return save_checkpoint(out_dir, state, config)
 
 
 def partial_restore(

@@ -26,6 +26,9 @@ counter on the step's device, ``(0x5A, step)`` for SpecAugment and
 ``PRNGKey(0x5A)`` and ``PRNGKey(0xD0)``: a run is deterministic and a
 resumed run draws what the uninterrupted one would.  The bits are torch's,
 not JAX's streams.
+
+The streaming model (`MaskNet(streaming=True)`) returns ``(mask, carry)``;
+both steps use the mask and drop the carry, as the JAX steps do.
 """
 
 from __future__ import annotations
@@ -116,6 +119,8 @@ def make_train_step(
             )
         drop_gen = step_generator(DROPOUT_SEED, state.step, ap.device) if dropout else None
         mask = model(net_in, b["emb"], dropout_generator=drop_gen)
+        if isinstance(mask, tuple):  # streaming model: (mask, lstm carry)
+            mask = mask[0]
         # the estimate multiplies the clean mixture spec: SpecAugment
         # corrupts the mask net's input, not the signal path
         loss = _loss_from_outputs(
@@ -187,6 +192,8 @@ def make_eval_step(
                 mixed_spec, mixed_phase = ap.wav2spec_batch(b["mixed_wav"])
                 target_spec, _ = ap.wav2spec_batch(b["target_wav"])
                 mask = model(mixed_spec, b["emb"])
+                if isinstance(mask, tuple):  # streaming model: (mask, lstm carry)
+                    mask = mask[0]
                 output = mask * mixed_spec
                 loss = _loss_from_outputs(
                     config, ap, output, target_spec, mixed_phase, b["wav_len"]

@@ -33,8 +33,13 @@ report under ``"nan_report"``.  The ctypes kernel wrappers are not torch
 functions, so a non-finite value out of a kernel is named at the first op
 after it.
 
-Not ported yet (each raises): a device mesh, ``model_parallel > 1``, several
-processes and the streaming (causal) model.
+``streaming=None`` follows ``config.model.causal``, as in the JAX package: a
+causal conv stack pairs with the forward-only LSTM (the zero-lookahead
+streaming model); ``streaming=False`` trains causal convs under a BiLSTM
+head.
+
+Not ported yet (each raises): a device mesh, ``model_parallel > 1`` and
+several processes.
 """
 
 from __future__ import annotations
@@ -135,16 +140,16 @@ class Trainer:
     ):
         if mesh is not None or model_parallel > 1:
             raise NotImplementedError("a device mesh and model_parallel > 1 are not yet ported")
-        if streaming or (streaming is None and config.model.causal):
-            raise NotImplementedError("the streaming (causal) model is not yet ported")
         if torch.distributed.is_available() and torch.distributed.is_initialized():
             raise NotImplementedError("training in several processes is not yet ported")
         self.config = config
         self.log_dir = log_dir or config.train_config.logs_path
         self.ap: AudioProcessor = make_audio_processor(config, device=device)
         self.device = self.ap.device
+        self.streaming = config.model.causal if streaming is None else streaming
         self.model = init_for_training_(
-            make_masknet(config, device=device), config.train_config.seed
+            make_masknet(config, streaming=self.streaming, device=device),
+            config.train_config.seed,
         )
 
         if train_loader is None:

@@ -10,6 +10,10 @@ JAX names (flax variables of `voicesplit_tpu.models.masknet.MaskNet`):
     params/lstm/{fwd,bwd}_{w_ih [in, 4H], w_hh [H, 4H], b [4H]}
     params/fc{1,2}/{kernel [in, out], bias}
 
+The streaming model's tree (`make_masknet(config, streaming=True)`) has
+``lstm/fwd_*`` only and an ``fc1`` kernel of ``[H, fc1]``; every function
+here takes either tree, its LSTM entries by name.
+
 Conv kernels go from HWIO to OIHW and Dense kernels are transposed; the
 LSTM keeps its JAX layout.  The same mapping carries any tree shaped like
 ``params``, such as Adam's first and second moments.  The trees are nested

@@ -16,7 +16,11 @@ step moves each by about lr·sign(g)), as `test_train_step_matches_jax`;
 """
 
 import json
+import os
 import pathlib
+import subprocess
+import sys
+import textwrap
 
 import numpy as np
 import pytest
@@ -310,3 +314,33 @@ def test_convert_and_serve_through_the_clis(tmp_path, capsys):
     assert got.shape == want.shape == (L,)
     # `save_wav` peak-normalizes to int16 (the reference's writer)
     np.testing.assert_allclose(got, want / max(0.01, np.abs(want).max()), atol=2.0 ** -14)
+
+
+@pytest.mark.parametrize("flag", ["--streaming", "--griffin_lim"])
+def test_separate_cli_flags_load_no_jax(flag, tmp_path):
+    """`cli.separate --streaming` and `--griffin_lim` in a fresh interpreter:
+    JAX, flax and the JAX package never load."""
+    config = load_config_from_str(_config_text(causal=flag == "--streaming"))
+    config.audio.voicefilter.griffin_lim_iters = 2
+    (tmp_path / "c.json").write_text(config.to_json())
+    model = make_masknet(config, streaming=flag == "--streaming", device="cpu")
+    weights.save(weights.init_random_(model, 0), str(tmp_path / "w.pt"))
+    ap = make_audio_processor(config, device="cpu")
+    ap.save_wav((0.1 * np.random.default_rng(3).standard_normal(L)).astype(np.float32),
+                str(tmp_path / "mix.wav"))
+    np.save(tmp_path / "emb.npy", np.ones(EMB, np.float32))
+    args = ["-c", str(tmp_path / "c.json"), "--weights", str(tmp_path / "w.pt"),
+            "--mixed_wav", str(tmp_path / "mix.wav"), "--emb", str(tmp_path / "emb.npy"),
+            "--output", str(tmp_path / "out.wav"), "--device", "cpu", flag]
+    code = textwrap.dedent(f"""
+        import sys
+        from voicesplit_tpu_torch.cli.separate import main
+        main({args!r})
+        bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "voicesplit_tpu")]
+        assert not bad, bad
+        print("NO_JAX_OK")
+        """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), capture_output=True,
+                          text=True, timeout=300, env={**os.environ, "OMP_NUM_THREADS": "2"})
+    assert proc.returncode == 0, proc.stderr
+    assert "NO_JAX_OK" in proc.stdout and (tmp_path / "out.wav").exists()

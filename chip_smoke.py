@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch port's serving and training paths, its
-training, preprocessing and evaluation entry points, streaming separation and
-Griffin-Lim, at
+training, preprocessing and evaluation entry points, streaming separation,
+Griffin-Lim and the speaker encoders, at
 `configs/voicesplit.json` and at the wide `configs/voicesplit_wide.json`
 (NVIDIA H100).
 
@@ -186,6 +186,26 @@ Phases, each printing one JSON line:
    for STREAM_TRAIN_STEPS steps with checkpoints; a random BiLSTM checkpoint
    through `cli.convert_streaming.main`, served by `cli.separate.main
    --streaming`: the same bits as `StreamingSeparator.separate`.
+19. encoder — the speaker encoders at full width in fp32: (a) ``lstm_fwd``
+   at the GE2E training step's 96 rows and the extraction CLI's 32 windows
+   (T=80, H=768, the grid route) and at CorentinJ's 32 partials (T=160,
+   H=256, the cluster walk), ``lstm_bwd`` at 96 rows (the grid route),
+   each against its plain version (TOL, the same bits twice), timed beside
+   its bound at this T and cuDNN's fp32 ``torch.nn.LSTM``; (b) GE2E
+   training through `train_ge2e` (N=16 x M=6, Adam, clip 3.0) on a
+   synthetic corpus of ENCODER_SPEAKERS x ENCODER_UTTERANCES voices:
+   exactly 3 ``lstm_fwd`` and 3 ``lstm_bwd`` a step on the grid routes,
+   the first steps' losses against the plain versions (ENCODER_LOSS_TOL),
+   step p50 / p75 of ENCODER_STEPS after ENCODER_WARM, peak memory; then
+   `cli.train_encoder.main` resumed from that run's ``.pt`` for 4 steps
+   with the held-out EER and a checkpoint; (c) `cli.extract_embeddings.main`
+   with ``ge2e`` (random, then the trained ``.pt``), ``corentinj``,
+   ``speech2phone`` and ``spectral`` on ENCODER_REFS references and one
+   shorter than a window (the ``[0]`` sentinel): 3 ``lstm_fwd`` a window
+   batch of 32, finite d-vectors (unit norm where renormalized), seconds a
+   file, the trained encoder's windows against the plain versions
+   (ENCODER_EMB_TOL), and one batch of the ``-emb.npy`` files through
+   `data/dataset.py`.
 
 Then a ``{"kernels": [...]}`` line (each kernel's ``main_path``: false for
 the routes no path takes, OFF_PATH, launched only in the kernels phases),
@@ -200,7 +220,7 @@ device's idle share under the profiler and the device time by kind of
 kernel.  ``--phases`` runs a subset (of kernels, bwd_kernels, separate,
 train, conv_kernels, train_fused, dilated_kernels, separate_dilated,
 trainer, separate_wide, train_wide, evaluate, preprocess, trainer_online, dsp,
-streaming, train_streaming; device and build always run)
+streaming, train_streaming, encoder; device and build always run)
 and ends with a line marked
 ``"partial"`` instead of the result lines.
 """
@@ -463,10 +483,11 @@ SOURCES = {
     "conv_dilated_wgrad": "voicesplit_tpu_torch/csrc/conv_wgrad.cu",
 }
 # kernels that the paths do not launch (the `kernels` line lists them with
-# "main_path": false): the grid routes, which only fp32 takes at H=800, and
-# the two-direction backward at H=800 (B=8; the wide config trains at B=2),
-# checked and timed in the kernels phases
-OFF_PATH = ("lstm_fwd_grid", "bilstm_fwd_grid", "lstm_bwd_grid", "bilstm_bwd_grid", "bilstm_bwd_split")
+# "main_path": false): the two-direction grid routes, which only fp32 takes
+# at H=800, and the two-direction backward at H=800 (B=8; the wide config
+# trains at B=2), checked and timed in the kernels phases.  The
+# one-direction grid routes are the GE2E encoder's (fp32, H=768).
+OFF_PATH = ("bilstm_fwd_grid", "bilstm_bwd_grid", "bilstm_bwd_split")
 
 
 REPORTS: dict = {}  # each phase's printed fields, by phase name
@@ -497,11 +518,12 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def lstm_bound(directions: int, batch: int, dtype: str, H: int = HIDDEN) -> dict:
+def lstm_bound(directions: int, batch: int, dtype: str, H: int = HIDDEN,
+               T: int = T_FRAMES) -> dict:
     """Least time for the recurrence: each input byte read once, each output
     byte written once, and the recurrent products at the operand type's
     peak."""
-    T, R = T_FRAMES, directions * batch
+    R = directions * batch
     op_bytes = 2 if dtype == "bfloat16" else 4
     bytes_ = (
         T * R * 4 * H * op_bytes  # xp
@@ -521,11 +543,12 @@ def lstm_bound(directions: int, batch: int, dtype: str, H: int = HIDDEN) -> dict
     }
 
 
-def lstm_bwd_bound(directions: int, batch: int, dtype: str, H: int = HIDDEN) -> dict:
+def lstm_bwd_bound(directions: int, batch: int, dtype: str, H: int = HIDDEN,
+                   T: int = T_FRAMES) -> dict:
     """The same for the backward: W_hh, gates, cs, hs, dhs (and h0, c0, dhf,
     dcf for one direction) read once, dxp, dW_hh (and dh0, dc0) written
     once, and both products (dh_prev and dW_hh) at the operand type's peak."""
-    T, R = T_FRAMES, directions * batch
+    R = directions * batch
     op_bytes = 2 if dtype == "bfloat16" else 4
     bytes_ = (
         directions * H * 4 * H * op_bytes  # W_hh
@@ -546,11 +569,12 @@ def lstm_bwd_bound(directions: int, batch: int, dtype: str, H: int = HIDDEN) -> 
     }
 
 
-def lstm_dwhh_bound(directions: int, batch: int, dtype: str, H: int = HIDDEN) -> dict:
+def lstm_dwhh_bound(directions: int, batch: int, dtype: str, H: int = HIDDEN,
+                    T: int = T_FRAMES) -> dict:
     """The same for the dW_hh kernel alone: hs (and h0 for one direction)
     and dxp read once, dW_hh written once, its product at the operand
     type's peak."""
-    T, R = T_FRAMES, directions * batch
+    R = directions * batch
     op_bytes = 2 if dtype == "bfloat16" else 4
     bytes_ = (
         T * R * H * 4  # hs
@@ -665,12 +689,12 @@ def phase_build(torch, lstm_cuda, conv_fused) -> None:
 
 
 def _fwd_case(torch, lstm_cuda, g, directions: int, batch: int, H: int, route: str,
-              timed: bool, dtypes=("bfloat16", "float32")) -> dict:
+              timed: bool, dtypes=("bfloat16", "float32"), T: int = T_FRAMES) -> dict:
     """One forward kernel against its plain version on the card at (batch,
-    H), in `dtypes`: errors, two launches with the same bits, the route they
-    took; with `timed`, kernel and plain times."""
+    H) over T steps, in `dtypes`: errors, two launches with the same bits,
+    the route they took; with `timed`, kernel and plain times."""
     dev = torch.device("cuda")
-    T, R = T_FRAMES, directions * batch
+    R = directions * batch
     s = H ** -0.5
     xp32 = torch.randn(T, R, 4 * H, generator=g)
     ws32 = [torch.empty(H, 4 * H).uniform_(-s, s, generator=g) for _ in range(directions)]
@@ -718,14 +742,16 @@ def _fwd_case(torch, lstm_cuda, g, directions: int, batch: int, H: int, route: s
     return entry
 
 
-def _cudnn_lstm_ms(torch, g, directions: int, batch: int, H: int) -> float:
+def _cudnn_lstm_ms(torch, g, directions: int, batch: int, H: int, dtype: str = "bfloat16",
+                   T: int = T_FRAMES, in_features: int = IN_FEATURES) -> float:
     """Yardstick: cuDNN LSTM's forward over the model's LSTM input (incl.
-    the input projection), bf16; its weights are compacted on every call
-    (torch's flatten_parameters takes only fp16/fp32/fp64)."""
-    dev = torch.device("cuda")
-    lstm = torch.nn.LSTM(IN_FEATURES, H, batch_first=True, bidirectional=directions == 2)
-    lstm = lstm.to(dev, torch.bfloat16)
-    x = torch.randn(batch, T_FRAMES, IN_FEATURES, generator=g).to(dev, torch.bfloat16)
+    the input projection), bf16 by default; its weights are compacted on
+    every call in bf16 (torch's flatten_parameters takes only
+    fp16/fp32/fp64).  In fp32, TF32 is off (`set_fp32_precision`)."""
+    dev, dt = torch.device("cuda"), getattr(torch, dtype)
+    lstm = torch.nn.LSTM(in_features, H, batch_first=True, bidirectional=directions == 2)
+    lstm = lstm.to(dev, dt)
+    x = torch.randn(batch, T, in_features, generator=g).to(dev, dt)
     with torch.inference_mode():
         return time_ms(torch, lambda: lstm(x), iters=20)
 
@@ -767,15 +793,15 @@ def phase_kernels(torch, lstm_cuda, seed: int) -> dict:
 
 
 def _bwd_case(torch, lstm_cuda, g, directions: int, batch: int, timed: bool, H: int = HIDDEN,
-              route: str = "cluster", dtypes=("bfloat16", "float32")) -> dict:
+              route: str = "cluster", dtypes=("bfloat16", "float32"), T: int = T_FRAMES) -> dict:
     """One backward kernel against its plain version on the card at `batch`
-    rows a direction and H units, in `dtypes`, on the plain forward's
+    rows a direction, H units and T steps, in `dtypes`, on the plain forward's
     outputs for random inputs and random cotangents: peak-relative errors,
     two launches with the same bits, both on `route`, and the call's dW_hh
     the bits of the dW_hh kernel alone on its dxp; with `timed`, kernel,
     plain and the dW_hh kernel alone."""
     dev = torch.device("cuda")
-    T, R = T_FRAMES, directions * batch
+    R = directions * batch
     s = H ** -0.5
     xp32 = torch.randn(T, R, 4 * H, generator=g)
     ws32 = [torch.empty(H, 4 * H).uniform_(-s, s, generator=g) for _ in range(directions)]
@@ -833,17 +859,19 @@ def _bwd_case(torch, lstm_cuda, g, directions: int, batch: int, timed: bool, H: 
                 entry[dt]["ms"] = time_ms(torch, lambda: kernel(*args), iters=20)
                 entry[dt]["dwhh_ms"] = time_ms(torch, dwhh, iters=20)
                 entry[dt]["plain_ms"] = time_ms(torch, lambda: plain(*args), iters=3, warmup=1)
-            entry[dt]["dwhh_bound"] = lstm_dwhh_bound(directions, batch, dt, H)
+            entry[dt]["dwhh_bound"] = lstm_dwhh_bound(directions, batch, dt, H, T)
     return entry
 
 
-def _cudnn_lstm_bwd_ms(torch, g, directions: int, batch: int, H: int) -> float:
+def _cudnn_lstm_bwd_ms(torch, g, directions: int, batch: int, H: int, dtype: str = "bfloat16",
+                       T: int = T_FRAMES, in_features: int = IN_FEATURES) -> float:
     """Yardstick: .backward() alone of a cuDNN LSTM over the model's LSTM
-    input, bf16 (it also computes the input projection's gradients)."""
-    dev = torch.device("cuda")
-    lstm = torch.nn.LSTM(IN_FEATURES, H, batch_first=True, bidirectional=directions == 2)
-    lstm = lstm.to(dev, torch.bfloat16)
-    x = torch.randn(batch, T_FRAMES, IN_FEATURES, generator=g).to(dev, torch.bfloat16)
+    input, bf16 by default (it also computes the input projection's
+    gradients)."""
+    dev, dt = torch.device("cuda"), getattr(torch, dtype)
+    lstm = torch.nn.LSTM(in_features, H, batch_first=True, bidirectional=directions == 2)
+    lstm = lstm.to(dev, dt)
+    x = torch.randn(batch, T, in_features, generator=g).to(dev, dt)
     x.requires_grad_(True)
     out, _ = lstm(x)
     cot = torch.randn_like(out)
@@ -3076,6 +3104,254 @@ def phase_train_streaming(torch, lstm_cuda, cc, cf, seed: int, profile_dir) -> d
     return launches
 
 
+# the speaker encoders (encoder phase): GE2E trained at N x M windows of
+# ENCODER_FRAMES log-mel frames, H=768, 3 layers, fp32; extraction in fixed
+# batches of ENCODER_WINDOW_BATCH windows; CorentinJ at H=256 over 160-frame
+# partials.  Each LSTM shape (name, T, rows, H) with the route it must take:
+# fp32 at H=768 fits no cluster walk (a block's W_hh columns alone are 590
+# KB): the grid routes; H=256 one cluster.
+ENCODER_N, ENCODER_M, ENCODER_FRAMES, ENCODER_HIDDEN = 16, 6, 80, 768
+ENCODER_WINDOW_BATCH = 32
+ENCODER_SHAPES = {"ge2e_train": (ENCODER_FRAMES, ENCODER_N * ENCODER_M, ENCODER_HIDDEN, "grid"),
+                  "ge2e_extract": (ENCODER_FRAMES, ENCODER_WINDOW_BATCH, ENCODER_HIDDEN, "grid"),
+                  "corentinj_extract": (160, ENCODER_WINDOW_BATCH, 256, "cluster")}
+ENCODER_LAUNCHES = {"lstm_fwd": 3, "bilstm_fwd": 0, "lstm_bwd": 3, "bilstm_bwd": 0}  # a GE2E step
+ENCODER_WARM, ENCODER_STEPS, ENCODER_PLAIN_STEPS = 4, 20, 3  # 24 steps: the CLI's 4 more end on an interval
+# a GE2E step's losses through the kernels against the plain versions (fp32,
+# summation order only, three steps of Adam)
+ENCODER_LOSS_TOL = 1e-4
+ENCODER_EMB_TOL = 1e-4  # d-vectors (unit windows) kernels vs plain versions
+# the synthetic corpus: at least 20 speakers x 4 utterances (16 train a step,
+# 4 held out by the CLI's EER)
+ENCODER_SPEAKERS, ENCODER_UTTERANCES, ENCODER_SECONDS = 24, 4, 2.0
+ENCODER_LR = 1e-4  # the JAX CLI's default
+ENCODER_REFS, ENCODER_REF_SECONDS = 8, 3.0  # extraction: references a directory
+
+
+def _encoder_corpus(root: Path, seed: int) -> dict:
+    """root/<speaker>/*.wav of synthetic voices (`data/synthetic.py`'s
+    signal helper) from `seed`; returns speaker → wavs."""
+    from voicesplit_tpu_torch.data.synthetic import _speaker_wav
+    from voicesplit_tpu_torch.dsp.audio_io import save_wav_float
+
+    sr, rng = 16000, np.random.default_rng(seed)
+    n = int(ENCODER_SECONDS * sr)
+    speakers = {}
+    for s in range(ENCODER_SPEAKERS):
+        d = root / f"spk{s:02d}"
+        d.mkdir(parents=True)
+        speakers[d.name] = []
+        for k in range(ENCODER_UTTERANCES):
+            path = str(d / f"u{k}.wav")
+            save_wav_float(_speaker_wav(rng, s, n, sr), path, sr)
+            speakers[d.name].append(path)
+    return speakers
+
+
+def _encoder_kernels(torch, lstm_cuda, seed: int) -> dict:
+    """(a) `lstm_fwd` at ENCODER_SHAPES and `lstm_bwd` at the GE2E training
+    shape, fp32, against their plain versions on the card (TOL, the same
+    bits twice, the route), timed beside the bound (this T) and cuDNN's fp32
+    `torch.nn.LSTM` (TF32 off) over the layer's input (H wide: the upper
+    layers'), as a yardstick."""
+    g = torch.Generator(device="cpu").manual_seed(seed + 15)
+    out = {}
+    for key, (T, R, H, route) in ENCODER_SHAPES.items():
+        cfg = lstm_cuda.launch_config(1, R, H, torch.float32, backward=False)
+        check(cfg["route"] == route, f"lstm_fwd {key}: route {cfg}")
+        check(cfg["local_bytes"] == 0, f"lstm_fwd {key}: {cfg['local_bytes']} spilled bytes")
+        entry = _fwd_case(torch, lstm_cuda, g, 1, R, H, route, timed=True, dtypes=("float32",), T=T)
+        out[f"lstm_fwd_{key}"] = {
+            "fp32": entry["float32"], "T": T, "rows": R, "H": H, "route": route, "grid": cfg,
+            "library_ms": _cudnn_lstm_ms(torch, g, 1, R, H, "float32", T, H),
+            **lstm_bound(1, R, "float32", H, T)}
+        emit("encoder kernels", kernel="lstm_fwd", shape=key, **out[f"lstm_fwd_{key}"])
+    T, R, H, route = ENCODER_SHAPES["ge2e_train"]
+    cfg = lstm_cuda.launch_config(1, R, H, torch.float32, backward=True)
+    check(cfg["route"] == route and cfg["resident_blocks"] >= cfg["blocks"], f"lstm_bwd ge2e_train: {cfg}")
+    entry = _bwd_case(torch, lstm_cuda, g, 1, R, timed=True, H=H, route=route, dtypes=("float32",), T=T)
+    out["lstm_bwd_ge2e_train"] = {
+        "fp32": entry["float32"], "T": T, "rows": R, "H": H, "route": route, "grid": cfg,
+        "library_ms": _cudnn_lstm_bwd_ms(torch, g, 1, R, H, "float32", T, H),
+        **lstm_bwd_bound(1, R, "float32", H, T)}
+    emit("encoder kernels", kernel="lstm_bwd", shape="ge2e_train", **out["lstm_bwd_ge2e_train"])
+    return out
+
+
+def phase_encoder(torch, lstm_cuda, seed: int, profile_dir, tmp: Path) -> tuple:
+    """The speaker encoders at full width on the card: (a) the LSTM kernels
+    at the encoders' shapes; (b) GE2E training through `train_ge2e` and the
+    training CLI (under ``--profile`` also a GE2E step's device time by
+    kind); (c) `cli.extract_embeddings` with each encoder, its ``-emb.npy``
+    files loaded by `data/dataset.py`.  Returns the kernels' results and the
+    launches of the counted runs."""
+    from voicesplit_tpu_torch.cli.extract_embeddings import main as extract_main
+    from voicesplit_tpu_torch.cli.train_encoder import main as train_encoder_main
+    from voicesplit_tpu_torch.config import Config
+    from voicesplit_tpu_torch.data.dataset import BatchIterator, SeparationDataset, discover_samples
+    from voicesplit_tpu_torch.data.synthetic import _speaker_wav
+    from voicesplit_tpu_torch.dsp.audio_io import save_wav_float
+    from voicesplit_tpu_torch.dsp.processor import make_audio_processor
+    from voicesplit_tpu_torch.train.encoder import (
+        MelSampler,
+        embed_windows,
+        load_encoder_checkpoint,
+        make_ge2e_step,
+        save_encoder_checkpoint,
+        train_ge2e,
+    )
+    from voicesplit_tpu_torch.train.state import make_adam
+
+    kernels = _encoder_kernels(torch, lstm_cuda, seed)
+    report = {"kernels": {k: {"ms": v["fp32"]["ms"], "bound_ms": v["bound_ms"],
+                              "library_ms": v["library_ms"], "max_abs_err": v["fp32"]["max_abs_err"]}
+                          for k, v in kernels.items()}}
+    config = Config()
+    ap = make_audio_processor(config)
+    speakers = _encoder_corpus(tmp / "corpus", seed)
+
+    # (b) GE2E training: the counted run of the main path, warm-up steps then
+    # timed ones (each step's loss read on the host: a synchronize a step)
+    kw = dict(n_speakers=ENCODER_N, m_utts=ENCODER_M, lr=ENCODER_LR, emb_dim=config.model.emb_dim,
+              seed=seed, log_interval=1)
+    init = train_ge2e(ap, speakers, steps=0, log=lambda s: None, **kw)[1]
+    start = {k: v.detach().clone() for k, v in init.state_dict().items()}
+    del init
+    stamps = []
+    n_steps = ENCODER_WARM + ENCODER_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lstm_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    encoder, model, opt_state, losses = train_ge2e(
+        ap, speakers, steps=n_steps, params=start, log=lambda s: stamps.append(time.perf_counter()),
+        **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(lstm_cuda.LAUNCHES)
+    want = {k: v * n_steps for k, v in ENCODER_LAUNCHES.items()}
+    check(launches == want, f"GE2E: launches {launches} for {n_steps} steps, wanted {want}")
+    counted = _check_routes(lstm_cuda, launches, "GE2E training",
+                            {"forward": "grid", "backward": "grid"})
+    check(all(np.isfinite(losses)) and len(losses) == n_steps, f"GE2E losses {losses}")
+    step_ms = np.diff(stamps[ENCODER_WARM - 1:]) * 1e3
+    # the same first steps from the same weights through the plain versions
+    with _PlainVersions(lstm_cuda):
+        plain = train_ge2e(ap, speakers, steps=ENCODER_PLAIN_STEPS, params=start,
+                           log=lambda s: None, **kw)[3]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain))
+    check(loss_rel <= ENCODER_LOSS_TOL, f"GE2E losses {losses[:3]} vs plain {plain}")
+    report["ge2e"] = {
+        "N": ENCODER_N, "M": ENCODER_M, "H": ENCODER_HIDDEN, "layers": 3, "frames": ENCODER_FRAMES,
+        "dtype": "float32", "lr": ENCODER_LR, "corpus": [ENCODER_SPEAKERS, ENCODER_UTTERANCES],
+        "steps": n_steps, "launches": launches, "launches_per_step": ENCODER_LAUNCHES,
+        "losses": losses, "plain_losses": plain, "loss_rel_vs_plain": loss_rel,
+        "loss_tol": ENCODER_LOSS_TOL, "timed_steps": len(step_ms),
+        "step_ms_p50": float(np.percentile(step_ms, 50)),
+        "step_ms_p75": float(np.percentile(step_ms, 75)), "wall_seconds": wall,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "w": model.w.item(), "b": model.b.item()}
+    trained = str(tmp / f"encoder_{n_steps}.pt")
+    save_encoder_checkpoint(trained, model, opt_state, n_steps)
+    if profile_dir:
+        sampler = MelSampler(ap, speakers, ENCODER_FRAMES, np.random.default_rng(seed))
+        mels = torch.as_tensor(sampler.batch(ENCODER_N, ENCODER_M)[0], device="cuda")
+        step = make_ge2e_step(model, make_adam(model.parameters(), ENCODER_LR), ENCODER_N, ENCODER_M)
+        report["ge2e"]["profile"] = profile(torch, profile_dir, "ge2e_step", lambda: step(mels))
+    del encoder, model, opt_state
+
+    # the training CLI: a resumed run of four steps with the held-out EER
+    # and a checkpoint
+    t0 = time.perf_counter()
+    lstm_cuda.reset_launch_counts()
+    train_encoder_main(["--data_root", str(tmp / "corpus"), "--steps", str(n_steps + 4),
+                        "--checkpoint_interval", "4", "--eval_interval", "4", "--log_interval", "4",
+                        "--output_path", str(tmp / "cli"), "--resume", trained])
+    torch.cuda.synchronize()
+    cli_launches = dict(lstm_cuda.LAUNCHES)
+    # 4 steps, and one forward of the held-out EER
+    want = {"lstm_fwd": 4 * 3 + 3, "bilstm_fwd": 0, "lstm_bwd": 4 * 3, "bilstm_bwd": 0}
+    check(cli_launches == want, f"train_encoder CLI launches {cli_launches}, wanted {want}")
+    _add(counted, _check_routes(lstm_cuda, cli_launches, "train_encoder CLI",
+                                {"forward": "grid", "backward": "grid"}))
+    cli_ckpt = load_encoder_checkpoint(str(tmp / "cli" / f"encoder_{n_steps + 4}.pt"))
+    check(cli_ckpt["step"] == n_steps + 4, f"CLI checkpoint step {cli_ckpt['step']}")
+    report["train_encoder_cli"] = {"seconds": time.perf_counter() - t0, "launches": cli_launches}
+
+    # (c) extraction: references with mixtures and targets (triplets), one
+    # shorter than a window (the sentinel); each encoder through the CLI
+    sr, rng = 16000, np.random.default_rng(seed + 3)
+    refs = tmp / "refs"
+    refs.mkdir()
+    for i in range(ENCODER_REFS + 1):
+        seconds = 0.3 if i == ENCODER_REFS else ENCODER_REF_SECONDS
+        save_wav_float(_speaker_wav(rng, i, int(seconds * sr), sr), str(refs / f"k{i}-ref_emb.wav"), sr)
+        for role in ("mixed", "target"):
+            save_wav_float(_speaker_wav(rng, i, 3 * sr, sr), str(refs / f"k{i}-{role}.wav"), sr)
+    frames = ap.frames_for(int(ENCODER_REF_SECONDS * sr))
+    corentinj_frames = 1 + (int(ENCODER_REF_SECONDS * sr) - 400) // 160
+    batches = {"ge2e": ENCODER_REFS * -(-((frames - 80) // 40 + 1) // ENCODER_WINDOW_BATCH),
+               "corentinj": ENCODER_REFS * -(-((corentinj_frames - 160) // 80 + 1) // ENCODER_WINDOW_BATCH)}
+    runs = {"ge2e_random": ("ge2e", None), "ge2e_trained": ("ge2e", trained),
+            "corentinj": ("corentinj", None), "speech2phone": ("speech2phone", None),
+            "spectral": ("spectral", None)}
+    report["extract"] = {}
+    for name, (enc, ckpt) in runs.items():
+        for f in refs.glob("*-emb.npy"):
+            f.unlink()
+        lstm_cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        extract_main(["--data_dir", str(refs), "--encoder", enc]
+                     + (["--encoder_checkpoint", ckpt] if ckpt else []))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = dict(lstm_cuda.LAUNCHES)
+        n_batches = batches.get(enc, 0)
+        check(got == {**{k: 0 for k in got}, "lstm_fwd": 3 * n_batches},
+              f"extract {name}: launches {got}, wanted {3 * n_batches} lstm_fwd")
+        route = "cluster" if enc == "corentinj" else "grid"
+        _add(counted, _check_routes(lstm_cuda, got, f"extract {name}", {"forward": route, "backward": route}))
+        embs = [np.load(refs / f"k{i}-emb.npy") for i in range(ENCODER_REFS + 1)]
+        dim = 80 if enc == "speech2phone" else 256
+        check(all(e.shape == (dim,) and np.isfinite(e).all() for e in embs[:-1]),
+              f"extract {name}: shapes {[e.shape for e in embs]}")
+        norms = [float(np.linalg.norm(e)) for e in embs[:-1]]
+        if enc in ("corentinj", "spectral"):  # renormalized
+            check(max(abs(n - 1.0) for n in norms) < 1e-5, f"extract {name}: norms {norms}")
+        elif enc == "ge2e":  # the mean of unit windows
+            check(0.0 < min(norms) and max(norms) <= 1.0 + 1e-5, f"extract {name}: norms {norms}")
+        short = embs[-1].tolist() == [0.0]
+        check(short == (enc in ("ge2e", "corentinj")), f"extract {name}: short reference {embs[-1][:4]}")
+        report["extract"][name] = {"seconds_per_file": seconds / (ENCODER_REFS + 1),
+                                   "window_batches": n_batches, "launches": got,
+                                   "launches_per_window_batch": 3 if n_batches else 0,
+                                   "norms": [min(norms), max(norms)], "short_sentinel": short}
+    # the trained encoder's windows through the kernels and the plain versions
+    from voicesplit_tpu_torch.cli.extract_embeddings import _ge2e_encoder
+    from voicesplit_tpu_torch.device import resolve_device
+
+    enc = _ge2e_encoder(trained, config.audio.active.num_mels, resolve_device())
+    mel = ap.get_mel_bucketed(ap.load_wav(str(refs / "k0-ref_emb.wav")))
+    wins = np.stack([mel[:, s * 40: s * 40 + 80] for s in range((mel.shape[1] - 80) // 40 + 1)])
+    kern = embed_windows(enc, wins, ENCODER_WINDOW_BATCH)
+    with _PlainVersions(lstm_cuda):
+        plain_embs = embed_windows(enc, wins, ENCODER_WINDOW_BATCH)
+    emb_err = float(np.abs(kern - plain_embs).max())
+    check(emb_err <= ENCODER_EMB_TOL, f"extract ge2e: windows vs plain {emb_err}")
+    report["extract"]["ge2e_windows_vs_plain"] = emb_err
+    # the -emb.npy files (the last run's are spectral; the trained GE2E's
+    # again) feed the port's dataset: the sentinel dropped, one batch
+    extract_main(["--data_dir", str(refs), "--encoder", "ge2e", "--encoder_checkpoint", trained])
+    samples = discover_samples(str(refs), config.dataset.format)
+    check(len(samples) == ENCODER_REFS, f"dataset: {len(samples)} triplets")
+    batch = next(iter(BatchIterator(SeparationDataset(samples, ap, config.audio.audio_len,
+                                                      config.model.emb_dim), 4, shuffle=False)))
+    check(batch["emb"].shape == (4, 256) and np.isfinite(batch["emb"]).all(), "dataset batch")
+    report["dataset_batch"] = {k: list(v.shape) for k, v in batch.items() if hasattr(v, "shape")}
+    emit("encoder", device=torch.cuda.get_device_name(0), **report)
+    return kernels, counted
+
+
 # kinds for the device time split under --profile.  The port's kernels:
 # every __global__ of voicesplit_tpu_torch/csrc by its whole name
 # (tests/test_torch_kernel_kinds.py holds the list complete), tried before
@@ -3146,7 +3422,8 @@ def profile(torch, out_dir, tag, fn, runs: int = 5) -> dict:
 
 PHASES = ("kernels", "bwd_kernels", "separate", "train", "conv_kernels", "train_fused",
           "dilated_kernels", "separate_dilated", "trainer", "separate_wide", "train_wide",
-          "evaluate", "preprocess", "trainer_online", "dsp", "streaming", "train_streaming")
+          "evaluate", "preprocess", "trainer_online", "dsp", "streaming", "train_streaming",
+          "encoder")
 
 
 def main(argv=None) -> int:
@@ -3224,6 +3501,16 @@ def main(argv=None) -> int:
     if "train_streaming" in phases:
         by_path["train_streaming"] = phase_train_streaming(
             torch, lstm_cuda, conv_cuda, conv_fused, args.seed, args.profile)
+    if "encoder" in phases:
+        with tempfile.TemporaryDirectory(prefix="voicesplit_encoder_") as enc_tmp:
+            enc_kernels, by_path["encoder"] = phase_encoder(
+                torch, lstm_cuda, args.seed, args.profile, Path(enc_tmp))
+        # the fp32 grid routes' figures at the GE2E training shape, the one
+        # path that launches them; the H=800 figures beside them
+        for name, key in (("lstm_fwd_grid", "lstm_fwd_ge2e_train"), ("lstm_bwd_grid", "lstm_bwd_ge2e_train")):
+            r = enc_kernels[key]
+            kern[name] = {**r, "timed_at": f"T={r['T']}, {r['rows']} rows, H={r['H']}, fp32 (GE2E step)",
+                          "at_H800": kern.get(name)}
     emit("total", wall_seconds=time.perf_counter() - t_start, phases=phases)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -3234,10 +3521,10 @@ def main(argv=None) -> int:
     # each kernel's launches come from the counted run of the path it serves
     home = {"lstm_fwd": "separate", "bilstm_fwd": "separate",
             "lstm_fwd_split": "separate_wide", "bilstm_fwd_split": "evaluate",
-            "lstm_fwd_grid": "separate_wide", "bilstm_fwd_grid": "evaluate",
+            "lstm_fwd_grid": "encoder", "bilstm_fwd_grid": "evaluate",
             "lstm_bwd": "train", "bilstm_bwd": "train",
             "lstm_bwd_split": "train_wide", "bilstm_bwd_split": "train_wide",
-            "lstm_bwd_grid": "train_wide", "bilstm_bwd_grid": "train_wide",
+            "lstm_bwd_grid": "encoder", "bilstm_bwd_grid": "train_wide",
             "conv_bn_act_fwd": "train_fused", "conv_dgrad": "train_fused",
             "conv_wgrad": "train_fused",
             "conv_dilated_fwd": "trainer", "conv_dilated_wgrad": "trainer"}
@@ -3253,7 +3540,7 @@ def main(argv=None) -> int:
             "max_abs_err_fp32": r["fp32"]["max_abs_err"] if "fp32" in r else None,
             "ms": r.get("bf16", r.get("fp32"))["ms"], "plain_ms": r.get("bf16", r.get("fp32"))["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("timed_at", "ms_by_batch_and_layer", "row_groups") if k in r},
+            **{k: r[k] for k in ("timed_at", "ms_by_batch_and_layer", "row_groups", "at_H800") if k in r},
         }
         for name, r in kern.items()
     ]
@@ -3262,7 +3549,9 @@ def main(argv=None) -> int:
         # the split walks and grid routes serve the shapes the cluster walks
         # cannot hold (H=800, the wide config): the wide paths take
         # WIDE_ROUTES in bf16 at B=1 and B=2 and, forward, two directions at
-        # B=8 (the evaluation sweep); the grid routes off them are OFF_PATH
+        # B=8 (the evaluation sweep); the one-direction grid routes serve the
+        # GE2E encoder (fp32, H=768); the grid routes off every path are
+        # OFF_PATH
         k["main_path"] = k["name"] not in OFF_PATH
         check(k["launches"] > 0 or not k["main_path"], f"{k['name']} was not launched on its path")
     print(json.dumps({"kernels": kernels}))

@@ -1264,3 +1264,125 @@ def test_causal_stream_matches_plain_versions_on_card():
         plain = sep.separate(wav, emb)
     assert out.shape == (1, 16000) and np.isfinite(out).all()
     assert np.abs(out - plain).max() <= 5e-3 * np.abs(plain).max()
+
+
+# the speaker encoders' LSTM shapes, fp32: (T, rows, H, route of the forward).
+# GE2E (H=768, 80-frame windows): a training step's 16 x 6 = 96 rows and the
+# extraction CLI's fixed batches of 32 windows, neither of which a cluster
+# walk holds in fp32 (a block's W_hh columns alone are 590 KB): the grid
+# route; CorentinJ (H=256, 160-frame windows): 32 windows, one cluster.
+ENCODER_SHAPES = [(80, 96, 768, "grid"), (80, 32, 768, "grid"), (160, 32, 256, "cluster")]
+
+
+def _encoder_lstm_inputs(T, R, H, seed, dhs_last_only=False):
+    """A layer's inputs as the encoder gives them: W_hh uniform(±1/sqrt(H)),
+    xp the projection of unit-variance inputs, the zero state; cotangents of
+    the top layer (dhs nonzero at the last step only) or of a lower one."""
+    g = torch.Generator().manual_seed(seed)
+    s = H ** -0.5
+    w = torch.empty(H, 4 * H).uniform_(-s, s, generator=g).cuda()
+    xp = (torch.randn(T, R, 4 * H, generator=g) * 0.5).cuda()
+    zeros = torch.zeros(R, H, device="cuda")
+    dhs = torch.randn(T, R, H, generator=g).cuda()
+    if dhs_last_only:
+        dhs[:-1] = 0
+    return xp, w, zeros, dhs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ENCODER_SHAPES, ids=lambda s: "T{}-R{}-H{}".format(*s[:3]))
+def test_lstm_forward_at_the_encoder_shapes_on_card(shape):
+    """`lstm_fwd` in fp32 at the speaker encoders' shapes: the route chosen
+    from the shape before the launch, every block of a grid resident at
+    once, no spill, agreement with the plain version (1e-4, as at the
+    path's shapes) and the same bits twice."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import lstm_cuda
+
+    T, R, H, route = shape
+    cfg = lstm_cuda.launch_config(1, R, H, torch.float32, backward=False)
+    assert cfg["route"] == route and cfg["local_bytes"] == 0, cfg
+    if route == "grid":
+        assert cfg["resident_blocks"] >= cfg["blocks"], cfg
+    xp, w, zeros, _ = _encoder_lstm_inputs(T, R, H, seed=R + H)
+    routes = dict(lstm_cuda.ROUTES)
+    with torch.inference_mode():
+        got = lstm_cuda.lstm_fwd(xp, w, zeros, zeros)
+        again = lstm_cuda.lstm_fwd(xp, w, zeros, zeros)
+        want = lstm_cuda.lstm_fwd_ref(xp, w, zeros, zeros)
+    torch.cuda.synchronize()
+    assert lstm_cuda.ROUTES[route] == routes[route] + 2
+    for a, b, c in zip(got, want, again):
+        assert bool(torch.isfinite(a).all()) and torch.equal(a, c)
+        assert (a - b).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("top", [True, False], ids=["top-layer", "lower-layer"])
+def test_lstm_backward_at_the_ge2e_training_shape_on_card(top):
+    """`lstm_bwd` in fp32 at a GE2E training step's shape (T=80, 96 rows,
+    H=768): the grid route, all blocks resident, W_hh's rows in shared
+    memory; agreement with the plain version within 1e-4 of each output's
+    peak and the same bits twice, for the top layer's cotangents (the last
+    frame only) and a lower layer's (every frame)."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import lstm_cuda
+
+    T, R, H = 80, 96, 768
+    cfg = lstm_cuda.launch_config(1, R, H, torch.float32, backward=True)
+    assert cfg["route"] == "grid" and cfg["resident_blocks"] >= cfg["blocks"], cfg
+    assert cfg["w_shared"] and cfg["local_bytes"] == 0, cfg
+    xp, w, zeros, dhs = _encoder_lstm_inputs(T, R, H, seed=7, dhs_last_only=top)
+    with torch.inference_mode():
+        hs, cs, gates = lstm_cuda.lstm_fwd_ref(xp, w, zeros, zeros)
+    args = (w, gates, cs, hs, zeros, zeros, dhs, zeros, zeros, torch.float32)
+    routes = dict(lstm_cuda.ROUTES_BWD)
+    with torch.inference_mode():
+        got, again, want = lstm_cuda.lstm_bwd(*args), lstm_cuda.lstm_bwd(*args), lstm_cuda.lstm_bwd_ref(*args)
+    torch.cuda.synchronize()
+    assert lstm_cuda.ROUTES_BWD["grid"] == routes["grid"] + 2
+    for a, b, c in zip(got, want, again):
+        assert bool(torch.isfinite(a).all()) and torch.equal(a, c)
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_ge2e_step_runs_through_the_kernels_on_card():
+    """One GE2E training step at full width (N=16 x M=6 = 96 rows, H=768, 3
+    layers, fp32): exactly 3 `lstm_fwd` and 3 `lstm_bwd` launches, all on
+    the grid routes; the loss (1e-5 relative) and every gradient (1e-4 of
+    its peak; b's, 0 but for round-off, 1e-6) against the same batch through
+    the plain versions."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import lstm_cuda
+    from voicesplit_tpu_torch.train.encoder import GE2E, SpeakerEncoder, make_ge2e_step
+    from voicesplit_tpu_torch.train.state import make_adam
+    from voicesplit_tpu_torch.weights import init_encoder_for_training_
+
+    N, M = 16, 6
+    g = torch.Generator().manual_seed(0)
+    mels = (torch.randn(N * M, 40, 80, generator=g) - 2.0).cuda()  # log-mel-like
+    model = GE2E(init_encoder_for_training_(SpeakerEncoder(), 0).cuda())
+    step = make_ge2e_step(model, make_adam(model.parameters(), 1e-4), N, M)
+    lstm_cuda.reset_launch_counts()
+    loss = step(mels)
+    torch.cuda.synchronize()
+    assert lstm_cuda.LAUNCHES == {"lstm_fwd": 3, "bilstm_fwd": 0, "lstm_bwd": 3, "bilstm_bwd": 0}
+    assert lstm_cuda.ROUTES["grid"] == 3 and lstm_cuda.ROUTES_BWD["grid"] == 3
+    assert bool(torch.isfinite(loss))
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        value = model.loss(mels, N, M)
+        value.backward()
+        return value.item(), [p.grad.clone() for p in model.parameters()]
+
+    got, g_kernel = loss_and_grads()
+    with chip_smoke._PlainVersions(lstm_cuda):
+        want, g_plain = loss_and_grads()
+    assert abs(got - want) <= 1e-5 * abs(want)
+    for (name, _), a, b in zip(model.named_parameters(), g_kernel, g_plain):
+        if name == "b":
+            assert a.abs().item() <= 1e-6 and b.abs().item() <= 1e-6
+        else:
+            assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item(), name

@@ -19,8 +19,9 @@ never sees a torn file.
 `load_jax_checkpoint` reads a ``checkpoint_<step>.msgpack`` written by the
 JAX package into trees of numpy arrays, which
 `weights.state_dict_from_jax` and `weights.optimizer_state_from_jax` carry
-into the port.  It decodes flax's msgpack extension types itself and needs
-the ``msgpack`` package, nothing of JAX or flax.
+into the port; `read_msgpack` reads any such file (the speaker encoder's
+``encoder_<step>.msgpack`` too).  It decodes flax's msgpack extension types
+itself and needs the ``msgpack`` package, nothing of JAX or flax.
 
 `bilstm_to_streaming_sd` and `convert_bilstm_checkpoint_to_streaming` seed
 the streaming model (forward-only LSTM, `MaskNet(streaming=True)`) from an
@@ -353,14 +354,10 @@ def _unchunk(tree):
     return tree
 
 
-def load_jax_checkpoint(path: str) -> Dict[str, Any]:
-    """Read a ``checkpoint_<step>.msgpack`` of the JAX package.
-
-    Returns ``params`` and ``batch_stats`` (nested dicts of numpy arrays in
-    the JAX layout, for `weights.state_dict_from_jax`), ``opt_state`` (the
-    optax state as nested dicts, for `weights.optimizer_state_from_jax`),
-    ``step``, ``config_str`` and ``data_state`` (an `IteratorState`).
-    """
+def read_msgpack(path: str) -> Dict[str, Any]:
+    """The tree of a msgpack file written by ``flax.serialization``: nested
+    dicts with numpy arrays (bfloat16 widened to float32), chunked arrays
+    joined again."""
     try:
         import msgpack
     except ImportError as e:
@@ -379,7 +376,18 @@ def load_jax_checkpoint(path: str) -> Dict[str, Any]:
         return msgpack.ExtType(code, data)
 
     with open(path, "rb") as f:
-        payload = _unchunk(msgpack.unpackb(f.read(), ext_hook=ext_hook, raw=False))
+        return _unchunk(msgpack.unpackb(f.read(), ext_hook=ext_hook, raw=False))
+
+
+def load_jax_checkpoint(path: str) -> Dict[str, Any]:
+    """Read a ``checkpoint_<step>.msgpack`` of the JAX package.
+
+    Returns ``params`` and ``batch_stats`` (nested dicts of numpy arrays in
+    the JAX layout, for `weights.state_dict_from_jax`), ``opt_state`` (the
+    optax state as nested dicts, for `weights.optimizer_state_from_jax`),
+    ``step``, ``config_str`` and ``data_state`` (an `IteratorState`).
+    """
+    payload = read_msgpack(path)
     return {
         "params": payload["model"],
         "batch_stats": payload["batch_stats"],

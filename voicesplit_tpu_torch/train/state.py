@@ -62,9 +62,14 @@ def make_optimizer(config: Config, model: nn.Module) -> torch.optim.Optimizer:
             {"params": [p for n, p in named if not decays(n)], "weight_decay": 0.0},
         ]
         return torch.optim.AdamW(groups, lr=tc.learning_rate, betas=BETAS, eps=EPS)
-    return torch.optim.Adam(
-        [p for _, p in named], lr=tc.learning_rate, betas=BETAS, eps=EPS
-    )
+    return make_adam([p for _, p in named], tc.learning_rate)
+
+
+def make_adam(params, lr: float) -> torch.optim.Adam:
+    """``optax.adam(lr)`` over `params`: its defaults; torch's update
+    ``lr/(1−β1^n) · m / (sqrt(v)/sqrt(1−β2^n) + eps)`` is optax's
+    ``lr · m̂ / (sqrt(v̂) + eps)``."""
+    return torch.optim.Adam(params, lr=lr, betas=BETAS, eps=EPS)
 
 
 def learning_rate(config: Config, count: int) -> float:

@@ -20,6 +20,12 @@ LSTM keeps its JAX layout.  The same mapping carries any tree shaped like
 dicts of numpy arrays (optax states as their namedtuples), so this module
 needs neither JAX nor flax nor optax.  `train.checkpoint.load_jax_checkpoint`
 reads such trees from a JAX ``.msgpack`` checkpoint.
+
+The speaker encoder (`voicesplit_tpu.models.speaker_encoder.SpeakerEncoder`)
+has ``lstm{i}/fwd_{w_ih, w_hh, b}`` and ``proj/{kernel, bias}``; GE2E
+training's tree wraps it as ``{enc, w, b}`` and its optax state is
+``chain(clip_by_global_norm, adam)``: `encoder_params_from_jax` and
+`encoder_optimizer_state_from_jax` carry those.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from voicesplit_tpu_torch.models.masknet import MaskNet
 
@@ -93,6 +100,23 @@ def _adam_state(opt_state):
     return None
 
 
+def _load_adam(opt_state, model: nn.Module, optimizer: torch.optim.Optimizer, mapping) -> int:
+    """Adam's update count and moments of an optax state into `optimizer`
+    (over `model`'s parameters), the moments' trees carried by `mapping`."""
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in the optimizer state")
+    count = int(np.asarray(adam.count))
+    mu, nu = mapping(adam.mu), mapping(adam.nu)
+    for name, p in model.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": mu[name].to(p.device, p.dtype),
+            "exp_avg_sq": nu[name].to(p.device, p.dtype),
+        }
+    return count
+
+
 def optimizer_state_from_jax(
     opt_state, model: MaskNet, optimizer: torch.optim.Optimizer
 ) -> int:
@@ -102,18 +126,36 @@ def optimizer_state_from_jax(
     `optimizer`, whose parameters are `model`'s.  Returns the update
     count, which the port's `TrainState.step` must carry for the
     learning-rate schedule."""
-    adam = _adam_state(opt_state)
-    if adam is None:
-        raise ValueError("no Adam state (count, mu, nu) in the optimizer state")
-    count = int(np.asarray(adam.count))
-    mu, nu = params_from_jax(adam.mu), params_from_jax(adam.nu)
-    for name, p in model.named_parameters():
-        optimizer.state[p] = {
-            "step": torch.tensor(float(count)),
-            "exp_avg": mu[name].to(p.device, p.dtype),
-            "exp_avg_sq": nu[name].to(p.device, p.dtype),
-        }
-    return count
+    return _load_adam(opt_state, model, optimizer, params_from_jax)
+
+
+def encoder_params_from_jax(tree: Tree) -> Dict[str, torch.Tensor]:
+    """The state dict of a `SpeakerEncoder` from the JAX encoder's params
+    (``lstm{i}/fwd_*`` keep their layout, ``proj/kernel`` is transposed), or
+    of a `train.encoder.GE2E` (``enc.*``, ``w``, ``b``) from GE2E training's
+    ``{enc, w, b}``; any tree shaped like them (gradients, Adam's moments)."""
+    if "enc" in tree:
+        sd = {f"enc.{k}": v for k, v in encoder_params_from_jax(tree["enc"]).items()}
+        sd["w"], sd["b"] = _t(tree["w"]).reshape(()), _t(tree["b"]).reshape(())
+        return sd
+    sd = {}
+    for layer in sorted((k for k in tree if k.startswith("lstm")), key=lambda k: int(k[4:])):
+        for k, v in tree[layer].items():
+            sd[f"{layer}.{k}"] = _t(v)
+    sd["proj.weight"] = _t(np.asarray(tree["proj"]["kernel"]).T)
+    sd["proj.bias"] = _t(tree["proj"]["bias"])
+    return sd
+
+
+def encoder_optimizer_state_from_jax(
+    opt_state, model: nn.Module, optimizer: torch.optim.Optimizer
+) -> int:
+    """Load the update count and Adam's moments of GE2E training's optax
+    state (``chain(clip_by_global_norm(3.0), adam(lr))``: the clip keeps no
+    state, Adam's ``(count, mu, nu)`` sits in the chain's second part, its
+    moments shaped like ``{enc, w, b}``) into `optimizer` over `model` (a
+    `train.encoder.GE2E`).  Returns the update count."""
+    return _load_adam(opt_state, model, optimizer, encoder_params_from_jax)
 
 
 def random_jax_variables(model: MaskNet, seed: int = 0) -> Tuple[dict, dict]:
@@ -171,6 +213,18 @@ def init_random_(model: MaskNet, seed: int = 0) -> MaskNet:
     return model
 
 
+_TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated at ±2
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int, g: torch.Generator) -> None:
+    """flax's default kernel init in place: LeCun normal as a normal
+    truncated at ±2σ with its variance corrected."""
+    std = fan_in ** -0.5 / _TRUNC_STD
+    fresh = torch.empty(w.shape)
+    torch.nn.init.trunc_normal_(fresh, 0.0, std, -2 * std, 2 * std, generator=g)
+    w.copy_(fresh)
+
+
 def init_for_training_(model: MaskNet, seed: int = 0) -> MaskNet:
     """A fresh model as the JAX package initializes it, in place, drawn from
     a ``torch.Generator`` seeded with `seed` (the same distributions, not
@@ -179,19 +233,11 @@ def init_for_training_(model: MaskNet, seed: int = 0) -> MaskNet:
     their biases 0, BatchNorm scale 1, bias 0, running mean 0 and variance
     1, the LSTM uniform(±1/sqrt(H))."""
     g = torch.Generator().manual_seed(seed)
-    fix = 0.87962566103423978  # std of a unit normal truncated at ±2
-
-    def lecun_(w: torch.Tensor, fan_in: int) -> None:
-        std = fan_in ** -0.5 / fix
-        fresh = torch.empty(w.shape)
-        torch.nn.init.trunc_normal_(fresh, 0.0, std, -2 * std, 2 * std, generator=g)
-        w.copy_(fresh)
-
     with torch.no_grad():
         for name in model.block_names:
             block = getattr(model, name)
             w = block.conv.weight  # [Cout, Cin, kt, kf]
-            lecun_(w, w.shape[1] * w.shape[2] * w.shape[3])
+            lecun_normal_(w, w.shape[1] * w.shape[2] * w.shape[3], g)
             block.conv.bias.zero_()
             block.bn.scale.fill_(1.0)
             block.bn.bias.zero_()
@@ -201,9 +247,25 @@ def init_for_training_(model: MaskNet, seed: int = 0) -> MaskNet:
         for p in model.lstm.parameters():
             p.copy_(torch.empty(p.shape).uniform_(-s, s, generator=g))
         for fc in (model.fc1, model.fc2):
-            lecun_(fc.weight, fc.weight.shape[1])
+            lecun_normal_(fc.weight, fc.weight.shape[1], g)
             fc.bias.zero_()
     return model
+
+
+def init_encoder_for_training_(encoder: nn.Module, seed: int = 0) -> nn.Module:
+    """A fresh `SpeakerEncoder` as the JAX package initializes it, in place,
+    from a ``torch.Generator`` seeded with `seed` (the same distributions,
+    not the same numbers): every LSTM parameter uniform(±1/sqrt(H)), the
+    projection's kernel LeCun normal and its bias 0."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        s = encoder.lstm_hidden ** -0.5
+        for i in range(encoder.lstm_layers):
+            for p in getattr(encoder, f"lstm{i}").parameters():
+                p.copy_(torch.empty(p.shape).uniform_(-s, s, generator=g))
+        lecun_normal_(encoder.proj.weight, encoder.proj.weight.shape[1], g)
+        encoder.proj.bias.zero_()
+    return encoder
 
 
 def save(model: MaskNet, path: str) -> None:

@@ -3107,11 +3107,13 @@ def phase_train_streaming(torch, lstm_cuda, cc, cf, seed: int, profile_dir) -> d
 # the speaker encoders (encoder phase): GE2E trained at N x M windows of
 # ENCODER_FRAMES log-mel frames, H=768, 3 layers, fp32; extraction in fixed
 # batches of ENCODER_WINDOW_BATCH windows; CorentinJ at H=256 over 160-frame
-# partials.  Each LSTM shape (name, T, rows, H) with the route it must take:
-# fp32 at H=768 fits no cluster walk (a block's W_hh columns alone are 590
-# KB): the grid routes; H=256 one cluster.
+# partials.  Each LSTM shape (name, T, rows, H) with the route it must take
+# (with the training CLI's held-out EER batch, `_encoder_kernels`): fp32 at
+# H=768 fits no cluster walk (a block's W_hh columns alone are 590 KB): the
+# grid routes; H=256 one cluster.
 ENCODER_N, ENCODER_M, ENCODER_FRAMES, ENCODER_HIDDEN = 16, 6, 80, 768
 ENCODER_WINDOW_BATCH = 32
+ENCODER_HOLDOUT = 4  # the training CLI's held-out speakers
 ENCODER_SHAPES = {"ge2e_train": (ENCODER_FRAMES, ENCODER_N * ENCODER_M, ENCODER_HIDDEN, "grid"),
                   "ge2e_extract": (ENCODER_FRAMES, ENCODER_WINDOW_BATCH, ENCODER_HIDDEN, "grid"),
                   "corentinj_extract": (160, ENCODER_WINDOW_BATCH, 256, "cluster")}
@@ -3153,10 +3155,15 @@ def _encoder_kernels(torch, lstm_cuda, seed: int) -> dict:
     shape, fp32, against their plain versions on the card (TOL, the same
     bits twice, the route), timed beside the bound (this T) and cuDNN's fp32
     `torch.nn.LSTM` (TF32 off) over the layer's input (H wide: the upper
-    layers'), as a yardstick."""
+    layers'), as a yardstick.  The forward also at the training CLI's
+    held-out EER batch, its rows as the CLI counts them."""
+    from voicesplit_tpu_torch.cli.train_encoder import eval_rows
+
     g = torch.Generator(device="cpu").manual_seed(seed + 15)
     out = {}
-    for key, (T, R, H, route) in ENCODER_SHAPES.items():
+    shapes = {**ENCODER_SHAPES,
+              "ge2e_eval": (ENCODER_FRAMES, eval_rows(ENCODER_HOLDOUT), ENCODER_HIDDEN, "grid")}
+    for key, (T, R, H, route) in shapes.items():
         cfg = lstm_cuda.launch_config(1, R, H, torch.float32, backward=False)
         check(cfg["route"] == route, f"lstm_fwd {key}: route {cfg}")
         check(cfg["local_bytes"] == 0, f"lstm_fwd {key}: {cfg['local_bytes']} spilled bytes")
@@ -3199,6 +3206,8 @@ def phase_encoder(torch, lstm_cuda, seed: int, profile_dir, tmp: Path) -> tuple:
         make_ge2e_step,
         save_encoder_checkpoint,
         train_ge2e,
+        utterance_windows,
+        window_count,
     )
     from voicesplit_tpu_torch.train.state import make_adam
 
@@ -3266,6 +3275,7 @@ def phase_encoder(torch, lstm_cuda, seed: int, profile_dir, tmp: Path) -> tuple:
     lstm_cuda.reset_launch_counts()
     train_encoder_main(["--data_root", str(tmp / "corpus"), "--steps", str(n_steps + 4),
                         "--checkpoint_interval", "4", "--eval_interval", "4", "--log_interval", "4",
+                        "--holdout_speakers", str(ENCODER_HOLDOUT),
                         "--output_path", str(tmp / "cli"), "--resume", trained])
     torch.cuda.synchronize()
     cli_launches = dict(lstm_cuda.LAUNCHES)
@@ -3288,10 +3298,11 @@ def phase_encoder(torch, lstm_cuda, seed: int, profile_dir, tmp: Path) -> tuple:
         save_wav_float(_speaker_wav(rng, i, int(seconds * sr), sr), str(refs / f"k{i}-ref_emb.wav"), sr)
         for role in ("mixed", "target"):
             save_wav_float(_speaker_wav(rng, i, 3 * sr, sr), str(refs / f"k{i}-{role}.wav"), sr)
-    frames = ap.frames_for(int(ENCODER_REF_SECONDS * sr))
-    corentinj_frames = 1 + (int(ENCODER_REF_SECONDS * sr) - 400) // 160
-    batches = {"ge2e": ENCODER_REFS * -(-((frames - 80) // 40 + 1) // ENCODER_WINDOW_BATCH),
-               "corentinj": ENCODER_REFS * -(-((corentinj_frames - 160) // 80 + 1) // ENCODER_WINDOW_BATCH)}
+    frames = {"ge2e": ap.frames_for(int(ENCODER_REF_SECONDS * sr)),
+              "corentinj": 1 + (int(ENCODER_REF_SECONDS * sr) - 400) // 160}
+    windows = {"ge2e": (ENCODER_FRAMES, ENCODER_FRAMES // 2), "corentinj": (160, 80)}  # (W, S)
+    batches = {k: ENCODER_REFS * -(-window_count(frames[k], *windows[k]) // ENCODER_WINDOW_BATCH)
+               for k in frames}
     runs = {"ge2e_random": ("ge2e", None), "ge2e_trained": ("ge2e", trained),
             "corentinj": ("corentinj", None), "speech2phone": ("speech2phone", None),
             "spectral": ("spectral", None)}
@@ -3332,7 +3343,7 @@ def phase_encoder(torch, lstm_cuda, seed: int, profile_dir, tmp: Path) -> tuple:
 
     enc = _ge2e_encoder(trained, config.audio.active.num_mels, resolve_device())
     mel = ap.get_mel_bucketed(ap.load_wav(str(refs / "k0-ref_emb.wav")))
-    wins = np.stack([mel[:, s * 40: s * 40 + 80] for s in range((mel.shape[1] - 80) // 40 + 1)])
+    wins = utterance_windows(mel, enc.window, enc.stride)
     kern = embed_windows(enc, wins, ENCODER_WINDOW_BATCH)
     with _PlainVersions(lstm_cuda):
         plain_embs = embed_windows(enc, wins, ENCODER_WINDOW_BATCH)
@@ -3368,9 +3379,12 @@ PORT_KERNEL_KINDS = (
                       "lstm_bwd_kernel", "lstm_bwd_split_kernel", "lstm_bwd_grid_kernel",
                       "lstm_dwhh_kernel")),
 )
+# cuDNN's implicit-GEMM convs before the matmuls (their names hold "gemm"),
+# and cuBLAS's `sm80_xmma_gemm_*` matmuls before the rest of cuDNN's xmma
 LIBRARY_KERNEL_KINDS = (
-    ("convs", ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad")),
+    ("convs", ("conv", "cudnn", "implicit", "fprop", "wgrad", "dgrad")),
     ("matmuls", ("gemm", "cutlass", "nvjet", "splitk")),
+    ("convs", ("xmma",)),
     ("optimizer", ("multi_tensor", "foreach", "adam")),
     ("layout", ("nchw", "nhwc", "transpose", "permute", "copy")),
 )
@@ -3506,11 +3520,11 @@ def main(argv=None) -> int:
             enc_kernels, by_path["encoder"] = phase_encoder(
                 torch, lstm_cuda, args.seed, args.profile, Path(enc_tmp))
         # the fp32 grid routes' figures at the GE2E training shape, the one
-        # path that launches them; the H=800 figures beside them
+        # path that launches them (their H=800 figures stay on the kernels
+        # phase's lines)
         for name, key in (("lstm_fwd_grid", "lstm_fwd_ge2e_train"), ("lstm_bwd_grid", "lstm_bwd_ge2e_train")):
             r = enc_kernels[key]
-            kern[name] = {**r, "timed_at": f"T={r['T']}, {r['rows']} rows, H={r['H']}, fp32 (GE2E step)",
-                          "at_H800": kern.get(name)}
+            kern[name] = {**r, "timed_at": f"T={r['T']}, {r['rows']} rows, H={r['H']}, fp32 (GE2E step)"}
     emit("total", wall_seconds=time.perf_counter() - t_start, phases=phases)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -3540,7 +3554,7 @@ def main(argv=None) -> int:
             "max_abs_err_fp32": r["fp32"]["max_abs_err"] if "fp32" in r else None,
             "ms": r.get("bf16", r.get("fp32"))["ms"], "plain_ms": r.get("bf16", r.get("fp32"))["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("timed_at", "ms_by_batch_and_layer", "row_groups", "at_H800") if k in r},
+            **{k: r[k] for k in ("timed_at", "ms_by_batch_and_layer", "row_groups") if k in r},
         }
         for name, r in kern.items()
     ]

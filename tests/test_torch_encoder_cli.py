@@ -13,7 +13,8 @@ interpreter.
 
 Tolerances (fp32): d-vectors 1e-4 absolute (unit vectors; the log-mels
 differ by float32 round-off, `tests/test_torch_dsp.py`); Speech2Phone 5e-6
-of the embedding's peak (a 2808-long sum in another order); a resumed step's parameters 2·lr and w 1e-5 relative (as
+of the embedding's peak (a 2808-long sum in another order); a resumed step's parameters 2·lr, w 1e-5 relative, its Adam moments
+exact and each leaf's update 1e-2 of its largest (as
 `tests/test_torch_ge2e.py`); the port's own resume exact.
 """
 
@@ -41,9 +42,16 @@ from voicesplit_tpu_torch.config import Config
 from voicesplit_tpu_torch.data.dataset import BatchIterator, SeparationDataset, discover_samples
 from voicesplit_tpu_torch.dsp.audio_io import save_wav_float
 from voicesplit_tpu_torch.dsp.processor import make_audio_processor
-from voicesplit_tpu_torch.train.encoder import GE2E, SpeakerEncoder, save_encoder_checkpoint
+from voicesplit_tpu_torch.train.encoder import (
+    GE2E,
+    SpeakerEncoder,
+    load_encoder_checkpoint,
+    save_encoder_checkpoint,
+)
 from voicesplit_tpu_torch.train.checkpoint import read_msgpack
 from voicesplit_tpu_torch.weights import encoder_params_from_jax
+
+from test_torch_ge2e import assert_moments_loaded, assert_updates_close
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 EMB_ATOL, S2P_REL, WB_RTOL = 1e-4, 5e-6, 1e-5
@@ -121,7 +129,13 @@ def test_train_encoder_cli_resumes_a_jax_msgpack(corpus, tmp_path, capsys):
     train_encoder.main(_train_args(corpus, tmp_path / "t3", 3, 3) + ["--resume", two, "--device", "cpu"])
     out = capsys.readouterr().out
     assert " > resumed" in out
-    want = encoder_params_from_jax(read_msgpack(str(tmp_path / "j3" / "encoder_3.msgpack"))["params"])
+    # the resume's Adam moments are optax's, bit for bit
+    blob, loaded = read_msgpack(two), load_encoder_checkpoint(two)
+    names = [n for n, _ in GE2E(SpeakerEncoder(num_mels=40, lstm_hidden=HIDDEN,
+                                               lstm_layers=LAYERS)).named_parameters()]
+    assert_moments_loaded(blob["opt_state"], {names[i]: s for i, s in loaded["opt_state"]["state"].items()})
+    after = read_msgpack(str(tmp_path / "j3" / "encoder_3.msgpack"))["params"]
+    want = encoder_params_from_jax(after)
     got = torch.load(tmp_path / "t3" / "encoder_3.pt", weights_only=True)
     assert got["step"] == 3 and got["opt_state"]["state"][0]["step"].item() == 3
     for k, v in want.items():
@@ -129,6 +143,7 @@ def test_train_encoder_cli_resumes_a_jax_msgpack(corpus, tmp_path, capsys):
             np.testing.assert_allclose(got["params"][k].item(), v.item(), rtol=WB_RTOL, err_msg=k)
         else:
             np.testing.assert_allclose(got["params"][k].numpy(), v.numpy(), atol=2 * LR, err_msg=k)
+    assert_updates_close(blob["params"], got["params"], after, lr=LR)
 
 
 # ---------------------------------------------------------------------------

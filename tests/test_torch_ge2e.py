@@ -16,7 +16,11 @@ relative (the mels differ by float32 round-off, see
 `tests/test_torch_dsp.py`); parameters after Adam steps 2·lr (Adam's first
 step moves each by about lr·sign(g), so a gradient near 0 can flip a
 sign; b's gradient is 0 but for round-off, so Adam moves it by up to lr in
-a direction round-off picks); w 1e-5 relative.
+a direction round-off picks); w 1e-5 relative.  The step resumed from
+optax's state: Adam's moments loaded bit for bit, and each leaf's update
+within 1e-2 of that leaf's largest update (the first layer's input, the
+mels, carries float32 round-off; a fresh Adam or misplaced moments move a
+leaf by a sizeable share of lr), b's within 2·lr.
 """
 
 import numpy as np
@@ -43,6 +47,7 @@ from voicesplit_tpu_torch.train import encoder as port_encoder
 from voicesplit_tpu_torch.weights import encoder_optimizer_state_from_jax, encoder_params_from_jax
 
 LOSS_RTOL, GRAD_TOL, B_GRAD_ATOL, STEP_LOSS_RTOL, WB_RTOL = 1e-6, 1e-5, 1e-6, 2e-5, 1e-5
+UPDATE_RTOL = 1e-2
 LR = 1e-3
 N, M, HIDDEN, LAYERS, EMB = 4, 3, 24, 2, 12
 
@@ -177,11 +182,13 @@ def test_two_training_steps_match_jax_then_a_resumed_third(corpus, jax_start):
     model2.load_state_dict(encoder_params_from_jax(_np_tree(p_j)))
     adam = port_encoder.make_adam(model2.parameters(), LR)
     assert encoder_optimizer_state_from_jax(jax.device_get(o_j), model2, adam) == 2
+    assert_moments_loaded(jax.device_get(o_j), {n: adam.state[p] for n, p in model2.named_parameters()})
     _, model3, _, l3_t = port_encoder.train_ge2e(
         ap_t, corpus, params=model2, opt_state=adam.state_dict(), device="cpu",
         **_kw(8, steps=1, step0=2))
     np.testing.assert_allclose(l3_t, l3_j, rtol=STEP_LOSS_RTOL)
     _assert_params_close(model3, p3_j)
+    assert_updates_close(p_j, model3.state_dict(), p3_j)
 
 
 def _assert_params_close(model, jax_params):
@@ -193,3 +200,67 @@ def _assert_params_close(model, jax_params):
             np.testing.assert_allclose(got[k].item(), v.item(), rtol=WB_RTOL, err_msg=k)
         else:
             np.testing.assert_allclose(got[k].numpy(), v.numpy(), atol=2 * LR, err_msg=k)
+
+
+def jax_leaves(tree):
+    """GE2E training's JAX tree ``{enc: {lstm{i}, proj}, w, b}`` (params or
+    any tree shaped like them) as ``{port parameter name: numpy array}``,
+    mapped here by hand: the LSTM leaves keep their layout, ``proj/kernel``
+    is transposed."""
+    out = {"w": np.asarray(tree["w"], np.float32).reshape(()),
+           "b": np.asarray(tree["b"], np.float32).reshape(())}
+    for layer, leaves in tree["enc"].items():
+        for k, v in leaves.items():
+            v = np.asarray(v, np.float32)
+            if layer == "proj":
+                out[f"enc.proj.{'weight' if k == 'kernel' else k}"] = v.T if k == "kernel" else v
+            else:
+                out[f"enc.{layer}.{k}"] = v
+    return out
+
+
+def _adam_node(opt_state):
+    """optax's (count, mu, nu) in a chain's state: namedtuples, or the
+    nested dicts of a msgpack checkpoint."""
+    if hasattr(opt_state, "mu"):
+        return opt_state.count, opt_state.mu, opt_state.nu
+    if isinstance(opt_state, dict):
+        if "mu" in opt_state:
+            return opt_state["count"], opt_state["mu"], opt_state["nu"]
+        subs = list(opt_state.values())
+    elif isinstance(opt_state, (tuple, list)):
+        subs = opt_state
+    else:
+        return None
+    for sub in subs:
+        found = _adam_node(sub)
+        if found is not None:
+            return found
+    return None
+
+
+def assert_moments_loaded(jax_opt_state, states):
+    """The torch Adam states (parameter name -> its ``optimizer.state``)
+    hold optax's count and, bit for bit, its moments mu / nu leaf by leaf."""
+    count, mu, nu = _adam_node(jax_opt_state)
+    mu, nu = jax_leaves(mu), jax_leaves(nu)
+    assert set(states) == set(mu)
+    for name, st in states.items():
+        assert st["step"].item() == int(np.asarray(count)), name
+        assert torch.equal(st["exp_avg"], torch.tensor(mu[name])), name
+        assert torch.equal(st["exp_avg_sq"], torch.tensor(nu[name])), name
+
+
+def assert_updates_close(before, after, jax_after, lr=LR):
+    """Each leaf's update (`after`, a port state dict, minus `before`, the
+    JAX params it started from) against JAX's (`jax_after` minus `before`)
+    within UPDATE_RTOL of the largest update of that leaf; b, whose gradient
+    is round-off, within 2·lr."""
+    start, want = jax_leaves(before), jax_leaves(jax_after)
+    for name, v in want.items():
+        got = after[name].detach().numpy() - start[name]
+        ref = v - start[name]
+        if name == "b":
+            assert abs(float(got - ref)) <= 2 * lr
+            continue
+        np.testing.assert_allclose(got, ref, atol=UPDATE_RTOL * np.abs(ref).max(), err_msg=name)

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from voicesplit_tpu_torch.cli import train_encoder
 from voicesplit_tpu_torch.config import load_config
 from voicesplit_tpu_torch.device import resolve_device
 from voicesplit_tpu_torch.dsp.processor import make_audio_processor
@@ -1267,11 +1268,13 @@ def test_causal_stream_matches_plain_versions_on_card():
 
 
 # the speaker encoders' LSTM shapes, fp32: (T, rows, H, route of the forward).
-# GE2E (H=768, 80-frame windows): a training step's 16 x 6 = 96 rows and the
-# extraction CLI's fixed batches of 32 windows, neither of which a cluster
-# walk holds in fp32 (a block's W_hh columns alone are 590 KB): the grid
-# route; CorentinJ (H=256, 160-frame windows): 32 windows, one cluster.
-ENCODER_SHAPES = [(80, 96, 768, "grid"), (80, 32, 768, "grid"), (160, 32, 256, "cluster")]
+# GE2E (H=768, 80-frame windows): a training step's 16 x 6 = 96 rows, the
+# training CLI's held-out EER batch (4 held-out speakers: 16 rows) and the
+# extraction CLI's fixed batches of 32 windows, none of which a cluster walk
+# holds in fp32 (a block's W_hh columns alone are 590 KB): the grid route;
+# CorentinJ (H=256, 160-frame windows): 32 windows, one cluster.
+ENCODER_SHAPES = [(80, 96, 768, "grid"), (80, train_encoder.eval_rows(4), 768, "grid"),
+                  (80, 32, 768, "grid"), (160, 32, 256, "cluster")]
 
 
 def _encoder_lstm_inputs(T, R, H, seed, dhs_last_only=False):

@@ -60,6 +60,7 @@ def test_every_port_kernel_maps_to_a_port_kind(name):
     ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc", "convs"),
     ("void cudnn::engines_precompiled::nchwToNhwcKernel<float>(...)", "convs"),
     ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NNT", "matmuls"),
+    ("sm80_xmma_gemm_f32f32_f32f32_f32_tn_n_tilesize128x128x8_stage3_warpsize2x2x1_ffma", "matmuls"),
     ("void at::native::(anonymous namespace)::multi_tensor_apply_kernel<...>", "optimizer"),
     ("void at::native::elementwise_kernel<128, 2, ...>", "elementwise and other"),
 ])

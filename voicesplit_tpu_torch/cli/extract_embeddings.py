@@ -125,7 +125,7 @@ def main(argv=None):
         print(f"wrote {n_ok} speech2phone embeddings ({n_short} sentinels) in {args.data_dir}")
         return
 
-    from voicesplit_tpu_torch.train.encoder import embed_windows
+    from voicesplit_tpu_torch.train.encoder import embed_windows, utterance_windows
 
     if args.encoder == "corentinj":
         from voicesplit_tpu_torch.models.speaker_encoder import (
@@ -155,15 +155,12 @@ def main(argv=None):
             mel = corentinj_mel(wav, ap.sample_rate)  # linear-power mels, 25 ms / 10 ms
         else:
             mel = np.asarray(ap.get_mel_bucketed(wav), np.float32)  # [n_mels, T]
-        T = mel.shape[1]
-        if T < W:
+        if mel.shape[1] < W:
             # sentinel for too-short references (reference `:147-152`)
             np.save(out_path(path), np.array([0], np.float32))
             n_short += 1
             continue
-        n_win = (T - W) // S + 1
-        wins = np.stack([mel[:, s * S : s * S + W] for s in range(n_win)])
-        emb = embed_windows(encoder, wins, WINDOW_BATCH).mean(axis=0)
+        emb = embed_windows(encoder, utterance_windows(mel, W, S), WINDOW_BATCH).mean(axis=0)
         if encoder.final_renorm:  # CorentinJ renorms the pooled embedding
             emb = emb / (np.linalg.norm(emb) + 1e-8)
         np.save(out_path(path), emb.astype(np.float32))

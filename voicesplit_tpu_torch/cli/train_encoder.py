@@ -24,6 +24,15 @@ import argparse
 import os
 from glob import glob
 
+# the held-out EER's batch: at most EVAL_SPEAKERS speakers x EVAL_CROPS crops
+EVAL_SPEAKERS, EVAL_CROPS = 8, 4
+
+
+def eval_rows(pool: int) -> int:
+    """The encoder's rows (windows) in one held-out EER batch drawn from
+    `pool` speakers."""
+    return min(pool, EVAL_SPEAKERS) * EVAL_CROPS
+
 
 def _discover_speakers(root: str, min_utts: int):
     speakers = {}
@@ -103,7 +112,7 @@ def main(argv=None):
 
     def eval_eer(encoder):
         pool = holdout if holdout else names
-        mels, ids = eval_sampler.batch(min(len(pool), 8), 4, names=pool)
+        mels, ids = eval_sampler.batch(min(len(pool), EVAL_SPEAKERS), EVAL_CROPS, names=pool)
         with torch.inference_mode():
             emb = encoder(torch.as_tensor(mels, device=dev))
         return pairwise_eer(emb, ids)

@@ -179,6 +179,18 @@ def train_ge2e(
     return model.enc, model, optimizer.state_dict(), losses
 
 
+def window_count(frames: int, window: int, stride: int) -> int:
+    """How many `window`-frame windows at `stride` fit in `frames` frames."""
+    return (frames - window) // stride + 1
+
+
+def utterance_windows(mel: np.ndarray, window: int, stride: int) -> np.ndarray:
+    """The windows ``[n, n_mels, window]`` of a mel ``[n_mels, T]`` (T at
+    least `window`), one every `stride` frames."""
+    n = window_count(mel.shape[1], window, stride)
+    return np.stack([mel[:, s * stride : s * stride + window] for s in range(n)])
+
+
 @torch.inference_mode()
 def embed_windows(encoder: SpeakerEncoder, wins: np.ndarray, batch_windows: int = 32) -> np.ndarray:
     """d-vectors ``[n, D]`` of ``n`` windows ``[n, n_mels, W]`` (W the
@@ -210,10 +222,7 @@ def embed_utterance_windows(encoder: SpeakerEncoder, ap, wav: np.ndarray,
     T = mel.shape[1]
     if T < W:
         mel = np.pad(mel, ((0, 0), (0, W - T)), mode="wrap")
-        T = W
-    n_win = (T - W) // S + 1
-    wins = np.stack([mel[:, s * S : s * S + W] for s in range(n_win)])
-    embs = embed_windows(encoder, wins, batch_windows)
+    embs = embed_windows(encoder, utterance_windows(mel, W, S), batch_windows)
     norms = np.linalg.norm(embs, axis=-1, keepdims=True)
     return (embs / (norms + 1e-8)).astype(np.float32)
 

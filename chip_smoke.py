@@ -206,6 +206,31 @@ Phases, each printing one JSON line:
    file, the trained encoder's windows against the plain versions
    (ENCODER_EMB_TOL), and one batch of the ``-emb.npy`` files through
    `data/dataset.py`.
+20. voicefilter — `configs/voicefilter.json` (relu, power-law loss, bf16) in
+   train mode at B=2 on the unfused path and on the fused chain: exact
+   launches (2 + 2 LSTM; on the chain 6 + 6 + 6 and 10 prologue passes),
+   each step against the same step through the plain versions (TRAIN_TOL,
+   FUSED_TOL), every chain layer's relu prologue against its plain version
+   (RELU_PROLOGUE_LAYERS), step p50 / p75 and peak memory beside the si_snr
+   steps' of the train phases.
+21. reference — `cli.separate.main --reference_wav --encoder_checkpoint`
+   with a random GE2E ``embedder.pt`` in the reference's layout, on a 3 s
+   and a 14 s reference: 3 ``lstm_fwd`` a window batch of 32 plus the mask
+   network's 2, the d-vector against the plain versions' (DVECTOR_TOL), the
+   CLI's file equal to `separate_batch`'s with that d-vector.
+22. import — a random full-width model exported to the reference's
+   ``checkpoint_<step>.pt`` layout, imported by `cli.import_torch.main` and
+   served on the card bit for bit as the original; `cli.convert` (card),
+   `cli.generate_csv` and `cli.resample` (host) on a synthetic corpus,
+   seconds a file.
+23. distributed — `parallel.initialize_distributed` starts an NCCL world of
+   one; a B=2 step of each route under it (exact launches; NCCL kernels and
+   all-reduce calls a step from a profile; DIST_ROUNDS rounds of DIST_TIMED
+   steps without the group, then as many with it); then `cli.train.main
+   --coordinator --num_processes 1 --process_id 0` for DIST_STEPS steps on
+   each route against the same run with no group (and a second run with
+   none): the weights after every step bit for bit (cuDNN deterministic
+   for the phase).
 
 Then a ``{"kernels": [...]}`` line (each kernel's ``main_path``: false for
 the routes no path takes, OFF_PATH, launched only in the kernels phases),
@@ -220,7 +245,8 @@ device's idle share under the profiler and the device time by kind of
 kernel.  ``--phases`` runs a subset (of kernels, bwd_kernels, separate,
 train, conv_kernels, train_fused, dilated_kernels, separate_dilated,
 trainer, separate_wide, train_wide, evaluate, preprocess, trainer_online, dsp,
-streaming, train_streaming, encoder; device and build always run)
+streaming, train_streaming, encoder, voicefilter, reference, import,
+distributed; device and build always run)
 and ends with a line marked
 ``"partial"`` instead of the result lines.
 """
@@ -232,6 +258,7 @@ import copy
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3338,10 +3365,10 @@ def phase_encoder(torch, lstm_cuda, seed: int, profile_dir, tmp: Path) -> tuple:
                                    "launches_per_window_batch": 3 if n_batches else 0,
                                    "norms": [min(norms), max(norms)], "short_sentinel": short}
     # the trained encoder's windows through the kernels and the plain versions
-    from voicesplit_tpu_torch.cli.extract_embeddings import _ge2e_encoder
+    from voicesplit_tpu_torch.train.encoder import load_ge2e_encoder
     from voicesplit_tpu_torch.device import resolve_device
 
-    enc = _ge2e_encoder(trained, config.audio.active.num_mels, resolve_device())
+    enc = load_ge2e_encoder(trained, config.audio.active.num_mels, resolve_device())
     mel = ap.get_mel_bucketed(ap.load_wav(str(refs / "k0-ref_emb.wav")))
     wins = utterance_windows(mel, enc.window, enc.stride)
     kern = embed_windows(enc, wins, ENCODER_WINDOW_BATCH)
@@ -3363,6 +3390,447 @@ def phase_encoder(torch, lstm_cuda, seed: int, profile_dir, tmp: Path) -> tuple:
     return kernels, counted
 
 
+# ---------------------------------------------------------------------------
+# The power-law config, the reference clip, the reference import and the
+# small CLIs, and the world of one
+# ---------------------------------------------------------------------------
+
+VOICEFILTER_CONFIG = "configs/voicefilter.json"
+VOICEFILTER_ROUTES = ("unfused", "fused_chain")
+VOICEFILTER_STEPS = 12  # timed steps on a fixed batch, each route
+# the chain layers with a relu prologue: the (7,1) layer's successor to d16
+RELU_PROLOGUE_LAYERS = ("5x5-d1", "5x5-d2", "5x5-d4", "5x5-d8", "5x5-d16")
+REFERENCE_SECONDS = (3.0, 14.0)  # 6 windows (one batch of 32) and 34 (two)
+DVECTOR_TOL = 1e-5  # d-vector, kernels vs plain versions (fp32, unit windows)
+DIST_STEPS = 2  # `cli.train` steps a run in the distributed phase
+DIST_ROUNDS, DIST_TIMED = 3, 10  # rounds of timed steps without, then with the group
+
+
+def _fresh_step(config, seed: int, b: int):
+    """A fresh full-width model of `config` from `seed`, its optimizer, state,
+    train step and a B=`b` batch."""
+    from voicesplit_tpu_torch import weights
+    from voicesplit_tpu_torch.dsp.processor import make_audio_processor
+    from voicesplit_tpu_torch.models.masknet import make_masknet
+    from voicesplit_tpu_torch.train import create_train_state, make_optimizer, make_train_step
+
+    ap = make_audio_processor(config)
+    n = int(config.audio.audio_len * ap.sample_rate)
+    model = weights.init_random_(make_masknet(config), seed)
+    optimizer = make_optimizer(config, model)
+    state = create_train_state(model, optimizer)
+    step = make_train_step(config, model, ap, optimizer)
+    return model, optimizer, state, step, train_batch(seed + b, b, n, ap.sample_rate,
+                                                      config.model.emb_dim)
+
+
+def phase_voicefilter(torch, lstm_cuda, cf, cc, seed: int, profile_dir) -> dict:
+    """`configs/voicefilter.json` (relu, power-law loss, bf16) trained at full
+    width at B=2 on the unfused path and on the fused chain: the counted
+    step, the same step through the plain versions, the relu prologue of
+    every chain layer against its plain version, step p50 / p75 and peak
+    memory beside the si_snr steps' of the train phases."""
+    from voicesplit_tpu_torch.config import load_config
+
+    config = load_config(str(ROOT / VOICEFILTER_CONFIG))
+    config.train_config.learning_rate = TRAIN_LR
+    check(config.loss.loss_name == "power_law_compression" and config.model_name == "voicefilter",
+          f"{VOICEFILTER_CONFIG}: {config.model_name}, {config.loss.loss_name}")
+    b = config.train_config.batch_size
+    report = {"config": VOICEFILTER_CONFIG, "loss_name": config.loss.loss_name,
+              "activation": "relu", "compute_dtype": config.train_config.compute_dtype,
+              "batch": b, "learning_rate": TRAIN_LR, "tolerances_unfused": TRAIN_TOL,
+              "tolerances_fused_chain": FUSED_TOL}
+    launches = {k: 0 for k in (*lstm_cuda.LAUNCHES, *cf.LAUNCHES)}
+    for route in VOICEFILTER_ROUTES:
+        with _route_env(route):
+            model, optimizer, state, step, batch = _fresh_step(config, seed, b)
+            report.setdefault("params", sum(p.numel() for p in model.parameters()))
+            before = _snapshot(model, optimizer, state)
+            _reset_counts(torch, lstm_cuda, cf)
+            mk = step(state, batch)
+            counted = _counts(torch, lstm_cuda, cf)
+            _add(launches, counted)
+            want = {**TRAIN_LAUNCHES[b], **(CONV_LAUNCHES if route == "fused_chain"
+                                             else {k: 0 for k in cf.LAUNCHES})}
+            check(counted == want, f"voicefilter {route}: launches per step {counted}")
+            _check_routes(lstm_cuda, {k: counted[k] for k in lstm_cuda.LAUNCHES}, f"voicefilter {route}")
+            loss0, gn0 = float(mk["loss"]), float(mk["grad_norm"])
+            check(np.isfinite(loss0) and not bool(mk["loss_exploded"]) and gn0 > 0,
+                  f"voicefilter {route}: loss {loss0}, grad_norm {gn0}")
+            unmoved = [k for k, v in model.state_dict().items() if torch.equal(v, before[0][k])]
+            check(not unmoved, f"voicefilter {route}: unchanged after a step: {unmoved}")
+            if route == "unfused":
+                gk = _lstm_grads(model)
+                _restore(model, optimizer, state, before)
+                with _PlainVersions(lstm_cuda):
+                    mp = step(state, batch)
+                gp = _lstm_grads(model)
+                vs_plain = {
+                    "loss_rel": abs(loss0 - float(mp["loss"])) / abs(float(mp["loss"])),
+                    "grad_norm_rel": abs(gn0 - float(mp["grad_norm"])) / float(mp["grad_norm"]),
+                    "lstm_grad_peak_rel": {k: _peak_rel(gk[k], gp[k]) for k in gk},
+                }
+                for k, tol in TRAIN_TOL.items():
+                    err = vs_plain[k]
+                    err = max(err.values()) if isinstance(err, dict) else err
+                    check(err <= tol, f"voicefilter unfused: kernels vs plain {k} {err} > {tol}")
+            else:
+                through = _chain_state(model)
+                _restore(model, optimizer, state, before)
+                with _PlainVersions(cf):
+                    mp = step(state, batch)
+                vs_plain = _compare_steps(torch, mk, through, mp, _chain_state(model))
+                _check_step_agreement("voicefilter fused_chain: kernels vs plain", vs_plain, FUSED_TOL)
+            _restore(model, optimizer, state, before)
+            for _ in range(TRAIN_WARM):
+                step(state, batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times, losses = [], []
+            for _ in range(VOICEFILTER_STEPS):
+                t0 = time.perf_counter()
+                losses.append(float(step(state, batch)["loss"]))
+                times.append((time.perf_counter() - t0) * 1e3)
+            check(all(np.isfinite(losses)) and losses[-1] < loss0,
+                  f"voicefilter {route}: losses {loss0} -> {losses}")
+            si_snr = REPORTS.get("train fused" if route == "fused_chain" else "train", {}).get(f"B{b}", {})
+            report[route] = {
+                "launches_per_step": counted, "first_loss": loss0, "first_grad_norm": gn0,
+                "kernels_vs_plain": vs_plain, "steps": VOICEFILTER_STEPS,
+                "step_ms_p50": float(np.percentile(times, 50)),
+                "step_ms_p75": float(np.percentile(times, 75)),
+                "si_snr_step_ms_p50_p75": [si_snr.get("step_ms_p50"), si_snr.get("step_ms_p75")],
+                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                "si_snr_max_memory_allocated_bytes": si_snr.get("max_memory_allocated_bytes"),
+                "losses": losses,
+            }
+            if profile_dir:
+                report[route]["profile"] = profile(
+                    torch, profile_dir, f"voicefilter_{route}", lambda: step(state, batch))
+            del model, optimizer, state, step
+            torch.cuda.empty_cache()
+    # the relu prologue of every chain layer that has one, each kernel
+    # against its plain version (bf16, the path's shape)
+    g = torch.Generator(device="cpu").manual_seed(seed + 16)
+    report["relu_prologue"] = {
+        layer: {name: entry["errors"] for name, entry in _check_conv_case(
+            torch, cf, cc, f"{layer}/relu/bfloat16", CONV_SHAPE, layer, "relu", "bfloat16", g).items()}
+        for layer in RELU_PROLOGUE_LAYERS
+    }
+    torch.cuda.empty_cache()
+    emit("voicefilter", device=torch.cuda.get_device_name(0), **report)
+    return launches
+
+
+def _random_embedder(torch, path: Path, seed: int) -> None:
+    """A GE2E ``embedder.pt`` in the reference's layout (a 3-layer
+    ``nn.LSTM(40 → 768)`` under ``lstm.``, ``proj.linear_layer``), random
+    weights from `seed`."""
+    torch.manual_seed(seed)
+    lstm, proj = torch.nn.LSTM(40, 768, num_layers=3), torch.nn.Linear(768, 256)
+    sd = {f"lstm.{k}": v for k, v in lstm.state_dict().items()}
+    sd.update({f"proj.linear_layer.{k}": v for k, v in proj.state_dict().items()})
+    torch.save(sd, path)
+
+
+def phase_reference(torch, lstm_cuda, seed: int, tmp: Path) -> dict:
+    """`cli.separate --reference_wav --encoder_checkpoint` on the card with a
+    random GE2E encoder in the reference's ``embedder.pt`` layout, for a 3 s
+    and a 14 s reference (one and two window batches of 32): the counted
+    CLI run, the d-vector against the plain versions' and the CLI's output
+    against `separate_batch` with that d-vector."""
+    from voicesplit_tpu_torch import weights
+    from voicesplit_tpu_torch.cli.separate import main as separate_main
+    from voicesplit_tpu_torch.cli.separate import separate_batch
+    from voicesplit_tpu_torch.config import load_config
+    from voicesplit_tpu_torch.data.synthetic import _speaker_wav
+    from voicesplit_tpu_torch.dsp.audio_io import load_wav, save_wav_float
+    from voicesplit_tpu_torch.dsp.processor import make_audio_processor
+    from voicesplit_tpu_torch.models.masknet import make_masknet
+    from voicesplit_tpu_torch.train.encoder import embed_reference, load_ge2e_encoder, window_count
+
+    config_path = str(ROOT / "configs" / "voicesplit.json")
+    config = load_config(config_path)
+    ap = make_audio_processor(config)
+    model = weights.init_random_(make_masknet(config), seed)
+    weights.save(model, str(tmp / "w.pt"))
+    _random_embedder(torch, tmp / "embedder.pt", seed)
+    rng, sr = np.random.default_rng(seed + 17), ap.sample_rate
+    n = int(config.audio.audio_len * sr)
+    save_wav_float(_speaker_wav(rng, 0, n, sr) + _speaker_wav(rng, 1, n, sr), str(tmp / "mix.wav"), sr)
+    enc = load_ge2e_encoder(str(tmp / "embedder.pt"), config.audio.active.num_mels, "cuda").eval()
+    report = {"encoder": "GE2E, random embedder.pt (reference layout), H=768, fp32",
+              "window_batch": ENCODER_WINDOW_BATCH, "dvector_tolerance": DVECTOR_TOL}
+    launches = {k: 0 for k in lstm_cuda.LAUNCHES}
+    for seconds in REFERENCE_SECONDS:
+        ref = tmp / f"ref{seconds:g}.wav"
+        save_wav_float(_speaker_wav(rng, 0, int(seconds * sr), sr), str(ref), sr)
+        wav = ap.load_wav(str(ref))
+        n_win = window_count(ap.get_mel(wav).shape[1], enc.window, enc.stride)
+        batches = -(-n_win // ENCODER_WINDOW_BATCH)
+        out = tmp / f"out{seconds:g}.wav"
+        _reset_counts(torch, lstm_cuda)
+        t0 = time.perf_counter()
+        separate_main(["-c", config_path, "--weights", str(tmp / "w.pt"),
+                       "--mixed_wav", str(tmp / "mix.wav"), "--reference_wav", str(ref),
+                       "--encoder_checkpoint", str(tmp / "embedder.pt"), "--output", str(out)])
+        cli_s = time.perf_counter() - t0
+        counted = _counts(torch, lstm_cuda)
+        _add(launches, counted)
+        # the encoder's layers on [80, 32] a batch, the mask network's BiLSTM at B=1
+        want = {"lstm_fwd": 3 * batches + 2, "bilstm_fwd": 0, "lstm_bwd": 0, "bilstm_bwd": 0}
+        check(counted == want, f"reference {seconds:g} s: launches {counted}, wanted {want}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dvec = embed_reference(enc, ap, wav)
+        embed_ms = (time.perf_counter() - t0) * 1e3
+        with _PlainVersions(lstm_cuda):
+            plain = embed_reference(enc, ap, wav)
+        err = float(np.abs(dvec - plain).max())
+        check(np.isfinite(dvec).all() and err <= DVECTOR_TOL,
+              f"reference {seconds:g} s: d-vector vs plain {err} > {DVECTOR_TOL}")
+        mixed = ap.load_wav(str(tmp / "mix.wav"))
+        with torch.inference_mode():
+            want_wav = separate_batch(model.eval(), ap, mixed[None], dvec[None])[0].cpu().numpy()
+        ap.save_wav(want_wav, str(tmp / "want.wav"))
+        got = load_wav(str(out))
+        check(got.shape == (n,) and np.isfinite(got).all(), f"reference {seconds:g} s: output {got.shape}")
+        same = out.read_bytes() == (tmp / "want.wav").read_bytes()
+        check(same, f"reference {seconds:g} s: the CLI's output is not separate_batch's with its d-vector")
+        report[f"{seconds:g}s"] = {"windows": n_win, "window_batches": batches, "launches": counted,
+                                   "dvector_vs_plain_abs": err, "dvector_norm": float(np.linalg.norm(dvec)),
+                                   "embed_ms": embed_ms, "cli_seconds": cli_s,
+                                   "cli_output_equals_separate_batch": same}
+    emit("reference", device=torch.cuda.get_device_name(0), **report)
+    return launches
+
+
+def phase_import(torch, seed: int, tmp: Path) -> dict:
+    """A random full-width port model exported to the reference's layout
+    (a ``checkpoint_<step>.pt`` payload, ``config_str`` a dict repr), imported
+    back by `cli.import_torch`, and served through the imported checkpoint
+    on the card: bit for bit the original.  Then the three small CLIs on a
+    synthetic corpus: `cli.convert` on the card, `cli.generate_csv` and
+    `cli.resample` on the host, seconds a file."""
+    from voicesplit_tpu_torch import weights
+    from voicesplit_tpu_torch.cli.convert import main as convert_main
+    from voicesplit_tpu_torch.cli.generate_csv import main as generate_csv_main
+    from voicesplit_tpu_torch.cli.import_torch import main as import_main
+    from voicesplit_tpu_torch.cli.resample import main as resample_main
+    from voicesplit_tpu_torch.cli.separate import separate_batch
+    from voicesplit_tpu_torch.config import load_config
+    from voicesplit_tpu_torch.dsp.audio_io import load_wav
+    from voicesplit_tpu_torch.dsp.processor import make_audio_processor
+    from voicesplit_tpu_torch.models.masknet import make_masknet
+    from voicesplit_tpu_torch.train.checkpoint import load_model_variables
+    from voicesplit_tpu_torch.train.torch_import import export_torch_state_dict
+
+    config_path = str(ROOT / "configs" / "voicesplit.json")
+    config = load_config(config_path)
+    ap = make_audio_processor(config)
+    model = weights.init_random_(make_masknet(config), seed).eval()
+    num_freq = config.audio.active.num_freq
+    ref_sd = export_torch_state_dict(model.state_dict(), num_freq, config.model.conv_out_channels)
+    pt = tmp / "checkpoint_777.pt"
+    torch.save({"model": ref_sd, "optimizer": {}, "step": 777, "config_str": str(config.to_dict())}, pt)
+    t0 = time.perf_counter()
+    path = import_main(["--torch_checkpoint", str(pt), "--output_dir", str(tmp / "imported")])
+    import_s = time.perf_counter() - t0
+    check(Path(path).name == "checkpoint_777.pt", f"import wrote {path}")
+    imported = make_masknet(config).eval()
+    imported.load_state_dict(load_model_variables(config, path))
+    n = int(config.audio.audio_len * ap.sample_rate)
+    mixed, emb = synthetic_batch(seed + 19, 2, n, ap.sample_rate, config.model.emb_dim)
+    with torch.inference_mode():
+        a = separate_batch(model, ap, mixed, emb)
+        b = separate_batch(imported, ap, mixed, emb)
+    same = bool(torch.equal(a, b))
+    check(same, "serving through the imported checkpoint differs from the original")
+    report = {"import_seconds": import_s, "serving_same_bits": same,
+              "params": sum(p.numel() for p in imported.parameters())}
+
+    # the small CLIs
+    corpus = _speaker_corpus(tmp, seed)
+    specs = tmp / "specs"
+    specs.mkdir()
+    wavs = sorted(corpus.glob("spk0/*.wav"))
+    for i, w in enumerate(wavs):
+        np.save(specs / f"s{i}.npy", ap.wav2spec(ap.load_wav(str(w)))[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    written = convert_main(["--input_dir", str(specs), "--output_dir", str(tmp / "converted"),
+                            "-c", config_path])
+    convert_s = time.perf_counter() - t0
+    check(len(written) == len(wavs) and all(np.isfinite(load_wav(p)).all() for p in written),
+          f"convert wrote {written}")
+    t0 = time.perf_counter()
+    rows = generate_csv_main(["--dataset_dir", str(corpus), "--output", str(tmp / "dev.csv"),
+                              "--audio_len", str(CORPUS_SECONDS - 0.5), "--seed", str(seed)])
+    csv_s = time.perf_counter() - t0
+    check(len(rows) == CORPUS_SPEAKERS * (CORPUS_SPEAKERS - 1), f"generate_csv: {len(rows)} rows")
+    tree = tmp / "tree"
+    shutil.copytree(corpus / "spk0", tree / "spk0")
+    t0 = time.perf_counter()
+    done = resample_main(["--root", str(tree), "--num_workers", "2"])
+    resample_s = time.perf_counter() - t0
+    check(done[0] == done[1] > 0, f"resample processed {done}")
+    report["small_clis"] = {
+        "convert": {"files": len(written), "seconds_per_file": convert_s / len(written),
+                    "device": "cuda"},
+        "generate_csv": {"rows": len(rows), "seconds": csv_s,
+                         "wavs": CORPUS_SPEAKERS * CORPUS_UTTERANCES, "device": "host"},
+        "resample": {"files": done[1], "seconds_per_file": resample_s / done[1],
+                     "workers": 2, "device": "host"},
+    }
+    emit("import", device=torch.cuda.get_device_name(0), **report)
+    return {}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _checkpoint_bits(torch, path: str) -> dict:
+    payload = torch.load(path, map_location="cpu", weights_only=False)
+    return {**payload["model"], **payload["batch_stats"]}
+
+
+def _step_times(torch, step, state, batch, n: int) -> list:
+    """Host-clock ms of `n` synchronized steps."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def _world_of_one_step(torch, lstm_cuda, cf, route: str, step, state, batch, launches: dict,
+                       profile_dir) -> dict:
+    """Under the group: one counted step (exact launches), then 3 profiled
+    steps for the NCCL kernels and the all-reduce calls a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    b = len(batch["mixed_wav"])
+    _reset_counts(torch, lstm_cuda, cf)
+    m = step(state, batch)
+    counted = _counts(torch, lstm_cuda, cf)
+    _add(launches, counted)
+    want = {**TRAIN_LAUNCHES[b], **(CONV_LAUNCHES if route == "fused_chain"
+                                     else {k: 0 for k in cf.LAUNCHES})}
+    check(counted == want and np.isfinite(float(m["loss"])),
+          f"distributed {route}: launches {counted}, loss {float(m['loss'])}")
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step(state, batch)
+        torch.cuda.synchronize()
+    nccl = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and kernel_kind(e.name) == "collectives"]
+    calls: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and "allreduce" in e.name.replace("_", "").lower():
+            calls[e.name] = calls.get(e.name, 0) + 1 / 3
+    out = {
+        "launches_per_step": counted,
+        "nccl_kernels_per_step": len(nccl) / 3,
+        "nccl_kernel_ms_per_step": sum(e.time_range.elapsed_us() for e in nccl) / 3e3,
+        "nccl_kernel_names": sorted({e.name for e in nccl})[:4],
+        "all_reduce_events_per_step": calls,
+    }
+    if profile_dir:
+        out["profile"] = profile(torch, profile_dir, f"distributed_{route}",
+                                 lambda: step(state, batch))
+    return out
+
+
+def phase_distributed(torch, lstm_cuda, cf, seed: int, profile_dir, tmp: Path) -> dict:
+    """A world of one on the card: `initialize_distributed` with NCCL, one
+    B=2 step of each route counted and profiled under the group (the
+    BatchNorm and gradient all-reduces run; NCCL kernels timed), its steps
+    timed in rounds against the same steps with no group, then
+    `cli.train --coordinator --num_processes 1 --process_id 0` for
+    DIST_STEPS steps on each route against the same run with no group: the
+    weights after every step bit for bit."""
+    import torch.distributed as dist
+
+    from voicesplit_tpu_torch.cli.train import main as train_main
+    from voicesplit_tpu_torch.parallel.mesh import initialize_distributed, world_size
+
+    config_path, config = _trainer_config(tmp, seed, n_train=4, n_eval=2, ckpt_every=1)
+    b = config.train_config.batch_size
+    report = {"config": "configs/voicesplit.json", "batch": b, "steps": DIST_STEPS}
+    launches = {k: 0 for k in (*lstm_cuda.LAUNCHES, *cf.LAUNCHES)}
+    prev = torch.backends.cudnn.deterministic
+    # both runs of a pair must be reproducible for their bits to be compared
+    torch.backends.cudnn.deterministic = True
+    try:
+        for route in VOICEFILTER_ROUTES:
+            with _route_env(route):
+                model, optimizer, state, step, batch = _fresh_step(config, seed, b)
+                for _ in range(TRAIN_WARM):
+                    step(state, batch)
+                # rounds of steps without and with the group, in turns
+                times = {"no_group": [], "world_of_one": []}
+                for rnd in range(DIST_ROUNDS):
+                    times["no_group"] += _step_times(torch, step, state, batch, DIST_TIMED)
+                    check(initialize_distributed(f"localhost:{_free_port()}", 1, 0),
+                          "initialize_distributed did not start a world of one")
+                    check(dist.get_backend() == "nccl" and world_size() == 1,
+                          f"group {dist.get_backend()}, world {world_size()}")
+                    if rnd == 0:
+                        report[route] = _world_of_one_step(
+                            torch, lstm_cuda, cf, route, step, state, batch, launches, profile_dir)
+                    times["world_of_one"] += _step_times(torch, step, state, batch, DIST_TIMED)
+                    dist.destroy_process_group()
+                report[route]["step_ms_p50_p75"] = {
+                    k: [float(np.percentile(v, q)) for q in (50, 75)] for k, v in times.items()}
+                report[route]["timed_rounds"] = [DIST_ROUNDS, DIST_TIMED]
+                del model, optimizer, state, step
+                torch.cuda.empty_cache()
+
+        # the training CLI in a world of one against no group, per route
+        for route in VOICEFILTER_ROUTES:
+            runs = {}
+            with _route_env(route):
+                for name, group in (("no_group", False), ("world_of_one", True), ("no_group_again", False)):
+                    logs = tmp / f"{route}_{name}"
+                    argv = ["-c", config_path, "--logs_path", str(logs), "--max_steps", str(DIST_STEPS)]
+                    if group:
+                        argv += ["--coordinator", f"localhost:{_free_port()}",
+                                 "--num_processes", "1", "--process_id", "0"]
+                    t0 = time.perf_counter()
+                    res = train_main(argv)
+                    check(res["step"] == DIST_STEPS and not dist.is_initialized(),
+                          f"distributed {route} {name}: {res}")
+                    runs[name] = (logs, time.perf_counter() - t0, res)
+            same = {}
+            for s in range(1, DIST_STEPS + 1):
+                ck = {k: _checkpoint_bits(torch, str(v[0] / f"checkpoint_{s}.pt")) for k, v in runs.items()}
+                same[s] = all(torch.equal(ck["world_of_one"][k], v) for k, v in ck["no_group"].items())
+                again = all(torch.equal(ck["no_group_again"][k], v) for k, v in ck["no_group"].items())
+                check(again, f"distributed {route}: two runs without a group differ at step {s}")
+                check(same[s], f"distributed {route}: step {s} with a group of one differs from no group")
+            report[route]["cli"] = {
+                "same_bits_by_step": same,
+                "seconds": {k: v[1] for k, v in runs.items()},
+                "losses": {k: v[2].get("loss") for k, v in runs.items()},
+            }
+    finally:
+        torch.backends.cudnn.deterministic = prev
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    emit("distributed", device=torch.cuda.get_device_name(0), **report)
+    return launches
+
+
 # kinds for the device time split under --profile.  The port's kernels:
 # every __global__ of voicesplit_tpu_torch/csrc by its whole name
 # (tests/test_torch_kernel_kinds.py holds the list complete), tried before
@@ -3379,9 +3847,12 @@ PORT_KERNEL_KINDS = (
                       "lstm_bwd_kernel", "lstm_bwd_split_kernel", "lstm_bwd_grid_kernel",
                       "lstm_dwhh_kernel")),
 )
-# cuDNN's implicit-GEMM convs before the matmuls (their names hold "gemm"),
-# and cuBLAS's `sm80_xmma_gemm_*` matmuls before the rest of cuDNN's xmma
+# NCCL's kernels (`ncclDevKernel_*`, `ncclKernel_*`) first, cuDNN's
+# implicit-GEMM convs before the matmuls (their names hold "gemm"), and
+# cuBLAS's `sm80_xmma_gemm_*` matmuls before the rest of cuDNN's xmma
 LIBRARY_KERNEL_KINDS = (
+    # NCCL's collectives first: their names hold fragments of the kinds below
+    ("collectives", ("nccldevkernel", "ncclkernel")),
     ("convs", ("conv", "cudnn", "implicit", "fprop", "wgrad", "dgrad")),
     ("matmuls", ("gemm", "cutlass", "nvjet", "splitk")),
     ("convs", ("xmma",)),
@@ -3437,7 +3908,7 @@ def profile(torch, out_dir, tag, fn, runs: int = 5) -> dict:
 PHASES = ("kernels", "bwd_kernels", "separate", "train", "conv_kernels", "train_fused",
           "dilated_kernels", "separate_dilated", "trainer", "separate_wide", "train_wide",
           "evaluate", "preprocess", "trainer_online", "dsp", "streaming", "train_streaming",
-          "encoder")
+          "encoder", "voicefilter", "reference", "import", "distributed")
 
 
 def main(argv=None) -> int:
@@ -3525,6 +3996,21 @@ def main(argv=None) -> int:
         for name, key in (("lstm_fwd_grid", "lstm_fwd_ge2e_train"), ("lstm_bwd_grid", "lstm_bwd_ge2e_train")):
             r = enc_kernels[key]
             kern[name] = {**r, "timed_at": f"T={r['T']}, {r['rows']} rows, H={r['H']}, fp32 (GE2E step)"}
+    if "voicefilter" in phases:
+        by_path["voicefilter"] = phase_voicefilter(
+            torch, lstm_cuda, conv_fused, conv_cuda, args.seed, args.profile)
+    with tempfile.TemporaryDirectory(prefix="voicesplit_port_") as port_tmp:
+        for name in ("reference", "import", "distributed"):
+            if name in phases:
+                (Path(port_tmp) / name).mkdir()
+        if "reference" in phases:
+            by_path["reference"] = phase_reference(
+                torch, lstm_cuda, args.seed, Path(port_tmp) / "reference")
+        if "import" in phases:
+            phase_import(torch, args.seed, Path(port_tmp) / "import")
+        if "distributed" in phases:
+            by_path["distributed"] = phase_distributed(
+                torch, lstm_cuda, conv_fused, args.seed, args.profile, Path(port_tmp) / "distributed")
     emit("total", wall_seconds=time.perf_counter() - t_start, phases=phases)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

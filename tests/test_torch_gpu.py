@@ -1389,3 +1389,141 @@ def test_ge2e_step_runs_through_the_kernels_on_card():
             assert a.abs().item() <= 1e-6 and b.abs().item() <= 1e-6
         else:
             assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item(), name
+
+
+def _step_batch(batch, seed=0, n=48000):
+    rng = np.random.default_rng(seed)
+    target = (0.1 * rng.standard_normal((batch, n))).astype(np.float32)
+    return {
+        "mixed_wav": target + (0.1 * rng.standard_normal((batch, n))).astype(np.float32),
+        "target_wav": target,
+        "emb": rng.standard_normal((batch, 256)).astype(np.float32),
+        "wav_len": np.full((batch,), n, np.int32),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["unfused", "fused_chain"])
+def test_voicefilter_step_matches_plain_versions_on_card(route, monkeypatch):
+    """`configs/voicefilter.json` (relu, power-law loss, bf16) at B=2: exact
+    launches (on the chain 6 + 6 + 6 and 10 relu prologue passes), and the
+    step against the same step through the plain versions with the smoke's
+    TRAIN_TOL (unfused, the LSTM's) or FUSED_TOL (the chain's)."""
+    _need_card()
+    from voicesplit_tpu_torch import weights
+    from voicesplit_tpu_torch.ops import conv_fused, lstm_cuda
+    from voicesplit_tpu_torch.train import create_train_state, make_optimizer, make_train_step
+
+    monkeypatch.setenv("VOICESPLIT_FUSED_CHAIN", "1" if route == "fused_chain" else "0")
+    cfg = load_config(str(REPO / "configs" / "voicefilter.json"))
+    assert cfg.loss.loss_name == "power_law_compression" and cfg.model_name == "voicefilter"
+    cfg.train_config.learning_rate = chip_smoke.TRAIN_LR
+    ap = make_audio_processor(cfg)
+    model = weights.init_random_(make_masknet(cfg), seed=0)
+    opt = make_optimizer(cfg, model)
+    state = create_train_state(model, opt)
+    step = make_train_step(cfg, model, ap, opt)
+    batch = _step_batch(2)
+    snap = chip_smoke._snapshot(model, opt, state)
+    lstm_cuda.reset_launch_counts()
+    conv_fused.reset_launch_counts()
+    mk = step(state, batch)
+    torch.cuda.synchronize()
+    assert lstm_cuda.LAUNCHES == {"lstm_fwd": 2, "bilstm_fwd": 0, "lstm_bwd": 2, "bilstm_bwd": 0}
+    want = chip_smoke.CONV_LAUNCHES if route == "fused_chain" else {k: 0 for k in conv_fused.LAUNCHES}
+    assert conv_fused.LAUNCHES == want
+    through = chip_smoke._chain_state(model)
+    lstm_k = chip_smoke._lstm_grads(model)
+    chip_smoke._restore(model, opt, state, snap)
+    with chip_smoke._PlainVersions(conv_fused if route == "fused_chain" else lstm_cuda):
+        mp = step(state, batch)
+    if route == "fused_chain":
+        cmp = chip_smoke._compare_steps(torch, mk, through, mp, chip_smoke._chain_state(model))
+        chip_smoke._check_step_agreement("voicefilter chain", cmp, chip_smoke.FUSED_TOL)
+    else:
+        lstm_p = chip_smoke._lstm_grads(model)
+        tol = chip_smoke.TRAIN_TOL
+        assert abs(float(mk["loss"]) - float(mp["loss"])) <= tol["loss_rel"] * abs(float(mp["loss"]))
+        for k in lstm_p:
+            assert chip_smoke._peak_rel(lstm_k[k], lstm_p[k]) <= tol["lstm_grad_peak_rel"], k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layer", ["5x5-d1", "5x5-d2", "5x5-d4", "5x5-d8", "5x5-d16"])
+def test_relu_prologue_on_every_chain_layer_on_card(layer):
+    """Each chain layer that takes a prologue, with relu (the voicefilter
+    model), through the three conv kernels against their plain versions at
+    the training shape (bf16): the smoke's CONV_TOL and the same bits twice."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import conv_cuda, conv_fused
+
+    g = torch.Generator().manual_seed(7)
+    chip_smoke._check_conv_case(torch, conv_fused, conv_cuda, f"{layer}/relu", chip_smoke.CONV_SHAPE,
+                                layer, "relu", "bfloat16", g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seconds", [3.0, 14.0])
+def test_reference_dvector_matches_plain_versions_on_card(seconds, tmp_path):
+    """`embed_reference` (what `cli.separate --reference_wav` takes) with a
+    random GE2E ``embedder.pt`` in the reference's layout: 3 `lstm_fwd` a
+    window batch of 32 on the grid route, the d-vector within 1e-5 of the
+    plain versions'."""
+    _need_card()
+    from voicesplit_tpu_torch.data.synthetic import _speaker_wav
+    from voicesplit_tpu_torch.ops import lstm_cuda
+    from voicesplit_tpu_torch.train.encoder import embed_reference, load_ge2e_encoder, window_count
+
+    chip_smoke._random_embedder(torch, tmp_path / "embedder.pt", 0)
+    cfg = load_config(str(REPO / "configs" / "voicesplit.json"))
+    ap = make_audio_processor(cfg)
+    enc = load_ge2e_encoder(str(tmp_path / "embedder.pt"), 40, "cuda").eval()
+    wav = _speaker_wav(np.random.default_rng(1), 0, int(seconds * 16000), 16000)
+    batches = -(-window_count(ap.get_mel(wav).shape[1], 80, 40) // 32)
+    lstm_cuda.reset_launch_counts()
+    got = embed_reference(enc, ap, wav)
+    torch.cuda.synchronize()
+    assert lstm_cuda.LAUNCHES == {"lstm_fwd": 3 * batches, "bilstm_fwd": 0, "lstm_bwd": 0,
+                                  "bilstm_bwd": 0}
+    assert lstm_cuda.ROUTES["grid"] == 3 * batches
+    with chip_smoke._PlainVersions(lstm_cuda):
+        want = embed_reference(enc, ap, wav)
+    assert np.abs(got - want).max() <= chip_smoke.DVECTOR_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["unfused", "fused_chain"])
+def test_nccl_world_of_one_step_is_the_step_without_a_group_on_card(route, monkeypatch):
+    """A train step under an NCCL process group of one rank (the BatchNorm
+    and gradient all-reduces run) gives the parameters, running statistics
+    and metrics of the same step with no group, bit for bit."""
+    _need_card()
+    import torch.distributed as dist
+
+    from voicesplit_tpu_torch.parallel.mesh import initialize_distributed
+
+    monkeypatch.setenv("VOICESPLIT_FUSED_CHAIN", "1" if route == "fused_chain" else "0")
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg = load_config(str(REPO / "configs" / "voicesplit.json"))
+    cfg.train_config.learning_rate = chip_smoke.TRAIN_LR
+    model, opt, state, step, batch = chip_smoke._fresh_step(cfg, 0, 2)
+    snap = chip_smoke._snapshot(model, opt, state)
+    results = {}
+    for name in ("no_group", "group", "no_group_again"):
+        chip_smoke._restore(model, opt, state, snap)
+        if name == "group":
+            assert initialize_distributed(f"localhost:{chip_smoke._free_port()}", 1, 0)
+        try:
+            m = step(state, batch)
+            torch.cuda.synchronize()
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        results[name] = ({k: v.clone() for k, v in model.state_dict().items()},
+                         float(m["loss"]), float(m["grad_norm"]))
+    base = results["no_group"]
+    for name in ("group", "no_group_again"):
+        sd, loss, gn = results[name]
+        assert (loss, gn) == base[1:], name
+        for k, v in sd.items():
+            assert torch.equal(v, base[0][k]), (name, k)

@@ -63,6 +63,8 @@ def test_every_port_kernel_maps_to_a_port_kind(name):
     ("sm80_xmma_gemm_f32f32_f32f32_f32_tn_n_tilesize128x128x8_stage3_warpsize2x2x1_ffma", "matmuls"),
     ("void at::native::(anonymous namespace)::multi_tensor_apply_kernel<...>", "optimizer"),
     ("void at::native::elementwise_kernel<128, 2, ...>", "elementwise and other"),
+    ("ncclDevKernel_AllReduce_Sum_f32_RING_LL(ncclDevKernelArgsStorage<4096ul>)", "collectives"),
+    ("ncclKernel_AllGather_RING_LL_Sum_int8_t(ncclDevComm*, unsigned long, ncclWork*)", "collectives"),
 ])
 def test_library_kernels_keep_their_kinds(shown, kind):
     assert chip_smoke.kernel_kind(shown) == kind

@@ -100,7 +100,7 @@ def test_cli_writes_the_separated_wav(tmp_path):
 
 
 @pytest.mark.parametrize(
-    "flag", [["--sequence_parallel"], ["--reference_wav", "ref.wav"]]
+    "flag", [["--sequence_parallel"]]
 )
 def test_cli_refuses_what_is_not_ported(tmp_path, flag):
     _, _, _, args = _cli_files(tmp_path)

@@ -25,6 +25,7 @@ from voicesplit_tpu_torch import weights
 from voicesplit_tpu_torch.cli import train as train_cli
 from voicesplit_tpu_torch.config import load_config_from_str
 from voicesplit_tpu_torch.data.synthetic import build_synthetic_dataset
+from voicesplit_tpu_torch.parallel import make_mesh
 from voicesplit_tpu_torch.train.checkpoint import list_checkpoints, load_checkpoint
 from voicesplit_tpu_torch.train.trainer import Trainer
 
@@ -223,7 +224,7 @@ def test_explosion_guard_rides_the_check_cadence(check_interval, summary_interva
 
 def test_parts_not_yet_ported_raise(workspace, tmp_path):
     config = load_config_from_str(_config_text(workspace))
-    for kwargs in ({"mesh": object()}, {"model_parallel": 2}):
+    for kwargs in ({"mesh": make_mesh(model=2, ranks=[0, 1])}, {"model_parallel": 2}):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             Trainer(config, log_dir=str(tmp_path), device="cpu", **kwargs)
     # the streaming model and a causal config build (their training is
@@ -237,10 +238,7 @@ def test_parts_not_yet_ported_raise(workspace, tmp_path):
     assert tr.model.streaming and tr.model.causal
 
 
-CLI_FLAGS = {
-    "coordinator": ["--coordinator", "host:1"], "num_processes": ["--num_processes", "2"],
-    "process_id": ["--process_id", "1"], "model_parallel": ["--model_parallel", "2"],
-}
+CLI_FLAGS = {"model_parallel": ["--model_parallel", "2"]}
 
 
 @pytest.mark.parametrize("flag", sorted(CLI_FLAGS))

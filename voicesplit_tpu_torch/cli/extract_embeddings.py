@@ -35,30 +35,6 @@ from glob import glob
 WINDOW_BATCH = 32  # windows a batch: one shape for the encoder
 
 
-def _ge2e_encoder(path, num_mels: int, dev):
-    """The GE2E encoder of a checkpoint (or random weights from seed 0)."""
-    import torch
-
-    from voicesplit_tpu_torch.models.speaker_encoder import SpeakerEncoder, load_torch_state_dict
-    from voicesplit_tpu_torch.train.encoder import load_encoder_checkpoint
-    from voicesplit_tpu_torch.weights import init_encoder_for_training_
-
-    if path is None:
-        print(" > No encoder checkpoint given — using random init (smoke mode)")
-        return init_encoder_for_training_(SpeakerEncoder(num_mels=num_mels), 0).to(dev)
-    if path.endswith(".msgpack"):
-        ckpt = load_encoder_checkpoint(path)
-    else:
-        ckpt = torch.load(path, map_location="cpu", weights_only=True)
-        if "encoder" not in ckpt:  # the reference's embedder.pt: a bare state dict
-            encoder = SpeakerEncoder(num_mels=num_mels)
-            encoder.load_state_dict(load_torch_state_dict(ckpt))
-            return encoder.to(dev)
-    encoder = SpeakerEncoder(**ckpt["encoder"])
-    encoder.load_state_dict({k[4:]: v for k, v in ckpt["params"].items() if k.startswith("enc.")})
-    return encoder.to(dev)
-
-
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Extract speaker d-vectors (PyTorch)")
     parser.add_argument("--data_dir", type=str, required=True)
@@ -125,7 +101,7 @@ def main(argv=None):
         print(f"wrote {n_ok} speech2phone embeddings ({n_short} sentinels) in {args.data_dir}")
         return
 
-    from voicesplit_tpu_torch.train.encoder import embed_windows, utterance_windows
+    from voicesplit_tpu_torch.train.encoder import embed_windows, load_ge2e_encoder, utterance_windows
 
     if args.encoder == "corentinj":
         from voicesplit_tpu_torch.models.speaker_encoder import (
@@ -144,7 +120,7 @@ def main(argv=None):
             init_encoder_for_training_(encoder, 0)
         encoder = encoder.to(dev)
     else:
-        encoder = _ge2e_encoder(args.encoder_checkpoint, config.audio.active.num_mels, dev)
+        encoder = load_ge2e_encoder(args.encoder_checkpoint, config.audio.active.num_mels, dev)
     encoder.eval()
 
     W, S = encoder.window, encoder.stride

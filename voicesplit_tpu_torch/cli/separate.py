@@ -2,7 +2,8 @@
 counterpart of `voicesplit_tpu/cli/separate.py`).
 
     python -m voicesplit_tpu_torch.cli.separate -c configs/voicesplit.json \
-        --weights weights.pt --mixed_wav mix.wav --emb emb.npy \
+        --weights weights.pt --mixed_wav mix.wav (--emb emb.npy | \
+        --reference_wav ref.wav --encoder_checkpoint embedder.pt) \
         --output out.wav [--streaming [--chunk_frames N]] [--griffin_lim] \
         [--device cuda|cpu]
 
@@ -14,7 +15,12 @@ streaming model (forward-only LSTM; causal convs where the config says so),
 whose weights come from a streaming checkpoint, e.g. one written by
 `cli.convert_streaming`.
 ``--weights`` is a file written by `voicesplit_tpu_torch.weights.save` or a
-``checkpoint_<step>.pt`` of the port's trainer.
+``checkpoint_<step>.pt`` of the port's trainer (or of `cli.import_torch`).
+``--reference_wav`` takes the d-vector from a clip of the target speaker
+instead of ``--emb``: the GE2E encoder of ``--encoder_checkpoint`` (the
+reference's ``embedder.pt``, or the port's / JAX CLI's encoder checkpoint) on
+the clip's log-mel, windows of 80 frames at stride 40 in batches of 32, their
+plain mean (`train/encoder.py::embed_reference`), as the JAX CLI takes it.
 The device is the CUDA card unless ``--device cpu`` is given.
 """
 
@@ -28,7 +34,7 @@ import torch
 from voicesplit_tpu_torch.dsp.processor import AudioProcessor
 from voicesplit_tpu_torch.models.masknet import MaskNet
 
-_NOT_PORTED = ("sequence_parallel", "reference_wav")
+_NOT_PORTED = ("sequence_parallel",)
 
 
 def separate_batch(
@@ -51,18 +57,25 @@ def main(argv=None):
     parser.add_argument("--weights", type=str, required=True,
                         help="the port's .pt weights, or a trainer's checkpoint_<step>.pt")
     parser.add_argument("--mixed_wav", type=str, required=True)
-    parser.add_argument("--emb", type=str, required=True, help="*.npy d-vector")
+    parser.add_argument("--emb", type=str, default=None, help="*.npy d-vector")
+    parser.add_argument("--reference_wav", type=str, default=None,
+                        help="take the d-vector from this clip of the target speaker instead")
+    parser.add_argument("--encoder_checkpoint", type=str, default=None,
+                        help="with --reference_wav: the GE2E encoder's checkpoint")
     parser.add_argument("--output", type=str, required=True)
     parser.add_argument("--device", type=str, default=None, help="cuda (default) or cpu")
     parser.add_argument("--streaming", action="store_true")
     parser.add_argument("--chunk_frames", type=int, default=50)
     parser.add_argument("--sequence_parallel", action="store_true")
     parser.add_argument("--griffin_lim", action="store_true")
-    parser.add_argument("--reference_wav", type=str, default=None)
     args = parser.parse_args(argv)
     for opt in _NOT_PORTED:
         if getattr(args, opt):
             raise NotImplementedError(f"--{opt} is not yet ported")
+    if not args.emb and not args.reference_wav:
+        raise SystemExit("provide --emb or --reference_wav")
+    if not args.emb and not args.encoder_checkpoint:
+        raise SystemExit("--reference_wav requires --encoder_checkpoint")
 
     from voicesplit_tpu_torch import weights
     from voicesplit_tpu_torch.config import load_config
@@ -77,7 +90,16 @@ def main(argv=None):
         model.load_state_dict(load_model_variables(config, args.weights, args.streaming))
     else:
         weights.load(model, args.weights)
-    emb = np.load(args.emb).astype(np.float32).reshape(1, -1)
+    if args.emb:
+        emb = np.load(args.emb).astype(np.float32).reshape(1, -1)
+    else:
+        from voicesplit_tpu_torch.train.encoder import embed_reference, load_ge2e_encoder
+
+        p = config.audio.active
+        # waveglow's config field is n_mel_channels (reference schema)
+        num_mels = getattr(p, "num_mels", getattr(p, "n_mel_channels", 40))
+        encoder = load_ge2e_encoder(args.encoder_checkpoint, num_mels, ap.device).eval()
+        emb = embed_reference(encoder, ap, ap.load_wav(args.reference_wav))[None]
     mixed = ap.load_wav(args.mixed_wav)
     if args.streaming:
         from voicesplit_tpu_torch.streaming import StreamingSeparator

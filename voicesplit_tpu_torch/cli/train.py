@@ -4,7 +4,8 @@ reference `train.py:140-163`).
     python -m voicesplit_tpu_torch.cli.train -c config.json \
         [--checkpoint_path checkpoint_<step>.pt] [--logs_path dir] \
         [--max_steps N] [--eval_sdr] [--online [--emb_mode pseudo|spectral] \
-        [--embeddings_dir DIR]] [--debug_nans] [--device cuda|cpu]
+        [--embeddings_dir DIR]] [--debug_nans] [--device cuda|cpu] \
+        [--coordinator HOST:PORT --num_processes N --process_id K]
 
 Trains on the triplets under the config's ``dataset.train_dir`` (read by the
 native loader), or with ``--online`` on 2-speaker mixtures made afresh each
@@ -18,6 +19,13 @@ guard every step and names the first op with a non-finite output
 (`train/trainer.py`).  The device is the CUDA card unless ``--device cpu``
 is given.  Returns the result of ``fit()`` with ``wall_seconds`` and the
 train loader's class name.
+
+Data-parallel training: start one process a rank with the same flags and its
+own ``--process_id``; ``--coordinator`` is rank 0's ``host:port`` (any free
+port), ``--num_processes`` the world size.  The process group (NCCL on the
+card, gloo with ``--device cpu``) starts before anything touches the device
+and ends with the run; ``batch_size`` is per process.  Only rank 0 writes the
+logs directory.  ``--model_parallel > 1`` is not yet ported and raises.
 """
 
 from __future__ import annotations
@@ -25,9 +33,6 @@ from __future__ import annotations
 import argparse
 import os
 from glob import glob
-
-_NOT_PORTED = ("coordinator", "num_processes", "process_id")
-
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Train a voice-separation model (PyTorch)")
@@ -51,7 +56,8 @@ def main(argv=None):
     parser.add_argument("--embeddings_dir", type=str, default=None,
                         help="with --online: <speaker>.npy d-vectors")
     parser.add_argument("--coordinator", type=str, default=None,
-                        help="several processes: coordinator address host:port")
+                        help="several processes: rank 0's address host:port (with "
+                             "--num_processes 1, a world of one)")
     parser.add_argument("--num_processes", type=int, default=None,
                         help="several processes: their total number")
     parser.add_argument("--process_id", type=int, default=None,
@@ -62,24 +68,36 @@ def main(argv=None):
                              "op by op to name the first op with a non-finite output")
     parser.add_argument("--device", type=str, default=None, help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    for opt in _NOT_PORTED:
-        if getattr(args, opt):
-            raise NotImplementedError(f"--{opt} is not yet ported")
     if args.model_parallel > 1:
         raise NotImplementedError("--model_parallel > 1 is not yet ported")
 
+    import torch.distributed as dist
+
+    from voicesplit_tpu_torch.parallel.mesh import initialize_distributed
+
+    started = initialize_distributed(args.coordinator, args.num_processes, args.process_id,
+                                     device=args.device)
+    try:
+        return _train(args)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _train(args):
     from voicesplit_tpu_torch.config import load_config
+    from voicesplit_tpu_torch.parallel.mesh import rank, world_size
     from voicesplit_tpu_torch.train.trainer import Trainer
 
     config = load_config(args.config_path)
     if args.logs_path:
         config.train_config.logs_path = args.logs_path
-    os.makedirs(config.train_config.logs_path, exist_ok=True)
-
-    # keep a copy of the config next to the checkpoints (reference
-    # copy_config_file behavior, utils/generic_utils.py:583-594)
-    with open(os.path.join(config.train_config.logs_path, "config.json"), "w") as f:
-        f.write(config.to_json())
+    if rank() == 0:
+        os.makedirs(config.train_config.logs_path, exist_ok=True)
+        # keep a copy of the config next to the checkpoints (reference
+        # copy_config_file behavior, utils/generic_utils.py:583-594)
+        with open(os.path.join(config.train_config.logs_path, "config.json"), "w") as f:
+            f.write(config.to_json())
 
     train_loader = None
     if args.online:
@@ -100,6 +118,8 @@ def main(argv=None):
             embeddings=embeddings,
             emb_mode=args.emb_mode,
             seed=config.train_config.seed,
+            shard_id=rank(),
+            num_shards=world_size(),
         )
 
     trainer = Trainer(config, checkpoint_path=args.checkpoint_path, train_loader=train_loader,

@@ -20,12 +20,20 @@ every intermediate of the activation alive:
     dx  = γ·r·(dz − mean(dz) − x̂·mean(dz·x̂))
 
 with x̂ = (x − μ)·r and r = rsqrt(var + ε).
+
+Under a process group (`parallel/mesh.py`) the statistics are the global
+batch's: Σx and Σx² are summed over the ranks before the mean and variance
+are taken, and so are Σdz and Σdz·x̂ before dx, in one packed ``[2, C]``
+buffer a call.  dγ and dβ stay this rank's own sums: the gradient all-reduce
+of the train step adds them up.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from voicesplit_tpu_torch.parallel.mesh import sum_over_ranks_
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
@@ -57,12 +65,13 @@ def _channel(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def batch_stats(x: torch.Tensor):
-    """fp32 biased mean and var per channel over (B, T, F), as
-    E[x²] − E[x]² clamped at 0 (the JAX op's ``_stats``)."""
+    """fp32 biased mean and var per channel over (B, T, F) and every rank,
+    as E[x²] − E[x]² clamped at 0 (the JAX op's ``_stats``)."""
     xs = x.float()
-    n = x.numel() // x.shape[1]
-    mean = xs.sum(dim=(0, 2, 3)) / n
-    var = torch.clamp((xs * xs).sum(dim=(0, 2, 3)) / n - mean * mean, min=0.0)
+    sums = torch.stack([xs.sum(dim=(0, 2, 3)), (xs * xs).sum(dim=(0, 2, 3))])
+    n = x.numel() // x.shape[1] * sum_over_ranks_(sums)
+    mean = sums[0] / n
+    var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
     return mean, var
 
 
@@ -92,14 +101,16 @@ class _BNActTrain(torch.autograd.Function):
             dz = dy * activation_grad(x * inv + shift, ctx.act)
             return dz, (x - xmean) * xscale
 
-        # stage 1: per-channel sums of dz and dz·x̂
+        # stage 1: per-channel sums of dz and dz·x̂, this rank's, then every rank's
         dz, xhat = recompute()
         dbias = dz.float().sum(dim=(0, 2, 3))
         dscale = (dz * xhat).float().sum(dim=(0, 2, 3))
         del dz, xhat
+        sums = torch.stack([dbias, dscale])
+        n *= sum_over_ranks_(sums)
         # stage 2: dx, recomputing z rather than keeping stage 1's tensors
         dz, xhat = recompute()
-        dx = inv * (dz - _channel(dbias / n, cd) - xhat * _channel(dscale / n, cd))
+        dx = inv * (dz - _channel(sums[0] / n, cd) - xhat * _channel(sums[1] / n, cd))
         return dx.to(cd), dscale, dbias, None, None
 
 

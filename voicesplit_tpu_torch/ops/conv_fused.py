@@ -40,6 +40,12 @@ unfolded NHWC), weights ``[kt, kf, Cin, Cout]`` in the compute dtype.  The
 TPU's frequency fold and zero-margined frames are not carried over: a tap
 outside ``[0, T) × [0, F)`` reads zero (zero *after* the activation).
 
+Under a process group (`parallel/mesh.py`) each layer's ``stats [2, C]``
+and the backward's Σdz, Σdz·x̂ are summed over the ranks before they are
+used, one packed buffer a layer, so the chain normalizes with the global
+batch's statistics; the BatchNorm parameters' gradients stay this rank's
+sums for the train step's gradient all-reduce.
+
 Dispatch: a CUDA tensor goes to the kernel, or the call raises; the plain
 versions run only for tensors on the CPU.  Each kernel launch adds one to
 ``LAUNCHES[name]``.  The kernels take C = 64 channels, odd kernel sizes,
@@ -59,6 +65,7 @@ import torch
 import torch.nn.functional as F
 
 from voicesplit_tpu_torch.ops import _build
+from voicesplit_tpu_torch.parallel.mesh import sum_over_ranks_
 
 # kernel launches per wrapper, for showing that a run went through them;
 # "conv_wgrad_prologue" counts every prologue pass, `conv_bn_act_fwd`'s and
@@ -520,7 +527,8 @@ class _Chain(torch.autograd.Function):
                 x, pack_weight(weights[idx], cd), cbiases[idx].float().contiguous(), scal,
                 dt, act if idx else None, idx > 0,
             )
-            mean, var = _mean_var(stats, n)
+            world = sum_over_ranks_(stats)  # the global batch's, under a process group
+            mean, var = _mean_var(stats, n * world)
             means.append(mean)
             vars_.append(var)
             if idx + 1 < nL:
@@ -565,9 +573,12 @@ class _Chain(torch.autograd.Function):
             # dy is the cotangent of act(BN(raw_{idx-1})): through the
             # statistics-aware BN + activation backward to raw_{idx-1}'s
             s_dz, s_dzx, dz, xhat = _stage1(dy, inputs[idx], scal_prev, act)
-            d_bbiases[idx - 1] = s_dz
+            d_bbiases[idx - 1] = s_dz  # this rank's: the gradient all-reduce adds them
             d_scales[idx - 1] = s_dzx
-            scal_full = _scal_table(*prev, mean_dz=s_dz / n, mean_dzx=s_dzx / n, eps=eps)
+            sums = torch.stack([s_dz, s_dzx])  # every rank's, for d_raw
+            n_all = n * sum_over_ranks_(sums)
+            scal_full = _scal_table(*prev, mean_dz=sums[0] / n_all, mean_dzx=sums[1] / n_all,
+                                    eps=eps)
             d_raw = _materialize_draw(dz, xhat, scal_full).contiguous()
             del dy, dz, xhat
         return (None, d_y1, *d_weights, *d_cbias, *d_scales, *d_bbiases)

@@ -1,0 +1,136 @@
+"""Ranks, the process group and the sum over ranks (counterpart of
+`voicesplit_tpu/parallel/mesh.py`).
+
+The JAX package lays a ``(data, model)`` mesh over its devices and lets XLA
+insert the collectives; here each process drives one device (a CUDA card or
+the CPU) and the ranks of `torch.distributed`'s default group are the mesh.
+Data parallelism is global-batch: every rank holds the same parameters, feeds
+its own rows, and the train step sums over ranks what the one-device step
+sums over the batch:
+
+- the train-mode BatchNorm statistics and their backward sums
+  (`ops/bn_act.py`, `ops/conv_fused.py`), so every rank normalizes with the
+  whole global batch's mean and variance, as flax's BatchNorm does under
+  ``jit`` over a data-sharded batch;
+- the gradients and the loss (`train/steps.py`).
+
+Each goes through `sum_over_ranks_`: one packed fp32 buffer a call, summed by
+the collective (no float atomics), and nothing at all when no process group
+is initialized.  In a world of one the sum is the buffer itself, so a step
+gives the bits of the step without a group.
+
+`initialize_distributed` starts the group: gloo for ranks on the CPU, NCCL
+for ranks on a CUDA card.  Nothing tells a process of its cluster, so the
+caller names the coordinator (``host:port``), the world size and the rank.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from voicesplit_tpu_torch.device import DeviceLike, resolve_device
+
+
+def group_active() -> bool:
+    """True once a default process group is initialized."""
+    return dist.is_available() and dist.is_initialized()
+
+
+def world_size() -> int:
+    return dist.get_world_size() if group_active() else 1
+
+
+def rank() -> int:
+    return dist.get_rank() if group_active() else 0
+
+
+def comm_device() -> torch.device:
+    """Where the group's collectives take their tensors: the current card
+    under NCCL, else the CPU."""
+    if group_active() and dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def sum_over_ranks_(buf: torch.Tensor) -> int:
+    """Sums `buf` (one contiguous tensor) over every rank in place and returns
+    the world size; with no process group it leaves `buf` alone and returns 1."""
+    if not group_active():
+        return 1
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM)
+    return dist.get_world_size()
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """``data`` × ``model`` ranks; `ranks` in row-major order."""
+
+    data: int
+    model: int
+    ranks: Tuple[int, ...]
+
+    @property
+    def shape(self) -> dict:
+        return {"data": self.data, "model": self.model}
+
+    @property
+    def size(self) -> int:
+        return self.data * self.model
+
+
+def make_mesh(data: Optional[int] = None, model: int = 1,
+              ranks: Optional[Sequence[int]] = None) -> Mesh:
+    """Mesh of shape ``(data, model)`` over `ranks` (default: every rank of
+    the process group, or the one process); ``data=None`` takes all the
+    ranks that `model` leaves."""
+    ranks = tuple(range(world_size()) if ranks is None else ranks)
+    n = len(ranks)
+    if data is None:
+        if n % model:
+            raise ValueError(f"{n} ranks not divisible by model={model}")
+        data = n // model
+    if data * model != n:
+        raise ValueError(f"mesh {data}x{model} != {n} ranks")
+    return Mesh(data, model, ranks)
+
+
+def initialize_distributed(
+    coordinator_address: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+    device: DeviceLike = None,
+) -> bool:
+    """Start the default process group; returns whether it did.
+
+    A no-op for one process unless a coordinator is named: ``num_processes``
+    of 1 with a coordinator starts a world of one, whose collectives run but
+    sum nothing.  The backend follows `device` (the CUDA card unless the CPU
+    is named): NCCL on a card, gloo on the CPU.  Call it before anything
+    touches the device."""
+    n = num_processes or 1
+    if n == 1 and not coordinator_address:
+        return False
+    if not coordinator_address or process_id is None:
+        raise ValueError("several processes need coordinator_address and process_id")
+    if not 0 <= process_id < n:
+        raise ValueError(f"process_id {process_id} not in [0, {n})")
+    dev = resolve_device(device)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if dev.type == "cuda":  # one card a process
+        torch.cuda.set_device(dev.index if dev.index is not None
+                              else process_id % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
+                            world_size=n, rank=process_id)
+    return True
+
+
+def local_batch_size(global_batch: int, mesh: Optional[Mesh] = None) -> int:
+    """Per-process batch for process-sharded feeding."""
+    n = max(1, world_size())
+    if global_batch % n:
+        raise ValueError(f"global batch {global_batch} not divisible by {n} processes")
+    return global_batch // n

@@ -21,7 +21,7 @@ from torch import nn
 
 from voicesplit_tpu_torch.device import DeviceLike, resolve_device
 from voicesplit_tpu_torch.losses.ge2e import ge2e_softmax_loss
-from voicesplit_tpu_torch.models.speaker_encoder import SpeakerEncoder
+from voicesplit_tpu_torch.models.speaker_encoder import SpeakerEncoder, load_torch_state_dict
 from voicesplit_tpu_torch.train.state import clip_by_global_norm_, global_norm, make_adam
 from voicesplit_tpu_torch.weights import init_encoder_for_training_
 
@@ -232,6 +232,42 @@ def embed_utterance(encoder: SpeakerEncoder, ap, wav: np.ndarray,
     """Mean-pooled, renormalized d-vector of one waveform."""
     emb = embed_utterance_windows(encoder, ap, wav, batch_windows=batch_windows).mean(axis=0)
     return (emb / (np.linalg.norm(emb) + 1e-8)).astype(np.float32)
+
+
+def embed_reference(encoder: SpeakerEncoder, ap, wav: np.ndarray,
+                    batch_windows: int = 32) -> np.ndarray:
+    """The d-vector of a reference clip as the JAX serving CLI takes it
+    (``encoder.apply(vars, ap.get_mel(wav)[None])``): the encoder's windows of
+    the clip's log-mel, each L2-normalized, then their plain mean (no wrap of
+    a short clip, no renormalization), embedded in fixed batches of
+    `batch_windows`."""
+    mel = np.asarray(ap.get_mel(wav), np.float32)
+    if mel.shape[1] < encoder.window:
+        raise ValueError(f"reference of {mel.shape[1]} mel frames; the encoder needs "
+                         f"at least {encoder.window}")
+    wins = utterance_windows(mel, encoder.window, encoder.stride)
+    return embed_windows(encoder, wins, batch_windows).mean(axis=0).astype(np.float32)
+
+
+def load_ge2e_encoder(path: Optional[str], num_mels: int, device) -> SpeakerEncoder:
+    """The GE2E `SpeakerEncoder` of a checkpoint on `device`: the port's
+    ``encoder_<step>.pt``, the JAX CLI's ``encoder_<step>.msgpack`` (each
+    carries its topology) or the reference's ``embedder.pt`` state dict;
+    with no path, random weights from seed 0 (pipeline smoke runs)."""
+    if path is None:
+        print(" > No encoder checkpoint given — using random init (smoke mode)")
+        return init_encoder_for_training_(SpeakerEncoder(num_mels=num_mels), 0).to(device)
+    if path.endswith(".msgpack"):
+        ckpt = load_encoder_checkpoint(path)
+    else:
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        if "encoder" not in ckpt:  # the reference's embedder.pt: a bare state dict
+            encoder = SpeakerEncoder(num_mels=num_mels)
+            encoder.load_state_dict(load_torch_state_dict(ckpt))
+            return encoder.to(device)
+    encoder = SpeakerEncoder(**ckpt["encoder"])
+    encoder.load_state_dict({k[4:]: v for k, v in ckpt["params"].items() if k.startswith("enc.")})
+    return encoder.to(device)
 
 
 def save_encoder_checkpoint(path: str, model: GE2E, opt_state: dict, step: int) -> None:

@@ -29,11 +29,20 @@ not JAX's streams.
 
 The streaming model (`MaskNet(streaming=True)`) returns ``(mask, carry)``;
 both steps use the mask and drop the carry, as the JAX steps do.
+
+Data parallelism (`parallel/`): under a process group each rank's batch is
+its own rows and its loss their mean, so the global loss is the mean of the
+ranks' losses.  After the backward the loss and every gradient go into one
+fp32 buffer, which is summed over the ranks and divided by the world size
+before the global norm and the clipping: every rank then clips by the same
+norm, takes the same Adam step and reports the same metrics.  (The
+train-mode BatchNorm inside the model sums its statistics over the ranks
+itself.)  With no group nothing is reduced.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping
+from typing import Callable, Dict, List, Mapping
 
 import torch
 from torch import nn
@@ -42,6 +51,7 @@ from voicesplit_tpu_torch.config import Config
 from voicesplit_tpu_torch.dsp.augment import spec_time_freq_mask
 from voicesplit_tpu_torch.dsp.processor import AudioProcessor
 from voicesplit_tpu_torch.losses import power_law_compressed_loss, si_snr, si_snr_with_pit
+from voicesplit_tpu_torch.parallel.mesh import group_active, sum_over_ranks_
 from voicesplit_tpu_torch.train.state import (
     TrainState,
     clip_by_global_norm_,
@@ -128,6 +138,9 @@ def make_train_step(
         )
         loss.backward()
         grads = [p.grad for p in params]
+        loss = loss.detach().float()
+        if group_active():
+            loss = mean_over_ranks_(loss, grads)
         grad_norm = global_norm(grads)
         if tc.grad_clip_norm:
             clip_by_global_norm_(grads, grad_norm, tc.grad_clip_norm)
@@ -135,7 +148,6 @@ def make_train_step(
             group["lr"] = learning_rate(config, state.step)
         optimizer.step()
         state.step += 1
-        loss = loss.detach().float()
         return {
             "loss": loss,
             "grad_norm": grad_norm.detach(),
@@ -143,6 +155,19 @@ def make_train_step(
         }
 
     return train_step
+
+
+def mean_over_ranks_(loss: torch.Tensor, grads: List[torch.Tensor]) -> torch.Tensor:
+    """The mean over ranks of `loss` and of every gradient: one fp32 buffer
+    summed by the collective and divided by the world size; `grads` are
+    overwritten with their means, and the mean loss is returned."""
+    flat = torch.cat([loss.reshape(1), *(g.reshape(-1).float() for g in grads)])
+    flat /= sum_over_ranks_(flat)
+    offset = 1
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+    return flat[0]
 
 
 def make_multi_train_step(

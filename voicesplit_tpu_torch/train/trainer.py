@@ -1,5 +1,5 @@
-"""The training loop (counterpart of `voicesplit_tpu/train/trainer.py`), one
-process on one card.
+"""The training loop (counterpart of `voicesplit_tpu/train/trainer.py`), on
+one card or, data-parallel, one card (or CPU) a process.
 
 Capability of reference `train.py:25-163`: model selection from config,
 Adam, checkpoint resume (full or partial warm-start), epoch loop with
@@ -38,8 +38,20 @@ causal conv stack pairs with the forward-only LSTM (the zero-lookahead
 streaming model); ``streaming=False`` trains causal convs under a BiLSTM
 head.
 
-Not ported yet (each raises): a device mesh, ``model_parallel > 1`` and
-several processes.
+Several processes (`parallel/`): once a process group is initialized
+(`parallel.initialize_distributed`) every rank builds the same `Trainer`;
+``mesh`` is a data-only `parallel.make_mesh` over the ranks (the default).
+``batch_size`` is the per-process batch, so the global batch is
+``batch_size × world``; the train loader gives each rank its shard
+(``shard_id=rank, num_shards=world``); the initial state is rank 0's,
+broadcast; the step sums the BatchNorm statistics and the gradients over the
+ranks (`train/steps.py`), so every rank holds the same weights after each
+step and the guard sees the same loss on every rank.  Logs, validation and
+checkpoints come from rank 0 only, every rank taking part in the collectives
+around them; a preemption request on any rank is agreed by an all-gather at
+the guard's cadence, so all ranks stop at the same step.  Throughput counts
+the global batch.  ``model_parallel > 1`` (the gate split) is not yet ported
+and raises.
 """
 
 from __future__ import annotations
@@ -63,11 +75,13 @@ from voicesplit_tpu_torch.data.dataset import (
     eval_dataloader,
 )
 from voicesplit_tpu_torch.data.native_loader import make_train_iterator
-from voicesplit_tpu_torch.data.prefetch import DevicePrefetcher, to_device
+from voicesplit_tpu_torch.data.prefetch import DevicePrefetcher
 from voicesplit_tpu_torch.device import DeviceLike
 from voicesplit_tpu_torch.dsp.processor import AudioProcessor, make_audio_processor
 from voicesplit_tpu_torch.eval.validation import validate
 from voicesplit_tpu_torch.models.masknet import make_masknet
+from voicesplit_tpu_torch.parallel.mesh import comm_device, group_active, make_mesh, rank, world_size
+from voicesplit_tpu_torch.parallel.sharding import put_batch, shard_train_state
 from voicesplit_tpu_torch.train.checkpoint import (
     AsyncCheckpointer,
     load_checkpoint,
@@ -138,10 +152,13 @@ class Trainer:
         async_checkpoint: bool = True,
         device: DeviceLike = None,
     ):
-        if mesh is not None or model_parallel > 1:
-            raise NotImplementedError("a device mesh and model_parallel > 1 are not yet ported")
-        if torch.distributed.is_available() and torch.distributed.is_initialized():
-            raise NotImplementedError("training in several processes is not yet ported")
+        mesh = mesh or make_mesh(model=1)
+        if model_parallel > 1 or mesh.model > 1:
+            raise NotImplementedError("model_parallel > 1 (the gate split) is not yet ported")
+        if mesh.size != world_size():
+            raise ValueError(f"a mesh of {mesh.size} ranks for a world of {world_size()}")
+        self.mesh = mesh
+        self.rank, self.world = rank(), world_size()
         self.config = config
         self.log_dir = log_dir or config.train_config.logs_path
         self.ap: AudioProcessor = make_audio_processor(config, device=device)
@@ -157,7 +174,8 @@ class Trainer:
             ds = SeparationDataset(samples, self.ap, config.audio.audio_len, config.model.emb_dim)
             train_loader = make_train_iterator(
                 ds, config.train_config.batch_size, seed=config.train_config.seed,
-                shard_id=0, num_shards=1, n_threads=max(2, config.train_config.num_workers),
+                shard_id=self.rank, num_shards=self.world,
+                n_threads=max(2, config.train_config.num_workers),
             )
         self.train_loader = train_loader
         self.eval_loader = eval_loader or eval_dataloader(config, self.ap)
@@ -182,18 +200,20 @@ class Trainer:
                 if data_state is not None:
                     self.train_loader.load_state(data_state)
                 print(f" > Resumed checkpoint step {int(payload['step'])}")
-        self.state: TrainState = state
+        self.state: TrainState = shard_train_state(state, self.mesh)
 
         self.train_step = make_train_step(config, self.model, self.ap, optimizer)
         self.eval_step = make_eval_step(config, self.model, self.ap)
-        self.logger = MetricsLogger(self.log_dir, self.ap.sample_rate, enable_tb=enable_tb)
-        self._audio_seconds_per_batch = config.train_config.batch_size * config.audio.audio_len
+        self.logger = MetricsLogger(self.log_dir, self.ap.sample_rate, enable_tb=enable_tb,
+                                    enabled=self.rank == 0)
+        self._audio_seconds_per_batch = (
+            config.train_config.batch_size * config.audio.audio_len * self.world)
         self._prefetch_depth = prefetch_depth
         self._prefetch: Optional[DevicePrefetcher] = None  # built lazily at
         # fit() so checkpoint restore above can rewind the loader before
         # readahead starts
         self._preempt_requested = False
-        self._ckpt_writer = AsyncCheckpointer() if async_checkpoint else None
+        self._ckpt_writer = AsyncCheckpointer() if async_checkpoint and self.rank == 0 else None
         self.debug_nans = debug_nans
         # host-clock seconds of the last fit() by what the loop was doing;
         # "train_step" is the time to enqueue the steps and "check" the wait
@@ -234,11 +254,21 @@ class Trainer:
                 pass
         return previous
 
+    def _preempt_agreed(self) -> bool:
+        """Whether any rank was asked to stop (an all-gather of the flags; a
+        signal may reach one process only)."""
+        flag = torch.tensor([self._preempt_requested], dtype=torch.int32, device=comm_device())
+        flags = [torch.empty_like(flag) for _ in range(self.world)]
+        torch.distributed.all_gather(flags, flag)
+        return bool(torch.cat(flags).any())
+
     def _put(self, batch):
-        return to_device(batch, self.device)
+        return put_batch(self.mesh, batch, self.device)
 
     def _checkpoint(self, run_eval: bool, step: int, compute_sdr: bool, max_eval_items):
-        """Save (optionally + eval)."""
+        """Save (optionally + eval), from rank 0 only."""
+        if self.rank != 0:
+            return
         t0 = time.perf_counter()
         data_state = (
             self._prefetch.state if self._prefetch is not None else self.train_loader.state
@@ -287,6 +317,8 @@ class Trainer:
                 "without a non-finite intermediate")
 
     def _validate(self, step: int, compute_sdr: bool, max_eval_items) -> None:
+        if self.rank != 0:
+            return
         t0 = time.perf_counter()
         m = validate(
             self.eval_step, self.eval_loader, self.logger, step,
@@ -316,6 +348,7 @@ class Trainer:
         wall = self.wall_seconds = {k: 0.0 for k in _WALL_KEYS}
         t_fit = t_window = time.perf_counter()
         steps_in_window = 0
+        several = group_active()
         try:
             for _epoch in range(c.epochs):
                 if validate_at_epoch_start:
@@ -366,7 +399,11 @@ class Trainer:
                             audio_sec_per_sec_per_chip=tput,
                         )
 
-                    if self._preempt_requested:
+                    # one process checks its own flag every step; several agree
+                    # on theirs at the guard's cadence only
+                    if (not several and self._preempt_requested) or (
+                        several and do_check and self._preempt_agreed()
+                    ):
                         self._checkpoint(False, step, compute_sdr_in_eval, max_eval_items)
                         print(f" > Preempted: checkpointed at step {step}, exiting")
                         # clear the flag so a later fit() on this Trainer

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch port's serving and training paths, its
 training, preprocessing and evaluation entry points, streaming separation,
-Griffin-Lim and the speaker encoders, at
+Griffin-Lim, the speaker encoders, long-form (sequence-parallel) separation
+and exported programs, at
 `configs/voicesplit.json` and at the wide `configs/voicesplit_wide.json`
 (NVIDIA H100).
 
@@ -231,6 +232,30 @@ Phases, each printing one JSON line:
    each route against the same run with no group (and a second run with
    none): the weights after every step bit for bit (cuDNN deterministic
    for the phase).
+24. long — `parallel.sequence.separate_long` on a 120 s mixture (12,001
+   frames, B=1) at full width on the library convs and with
+   ``VOICESPLIT_PALLAS_CONV=1``: a world of one bit for bit
+   `separate_batch`'s, 2 ``lstm_fwd`` (and 6 ``conv_dilated_fwd``) a call;
+   2 and 4 shards in one process (`InProcessExchange`: halos, the carry
+   relay from a nonzero carry, 1 and 3 padded frames) against the world of
+   one's mask: the same bits, or only the two library calls that pick
+   their kernel by shape differing (LIBRARY_SHAPE_OPS, LONG_SHARDED_TOL),
+   with `long_sharded_launches` (8 and 32 ``lstm_fwd``, 12 and 24
+   ``conv_dilated_fwd`` with the switch); the relay alone bit for bit;
+   p50 and peak memory of each pass;
+   ``lstm_fwd`` from a carry and ``conv_dilated_fwd`` on a masked window
+   against their plain versions; the longest utterance a world of one
+   takes (55,831 frames, 558.3 s) run on each route, one frame more
+   refused; `cli.separate.main --sequence_parallel` on the clip written as
+   a wav, the default path's file byte for byte.
+25. export — the full-width separator exported by `cli.export.main` from a
+   trainer checkpoint for the card (symbolic batch; symbolic with the
+   dilated switch; batch pinned to 8) and the streaming chunk step, loaded
+   cold in a fresh
+   interpreter that imports only the kernels' operators: launches counted
+   there (EXPORT_LAUNCHES), outputs against the eager path (bits; B=8 of
+   the symbolic program within EXPORT_B8_TOL), sizes, seconds, the B=1
+   and chunk p50 of program and eager.
 
 Then a ``{"kernels": [...]}`` line (each kernel's ``main_path``: false for
 the routes no path takes, OFF_PATH, launched only in the kernels phases),
@@ -246,7 +271,7 @@ kernel.  ``--phases`` runs a subset (of kernels, bwd_kernels, separate,
 train, conv_kernels, train_fused, dilated_kernels, separate_dilated,
 trainer, separate_wide, train_wide, evaluate, preprocess, trainer_online, dsp,
 streaming, train_streaming, encoder, voicefilter, reference, import,
-distributed; device and build always run)
+distributed, long, export; device and build always run)
 and ends with a line marked
 ``"partial"`` instead of the result lines.
 """
@@ -267,10 +292,12 @@ from pathlib import Path
 
 import numpy as np
 
+# the H100 SXM's data-sheet peaks: HBM3 bytes a second; dense bf16 on the
+# tensor cores and fp32 on the CUDA cores
+from voicesplit_tpu_torch.utils.profiling import HBM_BYTES_PER_S, PEAK_FLOPS
+
 ROOT = Path(__file__).resolve().parent
 T_FRAMES, HIDDEN, IN_FEATURES = 301, 400, 8 * 601 + 256
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor core; fp32 CUDA cores
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # rows a direction past what one cluster of the LSTM walks holds at H=400
 # (bf16 backward 23, fp32 11): the forward and backward kernels phases also
@@ -3831,6 +3858,636 @@ def phase_distributed(torch, lstm_cuda, cf, seed: int, profile_dir, tmp: Path) -
     return launches
 
 
+# --- long-form separation (`parallel/sequence.py`) ----------------------------
+LONG_SECONDS = 120.0  # 12,001 frames at the 160-sample hop
+# in-process shard counts: 2 (6,001 frames a shard, 1 of padding) and 4
+# (3,001 a shard, 12,004 padded frames, 3 of padding)
+LONG_SHARDS = (2, 4)
+# The sharded mask against the world of one's.  Every operation the port
+# runs is the same on a shard's window as on the whole utterance (the kernels,
+# the elementwise ops, the relay, and the library matmuls and convs of the
+# other layers), except two library calls that choose their kernel by shape:
+# cuDNN's conv1 (1x7, one input channel) on some window lengths, and
+# cuBLAS's fc2 ([rows, 600] @ [600, 601]) on some row counts, each then one
+# bf16 rounding away (`scripts/port_sp_bits.py` on an H100: at 120 s two
+# shards give the same bits, three and four differ by 4.9e-4 of the mask).
+# Where the bits differ, only those operations may (`_sp_differences`), and
+# the mask (values in [0, 1]) by at most LONG_SHARDED_TOL: one rounding of a
+# logit is at most 2^-8 of it, through the sigmoid's slope of 1/4.
+LIBRARY_SHAPE_OPS = ("conv1 conv", "fc2")
+LONG_SHARDED_TOL = 2e-3
+LONG_ROUTES = ("library", "dilated")  # VOICESPLIT_PALLAS_CONV off, on
+LONG_CALLS = 3  # timed calls a pass, each over the whole 120 s
+LONG_WINDOW = 301  # frames of the kernels' plain-version comparisons at the long-form shapes
+# launches of a world-of-one call by conv route: each LSTM direction once, as
+# `separate_batch` at B=1, and conv2 … conv7 through the kernel with the switch
+LONG_LAUNCHES = {"library": {"lstm_fwd": 2, "bilstm_fwd": 0, "conv_dilated_fwd": 0},
+                 "dilated": {"lstm_fwd": 2, "bilstm_fwd": 0, "conv_dilated_fwd": 6}}
+
+
+def long_sharded_launches(n_shards: int, valid_shards: int, dilated: bool) -> dict:
+    """Launches of K in-process shards: each direction takes K-1 relay rounds
+    and one output scan, one `lstm_fwd` each on every shard with a valid
+    frame (2·K² with no empty shard: 32 at K=4); every shard runs the conv
+    stack (6 `conv_dilated_fwd` with the switch)."""
+    return {"lstm_fwd": 2 * n_shards * valid_shards, "bilstm_fwd": 0,
+            "conv_dilated_fwd": 6 * n_shards if dilated else 0}
+
+
+def _sp_differences(torch, lstm_cuda, model, spec, emb, n_shards: int, shard: int = 1) -> dict:
+    """The operations of one shard of the in-process sharded pass whose
+    output differs from the world of one's when both get the same inputs:
+    each conv block's raw conv output (its input the world of one's block
+    input, cut to the shard's window with the sharded pass's halos and edge
+    mask), the LSTM input projection, `lstm_fwd` from the true carry, fc1
+    and fc2 (each over the shard's rows against the utterance's).  A
+    library call that picks its kernel by shape shows here."""
+    import torch.nn.functional as tnf
+
+    from voicesplit_tpu_torch.ops.conv_cuda import conv2d_dilated_bias, pallas_conv_enabled, takes_layer
+    from voicesplit_tpu_torch.parallel import sequence
+
+    T = spec.shape[1]
+    Tp = sequence.pad_frames(T, n_shards, model.conv_context_left)
+    Tc = Tp // n_shards
+    lo, hi = model.conv_context_left, model.conv_context_right
+    cd, lstm = model.compute_dtype, model.lstm
+    g = torch.arange(shard * Tc - lo, (shard + 1) * Tc + hi, device=spec.device)
+    valid = ((g >= 0) & (g < T)).to(cd)[None, None, :, None]
+    rows = slice(shard * Tc, min((shard + 1) * Tc, T))
+    n = rows.stop - rows.start
+
+    def window(x):  # [B, C, T, F] → the shard's window, zeros outside [0, T), masked
+        x = tnf.pad(x, (0, 0, lo, Tp - T + hi))
+        return x[:, :, shard * Tc:(shard + 1) * Tc + lo + hi] * valid
+
+    def raw(block, x):
+        c = block.conv
+        if pallas_conv_enabled() and takes_layer((*c.kernel_size, c.in_channels, c.out_channels), c.dilation):
+            y = conv2d_dilated_bias(x.to(cd).permute(0, 2, 3, 1).contiguous(),
+                                    c.weight.permute(2, 3, 1, 0), c.bias, c.dilation)
+            return y.permute(0, 3, 1, 2)
+        seen = []
+        orig = block.bn_act
+        block.bn_act = lambda y: seen.append(y) or orig(y)
+        try:
+            block(x)
+        finally:
+            del block.bn_act
+        return seen[0]
+
+    def diff(a, b):
+        return None if torch.equal(a, b) else (a.float() - b.float()).abs().max().item()
+
+    out = {"shard": shard, "shards": n_shards, "differs": {}}
+    with torch.inference_mode():
+        x = spec.to(cd)[:, None]
+        for name in model.block_names:
+            block = getattr(model, name)
+            y_full = raw(block, x)
+            y_win = raw(block, window(x))[:, :, lo:lo + n]
+            d = diff(y_win, y_full[:, :, rows])
+            if d is not None:
+                out["differs"][f"{name} conv"] = d
+            x = block.bn_act(y_full)
+        feats = x.permute(0, 2, 3, 1).reshape(x.shape[0], T, -1)
+        emb_t = emb.to(cd)[:, None, :].expand(feats.shape[0], T, model.emb_dim)
+        xc = torch.cat([feats, emb_t], dim=-1).to(cd)
+
+        def proj(v):
+            return v @ lstm.fwd_w_ih.to(cd) + lstm.fwd_b.to(cd)
+
+        xp = proj(xc)
+        d = diff(proj(xc[:, rows]), xp[:, rows])
+        if d is not None:
+            out["differs"]["LSTM input projection"] = d
+        w = lstm.fwd_w_hh.to(cd)
+        z = torch.zeros(xp.shape[0], lstm.hidden, device=spec.device)
+        hs, cs, _ = lstm_cuda.lstm_fwd(xp.transpose(0, 1).contiguous(), w, z, z)
+        s0 = rows.start
+        h0 = hs[s0 - 1].contiguous() if s0 else z
+        c0 = cs[s0 - 1].contiguous() if s0 else z
+        hs1, _, _ = lstm_cuda.lstm_fwd(xp[:, rows].transpose(0, 1).contiguous(), w, h0, c0)
+        d = diff(hs1, hs[rows])
+        if d is not None:
+            out["differs"]["lstm_fwd from the true carry"] = d
+        h = torch.relu(torch.cat([hs, hs], dim=-1).transpose(0, 1).to(cd))
+        f = torch.relu(model._dense(model.fc1, h))
+        d = diff(torch.relu(model._dense(model.fc1, h[:, rows])), f[:, rows])
+        if d is not None:
+            out["differs"]["fc1"] = d
+        d = diff(model._dense(model.fc2, f[:, rows]), model._dense(model.fc2, f)[:, rows])
+        if d is not None:
+            out["differs"]["fc2"] = d
+    return out
+
+
+def _long_cli(torch, lstm_cuda, config, ap, model, wav, emb) -> dict:
+    """`cli.separate.main --sequence_parallel` on the long mixture written as
+    a wav (no process group: a world of one): its file is the default
+    serving path's, byte for byte, with 2 `lstm_fwd` launches."""
+    from voicesplit_tpu_torch import weights
+    from voicesplit_tpu_torch.cli import separate
+
+    with tempfile.TemporaryDirectory(prefix="voicesplit_long_") as d:
+        tmp = Path(d)
+        weights.save(model, str(tmp / "w.pt"))
+        ap.save_wav(wav[0], str(tmp / "mix.wav"))
+        np.save(tmp / "emb.npy", emb[0])
+        args = ["-c", str(ROOT / "configs" / "voicesplit.json"), "--weights", str(tmp / "w.pt"),
+                "--mixed_wav", str(tmp / "mix.wav"), "--emb", str(tmp / "emb.npy")]
+        _reset_counts(torch, lstm_cuda)
+        t0 = time.perf_counter()
+        separate.main(args + ["--output", str(tmp / "long.wav"), "--sequence_parallel"])
+        seconds = time.perf_counter() - t0
+        launches = _counts(torch, lstm_cuda)["lstm_fwd"]
+        separate.main(args + ["--output", str(tmp / "batch.wav")])
+        same = (tmp / "long.wav").read_bytes() == (tmp / "batch.wav").read_bytes()
+    check(same and launches == 2,
+          f"cli.separate --sequence_parallel: same file {same}, {launches} lstm_fwd launches")
+    return {"same_file_as_the_default_path": same, "lstm_fwd": launches, "seconds": seconds}
+
+
+def _relay_exact(torch, lstm_cuda, model, spec, emb, n_shards: int) -> dict:
+    """The carry relay alone at the long-form shapes: the world of one's
+    LSTM inputs (both directions) cut into `n_shards` in-process shards with
+    the alignment padding as `separate_long` pads them, through
+    `sequence._relay_scan`, against `BiLSTM`'s two `lstm_fwd` over the
+    whole utterance: the same bits, by direction."""
+    from voicesplit_tpu_torch.parallel import sequence
+
+    T = spec.shape[1]
+    Tp = sequence.pad_frames(T, n_shards, model.conv_context_left)
+    Tc = Tp // n_shards
+    cd, lstm = model.compute_dtype, model.lstm
+    n_valid = [min(max(T - d * Tc, 0), Tc) for d in range(n_shards)]
+    out = {}
+    with torch.inference_mode():
+        feats = model.conv_features(spec)
+        emb_t = emb.to(cd)[:, None, :].expand(1, T, model.emb_dim)
+        xc = torch.cat([feats, emb_t], dim=-1).to(cd)
+        z = torch.zeros(1, lstm.hidden, device=spec.device)
+        for d, reverse in (("fwd", False), ("bwd", True)):
+            xp = xc @ getattr(lstm, f"{d}_w_ih").to(cd) + getattr(lstm, f"{d}_b").to(cd)
+            w = getattr(lstm, f"{d}_w_hh").to(cd)
+            seq_in = (xp.flip(1) if reverse else xp).transpose(0, 1).contiguous()
+            hs, _, _ = lstm_cuda.lstm_fwd(seq_in, w, z, z)
+            want = hs.flip(0) if reverse else hs
+            xp_p = torch.nn.functional.pad(xp, (0, 0, 0, Tp - T))
+            shards = [xp_p[:, i * Tc:(i + 1) * Tc] for i in range(n_shards)]
+            got = torch.cat(sequence._relay_scan(shards, w, reverse, n_valid,
+                                                 sequence.InProcessExchange(n_shards)), dim=0)[:T]
+            out[d] = torch.equal(got, want)
+    return out
+
+
+def _long_kernel_windows(torch, lstm_cuda, cc, model, seed: int) -> dict:
+    """The forward kernels at the long-form path's shapes, on a window of
+    LONG_WINDOW frames, against their plain versions on the card: `lstm_fwd`
+    at B=1 from a nonzero carry (as every relay round after the first runs
+    it) and `conv_dilated_fwd` on `[1, LONG_WINDOW, 601, 64]` with the last
+    frames zero (the edge mask's halo and padding), bf16."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    bf = torch.bfloat16
+    H = model.lstm.hidden
+    w = model.lstm.fwd_w_hh.to(bf)
+    out = {}
+    with torch.inference_mode():
+        z = torch.zeros(1, H, device="cuda")
+        xp0 = (0.5 * torch.randn(LONG_WINDOW, 1, 4 * H, device="cuda", generator=g)).to(bf)
+        hs0, cs0, _ = lstm_cuda.lstm_fwd(xp0, w, z, z)
+        h0, c0 = hs0[-1].contiguous(), cs0[-1].contiguous()  # a carry, as the relay passes it
+        xp = (0.5 * torch.randn(LONG_WINDOW, 1, 4 * H, device="cuda", generator=g)).to(bf)
+        got, again = lstm_cuda.lstm_fwd(xp, w, h0, c0), lstm_cuda.lstm_fwd(xp, w, h0, c0)
+        want = lstm_cuda.lstm_fwd_ref(xp, w, h0, c0)
+        err = max((a - b).abs().max().item() for a, b in zip(got[:2], want[:2]))
+        check(err <= TOL["bfloat16"], f"lstm_fwd from a carry vs plain: {err} > {TOL['bfloat16']}")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)), "lstm_fwd from a carry: two launches differ")
+        out["lstm_fwd_from_carry"] = {
+            "shape": [LONG_WINDOW, 1, 4 * H], "max_abs_err": err,
+            "ms": time_ms(torch, lambda: lstm_cuda.lstm_fwd(xp, w, h0, c0), 10),
+            "plain_ms": time_ms(torch, lambda: lstm_cuda.lstm_fwd_ref(xp, w, h0, c0), 1, warmup=0),
+            **lstm_bound(1, 1, "bfloat16", H=H, T=LONG_WINDOW)}
+        block = model.conv7  # (5, 5) at time dilation 16
+        wc = block.conv.weight.permute(2, 3, 1, 0).to(bf).contiguous()
+        x = torch.randn(1, LONG_WINDOW, 601, 64, device="cuda", generator=g).to(bf)
+        x[:, -(LONG_WINDOW // 4):] = 0
+        dt = block.conv.dilation[0]
+        got, again = cc.conv_dilated_fwd(x, wc, dt), cc.conv_dilated_fwd(x, wc, dt)
+        errs = {"out": _peak_rel(got, cc.conv_dilated_fwd_ref(x, wc, dt)),
+                "out_round_once": _peak_rel(got, cc.conv_dilated_fwd_round_once_ref(x, wc, dt))}
+        for k, v in errs.items():
+            check(v <= DILATED_TOL["bfloat16"][k], f"conv_dilated_fwd on a masked window: {k} {v}")
+        check(torch.equal(got, again), "conv_dilated_fwd on a masked window: two launches differ")
+        out["conv_dilated_fwd_masked_window"] = {
+            "shape": list(x.shape), "dt": dt, "errors": errs,
+            "ms": time_ms(torch, lambda: cc.conv_dilated_fwd(x, wc, dt), 10),
+            "plain_ms": time_ms(torch, lambda: cc.conv_dilated_fwd_ref(x, wc, dt), 2),
+            **conv_bound("conv_dilated_fwd", tuple(x.shape), 5, 5, dt, "bfloat16")}
+    return out
+
+
+def phase_long(torch, lstm_cuda, cc, seed: int) -> dict:
+    """`parallel.sequence.separate_long` on a LONG_SECONDS mixture at full
+    width, B=1, on each conv route: a world of one (no process group) against
+    `separate_batch` on the same clip, bit for bit, with exact launches; the
+    mask of each of LONG_SHARDS in-process shard counts (halos, the carry
+    relay, the padded tail) against the world of one's, bit for bit or
+    differing only in LIBRARY_SHAPE_OPS and within LONG_SHARDED_TOL, with
+    exact launches; the relay alone bit for bit (`_relay_exact`); p50 and
+    peak memory of each pass; the kernels at the path's shapes against their
+    plain versions on a window; and the longest utterance a world of one
+    takes before the 32-bit index limit, run, and one frame more refused."""
+    import torch.nn.functional as tnf
+
+    from voicesplit_tpu_torch import weights
+    from voicesplit_tpu_torch.cli.separate import separate_batch
+    from voicesplit_tpu_torch.config import load_config
+    from voicesplit_tpu_torch.dsp.processor import make_audio_processor
+    from voicesplit_tpu_torch.models.masknet import make_masknet
+    from voicesplit_tpu_torch.parallel import sequence
+
+    config = load_config(str(ROOT / "configs" / "voicesplit.json"))
+    ap = make_audio_processor(config)
+    model = weights.init_random_(make_masknet(config), seed)
+    n = int(LONG_SECONDS * ap.sample_rate)
+    wav, emb = synthetic_batch(seed + 11, 1, n, ap.sample_rate, config.model.emb_dim)
+    e = torch.as_tensor(emb, device="cuda")
+    with torch.inference_mode():
+        spec, _ = ap.wav2spec_batch(torch.as_tensor(wav, device="cuda"))
+    T, F = spec.shape[1:]
+    one = sequence.make_sp_mask_fn(model, sequence.InProcessExchange(1))
+    shardings = {}
+    for K in LONG_SHARDS:
+        Tp = sequence.pad_frames(T, K, model.conv_context_left)
+        Tc = Tp // K
+        spec_p = tnf.pad(spec, (0, 0, 0, Tp - T))
+        fn = sequence.make_sp_mask_fn(model, sequence.InProcessExchange(K))
+
+        def sharded_mask(fn=fn, spec_p=spec_p):
+            with torch.inference_mode():
+                return fn(spec_p, e, T)
+
+        shardings[K] = {"padded_frames": Tp, "frames_a_shard": Tc,
+                        "valid_shards": sum(1 for d in range(K) if T - d * Tc > 0),
+                        "run": sharded_mask}
+
+    report = {"seconds": LONG_SECONDS, "frames": T,
+              "shards": {K: {k: v for k, v in sh.items() if k != "run"} for K, sh in shardings.items()}}
+    by_path = {}
+    t_phase = time.perf_counter()
+    for route in LONG_ROUTES:
+        r = {}
+        with _Env("VOICESPLIT_PALLAS_CONV", "1" if route == "dilated" else "0"):
+            _reset_counts(torch, lstm_cuda, cc)
+            out = sequence.separate_long(config, model, wav[0], emb[0])
+            counted = _counts(torch, lstm_cuda, cc)
+            _check_routes(lstm_cuda, counted, f"long {route}")
+            want = separate_batch(model, ap, wav, emb)[0].cpu().numpy()
+            check(out.shape == (n,) and bool(np.isfinite(out).all()), f"long {route}: output")
+            r["world_of_one_same_bits_as_separate_batch"] = bool(np.array_equal(out, want))
+            r["world_of_one_max_abs_diff"] = float(np.abs(out - want).max())
+            check(r["world_of_one_same_bits_as_separate_batch"],
+                  f"long {route}: separate_long differs from separate_batch by "
+                  f"{r['world_of_one_max_abs_diff']}")
+            r["launches_world_of_one"] = {k: counted[k] for k in LONG_LAUNCHES[route]}
+            check(r["launches_world_of_one"] == LONG_LAUNCHES[route],
+                  f"long {route}: launches {r['launches_world_of_one']}, wanted {LONG_LAUNCHES[route]}")
+            by_path[route] = [counted]
+
+            with torch.inference_mode():
+                mask_1 = one(spec, e, T)
+            for K, sh in shardings.items():
+                _reset_counts(torch, lstm_cuda, cc)
+                mask_k = sh["run"]()[:, :T]
+                counted_k = _counts(torch, lstm_cuda, cc)
+                _check_routes(lstm_cuda, counted_k, f"long {route}, {K} shards")
+                rk = {"same_bits_as_world_of_one": torch.equal(mask_k, mask_1),
+                      "max_abs_diff": (mask_k - mask_1).abs().max().item()}
+                if not rk["same_bits_as_world_of_one"]:
+                    rk["ops_that_differ"] = _sp_differences(torch, lstm_cuda, model, spec, e, K)["differs"]
+                    check(set(rk["ops_that_differ"]) <= set(LIBRARY_SHAPE_OPS)
+                          and rk["max_abs_diff"] <= LONG_SHARDED_TOL,
+                          f"long {route}: the {K}-shard mask differs from the world of one's: {rk}")
+                expected = long_sharded_launches(K, sh["valid_shards"], route == "dilated")
+                rk["launches"] = {k: counted_k[k] for k in expected}
+                check(rk["launches"] == expected,
+                      f"long {route}: {K}-shard launches {rk['launches']}, wanted {expected}")
+                by_path[route].append(counted_k)
+                r[f"shards_{K}"] = rk
+
+            timed = [("separate_long", lambda: sequence.separate_long(config, model, wav[0], emb[0])),
+                     ("separate_batch", lambda: separate_batch(model, ap, wav, emb))]
+            timed += [(f"sharded_mask_{K}", sh["run"]) for K, sh in shardings.items()]
+            for name, fn in timed:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                p50, p75 = _latency_ms(torch, fn, LONG_CALLS)
+                r[name] = {"p50_ms": p50, "p75_ms": p75,
+                           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                           "audio_s_per_s": LONG_SECONDS / (p50 / 1e3)}
+        report[route] = r
+    report["cli"] = _long_cli(torch, lstm_cuda, config, ap, model, wav, emb)
+    report["relay_exact"] = _relay_exact(torch, lstm_cuda, model, spec, e, max(LONG_SHARDS))
+    check(all(report["relay_exact"].values()), f"long: the relay differs: {report['relay_exact']}")
+    report["kernels_on_windows"] = _long_kernel_windows(torch, lstm_cuda, cc, model, seed)
+
+    # the longest utterance a world of one takes: B·T·F·C within 32-bit indexing
+    limit = sequence.MAX_CONV_ELEMENTS // (F * model.conv_channels)
+    longest = {"frames": limit, "seconds": (limit - 1) * ap.hop_length / ap.sample_rate}
+    long_wav = np.resize(wav[0], (limit - 1) * ap.hop_length)
+    for route in LONG_ROUTES:
+        with _Env("VOICESPLIT_PALLAS_CONV", "1" if route == "dilated" else "0"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = sequence.separate_long(config, model, long_wav, emb[0])
+            check(out.shape == long_wav.shape and bool(np.isfinite(out).all()),
+                  f"long {route}: the longest utterance's output")
+            longest[route] = {"seconds_a_call": time.perf_counter() - t0,
+                              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+            try:
+                sequence.separate_long(config, model, np.resize(long_wav, len(long_wav) + ap.hop_length),
+                                       emb[0])
+                refused = None
+            except ValueError as err:
+                refused = str(err)
+            check(refused is not None and "at most" in refused,
+                  f"long {route}: one frame past the limit was not refused")
+            longest[route]["one_frame_more"] = refused
+    # what the limit guards: the library conv of conv1 (every route runs it)
+    # one frame past it
+    with torch.inference_mode():
+        try:
+            torch.nn.functional.conv2d(
+                torch.zeros(1, 1, limit + 1, F, dtype=torch.bfloat16, device="cuda"),
+                model.conv1.conv.weight.to(torch.bfloat16), padding=model.conv1.conv.padding)
+            torch.cuda.synchronize()
+            longest["library_conv1_one_frame_more"] = "ran"
+        except RuntimeError as err:
+            longest["library_conv1_one_frame_more"] = f"raised: {str(err).splitlines()[0]}"
+    torch.cuda.empty_cache()
+    report["longest_world_of_one"] = longest
+    report["phase_seconds"] = time.perf_counter() - t_phase
+    emit("long", device=torch.cuda.get_device_name(0), **report)
+    out = {}
+    for runs in by_path.values():
+        for counted in runs:
+            _add(out, {k: counted[k] for k in ("lstm_fwd", "bilstm_fwd", "conv_dilated_fwd")})
+    return out
+
+
+# --- export (`export.py`): programs saved, loaded cold, launched ------------
+EXPORT_SECONDS = 3.0
+EXPORT_BATCHES = (1, 3, 8)  # the symbolic-batch program's calls
+EXPORT_PINNED = 8  # the pinned-batch program's batch (`bilstm_fwd`)
+EXPORT_CHUNKS = 4  # chunks threaded through the streaming program at B=1
+# B=8 through the symbolic-batch program (two `lstm_fwd`) against the eager
+# model (one `bilstm_fwd`): bf16 products over other row groups, waveform
+# relative to its peak (WIDE_SEPARATE_TOL's bound)
+EXPORT_B8_TOL = 5e-3
+# launches inside the loaded programs, by run (every forward on the cluster walk)
+EXPORT_LAUNCHES = {
+    **{f"symbolic_B{b}": {"lstm_fwd": 2, "bilstm_fwd": 0, "conv_dilated_fwd": 0}
+       for b in EXPORT_BATCHES},
+    "symbolic_dilated_B1": {"lstm_fwd": 2, "bilstm_fwd": 0, "conv_dilated_fwd": 6},
+    f"pinned_B{EXPORT_PINNED}": {"lstm_fwd": 0, "bilstm_fwd": 1, "conv_dilated_fwd": 0},
+    "chunks": {"lstm_fwd": EXPORT_CHUNKS, "bilstm_fwd": 0, "conv_dilated_fwd": 0},
+}
+
+# A fresh interpreter that loads the saved programs with nothing of the port
+# but its kernels' operators, runs them on the card with the launch counters
+# zeroed before each run, times the B=1 call and the chunk, and checks that no
+# model, DSP or streaming module (nor JAX) was imported.
+COLD_RUN = r'''
+import json, sys, time
+import numpy as np
+import torch
+import voicesplit_tpu_torch.ops  # registers the kernels' operators
+from voicesplit_tpu_torch.ops import conv_cuda, lstm_cuda
+
+spec = json.load(open(sys.argv[1]))
+data = np.load(spec["inputs"])
+dev = lambda k: torch.as_tensor(data[k], device="cuda")
+report = {"launches": {}, "routes": {}, "load_seconds": {}, "graph_calls": {}}
+outs = {}
+
+
+def load(name):
+    t0 = time.perf_counter()
+    program = torch.export.load(spec["programs"][name]).module()
+    report["load_seconds"][name] = time.perf_counter() - t0
+    report["graph_calls"][name] = sum(n.op == "call_function" for n in program.graph.nodes)
+    return program
+
+
+def counted(name, fn):
+    torch.cuda.synchronize()
+    lstm_cuda.reset_launch_counts(); conv_cuda.reset_launch_counts()
+    res = fn()
+    torch.cuda.synchronize()
+    report["launches"][name] = {**lstm_cuda.LAUNCHES, **conv_cuda.LAUNCHES}
+    report["routes"][name] = dict(lstm_cuda.ROUTES)
+    return res
+
+
+def p50_ms(fn, calls):
+    lat = []
+    for _ in range(calls):
+        t0 = time.perf_counter(); fn(); torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return float(np.percentile(lat, 50))
+
+
+with torch.no_grad():
+    sep = load("symbolic")
+    for b in spec["batches"]:
+        outs[f"symbolic_B{b}"] = counted(f"symbolic_B{b}", lambda: sep(dev(f"wav{b}"), dev(f"emb{b}")))
+    report["symbolic_B1_p50_ms"] = p50_ms(lambda: sep(dev("wav1"), dev("emb1")), spec["calls"])
+    sep_dil = load("symbolic_dilated")
+    outs["symbolic_dilated_B1"] = counted("symbolic_dilated_B1", lambda: sep_dil(dev("wav1"), dev("emb1")))
+    pinned = load("pinned")
+    b = spec["pinned"]
+    outs[f"pinned_B{b}"] = counted(f"pinned_B{b}", lambda: pinned(dev(f"wav{b}"), dev(f"emb{b}")))
+    step = load("chunk")
+    state = [dev(f"state{i}") for i in range(6)]
+
+    def chunks():
+        s, res = state, []
+        for i in range(spec["chunks"]):
+            *s, o = step(*s, dev(f"chunk{i}"), dev("chunk_emb"))
+            res.append(o)
+        return torch.cat(res, dim=-1), s
+
+    stream, final = counted("chunks", chunks)
+    outs["chunks"] = stream
+    for i, f in enumerate(final):
+        outs[f"final_state{i}"] = f
+    report["chunk_p50_ms"] = p50_ms(lambda: step(*state, dev("chunk0"), dev("chunk_emb")), spec["calls"])
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "voicesplit_tpu")
+       or m.startswith(("voicesplit_tpu_torch.models", "voicesplit_tpu_torch.dsp",
+                        "voicesplit_tpu_torch.streaming", "voicesplit_tpu_torch.export"))]
+report["model_modules_loaded"] = bad
+np.savez(spec["outputs"], **{k: v.float().cpu().numpy() for k, v in outs.items()})
+print("COLD " + json.dumps(report))
+'''
+
+
+def run_programs_cold(programs: dict, inputs: Path, outputs: Path, calls: int) -> dict:
+    """Runs COLD_RUN on `programs` ({"symbolic", "symbolic_dilated",
+    "pinned", "chunk"}: path) and the arrays of `inputs` in a fresh
+    interpreter; returns its report, the outputs in `outputs` (``.npz``)."""
+    spec = {"programs": {k: str(v) for k, v in programs.items()}, "inputs": str(inputs),
+            "outputs": str(outputs), "batches": list(EXPORT_BATCHES), "pinned": EXPORT_PINNED,
+            "chunks": EXPORT_CHUNKS, "calls": calls}
+    spec_path = outputs.with_suffix(".json")
+    spec_path.write_text(json.dumps(spec))
+    env = {**os.environ, "PYTHONPATH": str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    proc = subprocess.run([sys.executable, "-c", COLD_RUN, str(spec_path)], cwd=str(ROOT), env=env,
+                          capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"cold load failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    lines = [line for line in proc.stdout.splitlines() if line.startswith("COLD ")]
+    check(len(lines) == 1, f"cold load printed no report:\n{proc.stdout[-2000:]}")
+    report = json.loads(lines[0][5:])
+    check(not report["model_modules_loaded"],
+          f"the cold load imported model code: {report['model_modules_loaded']}")
+    for run, want in EXPORT_LAUNCHES.items():
+        got = {k: report["launches"][run][k] for k in want}
+        check(got == want, f"cold {run}: launches {got}, wanted {want}")
+        routes = report["routes"][run]
+        check(routes["cluster"] == want["lstm_fwd"] + want["bilstm_fwd"] == sum(routes.values()),
+              f"cold {run}: forward routes {routes}")
+    return report
+
+
+def export_programs(torch, config, model, smodel, tmp: Path) -> dict:
+    """Exports the full-width separator (symbolic batch; symbolic with
+    ``VOICESPLIT_PALLAS_CONV=1``; batch pinned to EXPORT_PINNED) and the
+    streaming chunk step through `cli.export.main` from trainer checkpoints
+    of `model` and of the streaming `smodel`, for the card (the CLI's
+    default platform); returns ``{name: (path, seconds to export)}`` and the
+    chunk step's manifest."""
+    from voicesplit_tpu_torch.cli import export as export_cli
+    from voicesplit_tpu_torch.train import create_train_state, make_optimizer
+    from voicesplit_tpu_torch.train.checkpoint import save_checkpoint
+
+    ckpts = {kind: save_checkpoint(str(tmp / kind), create_train_state(m, make_optimizer(config, m)),
+                                   config)
+             for kind, m in (("offline", model), ("streaming", smodel))}
+    cases = {
+        "symbolic": ("0", ["--seconds", str(EXPORT_SECONDS)]),
+        "symbolic_dilated": ("1", ["--seconds", str(EXPORT_SECONDS)]),
+        "pinned": ("0", ["--seconds", str(EXPORT_SECONDS), "--fixed_batch", str(EXPORT_PINNED)]),
+        "chunk": ("0", ["--streaming", "--chunk_frames", str(STREAM_CHUNK), "--batch_size", "1"]),
+    }
+    out = {}
+    for name, (switch, args) in cases.items():
+        path = tmp / f"{name}.pt2"
+        ckpt = ckpts["streaming" if name == "chunk" else "offline"]
+        with _Env("VOICESPLIT_PALLAS_CONV", switch):
+            t0 = time.perf_counter()
+            files = export_cli.main(["--checkpoint_path", ckpt, "--output", str(path), *args])
+            seconds = time.perf_counter() - t0
+        check(files == {"cuda": str(path)}, f"cli.export {name}: wrote {files}")
+        out[name] = (path, seconds)
+    manifest = json.loads((tmp / "chunk.pt2.json").read_text())
+    check(manifest["platforms"] == ["cuda"] and manifest["artifacts"] == {"cuda": "chunk.pt2"},
+          f"cli.export chunk: manifest {manifest}")
+    return out, manifest
+
+
+def phase_export(torch, lstm_cuda, cc, seed: int, tmp: Path) -> dict:
+    """`cli.export` (`export.export_separator`, `export.export_streaming`)
+    at full width for the card (`export_programs`), each program loaded cold
+    in a fresh interpreter that imports no model code (`run_programs_cold`),
+    where the launches of `lstm_fwd`, `bilstm_fwd` and `conv_dilated_fwd`
+    are counted: the symbolic-batch program at B=1, 3 (the eager path's
+    bits) and 8 (EXPORT_B8_TOL; the eager model takes `bilstm_fwd`), with the
+    dilated switch at B=1 (bits), the batch pinned to 8 (bits, and against
+    the plain versions, SEPARATE_TOL), EXPORT_CHUNKS chunks of the streaming
+    step (`process_chunk`'s bits, output and state); the programs' sizes,
+    export and load seconds, and their B=1 and chunk p50 beside eager's."""
+    from voicesplit_tpu_torch import export, weights
+    from voicesplit_tpu_torch.cli.separate import separate_batch
+    from voicesplit_tpu_torch.config import load_config
+    from voicesplit_tpu_torch.dsp.processor import make_audio_processor
+    from voicesplit_tpu_torch.models.masknet import make_masknet
+    from voicesplit_tpu_torch.streaming import StreamingSeparator
+
+    t_phase = time.perf_counter()
+    config = load_config(str(ROOT / "configs" / "voicesplit.json"))
+    ap = make_audio_processor(config)
+    model = weights.init_random_(make_masknet(config), seed)
+    smodel = weights.init_random_(make_masknet(config, streaming=True), seed + 1)
+    programs, manifest = export_programs(torch, config, model, smodel, tmp)
+    n = int(EXPORT_SECONDS * ap.sample_rate)
+    arrays, want = {}, {}
+    for b in EXPORT_BATCHES:
+        arrays[f"wav{b}"], arrays[f"emb{b}"] = synthetic_batch(seed + 40 + b, b, n, ap.sample_rate,
+                                                               config.model.emb_dim)
+        want[f"symbolic_B{b}"] = separate_batch(model, ap, arrays[f"wav{b}"], arrays[f"emb{b}"])
+    want[f"pinned_B{EXPORT_PINNED}"] = want[f"symbolic_B{EXPORT_PINNED}"]
+    with _Env("VOICESPLIT_PALLAS_CONV", "1"):
+        want["symbolic_dilated_B1"] = separate_batch(model, ap, arrays["wav1"], arrays["emb1"])
+    with _PlainVersions(lstm_cuda):
+        plain8 = separate_batch(model, ap, arrays[f"wav{EXPORT_PINNED}"], arrays[f"emb{EXPORT_PINNED}"])
+    sep = StreamingSeparator(config, smodel, STREAM_CHUNK)
+    state = sep.init_state(1)
+    for i, f in enumerate(export.state_fields(state)):
+        arrays[f"state{i}"] = f.cpu().numpy()
+    stream_wav, arrays["chunk_emb"] = synthetic_batch(seed + 50, 1, EXPORT_CHUNKS * sep.chunk_samples,
+                                                      ap.sample_rate, config.model.emb_dim)
+    chunk_outs = []
+    for i in range(EXPORT_CHUNKS):
+        arrays[f"chunk{i}"] = stream_wav[:, i * sep.chunk_samples:(i + 1) * sep.chunk_samples]
+        state, o = sep.process_chunk(state, arrays[f"chunk{i}"], arrays["chunk_emb"])
+        chunk_outs.append(o)
+    want["chunks"] = torch.cat(chunk_outs, dim=-1)
+    for i, f in enumerate(export.state_fields(state)):
+        want[f"final_state{i}"] = f
+    np.savez(tmp / "inputs.npz", **arrays)
+
+    cold = run_programs_cold({k: v[0] for k, v in programs.items()}, tmp / "inputs.npz",
+                             tmp / "outputs.npz", LATENCY_CALLS)
+    got = np.load(tmp / "outputs.npz")
+    agreement = {}
+    for name, w in want.items():
+        w = w.float().cpu().numpy()
+        same = bool(np.array_equal(got[name], w))
+        agreement[name] = {"same_bits": same,
+                           "peak_rel_err": float(np.abs(got[name] - w).max() / max(np.abs(w).max(), 1e-30))}
+        if name == f"symbolic_B{EXPORT_PINNED}":
+            check(agreement[name]["peak_rel_err"] <= EXPORT_B8_TOL,
+                  f"export {name}: {agreement[name]} against the eager bilstm_fwd path")
+        else:
+            check(same, f"export {name}: the loaded program differs from the eager path: {agreement[name]}")
+    plain = plain8.float().cpu().numpy()
+    pinned_vs_plain = float(np.abs(got[f"pinned_B{EXPORT_PINNED}"] - plain).max() / np.abs(plain).max())
+    check(pinned_vs_plain <= SEPARATE_TOL, f"export pinned: {pinned_vs_plain} from the plain versions")
+
+    mixed, e = (torch.as_tensor(arrays[k], device="cuda") for k in ("wav1", "emb1"))
+    eager_p50, _ = _latency_ms(torch, lambda: separate_batch(model, ap, mixed, e), LATENCY_CALLS)
+    st0 = sep.init_state(1)
+    eager_chunk_p50, _ = _latency_ms(
+        torch, lambda: sep.process_chunk(st0, arrays["chunk0"], arrays["chunk_emb"]), LATENCY_CALLS)
+    report = {
+        "programs": {k: {"bytes": v[0].stat().st_size, "export_seconds": v[1],
+                         "load_seconds": cold["load_seconds"][k],
+                         "graph_calls": cold["graph_calls"][k]} for k, v in programs.items()},
+        "chunk_manifest": manifest, "agreement": agreement,
+        "pinned_vs_plain_versions_peak_rel": pinned_vs_plain,
+        "launches_in_loaded_programs": cold["launches"],
+        "B1_p50_ms": {"program": cold["symbolic_B1_p50_ms"], "eager": eager_p50},
+        "chunk_p50_ms": {"program": cold["chunk_p50_ms"], "eager": eager_chunk_p50},
+        "phase_seconds": time.perf_counter() - t_phase,
+    }
+    emit("export", device=torch.cuda.get_device_name(0), **report)
+    out = {}
+    for counted in cold["launches"].values():
+        _add(out, {k: counted[k] for k in ("lstm_fwd", "bilstm_fwd", "conv_dilated_fwd")})
+    return out
+
+
 # kinds for the device time split under --profile.  The port's kernels:
 # every __global__ of voicesplit_tpu_torch/csrc by its whole name
 # (tests/test_torch_kernel_kinds.py holds the list complete), tried before
@@ -3908,7 +4565,7 @@ def profile(torch, out_dir, tag, fn, runs: int = 5) -> dict:
 PHASES = ("kernels", "bwd_kernels", "separate", "train", "conv_kernels", "train_fused",
           "dilated_kernels", "separate_dilated", "trainer", "separate_wide", "train_wide",
           "evaluate", "preprocess", "trainer_online", "dsp", "streaming", "train_streaming",
-          "encoder", "voicefilter", "reference", "import", "distributed")
+          "encoder", "voicefilter", "reference", "import", "distributed", "long", "export")
 
 
 def main(argv=None) -> int:
@@ -4000,7 +4657,7 @@ def main(argv=None) -> int:
         by_path["voicefilter"] = phase_voicefilter(
             torch, lstm_cuda, conv_fused, conv_cuda, args.seed, args.profile)
     with tempfile.TemporaryDirectory(prefix="voicesplit_port_") as port_tmp:
-        for name in ("reference", "import", "distributed"):
+        for name in ("reference", "import", "distributed", "export"):
             if name in phases:
                 (Path(port_tmp) / name).mkdir()
         if "reference" in phases:
@@ -4011,6 +4668,11 @@ def main(argv=None) -> int:
         if "distributed" in phases:
             by_path["distributed"] = phase_distributed(
                 torch, lstm_cuda, conv_fused, args.seed, args.profile, Path(port_tmp) / "distributed")
+        if "long" in phases:
+            by_path["long"] = phase_long(torch, lstm_cuda, conv_cuda, args.seed)
+        if "export" in phases:
+            by_path["export"] = phase_export(torch, lstm_cuda, conv_cuda, args.seed,
+                                             Path(port_tmp) / "export")
     emit("total", wall_seconds=time.perf_counter() - t_start, phases=phases)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

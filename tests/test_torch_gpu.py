@@ -28,7 +28,7 @@ CONV_LAYERS = {"7x1": ((7, 1), 1), "5x5-d1": ((5, 5), 1), "5x5-d2": ((5, 5), 2),
 
 _spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
 chip_smoke = importlib.util.module_from_spec(_spec)
-_spec.loader.exec_module(chip_smoke)  # imports only the standard library and numpy at its top
+_spec.loader.exec_module(chip_smoke)  # imports the standard library, numpy and the port's peaks at its top
 
 
 def _config():
@@ -1527,3 +1527,165 @@ def test_nccl_world_of_one_step_is_the_step_without_a_group_on_card(route, monke
         assert (loss, gn) == base[1:], name
         for k, v in sd.items():
             assert torch.equal(v, base[0][k]), (name, k)
+
+
+# --- long-form separation and exported programs (chip_smoke's long and export
+# phases, at a 20 s clip where the phase takes 120 s) ------------------------
+
+LONG_TEST_SECONDS = 20.0  # 2,001 frames
+
+
+def _long_setup(seed=0):
+    from voicesplit_tpu_torch import weights
+
+    cfg = load_config(str(REPO / "configs" / "voicesplit.json"))
+    ap = make_audio_processor(cfg)
+    model = weights.init_random_(make_masknet(cfg), seed)
+    n = int(LONG_TEST_SECONDS * ap.sample_rate)
+    wav, emb = chip_smoke.synthetic_batch(seed + 11, 1, n, ap.sample_rate, cfg.model.emb_dim)
+    return cfg, ap, model, wav, emb
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["library", "dilated"])
+def test_separate_long_world_of_one_is_separate_batch_on_card(route, monkeypatch):
+    """No process group: the whole utterance on the card, `separate_batch`'s
+    bits, both LSTM directions on `lstm_fwd` (and conv2 … conv7 on
+    `conv_dilated_fwd` with the switch)."""
+    _need_card()
+    from voicesplit_tpu_torch.cli.separate import separate_batch
+    from voicesplit_tpu_torch.ops import conv_cuda, lstm_cuda
+    from voicesplit_tpu_torch.parallel import sequence
+
+    monkeypatch.setenv("VOICESPLIT_PALLAS_CONV", "1" if route == "dilated" else "0")
+    cfg, ap, model, wav, emb = _long_setup()
+    chip_smoke._reset_counts(torch, lstm_cuda, conv_cuda)
+    got = sequence.separate_long(cfg, model, wav[0], emb[0])
+    counted = chip_smoke._counts(torch, lstm_cuda, conv_cuda)
+    assert {k: counted[k] for k in chip_smoke.LONG_LAUNCHES[route]} == chip_smoke.LONG_LAUNCHES[route]
+    assert lstm_cuda.ROUTES["cluster"] == 2
+    assert np.array_equal(got, separate_batch(model, ap, wav, emb)[0].cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("route", ["library", "dilated"])
+def test_sharded_mask_matches_the_world_of_one_on_card(route, shards, monkeypatch):
+    """K shards in one process (halos, the carry relay, the padded tail)
+    against the world of one's mask: the same bits, or only the library
+    calls that pick their kernel by shape differing, within
+    LONG_SHARDED_TOL; 2·K² `lstm_fwd` launches (every shard holds valid
+    frames) and 6 `conv_dilated_fwd` a shard with the switch."""
+    _need_card()
+    import torch.nn.functional as tnf
+
+    from voicesplit_tpu_torch.ops import conv_cuda, lstm_cuda
+    from voicesplit_tpu_torch.parallel import sequence
+
+    monkeypatch.setenv("VOICESPLIT_PALLAS_CONV", "1" if route == "dilated" else "0")
+    cfg, ap, model, wav, emb = _long_setup(1)
+    e = torch.as_tensor(emb, device="cuda")
+    with torch.inference_mode():
+        spec, _ = ap.wav2spec_batch(torch.as_tensor(wav, device="cuda"))
+        T = spec.shape[1]
+        Tp = sequence.pad_frames(T, shards, model.conv_context_left)
+        assert Tp > T  # the tail is padded
+        want = sequence.make_sp_mask_fn(model, sequence.InProcessExchange(1))(spec, e, T)
+        chip_smoke._reset_counts(torch, lstm_cuda, conv_cuda)
+        got = sequence.make_sp_mask_fn(model, sequence.InProcessExchange(shards))(
+            tnf.pad(spec, (0, 0, 0, Tp - T)), e, T)[:, :T]
+        counted = chip_smoke._counts(torch, lstm_cuda, conv_cuda)
+    expected = chip_smoke.long_sharded_launches(shards, shards, route == "dilated")
+    assert {k: counted[k] for k in expected} == expected
+    if not torch.equal(got, want):
+        ops = chip_smoke._sp_differences(torch, lstm_cuda, model, spec, e, shards)["differs"]
+        assert set(ops) <= set(chip_smoke.LIBRARY_SHAPE_OPS), ops
+        assert (got - want).abs().max().item() <= chip_smoke.LONG_SHARDED_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [2, 4])
+def test_relay_is_exact_at_the_long_form_shapes_on_card(shards):
+    """The world of one's LSTM inputs cut into K padded shards through the
+    carry relay: `BiLSTM`'s two `lstm_fwd` over the utterance, bit for bit."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import lstm_cuda
+
+    cfg, ap, model, wav, emb = _long_setup(4)
+    with torch.inference_mode():
+        spec, _ = ap.wav2spec_batch(torch.as_tensor(wav, device="cuda"))
+    got = chip_smoke._relay_exact(torch, lstm_cuda, model, spec, torch.as_tensor(emb, device="cuda"),
+                                  shards)
+    assert got == {"fwd": True, "bwd": True}
+
+
+@pytest.mark.gpu
+def test_long_form_kernels_on_windows_match_plain_versions_on_card():
+    """`lstm_fwd` at B=1 from a nonzero carry and `conv_dilated_fwd` on a
+    window whose last frames are zero, against their plain versions (the
+    helper checks and raises)."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import conv_cuda, lstm_cuda
+
+    _, _, model, _, _ = _long_setup(2)
+    out = chip_smoke._long_kernel_windows(torch, lstm_cuda, conv_cuda, model, 2)
+    assert out["lstm_fwd_from_carry"]["max_abs_err"] <= chip_smoke.TOL["bfloat16"]
+
+
+@pytest.mark.gpu
+def test_separate_long_refuses_one_frame_past_the_index_limit_on_card():
+    _need_card()
+    from voicesplit_tpu_torch.parallel import sequence
+
+    cfg, ap, model, wav, emb = _long_setup(3)
+    limit = sequence.MAX_CONV_ELEMENTS // (601 * 64)
+    assert limit == 55831
+    with pytest.raises(ValueError, match="at most 55831 frames a device"):
+        sequence.separate_long(cfg, model, np.resize(wav[0], limit * ap.hop_length), emb[0])
+
+
+@pytest.mark.gpu
+def test_exported_programs_load_cold_and_launch_the_kernels_on_card(tmp_path):
+    """The export phase: the separator (symbolic batch, with the dilated
+    switch, pinned to 8) and the chunk step exported for the card, loaded in
+    a fresh interpreter with only the operators imported, their launches
+    counted there, outputs against the eager path (the phase checks)."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import conv_cuda, lstm_cuda
+
+    launches = chip_smoke.phase_export(torch, lstm_cuda, conv_cuda, 0, tmp_path)
+    assert launches["lstm_fwd"] == 2 * 4 + chip_smoke.EXPORT_CHUNKS
+    assert launches["bilstm_fwd"] == 1 and launches["conv_dilated_fwd"] == 6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["lstm_fwd", "bilstm_fwd", "conv_dilated_fwd"])
+def test_operator_launches_its_kernel_and_fakes_its_shapes_on_card(name):
+    """Each operator on CUDA tensors launches its kernel once (counted), and
+    its fake implementation gives the real outputs' shapes and types."""
+    _need_card()
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from voicesplit_tpu_torch.ops import conv_cuda, lstm_cuda
+
+    bf = torch.bfloat16
+    args = {
+        "lstm_fwd": lambda: (torch.randn(31, 3, 1600, device="cuda").to(bf),
+                             0.05 * torch.randn(400, 1600, device="cuda").to(bf),
+                             torch.zeros(3, 400, device="cuda"), torch.zeros(3, 400, device="cuda")),
+        "bilstm_fwd": lambda: (torch.randn(31, 16, 1600, device="cuda").to(bf),
+                               0.05 * torch.randn(400, 1600, device="cuda").to(bf),
+                               0.05 * torch.randn(400, 1600, device="cuda").to(bf)),
+        "conv_dilated_fwd": lambda: (torch.randn(1, 33, 601, 64, device="cuda").to(bf),
+                                     0.05 * torch.randn(5, 5, 64, 64, device="cuda").to(bf), 2),
+    }[name]()
+    module = conv_cuda if name.startswith("conv") else lstm_cuda
+    op = getattr(torch.ops.voicesplit, name)
+    chip_smoke._reset_counts(torch, module)
+    real = op(*args)
+    assert chip_smoke._counts(torch, module)[name] == 1
+    with FakeTensorMode() as mode:
+        fake = op(*(mode.from_tensor(a) if isinstance(a, torch.Tensor) else a for a in args))
+    real, fake = (real, fake) if isinstance(real, tuple) else ((real,), (fake,))
+    assert [(tuple(f.shape), f.dtype, f.device.type) for f in fake] == \
+        [(tuple(r.shape), r.dtype, r.device.type) for r in real]

@@ -134,6 +134,9 @@ def test_make_masknet_reads_config():
 def test_port_imports_nothing_of_jax():
     """Static check: no module of the port names JAX, flax or the JAX package."""
     pkg = pathlib.Path(importlib.import_module("voicesplit_tpu_torch").__file__).parent
+    scanned = {p.relative_to(pkg).as_posix() for p in pkg.rglob("*.py")}
+    # the serving paths' modules among them: sequence parallelism, export, profiling
+    assert {"parallel/sequence.py", "export.py", "cli/export.py", "utils/profiling.py"} <= scanned
     for path in pkg.rglob("*.py"):
         for line in path.read_text().splitlines():
             words = line.split()

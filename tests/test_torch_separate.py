@@ -99,15 +99,6 @@ def test_cli_writes_the_separated_wav(tmp_path):
     assert np.abs(out - want).max() <= 1.0  # int16 truncation
 
 
-@pytest.mark.parametrize(
-    "flag", [["--sequence_parallel"]]
-)
-def test_cli_refuses_what_is_not_ported(tmp_path, flag):
-    _, _, _, args = _cli_files(tmp_path)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        main(args + flag)
-
-
 def test_cli_runs_without_jax(tmp_path):
     """A fresh interpreter imports the port and runs the CLI; JAX never loads."""
     _, _, _, args = _cli_files(tmp_path)

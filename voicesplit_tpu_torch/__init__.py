@@ -11,7 +11,10 @@ mixing, `eval/`, `utils/logging.py`); offline preprocessing
 streaming separation (`streaming.py`: causal convs, the forward-only
 `UniLSTM` with its carry, streaming training and `cli/convert_streaming.py`)
 and the rest of the DSP (Griffin-Lim, the wavernn and waveglow backends,
-loudness).  Every kernel that the JAX package wrote in
+loudness); data-parallel training and sequence-parallel long-form
+separation (`parallel/`); `torch.export` programs of the separator and the
+streaming chunk step (`export.py`, `cli/export.py`), which call the serving
+kernels as `torch.library` operators; profiling (`utils/profiling.py`).  Every kernel that the JAX package wrote in
 Pallas has a hand-written CUDA counterpart: the BiLSTM recurrence and its
 backward (`ops/lstm_cuda.py`, `csrc/lstm_fwd.cu`, `csrc/lstm_bwd.cu`), the
 training step's fused conv chain (``VOICESPLIT_FUSED_CHAIN=1``) with its

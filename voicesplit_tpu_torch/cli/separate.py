@@ -4,12 +4,15 @@ counterpart of `voicesplit_tpu/cli/separate.py`).
     python -m voicesplit_tpu_torch.cli.separate -c configs/voicesplit.json \
         --weights weights.pt --mixed_wav mix.wav (--emb emb.npy | \
         --reference_wav ref.wav --encoder_checkpoint embedder.pt) \
-        --output out.wav [--streaming [--chunk_frames N]] [--griffin_lim] \
-        [--device cuda|cpu]
+        --output out.wav [--streaming [--chunk_frames N]] [--sequence_parallel] \
+        [--griffin_lim] [--device cuda|cpu]
 
 Spectrogram of the mixture → mask network → ``mask * spec`` → iSTFT with
 the mixture phase (reference eval behavior, `utils/generic_utils.py:504`);
 ``--griffin_lim`` re-estimates the phase instead (`dsp/griffin_lim.py`).
+``--sequence_parallel`` runs the long-form engine (`parallel/sequence.py`):
+the utterance's time axis sharded over the ranks of a started process group,
+a world of one (the whole utterance on the card) without one.
 ``--streaming`` runs the chunked low-latency engine (`streaming.py`) over the
 streaming model (forward-only LSTM; causal convs where the config says so),
 whose weights come from a streaming checkpoint, e.g. one written by
@@ -33,9 +36,6 @@ import torch
 
 from voicesplit_tpu_torch.dsp.processor import AudioProcessor
 from voicesplit_tpu_torch.models.masknet import MaskNet
-
-_NOT_PORTED = ("sequence_parallel",)
-
 
 def separate_batch(
     model: MaskNet, ap: AudioProcessor, mixed, emb
@@ -66,12 +66,11 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default=None, help="cuda (default) or cpu")
     parser.add_argument("--streaming", action="store_true")
     parser.add_argument("--chunk_frames", type=int, default=50)
-    parser.add_argument("--sequence_parallel", action="store_true")
+    parser.add_argument("--sequence_parallel", action="store_true",
+                        help="shard the time axis over the process group's ranks "
+                             "(long-form inference, parallel/sequence.py)")
     parser.add_argument("--griffin_lim", action="store_true")
     args = parser.parse_args(argv)
-    for opt in _NOT_PORTED:
-        if getattr(args, opt):
-            raise NotImplementedError(f"--{opt} is not yet ported")
     if not args.emb and not args.reference_wav:
         raise SystemExit("provide --emb or --reference_wav")
     if not args.emb and not args.encoder_checkpoint:
@@ -106,6 +105,10 @@ def main(argv=None):
 
         sep = StreamingSeparator(config, model, args.chunk_frames, device=args.device)
         out = sep.separate(mixed[None], emb)[0]
+    elif args.sequence_parallel:
+        from voicesplit_tpu_torch.parallel.sequence import separate_long
+
+        out = separate_long(config, model, mixed, emb[0])
     elif args.griffin_lim:
         spec, _ = ap.wav2spec(mixed)
         with torch.inference_mode():

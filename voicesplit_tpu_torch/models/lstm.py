@@ -116,7 +116,10 @@ class BiLSTM(_LSTMBase):
     Same dispatch as the JAX module (`models/lstm.py:145-160`): a batch
     that is a multiple of 8 runs both directions in one `bilstm_fwd`
     launch; any other batch runs `lstm_fwd` once per direction, the
-    backward one on time-flipped input whose output is flipped back."""
+    backward one on time-flipped input whose output is flipped back.  A
+    symbolic batch (`torch.export` with the batch left free) takes the
+    route that serves any batch, the two `lstm_fwd` calls, as the JAX
+    export takes `lax.scan` (`export.py:75-93`)."""
 
     def __init__(self, in_features: int, hidden: int, compute_dtype=torch.float32):
         super().__init__(in_features, hidden, compute_dtype, ("fwd", "bwd"))
@@ -128,7 +131,7 @@ class BiLSTM(_LSTMBase):
         xp_f = xc @ self.fwd_w_ih.to(cd) + self.fwd_b.to(cd)  # [B, T, 4H]
         xp_b = xc @ self.bwd_w_ih.to(cd) + self.bwd_b.to(cd)
         w_f, w_b = self.fwd_w_hh.to(cd), self.bwd_w_hh.to(cd)
-        if B % 8 == 0:
+        if isinstance(B, int) and B % 8 == 0:
             xcat = torch.cat([xp_f.transpose(0, 1), xp_b.flip(1).transpose(0, 1)], dim=1)
             hs, _, _ = lstm_cuda.bilstm_fwd(xcat.contiguous(), w_f, w_b)  # [T, 2B, H]
             out_f, out_b = hs[:, :B], hs[:, B:].flip(0)

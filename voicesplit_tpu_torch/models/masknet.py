@@ -237,26 +237,43 @@ class MaskNet(nn.Module):
         lookahead); 0 when causal."""
         return 0 if self.causal else self.conv_context
 
-    def conv_features(self, spec: torch.Tensor) -> torch.Tensor:
-        """``[B, T, F]`` → flattened conv features ``[B, T, 8F]`` (f·C + c)."""
+    def conv_features(self, spec: torch.Tensor,
+                      edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``[B, T, F]`` → flattened conv features ``[B, T, 8F]`` (f·C + c).
+
+        `edge_mask` (``[B or 1, T]``, 0/1): frames marked 0 are zeroed at the
+        input and after every block, so they act exactly as the zero padding
+        of a pass over the valid frames alone (JAX `masknet.py:443-505`); the
+        sequence-parallel engine (`parallel/sequence.py`) marks its halos
+        outside the utterance and its alignment padding so.  An all-ones mask
+        leaves the output's bits unchanged.  The fused chain takes none."""
         B, T, F = spec.shape
-        x = spec.to(self.compute_dtype)[:, None]  # [B, 1, T, F]
+        mask = None
+        if edge_mask is not None:
+            mask = edge_mask.to(self.compute_dtype)[:, None, :, None]  # [B or 1, 1, T, 1]
+
+        def apply_mask(h):
+            return h if mask is None else h * mask
+
+        x = apply_mask(spec.to(self.compute_dtype)[:, None])  # [B, 1, T, F]
         if self.causal:
             # the library conv only: the conv kernels compute "same" convs
             for name in self.block_names:
-                x = getattr(self, name)(x)
+                x = apply_mask(getattr(self, name)(x))
         elif pallas_conv_enabled():
             if self._use_fused_chain():
                 raise ValueError(
                     "VOICESPLIT_PALLAS_CONV=1 and VOICESPLIT_FUSED_CHAIN=1 are both set: "
                     "a training forward takes one conv path, not both"
                 )
-            x = self._dilated_conv_features(x)
+            x = self._dilated_conv_features(x, apply_mask)
         elif self._use_fused_chain():
+            if mask is not None:
+                raise NotImplementedError("edge_mask is not supported by the fused conv chain")
             x = self._fused_chain_features(x)
         else:
             for name in self.block_names:
-                x = getattr(self, name)(x)
+                x = apply_mask(getattr(self, name)(x))
         return x.permute(0, 2, 3, 1).reshape(B, T, F * self.conv_out_channels)
 
     def _use_fused_chain(self) -> bool:
@@ -293,12 +310,13 @@ class MaskNet(nn.Module):
         h = chain_blocks[-1].bn_act(raw.permute(0, 3, 1, 2))  # a channels-last NCHW view
         return blocks[-1](h)
 
-    def _dilated_conv_features(self, x: torch.Tensor) -> torch.Tensor:
-        """Every block in turn; a layer that `conv_cuda.takes_layer` accepts
-        runs its conv through `conv_cuda.conv2d_dilated_bias` on channels-last
-        ``[B, T, F, C]``.  The first such layer copies NCHW to channels-last;
-        after it BatchNorm + activation keep that memory layout, so the
-        later permutes are views."""
+    def _dilated_conv_features(self, x: torch.Tensor, apply_mask) -> torch.Tensor:
+        """Every block in turn, `apply_mask` after each; a layer that
+        `conv_cuda.takes_layer` accepts runs its conv through
+        `conv_cuda.conv2d_dilated_bias` on channels-last ``[B, T, F, C]``.
+        The first such layer copies NCHW to channels-last; after it
+        BatchNorm + activation keep that memory layout, so the later permutes
+        are views."""
         for name in self.block_names:
             block = getattr(self, name)
             c = block.conv
@@ -309,9 +327,9 @@ class MaskNet(nn.Module):
                     c.weight.permute(2, 3, 1, 0),  # OIHW → [kt, kf, Cin, Cout]
                     c.bias, c.dilation,
                 )
-                x = block.bn_act(y.permute(0, 3, 1, 2))
+                x = apply_mask(block.bn_act(y.permute(0, 3, 1, 2)))
             else:
-                x = block(x)
+                x = apply_mask(block(x))
         return x
 
     def draw_dropout_keep(self, shape, keep_prob: float,

@@ -39,9 +39,12 @@ kernel's rounding.
 
 Dispatch: a CUDA tensor goes to the kernel, or the call raises; the plain
 versions run only for tensors on the CPU.  Each kernel launch adds one to
-``LAUNCHES[name]``.  The kernels take 64 channels in and out, bf16 or fp32
-operands (fp32 products on CUDA cores, not TF32) and kf in (1, 3, 5), the
-forward at most `conv_fused.FWD_KERNEL_MAX_KT` time taps.
+``LAUNCHES[name]``.  The forward is the `torch.library` operator
+``voicesplit::conv_dilated_fwd`` (checks, dispatch and count inside it; a
+fake implementation for `torch.export`), which the differentiable conv calls
+for its forward and its data gradient.  The kernels take 64 channels in and
+out, bf16 or fp32 operands (fp32 products on CUDA cores, not TF32) and kf in
+(1, 3, 5), the forward at most `conv_fused.FWD_KERNEL_MAX_KT` time taps.
 """
 
 from __future__ import annotations
@@ -205,15 +208,27 @@ def _launch_conv_dilated_wgrad(x, dy, kt, kf, dt):
     return dw
 
 
-def conv_dilated_fwd(x: torch.Tensor, w: torch.Tensor, dt: int) -> torch.Tensor:
-    """The "same" time-dilated conv without bias (kernel on CUDA, plain
-    version on the CPU); see `conv_dilated_fwd_ref` for shapes and types."""
+@torch.library.custom_op(
+    "voicesplit::conv_dilated_fwd", mutates_args=(), schema="(Tensor x, Tensor w, int dt) -> Tensor"
+)
+def _conv_dilated_fwd_op(x, w, dt):
     if w.dim() != 4:
         raise ValueError(f"weights must be [kt, kf, Cin, Cout], got {tuple(w.shape)}")
     kt, kf, _, cout = w.shape
     cin = x.shape[-1] if x.dim() == 4 else 0
     _check(x, w, (kt, kf, cin, cout), "weights", kt, kf, dt)
     return _build.dispatch(x.device, _launch_conv_dilated_fwd, conv_dilated_fwd_ref)(x, w, dt)
+
+
+@_conv_dilated_fwd_op.register_fake
+def _(x, w, dt):
+    return x.new_empty((*x.shape[:3], w.shape[3]))
+
+
+def conv_dilated_fwd(x: torch.Tensor, w: torch.Tensor, dt: int) -> torch.Tensor:
+    """The "same" time-dilated conv without bias (kernel on CUDA, plain
+    version on the CPU); see `conv_dilated_fwd_ref` for shapes and types."""
+    return torch.ops.voicesplit.conv_dilated_fwd(x, w, int(dt))
 
 
 def conv_dilated_wgrad(x: torch.Tensor, dy: torch.Tensor, kt: int, kf: int,

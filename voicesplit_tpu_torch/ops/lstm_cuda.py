@@ -37,6 +37,15 @@ which only tests and timings call, counts nothing).  ``lstm_fwd`` /
 ``bilstm_fwd`` are differentiable: their autograd backward runs
 ``lstm_bwd`` / ``bilstm_bwd`` on the same dispatch rule.
 
+The two forwards are `torch.library` operators, ``voicesplit::lstm_fwd`` and
+``voicesplit::bilstm_fwd``, each with a fake implementation that gives the
+outputs' shapes and types for any (also symbolic) batch, so that
+`torch.export` traces them and a saved program launches them (`export.py`).
+The operator's implementation is the dispatch above: checks, the route chosen
+from the shape and the counts all happen inside it, never while tracing.
+The autograd functions and the plain call reach the kernels only through
+the operators.
+
 The kernels are compiled and loaded by `ops/_build.py` (``nvcc`` for
 ``sm_90a`` into ``build/`` at first use, ``ctypes``).
 """
@@ -512,11 +521,54 @@ def _cs_cotangent(dcs: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return dcs[-1].float().contiguous()
 
 
+# ---------------------------------------------------------------------------
+# The operators: the one launch path of the forward kernels
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op(
+    "voicesplit::lstm_fwd", mutates_args=(),
+    schema="(Tensor xp, Tensor whh, Tensor h0, Tensor c0) -> (Tensor, Tensor, Tensor)",
+)
+def _lstm_fwd_op(xp, whh, h0, c0):
+    _check(xp, h0.shape[0], (whh,), (h0, c0))
+    return _build.dispatch(xp.device, _launch_lstm_fwd, lstm_fwd_ref)(xp, whh, h0, c0)
+
+
+@torch.library.custom_op(
+    "voicesplit::bilstm_fwd", mutates_args=(),
+    schema="(Tensor xp, Tensor whh_f, Tensor whh_b) -> (Tensor, Tensor, Tensor)",
+)
+def _bilstm_fwd_op(xp, whh_f, whh_b):
+    if xp.dim() != 3 or xp.shape[1] % 2:
+        raise ValueError(f"xp must be [T, 2B, 4H], got {tuple(xp.shape)}")
+    _check(xp, xp.shape[1], (whh_f, whh_b), ())
+    return _build.dispatch(xp.device, _launch_bilstm_fwd, bilstm_fwd_ref)(xp, whh_f, whh_b)
+
+
+def _fake_outputs(xp, whh):
+    """``hs, cs [T, R, H]`` and ``gates [T, R, 4H]``, fp32 on xp's device."""
+    T, R = xp.shape[:2]
+    H = whh.shape[0]
+    return (xp.new_empty((T, R, H), dtype=torch.float32),
+            xp.new_empty((T, R, H), dtype=torch.float32),
+            xp.new_empty((T, R, 4 * H), dtype=torch.float32))
+
+
+@_lstm_fwd_op.register_fake
+def _(xp, whh, h0, c0):
+    return _fake_outputs(xp, whh)
+
+
+@_bilstm_fwd_op.register_fake
+def _(xp, whh_f, whh_b):
+    return _fake_outputs(xp, whh_f)
+
+
 class _LSTMFwd(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xp, whh, h0, c0, save):
-        _check(xp, h0.shape[0], (whh,), (h0, c0))
-        hs, cs, gates = _build.dispatch(xp.device, _launch_lstm_fwd, lstm_fwd_ref)(xp, whh, h0, c0)
+        hs, cs, gates = torch.ops.voicesplit.lstm_fwd(xp, whh, h0, c0)
         ctx.mark_non_differentiable(gates)
         ctx.set_materialize_grads(False)
         ctx.x_dtype = xp.dtype
@@ -538,11 +590,7 @@ class _LSTMFwd(torch.autograd.Function):
 class _BiLSTMFwd(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xp, whh_f, whh_b, save):
-        if xp.dim() != 3 or xp.shape[1] % 2:
-            raise ValueError(f"xp must be [T, 2B, 4H], got {tuple(xp.shape)}")
-        _check(xp, xp.shape[1], (whh_f, whh_b), ())
-        fn = _build.dispatch(xp.device, _launch_bilstm_fwd, bilstm_fwd_ref)
-        hs, cs, gates = fn(xp, whh_f, whh_b)
+        hs, cs, gates = torch.ops.voicesplit.bilstm_fwd(xp, whh_f, whh_b)
         ctx.mark_non_differentiable(gates)
         ctx.set_materialize_grads(False)
         ctx.x_dtype = xp.dtype

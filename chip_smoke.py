@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch port's serving and training paths, its
 training, preprocessing and evaluation entry points, streaming separation,
-Griffin-Lim, the speaker encoders, long-form (sequence-parallel) separation
-and exported programs, at
+Griffin-Lim, the speaker encoders, long-form (sequence-parallel) separation,
+exported programs, the gate split's sharded training state and conv-block
+recompute, at
 `configs/voicesplit.json` and at the wide `configs/voicesplit_wide.json`
 (NVIDIA H100).
 
@@ -256,6 +257,21 @@ Phases, each printing one JSON line:
    there (EXPORT_LAUNCHES), outputs against the eager path (bits; B=8 of
    the symbolic program within EXPORT_B8_TOL), sizes, seconds, the B=1
    and chunk p50 of program and eager.
+26. model parallel — `configs/voicesplit_wide.json` at full width (bf16,
+   B=2, library convs) with its training state split over MP_SHARDS
+   in-process model shards (`parallel.sharding.InProcessShardExchange`:
+   each shard owns its slices of the split parameters and their Adam
+   moments, gathered into the module before each step): MP_STEPS steps
+   against the unsharded state's from the same weights, bit for bit (loss,
+   every parameter, the moments, the running statistics); 2 ``lstm_fwd`` +
+   2 ``lstm_bwd`` a step on the split walks; each shard's bytes against
+   the whole; step p50 / p75 and peak memory of each.
+27. remat — `configs/voicesplit.json` at full width (bf16) trained at B=2
+   and B=8 on each conv route with ``VOICESPLIT_REMAT_CONV=1`` and without,
+   from the same weights: REMAT_STEPS steps bit for bit (cuDNN
+   deterministic for both phases), the switch's exact launches
+   (REMAT_CONV_LAUNCHES: 18 ``conv_dilated_fwd`` a step with the dilated
+   switch), step p50 / p75 and peak memory on each side.
 
 Then a ``{"kernels": [...]}`` line (each kernel's ``main_path``: false for
 the routes no path takes, OFF_PATH, launched only in the kernels phases),
@@ -271,7 +287,8 @@ kernel.  ``--phases`` runs a subset (of kernels, bwd_kernels, separate,
 train, conv_kernels, train_fused, dilated_kernels, separate_dilated,
 trainer, separate_wide, train_wide, evaluate, preprocess, trainer_online, dsp,
 streaming, train_streaming, encoder, voicefilter, reference, import,
-distributed, long, export; device and build always run)
+distributed, long, export, model_parallel, remat; device and build always
+run)
 and ends with a line marked
 ``"partial"`` instead of the result lines.
 """
@@ -4518,6 +4535,213 @@ LIBRARY_KERNEL_KINDS = (
 )
 
 
+# --- the gate split (`parallel/sharding.py`) and conv-block remat --------------
+MP_SHARDS = (2, 4)  # in-process model shards of the wide config's training state
+MP_STEPS = 3  # steps held bit for bit against the unsharded state's
+MP_TIMED = 8
+REMAT_ROUTES = ("unfused", "pallas_conv", "fused_chain")
+REMAT_BATCHES = (2, 8)
+REMAT_STEPS = 2  # steps held bit for bit against the switch off
+REMAT_TIMED = 6
+# conv kernel launches a train step with VOICESPLIT_REMAT_CONV=1: the
+# recompute launches the dilated forward of conv2 … conv7 again (6 forward,
+# 6 recomputed, 6 data gradients); the chain's kernels run no block's call
+REMAT_CONV_LAUNCHES = {"unfused": {},
+                       "pallas_conv": {"conv_dilated_fwd": 18, "conv_dilated_wgrad": 6},
+                       "fused_chain": CONV_LAUNCHES}
+
+
+def _state_bits(torch, state) -> tuple:
+    """A train state's parameters and running statistics, and its optimizer
+    state in the one-process layout (the gate split's moments gathered), on
+    the host."""
+    from voicesplit_tpu_torch.train.checkpoint import optimizer_state_dict
+
+    state.gather_()
+    sd = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+    opt = {f"{i}/{k}": v.detach().cpu().clone()
+           for i, st in optimizer_state_dict(state)["state"].items()
+           for k, v in st.items() if torch.is_tensor(v)}
+    return sd, opt
+
+
+def _bits_differ(torch, got: tuple, want: tuple) -> list:
+    """Names whose bits differ between two `_state_bits`."""
+    out = []
+    for g, w in zip(got, want):
+        out += sorted(k for k in set(g) | set(w) if k not in g or k not in w
+                      or not torch.equal(g[k], w[k]))
+    return out
+
+
+def phase_model_parallel(torch, lstm_cuda, cf, cc, seed: int) -> dict:
+    """`configs/voicesplit_wide.json` at full width (bf16, B=2, 3 s clips,
+    library convs) trained with its state split over MP_SHARDS in-process
+    model shards (`parallel.sharding.InProcessShardExchange`, one card):
+    MP_STEPS steps against the unsharded state's from the same weights, bit
+    for bit (loss, every parameter, Adam's moments, running statistics);
+    the launches of every step (both LSTM directions on the split walks);
+    each shard's bytes against the whole; step p50 of each."""
+    from voicesplit_tpu_torch import weights
+    from voicesplit_tpu_torch.config import load_config
+    from voicesplit_tpu_torch.dsp.processor import make_audio_processor
+    from voicesplit_tpu_torch.models.masknet import make_masknet
+    from voicesplit_tpu_torch.parallel import InProcessShardExchange, make_mesh, shard_train_state
+    from voicesplit_tpu_torch.train import create_train_state, make_optimizer, make_train_step
+
+    config = load_config(str(ROOT / WIDE_CONFIG))
+    config.train_config.learning_rate = TRAIN_LR
+    ap = make_audio_processor(config)
+    n = int(config.audio.audio_len * ap.sample_rate)
+    b = config.train_config.batch_size
+    batch = train_batch(seed + b, b, n, ap.sample_rate, config.model.emb_dim)
+    modules = (lstm_cuda, cf, cc)
+    zero = {k: 0 for m in modules for k in m.LAUNCHES}
+    launches: dict = {}
+    report = {"config": WIDE_CONFIG, "batch": b, "steps_held": MP_STEPS, "shards": MP_SHARDS}
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the runs' bits are compared
+    try:
+        with _route_env("unfused"):
+            runs = {}
+            for k in (1, *MP_SHARDS):
+                model = weights.init_random_(make_masknet(config), seed)
+                state = create_train_state(model, make_optimizer(config, model))
+                if k > 1:
+                    state = shard_train_state(state, make_mesh(), model_parallel=True,
+                                              exchange=InProcessShardExchange(k))
+                step = make_train_step(config, model, ap, state.optimizer)
+                losses = []
+                for _ in range(MP_STEPS):
+                    _reset_counts(torch, *modules)
+                    m = step(state, batch)
+                    counted = _counts(torch, *modules)
+                    want = {**zero, **WIDE_TRAIN_LAUNCHES}
+                    check(counted == want, f"model parallel K={k}: launches {counted}, expected {want}")
+                    counted = _check_routes(lstm_cuda, counted, f"model parallel K={k}", WIDE_ROUTES)
+                    if k > 1:
+                        _add(launches, counted)
+                    losses.append(float(m["loss"]))
+                check(all(np.isfinite(losses)), f"model parallel K={k}: losses {losses}")
+                bits = _state_bits(torch, state)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                times = _step_times(torch, step, state, batch, MP_TIMED)
+                opt_bytes = sum(v.numel() * v.element_size() for st in state.optimizer.state.values()
+                                for v in st.values() if torch.is_tensor(v))
+                runs[k] = {"losses": losses, "bits": bits,
+                           "step_ms_p50": float(np.percentile(times, 50)),
+                           "step_ms_p75": float(np.percentile(times, 75)),
+                           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                           "optimizer_state_bytes_in_process": opt_bytes}
+                if k > 1:
+                    runs[k]["bytes"] = state.shards.bytes(state.optimizer)
+                    runs[k]["split_parameters"] = len(state.shards.dims)
+                del model, state, step
+                torch.cuda.empty_cache()
+        ref = runs[1]
+        for k in MP_SHARDS:
+            differ = _bits_differ(torch, runs[k]["bits"], ref["bits"])
+            check(runs[k]["losses"] == ref["losses"] and not differ,
+                  f"model parallel K={k}: losses {runs[k]['losses']} against {ref['losses']}, "
+                  f"bits differ at {differ[:8]}")
+            bts = runs[k]["bytes"]
+            whole = bts["working_copy"]
+            report[f"shards_{k}"] = {
+                "same_bits_as_unsharded": True, "losses": runs[k]["losses"],
+                "launches_per_step": {**zero, **WIDE_TRAIN_LAUNCHES},
+                "step_ms_p50": runs[k]["step_ms_p50"], "step_ms_p75": runs[k]["step_ms_p75"],
+                "max_memory_allocated_bytes": runs[k]["max_memory_allocated_bytes"],
+                "split_parameters": runs[k]["split_parameters"],
+                "split_param_bytes_whole": whole,
+                "shard_param_bytes": [s["params"] for s in bts["shards"]],
+                "shard_optimizer_bytes": [s["optimizer_state"] for s in bts["shards"]],
+                "unsharded_optimizer_bytes": ref["optimizer_state_bytes_in_process"],
+                "replicated_param_bytes": bts["replicated_params"],
+                "replicated_optimizer_bytes": bts["replicated_optimizer_state"],
+                "gathered_working_copy_bytes": whole,
+            }
+        report["unsharded"] = {k: ref[k] for k in ("losses", "step_ms_p50", "step_ms_p75",
+                                                  "max_memory_allocated_bytes")}
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    emit("model parallel", device=torch.cuda.get_device_name(0), **report)
+    return launches
+
+
+def phase_remat(torch, lstm_cuda, cf, cc, seed: int) -> dict:
+    """`configs/voicesplit.json` at full width (bf16) trained at B=2 and B=8
+    on each conv route (library convs, the dilated switch, the fused chain)
+    with ``VOICESPLIT_REMAT_CONV=1`` and without, from the same weights:
+    REMAT_STEPS steps bit for bit (losses, parameters, Adam's moments,
+    running statistics), the switch's exact launches a step (with the
+    dilated switch 18 ``conv_dilated_fwd``), then REMAT_TIMED steps' p50 and
+    peak memory on each side."""
+    from voicesplit_tpu_torch.config import load_config
+
+    config = load_config(str(ROOT / "configs" / "voicesplit.json"))
+    config.train_config.learning_rate = TRAIN_LR
+    modules = (lstm_cuda, cf, cc)
+    zero = {k: 0 for m in modules for k in m.LAUNCHES}
+    plain_conv = {"unfused": {}, "pallas_conv": DILATED_TRAIN_LAUNCHES, "fused_chain": CONV_LAUNCHES}
+    launches: dict = {}
+    report: dict = {"config": "configs/voicesplit.json", "steps_held": REMAT_STEPS,
+                    "timed": REMAT_TIMED}
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the runs' bits are compared
+    try:
+        for route in REMAT_ROUTES:
+            with _route_env(route):
+                for b in REMAT_BATCHES:
+                    sides = {}
+                    for remat in ("0", "1"):
+                        with _Env("VOICESPLIT_REMAT_CONV", remat):
+                            model, optimizer, state, step, batch = _fresh_step(config, seed, b)
+                            conv = REMAT_CONV_LAUNCHES[route] if remat == "1" else plain_conv[route]
+                            want = {**zero, **TRAIN_LAUNCHES[b], **conv}
+                            losses = []
+                            for _ in range(REMAT_STEPS):
+                                _reset_counts(torch, *modules)
+                                m = step(state, batch)
+                                counted = _counts(torch, *modules)
+                                check(counted == want, f"remat {remat} {route} B={b}: launches "
+                                      f"{counted}, expected {want}")
+                                counted = _check_routes(lstm_cuda, counted, f"remat {route} B={b}")
+                                if remat == "1":
+                                    _add(launches, counted)
+                                losses.append(float(m["loss"]))
+                            bits = _state_bits(torch, state)
+                            torch.cuda.synchronize()
+                            torch.cuda.reset_peak_memory_stats()
+                            times = _step_times(torch, step, state, batch, REMAT_TIMED)
+                            sides[remat] = {
+                                "losses": losses, "bits": bits, "launches_per_step": want,
+                                "step_ms_p50": float(np.percentile(times, 50)),
+                                "step_ms_p75": float(np.percentile(times, 75)),
+                                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+                            del model, optimizer, state, step
+                            torch.cuda.empty_cache()
+                    differ = _bits_differ(torch, sides["1"]["bits"], sides["0"]["bits"])
+                    check(sides["1"]["losses"] == sides["0"]["losses"] and not differ,
+                          f"remat {route} B={b}: losses {sides['1']['losses']} against "
+                          f"{sides['0']['losses']}, bits differ at {differ[:8]}")
+                    on, off = sides["1"], sides["0"]
+                    report[f"{route}_B{b}"] = {
+                        "same_bits": True, "losses": on["losses"],
+                        "launches_per_step": {k: v for k, v in on["launches_per_step"].items() if v},
+                        "step_ms_p50": {"on": on["step_ms_p50"], "off": off["step_ms_p50"]},
+                        "step_ms_p75": {"on": on["step_ms_p75"], "off": off["step_ms_p75"]},
+                        "max_memory_allocated_bytes": {"on": on["max_memory_allocated_bytes"],
+                                                       "off": off["max_memory_allocated_bytes"]},
+                        "peak_saved_bytes": off["max_memory_allocated_bytes"]
+                        - on["max_memory_allocated_bytes"],
+                    }
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    emit("remat", device=torch.cuda.get_device_name(0), **report)
+    return launches
+
+
 def kernel_kind(name: str) -> str:
     idents = set(re.findall(r"[A-Za-z_][A-Za-z0-9_]*", name))
     for kind, names in PORT_KERNEL_KINDS:
@@ -4565,7 +4789,8 @@ def profile(torch, out_dir, tag, fn, runs: int = 5) -> dict:
 PHASES = ("kernels", "bwd_kernels", "separate", "train", "conv_kernels", "train_fused",
           "dilated_kernels", "separate_dilated", "trainer", "separate_wide", "train_wide",
           "evaluate", "preprocess", "trainer_online", "dsp", "streaming", "train_streaming",
-          "encoder", "voicefilter", "reference", "import", "distributed", "long", "export")
+          "encoder", "voicefilter", "reference", "import", "distributed", "long", "export",
+          "model_parallel", "remat")
 
 
 def main(argv=None) -> int:
@@ -4673,6 +4898,11 @@ def main(argv=None) -> int:
         if "export" in phases:
             by_path["export"] = phase_export(torch, lstm_cuda, conv_cuda, args.seed,
                                              Path(port_tmp) / "export")
+    if "model_parallel" in phases:
+        by_path["model_parallel"] = phase_model_parallel(
+            torch, lstm_cuda, conv_fused, conv_cuda, args.seed)
+    if "remat" in phases:
+        by_path["remat"] = phase_remat(torch, lstm_cuda, conv_fused, conv_cuda, args.seed)
     emit("total", wall_seconds=time.perf_counter() - t_start, phases=phases)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

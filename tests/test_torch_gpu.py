@@ -1689,3 +1689,87 @@ def test_operator_launches_its_kernel_and_fakes_its_shapes_on_card(name):
     real, fake = (real, fake) if isinstance(real, tuple) else ((real,), (fake,))
     assert [(tuple(f.shape), f.dtype, f.device.type) for f in fake] == \
         [(tuple(r.shape), r.dtype, r.device.type) for r in real]
+
+
+# --- the gate split and conv-block remat (chip_smoke's model_parallel and
+# remat phases, at 1 s clips) ----------------------------------------------
+
+
+def _short_config(name="voicesplit.json"):
+    cfg = load_config(str(REPO / "configs" / name))
+    cfg.train_config.learning_rate = chip_smoke.TRAIN_LR
+    cfg.audio.audio_len = 1.0  # 101 frames
+    return cfg
+
+
+def _counted_steps(step, state, batch, n, *modules):
+    """`n` steps; the launches of each, the losses and the state's bits."""
+    counts, losses = [], []
+    for _ in range(n):
+        chip_smoke._reset_counts(torch, *modules)
+        losses.append(float(step(state, batch)["loss"]))
+        counts.append(chip_smoke._counts(torch, *modules))
+    return counts, losses, chip_smoke._state_bits(torch, state)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("config", ["voicesplit.json", "voicesplit_wide.json"])
+def test_split_state_steps_as_the_unsharded_state_on_card(config, shards, monkeypatch):
+    """Three steps with the training state split over K in-process model
+    shards against three unsharded steps from the same weights: losses,
+    parameters, Adam's moments and running statistics bit for bit; 2 + 2
+    LSTM launches a step (the split walks at H=800)."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import conv_cuda, conv_fused, lstm_cuda
+    from voicesplit_tpu_torch.parallel import InProcessShardExchange, make_mesh, shard_train_state
+    from voicesplit_tpu_torch.train import make_train_step
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setenv("VOICESPLIT_FUSED_CHAIN", "0")
+    monkeypatch.setenv("VOICESPLIT_PALLAS_CONV", "0")
+    cfg = _short_config(config)
+    modules = (lstm_cuda, conv_fused, conv_cuda)
+    runs = {}
+    for k in (1, shards):
+        model, opt, state, step, batch = chip_smoke._fresh_step(cfg, 0, 2)
+        if k > 1:
+            state = shard_train_state(state, make_mesh(), model_parallel=True,
+                                      exchange=InProcessShardExchange(k))
+            step = make_train_step(cfg, model, make_audio_processor(cfg), state.optimizer)
+        runs[k] = _counted_steps(step, state, batch, 3, *modules)
+    counts, losses, bits = runs[shards]
+    assert losses == runs[1][1]
+    assert not chip_smoke._bits_differ(torch, bits, runs[1][2])
+    routes = chip_smoke.WIDE_ROUTES if cfg.model.lstm_dim == chip_smoke.GRID_HIDDEN else None
+    for c in counts:
+        want = {k: 0 for m in modules for k in m.LAUNCHES}
+        assert c == {**want, **chip_smoke.WIDE_TRAIN_LAUNCHES}
+        chip_smoke._check_routes(lstm_cuda, c, "split", routes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["unfused", "pallas_conv", "fused_chain"])
+def test_remat_step_is_the_plain_step_on_card(route, monkeypatch):
+    """Two B=2 steps with VOICESPLIT_REMAT_CONV=1 against two without, from
+    the same weights: the same bits (losses, parameters, moments, running
+    statistics) and the switch's launches (18 `conv_dilated_fwd` a step with
+    the dilated switch)."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import conv_cuda, conv_fused, lstm_cuda
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setenv("VOICESPLIT_FUSED_CHAIN", "1" if route == "fused_chain" else "0")
+    monkeypatch.setenv("VOICESPLIT_PALLAS_CONV", "1" if route == "pallas_conv" else "0")
+    cfg = _short_config()
+    modules = (lstm_cuda, conv_fused, conv_cuda)
+    runs = {}
+    for remat in ("0", "1"):
+        monkeypatch.setenv("VOICESPLIT_REMAT_CONV", remat)
+        model, opt, state, step, batch = chip_smoke._fresh_step(cfg, 0, 2)
+        runs[remat] = _counted_steps(step, state, batch, 2, *modules)
+    assert runs["1"][1] == runs["0"][1]
+    assert not chip_smoke._bits_differ(torch, runs["1"][2], runs["0"][2])
+    want = {k: 0 for m in modules for k in m.LAUNCHES}
+    want.update(chip_smoke.TRAIN_LAUNCHES[2], **chip_smoke.REMAT_CONV_LAUNCHES[route])
+    assert runs["1"][0] == [want, want]

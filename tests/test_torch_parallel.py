@@ -69,12 +69,21 @@ def _small_model():
 
 
 def test_param_partition_spec_replicates_and_refuses_the_gate_split():
+    """Data parallelism replicates every parameter; the gate split's table
+    splits the gates, conv output channels and fc1's inputs (the full check
+    against the JAX package's rules is in `tests/test_torch_model_parallel.py`)."""
     model = _small_model()
     specs = param_partition_spec(model, model_parallel=False)
     assert set(specs) == {k for k, _ in model.named_parameters()}
     assert set(specs.values()) == {"replicated"}
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        param_partition_spec(model, model_parallel=True)
+    split = param_partition_spec(model, model_parallel=True)
+    assert set(split) == set(specs)
+    assert {k: split[k] for k in ("lstm.fwd_w_ih", "lstm.bwd_w_hh", "lstm.fwd_b", "fc1.weight",
+                                  "conv1.conv.weight", "conv8.conv.bias", "conv3.bn.scale",
+                                  "fc1.bias", "fc2.weight", "fc2.bias")} == {
+        "lstm.fwd_w_ih": 1, "lstm.bwd_w_hh": 1, "lstm.fwd_b": 0, "fc1.weight": 1,
+        "conv1.conv.weight": 0, "conv8.conv.bias": 0, "conv3.bn.scale": 0,
+        "fc1.bias": "replicated", "fc2.weight": "replicated", "fc2.bias": "replicated"}
 
 
 def test_put_batch_in_one_process_is_the_identity():
@@ -97,5 +106,6 @@ def test_shard_train_state_in_one_process_keeps_the_state():
     assert shard_train_state(state, make_mesh()) is state
     for k, v in model.state_dict().items():
         assert torch.equal(v, before[k])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # the gate split over ranks this process has no group for
+    with pytest.raises(ValueError, match="process group"):
         shard_train_state(state, make_mesh(model=2, ranks=[0, 1]))

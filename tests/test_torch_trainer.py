@@ -223,9 +223,13 @@ def test_explosion_guard_rides_the_check_cadence(check_interval, summary_interva
 
 
 def test_parts_not_yet_ported_raise(workspace, tmp_path):
+    """The gate split in one process raises as the JAX package's mesh cannot
+    be built there (its runs over several processes are
+    `tests/test_torch_model_parallel_dist.py`)."""
     config = load_config_from_str(_config_text(workspace))
-    for kwargs in ({"mesh": make_mesh(model=2, ranks=[0, 1])}, {"model_parallel": 2}):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+    for kwargs, match in (({"mesh": make_mesh(model=2, ranks=[0, 1])}, "a world of 1"),
+                          ({"model_parallel": 2}, "the world has 1")):
+        with pytest.raises(ValueError, match=match):
             Trainer(config, log_dir=str(tmp_path), device="cpu", **kwargs)
     # the streaming model and a causal config build (their training is
     # held to the JAX package's in tests/test_torch_streaming_train.py)
@@ -243,10 +247,13 @@ CLI_FLAGS = {"model_parallel": ["--model_parallel", "2"]}
 
 @pytest.mark.parametrize("flag", sorted(CLI_FLAGS))
 def test_cli_flags_not_yet_ported_raise(flag, workspace, tmp_path):
+    """``--model_parallel 2`` in one process raises before anything is
+    written: the world of 1 is no multiple of the model axis."""
     config_path = tmp_path / "c.json"
     config_path.write_text(_config_text(workspace))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        train_cli.main(["-c", str(config_path), "--device", "cpu", *CLI_FLAGS[flag]])
+    with pytest.raises(ValueError, match="1 ranks not divisible by model=2"):
+        train_cli.main(["-c", str(config_path), "--device", "cpu",
+                        "--logs_path", str(tmp_path / "logs"), *CLI_FLAGS[flag]])
     assert not (tmp_path / "logs").exists()
 
 

@@ -5,7 +5,8 @@ reference `train.py:140-163`).
         [--checkpoint_path checkpoint_<step>.pt] [--logs_path dir] \
         [--max_steps N] [--eval_sdr] [--online [--emb_mode pseudo|spectral] \
         [--embeddings_dir DIR]] [--debug_nans] [--device cuda|cpu] \
-        [--coordinator HOST:PORT --num_processes N --process_id K]
+        [--coordinator HOST:PORT --num_processes N --process_id K \
+        [--model_parallel K]]
 
 Trains on the triplets under the config's ``dataset.train_dir`` (read by the
 native loader), or with ``--online`` on 2-speaker mixtures made afresh each
@@ -24,8 +25,14 @@ Data-parallel training: start one process a rank with the same flags and its
 own ``--process_id``; ``--coordinator`` is rank 0's ``host:port`` (any free
 port), ``--num_processes`` the world size.  The process group (NCCL on the
 card, gloo with ``--device cpu``) starts before anything touches the device
-and ends with the run; ``batch_size`` is per process.  Only rank 0 writes the
-logs directory.  ``--model_parallel > 1`` is not yet ported and raises.
+and ends with the run.  ``--model_parallel K`` lays the processes out as a
+``(N / K, K)`` mesh and splits the gates, conv channels and ``fc1``'s inputs
+over its model axis (`parallel/sharding.py`: each process owns its slices of
+those parameters and of their Adam moments); the K processes of a model group
+share their batch, so ``batch_size`` is the batch of one data row, and the
+global batch is ``batch_size × N / K``.  N must be a multiple of K: one
+process with ``--model_parallel 2`` raises ``ValueError``.  Only rank 0 writes
+the logs directory, a checkpoint of the full state.
 """
 
 from __future__ import annotations
@@ -68,8 +75,6 @@ def main(argv=None):
                              "op by op to name the first op with a non-finite output")
     parser.add_argument("--device", type=str, default=None, help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    if args.model_parallel > 1:
-        raise NotImplementedError("--model_parallel > 1 is not yet ported")
 
     import torch.distributed as dist
 
@@ -86,9 +91,11 @@ def main(argv=None):
 
 def _train(args):
     from voicesplit_tpu_torch.config import load_config
-    from voicesplit_tpu_torch.parallel.mesh import rank, world_size
+    from voicesplit_tpu_torch.parallel.mesh import make_mesh, rank
     from voicesplit_tpu_torch.train.trainer import Trainer
 
+    # every rank makes the mesh (and its sub-groups) before anything else
+    mesh = make_mesh(model=args.model_parallel)
     config = load_config(args.config_path)
     if args.logs_path:
         config.train_config.logs_path = args.logs_path
@@ -118,11 +125,12 @@ def _train(args):
             embeddings=embeddings,
             emb_mode=args.emb_mode,
             seed=config.train_config.seed,
-            shard_id=rank(),
-            num_shards=world_size(),
+            shard_id=mesh.coords(rank())[0],
+            num_shards=mesh.data,
         )
 
-    trainer = Trainer(config, checkpoint_path=args.checkpoint_path, train_loader=train_loader,
+    trainer = Trainer(config, checkpoint_path=args.checkpoint_path, mesh=mesh,
+                      model_parallel=args.model_parallel, train_loader=train_loader,
                       debug_nans=args.debug_nans, device=args.device)
     try:
         result = trainer.fit(max_steps=args.max_steps, compute_sdr_in_eval=args.eval_sdr)

@@ -52,6 +52,19 @@ given (`forward(..., dropout_generator=g)`); without one it raises, as
 flax does without a ``dropout`` rng.  `draw_dropout_keep` draws the masks,
 one call per site in that order.
 
+With ``VOICESPLIT_REMAT_CONV=1`` (`remat_convs_enabled`, the JAX package's
+switch, which wraps every ``ConvBlock`` in ``nn.remat``) a train-mode
+forward recomputes each conv block in the backward instead of keeping what
+its backward needs: a block's conv, BatchNorm and activation run under
+``torch.utils.checkpoint`` on every route (the library and causal convs, the
+dilated kernel, whose forward the recompute launches again, and the fused
+chain's ``conv1`` and projection, the blocks the chain calls as blocks).  A
+block then keeps only its input; without the switch it also keeps its raw
+conv output for the BatchNorm backward.  The checkpointed function returns
+the batch statistics beside the output, and the running statistics move once,
+from the forward, outside the recompute, as flax takes them from the forward
+only.  Eval mode never recomputes.
+
 ``streaming=True`` swaps the BiLSTM for a `UniLSTM` whose carry ``(h, c)``
 `mask_head` and ``forward`` take and return (``fc1`` then reads ``[H]``
 features), the streaming engine's model (`streaming.py`).  ``causal=True``
@@ -66,10 +79,12 @@ the symmetric "same" conv, so neither switch reaches a causal model.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import os
+from typing import Callable, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from voicesplit_tpu_torch.config import Config
 from voicesplit_tpu_torch.device import DeviceLike, resolve_device
@@ -78,7 +93,8 @@ from voicesplit_tpu_torch.ops.bn_act import bn_act_eval, bn_act_train, mish
 from voicesplit_tpu_torch.ops.conv_cuda import conv2d_dilated_bias, pallas_conv_enabled, takes_layer
 from voicesplit_tpu_torch.ops.conv_fused import fused_chain_enabled, make_chain
 
-__all__ = ["BatchNorm", "ConvBlock", "MaskNet", "extra_dilated_specs", "make_masknet", "mish"]
+__all__ = ["BatchNorm", "ConvBlock", "MaskNet", "extra_dilated_specs", "make_masknet", "mish",
+           "remat_convs_enabled"]
 
 # flax's BatchNorm momentum (`voicesplit_tpu/models/masknet.py`):
 # r ← m·r + (1 − m)·batch
@@ -96,6 +112,14 @@ CONV_SPECS: List[Tuple[Tuple[int, int], Tuple[int, int]]] = [
     ((5, 5), (8, 1)),
     ((5, 5), (16, 1)),
 ]
+
+
+def remat_convs_enabled() -> bool:
+    """``VOICESPLIT_REMAT_CONV=1``: recompute each conv block in the backward
+    (train mode), read at call time.  It trades one more conv, BatchNorm and
+    activation forward a block for the block's raw conv output, to fit
+    larger batches."""
+    return os.environ.get("VOICESPLIT_REMAT_CONV", "0") == "1"
 
 
 def extra_dilated_specs(n: int) -> List[Tuple[Tuple[int, int], Tuple[int, int]]]:
@@ -152,22 +176,45 @@ class ConvBlock(nn.Module):
         self.causal = causal
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, C, T, F]
+        return self.conv_bn_act(self._conv, x)
+
+    def _conv(self, x: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype
         c = self.conv
         x = x.to(cd)
         if self.causal and self.time_pad:
             # (2e, 0) in time; frequency keeps the conv's symmetric padding
             x = nn.functional.pad(x, (0, 0, 2 * self.time_pad, 0))
-        y = nn.functional.conv2d(
+        return nn.functional.conv2d(
             x, c.weight.to(cd), c.bias.to(cd), padding=c.padding, dilation=c.dilation
         )
-        return self.bn_act(y)
+
+    def conv_bn_act(self, conv: Callable[[torch.Tensor], torch.Tensor],
+                    x: torch.Tensor) -> torch.Tensor:
+        """BatchNorm + activation of ``conv(x)``, the block's raw conv output
+        ``[B, C, T, F]``.  In train mode with `remat_convs_enabled` the three
+        run under ``torch.utils.checkpoint``, so the backward recomputes them
+        from `x`; the running statistics move once either way."""
+        if not self.training:
+            return self.bn_act(conv(x))
+        if remat_convs_enabled():
+            # nothing in a block draws random numbers: no RNG state to keep
+            y, mean, var = checkpoint(lambda x: self._bn_act_train(conv(x)), x,
+                                      use_reentrant=False, preserve_rng_state=False)
+        else:
+            y, mean, var = self._bn_act_train(conv(x))
+        self.bn.update_running(mean, var)
+        return y
+
+    def _bn_act_train(self, y: torch.Tensor):
+        bn = self.bn
+        return bn_act_train(y, bn.scale, bn.bias, self.activation, bn.epsilon)
 
     def bn_act(self, y: torch.Tensor) -> torch.Tensor:
         """BatchNorm + activation of the raw conv output ``[B, C, T, F]``."""
         bn = self.bn
         if self.training:
-            y, mean, var = bn_act_train(y, bn.scale, bn.bias, self.activation, bn.epsilon)
+            y, mean, var = self._bn_act_train(y)
             bn.update_running(mean, var)
             return y
         return bn_act_eval(y, bn.scale, bn.bias, bn.mean, bn.var, self.activation, bn.epsilon)
@@ -322,12 +369,15 @@ class MaskNet(nn.Module):
             c = block.conv
             w_shape = (*c.kernel_size, c.in_channels, c.out_channels)
             if takes_layer(w_shape, c.dilation):
-                y = conv2d_dilated_bias(
-                    x.to(self.compute_dtype).permute(0, 2, 3, 1).contiguous(),
-                    c.weight.permute(2, 3, 1, 0),  # OIHW → [kt, kf, Cin, Cout]
-                    c.bias, c.dilation,
-                )
-                x = apply_mask(block.bn_act(y.permute(0, 3, 1, 2)))
+                def conv(x, c=c):
+                    y = conv2d_dilated_bias(
+                        x.to(self.compute_dtype).permute(0, 2, 3, 1).contiguous(),
+                        c.weight.permute(2, 3, 1, 0),  # OIHW → [kt, kf, Cin, Cout]
+                        c.bias, c.dilation,
+                    )
+                    return y.permute(0, 3, 1, 2)
+
+                x = apply_mask(block.conv_bn_act(conv, x))
             else:
                 x = apply_mask(block(x))
         return x

@@ -1,7 +1,8 @@
-"""Data and sequence parallelism over `torch.distributed` (counterpart of
-`voicesplit_tpu/parallel/`): the rank mesh, process-group start-up, batch
-placement and replicated training state; long-form separation with the time
-axis sharded over the ranks (`sequence.py`)."""
+"""Data, model and sequence parallelism over `torch.distributed` (counterpart
+of `voicesplit_tpu/parallel/`): the rank mesh, process-group start-up, batch
+placement, the replicated training state and the gate split's sharded one
+(`sharding.py`); long-form separation with the time axis sharded over the
+ranks (`sequence.py`)."""
 
 from voicesplit_tpu_torch.parallel.mesh import (
     Mesh,
@@ -10,6 +11,9 @@ from voicesplit_tpu_torch.parallel.mesh import (
     make_mesh,
 )
 from voicesplit_tpu_torch.parallel.sharding import (
+    GroupShardExchange,
+    InProcessShardExchange,
+    ModelShards,
     batch_sharding,
     param_partition_spec,
     put_batch,

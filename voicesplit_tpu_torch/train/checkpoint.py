@@ -66,13 +66,26 @@ def _to_cpu(tree):
     return tree
 
 
-def _payload(state: TrainState, config: Config, data_state: Optional[IteratorState]) -> dict:
+def optimizer_state_dict(state: TrainState) -> dict:
+    """The optimizer's state dict in the one-process layout: under the gate
+    split the moments of every split parameter gathered from its slices (a
+    collective over the model group; every rank of it must call this)."""
+    if state.shards is None:
+        return state.optimizer.state_dict()
+    return state.shards.full_optimizer_state_dict(state.optimizer)
+
+
+def _payload(state: TrainState, config: Config, data_state: Optional[IteratorState],
+             optimizer_state: Optional[dict] = None) -> dict:
+    state.gather_()
     params = dict(state.model.named_parameters())
     sd = state.model.state_dict()
+    if optimizer_state is None:
+        optimizer_state = optimizer_state_dict(state)
     return {
         "model": _to_cpu({k: v for k, v in sd.items() if k in params}),
         "batch_stats": _to_cpu({k: v for k, v in sd.items() if k not in params}),
-        "optimizer": _to_cpu(state.optimizer.state_dict()),
+        "optimizer": _to_cpu(optimizer_state),
         "step": int(state.step),
         "config_str": config.to_json(),
         "data_state": (data_state or IteratorState()).to_dict(),
@@ -94,11 +107,16 @@ def save_checkpoint(
     config: Config,
     data_state: Optional[IteratorState] = None,
     keep: Optional[int] = None,
+    optimizer_state: Optional[dict] = None,
 ) -> str:
     """Write ``checkpoint_<step>.pt``; with `keep`, remove all but the newest
-    `keep` checkpoints of `log_dir`."""
+    `keep` checkpoints of `log_dir`.  Under the gate split the file holds
+    the full state, as the one-process trainer's at the same step:
+    parameters gathered, and the optimizer's moments gathered unless
+    `optimizer_state` (`optimizer_state_dict`'s, taken on every rank of the
+    model group) is given."""
     os.makedirs(log_dir, exist_ok=True)
-    payload = _payload(state, config, data_state)
+    payload = _payload(state, config, data_state, optimizer_state)
     path = os.path.join(log_dir, CKPT_PATTERN % payload["step"])
     _write(payload, path, keep)
     return path
@@ -128,12 +146,14 @@ class AsyncCheckpointer:
         config: Config,
         data_state: Optional[IteratorState] = None,
         keep: Optional[int] = None,
+        optimizer_state: Optional[dict] = None,
     ) -> str:
         """Start writing ``checkpoint_<step>.pt`` (pruning to the newest
-        `keep`, as `save_checkpoint`); returns its path."""
+        `keep`, and with `optimizer_state`, as `save_checkpoint`); returns
+        its path."""
         self.wait()
         os.makedirs(log_dir, exist_ok=True)
-        payload = _payload(state, config, data_state)
+        payload = _payload(state, config, data_state, optimizer_state)
         path = os.path.join(log_dir, CKPT_PATTERN % payload["step"])
 
         def _run():
@@ -229,16 +249,27 @@ def restore_train_state(
     name matches `reinit_layers` (reference `set_init_dict`,
     `utils/generic_utils.py:647-679`); running statistics, optimizer state
     and step stay fresh in that case.
+
+    Under the gate split (``state.shards``) the payload is the full state, as
+    any checkpoint is: the parameters go to the module and are sliced to the
+    owned shards, and so is the optimizer's state.
     """
+    state.gather_()  # a partial restore keeps the rest of the current parameters
     if partial:
         partial_restore(state.model, payload["model"], reinit_layers)
+        if state.shards is not None:
+            state.shards.load_from_model_()
         return state, IteratorState()
     sd = {**payload["model"], **payload["batch_stats"]}
     bad = _shape_mismatches(sd, state.model)
     if bad:
         raise ValueError("checkpoint does not fit the model: " + "; ".join(bad))
     state.model.load_state_dict(sd)
-    state.optimizer.load_state_dict(payload["optimizer"])
+    if state.shards is None:
+        state.optimizer.load_state_dict(payload["optimizer"])
+    else:
+        state.shards.load_from_model_()
+        state.shards.load_full_optimizer_state_dict(state.optimizer, payload["optimizer"])
     state.step = int(payload["step"])
     data_state = IteratorState.from_dict(payload.get("data_state", IteratorState().to_dict()))
     return state, data_state

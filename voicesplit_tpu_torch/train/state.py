@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List
+from typing import Any, List, Optional
 
 import torch
 from torch import nn
@@ -31,11 +31,23 @@ EPS = 1e-8
 @dataclass
 class TrainState:
     """What a train step updates: the update count, the model (parameters
-    and BatchNorm running statistics) and the optimizer (Adam moments)."""
+    and BatchNorm running statistics) and the optimizer (Adam moments).
+    Under the gate split (`parallel.shard_train_state` with
+    ``model_parallel``) `shards` holds this process's slices of the split
+    parameters (`parallel.sharding.ModelShards`), which the optimizer steps,
+    and the model's parameters are their gathered working copy."""
 
     step: int
     model: nn.Module
     optimizer: torch.optim.Optimizer
+    shards: Optional[Any] = None
+
+    def gather_(self) -> None:
+        """Bring the model's parameters up to date from the slices (a
+        collective over the model group under the gate split; every rank of
+        it must call it); nothing without the split."""
+        if self.shards is not None:
+            self.shards.gather_()
 
 
 def decays(name: str) -> bool:

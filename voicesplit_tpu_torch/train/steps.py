@@ -38,11 +38,18 @@ before the global norm and the clipping: every rank then clips by the same
 norm, takes the same Adam step and reports the same metrics.  (The
 train-mode BatchNorm inside the model sums its statistics over the ranks
 itself.)  With no group nothing is reduced.
+
+The gate split (``state.shards``, `parallel/sharding.py`): the step first
+gathers the full parameters from the slices, runs the forward and backward on
+them, takes the data group's mean of the loss and gradients, and the global
+norm and the clipping of the full gradient; then each split parameter's
+gradient is cut to the owned slices, and the optimizer steps the slices and
+the replicated parameters.  The eval step gathers first too.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Mapping
+from typing import Callable, Dict, List, Mapping, Optional
 
 import torch
 from torch import nn
@@ -117,6 +124,7 @@ def make_train_step(
         if state.model is not model or state.optimizer is not optimizer:
             raise ValueError("the state carries another model or optimizer than this step's")
         b = _to_device(batch, ap.device)
+        state.gather_()
         model.train()
         optimizer.zero_grad(set_to_none=True)
         mixed_spec, mixed_phase = ap.wav2spec_batch(b["mixed_wav"])
@@ -144,9 +152,13 @@ def make_train_step(
         grad_norm = global_norm(grads)
         if tc.grad_clip_norm:
             clip_by_global_norm_(grads, grad_norm, tc.grad_clip_norm)
+        if state.shards is not None:
+            state.shards.scatter_grads_()
         for group in optimizer.param_groups:
             group["lr"] = learning_rate(config, state.step)
         optimizer.step()
+        if state.shards is not None:
+            state.shards.stale = True
         state.step += 1
         return {
             "loss": loss,
@@ -158,9 +170,9 @@ def make_train_step(
 
 
 def mean_over_ranks_(loss: torch.Tensor, grads: List[torch.Tensor]) -> torch.Tensor:
-    """The mean over ranks of `loss` and of every gradient: one fp32 buffer
-    summed by the collective and divided by the world size; `grads` are
-    overwritten with their means, and the mean loss is returned."""
+    """The mean over the data group's ranks of `loss` and of every gradient:
+    one fp32 buffer summed by the collective and divided by the group's size;
+    `grads` are overwritten with their means, and the mean loss is returned."""
     flat = torch.cat([loss.reshape(1), *(g.reshape(-1).float() for g in grads)])
     flat /= sum_over_ranks_(flat)
     offset = 1
@@ -201,15 +213,19 @@ def make_multi_train_step(
 
 
 def make_eval_step(
-    config: Config, model: nn.Module, ap: AudioProcessor
+    config: Config, model: nn.Module, ap: AudioProcessor, state: Optional[TrainState] = None
 ) -> Callable[[Batch], Metrics]:
     """``batch -> metrics + artifacts``: the configured loss, SI-SNR of the
     mixed-phase inversion per item (the reference's fast eval,
     `utils/generic_utils.py:531-558`), and the mask and specs.  Runs the
-    model in eval mode and restores its mode after."""
+    model in eval mode and restores its mode after.  Given the `state` that
+    trains `model`, it first gathers the gate split's slices (a no-op
+    without the split, or where nothing moved since the last gather)."""
 
     def eval_step(batch: Batch) -> Metrics:
         b = _to_device(batch, ap.device)
+        if state is not None:
+            state.gather_()
         was_training = model.training
         model.eval()
         try:

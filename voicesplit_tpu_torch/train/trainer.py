@@ -40,18 +40,25 @@ head.
 
 Several processes (`parallel/`): once a process group is initialized
 (`parallel.initialize_distributed`) every rank builds the same `Trainer`;
-``mesh`` is a data-only `parallel.make_mesh` over the ranks (the default).
-``batch_size`` is the per-process batch, so the global batch is
-``batch_size × world``; the train loader gives each rank its shard
-(``shard_id=rank, num_shards=world``); the initial state is rank 0's,
+``mesh`` is a `parallel.make_mesh` over the ranks, ``(world / model_parallel,
+model_parallel)`` by default.  ``batch_size`` is the batch of one data row
+(the ranks of a model group share their rows), so the global batch is
+``batch_size × data``; the train loader gives each rank its data row's shard
+(``shard_id=rank // model, num_shards=data``); the initial state is rank 0's,
 broadcast; the step sums the BatchNorm statistics and the gradients over the
-ranks (`train/steps.py`), so every rank holds the same weights after each
-step and the guard sees the same loss on every rank.  Logs, validation and
+data group (`train/steps.py`), so every rank holds the same weights after
+each step and the guard sees the same loss on every rank.  With
+``model_parallel > 1`` (the gate split, `parallel/sharding.py`) each rank
+owns its slices of the split parameters and of their Adam moments, and
+gathers the full parameters before each step; it needs a world of a multiple
+of ``model_parallel`` processes, so one process raises ``ValueError``, as
+the JAX package cannot build that mesh on one device.  Logs, validation and
 checkpoints come from rank 0 only, every rank taking part in the collectives
-around them; a preemption request on any rank is agreed by an all-gather at
-the guard's cadence, so all ranks stop at the same step.  Throughput counts
-the global batch.  ``model_parallel > 1`` (the gate split) is not yet ported
-and raises.
+around them (the gathers of the split state among them: the checkpoint holds
+the full state, the one-process trainer's file at the same step); a
+preemption request on any rank is agreed by an all-gather at the guard's
+cadence, so all ranks stop at the same step.  Throughput counts the global
+batch.
 """
 
 from __future__ import annotations
@@ -85,6 +92,7 @@ from voicesplit_tpu_torch.parallel.sharding import put_batch, shard_train_state
 from voicesplit_tpu_torch.train.checkpoint import (
     AsyncCheckpointer,
     load_checkpoint,
+    optimizer_state_dict,
     restore_train_state,
     save_checkpoint,
 )
@@ -152,13 +160,20 @@ class Trainer:
         async_checkpoint: bool = True,
         device: DeviceLike = None,
     ):
-        mesh = mesh or make_mesh(model=1)
-        if model_parallel > 1 or mesh.model > 1:
-            raise NotImplementedError("model_parallel > 1 (the gate split) is not yet ported")
-        if mesh.size != world_size():
-            raise ValueError(f"a mesh of {mesh.size} ranks for a world of {world_size()}")
+        world = world_size()
+        if model_parallel > 1 and world % model_parallel:
+            raise ValueError(
+                f"model_parallel={model_parallel} needs a world of a multiple of "
+                f"{model_parallel} processes; the world has {world}")
+        mesh = mesh or make_mesh(model=model_parallel)
+        if model_parallel > 1 and mesh.model != model_parallel:
+            raise ValueError(f"model_parallel={model_parallel} with a mesh of model={mesh.model}")
+        if mesh.size != world:
+            raise ValueError(f"a mesh of {mesh.size} ranks for a world of {world}")
         self.mesh = mesh
-        self.rank, self.world = rank(), world_size()
+        self.rank, self.world = rank(), world
+        self.model_parallel = mesh.model > 1
+        data_index = mesh.coords(self.rank)[0]
         self.config = config
         self.log_dir = log_dir or config.train_config.logs_path
         self.ap: AudioProcessor = make_audio_processor(config, device=device)
@@ -174,7 +189,7 @@ class Trainer:
             ds = SeparationDataset(samples, self.ap, config.audio.audio_len, config.model.emb_dim)
             train_loader = make_train_iterator(
                 ds, config.train_config.batch_size, seed=config.train_config.seed,
-                shard_id=self.rank, num_shards=self.world,
+                shard_id=data_index, num_shards=mesh.data,
                 n_threads=max(2, config.train_config.num_workers),
             )
         self.train_loader = train_loader
@@ -200,14 +215,14 @@ class Trainer:
                 if data_state is not None:
                     self.train_loader.load_state(data_state)
                 print(f" > Resumed checkpoint step {int(payload['step'])}")
-        self.state: TrainState = shard_train_state(state, self.mesh)
+        self.state: TrainState = shard_train_state(state, self.mesh, self.model_parallel)
 
-        self.train_step = make_train_step(config, self.model, self.ap, optimizer)
-        self.eval_step = make_eval_step(config, self.model, self.ap)
+        self.train_step = make_train_step(config, self.model, self.ap, self.state.optimizer)
+        self.eval_step = make_eval_step(config, self.model, self.ap, self.state)
         self.logger = MetricsLogger(self.log_dir, self.ap.sample_rate, enable_tb=enable_tb,
                                     enabled=self.rank == 0)
         self._audio_seconds_per_batch = (
-            config.train_config.batch_size * config.audio.audio_len * self.world)
+            config.train_config.batch_size * config.audio.audio_len * mesh.data)
         self._prefetch_depth = prefetch_depth
         self._prefetch: Optional[DevicePrefetcher] = None  # built lazily at
         # fit() so checkpoint restore above can rewind the loader before
@@ -266,19 +281,26 @@ class Trainer:
         return put_batch(self.mesh, batch, self.device)
 
     def _checkpoint(self, run_eval: bool, step: int, compute_sdr: bool, max_eval_items):
-        """Save (optionally + eval), from rank 0 only."""
+        """Save (optionally + eval), from rank 0 only; under the gate split
+        every rank first gathers the full state with the others."""
+        t0 = time.perf_counter()
+        optimizer_state = None
+        if self.state.shards is not None:
+            self.state.gather_()
+            optimizer_state = optimizer_state_dict(self.state)
         if self.rank != 0:
             return
-        t0 = time.perf_counter()
         data_state = (
             self._prefetch.state if self._prefetch is not None else self.train_loader.state
         )
         if self._ckpt_writer is not None:
             # serialization + disk write overlap the next train steps;
             # fit() flushes the writer before returning
-            path = self._ckpt_writer.save(self.log_dir, self.state, self.config, data_state)
+            path = self._ckpt_writer.save(self.log_dir, self.state, self.config, data_state,
+                                          optimizer_state=optimizer_state)
         else:
-            path = save_checkpoint(self.log_dir, self.state, self.config, data_state)
+            path = save_checkpoint(self.log_dir, self.state, self.config, data_state,
+                                   optimizer_state=optimizer_state)
         print(f"Saved checkpoint to: {path}")
         self.wall_seconds["checkpoint"] += time.perf_counter() - t0
         if run_eval:
@@ -288,6 +310,7 @@ class Trainer:
         """The step counter, model (parameters and BatchNorm statistics) and
         optimizer state, copied on their device."""
         st = self.state
+        st.gather_()  # the step would gather first anyway
         return (st.step, {k: v.detach().clone() for k, v in st.model.state_dict().items()},
                 copy.deepcopy(st.optimizer.state_dict()))
 
@@ -300,6 +323,8 @@ class Trainer:
         st = self.state
         st.step, model_sd, opt_sd = pre_step
         st.model.load_state_dict(model_sd)
+        if st.shards is not None:
+            st.shards.load_from_model_()
         st.optimizer.load_state_dict(opt_sd)
         st.optimizer.zero_grad(set_to_none=True)  # the failed step's gradients
         try:
@@ -317,6 +342,7 @@ class Trainer:
                 "without a non-finite intermediate")
 
     def _validate(self, step: int, compute_sdr: bool, max_eval_items) -> None:
+        self.state.gather_()  # every rank: a collective under the gate split
         if self.rank != 0:
             return
         t0 = time.perf_counter()

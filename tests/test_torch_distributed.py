@@ -88,14 +88,15 @@ def _batch(B: int, seed: int = 0) -> dict:
     }
 
 
-def _run_ranks(argv_of_rank, timeout=TIMEOUT):
-    """Spawns one worker a rank; returns their outputs once all exit 0."""
+def _run_ranks(argv_of_rank, timeout=TIMEOUT, world=WORLD):
+    """Spawns one worker a rank, two threads each (as this file's tests
+    run); returns their outputs once all exit 0."""
     port = _free_port()
     env = {**os.environ, "PYTHONPATH": str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""),
            "OMP_NUM_THREADS": "2"}
     procs = [subprocess.Popen(argv_of_rank(r, port), stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True, env=env, cwd=str(REPO))
-             for r in range(WORLD)]
+             for r in range(world)]
     outs = []
     try:
         for p in procs:

@@ -7,17 +7,15 @@ CLI with ``--model_parallel 2`` in two processes.  The config is
 """
 
 import json
-import os
 import pathlib
 import shutil
-import subprocess
 import sys
 
 import numpy as np
 import pytest
 import torch
 
-from test_torch_distributed import ROWS, _batch, _config_text, _free_port
+from test_torch_distributed import ROWS, _batch, _config_text, _run_ranks
 from voicesplit_tpu_torch.config import load_config_from_str
 from voicesplit_tpu_torch.data.synthetic import build_synthetic_dataset
 from voicesplit_tpu_torch.dsp.processor import make_audio_processor
@@ -28,7 +26,6 @@ from voicesplit_tpu_torch.weights import init_random_
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 WORKER = REPO / "tests" / "torch_dist_worker.py"
-TIMEOUT = 300  # seconds a worker may take
 STEPS = 2
 
 
@@ -38,28 +35,6 @@ def _few_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(before)
-
-
-def _run_ranks(world, argv_of_rank, timeout=TIMEOUT, threads=1):
-    """Spawns one worker a rank; returns their outputs once all exit 0."""
-    port = _free_port()
-    env = {**os.environ, "PYTHONPATH": str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""),
-           "OMP_NUM_THREADS": str(threads)}
-    procs = [subprocess.Popen(argv_of_rank(r, port), stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True, env=env, cwd=str(REPO))
-             for r in range(world)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=timeout)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} failed:\n{out[-4000:]}"
-    return outs
 
 
 @pytest.fixture(scope="module")
@@ -75,10 +50,10 @@ def setup(tmp_path_factory):
 
 def _steps(setup, tmp_path, world, model_axis, tag):
     outs = [tmp_path / f"{tag}{r}.npz" for r in range(world)]
-    _run_ranks(world, lambda r, port: [
+    _run_ranks(lambda r, port: [
         sys.executable, str(WORKER), str(r), str(world), str(port), "step", str(outs[r]),
         str(setup / "config.json"), str(setup / "weights.pt"), str(setup / "batch.npz"),
-        "unfused", str(model_axis), str(STEPS)])
+        "unfused", str(model_axis), str(STEPS)], world=world)
     return [dict(np.load(p)) for p in outs]
 
 
@@ -139,11 +114,11 @@ def test_cli_model_parallel_in_two_processes(tmp_path):
     config = tmp_path / "config.json"
     config.write_text(json.dumps(text))
     logs = [tmp_path / f"logs{r}" for r in range(2)]
-    outs = _run_ranks(2, lambda r, port: [
+    outs = _run_ranks(lambda r, port: [
         sys.executable, "-m", "voicesplit_tpu_torch.cli.train", "-c", str(config),
         "--logs_path", str(logs[r]), "--max_steps", "2", "--device", "cpu",
         "--coordinator", f"localhost:{port}", "--num_processes", "2", "--process_id", str(r),
-        "--model_parallel", "2"], threads=torch.get_num_threads())
+        "--model_parallel", "2"])
     assert all("'step': 2" in out for out in outs), outs
     assert not logs[1].exists()
     (split_ckpt,) = list_checkpoints(str(logs[0]))
@@ -155,8 +130,8 @@ def test_cli_model_parallel_in_two_processes(tmp_path):
                                    create_train_state(model, make_optimizer(cfg, model)))
     assert state.step == 2
     # one process over the same logs path (the checkpoint holds the config,
-    # logs path included), with the ranks' thread count (the CPU's
-    # reductions split their sums by thread)
+    # logs path included), with the ranks' two threads (the CPU's reductions
+    # split their sums by thread)
     shutil.rmtree(logs[0])
     assert train_cli.main(["-c", str(config), "--logs_path", str(logs[0]), "--max_steps", "2",
                            "--device", "cpu"])["step"] == 2

@@ -15,6 +15,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from test_torch_model_parallel import HOP, L, SR, _batch
 from voicesplit_tpu.models.masknet import MaskNet as JaxMaskNet
 from voicesplit_tpu_torch import weights
 from voicesplit_tpu_torch.cli import train as train_cli
@@ -28,9 +29,6 @@ from voicesplit_tpu_torch.train.checkpoint import list_checkpoints, load_checkpo
 from voicesplit_tpu_torch.train.trainer import Trainer
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-HOP, FRAMES = 32, 40
-L = HOP * FRAMES
-SR = 16000
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -55,17 +53,6 @@ def _config_text(channels=8, causal=False, root=None):
                                  check_interval=1, checkpoint_interval=2)
         d["dataset"].update(train_dir=str(root / "train"), test_dir=str(root / "test"))
     return json.dumps(d)
-
-
-def _batch(B, seed):
-    rng = np.random.default_rng(seed)
-    t = np.arange(L) / SR
-    target = 0.2 * np.sin(2 * np.pi * rng.uniform(100, 300, (B, 1)) * t)
-    mixed = target + 0.2 * np.sin(2 * np.pi * rng.uniform(400, 900, (B, 1)) * t)
-    mixed += 0.02 * rng.standard_normal((B, L))
-    return {"mixed_wav": mixed.astype(np.float32), "target_wav": target.astype(np.float32),
-            "emb": rng.standard_normal((B, 16)).astype(np.float32),
-            "wav_len": np.full((B,), L, np.int32)}
 
 
 # route: (switches, conv channels, causal convs, streaming LSTM).  The chain

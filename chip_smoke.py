@@ -193,7 +193,8 @@ Phases, each printing one JSON line:
    (T=80, H=768, the grid route) and at CorentinJ's 32 partials (T=160,
    H=256, the cluster walk), ``lstm_bwd`` at 96 rows (the grid route),
    each against its plain version (TOL, the same bits twice), timed beside
-   its bound at this T and cuDNN's fp32 ``torch.nn.LSTM``; (b) GE2E
+   its bound at this T and cuDNN's fp32 ``torch.nn.LSTM``, the backward's
+   dW_hh kernel alone beside one fp32 ``torch.matmul`` of its product; (b) GE2E
    training through `train_ge2e` (N=16 x M=6, Adam, clip 3.0) on a
    synthetic corpus of ENCODER_SPEAKERS x ENCODER_UTTERANCES voices:
    exactly 3 ``lstm_fwd`` and 3 ``lstm_bwd`` a step on the grid routes,
@@ -3226,8 +3227,9 @@ def _encoder_kernels(torch, lstm_cuda, seed: int) -> dict:
     shape, fp32, against their plain versions on the card (TOL, the same
     bits twice, the route), timed beside the bound (this T) and cuDNN's fp32
     `torch.nn.LSTM` (TF32 off) over the layer's input (H wide: the upper
-    layers'), as a yardstick.  The forward also at the training CLI's
-    held-out EER batch, its rows as the CLI counts them."""
+    layers'), as a yardstick, and the backward's dW_hh kernel alone beside
+    `_matmul_dwhh_ms`.  The forward also at the training CLI's held-out EER
+    batch, its rows as the CLI counts them."""
     from voicesplit_tpu_torch.cli.train_encoder import eval_rows
 
     g = torch.Generator(device="cpu").manual_seed(seed + 15)
@@ -3251,9 +3253,20 @@ def _encoder_kernels(torch, lstm_cuda, seed: int) -> dict:
     out["lstm_bwd_ge2e_train"] = {
         "fp32": entry["float32"], "T": T, "rows": R, "H": H, "route": route, "grid": cfg,
         "library_ms": _cudnn_lstm_bwd_ms(torch, g, 1, R, H, "float32", T, H),
+        "dwhh_ms": entry["float32"]["dwhh_ms"], "dwhh_library_ms": _matmul_dwhh_ms(torch, g, R, H, T),
         **lstm_bwd_bound(1, R, "float32", H, T)}
     emit("encoder kernels", kernel="lstm_bwd", shape="ge2e_train", **out["lstm_bwd_ge2e_train"])
     return out
+
+
+def _matmul_dwhh_ms(torch, g, rows: int, H: int, T: int) -> float:
+    """Yardstick of the dW_hh kernel alone: one fp32 `torch.matmul` (TF32
+    off) of the same product, h_prev^T [H, T rows] times dgates [T rows, 4H]."""
+    dev = torch.device("cuda")
+    hp = torch.randn(H, T * rows, generator=g).to(dev)
+    dg = torch.randn(T * rows, 4 * H, generator=g).to(dev)
+    with torch.inference_mode():
+        return time_ms(torch, lambda: torch.matmul(hp, dg), iters=20)
 
 
 def phase_encoder(torch, lstm_cuda, seed: int, profile_dir, tmp: Path) -> tuple:
@@ -3284,7 +3297,8 @@ def phase_encoder(torch, lstm_cuda, seed: int, profile_dir, tmp: Path) -> tuple:
 
     kernels = _encoder_kernels(torch, lstm_cuda, seed)
     report = {"kernels": {k: {"ms": v["fp32"]["ms"], "bound_ms": v["bound_ms"],
-                              "library_ms": v["library_ms"], "max_abs_err": v["fp32"]["max_abs_err"]}
+                              "library_ms": v["library_ms"], "max_abs_err": v["fp32"]["max_abs_err"],
+                              **{x: v[x] for x in ("dwhh_ms", "dwhh_library_ms") if x in v}}
                           for k, v in kernels.items()}}
     config = Config()
     ap = make_audio_processor(config)
@@ -4519,7 +4533,7 @@ PORT_KERNEL_KINDS = (
                                       "reduce_taps_kernel")),
     ("lstm kernels", ("lstm_fwd_kernel", "lstm_fwd_split_kernel", "lstm_fwd_grid_kernel",
                       "lstm_bwd_kernel", "lstm_bwd_split_kernel", "lstm_bwd_grid_kernel",
-                      "lstm_dwhh_kernel")),
+                      "lstm_dwhh_kernel", "lstm_dwhh_f32_kernel")),
 )
 # NCCL's kernels (`ncclDevKernel_*`, `ncclKernel_*`) first, cuDNN's
 # implicit-GEMM convs before the matmuls (their names hold "gemm"), and
@@ -4932,7 +4946,8 @@ def main(argv=None) -> int:
             "max_abs_err_fp32": r["fp32"]["max_abs_err"] if "fp32" in r else None,
             "ms": r.get("bf16", r.get("fp32"))["ms"], "plain_ms": r.get("bf16", r.get("fp32"))["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("timed_at", "ms_by_batch_and_layer", "row_groups") if k in r},
+            **{k: r[k] for k in ("timed_at", "ms_by_batch_and_layer", "row_groups", "dwhh_ms",
+                                 "dwhh_library_ms") if k in r},
         }
         for name, r in kern.items()
     ]

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where a step of the port's forward LSTM walks spends its cycles, on the card.
 
-    python3 scripts/port_lstm_phases.py [--root DIR] [--work DIR] [--tag NAME] [--walks cluster,split,split_bwd]
+    python3 scripts/port_lstm_phases.py [--root DIR] [--work DIR] [--tag NAME]
+        [--walks cluster,split,split_bwd,grid,grid_bwd]
 
 Copies DIR's `voicesplit_tpu_torch` (default: this checkout's) into WORK
 (default: ``compare/phases-<tag>``, git-ignored), adds ``clock64()``
@@ -55,6 +56,23 @@ writes to the global slot) of block 0 and thread 0 of block 16:
 - ``stage``: the partials into shared memory and the __syncthreads after;
 - ``send``: sending them (warps 0-7 by st.async, 8-11 to the global slot,
   then the counter) and loading the next step's inputs.
+
+The grid routes (``lstm_fwd_grid_kernel``: ``lstm_fwd`` at [80, 96], [80,
+32] and [80, 16], H=768, fp32, the GE2E encoder's shapes;
+``lstm_bwd_grid_kernel``: ``lstm_bwd`` at [80, 96], H=768, fp32, on the
+plain forward's outputs), thread 0 and thread 255 of block 0, cycles a
+step of:
+
+- ``stage``: staging the step's row operand (h[t-1], or dgates[t+1]) into
+  shared memory, with the waits and barriers that complete it (after the
+  redesign: issuing the copies, and waiting for those the product has not
+  hidden);
+- ``product``: the product over the staged rows and, before the redesign,
+  the barriers after it;
+- ``cell``: the cell update (forward) or the dgates of the block's units
+  (backward), after the redesign with the warps' partials and their
+  barriers;
+- ``barrier``: the grid-wide barrier that ends the step.
 
 The counters are patched into the copy at fixed places of each walk's
 source (the script stops if one is not found), so they time the tree as it
@@ -186,6 +204,135 @@ extern "C" int lstm_fwd_split_phases(unsigned long long* host) {
 """
 
 
+GRID_CASES = ((80, 96), (80, 32), (80, 16))  # (T, rows) of lstm_fwd at GRID_HIDDEN, fp32
+GRID_BWD_CASES = ((80, 96),)                 # the same of lstm_bwd
+GRID_HIDDEN = 768
+GRID_PHASES = ("stage", "product", "cell", "barrier")
+GRID_READER = """
+extern "C" int {name}_phases(unsigned long long* host) {{
+  return cudaMemcpyFromSymbol(host, g_{name}, sizeof(unsigned long long) * 8);
+}}
+"""
+# the end of a grid kernel's step: the barrier, then the counters of thread
+# 0 (slots 0-3) and thread 255 (slots 4-7) of block 0 into g_<name>
+_GRID_STORE = ("    gp[3] += clock64() - td_;\n    gp[4] += 1;\n  }}\n"
+               "  if (blockIdx.x == 0 && (threadIdx.x == 0 || threadIdx.x == 255)) {{\n"
+               "    const int at_ = threadIdx.x == 0 ? 0 : 4;\n"
+               "    for (int i = 0; i < 4; ++i) g_{name}[at_ + i] = gp[i] / (gp[4] ? gp[4] : 1);\n  }}\n")
+# the grid routes before their redesign (the port's first designs): h[t-1]
+# or dgates[t+1] staged by plain loads in row chunks, each chunk staged,
+# then multiplied
+GRID_FIRST = {
+    "lstm_fwd_grid": (("lstm_fwd_grid_kernel(const T* __restrict__ xp", "// Launches"), (
+        ("  const int group = tid / kLanes, lane = tid % kLanes;\n  for (int t = 0; t < T_; ++t) {\n",
+         "  const int group = tid / kLanes, lane = tid % kLanes;\n  unsigned long long gp[5] = {0, 0, 0, 0, 0};\n"
+         "  for (int t = 0; t < T_; ++t) {\n"),
+        ("      for (int e = tid; e < rc * H; e += kThreads) {\n",
+         "      long long ta_ = clock64();\n      for (int e = tid; e < rc * H; e += kThreads) {\n"),
+        ("        h_s[e] = round_to<T>(h);\n      }\n      __syncthreads();\n",
+         "        h_s[e] = round_to<T>(h);\n      }\n      __syncthreads();\n      long long tb_ = clock64();\n"
+         "      gp[0] += tb_ - ta_;\n"),
+        ("        if (active && lane == 0) pre_s[size_t(r0) * G + o] = acc;\n      }\n      __syncthreads();\n",
+         "        if (active && lane == 0) pre_s[size_t(r0) * G + o] = acc;\n      }\n      __syncthreads();\n"
+         "      gp[1] += clock64() - tb_;\n"),
+        ("    for (int e = tid; e < R * U; e += kThreads) {\n      const int r = e / U, u = e % U, j = u0 + u;\n"
+         "      if (j >= H) continue;\n      const size_t row = size_t(t) * R + r;\n      const T* x",
+         "    long long tc_ = clock64();\n"
+         "    for (int e = tid; e < R * U; e += kThreads) {\n      const int r = e / U, u = e % U, j = u0 + u;\n"
+         "      if (j >= H) continue;\n      const size_t row = size_t(t) * R + r;\n      const T* x"),
+        ("    grid.sync();  // the whole h[t] is visible before step t + 1 reads it\n  }\n",
+         "    long long td_ = clock64();\n    grid.sync();  // the whole h[t] is visible before step t + 1 reads it\n"
+         "    gp[2] += td_ - tc_;\n" + _GRID_STORE.format(name="lstm_fwd_grid")),
+    )),
+    "lstm_bwd_grid": (("lstm_bwd_grid_kernel(const T* __restrict__ w0", "// Launches"), (
+        ("  // s is the step whose dgates are staged; t = s - 1 is the step computed\n",
+         "  unsigned long long gp[5] = {0, 0, 0, 0, 0};\n  long long tc_ = 0;\n"
+         "  // s is the step whose dgates are staged; t = s - 1 is the step computed\n"),
+        ("        for (int e = tid; e < words; e += kThreads) dst[e] = __ldcg(src + e);\n        __syncthreads();\n",
+         "        long long ta_ = clock64();\n"
+         "        for (int e = tid; e < words; e += kThreads) dst[e] = __ldcg(src + e);\n        __syncthreads();\n"
+         "        long long tb_ = clock64();\n        gp[0] += tb_ - ta_;\n"),
+        ("        __syncthreads();  // before the next chunk overwrites dg_s\n",
+         "        __syncthreads();  // before the next chunk overwrites dg_s\n        gp[1] += clock64() - tb_;\n"),
+        ("    // step t = s - 1: own units' columns of dgates[t]\n",
+         "    tc_ = clock64();\n    // step t = s - 1: own units' columns of dgates[t]\n"),
+        ("    grid.sync();  // the whole dgates[t] is in dxp before any block stages it\n  }\n",
+         "    long long td_ = clock64();\n"
+         "    grid.sync();  // the whole dgates[t] is in dxp before any block stages it\n"
+         "    gp[2] += td_ - tc_;\n" + _GRID_STORE.format(name="lstm_bwd_grid")),
+    )),
+}
+
+# the redesigned grid routes: the row operand (h[t-1], dgates[t+1]) streamed
+# in chunks of k by cp.async, a register-tiled product, the warps' partials
+# added in the cell update (lstm_grid.cuh)
+GRID_REDESIGN = {
+    "lstm_fwd_grid": (("lstm_fwd_grid_kernel(const T* __restrict__ xp", "// Launches"), (
+        ("  const int chunks = (H + kGridKC - 1) / kGridKC;\n",
+         "  const int chunks = (H + kGridKC - 1) / kGridKC;\n  unsigned long long gp[5] = {0, 0, 0, 0, 0};\n"),
+        ("          grid_stage<float>(a_s, RB, src, H, rows, 0, H, vec, w0);\n          cp_async_commit();\n",
+         "          long long ts_ = clock64();\n          grid_stage<float>(a_s, RB, src, H, rows, 0, H, vec, w0);\n"
+         "          cp_async_commit();\n          gp[0] += clock64() - ts_;\n"),
+        ("            cp_async_wait<0>();\n",
+         "            long long ta_ = clock64();\n            cp_async_wait<0>();\n"),
+        ("              cp_async_commit();\n            }\n            const int nq",
+         "              cp_async_commit();\n            }\n            long long tb_ = clock64();\n"
+         "            gp[0] += tb_ - ta_;\n            const int nq"),
+        ("            grid_product<kGridLR>(acc, a_s + (ch & 1) * RB * LDA, w + ch * kGridKC, LDW, Uc, nq);\n",
+         "            grid_product<kGridLR>(acc, a_s + (ch & 1) * RB * LDA, w + ch * kGridKC, LDW, Uc, nq);\n"
+         "            gp[1] += clock64() - tb_;\n"),
+        ("          __syncthreads();  // every warp is done with the chunks, whose bytes take the partials\n",
+         "          long long tc_ = clock64();\n"
+         "          __syncthreads();  // every warp is done with the chunks, whose bytes take the partials\n"),
+        ("          __syncthreads();  // the partials read before the next pass stages into their bytes\n",
+         "          __syncthreads();  // the partials read before the next pass stages into their bytes\n"
+         "          gp[2] += clock64() - tc_;\n"),
+        ("    grid.sync();  // the whole h[t] is visible before step t + 1 reads it\n  }\n",
+         "    long long td_ = clock64();\n    grid.sync();  // the whole h[t] is visible before step t + 1 reads it\n"
+         + _GRID_STORE.format(name="lstm_fwd_grid")),
+    )),
+    "lstm_bwd_grid": (("lstm_bwd_grid_kernel(const T* __restrict__ w0", "// Launches"), (
+        ("  const int chunks = (G4 + kGridKC - 1) / kGridKC;\n",
+         "  const int chunks = (G4 + kGridKC - 1) / kGridKC;\n  unsigned long long gp[5] = {0, 0, 0, 0, 0};\n"
+         "  long long tc_ = 0;\n"),
+        ("            stage(0);\n",
+         "            long long ts_ = clock64();\n            stage(0);\n            gp[0] += clock64() - ts_;\n"),
+        ("              cp_async_wait<0>();\n",
+         "              long long ta_ = clock64();\n              cp_async_wait<0>();\n"),
+        ("              if (ch + 1 < chunks) stage(ch + 1);\n",
+         "              if (ch + 1 < chunks) stage(ch + 1);\n              long long tb_ = clock64();\n"
+         "              gp[0] += tb_ - ta_;\n"),
+        ("              grid_product<kGridBwdLR>(acc, a_s + (ch & 1) * RB * LDA, w, LDW, Uc, nq);\n",
+         "              grid_product<kGridBwdLR>(acc, a_s + (ch & 1) * RB * LDA, w, LDW, Uc, nq);\n"
+         "              gp[1] += clock64() - tb_;\n"),
+        ("            grid_partials<kGridBwdLR>(part, acc, RP, NCB, rows, Uc);\n",
+         "            tc_ = clock64();\n            grid_partials<kGridBwdLR>(part, acc, RP, NCB, rows, Uc);\n"),
+        ("            dx[3 * H + j] = from_float<T>(dout * o * (1.0f - o));\n          }\n",
+         "            dx[3 * H + j] = from_float<T>(dout * o * (1.0f - o));\n          }\n"
+         "          if (product) gp[2] += clock64() - tc_;\n"),
+        ("    if (s > 0) grid.sync();  // the whole dgates[t] is in dxp before any block stages it\n  }\n",
+         "    long long td_ = clock64();\n"
+         "    if (s > 0) grid.sync();  // the whole dgates[t] is in dxp before any block stages it\n"
+         + _GRID_STORE.format(name="lstm_bwd_grid")),
+    )),
+}
+
+
+def patch_grid(src: Path, name: str) -> None:
+    """Patches the counters into the grid route `name` of `src`, whichever
+    of its designs the tree holds."""
+    text = src.read_text()
+    for designs in (GRID_FIRST, GRID_REDESIGN):
+        region, patches = designs[name]
+        if region[0] in text and all(text.count(old) >= 1 for old, _ in patches):
+            break
+    else:
+        raise SystemExit(f"port_lstm_phases: {src} holds no grid route this script patches")
+    anchor = "namespace cg = cooperative_groups;\n"
+    text = text.replace(anchor, anchor + f"__device__ unsigned long long g_{name}[8];\n", 1)
+    src.write_text(_patch_region(text, region, patches, src) + GRID_READER.format(name=name))
+
+
 def _patch_region(text: str, region, patches, src: Path) -> str:
     start = text.find(region[0])
     end = text.find(region[1], start)
@@ -249,7 +396,7 @@ def main(argv=None) -> int:
     parser.add_argument("--root", default=str(repo))
     parser.add_argument("--tag", default="this")
     parser.add_argument("--work", default=None)
-    parser.add_argument("--walks", default="cluster,split,split_bwd")
+    parser.add_argument("--walks", default="cluster,split,split_bwd,grid,grid_bwd")
     args = parser.parse_args(argv)
     walks = set(args.walks.split(","))
     work = Path(args.work or repo / "compare" / f"phases-{args.tag}").resolve()
@@ -258,6 +405,8 @@ def main(argv=None) -> int:
                     ignore=shutil.ignore_patterns("__pycache__"))
     has_split = patch(work / "voicesplit_tpu_torch" / "csrc" / "lstm_fwd.cu")
     has_bwd = patch_bwd(work / "voicesplit_tpu_torch" / "csrc" / "lstm_bwd.cu")
+    patch_grid(work / "voicesplit_tpu_torch" / "csrc" / "lstm_fwd.cu", "lstm_fwd_grid")
+    patch_grid(work / "voicesplit_tpu_torch" / "csrc" / "lstm_bwd.cu", "lstm_bwd_grid")
     sys.path.insert(0, str(work))
 
     import torch
@@ -273,6 +422,8 @@ def main(argv=None) -> int:
         lib.lstm_fwd_split_phases.argtypes = [ctypes.c_void_p]
     if has_bwd:
         lib.lstm_bwd_split_phases.argtypes = [ctypes.c_void_p]
+    lib.lstm_fwd_grid_phases.argtypes = [ctypes.c_void_p]
+    lib.lstm_bwd_grid_phases.argtypes = [ctypes.c_void_p]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     g = torch.Generator().manual_seed(0)
@@ -335,6 +486,33 @@ def main(argv=None) -> int:
                "kernel": name, "batch": B, "H": H, "dtype": "bfloat16", "ms_with_counters": ms}
         for i, who in enumerate(("block0_thread0", "block0_thread256", "block16_thread0")):
             out[f"cycles_a_step_{who}"] = dict(zip(BWD_PHASES, cycles[8 * i:8 * i + 6]))
+        print(json.dumps(out), flush=True)
+    grid_cases = [("grid", "lstm_fwd", T, R) for T, R in GRID_CASES if "grid" in walks]
+    grid_cases += [("grid_bwd", "lstm_bwd", T, R) for T, R in GRID_BWD_CASES if "grid_bwd" in walks]
+    for walk, name, T, R in grid_cases:
+        H, counts = GRID_HIDDEN, lstm_cuda.ROUTES if walk == "grid" else lstm_cuda.ROUTES_BWD
+        s = H ** -0.5
+        xp = (torch.randn(T, R, 4 * H, generator=g) * 0.5).cuda()
+        w = torch.empty(H, 4 * H).uniform_(-s, s, generator=g).cuda()
+        h0, c0, dhf, dcf = (torch.randn(R, H, generator=g).cuda() for _ in range(4))
+        if walk == "grid":
+            run = lambda: lstm_cuda.lstm_fwd(xp, w, h0, c0)  # noqa: E731
+        else:
+            dhs = torch.randn(T, R, H, generator=g).cuda()
+            with torch.inference_mode():
+                hs, cs, gates = lstm_cuda.lstm_fwd_ref(xp, w, h0, c0)
+            run = lambda: lstm_cuda.lstm_bwd(  # noqa: E731
+                w, gates, cs, hs, h0, c0, dhs, dhf, dcf, torch.float32)
+        routes = dict(counts)
+        ms = _timed(torch, run)
+        buf = (ctypes.c_ulonglong * 8)()
+        lstm_cuda._raise_on(getattr(lib, f"{name}_grid_phases")(ctypes.addressof(buf)), f"{name}_grid_phases")
+        cycles = list(buf)
+        out = {"tag": args.tag, "root": str(Path(args.root).resolve()), "nvidia_smi": smi, "walk": walk,
+               "route": [k for k, v in counts.items() if v != routes[k]], "kernel": name, "T": T,
+               "rows": R, "H": H, "dtype": "float32", "ms_with_counters": ms,
+               "cycles_a_step_thread0": dict(zip(GRID_PHASES, cycles[:4])),
+               "cycles_a_step_thread255": dict(zip(GRID_PHASES, cycles[4:]))}
         print(json.dumps(out), flush=True)
     return 0
 

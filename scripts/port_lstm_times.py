@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Times the PyTorch port's LSTM kernel wrappers on the card.
 
-    python3 scripts/port_lstm_times.py [--root DIR] [--tag NAME] [--iters 20] [--library]
-    python3 scripts/port_lstm_times.py --compare PARENT_DIR [--iters 20] [--library]
+    python3 scripts/port_lstm_times.py [--root DIR] [--tag NAME] [--iters 20] [--library] [--only SUBSTR,...]
+    python3 scripts/port_lstm_times.py --compare PARENT_DIR [--iters 20] [--library] [--only SUBSTR,...]
 
 Imports `voicesplit_tpu_torch` from DIR (default: this checkout) and builds
 its kernels there, so that an older tree unpacked with ``git archive`` into
@@ -22,17 +22,29 @@ shapes of their paths (T=301 frames, H=400 units unless said):
   ``bilstm_fwd`` at B=8 (the evaluation sweep's padded batch), ``lstm_bwd``
   at B=2 and ``bilstm_bwd`` at B=8, the backward on the plain forward's
   outputs;
+- the GE2E speaker encoder's shapes (fp32 only, H=768, T=80 frames):
+  ``lstm_fwd`` at 96 rows (a training step), 32 (an extraction batch) and
+  16 (the training CLI's held-out EER batch), ``lstm_bwd`` at 96 rows on
+  the plain forward's outputs (``encoder_*``);
 - for every entry the route it took (``<entry>/route``), where the tree
   counts routes;
 - where the tree has it, ``lstm_cuda.lstm_dwhh``, the dW_hh kernel that the
   two backward wrappers launch after their reverse walk, alone on the same
   inputs (``walk_ms`` is then the backward's time less it);
 
-with bf16 and fp32 operands.  ``--library`` adds cuDNN's ``torch.nn.LSTM``
-(bf16) over the model's LSTM input, forward and ``.backward()`` alone, which
-the port never calls (both also cover the input projection).  Each time is
-the mean of ``--iters`` calls after two warm ones, between CUDA events.
-Prints one JSON line with the card's name and power limit.
+with bf16 and fp32 operands (the encoder's entries fp32 only).
+``--library`` adds cuDNN's ``torch.nn.LSTM`` (bf16; the encoder's fp32
+with TF32 off, over an input H wide, as its upper layers take) over the
+model's LSTM input, forward and ``.backward()`` alone, which the port never
+calls (both also cover the input projection), and, beside each ``lstm_dwhh``
+time, one ``torch.matmul`` of the same product (``h_prev^T . dgates`` per
+direction, batched over directions; ``library_ms["<entry>/dwhh"]``) at the
+GE2E shape in fp32 and at B=2 and B=8 (H=400) in bf16.  ``--only`` keeps
+the entries whose name holds one of the comma-separated substrings.  Each time is
+the mean of ``--iters`` calls after two warm ones, between CUDA events,
+beside its bound (``bound_ms``: `chip_smoke.py`'s `lstm_bound`,
+`lstm_bwd_bound`, `lstm_dwhh_bound` at the entry's shape).  Prints one JSON
+line with the card's name and power limit.
 
 ``--compare PARENT_DIR`` runs the script four times in one call, each in a
 fresh process: the parent tree, this one, this one, the parent (tags
@@ -51,17 +63,59 @@ import time
 from pathlib import Path
 
 T_FRAMES, HIDDEN, WIDE, IN_FEATURES = 301, 400, 800, 8 * 601 + 256
-# name: (directions, rows a direction, hidden units)
-FORWARD = {"lstm_fwd_B1": (1, 1, HIDDEN), "lstm_fwd_B2": (1, 2, HIDDEN),
-           "bilstm_fwd_B8": (2, 8, HIDDEN), "bilstm_fwd_B24": (2, 24, HIDDEN),
-           "lstm_fwd_B1_H800": (1, 1, WIDE), "lstm_fwd_B2_H800": (1, 2, WIDE),
-           "bilstm_fwd_B8_H800": (2, 8, WIDE)}
-BACKWARD = {"lstm_bwd_B2": (1, 2, HIDDEN), "bilstm_bwd_B8": (2, 8, HIDDEN),
-            "bilstm_bwd_B24": (2, 24, HIDDEN),
-            "lstm_bwd_B2_H800": (1, 2, WIDE), "bilstm_bwd_B8_H800": (2, 8, WIDE)}
+# the GE2E speaker encoder's LSTM: frames a window, hidden units (fp32)
+ENCODER_FRAMES, ENCODER_HIDDEN = 80, 768
+# name: (directions, rows a direction, hidden units, frames)
+FORWARD = {"lstm_fwd_B1": (1, 1, HIDDEN, T_FRAMES), "lstm_fwd_B2": (1, 2, HIDDEN, T_FRAMES),
+           "bilstm_fwd_B8": (2, 8, HIDDEN, T_FRAMES), "bilstm_fwd_B24": (2, 24, HIDDEN, T_FRAMES),
+           "lstm_fwd_B1_H800": (1, 1, WIDE, T_FRAMES), "lstm_fwd_B2_H800": (1, 2, WIDE, T_FRAMES),
+           "bilstm_fwd_B8_H800": (2, 8, WIDE, T_FRAMES),
+           "encoder_lstm_fwd_R96": (1, 96, ENCODER_HIDDEN, ENCODER_FRAMES),
+           "encoder_lstm_fwd_R32": (1, 32, ENCODER_HIDDEN, ENCODER_FRAMES),
+           "encoder_lstm_fwd_R16": (1, 16, ENCODER_HIDDEN, ENCODER_FRAMES)}
+BACKWARD = {"lstm_bwd_B2": (1, 2, HIDDEN, T_FRAMES), "bilstm_bwd_B8": (2, 8, HIDDEN, T_FRAMES),
+            "bilstm_bwd_B24": (2, 24, HIDDEN, T_FRAMES),
+            "lstm_bwd_B2_H800": (1, 2, WIDE, T_FRAMES), "bilstm_bwd_B8_H800": (2, 8, WIDE, T_FRAMES),
+            "encoder_lstm_bwd_R96": (1, 96, ENCODER_HIDDEN, ENCODER_FRAMES)}
 LIBRARY = ("lstm_fwd_B1", "lstm_fwd_B2", "bilstm_fwd_B8", "lstm_bwd_B2", "bilstm_bwd_B8",
            "lstm_fwd_B1_H800", "lstm_fwd_B2_H800", "bilstm_fwd_B8_H800", "lstm_bwd_B2_H800",
-           "bilstm_bwd_B8_H800")
+           "bilstm_bwd_B8_H800", "encoder_lstm_fwd_R96", "encoder_lstm_fwd_R32",
+           "encoder_lstm_fwd_R16", "encoder_lstm_bwd_R96")
+# entries whose dW_hh product is also timed as one torch.matmul (--library),
+# in the operand type the path runs
+DWHH_LIBRARY = {"lstm_bwd_B2": "bfloat16", "bilstm_bwd_B8": "bfloat16", "encoder_lstm_bwd_R96": "float32"}
+
+
+def _entries(only) -> dict:
+    """FORWARD and BACKWARD, or the entries whose name holds one of `only`."""
+    return {k: v for k, v in {**FORWARD, **BACKWARD}.items() if not only or any(o in k for o in only)}
+
+
+def _dtypes(key: str) -> tuple:
+    return ("float32",) if key.startswith("encoder") else ("bfloat16", "float32")
+
+
+def _chip_smoke():
+    """This checkout's `chip_smoke.py` as a module (it imports the standard
+    library, numpy and the port's peaks at its top)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def bound(key: str, dtype: str, smoke=None) -> dict:
+    """The least time of entry `key` in `dtype` (``<entry>/dwhh``: the dW_hh
+    kernel alone): `chip_smoke.py`'s `lstm_bound`, `lstm_bwd_bound` or
+    `lstm_dwhh_bound` at the entry's shape."""
+    smoke = smoke or _chip_smoke()
+    name, _, part = key.partition("/")
+    d, b, H, T = {**FORWARD, **BACKWARD}[name]
+    if part == "dwhh":
+        return smoke.lstm_dwhh_bound(d, b, dtype, H, T)
+    return (smoke.lstm_bound if name in FORWARD else smoke.lstm_bwd_bound)(d, b, dtype, H, T)
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -84,7 +138,9 @@ def main(argv=None) -> int:
     parser.add_argument("--iters", type=int, default=20)
     parser.add_argument("--library", action="store_true")
     parser.add_argument("--compare", default=None)
+    parser.add_argument("--only", default="")
     args = parser.parse_args(argv)
+    only = [o for o in args.only.split(",") if o]
     if args.compare:
         return compare(args)
     root = Path(args.root).resolve()
@@ -108,7 +164,6 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     dev = torch.device("cuda")
-    T = T_FRAMES
     dwhh = getattr(lstm_cuda, "lstm_dwhh", None)
     routes_fwd = getattr(lstm_cuda, "ROUTES", None)
     routes_bwd = getattr(lstm_cuda, "ROUTES_BWD", None)
@@ -117,7 +172,9 @@ def main(argv=None) -> int:
         dtype = getattr(torch, dt)
         g = torch.Generator(device="cpu").manual_seed(0)
         entry = times[dt] = {}
-        for key, (d, b, H) in {**FORWARD, **BACKWARD}.items():
+        for key, (d, b, H, T) in _entries(only).items():
+            if dt not in _dtypes(key):
+                continue
             R = d * b
             s = H ** -0.5
             xp = torch.randn(T, R, 4 * H, generator=g).to(dev, dtype)
@@ -168,17 +225,23 @@ def main(argv=None) -> int:
             del xp, ws, dhs
         torch.cuda.empty_cache()
 
+    smoke = _chip_smoke()
+    bounds = {dt: {key: bound(key, dt, smoke)["bound_ms"] for key in times[dt]
+                   if not key.endswith(("/route", "/walk")) and isinstance(times[dt][key], float)}
+              for dt in times}
     report = {"tag": args.tag, "root": str(root), "device": torch.cuda.get_device_name(0),
-              "nvidia_smi": smi, "build_seconds": build_s, "iters": args.iters, "T": T,
-              "ms": times}
+              "nvidia_smi": smi, "build_seconds": build_s, "iters": args.iters, "ms": times,
+              "bound_ms": bounds}
     if args.library:
         g = torch.Generator(device="cpu").manual_seed(1)
         library = report["library_ms"] = {}
-        for key in LIBRARY:
-            d, b, H = {**FORWARD, **BACKWARD}[key]
-            lstm = torch.nn.LSTM(IN_FEATURES, H, batch_first=True, bidirectional=d == 2)
-            lstm = lstm.to(dev, torch.bfloat16)
-            x = torch.randn(b, T, IN_FEATURES, generator=g).to(dev, torch.bfloat16)
+        entries = _entries(only)
+        for key in (k for k in LIBRARY if k in entries):
+            d, b, H, T = entries[key]
+            dtype = torch.float32 if key.startswith("encoder") else torch.bfloat16
+            features = H if key.startswith("encoder") else IN_FEATURES
+            lstm = torch.nn.LSTM(features, H, batch_first=True, bidirectional=d == 2).to(dev, dtype)
+            x = torch.randn(b, T, features, generator=g).to(dev, dtype)
             if key in FORWARD:
                 with torch.inference_mode():
                     library[key] = time_ms(torch, lambda: lstm(x), args.iters)
@@ -188,6 +251,14 @@ def main(argv=None) -> int:
                 cot = torch.randn_like(out)
                 library[key] = time_ms(
                     torch, lambda: out.backward(cot, retain_graph=True), args.iters)
+        for key in (k for k in DWHH_LIBRARY if k in entries):
+            d, b, H, T = entries[key]
+            dtype = getattr(torch, DWHH_LIBRARY[key])
+            # h_prev^T . dgates of each direction: [D, H, T B] @ [D, T B, 4H]
+            hp = torch.randn(d, H, T * b, generator=g).to(dev, dtype)
+            dg = torch.randn(d, T * b, 4 * H, generator=g).to(dev, dtype)
+            with torch.inference_mode():
+                library[f"{key}/dwhh"] = time_ms(torch, lambda: torch.matmul(hp, dg), args.iters)
     print(json.dumps(report))
     return 0
 
@@ -200,7 +271,8 @@ def compare(args) -> int:
             ("parent", args.compare)]
     reports = []
     for i, (tag, root) in enumerate(runs):
-        cmd = [sys.executable, str(here), "--root", root, "--tag", tag, "--iters", str(args.iters)]
+        cmd = [sys.executable, str(here), "--root", root, "--tag", tag, "--iters", str(args.iters),
+               "--only", args.only]
         if args.library and i == 1:
             cmd.append("--library")
         out = subprocess.run(cmd, capture_output=True, text=True)
@@ -212,7 +284,9 @@ def compare(args) -> int:
         reports.append(json.loads(line))
     summary: dict = {}
     for dt in ("bfloat16", "float32"):
-        for key in {**FORWARD, **BACKWARD}:
+        for key in _entries([o for o in args.only.split(",") if o]):
+            if dt not in _dtypes(key):
+                continue
             got = {tag: [r["ms"][dt].get(key) for r in reports if r["tag"] == tag] for tag in ("parent", "change")}
             if all(isinstance(v, float) for vals in got.values() for v in vals):
                 p, c = (sum(got[t]) / len(got[t]) for t in ("parent", "change"))
@@ -221,7 +295,7 @@ def compare(args) -> int:
             else:
                 summary[f"{key}/{dt}"] = {"parent": got["parent"], "change": got["change"]}
     print(json.dumps({"compare": summary, "nvidia_smi": reports[0]["nvidia_smi"],
-                      "library_ms": reports[1].get("library_ms")}))
+                      "library_ms": reports[1].get("library_ms"), "bound_ms": reports[1]["bound_ms"]}))
     return 0
 
 

@@ -222,8 +222,9 @@ def test_lstm_backward_takes_the_grid_route_where_the_walk_does_not_fit_on_card(
         route = "grid"
         assert cfg["route"] == route and cfg["cluster"] == 0, cfg
         assert cfg["resident_blocks"] >= cfg["blocks"] and cfg["local_bytes"] == 0, cfg
-        # W_hh's rows sit in shared memory but for two directions
-        assert cfg["w_shared"] == (not bidirectional), cfg
+        # W_hh's rows sit in shared memory, two directions too (the staged
+        # chunks of dgates leave them room)
+        assert cfg["w_shared"], cfg
     assert lstm_cuda.launch_config(D, B, 400, dt, backward=True)["route"] == "cluster"
     args = _backward_inputs(bidirectional, dtype, T=301, H=H, B=B, seed=H + B)
     name = "bilstm_bwd" if bidirectional else "lstm_bwd"
@@ -1389,6 +1390,123 @@ def test_ge2e_step_runs_through_the_kernels_on_card():
             assert a.abs().item() <= 1e-6 and b.abs().item() <= 1e-6
         else:
             assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item(), name
+
+
+# rows of the fp32 grid routes at the GE2E encoder's width (T=80, H=768):
+# one row, a pass's row slots partly used (9, 17, 95), whole (16, 32, 96;
+# the encoder's held-out EER, extraction and training batches)
+GRID_ROWS = [1, 9, 16, 17, 32, 95, 96]
+
+
+def _grid_case(D, B, H, T, dtype, seed):
+    """The forward and the backward on the grid route at D directions of B
+    rows: the route and every block resident (checked before the launch),
+    no spill, agreement with the plain versions (fp32 1e-4, bf16 2e-2: the
+    forward absolute, the backward of each output's peak, as at the path's
+    shapes), the same bits twice.  One direction runs from a nonzero (h0,
+    c0) with nonzero final cotangents (dhf, dcf)."""
+    from voicesplit_tpu_torch.ops import lstm_cuda
+
+    dt = getattr(torch, dtype)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for backward in (False, True):
+        cfg = lstm_cuda.launch_config(D, B, H, dt, backward=backward)
+        assert cfg["route"] == "grid" and cfg["cluster"] == 0, cfg
+        assert cfg["resident_blocks"] >= cfg["blocks"] and cfg["local_bytes"] == 0, cfg
+    args, kernel, plain = _forward_inputs(D == 2, dtype, T, H, B, seed)
+    routes = dict(lstm_cuda.ROUTES)
+    with torch.inference_mode():
+        got, again, want = kernel(*args), kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    assert lstm_cuda.ROUTES["grid"] == routes["grid"] + 2
+    for a, b, c in zip(got, want, again):
+        assert bool(torch.isfinite(a).all()) and torch.equal(a, c)
+        assert (a - b).abs().max().item() <= tol
+    args = _backward_inputs(D == 2, dtype, T=T, H=H, B=B, seed=seed + 1)
+    name = "bilstm_bwd" if D == 2 else "lstm_bwd"
+    kernel, plain = getattr(lstm_cuda, name), getattr(lstm_cuda, name + "_ref")
+    routes = dict(lstm_cuda.ROUTES_BWD)
+    with torch.inference_mode():
+        got, again, want = kernel(*args), kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    assert lstm_cuda.ROUTES_BWD["grid"] == routes["grid"] + 2
+    for a, b, c in zip(got, want, again):
+        assert bool(torch.isfinite(a).all()) and torch.equal(a, c)
+        assert (a.float() - b.float()).abs().max().item() <= tol * b.float().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", GRID_ROWS)
+def test_grid_routes_at_the_encoder_width_on_card(rows):
+    _need_card()
+    _grid_case(1, rows, 768, 80, "float32", seed=rows)
+
+
+# other shapes of the grid routes: (directions, rows a direction, H, T,
+# operand type): H not a multiple of 4 (h staged by plain loads), more units
+# a block than a unit block holds (H=1100: 9 units, blocks of 8 and 1), two
+# directions whose W_hh rows leave shared memory in the backward (H=1000),
+# the wide config's fp32 shapes and bf16 two directions of 24 rows
+GRID_SHAPES = [(1, 3, 802, 7, "float32"), (1, 3, 1100, 5, "float32"), (1, 2, 800, 41, "float32"),
+               (2, 8, 800, 41, "float32"), (2, 24, 800, 9, "bfloat16")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", GRID_SHAPES, ids=lambda s: "D{}-B{}-H{}-T{}-{}".format(*s))
+def test_grid_routes_at_other_shapes_on_card(shape):
+    _need_card()
+    D, B, H, T, dtype = shape
+    _grid_case(D, B, H, T, dtype, seed=B + H)
+
+
+@pytest.mark.gpu
+def test_grid_backward_stages_w_hh_where_it_does_not_fit_on_card():
+    """Two directions in fp32 at H=1000: the backward's rows of W_hh (256 KB)
+    leave shared memory and are staged with dgates chunk by chunk; the
+    backward still matches its plain version with the same bits twice (the
+    forward's columns do not fit either: refused before and after)."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import lstm_cuda
+
+    cfg = lstm_cuda.launch_config(2, 2, 1000, torch.float32, backward=True)
+    assert cfg["route"] == "grid" and not cfg["w_shared"], cfg
+    assert cfg["resident_blocks"] >= cfg["blocks"] and cfg["local_bytes"] == 0, cfg
+    args = _backward_inputs(True, "float32", T=5, H=1000, B=2, seed=3)
+    with torch.inference_mode():
+        got, again, want = lstm_cuda.bilstm_bwd(*args), lstm_cuda.bilstm_bwd(*args), lstm_cuda.bilstm_bwd_ref(*args)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, again):
+        assert bool(torch.isfinite(a).all()) and torch.equal(a, c)
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+# the fp32 dW_hh kernel alone: (T, rows a direction, H, directions): the
+# GE2E training step's, ragged ones (H=40: a 64 x 128 tile past H and 4H;
+# T B = 45, not a multiple of the 16-row chunk) and H=42 (plain loads)
+DWHH_SHAPES = [(80, 96, 768, 1), (9, 5, 40, 1), (9, 5, 40, 2), (7, 3, 42, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", DWHH_SHAPES, ids=lambda s: "T{}-B{}-H{}-D{}".format(*s))
+def test_lstm_dwhh_f32_kernel_matches_plain_version_on_card(shape):
+    """Against `lstm_dwhh_ref` within 1e-4 of the peak (the same rounded
+    operands, another order of the sum over T B rows), the same bits twice,
+    from a nonzero h0 in one direction and the zero state in two."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import lstm_cuda
+
+    T, B, H, D = shape
+    g = torch.Generator().manual_seed(T + B + H + D)
+    hs = torch.randn(T, D * B, H, generator=g).cuda()
+    h0 = torch.randn(D * B, H, generator=g).cuda() if D == 1 else None
+    dg = torch.randn(T, D * B, 4 * H, generator=g).cuda()
+    got = lstm_cuda.lstm_dwhh(hs, h0, dg, D, torch.float32)
+    again = lstm_cuda.lstm_dwhh(hs, h0, dg, D, torch.float32)
+    want = lstm_cuda.lstm_dwhh_ref(hs, h0, dg, D, torch.float32)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, again):
+        assert bool(torch.isfinite(a).all()) and torch.equal(a, c)
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
 
 
 def _step_batch(batch, seed=0, n=48000):

@@ -89,17 +89,23 @@
 // a direction at H = 400.  Each block walks K in chunks of 64 rows; every
 // thread loads its 16-byte pieces of the next chunk into registers while
 // the block multiplies the current one, h rounded to the operand type on
-// its way into shared memory.  bf16: mma.sync.m16n8k16 with ldmatrix.trans
-// of both operands (the fragment code of conv_wgrad.cu), fp32 accumulate;
-// fp32: FMAs on CUDA cores (not TF32).
+// its way into shared memory; mma.sync.m16n8k16 with ldmatrix.trans of
+// both operands (the fragment code of conv_wgrad.cu), fp32 accumulate.
+// fp32 operands take lstm_dwhh_f32_kernel, a register-tiled GEMM on CUDA
+// cores (not TF32): tiles of 96 units x 128 columns, 12 x 8 outputs a
+// thread, K in chunks of 16 rows, two in flight by cp.async.  Why: the
+// fp32 branch of the kernel above (1 unit x 16 columns a thread, 17 scalar
+// shared loads per 16 FMAs) took 5.38 ms at the GE2E step's [80, 96], H =
+// 768, 6.7 TFLOP/s, where torch.matmul of the same product takes 0.86.
 //
 // Sum order, fixed, so the same inputs give the same bits: dh_rec of a unit
 // is its partials added in rank order 0 .. senders - 1, each partial its
 // block's owned columns summed by mma.sync (bf16) or in the order (gate,
 // unit) (fp32), on the split walk by wgmma over the k-steps in order; on
-// the grid route each lane's columns in order, then a fixed shuffle tree;
-// dW_hh[j, q] belongs to one block of the dW kernel, which sums its K rows
-// in increasing (t, r) order (mma.sync: 16 at a time).  No float atomics;
+// the grid route each warp's quads of columns in order, then the warps'
+// partials in warp order; dW_hh[j, q] belongs to one block of the dW
+// kernel, which sums its K rows in increasing (t, r) order (mma.sync: 16 at
+// a time).  No float atomics;
 // the split walk's counters only count.
 //
 // Row groups.  A direction's B rows go to G clusters of at most the rows
@@ -159,22 +165,34 @@
 //
 // lstm_bwd_grid_kernel, the grid route (lstm_bwd_grid and bilstm_bwd_grid in
 // chip_smoke.py's kernels line; fp32 at configs/voicesplit_wide.json's
-// lstm_dim 800): the port's first backward design, a persistent cooperative
-// grid, with dW_hh taken off it.  Block b owns U = ceil(H / #SMs) units (7
-// at H = 800 on 132 SMs: 115 blocks, one an SM, all resident at once, which
-// the launch checks first: more blocks than the card holds is refused, not
-// hung) and keeps its U rows of each W_hh [U][4H] in shared memory.  Per
-// reverse step it stages all R x 4H dgates of the step after from dxp (which
-// every block wrote before the last barrier) through L2 in chunks of 8
-// rows, forms dh_rec of its units on CUDA cores (a warp a dot product of 4H,
-// four partial sums a lane, then a shuffle tree), computes its units' 4U
-// columns of dgates into dxp and crosses one grid.sync().  Shared memory at
-// H = 800: W_hh rows 44.8 KB a direction in bf16 (89.6 KB fp32) + staged
-// dgates 51.2 KB (102.4 KB fp32) + 2 R U floats, which fits but for two
-// directions in fp32 (281.6 KB): there the rows are read through L2 (__ldg)
-// at every step, chosen from the shape.  dW_hh is lstm_dwhh_kernel's, after
-// the walk, as on the cluster walk: the same dxp gives the same dW_hh bits
-// on either route.
+// lstm_dim 800 and at the GE2E speaker encoder's H = 768, 96 rows a training
+// step): a persistent cooperative grid, with dW_hh taken off it.  Block b
+// owns U = ceil(H / #SMs) units (6 at H = 768 on 132 SMs: 128 blocks; 7 at
+// H = 800: 115; one an SM, all resident at once, which the launch checks
+// first: more blocks than the card holds is refused, not hung) and keeps its
+// U rows of each W_hh [U][4H] in shared memory.  Per reverse step the rows
+// of dgates[t+1] (from dxp, which every block wrote before the last
+// barrier) stream through from L2 in chunks of 64 columns by cp.async, the
+// next chunk in flight while the current one multiplies; each thread
+// accumulates dh_rec of its rows (up to 3 of a 96-row pass, lanes along the
+// rows) and the block's units over its warp's quads of columns; the warps'
+// partials add in warp order where the block computes its units' 4U columns
+// of dgates into dxp; one grid.sync() ends the step (lstm_grid.cuh).  Why:
+// the port's first grid kernel staged dgates by 4-byte plain loads between
+// barriers and gave each dot product to a warp with two shared loads an
+// FMA: at [80, 96], H = 768, 75% of a step in the product and 22% in the
+// staging.  Now the staging of all R x 4H dgates of a step into every block
+// (151 MB from L2 a step at the GE2E shape) takes the larger share.  Owning
+// the columns instead and exchanging each block's partial dh_rec of every
+// unit through L2 (half the bytes, all to all) was slower on the card:
+// whichever side of the exchange is scattered, reads or writes, costs more
+// than the contiguous broadcast of dgates.  Shared memory at the GE2E
+// shape: 146,784 B; W_hh's rows stay in shared memory wherever they fit
+// beside the chunks (two directions in fp32 at H = 800 too: 199,072 B),
+// else they are staged with dgates chunk by chunk, chosen from the shape.
+// dW_hh is lstm_dwhh_kernel's (lstm_dwhh_f32_kernel's in fp32), after the
+// walk, as on the cluster walk: the same dxp gives the same dW_hh bits on
+// either route.
 //
 // What bounds them on the card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16 dense),
 // counting each input byte read once and each output byte written once,
@@ -191,18 +209,20 @@
 // steps, each a wait for the partials, the step's elementwise work, a
 // small product and one exchange through distributed shared memory (on the
 // split walk also one through L2, whose latency a step waits out whole); on
-// the grid route each step's staging of all dgates from L2, CUDA-core
-// products and grid barrier.
+// the grid route each step's staging of all dgates from L2, its CUDA-core
+// product and the grid barrier.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstddef>
 #include <cstdint>
 
 #include "conv_tile.cuh"     // kThreads, to_float, align16, ldmatrix, mma.sync
 #include "lstm_cluster.cuh"  // kCluster, the cluster primitives, owned columns, row groups
+#include "lstm_grid.cuh"     // the grid route's product
 
 namespace cg = cooperative_groups;
 
@@ -578,12 +598,12 @@ template <typename T> struct DwLd {  // tile row stride in shared memory: + 16 b
 };
 
 // dW_d[j, q] = sum over k = (t, r) of round(h_prev[t, r, j]) * dxp[t, r, q]
-// for the B rows r of direction d = blockIdx.z; grid (ceil(H/64),
-// ceil(4H/64), D).  A thread stages 16-byte pieces of a chunk: 4 units of
-// h (fp32) and 16 bytes of dxp, whole vectors when kVec (H a multiple of 4
-// and 16-byte aligned rows), else element by element.  Each piece's row k
-// is kept as (t, r) and moves by kDwK rows a chunk, so the walk over K
-// divides nothing.
+// for the B rows r of direction d = blockIdx.z, bf16 operands on mma.sync;
+// grid (ceil(H/64), ceil(4H/64), D).  A thread stages 16-byte pieces of a
+// chunk: 4 units of h (fp32) and 16 bytes of dxp, whole vectors when kVec
+// (H a multiple of 4 and 16-byte aligned rows), else element by element.
+// Each piece's row k is kept as (t, r) and moves by kDwK rows a chunk, so
+// the walk over K divides nothing.  fp32 operands: lstm_dwhh_f32_kernel.
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 lstm_dwhh_kernel(const float* __restrict__ hs,  // [T, R, H]
@@ -592,11 +612,11 @@ lstm_dwhh_kernel(const float* __restrict__ hs,  // [T, R, H]
                  float* __restrict__ dw0,       // [H, 4H], rows [0, B)
                  float* __restrict__ dw1,       // [H, 4H], rows [B, 2B) (D == 2)
                  int T_, int B, int D, int H) {
+  static_assert(sizeof(T) == 2, "bf16 operands");
   constexpr int LD = DwLd<T>::value;
-  constexpr bool kTensorCore = sizeof(T) == 2;
   constexpr int DV = 16 / int(sizeof(T));                       // dxp elements a piece
   constexpr int kHPer = kDwK * kDwTile / 4 / kThreads;          // h pieces a thread: 4
-  constexpr int kDPer = kDwK * kDwTile / DV / kThreads;         // dxp pieces: 2 bf16, 4 fp32
+  constexpr int kDPer = kDwK * kDwTile / DV / kThreads;         // dxp pieces: 2
   constexpr int kHRows = kThreads / (kDwTile / 4), kDRows = kThreads / (kDwTile / DV);
   __shared__ __align__(16) T h_s[kDwK * LD];  // round(h_prev)[k][j]
   __shared__ __align__(16) T d_s[kDwK * LD];  // dgates[k][q]
@@ -673,8 +693,8 @@ lstm_dwhh_kernel(const float* __restrict__ hs,  // [T, R, H]
     }
   };
 
-  // bf16: warp (wm, wn) owns units [16 wm, +16) x columns [32 wn, +32):
-  // acc[n8 tile][4].  fp32: thread owns unit tid / 4 x 16 columns.
+  // warp (wm, wn) owns units [16 wm, +16) x columns [32 wn, +32):
+  // acc[n8 tile][4]
   float acc[4][4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) acc[k][0] = acc[k][1] = acc[k][2] = acc[k][3] = 0.0f;
@@ -700,56 +720,156 @@ lstm_dwhh_kernel(const float* __restrict__ hs,  // [T, R, H]
 #pragma unroll
     for (int i = 0; i < kDPer; ++i) advance(dt[i], dr[i]);
     if (k0 + kDwK < K) fetch();  // in flight while this chunk multiplies
-    if constexpr (kTensorCore) {
 #pragma unroll
-      for (int ks = 0; ks < kDwK / 16; ++ks) {
-        uint32_t bf[2][4];
+    for (int ks = 0; ks < kDwK / 16; ++ks) {
+      uint32_t bf[2][4];
 #pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          ldmatrix_x4_trans(bf[np], d_s + (ks * 16 + (lane & 15)) * LD + wn * 32 + np * 16 +
-                                        (lane >> 4) * 8);
-        }
-        // A[m = unit][k = row] from h_s[row][unit]
-        uint32_t a[4];
-        ldmatrix_x4_trans(a, h_s + (ks * 16 + (lane & 7) + ((lane >> 4) & 1) * 8) * LD + wm * 16 +
-                                 ((lane >> 3) & 1) * 8);
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          mma_bf16(acc[nt], a, bf[nt >> 1][(nt & 1) * 2], bf[nt >> 1][(nt & 1) * 2 + 1]);
-        }
+      for (int np = 0; np < 2; ++np) {
+        ldmatrix_x4_trans(bf[np], d_s + (ks * 16 + (lane & 15)) * LD + wn * 32 + np * 16 +
+                                      (lane >> 4) * 8);
       }
-    } else {
-      const int c = tid >> 2, n0 = (tid & 3) * 16;
-#pragma unroll 4
-      for (int k = 0; k < kDwK; ++k) {
-        const float hk = to_float(h_s[k * LD + c]);
+      // A[m = unit][k = row] from h_s[row][unit]
+      uint32_t a[4];
+      ldmatrix_x4_trans(a, h_s + (ks * 16 + (lane & 7) + ((lane >> 4) & 1) * 8) * LD + wm * 16 +
+                               ((lane >> 3) & 1) * 8);
 #pragma unroll
-        for (int m = 0; m < 16; ++m) {
-          acc[m >> 2][m & 3] = fmaf(hk, to_float(d_s[k * LD + n0 + m]), acc[m >> 2][m & 3]);
-        }
+      for (int nt = 0; nt < 4; ++nt) {
+        mma_bf16(acc[nt], a, bf[nt >> 1][(nt & 1) * 2], bf[nt >> 1][(nt & 1) * 2 + 1]);
       }
     }
   }
 
   float* dw = d ? dw1 : dw0;
-  if constexpr (kTensorCore) {
-    const int gr = lane >> 2, tig = lane & 3;
+  const int gr = lane >> 2, tig = lane & 3;
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int q = q0 + wn * 32 + nt * 8 + 2 * tig;  // even, and 4H is even: q + 1 < 4H too
-      const int j = j0 + wm * 16 + gr;
-      if (q >= G4) continue;
-      if (j < H) *reinterpret_cast<float2*>(dw + size_t(j) * G4 + q) = make_float2(acc[nt][0], acc[nt][1]);
-      if (j + 8 < H) {
-        *reinterpret_cast<float2*>(dw + size_t(j + 8) * G4 + q) = make_float2(acc[nt][2], acc[nt][3]);
+  for (int nt = 0; nt < 4; ++nt) {
+    const int q = q0 + wn * 32 + nt * 8 + 2 * tig;  // even, and 4H is even: q + 1 < 4H too
+    const int j = j0 + wm * 16 + gr;
+    if (q >= G4) continue;
+    if (j < H) *reinterpret_cast<float2*>(dw + size_t(j) * G4 + q) = make_float2(acc[nt][0], acc[nt][1]);
+    if (j + 8 < H) {
+      *reinterpret_cast<float2*>(dw + size_t(j + 8) * G4 + q) = make_float2(acc[nt][2], acc[nt][3]);
+    }
+  }
+}
+
+// dW_hh in fp32: the same product on CUDA cores (TF32 would round the
+// operands), as a register-tiled GEMM.  Block tiles of 96 units x 128 gate
+// columns (192 blocks a direction at the GE2E encoder's H = 768), 128 threads
+// (8 along the units, 16 along the columns) of 12 x 8 outputs each: units
+// tm 4 + 32 i + {0..3} (i < 3), columns tn 4 + 64 i + {0..3} (i < 2).  K =
+// T B rows (t, r) walked in chunks of 16, a ring of three, two in flight by
+// cp.async while one multiplies (kVec: H a multiple of 4 and 16-byte aligned
+// rows; else plain loads), k-major tiles [16][96 + 4] and [16][128 + 4]: a
+// thread's five 128-bit loads a row of K feed its 96 FMAs.  Tiles of 64 x
+// 128, 64 x 192, 128 x 128 and 96 x 192 measured slower on the card.  Each
+// output adds its K rows in increasing (t, r) order.
+constexpr int kDwfTMI = 3, kDwfTNI = 2;  // float4 groups of units and of columns a thread
+constexpr int kDwfK = 16, kDwfThreads = 128, kDwfStages = 3;
+constexpr int kDwfM = 32 * kDwfTMI, kDwfN = 64 * kDwfTNI;  // a block's tile: 96 x 128
+constexpr size_t kDwfSmem = size_t(kDwfStages) * kDwfK * (kDwfM + 4 + kDwfN + 4) * sizeof(float);
+
+template <bool kVec>
+__global__ void __launch_bounds__(kDwfThreads)
+lstm_dwhh_f32_kernel(const float* __restrict__ hs,   // [T, R, H]
+                     const float* __restrict__ h0,   // [R, H] or null (zero state)
+                     const float* __restrict__ dxp,  // [T, R, 4H]
+                     float* __restrict__ dw0,        // [H, 4H], rows [0, B)
+                     float* __restrict__ dw1,        // [H, 4H], rows [B, 2B) (D == 2)
+                     int T_, int B, int D, int H) {
+  constexpr int TMI = kDwfTMI, TNI = kDwfTNI, M = kDwfM, N = kDwfN, LDA = M + 4, LDB = N + 4;
+  static_assert(kDwfK * M / 4 % kDwfThreads == 0 && kDwfK * N / 4 % kDwfThreads == 0, "whole pieces a thread");
+  extern __shared__ __align__(16) float dwf_raw[];
+  float* a_s = dwf_raw;                              // [kDwfStages][kDwfK][LDA]: h_prev[k][j]
+  float* b_s = dwf_raw + kDwfStages * kDwfK * LDA;   // [kDwfStages][kDwfK][LDB]: dxp[k][q]
+  const int d = blockIdx.z, j0 = blockIdx.x * M, q0 = blockIdx.y * N;
+  const int R = D * B, G4 = 4 * H, K = T_ * B;
+  const int tid = threadIdx.x, tm = tid / 16, tn = tid % 16;
+
+  // rows [k0, k0 + 16) into ring place buf, in 16-byte pieces (zeros past
+  // K, H and 4H, and for the zero state); one group of copies, empty past K
+  auto piece = [&](float* dst, const float* src, int x0, int n) {
+    if constexpr (kVec) {
+      const bool in = src != nullptr && x0 < n;
+      cp_async16(dst, in ? src + x0 : hs, in ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) dst[x] = src != nullptr && x0 + x < n ? src[x0 + x] : 0.0f;
+    }
+  };
+  auto stage = [&](int k0, int buf) {
+    if (k0 >= K) {
+      cp_async_commit();
+      return;
+    }
+#pragma unroll
+    for (int i = 0; i < kDwfK * M / 4 / kDwfThreads; ++i) {  // h
+      const int e = tid + i * kDwfThreads, kk = e / (M / 4), c = e % (M / 4) * 4;
+      const int k = k0 + kk, t = k / B, r = k % B;
+      const float* src = nullptr;
+      if (k < K && t > 0) {
+        src = hs + (size_t(t - 1) * R + d * B + r) * H;
+      } else if (k < K && h0 != nullptr) {
+        src = h0 + size_t(d * B + r) * H;
+      }
+      piece(a_s + (buf * kDwfK + kk) * LDA + c, src, j0 + c, H);
+    }
+#pragma unroll
+    for (int i = 0; i < kDwfK * N / 4 / kDwfThreads; ++i) {  // dxp
+      const int e = tid + i * kDwfThreads, kk = e / (N / 4), c = e % (N / 4) * 4;
+      const int k = k0 + kk;
+      const float* src = k < K ? dxp + (size_t(k / B) * R + d * B + k % B) * G4 : nullptr;
+      piece(b_s + (buf * kDwfK + kk) * LDB + c, src, q0 + c, G4);
+    }
+    cp_async_commit();
+  };
+
+  float acc[4 * TMI][4 * TNI];
+#pragma unroll
+  for (int m = 0; m < 4 * TMI; ++m) {
+#pragma unroll
+    for (int n = 0; n < 4 * TNI; ++n) acc[m][n] = 0.0f;
+  }
+  const int chunks = (K + kDwfK - 1) / kDwfK;
+  for (int c = 0; c < kDwfStages - 1; ++c) stage(c * kDwfK, c);
+  for (int ch = 0; ch < chunks; ++ch) {
+    cp_async_wait<kDwfStages - 2>();
+    __syncthreads();  // chunk ch staged; every thread is done with chunk ch - 1
+    stage((ch + kDwfStages - 1) * kDwfK, (ch + kDwfStages - 1) % kDwfStages);
+    const float* at = a_s + ch % kDwfStages * kDwfK * LDA + tm * 4;
+    const float* bt = b_s + ch % kDwfStages * kDwfK * LDB + tn * 4;
+#pragma unroll
+    for (int kk = 0; kk < kDwfK; ++kk) {
+      float a[4 * TMI], b[4 * TNI];
+#pragma unroll
+      for (int i = 0; i < TMI; ++i) {
+        const float4 v = *reinterpret_cast<const float4*>(at + kk * LDA + 32 * i);
+        a[4 * i] = v.x, a[4 * i + 1] = v.y, a[4 * i + 2] = v.z, a[4 * i + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < TNI; ++i) {
+        const float4 v = *reinterpret_cast<const float4*>(bt + kk * LDB + 64 * i);
+        b[4 * i] = v.x, b[4 * i + 1] = v.y, b[4 * i + 2] = v.z, b[4 * i + 3] = v.w;
+      }
+#pragma unroll
+      for (int m = 0; m < 4 * TMI; ++m) {
+#pragma unroll
+        for (int n = 0; n < 4 * TNI; ++n) acc[m][n] = fmaf(a[m], b[n], acc[m][n]);
       }
     }
-  } else {
-    const int j = j0 + (tid >> 2), n0 = q0 + (tid & 3) * 16;
-    if (j < H) {
+  }
+
+  float* dw = d ? dw1 : dw0;
 #pragma unroll
-      for (int m = 0; m < 16; ++m) {
-        if (n0 + m < G4) dw[size_t(j) * G4 + n0 + m] = acc[m >> 2][m & 3];
+  for (int m = 0; m < 4 * TMI; ++m) {
+    const int j = j0 + tm * 4 + 32 * (m / 4) + m % 4;
+    if (j >= H) continue;
+#pragma unroll
+    for (int i = 0; i < TNI; ++i) {
+      const int q = q0 + tn * 4 + 64 * i;  // 4H is a multiple of 4: a piece is all in or all out
+      if (q < G4) {
+        *reinterpret_cast<float4*>(dw + size_t(j) * G4 + q) =
+            make_float4(acc[m][4 * i], acc[m][4 * i + 1], acc[m][4 * i + 2], acc[m][4 * i + 3]);
       }
     }
   }
@@ -1085,31 +1205,39 @@ lstm_bwd_split_kernel(const __nv_bfloat16* __restrict__ w0,  // [H, 4H], rows [0
 // The grid route
 // ---------------------------------------------------------------------------
 
-constexpr int kGridWarps = kThreads / 32;  // dot products a pass, one a warp
-constexpr int kGridRowChunk = 8;           // rows of dgates staged at a time
+// Lanes along the rows: all 32 of a warp (each thread every unit of its
+// rows); rows a pass: 32 x the row slots of a lane, one of these.
+constexpr int kGridBwdLR = 32;
+constexpr int kGridBwdRowSlots[] = {3, 2, 1};
 
-// Shared memory of the grid route: the block's rows of W_hh [D][U][4H] (T)
-// when `w_shared` (else they are read through L2), staged dgates
-// [kGridRowChunk][4H] (T), then [R][U] fp32 each for the recurrent dh and
-// the carried dc.
+// Shared memory of the grid route for D directions of B rows, U units a
+// block and rows_pass rows a pass: the block's rows of W_hh [D][U]
+// [grid_ld(4H)] (T) when `w_shared`, else two chunks of them [2][kGridUnits]
+// [grid_lda]; two chunks of dgates [rows_pass][grid_lda] (T); the warps'
+// partials [kGridWarps][min(rows_pass, B)][min(U, kGridUnits)] and the
+// carried dc [D B][U] (fp32).
 template <typename T>
-size_t grid_bwd_smem(int D, int R, int H, int U, bool w_shared) {
-  return (w_shared ? align16(size_t(D) * U * 4 * H * sizeof(T)) : 0) +
-         align16(size_t(kGridRowChunk) * 4 * H * sizeof(T)) + 2 * size_t(R) * U * sizeof(float);
+size_t grid_bwd_smem(int D, int B, int H, int U, int rows_pass, bool w_shared) {
+  const size_t w = w_shared ? size_t(D) * U * grid_ld(4 * H) : size_t(2) * kGridUnits * grid_lda<T>();
+  return align16(w * sizeof(T)) + align16(size_t(2) * rows_pass * grid_lda<T>() * sizeof(T)) +
+         (size_t(kGridWarps) * std::min(rows_pass, B) * std::min(U, kGridUnits) + size_t(D) * B * U) *
+             sizeof(float);
 }
 
-__device__ __forceinline__ float ldg_float(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ldg_float(const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); }
-
-// Block b owns units [b U, b U + U) of every row.  Per reverse step t it
-// stages dgates[t+1] of all rows from dxp (written by every block before the
-// last grid barrier) through L2, forms dh_rec of its units as dot products
-// with its rows of W_hh (one warp each, four partial sums a lane, then a
-// shuffle tree), computes its units' columns of dgates[t] into dxp and
-// crosses one grid barrier.  kWShared: W_hh's rows in shared memory, else
-// read through L2 at every step.
-template <typename T, int D, bool kWShared>
-__global__ void __launch_bounds__(kThreads)
+// Block b owns units [b U, b U + U) (fewer in the last block) of every row.
+// Per reverse step, for each direction, block of at most kGridUnits units
+// and pass of at most 32 RI rows: dgates[t+1] of the pass's rows (from dxp,
+// which every block wrote before the last grid barrier) streams through in
+// chunks of kGridKC columns (cp.async, the next chunk in flight while the
+// current one multiplies; lstm_grid.cuh); each thread accumulates dh_rec of
+// its RI rows (lane + 32 i) and the unit block's units over its warp's quads
+// of columns against its rows of W_hh; the warps' partials add in warp order
+// where dgates[t] of the block's units are computed into dxp.  Then one
+// grid barrier.  kWShared: W_hh's rows in shared memory, else staged chunk
+// by chunk beside dgates.  vec: 16-byte copies (4H x the operand's size a
+// multiple of 16 bytes, and aligned rows).
+template <typename T, int D, int RI, bool kWShared>
+__global__ void __launch_bounds__(kThreads, 1)
 lstm_bwd_grid_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
                      const T* __restrict__ w1,        // [H, 4H], rows [B, 2B) (D == 2)
                      const float* __restrict__ gates, // [T, R, 4H] activated
@@ -1121,120 +1249,124 @@ lstm_bwd_grid_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
                      T* dxp,                          // [T, R, 4H]; read back across blocks
                      float* __restrict__ dh0,         // [R, H] or null
                      float* __restrict__ dc0,         // [R, H] or null
-                     int T_, int B, int H, int U) {
+                     int T_, int B, int H, int U, int vec) {
+  constexpr int RB = kGridBwdLR * RI, LDA = grid_lda<T>();
   cg::grid_group grid = cg::this_grid();
   const int R = D * B;
   const int G4 = 4 * H;  // gate columns of one row
-  const int u0 = blockIdx.x * U;
+  const int LDW = kWShared ? grid_ld(G4) : LDA;
+  const int u0 = blockIdx.x * U, Ub = min(U, H - u0);  // this block's units
+  const int NCB = min(U, kGridUnits);                   // partial columns of a row
+  const int RP = min(RB, B);                            // partial rows
   const int tid = threadIdx.x;
-  const int n_w = kWShared ? D * U * G4 : 0;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* w_s = reinterpret_cast<T*>(smem_raw);  // [D][U][4H]
-  T* dg_s = reinterpret_cast<T*>(smem_raw + align16(size_t(n_w) * sizeof(T)));  // [chunk][4H]
-  float* dhr_s = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(dg_s) +
-                                          align16(size_t(kGridRowChunk) * G4 * sizeof(T)));  // [R][U]
-  float* dc_s = dhr_s + size_t(R) * U;  // [R][U]
+  const size_t w_elems = kWShared ? size_t(D) * U * LDW : size_t(2) * kGridUnits * LDA;
+  T* w_s = reinterpret_cast<T*>(smem_raw);  // [D][U][LDW], or [2][kGridUnits][LDA]
+  T* a_s = reinterpret_cast<T*>(smem_raw + align16(w_elems * sizeof(T)));  // [2][RB][LDA]
+  float* part = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(a_s) +
+                                         align16(size_t(2) * RB * LDA * sizeof(T)));  // [kGridWarps][RP][NCB]
+  float* dc_s = part + kGridWarps * RP * NCB;  // [R][U]
 
   // this block's rows of each W_hh (contiguous in device memory)
-  for (int e = tid; e < n_w; e += kThreads) {
-    const int d = e / (U * G4), u = (e / G4) % U, q = e % G4, j = u0 + u;
-    w_s[e] = j < H ? (d ? w1 : w0)[size_t(j) * G4 + q] : from_float<T>(0.0f);
+  if constexpr (kWShared) {
+    for (int e = tid; e < D * U * LDW; e += kThreads) w_s[e] = from_float<T>(0.0f);
+    __syncthreads();
+    for (int e = tid; e < D * Ub * G4; e += kThreads) {
+      const int d = e / (Ub * G4), u = e / G4 % Ub, q = e % G4;
+      w_s[(size_t(d) * U + u) * LDW + q] = (d ? w1 : w0)[size_t(u0 + u) * G4 + q];
+    }
   }
   for (int e = tid; e < R * U; e += kThreads) {
-    const int r = e / U, j = u0 + e % U;
-    const bool in = j < H;
-    dc_s[e] = (dcf != nullptr && in) ? dcf[size_t(r) * H + j] : 0.0f;
-    dhr_s[e] = (dhf != nullptr && in) ? dhf[size_t(r) * H + j] : 0.0f;
+    const int r = e / U, u = e % U;
+    dc_s[e] = dcf != nullptr && u < Ub ? dcf[size_t(r) * H + u0 + u] : 0.0f;
   }
   __syncthreads();
 
-  const int warp = tid / 32, lane = tid % 32;
-  // s is the step whose dgates are staged; t = s - 1 is the step computed
+  const int chunks = (G4 + kGridKC - 1) / kGridKC;
+  // s is the step whose dgates are multiplied; t = s - 1 is the step computed
   for (int s = T_; s >= 0; --s) {
-    if (s < T_ && (D == 1 || s > 0)) {  // after step 0 only dh0 needs it
-      const T* dg_step = dxp + size_t(s) * R * G4;
-      for (int r0 = 0; r0 < R; r0 += kGridRowChunk) {
-        const int rc = min(kGridRowChunk, R - r0);
-        // rows [r0, r0 + rc) of dgates[s] as 4-byte words (4H * sizeof(T) is
-        // a multiple of 4), written by other blocks: bypass L1
-        const unsigned int* src = reinterpret_cast<const unsigned int*>(dg_step + size_t(r0) * G4);
-        unsigned int* dst = reinterpret_cast<unsigned int*>(dg_s);
-        const int words = int(size_t(rc) * G4 * sizeof(T) / 4);
-        for (int e = tid; e < words; e += kThreads) dst[e] = __ldcg(src + e);
-        __syncthreads();
-
-        // dh_rec[r, u] = sum_q dgates[r, q] * W[j, q], one warp per (r, u)
-        for (int o = warp; o < rc * U; o += kGridWarps) {  // warp-uniform
-          const int rl = o / U, u = o % U, j = u0 + u;
-          if (j >= H) continue;
-          const int d = (D == 2 && r0 + rl >= B) ? 1 : 0;
-          const T* g = dg_s + size_t(rl) * G4;
-          float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
-          int q = lane;
-          if constexpr (kWShared) {
-            const T* w = w_s + (size_t(d) * U + u) * G4;
-            for (; q + 96 < G4; q += 128) {
-              a0 = fmaf(to_float(g[q]), to_float(w[q]), a0);
-              a1 = fmaf(to_float(g[q + 32]), to_float(w[q + 32]), a1);
-              a2 = fmaf(to_float(g[q + 64]), to_float(w[q + 64]), a2);
-              a3 = fmaf(to_float(g[q + 96]), to_float(w[q + 96]), a3);
+    const bool product = s < T_ && (D == 1 || s > 0);  // after step 0 only dh0 needs it
+    if (s == 0 && !product) break;
+    for (int d = 0; d < D; ++d) {
+      for (int ub = 0; ub < Ub; ub += kGridUnits) {
+        const int Uc = min(kGridUnits, Ub - ub);
+        for (int r0 = 0; r0 < B; r0 += RB) {
+          const int rows = min(RB, B - r0);
+          if (product) {
+            // dh_rec[r][u] = sum_q dgates[s][r][q] W[u0 + ub + u][q]
+            const T* src = dxp + (size_t(s) * R + d * B + r0) * G4;
+            const T* wsrc = (d ? w1 : w0) + size_t(u0 + ub) * G4;
+            float acc[RI][kGridUnits];
+#pragma unroll
+            for (int i = 0; i < RI; ++i) {
+#pragma unroll
+              for (int j = 0; j < kGridUnits; ++j) acc[i][j] = 0.0f;
             }
-            for (; q < G4; q += 32) a0 = fmaf(to_float(g[q]), to_float(w[q]), a0);
-          } else {
-            const T* w = (d ? w1 : w0) + size_t(j) * G4;
-            for (; q + 96 < G4; q += 128) {
-              a0 = fmaf(to_float(g[q]), ldg_float(w + q), a0);
-              a1 = fmaf(to_float(g[q + 32]), ldg_float(w + q + 32), a1);
-              a2 = fmaf(to_float(g[q + 64]), ldg_float(w + q + 64), a2);
-              a3 = fmaf(to_float(g[q + 96]), ldg_float(w + q + 96), a3);
+            auto stage = [&](int ch) {
+              const int buf = ch & 1;
+              grid_stage<T>(a_s + buf * RB * LDA, RB, src, G4, rows, ch * kGridKC, G4, vec, w0);
+              if constexpr (!kWShared) {
+                grid_stage<T>(w_s + buf * kGridUnits * LDA, kGridUnits, wsrc, G4, Uc, ch * kGridKC, G4, vec, w0);
+              }
+              cp_async_commit();
+            };
+            stage(0);
+            for (int ch = 0; ch < chunks; ++ch) {
+              cp_async_wait<0>();
+              __syncthreads();  // chunk ch staged; every warp is done with chunk ch - 1
+              if (ch + 1 < chunks) stage(ch + 1);
+              const T* w = kWShared ? w_s + (size_t(d) * U + ub) * LDW + ch * kGridKC
+                                    : w_s + (ch & 1) * kGridUnits * LDA;
+              const int nq = (min(kGridKC, G4 - ch * kGridKC) + 3) / 4;
+              grid_product<kGridBwdLR>(acc, a_s + (ch & 1) * RB * LDA, w, LDW, Uc, nq);
             }
-            for (; q < G4; q += 32) a0 = fmaf(to_float(g[q]), ldg_float(w + q), a0);
+            grid_partials<kGridBwdLR>(part, acc, RP, NCB, rows, Uc);
+            __syncthreads();  // the product complete
           }
-          float acc = (a0 + a1) + (a2 + a3);
-          for (int m = 16; m > 0; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
-          if (lane == 0) dhr_s[size_t(r0 + rl) * U + u] = acc;
+          if (s == 0) {  // one direction: dh0 and dc0
+            for (int e = tid; e < rows * Uc; e += kThreads) {
+              const int r = e / Uc, u = e % Uc, j = u0 + ub + u, rg = r0 + r;
+              dh0[size_t(rg) * H + j] = grid_sum(part, RP, NCB, r, u);
+              dc0[size_t(rg) * H + j] = dc_s[rg * U + ub + u];
+            }
+            continue;
+          }
+          // step t = s - 1: the unit block's columns of dgates[t]
+          const int t = s - 1;
+          for (int e = tid; e < rows * Uc; e += kThreads) {
+            const int r = e / Uc, u = e % Uc, j = u0 + ub + u, rg = d * B + r0 + r;
+            const size_t row = size_t(t) * R + rg;
+            const float* gt = gates + row * G4;
+            const float i = gt[j], f = gt[H + j], g = gt[2 * H + j], o = gt[3 * H + j];
+            float c_prev = 0.0f;
+            if (t > 0) {
+              c_prev = cs[(row - R) * H + j];
+            } else if (c0 != nullptr) {
+              c_prev = c0[size_t(rg) * H + j];
+            }
+            float dh_rec = 0.0f;
+            if (product) {
+              dh_rec = grid_sum(part, RP, NCB, r, u);
+            } else if (dhf != nullptr) {
+              dh_rec = dhf[size_t(rg) * H + j];
+            }
+            float* dc = dc_s + rg * U + ub + u;
+            const float tc = tanhf(f * c_prev + i * g);
+            const float dh = dhs[row * H + j] + dh_rec;
+            const float dout = dh * tc;
+            const float dct = dh * o * (1.0f - tc * tc) + *dc;
+            *dc = dct * f;
+            T* dx = dxp + row * G4;
+            dx[j] = from_float<T>(dct * g * i * (1.0f - i));
+            dx[H + j] = from_float<T>(dct * c_prev * f * (1.0f - f));
+            dx[2 * H + j] = from_float<T>(dct * i * (1.0f - g * g));
+            dx[3 * H + j] = from_float<T>(dout * o * (1.0f - o));
+          }
         }
-        __syncthreads();  // before the next chunk overwrites dg_s
       }
     }
-    if (s == 0) break;
-
-    // step t = s - 1: own units' columns of dgates[t]
-    const int t = s - 1;
-    for (int e = tid; e < R * U; e += kThreads) {
-      const int r = e / U, j = u0 + e % U;
-      if (j >= H) continue;
-      const size_t row = size_t(t) * R + r;
-      const float* gt = gates + row * G4;
-      const float i = gt[j], f = gt[H + j], g = gt[2 * H + j], o = gt[3 * H + j];
-      float c_prev = 0.0f;
-      if (t > 0) {
-        c_prev = cs[(row - R) * H + j];
-      } else if (c0 != nullptr) {
-        c_prev = c0[size_t(r) * H + j];
-      }
-      const float tc = tanhf(f * c_prev + i * g);
-      const float dh = dhs[row * H + j] + dhr_s[e];
-      const float dout = dh * tc;
-      const float dct = dh * o * (1.0f - tc * tc) + dc_s[e];
-      dc_s[e] = dct * f;
-      T* dx = dxp + row * G4;
-      dx[j] = from_float<T>(dct * g * i * (1.0f - i));
-      dx[H + j] = from_float<T>(dct * c_prev * f * (1.0f - f));
-      dx[2 * H + j] = from_float<T>(dct * i * (1.0f - g * g));
-      dx[3 * H + j] = from_float<T>(dout * o * (1.0f - o));
-    }
-    grid.sync();  // the whole dgates[t] is in dxp before any block stages it
-  }
-
-  if (D == 1) {
-    for (int e = tid; e < R * U; e += kThreads) {
-      const int r = e / U, j = u0 + e % U;
-      if (j >= H) continue;
-      dh0[size_t(r) * H + j] = dhr_s[e];
-      dc0[size_t(r) * H + j] = dc_s[e];
-    }
+    if (s > 0) grid.sync();  // the whole dgates[t] is in dxp before any block stages it
   }
 }
 
@@ -1283,9 +1415,10 @@ struct BwdLaunch {
   BwdSplitShape split; // the split walk
   size_t exchange;     // the split walk: bytes of exchange memory it needs
   int grid_blocks, grid_units;  // grid route: blocks, units a block
+  int grid_rows;       // grid route: rows of a pass (the row slots of a block's tile)
   size_t grid_smem;
   int grid_resident;   // grid route: blocks the card holds at once
-  bool grid_w_shared;  // grid route: W_hh's rows in shared memory (else through L2)
+  bool grid_w_shared;  // grid route: W_hh's rows in shared memory (else staged from L2 with dgates)
 };
 
 // The walk's row groups and occupancy on this card into `info` (info->groups
@@ -1321,8 +1454,10 @@ cudaError_t walk(int B, int H, const BwdArgs* args, cudaStream_t stream, Cluster
 
 // The grid route's launch on this card into `bl`, and the launch when `args`
 // is given: one block per U = ceil(H / SMs) units, all resident at once
-// (else cudaErrorCooperativeLaunchTooLarge, before anything launches), W_hh's
-// rows in shared memory where they fit beside the staged dgates.
+// (else cudaErrorCooperativeLaunchTooLarge, before anything launches); rows
+// a pass the fewest row slots that hold a direction's rows; W_hh's rows in
+// shared memory where they fit beside the chunks (fewer rows a pass before
+// W_hh leaves shared memory), else staged chunk by chunk.
 template <typename T, int D>
 cudaError_t grid_route(int B, int H, const BwdArgs* args, cudaStream_t stream, BwdLaunch* bl) {
   int sms = 0, optin = 0;
@@ -1333,9 +1468,29 @@ cudaError_t grid_route(int B, int H, const BwdArgs* args, cudaStream_t stream, B
   const int U = (H + sms - 1) / sms;  // at most one block per SM
   bl->grid_units = U;
   bl->grid_blocks = (H + U - 1) / U;
-  bl->grid_w_shared = grid_bwd_smem<T>(D, D * B, H, U, true) <= size_t(optin);
-  bl->grid_smem = grid_bwd_smem<T>(D, D * B, H, U, bl->grid_w_shared);
-  auto kernel = bl->grid_w_shared ? lstm_bwd_grid_kernel<T, D, true> : lstm_bwd_grid_kernel<T, D, false>;
+  constexpr int kSlots = int(sizeof(kGridBwdRowSlots) / sizeof(int));
+  int first = 0;
+  while (first + 1 < kSlots && kGridBwdLR * kGridBwdRowSlots[first + 1] >= B) ++first;
+  int at = first;
+  auto smem = [&](bool w_shared) { return grid_bwd_smem<T>(D, B, H, U, kGridBwdLR * kGridBwdRowSlots[at], w_shared); };
+  bl->grid_w_shared = true;
+  while (at + 1 < kSlots && smem(true) > size_t(optin)) ++at;
+  if (smem(true) > size_t(optin)) {
+    bl->grid_w_shared = false;
+    at = first;
+    while (at + 1 < kSlots && smem(false) > size_t(optin)) ++at;
+  }
+  bl->grid_rows = kGridBwdLR * kGridBwdRowSlots[at];
+  bl->grid_smem = smem(bl->grid_w_shared);
+  decltype(&lstm_bwd_grid_kernel<T, D, 1, true>) kernel;
+  switch (kGridBwdRowSlots[at] * 2 + int(bl->grid_w_shared)) {
+    case 7: kernel = lstm_bwd_grid_kernel<T, D, 3, true>; break;
+    case 6: kernel = lstm_bwd_grid_kernel<T, D, 3, false>; break;
+    case 5: kernel = lstm_bwd_grid_kernel<T, D, 2, true>; break;
+    case 4: kernel = lstm_bwd_grid_kernel<T, D, 2, false>; break;
+    case 3: kernel = lstm_bwd_grid_kernel<T, D, 1, true>; break;
+    default: kernel = lstm_bwd_grid_kernel<T, D, 1, false>; break;
+  }
   err = occupancy(kernel, bl->grid_smem, &bl->grid_resident, &bl->info.registers, &bl->info.local_bytes);
   if (err == cudaErrorInvalidConfiguration) {  // not one block fits an SM
     bl->grid_resident = 0;
@@ -1354,9 +1509,11 @@ cudaError_t grid_route(int B, int H, const BwdArgs* args, cudaStream_t stream, B
   T* dxp_t = static_cast<T*>(args->dxp);
   float* dh0_t = static_cast<float*>(args->dh0);
   float* dc0_t = static_cast<float*>(args->dc0);
+  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   int steps = args->steps, rows = B, hidden = H, units = U;
+  int vec = (sizeof(T) == 4 || H % 2 == 0) && aligned(args->dxp) && aligned(args->w0) && aligned(args->w1);
   void* kargs[] = {&w0_t, &w1_t, &gates_t, &cs_t, &c0_t, &dhs_t, &dhf_t, &dcf_t,
-                   &dxp_t, &dh0_t, &dc0_t, &steps, &rows, &hidden, &units};
+                   &dxp_t, &dh0_t, &dc0_t, &steps, &rows, &hidden, &units, &vec};
   err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(bl->grid_blocks), dim3(kThreads), kargs,
                                     bl->grid_smem, stream);
   if (err != cudaSuccess) return err;
@@ -1433,13 +1590,24 @@ template <typename T>
 cudaError_t launch_dwhh(const void* hs, const void* h0, const void* dxp, void* dw0, void* dw1,
                         int T_, int B, int D, int H, void* stream) {
   if (T_ <= 0 || B <= 0 || H <= 0 || (D != 1 && D != 2)) return cudaErrorInvalidValue;
-  const dim3 grid((H + kDwTile - 1) / kDwTile, (4 * H + kDwTile - 1) / kDwTile, D);
   auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   const bool vec = H % 4 == 0 && aligned(hs) && aligned(h0) && aligned(dxp);
-  auto kernel = vec ? lstm_dwhh_kernel<T, true> : lstm_dwhh_kernel<T, false>;
-  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(hs), static_cast<const float*>(h0), static_cast<const T*>(dxp),
-      static_cast<float*>(dw0), static_cast<float*>(dw1), T_, B, D, H);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (sizeof(T) == 2) {
+    const dim3 grid((H + kDwTile - 1) / kDwTile, (4 * H + kDwTile - 1) / kDwTile, D);
+    auto kernel = vec ? lstm_dwhh_kernel<T, true> : lstm_dwhh_kernel<T, false>;
+    kernel<<<grid, kThreads, 0, s>>>(static_cast<const float*>(hs), static_cast<const float*>(h0),
+                                     static_cast<const T*>(dxp), static_cast<float*>(dw0),
+                                     static_cast<float*>(dw1), T_, B, D, H);
+  } else {
+    const dim3 grid((H + kDwfM - 1) / kDwfM, (4 * H + kDwfN - 1) / kDwfN, D);
+    auto kernel = vec ? lstm_dwhh_f32_kernel<true> : lstm_dwhh_f32_kernel<false>;
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kDwfSmem));
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kDwfThreads, kDwfSmem, s>>>(static_cast<const float*>(hs), static_cast<const float*>(h0),
+                                           static_cast<const float*>(dxp), static_cast<float*>(dw0),
+                                           static_cast<float*>(dw1), T_, B, D, H);
+  }
   return cudaGetLastError();
 }
 

@@ -140,22 +140,34 @@
 //
 // lstm_fwd_grid_kernel, the grid route (lstm_fwd_grid and bilstm_fwd_grid in
 // chip_smoke.py's kernels line), for the shapes neither walk holds (fp32 at
-// H = 800, whose W_hh is 10.24 MB a direction; a split walk whose clusters
-// are not all resident at once, such as two directions of 24 rows): the port's first
-// forward kernel, a persistent cooperative grid.  Block b owns U = ceil(H /
-// #SMs) units (7 at H = 800 on 132 SMs, 115 blocks, all co-resident) and
-// keeps their 4U gate columns of each W_hh in shared memory; each step it
-// stages all of h[t-1] from L2, multiplies on CUDA cores (8 threads a dot
-// product), applies the cell update of its units and crosses a grid-wide
-// barrier (cooperative_groups::this_grid().sync()), 16 rows of h staged at
-// a time, or 8 where 16 do not fit beside the columns (two directions in
-// fp32 at H = 800: 232,640 B with 16, 207,040 B with 8).  A shape neither
-// route holds is refused before the launch.
+// H = 800, whose W_hh is 10.24 MB a direction, and at H = 768, the GE2E
+// speaker encoder's 16 to 96 rows; a split walk whose clusters are not all
+// resident at once, such as two directions of 24 rows): a persistent
+// cooperative grid.  Block b owns U = ceil(H / #SMs) units (6 at H = 768 on
+// 132 SMs, 128 blocks; 7 at H = 800, 115), all co-resident (checked before
+// the launch), and keeps their 4U gate columns of each W_hh in shared
+// memory, k contiguous.  A step: h[t-1] streams from L2 through the block in
+// chunks of 64 k by cp.async, the next chunk in flight while the current
+// one multiplies; each thread accumulates a register tile of up to 12 rows
+// x 8 units of one gate (up to 96 rows a pass; more rows take more passes)
+// over its warp's quads of k, 16 FMAs a 128-bit shared load; the eight
+// warps' partials (in the chunks' bytes) add in warp order in the cell
+// update; one grid-wide
+// barrier (cooperative_groups::this_grid().sync()) ends the step
+// (lstm_grid.cuh).  Why: the port's first grid kernel gave each dot product
+// to 8 lanes with one accumulator a lane, two shared loads an FMA, W's rows
+// H floats apart in the same banks and h staged by plain loads between
+// barriers: at [80, 96], H = 768, 72% of a step in the product and 25% in
+// the staging, 16.8 ms in all against cuDNN's 3.75.  Shared memory at the
+// GE2E step's 96 rows: 202,368 B; two directions in fp32 at H = 800, 8 rows
+// a pass: 199,232 B.  A shape neither route holds is refused before the
+// launch.
 //
 // Sum order, fixed, so the same inputs give the same bits: wgmma's own
 // order within a warpgroup (on the split walk its virtual k-steps in
 // order), then the three partials in order (bf16); each lane's slice of K
-// in order, then a fixed shuffle tree (fp32, and the grid route).  No float
+// in order, then a fixed shuffle tree (fp32); on the grid route each warp's
+// quads of k in order, then the warps' partials in warp order.  No float
 // atomics; the split walk's counters only count.
 //
 // What bounds them on the card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16 dense),
@@ -180,6 +192,7 @@
 
 #include "conv_tile.cuh"     // kThreads, to_float, align16, ldmatrix, mma.sync
 #include "lstm_cluster.cuh"  // kCluster, the cluster primitives, owned columns, row groups
+#include "lstm_grid.cuh"     // the grid route's product
 
 namespace cg = cooperative_groups;
 
@@ -878,18 +891,43 @@ lstm_fwd_split_kernel(const __nv_bfloat16* __restrict__ xp,  // [T, R, 4H]
 // The grid route
 // ---------------------------------------------------------------------------
 
-constexpr int kGroups = kThreads / kLanes;  // dot products per pass
-constexpr int kRowChunk = 16;               // rows of h staged at a time, where they fit
+// Rows a pass takes at most: 8 x the row slots of a lane (kGridLR lanes
+// along the rows), one of these.
+constexpr int kGridLR = 8;
+constexpr int kGridRowSlots[] = {12, 6, 4, 2, 1};
 
-// Shared memory of the grid route with `chunk` rows of h staged at a time.
-template <typename T>
-__host__ __device__ constexpr size_t grid_smem_bytes(int D, int R, int H, int U, int chunk) {
-  return align16(size_t(D) * 4 * U * H * sizeof(T)) +
-         (size_t(chunk) * H + size_t(R) * 4 * U + size_t(R) * U) * sizeof(float);
+// Floats of the grid route's scratch for rows_pass rows a pass of B rows a
+// direction: two chunks of h [rows_pass][grid_lda], then, in the same bytes
+// once the product is done, the warps' partials [kGridWarps][min(rows_pass,
+// B)][4 min(U, kGridUnits)].
+__host__ __device__ constexpr size_t grid_scratch(int B, int U, int rows_pass) {
+  const size_t chunks = size_t(2) * rows_pass * grid_lda<float>();
+  const size_t partials = size_t(kGridWarps) * (rows_pass < B ? rows_pass : B) * 4 * (U < kGridUnits ? U : kGridUnits);
+  return chunks > partials ? chunks : partials;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+// Shared memory of the grid route for D directions of B rows, U units a
+// block and rows_pass = kGridLR x RI rows a pass: W_hh's columns [D][4U]
+// [grid_ld(H)] (T), the scratch and c [D B][U] (fp32).
+template <typename T>
+constexpr size_t grid_smem_bytes(int D, int B, int H, int U, int rows_pass) {
+  return align16(size_t(D) * 4 * U * grid_ld(H) * sizeof(T)) +
+         (grid_scratch(B, U, rows_pass) + size_t(D) * B * U) * sizeof(float);
+}
+
+// Block b owns units [b U, b U + U) (fewer in the last block) and keeps
+// their 4U columns of each direction's W_hh in shared memory, column
+// u 4 + g of direction d for gate g of unit u, k contiguous.  Per step t,
+// for each direction, block of at most kGridUnits units and pass of at most
+// kGridLR RI rows: h[t-1] of the pass's rows (h0 at t = 0) streams through
+// in chunks of kGridKC k (cp.async, the next chunk in flight while the
+// current one multiplies; lstm_grid.cuh), each thread's RI x units tile of
+// pre-activations (its gate, rows lr + 8 i) accumulates in registers over
+// its warp's quads, the warps' partials add in warp order in the cell
+// update, which writes hs, cs and the gates of the pass.  Then one
+// grid-wide barrier.  vec: h's rows take 16-byte copies (H a multiple of 4).
+template <typename T, int D, int RI>
+__global__ void __launch_bounds__(kThreads, 1)
 lstm_fwd_grid_kernel(const T* __restrict__ xp,     // [T, R, 4H]
                      const T* __restrict__ w0,     // [H, 4H], rows [0, B)
                      const T* __restrict__ w1,     // [H, 4H], rows [B, 2B) (D == 2)
@@ -898,90 +936,91 @@ lstm_fwd_grid_kernel(const T* __restrict__ xp,     // [T, R, 4H]
                      float* hs,                    // [T, R, H]; read back across blocks
                      float* __restrict__ cs,       // [T, R, H]
                      float* __restrict__ gates,    // [T, R, 4H]
-                     int T_, int B, int H, int U, int RC) {  // RC: rows of h staged at a time
+                     int T_, int B, int H, int U, int vec) {
+  constexpr int RB = kGridLR * RI, LDA = grid_lda<float>();
   cg::grid_group grid = cg::this_grid();
-  const int R = D * B;
-  const int G = 4 * U;  // gate columns owned by this block
-  const int u0 = blockIdx.x * U;
+  const int R = D * B, G4 = 4 * H, LDW = grid_ld(H);
+  const int u0 = blockIdx.x * U, Ub = min(U, H - u0);  // this block's units
+  const int NCB = 4 * min(U, kGridUnits);               // partial columns of a row
+  const int RP = min(RB, B);                            // partial rows
   const int tid = threadIdx.x;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* w_s = reinterpret_cast<T*>(smem_raw);  // [D][G][H]
-  float* h_s = reinterpret_cast<float*>(smem_raw + align16(size_t(D) * G * H * sizeof(T)));
-  float* pre_s = h_s + size_t(RC) * H;  // [R][G]
-  float* c_s = pre_s + size_t(R) * G;   // [R][U]
+  T* w_s = reinterpret_cast<T*>(smem_raw);  // [D][4U][LDW]
+  float* a_s = reinterpret_cast<float*>(smem_raw + align16(size_t(D) * 4 * U * LDW * sizeof(T)));  // [2][RB][LDA]
+  float* part = a_s;                                  // [kGridWarps][RP][NCB], after the product
+  float* c_s = a_s + grid_scratch(B, U, RB);          // [R][U]
 
-  // This block's gate columns of W_hh, column q = gate * U + unit.
-  for (int e = tid; e < D * G * H; e += kThreads) {
-    const int d = e / (G * H);
-    const int q = (e / H) % G;
-    const int k = e % H;
-    const int j = u0 + q % U;
-    const T* W = d ? w1 : w0;
-    w_s[e] = j < H ? W[size_t(k) * 4 * H + size_t(q / U) * H + j] : from_float<T>(0.0f);
+  // W_hh[k, g H + j] at w_s[d][(j - u0) 4 + g][k]; zeros past H (the last
+  // quad of k) and past the block's units
+  for (int e = tid; e < D * 4 * U * LDW; e += kThreads) w_s[e] = from_float<T>(0.0f);
+  __syncthreads();
+  for (int e = tid; e < D * H * 4 * Ub; e += kThreads) {
+    const int u = e % Ub, g = e / Ub % 4, k = e / (4 * Ub) % H, d = e / (4 * Ub * H);
+    w_s[(size_t(d) * 4 * U + u * 4 + g) * LDW + k] = (d ? w1 : w0)[size_t(k) * G4 + g * H + u0 + u];
   }
   for (int e = tid; e < R * U; e += kThreads) {
-    const int r = e / U, j = u0 + e % U;
-    c_s[e] = (c0 != nullptr && j < H) ? c0[size_t(r) * H + j] : 0.0f;
+    const int r = e / U, u = e % U;
+    c_s[e] = c0 != nullptr && u < Ub ? c0[size_t(r) * H + u0 + u] : 0.0f;
   }
   __syncthreads();
 
-  const int group = tid / kLanes, lane = tid % kLanes;
+  const int chunks = (H + kGridKC - 1) / kGridKC;
   for (int t = 0; t < T_; ++t) {
     const float* h_prev = t > 0 ? hs + size_t(t - 1) * R * H : h0;
-    for (int r0 = 0; r0 < R; r0 += RC) {
-      const int rc = min(RC, R - r0);
-      for (int e = tid; e < rc * H; e += kThreads) {
-        const size_t idx = size_t(r0) * H + e;
-        float h = 0.0f;
-        if (t > 0) {
-          h = __ldcg(h_prev + idx);  // written by other blocks: bypass L1
-        } else if (h0 != nullptr) {
-          h = h0[idx];
+    for (int d = 0; d < D; ++d) {
+      for (int ub = 0; ub < Ub; ub += kGridUnits) {
+        const int Uc = min(kGridUnits, Ub - ub);
+        const T* w = w_s + (size_t(d) * 4 * U + ub * 4) * LDW;
+        for (int r0 = 0; r0 < B; r0 += RB) {
+          const int rows = min(RB, B - r0);
+          const float* src = h_prev != nullptr ? h_prev + size_t(d * B + r0) * H : nullptr;
+          // 2: pre[r][u 4 + g] = sum_k round(h[t-1][r][k]) W[k][g H + u0 + ub + u]
+          float acc[RI][kGridUnits];
+#pragma unroll
+          for (int i = 0; i < RI; ++i) {
+#pragma unroll
+            for (int j = 0; j < kGridUnits; ++j) acc[i][j] = 0.0f;
+          }
+          grid_stage<float>(a_s, RB, src, H, rows, 0, H, vec, w0);
+          cp_async_commit();
+          for (int ch = 0; ch < chunks; ++ch) {
+            cp_async_wait<0>();
+            __syncthreads();  // chunk ch staged; every warp is done with chunk ch - 1
+            if (ch + 1 < chunks) {
+              grid_stage<float>(a_s + ((ch + 1) & 1) * RB * LDA, RB, src, H, rows, (ch + 1) * kGridKC, H, vec, w0);
+              cp_async_commit();
+            }
+            const int nq = (min(kGridKC, H - ch * kGridKC) + 3) / 4;
+            grid_product<kGridLR>(acc, a_s + (ch & 1) * RB * LDA, w + ch * kGridKC, LDW, Uc, nq);
+          }
+          __syncthreads();  // every warp is done with the chunks, whose bytes take the partials
+          grid_partials<kGridLR>(part, acc, RP, NCB, rows, Uc);
+          __syncthreads();  // the product complete
+          // 3: the cell update of the pass's rows and the unit block's units
+          for (int e = tid; e < rows * Uc; e += kThreads) {
+            const int r = e / Uc, u = e % Uc, j = u0 + ub + u, rg = d * B + r0 + r;
+            const size_t row = size_t(t) * R + rg;
+            const T* x = xp + row * G4;
+            const float i = sigmoid(to_float(x[j]) + grid_sum(part, RP, NCB, r, u * 4));
+            const float f = sigmoid(to_float(x[H + j]) + grid_sum(part, RP, NCB, r, u * 4 + 1));
+            const float g = tanhf(to_float(x[2 * H + j]) + grid_sum(part, RP, NCB, r, u * 4 + 2));
+            const float o = sigmoid(to_float(x[3 * H + j]) + grid_sum(part, RP, NCB, r, u * 4 + 3));
+            float* cp = c_s + rg * U + ub + u;
+            const float c = f * *cp + i * g;
+            const float h = o * tanhf(c);
+            *cp = c;
+            hs[row * H + j] = h;
+            cs[row * H + j] = c;
+            float* gt = gates + row * G4;
+            gt[j] = i;
+            gt[H + j] = f;
+            gt[2 * H + j] = g;
+            gt[3 * H + j] = o;
+          }
+          __syncthreads();  // the partials read before the next pass stages into their bytes
         }
-        h_s[e] = round_to<T>(h);
       }
-      __syncthreads();
-      const int n_out = rc * G;
-      for (int ob = 0; ob < n_out; ob += kGroups) {  // same trip count in every thread
-        const int o = ob + group;
-        const bool active = o < n_out;
-        float acc = 0.0f;
-        if (active) {
-          const int rl = o / G, q = o % G;
-          const int d = (D == 2 && r0 + rl >= B) ? 1 : 0;
-          const T* w = w_s + (size_t(d) * G + q) * H;
-          const float* h = h_s + size_t(rl) * H;
-          for (int k = lane; k < H; k += kLanes) acc = fmaf(h[k], to_float(w[k]), acc);
-        }
-        acc += __shfl_xor_sync(0xffffffffu, acc, 4);
-        acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-        acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-        if (active && lane == 0) pre_s[size_t(r0) * G + o] = acc;
-      }
-      __syncthreads();
-    }
-
-    for (int e = tid; e < R * U; e += kThreads) {
-      const int r = e / U, u = e % U, j = u0 + u;
-      if (j >= H) continue;
-      const size_t row = size_t(t) * R + r;
-      const T* x = xp + row * 4 * H;
-      const float* p = pre_s + size_t(r) * G;
-      const float i = sigmoid(to_float(x[j]) + p[u]);
-      const float f = sigmoid(to_float(x[H + j]) + p[U + u]);
-      const float g = tanhf(to_float(x[2 * H + j]) + p[2 * U + u]);
-      const float o = sigmoid(to_float(x[3 * H + j]) + p[3 * U + u]);
-      const float c = f * c_s[e] + i * g;
-      const float h = o * tanhf(c);
-      c_s[e] = c;
-      hs[row * H + j] = h;
-      cs[row * H + j] = c;
-      float* gt = gates + row * 4 * H;
-      gt[j] = i;
-      gt[H + j] = f;
-      gt[2 * H + j] = g;
-      gt[3 * H + j] = o;
     }
     grid.sync();  // the whole h[t] is visible before step t + 1 reads it
   }
@@ -1009,7 +1048,7 @@ struct FwdLaunch {
   SplitShape split;    // the split walk
   size_t exchange;     // the split walk: bytes of exchange memory it needs
   int grid_blocks, grid_units;  // grid route: blocks, units a block
-  int grid_chunk;      // grid route: rows of h staged at a time
+  int grid_rows;       // grid route: rows of a pass (the row slots of a block's tile)
   size_t grid_smem;
   int grid_resident;   // grid route: blocks the card holds at once
 };
@@ -1061,40 +1100,42 @@ cudaError_t split_walk(FwdLaunch* fl, int D, const FwdArgs* a, cudaStream_t stre
                       fl->info.groups, fl->info.rows, s.owners, s.first, s.kp);
 }
 
+// The grid route's launch on this card into `fl`, and the launch when a->xp
+// is set: one block per U = ceil(H / SMs) units, all resident at once (else
+// cudaErrorCooperativeLaunchTooLarge, before anything launches); rows a pass
+// the fewest row slots that hold a direction's rows, fewer where those do
+// not fit in shared memory.
 template <typename T, int D>
 cudaError_t grid_route(FwdLaunch* fl, const FwdArgs* a, cudaStream_t stream) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  int sms = 0, optin = 0;
+  cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  const int B = a->B, H = a->H;
-  fl->grid_units = (H + sms - 1) / sms;  // at most one block per SM
-  fl->grid_blocks = (H + fl->grid_units - 1) / fl->grid_units;
-  // kRowChunk rows of h staged at a time, fewer where those do not fit
-  // beside the columns (two directions in fp32 at H = 800: 8)
-  int optin = 0;
   err = smem_optin(&optin);
   if (err != cudaSuccess) return err;
-  fl->grid_chunk = kRowChunk;
-  while (fl->grid_chunk > 1 &&
-         grid_smem_bytes<T>(D, D * B, H, fl->grid_units, fl->grid_chunk) > size_t(optin)) {
-    fl->grid_chunk /= 2;
+  const int B = a->B, H = a->H;
+  const int U = (H + sms - 1) / sms;  // at most one block per SM
+  fl->grid_units = U;
+  fl->grid_blocks = (H + U - 1) / U;
+  constexpr int kSlots = int(sizeof(kGridRowSlots) / sizeof(int));
+  int at = 0;
+  while (at + 1 < kSlots && kGridLR * kGridRowSlots[at + 1] >= B) ++at;
+  while (at + 1 < kSlots && grid_smem_bytes<T>(D, B, H, U, kGridLR * kGridRowSlots[at]) > size_t(optin)) ++at;
+  fl->grid_rows = kGridLR * kGridRowSlots[at];
+  fl->grid_smem = grid_smem_bytes<T>(D, B, H, U, fl->grid_rows);
+  decltype(&lstm_fwd_grid_kernel<T, D, 1>) kernel;
+  switch (kGridRowSlots[at]) {
+    case 12: kernel = lstm_fwd_grid_kernel<T, D, 12>; break;
+    case 6: kernel = lstm_fwd_grid_kernel<T, D, 6>; break;
+    case 4: kernel = lstm_fwd_grid_kernel<T, D, 4>; break;
+    case 2: kernel = lstm_fwd_grid_kernel<T, D, 2>; break;
+    default: kernel = lstm_fwd_grid_kernel<T, D, 1>; break;
   }
-  fl->grid_smem = grid_smem_bytes<T>(D, D * B, H, fl->grid_units, fl->grid_chunk);
-  auto kernel = lstm_fwd_grid_kernel<T, D>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(fl->grid_smem));
-  if (err != cudaSuccess) return err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, fl->grid_smem);
-  if (err != cudaSuccess) return err;
-  fl->grid_resident = per_sm * sms;
-  cudaFuncAttributes fa;
-  err = cudaFuncGetAttributes(&fa, kernel);
-  if (err != cudaSuccess) return err;
-  fl->info.registers = fa.numRegs;
-  fl->info.local_bytes = int(fa.localSizeBytes);
-  if (a->xp == nullptr) return cudaSuccess;  // the launch shape only
+  err = occupancy(kernel, fl->grid_smem, &fl->grid_resident, &fl->info.registers, &fl->info.local_bytes);
+  if (err == cudaErrorInvalidConfiguration) {  // not one block fits an SM
+    fl->grid_resident = 0;
+    err = cudaSuccess;
+  }
+  if (err != cudaSuccess || a->xp == nullptr) return err;  // the launch shape only
   if (fl->grid_resident < fl->grid_blocks) return cudaErrorCooperativeLaunchTooLarge;
   const T* xp_t = static_cast<const T*>(a->xp);
   const T* w0_t = static_cast<const T*>(a->w0);
@@ -1104,9 +1145,11 @@ cudaError_t grid_route(FwdLaunch* fl, const FwdArgs* a, cudaStream_t stream) {
   float* hs_t = static_cast<float*>(a->hs);
   float* cs_t = static_cast<float*>(a->cs);
   float* gates_t = static_cast<float*>(a->gates);
-  int steps = a->steps, rows = B, hidden = H, units = fl->grid_units, chunk = fl->grid_chunk;
+  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  int steps = a->steps, rows = B, hidden = H, units = U;
+  int vec = H % 4 == 0 && aligned(a->hs) && aligned(a->h0);
   void* args[] = {&xp_t, &w0_t, &w1_t, &h0_t, &c0_t, &hs_t, &cs_t, &gates_t,
-                  &steps, &rows, &hidden, &units, &chunk};
+                  &steps, &rows, &hidden, &units, &vec};
   err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(fl->grid_blocks), dim3(kThreads), args,
                                     fl->grid_smem, stream);
   if (err != cudaSuccess) return err;

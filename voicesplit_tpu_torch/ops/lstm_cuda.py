@@ -10,7 +10,8 @@ kernel is chosen from the shape before the launch: the cluster walk
 model at H=400), else in bf16 the split walk (``lstm_fwd_split_kernel``:
 two clusters a direction and row group, H=800) wherever the card holds all
 its clusters at once, else the grid route (``lstm_fwd_grid_kernel``: fp32
-at H=800); ``ROUTES`` counts the forward launches by route.  The split walk
+at H=800, and at H=768 the GE2E speaker encoder's); ``ROUTES`` counts the
+forward launches by route.  The split walk
 takes scratch memory for its exchange between the two clusters, which the
 wrapper allocates (``_exchange``) and the kernel's C function zeroes.
 
@@ -18,7 +19,8 @@ Backward (`csrc/lstm_bwd.cu`): ``lstm_bwd`` replaces ``_bwd_kernel`` and
 ``bilstm_bwd`` replaces ``_bwd2_kernel``: the reverse walk that gives
 ``dxp`` (in the type of x) and, for one direction, ``dh0, dc0``, then the
 dW_hh kernel (``lstm_dwhh``, float32 ``dW_hh`` from the saved ``hs`` and
-``dxp``), both launched by one call.  They read ``hs[t-1]`` and ``cs[t-1]``
+``dxp``; bf16 operands on tensor cores, fp32 ones a CUDA-core GEMM), both
+launched by one call.  They read ``hs[t-1]`` and ``cs[t-1]``
 in place, where the JAX wrappers build shifted copies.  Both walks split a
 direction's rows into row groups, one thread-block cluster each, so they
 take any batch of which one row fits (`launch_config` reports the groups).
@@ -118,7 +120,7 @@ def launch_config(
     or "grid" (the grid route: ``cluster`` 0,
     and the blocks the card holds at once under ``resident_blocks``; the
     backward's also ``w_shared``, whether W_hh's rows sit in shared memory
-    or are read through L2)."""
+    or are staged from L2 beside dgates chunk by chunk)."""
     route, w_shared, ints = ctypes.c_int(), ctypes.c_int(), [ctypes.c_int() for _ in range(9)]
     smem = ctypes.c_longlong()
     refs = [ctypes.byref(ints[0]), ctypes.byref(ints[1]), ctypes.byref(smem),

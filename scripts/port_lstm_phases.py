@@ -58,10 +58,11 @@ writes to the global slot) of block 0 and thread 0 of block 16:
   then the counter) and loading the next step's inputs.
 
 The grid routes (``lstm_fwd_grid_kernel``: ``lstm_fwd`` at [80, 96], [80,
-32] and [80, 16], H=768, fp32, the GE2E encoder's shapes;
-``lstm_bwd_grid_kernel``: ``lstm_bwd`` at [80, 96], H=768, fp32, on the
-plain forward's outputs), thread 0 and thread 255 of block 0, cycles a
-step of:
+32] and [80, 16], H=768, fp32, the GE2E encoder's shapes, and at B=1,
+T=301, H=800, fp32; ``lstm_bwd_grid_kernel``: ``lstm_bwd`` at [80, 96],
+H=768, fp32, and at B=2, T=301, H=800, fp32, ``bilstm_bwd`` at B=24, T=301,
+H=800, bf16; on the plain forward's outputs), thread 0 and thread 255 of
+block 0, cycles a step of:
 
 - ``stage``: staging the step's row operand (h[t-1], or dgates[t+1]) into
   shared memory, with the waits and barriers that complete it (after the
@@ -204,9 +205,12 @@ extern "C" int lstm_fwd_split_phases(unsigned long long* host) {
 """
 
 
-GRID_CASES = ((80, 96), (80, 32), (80, 16))  # (T, rows) of lstm_fwd at GRID_HIDDEN, fp32
-GRID_BWD_CASES = ((80, 96),)                 # the same of lstm_bwd
-GRID_HIDDEN = 768
+# the grid routes' cases: (directions, rows a direction, H, T, operand type):
+# the GE2E encoder's (H=768), then fp32 at H=800 and two directions of 24
+# rows in bf16 at H=800 (the split walk's clusters not all resident)
+GRID_CASES = ((1, 96, 768, 80, "float32"), (1, 32, 768, 80, "float32"), (1, 16, 768, 80, "float32"),
+              (1, 1, 800, 301, "float32"))
+GRID_BWD_CASES = ((1, 96, 768, 80, "float32"), (1, 2, 800, 301, "float32"), (2, 24, 800, 301, "bfloat16"))
 GRID_PHASES = ("stage", "product", "cell", "barrier")
 GRID_READER = """
 extern "C" int {name}_phases(unsigned long long* host) {{
@@ -268,18 +272,18 @@ GRID_FIRST = {
 # added in the cell update (lstm_grid.cuh)
 GRID_REDESIGN = {
     "lstm_fwd_grid": (("lstm_fwd_grid_kernel(const T* __restrict__ xp", "// Launches"), (
-        ("  const int chunks = (H + kGridKC - 1) / kGridKC;\n",
-         "  const int chunks = (H + kGridKC - 1) / kGridKC;\n  unsigned long long gp[5] = {0, 0, 0, 0, 0};\n"),
-        ("          grid_stage<float>(a_s, RB, src, H, rows, 0, H, vec, w0);\n          cp_async_commit();\n",
-         "          long long ts_ = clock64();\n          grid_stage<float>(a_s, RB, src, H, rows, 0, H, vec, w0);\n"
+        ("  const int chunks = grid_chunks(H, KC);\n",
+         "  const int chunks = grid_chunks(H, KC);\n  unsigned long long gp[5] = {0, 0, 0, 0, 0};\n"),
+        ("          grid_stage<float, KC>(a_s, RB, src, H, rows, 0, H, vec, w0);\n          cp_async_commit();\n",
+         "          long long ts_ = clock64();\n          grid_stage<float, KC>(a_s, RB, src, H, rows, 0, H, vec, w0);\n"
          "          cp_async_commit();\n          gp[0] += clock64() - ts_;\n"),
         ("            cp_async_wait<0>();\n",
          "            long long ta_ = clock64();\n            cp_async_wait<0>();\n"),
         ("              cp_async_commit();\n            }\n            const int nq",
          "              cp_async_commit();\n            }\n            long long tb_ = clock64();\n"
          "            gp[0] += tb_ - ta_;\n            const int nq"),
-        ("            grid_product<kGridLR>(acc, a_s + (ch & 1) * RB * LDA, w + ch * kGridKC, LDW, Uc, nq);\n",
-         "            grid_product<kGridLR>(acc, a_s + (ch & 1) * RB * LDA, w + ch * kGridKC, LDW, Uc, nq);\n"
+        ("            grid_product<LR, KC>(acc, a_s + (ch & 1) * RB * LDA, w + ch * KC, LDW, jn, nq);\n",
+         "            grid_product<LR, KC>(acc, a_s + (ch & 1) * RB * LDA, w + ch * KC, LDW, jn, nq);\n"
          "            gp[1] += clock64() - tb_;\n"),
         ("          __syncthreads();  // every warp is done with the chunks, whose bytes take the partials\n",
          "          long long tc_ = clock64();\n"
@@ -292,8 +296,8 @@ GRID_REDESIGN = {
          + _GRID_STORE.format(name="lstm_fwd_grid")),
     )),
     "lstm_bwd_grid": (("lstm_bwd_grid_kernel(const T* __restrict__ w0", "// Launches"), (
-        ("  const int chunks = (G4 + kGridKC - 1) / kGridKC;\n",
-         "  const int chunks = (G4 + kGridKC - 1) / kGridKC;\n  unsigned long long gp[5] = {0, 0, 0, 0, 0};\n"
+        ("  const int chunks = grid_chunks(G4, KC);\n",
+         "  const int chunks = grid_chunks(G4, KC);\n  unsigned long long gp[5] = {0, 0, 0, 0, 0};\n"
          "  long long tc_ = 0;\n"),
         ("            stage(0);\n",
          "            long long ts_ = clock64();\n            stage(0);\n            gp[0] += clock64() - ts_;\n"),
@@ -302,11 +306,11 @@ GRID_REDESIGN = {
         ("              if (ch + 1 < chunks) stage(ch + 1);\n",
          "              if (ch + 1 < chunks) stage(ch + 1);\n              long long tb_ = clock64();\n"
          "              gp[0] += tb_ - ta_;\n"),
-        ("              grid_product<kGridBwdLR>(acc, a_s + (ch & 1) * RB * LDA, w, LDW, Uc, nq);\n",
-         "              grid_product<kGridBwdLR>(acc, a_s + (ch & 1) * RB * LDA, w, LDW, Uc, nq);\n"
+        ("              grid_product<LR, KC>(acc, a_s + (ch & 1) * RB * LDA, w, LDW, jn, nq);\n",
+         "              grid_product<LR, KC>(acc, a_s + (ch & 1) * RB * LDA, w, LDW, jn, nq);\n"
          "              gp[1] += clock64() - tb_;\n"),
-        ("            grid_partials<kGridBwdLR>(part, acc, RP, NCB, rows, Uc);\n",
-         "            tc_ = clock64();\n            grid_partials<kGridBwdLR>(part, acc, RP, NCB, rows, Uc);\n"),
+        ("            grid_partials<LR>(part, acc, RP, NCB, rows, Uc);\n",
+         "            tc_ = clock64();\n            grid_partials<LR>(part, acc, RP, NCB, rows, Uc);\n"),
         ("            dx[3 * H + j] = from_float<T>(dout * o * (1.0f - o));\n          }\n",
          "            dx[3 * H + j] = from_float<T>(dout * o * (1.0f - o));\n          }\n"
          "          if (product) gp[2] += clock64() - tc_;\n"),
@@ -487,30 +491,35 @@ def main(argv=None) -> int:
         for i, who in enumerate(("block0_thread0", "block0_thread256", "block16_thread0")):
             out[f"cycles_a_step_{who}"] = dict(zip(BWD_PHASES, cycles[8 * i:8 * i + 6]))
         print(json.dumps(out), flush=True)
-    grid_cases = [("grid", "lstm_fwd", T, R) for T, R in GRID_CASES if "grid" in walks]
-    grid_cases += [("grid_bwd", "lstm_bwd", T, R) for T, R in GRID_BWD_CASES if "grid_bwd" in walks]
-    for walk, name, T, R in grid_cases:
-        H, counts = GRID_HIDDEN, lstm_cuda.ROUTES if walk == "grid" else lstm_cuda.ROUTES_BWD
+    grid_cases = [("grid", "lstm_fwd", *c) for c in GRID_CASES if "grid" in walks]
+    grid_cases += [("grid_bwd", "lstm_bwd", *c) for c in GRID_BWD_CASES if "grid_bwd" in walks]
+    for walk, name, D, B, H, T, dt in grid_cases:
+        counts, R, dtype = lstm_cuda.ROUTES if walk == "grid" else lstm_cuda.ROUTES_BWD, D * B, getattr(torch, dt)
         s = H ** -0.5
-        xp = (torch.randn(T, R, 4 * H, generator=g) * 0.5).cuda()
-        w = torch.empty(H, 4 * H).uniform_(-s, s, generator=g).cuda()
+        xp = (torch.randn(T, R, 4 * H, generator=g) * 0.5).to("cuda", dtype)
+        ws = [torch.empty(H, 4 * H).uniform_(-s, s, generator=g).to("cuda", dtype) for _ in range(D)]
         h0, c0, dhf, dcf = (torch.randn(R, H, generator=g).cuda() for _ in range(4))
+        dhs = torch.randn(T, R, H, generator=g).cuda()
+        with torch.inference_mode():
+            if D == 1:
+                hs, cs, gates = lstm_cuda.lstm_fwd_ref(xp, ws[0], h0, c0)
+            else:
+                hs, cs, gates = lstm_cuda.bilstm_fwd_ref(xp, ws[0], ws[1])
         if walk == "grid":
-            run = lambda: lstm_cuda.lstm_fwd(xp, w, h0, c0)  # noqa: E731
-        else:
-            dhs = torch.randn(T, R, H, generator=g).cuda()
-            with torch.inference_mode():
-                hs, cs, gates = lstm_cuda.lstm_fwd_ref(xp, w, h0, c0)
+            run = lambda: lstm_cuda.lstm_fwd(xp, ws[0], h0, c0)  # noqa: E731
+        elif D == 1:
             run = lambda: lstm_cuda.lstm_bwd(  # noqa: E731
-                w, gates, cs, hs, h0, c0, dhs, dhf, dcf, torch.float32)
+                ws[0], gates, cs, hs, h0, c0, dhs, dhf, dcf, dtype)
+        else:
+            run = lambda: lstm_cuda.bilstm_bwd(ws[0], ws[1], gates, cs, hs, dhs, dtype)  # noqa: E731
         routes = dict(counts)
         ms = _timed(torch, run)
         buf = (ctypes.c_ulonglong * 8)()
         lstm_cuda._raise_on(getattr(lib, f"{name}_grid_phases")(ctypes.addressof(buf)), f"{name}_grid_phases")
         cycles = list(buf)
         out = {"tag": args.tag, "root": str(Path(args.root).resolve()), "nvidia_smi": smi, "walk": walk,
-               "route": [k for k, v in counts.items() if v != routes[k]], "kernel": name, "T": T,
-               "rows": R, "H": H, "dtype": "float32", "ms_with_counters": ms,
+               "route": [k for k, v in counts.items() if v != routes[k]], "kernel": name if D == 1 else "bi" + name,
+               "T": T, "batch": B, "H": H, "dtype": dt, "ms_with_counters": ms,
                "cycles_a_step_thread0": dict(zip(GRID_PHASES, cycles[:4])),
                "cycles_a_step_thread255": dict(zip(GRID_PHASES, cycles[4:]))}
         print(json.dumps(out), flush=True)

@@ -20,8 +20,9 @@ shapes of their paths (T=301 frames, H=400 units unless said):
   its error instead of a time);
 - at H=800 (`configs/voicesplit_wide.json`) ``lstm_fwd`` at B=1 and B=2,
   ``bilstm_fwd`` at B=8 (the evaluation sweep's padded batch), ``lstm_bwd``
-  at B=2 and ``bilstm_bwd`` at B=8, the backward on the plain forward's
-  outputs;
+  at B=2 and ``bilstm_bwd`` at B=8, and both two-direction wrappers at B=24
+  (more clusters of the split walk than the card holds at once: the grid
+  route in bf16 too), the backward on the plain forward's outputs;
 - the GE2E speaker encoder's shapes (fp32 only, H=768, T=80 frames):
   ``lstm_fwd`` at 96 rows (a training step), 32 (an extraction batch) and
   16 (the training CLI's held-out EER batch), ``lstm_bwd`` at 96 rows on
@@ -69,13 +70,14 @@ ENCODER_FRAMES, ENCODER_HIDDEN = 80, 768
 FORWARD = {"lstm_fwd_B1": (1, 1, HIDDEN, T_FRAMES), "lstm_fwd_B2": (1, 2, HIDDEN, T_FRAMES),
            "bilstm_fwd_B8": (2, 8, HIDDEN, T_FRAMES), "bilstm_fwd_B24": (2, 24, HIDDEN, T_FRAMES),
            "lstm_fwd_B1_H800": (1, 1, WIDE, T_FRAMES), "lstm_fwd_B2_H800": (1, 2, WIDE, T_FRAMES),
-           "bilstm_fwd_B8_H800": (2, 8, WIDE, T_FRAMES),
+           "bilstm_fwd_B8_H800": (2, 8, WIDE, T_FRAMES), "bilstm_fwd_B24_H800": (2, 24, WIDE, T_FRAMES),
            "encoder_lstm_fwd_R96": (1, 96, ENCODER_HIDDEN, ENCODER_FRAMES),
            "encoder_lstm_fwd_R32": (1, 32, ENCODER_HIDDEN, ENCODER_FRAMES),
            "encoder_lstm_fwd_R16": (1, 16, ENCODER_HIDDEN, ENCODER_FRAMES)}
 BACKWARD = {"lstm_bwd_B2": (1, 2, HIDDEN, T_FRAMES), "bilstm_bwd_B8": (2, 8, HIDDEN, T_FRAMES),
             "bilstm_bwd_B24": (2, 24, HIDDEN, T_FRAMES),
             "lstm_bwd_B2_H800": (1, 2, WIDE, T_FRAMES), "bilstm_bwd_B8_H800": (2, 8, WIDE, T_FRAMES),
+            "bilstm_bwd_B24_H800": (2, 24, WIDE, T_FRAMES),
             "encoder_lstm_bwd_R96": (1, 96, ENCODER_HIDDEN, ENCODER_FRAMES)}
 LIBRARY = ("lstm_fwd_B1", "lstm_fwd_B2", "bilstm_fwd_B8", "lstm_bwd_B2", "bilstm_bwd_B8",
            "lstm_fwd_B1_H800", "lstm_fwd_B2_H800", "bilstm_fwd_B8_H800", "lstm_bwd_B2_H800",

@@ -1394,8 +1394,9 @@ def test_ge2e_step_runs_through_the_kernels_on_card():
 
 # rows of the fp32 grid routes at the GE2E encoder's width (T=80, H=768):
 # one row, a pass's row slots partly used (9, 17, 95), whole (16, 32, 96;
-# the encoder's held-out EER, extraction and training batches)
-GRID_ROWS = [1, 9, 16, 17, 32, 95, 96]
+# the encoder's held-out EER, extraction and training batches; 48: the
+# forward's 6 and the backward's 2 row slots a lane)
+GRID_ROWS = [1, 9, 16, 17, 32, 48, 95, 96]
 
 
 def _grid_case(D, B, H, T, dtype, seed):
@@ -1444,11 +1445,14 @@ def test_grid_routes_at_the_encoder_width_on_card(rows):
 
 # other shapes of the grid routes: (directions, rows a direction, H, T,
 # operand type): H not a multiple of 4 (h staged by plain loads), more units
-# a block than a unit block holds (H=1100: 9 units, blocks of 8 and 1), two
-# directions whose W_hh rows leave shared memory in the backward (H=1000),
-# the wide config's fp32 shapes and bf16 two directions of 24 rows
-GRID_SHAPES = [(1, 3, 802, 7, "float32"), (1, 3, 1100, 5, "float32"), (1, 2, 800, 41, "float32"),
-               (2, 8, 800, 41, "float32"), (2, 24, 800, 9, "bfloat16")]
+# a block than a unit block holds (H=1100: 9 units, blocks of 8 and 1), the
+# wide config's fp32 shapes (one and two rows a pass, one lane a column),
+# bf16 two directions of 24 rows, and two directions where the longer
+# chunks do not fit beside W_hh (H=832 at 4 rows, H=800 at 32: the short
+# ones)
+GRID_SHAPES = [(1, 3, 802, 7, "float32"), (1, 3, 1100, 5, "float32"), (1, 1, 800, 41, "float32"),
+               (1, 2, 800, 41, "float32"), (2, 8, 800, 41, "float32"), (2, 24, 800, 9, "bfloat16"),
+               (2, 4, 832, 9, "float32"), (2, 32, 800, 5, "float32")]
 
 
 @pytest.mark.gpu

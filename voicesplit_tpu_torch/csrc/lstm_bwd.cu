@@ -172,24 +172,26 @@
 // first: more blocks than the card holds is refused, not hung) and keeps its
 // U rows of each W_hh [U][4H] in shared memory.  Per reverse step the rows
 // of dgates[t+1] (from dxp, which every block wrote before the last
-// barrier) stream through from L2 in chunks of 64 columns by cp.async, the
-// next chunk in flight while the current one multiplies; each thread
-// accumulates dh_rec of its rows (up to 3 of a 96-row pass, lanes along the
-// rows) and the block's units over its warp's quads of columns; the warps'
-// partials add in warp order where the block computes its units' 4U columns
-// of dgates into dxp; one grid.sync() ends the step (lstm_grid.cuh).  Why:
-// the port's first grid kernel staged dgates by 4-byte plain loads between
-// barriers and gave each dot product to a warp with two shared loads an
-// FMA: at [80, 96], H = 768, 75% of a step in the product and 22% in the
-// staging.  Now the staging of all R x 4H dgates of a step into every block
-// (151 MB from L2 a step at the GE2E shape) takes the larger share.  Owning
-// the columns instead and exchanging each block's partial dh_rec of every
-// unit through L2 (half the bytes, all to all) was slower on the card:
-// whichever side of the exchange is scattered, reads or writes, costs more
-// than the contiguous broadcast of dgates.  Shared memory at the GE2E
-// shape: 146,784 B; W_hh's rows stay in shared memory wherever they fit
-// beside the chunks (two directions in fp32 at H = 800 too: 199,072 B),
-// else they are staged with dgates chunk by chunk, chosen from the shape.
+// barrier) stream through from L2 in chunks by cp.async, the next chunk in
+// flight while the current one multiplies; each thread accumulates dh_rec
+// of its rows and units over its warp's quads of columns (lstm_grid.cuh): 3
+// rows x all units (96-row passes, lanes along the rows, chunks of 64
+// columns), 3 rows x every fourth unit (24-row passes), or its own unit of
+// one or two rows over whole rows of dgates; the warps' partials add in
+// warp order where the block computes its units' 4U columns of dgates into
+// dxp; one grid.sync() ends the step.  Why: the port's first grid kernel
+// staged dgates by 4-byte plain loads between barriers and gave each dot
+// product to a warp with two shared loads an FMA: at [80, 96], H = 768, 75%
+// of a step in the product and 22% in the staging.  Now the staging of all
+// R x 4H dgates of a step into every block (151 MB from L2 a step at the
+// GE2E shape) takes the larger share.  Owning the columns instead and
+// exchanging each block's partial dh_rec of every unit through L2 (half the
+// bytes, all to all) was slower on the card: whichever side of the exchange
+// is scattered, reads or writes, costs more than the contiguous broadcast of
+// dgates.  Shared memory at the GE2E shape: 146,784 B; W_hh's rows stay in
+// shared memory wherever they fit beside the chunks (two directions in fp32
+// at H = 800 too: 231,072 B), else they are staged with dgates chunk by
+// chunk, chosen from the shape.
 // dW_hh is lstm_dwhh_kernel's (lstm_dwhh_f32_kernel's in fp32), after the
 // walk, as on the cluster walk: the same dxp gives the same dW_hh bits on
 // either route.
@@ -1205,38 +1207,51 @@ lstm_bwd_split_kernel(const __nv_bfloat16* __restrict__ w0,  // [H, 4H], rows [0
 // The grid route
 // ---------------------------------------------------------------------------
 
-// Lanes along the rows: all 32 of a warp (each thread every unit of its
-// rows); rows a pass: 32 x the row slots of a lane, one of these.
-constexpr int kGridBwdLR = 32;
-constexpr int kGridBwdRowSlots[] = {3, 2, 1};
+// A pass's tile shape: lanes along the rows (32, each thread every unit of
+// its rows; 8, four lanes sharing a row's units; or 1, each lane a unit),
+// row slots of a lane and bytes of a staged chunk of a dgates row (the
+// whole row where a pass has one or two rows).  A launch
+// takes the first shape (in this order) whose rows hold a direction's, or a
+// later one where that does not fit in shared memory beside W_hh's rows,
+// else the same with W_hh staged.
+struct GridBwdPass {
+  int lr, ri, chunk_bytes;
+};
+constexpr GridBwdPass kGridBwdPasses[] = {{32, 3, 256}, {32, 2, 256},  {32, 1, 2048},  {32, 1, 256},
+                                          {8, 3, 2048}, {8, 1, 3072},  {8, 1, 256},    {1, 2, 13312},
+                                          {1, 1, 13312}, {1, 1, 256}};
+constexpr int kGridBwdPassCount = int(sizeof(kGridBwdPasses) / sizeof(GridBwdPass));
 
 // Shared memory of the grid route for D directions of B rows, U units a
-// block and rows_pass rows a pass: the block's rows of W_hh [D][U]
-// [grid_ld(4H)] (T) when `w_shared`, else two chunks of them [2][kGridUnits]
-// [grid_lda]; two chunks of dgates [rows_pass][grid_lda] (T); the warps'
-// partials [kGridWarps][min(rows_pass, B)][min(U, kGridUnits)] and the
-// carried dc [D B][U] (fp32).
+// block, tile shape `pass` and chunks of kc columns: the block's rows of
+// W_hh [D][U][grid_ld(4H)] (T) when `w_shared`, else the chunks of them
+// [buffers][kGridUnits][grid_lda(kc)]; the chunks of dgates [buffers]
+// [rows_pass][grid_lda(kc)] (T); the warps' partials [kGridWarps]
+// [min(rows_pass, B)][min(U, kGridUnits)] and the carried dc [D B][U] (fp32).
 template <typename T>
-size_t grid_bwd_smem(int D, int B, int H, int U, int rows_pass, bool w_shared) {
-  const size_t w = w_shared ? size_t(D) * U * grid_ld(4 * H) : size_t(2) * kGridUnits * grid_lda<T>();
-  return align16(w * sizeof(T)) + align16(size_t(2) * rows_pass * grid_lda<T>() * sizeof(T)) +
+size_t grid_bwd_smem(int D, int B, int H, int U, GridBwdPass pass, bool w_shared) {
+  const int kc = pass.chunk_bytes / int(sizeof(T)), rows_pass = pass.lr * pass.ri;
+  const size_t bufs = size_t(grid_buffers(4 * H, kc));
+  const size_t w = w_shared ? size_t(D) * U * grid_ld(4 * H) : bufs * kGridUnits * grid_lda<T>(kc);
+  return align16(w * sizeof(T)) + align16(bufs * rows_pass * grid_lda<T>(kc) * sizeof(T)) +
          (size_t(kGridWarps) * std::min(rows_pass, B) * std::min(U, kGridUnits) + size_t(D) * B * U) *
              sizeof(float);
 }
 
 // Block b owns units [b U, b U + U) (fewer in the last block) of every row.
 // Per reverse step, for each direction, block of at most kGridUnits units
-// and pass of at most 32 RI rows: dgates[t+1] of the pass's rows (from dxp,
+// and pass of at most LR RI rows: dgates[t+1] of the pass's rows (from dxp,
 // which every block wrote before the last grid barrier) streams through in
-// chunks of kGridKC columns (cp.async, the next chunk in flight while the
-// current one multiplies; lstm_grid.cuh); each thread accumulates dh_rec of
-// its RI rows (lane + 32 i) and the unit block's units over its warp's quads
-// of columns against its rows of W_hh; the warps' partials add in warp order
-// where dgates[t] of the block's units are computed into dxp.  Then one
-// grid barrier.  kWShared: W_hh's rows in shared memory, else staged chunk
+// chunks of KC columns (cp.async, the next chunk in flight while the current
+// one multiplies; lstm_grid.cuh); each thread accumulates dh_rec of its RI
+// rows and the unit block's units (all of them, LR = 32; every fourth, LR =
+// 8; its own, LR = 1) over its warp's quads of columns against its rows of
+// W_hh; the warps'
+// partials add in warp order where dgates[t] of the block's units are
+// computed into dxp.  Then one grid barrier.  kWShared: W_hh's rows in shared memory, else staged chunk
 // by chunk beside dgates.  vec: 16-byte copies (4H x the operand's size a
 // multiple of 16 bytes, and aligned rows).
-template <typename T, int D, int RI, bool kWShared>
+template <typename T, int D, int LR, int RI, int KC, bool kWShared>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_bwd_grid_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
                      const T* __restrict__ w1,        // [H, 4H], rows [B, 2B) (D == 2)
@@ -1250,7 +1265,8 @@ lstm_bwd_grid_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
                      float* __restrict__ dh0,         // [R, H] or null
                      float* __restrict__ dc0,         // [R, H] or null
                      int T_, int B, int H, int U, int vec) {
-  constexpr int RB = kGridBwdLR * RI, LDA = grid_lda<T>();
+  constexpr int RB = LR * RI, CJ = (kGridUnits * LR + 31) / 32;  // rows a pass, unit slots a lane
+  constexpr int LDA = grid_lda<T>(KC);
   cg::grid_group grid = cg::this_grid();
   const int R = D * B;
   const int G4 = 4 * H;  // gate columns of one row
@@ -1261,11 +1277,12 @@ lstm_bwd_grid_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
   const int tid = threadIdx.x;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const size_t w_elems = kWShared ? size_t(D) * U * LDW : size_t(2) * kGridUnits * LDA;
-  T* w_s = reinterpret_cast<T*>(smem_raw);  // [D][U][LDW], or [2][kGridUnits][LDA]
-  T* a_s = reinterpret_cast<T*>(smem_raw + align16(w_elems * sizeof(T)));  // [2][RB][LDA]
+  const int bufs = grid_buffers(G4, KC);
+  const size_t w_elems = kWShared ? size_t(D) * U * LDW : size_t(bufs) * kGridUnits * LDA;
+  T* w_s = reinterpret_cast<T*>(smem_raw);  // [D][U][LDW], or [bufs][kGridUnits][LDA]
+  T* a_s = reinterpret_cast<T*>(smem_raw + align16(w_elems * sizeof(T)));  // [bufs][RB][LDA]
   float* part = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(a_s) +
-                                         align16(size_t(2) * RB * LDA * sizeof(T)));  // [kGridWarps][RP][NCB]
+                                         align16(size_t(bufs) * RB * LDA * sizeof(T)));  // [kGridWarps][RP][NCB]
   float* dc_s = part + kGridWarps * RP * NCB;  // [R][U]
 
   // this block's rows of each W_hh (contiguous in device memory)
@@ -1283,7 +1300,7 @@ lstm_bwd_grid_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
   }
   __syncthreads();
 
-  const int chunks = (G4 + kGridKC - 1) / kGridKC;
+  const int chunks = grid_chunks(G4, KC);
   // s is the step whose dgates are multiplied; t = s - 1 is the step computed
   for (int s = T_; s >= 0; --s) {
     const bool product = s < T_ && (D == 1 || s > 0);  // after step 0 only dh0 needs it
@@ -1297,31 +1314,34 @@ lstm_bwd_grid_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
             // dh_rec[r][u] = sum_q dgates[s][r][q] W[u0 + ub + u][q]
             const T* src = dxp + (size_t(s) * R + d * B + r0) * G4;
             const T* wsrc = (d ? w1 : w0) + size_t(u0 + ub) * G4;
-            float acc[RI][kGridUnits];
+            float acc[RI][CJ];
 #pragma unroll
             for (int i = 0; i < RI; ++i) {
 #pragma unroll
-              for (int j = 0; j < kGridUnits; ++j) acc[i][j] = 0.0f;
+              for (int j = 0; j < CJ; ++j) acc[i][j] = 0.0f;
             }
             auto stage = [&](int ch) {
               const int buf = ch & 1;
-              grid_stage<T>(a_s + buf * RB * LDA, RB, src, G4, rows, ch * kGridKC, G4, vec, w0);
+              grid_stage<T, KC>(a_s + buf * RB * LDA, RB, src, G4, rows, ch * KC, G4, vec, w0);
               if constexpr (!kWShared) {
-                grid_stage<T>(w_s + buf * kGridUnits * LDA, kGridUnits, wsrc, G4, Uc, ch * kGridKC, G4, vec, w0);
+                grid_stage<T, KC>(w_s + buf * kGridUnits * LDA, kGridUnits, wsrc, G4, Uc, ch * KC, G4, vec, w0);
               }
               cp_async_commit();
             };
+            // this lane's unit slots: all of them (LR = 32), or every fourth
+            // or its own
+            const int jn = LR == 32 ? Uc : grid_lane_columns<LR>(Uc);
             stage(0);
             for (int ch = 0; ch < chunks; ++ch) {
               cp_async_wait<0>();
               __syncthreads();  // chunk ch staged; every warp is done with chunk ch - 1
               if (ch + 1 < chunks) stage(ch + 1);
-              const T* w = kWShared ? w_s + (size_t(d) * U + ub) * LDW + ch * kGridKC
+              const T* w = kWShared ? w_s + (size_t(d) * U + ub) * LDW + ch * KC
                                     : w_s + (ch & 1) * kGridUnits * LDA;
-              const int nq = (min(kGridKC, G4 - ch * kGridKC) + 3) / 4;
-              grid_product<kGridBwdLR>(acc, a_s + (ch & 1) * RB * LDA, w, LDW, Uc, nq);
+              const int nq = (min(KC, G4 - ch * KC) + 3) / 4;
+              grid_product<LR, KC>(acc, a_s + (ch & 1) * RB * LDA, w, LDW, jn, nq);
             }
-            grid_partials<kGridBwdLR>(part, acc, RP, NCB, rows, Uc);
+            grid_partials<LR>(part, acc, RP, NCB, rows, Uc);
             __syncthreads();  // the product complete
           }
           if (s == 0) {  // one direction: dh0 and dc0
@@ -1452,12 +1472,25 @@ cudaError_t walk(int B, int H, const BwdArgs* args, cudaStream_t stream, Cluster
   }
 }
 
+// The grid route's kernel for tile shape `at` of kGridBwdPasses.
+template <typename T, int D, bool kWShared, int I = 0>
+void grid_bwd_kernel(int at, decltype(&lstm_bwd_grid_kernel<T, D, 1, 1, 64, true>)* kernel) {
+  if constexpr (I < kGridBwdPassCount) {
+    constexpr GridBwdPass p = kGridBwdPasses[I];
+    if (at == I) {
+      *kernel = lstm_bwd_grid_kernel<T, D, p.lr, p.ri, p.chunk_bytes / int(sizeof(T)), kWShared>;
+    } else {
+      grid_bwd_kernel<T, D, kWShared, I + 1>(at, kernel);
+    }
+  }
+}
+
 // The grid route's launch on this card into `bl`, and the launch when `args`
 // is given: one block per U = ceil(H / SMs) units, all resident at once
-// (else cudaErrorCooperativeLaunchTooLarge, before anything launches); rows
-// a pass the fewest row slots that hold a direction's rows; W_hh's rows in
-// shared memory where they fit beside the chunks (fewer rows a pass before
-// W_hh leaves shared memory), else staged chunk by chunk.
+// (else cudaErrorCooperativeLaunchTooLarge, before anything launches); the
+// tile shape the first of kGridBwdPasses whose rows hold a direction's, or
+// a later one where that does not fit beside W_hh's rows in shared memory,
+// else the same with W_hh's rows staged chunk by chunk.
 template <typename T, int D>
 cudaError_t grid_route(int B, int H, const BwdArgs* args, cudaStream_t stream, BwdLaunch* bl) {
   int sms = 0, optin = 0;
@@ -1468,28 +1501,27 @@ cudaError_t grid_route(int B, int H, const BwdArgs* args, cudaStream_t stream, B
   const int U = (H + sms - 1) / sms;  // at most one block per SM
   bl->grid_units = U;
   bl->grid_blocks = (H + U - 1) / U;
-  constexpr int kSlots = int(sizeof(kGridBwdRowSlots) / sizeof(int));
-  int first = 0;
-  while (first + 1 < kSlots && kGridBwdLR * kGridBwdRowSlots[first + 1] >= B) ++first;
+  auto rows_of = [](int i) { return kGridBwdPasses[i].lr * kGridBwdPasses[i].ri; };
+  int first = 0;  // the first of the shapes with the fewest rows that hold B
+  for (int i = 1; i < kGridBwdPassCount; ++i) {
+    if (rows_of(i) >= B && rows_of(i) < rows_of(first)) first = i;
+  }
+  auto smem = [&](int at, bool w_shared) { return grid_bwd_smem<T>(D, B, H, U, kGridBwdPasses[at], w_shared); };
   int at = first;
-  auto smem = [&](bool w_shared) { return grid_bwd_smem<T>(D, B, H, U, kGridBwdLR * kGridBwdRowSlots[at], w_shared); };
   bl->grid_w_shared = true;
-  while (at + 1 < kSlots && smem(true) > size_t(optin)) ++at;
-  if (smem(true) > size_t(optin)) {
+  while (at + 1 < kGridBwdPassCount && smem(at, true) > size_t(optin)) ++at;
+  if (smem(at, true) > size_t(optin)) {
     bl->grid_w_shared = false;
     at = first;
-    while (at + 1 < kSlots && smem(false) > size_t(optin)) ++at;
+    while (at + 1 < kGridBwdPassCount && smem(at, false) > size_t(optin)) ++at;
   }
-  bl->grid_rows = kGridBwdLR * kGridBwdRowSlots[at];
-  bl->grid_smem = smem(bl->grid_w_shared);
-  decltype(&lstm_bwd_grid_kernel<T, D, 1, true>) kernel;
-  switch (kGridBwdRowSlots[at] * 2 + int(bl->grid_w_shared)) {
-    case 7: kernel = lstm_bwd_grid_kernel<T, D, 3, true>; break;
-    case 6: kernel = lstm_bwd_grid_kernel<T, D, 3, false>; break;
-    case 5: kernel = lstm_bwd_grid_kernel<T, D, 2, true>; break;
-    case 4: kernel = lstm_bwd_grid_kernel<T, D, 2, false>; break;
-    case 3: kernel = lstm_bwd_grid_kernel<T, D, 1, true>; break;
-    default: kernel = lstm_bwd_grid_kernel<T, D, 1, false>; break;
+  bl->grid_rows = rows_of(at);
+  bl->grid_smem = smem(at, bl->grid_w_shared);
+  decltype(&lstm_bwd_grid_kernel<T, D, 1, 1, 64, true>) kernel = nullptr;
+  if (bl->grid_w_shared) {
+    grid_bwd_kernel<T, D, true>(at, &kernel);
+  } else {
+    grid_bwd_kernel<T, D, false>(at, &kernel);
   }
   err = occupancy(kernel, bl->grid_smem, &bl->grid_resident, &bl->info.registers, &bl->info.local_bytes);
   if (err == cudaErrorInvalidConfiguration) {  // not one block fits an SM

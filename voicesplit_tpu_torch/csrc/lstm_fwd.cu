@@ -147,21 +147,23 @@
 // 132 SMs, 128 blocks; 7 at H = 800, 115), all co-resident (checked before
 // the launch), and keeps their 4U gate columns of each W_hh in shared
 // memory, k contiguous.  A step: h[t-1] streams from L2 through the block in
-// chunks of 64 k by cp.async, the next chunk in flight while the current
-// one multiplies; each thread accumulates a register tile of up to 12 rows
-// x 8 units of one gate (up to 96 rows a pass; more rows take more passes)
-// over its warp's quads of k, 16 FMAs a 128-bit shared load; the eight
-// warps' partials (in the chunks' bytes) add in warp order in the cell
-// update; one grid-wide
-// barrier (cooperative_groups::this_grid().sync()) ends the step
-// (lstm_grid.cuh).  Why: the port's first grid kernel gave each dot product
-// to 8 lanes with one accumulator a lane, two shared loads an FMA, W's rows
-// H floats apart in the same banks and h staged by plain loads between
-// barriers: at [80, 96], H = 768, 72% of a step in the product and 25% in
-// the staging, 16.8 ms in all against cuDNN's 3.75.  Shared memory at the
-// GE2E step's 96 rows: 202,368 B; two directions in fp32 at H = 800, 8 rows
-// a pass: 199,232 B.  A shape neither route holds is refused before the
-// launch.
+// chunks by cp.async, the next chunk in flight while the current one
+// multiplies; each thread accumulates a register tile of pre-activations
+// over its warp's quads of k (lstm_grid.cuh): up to 12 rows x 8 units of one
+// gate (96 rows a pass, chunks of 64 k, 16 FMAs a 128-bit shared load), or,
+// for one or two rows, one column a lane over chunks of 832 k, so that W is
+// read once a step and a step waits on one chunk; the eight warps' partials
+// add in warp order in the cell update; one grid-wide barrier
+// (cooperative_groups::this_grid().sync()) ends the step.  Why: the port's
+// first grid kernel gave each dot product to 8 lanes with one accumulator a
+// lane, two shared loads an FMA, W's rows H floats apart in the same banks
+// and h staged by plain loads between barriers: at [80, 96], H = 768, 72% of
+// a step in the product and 25% in the staging, 16.8 ms in all against
+// cuDNN's 3.75.  Shared memory at the GE2E step's 96 rows: 150,144 B (the
+// partials reuse the chunks' bytes); two directions in fp32 at H = 800, 8
+// rows a pass: 229,952 B.  Where a shape's tile does not fit, a smaller one
+// does wherever the first grid kernel did; a shape neither route holds is
+// refused before the launch.
 //
 // Sum order, fixed, so the same inputs give the same bits: wgmma's own
 // order within a warpgroup (on the split walk its virtual k-steps in
@@ -891,42 +893,51 @@ lstm_fwd_split_kernel(const __nv_bfloat16* __restrict__ xp,  // [T, R, 4H]
 // The grid route
 // ---------------------------------------------------------------------------
 
-// Rows a pass takes at most: 8 x the row slots of a lane (kGridLR lanes
-// along the rows), one of these.
-constexpr int kGridLR = 8;
-constexpr int kGridRowSlots[] = {12, 6, 4, 2, 1};
+// A pass's tile shape: lanes along the rows (8, the four lanes of a row
+// its four gates; or 1, each lane a column), row slots of a lane and k of a
+// staged chunk of h.  A launch takes the first shape (in this order) whose
+// rows hold a direction's, or a later one where that does not fit in shared
+// memory; (1, 1) fits wherever the port's first grid kernel did.
+struct GridPass {
+  int lr, ri, kc;
+};
+constexpr GridPass kGridPasses[] = {{8, 12, 64}, {8, 6, 64}, {8, 4, 64}, {8, 2, 384}, {8, 1, 768},
+                                    {8, 1, 64}, {1, 2, 832}, {1, 1, 832}};
+constexpr int kGridPassCount = int(sizeof(kGridPasses) / sizeof(GridPass));
 
-// Floats of the grid route's scratch for rows_pass rows a pass of B rows a
-// direction: two chunks of h [rows_pass][grid_lda], then, in the same bytes
-// once the product is done, the warps' partials [kGridWarps][min(rows_pass,
-// B)][4 min(U, kGridUnits)].
-__host__ __device__ constexpr size_t grid_scratch(int B, int U, int rows_pass) {
-  const size_t chunks = size_t(2) * rows_pass * grid_lda<float>();
+// Floats of the grid route's scratch for passes of `rows_pass` rows of a
+// direction's B and chunks of kc k over H: the chunks of h [buffers]
+// [rows_pass][grid_lda(kc)], then, in the same bytes once the product is
+// done, the warps' partials [kGridWarps][min(rows_pass, B)][4 min(U,
+// kGridUnits)].
+__host__ __device__ constexpr size_t grid_scratch(int B, int H, int U, int rows_pass, int kc) {
+  const size_t chunks = size_t(grid_buffers(H, kc)) * rows_pass * grid_lda<float>(kc);
   const size_t partials = size_t(kGridWarps) * (rows_pass < B ? rows_pass : B) * 4 * (U < kGridUnits ? U : kGridUnits);
   return chunks > partials ? chunks : partials;
 }
 
 // Shared memory of the grid route for D directions of B rows, U units a
-// block and rows_pass = kGridLR x RI rows a pass: W_hh's columns [D][4U]
-// [grid_ld(H)] (T), the scratch and c [D B][U] (fp32).
+// block and tile shape `pass`: W_hh's columns [D][4U][grid_ld(H)] (T), the
+// scratch and c [D B][U] (fp32).
 template <typename T>
-constexpr size_t grid_smem_bytes(int D, int B, int H, int U, int rows_pass) {
+constexpr size_t grid_smem_bytes(int D, int B, int H, int U, GridPass pass) {
   return align16(size_t(D) * 4 * U * grid_ld(H) * sizeof(T)) +
-         (grid_scratch(B, U, rows_pass) + size_t(D) * B * U) * sizeof(float);
+         (grid_scratch(B, H, U, pass.lr * pass.ri, pass.kc) + size_t(D) * B * U) * sizeof(float);
 }
 
 // Block b owns units [b U, b U + U) (fewer in the last block) and keeps
 // their 4U columns of each direction's W_hh in shared memory, column
 // u 4 + g of direction d for gate g of unit u, k contiguous.  Per step t,
 // for each direction, block of at most kGridUnits units and pass of at most
-// kGridLR RI rows: h[t-1] of the pass's rows (h0 at t = 0) streams through
-// in chunks of kGridKC k (cp.async, the next chunk in flight while the
-// current one multiplies; lstm_grid.cuh), each thread's RI x units tile of
-// pre-activations (its gate, rows lr + 8 i) accumulates in registers over
-// its warp's quads, the warps' partials add in warp order in the cell
-// update, which writes hs, cs and the gates of the pass.  Then one
-// grid-wide barrier.  vec: h's rows take 16-byte copies (H a multiple of 4).
-template <typename T, int D, int RI>
+// LR RI rows: h[t-1] of the pass's rows (h0 at t = 0) streams through in
+// chunks of KC k (cp.async, the next chunk in flight while the current one
+// multiplies; lstm_grid.cuh), each thread's tile of pre-activations (LR = 8:
+// its gate of up to 8 units, rows lr + 8 i; LR = 1: its column, every row)
+// accumulates in registers over its warp's quads, the warps' partials add
+// in warp order in the cell update, which writes hs, cs and the gates of
+// the pass.  Then one grid-wide barrier.  vec: h's rows take 16-byte copies
+// (H a multiple of 4).
+template <typename T, int D, int LR, int RI, int KC>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_fwd_grid_kernel(const T* __restrict__ xp,     // [T, R, 4H]
                      const T* __restrict__ w0,     // [H, 4H], rows [0, B)
@@ -937,7 +948,8 @@ lstm_fwd_grid_kernel(const T* __restrict__ xp,     // [T, R, 4H]
                      float* __restrict__ cs,       // [T, R, H]
                      float* __restrict__ gates,    // [T, R, 4H]
                      int T_, int B, int H, int U, int vec) {
-  constexpr int RB = kGridLR * RI, LDA = grid_lda<float>();
+  constexpr int RB = LR * RI, LDA = grid_lda<float>(KC);
+  constexpr int CJ = 4 * kGridUnits * LR / 32;  // columns a lane
   cg::grid_group grid = cg::this_grid();
   const int R = D * B, G4 = 4 * H, LDW = grid_ld(H);
   const int u0 = blockIdx.x * U, Ub = min(U, H - u0);  // this block's units
@@ -949,7 +961,7 @@ lstm_fwd_grid_kernel(const T* __restrict__ xp,     // [T, R, 4H]
   T* w_s = reinterpret_cast<T*>(smem_raw);  // [D][4U][LDW]
   float* a_s = reinterpret_cast<float*>(smem_raw + align16(size_t(D) * 4 * U * LDW * sizeof(T)));  // [2][RB][LDA]
   float* part = a_s;                                  // [kGridWarps][RP][NCB], after the product
-  float* c_s = a_s + grid_scratch(B, U, RB);          // [R][U]
+  float* c_s = a_s + grid_scratch(B, H, U, RB, KC);   // [R][U]
 
   // W_hh[k, g H + j] at w_s[d][(j - u0) 4 + g][k]; zeros past H (the last
   // quad of k) and past the block's units
@@ -965,7 +977,7 @@ lstm_fwd_grid_kernel(const T* __restrict__ xp,     // [T, R, 4H]
   }
   __syncthreads();
 
-  const int chunks = (H + kGridKC - 1) / kGridKC;
+  const int chunks = grid_chunks(H, KC);
   for (int t = 0; t < T_; ++t) {
     const float* h_prev = t > 0 ? hs + size_t(t - 1) * R * H : h0;
     for (int d = 0; d < D; ++d) {
@@ -976,26 +988,29 @@ lstm_fwd_grid_kernel(const T* __restrict__ xp,     // [T, R, 4H]
           const int rows = min(RB, B - r0);
           const float* src = h_prev != nullptr ? h_prev + size_t(d * B + r0) * H : nullptr;
           // 2: pre[r][u 4 + g] = sum_k round(h[t-1][r][k]) W[k][g H + u0 + ub + u]
-          float acc[RI][kGridUnits];
+          float acc[RI][CJ];
 #pragma unroll
           for (int i = 0; i < RI; ++i) {
 #pragma unroll
-            for (int j = 0; j < kGridUnits; ++j) acc[i][j] = 0.0f;
+            for (int j = 0; j < CJ; ++j) acc[i][j] = 0.0f;
           }
-          grid_stage<float>(a_s, RB, src, H, rows, 0, H, vec, w0);
+          // this lane's column slots: its gate of each unit (LR = 8), or its
+          // own column (LR = 1)
+          const int jn = LR == 8 ? Uc : grid_lane_columns<LR>(4 * Uc);
+          grid_stage<float, KC>(a_s, RB, src, H, rows, 0, H, vec, w0);
           cp_async_commit();
           for (int ch = 0; ch < chunks; ++ch) {
             cp_async_wait<0>();
             __syncthreads();  // chunk ch staged; every warp is done with chunk ch - 1
             if (ch + 1 < chunks) {
-              grid_stage<float>(a_s + ((ch + 1) & 1) * RB * LDA, RB, src, H, rows, (ch + 1) * kGridKC, H, vec, w0);
+              grid_stage<float, KC>(a_s + ((ch + 1) & 1) * RB * LDA, RB, src, H, rows, (ch + 1) * KC, H, vec, w0);
               cp_async_commit();
             }
-            const int nq = (min(kGridKC, H - ch * kGridKC) + 3) / 4;
-            grid_product<kGridLR>(acc, a_s + (ch & 1) * RB * LDA, w + ch * kGridKC, LDW, Uc, nq);
+            const int nq = (min(KC, H - ch * KC) + 3) / 4;
+            grid_product<LR, KC>(acc, a_s + (ch & 1) * RB * LDA, w + ch * KC, LDW, jn, nq);
           }
           __syncthreads();  // every warp is done with the chunks, whose bytes take the partials
-          grid_partials<kGridLR>(part, acc, RP, NCB, rows, Uc);
+          grid_partials<LR>(part, acc, RP, NCB, rows, 4 * Uc);
           __syncthreads();  // the product complete
           // 3: the cell update of the pass's rows and the unit block's units
           for (int e = tid; e < rows * Uc; e += kThreads) {
@@ -1102,9 +1117,21 @@ cudaError_t split_walk(FwdLaunch* fl, int D, const FwdArgs* a, cudaStream_t stre
 
 // The grid route's launch on this card into `fl`, and the launch when a->xp
 // is set: one block per U = ceil(H / SMs) units, all resident at once (else
-// cudaErrorCooperativeLaunchTooLarge, before anything launches); rows a pass
-// the fewest row slots that hold a direction's rows, fewer where those do
-// not fit in shared memory.
+// cudaErrorCooperativeLaunchTooLarge, before anything launches); the tile
+// shape the first of kGridPasses whose rows hold a direction's, or a later
+// one where that does not fit in shared memory.
+template <typename T, int D, int I = 0>
+void grid_kernel(int at, decltype(&lstm_fwd_grid_kernel<T, D, 1, 1, 64>)* kernel) {
+  if constexpr (I < kGridPassCount) {
+    constexpr GridPass p = kGridPasses[I];
+    if (at == I) {
+      *kernel = lstm_fwd_grid_kernel<T, D, p.lr, p.ri, p.kc>;
+    } else {
+      grid_kernel<T, D, I + 1>(at, kernel);
+    }
+  }
+}
+
 template <typename T, int D>
 cudaError_t grid_route(FwdLaunch* fl, const FwdArgs* a, cudaStream_t stream) {
   int sms = 0, optin = 0;
@@ -1116,20 +1143,16 @@ cudaError_t grid_route(FwdLaunch* fl, const FwdArgs* a, cudaStream_t stream) {
   const int U = (H + sms - 1) / sms;  // at most one block per SM
   fl->grid_units = U;
   fl->grid_blocks = (H + U - 1) / U;
-  constexpr int kSlots = int(sizeof(kGridRowSlots) / sizeof(int));
-  int at = 0;
-  while (at + 1 < kSlots && kGridLR * kGridRowSlots[at + 1] >= B) ++at;
-  while (at + 1 < kSlots && grid_smem_bytes<T>(D, B, H, U, kGridLR * kGridRowSlots[at]) > size_t(optin)) ++at;
-  fl->grid_rows = kGridLR * kGridRowSlots[at];
-  fl->grid_smem = grid_smem_bytes<T>(D, B, H, U, fl->grid_rows);
-  decltype(&lstm_fwd_grid_kernel<T, D, 1>) kernel;
-  switch (kGridRowSlots[at]) {
-    case 12: kernel = lstm_fwd_grid_kernel<T, D, 12>; break;
-    case 6: kernel = lstm_fwd_grid_kernel<T, D, 6>; break;
-    case 4: kernel = lstm_fwd_grid_kernel<T, D, 4>; break;
-    case 2: kernel = lstm_fwd_grid_kernel<T, D, 2>; break;
-    default: kernel = lstm_fwd_grid_kernel<T, D, 1>; break;
+  auto rows_of = [](int i) { return kGridPasses[i].lr * kGridPasses[i].ri; };
+  int at = 0;  // the first of the shapes with the fewest rows that hold B
+  for (int i = 1; i < kGridPassCount; ++i) {
+    if (rows_of(i) >= B && rows_of(i) < rows_of(at)) at = i;
   }
+  while (at + 1 < kGridPassCount && grid_smem_bytes<T>(D, B, H, U, kGridPasses[at]) > size_t(optin)) ++at;
+  fl->grid_rows = rows_of(at);
+  fl->grid_smem = grid_smem_bytes<T>(D, B, H, U, kGridPasses[at]);
+  decltype(&lstm_fwd_grid_kernel<T, D, 1, 1, 64>) kernel = nullptr;
+  grid_kernel<T, D>(at, &kernel);
   err = occupancy(kernel, fl->grid_smem, &fl->grid_resident, &fl->info.registers, &fl->info.local_bytes);
   if (err == cudaErrorInvalidConfiguration) {  // not one block fits an SM
     fl->grid_resident = 0;

@@ -309,8 +309,8 @@ GRID_REDESIGN = {
         ("              grid_product<LR, KC>(acc, a_s + (ch & 1) * RB * LDA, w, LDW, jn, nq);\n",
          "              grid_product<LR, KC>(acc, a_s + (ch & 1) * RB * LDA, w, LDW, jn, nq);\n"
          "              gp[1] += clock64() - tb_;\n"),
-        ("            grid_partials<LR>(part, acc, RP, NCB, rows, Uc);\n",
-         "            tc_ = clock64();\n            grid_partials<LR>(part, acc, RP, NCB, rows, Uc);\n"),
+        ("            grid_partials<LR>(part, acc, RP, NCB, rows, jn);\n",
+         "            tc_ = clock64();\n            grid_partials<LR>(part, acc, RP, NCB, rows, jn);\n"),
         ("            dx[3 * H + j] = from_float<T>(dout * o * (1.0f - o));\n          }\n",
          "            dx[3 * H + j] = from_float<T>(dout * o * (1.0f - o));\n          }\n"
          "          if (product) gp[2] += clock64() - tc_;\n"),

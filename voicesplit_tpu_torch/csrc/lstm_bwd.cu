@@ -1341,7 +1341,7 @@ lstm_bwd_grid_kernel(const T* __restrict__ w0,        // [H, 4H], rows [0, B)
               const int nq = (min(KC, G4 - ch * KC) + 3) / 4;
               grid_product<LR, KC>(acc, a_s + (ch & 1) * RB * LDA, w, LDW, jn, nq);
             }
-            grid_partials<LR>(part, acc, RP, NCB, rows, Uc);
+            grid_partials<LR>(part, acc, RP, NCB, rows, jn);
             __syncthreads();  // the product complete
           }
           if (s == 0) {  // one direction: dh0 and dc0

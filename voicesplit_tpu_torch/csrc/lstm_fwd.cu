@@ -1010,7 +1010,7 @@ lstm_fwd_grid_kernel(const T* __restrict__ xp,     // [T, R, 4H]
             grid_product<LR, KC>(acc, a_s + (ch & 1) * RB * LDA, w + ch * KC, LDW, jn, nq);
           }
           __syncthreads();  // every warp is done with the chunks, whose bytes take the partials
-          grid_partials<LR>(part, acc, RP, NCB, rows, 4 * Uc);
+          grid_partials<LR>(part, acc, RP, NCB, rows, jn);
           __syncthreads();  // the product complete
           // 3: the cell update of the pass's rows and the unit block's units
           for (int e = tid; e < rows * Uc; e += kThreads) {

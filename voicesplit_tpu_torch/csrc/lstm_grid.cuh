@@ -144,19 +144,19 @@ __device__ __forceinline__ void grid_product(float (&acc)[RI][CJ], const TA* a, 
 }
 
 // This thread's tile into part [warp][RP][ldp]: row lr + LR i, column
-// lc + LC j, for the rows < `rows` (<= RP) of the pass and the columns <
-// ncols.
+// lc + LC j, for the rows < `rows` (<= RP) of the pass and this lane's jn
+// column slots (as grid_product's).
 template <int LR, int RI, int CJ>
 __device__ __forceinline__ void grid_partials(float* part, const float (&acc)[RI][CJ], int RP, int ldp, int rows,
-                                              int ncols) {
+                                              int jn) {
   constexpr int LC = 32 / LR;
-  const int lane = threadIdx.x & 31, lr = lane / LC, lc = lane % LC;
-  float* p = part + ((threadIdx.x >> 5) * RP + lr) * ldp + lc;
+  const int lane = threadIdx.x & 31, lr = lane / LC;
+  float* p = part + ((threadIdx.x >> 5) * RP + lr) * ldp + lane % LC;
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
 #pragma unroll
     for (int j = 0; j < CJ; ++j) {
-      if (lc + LC * j < ncols && lr + LR * i < rows) p[i * LR * ldp + j * LC] = acc[i][j];
+      if (j < jn && lr + LR * i < rows) p[i * LR * ldp + j * LC] = acc[i][j];
     }
   }
 }

@@ -1435,7 +1435,6 @@ struct BwdLaunch {
   BwdSplitShape split; // the split walk
   size_t exchange;     // the split walk: bytes of exchange memory it needs
   int grid_blocks, grid_units;  // grid route: blocks, units a block
-  int grid_rows;       // grid route: rows of a pass (the row slots of a block's tile)
   size_t grid_smem;
   int grid_resident;   // grid route: blocks the card holds at once
   bool grid_w_shared;  // grid route: W_hh's rows in shared memory (else staged from L2 with dgates)
@@ -1515,7 +1514,6 @@ cudaError_t grid_route(int B, int H, const BwdArgs* args, cudaStream_t stream, B
     at = first;
     while (at + 1 < kGridBwdPassCount && smem(at, false) > size_t(optin)) ++at;
   }
-  bl->grid_rows = rows_of(at);
   bl->grid_smem = smem(at, bl->grid_w_shared);
   decltype(&lstm_bwd_grid_kernel<T, D, 1, 1, 64, true>) kernel = nullptr;
   if (bl->grid_w_shared) {

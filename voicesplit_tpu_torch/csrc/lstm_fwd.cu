@@ -1063,7 +1063,6 @@ struct FwdLaunch {
   SplitShape split;    // the split walk
   size_t exchange;     // the split walk: bytes of exchange memory it needs
   int grid_blocks, grid_units;  // grid route: blocks, units a block
-  int grid_rows;       // grid route: rows of a pass (the row slots of a block's tile)
   size_t grid_smem;
   int grid_resident;   // grid route: blocks the card holds at once
 };
@@ -1149,7 +1148,6 @@ cudaError_t grid_route(FwdLaunch* fl, const FwdArgs* a, cudaStream_t stream) {
     if (rows_of(i) >= B && rows_of(i) < rows_of(at)) at = i;
   }
   while (at + 1 < kGridPassCount && grid_smem_bytes<T>(D, B, H, U, kGridPasses[at]) > size_t(optin)) ++at;
-  fl->grid_rows = rows_of(at);
   fl->grid_smem = grid_smem_bytes<T>(D, B, H, U, kGridPasses[at]);
   decltype(&lstm_fwd_grid_kernel<T, D, 1, 1, 64>) kernel = nullptr;
   grid_kernel<T, D>(at, &kernel);

@@ -273,6 +273,23 @@ Phases, each printing one JSON line:
    deterministic for both phases), the switch's exact launches
    (REMAT_CONV_LAUNCHES: 18 ``conv_dilated_fwd`` a step with the dilated
    switch), step p50 / p75 and peak memory on each side.
+28. channels — the conv kernels at the other channel counts the JAX package
+   takes: at ``[2, 301, 601, C]`` bf16 on the (7,1) layer and on (5,5) at
+   time dilation 1 and 16, ``conv_dilated_fwd`` (forward and data
+   gradient) and ``conv_dilated_wgrad`` at C = 96, 128, 192 and 64 -> 128,
+   ``conv_bn_act_fwd``, ``conv_dgrad`` and ``conv_wgrad`` at C = 128 and
+   192, each against its plain version (DILATED_TOL, CONV_TOL, the same
+   bits twice) and timed beside its plain version, bound and cuDNN, with
+   its grid (blocks within the resident ones; registers and spilled bytes
+   reported); a 100-channel layer, zero-padded to 104 around the launch,
+   with the padding's cost; then `configs/voicesplit.json` at full width
+   with ``conv_channels`` = 128: served at B=1 and B=8 with
+   ``VOICESPLIT_PALLAS_CONV=1`` and trained at B=2 with it and with
+   ``VOICESPLIT_FUSED_CHAIN=1``, each counted (exact launches), held
+   against the same run through the plain versions on the card
+   (SEPARATE_DILATED_TOL, DILATED_STEP_TOL, FUSED_TOL) and timed (p50, p75,
+   peak memory).  Its figures stay on its own two lines; the ``kernels``
+   line keeps the 64-channel figures.
 
 Then a ``{"kernels": [...]}`` line (each kernel's ``main_path``: false for
 the routes no path takes, OFF_PATH, launched only in the kernels phases),
@@ -288,8 +305,8 @@ kernel.  ``--phases`` runs a subset (of kernels, bwd_kernels, separate,
 train, conv_kernels, train_fused, dilated_kernels, separate_dilated,
 trainer, separate_wide, train_wide, evaluate, preprocess, trainer_online, dsp,
 streaming, train_streaming, encoder, voicefilter, reference, import,
-distributed, long, export, model_parallel, remat; device and build always
-run)
+distributed, long, export, model_parallel, remat, channels; device and
+build always run)
 and ends with a line marked
 ``"partial"`` instead of the result lines.
 """
@@ -1235,29 +1252,33 @@ def phase_train(torch, lstm_cuda, seed: int, profile_dir) -> dict:
     return launches
 
 
-def conv_bound(kind: str, shape, kt: int, kf: int, dt: int, dtype: str) -> dict:
+def conv_bound(kind: str, shape, kt: int, kf: int, dt: int, dtype: str,
+               cout: int = None) -> dict:
     """Least time for one conv kernel: activations, weights and results each
     moved once, against the products of the taps that fall inside the
     tensor (a tap in the halo multiplies zeros and is not counted) at the
-    operand type's peak."""
-    B, T, F, C = shape
+    operand type's peak.  `shape` is the input's ``[B, T, F, Cin]``; the
+    output (or, for a weight gradient, the cotangent) has `cout` channels,
+    by default Cin."""
+    B, T, F, cin = shape
+    cout = cin if cout is None else cout
     op = 2 if dtype == "bfloat16" else 4
-    act_bytes = B * T * F * C * op
-    w_elems = kt * kf * C * C
+    in_bytes, out_bytes = B * T * F * cin * op, B * T * F * cout * op
+    w_elems = kt * kf * cin * cout
     if kind == "conv_wgrad":
-        bytes_ = 2 * act_bytes + w_elems * 4 + 2 * C * 4  # x, d_raw; dW; inv, shift
+        bytes_ = in_bytes + out_bytes + w_elems * 4 + 2 * cin * 4  # x, d_raw; dW; inv, shift
     elif kind == "conv_dilated_wgrad":
-        bytes_ = 2 * act_bytes + w_elems * 4  # x, dy; dW
+        bytes_ = in_bytes + out_bytes + w_elems * 4  # x, dy; dW
     elif kind == "conv_dilated_fwd":
-        bytes_ = 2 * act_bytes + w_elems * op  # x, out; W
+        bytes_ = in_bytes + out_bytes + w_elems * op  # x, out; W
     elif kind == "conv_dgrad":
-        bytes_ = 2 * act_bytes + w_elems * op + C * 4  # d_raw, dx; W; dbias
-    else:
-        bytes_ = 2 * act_bytes + w_elems * op + 5 * C * 4  # x, raw; W; bias, inv, shift, stats
+        bytes_ = in_bytes + out_bytes + w_elems * op + cin * 4  # d_raw, dx; W; dbias
+    else:  # x, raw; W; inv, shift; bias, stats
+        bytes_ = in_bytes + out_bytes + w_elems * op + (2 * cin + 3 * cout) * 4
     pad_t, pad_f = (kt - 1) * dt // 2, (kf - 1) // 2
     rows = sum(max(0, T - abs(i * dt - pad_t)) for i in range(kt))
     cols = sum(max(0, F - abs(j - pad_f)) for j in range(kf))
-    flops = 2 * C * C * B * rows * cols
+    flops = 2 * cin * cout * B * rows * cols
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return {"bytes": bytes_, "flops": flops, "bound_ms": max(t_bytes, t_ops),
@@ -1295,15 +1316,17 @@ def _edge_errs(got, want) -> dict:
             for k, c in cuts.items()}
 
 
-def _conv_inputs(torch, shape, kt, kf, dtype, g):
-    """Random activations, cotangent, weights, bias and BatchNorm scalars of
-    one layer on the card; fan-in-scaled weights keep raw of order 1."""
+def _conv_inputs(torch, shape, kt, kf, dtype, g, cout: int = None):
+    """Random activations ``shape`` (Cin channels), cotangent (`cout`
+    channels, by default Cin), weights, bias and BatchNorm scalars of one
+    layer on the card; fan-in-scaled weights keep raw of order 1."""
     dev = torch.device("cuda")
     C = shape[-1]
+    cout = C if cout is None else cout
     x = torch.randn(shape, generator=g).to(dev, dtype)
-    d = torch.randn(shape, generator=g).to(dev, dtype)
-    w = (torch.randn(kt, kf, C, C, generator=g) * (kt * kf * C) ** -0.5).to(dev, dtype)
-    bias = (0.1 * torch.randn(C, generator=g)).to(dev)
+    d = torch.randn(*shape[:-1], cout, generator=g).to(dev, dtype)
+    w = (torch.randn(kt, kf, C, cout, generator=g) * (kt * kf * C) ** -0.5).to(dev, dtype)
+    bias = (0.1 * torch.randn(cout, generator=g)).to(dev)
     mean, var = 0.2 * torch.randn(C, generator=g), torch.empty(C).uniform_(0.5, 2.0, generator=g)
     scale, beta = torch.empty(C).uniform_(0.5, 1.5, generator=g), 0.1 * torch.randn(C, generator=g)
     return x, d, w, bias, (mean.to(dev), var.to(dev), scale.to(dev), beta.to(dev))
@@ -1361,13 +1384,112 @@ def _check_conv_case(torch, cf, cc, case, shape, layer, act, dtype_name, g) -> d
     return report
 
 
-def phase_conv_kernels(torch, cf, cc, seed: int) -> dict:
-    """The fused chain's kernels vs their plain versions on the card, then
-    their times per layer kind and batch."""
+def _chain_times(torch, cf, x, d, w, bias, bn, dt: int, act, iters: int) -> dict:
+    """The chain's three kernels on one layer's bf16 operands (`act`: the
+    prologue, or None), by kernel: time, plain version's time, a library
+    yardstick the port never calls, bound; `conv_bn_act_fwd` and
+    `conv_wgrad` with their prologue pass inside their time, and the pass
+    on its own."""
     import torch.nn.functional as F
 
     from voicesplit_tpu_torch.ops import bn_act
 
+    kt, kf = w.shape[:2]
+    shape = tuple(x.shape)
+    on = act is not None
+    scal = cf._scal_table(*bn)
+    wf = cf.pack_weight_flipped(w, torch.bfloat16)
+    pad = ((kt - 1) * dt // 2, (kf - 1) // 2)
+    # library yardsticks: cuDNN convs on channels-last bf16 views; for the
+    # forward also the eager BatchNorm + activation pass the prologue
+    # replaces and the batch statistics (`torch.var_mean`)
+    x_nchw, d_nchw = x.permute(0, 3, 1, 2), d.permute(0, 3, 1, 2)
+    w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    cbias = bias.to(torch.bfloat16)
+
+    def lib_fwd():
+        y = bn_act.bn_act_eval(x_nchw, bn[2], bn[3], bn[0], bn[1], act) if on else x_nchw
+        raw = F.conv2d(y, w_oihw, cbias, padding=pad, dilation=(dt, 1))
+        return raw, torch.var_mean(raw, dim=(0, 2, 3), correction=0)
+
+    def lib_bwd(mask):
+        return torch.ops.aten.convolution_backward(
+            d_nchw, x_nchw, w_oihw, None, (1, 1), pad, (dt, 1), False, (0, 0), 1, mask)
+
+    calls = {
+        "conv_bn_act_fwd": (lambda: cf.conv_bn_act_fwd(x, w, bias, scal, dt, act, on),
+                            lambda: cf.conv_bn_act_fwd_ref(x, w, bias, scal, dt, act, on),
+                            lib_fwd),
+        "conv_dgrad": (lambda: cf.conv_dgrad(d, wf, dt), lambda: cf.conv_dgrad_ref(d, wf, dt),
+                       lambda: lib_bwd((True, False, False))),
+        "conv_wgrad": (lambda: cf.conv_wgrad(x, d, scal, kt, kf, dt, act, on),
+                       lambda: cf.conv_wgrad_ref(x, d, scal, kt, kf, dt, act, on),
+                       lambda: lib_bwd((False, True, False))),
+    }
+    out = {}
+    with torch.inference_mode():
+        for name, (kernel, plain, library) in calls.items():
+            out[name] = {
+                "ms": time_ms(torch, kernel, iters=iters, warmup=1),
+                "plain_ms": time_ms(torch, plain, iters=2, warmup=1),
+                "library_ms": time_ms(torch, library, iters=iters, warmup=1),
+                **conv_bound(name, shape, kt, kf, dt, "bfloat16"),
+            }
+        if on:
+            pass_ms = time_ms(torch, lambda: cf.conv_wgrad_prologue(x, scal, act), iters=iters, warmup=1)
+            for name in ("conv_bn_act_fwd", "conv_wgrad"):
+                out[name]["prologue_pass_ms"] = pass_ms
+    return out
+
+
+def _dilated_times(torch, cc, cf, x, d, w, dt: int, iters: int) -> tuple:
+    """`conv_dilated_fwd` (as forward and as data gradient) and
+    `conv_dilated_wgrad` on one layer's bf16 operands (x ``[B, T, F, Cin]``,
+    d ``[B, T, F, Cout]``, w ``[kt, kf, Cin, Cout]``): time, plain
+    version's time, a library yardstick the port never calls (cuDNN
+    ``conv2d``; ``aten.convolution_backward``), bound, and for a layer the
+    chain also takes (Cin = Cout, a multiple of its slab) the chain's
+    ``conv_dgrad``."""
+    import torch.nn.functional as F
+
+    kt, kf, cin, cout = w.shape
+    shape = tuple(x.shape)
+    wf = cc.flip_weight(w)
+    pad = ((kt - 1) * dt // 2, (kf - 1) // 2)
+    x_nchw, d_nchw = x.permute(0, 3, 1, 2), d.permute(0, 3, 1, 2)
+    w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+    def lib_bwd(mask):
+        return torch.ops.aten.convolution_backward(
+            d_nchw, x_nchw, w_oihw, None, (1, 1), pad, (dt, 1), False, (0, 0), 1, mask)
+
+    with torch.inference_mode():
+        fwd = {
+            "ms": time_ms(torch, lambda: cc.conv_dilated_fwd(x, w, dt), iters, warmup=1),
+            "data_gradient_ms": time_ms(torch, lambda: cc.conv_dilated_fwd(d, wf, dt), iters, warmup=1),
+            "plain_ms": time_ms(torch, lambda: cc.conv_dilated_fwd_ref(x, w, dt), 2, warmup=1),
+            "library_ms": time_ms(
+                torch, lambda: F.conv2d(x_nchw, w_oihw, None, padding=pad, dilation=(dt, 1)),
+                iters, warmup=1),
+            "library_data_gradient_ms": time_ms(torch, lambda: lib_bwd((True, False, False)),
+                                                iters, warmup=1),
+        }
+        if cin == cout and cin % cf.CHANNEL_SLAB == 0:
+            fwd["fused_chain_conv_dgrad_ms"] = time_ms(torch, lambda: cf.conv_dgrad(d, wf, dt),
+                                                       iters, warmup=1)
+        fwd.update(conv_bound("conv_dilated_fwd", shape, kt, kf, dt, "bfloat16", cout))
+        wgrad = {
+            "ms": time_ms(torch, lambda: cc.conv_dilated_wgrad(x, d, kt, kf, dt), iters, warmup=1),
+            "plain_ms": time_ms(torch, lambda: cc.conv_dilated_wgrad_ref(x, d, kt, kf, dt), 2, warmup=1),
+            "library_ms": time_ms(torch, lambda: lib_bwd((False, True, False)), iters, warmup=1),
+            **conv_bound("conv_dilated_wgrad", shape, kt, kf, dt, "bfloat16", cout),
+        }
+    return fwd, wgrad
+
+
+def phase_conv_kernels(torch, cf, cc, seed: int) -> dict:
+    """The fused chain's kernels vs their plain versions on the card, then
+    their times per layer kind and batch."""
     g = torch.Generator(device="cpu").manual_seed(seed + 2)
     # every layer without a prologue (conv_dgrad has none) and with mish,
     # and relu once
@@ -1405,56 +1527,13 @@ def phase_conv_kernels(torch, cf, cc, seed: int) -> dict:
     timing = {name: {} for name in CONV_KERNELS}
     for b, layer in _timed_conv_layers():
         shape = (b, *CONV_SHAPE[1:])
-        iters = 5 if b == 2 else 3
         (kt, kf), dt = ALL_CONV_LAYERS[layer]
         act = None if layer == "7x1" else "mish"  # the chain's first layer has no prologue
-        on = act is not None
         x, d, w, bias, bn = _conv_inputs(torch, shape, kt, kf, torch.bfloat16, g)
-        scal = cf._scal_table(*bn)
-        wf = cf.pack_weight_flipped(w, torch.bfloat16)
-        pad = ((kt - 1) * dt // 2, (kf - 1) // 2)
-        # library yardsticks (never called by the port): cuDNN convs on
-        # channels-last bf16 views; for the forward also the eager
-        # BatchNorm + activation pass the prologue replaces and the
-        # batch statistics (`torch.var_mean`)
-        x_nchw, d_nchw = x.permute(0, 3, 1, 2), d.permute(0, 3, 1, 2)
-        w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-        cbias = bias.to(torch.bfloat16)
-
-        def lib_fwd():
-            y = bn_act.bn_act_eval(x_nchw, bn[2], bn[3], bn[0], bn[1], act) if on else x_nchw
-            raw = F.conv2d(y, w_oihw, cbias, padding=pad, dilation=(dt, 1))
-            return raw, torch.var_mean(raw, dim=(0, 2, 3), correction=0)
-
-        def lib_bwd(mask):
-            return torch.ops.aten.convolution_backward(
-                d_nchw, x_nchw, w_oihw, None, (1, 1), pad, (dt, 1), False, (0, 0), 1, mask)
-
-        calls = {
-            "conv_bn_act_fwd": (lambda: cf.conv_bn_act_fwd(x, w, bias, scal, dt, act, on),
-                                lambda: cf.conv_bn_act_fwd_ref(x, w, bias, scal, dt, act, on),
-                                lib_fwd),
-            "conv_dgrad": (lambda: cf.conv_dgrad(d, wf, dt), lambda: cf.conv_dgrad_ref(d, wf, dt),
-                           lambda: lib_bwd((True, False, False))),
-            "conv_wgrad": (lambda: cf.conv_wgrad(x, d, scal, kt, kf, dt, act, on),
-                           lambda: cf.conv_wgrad_ref(x, d, scal, kt, kf, dt, act, on),
-                           lambda: lib_bwd((False, True, False))),
-        }
-        with torch.inference_mode():
-            for name, (kernel, plain, library) in calls.items():
-                bound = conv_bound(name, shape, kt, kf, dt, "bfloat16")
-                timing[name][f"B{b}/{layer}"] = {
-                    "ms": time_ms(torch, kernel, iters=iters, warmup=1),
-                    "plain_ms": time_ms(torch, plain, iters=2, warmup=1),
-                    "library_ms": time_ms(torch, library, iters=iters, warmup=1),
-                    **bound,
-                }
-            if on:
-                pass_ms = time_ms(torch, lambda: cf.conv_wgrad_prologue(x, scal, act),
-                                  iters=iters, warmup=1)
-                for name in ("conv_bn_act_fwd", "conv_wgrad"):
-                    timing[name][f"B{b}/{layer}"]["prologue_pass_ms"] = pass_ms
-        del x, d, w, wf, x_nchw, d_nchw
+        times = _chain_times(torch, cf, x, d, w, bias, bn, dt, act, iters=5 if b == 2 else 3)
+        for name, entry in times.items():
+            timing[name][f"B{b}/{layer}"] = entry
+        del x, d, w
         torch.cuda.empty_cache()
     emit("conv kernel times", dtype="bfloat16", prologue="mish (none on the 7x1 layer)",
          library="cuDNN conv2d (+ eager BN + act, + var_mean) / aten.convolution_backward, "
@@ -1652,14 +1731,15 @@ def _latency_ms(torch, fn, calls: int):
     return tuple(float(np.percentile(lat, q)) for q in (50, 75))
 
 
-def _check_dilated_case(torch, cc, case, shape, layer, dtype_name, g) -> dict:
-    """One layer through `conv_dilated_fwd` (as forward and as data gradient)
-    and `conv_dilated_wgrad` and their plain versions;
-    raises on disagreement or on two launches that differ."""
+def _check_dilated_case(torch, cc, case, shape, layer, dtype_name, g, cout: int = None) -> dict:
+    """One layer (`shape` in, `cout` channels out, by default as many)
+    through `conv_dilated_fwd` (as forward and as data gradient) and
+    `conv_dilated_wgrad` and their plain versions; raises on disagreement or
+    on two launches that differ."""
     (kt, kf), dt = ALL_CONV_LAYERS[layer]
     dtype = getattr(torch, dtype_name)
     tol = DILATED_TOL[dtype_name]
-    x, d, w, _, _ = _conv_inputs(torch, shape, kt, kf, dtype, g)
+    x, d, w, _, _ = _conv_inputs(torch, shape, kt, kf, dtype, g, cout)
     wf = cc.flip_weight(w)
     report = {}
     with torch.inference_mode():
@@ -1699,8 +1779,6 @@ def phase_dilated_kernels(torch, cc, cf, seed: int) -> dict:
     their times per layer kind and batch beside the bound, the plain
     version, a library yardstick the port never calls and the fused chain's
     kernels for the same layer."""
-    import torch.nn.functional as F
-
     g = torch.Generator(device="cpu").manual_seed(seed + 3)
     worst = {name: {"bfloat16": 0.0, "float32": 0.0} for name in DILATED_TRAIN_LAUNCHES}
     agreement = {}
@@ -1719,45 +1797,12 @@ def phase_dilated_kernels(torch, cc, cf, seed: int) -> dict:
 
     timing = {name: {} for name in DILATED_TRAIN_LAUNCHES}
     for b, layer in _timed_conv_layers():
-        shape = (b, *CONV_SHAPE[1:])
-        iters = 5 if b == 2 else 3
         (kt, kf), dt = ALL_CONV_LAYERS[layer]
-        x, d, w, _, _ = _conv_inputs(torch, shape, kt, kf, torch.bfloat16, g)
-        wf = cc.flip_weight(w)
-        pad = ((kt - 1) * dt // 2, (kf - 1) // 2)
-        x_nchw, d_nchw = x.permute(0, 3, 1, 2), d.permute(0, 3, 1, 2)
-        w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-
-        def lib_bwd(mask):
-            return torch.ops.aten.convolution_backward(
-                d_nchw, x_nchw, w_oihw, None, (1, 1), pad, (dt, 1), False, (0, 0), 1, mask)
-
-        with torch.inference_mode():
-            bound = conv_bound("conv_dilated_fwd", shape, kt, kf, dt, "bfloat16")
-            timing["conv_dilated_fwd"][f"B{b}/{layer}"] = {
-                "ms": time_ms(torch, lambda: cc.conv_dilated_fwd(x, w, dt), iters, warmup=1),
-                "data_gradient_ms": time_ms(
-                    torch, lambda: cc.conv_dilated_fwd(d, wf, dt), iters, warmup=1),
-                "plain_ms": time_ms(
-                    torch, lambda: cc.conv_dilated_fwd_ref(x, w, dt), 2, warmup=1),
-                "library_ms": time_ms(
-                    torch, lambda: F.conv2d(x_nchw, w_oihw, None, padding=pad, dilation=(dt, 1)),
-                    iters, warmup=1),
-                "library_data_gradient_ms": time_ms(
-                    torch, lambda: lib_bwd((True, False, False)), iters, warmup=1),
-                "fused_chain_conv_dgrad_ms": time_ms(
-                    torch, lambda: cf.conv_dgrad(d, wf, dt), iters, warmup=1),
-                **bound,
-            }
-            bound = conv_bound("conv_dilated_wgrad", shape, kt, kf, dt, "bfloat16")
-            timing["conv_dilated_wgrad"][f"B{b}/{layer}"] = {
-                "ms": time_ms(torch, lambda: cc.conv_dilated_wgrad(x, d, kt, kf, dt), iters, warmup=1),
-                "plain_ms": time_ms(
-                    torch, lambda: cc.conv_dilated_wgrad_ref(x, d, kt, kf, dt), 2, warmup=1),
-                "library_ms": time_ms(torch, lambda: lib_bwd((False, True, False)), iters, warmup=1),
-                **bound,
-            }
-        del x, d, w, wf, x_nchw, d_nchw, w_oihw
+        x, d, w, _, _ = _conv_inputs(torch, (b, *CONV_SHAPE[1:]), kt, kf, torch.bfloat16, g)
+        fwd, wgrad = _dilated_times(torch, cc, cf, x, d, w, dt, iters=5 if b == 2 else 3)
+        timing["conv_dilated_fwd"][f"B{b}/{layer}"] = fwd
+        timing["conv_dilated_wgrad"][f"B{b}/{layer}"] = wgrad
+        del x, d, w
         torch.cuda.empty_cache()
     emit("dilated conv kernel times", dtype="bfloat16",
          library="cuDNN conv2d / aten.convolution_backward, channels-last bf16", times=timing,
@@ -4756,6 +4801,221 @@ def phase_remat(torch, lstm_cuda, cf, cc, seed: int) -> dict:
     return launches
 
 
+# --- other channel counts than 64: the widths the JAX package takes ----------
+# The conv kernels at [2, 301, 601, C] bf16 against their plain versions
+# (DILATED_TOL, CONV_TOL): the dilated kernels at Cin = Cout of 96, 128 and
+# 192 and one 64 -> 128 layer, the chain's at 128 and 192 (it takes
+# multiples of 64), each on the (7,1) layer and on (5,5) at time dilation 1
+# and 16; and one layer of 100 channels, which the 16-byte copies cannot
+# align: the wrapper zero-pads it to 104 around the launch (CHANNEL_PADS).
+CHANNEL_DILATED_WIDTHS = {"96": (96, 96), "128": (128, 128), "192": (192, 192),
+                          "64-128": (64, 128)}
+CHANNEL_CHAIN_WIDTHS = (128, 192)
+CHANNEL_LAYERS = ("7x1", "5x5-d1", "5x5-d16")
+CHANNEL_PADDED = (100, "5x5-d1")
+# the full-width configs/voicesplit.json model with model.conv_channels
+# changed in memory, served at B=1 and B=8 with the dilated switch and
+# trained at B=2 with the dilated switch and with the fused chain
+CHANNEL_MODEL = 128
+CHANNEL_ROUTES = {"pallas_conv": DILATED_TRAIN_LAUNCHES, "fused_chain": CONV_LAUNCHES}
+
+
+def _channel_grids(torch, cf, shape, kt, kf, dt, cout, chain: bool) -> dict:
+    """The wide instantiations' launch shapes at `shape` in, `cout` out:
+    blocks against resident blocks (more fails), registers and spilled
+    bytes a thread (reported)."""
+    grids = {"conv_dilated_fwd": cf.fwd_launch_config(shape, kt, kf, dt, torch.bfloat16, False, cout),
+             "conv_dilated_wgrad": cf.wgrad_launch_config(shape, kt, kf, dt, torch.bfloat16, cout)}
+    if chain:
+        grids["conv_bn_act_fwd"] = cf.launch_config(shape, kt, kf, dt, torch.bfloat16)
+        grids["conv_dgrad"] = cf.fwd_launch_config(shape, kt, kf, dt, torch.bfloat16, True)
+    for name, gr in grids.items():
+        check(gr["blocks"] <= gr["resident_blocks"],
+              f"{name} {shape} -> {cout}: {gr['blocks']} blocks > {gr['resident_blocks']} resident")
+    return {k: {f: gr[f] for f in ("blocks", "smem_bytes", "registers", "local_bytes")}
+            for k, gr in grids.items()}
+
+
+def _channel_kernels(torch, cf, cc, seed: int) -> None:
+    """Each generalized kernel against its plain version at the widths
+    above, with its time, plain version's time, bound and cuDNN's time."""
+    g = torch.Generator(device="cpu").manual_seed(seed + 20)
+    cases: dict = {}
+    for width, (cin, cout) in CHANNEL_DILATED_WIDTHS.items():
+        shape = (*CONV_SHAPE[:3], cin)
+        for layer in CHANNEL_LAYERS:
+            (kt, kf), dt = ALL_CONV_LAYERS[layer]
+            case = f"dilated/{width}/{layer}"
+            agreement = _check_dilated_case(torch, cc, case, shape, layer, "bfloat16", g, cout)
+            x, d, w, _, _ = _conv_inputs(torch, shape, kt, kf, torch.bfloat16, g, cout)
+            fwd, wgrad = _dilated_times(torch, cc, cf, x, d, w, dt, iters=5)
+            cases[case] = {"agreement": agreement, "conv_dilated_fwd": fwd, "conv_dilated_wgrad": wgrad,
+                           "grids": _channel_grids(torch, cf, shape, kt, kf, dt, cout, False)}
+            del x, d, w
+            torch.cuda.empty_cache()
+    for C in CHANNEL_CHAIN_WIDTHS:
+        shape = (*CONV_SHAPE[:3], C)
+        for layer in CHANNEL_LAYERS:
+            (kt, kf), dt = ALL_CONV_LAYERS[layer]
+            act = None if layer == "7x1" else "mish"  # as the chain calls its first layer
+            case = f"chain/{C}/{layer}"
+            agreement = _check_conv_case(torch, cf, cc, case, shape, layer, act, "bfloat16", g)
+            x, d, w, bias, bn = _conv_inputs(torch, shape, kt, kf, torch.bfloat16, g)
+            cases[case] = {"agreement": agreement,
+                           **_chain_times(torch, cf, x, d, w, bias, bn, dt, act, iters=5),
+                           "grids": _channel_grids(torch, cf, shape, kt, kf, dt, C, True)}
+            del x, d, w
+            torch.cuda.empty_cache()
+    # the padded width: the launch on 100 channels pads to 104 and slices back;
+    # against the same kernel on operands padded beforehand, the copies' cost
+    C, layer = CHANNEL_PADDED
+    (kt, kf), dt = ALL_CONV_LAYERS[layer]
+    shape = (*CONV_SHAPE[:3], C)
+    case = f"dilated/{C}/{layer}"
+    cc.reset_launch_counts()
+    agreement = _check_dilated_case(torch, cc, case, shape, layer, "bfloat16", g)
+    check(cc.CHANNEL_PADS == cc.LAUNCHES and cc.LAUNCHES["conv_dilated_fwd"] > 0,
+          f"{case}: launches {cc.LAUNCHES}, padded {cc.CHANNEL_PADS}")
+    x, d, w, _, _ = _conv_inputs(torch, shape, kt, kf, torch.bfloat16, g)
+    fwd, wgrad = _dilated_times(torch, cc, cf, x, d, w, dt, iters=5)
+    a = cc._aligned(C) - C
+    xa, da, wa = cc._pad_last(x, a), cc._pad_last(d, a), cc._pad_last(w, a, a)
+    with torch.inference_mode():
+        fwd["kernel_on_padded_operands_ms"] = time_ms(torch, lambda: cc.conv_dilated_fwd(xa, wa, dt), 5, warmup=1)
+        wgrad["kernel_on_padded_operands_ms"] = time_ms(
+            torch, lambda: cc.conv_dilated_wgrad(xa, da, kt, kf, dt), 5, warmup=1)
+    for entry in (fwd, wgrad):
+        entry["padding_ms"] = entry["ms"] - entry["kernel_on_padded_operands_ms"]
+    cases[case] = {"agreement": agreement, "padded_to": C + a, "conv_dilated_fwd": fwd,
+                   "conv_dilated_wgrad": wgrad}
+    del x, d, w, xa, da, wa
+    torch.cuda.empty_cache()
+    emit("channel kernels", shape=list(CONV_SHAPE[:3]), dtype="bfloat16",
+         tolerances_peak_rel={"dilated": DILATED_TOL["bfloat16"], "chain": CONV_TOL["bfloat16"]},
+         library="cuDNN conv2d (+ eager BN + act, + var_mean) / aten.convolution_backward, "
+                 "channels-last bf16", cases=cases)
+
+
+def phase_channels(torch, lstm_cuda, cf, cc, seed: int) -> dict:
+    """The conv kernels at other channel counts than 64 (`_channel_kernels`),
+    then `configs/voicesplit.json` at full width with ``conv_channels`` =
+    CHANNEL_MODEL: `separate_batch` at B=1 and B=8 with the dilated switch
+    and one B=2 train step on each of CHANNEL_ROUTES, each counted (exact
+    launches) and held against the same run through the plain versions on
+    the card (SEPARATE_DILATED_TOL, DILATED_STEP_TOL, FUSED_TOL), then timed:
+    latency p50 / p75 of LATENCY_CALLS calls, TRAIN_STEPS steps' p50 / p75
+    (their loss must fall) and peak memory."""
+    from voicesplit_tpu_torch import weights
+    from voicesplit_tpu_torch.cli.separate import separate_batch
+    from voicesplit_tpu_torch.config import load_config
+    from voicesplit_tpu_torch.dsp.processor import make_audio_processor
+    from voicesplit_tpu_torch.models.masknet import make_masknet
+
+    _channel_kernels(torch, cf, cc, seed)
+
+    config = load_config(str(ROOT / "configs" / "voicesplit.json"))
+    config.model.conv_channels = CHANNEL_MODEL
+    config.train_config.learning_rate = TRAIN_LR
+    ap = make_audio_processor(config)
+    n = int(config.audio.audio_len * ap.sample_rate)
+    modules = (lstm_cuda, cf, cc)
+    zero = {k: 0 for m in modules for k in m.LAUNCHES}
+    launches: dict = {}
+    report = {"config": "configs/voicesplit.json", "conv_channels": CHANNEL_MODEL,
+              "compute_dtype": config.train_config.compute_dtype,
+              "tolerances": {"serve_vs_plain": SEPARATE_DILATED_TOL,
+                             "pallas_conv_step_vs_plain": DILATED_STEP_TOL,
+                             "fused_chain_step_vs_plain": FUSED_TOL}}
+
+    model = weights.init_random_(make_masknet(config), seed)
+    check(model.conv_channels == CHANNEL_MODEL, f"model built with {model.conv_channels} channels")
+    report["parameters"] = sum(p.numel() for p in model.parameters())
+    lstm_per_call = {1: {"lstm_fwd": 2}, 8: {"bilstm_fwd": 1}}
+    for b in (1, 8):
+        mixed, emb = (torch.as_tensor(a, device="cuda")
+                      for a in synthetic_batch(seed + b, b, n, ap.sample_rate, config.model.emb_dim))
+        with _route_env("pallas_conv"):
+            _reset_counts(torch, *modules)
+            out = separate_batch(model, ap, mixed, emb)
+            counted = _counts(torch, *modules)
+            want = {**zero, **lstm_per_call[b], **DILATED_SERVE_LAUNCHES}
+            check(counted == want, f"channels serve B={b}: launches {counted}, expected {want}")
+            check(not any(cc.CHANNEL_PADS.values()), f"channels serve B={b}: padded {cc.CHANNEL_PADS}")
+            _add(launches, _check_routes(lstm_cuda, counted, f"channels serve B={b}"))
+            with torch.inference_mode():
+                spec, _ = ap.wav2spec_batch(mixed)
+                mask = model(spec, emb)
+                with _PlainVersions(cc):
+                    mask_plain = model(spec, emb)
+                    out_plain = separate_batch(model, ap, mixed, emb)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            p50, p75 = _latency_ms(torch, lambda: separate_batch(model, ap, mixed, emb), LATENCY_CALLS)
+            peak = torch.cuda.max_memory_allocated()
+        check(tuple(out.shape) == (b, n) and bool(torch.isfinite(out).all()), f"channels B={b}: output")
+        check(float(mask.min()) >= 0.0 and float(mask.max()) <= 1.0, f"channels B={b}: mask outside [0, 1]")
+        mask_err = (mask - mask_plain).abs().max().item()
+        wav_err = ((out - out_plain).abs().max() / out_plain.abs().max()).item()
+        check(mask_err <= SEPARATE_DILATED_TOL, f"channels serve B={b}: mask vs plain {mask_err}")
+        check(wav_err <= SEPARATE_DILATED_TOL, f"channels serve B={b}: waveform vs plain {wav_err}")
+        report[f"serve_pallas_conv_B{b}"] = {
+            "launches_per_call": {k: v for k, v in counted.items() if v},
+            "mask_err_vs_plain": mask_err, "wave_rel_err_vs_plain": wav_err,
+            "calls": LATENCY_CALLS, "latency_ms_p50": p50, "latency_ms_p75": p75,
+            "audio_s_per_s": b * config.audio.audio_len / (p50 / 1e3),
+            "max_memory_allocated_bytes": peak}
+    del model
+    torch.cuda.empty_cache()
+
+    for route, conv_launches in CHANNEL_ROUTES.items():
+        module = cc if route == "pallas_conv" else cf
+        tol = DILATED_STEP_TOL if route == "pallas_conv" else FUSED_TOL
+        with _route_env(route):
+            model, optimizer, state, step, batch = _fresh_step(config, seed, 2)
+            before = _snapshot(model, optimizer, state)
+            _reset_counts(torch, *modules)
+            mk = step(state, batch)
+            counted = _counts(torch, *modules)
+            want = {**zero, **TRAIN_LAUNCHES[2], **conv_launches}
+            check(counted == want, f"channels train {route}: launches {counted}, expected {want}")
+            _add(launches, _check_routes(lstm_cuda, counted, f"channels train {route}"))
+            loss0, gn0 = float(mk["loss"]), float(mk["grad_norm"])
+            check(np.isfinite(loss0) and not bool(mk["loss_exploded"]), f"channels {route}: loss {loss0}")
+            check(gn0 > 0 and np.isfinite(gn0), f"channels {route}: grad_norm {gn0}")
+            unmoved = [k for k, v in model.state_dict().items() if torch.equal(v, before[0][k])]
+            check(not unmoved, f"channels {route}: unchanged after a step: {unmoved}")
+            through_kernels = _chain_state(model)
+            _restore(model, optimizer, state, before)
+            with _PlainVersions(module):
+                mp = step(state, batch)
+            vs_plain = _compare_steps(torch, mk, through_kernels, mp, _chain_state(model))
+            _check_step_agreement(f"channels {route}: kernels vs plain", vs_plain, tol)
+            _restore(model, optimizer, state, before)
+            for _ in range(TRAIN_WARM):
+                step(state, batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses = []
+            times = []
+            for _ in range(TRAIN_STEPS):
+                t0 = time.perf_counter()
+                losses.append(float(step(state, batch)["loss"]))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            check(all(np.isfinite(losses)) and losses[-1] < loss0,
+                  f"channels {route}: loss did not fall on a fixed batch: {loss0} -> {losses}")
+            report[f"train_{route}_B2"] = {
+                "launches_per_step": {k: v for k, v in counted.items() if v},
+                "first_loss": loss0, "first_grad_norm": gn0, "kernels_vs_plain": vs_plain,
+                "steps": TRAIN_STEPS, "step_ms_p50": float(np.percentile(times, 50)),
+                "step_ms_p75": float(np.percentile(times, 75)), "losses": losses,
+                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+            del model, optimizer, state, step, through_kernels, before
+            torch.cuda.empty_cache()
+    emit("channels", device=torch.cuda.get_device_name(0), **report)
+    return launches
+
+
 def kernel_kind(name: str) -> str:
     idents = set(re.findall(r"[A-Za-z_][A-Za-z0-9_]*", name))
     for kind, names in PORT_KERNEL_KINDS:
@@ -4804,7 +5064,7 @@ PHASES = ("kernels", "bwd_kernels", "separate", "train", "conv_kernels", "train_
           "dilated_kernels", "separate_dilated", "trainer", "separate_wide", "train_wide",
           "evaluate", "preprocess", "trainer_online", "dsp", "streaming", "train_streaming",
           "encoder", "voicefilter", "reference", "import", "distributed", "long", "export",
-          "model_parallel", "remat")
+          "model_parallel", "remat", "channels")
 
 
 def main(argv=None) -> int:
@@ -4917,6 +5177,8 @@ def main(argv=None) -> int:
             torch, lstm_cuda, conv_fused, conv_cuda, args.seed)
     if "remat" in phases:
         by_path["remat"] = phase_remat(torch, lstm_cuda, conv_fused, conv_cuda, args.seed)
+    if "channels" in phases:
+        by_path["channels"] = phase_channels(torch, lstm_cuda, conv_fused, conv_cuda, args.seed)
     emit("total", wall_seconds=time.perf_counter() - t_start, phases=phases)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

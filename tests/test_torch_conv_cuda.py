@@ -265,9 +265,13 @@ def test_wrappers_check_their_arguments():
     with pytest.raises(ValueError, match="frequency dilation"):
         cc.conv2d_dilated(x, w, (1, 2))
     # what the CUDA kernels do not take raises on the card, it never goes to
-    # the library: the check the launches make first
-    with pytest.raises(NotImplementedError, match="64 channels"):
-        cc._check_kernel_takes(128, 64, 5, 5, wgrad=False)
+    # the library: the check the launches make first.  Every channel count
+    # that `takes_layer` sends (64 or more, in and out apart) is taken
+    for cin, cout in ((128, 64), (64, 128), (96, 96), (100, 192)):
+        cc._check_kernel_takes(cin, cout, 5, 5, wgrad=False)
+        cc._check_kernel_takes(cin, cout, 5, 5, wgrad=True)
+    with pytest.raises(NotImplementedError, match="at least 64 channels"):
+        cc._check_kernel_takes(32, 64, 5, 5, wgrad=False)
     with pytest.raises(NotImplementedError, match="taps"):
         cc._check_kernel_takes(64, 64, 5, 7, wgrad=True)
     # the forward kernel: kf in (1, 3, 5); five time taps at kf = 5 (its ring

@@ -825,9 +825,157 @@ def test_dilated_conv_kernels_match_plain_versions_on_card(layer, dtype):
     for a, b, tol in zip(got, want, tols):
         assert bool(torch.isfinite(a).all())
         assert (a.float() - b.float()).abs().max().item() <= tol * b.float().abs().max().item()
-    with pytest.raises(NotImplementedError, match="64 channels"):
-        cc.conv_dilated_fwd(torch.zeros(1, 4, 4, 128, device="cuda"),
-                            torch.zeros(5, 5, 128, 128, device="cuda"), 1)
+    # fewer channels than the JAX package sends raise; more are taken
+    # (`test_conv_kernels_at_other_channel_counts_on_card`)
+    with pytest.raises(NotImplementedError, match="at least 64 channels"):
+        cc.conv_dilated_fwd(torch.zeros(1, 4, 4, 32, device="cuda"),
+                            torch.zeros(5, 5, 32, 32, device="cuda"), 1)
+    assert cc.conv_dilated_fwd(torch.zeros(1, 4, 4, 128, device="cuda"),
+                               torch.zeros(5, 5, 128, 128, device="cuda"), 1).shape == (1, 4, 4, 128)
+
+
+# Other channel counts than 64 (Cin, Cout): what the JAX package sends its
+# Pallas conv (64 or more, in and out apart) and its chain (multiples of 64).
+# Shapes with the halo in play: T under the dilated reach, F off the tiles,
+# B = 1; and more items than resident blocks.
+CHANNEL_WIDTHS = {"96": (96, 96), "128": (128, 128), "192": (192, 192), "64-128": (64, 128),
+                  "72-136": (72, 136)}
+CHANNEL_CASES = {
+    "5x5-d16-T19": (((5, 5), 16), (2, 19, 150)),
+    "7x1-d3-F37-B1": (((7, 1), 3), (1, 29, 37)),
+    "3x3-d2-F70": (((3, 3), 2), (2, 11, 70)),
+    "5x5-d1-more-items-than-blocks": (((5, 5), 1), (2, 41, 300)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(CHANNEL_CASES))
+@pytest.mark.parametrize("width", sorted(CHANNEL_WIDTHS))
+def test_conv_kernels_at_other_channel_counts_on_card(width, case, dtype):
+    """Every conv kernel at Cin, Cout other than 64 against its plain
+    version: `conv_dilated_fwd` (forward and, flipped, data gradient) and
+    `conv_dilated_wgrad`, and where the chain takes the width (Cin = Cout, a
+    multiple of 64) `conv_bn_act_fwd`, `conv_dgrad` (dx the bits of
+    `conv_dilated_fwd`) and `conv_wgrad` (the bits of `conv_dilated_wgrad`
+    on its prologue pass's output); the same bits twice, one wave at most."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import conv_cuda as cc
+    from voicesplit_tpu_torch.ops import conv_fused as cf
+
+    cin, cout = CHANNEL_WIDTHS[width]
+    ((kt, kf), dil), (b, t, f) = CHANNEL_CASES[case]
+    g = torch.Generator().manual_seed(4)
+    dt = getattr(torch, dtype)
+    x = torch.randn(b, t, f, cin, generator=g).to("cuda", dt)
+    d = torch.randn(b, t, f, cout, generator=g).to("cuda", dt)
+    w = (torch.randn(kt, kf, cin, cout, generator=g) * (kt * kf * cin) ** -0.5).to("cuda", dt)
+    for grid in (cf.fwd_launch_config(x.shape, kt, kf, dil, dt, False, cout),
+                 cf.wgrad_launch_config(x.shape, kt, kf, dil, dt, cout)):
+        assert grid["blocks"] <= grid["resident_blocks"]
+    wf = cc.flip_weight(w)
+    with torch.inference_mode():
+        out, out2 = cc.conv_dilated_fwd(x, w, dil), cc.conv_dilated_fwd(x, w, dil)
+        dx = cc.conv_dilated_fwd(d, wf, dil)
+        dw, dw2 = cc.conv_dilated_wgrad(x, d, kt, kf, dil), cc.conv_dilated_wgrad(x, d, kt, kf, dil)
+        want = (cc.conv_dilated_fwd_round_once_ref(x, w, dil),
+                cc.conv_dilated_fwd_round_once_ref(d, wf, dil),
+                cc.conv_dilated_wgrad_ref(x, d, kt, kf, dil))
+    torch.cuda.synchronize()
+    assert out.shape == (b, t, f, cout) and dx.shape == (b, t, f, cin) and dw.shape == (kt, kf, cin, cout)
+    assert torch.equal(out, out2) and torch.equal(dw, dw2)
+    # relative to each output's peak.  fp32: summation order only.  bf16:
+    # against the sum rounded once one flipped rounding (2^-7 of the peak at
+    # most); dW adds exact products in another order
+    tol = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-3)}[dtype]
+    for a, ref, limit in ((out, want[0], tol[0]), (dx, want[1], tol[0]), (dw, want[2], tol[1])):
+        assert bool(torch.isfinite(a).all())
+        assert (a.float() - ref.float()).abs().max().item() <= limit * ref.float().abs().max().item()
+    if cin != cout or cin % cf.CHANNEL_SLAB:
+        return
+    bias = (0.1 * torch.randn(cin, generator=g)).cuda()
+    scal = cf._scal_table(
+        0.2 * torch.randn(cin, generator=g), torch.rand(cin, generator=g) + 0.5,
+        torch.rand(cin, generator=g) + 0.5, 0.1 * torch.randn(cin, generator=g),
+    ).cuda()
+    for grid in (cf.launch_config(x.shape, kt, kf, dil, dt),
+                 cf.fwd_launch_config(x.shape, kt, kf, dil, dt, True)):
+        assert grid["blocks"] <= grid["resident_blocks"]
+    wfc = cf.pack_weight_flipped(w, dt)
+    with torch.inference_mode():
+        raw, stats = cf.conv_bn_act_fwd(x, w, bias, scal, dil, "mish", True)
+        raw2, stats2 = cf.conv_bn_act_fwd(x, w, bias, scal, dil, "mish", True)
+        dxc, dbias = cf.conv_dgrad(d, wfc, dil)
+        dwc = cf.conv_wgrad(x, d, scal, kt, kf, dil, "mish", True)
+        split = cc.conv_dilated_wgrad(cf.conv_wgrad_prologue(x, scal, "mish"), d, kt, kf, dil)
+        want = (*cf.conv_bn_act_fwd_ref(x, w, bias, scal, dil, "mish", True),
+                *cf.conv_dgrad_ref(d, wfc, dil), cf.conv_wgrad_ref(x, d, scal, kt, kf, dil, "mish", True))
+    torch.cuda.synchronize()
+    assert torch.equal(raw, raw2) and torch.equal(stats, stats2)
+    assert torch.equal(dxc, dx) and torch.equal(dwc, split)
+    # raw and dx may round the other way once; the sums and dW add exact
+    # products (or rounded values) in another order
+    tols = {"float32": [1e-4] * 5, "bfloat16": [1e-2, 1e-3, 1e-2, 1e-3, 1e-3]}[dtype]
+    for a, ref, limit in zip((raw, stats, dxc, dbias, dwc), want, tols):
+        assert bool(torch.isfinite(a).all())
+        assert (a.float() - ref.float()).abs().max().item() <= limit * ref.float().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_channel_count_off_the_copies_width_is_padded_on_card(dtype):
+    """100 channels (no multiple of 8, the 16-byte copies' width): the
+    wrapper zero-pads to 104 around the launch, counted in
+    `CHANNEL_PADS`, and the result is the plain version's."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import conv_cuda as cc
+
+    (kt, kf), dil = (5, 5), 2
+    g = torch.Generator().manual_seed(5)
+    dt = getattr(torch, dtype)
+    x = torch.randn(2, 13, 150, 100, generator=g).to("cuda", dt)
+    d = torch.randn(2, 13, 150, 100, generator=g).to("cuda", dt)
+    w = (torch.randn(kt, kf, 100, 100, generator=g) * (kt * kf * 100) ** -0.5).to("cuda", dt)
+    cc.reset_launch_counts()
+    with torch.inference_mode():
+        out = cc.conv_dilated_fwd(x, w, dil)
+        dw = cc.conv_dilated_wgrad(x, d, kt, kf, dil)
+        want = (cc.conv_dilated_fwd_round_once_ref(x, w, dil), cc.conv_dilated_wgrad_ref(x, d, kt, kf, dil))
+    torch.cuda.synchronize()
+    assert cc.CHANNEL_PADS == cc.LAUNCHES == {"conv_dilated_fwd": 1, "conv_dilated_wgrad": 1}
+    assert out.shape == (2, 13, 150, 100) and out.is_contiguous() and dw.shape == (kt, kf, 100, 100)
+    tol = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-3)}[dtype]
+    for a, ref, limit in zip((out, dw), want, tol):
+        assert (a.float() - ref.float()).abs().max().item() <= limit * ref.float().abs().max().item()
+
+
+# SHA-256 over `scripts/port_conv_bits.py`'s hashes (json.dumps, sorted keys)
+# of every conv kernel's outputs at 64 channels, as the port's tree before
+# the kernels took other widths gave them on an H100 SXM (132 SMs)
+CONV_BITS_AT_64 = "16391236b3ab307adb869c68f2ea945fa90fcee86dd83f11ba219887a168a33e"
+
+
+@pytest.mark.gpu
+def test_conv_kernels_keep_their_64_channel_bits_on_card():
+    """At 64 channels in and out every conv kernel is its own compile-time
+    instantiation and gives the bits it gave before the other widths came:
+    the digest of `scripts/port_conv_bits.py`'s hashes against the stored
+    one (on another card model the grids, and so the sums' order, differ)."""
+    _need_card()
+    import hashlib
+    import json
+
+    from voicesplit_tpu_torch.ops import conv_cuda as cc
+    from voicesplit_tpu_torch.ops import conv_fused as cf
+
+    if torch.cuda.get_device_properties(0).multi_processor_count != 132:
+        pytest.skip("the stored bits are an H100 SXM's (132 SMs)")
+    spec = importlib.util.spec_from_file_location("port_conv_bits", REPO / "scripts" / "port_conv_bits.py")
+    bits = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bits)
+    hashes = bits.conv_bits(torch, cc, cf)
+    digest = hashlib.sha256(json.dumps(hashes, sort_keys=True).encode()).hexdigest()
+    assert digest == CONV_BITS_AT_64, hashes
 
 
 @pytest.mark.gpu

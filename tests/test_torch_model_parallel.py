@@ -179,8 +179,9 @@ def _assert_same(got, want):
             assert torch.equal(gopt["state"][i][k], v), (i, k)
 
 
-# route: (switches, conv channels).  The chain and the dilated kernel take 64
-# channels (the JAX package's conditions), so those routes run at 64.
+# route: (switches, conv channels).  The JAX package's conditions send a
+# layer to the dilated kernel at 64 channels or more and to the chain at a
+# multiple of 64, so those routes run at 64, the narrowest width both take.
 ROUTES = {"library": ({}, 8), "fused_chain": ({"VOICESPLIT_FUSED_CHAIN": "1"}, 64),
           "dilated": ({"VOICESPLIT_PALLAS_CONV": "1"}, 64)}
 SPLIT_CASES = [("library", 2), ("library", 3), ("library", 4),

@@ -55,8 +55,9 @@ def _config_text(channels=8, causal=False, root=None):
     return json.dumps(d)
 
 
-# route: (switches, conv channels, causal convs, streaming LSTM).  The chain
-# and the dilated kernel take 64 channels (the JAX package's conditions).
+# route: (switches, conv channels, causal convs, streaming LSTM).  The JAX
+# package's conditions send a layer to the dilated kernel at 64 channels or
+# more and to the chain at a multiple of 64: those routes run at 64.
 ROUTES = {
     "library": ({}, 8, False, False),
     "causal": ({}, 8, True, False),

@@ -13,8 +13,9 @@
 //   conv_dgrad       <- voicesplit_tpu/ops/conv_fused.py  _dgrad_kernel (:411, launched by
 //                       _conv_dgrad :476)
 //
-// Channels-last activations [B, T, F, C = 64], weights [kt, kf, Cin, Cout],
-// time dilation dt, frequency dilation 1, odd kt <= 7, kf in {1, 3, 5}:
+// Channels-last activations [B, T, F, Cin] in, [B, T, F, Cout] out, weights
+// [kt, kf, Cin, Cout], time dilation dt, frequency dilation 1, odd kt <= 7,
+// kf in {1, 3, 5}:
 //
 //   out[b, t, f, co] = round(sum_{i,j,c} x[b, t + i*dt - pad_t, f + j - pad_f, c] * W[i, j, c, co])
 //   conv_dgrad also  dbias[c] = sum_{b,t,f} x[b, t, f, c]   (x = d_raw, fp32)
@@ -115,6 +116,28 @@
 //   warps in a fixed order into one partial row and reduce_rows_kernel adds
 //   the rows in a fixed order, in double.  No float atomics: the same inputs
 //   give the same bits.
+//
+//   Channels.  Every tile above is 64 channels wide, and C = 64 in and out
+//   is its own compile-time instantiation (WIDE = false), as described.
+//   Any other Cin, Cout (WIDE = true; a multiple of 8, which the 16-byte
+//   copies need: ops/conv_cuda.py pads other counts) works in 64-wide
+//   slabs.  An item also names one group of 64 output channels (groups
+//   outermost in the numbering, so that a run meets each group once) and
+//   walks the input channels in 64-wide slabs, each slab a pass over the
+//   item's time taps into the same accumulators: each (slab, group) is the
+//   64 x 64 tile problem above.  With one slab the ring carries rows from
+//   item to item as above; with more, each slab of an item loads its rows
+//   anew, so a row crosses from L2 about (R + kt - 1) / R times per slab and
+//   group.  The weights of every step, kf = 1 too, are one [kf][64][64]
+//   tile, double-buffered.  Channels past Cin or Cout read as zero (cp.async
+//   with src-size 0, as the halo) and are not stored.  (All channels at once
+//   would not fit: at C = 128 the bf16 (5,5) ring alone is 270,336 B and a
+//   step's weights 163,840 B; by slab the item keeps the C = 64 budget.)
+//   conv_bn_act_fwd writes each group's statistics into the block's partial
+//   row [2 Cout] when the run leaves the group; conv_dgrad adds each slab's
+//   column sums, taken by the items of group 0 (which read every input
+//   element once), into the block's row [Cin] after the slab; both in a
+//   fixed order.
 
 #include "conv_tile.cuh"
 
@@ -154,15 +177,23 @@ __device__ __forceinline__ int swz(int row, int ch) {
 struct FwdWork {
   int T, F, kt, dt, n_ft, n_col, blocks;  // n_col: items of one (b, frequency tile)
   long long items;
+  int cin, cout, n_slab, n_grp;  // WIDE: channels, 64-wide input slabs, 64-wide output groups
 };
 
 struct FwdItem {
   int b, f0, r, q;  // output rows r + (q R + u) dt for u < R, positions [f0, f0 + TF)
+  int og;           // output channels [64 og, 64 og + 64)
 };
 
-template <typename T, int KF>
+template <typename T, int KF, bool WIDE>
 __device__ __forceinline__ FwdItem decode_fwd(const FwdWork& w, long long item) {
   constexpr int R = FwdShape<T, KF>::R;
+  int og = 0;
+  if constexpr (WIDE) {  // output groups outermost
+    const long long per_grp = w.items / w.n_grp;
+    og = int(item / per_grp);
+    item -= (long long)og * per_grp;
+  }
   const long long per_b = (long long)w.n_ft * w.n_col;
   const int b = int(item / per_b);
   const long long rem = item - (long long)b * per_b;
@@ -172,40 +203,51 @@ __device__ __forceinline__ FwdItem decode_fwd(const FwdWork& w, long long item) 
     q -= (len + R - 1) / R;  // the items of residue r
     ++r;
   }
-  return {b, ft * FwdShape<T, KF>::TF, r, q};
+  return {b, ft * FwdShape<T, KF>::TF, r, q, og};
 }
 
 // wgmma's 128-byte swizzle needs tiles on 1024-byte boundaries
 constexpr int kSmemAlign = 1024;
 
 // the chain's statistics: a row of 2 x 64 sums per warp, then the bias
-constexpr size_t kChainSmemBytes = (size_t(kThreads / 32) * 2 * kC + kC) * sizeof(float);
-
-template <typename T, int KF, int MODE>
-size_t fwd_smem_bytes(int kt) {
-  const size_t ring = size_t(ring_slots<T, KF>(kt)) * FwdShape<T, KF>::kRowElems;
-  const size_t weights = size_t(KF == 1 ? kt : 2 * KF) * kC * kC;
-  return (ring + weights) * sizeof(T) + (MODE == kFwdChain ? kChainSmemBytes : 0) + kSmemAlign;
+// (C = 64: 64 channels; WIDE: Cout)
+template <bool WIDE>
+size_t chain_smem_bytes(int cout) {
+  return (size_t(kThreads / 32) * 2 * kC + (WIDE ? cout : kC)) * sizeof(float);
 }
 
-// Input row t, positions [f_lo, f_lo + TF + KF - 1), into a ring tile; zero
-// outside [0, T) x [0, F).
-template <typename T, int KF>
+// every tap's weights stay in shared memory for the whole run (C = 64, kf = 1)
+template <int KF, bool WIDE>
+__host__ __device__ constexpr bool resident_weights() {
+  return KF == 1 && !WIDE;
+}
+
+template <typename T, int KF, int MODE, bool WIDE>
+size_t fwd_smem_bytes(int kt, int cout) {
+  const size_t ring = size_t(ring_slots<T, KF>(kt)) * FwdShape<T, KF>::kRowElems;
+  const size_t weights = size_t(resident_weights<KF, WIDE>() ? kt : 2 * KF) * kC * kC;
+  return (ring + weights) * sizeof(T) + (MODE == kFwdChain ? chain_smem_bytes<WIDE>(cout) : 0) +
+         kSmemAlign;
+}
+
+// Input row t, positions [f_lo, f_lo + TF + KF - 1), channels [c0, c0 + 64),
+// into a ring tile; zero outside [0, T) x [0, F) and past cin.
+template <typename T, int KF, bool WIDE>
 __device__ __forceinline__ void load_row(T* dst, const T* __restrict__ x, const FwdWork& w, int b,
-                                         int t, int f_lo, int tid) {
+                                         int t, int f_lo, int cin, int c0, int tid) {
   constexpr int kVec = 16 / int(sizeof(T));
   constexpr int kChunks = kC / kVec;
   constexpr int kPos = FwdShape<T, KF>::TF + KF - 1;
   const bool row_ok = t >= 0 && t < w.T;
-  const T* row = x + (size_t(b) * w.T + (row_ok ? t : 0)) * w.F * kC;
+  const T* row = x + (size_t(b) * w.T + (row_ok ? t : 0)) * w.F * cin + c0;
   for (int e = tid; e < kPos * kChunks; e += kThreads) {
     const int p = e / kChunks, c = (e % kChunks) * kVec, f = f_lo + p;
-    const bool ok = row_ok && f >= 0 && f < w.F;
-    cp_async16(dst + swz<T>(p, c), ok ? row + size_t(f) * kC + c : x, ok ? 16 : 0);
+    const bool ok = row_ok && f >= 0 && f < w.F && (!WIDE || c0 + c < cin);
+    cp_async16(dst + swz<T>(p, c), ok ? row + size_t(f) * cin + c : x, ok ? 16 : 0);
   }
 }
 
-// `rows` rows of 64 weights ([tap][j][c] rows, co along the row).
+// `rows` rows of 64 weights ([tap][j][c] rows, co along the row; C = 64).
 template <typename T>
 __device__ __forceinline__ void load_weights(T* dst, const T* __restrict__ src, int rows, int tid) {
   constexpr int kVec = 16 / int(sizeof(T));
@@ -213,6 +255,22 @@ __device__ __forceinline__ void load_weights(T* dst, const T* __restrict__ src, 
   for (int e = tid; e < rows * kChunks; e += kThreads) {
     const int r = e / kChunks, c = (e % kChunks) * kVec;
     cp_async16(dst + swz<T>(r, c), src + size_t(r) * kC + c, 16);
+  }
+}
+
+// WIDE: the [KF][64][64] weight tile of time tap i, input slab cs and output
+// group og from [kt][KF][Cin][Cout], zero past Cin and Cout.
+template <typename T, int KF>
+__device__ __forceinline__ void load_weight_tile(T* dst, const T* __restrict__ wt, const FwdWork& w,
+                                                 int i, int cs, int og, int tid) {
+  constexpr int kVec = 16 / int(sizeof(T));
+  constexpr int kChunks = kC / kVec;
+  for (int e = tid; e < KF * kC * kChunks; e += kThreads) {
+    const int r = e / kChunks, c = (e % kChunks) * kVec;
+    const int ci = cs * kC + r % kC, co = og * kC + c;
+    const bool ok = ci < w.cin && co < w.cout;
+    const T* src = wt + (size_t(i * KF + r / kC) * w.cin + ci) * w.cout + co;
+    cp_async16(dst + swz<T>(r, c), ok ? src : wt, ok ? 16 : 0);
   }
 }
 
@@ -260,11 +318,11 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[8][4], const uint32_t
       : "memory");
 }
 
-// grid (blocks); out [B, T, F, 64]; kFwdDgrad: partials [blocks][64], the
-// block's share of the input's column sums; kFwdChain: bias [64] and
-// partials [blocks][128], the block's share of the output's sums and sums
-// of squares.
-template <typename T, int KF, int MODE>
+// grid (blocks); out [B, T, F, Cout]; kFwdDgrad: partials [blocks][Cin], the
+// block's share of the input's column sums; kFwdChain: bias [Cout] and
+// partials [blocks][2 Cout], the block's share of the output's sums and sums
+// of squares (C = 64: Cin = Cout = 64).
+template <typename T, int KF, int MODE, bool WIDE>
 __device__ __forceinline__ void conv_fwd_body(const T* __restrict__ x, const T* __restrict__ wt,
                                               const float* __restrict__ bias, T* __restrict__ out,
                                               float* __restrict__ partials, const FwdWork& w) {
@@ -274,7 +332,10 @@ __device__ __forceinline__ void conv_fwd_body(const T* __restrict__ x, const T* 
   constexpr bool kTensorCore = Shape::kTensorCore;
   constexpr int kRowElems = Shape::kRowElems;
   constexpr int kTapElems = KF * kC * kC;
+  constexpr bool kResidentW = resident_weights<KF, WIDE>();
   constexpr int pad_f = (KF - 1) / 2;
+  const int cin = WIDE ? w.cin : kC, cout = WIDE ? w.cout : kC;
+  const int n_slab = WIDE ? w.n_slab : 1;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = blockIdx.x;
@@ -285,18 +346,28 @@ __device__ __forceinline__ void conv_fwd_body(const T* __restrict__ x, const T* 
   // into a slot that step frees; the rest (R >= kt) at its start
   const int early = min(R, kt - 1);
 
-  // KF = 1: [kt][64][64] weights for the whole run; else [2][KF][64][64], one
-  // buffer per step in turn.  Then the ring [S][TF + KF - 1][64].
+  // kResidentW: [kt][64][64] weights for the whole run; else [2][KF][64][64],
+  // one buffer per step in turn.  Then the ring [S][TF + KF - 1][64].
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const w_s = reinterpret_cast<T*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + kSmemAlign - 1) & ~uintptr_t(kSmemAlign - 1));
-  T* const ring = w_s + (KF == 1 ? kt : 2) * kTapElems;
+  T* const ring = w_s + (kResidentW ? kt : 2) * kTapElems;
   // CHAIN: [warp][sum 64, sum of squares 64] (bf16: the warp's stage of
   // rounded outputs until the end), then the bias
   float* const stat_s = reinterpret_cast<float*>(ring + S * kRowElems);
   float* const stage = stat_s + warp * 2 * kC;
   float* const bias_s = stat_s + (kThreads / 32) * 2 * kC;
-  if (CHAIN && tid < kC) bias_s[tid] = bias[tid];
+  if constexpr (WIDE) {
+    if (CHAIN) {
+      for (int c = tid; c < cout; c += kThreads) bias_s[c] = bias[c];
+    }
+    if (DGRAD || CHAIN) {  // groups or slabs the run does not meet add nothing
+      const int width = DGRAD ? cin : 2 * cout;
+      for (int c = tid; c < width; c += kThreads) partials[size_t(g) * width + c] = 0.0f;
+    }
+  } else {
+    if (CHAIN && tid < kC) bias_s[tid] = bias[tid];
+  }
 
   // bf16: warpgroup wg = warp / 4 computes output rows 2 wg and 2 wg + 1 of
   // the item; this warp's tile q = 2 r + x holds row 2 wg + r and 16 positions
@@ -312,35 +383,99 @@ __device__ __forceinline__ void conv_fwd_body(const T* __restrict__ x, const T* 
   float st32[2][4] = {};  // CHAIN, fp32: sums and sums of squares of those channels over the run
   float csum[2] = {}, csq[2] = {};  // CHAIN, bf16: those of channels l and 32 + l over the run
 
-  load_weights<T>(w_s, wt, (KF == 1 ? kt : 1) * KF * kC, tid);
+  if constexpr (WIDE) {
+    if (n > 0) load_weight_tile<T, KF>(w_s, wt, w, 0, 0, decode_fwd<T, KF, WIDE>(w, it0).og, tid);
+  } else {
+    load_weights<T>(w_s, wt, (KF == 1 ? kt : 1) * KF * kC, tid);
+  }
   cp_async_commit();
+
+  // CHAIN: the run's sums and sums of squares of output group co0 / 64, from
+  // the warps' registers through their stages, into the block's partial row
+  // [sums Cout, sums of squares Cout] (C = 64: once, at the end of the run)
+  auto flush_stats = [&](int co0) {
+    if constexpr (kTensorCore) {
+      __syncwarp();  // its stage is free
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        stage[32 * half + lane] = csum[half];
+        stage[kC + 32 * half + lane] = csq[half];
+        if constexpr (WIDE) csum[half] = csq[half] = 0.0f;
+      }
+    } else {
+      // the warp's two positions (lanes l, l ^ 16)
+#pragma unroll
+      for (int s2 = 0; s2 < 2; ++s2) {
+#pragma unroll
+        for (int nn = 0; nn < 4; ++nn) {
+          const float v = st32[s2][nn] + __shfl_xor_sync(0xffffffffu, st32[s2][nn], 16);
+          if (lane < 16) stage[s2 * kC + (tid & 15) * 4 + nn] = v;
+          if constexpr (WIDE) st32[s2][nn] = 0.0f;
+        }
+      }
+    }
+    __syncthreads();
+    if (tid < 2 * kC) {
+      float v = 0.0f;
+#pragma unroll
+      for (int p = 0; p < kThreads / 32; ++p) v += stat_s[p * 2 * kC + tid];
+      if constexpr (WIDE) {
+        partials[size_t(g) * 2 * cout + (tid < kC ? 0 : cout) + co0 + (tid & (kC - 1))] = v;
+      } else {
+        partials[size_t(g) * 2 * kC + tid] = v;
+      }
+    }
+    if constexpr (WIDE) __syncthreads();  // before the next group's epilogue reuses the stages
+  };
+
+  // DGRAD: the column sums of input channels [c0, c0 + 64) (C = 64: once, at
+  // the end of the run; WIDE: after each slab of the items of group 0) over
+  // the lanes in a fixed order into red [warp or part][channel], then the
+  // warps or parts into the block's row (WIDE: added to it)
+  auto flush_dsums = [&](float (*red)[kC], int c0) {
+    if constexpr (kTensorCore) {
+      // over the 8 lanes of one tig; lane tig of the warp's first 4 holds
+      // channels 16 kk + 2 tig + {0, 1, 8, 9}
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float v = ds[kk][e];
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          if (lane < 4) red[warp][16 * kk + 2 * lane + (e & 1) + 8 * (e >> 1)] = v;
+          if constexpr (WIDE) ds[kk][e] = 0.0f;
+        }
+      }
+    } else {
+      red[tid >> 6][tid & 63] = dsum;
+      if constexpr (WIDE) dsum = 0.0f;
+    }
+    __syncthreads();
+    if (tid < kC && (!WIDE || c0 + tid < cin)) {
+      constexpr int kParts = kTensorCore ? kThreads / 32 : kThreads / kC;
+      float v = 0.0f;
+#pragma unroll
+      for (int p = 0; p < kParts; ++p) v += red[p][tid];
+      if constexpr (WIDE) {
+        partials[size_t(g) * cin + c0 + tid] += v;
+      } else {
+        partials[size_t(g) * kC + tid] = v;
+      }
+    }
+    if constexpr (WIDE) __syncthreads();  // before the next slab's sums overwrite red
+  };
 
   int base = 0;  // the current item's first ring row number (slot = number mod S)
   int s = 0;     // steps so far: the weight buffer of a step is s & 1
   for (int k = 0; k < n; ++k) {
-    const FwdItem it = decode_fwd<T, KF>(w, it0 + k);
+    const FwdItem it = decode_fwd<T, KF, WIDE>(w, it0 + k);
     auto row_of = [&](const FwdItem& m, int p) { return m.r + (m.q * R + p - centre) * w.dt; };
-    if (k > 0 && it.q > 0) {
-      base += R;  // rows m < early were issued during the previous item
-      if (early < R) {
-        __syncthreads();  // every thread is done with the previous item's rows
-        for (int m = early; m < R; ++m) {
-          load_row<T, KF>(ring + ((base + kt - 1 + m) % S) * kRowElems, x, w, it.b,
-                          row_of(it, kt - 1 + m), it.f0 - pad_f, tid);
-        }
-        cp_async_commit();
-      }
-    } else {
-      __syncthreads();  // every thread is done with the ring
-      base += S;
-      for (int p = 0; p < S; ++p) {
-        load_row<T, KF>(ring + ((base + p) % S) * kRowElems, x, w, it.b, row_of(it, p),
-                        it.f0 - pad_f, tid);
-      }
-      cp_async_commit();
-    }
-    const FwdItem nx = k + 1 < n ? decode_fwd<T, KF>(w, it0 + k + 1) : FwdItem{0, 0, 0, 0};
-    const bool next_continues = nx.q > 0;  // the next item of this residue, in this run
+    const FwdItem nx = k + 1 < n ? decode_fwd<T, KF, WIDE>(w, it0 + k + 1) : FwdItem{0, 0, 0, 0, 0};
+    // the next item of this residue, in this run, takes its rows over (one
+    // slab only: with more, each slab loads its rows anew)
+    const bool next_continues = nx.q > 0 && n_slab == 1;
     const int t_out0 = row_of(it, u0 + centre);  // the warp(group)'s first output row
     bool first = true;  // the item's first product replaces the accumulators
     if constexpr (CHAIN && kTensorCore) {
@@ -354,95 +489,136 @@ __device__ __forceinline__ void conv_fwd_body(const T* __restrict__ x, const T* 
       }
     }
 
-    for (int i = 0; i < kt; ++i, ++s) {
-      cp_async_wait<0>();  // this step's weights and rows have landed (this thread's copies)
-      __syncthreads();     // everyone's; everyone is done with the previous step
-      if (KF > 1 && (k + 1 < n || i + 1 < kt)) {
-        load_weights<T>(w_s + ((s + 1) & 1) * kTapElems, wt + size_t((i + 1) % kt) * kTapElems,
-                        KF * kC, tid);
-      }
-      if (next_continues && i >= 1 && i - 1 < early) {
-        // its new row m = i - 1, into the slot of this item's row m, which
-        // step m was the last to read
-        load_row<T, KF>(ring + ((base + S + i - 1) % S) * kRowElems, x, w, nx.b,
-                        row_of(nx, kt - 1 + i - 1), nx.f0 - pad_f, tid);
-      }
-      cp_async_commit();
-
-      const T* w_tap = w_s + (KF == 1 ? i : (s & 1)) * kTapElems;
-      if constexpr (kTensorCore) {
-        // skip a step whose input rows are all outside [0, T) (zeros) or
-        // whose output rows all are: uniform over the warpgroup
-        const int t_lo = row_of(it, u0 + i), t_hi = row_of(it, u0 + 1 + i);
-        if (t_out0 < w.T && t_hi >= 0 && t_lo < w.T) {
-          const T* rows[2] = {ring + ((base + u0 + i) % S) * kRowElems,
-                              ring + ((base + u0 + 1 + i) % S) * kRowElems};
-          const bool sums = DGRAD && i == centre;
-          uint32_t a[2][4][4];  // A of tiles q, double-buffered across products
-#pragma unroll
-          for (int jk = 0; jk < KF * (kC / 16); ++jk) {
-            const int j = jk / (kC / 16), kk = jk % (kC / 16);
-            uint32_t (&af)[4][4] = a[jk & 1];
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              ldmatrix_x4(af[q], rows[q / 2] + swz<T>(pos(q % 2) + (lane & 15) + j, kk * 16 + (lane >> 4) * 8));
-            }
-            if (sums && j == pad_f) {  // every input element is the centre of one output row
-#pragma unroll
-              for (int q = 0; q < 4; ++q) {
-                const float2 r0 = unpack_bf16(af[q][0]), r1 = unpack_bf16(af[q][1]);
-                const float2 r2 = unpack_bf16(af[q][2]), r3 = unpack_bf16(af[q][3]);
-                ds[kk][0] += r0.x + r1.x;
-                ds[kk][1] += r0.y + r1.y;
-                ds[kk][2] += r2.x + r3.x;
-                ds[kk][3] += r2.y + r3.y;
-              }
-            }
-            const uint64_t desc = b_desc(w_tap + (j * kC + kk * 16) * kC);
-            wgmma_fence();
-#pragma unroll
-            for (int q = 0; q < 4; ++q) wgmma_m64n64k16(acc[q], af[q], desc, CHAIN || !first);
-            wgmma_commit();
-            wgmma_wait<1>();  // the product before this one is done: its A registers are free
-            first = false;
+    for (int cs = 0; cs < n_slab; ++cs) {  // C = 64: one slab
+      const int c0 = cs * kC;
+      if (k > 0 && it.q > 0 && n_slab == 1) {
+        base += R;  // rows m < early were issued during the previous item
+        if (early < R) {
+          __syncthreads();  // every thread is done with the previous item's rows
+          for (int m = early; m < R; ++m) {
+            load_row<T, KF, WIDE>(ring + ((base + kt - 1 + m) % S) * kRowElems, x, w, it.b,
+                                  row_of(it, kt - 1 + m), it.f0 - pad_f, cin, c0, tid);
           }
-          wgmma_wait<0>();  // before the next barrier frees the weights
+          cp_async_commit();
         }
       } else {
-        // one position, 4 output channels a thread
-        const int m = tid >> 4, n0 = (tid & 15) * 4;
-        const int t_in = row_of(it, i);
-        if (t_out0 < w.T && t_in >= 0 && t_in < w.T) {
-          const T* a_row = ring + ((base + i) % S) * kRowElems;
-          for (int j = 0; j < KF; ++j) {
-#pragma unroll 4
-            for (int c = 0; c < kC; ++c) {
-              const float av = to_float(a_row[swz<T>(m + j, c)]);
-              const T* wr = w_tap + swz<T>(j * kC + c, n0);
+        __syncthreads();  // every thread is done with the ring
+        base += S;
+        for (int p = 0; p < S; ++p) {
+          load_row<T, KF, WIDE>(ring + ((base + p) % S) * kRowElems, x, w, it.b, row_of(it, p),
+                                it.f0 - pad_f, cin, c0, tid);
+        }
+        cp_async_commit();
+      }
+
+      for (int i = 0; i < kt; ++i, ++s) {
+        cp_async_wait<0>();  // this step's weights and rows have landed (this thread's copies)
+        __syncthreads();     // everyone's; everyone is done with the previous step
+        if constexpr (WIDE) {
+          // the next step's weight tile: the next tap, else the next slab's
+          // first, else the next item's first
+          const bool last_tap = i + 1 == kt, last_slab = cs + 1 == n_slab;
+          if (!last_tap || !last_slab || k + 1 < n) {
+            load_weight_tile<T, KF>(w_s + ((s + 1) & 1) * kTapElems, wt, w, last_tap ? 0 : i + 1,
+                                    last_tap ? (last_slab ? 0 : cs + 1) : cs,
+                                    last_tap && last_slab ? nx.og : it.og, tid);
+          }
+        } else if (KF > 1 && (k + 1 < n || i + 1 < kt)) {
+          load_weights<T>(w_s + ((s + 1) & 1) * kTapElems, wt + size_t((i + 1) % kt) * kTapElems,
+                          KF * kC, tid);
+        }
+        if (next_continues && i >= 1 && i - 1 < early) {
+          // its new row m = i - 1, into the slot of this item's row m, which
+          // step m was the last to read
+          load_row<T, KF, WIDE>(ring + ((base + S + i - 1) % S) * kRowElems, x, w, nx.b,
+                                row_of(nx, kt - 1 + i - 1), nx.f0 - pad_f, cin, 0, tid);
+        }
+        cp_async_commit();
+
+        const T* w_tap = w_s + (kResidentW ? i : (s & 1)) * kTapElems;
+        // DGRAD: every input element is summed once, by the items of group 0
+        const bool sums = DGRAD && i == centre && (!WIDE || it.og == 0);
+        if constexpr (kTensorCore) {
+          // skip a step whose input rows are all outside [0, T) (zeros) or
+          // whose output rows all are: uniform over the warpgroup
+          const int t_lo = row_of(it, u0 + i), t_hi = row_of(it, u0 + 1 + i);
+          if (t_out0 < w.T && t_hi >= 0 && t_lo < w.T) {
+            const T* rows[2] = {ring + ((base + u0 + i) % S) * kRowElems,
+                                ring + ((base + u0 + 1 + i) % S) * kRowElems};
+            uint32_t a[2][4][4];  // A of tiles q, double-buffered across products
 #pragma unroll
-              for (int nn = 0; nn < 4; ++nn) acc32[nn] = fmaf(av, to_float(wr[nn]), acc32[nn]);
+            for (int jk = 0; jk < KF * (kC / 16); ++jk) {
+              const int j = jk / (kC / 16), kk = jk % (kC / 16);
+              uint32_t (&af)[4][4] = a[jk & 1];
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                ldmatrix_x4(af[q], rows[q / 2] + swz<T>(pos(q % 2) + (lane & 15) + j, kk * 16 + (lane >> 4) * 8));
+              }
+              if (sums && j == pad_f) {  // every input element is the centre of one output row
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                  const float2 r0 = unpack_bf16(af[q][0]), r1 = unpack_bf16(af[q][1]);
+                  const float2 r2 = unpack_bf16(af[q][2]), r3 = unpack_bf16(af[q][3]);
+                  ds[kk][0] += r0.x + r1.x;
+                  ds[kk][1] += r0.y + r1.y;
+                  ds[kk][2] += r2.x + r3.x;
+                  ds[kk][3] += r2.y + r3.y;
+                }
+              }
+              const uint64_t desc = b_desc(w_tap + (j * kC + kk * 16) * kC);
+              wgmma_fence();
+#pragma unroll
+              for (int q = 0; q < 4; ++q) wgmma_m64n64k16(acc[q], af[q], desc, CHAIN || !first);
+              wgmma_commit();
+              wgmma_wait<1>();  // the product before this one is done: its A registers are free
+              first = false;
+            }
+            wgmma_wait<0>();  // before the next barrier frees the weights
+          }
+        } else {
+          // one position, 4 output channels a thread
+          const int m = tid >> 4, n0 = (tid & 15) * 4;
+          const int t_in = row_of(it, i);
+          if (t_out0 < w.T && t_in >= 0 && t_in < w.T) {
+            const T* a_row = ring + ((base + i) % S) * kRowElems;
+            for (int j = 0; j < KF; ++j) {
+#pragma unroll 4
+              for (int c = 0; c < kC; ++c) {
+                const float av = to_float(a_row[swz<T>(m + j, c)]);
+                const T* wr = w_tap + swz<T>(j * kC + c, n0);
+#pragma unroll
+                for (int nn = 0; nn < 4; ++nn) acc32[nn] = fmaf(av, to_float(wr[nn]), acc32[nn]);
+              }
+            }
+          }
+          if (sums) {
+            // each input element once: the item's row is the centre row of its
+            // output row
+            const int c = tid & 63, part = tid >> 6;
+            for (int p = part * (TF / 4); p < (part + 1) * (TF / 4); ++p) {
+              dsum += to_float(ring[((base + centre) % S) * kRowElems + swz<T>(p + pad_f, c)]);
             }
           }
         }
-        if (DGRAD && i == centre) {
-          // each input element once: the item's row is the centre row of its
-          // output row
-          const int c = tid & 63, part = tid >> 6;
-          for (int p = part * (TF / 4); p < (part + 1) * (TF / 4); ++p) {
-            dsum += to_float(ring[((base + centre) % S) * kRowElems + swz<T>(p + pad_f, c)]);
-          }
+      }
+
+      if constexpr (WIDE && DGRAD) {
+        if (it.og == 0) {  // the slab's column sums, added to the block's row
+          __shared__ float red_w[kThreads / 32][kC];
+          flush_dsums(red_w, c0);
         }
       }
     }
 
     // epilogue: (CHAIN: + bias) round once, write 16 bytes a lane
+    const int co0 = it.og * kC;  // the group's first output channel
     if constexpr (kTensorCore) {
       if (t_out0 < w.T) {
         const int gr = lane >> 2, tig = lane & 3, quad = lane & ~3;
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int t = row_of(it, u0 + q / 2 + centre);
-          T* const out_row = out + (size_t(it.b) * w.T + (t < w.T ? t : 0)) * w.F * kC;
+          T* const out_row = out + (size_t(it.b) * w.T + (t < w.T ? t : 0)) * w.F * cout + co0;
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int f = it.f0 + pos(q % 2) + gr + 8 * h;
@@ -451,8 +627,8 @@ __device__ __forceinline__ void conv_fwd_body(const T* __restrict__ x, const T* 
             for (int nt = 0; nt < 8; ++nt) {
               float v0 = acc[q][nt][2 * h], v1 = acc[q][nt][2 * h + 1];
               if constexpr (CHAIN) {
-                v0 += bias_s[8 * nt + 2 * tig];
-                v1 += bias_s[8 * nt + 2 * tig + 1];
+                v0 += bias_s[co0 + 8 * nt + 2 * tig];
+                v1 += bias_s[co0 + 8 * nt + 2 * tig + 1];
               }
               wd[nt] = pack_bf16(v0, v1);
             }
@@ -472,9 +648,10 @@ __device__ __forceinline__ void conv_fwd_body(const T* __restrict__ x, const T* 
               v.y = sel4(rot[0], rot[1], rot[2], rot[3], (tig + 3) & 3);
               v.z = sel4(rot[0], rot[1], rot[2], rot[3], (tig + 2) & 3);
               v.w = sel4(rot[0], rot[1], rot[2], rot[3], (tig + 1) & 3);
-              const bool inside = t < w.T && f < w.F;
+              const int ch = (4 * half + tig) * 8;  // this lane's 8 channels of the group
+              const bool inside = t < w.T && f < w.F && (!WIDE || co0 + ch < cout);
               if (inside) {
-                *reinterpret_cast<uint4*>(out_row + size_t(f) * kC + (4 * half + tig) * 8) = v;
+                *reinterpret_cast<uint4*>(out_row + size_t(f) * cout + ch) = v;
               }
               if constexpr (CHAIN) {
                 // the warp's 8 positions x 32 channels (zero outside the
@@ -495,127 +672,81 @@ __device__ __forceinline__ void conv_fwd_body(const T* __restrict__ x, const T* 
       }
     } else {
       const int m = tid >> 4, n0 = (tid & 15) * 4;
-      if (t_out0 < w.T && it.f0 + m < w.F) {
+      if (t_out0 < w.T && it.f0 + m < w.F && (!WIDE || co0 + n0 < cout)) {
         float v[4];
 #pragma unroll
         for (int nn = 0; nn < 4; ++nn) {
-          v[nn] = CHAIN ? acc32[nn] + bias_s[n0 + nn] : acc32[nn];
+          v[nn] = CHAIN ? acc32[nn] + bias_s[co0 + n0 + nn] : acc32[nn];
           if constexpr (CHAIN) {
             st32[0][nn] += v[nn];
             st32[1][nn] += v[nn] * v[nn];
           }
         }
-        *reinterpret_cast<float4*>(out + ((size_t(it.b) * w.T + t_out0) * w.F + it.f0 + m) * kC + n0) =
+        *reinterpret_cast<float4*>(out + ((size_t(it.b) * w.T + t_out0) * w.F + it.f0 + m) * cout + co0 + n0) =
             make_float4(v[0], v[1], v[2], v[3]);
       }
       acc32[0] = acc32[1] = acc32[2] = acc32[3] = 0.0f;
     }
-  }
 
-  if constexpr (CHAIN) {
-    // the warp's row of sums
-    if constexpr (kTensorCore) {
-      __syncwarp();  // its stage is free
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        stage[32 * half + lane] = csum[half];
-        stage[kC + 32 * half + lane] = csq[half];
-      }
-    } else {
-      // the warp's two positions (lanes l, l ^ 16)
-#pragma unroll
-      for (int s2 = 0; s2 < 2; ++s2) {
-#pragma unroll
-        for (int nn = 0; nn < 4; ++nn) {
-          const float v = st32[s2][nn] + __shfl_xor_sync(0xffffffffu, st32[s2][nn], 16);
-          if (lane < 16) stage[s2 * kC + (tid & 15) * 4 + nn] = v;
-        }
-      }
-    }
-    __syncthreads();
-    if (tid < 2 * kC) {
-      float v = 0.0f;
-#pragma unroll
-      for (int p = 0; p < kThreads / 32; ++p) v += stat_s[p * 2 * kC + tid];
-      partials[size_t(g) * 2 * kC + tid] = v;
+    if constexpr (CHAIN && WIDE) {
+      if (k + 1 == n || nx.og != it.og) flush_stats(co0);  // the run leaves the group
     }
   }
+  if constexpr (CHAIN && !WIDE) flush_stats(0);
 
-  if constexpr (DGRAD) {
-    __shared__ float red_s[kThreads / 32][kC];  // [warp or part][channel]
-    if constexpr (kTensorCore) {
-      // over the 8 lanes of one tig, in a fixed order; lane tig of the
-      // warp's first 4 holds channels 16 kk + 2 tig + {0, 1, 8, 9}
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float v = ds[kk][e];
-          v += __shfl_xor_sync(0xffffffffu, v, 4);
-          v += __shfl_xor_sync(0xffffffffu, v, 8);
-          v += __shfl_xor_sync(0xffffffffu, v, 16);
-          if (lane < 4) red_s[warp][16 * kk + 2 * lane + (e & 1) + 8 * (e >> 1)] = v;
-        }
-      }
-    } else {
-      red_s[tid >> 6][tid & 63] = dsum;
-    }
-    __syncthreads();
-    if (tid < kC) {
-      constexpr int kParts = kTensorCore ? kThreads / 32 : kThreads / kC;
-      float v = 0.0f;
-#pragma unroll
-      for (int p = 0; p < kParts; ++p) v += red_s[p][tid];
-      partials[size_t(g) * kC + tid] = v;
-    }
+  if constexpr (DGRAD && !WIDE) {
+    __shared__ float red_s[kThreads / 32][kC];
+    flush_dsums(red_s, 0);
   }
 }
 
-template <typename T, int KF>
+template <typename T, int KF, bool WIDE>
 __global__ void __launch_bounds__(kThreads, 1)
 conv_dilated_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
                         const FwdWork work) {
-  conv_fwd_body<T, KF, kFwdPlain>(x, w, nullptr, out, nullptr, work);
+  conv_fwd_body<T, KF, kFwdPlain, WIDE>(x, w, nullptr, out, nullptr, work);
 }
 
-template <typename T, int KF>
+template <typename T, int KF, bool WIDE>
 __global__ void __launch_bounds__(kThreads, 1)
 conv_dgrad_kernel(const T* __restrict__ d_raw, const T* __restrict__ w, T* __restrict__ dx,
                   float* __restrict__ partials, const FwdWork work) {
-  conv_fwd_body<T, KF, kFwdDgrad>(d_raw, w, nullptr, dx, partials, work);
+  conv_fwd_body<T, KF, kFwdDgrad, WIDE>(d_raw, w, nullptr, dx, partials, work);
 }
 
-template <typename T, int KF>
+template <typename T, int KF, bool WIDE>
 __global__ void __launch_bounds__(kThreads, 1)
 conv_bn_act_fwd_kernel(const T* __restrict__ y, const T* __restrict__ w,
                        const float* __restrict__ bias, T* __restrict__ raw,
                        float* __restrict__ partials, const FwdWork work) {
-  conv_fwd_body<T, KF, kFwdChain>(y, w, bias, raw, partials, work);
+  conv_fwd_body<T, KF, kFwdChain, WIDE>(y, w, bias, raw, partials, work);
 }
 
-template <typename T, int KF, int MODE>
+template <typename T, int KF, int MODE, bool WIDE>
 auto fwd_kernel() {
   if constexpr (MODE == kFwdChain) {
-    return conv_bn_act_fwd_kernel<T, KF>;
+    return conv_bn_act_fwd_kernel<T, KF, WIDE>;
   } else if constexpr (MODE == kFwdDgrad) {
-    return conv_dgrad_kernel<T, KF>;
+    return conv_dgrad_kernel<T, KF, WIDE>;
   } else {
-    return conv_dilated_fwd_kernel<T, KF>;
+    return conv_dilated_fwd_kernel<T, KF, WIDE>;
   }
 }
 
 struct FwdPlan {
   FwdWork work;
+  bool wide;  // the instantiation for other channels than 64 in and out
   int blocks, resident, registers, local_bytes;
   size_t smem, scratch;  // dynamic shared memory bytes; fp32 scratch elements
 };
 
-template <typename T, int KF, int MODE>
-cudaError_t plan_kf(int B, int T_, int F, int kt, int dt, FwdPlan* p) {
+template <typename T, int KF, int MODE, bool WIDE>
+cudaError_t plan_kf(int B, int T_, int F, int cin, int cout, int kt, int dt, FwdPlan* p) {
   constexpr int R = FwdShape<T, KF>::R, TF = FwdShape<T, KF>::TF;
-  p->smem = fwd_smem_bytes<T, KF, MODE>(kt);
+  p->wide = WIDE;
+  p->smem = fwd_smem_bytes<T, KF, MODE, WIDE>(kt, cout);
   // fails when the ring and the weights do not fit one block's shared memory
-  cudaError_t err = occupancy(fwd_kernel<T, KF, MODE>(), p->smem, &p->resident, &p->registers,
+  cudaError_t err = occupancy(fwd_kernel<T, KF, MODE, WIDE>(), p->smem, &p->resident, &p->registers,
                               &p->local_bytes);
   if (err != cudaSuccess) return err;
   FwdWork& w = p->work;
@@ -623,58 +754,81 @@ cudaError_t plan_kf(int B, int T_, int F, int kt, int dt, FwdPlan* p) {
   w.F = F;
   w.kt = kt;
   w.dt = dt;
+  w.cin = cin;
+  w.cout = cout;
+  w.n_slab = (cin + kC - 1) / kC;
+  w.n_grp = (cout + kC - 1) / kC;
   w.n_ft = (F + TF - 1) / TF;
   w.n_col = 0;
   for (int r = 0; r < dt && r < T_; ++r) {
     const int len = (T_ - r + dt - 1) / dt;
     w.n_col += (len + R - 1) / R;
   }
-  w.items = (long long)B * w.n_ft * w.n_col;
+  w.items = (long long)w.n_grp * B * w.n_ft * w.n_col;
   p->blocks = w.blocks = int(w.items < p->resident ? w.items : p->resident);
-  p->scratch = size_t(w.blocks) * (MODE == kFwdDgrad ? kC : MODE == kFwdChain ? 2 * kC : 0);
+  p->scratch = size_t(w.blocks) * (MODE == kFwdDgrad ? cin : MODE == kFwdChain ? 2 * cout : 0);
   return cudaSuccess;
 }
 
-template <typename T, int MODE>
-cudaError_t plan(int B, int T_, int F, int kt, int kf, int dt, FwdPlan* p) {
-  if (bad_shape(B, T_, F, kt, kf, dt)) return cudaErrorInvalidValue;
+template <typename T, int MODE, bool WIDE>
+cudaError_t plan_wide(int B, int T_, int F, int cin, int cout, int kt, int kf, int dt, FwdPlan* p) {
   switch (kf) {
-    case 1: return plan_kf<T, 1, MODE>(B, T_, F, kt, dt, p);
-    case 3: return plan_kf<T, 3, MODE>(B, T_, F, kt, dt, p);
-    case 5: return plan_kf<T, 5, MODE>(B, T_, F, kt, dt, p);
+    case 1: return plan_kf<T, 1, MODE, WIDE>(B, T_, F, cin, cout, kt, dt, p);
+    case 3: return plan_kf<T, 3, MODE, WIDE>(B, T_, F, cin, cout, kt, dt, p);
+    case 5: return plan_kf<T, 5, MODE, WIDE>(B, T_, F, cin, cout, kt, dt, p);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// The kernel of MODE for kf frequency taps on `args`, then its work.
+template <typename T, int MODE>
+cudaError_t plan(int B, int T_, int F, int cin, int cout, int kt, int kf, int dt, FwdPlan* p) {
+  constexpr int kVec = 16 / int(sizeof(T));  // channels a 16-byte copy moves
+  if (bad_shape(B, T_, F, kt, kf, dt) || cin <= 0 || cout <= 0 || cin % kVec || cout % kVec) {
+    return cudaErrorInvalidValue;
+  }
+  if (cin == kC && cout == kC) return plan_wide<T, MODE, false>(B, T_, F, cin, cout, kt, kf, dt, p);
+  return plan_wide<T, MODE, true>(B, T_, F, cin, cout, kt, kf, dt, p);
+}
+
+// The kernel of MODE for kf frequency taps and the plan's channels on
+// `args`, then its work.
+template <typename T, int MODE, bool WIDE, typename... Args>
+void launch_kf(const FwdPlan& p, int kf, cudaStream_t stream, Args... args) {
+  switch (kf) {
+    case 1: fwd_kernel<T, 1, MODE, WIDE>()<<<p.blocks, kThreads, p.smem, stream>>>(args..., p.work); break;
+    case 3: fwd_kernel<T, 3, MODE, WIDE>()<<<p.blocks, kThreads, p.smem, stream>>>(args..., p.work); break;
+    default: fwd_kernel<T, 5, MODE, WIDE>()<<<p.blocks, kThreads, p.smem, stream>>>(args..., p.work); break;
+  }
+}
+
 template <typename T, int MODE, typename... Args>
 cudaError_t launch_body(const FwdPlan& p, int kf, cudaStream_t stream, Args... args) {
-  switch (kf) {
-    case 1: fwd_kernel<T, 1, MODE>()<<<p.blocks, kThreads, p.smem, stream>>>(args..., p.work); break;
-    case 3: fwd_kernel<T, 3, MODE>()<<<p.blocks, kThreads, p.smem, stream>>>(args..., p.work); break;
-    default: fwd_kernel<T, 5, MODE>()<<<p.blocks, kThreads, p.smem, stream>>>(args..., p.work); break;
+  if (p.wide) {
+    launch_kf<T, MODE, true>(p, kf, stream, args...);
+  } else {
+    launch_kf<T, MODE, false>(p, kf, stream, args...);
   }
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_fwd(const void* x, const void* w, void* out, int B, int T_, int F, int kt, int kf,
-                       int dt, cudaStream_t stream) {
+cudaError_t launch_fwd(const void* x, const void* w, void* out, int B, int T_, int F, int cin,
+                       int cout, int kt, int kf, int dt, cudaStream_t stream) {
   FwdPlan p;
-  cudaError_t err = plan<T, kFwdPlain>(B, T_, F, kt, kf, dt, &p);
+  cudaError_t err = plan<T, kFwdPlain>(B, T_, F, cin, cout, kt, kf, dt, &p);
   if (err != cudaSuccess) return err;
   return launch_body<T, kFwdPlain>(p, kf, stream, static_cast<const T*>(x), static_cast<const T*>(w),
                                    static_cast<T*>(out));
 }
 
-// conv_dgrad (sums: dbias [64]) or conv_bn_act_fwd (bias; sums: stats [2][64]):
+// conv_dgrad (sums: dbias [C]) or conv_bn_act_fwd (bias; sums: stats [2][C]):
 // the kernel, then its per-block partial rows added in a fixed order.
 template <typename T, int MODE>
 cudaError_t launch_with_sums(const void* x, const void* w, const float* bias, void* out,
-                             void* sums, void* scratch, int B, int T_, int F, int kt, int kf,
+                             void* sums, void* scratch, int B, int T_, int F, int C, int kt, int kf,
                              int dt, cudaStream_t stream) {
   FwdPlan p;
-  cudaError_t err = plan<T, MODE>(B, T_, F, kt, kf, dt, &p);
+  cudaError_t err = plan<T, MODE>(B, T_, F, C, C, kt, kf, dt, &p);
   if (err != cudaSuccess) return err;
   const T* x_ = static_cast<const T*>(x);
   const T* w_ = static_cast<const T*>(w);
@@ -685,18 +839,19 @@ cudaError_t launch_with_sums(const void* x, const void* w, const float* bias, vo
     err = launch_body<T, MODE>(p, kf, stream, x_, w_, static_cast<T*>(out), partials);
   }
   if (err != cudaSuccess) return err;
-  const int width = MODE == kFwdChain ? 2 * kC : kC;
+  const int width = MODE == kFwdChain ? 2 * C : C;
   reduce_rows_kernel<32><<<(width + 31) / 32, dim3(32, 32), 0, stream>>>(
       partials, p.blocks, width, static_cast<float*>(sums));
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t plan_mode(int B, int T_, int F, int kt, int kf, int dt, int mode, FwdPlan* p) {
+cudaError_t plan_mode(int B, int T_, int F, int cin, int cout, int kt, int kf, int dt, int mode,
+                      FwdPlan* p) {
   switch (mode) {
-    case kFwdPlain: return plan<T, kFwdPlain>(B, T_, F, kt, kf, dt, p);
-    case kFwdDgrad: return plan<T, kFwdDgrad>(B, T_, F, kt, kf, dt, p);
-    case kFwdChain: return plan<T, kFwdChain>(B, T_, F, kt, kf, dt, p);
+    case kFwdPlain: return plan<T, kFwdPlain>(B, T_, F, cin, cout, kt, kf, dt, p);
+    case kFwdDgrad: return plan<T, kFwdDgrad>(B, T_, F, cin, cout, kt, kf, dt, p);
+    case kFwdChain: return plan<T, kFwdChain>(B, T_, F, cin, cout, kt, kf, dt, p);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -705,38 +860,40 @@ cudaError_t plan_mode(int B, int T_, int F, int kt, int kf, int dt, int mode, Fw
 
 // Plain C interface (loaded with ctypes).  Every function returns its
 // cudaError_t; 0 is success.  `bf16` selects bf16 activations and weights,
-// otherwise fp32; bias, stats ([2, 64]: sums, sums of squares), dbias and
-// scratch are fp32.  Activations are [B, T, F, 64], weights [kt, kf, 64, 64]
-// (conv_dgrad: flipped and transposed by the caller).  `scratch` holds the
-// per-block partial sums of conv_dgrad and conv_bn_act_fwd
-// (conv_fwd_launch_config gives its size).
+// otherwise fp32; bias, stats ([2, C]: sums, sums of squares), dbias and
+// scratch are fp32.  Activations are [B, T, F, Cin] in and [B, T, F, Cout]
+// out, weights [kt, kf, Cin, Cout] (conv_dgrad: flipped and transposed by
+// the caller; conv_dgrad and conv_bn_act_fwd take Cin = Cout = C), channel
+// counts a multiple of 8 (bf16) or 4 (fp32).  `scratch` holds the per-block
+// partial sums of conv_dgrad and conv_bn_act_fwd (conv_fwd_launch_config
+// gives its size).
 
 extern "C" int conv_dilated_fwd(const void* x, const void* w, void* out, int B, int T, int F,
-                                int kt, int kf, int dt, int bf16, void* stream) {
+                                int cin, int cout, int kt, int kf, int dt, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_fwd<__nv_bfloat16>(x, w, out, B, T, F, kt, kf, dt, s)
-              : launch_fwd<float>(x, w, out, B, T, F, kt, kf, dt, s);
+  return bf16 ? launch_fwd<__nv_bfloat16>(x, w, out, B, T, F, cin, cout, kt, kf, dt, s)
+              : launch_fwd<float>(x, w, out, B, T, F, cin, cout, kt, kf, dt, s);
 }
 
 extern "C" int conv_bn_act_fwd(const void* y, const void* w, const void* bias, void* raw,
-                               void* stats, void* scratch, int B, int T, int F, int kt, int kf,
-                               int dt, int bf16, void* stream) {
+                               void* stats, void* scratch, int B, int T, int F, int C, int kt,
+                               int kf, int dt, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
   return bf16 ? launch_with_sums<__nv_bfloat16, kFwdChain>(y, w, b, raw, stats, scratch, B, T, F,
-                                                           kt, kf, dt, s)
-              : launch_with_sums<float, kFwdChain>(y, w, b, raw, stats, scratch, B, T, F, kt, kf,
-                                                   dt, s);
+                                                           C, kt, kf, dt, s)
+              : launch_with_sums<float, kFwdChain>(y, w, b, raw, stats, scratch, B, T, F, C, kt,
+                                                   kf, dt, s);
 }
 
 extern "C" int conv_dgrad(const void* d_raw, const void* w_flipped, void* dx, void* dbias,
-                          void* scratch, int B, int T, int F, int kt, int kf, int dt, int bf16,
-                          void* stream) {
+                          void* scratch, int B, int T, int F, int C, int kt, int kf, int dt,
+                          int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_with_sums<__nv_bfloat16, kFwdDgrad>(d_raw, w_flipped, nullptr, dx, dbias,
-                                                           scratch, B, T, F, kt, kf, dt, s)
+                                                           scratch, B, T, F, C, kt, kf, dt, s)
               : launch_with_sums<float, kFwdDgrad>(d_raw, w_flipped, nullptr, dx, dbias, scratch, B,
-                                                   T, F, kt, kf, dt, s);
+                                                   T, F, C, kt, kf, dt, s);
 }
 
 // Launch shape of conv_dilated_fwd (mode 0), conv_dgrad (mode 1) or
@@ -744,13 +901,13 @@ extern "C" int conv_dgrad(const void* d_raw, const void* w_flipped, void* dx, vo
 // `resident`, the blocks the card holds at once), threads, dynamic shared
 // memory, fp32 scratch elements, registers a thread and local (spilled)
 // bytes a thread.
-extern "C" int conv_fwd_launch_config(int B, int T, int F, int kt, int kf, int dt, int bf16,
-                                      int mode, int* blocks, int* threads, long long* smem,
-                                      long long* scratch, int* resident, int* registers,
-                                      int* local_bytes) {
+extern "C" int conv_fwd_launch_config(int B, int T, int F, int cin, int cout, int kt, int kf,
+                                      int dt, int bf16, int mode, int* blocks, int* threads,
+                                      long long* smem, long long* scratch, int* resident,
+                                      int* registers, int* local_bytes) {
   FwdPlan p;
-  cudaError_t err = bf16 ? plan_mode<__nv_bfloat16>(B, T, F, kt, kf, dt, mode, &p)
-                         : plan_mode<float>(B, T, F, kt, kf, dt, mode, &p);
+  cudaError_t err = bf16 ? plan_mode<__nv_bfloat16>(B, T, F, cin, cout, kt, kf, dt, mode, &p)
+                         : plan_mode<float>(B, T, F, cin, cout, kt, kf, dt, mode, &p);
   if (err != cudaSuccess) return err;
   *blocks = p.blocks;
   *threads = kThreads;

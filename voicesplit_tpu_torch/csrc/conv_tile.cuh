@@ -21,7 +21,7 @@
 
 namespace {
 
-constexpr int kC = 64;        // channels, in and out
+constexpr int kC = 64;        // channels of a tile: in and out at C = 64, else a slab or group
 constexpr int kTileF = 128;   // frequency positions per weight-gradient tile
 constexpr int kThreads = 256;
 constexpr int kMaxTaps = 7;   // largest kt or kf

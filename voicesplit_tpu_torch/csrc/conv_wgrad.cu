@@ -8,8 +8,8 @@
 //   conv_dilated_wgrad <- voicesplit_tpu/ops/conv_pallas.py _wgrad_kernel (:234, launched by
 //                         _conv_wgrad_core :292): conv_wgrad
 //
-// Channels-last activations [B, T, F, C = 64], time dilation dt, frequency
-// dilation 1, odd kt, kf in {1, 3, 5}:
+// Channels-last activations y [B, T, F, Cin] and d [B, T, F, Cout], time
+// dilation dt, frequency dilation 1, odd kt, kf in {1, 3, 5}:
 //
 //   dW[i, j, c, co] = sum_{b,t,f} y[b, t + i*dt - pad_t, f + j - pad_f, c] * d[b, t, f, co]  (fp32)
 //
@@ -76,8 +76,23 @@
 //   end, a block writes its partial dW[i] to row g + i of the scratch
 //   (rows are unique: runs are contiguous and tap-major), so tap i's
 //   partials are one contiguous range of rows (kf = 1: row g holds every
-//   tap); reduce_taps_kernel adds each range in a fixed order, in double.
+//   tap); reduce_taps_kernel adds each range in a fixed order, in double,
+//   into its block of dW.
 //   No float atomics: the same inputs give the same bits.
+//
+//   Channels.  Every tile above is 64 channels wide, and C = 64 in and out
+//   is its own compile-time instantiation (WIDE = false), as described.  Any
+//   other Cin, Cout (WIDE = true; a multiple of 8, which the 16-byte copies
+//   need) is worked in pairs of a 64-wide input slab and a 64-wide output
+//   group: an item also names its pair (pairs outermost in the numbering,
+//   then as above), stages that slab of y and that group of d (channels past
+//   Cin or Cout read as zero, as the halo) and computes that 64 x 64 block
+//   of dW.  A block flushes its partials when its run moves to the next
+//   (pair, tap) segment (kf = 1: the next pair), to row g + segment, so the
+//   scratch grows by (Cin / 64) (Cout / 64) kt rows (kf = 1: pairs), and
+//   reduce_taps_kernel adds each segment's range as above into its block
+//   of dW [kt][kf][Cin][Cout].  The prologue pass
+//   reads its per-channel table for any C, a multiple of 8.
 
 #include "conv_tile.cuh"
 
@@ -90,24 +105,31 @@ struct WgradWork {
   int T, F, dt, pad_t, n_ft, blocks;
   long long items;
   int t_lo[kMaxTaps], n_rows[kMaxTaps];  // tap i's rows: t in [t_lo, t_lo + n_rows) per b
-  long long first[kMaxTaps + 1];         // tap i's items: [first[i], first[i + 1])
-};
-
-// Scratch rows [lo[i], hi[i]) hold tap i's per-block partials.
-struct TapRows {
-  int lo[kMaxTaps], hi[kMaxTaps];
+  long long first[kMaxTaps + 1];         // tap i's items (of one pair): [first[i], first[i + 1])
+  int kt, cin, cout, n_og;  // WIDE: pair p is input slab p / n_og, output group p % n_og
 };
 
 struct Item {
   int i, b, t, f0;
+  int cs, og;  // input channels [64 cs, +64), output channels [64 og, +64)
 };
 
+template <bool WIDE>
 __device__ __forceinline__ Item decode(const WgradWork& w, long long item) {
+  int cs = 0, og = 0;
+  if constexpr (WIDE) {  // pairs outermost
+    const long long per_pair = w.first[kMaxTaps];
+    const int p = int(item / per_pair);
+    item -= (long long)p * per_pair;
+    cs = p / w.n_og;
+    og = p - cs * w.n_og;
+  }
   int i = 0;
   while (item >= w.first[i + 1]) ++i;  // a tap without items has first[i] == first[i + 1]
   const long long l = item - w.first[i];
   const int row = int(l / w.n_ft);
-  return {i, row / w.n_rows[i], w.t_lo[i] + row % w.n_rows[i], int(l - (long long)row * w.n_ft) * kTileF};
+  return {i, row / w.n_rows[i], w.t_lo[i] + row % w.n_rows[i], int(l - (long long)row * w.n_ft) * kTileF,
+          cs, og};
 }
 
 template <typename T, int KF>
@@ -119,8 +141,9 @@ __host__ __device__ constexpr size_t wgrad_stage_bytes() {
   return wgrad_y_bytes<T, KF>() + align16(size_t(kTileF) * Ld<T>::value * sizeof(T));
 }
 
-// Issue one item's copies (y rows with halo, d rows) into a ring stage.
-template <typename T, int KF>
+// Issue one item's copies (y rows with halo, d rows; WIDE: the item's slab
+// of y and group of d) into a ring stage.
+template <typename T, int KF, bool WIDE>
 __device__ __forceinline__ void load_item(unsigned char* stage, const T* __restrict__ y,
                                           const T* __restrict__ d, const WgradWork& w,
                                           long long item, int tid) {
@@ -129,10 +152,11 @@ __device__ __forceinline__ void load_item(unsigned char* stage, const T* __restr
   constexpr int kPerRow = kC / kVec;
   constexpr int y_rows = kTileF + KF - 1;
   constexpr int pad_f = (KF - 1) / 2;
-  const Item it = decode(w, item);
+  const int cin = WIDE ? w.cin : kC, cout = WIDE ? w.cout : kC;
+  const Item it = decode<WIDE>(w, item);
   const int ti = it.t + it.i * w.dt - w.pad_t;
-  const T* y_row = y + (size_t(it.b) * w.T + ti) * w.F * kC;
-  const T* d_row = d + (size_t(it.b) * w.T + it.t) * w.F * kC;
+  const T* y_row = y + (size_t(it.b) * w.T + ti) * w.F * cin + it.cs * kC;
+  const T* d_row = d + (size_t(it.b) * w.T + it.t) * w.F * cout + it.og * kC;
   T* y_s = reinterpret_cast<T*>(stage);
   T* d_s = reinterpret_cast<T*>(stage + wgrad_y_bytes<T, KF>());
   for (int e = tid; e < (y_rows + kTileF) * kPerRow; e += kThreads) {
@@ -140,10 +164,12 @@ __device__ __forceinline__ void load_item(unsigned char* stage, const T* __restr
     const bool is_y = r < y_rows;
     const int p = is_y ? r : r - y_rows;
     const int f = it.f0 + p - (is_y ? pad_f : 0);
-    const bool inside = f >= 0 && f < w.F;
+    const int stride = is_y ? cin : cout;
+    const bool inside =
+        f >= 0 && f < w.F && (!WIDE || c < (is_y ? cin - it.cs * kC : cout - it.og * kC));
     const T* row = is_y ? y_row : d_row;
     T* dst = (is_y ? y_s : d_s) + size_t(p) * LD + c;
-    cp_async16(dst, inside ? row + size_t(f) * kC + c : row, inside ? 16 : 0);
+    cp_async16(dst, inside ? row + size_t(f) * stride + c : row, inside ? 16 : 0);
   }
 }
 
@@ -178,8 +204,9 @@ __device__ __forceinline__ void flush_partials(float (&acc)[KF][4][4], float* __
   }
 }
 
-// grid (blocks); partials [blocks + kt][KF][64][64], row g + i of block g for tap i.
-template <typename T, int KF>
+// grid (blocks); partials [blocks + kt][KF][64][64], row g + i of block g for
+// tap i (WIDE: [blocks + pairs kt], row g + p kt + i for pair p).
+template <typename T, int KF, bool WIDE>
 __global__ void __launch_bounds__(kThreads, 2)
 conv_wgrad_kernel(const T* __restrict__ y, const T* __restrict__ d, float* __restrict__ partials,
                   const WgradWork work) {
@@ -211,23 +238,24 @@ conv_wgrad_kernel(const T* __restrict__ y, const T* __restrict__ d, float* __res
 
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n) load_item<T, KF>(smem_raw + s * kStage, y, d, w, it0 + s, tid);
+    if (s < n) load_item<T, KF, WIDE>(smem_raw + s * kStage, y, d, w, it0 + s, tid);
     cp_async_commit();  // an empty group keeps the count uniform
   }
-  int tap = -1;
+  int tap = -1;  // the segment (WIDE: pair kt + tap) whose partials the registers hold
   for (int k = 0; k < n; ++k) {
     cp_async_wait<kStages - 2>();  // this thread's copies of item k have landed
     __syncthreads();               // everyone's have; everyone is done with item k - 1's stage
     if (k + kStages - 1 < n) {
-      load_item<T, KF>(smem_raw + ((k + kStages - 1) % kStages) * kStage, y, d, w,
-                       it0 + k + kStages - 1, tid);
+      load_item<T, KF, WIDE>(smem_raw + ((k + kStages - 1) % kStages) * kStage, y, d, w,
+                             it0 + k + kStages - 1, tid);
     }
     cp_async_commit();
 
-    const Item it = decode(w, it0 + k);
-    if (it.i != tap) {
+    const Item it = decode<WIDE>(w, it0 + k);
+    const int seg = WIDE ? (it.cs * w.n_og + it.og) * w.kt + it.i : it.i;
+    if (seg != tap) {
       if (tap >= 0) flush_partials<T, KF>(acc, partials + (size_t(g) + tap) * KF * kC * kC, tid);
-      tap = it.i;
+      tap = seg;
     }
     const T* y_s = reinterpret_cast<const T*>(smem_raw + (k % kStages) * kStage);
     const T* d_s = reinterpret_cast<const T*>(smem_raw + (k % kStages) * kStage +
@@ -289,14 +317,22 @@ constexpr int kYRing = kStages * kMaxTaps;
 struct ColumnWork {
   int T, F, dt, kt, n_ft, blocks;
   long long items;
+  long long per_pair;  // WIDE: items of one (input slab, output group) pair, the outermost
+  int cin, cout, n_og;
 };
 
 struct ColItem {
   int b, f0, t, q;  // q: rows of the same residue above t
+  int p;            // WIDE: the pair, input slab p / n_og and output group p % n_og
 };
 
-template <typename T>
+template <typename T, bool WIDE>
 __device__ __forceinline__ ColItem decode_col(const ColumnWork& w, long long item) {
+  int pair = 0;
+  if constexpr (WIDE) {
+    pair = int(item / w.per_pair);
+    item -= (long long)pair * w.per_pair;
+  }
   const int per_b = w.n_ft * w.T;
   const int b = int(item / per_b);
   const int rem = int(item - (long long)b * per_b);
@@ -306,7 +342,7 @@ __device__ __forceinline__ ColItem decode_col(const ColumnWork& w, long long ite
     q -= len;
     ++r;
   }
-  return {b, ft * kColF<T>, r + q * w.dt, q};
+  return {b, ft * kColF<T>, r + q * w.dt, q, pair};
 }
 
 template <typename T>
@@ -314,27 +350,30 @@ __host__ __device__ constexpr size_t col_tile_bytes() {
   return align16(size_t(kColF<T>) * Ld<T>::value * sizeof(T));
 }
 
-// One tile: kColF positions [f0, f0 + kColF) of a row, zero past F.
-template <typename T>
+// One tile: kColF positions [f0, f0 + kColF) of a row, 64 channels from
+// `row` (positions `stride` elements apart), zero past F and (WIDE) from
+// channel `lim` on.
+template <typename T, bool WIDE>
 __device__ __forceinline__ void load_col_tile(unsigned char* dst, const T* __restrict__ row, int f0,
-                                              int F, int tid) {
+                                              int F, int stride, int lim, int tid) {
   constexpr int LD = Ld<T>::value;
   constexpr int kVec = 16 / int(sizeof(T));
   constexpr int kPerRow = kC / kVec;
   for (int e = tid; e < kColF<T> * kPerRow; e += kThreads) {
     const int p = e / kPerRow, c = (e % kPerRow) * kVec;
-    const bool inside = f0 + p < F;
+    const bool inside = f0 + p < F && (!WIDE || c < lim);
     cp_async16(reinterpret_cast<T*>(dst) + size_t(p) * LD + c,
-               inside ? row + size_t(f0 + p) * kC + c : row, inside ? 16 : 0);
+               inside ? row + size_t(f0 + p) * stride + c : row, inside ? 16 : 0);
   }
 }
 
-// grid (blocks); partials [blocks][kMaxTaps][64][64].  Input tiles get
+// grid (blocks); partials [blocks][kMaxTaps][64][64] (WIDE: [blocks + pairs],
+// row g + p of block g for pair p).  Input tiles get
 // sequence numbers in load order and live in ring slot seq % kYRing; item k
 // reads tap i from tile base_k + i, where base_k = base_{k-1} + 1 when item
 // k continues item k - 1's residue (one new tile: its last tap's row) and
 // the next unused number otherwise (kt new tiles).
-template <typename T>
+template <typename T, bool WIDE>
 __global__ void __launch_bounds__(kThreads, 1)
 conv_wgrad_kf1_kernel(const T* __restrict__ y, const T* __restrict__ d, float* __restrict__ partials,
                       const ColumnWork w) {
@@ -347,6 +386,7 @@ conv_wgrad_kf1_kernel(const T* __restrict__ y, const T* __restrict__ d, float* _
   const long long it0 = (long long)g * w.items / w.blocks;
   const int n = int((long long)(g + 1) * w.items / w.blocks - it0);
   const int centre = (w.kt - 1) / 2;
+  const int cin = WIDE ? w.cin : kC, cout = WIDE ? w.cout : kC;
 
   // [kYRing] y tiles, [kStages] d tiles, one tile of zeros for the taps
   // whose row is outside [0, T) (a branch per tap would keep the compiler
@@ -368,18 +408,21 @@ conv_wgrad_kf1_kernel(const T* __restrict__ y, const T* __restrict__ d, float* _
 
   int issued = 0;  // producer: next tile sequence number
   auto issue = [&](int k) {
-    const ColItem it = decode_col<T>(w, it0 + k);
+    const ColItem it = decode_col<T, WIDE>(w, it0 + k);
+    const int cs = WIDE ? it.p / w.n_og : 0, og = WIDE ? it.p - cs * w.n_og : 0;
     const bool cont = k > 0 && it.q > 0;
     const int base = cont ? issued - w.kt + 1 : issued;
     for (int i = cont ? w.kt - 1 : 0; i < w.kt; ++i) {
       const int row = it.t + (i - centre) * w.dt;
       if (row >= 0 && row < w.T) {  // a row outside is never read: its taps are skipped
-        load_col_tile<T>(smem_raw + ((base + i) % kYRing) * kTile,
-                         y + (size_t(it.b) * w.T + row) * w.F * kC, it.f0, w.F, tid);
+        load_col_tile<T, WIDE>(smem_raw + ((base + i) % kYRing) * kTile,
+                               y + (size_t(it.b) * w.T + row) * w.F * cin + cs * kC, it.f0, w.F,
+                               cin, cin - cs * kC, tid);
       }
     }
-    load_col_tile<T>(d_ring + (k % kStages) * kTile, d + (size_t(it.b) * w.T + it.t) * w.F * kC,
-                     it.f0, w.F, tid);
+    load_col_tile<T, WIDE>(d_ring + (k % kStages) * kTile,
+                           d + (size_t(it.b) * w.T + it.t) * w.F * cout + og * kC, it.f0, w.F,
+                           cout, cout - og * kC, tid);
     issued = base + w.kt;
   };
 
@@ -389,13 +432,22 @@ conv_wgrad_kf1_kernel(const T* __restrict__ y, const T* __restrict__ d, float* _
     cp_async_commit();
   }
   int consumed = 0;  // consumer: the same sequence, one item behind the barrier
+  int pair = -1;     // WIDE: the pair whose partials the registers hold
   for (int k = 0; k < n; ++k) {
     cp_async_wait<kStages - 2>();
     __syncthreads();
     if (k + kStages - 1 < n) issue(k + kStages - 1);
     cp_async_commit();
 
-    const ColItem it = decode_col<T>(w, it0 + k);
+    const ColItem it = decode_col<T, WIDE>(w, it0 + k);
+    if constexpr (WIDE) {
+      if (it.p != pair) {
+        if (pair >= 0) {
+          flush_partials<T, kMaxTaps>(acc, partials + (size_t(g) + pair) * kMaxTaps * kC * kC, tid);
+        }
+        pair = it.p;
+      }
+    }
     const int base = (k > 0 && it.q > 0) ? consumed - w.kt + 1 : consumed;
     consumed = base + w.kt;
     const T* ys[kMaxTaps];
@@ -443,65 +495,108 @@ conv_wgrad_kf1_kernel(const T* __restrict__ y, const T* __restrict__ d, float* _
       }
     }
   }
-  flush_partials<T, kMaxTaps>(acc, partials + size_t(g) * kMaxTaps * kC * kC, tid);
+  flush_partials<T, kMaxTaps>(acc, partials + (size_t(g) + (WIDE ? pair : 0)) * kMaxTaps * kC * kC, tid);
 }
 
-// out[i][c] = sum of in[r][c] over r in [lo[i], hi[i]) (rows `stride` floats
-// apart), added in a fixed order, in double (0 for an empty range).
-// grid (width / 32, groups), block (32, 4); out [groups][width].
-__global__ void reduce_taps_kernel(const float* __restrict__ in, int width, int stride,
-                                   const TapRows rows, float* __restrict__ out) {
+// The sums' segments: segment s = p seg_taps + i holds the partial rows of
+// channel pair p (C = 64: the one pair) and tap i (the kf = 1 kernel: every
+// tap, seg_taps = 1), the rows of the blocks whose runs meet its items, each
+// at g + s.
+struct SegRows {
+  long long first[kMaxTaps + 1];  // segment tap i's items within a pair: [first[i], first[i + 1])
+  long long per_pair, items;      // items of one pair, of the launch
+  int blocks, seg_taps, kf, cin, cout, n_og, width, stride;
+};
+
+// dW [kt][kf][Cin][Cout] from the segments' partial rows (`stride` floats
+// apart): segment s (grid y), column (plane jj, c, co) of its rows added in
+// a fixed order, in double (0 for a segment without items), into plane
+// i kf + jj (the kf = 1 kernel: tap jj), input channel 64 cs + c and output
+// channel 64 og + co of its pair p = cs n_og + og, if inside.  grid (width /
+// 32, segments), block (32, 4).
+__global__ void reduce_taps_kernel(const float* __restrict__ in, const SegRows r,
+                                   float* __restrict__ dw) {
   __shared__ double part[4][32];
-  const int i = blockIdx.y, col = blockIdx.x * 32 + threadIdx.x;
-  int lo = rows.lo[0], hi = rows.hi[0];
+  const int s = blockIdx.y, col = blockIdx.x * 32 + threadIdx.x;
+  const int p = s / r.seg_taps, i = s - p * r.seg_taps;
+  long long lo_item = (long long)p * r.per_pair, hi_item = lo_item;
 #pragma unroll
-  for (int k = 1; k < kMaxTaps; ++k) {  // constant indices: no local copy of the parameter
+  for (int k = 0; k < kMaxTaps; ++k) {  // constant indices: no local copy of the parameter
     if (k == i) {
-      lo = rows.lo[k];
-      hi = rows.hi[k];
+      lo_item += r.first[k];
+      hi_item += r.first[k + 1];
     }
   }
+  // block g's run is [g N / G, (g+1) N / G): item m is in block ((m + 1) G - 1) / N
+  auto block_of = [&](long long m) { return int(((m + 1) * r.blocks - 1) / r.items); };
+  int lo = 0, hi = 0;
+  if (hi_item > lo_item) {
+    lo = block_of(lo_item) + s;
+    hi = block_of(hi_item - 1) + s + 1;
+  }
   double a = 0.0;
-  if (col < width) {
-    for (int r = lo + threadIdx.y; r < hi; r += 4) a += double(in[size_t(r) * stride + col]);
+  if (col < r.width) {
+    for (int row = lo + threadIdx.y; row < hi; row += 4) a += double(in[size_t(row) * r.stride + col]);
   }
   part[threadIdx.y][threadIdx.x] = a;
   __syncthreads();
-  if (threadIdx.y == 0 && col < width) {
-    out[size_t(i) * width + col] =
-        float((part[0][threadIdx.x] + part[1][threadIdx.x]) + (part[2][threadIdx.x] + part[3][threadIdx.x]));
+  if (threadIdx.y == 0 && col < r.width) {
+    const int jj = col / (kC * kC), c = (col / kC) % kC, co = col % kC;
+    const int cs = p / r.n_og, og = p - cs * r.n_og;
+    const int ci = cs * kC + c, cj = og * kC + co;
+    if (ci < r.cin && cj < r.cout) {
+      dw[(size_t(i * r.kf + jj) * r.cin + ci) * r.cout + cj] =
+          float((part[0][threadIdx.x] + part[1][threadIdx.x]) + (part[2][threadIdx.x] + part[3][threadIdx.x]));
+    }
   }
 }
 
-// y = round(act(float(x) * inv[c] + shift[c])), 8 channels a thread.
-template <typename T>
+// y = round(act(float(x) * inv[c] + shift[c])), 8 channels a thread (C = 64:
+// the table in shared memory; WIDE: any C, a multiple of 8, read through L1).
+template <typename T, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
 wgrad_prologue_kernel(const T* __restrict__ x, const float* __restrict__ scal, T* __restrict__ y,
-                      long long n8, int act) {
-  __shared__ float inv_s[kC], shift_s[kC];
-  if (threadIdx.x < kC) {
-    inv_s[threadIdx.x] = scal[threadIdx.x];
-    shift_s[threadIdx.x] = scal[kC + threadIdx.x];
-  }
-  __syncthreads();
-  for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x; e < n8;
-       e += (long long)gridDim.x * kThreads) {
-    const int c8 = int(e & 7) * 8;
-    float v[8];
-    load8(x + e * 8, v);
+                      long long n8, int act, int C) {
+  if constexpr (WIDE) {
+    const int c8s = C / 8;
+    for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x; e < n8;
+         e += (long long)gridDim.x * kThreads) {
+      const int c8 = int(e % c8s) * 8;
+      float v[8];
+      load8(x + e * 8, v);
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      v[k] = activate(__fadd_rn(__fmul_rn(v[k], inv_s[c8 + k]), shift_s[c8 + k]), act);
+      for (int k = 0; k < 8; ++k) {
+        v[k] = activate(__fadd_rn(__fmul_rn(v[k], __ldg(scal + c8 + k)), __ldg(scal + C + c8 + k)), act);
+      }
+      store8(y + e * 8, v);
     }
-    store8(y + e * 8, v);
+  } else {
+    __shared__ float inv_s[kC], shift_s[kC];
+    if (threadIdx.x < kC) {
+      inv_s[threadIdx.x] = scal[threadIdx.x];
+      shift_s[threadIdx.x] = scal[kC + threadIdx.x];
+    }
+    __syncthreads();
+    for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x; e < n8;
+         e += (long long)gridDim.x * kThreads) {
+      const int c8 = int(e & 7) * 8;
+      float v[8];
+      load8(x + e * 8, v);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        v[k] = activate(__fadd_rn(__fmul_rn(v[k], inv_s[c8 + k]), shift_s[c8 + k]), act);
+      }
+      store8(y + e * 8, v);
+    }
   }
 }
 
 struct WgradPlan {
   WgradWork work;   // kf 3, 5
   ColumnWork cols;  // kf 1
-  TapRows rows;     // the reduction: out [groups][width] from rows `stride` floats apart
-  int blocks, groups, width, stride;
+  SegRows segs;     // the reduction into dW
+  bool wide;        // the instantiation for other channels than 64 in and out
+  int blocks, groups;
   int resident, registers, local_bytes;
   size_t smem, scratch;  // dynamic shared memory bytes; fp32 scratch elements
 };
@@ -513,14 +608,41 @@ cudaError_t occupancy(K kernel, size_t smem, WgradPlan* p) {
   return occupancy(kernel, smem, &p->resident, &p->registers, &p->local_bytes);
 }
 
-template <typename T, int KF>
-cudaError_t plan_taps(int B, int T_, int F, int kt, int dt, WgradPlan* p) {
-  cudaError_t err = occupancy(conv_wgrad_kernel<T, KF>, kStages * wgrad_stage_bytes<T, KF>(), p);
+// The reduction's description: `seg_taps` segments a pair whose items
+// (within the pair) are [first[i], first[i + 1]), rows of `width` floats
+// `stride` apart.
+void plan_segments(WgradPlan* p, const long long* first, long long per_pair, long long items,
+                   int seg_taps, int kf, int cin, int cout, int width, int stride) {
+  SegRows& r = p->segs;
+  for (int i = 0; i <= kMaxTaps; ++i) r.first[i] = first[i];
+  r.per_pair = per_pair;
+  r.items = items;
+  r.blocks = p->blocks;
+  r.seg_taps = seg_taps;
+  r.kf = kf;
+  r.cin = cin;
+  r.cout = cout;
+  r.n_og = (cout + kC - 1) / kC;
+  r.width = width;
+  r.stride = stride;
+  p->groups = int(items / per_pair) * seg_taps;
+}
+
+template <typename T, int KF, bool WIDE>
+cudaError_t plan_taps(int B, int T_, int F, int cin, int cout, int kt, int dt, WgradPlan* p) {
+  cudaError_t err =
+      occupancy(conv_wgrad_kernel<T, KF, WIDE>, kStages * wgrad_stage_bytes<T, KF>(), p);
   if (err != cudaSuccess) return err;
+  p->wide = WIDE;
   WgradWork& w = p->work;
   w.T = T_;
   w.F = F;
   w.dt = dt;
+  w.kt = kt;
+  w.cin = cin;
+  w.cout = cout;
+  w.n_og = (cout + kC - 1) / kC;
+  const int pairs = (cin + kC - 1) / kC * w.n_og;
   w.pad_t = (kt - 1) * dt / 2;
   w.n_ft = (F + kTileF - 1) / kTileF;
   w.first[0] = 0;
@@ -531,93 +653,110 @@ cudaError_t plan_taps(int B, int T_, int F, int kt, int dt, WgradPlan* p) {
     w.n_rows[i] = (i < kt && hi > lo) ? hi - lo : 0;
     w.first[i + 1] = w.first[i] + (long long)B * w.n_rows[i] * w.n_ft;
   }
-  w.items = w.first[kt];
+  w.items = w.first[kt] * pairs;
   // the centre tap always has items; no block may be empty (its rows would
   // fall inside a tap's range unwritten)
   p->blocks = w.blocks = int(w.items < p->resident ? w.items : p->resident);
-  const long long G = w.blocks, N = w.items;
-  auto block_of = [&](long long item) { return int(((item + 1) * G - 1) / N); };
-  for (int i = 0; i < kMaxTaps; ++i) {
-    if (i >= kt || w.first[i] == w.first[i + 1]) {
-      p->rows.lo[i] = p->rows.hi[i] = 0;
-    } else {
-      p->rows.lo[i] = block_of(w.first[i]) + i;
-      p->rows.hi[i] = block_of(w.first[i + 1] - 1) + i + 1;
-    }
-  }
-  p->groups = kt;
-  p->width = p->stride = KF * kC * kC;
-  p->scratch = size_t(w.blocks + kt) * KF * kC * kC;
+  p->scratch = size_t(w.blocks + pairs * kt) * KF * kC * kC;
+  plan_segments(p, w.first, w.first[kt], w.items, kt, KF, cin, cout, KF * kC * kC, KF * kC * kC);
   return cudaSuccess;
 }
 
-template <typename T>
-cudaError_t plan_columns(int B, int T_, int F, int kt, int dt, WgradPlan* p) {
+template <typename T, bool WIDE>
+cudaError_t plan_columns(int B, int T_, int F, int cin, int cout, int kt, int dt, WgradPlan* p) {
   cudaError_t err =
-      occupancy(conv_wgrad_kf1_kernel<T>, (kYRing + kStages + 1) * col_tile_bytes<T>(), p);
+      occupancy(conv_wgrad_kf1_kernel<T, WIDE>, (kYRing + kStages + 1) * col_tile_bytes<T>(), p);
   if (err != cudaSuccess) return err;
+  p->wide = WIDE;
   ColumnWork& w = p->cols;
   w.T = T_;
   w.F = F;
   w.dt = dt;
   w.kt = kt;
+  w.cin = cin;
+  w.cout = cout;
+  w.n_og = (cout + kC - 1) / kC;
+  const int pairs = (cin + kC - 1) / kC * w.n_og;
   w.n_ft = (F + kColF<T> - 1) / kColF<T>;
-  w.items = (long long)B * w.n_ft * T_;
+  w.per_pair = (long long)B * w.n_ft * T_;
+  w.items = w.per_pair * pairs;
   p->blocks = w.blocks = int(w.items < p->resident ? w.items : p->resident);
-  for (int i = 0; i < kMaxTaps; ++i) p->rows.lo[i] = p->rows.hi[i] = 0;
-  p->rows.hi[0] = w.blocks;  // one group: every block's partials of every tap
-  p->groups = 1;
-  p->width = kt * kC * kC;
-  p->stride = kMaxTaps * kC * kC;
-  p->scratch = size_t(w.blocks) * kMaxTaps * kC * kC;
+  p->scratch = size_t(w.blocks + (WIDE ? pairs : 0)) * kMaxTaps * kC * kC;
+  const long long first[kMaxTaps + 1] = {0, w.per_pair};  // one segment a pair: every tap
+  plan_segments(p, first, w.per_pair, w.items, 1, 1, cin, cout, kt * kC * kC, kMaxTaps * kC * kC);
   return cudaSuccess;
 }
 
-template <typename T>
-cudaError_t plan(int B, int T_, int F, int kt, int kf, int dt, WgradPlan* p) {
-  if (bad_shape(B, T_, F, kt, kf, dt)) return cudaErrorInvalidValue;
+template <typename T, bool WIDE>
+cudaError_t plan_wide(int B, int T_, int F, int cin, int cout, int kt, int kf, int dt, WgradPlan* p) {
   switch (kf) {
-    case 1: return plan_columns<T>(B, T_, F, kt, dt, p);
-    case 3: return plan_taps<T, 3>(B, T_, F, kt, dt, p);
-    case 5: return plan_taps<T, 5>(B, T_, F, kt, dt, p);
+    case 1: return plan_columns<T, WIDE>(B, T_, F, cin, cout, kt, dt, p);
+    case 3: return plan_taps<T, 3, WIDE>(B, T_, F, cin, cout, kt, dt, p);
+    case 5: return plan_taps<T, 5, WIDE>(B, T_, F, cin, cout, kt, dt, p);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
+cudaError_t plan(int B, int T_, int F, int cin, int cout, int kt, int kf, int dt, WgradPlan* p) {
+  constexpr int kVec = 16 / int(sizeof(T));  // channels a 16-byte copy moves
+  if (bad_shape(B, T_, F, kt, kf, dt) || cin <= 0 || cout <= 0 || cin % kVec || cout % kVec) {
+    return cudaErrorInvalidValue;
+  }
+  if (cin == kC && cout == kC) return plan_wide<T, false>(B, T_, F, cin, cout, kt, kf, dt, p);
+  return plan_wide<T, true>(B, T_, F, cin, cout, kt, kf, dt, p);
+}
+
+template <typename T, bool WIDE>
+void launch_kf(const WgradPlan& p, int kf, const T* y, const T* d, float* partials,
+               cudaStream_t stream) {
+  switch (kf) {
+    case 1: conv_wgrad_kf1_kernel<T, WIDE><<<p.blocks, kThreads, p.smem, stream>>>(y, d, partials, p.cols); break;
+    case 3: conv_wgrad_kernel<T, 3, WIDE><<<p.blocks, kThreads, p.smem, stream>>>(y, d, partials, p.work); break;
+    default: conv_wgrad_kernel<T, 5, WIDE><<<p.blocks, kThreads, p.smem, stream>>>(y, d, partials, p.work); break;
+  }
+}
+
+template <typename T>
 cudaError_t launch_wgrad(const void* y, const void* d, void* dw, void* scratch, int B, int T_,
-                         int F, int kt, int kf, int dt, cudaStream_t stream) {
+                         int F, int cin, int cout, int kt, int kf, int dt, cudaStream_t stream) {
   WgradPlan p;
-  cudaError_t err = plan<T>(B, T_, F, kt, kf, dt, &p);
+  cudaError_t err = plan<T>(B, T_, F, cin, cout, kt, kf, dt, &p);
   if (err != cudaSuccess) return err;
   const T* y_ = static_cast<const T*>(y);
   const T* d_ = static_cast<const T*>(d);
   float* partials = static_cast<float*>(scratch);
-  switch (kf) {
-    case 1: conv_wgrad_kf1_kernel<T><<<p.blocks, kThreads, p.smem, stream>>>(y_, d_, partials, p.cols); break;
-    case 3: conv_wgrad_kernel<T, 3><<<p.blocks, kThreads, p.smem, stream>>>(y_, d_, partials, p.work); break;
-    default: conv_wgrad_kernel<T, 5><<<p.blocks, kThreads, p.smem, stream>>>(y_, d_, partials, p.work); break;
+  if (p.wide) {
+    launch_kf<T, true>(p, kf, y_, d_, partials, stream);
+  } else {
+    launch_kf<T, false>(p, kf, y_, d_, partials, stream);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  reduce_taps_kernel<<<dim3((p.width + 31) / 32, p.groups), dim3(32, 4), 0, stream>>>(
-      partials, p.width, p.stride, p.rows, static_cast<float*>(dw));
+  reduce_taps_kernel<<<dim3((p.segs.width + 31) / 32, p.groups), dim3(32, 4), 0, stream>>>(
+      partials, p.segs, static_cast<float*>(dw));
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_prologue(const void* x, const void* scal, void* y, int B, int T_, int F, int act,
-                            cudaStream_t stream) {
+cudaError_t launch_prologue(const void* x, const void* scal, void* y, int B, int T_, int F, int C,
+                            int act, cudaStream_t stream) {
   if (act != kMish && act != kRelu) return cudaErrorInvalidValue;
   int sms = 0;
   cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
-  const long long n8 = (long long)B * T_ * F * (kC / 8);
+  const long long n8 = (long long)B * T_ * F * (C / 8);
   // one wave: 8 blocks of 256 threads fill an SM's 2048 thread slots
   const long long want = (n8 + kThreads - 1) / kThreads;
   const int blocks = int(want < 8LL * sms ? want : 8LL * sms);
-  wgrad_prologue_kernel<T><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(scal), static_cast<T*>(y), n8, act);
+  const T* x_ = static_cast<const T*>(x);
+  const float* s_ = static_cast<const float*>(scal);
+  T* y_ = static_cast<T*>(y);
+  if (C == kC) {
+    wgrad_prologue_kernel<T, false><<<blocks, kThreads, 0, stream>>>(x_, s_, y_, n8, act, C);
+  } else {
+    wgrad_prologue_kernel<T, true><<<blocks, kThreads, 0, stream>>>(x_, s_, y_, n8, act, C);
+  }
   return cudaGetLastError();
 }
 
@@ -625,40 +764,42 @@ cudaError_t launch_prologue(const void* x, const void* scal, void* y, int B, int
 
 // Plain C interface (loaded with ctypes).  Every function returns its
 // cudaError_t; 0 is success.  `bf16` selects bf16 activations, otherwise
-// fp32; scal (the chain's [8, 64] table: row 0 inv, row 1 shift), dw and
-// scratch are fp32.  Activations are [B, T, F, 64], dw [kt, kf, 64, 64].
+// fp32; scal (the chain's [8, C] table: row 0 inv, row 1 shift), dw and
+// scratch are fp32.  Activations are y [B, T, F, Cin] and d [B, T, F, Cout],
+// dw [kt, kf, Cin, Cout], channel counts a multiple of 8 (bf16) or 4 (fp32).
 // `scratch` holds the per-block partial sums (conv_wgrad_launch_config gives
 // its size).
 
 // dW of the conv whose (already activated) input is y and output cotangent d.
 extern "C" int conv_wgrad(const void* y, const void* d, void* dw, void* scratch, int B, int T,
-                          int F, int kt, int kf, int dt, int bf16, void* stream) {
+                          int F, int cin, int cout, int kt, int kf, int dt, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_wgrad<__nv_bfloat16>(y, d, dw, scratch, B, T, F, kt, kf, dt, s)
-              : launch_wgrad<float>(y, d, dw, scratch, B, T, F, kt, kf, dt, s);
+  return bf16 ? launch_wgrad<__nv_bfloat16>(y, d, dw, scratch, B, T, F, cin, cout, kt, kf, dt, s)
+              : launch_wgrad<float>(y, d, dw, scratch, B, T, F, cin, cout, kt, kf, dt, s);
 }
 
-// y = round(act(float(x) * inv[c] + shift[c])), act 1 mish or 2 relu; also
-// the input of conv_bn_act_fwd (conv_fwd.cu) on a layer with a prologue.
+// y = round(act(float(x) * inv[c] + shift[c])), act 1 mish or 2 relu, C a
+// multiple of 8; also the input of conv_bn_act_fwd (conv_fwd.cu) on a layer
+// with a prologue.
 extern "C" int conv_wgrad_prologue(const void* x, const void* scal, void* y, int B, int T, int F,
-                                   int act, int bf16, void* stream) {
+                                   int C, int act, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || T <= 0 || F <= 0) return cudaErrorInvalidValue;
-  return bf16 ? launch_prologue<__nv_bfloat16>(x, scal, y, B, T, F, act, s)
-              : launch_prologue<float>(x, scal, y, B, T, F, act, s);
+  if (B <= 0 || T <= 0 || F <= 0 || C <= 0 || C % 8) return cudaErrorInvalidValue;
+  return bf16 ? launch_prologue<__nv_bfloat16>(x, scal, y, B, T, F, C, act, s)
+              : launch_prologue<float>(x, scal, y, B, T, F, C, act, s);
 }
 
 // Launch shape of the weight-gradient kernel on the current card: blocks
 // (never more than `resident`, the blocks the card holds at once), threads,
 // dynamic shared memory, fp32 scratch elements, registers a thread and
 // local (spilled) bytes a thread.
-extern "C" int conv_wgrad_launch_config(int B, int T, int F, int kt, int kf, int dt, int bf16,
-                                        int* blocks, int* threads, long long* smem,
-                                        long long* scratch, int* resident, int* registers,
-                                        int* local_bytes) {
+extern "C" int conv_wgrad_launch_config(int B, int T, int F, int cin, int cout, int kt, int kf,
+                                        int dt, int bf16, int* blocks, int* threads,
+                                        long long* smem, long long* scratch, int* resident,
+                                        int* registers, int* local_bytes) {
   WgradPlan p;
-  cudaError_t err = bf16 ? plan<__nv_bfloat16>(B, T, F, kt, kf, dt, &p)
-                         : plan<float>(B, T, F, kt, kf, dt, &p);
+  cudaError_t err = bf16 ? plan<__nv_bfloat16>(B, T, F, cin, cout, kt, kf, dt, &p)
+                         : plan<float>(B, T, F, cin, cout, kt, kf, dt, &p);
   if (err != cudaSuccess) return err;
   *blocks = p.blocks;
   *threads = kThreads;

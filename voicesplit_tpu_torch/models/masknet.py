@@ -4,8 +4,8 @@
     spec [B, T, F] → [B, 1, T, F] (NCHW: time is H, frequency is W)
       conv1 1×7, conv2 7×1, then 5×5 with time dilation 1/2/4/8/16
       (and 32·2^i for each of ``num_extra_dilated_blocks``, the wide
-      variant), 64 channels, BatchNorm + activation each, symmetric "same"
-      zero padding
+      variant), ``conv_channels`` channels (64 in the configs), BatchNorm +
+      activation each, symmetric "same" zero padding
     1×1 conv → 8 channels → [B, T, 8F], frequency-major (index f·C + c)
     concat the d-vector per frame → [B, T, 8F + emb]
     BiLSTM(→ 2×400) → ReLU → fc1(600) → ReLU → fc2(601) → sigmoid (fp32)
@@ -34,8 +34,9 @@ usual, as in JAX).  Eval mode never takes the chain.
 
 With ``VOICESPLIT_PALLAS_CONV=1`` (`ops/conv_cuda.py`, the JAX package's
 switch) the layers that meet `conv_cuda.takes_layer` (``conv2`` … ``conv7``
-and the extra dilated blocks, at 64 channels) compute their conv, and in
-training its two gradients, with the dilated-conv kernels, in train and in
+and the extra dilated blocks, at any ``conv_channels`` of 64 or more)
+compute their conv, and in training its two gradients, with the dilated-conv
+kernels, in train and in
 eval mode; BatchNorm + activation stay `ops/bn_act.py`, ``conv1`` and the
 1×1 projection the library conv.  The JAX
 model cannot run both switches at once (the chain drives the folded blocks,
@@ -100,7 +101,7 @@ __all__ = ["BatchNorm", "ConvBlock", "MaskNet", "extra_dilated_specs", "make_mas
 # r ← m·r + (1 − m)·batch
 _BN_MOMENTUM = 0.9
 
-# (kernel (time, freq), dilation (time, freq)) of the seven 64-channel
+# (kernel (time, freq), dilation (time, freq)) of the seven `conv_channels`
 # layers (reference `models/voicefilter/model.py:17-54`); a model with extra
 # dilated blocks appends `extra_dilated_specs` to them
 CONV_SPECS: List[Tuple[Tuple[int, int], Tuple[int, int]]] = [
@@ -326,8 +327,7 @@ class MaskNet(nn.Module):
     def _use_fused_chain(self) -> bool:
         """The JAX model's conditions (`masknet.py:385-395`): train mode, not
         causal, the switch, and a channel count that the folded TPU layout
-        takes.  The CUDA kernels take 64 channels; another multiple of 64
-        raises on the card."""
+        takes; the chain's CUDA kernels take every such count."""
         return (
             self.training and not self.causal and fused_chain_enabled()
             and (2 * self.conv_channels) % 128 == 0

@@ -5,9 +5,10 @@ mask network asks (counterpart of `voicesplit_tpu/ops/conv_pallas.py`).
 
 Opt-in with ``VOICESPLIT_PALLAS_CONV=1`` (the JAX package's variable): the
 heavy conv layers of the mask network, a (7,1) layer and five (5,5) layers
-with time dilation 1..16 over ``[B, T, F=601, C=64]`` (and the wide variant's
-extra (5,5) blocks at time dilation 32·2^i, `configs/voicesplit_wide.json`:
-32, whose outer taps reach 64 rows to each side), then compute their
+with time dilation 1..16 over ``[B, T, F=601, C]`` (C is ``conv_channels``,
+64 in every file of `configs/`) and the wide variant's extra (5,5) blocks at
+time dilation 32·2^i (`configs/voicesplit_wide.json`: 32, whose outer taps
+reach 64 rows to each side), then compute their
 convolution, its data gradient and its weight gradient with the kernels of
 this module instead of the library's conv.
 
@@ -42,9 +43,15 @@ versions run only for tensors on the CPU.  Each kernel launch adds one to
 ``LAUNCHES[name]``.  The forward is the `torch.library` operator
 ``voicesplit::conv_dilated_fwd`` (checks, dispatch and count inside it; a
 fake implementation for `torch.export`), which the differentiable conv calls
-for its forward and its data gradient.  The kernels take 64 channels in and
-out, bf16 or fp32 operands (fp32 products on CUDA cores, not TF32) and kf in
-(1, 3, 5), the forward at most `conv_fused.FWD_KERNEL_MAX_KT` time taps.
+for its forward and its data gradient.  The kernels take every channel count
+that `takes_layer` sends them, at least 64 in and out, Cin and Cout apart
+(64 in and out is a compile-time instantiation of its own; other counts go
+through 64-wide slabs of input and groups of output channels), bf16 or fp32
+operands (fp32 products on CUDA cores, not TF32) and kf in (1, 3, 5), the
+forward at most `conv_fused.FWD_KERNEL_MAX_KT` time taps.  A channel count
+that is not a multiple of `CHANNEL_ALIGN` (the 16-byte copies' width) is
+zero-padded up to one around the launch and the result sliced back: a copy
+of the operands, counted in ``CHANNEL_PADS[name]``, not another route.
 """
 
 from __future__ import annotations
@@ -54,14 +61,18 @@ import os
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from voicesplit_tpu_torch.ops import _build
 from voicesplit_tpu_torch.ops.conv_fused import (
-    KERNEL_CHANNELS, _conv_core, _padded, check_fwd_kernel_takes, launch_wgrad_kernel,
+    CHANNEL_SLAB, _conv_core, _padded, check_fwd_kernel_takes, launch_wgrad_kernel,
 )
 
 # kernel launches per wrapper, for showing that a run went through them
 LAUNCHES = {"conv_dilated_fwd": 0, "conv_dilated_wgrad": 0}
+# launches whose operands were zero-padded to a multiple of CHANNEL_ALIGN
+CHANNEL_PADS = {"conv_dilated_fwd": 0, "conv_dilated_wgrad": 0}
+CHANNEL_ALIGN = 8  # channels of one 16-byte bf16 copy: the kernels take multiples of it
 
 _WGRAD_KF = (1, 3, 5)  # frequency tap counts the weight-gradient kernel is built for
 _MAX_TAPS = 7
@@ -77,6 +88,7 @@ def pallas_conv_enabled() -> bool:
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        CHANNEL_PADS[k] = 0
 
 
 def _library() -> ctypes.CDLL:
@@ -84,7 +96,7 @@ def _library() -> ctypes.CDLL:
     if not _declared:
         p, i = ctypes.c_void_p, ctypes.c_int
         _build.declare({
-            "conv_dilated_fwd": [p] * 3 + [i] * 7 + [p],
+            "conv_dilated_fwd": [p] * 3 + [i] * 9 + [p],
         })
         _declared = True
     return _build.library()
@@ -170,11 +182,12 @@ def _check(x: torch.Tensor, other: torch.Tensor, other_shape: Tuple[int, ...], w
 
 
 def _check_kernel_takes(cin: int, cout: int, kt: int, kf: int, wgrad: bool) -> None:
-    """What the CUDA kernels are built for; anything else raises on the card
-    (it never goes to the library conv)."""
-    if cin != KERNEL_CHANNELS or cout != KERNEL_CHANNELS:
+    """What the CUDA kernels are built for: the channels `takes_layer`
+    sends them (at least 64 in and out) and their taps; anything else
+    raises on the card (it never goes to the library conv)."""
+    if cin < CHANNEL_SLAB or cout < CHANNEL_SLAB:
         raise NotImplementedError(
-            f"the CUDA kernels take {KERNEL_CHANNELS} channels in and out, got {cin} and {cout}"
+            f"the CUDA kernels take at least {CHANNEL_SLAB} channels in and out, got {cin} and {cout}"
         )
     if not wgrad:
         check_fwd_kernel_takes(kt, kf)
@@ -185,27 +198,45 @@ def _check_kernel_takes(cin: int, cout: int, kt: int, kf: int, wgrad: bool) -> N
         )
 
 
+def _aligned(n: int) -> int:
+    return -(-n // CHANNEL_ALIGN) * CHANNEL_ALIGN
+
+
+def _pad_last(t: torch.Tensor, *pads: int) -> torch.Tensor:
+    """`t` with zeros after its last dimensions (the last first), contiguous."""
+    return F.pad(t, [p for n in pads for p in (0, n)]).contiguous()
+
+
 def _launch_conv_dilated_fwd(x, w, dt):
     B, T, F_, cin = x.shape
     kt, kf, _, cout = w.shape
     _check_kernel_takes(cin, cout, kt, kf, wgrad=False)
-    out = torch.empty_like(x)
+    cin_a, cout_a = _aligned(cin), _aligned(cout)
+    if (cin_a, cout_a) != (cin, cout):
+        CHANNEL_PADS["conv_dilated_fwd"] += 1
+        x, w = _pad_last(x, cin_a - cin), _pad_last(w, cout_a - cout, cin_a - cin)
+    out = x.new_empty((B, T, F_, cout_a))
     lib = _library()
     with torch.cuda.device(x.device):
         err = lib.conv_dilated_fwd(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), B, T, F_, kt, kf, dt,
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), B, T, F_, cin_a, cout_a, kt, kf, dt,
             int(x.dtype == torch.bfloat16), _build.stream(x),
         )
     _build.raise_on(err, "conv_dilated_fwd")
     LAUNCHES["conv_dilated_fwd"] += 1
-    return out
+    return out if cout_a == cout else out[..., :cout].contiguous()
 
 
 def _launch_conv_dilated_wgrad(x, dy, kt, kf, dt):
-    _check_kernel_takes(x.shape[-1], dy.shape[-1], kt, kf, wgrad=True)
+    cin, cout = x.shape[-1], dy.shape[-1]
+    _check_kernel_takes(cin, cout, kt, kf, wgrad=True)
+    cin_a, cout_a = _aligned(cin), _aligned(cout)
+    if (cin_a, cout_a) != (cin, cout):
+        CHANNEL_PADS["conv_dilated_wgrad"] += 1
+        x, dy = _pad_last(x, cin_a - cin), _pad_last(dy, cout_a - cout)
     dw = launch_wgrad_kernel(x, dy, kt, kf, dt)
     LAUNCHES["conv_dilated_wgrad"] += 1
-    return dw
+    return dw if (cin_a, cout_a) == (cin, cout) else dw[:, :, :cin, :cout].contiguous()
 
 
 @torch.library.custom_op(

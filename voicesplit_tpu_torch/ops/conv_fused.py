@@ -48,10 +48,14 @@ sums for the train step's gradient all-reduce.
 
 Dispatch: a CUDA tensor goes to the kernel, or the call raises; the plain
 versions run only for tensors on the CPU.  Each kernel launch adds one to
-``LAUNCHES[name]``.  The kernels take C = 64 channels, odd kernel sizes,
+``LAUNCHES[name]``.  The kernels take any C that is a multiple of
+`CHANNEL_SLAB` (64: a compile-time instantiation of their own; above it the
+same tiles walk 64-wide slabs and groups of channels), odd kernel sizes,
 frequency dilation 1, and bf16 or fp32 operands (fp32 products on CUDA
 cores, not TF32); `conv_bn_act_fwd` and `conv_dgrad` the taps of
-`FWD_KERNEL_MAX_KT`.
+`FWD_KERNEL_MAX_KT`.  The JAX model takes the chain at any C with
+``2·C % 128 == 0`` (`MaskNet._use_fused_chain`), so every C it sends is
+taken.
 """
 
 from __future__ import annotations
@@ -72,7 +76,10 @@ from voicesplit_tpu_torch.parallel.mesh import sum_over_ranks_
 # `conv_wgrad`'s
 LAUNCHES = {"conv_bn_act_fwd": 0, "conv_dgrad": 0, "conv_wgrad": 0, "conv_wgrad_prologue": 0}
 
-KERNEL_CHANNELS = 64  # the CUDA kernels' channel count, in and out
+# the conv kernels' tile width in channels: C = 64 in and out is an
+# instantiation of its own, other counts are walked in slabs (inputs) and
+# groups (outputs) of it; the chain's kernels take multiples of it
+CHANNEL_SLAB = 64
 # time taps the forward / data-gradient kernels (`csrc/conv_fwd.cu`) take, by
 # frequency taps: an item's input rows in flight and the weights must fit one
 # block's shared memory
@@ -101,12 +108,12 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         ip, lp = ctypes.POINTER(i), ctypes.POINTER(ctypes.c_longlong)
         _build.declare({
-            "conv_bn_act_fwd": [p] * 6 + [i] * 7 + [p],
-            "conv_dgrad": [p] * 5 + [i] * 7 + [p],
-            "conv_wgrad": [p] * 4 + [i] * 7 + [p],
-            "conv_wgrad_prologue": [p] * 3 + [i] * 5 + [p],
-            "conv_fwd_launch_config": [i] * 8 + [ip, ip, lp, lp, ip, ip, ip],
-            "conv_wgrad_launch_config": [i] * 7 + [ip, ip, lp, lp, ip, ip, ip],
+            "conv_bn_act_fwd": [p] * 6 + [i] * 8 + [p],
+            "conv_dgrad": [p] * 5 + [i] * 8 + [p],
+            "conv_wgrad": [p] * 4 + [i] * 9 + [p],
+            "conv_wgrad_prologue": [p] * 3 + [i] * 6 + [p],
+            "conv_fwd_launch_config": [i] * 10 + [ip, ip, lp, lp, ip, ip, ip],
+            "conv_wgrad_launch_config": [i] * 9 + [ip, ip, lp, lp, ip, ip, ip],
         })
         _declared = True
     return _build.library()
@@ -120,18 +127,20 @@ def launch_config(shape: Sequence[int], kt: int, kf: int, dt: int, dtype: torch.
 
 
 def fwd_launch_config(shape: Sequence[int], kt: int, kf: int, dt: int, dtype: torch.dtype,
-                      dgrad: bool) -> dict:
+                      dgrad: bool, cout: Optional[int] = None) -> dict:
     """Grid of the forward / data-gradient kernel (`conv_dgrad` with
-    ``dgrad``, else `conv_cuda.conv_dilated_fwd`) on the current card; the
-    keys of `wgrad_launch_config`, the scratch being `conv_dgrad`'s per-block
-    partial sums."""
-    return _fwd_config(shape, kt, kf, dt, dtype, int(dgrad))
+    ``dgrad``, else `conv_cuda.conv_dilated_fwd`, whose output has `cout`
+    channels, by default the input's) on the current card; the keys of
+    `wgrad_launch_config`, the scratch being `conv_dgrad`'s per-block partial
+    sums."""
+    return _fwd_config(shape, kt, kf, dt, dtype, int(dgrad), cout)
 
 
-def _fwd_config(shape, kt, kf, dt, dtype, mode: int) -> dict:
+def _fwd_config(shape, kt, kf, dt, dtype, mode: int, cout: Optional[int] = None) -> dict:
     # mode: 0 conv_dilated_fwd, 1 conv_dgrad, 2 conv_bn_act_fwd (one kernel body)
-    B, T, F_, _ = shape
-    args = (B, T, F_, kt, kf, dt, int(dtype == torch.bfloat16), mode)
+    B, T, F_, cin = shape
+    args = (B, T, F_, cin, cin if cout is None else cout, kt, kf, dt,
+            int(dtype == torch.bfloat16), mode)
     return dict(_one_wave_config("conv_fwd_launch_config", args, torch.cuda.current_device()))
 
 
@@ -145,15 +154,17 @@ def check_fwd_kernel_takes(kt: int, kf: int) -> None:
         )
 
 
-def wgrad_launch_config(shape: Sequence[int], kt: int, kf: int, dt: int, dtype: torch.dtype) -> dict:
+def wgrad_launch_config(shape: Sequence[int], kt: int, kf: int, dt: int, dtype: torch.dtype,
+                        cout: Optional[int] = None) -> dict:
     """Grid of the weight-gradient kernel (`conv_wgrad`,
-    `conv_cuda.conv_dilated_wgrad`) on the current card: blocks (one wave:
-    never more than ``resident_blocks``, what the card holds at once),
-    threads, dynamic shared memory bytes, the fp32 scratch elements of its
-    per-block partials, and its registers and local (spilled) bytes a
+    `conv_cuda.conv_dilated_wgrad`) for inputs of `shape` and a cotangent of
+    `cout` channels (by default the input's) on the current card: blocks
+    (one wave: never more than ``resident_blocks``, what the card holds at
+    once), threads, dynamic shared memory bytes, the fp32 scratch elements of
+    its per-block partials, and its registers and local (spilled) bytes a
     thread."""
-    B, T, F_, _ = shape
-    args = (B, T, F_, kt, kf, dt, int(dtype == torch.bfloat16))
+    B, T, F_, cin = shape
+    args = (B, T, F_, cin, cin if cout is None else cout, kt, kf, dt, int(dtype == torch.bfloat16))
     return dict(_one_wave_config("conv_wgrad_launch_config", args, torch.cuda.current_device()))
 
 
@@ -336,8 +347,9 @@ def _check(acts: Sequence[torch.Tensor], w_shape, fp32s, dt: int, act, prologue:
             raise ValueError("all operands must be on one device")
         if not t.is_contiguous():
             raise ValueError("operands must be contiguous")
-    if x.device.type == "cuda" and C != KERNEL_CHANNELS:
-        raise NotImplementedError(f"the CUDA kernels take {KERNEL_CHANNELS} channels, got {C}")
+    if x.device.type == "cuda" and C % CHANNEL_SLAB:
+        raise NotImplementedError(
+            f"the chain's CUDA kernels take a multiple of {CHANNEL_SLAB} channels, got {C}")
 
 
 def _check_weight(w: torch.Tensor, x: torch.Tensor) -> None:
@@ -362,7 +374,7 @@ def _launch_conv_bn_act_fwd(x, w, bias, scal, dt, act, prologue):
         scratch = torch.empty(n, dtype=torch.float32, device=x.device)  # per-block partials
         err = lib.conv_bn_act_fwd(
             y.data_ptr(), w.data_ptr(), bias.data_ptr(), raw.data_ptr(), stats.data_ptr(),
-            scratch.data_ptr(), B, T, F_, kt, kf, dt, int(x.dtype == torch.bfloat16),
+            scratch.data_ptr(), B, T, F_, C, kt, kf, dt, int(x.dtype == torch.bfloat16),
             _build.stream(x),
         )
     _build.raise_on(err, "conv_bn_act_fwd")
@@ -382,7 +394,7 @@ def _launch_conv_dgrad(d_raw, w_flipped, dt):
         scratch = torch.empty(n, dtype=torch.float32, device=d_raw.device)  # per-block partials
         err = lib.conv_dgrad(
             d_raw.data_ptr(), w_flipped.data_ptr(), dx.data_ptr(), dbias.data_ptr(),
-            scratch.data_ptr(), B, T, F_, kt, kf, dt,
+            scratch.data_ptr(), B, T, F_, C, kt, kf, dt,
             int(d_raw.dtype == torch.bfloat16), _build.stream(d_raw),
         )
     _build.raise_on(err, "conv_dgrad")
@@ -391,12 +403,12 @@ def _launch_conv_dgrad(d_raw, w_flipped, dt):
 
 
 def _launch_conv_wgrad_prologue(x, scal, act):
-    B, T, F_, _ = x.shape
+    B, T, F_, C = x.shape
     y = torch.empty_like(x)
     lib = _library()
     with torch.cuda.device(x.device):
         err = lib.conv_wgrad_prologue(
-            x.data_ptr(), scal.data_ptr(), y.data_ptr(), B, T, F_, _ACT_CODE[act],
+            x.data_ptr(), scal.data_ptr(), y.data_ptr(), B, T, F_, C, _ACT_CODE[act],
             int(x.dtype == torch.bfloat16), _build.stream(x),
         )
     _build.raise_on(err, "conv_wgrad_prologue")
@@ -405,19 +417,20 @@ def _launch_conv_wgrad_prologue(x, scal, act):
 
 
 def launch_wgrad_kernel(y, d, kt, kf, dt):
-    """The weight-gradient kernel on CUDA tensors: ``dW`` fp32 ``[kt, kf, C,
-    C]`` of the conv whose (already activated) input is `y` and whose output
-    cotangent is `d`.  Counted by its callers, `conv_wgrad` and
-    `conv_cuda.conv_dilated_wgrad`."""
-    B, T, F_, C = y.shape
-    dw = torch.empty(kt, kf, C, C, dtype=torch.float32, device=y.device)
+    """The weight-gradient kernel on CUDA tensors: ``dW`` fp32 ``[kt, kf,
+    Cin, Cout]`` of the conv whose (already activated) input is `y` ``[B, T,
+    F, Cin]`` and whose output cotangent is `d` ``[B, T, F, Cout]``.  Counted
+    by its callers, `conv_wgrad` and `conv_cuda.conv_dilated_wgrad`."""
+    B, T, F_, cin = y.shape
+    cout = d.shape[-1]
+    dw = torch.empty(kt, kf, cin, cout, dtype=torch.float32, device=y.device)
     lib = _library()
     with torch.cuda.device(y.device):
-        n = wgrad_launch_config(y.shape, kt, kf, dt, y.dtype)["scratch_floats"]
+        n = wgrad_launch_config(y.shape, kt, kf, dt, y.dtype, cout)["scratch_floats"]
         scratch = torch.empty(n, dtype=torch.float32, device=y.device)  # per-block partials
         err = lib.conv_wgrad(
-            y.data_ptr(), d.data_ptr(), dw.data_ptr(), scratch.data_ptr(), B, T, F_, kt, kf, dt,
-            int(y.dtype == torch.bfloat16), _build.stream(y),
+            y.data_ptr(), d.data_ptr(), dw.data_ptr(), scratch.data_ptr(), B, T, F_, cin, cout,
+            kt, kf, dt, int(y.dtype == torch.bfloat16), _build.stream(y),
         )
     _build.raise_on(err, "conv_wgrad")
     return dw

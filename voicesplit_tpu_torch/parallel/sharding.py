@@ -13,8 +13,10 @@ the JAX package shards the LSTM gate columns, the conv output channels and
 ``fc1``'s input rows over the ``model`` axis and lets GSPMD split the
 computation Megatron-style.  The port cannot split the computation so:
 neither LSTM kernel takes a slice of W_hh's gate columns, a split recurrence
-would all-gather h at each of its 301 steps, and the conv kernels take
-exactly 64 output channels (`ops/conv_cuda.py::_check_kernel_takes`).  So the
+would all-gather h at each of its 301 steps, and the conv kernels take no
+fewer than 64 output channels (`ops/conv_cuda.py::_check_kernel_takes`; the
+chain's, multiples of 64), so the 64 of a layer split two ways would leave
+each rank a width they refuse.  So the
 port shards the **state** and replicates the **compute**, which keeps every
 kernel launched and every number exact:
 

@@ -290,6 +290,19 @@ Phases, each printing one JSON line:
    (SEPARATE_DILATED_TOL, DILATED_STEP_TOL, FUSED_TOL) and timed (p50, p75,
    peak memory).  Its figures stay on its own two lines; the ``kernels``
    line keeps the 64-channel figures.
+29. checkpoint — the serving CLI on the JAX CLI's command line at the full
+   width of `configs/voicesplit.json` (bf16) with random weights from
+   ``--seed``: a JAX-layout ``checkpoint_0.msgpack`` (flax's msgpack layout:
+   ext 1 arrays, an ext 3 step count, ``config_str``) of
+   `weights.random_jax_variables`, served by `cli.separate.main
+   --checkpoint_path` with no ``-c`` and a ``.pt`` d-vector; the same
+   weights as a port ``checkpoint_0.pt``; a causal streaming file in the
+   JAX layout served with ``--streaming``; and the BiLSTM file with
+   ``--streaming``, which must raise before any launch.  Each call counted
+   (exactly 2 ``lstm_fwd`` at B=1, 1 a streaming chunk, none refused) and
+   timed; each output file byte for byte the one `separate_batch` (or
+   `StreamingSeparator` driven directly) writes for `state_dict_from_jax`
+   of the same trees.
 
 Then a ``{"kernels": [...]}`` line (each kernel's ``main_path``: false for
 the routes no path takes, OFF_PATH, launched only in the kernels phases),
@@ -305,8 +318,8 @@ kernel.  ``--phases`` runs a subset (of kernels, bwd_kernels, separate,
 train, conv_kernels, train_fused, dilated_kernels, separate_dilated,
 trainer, separate_wide, train_wide, evaluate, preprocess, trainer_online, dsp,
 streaming, train_streaming, encoder, voicefilter, reference, import,
-distributed, long, export, model_parallel, remat, channels; device and
-build always run)
+distributed, long, export, model_parallel, remat, channels, checkpoint; device
+and build always run)
 and ends with a line marked
 ``"partial"`` instead of the result lines.
 """
@@ -5016,6 +5029,144 @@ def phase_channels(torch, lstm_cuda, cf, cc, seed: int) -> dict:
     return launches
 
 
+def flax_msgpack(tree) -> bytes:
+    """`tree` (nested dicts of numpy arrays and scalars, ints and strings) as
+    ``flax.serialization.msgpack_serialize`` writes it: keys in sorted order
+    (the order of JAX's tree map), an array as msgpack extension 1 and a
+    numpy scalar as extension 3, each holding the packed ``(shape, dtype
+    name, bytes)``."""
+    import msgpack
+
+    def ordered(t):
+        return {k: ordered(t[k]) for k in sorted(t)} if isinstance(t, dict) else t
+
+    def ext(x):
+        if not isinstance(x, (np.ndarray, np.generic)):
+            raise TypeError(f"no flax msgpack layout for {type(x).__name__}")
+        a = np.asarray(x)
+        data = msgpack.packb((a.shape, a.dtype.name, a.tobytes("C")), use_bin_type=True)
+        return msgpack.ExtType(1 if isinstance(x, np.ndarray) else 3, data)
+
+    return msgpack.packb(ordered(tree), default=ext, strict_types=True)
+
+
+def jax_checkpoint_tree(params: dict, stats: dict, config) -> dict:
+    """The payload of a JAX ``checkpoint_<step>.msgpack`` at step 0
+    (`voicesplit_tpu/train/checkpoint.py::save_checkpoint`): the variables,
+    a fresh Adam state (count 0, zero moments), the config string and the
+    data position."""
+    from voicesplit_tpu_torch.data.dataset import IteratorState
+
+    def zeros(tree):
+        return {k: zeros(v) if isinstance(v, dict) else np.zeros_like(v) for k, v in tree.items()}
+
+    return {"model": params, "batch_stats": stats,
+            "optimizer": {"0": {"count": np.int32(0), "mu": zeros(params), "nu": zeros(params)},
+                          "1": {}},
+            "step": 0, "config_str": config.to_json(), "data_state": IteratorState().to_dict()}
+
+
+def phase_checkpoint(torch, lstm_cuda, seed: int, tmp: Path) -> dict:
+    """`cli.separate.main` on the JAX CLI's command line (`--checkpoint_path`,
+    no ``-c``, a ``.pt`` d-vector) at full width: a JAX-layout ``.msgpack``,
+    the port's ``.pt`` of the same weights, a JAX-layout streaming file with
+    ``--streaming``, and the BiLSTM file with ``--streaming`` (refused before
+    any launch).  Each call is counted and timed, and its file is held byte
+    for byte to the one the same trees give through `separate_batch` or
+    `StreamingSeparator`."""
+    from voicesplit_tpu_torch import weights
+    from voicesplit_tpu_torch.cli.separate import main as separate_main
+    from voicesplit_tpu_torch.cli.separate import separate_batch
+    from voicesplit_tpu_torch.config import load_config
+    from voicesplit_tpu_torch.dsp.processor import make_audio_processor
+    from voicesplit_tpu_torch.models.masknet import make_masknet
+    from voicesplit_tpu_torch.streaming import StreamingSeparator
+    from voicesplit_tpu_torch.train.checkpoint import save_checkpoint
+    from voicesplit_tpu_torch.train.state import create_train_state, make_optimizer
+
+    config = load_config(str(ROOT / "configs" / "voicesplit.json"))
+    causal = _stream_config(True)
+    ap = make_audio_processor(config)
+    sr, n = ap.sample_rate, int(config.audio.audio_len * ap.sample_rate)
+    wav, emb = synthetic_batch(seed + 51, 1, n, sr, config.model.emb_dim)
+    ap.save_wav(wav[0], str(tmp / "mix.wav"))
+    torch.save(torch.from_numpy(emb[0]), str(tmp / "emb.pt"))
+    mixed = ap.load_wav(str(tmp / "mix.wav"))  # what the CLI reads
+
+    files, models, write_s = {}, {}, {}
+    for i, (name, cfg, streaming) in enumerate((("bilstm", config, False),
+                                                ("streaming", causal, True))):
+        model = make_masknet(cfg, streaming=streaming)
+        params, stats = weights.random_jax_variables(model, seed + i)
+        t0 = time.perf_counter()
+        (tmp / name).mkdir()
+        files[name] = tmp / name / "checkpoint_0.msgpack"
+        files[name].write_bytes(flax_msgpack(jax_checkpoint_tree(params, stats, cfg)))
+        write_s[name] = time.perf_counter() - t0
+        model.load_state_dict(weights.state_dict_from_jax(params, stats))
+        models[name] = model
+    files["port"] = Path(save_checkpoint(str(tmp / "port"), create_train_state(
+        models["bilstm"], make_optimizer(config, models["bilstm"])), config))
+
+    # the outputs the same trees give when driven directly
+    with torch.inference_mode():
+        want = separate_batch(models["bilstm"], ap, mixed[None], emb)[0].cpu().numpy()
+    ap.save_wav(want, str(tmp / "want.wav"))
+    sep = StreamingSeparator(causal, models["streaming"], STREAM_CHUNK)
+    ap.save_wav(sep.separate(mixed[None], emb)[0], str(tmp / "want_stream.wav"))
+    chunks = (n + (-n) % sep.chunk_samples + sep.latency_samples) // sep.chunk_samples + 1
+
+    zero = {k: 0 for k in lstm_cuda.LAUNCHES}
+    calls = {  # name: (checkpoint, extra flags, launches, file it must equal)
+        "jax_msgpack": (files["bilstm"], [], {**zero, "lstm_fwd": 2}, "want.wav"),
+        "port_pt": (files["port"], [], {**zero, "lstm_fwd": 2}, "want.wav"),
+        "jax_msgpack_streaming": (files["streaming"], ["--streaming"],
+                                  {**zero, "lstm_fwd": chunks}, "want_stream.wav"),
+    }
+    report = {"config": "configs/voicesplit.json (bf16; causal for the streaming file)",
+              "msgpack_bytes": files["bilstm"].stat().st_size,
+              "streaming_msgpack_bytes": files["streaming"].stat().st_size,
+              "port_pt_bytes": files["port"].stat().st_size, "msgpack_write_seconds": write_s,
+              "streaming_chunks": chunks, "calls": {}}
+    launches = dict(zero)
+    for name, (path, extra, want_launches, want_file) in calls.items():
+        out = tmp / f"{name}.wav"
+        _reset_counts(torch, lstm_cuda)
+        t0 = time.perf_counter()
+        separate_main(["--checkpoint_path", str(path), "--mixed_wav", str(tmp / "mix.wav"),
+                       "--emb", str(tmp / "emb.pt"), "--output", str(out), *extra])
+        seconds = time.perf_counter() - t0
+        counted = _counts(torch, lstm_cuda)
+        check(counted == want_launches, f"checkpoint {name}: launches {counted}, wanted {want_launches}")
+        counted = _check_routes(lstm_cuda, counted, f"checkpoint {name}")
+        _add(launches, counted)
+        same = out.read_bytes() == (tmp / want_file).read_bytes()
+        check(same, f"checkpoint {name}: the CLI's file is not the one the same trees give")
+        report["calls"][name] = {"seconds": seconds, "launches": counted,
+                                 "same_bytes_as_direct": same}
+
+    # a BiLSTM checkpoint does not fit the streaming model: refused unlaunched
+    _reset_counts(torch, lstm_cuda)
+    t0 = time.perf_counter()
+    try:
+        separate_main(["--checkpoint_path", str(files["bilstm"]), "--mixed_wav",
+                       str(tmp / "mix.wav"), "--emb", str(tmp / "emb.pt"),
+                       "--output", str(tmp / "refused.wav"), "--streaming"])
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    seconds = time.perf_counter() - t0
+    counted = _counts(torch, lstm_cuda)
+    check(refused is not None and "does not fit the streaming model" in refused,
+          f"checkpoint: a BiLSTM file with --streaming was not refused ({refused})")
+    check(counted == zero and not (tmp / "refused.wav").exists(),
+          f"checkpoint: the refused call launched {counted}")
+    report["calls"]["bilstm_streaming_refused"] = {"seconds": seconds, "launches": counted,
+                                                   "error": refused[:160]}
+    emit("checkpoint", device=torch.cuda.get_device_name(0), **report)
+    return launches
+
+
 def kernel_kind(name: str) -> str:
     idents = set(re.findall(r"[A-Za-z_][A-Za-z0-9_]*", name))
     for kind, names in PORT_KERNEL_KINDS:
@@ -5064,7 +5215,7 @@ PHASES = ("kernels", "bwd_kernels", "separate", "train", "conv_kernels", "train_
           "dilated_kernels", "separate_dilated", "trainer", "separate_wide", "train_wide",
           "evaluate", "preprocess", "trainer_online", "dsp", "streaming", "train_streaming",
           "encoder", "voicefilter", "reference", "import", "distributed", "long", "export",
-          "model_parallel", "remat", "channels")
+          "model_parallel", "remat", "channels", "checkpoint")
 
 
 def main(argv=None) -> int:
@@ -5179,6 +5330,9 @@ def main(argv=None) -> int:
         by_path["remat"] = phase_remat(torch, lstm_cuda, conv_fused, conv_cuda, args.seed)
     if "channels" in phases:
         by_path["channels"] = phase_channels(torch, lstm_cuda, conv_fused, conv_cuda, args.seed)
+    if "checkpoint" in phases:
+        with tempfile.TemporaryDirectory(prefix="voicesplit_checkpoint_") as ckpt_tmp:
+            by_path["checkpoint"] = phase_checkpoint(torch, lstm_cuda, args.seed, Path(ckpt_tmp))
     emit("total", wall_seconds=time.perf_counter() - t_start, phases=phases)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

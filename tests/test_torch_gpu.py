@@ -2043,3 +2043,26 @@ def test_remat_step_is_the_plain_step_on_card(route, monkeypatch):
     want = {k: 0 for m in modules for k in m.LAUNCHES}
     want.update(chip_smoke.TRAIN_LAUNCHES[2], **chip_smoke.REMAT_CONV_LAUNCHES[route])
     assert runs["1"][0] == [want, want]
+
+
+@pytest.mark.gpu
+def test_serving_cli_on_jax_and_port_checkpoints_on_card(tmp_path, monkeypatch):
+    """`cli.separate --checkpoint_path` at full width on the card, as the
+    smoke's checkpoint phase: a JAX-layout ``.msgpack`` and the port's
+    ``.pt`` of the same weights with no ``-c`` and a ``.pt`` d-vector (2
+    `lstm_fwd` each), a JAX-layout causal streaming file with
+    ``--streaming`` (1 a chunk), each file the bytes `separate_batch` or
+    `StreamingSeparator` writes for the same trees; the BiLSTM file with
+    ``--streaming`` refused before any launch."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import lstm_cuda
+
+    monkeypatch.setenv("VOICESPLIT_PALLAS_CONV", "0")
+    checks = []
+    monkeypatch.setattr(chip_smoke, "emit", lambda phase, **fields: checks.append(fields))
+    launches = chip_smoke.phase_checkpoint(torch, lstm_cuda, 0, tmp_path)
+    calls = checks[0]["calls"]
+    chunks = checks[0]["streaming_chunks"]
+    assert launches["lstm_fwd"] == 2 + 2 + chunks and launches["bilstm_fwd"] == 0
+    assert all(c["same_bytes_as_direct"] for k, c in calls.items() if k != "bilstm_streaming_refused")
+    assert calls["bilstm_streaming_refused"]["launches"]["lstm_fwd"] == 0

@@ -9,8 +9,11 @@ weights inside, plus a JSON manifest beside it.
         --output chunk.pt2 --streaming [--chunk_frames 50] [--batch_size 1]
 
 ``--checkpoint_path`` is the port's ``checkpoint_<step>.pt`` or the JAX
-package's ``checkpoint_<step>.msgpack`` (as `cli.test` reads them); with
-``--streaming`` a streaming checkpoint (`cli.convert_streaming`).
+package's ``checkpoint_<step>.msgpack``, both read by `cli.test.load_weights`
+and held to the model's shapes first; with ``--streaming`` a streaming
+checkpoint of either package (its ``cli.convert_streaming`` writes one), and
+a BiLSTM checkpoint raises ``ValueError``.  The config is the checkpoint's
+own unless ``-c`` names one.
 ``--platforms`` names the devices the program is exported for (default: the
 CUDA card); each gets its own file (``sep.cuda.pt2``, ``sep.cpu.pt2`` for
 two) and the manifest ``<output>.json`` lists them.  A server loads one with
@@ -48,21 +51,13 @@ def main(argv=None):
     )
 
     platforms = args.platforms.split(",") if args.platforms else None
+    config, variables = load_weights(args.checkpoint_path, args.config_path, args.streaming)
     if args.streaming:
-        from voicesplit_tpu_torch.config import load_config
-        from voicesplit_tpu_torch.train.checkpoint import (
-            config_from_checkpoint, load_model_variables,
-        )
-
-        config = (load_config(args.config_path) if args.config_path
-                  else config_from_checkpoint(args.checkpoint_path))
-        variables = load_model_variables(config, args.checkpoint_path, streaming=True)
         data, manifest = export_streaming(
             config, variables, chunk_frames=args.chunk_frames,
             batch_size=args.batch_size, platforms=platforms,
         )
     else:
-        config, variables = load_weights(args.checkpoint_path, args.config_path)
         data = export_separator(
             config, variables, seconds=args.seconds, platforms=platforms,
             symbolic_batch=args.fixed_batch is None, batch_size=args.fixed_batch or 1,

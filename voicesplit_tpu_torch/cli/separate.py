@@ -1,11 +1,23 @@
 """Inference CLI: separate a target voice out of a mixture wav (PyTorch
-counterpart of `voicesplit_tpu/cli/separate.py`).
+counterpart of `voicesplit_tpu/cli/separate.py`, whose command line it takes
+unchanged, plus ``--device``).
 
-    python -m voicesplit_tpu_torch.cli.separate -c configs/voicesplit.json \
-        --weights weights.pt --mixed_wav mix.wav (--emb emb.npy | \
-        --reference_wav ref.wav --encoder_checkpoint embedder.pt) \
-        --output out.wav [--streaming [--chunk_frames N]] [--sequence_parallel] \
+    python -m voicesplit_tpu_torch.cli.separate --checkpoint_path best.msgpack \
+        --mixed_wav mix.wav (--emb emb.npy | --reference_wav ref.wav \
+        --encoder_checkpoint embedder.pt) --output out.wav \
+        [-c config.json] [--streaming [--chunk_frames N]] [--sequence_parallel] \
         [--griffin_lim] [--device cuda|cpu]
+
+``--checkpoint_path`` is the JAX package's ``checkpoint_<step>.msgpack`` or
+the port's ``checkpoint_<step>.pt`` (of its trainer, `cli.import_torch` or
+`cli.convert_streaming`), told apart by the suffix; the config is the one
+embedded in the checkpoint unless ``-c`` names one.  ``--weights`` instead
+takes a file written by `voicesplit_tpu_torch.weights.save` (which needs
+``-c``) or a ``checkpoint_<step>.pt``; one of the two is required.  Every
+checkpoint is held to the model's names and shapes before it is loaded, so a
+BiLSTM checkpoint given with ``--streaming`` raises ``ValueError``.
+``--emb`` is a d-vector as ``.npy`` or ``.pt`` (the reference's
+``*-emb.pt``).
 
 Spectrogram of the mixture → mask network → ``mask * spec`` → iSTFT with
 the mixture phase (reference eval behavior, `utils/generic_utils.py:504`);
@@ -15,10 +27,8 @@ the utterance's time axis sharded over the ranks of a started process group,
 a world of one (the whole utterance on the card) without one.
 ``--streaming`` runs the chunked low-latency engine (`streaming.py`) over the
 streaming model (forward-only LSTM; causal convs where the config says so),
-whose weights come from a streaming checkpoint, e.g. one written by
-`cli.convert_streaming`.
-``--weights`` is a file written by `voicesplit_tpu_torch.weights.save` or a
-``checkpoint_<step>.pt`` of the port's trainer (or of `cli.import_torch`).
+whose weights come from a streaming checkpoint, e.g. one written by either
+package's `cli.convert_streaming`.
 ``--reference_wav`` takes the d-vector from a clip of the target speaker
 instead of ``--emb``: the GE2E encoder of ``--encoder_checkpoint`` (the
 reference's ``embedder.pt``, or the port's / JAX CLI's encoder checkpoint) on
@@ -53,44 +63,58 @@ def separate_batch(
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Targeted voice separation (PyTorch)")
-    parser.add_argument("-c", "--config_path", type=str, required=True)
-    parser.add_argument("--weights", type=str, required=True,
-                        help="the port's .pt weights, or a trainer's checkpoint_<step>.pt")
+    weights_from = parser.add_mutually_exclusive_group(required=True)
+    weights_from.add_argument("--checkpoint_path", type=str,
+                              help="a JAX checkpoint_<step>.msgpack or a port checkpoint_<step>.pt")
+    weights_from.add_argument("--weights", type=str,
+                              help="the port's .pt weights (with -c), or a checkpoint_<step>.pt")
+    parser.add_argument("-c", "--config_path", type=str, default=None,
+                        help="default: the config embedded in the checkpoint")
     parser.add_argument("--mixed_wav", type=str, required=True)
-    parser.add_argument("--emb", type=str, default=None, help="*.npy d-vector")
+    parser.add_argument("--emb", type=str, default=None, help="*.npy / *.pt d-vector")
     parser.add_argument("--reference_wav", type=str, default=None,
                         help="take the d-vector from this clip of the target speaker instead")
     parser.add_argument("--encoder_checkpoint", type=str, default=None,
                         help="with --reference_wav: the GE2E encoder's checkpoint")
     parser.add_argument("--output", type=str, required=True)
-    parser.add_argument("--device", type=str, default=None, help="cuda (default) or cpu")
     parser.add_argument("--streaming", action="store_true")
     parser.add_argument("--chunk_frames", type=int, default=50)
+    parser.add_argument("--griffin_lim", action="store_true")
     parser.add_argument("--sequence_parallel", action="store_true",
                         help="shard the time axis over the process group's ranks "
                              "(long-form inference, parallel/sequence.py)")
-    parser.add_argument("--griffin_lim", action="store_true")
+    parser.add_argument("--device", type=str, default=None, help="cuda (default) or cpu")
     args = parser.parse_args(argv)
+
+    from voicesplit_tpu_torch.train.checkpoint import is_checkpoint_name
+
+    checkpoint = args.checkpoint_path or (args.weights if is_checkpoint_name(args.weights) else None)
+    if checkpoint is None and not args.config_path:
+        parser.error("--weights with a weights file (not a checkpoint_<step>.pt) "
+                     "needs -c/--config_path")
     if not args.emb and not args.reference_wav:
         raise SystemExit("provide --emb or --reference_wav")
     if not args.emb and not args.encoder_checkpoint:
         raise SystemExit("--reference_wav requires --encoder_checkpoint")
 
     from voicesplit_tpu_torch import weights
+    from voicesplit_tpu_torch.cli.test import load_weights
     from voicesplit_tpu_torch.config import load_config
+    from voicesplit_tpu_torch.data.dataset import _load_array
     from voicesplit_tpu_torch.dsp.processor import make_audio_processor
     from voicesplit_tpu_torch.models.masknet import make_masknet
-    from voicesplit_tpu_torch.train.checkpoint import is_checkpoint_name, load_model_variables
 
-    config = load_config(args.config_path)
-    ap = make_audio_processor(config, device=args.device)
-    model = make_masknet(config, streaming=args.streaming, device=args.device)
-    if is_checkpoint_name(args.weights):
-        model.load_state_dict(load_model_variables(config, args.weights, args.streaming))
+    if checkpoint is None:
+        config = load_config(args.config_path)
+        model = weights.load(make_masknet(config, streaming=args.streaming, device=args.device),
+                             args.weights)
     else:
-        weights.load(model, args.weights)
+        config, sd = load_weights(checkpoint, args.config_path, args.streaming)
+        model = make_masknet(config, streaming=args.streaming, device=args.device)
+        model.load_state_dict(sd)
+    ap = make_audio_processor(config, device=args.device)
     if args.emb:
-        emb = np.load(args.emb).astype(np.float32).reshape(1, -1)
+        emb = np.asarray(_load_array(args.emb), np.float32).reshape(1, -1)
     else:
         from voicesplit_tpu_torch.train.encoder import embed_reference, load_ge2e_encoder
 

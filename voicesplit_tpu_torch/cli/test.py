@@ -5,11 +5,12 @@
         [-c config.json] [--test_dir dir] [--no_sdr] [--device cuda|cpu]
 
 ``--checkpoint_path`` is the port's ``checkpoint_<step>.pt`` or the JAX
-package's ``checkpoint_<step>.msgpack`` (read by
-`train.checkpoint.load_jax_checkpoint`, carried by `weights.py`).  The
-config defaults to the one embedded in the checkpoint (reference
-`test.py:85-89`).  Prints one JSON line: mean loss, SI-SNR, SDR, SI-SNRi.
-The device is the CUDA card unless ``--device cpu`` is given.
+package's ``checkpoint_<step>.msgpack``, told apart by the suffix and read
+by `train.checkpoint.read_model_checkpoint` (`load_weights`), which holds
+either to the model's shapes before loading.  The config defaults to the
+one embedded in the checkpoint (reference `test.py:85-89`).  Prints one
+JSON line: mean loss, SI-SNR, SDR, SI-SNRi.  The device is the CUDA card
+unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -18,21 +19,17 @@ import argparse
 import json
 
 
-def load_weights(checkpoint_path: str, config_path=None):
+def load_weights(checkpoint_path: str, config_path=None, streaming: bool = False):
     """The config (from `config_path`, else the checkpoint's own) and the
-    model's ``state_dict`` from a port or JAX checkpoint."""
-    from voicesplit_tpu_torch import weights
+    ``state_dict`` of its model (the streaming one with `streaming`) from a
+    port ``.pt`` or JAX ``.msgpack`` checkpoint, read once and held to the
+    model's names and shapes before anything is loaded."""
     from voicesplit_tpu_torch.config import load_config, load_config_from_str
-    from voicesplit_tpu_torch.train.checkpoint import (
-        config_from_checkpoint, load_jax_checkpoint, load_model_variables,
-    )
+    from voicesplit_tpu_torch.train.checkpoint import check_model_variables, read_model_checkpoint
 
-    if checkpoint_path.endswith(".msgpack"):
-        payload = load_jax_checkpoint(checkpoint_path)
-        config = load_config(config_path) if config_path else load_config_from_str(payload["config_str"])
-        return config, weights.state_dict_from_jax(payload["params"], payload["batch_stats"])
-    config = load_config(config_path) if config_path else config_from_checkpoint(checkpoint_path)
-    return config, load_model_variables(config, checkpoint_path)
+    sd, config_str = read_model_checkpoint(checkpoint_path)
+    config = load_config(config_path) if config_path else load_config_from_str(config_str)
+    return config, check_model_variables(config, sd, checkpoint_path, streaming)
 
 
 def main(argv=None):

@@ -23,6 +23,12 @@ into the port; `read_msgpack` reads any such file (the speaker encoder's
 ``encoder_<step>.msgpack`` too).  It decodes flax's msgpack extension types
 itself and needs the ``msgpack`` package, nothing of JAX or flax.
 
+`config_from_checkpoint` and `load_model_variables` take either format,
+chosen by the file's suffix: a port ``checkpoint_<step>.pt`` or a JAX
+``checkpoint_<step>.msgpack``; both are held to the model's names and
+shapes before anything is loaded, as the JAX package's loader holds its
+own files.
+
 `bilstm_to_streaming_sd` and `convert_bilstm_checkpoint_to_streaming` seed
 the streaming model (forward-only LSTM, `MaskNet(streaming=True)`) from an
 offline BiLSTM checkpoint of either package.
@@ -197,9 +203,24 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def read_model_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], str]:
+    """The model's ``state_dict`` (parameters and running statistics) and the
+    embedded config string of a checkpoint: the JAX package's
+    ``checkpoint_<step>.msgpack`` where `path` ends so (carried by
+    `weights.state_dict_from_jax`), else the port's ``checkpoint_<step>.pt``."""
+    if path.endswith(".msgpack"):
+        from voicesplit_tpu_torch.weights import state_dict_from_jax
+
+        payload = load_jax_checkpoint(path)
+        return state_dict_from_jax(payload["params"], payload["batch_stats"]), payload["config_str"]
+    payload = load_checkpoint(path)
+    return {**payload["model"], **payload["batch_stats"]}, payload["config_str"]
+
+
 def config_from_checkpoint(path: str) -> Config:
-    """Recover the embedded config (reference `test.py:87-89`)."""
-    return load_config_from_str(load_checkpoint(path)["config_str"])
+    """Recover the embedded config of either format (reference
+    `test.py:87-89`)."""
+    return load_config_from_str(read_model_checkpoint(path)[1])
 
 
 def _shape_mismatches(loaded: Mapping[str, torch.Tensor], model: nn.Module) -> List[str]:
@@ -214,23 +235,32 @@ def _shape_mismatches(loaded: Mapping[str, torch.Tensor], model: nn.Module) -> L
     return bad
 
 
-def load_model_variables(
-    config: Config, checkpoint_path: str, streaming: bool = False
+def check_model_variables(
+    config: Config, sd: Dict[str, torch.Tensor], checkpoint_path: str, streaming: bool = False
 ) -> Dict[str, torch.Tensor]:
-    """Inference-ready ``state_dict`` (parameters and running statistics) of
-    the config's model (the streaming one with `streaming`) from a trainer
-    checkpoint; raises where the checkpoint does not fit the model, before
-    anything is loaded."""
+    """`sd`, once its names and shapes are those of the config's model (the
+    streaming one with `streaming`); a ``ValueError`` naming every misfit
+    otherwise."""
     from voicesplit_tpu_torch.models.masknet import make_masknet
 
-    payload = load_checkpoint(checkpoint_path)
-    sd = {**payload["model"], **payload["batch_stats"]}
     bad = _shape_mismatches(sd, make_masknet(config, streaming=streaming, device="meta"))
     if bad:
         raise ValueError(
             f"checkpoint {checkpoint_path!r} does not fit the "
             f"{'streaming ' if streaming else ''}model: " + "; ".join(bad))
     return sd
+
+
+def load_model_variables(
+    config: Config, checkpoint_path: str, streaming: bool = False
+) -> Dict[str, torch.Tensor]:
+    """Inference-ready ``state_dict`` (parameters and running statistics) of
+    the config's model (the streaming one with `streaming`) from a port or
+    JAX checkpoint (`read_model_checkpoint`); raises where the checkpoint
+    does not fit the model (a BiLSTM checkpoint given with `streaming`,
+    say), before anything is loaded."""
+    sd = read_model_checkpoint(checkpoint_path)[0]
+    return check_model_variables(config, sd, checkpoint_path, streaming)
 
 
 def restore_train_state(
@@ -312,15 +342,9 @@ def convert_bilstm_checkpoint_to_streaming(
     `device` (the CUDA card unless the CPU is named).  Returns the path."""
     from voicesplit_tpu_torch.models.masknet import make_masknet
     from voicesplit_tpu_torch.train.state import create_train_state, make_optimizer
-    from voicesplit_tpu_torch.weights import state_dict_from_jax
 
-    if ckpt_path.endswith(".msgpack"):
-        payload = load_jax_checkpoint(ckpt_path)
-        sd = state_dict_from_jax(payload["params"], payload["batch_stats"])
-    else:
-        payload = load_checkpoint(ckpt_path)
-        sd = {**payload["model"], **payload["batch_stats"]}
-    config = load_config_from_str(payload["config_str"])
+    sd, config_str = read_model_checkpoint(ckpt_path)
+    config = load_config_from_str(config_str)
     config.model.causal = True if causal is None else causal
     model = make_masknet(config, streaming=True, device=device)
     sd = bilstm_to_streaming_sd(sd, config.model.lstm_dim)

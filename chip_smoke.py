@@ -88,6 +88,22 @@ Phases, each printing one JSON line:
    all six layers (``conv_bn_act_fwd`` and ``conv_wgrad`` with their
    prologue pass inside their time, and the pass on its own), with each
    kernel's sum over them per train step.
+6b. prologue — the BatchNorm-backward prologue branches of the chain's
+   data- and weight-gradient kernels, which no path takes (`make_chain`
+   draws d_raw with eager passes): the d_raw pass ``conv_draw_prologue``,
+   ``conv_dgrad(..., prologue=True)`` and ``conv_wgrad(...,
+   rhs_prologue=True)`` (its input prologue on too, but on the (7,1) layer)
+   against their plain versions (CONV_TOL, the same bits twice, each branch
+   the bits of the pass then the prologue-free kernel) in bf16 at
+   ``[2 | 8, 301, 601, 64]`` on every layer of the conv kernels phase, at
+   ``C`` = PROLOGUE_CHANNELS on PROLOGUE_WIDE_LAYERS, with relu once, and in
+   fp32 at the reduced shape; against the chain's eager route (the d_raw of
+   `_materialize_draw` from `_stage1`'s dz and x̂, then the prologue-free
+   kernels; PROLOGUE_VS_EAGER_TOL); then times per layer the pass, each
+   branch, each kernel alone, the plain versions, the eager draw and
+   `_stage1`, and the library routes the port never calls (the eager draw
+   and cuDNN's data or weight gradient) beside ``draw_bound`` and
+   ``branch_bound``, and prints the phase's launches.
 7. train fused — the train phase again with ``VOICESPLIT_FUSED_CHAIN=1``
    (conv2 … conv7 through the chain's kernels): exact launches per step
    (6 + 6 + 6 conv kernels and 10 prologue passes beside the LSTM's), the same step again
@@ -315,7 +331,7 @@ non-zero without a card, or without the rest of the repository beside it.
 trace of the serving runs and the train steps into DIR and reports the
 device's idle share under the profiler and the device time by kind of
 kernel.  ``--phases`` runs a subset (of kernels, bwd_kernels, separate,
-train, conv_kernels, train_fused, dilated_kernels, separate_dilated,
+train, conv_kernels, prologue, train_fused, dilated_kernels, separate_dilated,
 trainer, separate_wide, train_wide, evaluate, preprocess, trainer_online, dsp,
 streaming, train_streaming, encoder, voicefilter, reference, import,
 distributed, long, export, model_parallel, remat, channels, checkpoint; device
@@ -412,8 +428,39 @@ WIDE_CONV_LAYERS = {"5x5-d32": ((5, 5), 32)}
 ALL_CONV_LAYERS = {**CONV_LAYERS, **WIDE_CONV_LAYERS}
 CONV_KERNELS = ("conv_bn_act_fwd", "conv_dgrad", "conv_wgrad")
 # per train step; the prologue pass runs for conv3 … conv7 twice, before
-# conv_bn_act_fwd and before conv_wgrad
-CONV_LAUNCHES = {"conv_bn_act_fwd": 6, "conv_dgrad": 6, "conv_wgrad": 6, "conv_wgrad_prologue": 10}
+# conv_bn_act_fwd and before conv_wgrad; the chain draws d_raw with eager
+# passes and takes no d_raw pass
+CONV_LAUNCHES = {"conv_bn_act_fwd": 6, "conv_dgrad": 6, "conv_wgrad": 6, "conv_wgrad_prologue": 10,
+                 "conv_draw_prologue": 0}
+# The chain's BatchNorm-backward prologue branches, `conv_dgrad(...,
+# prologue=True)` and `conv_wgrad(..., rhs_prologue=True)` (the d_raw pass
+# `conv_draw_prologue`, then the prologue-free kernel): bf16 at every layer
+# the conv kernels phase times (B=2 and B=8, the wide block at B=2), at
+# PROLOGUE_CHANNELS on PROLOGUE_WIDE_LAYERS (B=2) and with relu once; fp32 at
+# the reduced shape on PROLOGUE_FP32_LAYERS (relu).  Against their plain
+# versions with CONV_TOL: the pass rounds an fp32 draw once ("out": an
+# element may round the other way), the branches' dx and dbias as
+# `conv_dgrad`'s, dW as `conv_wgrad`'s.
+PROLOGUE_CHANNELS = 128
+PROLOGUE_WIDE_LAYERS = ("7x1", "5x5-d1", "5x5-d16")
+PROLOGUE_FP32_LAYERS = ("7x1", "5x5-d2")
+# the branches against the chain's eager route, which draws d_raw in the
+# compute dtype (bf16: every step of z, act', dz, x̂ and d_raw rounded, the
+# table's rows too) where the branches draw in fp32 and round once.  d_raw is
+# held by direction: a z near 0 whose bf16 rounding changes sign moves relu'
+# from 0 to 1, a whole dy·inv (measured on an H100: cosine >= 0.99977, peak
+# 0.50 with relu, 0.029 with mish); dx also by size relative to its peak
+# (<= 0.089).  dbias, whose per-channel sum of d_raw nearly cancels
+# (inv·(Σdz − n·mean(dz) − mean(dz·x̂)·Σx̂)), relative to the sum of |d_raw|
+# it cancels from (<= 1.5e-3); dW carries that difference through the
+# input's mean (an activated input has one): cosine >= 0.955, peak 0.26
+# (0.007 on the (7,1) layer, whose input is not activated here)
+PROLOGUE_VS_EAGER_TOL = {"d_raw_cosine_min": 0.999, "dx": 0.2, "dx_cosine_min": 0.999,
+                         "dbias_rel_to_abs_sum": 5e-3, "dw": 0.5, "dw_cosine_min": 0.9}
+# fp32 operations a d_raw element: z (2), act' (mish: min, exp, 5 additions
+# or subtractions, 4 products, 2 divisions; relu: 1 comparison), dz (1),
+# x̂ (2), d_raw (4)
+DRAW_OPS = {"mish": 22, "relu": 10}
 # fused step, kernels vs the plain versions on the card (same arithmetic).
 # The BatchNorm backward between two convs works in bf16, as in the JAX
 # package: its per-channel constants (mean, r, mean dz, mean dz·x̂) are
@@ -564,6 +611,9 @@ REPLACES = {
     "conv_wgrad": "voicesplit_tpu/ops/conv_fused.py:524",
     "conv_dilated_fwd": "voicesplit_tpu/ops/conv_pallas.py:95",
     "conv_dilated_wgrad": "voicesplit_tpu/ops/conv_pallas.py:234",
+    # the BatchNorm-backward prologue of _dgrad_kernel (prologue=True) and
+    # _wgrad_kernel (rhs_prologue=True)
+    "conv_draw_prologue": "voicesplit_tpu/ops/conv_fused.py:221",
 }
 SOURCES = {
     "lstm_fwd": "voicesplit_tpu_torch/csrc/lstm_fwd.cu",
@@ -583,13 +633,16 @@ SOURCES = {
     "conv_wgrad": "voicesplit_tpu_torch/csrc/conv_wgrad.cu",
     "conv_dilated_fwd": "voicesplit_tpu_torch/csrc/conv_fwd.cu",
     "conv_dilated_wgrad": "voicesplit_tpu_torch/csrc/conv_wgrad.cu",
+    "conv_draw_prologue": "voicesplit_tpu_torch/csrc/conv_wgrad.cu",
 }
 # kernels that the paths do not launch (the `kernels` line lists them with
 # "main_path": false): the two-direction grid routes, which only fp32 takes
 # at H=800, and the two-direction backward at H=800 (B=8; the wide config
 # trains at B=2), checked and timed in the kernels phases.  The
-# one-direction grid routes are the GE2E encoder's (fp32, H=768).
-OFF_PATH = ("bilstm_fwd_grid", "bilstm_bwd_grid", "bilstm_bwd_split")
+# one-direction grid routes are the GE2E encoder's (fp32, H=768).  The d_raw
+# pass of the chain's prologue branches: `make_chain` takes neither branch,
+# so it runs only from the ops entries (the prologue phase).
+OFF_PATH = ("bilstm_fwd_grid", "bilstm_bwd_grid", "bilstm_bwd_split", "conv_draw_prologue")
 
 
 REPORTS: dict = {}  # each phase's printed fields, by phase name
@@ -787,6 +840,7 @@ def phase_build(torch, lstm_cuda, conv_fused) -> None:
             check(gr["local_bytes"] == 0, f"{key}: {gr['local_bytes']} local (spilled) bytes a thread")
     emit("build", library=str(lib.relative_to(ROOT)), seconds=seconds,
          ptxas_lstm=ptxas_summary(log, "lstm"), ptxas_conv=ptxas_summary(log, "conv"),
+         ptxas_passes=ptxas_summary(log, "prologue_kernel"),
          grids=grids)
 
 
@@ -1298,6 +1352,33 @@ def conv_bound(kind: str, shape, kt: int, kf: int, dt: int, dtype: str,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def draw_bound(shape, dtype: str, act: str) -> dict:
+    """Least time for the d_raw pass: dy and x read once, d_raw written once
+    (and its table's six [C] rows read once) at the memory rate, against
+    DRAW_OPS fp32 operations an element at the fp32 rate."""
+    n, C = int(np.prod(shape)), shape[-1]
+    bytes_ = 3 * n * (2 if dtype == "bfloat16" else 4) + 6 * C * 4
+    flops = n * DRAW_OPS[act]
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    return {"bytes": bytes_, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def branch_bound(kind: str, shape, kt: int, kf: int, dt: int, act: str) -> dict:
+    """Least time for a prologue branch as one function (bf16): the conv
+    kernel's bytes (`conv_bound`, dy in d_raw's place) plus the raw x and its
+    table's rows, d_raw being no tensor of its own; its products at the bf16
+    rate and the draw's DRAW_OPS at the fp32 rate, one after the other."""
+    conv = conv_bound(kind, shape, kt, kf, dt, "bfloat16")
+    draw = draw_bound(shape, "bfloat16", act)
+    bytes_ = conv["bytes"] + int(np.prod(shape)) * 2 + 6 * shape[-1] * 4
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = (conv["flops"] / PEAK_FLOPS["bfloat16"] + draw["flops"] / PEAK_FLOPS["float32"]) * 1e3
+    return {"bytes": bytes_, "flops": conv["flops"] + draw["flops"], "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def _timed_conv_layers() -> list:
     """The (batch, layer) pairs the conv phases time: conv2 … conv7's six
     layer kinds at B=2 and B=8, and the wide config's extra block (time
@@ -1562,6 +1643,221 @@ def phase_conv_kernels(torch, cf, cc, seed: int) -> dict:
                "timed_at": head, "ms_by_batch_and_layer": {k: v["ms"] for k, v in timing[name].items()}}
         for name in CONV_KERNELS
     }
+
+
+def _prologue_inputs(torch, cf, shape, dtype, act: str, g) -> dict:
+    """One shape's operands of the prologue branches on the card, from the
+    card generator `g`: the layer's input ``x_in`` and its input prologue's
+    BatchNorm (``bn_lhs``, table ``scal_lhs``), the cotangent ``dy`` of the
+    layer's activated output, the raw conv output ``raw`` drawn with the
+    statistics of a BatchNorm ``bn``, and the chain's route to d_raw:
+    `_stage1`'s sums (in ``scal``'s rows 4 and 5, as the chain fills them),
+    dz and x̂."""
+    dev, C = torch.device("cuda"), shape[-1]
+
+    def affine():
+        return (0.2 * torch.randn(C, device=dev, generator=g),
+                0.5 + 1.5 * torch.rand(C, device=dev, generator=g),
+                0.5 + torch.rand(C, device=dev, generator=g),
+                0.1 * torch.randn(C, device=dev, generator=g))
+
+    bn, bn_lhs = affine(), affine()
+    x_in = torch.randn(shape, device=dev, generator=g).to(dtype)
+    dy = (0.1 * torch.randn(shape, device=dev, generator=g)).to(dtype)
+    raw = (bn[0] + bn[1].sqrt() * torch.randn(shape, device=dev, generator=g)).to(dtype)
+    fwd = cf._scal_table(*bn)
+    s_dz, s_dzx, dz, xhat = cf._stage1(dy, raw, fwd, act)
+    n = shape[0] * shape[1] * shape[2]
+    return {"x_in": x_in, "dy": dy, "raw": raw, "bn": bn, "bn_lhs": bn_lhs,
+            "scal": cf._scal_table(*bn, mean_dz=s_dz / n, mean_dzx=s_dzx / n),
+            "scal_lhs": cf._scal_table(*bn_lhs), "dz": dz, "xhat": xhat}
+
+
+def _check_prologue_case(torch, cf, case, inp, w, dt: int, act: str, lhs: bool, dtype_name) -> dict:
+    """The d_raw pass and both branches on one layer against their plain
+    versions (CONV_TOL; the same bits twice; each branch the bits of the pass
+    followed by the prologue-free kernel), and the branches against the
+    chain's eager route (`_materialize_draw` of `_stage1`'s dz and x̂, then
+    the prologue-free kernels), which draws in the compute dtype."""
+    kt, kf = w.shape[:2]
+    tol = CONV_TOL[dtype_name]
+    dy, raw, scal, x_in, scal_lhs = inp["dy"], inp["raw"], inp["scal"], inp["x_in"], inp["scal_lhs"]
+    wf = cf.pack_weight_flipped(w, dy.dtype)
+    act_prev = "mish" if lhs else None
+    draw = dict(x=raw, scal=scal, act=act, prologue=True)
+    rhs = dict(x_rhs=raw, scal_rhs=scal, act_rhs=act, rhs_prologue=True)
+    report = {}
+    with torch.inference_mode():
+        runs = {
+            "conv_draw_prologue": (lambda: (cf.conv_draw_prologue(dy, raw, scal, act),),
+                                   lambda: (cf.conv_draw_prologue_ref(dy, raw, scal, act),),
+                                   ("out",)),
+            "dgrad_branch": (lambda: cf.conv_dgrad(dy, wf, dt, **draw),
+                             lambda: cf.conv_dgrad_ref(dy, wf, dt, **draw), ("out", "sums")),
+            "wgrad_branch": (lambda: (cf.conv_wgrad(x_in, dy, scal_lhs, kt, kf, dt, act_prev, lhs, **rhs),),
+                             lambda: (cf.conv_wgrad_ref(x_in, dy, scal_lhs, kt, kf, dt, act_prev, lhs, **rhs),),
+                             ("dw",)),
+        }
+        outs = {}
+        for name, (kernel, plain, kinds) in runs.items():
+            got, again, want = kernel(), kernel(), plain()
+            torch.cuda.synchronize()
+            errs = {k: _peak_rel(a, b) for k, a, b in zip(kinds, got, want)}
+            for k, v in errs.items():
+                check(np.isfinite(v) and v <= tol[k], f"{name} {case}: {k} error {v} > {tol[k]}")
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{name} {case}: two launches on the same inputs differ")
+            report[name] = {"errors": errs, "abs_err": (got[0].float() - want[0].float()).abs().max().item(),
+                            "share_of_elements_that_differ": (got[0] != want[0]).float().mean().item()}
+            outs[name] = got
+        d_raw = outs["conv_draw_prologue"][0]
+        split_dgrad = cf.conv_dgrad(d_raw, wf, dt)
+        split_wgrad = cf.conv_wgrad(x_in, d_raw, scal_lhs, kt, kf, dt, act_prev, lhs)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(outs["dgrad_branch"], split_dgrad)),
+              f"dgrad_branch {case}: not the bits of conv_dgrad on the pass's output")
+        check(torch.equal(outs["wgrad_branch"][0], split_wgrad),
+              f"wgrad_branch {case}: not the bits of conv_wgrad on the pass's output")
+        # the chain's eager route to d_raw, then the same prologue-free kernels
+        d_eager = cf._materialize_draw(inp["dz"], inp["xhat"], scal).contiguous()
+        dx_e, db_e = cf.conv_dgrad(d_eager, wf, dt)
+        dw_e = cf.conv_wgrad(x_in, d_eager, scal_lhs, kt, kf, dt, act_prev, lhs)
+        pairs = {"d_raw": (d_raw, d_eager), "dx": (outs["dgrad_branch"][0], dx_e),
+                 "dbias": (outs["dgrad_branch"][1], db_e), "dw": (outs["wgrad_branch"][0], dw_e)}
+        report["vs_eager_route"] = {
+            k: {"peak_rel": _peak_rel(a, b),
+                "cosine": torch.nn.functional.cosine_similarity(
+                    a.float().flatten(), b.float().flatten(), dim=0).item()}
+            for k, (a, b) in pairs.items()}
+        # dbias against the sum of |d_raw| it cancels down from, per channel
+        abs_sum = d_raw.float().abs().sum(dim=(0, 1, 2)).max()
+        report["vs_eager_route"]["dbias"]["rel_to_abs_sum"] = (
+            (outs["dgrad_branch"][1] - db_e).abs().max() / abs_sum).item()
+    return report
+
+
+def _prologue_times(torch, cf, inp, w, dt: int, act: str, lhs: bool, iters: int) -> dict:
+    """bf16, one layer: the d_raw pass alone, each branch (pass + kernel), the
+    prologue-free kernel alone, the plain versions, the chain's eager draw
+    (dz, x̂ and `_materialize_draw`: the pass's inputs and output) and its
+    `_stage1` (which also takes the sums), and the library routes the port
+    never calls (the eager draw, then cuDNN's data or weight gradient,
+    ``aten.convolution_backward``, on channels-last bf16; the weight
+    gradient's input through the eager BN + activation where the chain has
+    an input prologue), beside the bounds."""
+    from voicesplit_tpu_torch.ops import bn_act
+
+    kt, kf = w.shape[:2]
+    shape = tuple(inp["dy"].shape)
+    dy, raw, scal, x_in, scal_lhs = inp["dy"], inp["raw"], inp["scal"], inp["x_in"], inp["scal_lhs"]
+    wf = cf.pack_weight_flipped(w, dy.dtype)
+    act_prev = "mish" if lhs else None
+    draw = dict(x=raw, scal=scal, act=act, prologue=True)
+    rhs = dict(x_rhs=raw, scal_rhs=scal, act_rhs=act, rhs_prologue=True)
+    pad = ((kt - 1) * dt // 2, (kf - 1) // 2)
+    x_nchw = x_in.permute(0, 3, 1, 2)
+    w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+    def eager_draw():
+        return cf._materialize_draw(*cf._dz_xhat(dy, raw, scal, act), scal)
+
+    def library(mask):
+        y = x_nchw
+        if lhs and mask[1]:
+            b = inp["bn_lhs"]
+            y = bn_act.bn_act_eval(x_nchw, b[2], b[3], b[0], b[1], act_prev)
+        return torch.ops.aten.convolution_backward(
+            eager_draw().permute(0, 3, 1, 2), y, w_oihw, None, (1, 1), pad, (dt, 1), False, (0, 0), 1,
+            mask)
+
+    with torch.inference_mode():
+        d_raw = cf.conv_draw_prologue(dy, raw, scal, act)
+
+        def t(fn, n=iters):
+            return time_ms(torch, fn, iters=n, warmup=1)
+
+        out = {
+            "pass_ms": t(lambda: cf.conv_draw_prologue(dy, raw, scal, act)),
+            "pass_plain_ms": t(lambda: cf.conv_draw_prologue_ref(dy, raw, scal, act), 2),
+            "eager_draw_ms": t(eager_draw),
+            "eager_stage1_ms": t(lambda: cf._stage1(dy, raw, scal, act)),
+            "dgrad_branch_ms": t(lambda: cf.conv_dgrad(dy, wf, dt, **draw)),
+            "dgrad_ms": t(lambda: cf.conv_dgrad(d_raw, wf, dt)),
+            "dgrad_branch_plain_ms": t(lambda: cf.conv_dgrad_ref(dy, wf, dt, **draw), 2),
+            "dgrad_library_route_ms": t(lambda: library((True, False, False))),
+            "wgrad_branch_ms": t(lambda: cf.conv_wgrad(x_in, dy, scal_lhs, kt, kf, dt, act_prev, lhs, **rhs)),
+            "wgrad_ms": t(lambda: cf.conv_wgrad(x_in, d_raw, scal_lhs, kt, kf, dt, act_prev, lhs)),
+            "wgrad_branch_plain_ms": t(
+                lambda: cf.conv_wgrad_ref(x_in, dy, scal_lhs, kt, kf, dt, act_prev, lhs, **rhs), 2),
+            "wgrad_library_route_ms": t(lambda: library((False, True, False))),
+        }
+    out["pass_bound"] = draw_bound(shape, "bfloat16", act)
+    out["dgrad_branch_bound"] = branch_bound("conv_dgrad", shape, kt, kf, dt, act)
+    out["wgrad_branch_bound"] = branch_bound("conv_wgrad", shape, kt, kf, dt, act)
+    return out
+
+
+def phase_prologue(torch, cf, seed: int) -> dict:
+    """The chain's BatchNorm-backward prologue branches on the card: the d_raw
+    pass and both branches against their plain versions and the chain's
+    eager route at every layer and shape of PROLOGUE_*, then their times;
+    the launches of the phase (all from the ops entries: no path takes the
+    branches)."""
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(seed + 22)
+    bf16_cases = [(b, layer, 64, "mish") for b, layer in _timed_conv_layers()]
+    bf16_cases += [(2, layer, PROLOGUE_CHANNELS, "mish") for layer in PROLOGUE_WIDE_LAYERS]
+    bf16_cases += [(2, "5x5-d1", 64, "relu")]
+    groups: dict = {}
+    for b, layer, C, act in bf16_cases:
+        groups.setdefault(((b, *CONV_SHAPE[1:-1], C), "bfloat16", act), []).append(layer)
+    groups[(CONV_SHAPE_FP32, "float32", "relu")] = list(PROLOGUE_FP32_LAYERS)
+    _reset_counts(torch, cf)
+    agreement, timing = {}, {}
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    for (shape, dtype_name, act), layers in groups.items():
+        dtype = getattr(torch, dtype_name)
+        inp = _prologue_inputs(torch, cf, shape, dtype, act, g)
+        for layer in layers:
+            (kt, kf), dt = ALL_CONV_LAYERS[layer]
+            C = shape[-1]
+            w = (torch.randn(kt, kf, C, C, device="cuda", generator=g) * (kt * kf * C) ** -0.5).to(dtype)
+            lhs = layer != "7x1"  # the chain's first layer has no input prologue
+            case = f"B{shape[0]}/{layer}/C{C}/{act}/{dtype_name}"
+            agreement[case] = _check_prologue_case(torch, cf, case, inp, w, dt, act, lhs, dtype_name)
+            worst[dtype_name] = max(worst[dtype_name], agreement[case]["conv_draw_prologue"]["abs_err"])
+            if dtype_name == "bfloat16":
+                timing[case] = _prologue_times(torch, cf, inp, w, dt, act, lhs, 5 if shape[0] == 2 else 3)
+            del w
+        del inp
+        torch.cuda.empty_cache()
+    launches = _counts(torch, cf)
+    check(launches["conv_draw_prologue"] > 0, "the d_raw pass was not launched")
+    bf16_cases = [a["vs_eager_route"] for c, a in agreement.items() if c.endswith("bfloat16")]
+    worst_vs_eager = {k: max(a[k]["peak_rel"] for a in bf16_cases) for k in ("d_raw", "dx", "dbias", "dw")}
+    worst_vs_eager["dbias_rel_to_abs_sum"] = max(a["dbias"]["rel_to_abs_sum"] for a in bf16_cases)
+    min_cos_vs_eager = {k: min(a[k]["cosine"] for a in bf16_cases) for k in ("d_raw", "dx", "dbias", "dw")}
+    emit("prologue", tolerances_peak_rel=CONV_TOL, agreement=agreement,
+         vs_eager_route_tolerances=PROLOGUE_VS_EAGER_TOL,
+         vs_eager_route_worst_peak_rel=worst_vs_eager, vs_eager_route_min_cosine=min_cos_vs_eager,
+         times=timing, launches=launches, seconds=time.perf_counter() - t0)
+    tol = PROLOGUE_VS_EAGER_TOL
+    for k in ("d_raw", "dx", "dw"):
+        check(min_cos_vs_eager[k] >= tol[f"{k}_cosine_min"] and worst_vs_eager[k] <= tol.get(k, np.inf),
+              f"prologue branches vs the eager route: {k} {worst_vs_eager[k]}, cosine {min_cos_vs_eager[k]}")
+    check(worst_vs_eager["dbias_rel_to_abs_sum"] <= tol["dbias_rel_to_abs_sum"],
+          f"prologue branches vs the eager route: dbias {worst_vs_eager['dbias_rel_to_abs_sum']}")
+    head = "B2/5x5-d1/C64/mish/bfloat16"
+    r = timing[head]
+    return {"conv_draw_prologue": {
+        "bf16": {"max_abs_err": worst["bfloat16"], "ms": r["pass_ms"], "plain_ms": r["pass_plain_ms"]},
+        "fp32": {"max_abs_err": worst["float32"]},
+        "library_ms": None,  # no one PyTorch call draws d_raw
+        "bound_ms": r["pass_bound"]["bound_ms"], "bound_by": r["pass_bound"]["bound_by"],
+        "timed_at": head, "eager_draw_ms": r["eager_draw_ms"],
+        "ms_by_batch_and_layer": {k: v["pass_ms"] for k, v in timing.items()},
+        "launches_by_ops_entry": launches["conv_draw_prologue"],
+    }}
 
 
 def _chain_state(model, last: int = 7) -> tuple:
@@ -4586,6 +4882,9 @@ PORT_KERNEL_KINDS = (
     ("conv chain kernels", ("conv_bn_act_fwd_kernel", "conv_dgrad_kernel", "reduce_rows_kernel")),
     # the chain's BatchNorm + activation before conv_bn_act_fwd and conv_wgrad
     ("conv prologue passes", ("wgrad_prologue_kernel",)),
+    # the BatchNorm backward between two convs (d_raw) before conv_dgrad and
+    # conv_wgrad in their prologue branches
+    ("conv draw passes", ("draw_prologue_kernel",)),
     # the weight gradient of both conv paths
     ("conv weight-gradient kernels", ("conv_wgrad_kernel", "conv_wgrad_kf1_kernel",
                                       "reduce_taps_kernel")),
@@ -5211,7 +5510,7 @@ def profile(torch, out_dir, tag, fn, runs: int = 5) -> dict:
             "idle_share": 1.0 - kernel_ms / wall_ms, "ms_per_run_by_kind": split}
 
 
-PHASES = ("kernels", "bwd_kernels", "separate", "train", "conv_kernels", "train_fused",
+PHASES = ("kernels", "bwd_kernels", "separate", "train", "conv_kernels", "prologue", "train_fused",
           "dilated_kernels", "separate_dilated", "trainer", "separate_wide", "train_wide",
           "evaluate", "preprocess", "trainer_online", "dsp", "streaming", "train_streaming",
           "encoder", "voicefilter", "reference", "import", "distributed", "long", "export",
@@ -5253,6 +5552,8 @@ def main(argv=None) -> int:
         by_path["train"] = phase_train(torch, lstm_cuda, args.seed, args.profile)
     if "conv_kernels" in phases:
         kern.update(phase_conv_kernels(torch, conv_fused, conv_cuda, args.seed))
+    if "prologue" in phases:
+        kern.update(phase_prologue(torch, conv_fused, args.seed))
     if "train_fused" in phases:
         by_path["train_fused"] = phase_train_fused(
             torch, lstm_cuda, conv_fused, args.seed, args.profile)
@@ -5349,7 +5650,8 @@ def main(argv=None) -> int:
             "lstm_bwd_grid": "encoder", "bilstm_bwd_grid": "train_wide",
             "conv_bn_act_fwd": "train_fused", "conv_dgrad": "train_fused",
             "conv_wgrad": "train_fused",
-            "conv_dilated_fwd": "trainer", "conv_dilated_wgrad": "trainer"}
+            "conv_dilated_fwd": "trainer", "conv_dilated_wgrad": "trainer",
+            "conv_draw_prologue": "train_fused"}
     # each kernel's figures in the type its path runs (bf16), or, for a route
     # that only fp32 takes (the forward's grid route at GRID_HIDDEN), in fp32
     kernels = [
@@ -5363,7 +5665,7 @@ def main(argv=None) -> int:
             "ms": r.get("bf16", r.get("fp32"))["ms"], "plain_ms": r.get("bf16", r.get("fp32"))["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **{k: r[k] for k in ("timed_at", "ms_by_batch_and_layer", "row_groups", "dwhh_ms",
-                                 "dwhh_library_ms") if k in r},
+                                 "dwhh_library_ms", "eager_draw_ms", "launches_by_ops_entry") if k in r},
         }
         for name, r in kern.items()
     ]

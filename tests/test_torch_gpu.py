@@ -573,7 +573,8 @@ def test_conv_chain_kernels_match_plain_versions_on_card(layer, dtype):
     torch.cuda.synchronize()
     # the prologue pass runs before the forward and before the weight gradient
     assert cf.LAUNCHES == {**{k: v + 1 for k, v in before.items()},
-                           "conv_wgrad_prologue": before["conv_wgrad_prologue"] + 2}
+                           "conv_wgrad_prologue": before["conv_wgrad_prologue"] + 2,
+                           "conv_draw_prologue": before["conv_draw_prologue"]}
     # relative to each output's peak.  fp32: summation order only.  bf16:
     # raw and dx may round the other way once (one ulp is at most 2^-7 of
     # the peak); the sums and dW add exact products in another order
@@ -581,6 +582,61 @@ def test_conv_chain_kernels_match_plain_versions_on_card(layer, dtype):
     for a, b, tol in zip(got, want, tols):
         assert bool(torch.isfinite(a).all())
         assert (a.float() - b.float()).abs().max().item() <= tol * b.float().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [64, 128])
+def test_draw_pass_and_prologue_branches_match_plain_versions_on_card(C, dtype):
+    """The d_raw pass (`conv_draw_prologue`) and the BatchNorm-backward
+    prologue branches (`conv_dgrad(..., prologue=True)`, `conv_wgrad(...,
+    rhs_prologue=True)` with its input prologue on too) at a (5,5) layer:
+    bf16 at the full width ``[2, 301, 601, C]``, fp32 at `chip_smoke.py`'s
+    reduced shape; each against its plain version within
+    `chip_smoke.CONV_TOL` (relative to each output's peak), the same bits
+    twice, each branch the bits of the pass then the prologue-free kernel,
+    and one pass counted a branch."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import conv_fused as cf
+
+    (kt, kf), dil = CONV_LAYERS["5x5-d1"]
+    dt = getattr(torch, dtype)
+    shape = ((2, 301, 601) if dtype == "bfloat16" else chip_smoke.CONV_SHAPE_FP32[:3]) + (C,)
+    tol = chip_smoke.CONV_TOL[dtype]
+    g = torch.Generator(device="cuda").manual_seed(C)
+    x_in, dy, raw = (torch.randn(shape, device="cuda", generator=g).to(dt) for _ in range(3))
+    w = (torch.randn(kt, kf, C, C, device="cuda", generator=g) * (kt * kf * C) ** -0.5).to(dt)
+    wf = cf.pack_weight_flipped(w, dt)
+
+    def table(**sums):
+        return cf._scal_table(0.2 * torch.randn(C, device="cuda", generator=g),
+                              0.5 + torch.rand(C, device="cuda", generator=g),
+                              0.5 + torch.rand(C, device="cuda", generator=g),
+                              0.1 * torch.randn(C, device="cuda", generator=g), **sums)
+
+    scal = table(mean_dz=0.1 * torch.randn(C, device="cuda", generator=g),
+                 mean_dzx=0.1 * torch.randn(C, device="cuda", generator=g))
+    scal_lhs = table()
+    draw = dict(x=raw, scal=scal, act="mish", prologue=True)
+    rhs = dict(x_rhs=raw, scal_rhs=scal, act_rhs="relu", rhs_prologue=True)
+    before = dict(cf.LAUNCHES)
+    with torch.inference_mode():
+        d_raw = cf.conv_draw_prologue(dy, raw, scal, "mish")
+        dgrad = [cf.conv_dgrad(dy, wf, dil, **draw) for _ in range(2)]
+        wgrad = [cf.conv_wgrad(x_in, dy, scal_lhs, kt, kf, dil, "mish", True, **rhs) for _ in range(2)]
+        split = (*cf.conv_dgrad(d_raw, wf, dil),
+                 cf.conv_wgrad(x_in, cf.conv_draw_prologue(dy, raw, scal, "relu"), scal_lhs, kt, kf, dil,
+                               "mish", True))
+        torch.cuda.synchronize()
+        assert cf.LAUNCHES["conv_draw_prologue"] == before["conv_draw_prologue"] + 6
+        want = (cf.conv_draw_prologue_ref(dy, raw, scal, "mish"), *cf.conv_dgrad_ref(dy, wf, dil, **draw),
+                cf.conv_wgrad_ref(x_in, dy, scal_lhs, kt, kf, dil, "mish", True, **rhs))
+    got = (d_raw, *dgrad[0], wgrad[0])
+    for a, b, kind in zip(got, want, ("out", "out", "sums", "dw")):
+        assert bool(torch.isfinite(a).all())
+        assert (a.float() - b.float()).abs().max().item() <= tol[kind] * b.float().abs().max().item(), kind
+    assert all(torch.equal(a, b) for a, b in zip(dgrad[0], dgrad[1])) and torch.equal(*wgrad)
+    assert all(torch.equal(a, b) for a, b in zip((*dgrad[0], wgrad[0]), split))
 
 
 @pytest.mark.gpu
@@ -782,7 +838,7 @@ def test_fused_train_step_runs_through_the_conv_kernels_on_card(monkeypatch):
     m = make_train_step(cfg, model, ap, opt)(state, batch)
     torch.cuda.synchronize()
     assert conv_fused.LAUNCHES == {"conv_bn_act_fwd": 6, "conv_dgrad": 6, "conv_wgrad": 6,
-                                   "conv_wgrad_prologue": 10}
+                                   "conv_wgrad_prologue": 10, "conv_draw_prologue": 0}
     assert lstm_cuda.LAUNCHES == {"lstm_fwd": 2, "bilstm_fwd": 0, "lstm_bwd": 2, "bilstm_bwd": 0}
     assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
     for k, v in model.state_dict().items():
@@ -1107,7 +1163,8 @@ def test_wide_train_step_runs_through_the_kernels_on_card(route, monkeypatch):
     assert lstm_cuda.LAUNCHES == {"lstm_fwd": 2, "bilstm_fwd": 0, "lstm_bwd": 2, "bilstm_bwd": 0}
     assert lstm_cuda.ROUTES == {"cluster": 0, "split": 2, "grid": 0} == lstm_cuda.ROUTES_BWD
     dilated = {"conv_dilated_fwd": 14, "conv_dilated_wgrad": 7}
-    chain = {"conv_bn_act_fwd": 7, "conv_dgrad": 7, "conv_wgrad": 7, "conv_wgrad_prologue": 12}
+    chain = {"conv_bn_act_fwd": 7, "conv_dgrad": 7, "conv_wgrad": 7, "conv_wgrad_prologue": 12,
+             "conv_draw_prologue": 0}
     assert conv_cuda.LAUNCHES == (dilated if route == "pallas_conv" else dict.fromkeys(dilated, 0))
     assert conv_fused.LAUNCHES == (chain if route == "fused_chain" else dict.fromkeys(chain, 0))
     assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0

@@ -11,7 +11,10 @@
 //   conv_bn_act_fwd  <- voicesplit_tpu/ops/conv_fused.py  _fwd_kernel   (:303, launched by
 //                       _conv_fwd :365)
 //   conv_dgrad       <- voicesplit_tpu/ops/conv_fused.py  _dgrad_kernel (:411, launched by
-//                       _conv_dgrad :476)
+//                       _conv_dgrad :476); its prologue=True branch (:423-444, d_raw
+//                       drawn from dy and the raw x in the load path) is the d_raw
+//                       pass of conv_wgrad.cu (conv_draw_prologue), then this kernel
+//                       on d_raw, so dbias sums the rounded d_raw as :470-473 does
 //
 // Channels-last activations [B, T, F, Cin] in, [B, T, F, Cout] out, weights
 // [kt, kf, Cin, Cout], time dilation dt, frequency dilation 1, odd kt <= 7,

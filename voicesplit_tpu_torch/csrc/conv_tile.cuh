@@ -1,6 +1,7 @@
 // Helpers that the conv kernels share (conv_fwd.cu: the forward / data-
 // gradient kernel body of conv_dilated_fwd, conv_bn_act_fwd and conv_dgrad;
-// conv_wgrad.cu: the weight-gradient kernels and the chain's prologue pass):
+// conv_wgrad.cu: the weight-gradient kernels and the chain's prologue and
+// d_raw passes):
 // channels, tile widths, operand types, the prologue's activation, ldmatrix,
 // mma.sync, wgmma's ordering, cp.async, occupancy, launch-shape checks and
 // the fixed-order reduction of per-block partial rows.  lstm_bwd.cu takes its

@@ -1,12 +1,28 @@
 // Weight gradient of the "same" time-dilated conv for Hopper (sm_90a): the
-// fused chain's conv_wgrad and the opt-in path's conv_dilated_wgrad.
+// fused chain's conv_wgrad and the opt-in path's conv_dilated_wgrad, and the
+// chain's two elementwise passes.
 //
 // Replaces the TPU kernels (the Python wrappers of the same names, in
 // ops/conv_fused.py and ops/conv_cuda.py, launch the C functions below)
 //   conv_wgrad         <- voicesplit_tpu/ops/conv_fused.py  _wgrad_kernel (:524, launched by
-//                         _conv_wgrad :583): conv_wgrad_prologue, then conv_wgrad
+//                         _conv_wgrad :583): conv_wgrad_prologue (lhs_prologue), then conv_wgrad
 //   conv_dilated_wgrad <- voicesplit_tpu/ops/conv_pallas.py _wgrad_kernel (:234, launched by
 //                         _conv_wgrad_core :292): conv_wgrad
+//   conv_draw_prologue <- the BatchNorm-backward prologue of the TPU's chain kernels
+//                         (_prologue_draw_inplace :221): the prologue=True branch of
+//                         _dgrad_kernel (:423-444) as conv_draw_prologue then conv_dgrad
+//                         (conv_fwd.cu), the rhs_prologue branch of _wgrad_kernel
+//                         (:539-540, :561-563) as conv_draw_prologue then conv_wgrad
+//
+// The d_raw pass (draw_prologue_kernel, at the end of the file) reads dy and
+// the raw conv output x [B, T, F, C] and writes d_raw in their type: 3 x 46
+// MB at [2, 301, 601, 64] bf16, 0.041 ms at the memory rate, against one
+// exponential and ~25 fp32 operations an element, so bound by bytes.  It is
+// a pass of its own and not a transform in the conv kernels' rings for the
+// reason the forward's prologue is one (a prologue in the forward kernel's
+// ring measured slower than a pass; the first conv_wgrad spent 40% of its
+// time redoing its prologue once per time tap), and writing only [0, T) x
+// [0, F) keeps the convs' halo zero after the draw.
 //
 // Channels-last activations y [B, T, F, Cin] and d [B, T, F, Cout], time
 // dilation dt, frequency dilation 1, odd kt, kf in {1, 3, 5}:
@@ -591,6 +607,72 @@ wgrad_prologue_kernel(const T* __restrict__ x, const float* __restrict__ scal, T
   }
 }
 
+// ---------------------------------------------------------------------------
+// The BatchNorm + activation backward between two convs: the d_raw pass
+// ---------------------------------------------------------------------------
+
+// rows of the chain's [8, C] table the pass reads: inv, shift, mean, r,
+// mean(dz), mean(dz x^) (ops/conv_fused.py _S_INV ... _S_MDZX)
+constexpr int kDrawRows = 6;
+
+// act'(z), every step rounded on its own as the plain version computes it:
+// mish' = t + z (1 - t^2) sigmoid(z), t = tanh(softplus(z)), both from one
+// exponential (the JAX package's _act_deriv, conv_fused.py:172-195); relu'
+// = [z > 0].
+__device__ __forceinline__ float activate_deriv(float z, int act) {
+  if (act == kRelu) return z > 0.0f ? 1.0f : 0.0f;
+  const float u = expf(fminf(z, 20.0f));
+  const float up = __fadd_rn(1.0f, u);
+  const float w = __fmul_rn(up, up);
+  const float t = __fdiv_rn(__fsub_rn(w, 1.0f), __fadd_rn(w, 1.0f));
+  const float sig = __fdiv_rn(u, up);
+  return __fadd_rn(t, __fmul_rn(__fmul_rn(z, __fsub_rn(1.0f, __fmul_rn(t, t))), sig));
+}
+
+// d_raw = inv (dy act'(z) - mean(dz) - x^ mean(dz x^)), z = x inv + shift,
+// x^ = (x - mean) r, in fp32 (s: one channel's table rows).
+__device__ __forceinline__ float draw_one(float dy, float x, const float (&s)[kDrawRows], int act) {
+  const float z = __fadd_rn(__fmul_rn(x, s[0]), s[1]);
+  const float dz = __fmul_rn(dy, activate_deriv(z, act));
+  const float xhat = __fmul_rn(__fsub_rn(x, s[2]), s[3]);
+  return __fmul_rn(s[0], __fsub_rn(__fsub_rn(dz, s[4]), __fmul_rn(xhat, s[5])));
+}
+
+// d_raw = round(draw_one(dy, x)), 8 channels a thread, one wave of
+// grid-strided blocks (C = 64: the table in shared memory; WIDE: any C, a
+// multiple of 8, read through L1).  Writes only [0, T) x [0, F): the conv
+// kernels after it read their halo as zero, where the draw of a zero dy and
+// x would not be (the TPU kernels mask it, _mask3).
+template <typename T, bool WIDE>
+__global__ void __launch_bounds__(kThreads)
+draw_prologue_kernel(const T* __restrict__ dy, const T* __restrict__ x,
+                     const float* __restrict__ scal, T* __restrict__ d_raw, long long n8, int act,
+                     int C) {
+  __shared__ float tab[kDrawRows * kC];
+  if constexpr (!WIDE) {
+    for (int e = threadIdx.x; e < kDrawRows * kC; e += kThreads) tab[e] = scal[e];
+    __syncthreads();
+  }
+  const int c8s = C / 8;
+  for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x; e < n8;
+       e += (long long)gridDim.x * kThreads) {
+    const int c8 = (WIDE ? int(e % c8s) : int(e & 7)) * 8;
+    float g[8], v[8];
+    load8(dy + e * 8, g);
+    load8(x + e * 8, v);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      float s[kDrawRows];
+#pragma unroll
+      for (int r = 0; r < kDrawRows; ++r) {
+        s[r] = WIDE ? __ldg(scal + r * C + c8 + k) : tab[r * kC + c8 + k];
+      }
+      g[k] = draw_one(g[k], v[k], s, act);
+    }
+    store8(d_raw + e * 8, g);
+  }
+}
+
 struct WgradPlan {
   WgradWork work;   // kf 3, 5
   ColumnWork cols;  // kf 1
@@ -760,6 +842,38 @@ cudaError_t launch_prologue(const void* x, const void* scal, void* y, int B, int
   return cudaGetLastError();
 }
 
+// One wave of draw_prologue_kernel<T, WIDE>: the blocks the card holds at
+// once, or fewer if the tensor needs fewer.
+template <typename T, bool WIDE>
+cudaError_t launch_draw_wave(const T* dy, const T* x, const float* scal, T* d_raw, long long n8,
+                             int act, int C, cudaStream_t stream) {
+  int per_sm = 0, sms = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, draw_prologue_kernel<T, WIDE>, kThreads, 0);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const long long want = (n8 + kThreads - 1) / kThreads;
+  const long long resident = (long long)per_sm * sms;
+  draw_prologue_kernel<T, WIDE><<<int(want < resident ? want : resident), kThreads, 0, stream>>>(
+      dy, x, scal, d_raw, n8, act, C);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_draw(const void* dy, const void* x, const void* scal, void* d_raw, int B, int T_,
+                        int F, int C, int act, cudaStream_t stream) {
+  if (act != kMish && act != kRelu) return cudaErrorInvalidValue;
+  const long long n8 = (long long)B * T_ * F * (C / 8);
+  const T* dy_ = static_cast<const T*>(dy);
+  const T* x_ = static_cast<const T*>(x);
+  const float* s_ = static_cast<const float*>(scal);
+  T* out = static_cast<T*>(d_raw);
+  return C == kC ? launch_draw_wave<T, false>(dy_, x_, s_, out, n8, act, C, stream)
+                 : launch_draw_wave<T, true>(dy_, x_, s_, out, n8, act, C, stream);
+}
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Every function returns its
@@ -787,6 +901,19 @@ extern "C" int conv_wgrad_prologue(const void* x, const void* scal, void* y, int
   if (B <= 0 || T <= 0 || F <= 0 || C <= 0 || C % 8) return cudaErrorInvalidValue;
   return bf16 ? launch_prologue<__nv_bfloat16>(x, scal, y, B, T, F, C, act, s)
               : launch_prologue<float>(x, scal, y, B, T, F, C, act, s);
+}
+
+// d_raw = round(inv (dy act'(z) - mean(dz) - x^ mean(dz x^))) with z = x inv
+// + shift, x^ = (x - mean) r (scal rows 0-5), the BatchNorm + activation
+// backward of the raw conv output x under the cotangent dy; act 1 mish or 2
+// relu, C a multiple of 8.  Before conv_dgrad it is the prologue=True branch
+// of the TPU's _dgrad_kernel, before conv_wgrad its rhs_prologue branch.
+extern "C" int conv_draw_prologue(const void* dy, const void* x, const void* scal, void* d_raw, int B,
+                                  int T, int F, int C, int act, int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || T <= 0 || F <= 0 || C <= 0 || C % 8) return cudaErrorInvalidValue;
+  return bf16 ? launch_draw<__nv_bfloat16>(dy, x, scal, d_raw, B, T, F, C, act, s)
+              : launch_draw<float>(dy, x, scal, d_raw, B, T, F, C, act, s);
 }
 
 // Launch shape of the weight-gradient kernel on the current card: blocks

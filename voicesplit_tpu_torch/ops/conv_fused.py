@@ -27,13 +27,21 @@ Kernels (each beside its plain version ``*_ref``):
   its input recomputed from the raw tensor by the same prologue: a
   prologue pass writes the activated input once into a scratch tensor
   (``LAUNCHES["conv_wgrad_prologue"]``), then the weight-gradient kernel of
-  `csrc/conv_wgrad.cu` that `conv_cuda.conv_dilated_wgrad` also launches.
+  `csrc/conv_wgrad.cu` that `conv_cuda.conv_dilated_wgrad` also launches;
+- ``conv_draw_prologue`` replaces the BatchNorm-backward prologue of those
+  two kernels (`_prologue_draw_inplace`, `:221`): the d_raw pass of
+  `csrc/conv_wgrad.cu` (``LAUNCHES["conv_draw_prologue"]``) writes
+  ``d_raw = round(inv·(dy·act'(z) − mean(dz) − x̂·mean(dz·x̂)))`` once from
+  the cotangent dy and the raw conv output x.  ``conv_dgrad(...,
+  prologue=True)`` (the ``prologue=True`` branch of `_dgrad_kernel`,
+  `:423-444`) is that pass and then `conv_dgrad` on d_raw, so ``dbias``
+  sums the rounded d_raw as `:470-473` does; ``conv_wgrad(...,
+  rhs_prologue=True)`` (`_wgrad_kernel`'s ``rhs_prologue`` branch,
+  `:539-540`, `:561-563`) is the pass and then `conv_wgrad`.
 
-The Pallas kernels also carry a BN-backward prologue (``prologue=True`` of
-`_dgrad_kernel`, ``rhs_prologue`` of `_wgrad_kernel`) that `make_chain`
-never reaches: it materializes ``d_raw`` with two plain passes (`_stage1`,
-`_materialize_draw`).  Those branches have no counterpart here; the two
-passes are plain PyTorch, as they are plain XLA there.
+`make_chain` takes neither branch (`:795`, `:800`): it materializes ``d_raw``
+with two plain passes (`_stage1`, `_materialize_draw`) in the compute dtype,
+and the chain here does the same in eager PyTorch.
 
 Layout: activations are channels-last ``[B, T, F, C]`` (the JAX package's
 unfolded NHWC), weights ``[kt, kf, Cin, Cout]`` in the compute dtype.  The
@@ -73,8 +81,10 @@ from voicesplit_tpu_torch.parallel.mesh import sum_over_ranks_
 
 # kernel launches per wrapper, for showing that a run went through them;
 # "conv_wgrad_prologue" counts every prologue pass, `conv_bn_act_fwd`'s and
-# `conv_wgrad`'s
-LAUNCHES = {"conv_bn_act_fwd": 0, "conv_dgrad": 0, "conv_wgrad": 0, "conv_wgrad_prologue": 0}
+# `conv_wgrad`'s, "conv_draw_prologue" every d_raw pass, alone or in a branch
+# of `conv_dgrad` and `conv_wgrad`
+LAUNCHES = {"conv_bn_act_fwd": 0, "conv_dgrad": 0, "conv_wgrad": 0, "conv_wgrad_prologue": 0,
+            "conv_draw_prologue": 0}
 
 # the conv kernels' tile width in channels: C = 64 in and out is an
 # instantiation of its own, other counts are walked in slabs (inputs) and
@@ -84,7 +94,7 @@ CHANNEL_SLAB = 64
 # frequency taps: an item's input rows in flight and the weights must fit one
 # block's shared memory
 FWD_KERNEL_MAX_KT = {1: 7, 3: 7, 5: 5}
-_ACT_CODE = {"mish": 1, "relu": 2}  # the prologue pass's activation
+_ACT_CODE = {"mish": 1, "relu": 2}  # the prologue and d_raw passes' activation
 
 # rows of the per-channel scalar table (fp32 [8, C])
 _S_INV, _S_SHIFT, _S_MEAN, _S_R, _S_MDZ, _S_MDZX = 0, 1, 2, 3, 4, 5
@@ -112,6 +122,7 @@ def _library() -> ctypes.CDLL:
             "conv_dgrad": [p] * 5 + [i] * 8 + [p],
             "conv_wgrad": [p] * 4 + [i] * 9 + [p],
             "conv_wgrad_prologue": [p] * 3 + [i] * 6 + [p],
+            "conv_draw_prologue": [p] * 4 + [i] * 6 + [p],
             "conv_fwd_launch_config": [i] * 10 + [ip, ip, lp, lp, ip, ip, ip],
             "conv_wgrad_launch_config": [i] * 9 + [ip, ip, lp, lp, ip, ip, ip],
         })
@@ -289,9 +300,28 @@ def conv_bn_act_fwd_ref(x, w, bias, scal, dt: int, act: Optional[str], prologue:
     return raw, torch.stack([rf.sum(dim=(0, 1, 2)), (rf * rf).sum(dim=(0, 1, 2))])
 
 
-def conv_dgrad_ref(d_raw, w_flipped, dt: int):
+def conv_draw_prologue_ref(dy, x, scal, act: str):
+    """The BatchNorm + activation backward of the raw conv output ``x [B, T,
+    F, C]`` under the cotangent ``dy`` (same shape and type), the Pallas
+    kernels' `_prologue_draw_inplace`: ``d_raw = inv·(dy·act'(z) − mean(dz)
+    − x̂·mean(dz·x̂))`` with ``z = x·inv + shift`` and ``x̂ = (x − mean)·r``
+    (rows 0–5 of `scal`), in fp32 from the operand-type inputs, rounded once
+    to dy's type."""
+    x32 = x.float()
+    dz = dy.float() * _act_deriv(x32 * scal[_S_INV] + scal[_S_SHIFT], act)
+    xhat = (x32 - scal[_S_MEAN]) * scal[_S_R]
+    return (scal[_S_INV] * (dz - scal[_S_MDZ] - xhat * scal[_S_MDZX])).to(dy.dtype).contiguous()
+
+
+def conv_dgrad_ref(d_raw, w_flipped, dt: int, *, x=None, scal=None, act: Optional[str] = None,
+                   prologue: bool = False):
     """``d_raw [B, T, F, C]``, ``w_flipped`` from `pack_weight_flipped` →
-    ``dx`` in d_raw's type and ``dbias [C]`` fp32 (the conv bias gradient)."""
+    ``dx`` in d_raw's type and ``dbias [C]`` fp32 (the conv bias gradient).
+    With `prologue`, `d_raw` is the cotangent dy of the layer's activated
+    output, turned into d_raw by `conv_draw_prologue_ref` with `x`, `scal`
+    and `act` first."""
+    if prologue:
+        d_raw = conv_draw_prologue_ref(d_raw, x, scal, act)
     dx = _conv_core(d_raw, w_flipped, dt).to(d_raw.dtype).contiguous()
     return dx, d_raw.float().sum(dim=(0, 1, 2))
 
@@ -302,10 +332,15 @@ def conv_wgrad_prologue_ref(x, scal, act: str):
 
 
 def conv_wgrad_ref(x_in, d_raw, scal, kt: int, kf: int, dt: int, act: Optional[str],
-                   lhs_prologue: bool):
+                   lhs_prologue: bool, *, x_rhs=None, scal_rhs=None, act_rhs: Optional[str] = None,
+                   rhs_prologue: bool = False):
     """``dW[i, j, c, co] = Σ y[b, t + i·dt − pad_t, f + j − pad_f, c] ·
     d_raw[b, t, f, co]`` in fp32, ``[kt, kf, C, C]``; y is `x_in` through the
-    forward's prologue (or `x_in` itself)."""
+    forward's prologue (or `x_in` itself).  With `rhs_prologue`, `d_raw` is
+    the cotangent dy, turned into d_raw by `conv_draw_prologue_ref` with
+    `x_rhs`, `scal_rhs` and `act_rhs` (independent of `scal` and `act`)."""
+    if rhs_prologue:
+        d_raw = conv_draw_prologue_ref(d_raw, x_rhs, scal_rhs, act_rhs)
     y = _prologue(x_in, scal, act, lhs_prologue)
     T, F_, C = x_in.shape[1:]
     yp = _padded(y, kt, kf, dt)
@@ -416,6 +451,20 @@ def _launch_conv_wgrad_prologue(x, scal, act):
     return y
 
 
+def _launch_conv_draw_prologue(dy, x, scal, act):
+    B, T, F_, C = dy.shape
+    d_raw = torch.empty_like(dy)
+    lib = _library()
+    with torch.cuda.device(dy.device):
+        err = lib.conv_draw_prologue(
+            dy.data_ptr(), x.data_ptr(), scal.data_ptr(), d_raw.data_ptr(), B, T, F_, C,
+            _ACT_CODE[act], int(dy.dtype == torch.bfloat16), _build.stream(dy),
+        )
+    _build.raise_on(err, "conv_draw_prologue")
+    LAUNCHES["conv_draw_prologue"] += 1
+    return d_raw
+
+
 def launch_wgrad_kernel(y, d, kt, kf, dt):
     """The weight-gradient kernel on CUDA tensors: ``dW`` fp32 ``[kt, kf,
     Cin, Cout]`` of the conv whose (already activated) input is `y` ``[B, T,
@@ -455,12 +504,30 @@ def conv_bn_act_fwd(x, w, bias, scal, dt: int, act: Optional[str], prologue: boo
     return fn(x, w, bias, scal, dt, act, prologue)
 
 
-def conv_dgrad(d_raw, w_flipped, dt: int):
+def conv_dgrad(d_raw, w_flipped, dt: int, *, x=None, scal=None, act: Optional[str] = None,
+               prologue: bool = False):
     """Data gradient of the conv and the conv bias gradient (kernel on CUDA,
-    plain version on the CPU); see `conv_dgrad_ref`."""
+    plain version on the CPU); see `conv_dgrad_ref`.  With `prologue`
+    (`_dgrad_kernel`'s ``prologue=True`` branch) `d_raw` is the cotangent dy:
+    `conv_draw_prologue` on (dy, `x`) first, then the same kernel."""
     _check_weight(w_flipped, d_raw)
     _check((d_raw,), w_flipped.shape, (), dt, None, False)
+    if prologue:
+        d_raw = conv_draw_prologue(d_raw, x, scal, act)
     return _build.dispatch(d_raw.device, _launch_conv_dgrad, conv_dgrad_ref)(d_raw, w_flipped, dt)
+
+
+def conv_draw_prologue(dy, x, scal, act: str):
+    """``round(inv·(dy·act'(z) − mean(dz) − x̂·mean(dz·x̂)))`` in dy's type,
+    the d_raw that `conv_dgrad` and `conv_wgrad` take with their prologue
+    branches (kernel on CUDA, plain version on the CPU); see
+    `conv_draw_prologue_ref`."""
+    if x is None or scal is None or act not in ("mish", "relu"):
+        raise ValueError("a d_raw prologue needs x, a [8, C] scal table and act 'mish' or 'relu'")
+    C = dy.shape[-1] if dy.dim() == 4 else 0
+    _check((dy, x), (1, 1, C, C), (("scal", scal, (8, C)),), 1, act, True)
+    fn = _build.dispatch(dy.device, _launch_conv_draw_prologue, conv_draw_prologue_ref)
+    return fn(dy, x, scal, act)
 
 
 def conv_wgrad_prologue(x, scal, act: str):
@@ -473,11 +540,16 @@ def conv_wgrad_prologue(x, scal, act: str):
 
 
 def conv_wgrad(x_in, d_raw, scal, kt: int, kf: int, dt: int, act: Optional[str],
-               lhs_prologue: bool):
+               lhs_prologue: bool, *, x_rhs=None, scal_rhs=None, act_rhs: Optional[str] = None,
+               rhs_prologue: bool = False):
     """fp32 weight gradient of the conv (kernel on CUDA, plain version on
-    the CPU); see `conv_wgrad_ref`."""
+    the CPU); see `conv_wgrad_ref`.  With `rhs_prologue` (`_wgrad_kernel`'s
+    branch) `d_raw` is the cotangent dy: `conv_draw_prologue` on (dy,
+    `x_rhs`) with `scal_rhs`, `act_rhs` first, then the same kernel."""
     C = x_in.shape[-1] if x_in.dim() == 4 else 0
     _check((x_in, d_raw), (kt, kf, C, C), (("scal", scal, (8, C)),), dt, act, lhs_prologue)
+    if rhs_prologue:
+        d_raw = conv_draw_prologue(d_raw, x_rhs, scal_rhs, act_rhs)
     fn = _build.dispatch(x_in.device, _launch_conv_wgrad, conv_wgrad_ref)
     return fn(x_in, d_raw, scal, kt, kf, dt, act, lhs_prologue)
 

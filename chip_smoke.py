@@ -90,11 +90,10 @@ Phases, each printing one JSON line:
    kernel's sum over them per train step.
 6b. prologue — the BatchNorm-backward prologue branches of the chain's
    data- and weight-gradient kernels, which no path takes (`make_chain`
-   draws d_raw with eager passes): the d_raw pass ``conv_draw_prologue``,
-   ``conv_dgrad(..., prologue=True)`` and ``conv_wgrad(...,
-   rhs_prologue=True)`` (its input prologue on too, but on the (7,1) layer)
-   against their plain versions (CONV_TOL, the same bits twice, each branch
-   the bits of the pass then the prologue-free kernel) in bf16 at
+   draws d_raw with eager passes): the d_raw pass ``conv_draw_prologue``
+   and the branches it makes, the pass then ``conv_dgrad`` and the pass
+   then ``conv_wgrad`` (its input prologue on too, but on the (7,1) layer),
+   against their plain versions (CONV_TOL, the same bits twice) in bf16 at
    ``[2 | 8, 301, 601, 64]`` on every layer of the conv kernels phase, at
    ``C`` = PROLOGUE_CHANNELS on PROLOGUE_WIDE_LAYERS, with relu once, and in
    fp32 at the reduced shape; against the chain's eager route (the d_raw of
@@ -432,9 +431,8 @@ CONV_KERNELS = ("conv_bn_act_fwd", "conv_dgrad", "conv_wgrad")
 # passes and takes no d_raw pass
 CONV_LAUNCHES = {"conv_bn_act_fwd": 6, "conv_dgrad": 6, "conv_wgrad": 6, "conv_wgrad_prologue": 10,
                  "conv_draw_prologue": 0}
-# The chain's BatchNorm-backward prologue branches, `conv_dgrad(...,
-# prologue=True)` and `conv_wgrad(..., rhs_prologue=True)` (the d_raw pass
-# `conv_draw_prologue`, then the prologue-free kernel): bf16 at every layer
+# The chain's BatchNorm-backward prologue branches, the d_raw pass
+# `conv_draw_prologue` then `conv_dgrad` or `conv_wgrad`: bf16 at every layer
 # the conv kernels phase times (B=2 and B=8, the wide block at B=2), at
 # PROLOGUE_CHANNELS on PROLOGUE_WIDE_LAYERS (B=2) and with relu once; fp32 at
 # the reduced shape on PROLOGUE_FP32_LAYERS (relu).  Against their plain
@@ -448,15 +446,17 @@ PROLOGUE_FP32_LAYERS = ("7x1", "5x5-d2")
 # compute dtype (bf16: every step of z, act', dz, x̂ and d_raw rounded, the
 # table's rows too) where the branches draw in fp32 and round once.  d_raw is
 # held by direction: a z near 0 whose bf16 rounding changes sign moves relu'
-# from 0 to 1, a whole dy·inv (measured on an H100: cosine >= 0.99977, peak
-# 0.50 with relu, 0.029 with mish); dx also by size relative to its peak
-# (<= 0.089).  dbias, whose per-channel sum of d_raw nearly cancels
-# (inv·(Σdz − n·mean(dz) − mean(dz·x̂)·Σx̂)), relative to the sum of |d_raw|
-# it cancels from (<= 1.5e-3); dW carries that difference through the
-# input's mean (an activated input has one): cosine >= 0.955, peak 0.26
-# (0.007 on the (7,1) layer, whose input is not activated here)
-PROLOGUE_VS_EAGER_TOL = {"d_raw_cosine_min": 0.999, "dx": 0.2, "dx_cosine_min": 0.999,
-                         "dbias_rel_to_abs_sum": 5e-3, "dw": 0.5, "dw_cosine_min": 0.9}
+# from 0 to 1, a whole dy·inv.  dbias, whose per-channel sum of d_raw nearly
+# cancels (inv·(Σdz − n·mean(dz) − mean(dz·x̂)·Σx̂)), relative to the sum of
+# |d_raw| it cancels from; dW carries that difference through the input's
+# mean (an activated input has one; the (7,1) layer's is not activated
+# here).  Measured on an H100 at this phase's inputs (the same every run):
+# d_raw peak 0.5002 (relu; mish 0.029), cosine 0.99977; dx peak 0.0894,
+# cosine 0.99977; dbias 1.55e-3; dW peak 0.2597, cosine 0.9553.  The limits
+# are 1.5x those distances.
+PROLOGUE_VS_EAGER_TOL = {"d_raw": 0.75, "d_raw_cosine_min": 0.9996, "dx": 0.134,
+                         "dx_cosine_min": 0.9996, "dbias_rel_to_abs_sum": 2.3e-3, "dw": 0.39,
+                         "dw_cosine_min": 0.933}
 # fp32 operations a d_raw element: z (2), act' (mish: min, exp, 5 additions
 # or subtractions, 4 products, 2 divisions; relu: 1 comparison), dz (1),
 # x̂ (2), d_raw (4)
@@ -1368,15 +1368,19 @@ def draw_bound(shape, dtype: str, act: str) -> dict:
 def branch_bound(kind: str, shape, kt: int, kf: int, dt: int, act: str) -> dict:
     """Least time for a prologue branch as one function (bf16): the conv
     kernel's bytes (`conv_bound`, dy in d_raw's place) plus the raw x and its
-    table's rows, d_raw being no tensor of its own; its products at the bf16
-    rate and the draw's DRAW_OPS at the fp32 rate, one after the other."""
+    table's rows, d_raw being no tensor of its own, at the memory rate,
+    against its products at the bf16 rate and the draw's DRAW_OPS at the fp32
+    rate, each on its own units (the tensor cores and the fp32 units can run
+    at once); the largest of the three."""
     conv = conv_bound(kind, shape, kt, kf, dt, "bfloat16")
     draw = draw_bound(shape, "bfloat16", act)
     bytes_ = conv["bytes"] + int(np.prod(shape)) * 2 + 6 * shape[-1] * 4
-    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = (conv["flops"] / PEAK_FLOPS["bfloat16"] + draw["flops"] / PEAK_FLOPS["float32"]) * 1e3
-    return {"bytes": bytes_, "flops": conv["flops"] + draw["flops"], "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    times = {"bytes": bytes_ / HBM_BYTES_PER_S * 1e3,
+             "operations": max(conv["flops"] / PEAK_FLOPS["bfloat16"],
+                               draw["flops"] / PEAK_FLOPS["float32"]) * 1e3}
+    bound_by = max(times, key=times.get)
+    return {"bytes": bytes_, "flops": conv["flops"] + draw["flops"], "bound_ms": times[bound_by],
+            "bound_by": bound_by}
 
 
 def _timed_conv_layers() -> list:
@@ -1674,28 +1678,31 @@ def _prologue_inputs(torch, cf, shape, dtype, act: str, g) -> dict:
 
 
 def _check_prologue_case(torch, cf, case, inp, w, dt: int, act: str, lhs: bool, dtype_name) -> dict:
-    """The d_raw pass and both branches on one layer against their plain
-    versions (CONV_TOL; the same bits twice; each branch the bits of the pass
-    followed by the prologue-free kernel), and the branches against the
-    chain's eager route (`_materialize_draw` of `_stage1`'s dz and x̂, then
-    the prologue-free kernels), which draws in the compute dtype."""
+    """The d_raw pass and both branches (the pass, then `conv_dgrad` or
+    `conv_wgrad`) on one layer against their plain versions (CONV_TOL; the
+    same bits twice), and against the chain's eager route
+    (`_materialize_draw` of `_stage1`'s dz and x̂, then the same kernels),
+    which draws in the compute dtype."""
     kt, kf = w.shape[:2]
     tol = CONV_TOL[dtype_name]
     dy, raw, scal, x_in, scal_lhs = inp["dy"], inp["raw"], inp["scal"], inp["x_in"], inp["scal_lhs"]
     wf = cf.pack_weight_flipped(w, dy.dtype)
     act_prev = "mish" if lhs else None
-    draw = dict(x=raw, scal=scal, act=act, prologue=True)
-    rhs = dict(x_rhs=raw, scal_rhs=scal, act_rhs=act, rhs_prologue=True)
     report = {}
+
+    def draw():
+        return cf.conv_draw_prologue(dy, raw, scal, act)
+
+    def draw_ref():
+        return cf.conv_draw_prologue_ref(dy, raw, scal, act)
+
     with torch.inference_mode():
         runs = {
-            "conv_draw_prologue": (lambda: (cf.conv_draw_prologue(dy, raw, scal, act),),
-                                   lambda: (cf.conv_draw_prologue_ref(dy, raw, scal, act),),
-                                   ("out",)),
-            "dgrad_branch": (lambda: cf.conv_dgrad(dy, wf, dt, **draw),
-                             lambda: cf.conv_dgrad_ref(dy, wf, dt, **draw), ("out", "sums")),
-            "wgrad_branch": (lambda: (cf.conv_wgrad(x_in, dy, scal_lhs, kt, kf, dt, act_prev, lhs, **rhs),),
-                             lambda: (cf.conv_wgrad_ref(x_in, dy, scal_lhs, kt, kf, dt, act_prev, lhs, **rhs),),
+            "conv_draw_prologue": (lambda: (draw(),), lambda: (draw_ref(),), ("out",)),
+            "dgrad_branch": (lambda: cf.conv_dgrad(draw(), wf, dt),
+                             lambda: cf.conv_dgrad_ref(draw_ref(), wf, dt), ("out", "sums")),
+            "wgrad_branch": (lambda: (cf.conv_wgrad(x_in, draw(), scal_lhs, kt, kf, dt, act_prev, lhs),),
+                             lambda: (cf.conv_wgrad_ref(x_in, draw_ref(), scal_lhs, kt, kf, dt, act_prev, lhs),),
                              ("dw",)),
         }
         outs = {}
@@ -1711,13 +1718,6 @@ def _check_prologue_case(torch, cf, case, inp, w, dt: int, act: str, lhs: bool, 
                             "share_of_elements_that_differ": (got[0] != want[0]).float().mean().item()}
             outs[name] = got
         d_raw = outs["conv_draw_prologue"][0]
-        split_dgrad = cf.conv_dgrad(d_raw, wf, dt)
-        split_wgrad = cf.conv_wgrad(x_in, d_raw, scal_lhs, kt, kf, dt, act_prev, lhs)
-        torch.cuda.synchronize()
-        check(all(torch.equal(a, b) for a, b in zip(outs["dgrad_branch"], split_dgrad)),
-              f"dgrad_branch {case}: not the bits of conv_dgrad on the pass's output")
-        check(torch.equal(outs["wgrad_branch"][0], split_wgrad),
-              f"wgrad_branch {case}: not the bits of conv_wgrad on the pass's output")
         # the chain's eager route to d_raw, then the same prologue-free kernels
         d_eager = cf._materialize_draw(inp["dz"], inp["xhat"], scal).contiguous()
         dx_e, db_e = cf.conv_dgrad(d_eager, wf, dt)
@@ -1752,8 +1752,6 @@ def _prologue_times(torch, cf, inp, w, dt: int, act: str, lhs: bool, iters: int)
     dy, raw, scal, x_in, scal_lhs = inp["dy"], inp["raw"], inp["scal"], inp["x_in"], inp["scal_lhs"]
     wf = cf.pack_weight_flipped(w, dy.dtype)
     act_prev = "mish" if lhs else None
-    draw = dict(x=raw, scal=scal, act=act, prologue=True)
-    rhs = dict(x_rhs=raw, scal_rhs=scal, act_rhs=act, rhs_prologue=True)
     pad = ((kt - 1) * dt // 2, (kf - 1) // 2)
     x_nchw = x_in.permute(0, 3, 1, 2)
     w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
@@ -1781,14 +1779,16 @@ def _prologue_times(torch, cf, inp, w, dt: int, act: str, lhs: bool, iters: int)
             "pass_plain_ms": t(lambda: cf.conv_draw_prologue_ref(dy, raw, scal, act), 2),
             "eager_draw_ms": t(eager_draw),
             "eager_stage1_ms": t(lambda: cf._stage1(dy, raw, scal, act)),
-            "dgrad_branch_ms": t(lambda: cf.conv_dgrad(dy, wf, dt, **draw)),
+            "dgrad_branch_ms": t(lambda: cf.conv_dgrad(cf.conv_draw_prologue(dy, raw, scal, act), wf, dt)),
             "dgrad_ms": t(lambda: cf.conv_dgrad(d_raw, wf, dt)),
-            "dgrad_branch_plain_ms": t(lambda: cf.conv_dgrad_ref(dy, wf, dt, **draw), 2),
+            "dgrad_branch_plain_ms": t(
+                lambda: cf.conv_dgrad_ref(cf.conv_draw_prologue_ref(dy, raw, scal, act), wf, dt), 2),
             "dgrad_library_route_ms": t(lambda: library((True, False, False))),
-            "wgrad_branch_ms": t(lambda: cf.conv_wgrad(x_in, dy, scal_lhs, kt, kf, dt, act_prev, lhs, **rhs)),
+            "wgrad_branch_ms": t(lambda: cf.conv_wgrad(
+                x_in, cf.conv_draw_prologue(dy, raw, scal, act), scal_lhs, kt, kf, dt, act_prev, lhs)),
             "wgrad_ms": t(lambda: cf.conv_wgrad(x_in, d_raw, scal_lhs, kt, kf, dt, act_prev, lhs)),
-            "wgrad_branch_plain_ms": t(
-                lambda: cf.conv_wgrad_ref(x_in, dy, scal_lhs, kt, kf, dt, act_prev, lhs, **rhs), 2),
+            "wgrad_branch_plain_ms": t(lambda: cf.conv_wgrad_ref(
+                x_in, cf.conv_draw_prologue_ref(dy, raw, scal, act), scal_lhs, kt, kf, dt, act_prev, lhs), 2),
             "wgrad_library_route_ms": t(lambda: library((False, True, False))),
         }
     out["pass_bound"] = draw_bound(shape, "bfloat16", act)
@@ -1843,7 +1843,7 @@ def phase_prologue(torch, cf, seed: int) -> dict:
          times=timing, launches=launches, seconds=time.perf_counter() - t0)
     tol = PROLOGUE_VS_EAGER_TOL
     for k in ("d_raw", "dx", "dw"):
-        check(min_cos_vs_eager[k] >= tol[f"{k}_cosine_min"] and worst_vs_eager[k] <= tol.get(k, np.inf),
+        check(min_cos_vs_eager[k] >= tol[f"{k}_cosine_min"] and worst_vs_eager[k] <= tol[k],
               f"prologue branches vs the eager route: {k} {worst_vs_eager[k]}, cosine {min_cos_vs_eager[k]}")
     check(worst_vs_eager["dbias_rel_to_abs_sum"] <= tol["dbias_rel_to_abs_sum"],
           f"prologue branches vs the eager route: dbias {worst_vs_eager['dbias_rel_to_abs_sum']}")

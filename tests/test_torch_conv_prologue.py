@@ -1,8 +1,7 @@
 """The BatchNorm-backward prologue branches of the fused chain's data- and
-weight-gradient kernels: the port's ``conv_dgrad(..., prologue=True)`` and
-``conv_wgrad(..., rhs_prologue=True)`` (the d_raw pass `conv_draw_prologue`,
-then the prologue-free call) against the JAX package's Pallas kernels with
-the same branches, ``_conv_dgrad(..., prologue=True)`` and
+weight-gradient kernels: the port's d_raw pass `conv_draw_prologue`
+followed by `conv_dgrad` or `conv_wgrad` against the JAX package's Pallas
+kernels with those branches, ``_conv_dgrad(..., prologue=True)`` and
 ``_conv_wgrad(..., rhs_prologue=True)``, in interpret mode on the CPU.
 
 Geometry, inputs and the conversions to the JAX kernels' folded frames come
@@ -79,6 +78,19 @@ def _weights(seed, kt, kf, C=64):
     return (0.08 * np.random.default_rng(seed).standard_normal((kt, kf, C, C))).astype(np.float32)
 
 
+def _dgrad_branch(dy, x, w, scal, act, dt, dtype=torch.float32):
+    """The port's ``prologue=True`` branch: the d_raw pass, then `conv_dgrad`."""
+    d_raw = cf.conv_draw_prologue(dy, x, scal, act)
+    return cf.conv_dgrad(d_raw, cf.pack_weight_flipped(torch.from_numpy(w), dtype), dt)
+
+
+def _wgrad_branch(x_in, dy, x, scal_prev, scal, kt, kf, dt, act_prev, act):
+    """The port's ``rhs_prologue`` branch: the d_raw pass, then `conv_wgrad`
+    (with its input prologue where `act_prev` is set)."""
+    d_raw = cf.conv_draw_prologue(dy, x, scal, act)
+    return cf.conv_wgrad(x_in, d_raw, scal_prev, kt, kf, dt, act_prev, act_prev is not None)
+
+
 def _jax_dgrad(dy, x, w, scal_j, spec, act, C=64, dtype=jnp.float32):
     (kt, _), dt = SPECS[spec]
     g = _geom(spec, C)
@@ -111,8 +123,7 @@ def test_dgrad_prologue_branch_matches_pallas_kernel(spec, act):
     dy, x, scal_t, scal_j = _draw_inputs(11, 64)
     w = _weights(12, kt, kf)
     want_dx, want_db = _jax_dgrad(dy, x, w, scal_j, spec, act)
-    dx, db = cf.conv_dgrad(torch.from_numpy(dy), cf.pack_weight_flipped(torch.from_numpy(w), torch.float32),
-                           dt, x=torch.from_numpy(x), scal=scal_t, act=act, prologue=True)
+    dx, db = _dgrad_branch(torch.from_numpy(dy), torch.from_numpy(x), w, scal_t, act, dt)
     assert dx.shape == (B, T, F, 64) and dx.is_contiguous() and db.shape == (64,)
     _assert_peak_close(dx.numpy(), want_dx, PEAK_TOL, "dx")
     _assert_peak_close(db.numpy(), want_db, PEAK_TOL, "dbias")
@@ -125,9 +136,8 @@ def test_wgrad_rhs_prologue_branch_matches_pallas_kernel(spec, act):
     dy, x, scal_t, scal_j = _draw_inputs(13, 64)
     x_in = np.random.default_rng(14).standard_normal((B, T, F, 64)).astype(np.float32)
     want = _jax_wgrad(x_in, dy, x, None, scal_j, spec, None, act)
-    got = cf.conv_wgrad(torch.from_numpy(x_in), torch.from_numpy(dy), torch.zeros(8, 64), kt, kf, dt,
-                        None, False, x_rhs=torch.from_numpy(x), scal_rhs=scal_t, act_rhs=act,
-                        rhs_prologue=True)
+    got = _wgrad_branch(torch.from_numpy(x_in), torch.from_numpy(dy), torch.from_numpy(x),
+                        torch.zeros(8, 64), scal_t, kt, kf, dt, None, act)
     assert got.shape == (kt, kf, 64, 64) and got.dtype == torch.float32
     _assert_peak_close(got.numpy(), want, PEAK_TOL)
 
@@ -147,13 +157,9 @@ def test_wgrad_with_both_prologues_matches_pallas_kernel(acts):
     scal_prev_t = cf._scal_table(*map(torch.from_numpy, bn), eps=EPS)
     scal_prev_j = jcf._scal_table(*map(jnp.asarray, bn), eps=EPS)
     want = _jax_wgrad(x_in, dy, x, scal_prev_j, scal_j, spec, act_prev, act)
-    got = cf.conv_wgrad(torch.from_numpy(x_in), torch.from_numpy(dy), scal_prev_t, kt, kf, dt,
-                        act_prev, True, x_rhs=torch.from_numpy(x), scal_rhs=scal_t, act_rhs=act,
-                        rhs_prologue=True)
+    got = _wgrad_branch(torch.from_numpy(x_in), torch.from_numpy(dy), torch.from_numpy(x), scal_prev_t,
+                        scal_t, kt, kf, dt, act_prev, act)
     _assert_peak_close(got.numpy(), want, PEAK_TOL)
-    assert torch.equal(got, cf.conv_wgrad_ref(
-        torch.from_numpy(x_in), torch.from_numpy(dy), scal_prev_t, kt, kf, dt, act_prev, True,
-        x_rhs=torch.from_numpy(x), scal_rhs=scal_t, act_rhs=act, rhs_prologue=True))
 
 
 @pytest.mark.parametrize("act", ACTS)
@@ -166,14 +172,13 @@ def test_branches_match_pallas_kernels_in_bf16(act):
     bf = torch.bfloat16
     dyt, xt = torch.from_numpy(dy).to(bf), torch.from_numpy(x).to(bf)
     want_dx, want_db = _jax_dgrad(dy, x, w, scal_j, spec, act, dtype=jnp.bfloat16)
-    dx, db = cf.conv_dgrad(dyt, cf.pack_weight_flipped(torch.from_numpy(w), bf), dt, x=xt, scal=scal_t,
-                           act=act, prologue=True)
+    dx, db = _dgrad_branch(dyt, xt, w, scal_t, act, dt, bf)
     assert dx.dtype == bf and db.dtype == torch.float32
     _assert_peak_close(dx.float().numpy(), want_dx, BF16_TOL["dx"], "dx")
     _assert_peak_close(db.numpy(), want_db, BF16_TOL["dbias"], "dbias")
     want_dw = _jax_wgrad(x_in, dy, x, None, scal_j, spec, None, act, dtype=jnp.bfloat16)
-    dw = cf.conv_wgrad(torch.from_numpy(x_in).to(bf), dyt, torch.zeros(8, 64), kt, kf, dt, None, False,
-                       x_rhs=xt, scal_rhs=scal_t, act_rhs=act, rhs_prologue=True)
+    dw = _wgrad_branch(torch.from_numpy(x_in).to(bf), dyt, xt, torch.zeros(8, 64), scal_t, kt, kf, dt,
+                       None, act)
     _assert_peak_close(dw.numpy(), want_dw, BF16_TOL["dw"], "dW")
 
 
@@ -185,25 +190,23 @@ def test_branches_at_128_channels_match_pallas_kernels(branch):
     if branch == "dgrad":
         w = _weights(21, kt, kf, C)
         want_dx, want_db = _jax_dgrad(dy, x, w, scal_j, spec, act, C)
-        dx, db = cf.conv_dgrad(torch.from_numpy(dy), cf.pack_weight_flipped(torch.from_numpy(w), torch.float32),
-                               dt, x=torch.from_numpy(x), scal=scal_t, act=act, prologue=True)
+        dx, db = _dgrad_branch(torch.from_numpy(dy), torch.from_numpy(x), w, scal_t, act, dt)
         _assert_peak_close(dx.numpy(), want_dx, PEAK_TOL, "dx")
         _assert_peak_close(db.numpy(), want_db, PEAK_TOL, "dbias")
     else:
         x_in = np.random.default_rng(22).standard_normal((B, T, F, C)).astype(np.float32)
         want = _jax_wgrad(x_in, dy, x, None, scal_j, spec, None, act, C)
-        got = cf.conv_wgrad(torch.from_numpy(x_in), torch.from_numpy(dy), torch.zeros(8, C), kt, kf, dt,
-                            None, False, x_rhs=torch.from_numpy(x), scal_rhs=scal_t, act_rhs=act,
-                            rhs_prologue=True)
+        got = _wgrad_branch(torch.from_numpy(x_in), torch.from_numpy(dy), torch.from_numpy(x),
+                            torch.zeros(8, C), scal_t, kt, kf, dt, None, act)
         _assert_peak_close(got.numpy(), want, PEAK_TOL)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_branch_is_the_draw_pass_then_the_prologue_free_call(dtype):
-    """What the card runs: the d_raw pass, then `conv_dgrad` / `conv_wgrad`
-    without a prologue on its output, bit for bit the branches and their
-    plain versions; and the pass is `_prologue_draw_inplace`'s arithmetic,
-    one rounding of an fp32 draw."""
+    """The branches as the card runs them: the d_raw pass, bit for bit its
+    plain version and `_prologue_draw_inplace`'s arithmetic (one rounding
+    of an fp32 draw), then `conv_dgrad` / `conv_wgrad` on its output, bit
+    for bit the plain versions' composition."""
     spec, act = "5x5-d2", "mish"
     (kt, kf), dt = SPECS[spec]
     dy, x, scal_t, _ = _draw_inputs(23, 64)
@@ -216,15 +219,11 @@ def test_branch_is_the_draw_pass_then_the_prologue_free_call(dtype):
     d_raw = cf.conv_draw_prologue(dyt, xt, scal_t, act)
     assert d_raw.dtype == td and d_raw.is_contiguous()
     assert torch.equal(d_raw, cf.conv_draw_prologue_ref(dyt, xt, scal_t, act))
-    split = cf.conv_dgrad(d_raw, w, dt)
-    branch = cf.conv_dgrad(dyt, w, dt, x=xt, scal=scal_t, act=act, prologue=True)
-    plain = cf.conv_dgrad_ref(dyt, w, dt, x=xt, scal=scal_t, act=act, prologue=True)
-    for a, b, c in zip(split, branch, plain):
-        assert torch.equal(a, b) and torch.equal(b, c)
-    split_w = cf.conv_wgrad(x_in, d_raw, zero, kt, kf, dt, None, False)
-    branch_w = cf.conv_wgrad(x_in, dyt, zero, kt, kf, dt, None, False, x_rhs=xt, scal_rhs=scal_t,
-                             act_rhs=act, rhs_prologue=True)
-    assert torch.equal(split_w, branch_w)
+    plain_d_raw = cf.conv_draw_prologue_ref(dyt, xt, scal_t, act)
+    for a, b in zip(cf.conv_dgrad(d_raw, w, dt), cf.conv_dgrad_ref(plain_d_raw, w, dt)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert torch.equal(cf.conv_wgrad(x_in, d_raw, zero, kt, kf, dt, None, False),
+                       cf.conv_wgrad_ref(x_in, plain_d_raw, zero, kt, kf, dt, None, False))
 
     # the draw in fp32 from the operand-type inputs, rounded once
     x32 = xt.float()
@@ -249,38 +248,19 @@ def test_draw_pass_matches_the_jax_draw_in_fp32(act):
     assert float(jnp.abs(jnp.where(real > 0, 0.0, frame)).max()) == 0.0
 
 
-def _refusal_args():
-    dy = torch.zeros(B, T, F, 64)
-    w = torch.zeros(5, 5, 64, 64)
-    scal = torch.zeros(8, 64)
-    return dy, w, scal
-
-
 REFUSALS = {
-    "dgrad_without_x": (lambda dy, w, s: cf.conv_dgrad(dy, w, 1, scal=s, act="mish", prologue=True),
-                        "d_raw prologue needs x"),
-    "dgrad_without_scal": (lambda dy, w, s: cf.conv_dgrad(dy, w, 1, x=dy, act="mish", prologue=True),
-                           "d_raw prologue needs x"),
-    "dgrad_without_act": (lambda dy, w, s: cf.conv_dgrad(dy, w, 1, x=dy, scal=s, act=None, prologue=True),
-                          "act 'mish' or 'relu'"),
-    "dgrad_x_of_another_shape": (
-        lambda dy, w, s: cf.conv_dgrad(dy, w, 1, x=dy[:, :-1].contiguous(), scal=s, act="mish",
-                                       prologue=True),
-        "one shape and type"),
-    "wgrad_without_x_rhs": (
-        lambda dy, w, s: cf.conv_wgrad(dy, dy, s, 5, 5, 1, None, False, scal_rhs=s, act_rhs="relu",
-                                       rhs_prologue=True),
-        "d_raw prologue needs x"),
-    "wgrad_rhs_act_gelu": (
-        lambda dy, w, s: cf.conv_wgrad(dy, dy, s, 5, 5, 1, None, False, x_rhs=dy, scal_rhs=s,
-                                       act_rhs="gelu", rhs_prologue=True),
-        "act 'mish' or 'relu'"),
-    "wgrad_rhs_scal_of_another_width": (
-        lambda dy, w, s: cf.conv_wgrad(dy, dy, s, 5, 5, 1, None, False, x_rhs=dy, scal_rhs=s[:, :32],
-                                       act_rhs="mish", rhs_prologue=True),
-        "scal must be"),
-    "draw_pass_half_precision": (
-        lambda dy, w, s: cf.conv_draw_prologue(dy.half(), dy.half(), s, "mish"), "bf16 or fp32"),
+    "without_x": (lambda dy, s: cf.conv_draw_prologue(dy, None, s, "mish"), "d_raw prologue needs x"),
+    "without_scal": (lambda dy, s: cf.conv_draw_prologue(dy, dy, None, "relu"), "d_raw prologue needs x"),
+    "without_act": (lambda dy, s: cf.conv_draw_prologue(dy, dy, s, None), "act 'mish' or 'relu'"),
+    "act_gelu": (lambda dy, s: cf.conv_draw_prologue(dy, dy, s, "gelu"), "act 'mish' or 'relu'"),
+    "x_of_another_shape": (lambda dy, s: cf.conv_draw_prologue(dy, dy[:, :-1].contiguous(), s, "mish"),
+                           "one shape and type"),
+    "x_of_another_type": (lambda dy, s: cf.conv_draw_prologue(dy, dy.to(torch.bfloat16), s, "mish"),
+                          "one shape and type"),
+    "scal_of_another_width": (lambda dy, s: cf.conv_draw_prologue(dy, dy, s[:, :32], "mish"),
+                              "scal must be"),
+    "half_precision": (lambda dy, s: cf.conv_draw_prologue(dy.half(), dy.half(), s, "mish"),
+                       "bf16 or fp32"),
 }
 
 
@@ -288,4 +268,4 @@ REFUSALS = {
 def test_prologue_branches_refuse_what_they_cannot_draw(case):
     fn, match = REFUSALS[case]
     with pytest.raises((ValueError, TypeError), match=match):
-        fn(*_refusal_args())
+        fn(torch.zeros(B, T, F, 64), torch.zeros(8, 64))

@@ -589,13 +589,12 @@ def test_conv_chain_kernels_match_plain_versions_on_card(layer, dtype):
 @pytest.mark.parametrize("C", [64, 128])
 def test_draw_pass_and_prologue_branches_match_plain_versions_on_card(C, dtype):
     """The d_raw pass (`conv_draw_prologue`) and the BatchNorm-backward
-    prologue branches (`conv_dgrad(..., prologue=True)`, `conv_wgrad(...,
-    rhs_prologue=True)` with its input prologue on too) at a (5,5) layer:
-    bf16 at the full width ``[2, 301, 601, C]``, fp32 at `chip_smoke.py`'s
-    reduced shape; each against its plain version within
-    `chip_smoke.CONV_TOL` (relative to each output's peak), the same bits
-    twice, each branch the bits of the pass then the prologue-free kernel,
-    and one pass counted a branch."""
+    prologue branches it makes (the pass, then `conv_dgrad`; the pass, then
+    `conv_wgrad` with its input prologue on too) at a (5,5) layer: bf16 at
+    the full width ``[2, 301, 601, C]``, fp32 at `chip_smoke.py`'s reduced
+    shape; each against its plain version (the plain pass, then the plain
+    call) within `chip_smoke.CONV_TOL` (relative to each output's peak), the
+    same bits twice, and one launch counted a pass."""
     _need_card()
     from voicesplit_tpu_torch.ops import conv_fused as cf
 
@@ -617,26 +616,21 @@ def test_draw_pass_and_prologue_branches_match_plain_versions_on_card(C, dtype):
     scal = table(mean_dz=0.1 * torch.randn(C, device="cuda", generator=g),
                  mean_dzx=0.1 * torch.randn(C, device="cuda", generator=g))
     scal_lhs = table()
-    draw = dict(x=raw, scal=scal, act="mish", prologue=True)
-    rhs = dict(x_rhs=raw, scal_rhs=scal, act_rhs="relu", rhs_prologue=True)
+
+    def branches(draw, dgrad, wgrad):
+        d_mish, d_relu = draw(dy, raw, scal, "mish"), draw(dy, raw, scal, "relu")
+        return (d_mish, *dgrad(d_mish, wf, dil), wgrad(x_in, d_relu, scal_lhs, kt, kf, dil, "mish", True))
+
     before = dict(cf.LAUNCHES)
     with torch.inference_mode():
-        d_raw = cf.conv_draw_prologue(dy, raw, scal, "mish")
-        dgrad = [cf.conv_dgrad(dy, wf, dil, **draw) for _ in range(2)]
-        wgrad = [cf.conv_wgrad(x_in, dy, scal_lhs, kt, kf, dil, "mish", True, **rhs) for _ in range(2)]
-        split = (*cf.conv_dgrad(d_raw, wf, dil),
-                 cf.conv_wgrad(x_in, cf.conv_draw_prologue(dy, raw, scal, "relu"), scal_lhs, kt, kf, dil,
-                               "mish", True))
+        runs = [branches(cf.conv_draw_prologue, cf.conv_dgrad, cf.conv_wgrad) for _ in range(2)]
         torch.cuda.synchronize()
-        assert cf.LAUNCHES["conv_draw_prologue"] == before["conv_draw_prologue"] + 6
-        want = (cf.conv_draw_prologue_ref(dy, raw, scal, "mish"), *cf.conv_dgrad_ref(dy, wf, dil, **draw),
-                cf.conv_wgrad_ref(x_in, dy, scal_lhs, kt, kf, dil, "mish", True, **rhs))
-    got = (d_raw, *dgrad[0], wgrad[0])
-    for a, b, kind in zip(got, want, ("out", "out", "sums", "dw")):
+        assert cf.LAUNCHES["conv_draw_prologue"] == before["conv_draw_prologue"] + 4
+        want = branches(cf.conv_draw_prologue_ref, cf.conv_dgrad_ref, cf.conv_wgrad_ref)
+    for a, b, kind in zip(runs[0], want, ("out", "out", "sums", "dw")):
         assert bool(torch.isfinite(a).all())
         assert (a.float() - b.float()).abs().max().item() <= tol[kind] * b.float().abs().max().item(), kind
-    assert all(torch.equal(a, b) for a, b in zip(dgrad[0], dgrad[1])) and torch.equal(*wgrad)
-    assert all(torch.equal(a, b) for a, b in zip((*dgrad[0], wgrad[0]), split))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 @pytest.mark.gpu

@@ -639,35 +639,41 @@ __device__ __forceinline__ float draw_one(float dy, float x, const float (&s)[kD
 }
 
 // d_raw = round(draw_one(dy, x)), 8 channels a thread, one wave of
-// grid-strided blocks (C = 64: the table in shared memory; WIDE: any C, a
-// multiple of 8, read through L1).  Writes only [0, T) x [0, F): the conv
-// kernels after it read their halo as zero, where the draw of a zero dy and
-// x would not be (the TPU kernels mask it, _mask3).
-template <typename T, bool WIDE>
+// grid-strided blocks, for any C a multiple of 8: the table's six rows in
+// dynamic shared memory (6 C floats), and the grid's stride a multiple of
+// C / 8 (launch_draw), so each thread keeps its 8 channels for the whole
+// walk.  Writes only [0, T) x [0, F): the conv kernels after it read their
+// halo as zero, where the draw of a zero dy and x would not be (the TPU
+// kernels mask it, _mask3).
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 draw_prologue_kernel(const T* __restrict__ dy, const T* __restrict__ x,
                      const float* __restrict__ scal, T* __restrict__ d_raw, long long n8, int act,
                      int C) {
-  __shared__ float tab[kDrawRows * kC];
-  if constexpr (!WIDE) {
-    for (int e = threadIdx.x; e < kDrawRows * kC; e += kThreads) tab[e] = scal[e];
-    __syncthreads();
-  }
-  const int c8s = C / 8;
-  for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x; e < n8;
-       e += (long long)gridDim.x * kThreads) {
-    const int c8 = (WIDE ? int(e % c8s) : int(e & 7)) * 8;
+  extern __shared__ float4 tab4[];  // [kDrawRows, C] as float4
+  float* tab = reinterpret_cast<float*>(tab4);
+  for (int e = threadIdx.x; e < kDrawRows * C; e += kThreads) tab[e] = scal[e];
+  __syncthreads();
+  const long long first = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const int c8 = int(first % (C / 8)) * 8;
+  for (long long e = first; e < n8; e += (long long)gridDim.x * kThreads) {
     float g[8], v[8];
     load8(dy + e * 8, g);
     load8(x + e * 8, v);
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      float s[kDrawRows];
+    for (int h = 0; h < 2; ++h) {
+      float4 row[kDrawRows];
 #pragma unroll
-      for (int r = 0; r < kDrawRows; ++r) {
-        s[r] = WIDE ? __ldg(scal + r * C + c8 + k) : tab[r * kC + c8 + k];
+      for (int r = 0; r < kDrawRows; ++r) row[r] = tab4[(r * C + c8) / 4 + h];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        float s[kDrawRows];
+#pragma unroll
+        for (int r = 0; r < kDrawRows; ++r) {
+          s[r] = k == 0 ? row[r].x : k == 1 ? row[r].y : k == 2 ? row[r].z : row[r].w;
+        }
+        g[4 * h + k] = draw_one(g[4 * h + k], v[4 * h + k], s, act);
       }
-      g[k] = draw_one(g[k], v[k], s, act);
     }
     store8(d_raw + e * 8, g);
   }
@@ -842,36 +848,38 @@ cudaError_t launch_prologue(const void* x, const void* scal, void* y, int B, int
   return cudaGetLastError();
 }
 
-// One wave of draw_prologue_kernel<T, WIDE>: the blocks the card holds at
-// once, or fewer if the tensor needs fewer.
-template <typename T, bool WIDE>
-cudaError_t launch_draw_wave(const T* dy, const T* x, const float* scal, T* d_raw, long long n8,
-                             int act, int C, cudaStream_t stream) {
-  int per_sm = 0, sms = 0;
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, draw_prologue_kernel<T, WIDE>, kThreads, 0);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  err = sm_count(&sms);
-  if (err != cudaSuccess) return err;
-  const long long want = (n8 + kThreads - 1) / kThreads;
-  const long long resident = (long long)per_sm * sms;
-  draw_prologue_kernel<T, WIDE><<<int(want < resident ? want : resident), kThreads, 0, stream>>>(
-      dy, x, scal, d_raw, n8, act, C);
-  return cudaGetLastError();
-}
-
+// One wave of draw_prologue_kernel: the blocks the card holds at once, or
+// fewer if the tensor needs fewer, in a multiple of the blocks whose threads
+// make a whole number of C / 8 channel groups.
 template <typename T>
 cudaError_t launch_draw(const void* dy, const void* x, const void* scal, void* d_raw, int B, int T_,
                         int F, int C, int act, cudaStream_t stream) {
   if (act != kMish && act != kRelu) return cudaErrorInvalidValue;
+  const size_t smem = size_t(kDrawRows) * C * sizeof(float);  // 4.6 KB at C = 192
+  int per_sm = 0, sms = 0;
+  cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, draw_prologue_kernel<T>, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
   const long long n8 = (long long)B * T_ * F * (C / 8);
-  const T* dy_ = static_cast<const T*>(dy);
-  const T* x_ = static_cast<const T*>(x);
-  const float* s_ = static_cast<const float*>(scal);
-  T* out = static_cast<T*>(d_raw);
-  return C == kC ? launch_draw_wave<T, false>(dy_, x_, s_, out, n8, act, C, stream)
-                 : launch_draw_wave<T, true>(dy_, x_, s_, out, n8, act, C, stream);
+  const int c8s = C / 8;
+  int g = kThreads;  // gcd(kThreads, c8s): the grid's blocks come in steps of c8s / g
+  for (int b = c8s; b != 0;) {
+    const int t = g % b;
+    g = b;
+    b = t;
+  }
+  const int step = c8s / g;
+  const long long want = (n8 + kThreads - 1) / kThreads;
+  const long long resident = (long long)per_sm * sms;
+  long long blocks = want < resident ? want : resident;
+  blocks = blocks > step ? blocks - blocks % step : step;
+  draw_prologue_kernel<T><<<int(blocks), kThreads, smem, stream>>>(
+      static_cast<const T*>(dy), static_cast<const T*>(x), static_cast<const float*>(scal),
+      static_cast<T*>(d_raw), n8, act, C);
+  return cudaGetLastError();
 }
 
 }  // namespace

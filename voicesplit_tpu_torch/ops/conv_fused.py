@@ -32,12 +32,11 @@ Kernels (each beside its plain version ``*_ref``):
   two kernels (`_prologue_draw_inplace`, `:221`): the d_raw pass of
   `csrc/conv_wgrad.cu` (``LAUNCHES["conv_draw_prologue"]``) writes
   ``d_raw = round(inv·(dy·act'(z) − mean(dz) − x̂·mean(dz·x̂)))`` once from
-  the cotangent dy and the raw conv output x.  ``conv_dgrad(...,
-  prologue=True)`` (the ``prologue=True`` branch of `_dgrad_kernel`,
-  `:423-444`) is that pass and then `conv_dgrad` on d_raw, so ``dbias``
-  sums the rounded d_raw as `:470-473` does; ``conv_wgrad(...,
-  rhs_prologue=True)`` (`_wgrad_kernel`'s ``rhs_prologue`` branch,
-  `:539-540`, `:561-563`) is the pass and then `conv_wgrad`.
+  the cotangent dy and the raw conv output x.  The ``prologue=True``
+  branch of `_dgrad_kernel` (`:423-444`) is that pass and then
+  `conv_dgrad` on its output, so ``dbias`` sums the rounded d_raw as
+  `:470-473` does; `_wgrad_kernel`'s ``rhs_prologue`` branch (`:539-540`,
+  `:561-563`) is the pass and then `conv_wgrad`.
 
 `make_chain` takes neither branch (`:795`, `:800`): it materializes ``d_raw``
 with two plain passes (`_stage1`, `_materialize_draw`) in the compute dtype,
@@ -81,8 +80,7 @@ from voicesplit_tpu_torch.parallel.mesh import sum_over_ranks_
 
 # kernel launches per wrapper, for showing that a run went through them;
 # "conv_wgrad_prologue" counts every prologue pass, `conv_bn_act_fwd`'s and
-# `conv_wgrad`'s, "conv_draw_prologue" every d_raw pass, alone or in a branch
-# of `conv_dgrad` and `conv_wgrad`
+# `conv_wgrad`'s, "conv_draw_prologue" every d_raw pass
 LAUNCHES = {"conv_bn_act_fwd": 0, "conv_dgrad": 0, "conv_wgrad": 0, "conv_wgrad_prologue": 0,
             "conv_draw_prologue": 0}
 
@@ -313,15 +311,9 @@ def conv_draw_prologue_ref(dy, x, scal, act: str):
     return (scal[_S_INV] * (dz - scal[_S_MDZ] - xhat * scal[_S_MDZX])).to(dy.dtype).contiguous()
 
 
-def conv_dgrad_ref(d_raw, w_flipped, dt: int, *, x=None, scal=None, act: Optional[str] = None,
-                   prologue: bool = False):
+def conv_dgrad_ref(d_raw, w_flipped, dt: int):
     """``d_raw [B, T, F, C]``, ``w_flipped`` from `pack_weight_flipped` →
-    ``dx`` in d_raw's type and ``dbias [C]`` fp32 (the conv bias gradient).
-    With `prologue`, `d_raw` is the cotangent dy of the layer's activated
-    output, turned into d_raw by `conv_draw_prologue_ref` with `x`, `scal`
-    and `act` first."""
-    if prologue:
-        d_raw = conv_draw_prologue_ref(d_raw, x, scal, act)
+    ``dx`` in d_raw's type and ``dbias [C]`` fp32 (the conv bias gradient)."""
     dx = _conv_core(d_raw, w_flipped, dt).to(d_raw.dtype).contiguous()
     return dx, d_raw.float().sum(dim=(0, 1, 2))
 
@@ -332,15 +324,10 @@ def conv_wgrad_prologue_ref(x, scal, act: str):
 
 
 def conv_wgrad_ref(x_in, d_raw, scal, kt: int, kf: int, dt: int, act: Optional[str],
-                   lhs_prologue: bool, *, x_rhs=None, scal_rhs=None, act_rhs: Optional[str] = None,
-                   rhs_prologue: bool = False):
+                   lhs_prologue: bool):
     """``dW[i, j, c, co] = Σ y[b, t + i·dt − pad_t, f + j − pad_f, c] ·
     d_raw[b, t, f, co]`` in fp32, ``[kt, kf, C, C]``; y is `x_in` through the
-    forward's prologue (or `x_in` itself).  With `rhs_prologue`, `d_raw` is
-    the cotangent dy, turned into d_raw by `conv_draw_prologue_ref` with
-    `x_rhs`, `scal_rhs` and `act_rhs` (independent of `scal` and `act`)."""
-    if rhs_prologue:
-        d_raw = conv_draw_prologue_ref(d_raw, x_rhs, scal_rhs, act_rhs)
+    forward's prologue (or `x_in` itself)."""
     y = _prologue(x_in, scal, act, lhs_prologue)
     T, F_, C = x_in.shape[1:]
     yp = _padded(y, kt, kf, dt)
@@ -504,24 +491,19 @@ def conv_bn_act_fwd(x, w, bias, scal, dt: int, act: Optional[str], prologue: boo
     return fn(x, w, bias, scal, dt, act, prologue)
 
 
-def conv_dgrad(d_raw, w_flipped, dt: int, *, x=None, scal=None, act: Optional[str] = None,
-               prologue: bool = False):
+def conv_dgrad(d_raw, w_flipped, dt: int):
     """Data gradient of the conv and the conv bias gradient (kernel on CUDA,
-    plain version on the CPU); see `conv_dgrad_ref`.  With `prologue`
-    (`_dgrad_kernel`'s ``prologue=True`` branch) `d_raw` is the cotangent dy:
-    `conv_draw_prologue` on (dy, `x`) first, then the same kernel."""
+    plain version on the CPU); see `conv_dgrad_ref`."""
     _check_weight(w_flipped, d_raw)
     _check((d_raw,), w_flipped.shape, (), dt, None, False)
-    if prologue:
-        d_raw = conv_draw_prologue(d_raw, x, scal, act)
     return _build.dispatch(d_raw.device, _launch_conv_dgrad, conv_dgrad_ref)(d_raw, w_flipped, dt)
 
 
 def conv_draw_prologue(dy, x, scal, act: str):
-    """``round(inv·(dy·act'(z) − mean(dz) − x̂·mean(dz·x̂)))`` in dy's type,
-    the d_raw that `conv_dgrad` and `conv_wgrad` take with their prologue
-    branches (kernel on CUDA, plain version on the CPU); see
-    `conv_draw_prologue_ref`."""
+    """``round(inv·(dy·act'(z) − mean(dz) − x̂·mean(dz·x̂)))`` in dy's type
+    (kernel on CUDA, plain version on the CPU); see `conv_draw_prologue_ref`.
+    Followed by `conv_dgrad` it is `_dgrad_kernel`'s ``prologue=True``
+    branch, by `conv_wgrad` its ``rhs_prologue`` branch."""
     if x is None or scal is None or act not in ("mish", "relu"):
         raise ValueError("a d_raw prologue needs x, a [8, C] scal table and act 'mish' or 'relu'")
     C = dy.shape[-1] if dy.dim() == 4 else 0
@@ -540,16 +522,11 @@ def conv_wgrad_prologue(x, scal, act: str):
 
 
 def conv_wgrad(x_in, d_raw, scal, kt: int, kf: int, dt: int, act: Optional[str],
-               lhs_prologue: bool, *, x_rhs=None, scal_rhs=None, act_rhs: Optional[str] = None,
-               rhs_prologue: bool = False):
+               lhs_prologue: bool):
     """fp32 weight gradient of the conv (kernel on CUDA, plain version on
-    the CPU); see `conv_wgrad_ref`.  With `rhs_prologue` (`_wgrad_kernel`'s
-    branch) `d_raw` is the cotangent dy: `conv_draw_prologue` on (dy,
-    `x_rhs`) with `scal_rhs`, `act_rhs` first, then the same kernel."""
+    the CPU); see `conv_wgrad_ref`."""
     C = x_in.shape[-1] if x_in.dim() == 4 else 0
     _check((x_in, d_raw), (kt, kf, C, C), (("scal", scal, (8, C)),), dt, act, lhs_prologue)
-    if rhs_prologue:
-        d_raw = conv_draw_prologue(d_raw, x_rhs, scal_rhs, act_rhs)
     fn = _build.dispatch(x_in.device, _launch_conv_wgrad, conv_wgrad_ref)
     return fn(x_in, d_raw, scal, kt, kf, dt, act, lhs_prologue)
 

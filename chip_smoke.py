@@ -29,7 +29,9 @@ Phases, each printing one JSON line:
    modes, the weight-gradient kernel) per layer and batch (B=1, 2, 8; fp32
    at the reduced shape) beside the blocks the card holds at once, their
    registers and spilled bytes (more blocks than resident, or any spilled
-   byte, fails the phase).
+   byte, fails the phase); and every instantiation of the wide-tile conv
+   kernels, registers and spilled bytes read from the library (any spilled
+   byte fails the phase).
 3. kernels  — at H=400, T=301 holds each kernel against its plain PyTorch
    version on the card, in bf16 and fp32 operands, with two launches on the
    same inputs giving the same bits: ``lstm_fwd`` (B=1, random h0/c0; hs,
@@ -771,8 +773,15 @@ def ptxas_summary(log: str, fragment: str) -> list:
     return out
 
 
+# instantiations of the wide-tile kernels: kf in (1, 3, 5) x (the forward
+# body plain at n 64, 96, 128, 192, 256, its dgrad and chain modes at 128,
+# 192, 256; the weight gradient at 64, 96, 128)
+WIDE_INSTANTIATIONS = 3 * (5 + 3 + 3 + 3)
+
+
 def phase_build(torch, lstm_cuda, conv_fused) -> None:
     from voicesplit_tpu_torch.ops import _build
+    from voicesplit_tpu_torch.ops import conv_cuda
 
     t0 = time.perf_counter()
     lib, log = _build.build()
@@ -838,10 +847,17 @@ def phase_build(torch, lstm_cuda, conv_fused) -> None:
             check(gr["blocks"] <= gr["resident_blocks"],
                   f"{key}: {gr['blocks']} blocks > {gr['resident_blocks']} resident")
             check(gr["local_bytes"] == 0, f"{key}: {gr['local_bytes']} local (spilled) bytes a thread")
+    # the wide tiles (bf16 at other widths than 64): no instantiation in the
+    # library spills a byte, read from the library itself (so a cached build
+    # is checked as a fresh one)
+    wide = conv_cuda.wide_kernel_attributes()
+    spilled = {k: a for k, a in wide.items() if a["local_bytes"]}
+    check(len(wide) == WIDE_INSTANTIATIONS and not spilled,
+          f"wide-tile kernels: {len(wide)} instantiations (want {WIDE_INSTANTIATIONS}), spilled {spilled}")
     emit("build", library=str(lib.relative_to(ROOT)), seconds=seconds,
          ptxas_lstm=ptxas_summary(log, "lstm"), ptxas_conv=ptxas_summary(log, "conv"),
          ptxas_passes=ptxas_summary(log, "prologue_kernel"),
-         grids=grids)
+         wide_kernels=wide, grids=grids)
 
 
 def _fwd_case(torch, lstm_cuda, g, directions: int, batch: int, H: int, route: str,
@@ -4878,8 +4894,9 @@ def phase_export(torch, lstm_cuda, cc, seed: int, tmp: Path) -> dict:
 # (tests/test_torch_kernel_kinds.py holds the list complete), tried before
 # the library's name fragments.
 PORT_KERNEL_KINDS = (
-    ("dilated conv kernels", ("conv_dilated_fwd_kernel",)),
-    ("conv chain kernels", ("conv_bn_act_fwd_kernel", "conv_dgrad_kernel", "reduce_rows_kernel")),
+    ("dilated conv kernels", ("conv_dilated_fwd_kernel", "conv_dilated_fwd_wide_kernel")),
+    ("conv chain kernels", ("conv_bn_act_fwd_kernel", "conv_dgrad_kernel", "reduce_rows_kernel",
+                            "conv_bn_act_fwd_wide_kernel", "conv_dgrad_wide_kernel")),
     # the chain's BatchNorm + activation before conv_bn_act_fwd and conv_wgrad
     ("conv prologue passes", ("wgrad_prologue_kernel",)),
     # the BatchNorm backward between two convs (d_raw) before conv_dgrad and
@@ -4887,7 +4904,8 @@ PORT_KERNEL_KINDS = (
     ("conv draw passes", ("draw_prologue_kernel",)),
     # the weight gradient of both conv paths
     ("conv weight-gradient kernels", ("conv_wgrad_kernel", "conv_wgrad_kf1_kernel",
-                                      "reduce_taps_kernel")),
+                                      "reduce_taps_kernel", "conv_wgrad_wide_kernel",
+                                      "reduce_segments_kernel")),
     ("lstm kernels", ("lstm_fwd_kernel", "lstm_fwd_split_kernel", "lstm_fwd_grid_kernel",
                       "lstm_bwd_kernel", "lstm_bwd_split_kernel", "lstm_bwd_grid_kernel",
                       "lstm_dwhh_kernel", "lstm_dwhh_f32_kernel")),
@@ -5115,16 +5133,34 @@ def phase_remat(torch, lstm_cuda, cf, cc, seed: int) -> dict:
 
 # --- other channel counts than 64: the widths the JAX package takes ----------
 # The conv kernels at [2, 301, 601, C] bf16 against their plain versions
-# (DILATED_TOL, CONV_TOL): the dilated kernels at Cin = Cout of 96, 128 and
-# 192 and one 64 -> 128 layer, the chain's at 128 and 192 (it takes
-# multiples of 64), each on the (7,1) layer and on (5,5) at time dilation 1
-# and 16; and one layer of 100 channels, which the 16-byte copies cannot
-# align: the wrapper zero-pads it to 104 around the launch (CHANNEL_PADS).
+# (DILATED_TOL, CONV_TOL), on their wide tiles (csrc/conv_fwd_wide.cu,
+# csrc/conv_wgrad_wide.cu): the dilated kernels at Cin = Cout of 96, 128,
+# 192, 256 (one n256 tile) and 320 (two output groups), 64 -> 128 and
+# 192 -> 256, the chain's at 128 and 192 (it takes multiples of 64), each on
+# the (7,1) layer and on (5,5) at time dilation 1 and 16; and one layer of
+# 100 channels, which the 16-byte copies cannot align: the wrapper zero-pads
+# it to 104 around the launch (CHANNEL_PADS).  Each launched shape's tile
+# from the C planner (`conv_cuda.wide_tile_of_library`) must be the Python
+# table's (`conv_cuda.fwd_tile`, `wgrad_tile`), and its grid spill nothing.
 CHANNEL_DILATED_WIDTHS = {"96": (96, 96), "128": (128, 128), "192": (192, 192),
-                          "64-128": (64, 128)}
+                          "256": (256, 256), "320": (320, 320), "64-128": (64, 128),
+                          "192-256": (192, 256)}
 CHANNEL_CHAIN_WIDTHS = (128, 192)
 CHANNEL_LAYERS = ("7x1", "5x5-d1", "5x5-d16")
 CHANNEL_PADDED = (100, "5x5-d1")
+# The wide forward body at the edges of [0, T): on a dilated layer whose
+# reach nearly spans T a warpgroup's sub-steps alternate between products
+# and none (its input or output row outside [0, T)), and the refills after
+# each sub-step must still wait for the previous one's products.  B=1,
+# CHANNEL_EDGE_F positions (several items a block), T just past the reach;
+# each launch CHANNEL_EDGE_REPEATS times on the same inputs must give the
+# first launch's bits, and that one the plain version's result (DILATED_TOL,
+# CONV_TOL): `conv_dilated_fwd` at each width, the chain's two forward-body
+# modes where Cin = Cout.
+CHANNEL_EDGES = {"5x5-d16": 40, "5x5-d32": 70}  # layer: T
+CHANNEL_EDGE_WIDTHS = {"128": (128, 128), "192": (192, 192), "128-64": (128, 64)}
+CHANNEL_EDGE_F = 2048
+CHANNEL_EDGE_REPEATS = 20
 # the full-width configs/voicesplit.json model with model.conv_channels
 # changed in memory, served at B=1 and B=8 with the dilated switch and
 # trained at B=2 with the dilated switch and with the fused chain
@@ -5132,20 +5168,87 @@ CHANNEL_MODEL = 128
 CHANNEL_ROUTES = {"pallas_conv": DILATED_TRAIN_LAUNCHES, "fused_chain": CONV_LAUNCHES}
 
 
-def _channel_grids(torch, cf, shape, kt, kf, dt, cout, chain: bool) -> dict:
-    """The wide instantiations' launch shapes at `shape` in, `cout` out:
-    blocks against resident blocks (more fails), registers and spilled
-    bytes a thread (reported)."""
+def _channel_grids(torch, cf, cc, shape, kt, kf, dt, cout, chain: bool) -> dict:
+    """The wide tiles' launch shapes at `shape` in, `cout` out: blocks
+    against resident blocks (more fails), no spilled byte (else fails),
+    registers; and each kernel's tile, the C planner's against the Python
+    table's (a difference fails) and its shared memory the grid's."""
+    cin = shape[-1]
     grids = {"conv_dilated_fwd": cf.fwd_launch_config(shape, kt, kf, dt, torch.bfloat16, False, cout),
+             "conv_dilated_fwd_data_gradient": cf.fwd_launch_config((*shape[:3], cout), kt, kf, dt,
+                                                                   torch.bfloat16, False, cin),
              "conv_dilated_wgrad": cf.wgrad_launch_config(shape, kt, kf, dt, torch.bfloat16, cout)}
+    # (kind, mode, Cin, Cout) of each grid's tile
+    tiles = {"conv_dilated_fwd": ("fwd", "plain", cin, cout),
+             "conv_dilated_fwd_data_gradient": ("fwd", "plain", cout, cin),
+             "conv_dilated_wgrad": ("wgrad", None, cin, cout)}
     if chain:
         grids["conv_bn_act_fwd"] = cf.launch_config(shape, kt, kf, dt, torch.bfloat16)
         grids["conv_dgrad"] = cf.fwd_launch_config(shape, kt, kf, dt, torch.bfloat16, True)
+        tiles.update(conv_bn_act_fwd=("fwd", "chain", cin, cin), conv_dgrad=("fwd", "dgrad", cin, cin))
+    out = {}
     for name, gr in grids.items():
         check(gr["blocks"] <= gr["resident_blocks"],
               f"{name} {shape} -> {cout}: {gr['blocks']} blocks > {gr['resident_blocks']} resident")
-    return {k: {f: gr[f] for f in ("blocks", "smem_bytes", "registers", "local_bytes")}
-            for k, gr in grids.items()}
+        check(gr["local_bytes"] == 0, f"{name} {shape} -> {cout}: {gr['local_bytes']} spilled bytes a thread")
+        kind, mode, ci, co = tiles[name]
+        if kind == "fwd":
+            table = cc.fwd_tile(ci, co, kt, kf, torch.bfloat16, mode)
+            planner = cc.wide_tile_of_library("fwd", ci, co, kt, kf, mode)
+        else:
+            table = cc.wgrad_tile(ci, co, kf, torch.bfloat16)
+            planner = cc.wide_tile_of_library("wgrad", ci, co, kt, kf)
+        differ = {k: (v, table.get(k)) for k, v in planner.items() if table.get(k) != v}
+        check(table["route"] == "tiles" and not differ,
+              f"{name} {ci} -> {co} ({kt},{kf}): the C planner's tile differs from the table: {differ}")
+        check(gr["smem_bytes"] == table["smem_bytes"],
+              f"{name} {ci} -> {co}: the grid's {gr['smem_bytes']} B of shared memory, the tile's "
+              f"{table['smem_bytes']}")
+        out[name] = {**{f: gr[f] for f in ("blocks", "smem_bytes", "registers", "local_bytes")},
+                     "tile": {k: v for k, v in table.items() if k not in ("route", "smem_bytes")}}
+    return out
+
+
+def _channel_edges(torch, cf, cc, g) -> dict:
+    """CHANNEL_EDGES: each forward-body launch repeated on the same inputs,
+    against its first launch's bits and its plain version."""
+    out = {}
+    for width, (cin, cout) in CHANNEL_EDGE_WIDTHS.items():
+        for layer, T in CHANNEL_EDGES.items():
+            (kt, kf), dt = ALL_CONV_LAYERS[layer]
+            case = f"edges/{width}/{layer}/T{T}"
+            x, d, w, bias, bn = _conv_inputs(torch, (1, T, CHANNEL_EDGE_F, cin), kt, kf, torch.bfloat16, g, cout)
+            runs = {"conv_dilated_fwd": (lambda: (cc.conv_dilated_fwd(x, w, dt),),
+                                         lambda: (cc.conv_dilated_fwd_round_once_ref(x, w, dt),),
+                                         DILATED_TOL["bfloat16"]["out_round_once"])}
+            if cin == cout:
+                scal, wf = cf._scal_table(*bn), cf.pack_weight_flipped(w, torch.bfloat16)
+                tol = CONV_TOL["bfloat16"]
+                runs["conv_bn_act_fwd"] = (lambda: cf.conv_bn_act_fwd(x, w, bias, scal, dt, None, False),
+                                           lambda: cf.conv_bn_act_fwd_ref(x, w, bias, scal, dt, None, False),
+                                           (tol["out"], tol["sums"]))
+                runs["conv_dgrad"] = (lambda: cf.conv_dgrad(d, wf, dt), lambda: cf.conv_dgrad_ref(d, wf, dt),
+                                      (tol["out"], tol["sums"]))
+            entry = {}
+            with torch.inference_mode():
+                for name, (kernel, plain, tols) in runs.items():
+                    first = kernel()
+                    same = sum(all(torch.equal(a, b) for a, b in zip(first, kernel()))
+                               for _ in range(CHANNEL_EDGE_REPEATS - 1))
+                    want = plain()
+                    torch.cuda.synchronize()
+                    errs = [_peak_rel(a, b) for a, b in zip(first, want)]
+                    check(same == CHANNEL_EDGE_REPEATS - 1,
+                          f"{name} {case}: {CHANNEL_EDGE_REPEATS - 1 - same} of {CHANNEL_EDGE_REPEATS - 1} "
+                          "repeated launches differ from the first")
+                    tols = tols if isinstance(tols, tuple) else (tols,)
+                    check(all(np.isfinite(e) and e <= t for e, t in zip(errs, tols)),
+                          f"{name} {case}: errors {errs} > {tols}")
+                    entry[name] = {"errors": errs, "repeats_with_the_first_bits": same + 1}
+            out[case] = entry
+            del x, d, w
+            torch.cuda.empty_cache()
+    return out
 
 
 def _channel_kernels(torch, cf, cc, seed: int) -> None:
@@ -5162,7 +5265,7 @@ def _channel_kernels(torch, cf, cc, seed: int) -> None:
             x, d, w, _, _ = _conv_inputs(torch, shape, kt, kf, torch.bfloat16, g, cout)
             fwd, wgrad = _dilated_times(torch, cc, cf, x, d, w, dt, iters=5)
             cases[case] = {"agreement": agreement, "conv_dilated_fwd": fwd, "conv_dilated_wgrad": wgrad,
-                           "grids": _channel_grids(torch, cf, shape, kt, kf, dt, cout, False)}
+                           "grids": _channel_grids(torch, cf, cc, shape, kt, kf, dt, cout, False)}
             del x, d, w
             torch.cuda.empty_cache()
     for C in CHANNEL_CHAIN_WIDTHS:
@@ -5175,7 +5278,7 @@ def _channel_kernels(torch, cf, cc, seed: int) -> None:
             x, d, w, bias, bn = _conv_inputs(torch, shape, kt, kf, torch.bfloat16, g)
             cases[case] = {"agreement": agreement,
                            **_chain_times(torch, cf, x, d, w, bias, bn, dt, act, iters=5),
-                           "grids": _channel_grids(torch, cf, shape, kt, kf, dt, C, True)}
+                           "grids": _channel_grids(torch, cf, cc, shape, kt, kf, dt, C, True)}
             del x, d, w
             torch.cuda.empty_cache()
     # the padded width: the launch on 100 channels pads to 104 and slices back;
@@ -5202,6 +5305,7 @@ def _channel_kernels(torch, cf, cc, seed: int) -> None:
                    "conv_dilated_wgrad": wgrad}
     del x, d, w, xa, da, wa
     torch.cuda.empty_cache()
+    cases.update(_channel_edges(torch, cf, cc, g))
     emit("channel kernels", shape=list(CONV_SHAPE[:3]), dtype="bfloat16",
          tolerances_peak_rel={"dilated": DILATED_TOL["bfloat16"], "chain": CONV_TOL["bfloat16"]},
          library="cuDNN conv2d (+ eager BN + act, + var_mean) / aten.convolution_backward, "

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Times the PyTorch port's conv kernel wrappers on the card.
 
-    python3 scripts/port_conv_times.py [--root DIR] [--tag NAME] [--iters 10] [--library]
+    python3 scripts/port_conv_times.py [--root DIR] [--tag NAME] [--iters 10] [--library] [--channels]
 
 Imports `voicesplit_tpu_torch` from DIR (default: this checkout) and builds
 its kernels there, so that an older tree unpacked with ``git archive`` into
@@ -29,6 +29,15 @@ is the mean of ``--iters`` calls after two warm ones, between CUDA events.
 Prints one JSON line with the card's name and power limit, the times per
 layer and their sums over the six layers (one launch per layer; the dilated
 forward runs twice per train step, as forward and as data gradient).
+
+``--channels`` times the other widths instead, those of ``chip_smoke.py
+--phases channels`` (this checkout's ``CHANNEL_DILATED_WIDTHS``,
+``CHANNEL_CHAIN_WIDTHS`` and ``CHANNEL_LAYERS``) at ``[2, 301, 601, Cin]``
+bf16: ``conv_dilated_fwd`` (forward, and on ``[2, 301, 601, Cout]`` with
+flipped weights as data gradient) and ``conv_dilated_wgrad`` at each
+(Cin, Cout), and ``conv_bn_act_fwd`` (mish prologue but on (7,1)),
+``conv_dgrad`` and ``conv_wgrad`` at each chain width; keys
+``"<width>/<layer>"``, and with ``--library`` cuDNN's times beside them.
 """
 
 from __future__ import annotations
@@ -58,12 +67,98 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def channel_times(torch, F, bn_act, cc, cf, g, iters: int, library: bool) -> dict:
+    """The other widths of ``chip_smoke.py``'s channels phase at B=2: kernel
+    times by wrapper and ``"<width>/<layer>"``, and cuDNN's beside them."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    T, F_ = SHAPE[:2]
+    times: dict = {}
+    lib: dict = {}
+
+    def put(table, name, key, fn):
+        table.setdefault(name, {})[key] = time_ms(torch, fn, iters)
+
+    def lib_calls(x, d, w, dt):
+        kt, kf = w.shape[:2]
+        pad = ((kt - 1) * dt // 2, (kf - 1) // 2)
+        x_nchw, d_nchw = x.permute(0, 3, 1, 2), d.permute(0, 3, 1, 2)
+        w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+        def bwd(mask):
+            return torch.ops.aten.convolution_backward(
+                d_nchw, x_nchw, w_oihw, None, (1, 1), pad, (dt, 1), False, (0, 0), 1, mask)
+        return (lambda: F.conv2d(x_nchw, w_oihw, None, padding=pad, dilation=(dt, 1)),
+                lambda: bwd((True, False, False)), lambda: bwd((False, True, False)), x_nchw, w_oihw, pad)
+
+    with torch.inference_mode():
+        for width, (cin, cout) in smoke.CHANNEL_DILATED_WIDTHS.items():
+            x = torch.randn(2, T, F_, cin, generator=g).to("cuda", torch.bfloat16)
+            d = torch.randn(2, T, F_, cout, generator=g).to("cuda", torch.bfloat16)
+            for layer in smoke.CHANNEL_LAYERS:
+                (kt, kf), dt = smoke.ALL_CONV_LAYERS[layer]
+                w = (torch.randn(kt, kf, cin, cout, generator=g) * (kt * kf * cin) ** -0.5).to("cuda", torch.bfloat16)
+                wf = cc.flip_weight(w)
+                key = f"{width}/{layer}"
+                put(times, "conv_dilated_fwd", key, lambda: cc.conv_dilated_fwd(x, w, dt))
+                put(times, "conv_dilated_fwd_data_gradient", key, lambda: cc.conv_dilated_fwd(d, wf, dt))
+                put(times, "conv_dilated_wgrad", key, lambda: cc.conv_dilated_wgrad(x, d, kt, kf, dt))
+                if library:
+                    fwd, dgrad, wgrad, *_ = lib_calls(x, d, w, dt)
+                    put(lib, "conv2d", key, fwd)
+                    put(lib, "data_gradient", key, dgrad)
+                    put(lib, "weight_gradient", key, wgrad)
+            del x, d
+            torch.cuda.empty_cache()
+        for C in smoke.CHANNEL_CHAIN_WIDTHS:
+            x = torch.randn(2, T, F_, C, generator=g).to("cuda", torch.bfloat16)
+            d = torch.randn(2, T, F_, C, generator=g).to("cuda", torch.bfloat16)
+            bias = (0.1 * torch.randn(C, generator=g)).cuda()
+            bn = (0.2 * torch.randn(C, generator=g), torch.rand(C, generator=g) + 0.5,
+                  torch.rand(C, generator=g) + 0.5, 0.1 * torch.randn(C, generator=g))
+            scal = cf._scal_table(*bn).cuda()
+            bn = [v.cuda() for v in bn]
+            for layer in smoke.CHANNEL_LAYERS:
+                (kt, kf), dt = smoke.ALL_CONV_LAYERS[layer]
+                act = None if layer == "7x1" else "mish"
+                on = act is not None
+                w = (torch.randn(kt, kf, C, C, generator=g) * (kt * kf * C) ** -0.5).to("cuda", torch.bfloat16)
+                wf = cc.flip_weight(w)
+                key = f"chain{C}/{layer}"
+                put(times, "conv_bn_act_fwd", key, lambda: cf.conv_bn_act_fwd(x, w, bias, scal, dt, act, on))
+                put(times, "conv_dgrad", key, lambda: cf.conv_dgrad(d, wf, dt))
+                put(times, "conv_wgrad", key, lambda: cf.conv_wgrad(x, d, scal, kt, kf, dt, act, on))
+                if library:
+                    fwd, dgrad, wgrad, x_nchw, w_oihw, pad = lib_calls(x, d, w, dt)
+                    cbias = bias.to(torch.bfloat16)
+
+                    def chain_forward():
+                        y = bn_act.bn_act_eval(x_nchw, bn[2], bn[3], bn[0], bn[1], act) if on else x_nchw
+                        raw = F.conv2d(y, w_oihw, cbias, padding=pad, dilation=(dt, 1))
+                        return raw, torch.var_mean(raw, dim=(0, 2, 3), correction=0)
+                    put(lib, "chain_forward", key, chain_forward)
+                    put(lib, "data_gradient", key, dgrad)
+                    put(lib, "weight_gradient", key, wgrad)
+            del x, d
+            torch.cuda.empty_cache()
+    out = {"ms": times, "widths": {k: list(v) for k, v in smoke.CHANNEL_DILATED_WIDTHS.items()},
+           "chain_widths": list(smoke.CHANNEL_CHAIN_WIDTHS), "layers": list(smoke.CHANNEL_LAYERS)}
+    if library:
+        out["library_ms"] = lib
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     parser.add_argument("--tag", default="")
     parser.add_argument("--iters", type=int, default=10)
     parser.add_argument("--library", action="store_true")
+    parser.add_argument("--channels", action="store_true",
+                        help="time chip_smoke.py's channel widths instead of 64 channels")
     args = parser.parse_args(argv)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -89,6 +184,12 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     g = torch.Generator(device="cpu").manual_seed(0)
+    if args.channels:
+        report = {"tag": args.tag, "root": str(root), "device": torch.cuda.get_device_name(0),
+                  "nvidia_smi": smi, "build_seconds": build_s, "iters": args.iters,
+                  **channel_times(torch, F, bn_act, cc, cf, g, args.iters, args.library)}
+        print(json.dumps(report))
+        return 0
     C = SHAPE[-1]
     names = ("conv_dilated_fwd", "conv_dilated_fwd_data_gradient", "conv_dgrad", "conv_bn_act_fwd",
              "conv_wgrad", "conv_dilated_wgrad")

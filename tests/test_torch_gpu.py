@@ -889,7 +889,8 @@ def test_dilated_conv_kernels_match_plain_versions_on_card(layer, dtype):
 # Shapes with the halo in play: T under the dilated reach, F off the tiles,
 # B = 1; and more items than resident blocks.
 CHANNEL_WIDTHS = {"96": (96, 96), "128": (128, 128), "192": (192, 192), "64-128": (64, 128),
-                  "72-136": (72, 136)}
+                  "72-136": (72, 136), "256": (256, 256), "192-256": (192, 256), "320": (320, 320),
+                  "128-64": (128, 64)}
 CHANNEL_CASES = {
     "5x5-d16-T19": (((5, 5), 16), (2, 19, 150)),
     "7x1-d3-F37-B1": (((7, 1), 3), (1, 29, 37)),
@@ -1026,6 +1027,96 @@ def test_conv_kernels_keep_their_64_channel_bits_on_card():
     hashes = bits.conv_bits(torch, cc, cf)
     digest = hashlib.sha256(json.dumps(hashes, sort_keys=True).encode()).hexdigest()
     assert digest == CONV_BITS_AT_64, hashes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kf", [1, 3, 5])
+def test_wide_tile_table_is_the_c_planners_on_card(kf):
+    """`conv_cuda.fwd_tile` and `wgrad_tile`, the Python table of the wide
+    tiles (bf16 at other widths than 64), against the C planner's
+    (`csrc/conv_wide.cuh`, read through `conv_fwd_wide_tile` and
+    `conv_wgrad_wide_tile`) at every Cin, Cout multiple of 8 from 64 to 512
+    and every mode the forward body is built for."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import conv_cuda as cc
+
+    kt = {1: 7, 3: 7, 5: 5}[kf]
+    widths = range(64, 513, 8)
+    for cout in widths:
+        for mode in ("plain", "dgrad", "chain"):
+            if mode != "plain" and (cout % 64 or cout < 128):
+                continue  # the chain's modes take C a multiple of 64 above 64
+            lib = cc.wide_tile_of_library("fwd", 64, cout, kt, kf, mode)
+            table = cc.fwd_tile(72, cout, kt, kf, torch.bfloat16, mode)
+            assert all(table[k] == v for k, v in lib.items()), (cout, mode, lib, table)
+        for cin in widths:
+            if cin == cout == 64:
+                continue
+            lib = cc.wide_tile_of_library("wgrad", cin, cout, kt, kf)
+            table = cc.wgrad_tile(cin, cout, kf, torch.bfloat16)
+            assert all(table[k] == v for k, v in lib.items()), (cin, cout, lib, table)
+
+
+# (layer, T just past its reach): a warpgroup's sub-steps alternate between
+# products and none where its input or output row leaves [0, T)
+EDGE_LAYERS = {"5x5-d16-T40": ((5, 5), 16, 40), "5x5-d32-T70": ((5, 5), 32, 70)}
+EDGE_WIDTHS = {"128": (128, 128), "192": (192, 192), "320": (320, 320), "128-64": (128, 64)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layer", sorted(EDGE_LAYERS))
+@pytest.mark.parametrize("width", sorted(EDGE_WIDTHS))
+def test_wide_forward_body_at_the_edges_of_time_on_card(width, layer):
+    """The wide forward body (bf16) where its warpgroups' sub-steps switch
+    between products and none, B=1, 2048 positions (several items a block):
+    50 launches of `conv_dilated_fwd` (and, where Cin = Cout, of
+    `conv_bn_act_fwd` and `conv_dgrad`) on the same inputs give the first
+    launch's bits, and that one agrees with the plain version.  The refills
+    after a sub-step must wait for the previous one's products whether or
+    not this warpgroup issued any."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import conv_cuda as cc
+    from voicesplit_tpu_torch.ops import conv_fused as cf
+
+    cin, cout = EDGE_WIDTHS[width]
+    (kt, kf), dil, t = EDGE_LAYERS[layer]
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(1, t, 2048, cin, generator=g).to("cuda", torch.bfloat16)
+    d = torch.randn(1, t, 2048, cout, generator=g).to("cuda", torch.bfloat16)
+    w = (torch.randn(kt, kf, cin, cout, generator=g) * (kt * kf * cin) ** -0.5).to("cuda", torch.bfloat16)
+    runs = [(lambda: (cc.conv_dilated_fwd(x, w, dil),),
+             lambda: (cc.conv_dilated_fwd_round_once_ref(x, w, dil),), (1e-2,))]
+    if cin == cout:
+        bias = (0.1 * torch.randn(cin, generator=g)).cuda()
+        scal = cf._scal_table(torch.zeros(cin), torch.ones(cin), torch.ones(cin), torch.zeros(cin)).cuda()
+        wf = cf.pack_weight_flipped(w, torch.bfloat16)
+        runs.append((lambda: cf.conv_bn_act_fwd(x, w, bias, scal, dil, None, False),
+                     lambda: cf.conv_bn_act_fwd_ref(x, w, bias, scal, dil, None, False), (1e-2, 1e-3)))
+        runs.append((lambda: cf.conv_dgrad(d, wf, dil), lambda: cf.conv_dgrad_ref(d, wf, dil), (1e-2, 1e-3)))
+    for kernel, plain, tols in runs:
+        with torch.inference_mode():
+            first = kernel()
+            differ = sum(not all(torch.equal(a, b) for a, b in zip(first, kernel())) for _ in range(49))
+            want = plain()
+        torch.cuda.synchronize()
+        assert differ == 0, f"{differ} of 49 launches differ from the first"
+        for a, ref, limit in zip(first, want, tols):
+            assert bool(torch.isfinite(a).all())
+            assert (a.float() - ref.float()).abs().max().item() <= limit * ref.float().abs().max().item()
+
+
+@pytest.mark.gpu
+def test_no_wide_tile_instantiation_spills_on_card():
+    """Every instantiation of the wide-tile kernels in the built library
+    (`conv_cuda.wide_kernel_attributes`: the forward body plain at n 64-256,
+    its dgrad and chain modes at 128-256, the weight gradient at 64-128,
+    each at kf 1, 3 and 5) uses no local memory: nothing spills."""
+    _need_card()
+    from voicesplit_tpu_torch.ops import conv_cuda as cc
+
+    attrs = cc.wide_kernel_attributes()
+    assert len(attrs) == 42, sorted(attrs)
+    assert all(a["local_bytes"] == 0 and 0 < a["registers"] <= 255 for a in attrs.values()), attrs
 
 
 @pytest.mark.gpu

@@ -122,8 +122,12 @@
 //
 //   Channels.  Every tile above is 64 channels wide, and C = 64 in and out
 //   is its own compile-time instantiation (WIDE = false), as described.
-//   Any other Cin, Cout (WIDE = true; a multiple of 8, which the 16-byte
-//   copies need: ops/conv_cuda.py pads other counts) works in 64-wide
+//   Any other Cin, Cout (a multiple of 8, which the 16-byte copies need:
+//   ops/conv_cuda.py pads other counts) goes in bf16 to the wide-tile body
+//   of conv_fwd_wide.cu (all output channels of a group of up to 256 in one
+//   wgmma.m64nNk16 product; the tile from conv_wide.cuh's table), and in
+//   fp32 (WIDE = true, CUDA-core FMAs: the tests' instantiation) to the
+//   slab route of this body, as follows.  It works in 64-wide
 //   slabs.  An item also names one group of 64 output channels (groups
 //   outermost in the numbering, so that a run meets each group once) and
 //   walks the input channels in 64-wide slabs, each slab a pass over the
@@ -143,6 +147,7 @@
 //   fixed order.
 
 #include "conv_tile.cuh"
+#include "conv_wide.cuh"
 
 namespace {
 
@@ -337,6 +342,7 @@ __device__ __forceinline__ void conv_fwd_body(const T* __restrict__ x, const T* 
   constexpr int kTapElems = KF * kC * kC;
   constexpr bool kResidentW = resident_weights<KF, WIDE>();
   constexpr int pad_f = (KF - 1) / 2;
+  static_assert(!(WIDE && kTensorCore), "bf16 at other widths is conv_fwd_wide.cu's");
   const int cin = WIDE ? w.cin : kC, cout = WIDE ? w.cout : kC;
   const int n_slab = WIDE ? w.n_slab : 1;
   const int tid = threadIdx.x;
@@ -403,7 +409,6 @@ __device__ __forceinline__ void conv_fwd_body(const T* __restrict__ x, const T* 
       for (int half = 0; half < 2; ++half) {
         stage[32 * half + lane] = csum[half];
         stage[kC + 32 * half + lane] = csq[half];
-        if constexpr (WIDE) csum[half] = csq[half] = 0.0f;
       }
     } else {
       // the warp's two positions (lanes l, l ^ 16)
@@ -448,7 +453,6 @@ __device__ __forceinline__ void conv_fwd_body(const T* __restrict__ x, const T* 
           v += __shfl_xor_sync(0xffffffffu, v, 8);
           v += __shfl_xor_sync(0xffffffffu, v, 16);
           if (lane < 4) red[warp][16 * kk + 2 * lane + (e & 1) + 8 * (e >> 1)] = v;
-          if constexpr (WIDE) ds[kk][e] = 0.0f;
         }
       }
     } else {
@@ -652,7 +656,7 @@ __device__ __forceinline__ void conv_fwd_body(const T* __restrict__ x, const T* 
               v.z = sel4(rot[0], rot[1], rot[2], rot[3], (tig + 2) & 3);
               v.w = sel4(rot[0], rot[1], rot[2], rot[3], (tig + 1) & 3);
               const int ch = (4 * half + tig) * 8;  // this lane's 8 channels of the group
-              const bool inside = t < w.T && f < w.F && (!WIDE || co0 + ch < cout);
+              const bool inside = t < w.T && f < w.F;
               if (inside) {
                 *reinterpret_cast<uint4*>(out_row + size_t(f) * cout + ch) = v;
               }
@@ -738,9 +742,10 @@ auto fwd_kernel() {
 
 struct FwdPlan {
   FwdWork work;
-  bool wide;  // the instantiation for other channels than 64 in and out
+  bool wide;  // the instantiation for other channels than 64 in and out (fp32 here, bf16 wide tiles)
   int blocks, resident, registers, local_bytes;
   size_t smem, scratch;  // dynamic shared memory bytes; fp32 scratch elements
+  int rows;              // partial rows the sums reduce
 };
 
 template <typename T, int KF, int MODE, bool WIDE>
@@ -770,6 +775,7 @@ cudaError_t plan_kf(int B, int T_, int F, int cin, int cout, int kt, int dt, Fwd
   w.items = (long long)w.n_grp * B * w.n_ft * w.n_col;
   p->blocks = w.blocks = int(w.items < p->resident ? w.items : p->resident);
   p->scratch = size_t(w.blocks) * (MODE == kFwdDgrad ? cin : MODE == kFwdChain ? 2 * cout : 0);
+  p->rows = w.blocks;
   return cudaSuccess;
 }
 
@@ -790,7 +796,22 @@ cudaError_t plan(int B, int T_, int F, int cin, int cout, int kt, int kf, int dt
     return cudaErrorInvalidValue;
   }
   if (cin == kC && cout == kC) return plan_wide<T, MODE, false>(B, T_, F, cin, cout, kt, kf, dt, p);
-  return plan_wide<T, MODE, true>(B, T_, F, cin, cout, kt, kf, dt, p);
+  if constexpr (sizeof(T) == 2) {
+    wide::FwdWideInfo info;
+    cudaError_t err = wide::conv_fwd_wide_plan(B, T_, F, cin, cout, kt, kf, dt, MODE, &info);
+    if (err != cudaSuccess) return err;
+    p->wide = true;
+    p->blocks = info.blocks;
+    p->resident = info.resident;
+    p->registers = info.registers;
+    p->local_bytes = info.local_bytes;
+    p->smem = info.tile.smem;
+    p->scratch = size_t(info.scratch);
+    p->rows = info.partial_rows;
+    return cudaSuccess;
+  } else {
+    return plan_wide<T, MODE, true>(B, T_, F, cin, cout, kt, kf, dt, p);
+  }
 }
 
 // The kernel of MODE for kf frequency taps and the plan's channels on
@@ -806,7 +827,9 @@ void launch_kf(const FwdPlan& p, int kf, cudaStream_t stream, Args... args) {
 
 template <typename T, int MODE, typename... Args>
 cudaError_t launch_body(const FwdPlan& p, int kf, cudaStream_t stream, Args... args) {
-  if (p.wide) {
+  if constexpr (sizeof(T) == 2) {
+    launch_kf<T, MODE, false>(p, kf, stream, args...);  // other widths: conv_fwd_wide.cu
+  } else if (p.wide) {
     launch_kf<T, MODE, true>(p, kf, stream, args...);
   } else {
     launch_kf<T, MODE, false>(p, kf, stream, args...);
@@ -814,9 +837,20 @@ cudaError_t launch_body(const FwdPlan& p, int kf, cudaStream_t stream, Args... a
   return cudaGetLastError();
 }
 
+// bf16 at other widths than 64 goes to conv_fwd_wide.cu
+template <typename T>
+bool takes_tiles(int cin, int cout) {
+  return sizeof(T) == 2 && !(cin == kC && cout == kC);
+}
+
 template <typename T>
 cudaError_t launch_fwd(const void* x, const void* w, void* out, int B, int T_, int F, int cin,
                        int cout, int kt, int kf, int dt, cudaStream_t stream) {
+  if (takes_tiles<T>(cin, cout)) {
+    wide::FwdWideInfo info;
+    return wide::conv_fwd_wide_launch(kFwdPlain, x, w, nullptr, out, nullptr, B, T_, F, cin, cout, kt, kf, dt,
+                                      stream, &info);
+  }
   FwdPlan p;
   cudaError_t err = plan<T, kFwdPlain>(B, T_, F, cin, cout, kt, kf, dt, &p);
   if (err != cudaSuccess) return err;
@@ -830,21 +864,31 @@ template <typename T, int MODE>
 cudaError_t launch_with_sums(const void* x, const void* w, const float* bias, void* out,
                              void* sums, void* scratch, int B, int T_, int F, int C, int kt, int kf,
                              int dt, cudaStream_t stream) {
-  FwdPlan p;
-  cudaError_t err = plan<T, MODE>(B, T_, F, C, C, kt, kf, dt, &p);
-  if (err != cudaSuccess) return err;
-  const T* x_ = static_cast<const T*>(x);
-  const T* w_ = static_cast<const T*>(w);
   float* partials = static_cast<float*>(scratch);
-  if constexpr (MODE == kFwdChain) {
-    err = launch_body<T, MODE>(p, kf, stream, x_, w_, bias, static_cast<T*>(out), partials);
+  cudaError_t err;
+  int rows;  // the partial rows the launch wrote
+  if (takes_tiles<T>(C, C)) {
+    wide::FwdWideInfo info;
+    err = wide::conv_fwd_wide_launch(MODE, x, w, bias, out, partials, B, T_, F, C, C, kt, kf, dt, stream,
+                                     &info);
+    rows = info.partial_rows;
   } else {
-    err = launch_body<T, MODE>(p, kf, stream, x_, w_, static_cast<T*>(out), partials);
+    FwdPlan p;
+    err = plan<T, MODE>(B, T_, F, C, C, kt, kf, dt, &p);
+    if (err != cudaSuccess) return err;
+    rows = p.rows;
+    const T* x_ = static_cast<const T*>(x);
+    const T* w_ = static_cast<const T*>(w);
+    if constexpr (MODE == kFwdChain) {
+      err = launch_body<T, MODE>(p, kf, stream, x_, w_, bias, static_cast<T*>(out), partials);
+    } else {
+      err = launch_body<T, MODE>(p, kf, stream, x_, w_, static_cast<T*>(out), partials);
+    }
   }
   if (err != cudaSuccess) return err;
   const int width = MODE == kFwdChain ? 2 * C : C;
   reduce_rows_kernel<32><<<(width + 31) / 32, dim3(32, 32), 0, stream>>>(
-      partials, p.blocks, width, static_cast<float*>(sums));
+      partials, rows, width, static_cast<float*>(sums));
   return cudaGetLastError();
 }
 

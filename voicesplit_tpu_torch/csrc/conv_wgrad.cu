@@ -98,8 +98,12 @@
 //
 //   Channels.  Every tile above is 64 channels wide, and C = 64 in and out
 //   is its own compile-time instantiation (WIDE = false), as described.  Any
-//   other Cin, Cout (WIDE = true; a multiple of 8, which the 16-byte copies
-//   need) is worked in pairs of a 64-wide input slab and a 64-wide output
+//   other Cin, Cout (a multiple of 8, which the 16-byte copies need) goes in
+//   bf16 to conv_wgrad_wide.cu (wgmma.m64nNk16 over all output channels of
+//   a group of up to 128, the tiles of a tap in segments; the tile from
+//   conv_wide.cuh's table) and in fp32 (WIDE = true, CUDA-core FMAs: the
+//   tests' instantiation) to the pair route of these kernels: it is
+//   worked in pairs of a 64-wide input slab and a 64-wide output
 //   group: an item also names its pair (pairs outermost in the numbering,
 //   then as above), stages that slab of y and that group of d (channels past
 //   Cin or Cout read as zero, as the halo) and computes that 64 x 64 block
@@ -111,6 +115,7 @@
 //   reads its per-channel table for any C, a multiple of 8.
 
 #include "conv_tile.cuh"
+#include "conv_wide.cuh"
 
 namespace {
 
@@ -228,6 +233,7 @@ conv_wgrad_kernel(const T* __restrict__ y, const T* __restrict__ d, float* __res
                   const WgradWork work) {
   constexpr int LD = Ld<T>::value;
   constexpr bool kTensorCore = sizeof(T) == 2;
+  static_assert(!(WIDE && kTensorCore), "bf16 at other widths is conv_wgrad_wide.cu's");
   constexpr size_t kStage = wgrad_stage_bytes<T, KF>();
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -395,6 +401,7 @@ conv_wgrad_kf1_kernel(const T* __restrict__ y, const T* __restrict__ d, float* _
                       const ColumnWork w) {
   constexpr int LD = Ld<T>::value;
   constexpr bool kTensorCore = sizeof(T) == 2;
+  static_assert(!(WIDE && kTensorCore), "bf16 at other widths is conv_wgrad_wide.cu's");
   constexpr size_t kTile = col_tile_bytes<T>();
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -683,7 +690,7 @@ struct WgradPlan {
   WgradWork work;   // kf 3, 5
   ColumnWork cols;  // kf 1
   SegRows segs;     // the reduction into dW
-  bool wide;        // the instantiation for other channels than 64 in and out
+  bool wide;        // other channels than 64 in and out (fp32 here, bf16 conv_wgrad_wide.cu)
   int blocks, groups;
   int resident, registers, local_bytes;
   size_t smem, scratch;  // dynamic shared memory bytes; fp32 scratch elements
@@ -792,7 +799,21 @@ cudaError_t plan(int B, int T_, int F, int cin, int cout, int kt, int kf, int dt
     return cudaErrorInvalidValue;
   }
   if (cin == kC && cout == kC) return plan_wide<T, false>(B, T_, F, cin, cout, kt, kf, dt, p);
-  return plan_wide<T, true>(B, T_, F, cin, cout, kt, kf, dt, p);
+  if constexpr (sizeof(T) == 2) {
+    wide::WgradWideInfo info;
+    cudaError_t err = wide::conv_wgrad_wide_plan(B, T_, F, cin, cout, kt, kf, dt, &info);
+    if (err != cudaSuccess) return err;
+    p->wide = true;
+    p->blocks = info.blocks;
+    p->resident = info.resident;
+    p->registers = info.registers;
+    p->local_bytes = info.local_bytes;
+    p->smem = info.tile.smem;
+    p->scratch = size_t(info.scratch);
+    return cudaSuccess;
+  } else {
+    return plan_wide<T, true>(B, T_, F, cin, cout, kt, kf, dt, p);
+  }
 }
 
 template <typename T, bool WIDE>
@@ -808,13 +829,19 @@ void launch_kf(const WgradPlan& p, int kf, const T* y, const T* d, float* partia
 template <typename T>
 cudaError_t launch_wgrad(const void* y, const void* d, void* dw, void* scratch, int B, int T_,
                          int F, int cin, int cout, int kt, int kf, int dt, cudaStream_t stream) {
+  if (sizeof(T) == 2 && !(cin == kC && cout == kC)) {
+    return wide::conv_wgrad_wide_launch(y, d, dw, static_cast<float*>(scratch), B, T_, F, cin, cout, kt, kf, dt,
+                                        stream);
+  }
   WgradPlan p;
   cudaError_t err = plan<T>(B, T_, F, cin, cout, kt, kf, dt, &p);
   if (err != cudaSuccess) return err;
   const T* y_ = static_cast<const T*>(y);
   const T* d_ = static_cast<const T*>(d);
   float* partials = static_cast<float*>(scratch);
-  if (p.wide) {
+  if constexpr (sizeof(T) == 2) {
+    launch_kf<T, false>(p, kf, y_, d_, partials, stream);  // other widths: conv_wgrad_wide.cu
+  } else if (p.wide) {
     launch_kf<T, true>(p, kf, y_, d_, partials, stream);
   } else {
     launch_kf<T, false>(p, kf, y_, d_, partials, stream);

@@ -45,8 +45,12 @@ versions run only for tensors on the CPU.  Each kernel launch adds one to
 fake implementation for `torch.export`), which the differentiable conv calls
 for its forward and its data gradient.  The kernels take every channel count
 that `takes_layer` sends them, at least 64 in and out, Cin and Cout apart
-(64 in and out is a compile-time instantiation of its own; other counts go
-through 64-wide slabs of input and groups of output channels), bf16 or fp32
+(64 in and out is a compile-time instantiation of its own; other counts in
+bf16 take the wide tiles of `csrc/conv_fwd_wide.cu` and
+`csrc/conv_wgrad_wide.cu`, all output channels of a group in one wgmma
+product, the tile from the shape before the launch (`fwd_tile`,
+`wgrad_tile`); in fp32 64-wide slabs of input and groups of output
+channels), bf16 or fp32
 operands (fp32 products on CUDA cores, not TF32) and kf in (1, 3, 5), the
 forward at most `conv_fused.FWD_KERNEL_MAX_KT` time taps.  A channel count
 that is not a multiple of `CHANNEL_ALIGN` (the 16-byte copies' width) is
@@ -77,6 +81,20 @@ CHANNEL_ALIGN = 8  # channels of one 16-byte bf16 copy: the kernels take multipl
 _WGRAD_KF = (1, 3, 5)  # frequency tap counts the weight-gradient kernel is built for
 _MAX_TAPS = 7
 
+# The kernels' tiles by shape, chosen before any launch (`fwd_tile`,
+# `wgrad_tile`): the mirror of the C planners, `csrc/conv_wide.cuh` for bf16
+# at other widths than 64 (the wide-tile routes; C = 64 and fp32 keep the
+# fixed tiles of `csrc/conv_fwd.cu` and `csrc/conv_wgrad.cu`, named by their
+# route alone).  `chip_smoke.py` holds the C table (`wide_tile_of_library`)
+# to this one at every shape it launches.
+SMEM_LIMIT = 232448  # dynamic shared memory bytes a block may take on an H100 (227 KB)
+ACCUMULATOR_LIMIT = 192  # fp32 accumulators a thread that a tile may take
+FWD_WIDTHS = (64, 96, 128, 192, 256)  # wgmma widths of the wide forward (conv_fwd_wide.cu)
+WGRAD_WIDTHS = (64, 96, 128)  # and of the wide weight gradient (conv_wgrad_wide.cu)
+FWD_MODES = {"plain": 0, "dgrad": 1, "chain": 2}
+_ALIGN, _WARPS, _STAGES = 1024, 8, 3
+_STATIC = 1024  # kept for the wide kernels' static shared memory (their mbarriers)
+
 _declared = False
 
 
@@ -95,8 +113,13 @@ def _library() -> ctypes.CDLL:
     global _declared
     if not _declared:
         p, i = ctypes.c_void_p, ctypes.c_int
+        ip, lp = ctypes.POINTER(i), ctypes.POINTER(ctypes.c_longlong)
         _build.declare({
             "conv_dilated_fwd": [p] * 3 + [i] * 9 + [p],
+            "conv_fwd_wide_tile": [i] * 4 + [ip] * 7 + [lp],
+            "conv_wgrad_wide_tile": [i] * 3 + [ip] * 7 + [lp],
+            "conv_fwd_wide_attributes": [i] * 3 + [ip] * 2,
+            "conv_wgrad_wide_attributes": [i] * 2 + [ip] * 2,
         })
         _declared = True
     return _build.library()
@@ -106,6 +129,121 @@ def flip_weight(w: torch.Tensor) -> torch.Tensor:
     """The data gradient's weights: taps flipped, channels transposed
     (``[kt, kf, Cin, Cout]`` → ``[kt, kf, Cout, Cin]``)."""
     return w.flip(0, 1).transpose(2, 3).contiguous()
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _route(cin: int, cout: int, dtype: torch.dtype) -> str:
+    if cin == CHANNEL_SLAB and cout == CHANNEL_SLAB:
+        return "64"
+    return "tiles" if dtype == torch.bfloat16 else "slab"
+
+
+def _fwd_width(channels: int) -> int:
+    return next(n for n in FWD_WIDTHS if channels <= n) if channels <= FWD_WIDTHS[-1] else FWD_WIDTHS[-1]
+
+
+def fwd_tile(cin: int, cout: int, kt: int, kf: int, dtype: torch.dtype, mode: str = "plain") -> dict:
+    """The forward / data-gradient kernel's tile for ``[kt, kf, cin, cout]``
+    weights in `dtype` and `mode` ("plain": `conv_dilated_fwd`, "dgrad":
+    `conv_fused.conv_dgrad`, "chain": `conv_fused.conv_bn_act_fwd`), as the C
+    planner picks it before the launch: the ``route`` ("64": the C = 64
+    instantiation, "slab": fp32 at other widths in 64-wide slabs and groups,
+    "tiles": bf16 at other widths, `conv_fwd_wide.cu`) and, on "tiles", the
+    wide tile of `csrc/conv_wide.cuh`: output ``groups`` and their wgmma
+    width ``n``, ``mt`` m64 tiles a warpgroup, ``rows`` x ``tf`` positions an
+    item, ``ring`` input row tiles, ``wbufs`` weight slices in flight,
+    ``smem_bytes`` and ``accumulators`` (fp32 a thread)."""
+    route = _route(cin, cout, dtype)
+    if route != "tiles":
+        return {"route": route}
+    groups = -(-cout // 256)
+    n = _fwd_width(-(-cout // groups))
+    mt = 2 if n <= 128 else 1
+    tf, ring = 64 * mt, kt + 3
+    ring_bytes = ring * _round_up((tf + kf - 1) * CHANNEL_SLAB * 2, _ALIGN)  # 1024-byte slots
+    slice_bytes = CHANNEL_SLAB * _round_up(n, 64) * 2
+    extra = {"chain": _WARPS * (2 * n + 128) * 4, "dgrad": _WARPS * CHANNEL_SLAB * 4}.get(mode, 0)
+    for wbufs in (4, 3, 2):
+        smem = ring_bytes + wbufs * slice_bytes + extra + _ALIGN
+        if smem + _STATIC <= SMEM_LIMIT:
+            break
+    return {"route": route, "n": n, "groups": groups, "mt": mt, "rows": 2, "tf": tf, "ring": ring,
+            "wbufs": wbufs, "smem_bytes": smem, "accumulators": mt * n // 2}
+
+
+def wgrad_tile(cin: int, cout: int, kf: int, dtype: torch.dtype) -> dict:
+    """The weight-gradient kernel's tile for inputs of `cin` and a
+    cotangent of `cout` channels, kf frequency taps, in `dtype`, as the C
+    planner picks it: the ``route`` (as `fwd_tile`) and, on "tiles", output
+    ``groups`` of wgmma width ``n``, ``tw`` m64 x n tiles a warpgroup, each
+    time tap's (input slab, frequency tap) tiles cut into ``segs`` segments
+    of at most ``seg_tiles`` tiles touching ``slabs`` input slabs, ``tf``
+    positions an item, ``smem_bytes`` and ``accumulators`` (fp32 a
+    thread)."""
+    route = _route(cin, cout, dtype)
+    if route != "tiles":
+        return {"route": route}
+    groups = -(-cout // 128)
+    per = -(-cout // groups)
+    n = next(w for w in WGRAD_WIDTHS if per <= w)
+    tw, tf = (4 if n <= 64 else 3 if n <= 96 else 2), 128
+    d_bytes = _round_up(n, 64) * tf * 2
+    y_bytes = _round_up((tf + kf - 1) * CHANNEL_SLAB * 2, _ALIGN)  # a slab of y, 1024-byte aligned
+    n_tiles, cap = -(-cin // CHANNEL_SLAB) * kf, 2 * tw
+    for segs in range(-(-n_tiles // cap), n_tiles + 1):
+        bounds = [(s * n_tiles // segs, (s + 1) * n_tiles // segs) for s in range(segs)]
+        slabs = max((hi - 1) // kf - lo // kf + 1 for lo, hi in bounds)
+        stage = _round_up(d_bytes + slabs * y_bytes, _ALIGN)
+        if slabs <= 4 and _STAGES * stage + _ALIGN + _STATIC <= SMEM_LIMIT:
+            return {"route": route, "n": n, "groups": groups, "tw": tw, "segs": segs,
+                    "seg_tiles": max(hi - lo for lo, hi in bounds), "slabs": slabs, "tf": tf,
+                    "smem_bytes": _STAGES * stage + _ALIGN, "accumulators": tw * n // 2}
+    raise ValueError(f"no weight-gradient tile fits {cin} -> {cout}, kf {kf}")
+
+
+def wide_tile_of_library(kind: str, cin: int, cout: int, kt: int, kf: int, mode: str = "plain") -> dict:
+    """The C table's tile of the wide-tile routes (bf16 at other widths), read
+    from the built library without a launch (`conv_fwd_wide_tile`,
+    `conv_wgrad_wide_tile`): the keys of `fwd_tile` (kind "fwd") or
+    `wgrad_tile` (kind "wgrad") but ``route`` and ``accumulators``."""
+    lib = _library()
+    vals = [ctypes.c_int() for _ in range(7)]
+    smem = ctypes.c_longlong()
+    if kind == "fwd":
+        keys = ("n", "groups", "mt", "rows", "tf", "ring", "wbufs")
+        err = lib.conv_fwd_wide_tile(cout, kt, kf, FWD_MODES[mode], *map(ctypes.byref, vals), ctypes.byref(smem))
+    else:
+        keys = ("n", "groups", "tw", "segs", "seg_tiles", "slabs", "tf")
+        err = lib.conv_wgrad_wide_tile(cin, cout, kf, *map(ctypes.byref, vals), ctypes.byref(smem))
+    _build.raise_on(err, f"conv_{kind}_wide_tile")
+    return {**{k: v.value for k, v in zip(keys, vals)}, "smem_bytes": smem.value}
+
+
+def wide_kernel_attributes() -> dict:
+    """Registers and local (spilled) bytes a thread of every instantiation
+    of the wide-tile kernels in the built library, read without a launch
+    (`conv_fwd_wide_attributes`, `conv_wgrad_wide_attributes`): keys
+    ``"fwd/<mode>/kf<kf>/n<n>"`` (the chain's modes are built for n >= 128)
+    and ``"wgrad/kf<kf>/n<n>"``."""
+    lib = _library()
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    out = {}
+    for kf in _WGRAD_KF:
+        for mode, code in FWD_MODES.items():
+            for n in FWD_WIDTHS:
+                if mode != "plain" and n < 128:
+                    continue
+                err = lib.conv_fwd_wide_attributes(kf, code, n, ctypes.byref(regs), ctypes.byref(local))
+                _build.raise_on(err, f"conv_fwd_wide_attributes({kf}, {mode}, {n})")
+                out[f"fwd/{mode}/kf{kf}/n{n}"] = {"registers": regs.value, "local_bytes": local.value}
+        for n in WGRAD_WIDTHS:
+            err = lib.conv_wgrad_wide_attributes(kf, n, ctypes.byref(regs), ctypes.byref(local))
+            _build.raise_on(err, f"conv_wgrad_wide_attributes({kf}, {n})")
+            out[f"wgrad/kf{kf}/n{n}"] = {"registers": regs.value, "local_bytes": local.value}
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -56,8 +56,9 @@ sums for the train step's gradient all-reduce.
 Dispatch: a CUDA tensor goes to the kernel, or the call raises; the plain
 versions run only for tensors on the CPU.  Each kernel launch adds one to
 ``LAUNCHES[name]``.  The kernels take any C that is a multiple of
-`CHANNEL_SLAB` (64: a compile-time instantiation of their own; above it the
-same tiles walk 64-wide slabs and groups of channels), odd kernel sizes,
+`CHANNEL_SLAB` (64: a compile-time instantiation of their own; above it
+bf16 takes the wide tiles, `conv_cuda.fwd_tile` / `wgrad_tile`, and fp32
+walks 64-wide slabs and groups of channels), odd kernel sizes,
 frequency dilation 1, and bf16 or fp32 operands (fp32 products on CUDA
 cores, not TF32); `conv_bn_act_fwd` and `conv_dgrad` the taps of
 `FWD_KERNEL_MAX_KT`.  The JAX model takes the chain at any C with
@@ -84,9 +85,10 @@ from voicesplit_tpu_torch.parallel.mesh import sum_over_ranks_
 LAUNCHES = {"conv_bn_act_fwd": 0, "conv_dgrad": 0, "conv_wgrad": 0, "conv_wgrad_prologue": 0,
             "conv_draw_prologue": 0}
 
-# the conv kernels' tile width in channels: C = 64 in and out is an
-# instantiation of its own, other counts are walked in slabs (inputs) and
-# groups (outputs) of it; the chain's kernels take multiples of it
+# the conv kernels' input slab in channels: C = 64 in and out is an
+# instantiation of its own, other counts walk their input channels in slabs
+# of it (bf16: with all output channels of a group at once; fp32: and output
+# groups of it); the chain's kernels take multiples of it
 CHANNEL_SLAB = 64
 # time taps the forward / data-gradient kernels (`csrc/conv_fwd.cu`) take, by
 # frequency taps: an item's input rows in flight and the weights must fit one

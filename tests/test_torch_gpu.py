@@ -8,6 +8,7 @@ card: ``python -m pytest tests/test_torch_gpu.py -m gpu``.
 """
 
 import importlib.util
+import json
 import pathlib
 
 import numpy as np
@@ -1159,6 +1160,51 @@ def test_dilated_conv_switch_runs_through_the_kernels_on_card(mode, monkeypatch)
     assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
     for k, v in model.state_dict().items():
         assert not torch.equal(v, before[k]), k
+
+
+@pytest.mark.gpu
+def test_spans_hold_the_calls_launches_on_card(monkeypatch, tmp_path):
+    """A B=1 call with `VOICESPLIT_PALLAS_CONV=1` under the profiler: every
+    kernel it launched starts after its top span starts, and the launch calls
+    inside that span number at least the port's own counters' increase (6
+    `conv_dilated_fwd` + 2 `lstm_fwd`), so the profiler sees the kernels
+    launched through ctypes."""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+
+    from voicesplit_tpu_torch import weights
+    from voicesplit_tpu_torch.cli.separate import separate_batch
+    from voicesplit_tpu_torch.ops import conv_cuda, lstm_cuda
+
+    monkeypatch.setenv("VOICESPLIT_PALLAS_CONV", "1")
+    cfg = load_config(str(REPO / "configs" / "voicefilter.json"))
+    ap = make_audio_processor(cfg)
+    model = weights.init_random_(make_masknet(cfg), seed=0)
+    rng = np.random.default_rng(0)
+    mixed = (0.1 * rng.standard_normal((1, 48000))).astype(np.float32)
+    emb = rng.standard_normal((1, 256)).astype(np.float32)
+    separate_batch(model, ap, mixed, emb)  # the build and the DSP's bases
+    torch.cuda.synchronize()
+
+    def counted():
+        return sum(conv_cuda.LAUNCHES.values()) + sum(lstm_cuda.LAUNCHES.values())
+
+    before = counted()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        separate_batch(model, ap, mixed, emb)
+        torch.cuda.synchronize()
+    grew = counted() - before
+    assert grew == 8
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    (top,) = [e for e in events if e.get("cat") == "user_annotation"
+              and e["name"] == "voicesplit.separate_batch"]
+    start, end = top["ts"], top["ts"] + top["dur"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    assert kernels and all(e["ts"] >= start for e in kernels)
+    launches = [e["name"] for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "Launch" in e["name"] and start <= e["ts"] <= end]
+    assert len(launches) >= grew, sorted(set(launches))
 
 
 @pytest.mark.gpu

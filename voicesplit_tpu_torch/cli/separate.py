@@ -46,19 +46,21 @@ import torch
 
 from voicesplit_tpu_torch.dsp.processor import AudioProcessor
 from voicesplit_tpu_torch.models.masknet import MaskNet
+from voicesplit_tpu_torch.utils.profiling import span
 
 def separate_batch(
     model: MaskNet, ap: AudioProcessor, mixed, emb
 ) -> torch.Tensor:
     """Mixtures ``[B, L]`` and d-vectors ``[B, emb]`` → separated ``[B, L]``
     (float32, on the model's device)."""
-    dev = next(model.parameters()).device
-    mixed = torch.as_tensor(mixed, dtype=torch.float32, device=dev)
-    emb = torch.as_tensor(emb, dtype=torch.float32, device=dev)
-    with torch.inference_mode():
-        spec, phase = ap.wav2spec_batch(mixed)
-        mask = model(spec, emb)
-        return ap.spec2wav_batch(mask * spec, phase, length=mixed.shape[-1])
+    with span("voicesplit.separate_batch"):
+        dev = next(model.parameters()).device
+        mixed = torch.as_tensor(mixed, dtype=torch.float32, device=dev)
+        emb = torch.as_tensor(emb, dtype=torch.float32, device=dev)
+        with torch.inference_mode():
+            spec, phase = ap.wav2spec_batch(mixed)
+            mask = model(spec, emb)
+            return ap.spec2wav_batch(mask * spec, phase, length=mixed.shape[-1])
 
 
 def main(argv=None):

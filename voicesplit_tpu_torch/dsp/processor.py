@@ -43,6 +43,7 @@ from voicesplit_tpu_torch.dsp.normalize import (
     preemphasis,
 )
 from voicesplit_tpu_torch.dsp.stft import _constant, istft_magphase, num_frames, stft, stft_magphase
+from voicesplit_tpu_torch.utils.profiling import span
 
 
 class AudioProcessor:
@@ -106,20 +107,21 @@ class AudioProcessor:
         voicefilter: ``normalize(amp_to_db(|STFT|) - ref_level_db)`` and the
         raw phase.  wavernn / waveglow apply their own normalization, and
         with ``mel_spec`` return mel spectrograms ``[..., T, n_mels]``."""
-        if self.preemph != 0.0:
-            y = preemphasis(y, self.preemph)
-        mag, phase = stft_magphase(y, self.n_fft, self.hop_length, self.win_length)
-        if self.backend == "voicefilter":
-            S = amp_to_db(mag) - self.ref_level_db
-            return normalize_db(S, self.min_level_db), phase
-        if self.mel_spec:
-            mag = self.mag_to_mel(mag)
-        if self.backend == "waveglow":
-            # natural-log magnitudes, ln(max(x, 1e-5)), no dB normalization
-            # (reference `utils/audio.py:49-61`)
-            return torch.log(torch.clamp(mag, min=1e-5)), phase
-        S = self._amp_to_db_floored(mag) - self.ref_level_db
-        return self._normalize_generic(S), phase
+        with span("voicesplit.wav2spec"):
+            if self.preemph != 0.0:
+                y = preemphasis(y, self.preemph)
+            mag, phase = stft_magphase(y, self.n_fft, self.hop_length, self.win_length)
+            if self.backend == "voicefilter":
+                S = amp_to_db(mag) - self.ref_level_db
+                return normalize_db(S, self.min_level_db), phase
+            if self.mel_spec:
+                mag = self.mag_to_mel(mag)
+            if self.backend == "waveglow":
+                # natural-log magnitudes, ln(max(x, 1e-5)), no dB normalization
+                # (reference `utils/audio.py:49-61`)
+                return torch.log(torch.clamp(mag, min=1e-5)), phase
+            S = self._amp_to_db_floored(mag) - self.ref_level_db
+            return self._normalize_generic(S), phase
 
     def mag_to_mel(self, mag: torch.Tensor) -> torch.Tensor:
         """Linear magnitudes ``[..., T, F]`` → mel ``[..., T, n_mels]``."""
@@ -147,13 +149,14 @@ class AudioProcessor:
         """Differentiable mixed-phase inversion ``[..., T, F]`` → ``[..., L]``:
         the backend's denormalization, then the iSTFT with the given
         (mixture) phase; wavernn undoes its preemphasis."""
-        wav = istft_magphase(
-            self._magnitude(spec), phase, self.n_fft, self.hop_length, self.win_length,
-            window=self.synthesis_window, length=length,
-        )
-        if self.preemph != 0.0:
-            wav = inv_preemphasis(wav, self.preemph)
-        return wav
+        with span("voicesplit.spec2wav"):
+            wav = istft_magphase(
+                self._magnitude(spec), phase, self.n_fft, self.hop_length, self.win_length,
+                window=self.synthesis_window, length=length,
+            )
+            if self.preemph != 0.0:
+                wav = inv_preemphasis(wav, self.preemph)
+            return wav
 
     def mel_batch(self, y: torch.Tensor) -> torch.Tensor:
         """GE2E mels ``log10(mel @ |STFT|² + 1e-6)`` as ``[..., n_mels, T]``

@@ -93,6 +93,7 @@ from voicesplit_tpu_torch.models.lstm import BiLSTM, UniLSTM
 from voicesplit_tpu_torch.ops.bn_act import bn_act_eval, bn_act_train, mish
 from voicesplit_tpu_torch.ops.conv_cuda import conv2d_dilated_bias, pallas_conv_enabled, takes_layer
 from voicesplit_tpu_torch.ops.conv_fused import fused_chain_enabled, make_chain
+from voicesplit_tpu_torch.utils.profiling import span
 
 __all__ = ["BatchNorm", "ConvBlock", "MaskNet", "extra_dilated_specs", "make_masknet", "mish",
            "remat_convs_enabled"]
@@ -295,34 +296,35 @@ class MaskNet(nn.Module):
         sequence-parallel engine (`parallel/sequence.py`) marks its halos
         outside the utterance and its alignment padding so.  An all-ones mask
         leaves the output's bits unchanged.  The fused chain takes none."""
-        B, T, F = spec.shape
-        mask = None
-        if edge_mask is not None:
-            mask = edge_mask.to(self.compute_dtype)[:, None, :, None]  # [B or 1, 1, T, 1]
+        with span("voicesplit.convs"):
+            B, T, F = spec.shape
+            mask = None
+            if edge_mask is not None:
+                mask = edge_mask.to(self.compute_dtype)[:, None, :, None]  # [B or 1, 1, T, 1]
 
-        def apply_mask(h):
-            return h if mask is None else h * mask
+            def apply_mask(h):
+                return h if mask is None else h * mask
 
-        x = apply_mask(spec.to(self.compute_dtype)[:, None])  # [B, 1, T, F]
-        if self.causal:
-            # the library conv only: the conv kernels compute "same" convs
-            for name in self.block_names:
-                x = apply_mask(getattr(self, name)(x))
-        elif pallas_conv_enabled():
-            if self._use_fused_chain():
-                raise ValueError(
-                    "VOICESPLIT_PALLAS_CONV=1 and VOICESPLIT_FUSED_CHAIN=1 are both set: "
-                    "a training forward takes one conv path, not both"
-                )
-            x = self._dilated_conv_features(x, apply_mask)
-        elif self._use_fused_chain():
-            if mask is not None:
-                raise NotImplementedError("edge_mask is not supported by the fused conv chain")
-            x = self._fused_chain_features(x)
-        else:
-            for name in self.block_names:
-                x = apply_mask(getattr(self, name)(x))
-        return x.permute(0, 2, 3, 1).reshape(B, T, F * self.conv_out_channels)
+            x = apply_mask(spec.to(self.compute_dtype)[:, None])  # [B, 1, T, F]
+            if self.causal:
+                # the library conv only: the conv kernels compute "same" convs
+                for name in self.block_names:
+                    x = apply_mask(getattr(self, name)(x))
+            elif pallas_conv_enabled():
+                if self._use_fused_chain():
+                    raise ValueError(
+                        "VOICESPLIT_PALLAS_CONV=1 and VOICESPLIT_FUSED_CHAIN=1 are both set: "
+                        "a training forward takes one conv path, not both"
+                    )
+                x = self._dilated_conv_features(x, apply_mask)
+            elif self._use_fused_chain():
+                if mask is not None:
+                    raise NotImplementedError("edge_mask is not supported by the fused conv chain")
+                x = self._fused_chain_features(x)
+            else:
+                for name in self.block_names:
+                    x = apply_mask(getattr(self, name)(x))
+            return x.permute(0, 2, 3, 1).reshape(B, T, F * self.conv_out_channels)
 
     def _use_fused_chain(self) -> bool:
         """The JAX model's conditions (`masknet.py:385-395`): train mode, not
@@ -404,20 +406,22 @@ class MaskNet(nn.Module):
                   lstm_carry: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
         """The mask ``[B, T, F]`` (fp32); a streaming model returns
         ``(mask, (h, c))``, the LSTM's carry after the last frame."""
-        B, T, _ = features.shape
-        cd = self.compute_dtype
-        emb_t = emb.to(cd)[:, None, :].expand(B, T, self.emb_dim)
-        x = torch.cat([features, emb_t], dim=-1)  # [B, T, 8F + emb]
-        x = self._drop(x, dropout_generator)
-        if self.streaming:
-            x, carry = self.lstm(x, lstm_carry)
-        else:
-            x = self.lstm(x)
-        x = torch.relu(x)  # post-LSTM ReLU of both reference models
-        x = self._drop(x, dropout_generator)
-        x = torch.relu(self._dense(self.fc1, x))
-        mask = torch.sigmoid(self._dense(self.fc2, x).float())  # fp32 [B, T, F]
-        return (mask, carry) if self.streaming else mask
+        with span("voicesplit.head"):
+            B, T, _ = features.shape
+            cd = self.compute_dtype
+            emb_t = emb.to(cd)[:, None, :].expand(B, T, self.emb_dim)
+            x = torch.cat([features, emb_t], dim=-1)  # [B, T, 8F + emb]
+            x = self._drop(x, dropout_generator)
+            with span("voicesplit.lstm"):
+                if self.streaming:
+                    x, carry = self.lstm(x, lstm_carry)
+                else:
+                    x = self.lstm(x)
+            x = torch.relu(x)  # post-LSTM ReLU of both reference models
+            x = self._drop(x, dropout_generator)
+            x = torch.relu(self._dense(self.fc1, x))
+            mask = torch.sigmoid(self._dense(self.fc2, x).float())  # fp32 [B, T, F]
+            return (mask, carry) if self.streaming else mask
 
     def forward(self, spec: torch.Tensor, emb: torch.Tensor,
                 dropout_generator: Optional[torch.Generator] = None,

@@ -65,6 +65,7 @@ from voicesplit_tpu_torch.train.state import (
     global_norm,
     learning_rate,
 )
+from voicesplit_tpu_torch.utils.profiling import span
 
 Batch = Mapping[str, object]
 Metrics = Dict[str, torch.Tensor]
@@ -121,6 +122,10 @@ def make_train_step(
     params = [p for p in model.parameters() if p.requires_grad]
 
     def train_step(state: TrainState, batch: Batch) -> Metrics:
+        with span("voicesplit.train_step"):
+            return _train_step(state, batch)
+
+    def _train_step(state: TrainState, batch: Batch) -> Metrics:
         if state.model is not model or state.optimizer is not optimizer:
             raise ValueError("the state carries another model or optimizer than this step's")
         b = _to_device(batch, ap.device)
@@ -141,22 +146,25 @@ def make_train_step(
             mask = mask[0]
         # the estimate multiplies the clean mixture spec: SpecAugment
         # corrupts the mask net's input, not the signal path
-        loss = _loss_from_outputs(
-            config, ap, mask * mixed_spec, target_spec, mixed_phase, b["wav_len"]
-        )
-        loss.backward()
+        with span("voicesplit.loss"):
+            loss = _loss_from_outputs(
+                config, ap, mask * mixed_spec, target_spec, mixed_phase, b["wav_len"]
+            )
+        with span("voicesplit.backward"):
+            loss.backward()
         grads = [p.grad for p in params]
         loss = loss.detach().float()
         if group_active():
             loss = mean_over_ranks_(loss, grads)
-        grad_norm = global_norm(grads)
-        if tc.grad_clip_norm:
-            clip_by_global_norm_(grads, grad_norm, tc.grad_clip_norm)
-        if state.shards is not None:
-            state.shards.scatter_grads_()
-        for group in optimizer.param_groups:
-            group["lr"] = learning_rate(config, state.step)
-        optimizer.step()
+        with span("voicesplit.optimizer"):
+            grad_norm = global_norm(grads)
+            if tc.grad_clip_norm:
+                clip_by_global_norm_(grads, grad_norm, tc.grad_clip_norm)
+            if state.shards is not None:
+                state.shards.scatter_grads_()
+            for group in optimizer.param_groups:
+                group["lr"] = learning_rate(config, state.step)
+            optimizer.step()
         if state.shards is not None:
             state.shards.stale = True
         state.step += 1

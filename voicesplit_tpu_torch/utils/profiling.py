@@ -1,22 +1,26 @@
 """Profiling and speed-of-light accounting on the card (counterpart of
 `voicesplit_tpu/utils/profiling.py`).
 
-A `torch.profiler` trace context, a synchronized timing harness with warm-up,
-the card's achievable memory bandwidth, and the analytic FLOP / byte count of
-the mask network's train step, so that measured step times can be set
-against the hardware bound.
+The program's spans (`span`), a `torch.profiler` exporter (`trace`), a
+synchronized timing harness with warm-up, and the analytic FLOP / byte
+count of the mask network's train step, so that measured step times can be
+set against the hardware bound.
+
+`span(name)` marks a layer boundary of the serving call and the train step
+(``voicesplit.separate_batch``, ``voicesplit.wav2spec``, ...).  While
+`torch.profiler` records, it is a `record_function` range: a
+``user_annotation`` event of the Chrome trace on the profiler's one clock,
+beside the card's kernels; otherwise it costs one check of a flag.
 
 Peaks are the NVIDIA H100 SXM's (NVIDIA's data sheet; dense, no sparsity):
 3.35 TB/s of HBM3, 989 TFLOP/s in bf16 on the tensor cores and 67 TFLOP/s in
 fp32 outside them, at the 700 W power limit (a card set lower runs slower
-under load).  The A100 anchor keeps the A100's published peaks, named as
-the A100's.
+under load).
 """
 
 from __future__ import annotations
 
 import contextlib
-import json
 import os
 import time
 from dataclasses import dataclass
@@ -24,6 +28,7 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 # NVIDIA H100 SXM data sheet: dense peaks, no sparsity
 HBM_BYTES_PER_S = 3.35e12
@@ -31,30 +36,18 @@ BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
 PEAK_FLOPS = {"bfloat16": BF16_FLOPS, "float32": FP32_FLOPS}
 
-# NVIDIA A100 published dense peaks (SXM, no sparsity): 312 bf16 TFLOP/s,
-# 156 TF32 TFLOP/s.  The reference implementation is eager fp32 torch whose
-# convs and LSTM run TF32 on an A100 by default, so TF32 is its ceiling.
-A100_BF16_FLOPS = 312e12
-A100_TF32_FLOPS = 156e12
+_NO_SPAN = contextlib.nullcontext()
 
 
-def _measured_a100_utilization(fallback: float = 0.15) -> float:
-    """The eager-torch utilization fraction that `scripts/a100_anchor.py`
-    measured and wrote to `docs/a100_anchor.json` (read by path, as the JAX
-    module does)."""
-    path = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-        "docs",
-        "a100_anchor.json",
-    )
-    try:
-        with open(path) as f:
-            return float(json.load(f)["eager_torch_utilization"])
-    except (OSError, KeyError, ValueError):
-        return fallback
-
-
-A100_CLASS_UTILIZATION = _measured_a100_utilization()
+def span(name: str):
+    """``with span("voicesplit.<layer>"):`` — a `torch.profiler.record_function`
+    range while the profiler records, outside `torch.compile` and
+    `torch.export` tracing; otherwise a shared null context.  The profiler's
+    flag is read on each call: an unguarded range costs microseconds even
+    with no profiler."""
+    if not _autograd_profiler._is_profiler_enabled or torch.compiler.is_compiling():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 def _synchronize() -> None:
@@ -92,7 +85,9 @@ def time_fn(
 def trace(log_dir: str):
     """``with trace(dir):`` — a `torch.profiler` trace of the host and, with
     a card, its kernels, written to ``dir/trace.json`` (Chrome trace format,
-    for Perfetto or ``chrome://tracing``)."""
+    for Perfetto or ``chrome://tracing``).  The program's spans (`span`)
+    appear in it on the same timeline as the operators and kernels they
+    enclose."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -103,35 +98,6 @@ def trace(log_dir: str):
         yield prof
         _synchronize()
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-def measure_hbm_bandwidth(
-    dtype=torch.bfloat16, mib: int = 256, n_loop: int = 16, n_iters: int = 5, device=None
-) -> float:
-    """Achieved device-memory bandwidth (bytes/s) on the card: CUDA events
-    around `n_loop` in-place ``v += 1`` passes over a `mib`-MiB array, each
-    one read and one write of the whole array; the median of `n_iters`.
-    Rooflines that want the practical floor use this, not the data sheet's
-    HBM_BYTES_PER_S.  Raises without a card."""
-    from voicesplit_tpu_torch.device import resolve_device
-
-    dev = resolve_device(device)
-    if dev.type != "cuda":
-        raise RuntimeError(f"measure_hbm_bandwidth measures the card, not {dev}")
-    n = mib * (1 << 20) // torch.tensor([], dtype=dtype).element_size()
-    v = torch.zeros(n, dtype=dtype, device=dev)
-    for _ in range(2):
-        v.add_(1)
-    times = []
-    for _ in range(n_iters):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n_loop):
-            v.add_(1)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / 1e3)
-    return n_loop * 2 * n * v.element_size() / float(np.median(times))
 
 
 @dataclass
@@ -187,18 +153,3 @@ def masknet_train_step_cost(
     act_els += B * T * (2 * lstm_dim + fc1 + 8 * lstm_dim)
     hbm = 3 * act_els * bytes_per_el
     return StepCost(flops=flops, hbm_bytes=hbm)
-
-
-def a100_class_audio_throughput(
-    batch: int,
-    audio_len_s: float,
-    cost: StepCost,
-    peak_flops: float = A100_TF32_FLOPS,
-    utilization: float = A100_CLASS_UTILIZATION,
-) -> float:
-    """Audio-seconds a second the reference implementation would sustain on
-    one A100: audio-seconds a step over (step FLOPs / (peak x utilization)),
-    `utilization` the measured eager-torch fraction
-    (`A100_CLASS_UTILIZATION`)."""
-    step_s_on_a100 = cost.flops / (peak_flops * utilization)
-    return batch * audio_len_s / step_s_on_a100

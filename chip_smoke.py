@@ -120,11 +120,21 @@ Phases, each printing one JSON line:
    times per layer at B=2 and B=8 beside the bound, the plain version, a
    library yardstick the port never calls (cuDNN ``conv2d``;
    ``aten.convolution_backward``) and the fused chain's ``conv_dgrad`` for
-   the same layer, with the sums per serving call and train step.
+   the same layer, with the sums per serving call and train step.  The
+   eval-mode block ``conv_bn_act_eval`` (conv, bias, BatchNorm with running
+   statistics and mish or relu in one launch) likewise against
+   ``conv_bn_act_eval_round_once_ref``: bf16 at ``[B, 301, 601, 64]``, B=1
+   and B=8 (the serving batches), every layer kind, both activations, fp32
+   at the reduced shape; then timed per layer and activation at B=1 and B=8
+   beside its bound, its plain version, the port's eager block it replaces
+   (``conv_dilated_fwd``, the bias add, ``bn_act_eval``), the plain kernel
+   alone and the library yardstick (cuDNN ``conv2d`` with the bias, then
+   ``bn_act_eval``), with the sums per serving call.
 9. separate dilated — the separate phase's model with
    ``VOICESPLIT_PALLAS_CONV=1`` at B=1 and B=8: exactly 6
-   ``conv_dilated_fwd`` launches per call beside the LSTM's, mask and
-   waveform against the switch-off run, latency of both.
+   ``conv_bn_act_eval`` launches per call (the eval-mode blocks conv2 …
+   conv7, each one launch) beside the LSTM's, mask and waveform against the
+   switch-off run, latency of both.
 10. trainer — writes a synthetic dataset (3 s clips) into a temporary
    directory and, with the switch on, holds one step of the trainer's own
    model and first batch against the plain versions and the switch-off step
@@ -140,7 +150,7 @@ Phases, each printing one JSON line:
 11. separate wide — `configs/voicesplit_wide.json` (H=800, one extra (5,5)
    block at time dilation 32) served at B=1: `separate_batch` with both
    LSTM directions on the forward's split walk (against the plain LSTM
-   versions), again with ``VOICESPLIT_PALLAS_CONV=1`` (7 ``conv_dilated_fwd``
+   versions), again with ``VOICESPLIT_PALLAS_CONV=1`` (7 ``conv_bn_act_eval``
    launches; against the switch-off call), and through the serving CLI;
    latency p50, p75.
 12. train wide — the wide config at B=2 on each conv route (library convs,
@@ -191,7 +201,7 @@ Phases, each printing one JSON line:
    of STREAM_CHUNK frames (STREAM_CASES): the causal model at B=1 and B=8,
    the symmetric one with ``VOICESPLIT_PALLAS_CONV=1`` and without, each a
    counted 3 s stream with exact launches a chunk (``lstm_fwd`` 1 on the
-   cluster walk, and 6 ``conv_dilated_fwd`` with the switch; no conv kernel
+   cluster walk, and 6 ``conv_bn_act_eval`` with the switch; no conv kernel
    for a causal model), the algorithmic latency (STREAM_LATENCY), the same
    stream through the plain versions (WIDE_SEPARATE_TOL), the per-chunk
    p50 / p75 of STREAM_TIMED_CHUNKS chunks, the real-time factor and
@@ -254,13 +264,13 @@ Phases, each printing one JSON line:
 24. long — `parallel.sequence.separate_long` on a 120 s mixture (12,001
    frames, B=1) at full width on the library convs and with
    ``VOICESPLIT_PALLAS_CONV=1``: a world of one bit for bit
-   `separate_batch`'s, 2 ``lstm_fwd`` (and 6 ``conv_dilated_fwd``) a call;
+   `separate_batch`'s, 2 ``lstm_fwd`` (and 6 ``conv_bn_act_eval``) a call;
    2 and 4 shards in one process (`InProcessExchange`: halos, the carry
    relay from a nonzero carry, 1 and 3 padded frames) against the world of
    one's mask: the same bits, or only the two library calls that pick
    their kernel by shape differing (LIBRARY_SHAPE_OPS, LONG_SHARDED_TOL),
    with `long_sharded_launches` (8 and 32 ``lstm_fwd``, 12 and 24
-   ``conv_dilated_fwd`` with the switch); the relay alone bit for bit;
+   ``conv_bn_act_eval`` with the switch); the relay alone bit for bit;
    p50 and peak memory of each pass;
    ``lstm_fwd`` from a carry and ``conv_dilated_fwd`` on a masked window
    against their plain versions; the longest utterance a world of one
@@ -494,7 +504,8 @@ DILATED_TOL = {
     "bfloat16": {"out": 2e-2, "out_round_once": 1e-2, "dw": 1e-3},
     "float32": {"out": 1e-4, "out_round_once": 1e-4, "dw": 1e-4},
 }
-DILATED_SERVE_LAUNCHES = {"conv_dilated_fwd": 6, "conv_dilated_wgrad": 0}  # per serving call
+# per serving call: conv2 … conv7 in eval mode, one launch a block
+DILATED_SERVE_LAUNCHES = {"conv_dilated_fwd": 0, "conv_dilated_wgrad": 0, "conv_bn_act_eval": 6}
 DILATED_TRAIN_LAUNCHES = {"conv_dilated_fwd": 12, "conv_dilated_wgrad": 6}  # per train step
 # serving with the switch on (bf16), mask (absolute, values in [0, 1]) and
 # waveform (relative to its peak): against the same call through the plain
@@ -582,7 +593,7 @@ GRIFFIN_LIM_CALLS = 5
 STREAM_CHUNK = 50
 STREAM_CASES = {"causal_B1": (True, 1, "0"), "symmetric_switch_B1": (False, 1, "1"),
                 "symmetric_B1": (False, 1, "0"), "causal_B8": (True, 8, "0")}
-STREAM_LAUNCHES = {"0": {"lstm_fwd": 1}, "1": {"lstm_fwd": 1, "conv_dilated_fwd": 6}}
+STREAM_LAUNCHES = {"0": {"lstm_fwd": 1}, "1": {"lstm_fwd": 1, "conv_bn_act_eval": 6}}
 STREAM_LATENCY = {True: 1040, False: 11440}
 STREAM_WARM_CHUNKS, STREAM_TIMED_CHUNKS = 4, 48
 # chunk 50 against chunk 25 in fp32 compute: tests/test_streaming.py:54's bound
@@ -613,6 +624,9 @@ REPLACES = {
     "conv_wgrad": "voicesplit_tpu/ops/conv_fused.py:524",
     "conv_dilated_fwd": "voicesplit_tpu/ops/conv_pallas.py:95",
     "conv_dilated_wgrad": "voicesplit_tpu/ops/conv_pallas.py:234",
+    # _fwd_kernel with conv_dispatch's bias (:406-420) and bn_act.py's
+    # folded_bn_act_eval after it
+    "conv_bn_act_eval": "voicesplit_tpu/ops/conv_pallas.py:95",
     # the BatchNorm-backward prologue of _dgrad_kernel (prologue=True) and
     # _wgrad_kernel (rhs_prologue=True)
     "conv_draw_prologue": "voicesplit_tpu/ops/conv_fused.py:221",
@@ -635,6 +649,7 @@ SOURCES = {
     "conv_wgrad": "voicesplit_tpu_torch/csrc/conv_wgrad.cu",
     "conv_dilated_fwd": "voicesplit_tpu_torch/csrc/conv_fwd.cu",
     "conv_dilated_wgrad": "voicesplit_tpu_torch/csrc/conv_wgrad.cu",
+    "conv_bn_act_eval": "voicesplit_tpu_torch/csrc/conv_fwd.cu",
     "conv_draw_prologue": "voicesplit_tpu_torch/csrc/conv_wgrad.cu",
 }
 # kernels that the paths do not launch (the `kernels` line lists them with
@@ -774,9 +789,9 @@ def ptxas_summary(log: str, fragment: str) -> list:
 
 
 # instantiations of the wide-tile kernels: kf in (1, 3, 5) x (the forward
-# body plain at n 64, 96, 128, 192, 256, its dgrad and chain modes at 128,
-# 192, 256; the weight gradient at 64, 96, 128)
-WIDE_INSTANTIATIONS = 3 * (5 + 3 + 3 + 3)
+# body plain and eval at n 64, 96, 128, 192, 256, its dgrad and chain modes
+# at 128, 192, 256; the weight gradient at 64, 96, 128)
+WIDE_INSTANTIATIONS = 3 * (5 + 5 + 3 + 3 + 3)
 
 
 def phase_build(torch, lstm_cuda, conv_fused) -> None:
@@ -826,19 +841,20 @@ def phase_build(torch, lstm_cuda, conv_fused) -> None:
             check(gr["max_active_clusters"] >= gr["blocks"] // gr["cluster"],
                   f"{key}: more clusters than resident ({gr})")
         check(gr["local_bytes"] == 0, f"{key}: {gr['local_bytes']} local (spilled) bytes a thread")
-    # conv_dilated_fwd, conv_dgrad and conv_bn_act_fwd share the forward
-    # kernel body, conv_wgrad and conv_dilated_wgrad the weight-gradient
-    # kernel: each a whole wave at most and no spilled byte, at the paths'
-    # batches (B=1: serving with the dilated switch) and in fp32 at the
-    # reduced shape
+    # conv_dilated_fwd, conv_dgrad, conv_bn_act_fwd and conv_bn_act_eval
+    # share the forward kernel body, conv_wgrad and conv_dilated_wgrad the
+    # weight-gradient kernel: each a whole wave at most and no spilled byte,
+    # at the paths' batches (B=1: serving with the dilated switch) and in
+    # fp32 at the reduced shape
     configs = {
         "conv_dilated_fwd": lambda *a: conv_fused.fwd_launch_config(*a, dgrad=False),
+        "conv_bn_act_eval": lambda *a: conv_fused._fwd_config(*a, conv_cuda.FWD_MODES["eval"]),
         "conv_dgrad": lambda *a: conv_fused.fwd_launch_config(*a, dgrad=True),
         "conv_bn_act_fwd": conv_fused.launch_config,
         "conv_wgrad": conv_fused.wgrad_launch_config,
     }
     cases = [(name, f"B{b}", (b, *CONV_SHAPE[1:]), torch.bfloat16) for name in configs for b in (2, 8)]
-    cases += [("conv_dilated_fwd", "B1", (1, *CONV_SHAPE[1:]), torch.bfloat16)]
+    cases += [(name, "B1", (1, *CONV_SHAPE[1:]), torch.bfloat16) for name in ("conv_dilated_fwd", "conv_bn_act_eval")]
     cases += [(name, "reduced_float32", CONV_SHAPE_FP32, torch.float32) for name in configs]
     for layer, ((kt, kf), dt) in ALL_CONV_LAYERS.items():
         for name, tag, shape, dtype in cases:
@@ -1106,10 +1122,11 @@ def synthetic_batch(seed: int, batch: int, n: int, sr: int, emb_dim: int):
 class _PlainVersions:
     """Routes the kernel launches of a kernel module (`lstm_cuda`,
     `conv_fused`, `conv_cuda`) to the plain versions on the card while
-    active.  `round_once`: `conv_cuda`'s forward through
-    `conv_dilated_fwd_round_once_ref`, which sums every tap in fp32 and
-    rounds once as its kernel does, instead of its plain version, which
-    rounds each frequency tap's partial sum as the TPU kernel does; the
+    active.  `round_once`: `conv_cuda`'s forward and eval-mode block through
+    `conv_dilated_fwd_round_once_ref` and `conv_bn_act_eval_round_once_ref`,
+    which sum every tap in fp32 and round once as the kernel does, instead of
+    their plain versions, which round each frequency tap's partial sum as
+    the TPU kernel does (and, for the block, after each eager op); the
     other modules' plain versions already round once."""
 
     def __init__(self, module, round_once: bool = False):
@@ -1121,6 +1138,7 @@ class _PlainVersions:
             setattr(self.m, f"_launch_{n}", getattr(self.m, f"{n}_ref"))
         if self.round_once and "conv_dilated_fwd" in self.saved:
             self.m._launch_conv_dilated_fwd = self.m.conv_dilated_fwd_round_once_ref
+            self.m._launch_conv_bn_act_eval = self.m.conv_bn_act_eval_round_once_ref
 
     def __exit__(self, *exc):
         for n, fn in self.saved.items():
@@ -1354,6 +1372,8 @@ def conv_bound(kind: str, shape, kt: int, kf: int, dt: int, dtype: str,
         bytes_ = in_bytes + out_bytes + w_elems * 4  # x, dy; dW
     elif kind == "conv_dilated_fwd":
         bytes_ = in_bytes + out_bytes + w_elems * op  # x, out; W
+    elif kind == "conv_bn_act_eval":
+        bytes_ = in_bytes + out_bytes + w_elems * op + 5 * cout * 4  # x, out; W; bias, BN vectors
     elif kind == "conv_dgrad":
         bytes_ = in_bytes + out_bytes + w_elems * op + cin * 4  # d_raw, dx; W; dbias
     else:  # x, raw; W; inv, shift; bias, stats
@@ -2099,11 +2119,81 @@ def _check_dilated_case(torch, cc, case, shape, layer, dtype_name, g, cout: int 
     return report
 
 
+# the eval-mode block's BatchNorm epsilon and the serving batches it is checked and timed at
+EVAL_EPS, EVAL_BATCHES, EVAL_ACTS = 1e-5, (1, 8), ("mish", "relu")
+
+
+def _eval_inputs(torch, shape, kt, kf, dtype, g):
+    """One layer's operands for `conv_bn_act_eval`: x, w and the fp32
+    ``(bias, scale, beta, mean, var)`` vectors."""
+    x, _, w, bias, (mean, var, scale, beta) = _conv_inputs(torch, shape, kt, kf, dtype, g)
+    return x, w, (bias, scale, beta, mean, var)
+
+
+def _check_eval_case(torch, cc, case, shape, layer, act, dtype_name, g) -> dict:
+    """`conv_bn_act_eval` against `conv_bn_act_eval_round_once_ref` on one
+    layer (edges on their own too) and two launches with the same bits;
+    raises on disagreement."""
+    (kt, kf), dt = ALL_CONV_LAYERS[layer]
+    x, w, vecs = _eval_inputs(torch, shape, kt, kf, getattr(torch, dtype_name), g)
+    limit = DILATED_TOL[dtype_name]["out_round_once"]
+    with torch.inference_mode():
+        got = cc.conv_bn_act_eval(x, w, *vecs, act, EVAL_EPS, dt)
+        again = cc.conv_bn_act_eval(x, w, *vecs, act, EVAL_EPS, dt)
+        want = cc.conv_bn_act_eval_round_once_ref(x, w, *vecs, EVAL_EPS, act, dt)
+    torch.cuda.synchronize()
+    errs = {"out_round_once": _peak_rel(got, want),
+            **{f"out_round_once_{k}": v for k, v in _edge_errs(got, want).items()}}
+    for k, v in errs.items():
+        check(np.isfinite(v) and v <= limit, f"conv_bn_act_eval {case}: {k} error {v} > {limit}")
+    check(torch.equal(got, again), f"conv_bn_act_eval {case}: two launches on the same inputs differ")
+    return {"errors": errs, "abs_err": (got.float() - want.float()).abs().max().item(),
+            "share_of_elements_that_differ": (got != want).float().mean().item()}
+
+
+def _eval_times(torch, cc, x, w, vecs, dt: int, act: str, iters: int) -> dict:
+    """`conv_bn_act_eval` on one layer's bf16 operands: time, its plain
+    version's, the port's eager block it replaces in eval mode
+    (`conv_dilated_fwd`, the bias add and `bn_act_eval`, as the model ran it
+    before), the plain kernel alone, a library yardstick the port never
+    calls (cuDNN ``conv2d`` with the bias, then `bn_act_eval`), and the
+    bound."""
+    import torch.nn.functional as F
+
+    from voicesplit_tpu_torch.ops import bn_act
+
+    kt, kf, _, cout = w.shape
+    bias, scale, beta, mean, var = vecs
+    pad = ((kt - 1) * dt // 2, (kf - 1) // 2)
+    x_nchw = x.permute(0, 3, 1, 2)
+    w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+    def eager_block():
+        y = cc.conv2d_dilated_bias(x, w, bias, (dt, 1))
+        return bn_act.bn_act_eval(y.permute(0, 3, 1, 2), scale, beta, mean, var, act, EVAL_EPS)
+
+    def library():
+        y = F.conv2d(x_nchw, w_oihw, bias.to(x.dtype), padding=pad, dilation=(dt, 1))
+        return bn_act.bn_act_eval(y, scale, beta, mean, var, act, EVAL_EPS)
+
+    with torch.inference_mode():
+        return {
+            "ms": time_ms(torch, lambda: cc.conv_bn_act_eval(x, w, *vecs, act, EVAL_EPS, dt), iters, warmup=1),
+            "plain_ms": time_ms(torch, lambda: cc.conv_bn_act_eval_ref(x, w, *vecs, EVAL_EPS, act, dt),
+                                2, warmup=1),
+            "eager_block_ms": time_ms(torch, eager_block, iters, warmup=1),
+            "conv_dilated_fwd_ms": time_ms(torch, lambda: cc.conv_dilated_fwd(x, w, dt), iters, warmup=1),
+            "library_ms": time_ms(torch, library, iters, warmup=1),
+            **conv_bound("conv_bn_act_eval", tuple(x.shape), kt, kf, dt, "bfloat16", cout),
+        }
+
+
 def phase_dilated_kernels(torch, cc, cf, seed: int) -> dict:
-    """The dilated conv kernels vs their plain versions on the card, then
-    their times per layer kind and batch beside the bound, the plain
-    version, a library yardstick the port never calls and the fused chain's
-    kernels for the same layer."""
+    """The dilated conv kernels and the eval-mode block vs their plain
+    versions on the card, then their times per layer kind and batch beside
+    the bound, the plain version, a library yardstick the port never calls
+    and the fused chain's kernels for the same layer (the eval block: the
+    eager block it replaces)."""
     g = torch.Generator(device="cpu").manual_seed(seed + 3)
     worst = {name: {"bfloat16": 0.0, "float32": 0.0} for name in DILATED_TRAIN_LAUNCHES}
     agreement = {}
@@ -2117,8 +2207,18 @@ def phase_dilated_kernels(torch, cc, cf, seed: int) -> dict:
             worst["conv_dilated_wgrad"][dtype_name] = max(
                 worst["conv_dilated_wgrad"][dtype_name], r["weight_gradient"]["abs_err"])
         torch.cuda.empty_cache()
+    worst["conv_bn_act_eval"] = {"bfloat16": 0.0, "float32": 0.0}
+    eval_cases = [(f"B{b}", "bfloat16", (b, *CONV_SHAPE[1:])) for b in EVAL_BATCHES]
+    eval_cases.append(("reduced", "float32", CONV_SHAPE_FP32))
+    for tag, dtype_name, shape in eval_cases:
+        for layer in ALL_CONV_LAYERS:
+            for act in EVAL_ACTS:
+                case = f"conv_bn_act_eval/{tag}/{layer}/{act}/{dtype_name}"
+                r = agreement[case] = _check_eval_case(torch, cc, case, shape, layer, act, dtype_name, g)
+                worst["conv_bn_act_eval"][dtype_name] = max(worst["conv_bn_act_eval"][dtype_name], r["abs_err"])
+        torch.cuda.empty_cache()
     emit("dilated conv kernels", shape_bf16=list(CONV_SHAPE), shape_fp32=list(CONV_SHAPE_FP32),
-         tolerances_peak_rel=DILATED_TOL, agreement=agreement)
+         eval_batches=list(EVAL_BATCHES), tolerances_peak_rel=DILATED_TOL, agreement=agreement)
 
     timing = {name: {} for name in DILATED_TRAIN_LAUNCHES}
     for b, layer in _timed_conv_layers():
@@ -2134,20 +2234,39 @@ def phase_dilated_kernels(torch, cc, cf, seed: int) -> dict:
          conv_dilated_fwd_ms_per_serving_call=_per_step(timing["conv_dilated_fwd"]),
          conv_dilated_fwd_data_gradient_ms_per_step=_per_step(timing["conv_dilated_fwd"], "data_gradient_ms"),
          conv_dilated_wgrad_ms_per_step=_per_step(timing["conv_dilated_wgrad"]))
-    head = "B2/5x5-d1"
+
+    # the eval-mode block at the serving batches, conv2 … conv7's layer kinds
+    timing["conv_bn_act_eval"] = {}
+    for b in EVAL_BATCHES:
+        for layer in CONV_LAYERS:
+            (kt, kf), dt = CONV_LAYERS[layer]
+            x, w, vecs = _eval_inputs(torch, (b, *CONV_SHAPE[1:]), kt, kf, torch.bfloat16, g)
+            for act in EVAL_ACTS:
+                timing["conv_bn_act_eval"][f"B{b}/{layer}/{act}"] = _eval_times(
+                    torch, cc, x, w, vecs, dt, act, iters=5)
+            del x, w, vecs
+            torch.cuda.empty_cache()
+    per_call = {f"B{b}/{act}": {k: sum(timing["conv_bn_act_eval"][f"B{b}/{layer}/{act}"][k] for layer in CONV_LAYERS)
+                                for k in ("ms", "eager_block_ms", "conv_dilated_fwd_ms", "library_ms", "bound_ms")}
+                for b in EVAL_BATCHES for act in EVAL_ACTS}
+    emit("eval conv block times", dtype="bfloat16",
+         library="cuDNN conv2d with the bias, then bn_act_eval, channels-last bf16",
+         times=timing["conv_bn_act_eval"], conv_bn_act_eval_ms_per_serving_call=per_call)
+    heads = {name: "B2/5x5-d1" for name in DILATED_TRAIN_LAUNCHES}
+    heads["conv_bn_act_eval"] = "B8/5x5-d1/mish"  # the B=8 serving cell's block
     return {
         name: {"bf16": {"max_abs_err": worst[name]["bfloat16"], **timing[name][head]},
                "fp32": {"max_abs_err": worst[name]["float32"]},
                "library_ms": timing[name][head]["library_ms"],
                "bound_ms": timing[name][head]["bound_ms"], "bound_by": timing[name][head]["bound_by"],
                "timed_at": head, "ms_by_batch_and_layer": {k: v["ms"] for k, v in timing[name].items()}}
-        for name in DILATED_TRAIN_LAUNCHES
+        for name, head in heads.items()
     }
 
 
 def phase_separate_dilated(torch, lstm_cuda, cc, seed: int, profile_dir) -> dict:
     """The separate phase's model and mixtures with `VOICESPLIT_PALLAS_CONV=1`:
-    conv2 … conv7 through `conv_dilated_fwd`, held at each batch size
+    conv2 … conv7 as eval-mode blocks through `conv_bn_act_eval`, held at each batch size
     against the same call through the plain versions and against the
     switch-off run."""
     from voicesplit_tpu_torch import weights
@@ -2264,7 +2383,7 @@ def phase_trainer(torch, lstm_cuda, cc, seed: int, profile_dir) -> dict:
         list_checkpoints, load_checkpoint, load_model_variables)
     from voicesplit_tpu_torch.train.trainer import Trainer
 
-    step_launches = {"lstm_fwd": 2, "bilstm_fwd": 0, "lstm_bwd": 2, "bilstm_bwd": 0,
+    step_launches = {**{k: 0 for k in (*lstm_cuda.LAUNCHES, *cc.LAUNCHES)}, "lstm_fwd": 2, "lstm_bwd": 2,
                      **DILATED_TRAIN_LAUNCHES}
     report = {"config": "configs/voicesplit.json", "switch": "VOICESPLIT_PALLAS_CONV=1",
               "learning_rate": TRAIN_LR, "steps": TRAINER_STEPS,
@@ -2333,7 +2452,7 @@ def phase_trainer(torch, lstm_cuda, cc, seed: int, profile_dir) -> dict:
         n_evals = 1 + TRAINER_STEPS // TRAINER_CKPT_EVERY
         want = {k: v * TRAINER_STEPS for k, v in step_launches.items()}
         want["lstm_fwd"] += 2 * n_evals * TRAINER_EVAL_ITEMS
-        want["conv_dilated_fwd"] += 6 * n_evals * TRAINER_EVAL_ITEMS
+        want["conv_bn_act_eval"] += 6 * n_evals * TRAINER_EVAL_ITEMS
         check(launches == want, f"launches of the run {launches}, expected {want}")
 
         records = _read_metrics(run_a)
@@ -2536,7 +2655,7 @@ def phase_preprocess(torch, lstm_cuda, cc, seed: int, tmp: Path) -> dict:
     check(batch_err <= NATIVE_BATCH_TOL, f"native vs Python batches {batch_err}")
 
     # the training CLI over the preprocessed triplets
-    step_launches = {"lstm_fwd": 2, "bilstm_fwd": 0, "lstm_bwd": 2, "bilstm_bwd": 0,
+    step_launches = {**{k: 0 for k in (*lstm_cuda.LAUNCHES, *cc.LAUNCHES)}, "lstm_fwd": 2, "lstm_bwd": 2,
                      **DILATED_TRAIN_LAUNCHES}
     config_path, config = _corpus_config(tmp, seed, out / "train", out / "test", "mixed.json",
                                          checkpoint_interval=PREPROCESS_CKPT_EVERY)
@@ -2554,7 +2673,7 @@ def phase_preprocess(torch, lstm_cuda, cc, seed: int, tmp: Path) -> dict:
                + PREPROCESS_STEPS // PREPROCESS_CKPT_EVERY)
     want = {k: v * PREPROCESS_STEPS for k, v in step_launches.items()}
     want["lstm_fwd"] += 2 * n_evals * PREPROCESS_TEST_ROWS
-    want["conv_dilated_fwd"] += 6 * n_evals * PREPROCESS_TEST_ROWS
+    want["conv_bn_act_eval"] += 6 * n_evals * PREPROCESS_TEST_ROWS
     check(launches == want, f"launches of the run {launches}, expected {want}")
     build_dir = (ROOT / "build").resolve()
     libs = [_build.build()[0].resolve(), native_loader.library_path().resolve()]
@@ -2836,7 +2955,7 @@ def phase_separate_wide(torch, lstm_cuda, cc, seed: int, profile_dir, tmp: Path)
     """`configs/voicesplit_wide.json` served at B=1: `separate_batch` (both
     LSTM directions on the forward's split walk, the extra dilated block
     through cuDNN, then with `VOICESPLIT_PALLAS_CONV=1` through
-    `conv_dilated_fwd`, 7 launches a call) and the serving CLI on a
+    `conv_bn_act_eval`, 7 launches a call) and the serving CLI on a
     synthetic mixture, held against the plain LSTM versions and the switch-off
     call; latency p50 and p75."""
     from voicesplit_tpu_torch import weights
@@ -2894,7 +3013,7 @@ def phase_separate_wide(torch, lstm_cuda, cc, seed: int, profile_dir, tmp: Path)
         _reset_counts(torch, lstm_cuda, cc)
         out_on = separate_batch(model, ap, mixed, emb)
         counted = _counts(torch, lstm_cuda, cc)
-        check(counted == {**zero, "lstm_fwd": 2, "conv_dilated_fwd": WIDE_KERNEL_LAYERS},
+        check(counted == {**zero, "lstm_fwd": 2, "conv_bn_act_eval": WIDE_KERNEL_LAYERS},
               f"launches per call with the switch {counted}")
         counted = _check_routes(lstm_cuda, counted, "separate wide, switch", WIDE_ROUTES)
         _add(launches, counted)
@@ -3086,7 +3205,7 @@ def phase_train_wide(torch, lstm_cuda, cf, cc, seed: int, profile_dir, tmp: Path
                                                    **WIDE_CONV_LAUNCHES[route]}.items()}
         want["lstm_fwd"] += 2 * n_evals * WIDE_CLI_EVAL_ITEMS
         if route == "pallas_conv":
-            want["conv_dilated_fwd"] += WIDE_KERNEL_LAYERS * n_evals * WIDE_CLI_EVAL_ITEMS
+            want["conv_bn_act_eval"] += WIDE_KERNEL_LAYERS * n_evals * WIDE_CLI_EVAL_ITEMS
         check(counted == want, f"{route} CLI: launches {counted}, expected {want}")
         counted = _check_routes(lstm_cuda, counted, f"train wide CLI {route}", WIDE_ROUTES)
         _add(launches, counted)
@@ -4282,30 +4401,31 @@ LONG_CALLS = 3  # timed calls a pass, each over the whole 120 s
 LONG_WINDOW = 301  # frames of the kernels' plain-version comparisons at the long-form shapes
 # launches of a world-of-one call by conv route: each LSTM direction once, as
 # `separate_batch` at B=1, and conv2 … conv7 through the kernel with the switch
-LONG_LAUNCHES = {"library": {"lstm_fwd": 2, "bilstm_fwd": 0, "conv_dilated_fwd": 0},
-                 "dilated": {"lstm_fwd": 2, "bilstm_fwd": 0, "conv_dilated_fwd": 6}}
+LONG_LAUNCHES = {"library": {"lstm_fwd": 2, "bilstm_fwd": 0, "conv_dilated_fwd": 0, "conv_bn_act_eval": 0},
+                 "dilated": {"lstm_fwd": 2, "bilstm_fwd": 0, "conv_dilated_fwd": 0, "conv_bn_act_eval": 6}}
 
 
 def long_sharded_launches(n_shards: int, valid_shards: int, dilated: bool) -> dict:
     """Launches of K in-process shards: each direction takes K-1 relay rounds
     and one output scan, one `lstm_fwd` each on every shard with a valid
     frame (2·K² with no empty shard: 32 at K=4); every shard runs the conv
-    stack (6 `conv_dilated_fwd` with the switch)."""
-    return {"lstm_fwd": 2 * n_shards * valid_shards, "bilstm_fwd": 0,
-            "conv_dilated_fwd": 6 * n_shards if dilated else 0}
+    stack (6 `conv_bn_act_eval` with the switch)."""
+    return {"lstm_fwd": 2 * n_shards * valid_shards, "bilstm_fwd": 0, "conv_dilated_fwd": 0,
+            "conv_bn_act_eval": 6 * n_shards if dilated else 0}
 
 
 def _sp_differences(torch, lstm_cuda, model, spec, emb, n_shards: int, shard: int = 1) -> dict:
     """The operations of one shard of the in-process sharded pass whose
     output differs from the world of one's when both get the same inputs:
-    each conv block's raw conv output (its input the world of one's block
-    input, cut to the shard's window with the sharded pass's halos and edge
-    mask), the LSTM input projection, `lstm_fwd` from the true carry, fc1
+    each conv block's raw conv output (on the dilated switch's kernel layers
+    the eval-mode block's output, which one kernel computes; its input the
+    world of one's block input, cut to the shard's window with the sharded
+    pass's halos and edge mask), the LSTM input projection, `lstm_fwd` from the true carry, fc1
     and fc2 (each over the shard's rows against the utterance's).  A
     library call that picks its kernel by shape shows here."""
     import torch.nn.functional as tnf
 
-    from voicesplit_tpu_torch.ops.conv_cuda import conv2d_dilated_bias, pallas_conv_enabled, takes_layer
+    from voicesplit_tpu_torch.ops.conv_cuda import conv2d_bn_act_eval, pallas_conv_enabled, takes_layer
     from voicesplit_tpu_torch.parallel import sequence
 
     T = spec.shape[1]
@@ -4325,8 +4445,8 @@ def _sp_differences(torch, lstm_cuda, model, spec, emb, n_shards: int, shard: in
     def raw(block, x):
         c = block.conv
         if pallas_conv_enabled() and takes_layer((*c.kernel_size, c.in_channels, c.out_channels), c.dilation):
-            y = conv2d_dilated_bias(x.to(cd).permute(0, 2, 3, 1).contiguous(),
-                                    c.weight.permute(2, 3, 1, 0), c.bias, c.dilation)
+            y = conv2d_bn_act_eval(x.to(cd).permute(0, 2, 3, 1).contiguous(), c.weight.permute(2, 3, 1, 0),
+                                   c.bias, block.bn, block.activation, c.dilation)
             return y.permute(0, 3, 1, 2)
         seen = []
         orig = block.bn_act
@@ -4634,7 +4754,7 @@ def phase_long(torch, lstm_cuda, cc, seed: int) -> dict:
     out = {}
     for runs in by_path.values():
         for counted in runs:
-            _add(out, {k: counted[k] for k in ("lstm_fwd", "bilstm_fwd", "conv_dilated_fwd")})
+            _add(out, {k: counted[k] for k in ("lstm_fwd", "bilstm_fwd", "conv_dilated_fwd", "conv_bn_act_eval")})
     return out
 
 
@@ -4649,11 +4769,11 @@ EXPORT_CHUNKS = 4  # chunks threaded through the streaming program at B=1
 EXPORT_B8_TOL = 5e-3
 # launches inside the loaded programs, by run (every forward on the cluster walk)
 EXPORT_LAUNCHES = {
-    **{f"symbolic_B{b}": {"lstm_fwd": 2, "bilstm_fwd": 0, "conv_dilated_fwd": 0}
+    **{f"symbolic_B{b}": {"lstm_fwd": 2, "bilstm_fwd": 0, "conv_bn_act_eval": 0}
        for b in EXPORT_BATCHES},
-    "symbolic_dilated_B1": {"lstm_fwd": 2, "bilstm_fwd": 0, "conv_dilated_fwd": 6},
-    f"pinned_B{EXPORT_PINNED}": {"lstm_fwd": 0, "bilstm_fwd": 1, "conv_dilated_fwd": 0},
-    "chunks": {"lstm_fwd": EXPORT_CHUNKS, "bilstm_fwd": 0, "conv_dilated_fwd": 0},
+    "symbolic_dilated_B1": {"lstm_fwd": 2, "bilstm_fwd": 0, "conv_bn_act_eval": 6},
+    f"pinned_B{EXPORT_PINNED}": {"lstm_fwd": 0, "bilstm_fwd": 1, "conv_bn_act_eval": 0},
+    "chunks": {"lstm_fwd": EXPORT_CHUNKS, "bilstm_fwd": 0, "conv_bn_act_eval": 0},
 }
 
 # A fresh interpreter that loads the saved programs with nothing of the port
@@ -4801,7 +4921,7 @@ def phase_export(torch, lstm_cuda, cc, seed: int, tmp: Path) -> dict:
     """`cli.export` (`export.export_separator`, `export.export_streaming`)
     at full width for the card (`export_programs`), each program loaded cold
     in a fresh interpreter that imports no model code (`run_programs_cold`),
-    where the launches of `lstm_fwd`, `bilstm_fwd` and `conv_dilated_fwd`
+    where the launches of `lstm_fwd`, `bilstm_fwd` and `conv_bn_act_eval`
     are counted: the symbolic-batch program at B=1, 3 (the eager path's
     bits) and 8 (EXPORT_B8_TOL; the eager model takes `bilstm_fwd`), with the
     dilated switch at B=1 (bits), the batch pinned to 8 (bits, and against
@@ -4885,7 +5005,7 @@ def phase_export(torch, lstm_cuda, cc, seed: int, tmp: Path) -> dict:
     emit("export", device=torch.cuda.get_device_name(0), **report)
     out = {}
     for counted in cold["launches"].values():
-        _add(out, {k: counted[k] for k in ("lstm_fwd", "bilstm_fwd", "conv_dilated_fwd")})
+        _add(out, {k: counted[k] for k in ("lstm_fwd", "bilstm_fwd", "conv_bn_act_eval")})
     return out
 
 
@@ -4895,6 +5015,9 @@ def phase_export(torch, lstm_cuda, cc, seed: int, tmp: Path) -> dict:
 # the library's name fragments.
 PORT_KERNEL_KINDS = (
     ("dilated conv kernels", ("conv_dilated_fwd_kernel", "conv_dilated_fwd_wide_kernel")),
+    # the eval-mode block of the dilated path: conv, bias, BatchNorm and
+    # activation in the forward kernel's epilogue
+    ("eval conv block kernels", ("conv_bn_act_eval_kernel", "conv_bn_act_eval_wide_kernel")),
     ("conv chain kernels", ("conv_bn_act_fwd_kernel", "conv_dgrad_kernel", "reduce_rows_kernel",
                             "conv_bn_act_fwd_wide_kernel", "conv_dgrad_wide_kernel")),
     # the chain's BatchNorm + activation before conv_bn_act_fwd and conv_wgrad
@@ -5755,7 +5878,7 @@ def main(argv=None) -> int:
             "conv_bn_act_fwd": "train_fused", "conv_dgrad": "train_fused",
             "conv_wgrad": "train_fused",
             "conv_dilated_fwd": "trainer", "conv_dilated_wgrad": "trainer",
-            "conv_draw_prologue": "train_fused"}
+            "conv_bn_act_eval": "separate_dilated", "conv_draw_prologue": "train_fused"}
     # each kernel's figures in the type its path runs (bf16), or, for a route
     # that only fp32 takes (the forward's grid route at GRID_HIDDEN), in fp32
     kernels = [

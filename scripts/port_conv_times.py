@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Times the PyTorch port's conv kernel wrappers on the card.
 
-    python3 scripts/port_conv_times.py [--root DIR] [--tag NAME] [--iters 10] [--library] [--channels]
+    python3 scripts/port_conv_times.py [--root DIR] [--tag NAME] [--iters 10] [--library] [--channels] [--eval]
 
 Imports `voicesplit_tpu_torch` from DIR (default: this checkout) and builds
 its kernels there, so that an older tree unpacked with ``git archive`` into
@@ -38,6 +38,16 @@ flipped weights as data gradient) and ``conv_dilated_wgrad`` at each
 (Cin, Cout), and ``conv_bn_act_fwd`` (mish prologue but on (7,1)),
 ``conv_dgrad`` and ``conv_wgrad`` at each chain width; keys
 ``"<width>/<layer>"``, and with ``--library`` cuDNN's times beside them.
+
+``--eval`` times an eval-mode conv block instead, at B=1 and B=8 on the six
+layer kinds, mish and relu, as the model runs it from the fp32 OIHW
+parameters: ``eager_block`` is the dilated kernel's route with the bias,
+BatchNorm and activation as eager passes (``conv_cuda.conv2d_dilated_bias``,
+then ``bn_act.bn_act_eval``), ``eval_block`` the one-launch block
+(``conv_cuda.conv2d_bn_act_eval``, weights cast in the same call), and
+``eval_kernel`` / ``plain_kernel`` the eval-mode kernel and the plain
+forward kernel alone on prepared weights.  A tree without the eval block
+(before it existed) reports the eager block and the plain kernel only.
 """
 
 from __future__ import annotations
@@ -151,6 +161,43 @@ def channel_times(torch, F, bn_act, cc, cf, g, iters: int, library: bool) -> dic
     return out
 
 
+def eval_times(torch, bn_act, cc, g, iters: int) -> dict:
+    """The eval-mode block at B=1 and B=8: ms by name and
+    ``"B<b>/<layer>/<act>"``, and sums over the six layers by name, batch
+    and activation."""
+    T, F_, C = SHAPE
+    has_eval = hasattr(cc, "conv_bn_act_eval")
+    times: dict = {}
+    with torch.inference_mode():
+        for b in (1, 8):
+            x = torch.randn(b, T, F_, C, generator=g).to("cuda", torch.bfloat16)
+            for layer, ((kt, kf), dt) in LAYERS.items():
+                conv = torch.nn.Conv2d(C, C, (kt, kf)).cuda()  # fp32 OIHW weights and bias, as the model holds them
+                bn = torch.nn.Module()
+                bn.scale, bn.bias = torch.rand(C, device="cuda") + 0.5, 0.1 * torch.randn(C, device="cuda")
+                bn.mean, bn.var, bn.epsilon = 0.2 * torch.randn(C, device="cuda"), torch.rand(C, device="cuda") + 0.5, 1e-5
+                w_perm = conv.weight.detach().permute(2, 3, 1, 0)
+                w = w_perm.to(torch.bfloat16).contiguous()
+                for act in ("mish", "relu"):
+                    key = f"B{b}/{layer}/{act}"
+
+                    def eager_block():
+                        y = cc.conv2d_dilated_bias(x, w_perm, conv.bias, (dt, 1))
+                        return bn_act.bn_act_eval(y.permute(0, 3, 1, 2), bn.scale, bn.bias, bn.mean, bn.var, act)
+                    calls = {"eager_block": eager_block, "plain_kernel": lambda: cc.conv_dilated_fwd(x, w, dt)}
+                    if has_eval:
+                        calls["eval_block"] = lambda: cc.conv2d_bn_act_eval(x, w_perm, conv.bias, bn, act, (dt, 1))
+                        calls["eval_kernel"] = lambda: cc.conv_bn_act_eval(
+                            x, w, conv.bias, bn.scale, bn.bias, bn.mean, bn.var, act, 1e-5, dt)
+                    for name, fn in calls.items():
+                        times.setdefault(name, {})[key] = time_ms(torch, fn, iters)
+            del x
+            torch.cuda.empty_cache()
+    sums = {name: {f"B{b}/{act}": sum(t[f"B{b}/{layer}/{act}"] for layer in LAYERS)
+                   for b in (1, 8) for act in ("mish", "relu")} for name, t in times.items()}
+    return {"eval_ms": times, "eval_ms_per_call": sums}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
@@ -159,6 +206,8 @@ def main(argv=None) -> int:
     parser.add_argument("--library", action="store_true")
     parser.add_argument("--channels", action="store_true",
                         help="time chip_smoke.py's channel widths instead of 64 channels")
+    parser.add_argument("--eval", action="store_true",
+                        help="time the eval-mode conv block against the kernel and eager passes")
     args = parser.parse_args(argv)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -184,6 +233,12 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     g = torch.Generator(device="cpu").manual_seed(0)
+    if args.eval:
+        report = {"tag": args.tag, "root": str(root), "device": torch.cuda.get_device_name(0),
+                  "nvidia_smi": smi, "build_seconds": build_s, "iters": args.iters,
+                  **eval_times(torch, bn_act, cc, g, args.iters)}
+        print(json.dumps(report))
+        return 0
     if args.channels:
         report = {"tag": args.tag, "root": str(root), "device": torch.cuda.get_device_name(0),
                   "nvidia_smi": smi, "build_seconds": build_s, "iters": args.iters,

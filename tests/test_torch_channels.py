@@ -350,7 +350,7 @@ def _switch_on(monkeypatch, switch):
 def _counted(monkeypatch):
     """Calls of the port's conv wrappers while the model runs."""
     counts = {}
-    for mod, names in ((cc, ("conv_dilated_fwd", "conv_dilated_wgrad")),
+    for mod, names in ((cc, ("conv_dilated_fwd", "conv_dilated_wgrad", "conv_bn_act_eval")),
                        (cf, ("conv_bn_act_fwd", "conv_dgrad", "conv_wgrad"))):
         for name in names:
             counts[name] = 0
@@ -382,7 +382,8 @@ def _assert_grads_close(got, want, rel):
 
 def test_masknet_eval_with_the_dilated_switch_matches_jax(monkeypatch):
     """Eval-mode `MaskNet` at 128 channels, the dilated switch on in both
-    packages: six kernel-path convs a call, the JAX model's mask (fp32)."""
+    packages: six kernel-path eval-mode blocks a call, the JAX model's mask
+    (fp32)."""
     port = MaskNet(activation="mish", **DIMS).eval()
     params, stats = weights.random_jax_variables(port, seed=1)
     port.load_state_dict(weights.state_dict_from_jax(params, stats))
@@ -393,7 +394,7 @@ def test_masknet_eval_with_the_dilated_switch_matches_jax(monkeypatch):
     counts = _counted(monkeypatch)
     with torch.no_grad():
         mask = port(torch.from_numpy(spec), torch.from_numpy(emb))
-    assert counts["conv_dilated_fwd"] == 6 and counts["conv_dilated_wgrad"] == 0
+    assert {k: v for k, v in counts.items() if v} == {"conv_bn_act_eval": 6}
     np.testing.assert_allclose(mask.numpy(), _np(mask_j), atol=2e-5)
 
 

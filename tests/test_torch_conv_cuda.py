@@ -308,8 +308,8 @@ def _model_inputs(seed):
 
 
 def _count_kernel_calls(monkeypatch):
-    """Counts of the two wrappers while the model runs."""
-    counts = {"conv_dilated_fwd": 0, "conv_dilated_wgrad": 0}
+    """Counts of the three wrappers while the model runs."""
+    counts = {"conv_dilated_fwd": 0, "conv_dilated_wgrad": 0, "conv_bn_act_eval": 0}
     for name in counts:
         fn = getattr(cc, name)
 
@@ -337,8 +337,9 @@ def _assert_grads_close(got, want, rel):
 
 @pytest.mark.parametrize("activation", ["mish", "relu"])
 def test_masknet_eval_matches_jax_on_the_same_path(activation, monkeypatch):
-    """Eval-mode `MaskNet`, switch on in both packages: six kernel-path convs
-    per call, the JAX model's mask (fp32)."""
+    """Eval-mode `MaskNet`, switch on in both packages: six kernel-path
+    eval-mode blocks (conv, bias, BatchNorm, activation in one call) per
+    call, the JAX model's mask (fp32)."""
     port = MaskNet(activation=activation, **DIMS).eval()
     params, stats = weights.random_jax_variables(port, seed=1)
     port.load_state_dict(weights.state_dict_from_jax(params, stats))
@@ -350,7 +351,7 @@ def test_masknet_eval_matches_jax_on_the_same_path(activation, monkeypatch):
     counts = _count_kernel_calls(monkeypatch)
     with torch.no_grad():
         mask = port(torch.from_numpy(spec), torch.from_numpy(emb))
-    assert counts == {"conv_dilated_fwd": 6, "conv_dilated_wgrad": 0}
+    assert counts == {"conv_dilated_fwd": 0, "conv_dilated_wgrad": 0, "conv_bn_act_eval": 6}
     np.testing.assert_allclose(mask.numpy(), _np(mask_j), atol=2e-5)
 
 
@@ -384,7 +385,7 @@ def test_masknet_train_matches_jax_on_the_same_path(activation, monkeypatch):
     np.testing.assert_allclose(mask.numpy(), _np(mask_j), atol=2e-5)
     counts = _count_kernel_calls(monkeypatch)
     got = _port_grads(port, spec, emb, cot)
-    assert counts == {"conv_dilated_fwd": 12, "conv_dilated_wgrad": 6}
+    assert counts == {"conv_dilated_fwd": 12, "conv_dilated_wgrad": 6, "conv_bn_act_eval": 0}
     want = {k: v.numpy() for k, v in weights.params_from_jax(jax.device_get(grads)).items()}
     _assert_grads_close(got, want, 1e-4)
     want_sd = weights.state_dict_from_jax(params, jax.device_get(new_stats))
@@ -506,7 +507,7 @@ def test_train_step_with_the_switch_matches_jax(monkeypatch):
     _port_on(monkeypatch)
     counts = _count_kernel_calls(monkeypatch)
     m = make_train_step(tc, model, ap, optimizer)(state, batch)
-    assert counts == {"conv_dilated_fwd": 12, "conv_dilated_wgrad": 6}
+    assert counts == {"conv_dilated_fwd": 12, "conv_dilated_wgrad": 6, "conv_bn_act_eval": 0}
 
     np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=1e-5)
     np.testing.assert_allclose(float(m["grad_norm"]), float(jm["grad_norm"]), rtol=1e-4)
@@ -523,8 +524,9 @@ def test_train_step_with_the_switch_matches_jax(monkeypatch):
 
 
 def test_serving_takes_the_kernel_path_with_the_switch(monkeypatch):
-    """`separate_batch` (eval mode, inference mode): six kernel-path convs
-    per call with the switch on, none with it off, the same waveform (fp32)."""
+    """`separate_batch` (eval mode, inference mode): six kernel-path
+    eval-mode blocks per call with the switch on and no other dilated-conv
+    call, none with it off, the same waveform (fp32)."""
     tc = load_config_from_str(_config_text())
     model = weights.init_random_(make_masknet(tc, device="cpu"), 1)
     ap = make_audio_processor(tc, device="cpu")
@@ -534,5 +536,5 @@ def test_serving_takes_the_kernel_path_with_the_switch(monkeypatch):
     for on in (False, True):
         _port_on(monkeypatch, on)
         out[on] = separate_batch(model, ap, batch["mixed_wav"], batch["emb"])
-        assert counts["conv_dilated_fwd"] == (6 if on else 0)
+        assert counts == {"conv_dilated_fwd": 0, "conv_dilated_wgrad": 0, "conv_bn_act_eval": 6 if on else 0}
     _assert_peak_close(out[True].numpy(), out[False].numpy(), 1e-4)

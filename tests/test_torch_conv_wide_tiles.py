@@ -213,7 +213,8 @@ def test_every_width_gets_a_tile_that_fits(layer, dtype):
     512 here) gets its route, and on the wide tiles (bf16 at other widths
     than 64) a forward and a weight-gradient tile whose shared memory fits
     a block (227 KB) and whose accumulators fit the register budget; the
-    chain's modes at every C it takes (multiples of 64).  The wide forward
+    chain's modes at every C it takes (multiples of 64), the eval mode at
+    every width the plain mode takes.  The wide forward
     covers all output channels up to 256 in one group, as few groups above;
     the weight gradient groups of up to 128.  C = 64 and fp32 keep the
     fixed tiles of their own instantiations."""
@@ -228,7 +229,9 @@ def test_every_width_gets_a_tile_that_fits(layer, dtype):
             if want != "tiles":
                 assert fwd == wgrad == {"route": want}
                 continue
-            for tile in (fwd, wgrad):
+            ev = cc.fwd_tile(cin, cout, kt, kf, dt, "eval")
+            assert all(ev[k] == fwd[k] for k in ("n", "groups", "mt", "tf", "ring"))
+            for tile in (fwd, wgrad, ev):
                 _fits(tile, (cin, cout))
             assert fwd["groups"] == -(-cout // 256) and fwd["groups"] * fwd["n"] >= cout
             assert fwd["n"] in cc.FWD_WIDTHS and fwd["mt"] * 64 == fwd["tf"]

@@ -160,7 +160,8 @@ def test_traced_route_follows_the_batch(separator, symbolic):
 
 def test_dilated_switch_exports_the_conv_operator(monkeypatch):
     """With ``VOICESPLIT_PALLAS_CONV=1`` at 64 channels the program calls
-    ``conv_dilated_fwd`` for conv2 … conv7 and gives the eager bits."""
+    the eval-mode block ``conv_bn_act_eval`` for conv2 … conv7 (and no
+    ``conv_dilated_fwd``) and gives the eager bits."""
     monkeypatch.setenv("VOICESPLIT_PALLAS_CONV", "1")
     c = json.loads(_config_text())
     c["model"].update(conv_channels=64, conv_out_channels=2, fc2_dim=33)
@@ -168,7 +169,8 @@ def test_dilated_switch_exports_the_conv_operator(monkeypatch):
     config = load_config_from_str(json.dumps(c))
     model = weights.init_random_(make_masknet(config, device="cpu"), 3)
     data = export.export_separator(config, model.state_dict(), seconds=0.1, platforms=["cpu"])["cpu"]
-    assert _ops_in(data).count("voicesplit.conv_dilated_fwd.default") == 6
+    assert _ops_in(data).count("voicesplit.conv_bn_act_eval.default") == 6
+    assert "voicesplit.conv_dilated_fwd.default" not in _ops_in(data)
     rng = np.random.default_rng(21)
     wav = (0.1 * rng.standard_normal((1, 1600))).astype(np.float32)
     emb = rng.standard_normal((1, 256)).astype(np.float32)
@@ -251,6 +253,9 @@ FAKE_CASES = {
                          torch.zeros(3, 16)),
     "bilstm_fwd": lambda: (torch.randn(7, 4, 64), torch.randn(16, 64), torch.randn(16, 64)),
     "conv_dilated_fwd": lambda: (torch.randn(1, 9, 11, 64), 0.1 * torch.randn(5, 5, 64, 64), 2),
+    "conv_bn_act_eval": lambda: (torch.randn(1, 9, 11, 64), 0.1 * torch.randn(5, 5, 64, 64),
+                                 *(0.1 * torch.randn(64) for _ in range(4)), torch.rand(64) + 0.5,
+                                 1e-5, "mish", 2),
 }
 
 
@@ -272,20 +277,27 @@ def test_operator_fake_gives_the_real_shapes(name):
 
 
 def test_operators_are_the_wrappers_launch_path(monkeypatch):
-    """`lstm_fwd`, `bilstm_fwd` and `conv_dilated_fwd`, with and without
-    autograd, all go through the operators."""
+    """`lstm_fwd`, `bilstm_fwd`, `conv_dilated_fwd` and `conv_bn_act_eval`,
+    with and without autograd, all go through the operators."""
     seen = []
     for name, impl in (("lstm_fwd", lstm_cuda.lstm_fwd_ref), ("bilstm_fwd", lstm_cuda.bilstm_fwd_ref),
-                       ("conv_dilated_fwd", conv_cuda.conv_dilated_fwd_ref)):
+                       ("conv_dilated_fwd", conv_cuda.conv_dilated_fwd_ref),
+                       ("conv_bn_act_eval", conv_cuda.conv_bn_act_eval_ref)):
         monkeypatch.setattr(lstm_cuda if "lstm" in name else conv_cuda, f"{name}_ref",
                             lambda *a, _n=name, _f=impl: seen.append(_n) or _f(*a))
     args = {k: f() for k, f in FAKE_CASES.items()}
     lstm_cuda.lstm_fwd(*args["lstm_fwd"])
     lstm_cuda.bilstm_fwd(*args["bilstm_fwd"])
     conv_cuda.conv_dilated_fwd(*args["conv_dilated_fwd"])
+    x, w, b, scale, beta, mean, var, eps, act, dt = args["conv_bn_act_eval"]
+    conv_cuda.conv_bn_act_eval(x, w, b, scale, beta, mean, var, act, eps, dt)
     xp = args["lstm_fwd"][0].requires_grad_()
     lstm_cuda.lstm_fwd(xp, *args["lstm_fwd"][1:])[0].sum().backward()
-    assert seen == ["lstm_fwd", "bilstm_fwd", "conv_dilated_fwd", "lstm_fwd"]
+    conv_cuda.conv_bn_act_eval(x.requires_grad_(), w, b, scale, beta, mean, var, act, eps, dt).sum().backward()
+    # the eval block's plain version takes the conv's; its backward
+    # recomputes the conv and takes the data gradient through the operator
+    assert seen == ["lstm_fwd", "bilstm_fwd", "conv_dilated_fwd", "conv_bn_act_eval", "conv_dilated_fwd",
+                    "lstm_fwd", "conv_bn_act_eval", "conv_dilated_fwd", "conv_dilated_fwd", "conv_dilated_fwd"]
 
 
 def _checkpoint(tmp_path, streaming):

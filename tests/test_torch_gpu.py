@@ -867,7 +867,8 @@ def test_dilated_conv_kernels_match_plain_versions_on_card(layer, dtype):
                 cc.conv_dilated_wgrad_ref(x, d, kt, kf, dil))
     torch.cuda.synchronize()
     assert cc.LAUNCHES == {"conv_dilated_fwd": before["conv_dilated_fwd"] + 2,
-                           "conv_dilated_wgrad": before["conv_dilated_wgrad"] + 1}
+                           "conv_dilated_wgrad": before["conv_dilated_wgrad"] + 1,
+                           "conv_bn_act_eval": before["conv_bn_act_eval"]}
     # relative to each output's peak.  fp32: summation order only.  bf16: the
     # plain version rounds each frequency tap's partial sum (the TPU kernel's
     # rounding), the kernel rounds once: a few bf16 ulps (2^-7 of the peak
@@ -994,7 +995,7 @@ def test_channel_count_off_the_copies_width_is_padded_on_card(dtype):
         dw = cc.conv_dilated_wgrad(x, d, kt, kf, dil)
         want = (cc.conv_dilated_fwd_round_once_ref(x, w, dil), cc.conv_dilated_wgrad_ref(x, d, kt, kf, dil))
     torch.cuda.synchronize()
-    assert cc.CHANNEL_PADS == cc.LAUNCHES == {"conv_dilated_fwd": 1, "conv_dilated_wgrad": 1}
+    assert cc.CHANNEL_PADS == cc.LAUNCHES == {"conv_dilated_fwd": 1, "conv_dilated_wgrad": 1, "conv_bn_act_eval": 0}
     assert out.shape == (2, 13, 150, 100) and out.is_contiguous() and dw.shape == (kt, kf, 100, 100)
     tol = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-3)}[dtype]
     for a, ref, limit in zip((out, dw), want, tol):
@@ -1109,23 +1110,24 @@ def test_wide_forward_body_at_the_edges_of_time_on_card(width, layer):
 @pytest.mark.gpu
 def test_no_wide_tile_instantiation_spills_on_card():
     """Every instantiation of the wide-tile kernels in the built library
-    (`conv_cuda.wide_kernel_attributes`: the forward body plain at n 64-256,
-    its dgrad and chain modes at 128-256, the weight gradient at 64-128,
-    each at kf 1, 3 and 5) uses no local memory: nothing spills."""
+    (`conv_cuda.wide_kernel_attributes`: the forward body plain and eval at
+    n 64-256, its dgrad and chain modes at 128-256, the weight gradient at
+    64-128, each at kf 1, 3 and 5) uses no local memory: nothing spills."""
     _need_card()
     from voicesplit_tpu_torch.ops import conv_cuda as cc
 
     attrs = cc.wide_kernel_attributes()
-    assert len(attrs) == 42, sorted(attrs)
+    assert len(attrs) == 57, sorted(attrs)
     assert all(a["local_bytes"] == 0 and 0 < a["registers"] <= 255 for a in attrs.values()), attrs
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["serve", "train"])
 def test_dilated_conv_switch_runs_through_the_kernels_on_card(mode, monkeypatch):
-    """Full-width model with `VOICESPLIT_PALLAS_CONV=1`: six forward launches
-    per serving call; twelve and six weight-gradient launches per train step
-    at the config's batch, beside the LSTM's."""
+    """Full-width model with `VOICESPLIT_PALLAS_CONV=1`: six eval-block
+    launches (`conv_bn_act_eval`) per serving call and no other conv kernel;
+    twelve forward and six weight-gradient launches per train step at the
+    config's batch and no eval block, beside the LSTM's."""
     _need_card()
     from voicesplit_tpu_torch import weights
     from voicesplit_tpu_torch.cli.separate import separate_batch
@@ -1146,7 +1148,7 @@ def test_dilated_conv_switch_runs_through_the_kernels_on_card(mode, monkeypatch)
         out = separate_batch(model, ap, mixed, emb)
         torch.cuda.synchronize()
         assert out.shape == (2, 48000) and bool(torch.isfinite(out).all())
-        assert conv_cuda.LAUNCHES == {"conv_dilated_fwd": 6, "conv_dilated_wgrad": 0}
+        assert conv_cuda.LAUNCHES == {"conv_dilated_fwd": 0, "conv_dilated_wgrad": 0, "conv_bn_act_eval": 6}
         return
     opt = make_optimizer(cfg, model)
     state = create_train_state(model, opt)
@@ -1155,7 +1157,7 @@ def test_dilated_conv_switch_runs_through_the_kernels_on_card(mode, monkeypatch)
     before = {k: v.clone() for k, v in model.state_dict().items()}
     m = make_train_step(cfg, model, ap, opt)(state, batch)
     torch.cuda.synchronize()
-    assert conv_cuda.LAUNCHES == {"conv_dilated_fwd": 12, "conv_dilated_wgrad": 6}
+    assert conv_cuda.LAUNCHES == {"conv_dilated_fwd": 12, "conv_dilated_wgrad": 6, "conv_bn_act_eval": 0}
     assert lstm_cuda.LAUNCHES == {"lstm_fwd": 2, "bilstm_fwd": 0, "lstm_bwd": 2, "bilstm_bwd": 0}
     assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
     for k, v in model.state_dict().items():
@@ -1167,7 +1169,7 @@ def test_spans_hold_the_calls_launches_on_card(monkeypatch, tmp_path):
     """A B=1 call with `VOICESPLIT_PALLAS_CONV=1` under the profiler: every
     kernel it launched starts after its top span starts, and the launch calls
     inside that span number at least the port's own counters' increase (6
-    `conv_dilated_fwd` + 2 `lstm_fwd`), so the profiler sees the kernels
+    `conv_bn_act_eval` + 2 `lstm_fwd`), so the profiler sees the kernels
     launched through ctypes."""
     _need_card()
     from torch.profiler import ProfilerActivity, profile
@@ -1293,7 +1295,7 @@ def test_wide_train_step_runs_through_the_kernels_on_card(route, monkeypatch):
     torch.cuda.synchronize()
     assert lstm_cuda.LAUNCHES == {"lstm_fwd": 2, "bilstm_fwd": 0, "lstm_bwd": 2, "bilstm_bwd": 0}
     assert lstm_cuda.ROUTES == {"cluster": 0, "split": 2, "grid": 0} == lstm_cuda.ROUTES_BWD
-    dilated = {"conv_dilated_fwd": 14, "conv_dilated_wgrad": 7}
+    dilated = {"conv_dilated_fwd": 14, "conv_dilated_wgrad": 7, "conv_bn_act_eval": 0}
     chain = {"conv_bn_act_fwd": 7, "conv_dgrad": 7, "conv_wgrad": 7, "conv_wgrad_prologue": 12,
              "conv_draw_prologue": 0}
     assert conv_cuda.LAUNCHES == (dilated if route == "pallas_conv" else dict.fromkeys(dilated, 0))
@@ -2009,7 +2011,7 @@ def _long_setup(seed=0):
 def test_separate_long_world_of_one_is_separate_batch_on_card(route, monkeypatch):
     """No process group: the whole utterance on the card, `separate_batch`'s
     bits, both LSTM directions on `lstm_fwd` (and conv2 … conv7 on
-    `conv_dilated_fwd` with the switch)."""
+    `conv_bn_act_eval` with the switch)."""
     _need_card()
     from voicesplit_tpu_torch.cli.separate import separate_batch
     from voicesplit_tpu_torch.ops import conv_cuda, lstm_cuda
@@ -2033,7 +2035,7 @@ def test_sharded_mask_matches_the_world_of_one_on_card(route, shards, monkeypatc
     against the world of one's mask: the same bits, or only the library
     calls that pick their kernel by shape differing, within
     LONG_SHARDED_TOL; 2·K² `lstm_fwd` launches (every shard holds valid
-    frames) and 6 `conv_dilated_fwd` a shard with the switch."""
+    frames) and 6 `conv_bn_act_eval` a shard with the switch."""
     _need_card()
     import torch.nn.functional as tnf
 
@@ -2113,11 +2115,11 @@ def test_exported_programs_load_cold_and_launch_the_kernels_on_card(tmp_path):
 
     launches = chip_smoke.phase_export(torch, lstm_cuda, conv_cuda, 0, tmp_path)
     assert launches["lstm_fwd"] == 2 * 4 + chip_smoke.EXPORT_CHUNKS
-    assert launches["bilstm_fwd"] == 1 and launches["conv_dilated_fwd"] == 6
+    assert launches["bilstm_fwd"] == 1 and launches["conv_bn_act_eval"] == 6
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["lstm_fwd", "bilstm_fwd", "conv_dilated_fwd"])
+@pytest.mark.parametrize("name", ["lstm_fwd", "bilstm_fwd", "conv_dilated_fwd", "conv_bn_act_eval"])
 def test_operator_launches_its_kernel_and_fakes_its_shapes_on_card(name):
     """Each operator on CUDA tensors launches its kernel once (counted), and
     its fake implementation gives the real outputs' shapes and types."""
@@ -2136,6 +2138,10 @@ def test_operator_launches_its_kernel_and_fakes_its_shapes_on_card(name):
                                0.05 * torch.randn(400, 1600, device="cuda").to(bf)),
         "conv_dilated_fwd": lambda: (torch.randn(1, 33, 601, 64, device="cuda").to(bf),
                                      0.05 * torch.randn(5, 5, 64, 64, device="cuda").to(bf), 2),
+        "conv_bn_act_eval": lambda: (torch.randn(1, 33, 601, 64, device="cuda").to(bf),
+                                     0.05 * torch.randn(5, 5, 64, 64, device="cuda").to(bf),
+                                     *(0.1 * torch.randn(64, device="cuda") for _ in range(4)),
+                                     torch.rand(64, device="cuda") + 0.5, 1e-5, "mish", 2),
     }[name]()
     module = conv_cuda if name.startswith("conv") else lstm_cuda
     op = getattr(torch.ops.voicesplit, name)

@@ -151,25 +151,29 @@ def test_running_statistics_move_once_as_jax_with_remat(activation, monkeypatch)
 @pytest.mark.parametrize("route", ["library", "dilated"])
 def test_each_block_forward_runs_twice_in_a_train_step_and_once_in_eval(route, monkeypatch):
     """Counts each block's conv calls (the library conv, or on the dilated
-    route the dilated-kernel op of conv2 … conv7): a remat train step runs
-    every block's forward twice (the forward and the recompute), a plain
-    step and an eval pass with the switch once."""
+    route the dilated-kernel op of conv2 … conv7: `conv2d_dilated_bias` in
+    train mode, the eval-mode block `conv2d_bn_act_eval` in eval mode): a
+    remat train step runs every block's forward twice (the forward and the
+    recompute), a plain step and an eval pass with the switch once."""
     switches, channels, _, _ = ROUTES[route]
     for k, v in switches.items():
         monkeypatch.setenv(k, v)
     calls = {"library": 0, "dilated": 0}
-    library_conv, dilated_conv = ConvBlock._conv, masknet.conv2d_dilated_bias
+    library_conv = ConvBlock._conv
 
     def count_library(self, x):
         calls["library"] += 1
         return library_conv(self, x)
 
-    def count_dilated(*a, **kw):
-        calls["dilated"] += 1
-        return dilated_conv(*a, **kw)
+    def count_dilated(fn):
+        def counted(*a, **kw):
+            calls["dilated"] += 1
+            return fn(*a, **kw)
+        return counted
 
     monkeypatch.setattr(ConvBlock, "_conv", count_library)
-    monkeypatch.setattr(masknet, "conv2d_dilated_bias", count_dilated)
+    for name in ("conv2d_dilated_bias", "conv2d_bn_act_eval"):
+        monkeypatch.setattr(masknet, name, count_dilated(getattr(masknet, name)))
     tc = load_config_from_str(_config_text(channels))
     model = weights.init_random_(make_masknet(tc, device="cpu"), 0)
     optimizer = make_optimizer(tc, model)

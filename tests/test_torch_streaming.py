@@ -302,6 +302,7 @@ def test_causal_layers_never_reach_a_conv_kernel(train, monkeypatch):
         want = model.conv_features(spec)
     calls = {}
     _spy(monkeypatch, masknet_module, "conv2d_dilated_bias", calls)
+    _spy(monkeypatch, masknet_module, "conv2d_bn_act_eval", calls)
     _spy(monkeypatch, masknet_module, "make_chain", calls)
     _route_as_full_width(monkeypatch)
     monkeypatch.setenv("VOICESPLIT_PALLAS_CONV", "1")
@@ -408,18 +409,21 @@ def test_refuses_other_backends_and_offline_models():
 @pytest.mark.parametrize("causal", [False, True])
 def test_chunk_launches(causal, monkeypatch):
     """One `lstm_fwd` a chunk; with `VOICESPLIT_PALLAS_CONV=1` six
-    dilated-conv calls a chunk for the symmetric stack (conv2 … conv7) and
-    none for the causal one.  On the CPU the calls run the plain versions."""
+    eval-mode conv-block calls (`conv2d_bn_act_eval`, one kernel launch
+    each on the card) a chunk for the symmetric stack (conv2 … conv7), no
+    train-mode conv call, and none for the causal one.  On the CPU the calls
+    run the plain versions."""
     _, tc, _, model, _ = _pair(causal, seed=14)
     monkeypatch.setenv("VOICESPLIT_PALLAS_CONV", "1")
     calls = {}
     for name in ("lstm_fwd", "bilstm_fwd"):
         _spy(monkeypatch, lstm_cuda, name, calls)
     _spy(monkeypatch, masknet_module, "conv2d_dilated_bias", calls)
+    _spy(monkeypatch, masknet_module, "conv2d_bn_act_eval", calls)
     _route_as_full_width(monkeypatch)
     sep = StreamingSeparator(tc, model, 20, device="cpu")
     st = sep.init_state(1)
     for _ in range(2):
         st, _ = sep.process_chunk(st, _wav(sep.chunk_samples)[None], _emb())
-    want = {"lstm_fwd": 2} if causal else {"lstm_fwd": 2, "conv2d_dilated_bias": 12}
+    want = {"lstm_fwd": 2} if causal else {"lstm_fwd": 2, "conv2d_bn_act_eval": 12}
     assert calls == want

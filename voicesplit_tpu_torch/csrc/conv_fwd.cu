@@ -1,8 +1,9 @@
 // Forward / data-gradient "same" time-dilated conv for Hopper (sm_90a): the
 // opt-in conv path's conv_dilated_fwd (VOICESPLIT_PALLAS_CONV=1; with
-// flipped weights also its data gradient) and the fused chain's forward
-// conv_bn_act_fwd and data gradient conv_dgrad: one kernel body in three
-// modes (plain, dgrad, chain).
+// flipped weights also its data gradient) and its eval-mode layer
+// conv_bn_act_eval, and the fused chain's forward conv_bn_act_fwd and data
+// gradient conv_dgrad: one kernel body in four modes (plain, dgrad, chain,
+// eval).
 //
 // Replaces the TPU kernels (the Python wrappers of the same names, in
 // ops/conv_cuda.py and ops/conv_fused.py, launch the C functions below)
@@ -10,6 +11,9 @@
 //                       _conv_fwd_core :167; the data gradient with flipped weights :371-378)
 //   conv_bn_act_fwd  <- voicesplit_tpu/ops/conv_fused.py  _fwd_kernel   (:303, launched by
 //                       _conv_fwd :365)
+//   conv_bn_act_eval <- conv_pallas.py _fwd_kernel (:95) with the bias that conv_dispatch
+//                       adds after it (:406-420) and the eval-mode BatchNorm + activation
+//                       that follows (ops/bn_act.py folded_bn_act_eval), in one epilogue
 //   conv_dgrad       <- voicesplit_tpu/ops/conv_fused.py  _dgrad_kernel (:411, launched by
 //                       _conv_dgrad :476); its prologue=True branch (:423-444, d_raw
 //                       drawn from dy and the raw x in the load path) is the d_raw
@@ -24,6 +28,8 @@
 //   conv_dgrad also  dbias[c] = sum_{b,t,f} x[b, t, f, c]   (x = d_raw, fp32)
 //   conv_bn_act_fwd  raw = round(the same sum + bias[co]), stats[0, co] = sum raw,
 //                    stats[1, co] = sum raw^2 (fp32, of the rounded raw over [0, T) x [0, F))
+//   conv_bn_act_eval out = round(act((the same sum + bias[co]) inv[co] + shift[co])),
+//                    inv = scale / sqrt(var + eps), shift = beta - mean inv (running statistics)
 //
 // round() casts to the operand type (bf16 or fp32), every product
 // accumulates in fp32, a tap outside [0, T) x [0, F) contributes zero.  The
@@ -113,6 +119,12 @@
 //   beside the accumulators in registers, the statistics spilled (255
 //   registers); the chain mode therefore zeroes its accumulators at each item
 //   and always accumulates, so that they are dead once written.
+//   conv_bn_act_eval stages [bias, inv, shift] of every output channel in
+//   shared memory at the block's start (fp32, formed from the five [Cout]
+//   vectors) and passes each fp32 sum through act((sum + bias) inv + shift)
+//   (conv_tile.cuh's activate_eval, the activation a runtime argument)
+//   before the one rounding: the eval-mode layer's conv, bias, BatchNorm
+//   and activation in one pass over its output.
 //   conv_dgrad sums each input element once, from the A registers of the
 //   centre tap (time and frequency) of the item whose output row is its row,
 //   per lane in fp32 over the run.  Either way the block adds its lanes and
@@ -152,9 +164,10 @@
 namespace {
 
 // What the kernel body computes besides the conv: nothing (conv_dilated_fwd),
-// the input's column sums (conv_dgrad), or the bias and the output's
-// statistics (conv_bn_act_fwd).
-enum FwdMode : int { kFwdPlain = 0, kFwdDgrad = 1, kFwdChain = 2 };
+// the input's column sums (conv_dgrad), the bias and the output's
+// statistics (conv_bn_act_fwd), or the bias, the eval-mode BatchNorm and the
+// activation (conv_bn_act_eval).
+enum FwdMode : int { kFwdPlain = 0, kFwdDgrad = 1, kFwdChain = 2, kFwdEval = 3 };
 
 // The shape of an item, by operand type and frequency taps.
 template <typename T, int KF>
@@ -230,12 +243,19 @@ __host__ __device__ constexpr bool resident_weights() {
   return KF == 1 && !WIDE;
 }
 
+// the eval mode's [bias, inv, shift] table (C = 64: 64 channels; WIDE: Cout)
+template <bool WIDE>
+size_t eval_smem_bytes(int cout) {
+  return size_t(3) * (WIDE ? cout : kC) * sizeof(float);
+}
+
 template <typename T, int KF, int MODE, bool WIDE>
 size_t fwd_smem_bytes(int kt, int cout) {
   const size_t ring = size_t(ring_slots<T, KF>(kt)) * FwdShape<T, KF>::kRowElems;
   const size_t weights = size_t(resident_weights<KF, WIDE>() ? kt : 2 * KF) * kC * kC;
-  return (ring + weights) * sizeof(T) + (MODE == kFwdChain ? chain_smem_bytes<WIDE>(cout) : 0) +
-         kSmemAlign;
+  const size_t extra = MODE == kFwdChain ? chain_smem_bytes<WIDE>(cout)
+                       : MODE == kFwdEval ? eval_smem_bytes<WIDE>(cout) : 0;
+  return (ring + weights) * sizeof(T) + extra + kSmemAlign;
 }
 
 // Input row t, positions [f_lo, f_lo + TF + KF - 1), channels [c0, c0 + 64),
@@ -329,12 +349,14 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[8][4], const uint32_t
 // grid (blocks); out [B, T, F, Cout]; kFwdDgrad: partials [blocks][Cin], the
 // block's share of the input's column sums; kFwdChain: bias [Cout] and
 // partials [blocks][2 Cout], the block's share of the output's sums and sums
-// of squares (C = 64: Cin = Cout = 64).
+// of squares (C = 64: Cin = Cout = 64); kFwdEval: ep, the layer's [Cout]
+// vectors.
 template <typename T, int KF, int MODE, bool WIDE>
 __device__ __forceinline__ void conv_fwd_body(const T* __restrict__ x, const T* __restrict__ wt,
                                               const float* __restrict__ bias, T* __restrict__ out,
-                                              float* __restrict__ partials, const FwdWork& w) {
-  constexpr bool DGRAD = MODE == kFwdDgrad, CHAIN = MODE == kFwdChain;
+                                              float* __restrict__ partials, const FwdWork& w,
+                                              const EvalParams& ep) {
+  constexpr bool DGRAD = MODE == kFwdDgrad, CHAIN = MODE == kFwdChain, EVAL = MODE == kFwdEval;
   using Shape = FwdShape<T, KF>;
   constexpr int R = Shape::R, TF = Shape::TF;
   constexpr bool kTensorCore = Shape::kTensorCore;
@@ -362,7 +384,8 @@ __device__ __forceinline__ void conv_fwd_body(const T* __restrict__ x, const T* 
       (reinterpret_cast<uintptr_t>(smem_raw) + kSmemAlign - 1) & ~uintptr_t(kSmemAlign - 1));
   T* const ring = w_s + (kResidentW ? kt : 2) * kTapElems;
   // CHAIN: [warp][sum 64, sum of squares 64] (bf16: the warp's stage of
-  // rounded outputs until the end), then the bias
+  // rounded outputs until the end), then the bias; EVAL: [bias, inv, shift]
+  // of every output channel
   float* const stat_s = reinterpret_cast<float*>(ring + S * kRowElems);
   float* const stage = stat_s + warp * 2 * kC;
   float* const bias_s = stat_s + (kThreads / 32) * 2 * kC;
@@ -377,6 +400,7 @@ __device__ __forceinline__ void conv_fwd_body(const T* __restrict__ x, const T* 
   } else {
     if (CHAIN && tid < kC) bias_s[tid] = bias[tid];
   }
+  if constexpr (EVAL) stage_eval(stat_s, ep, cout, tid, kThreads);  // read after the first step's barrier
 
   // bf16: warpgroup wg = warp / 4 computes output rows 2 wg and 2 wg + 1 of
   // the item; this warp's tile q = 2 r + x holds row 2 wg + r and 16 positions
@@ -617,7 +641,8 @@ __device__ __forceinline__ void conv_fwd_body(const T* __restrict__ x, const T* 
       }
     }
 
-    // epilogue: (CHAIN: + bias) round once, write 16 bytes a lane
+    // epilogue: (CHAIN: + bias; EVAL: + bias, BatchNorm, activation) round
+    // once, write 16 bytes a lane
     const int co0 = it.og * kC;  // the group's first output channel
     if constexpr (kTensorCore) {
       if (t_out0 < w.T) {
@@ -637,6 +662,7 @@ __device__ __forceinline__ void conv_fwd_body(const T* __restrict__ x, const T* 
                 v0 += bias_s[co0 + 8 * nt + 2 * tig];
                 v1 += bias_s[co0 + 8 * nt + 2 * tig + 1];
               }
+              if constexpr (EVAL) eval_pair(v0, v1, stat_s, cout, co0 + 8 * nt + 2 * tig, ep.act);
               wd[nt] = pack_bf16(v0, v1);
             }
 #pragma unroll
@@ -689,6 +715,10 @@ __device__ __forceinline__ void conv_fwd_body(const T* __restrict__ x, const T* 
             st32[1][nn] += v[nn] * v[nn];
           }
         }
+        if constexpr (EVAL) {
+          eval_pair(v[0], v[1], stat_s, cout, co0 + n0, ep.act);
+          eval_pair(v[2], v[3], stat_s, cout, co0 + n0 + 2, ep.act);
+        }
         *reinterpret_cast<float4*>(out + ((size_t(it.b) * w.T + t_out0) * w.F + it.f0 + m) * cout + co0 + n0) =
             make_float4(v[0], v[1], v[2], v[3]);
       }
@@ -711,14 +741,14 @@ template <typename T, int KF, bool WIDE>
 __global__ void __launch_bounds__(kThreads, 1)
 conv_dilated_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
                         const FwdWork work) {
-  conv_fwd_body<T, KF, kFwdPlain, WIDE>(x, w, nullptr, out, nullptr, work);
+  conv_fwd_body<T, KF, kFwdPlain, WIDE>(x, w, nullptr, out, nullptr, work, EvalParams{});
 }
 
 template <typename T, int KF, bool WIDE>
 __global__ void __launch_bounds__(kThreads, 1)
 conv_dgrad_kernel(const T* __restrict__ d_raw, const T* __restrict__ w, T* __restrict__ dx,
                   float* __restrict__ partials, const FwdWork work) {
-  conv_fwd_body<T, KF, kFwdDgrad, WIDE>(d_raw, w, nullptr, dx, partials, work);
+  conv_fwd_body<T, KF, kFwdDgrad, WIDE>(d_raw, w, nullptr, dx, partials, work, EvalParams{});
 }
 
 template <typename T, int KF, bool WIDE>
@@ -726,12 +756,21 @@ __global__ void __launch_bounds__(kThreads, 1)
 conv_bn_act_fwd_kernel(const T* __restrict__ y, const T* __restrict__ w,
                        const float* __restrict__ bias, T* __restrict__ raw,
                        float* __restrict__ partials, const FwdWork work) {
-  conv_fwd_body<T, KF, kFwdChain, WIDE>(y, w, bias, raw, partials, work);
+  conv_fwd_body<T, KF, kFwdChain, WIDE>(y, w, bias, raw, partials, work, EvalParams{});
+}
+
+template <typename T, int KF, bool WIDE>
+__global__ void __launch_bounds__(kThreads, 1)
+conv_bn_act_eval_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
+                        const EvalParams ep, const FwdWork work) {
+  conv_fwd_body<T, KF, kFwdEval, WIDE>(x, w, nullptr, out, nullptr, work, ep);
 }
 
 template <typename T, int KF, int MODE, bool WIDE>
 auto fwd_kernel() {
-  if constexpr (MODE == kFwdChain) {
+  if constexpr (MODE == kFwdEval) {
+    return conv_bn_act_eval_kernel<T, KF, WIDE>;
+  } else if constexpr (MODE == kFwdChain) {
     return conv_bn_act_fwd_kernel<T, KF, WIDE>;
   } else if constexpr (MODE == kFwdDgrad) {
     return conv_dgrad_kernel<T, KF, WIDE>;
@@ -858,6 +897,23 @@ cudaError_t launch_fwd(const void* x, const void* w, void* out, int B, int T_, i
                                    static_cast<T*>(out));
 }
 
+// conv_bn_act_eval: the eval mode's kernel at (cin, cout) with the layer's
+// vectors in ep.
+template <typename T>
+cudaError_t launch_eval(const void* x, const void* w, void* out, const EvalParams& ep, int B, int T_, int F,
+                        int cin, int cout, int kt, int kf, int dt, cudaStream_t stream) {
+  if (takes_tiles<T>(cin, cout)) {
+    wide::FwdWideInfo info;
+    return wide::conv_fwd_wide_launch(kFwdEval, x, w, nullptr, out, nullptr, B, T_, F, cin, cout, kt, kf, dt,
+                                      stream, &info, &ep);
+  }
+  FwdPlan p;
+  cudaError_t err = plan<T, kFwdEval>(B, T_, F, cin, cout, kt, kf, dt, &p);
+  if (err != cudaSuccess) return err;
+  return launch_body<T, kFwdEval>(p, kf, stream, static_cast<const T*>(x), static_cast<const T*>(w),
+                                  static_cast<T*>(out), ep);
+}
+
 // conv_dgrad (sums: dbias [C]) or conv_bn_act_fwd (bias; sums: stats [2][C]):
 // the kernel, then its per-block partial rows added in a fixed order.
 template <typename T, int MODE>
@@ -899,6 +955,7 @@ cudaError_t plan_mode(int B, int T_, int F, int cin, int cout, int kt, int kf, i
     case kFwdPlain: return plan<T, kFwdPlain>(B, T_, F, cin, cout, kt, kf, dt, p);
     case kFwdDgrad: return plan<T, kFwdDgrad>(B, T_, F, cin, cout, kt, kf, dt, p);
     case kFwdChain: return plan<T, kFwdChain>(B, T_, F, cin, cout, kt, kf, dt, p);
+    case kFwdEval: return plan<T, kFwdEval>(B, T_, F, cin, cout, kt, kf, dt, p);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -907,8 +964,8 @@ cudaError_t plan_mode(int B, int T_, int F, int cin, int cout, int kt, int kf, i
 
 // Plain C interface (loaded with ctypes).  Every function returns its
 // cudaError_t; 0 is success.  `bf16` selects bf16 activations and weights,
-// otherwise fp32; bias, stats ([2, C]: sums, sums of squares), dbias and
-// scratch are fp32.  Activations are [B, T, F, Cin] in and [B, T, F, Cout]
+// otherwise fp32; bias, stats ([2, C]: sums, sums of squares), dbias,
+// scratch and conv_bn_act_eval's [Cout] vectors are fp32.  Activations are [B, T, F, Cin] in and [B, T, F, Cout]
 // out, weights [kt, kf, Cin, Cout] (conv_dgrad: flipped and transposed by
 // the caller; conv_dgrad and conv_bn_act_fwd take Cin = Cout = C), channel
 // counts a multiple of 8 (bf16) or 4 (fp32).  `scratch` holds the per-block
@@ -920,6 +977,23 @@ extern "C" int conv_dilated_fwd(const void* x, const void* w, void* out, int B, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_fwd<__nv_bfloat16>(x, w, out, B, T, F, cin, cout, kt, kf, dt, s)
               : launch_fwd<float>(x, w, out, B, T, F, cin, cout, kt, kf, dt, s);
+}
+
+// The eval-mode layer: the conv of x [B, T, F, cin] with w [kt, kf, cin,
+// cout], then act((. + bias) inv + shift) with inv = scale / sqrt(var + eps),
+// shift = beta - mean inv, rounded once into out [B, T, F, cout]; act 1 mish,
+// 2 relu.
+extern "C" int conv_bn_act_eval(const void* x, const void* w, const void* bias, const void* scale,
+                                const void* beta, const void* mean, const void* var, void* out, int B,
+                                int T, int F, int cin, int cout, int kt, int kf, int dt, float eps,
+                                int act, int bf16, void* stream) {
+  if (act != kMish && act != kRelu) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const EvalParams ep{static_cast<const float*>(bias), static_cast<const float*>(scale),
+                      static_cast<const float*>(beta),  static_cast<const float*>(mean),
+                      static_cast<const float*>(var),   eps, act};
+  return bf16 ? launch_eval<__nv_bfloat16>(x, w, out, ep, B, T, F, cin, cout, kt, kf, dt, s)
+              : launch_eval<float>(x, w, out, ep, B, T, F, cin, cout, kt, kf, dt, s);
 }
 
 extern "C" int conv_bn_act_fwd(const void* y, const void* w, const void* bias, void* raw,
@@ -943,8 +1017,8 @@ extern "C" int conv_dgrad(const void* d_raw, const void* w_flipped, void* dx, vo
                                                    T, F, C, kt, kf, dt, s);
 }
 
-// Launch shape of conv_dilated_fwd (mode 0), conv_dgrad (mode 1) or
-// conv_bn_act_fwd (mode 2) on the current card: blocks (never more than
+// Launch shape of conv_dilated_fwd (mode 0), conv_dgrad (mode 1),
+// conv_bn_act_fwd (mode 2) or conv_bn_act_eval (mode 3) on the current card: blocks (never more than
 // `resident`, the blocks the card holds at once), threads, dynamic shared
 // memory, fp32 scratch elements, registers a thread and local (spilled)
 // bytes a thread.

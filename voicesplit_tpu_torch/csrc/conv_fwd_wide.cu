@@ -1,14 +1,16 @@
 // The forward / data-gradient conv body of conv_fwd.cu at other widths than
 // 64 channels, bf16 (Cin or Cout != 64; fp32 keeps conv_fwd.cu's slab route
 // on CUDA cores, the tests' instantiation): conv_dilated_fwd (also its data
-// gradient, on flipped weights), conv_dgrad and conv_bn_act_fwd, the same
-// three modes as conv_fwd.cu's body and the same TPU kernels replaced
-// (voicesplit_tpu/ops/conv_pallas.py _fwd_kernel :95, conv_fused.py
-// _fwd_kernel :303 and _dgrad_kernel :411), the same arithmetic (every tap
-// summed in fp32 and rounded once; the chain's bias added before the
-// rounding and its statistics of the rounded output; conv_dgrad's column
-// sums of its input), the same one wave of balanced runs and fixed-order
-// partial sums: no float atomics, the same bits twice.
+// gradient, on flipped weights), conv_dgrad, conv_bn_act_fwd and
+// conv_bn_act_eval, the same four modes as conv_fwd.cu's body and the same
+// TPU kernels replaced (voicesplit_tpu/ops/conv_pallas.py _fwd_kernel :95,
+// conv_fused.py _fwd_kernel :303 and _dgrad_kernel :411), the same
+// arithmetic (every tap summed in fp32 and rounded once; the chain's bias
+// added before the rounding and its statistics of the rounded output;
+// conv_dgrad's column sums of its input; the eval mode's bias, BatchNorm
+// and activation on the fp32 sum from a [bias, inv, shift] table staged in
+// shared memory at the block's start), the same one wave of balanced runs and
+// fixed-order partial sums: no float atomics, the same bits twice.
 //
 // What bounds it (H100 SXM, 989 TFLOP/s bf16 dense, 3.35 TB/s): a (5,5)
 // layer at [2, 301, 601, 128] is 296 GFLOP against 185 MB, bound by
@@ -98,7 +100,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-enum WideMode : int { kWidePlain = 0, kWideDgrad = 1, kWideChain = 2 };
+enum WideMode : int { kWidePlain = 0, kWideDgrad = 1, kWideChain = 2, kWideEval = 3 };
 
 template <int N> struct WideShape {
   static constexpr int MT = N <= 128 ? 2 : 1;            // m64 tiles a warpgroup
@@ -154,12 +156,14 @@ __device__ __forceinline__ float2 unpack2(uint32_t v) {
 }
 
 // grid (blocks); out [B, T, F, cout]; kWideDgrad: partials [blocks][8 warps][cin];
-// kWideChain: bias [cout], partials [blocks][2 cout] (sums, sums of squares)
+// kWideChain: bias [cout], partials [blocks][2 cout] (sums, sums of squares);
+// kWideEval: ep, the layer's [cout] vectors
 template <int KF, int MODE, int N>
 __device__ __forceinline__ void conv_fwd_wide_body(const CUtensorMap* tm_x, const CUtensorMap* tm_w,
                                                    const float* __restrict__ bias, bf16* __restrict__ out,
-                                                   float* __restrict__ partials, const WideWork& w) {
-  constexpr bool DGRAD = MODE == kWideDgrad, CHAIN = MODE == kWideChain;
+                                                   float* __restrict__ partials, const WideWork& w,
+                                                   const EvalParams& ep) {
+  constexpr bool DGRAD = MODE == kWideDgrad, CHAIN = MODE == kWideChain, EVAL = MODE == kWideEval;
   using Shape = WideShape<N>;
   constexpr int MT = Shape::MT, TF = Shape::TF, R = Shape::R, NSM = Shape::NSM;
   constexpr int kRow = (TF + KF - 1) * kC;   // elements of a ring tile's rows
@@ -181,7 +185,8 @@ __device__ __forceinline__ void conv_fwd_wide_body(const CUtensorMap* tm_x, cons
   const int total = per_item * n;  // sub-steps of the run (the planner keeps it in int)
 
   // [W][NSM / 64][64][64] weight slices, then the ring [Q][TF + KF - 1][64];
-  // CHAIN: [warp][2 N] sums and sums of squares, then [warp][8][32] stages
+  // CHAIN: [warp][2 N] sums and sums of squares, then [warp][8][32] stages;
+  // EVAL: [bias, inv, shift] of every output channel
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* const w_s = reinterpret_cast<bf16*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + wide::kAlign - 1) & ~uintptr_t(wide::kAlign - 1));
@@ -201,6 +206,7 @@ __device__ __forceinline__ void conv_fwd_wide_body(const CUtensorMap* tm_x, cons
     for (int c = tid; c < 2 * w.cout; c += kThreads) partials[size_t(g) * 2 * w.cout + c] = 0.0f;
     for (int e = tid; e < wide::kWarps * 2 * N; e += kThreads) stat_s[e] = 0.0f;
   }
+  if constexpr (EVAL) stage_eval(stat_s, ep, w.cout, tid, kThreads);  // read after the barrier below
 
   // mbarriers: one a weight slice buffer, one a ring slot; the fill of
   // slice (or ring row) number s is phase s / count of barrier s % count
@@ -364,7 +370,8 @@ __device__ __forceinline__ void conv_fwd_wide_body(const CUtensorMap* tm_x, cons
     }
     wgmma_wait<0>();
 
-    // epilogue: (CHAIN: + bias) round once, 16 bytes a lane
+    // epilogue: (CHAIN: + bias; EVAL: + bias, BatchNorm, activation) round
+    // once, 16 bytes a lane
     if (t_out < w.T) {
       const int gr = lane >> 2, tig = lane & 3, quad = lane & ~3;
       bf16* const out_row = out + (size_t(it.b) * w.T + t_out) * w.F * w.cout;
@@ -385,6 +392,10 @@ __device__ __forceinline__ void conv_fwd_wide_body(const CUtensorMap* tm_x, cons
                   v0 += __ldg(bias + co);
                   v1 += __ldg(bias + co + 1);
                 }
+              }
+              if constexpr (EVAL) {
+                const int co = it.og * N + 8 * (4 * hh + k4) + 2 * tig;
+                if (co < w.cout) eval_pair(v0, v1, stat_s, w.cout, co, ep.act);  // cout is a multiple of 8
               }
               wd[k4] = pack2(v0, v1);
             }
@@ -448,31 +459,43 @@ template <int KF, int N>
 __global__ void __launch_bounds__(kThreads, 1)
 conv_dilated_fwd_wide_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
                              const float* __restrict__ bias, bf16* __restrict__ out, float* __restrict__ partials,
-                             const WideWork work) {
-  conv_fwd_wide_body<KF, kWidePlain, N>(&tm_x, &tm_w, bias, out, partials, work);
+                             const WideWork work, const EvalParams ep) {
+  conv_fwd_wide_body<KF, kWidePlain, N>(&tm_x, &tm_w, bias, out, partials, work, ep);
 }
 
 template <int KF, int N>
 __global__ void __launch_bounds__(kThreads, 1)
 conv_dgrad_wide_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
                        const float* __restrict__ bias, bf16* __restrict__ out, float* __restrict__ partials,
-                       const WideWork work) {
-  conv_fwd_wide_body<KF, kWideDgrad, N>(&tm_x, &tm_w, bias, out, partials, work);
+                       const WideWork work, const EvalParams ep) {
+  conv_fwd_wide_body<KF, kWideDgrad, N>(&tm_x, &tm_w, bias, out, partials, work, ep);
 }
 
 template <int KF, int N>
 __global__ void __launch_bounds__(kThreads, 1)
 conv_bn_act_fwd_wide_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
                             const float* __restrict__ bias, bf16* __restrict__ out, float* __restrict__ partials,
-                            const WideWork work) {
-  conv_fwd_wide_body<KF, kWideChain, N>(&tm_x, &tm_w, bias, out, partials, work);
+                            const WideWork work, const EvalParams ep) {
+  conv_fwd_wide_body<KF, kWideChain, N>(&tm_x, &tm_w, bias, out, partials, work, ep);
 }
 
-using WideKernel = void (*)(const CUtensorMap, const CUtensorMap, const float*, bf16*, float*, const WideWork);
+template <int KF, int N>
+__global__ void __launch_bounds__(kThreads, 1)
+conv_bn_act_eval_wide_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
+                             const float* __restrict__ bias, bf16* __restrict__ out, float* __restrict__ partials,
+                             const WideWork work, const EvalParams ep) {
+  conv_fwd_wide_body<KF, kWideEval, N>(&tm_x, &tm_w, bias, out, partials, work, ep);
+}
+
+// every mode takes the same arguments; only the eval mode reads ep
+using WideKernel = void (*)(const CUtensorMap, const CUtensorMap, const float*, bf16*, float*, const WideWork,
+                            const EvalParams);
 
 template <int KF, int MODE, int N>
 WideKernel wide_kernel() {
-  if constexpr (MODE == kWideChain) {
+  if constexpr (MODE == kWideEval) {
+    return conv_bn_act_eval_wide_kernel<KF, N>;
+  } else if constexpr (MODE == kWideChain) {
     return conv_bn_act_fwd_wide_kernel<KF, N>;
   } else if constexpr (MODE == kWideDgrad) {
     return conv_dgrad_wide_kernel<KF, N>;
@@ -482,7 +505,8 @@ WideKernel wide_kernel() {
 }
 
 // The kernel of (kf, mode, n); the chain's modes take C a multiple of 64 of
-// at least 128 channels, so they are built for n 128, 192 and 256 only.
+// at least 128 channels, so they are built for n 128, 192 and 256 only; the
+// plain and eval modes take every width that takes_layer sends.
 template <int KF, int MODE>
 WideKernel wide_kernel_n(int n) {
   switch (n) {
@@ -491,7 +515,7 @@ WideKernel wide_kernel_n(int n) {
     case 256: return wide_kernel<KF, MODE, 256>();
     default: break;
   }
-  if constexpr (MODE == kWidePlain) {
+  if constexpr (MODE == kWidePlain || MODE == kWideEval) {
     if (n == 64) return wide_kernel<KF, MODE, 64>();
     if (n == 96) return wide_kernel<KF, MODE, 96>();
   }
@@ -504,6 +528,7 @@ WideKernel wide_kernel_mode(int mode, int n) {
     case kWidePlain: return wide_kernel_n<KF, kWidePlain>(n);
     case kWideDgrad: return wide_kernel_n<KF, kWideDgrad>(n);
     case kWideChain: return wide_kernel_n<KF, kWideChain>(n);
+    case kWideEval: return wide_kernel_n<KF, kWideEval>(n);
     default: return nullptr;
   }
 }
@@ -574,7 +599,8 @@ cudaError_t conv_fwd_wide_plan(int B, int T, int F, int cin, int cout, int kt, i
 
 cudaError_t conv_fwd_wide_launch(int mode, const void* x, const void* w, const float* bias, void* out,
                                  float* partials, int B, int T, int F, int cin, int cout, int kt, int kf,
-                                 int dt, cudaStream_t stream, FwdWideInfo* info) {
+                                 int dt, cudaStream_t stream, FwdWideInfo* info, const EvalParams* ep) {
+  if ((mode == kWideEval) != (ep != nullptr)) return cudaErrorInvalidValue;
   WideWork work;
   WideKernel kernel;
   cudaError_t err = plan(B, T, F, cin, cout, kt, kf, dt, mode, info, &work, &kernel);
@@ -590,7 +616,7 @@ cudaError_t conv_fwd_wide_launch(int mode, const void* x, const void* w, const f
   err = bf16_map(&tm_w, w, 3, dims, strides, box);
   if (err != cudaSuccess) return err;
   kernel<<<info->blocks, kThreads, info->tile.smem, stream>>>(tm_x, tm_w, bias, static_cast<bf16*>(out), partials,
-                                                               work);
+                                                               work, ep ? *ep : EvalParams{});
   return cudaGetLastError();
 }
 
@@ -602,7 +628,7 @@ cudaError_t conv_fwd_wide_launch(int mode, const void* x, const void* w, const f
 extern "C" int conv_fwd_wide_tile(int cout, int kt, int kf, int mode, int* n, int* groups, int* mt, int* rows,
                                   int* tf, int* ring, int* wbufs, long long* smem) {
   wide::FwdTile t;
-  if (bad_shape(1, 1, 1, kt, kf, 1) || cout <= 0 || cout % 8 || mode < 0 || mode > 2 ||
+  if (bad_shape(1, 1, 1, kt, kf, 1) || cout <= 0 || cout % 8 || mode < 0 || mode > 3 ||
       !wide::fwd_tile(cout, kt, kf, mode, &t)) {
     return cudaErrorInvalidValue;
   }

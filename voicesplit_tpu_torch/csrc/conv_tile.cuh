@@ -1,8 +1,9 @@
 // Helpers that the conv kernels share (conv_fwd.cu: the forward / data-
-// gradient kernel body of conv_dilated_fwd, conv_bn_act_fwd and conv_dgrad;
-// conv_wgrad.cu: the weight-gradient kernels and the chain's prologue and
-// d_raw passes):
-// channels, tile widths, operand types, the prologue's activation, ldmatrix,
+// gradient kernel body of conv_dilated_fwd, conv_bn_act_fwd, conv_dgrad and
+// conv_bn_act_eval; conv_wgrad.cu: the weight-gradient kernels and the
+// chain's prologue and d_raw passes):
+// channels, tile widths, operand types, the prologue's activation, the eval
+// epilogue's per-channel table, ldmatrix,
 // mma.sync, wgmma's ordering, cp.async, occupancy, launch-shape checks and
 // the fixed-order reduction of per-block partial rows.  lstm_bwd.cu takes its
 // ldmatrix and mma.sync pieces from here too, for the dW_hh product, and
@@ -20,6 +21,19 @@
 #include <cstddef>
 #include <cstdint>
 
+// The eval mode's epilogue (conv_fwd.cu, conv_fwd_wide.cu): the layer's conv
+// bias, BatchNorm parameters and running statistics (fp32 [Cout] each), eps
+// and the activation (kMish or kRelu).
+struct EvalParams {
+  const float* bias;
+  const float* scale;
+  const float* beta;
+  const float* mean;
+  const float* var;
+  float eps;
+  int act;
+};
+
 namespace {
 
 constexpr int kC = 64;        // channels of a tile: in and out at C = 64, else a slab or group
@@ -27,7 +41,7 @@ constexpr int kTileF = 128;   // frequency positions per weight-gradient tile
 constexpr int kThreads = 256;
 constexpr int kMaxTaps = 7;   // largest kt or kf
 
-enum Act : int { kMish = 1, kRelu = 2 };  // the prologue's activation (0: none)
+enum Act : int { kMish = 1, kRelu = 2 };  // the prologue's and the eval epilogue's activation (0: none)
 
 template <typename T> struct Ld {  // operand row stride in shared memory: + 16 bytes
   static constexpr int value = kC + 16 / int(sizeof(T));
@@ -76,6 +90,44 @@ __device__ __forceinline__ float activate(float z, int act) {
   const float w = __fmul_rn(up, up);
   const float t = __fdiv_rn(__fadd_rn(w, -1.0f), __fadd_rn(w, 1.0f));
   return __fmul_rn(z, t);
+}
+
+// Stages [3][cout] fp32 into shared memory: the conv bias, inv = scale x
+// (1 / sqrt(var + eps)) and shift = beta - mean x inv, every step rounded on
+// its own, as the plain version computes them.
+__device__ __forceinline__ void stage_eval(float* s, const EvalParams& ep, int cout, int tid, int threads) {
+  for (int c = tid; c < cout; c += threads) {
+    const float r = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(ep.var[c], ep.eps)));
+    const float inv = __fmul_rn(ep.scale[c], r);
+    s[c] = ep.bias[c];
+    s[cout + c] = inv;
+    s[2 * cout + c] = __fsub_rn(ep.beta[c], __fmul_rn(ep.mean[c], inv));
+  }
+}
+
+// The eval epilogue's activation, without a branch, so that a thread's
+// outputs interleave: mish as z n / (n + 2) with n = u (u + 2), u =
+// e^min(z, 20) (tanh(softplus(z)) without the cancellation of ((1 + u)^2 - 1)
+// / ((1 + u)^2 + 1) that activate's form has for z < 0) on the fast
+// exponential and division, a few fp32 ulps under the output's one rounding;
+// relu selected.  (With activate, exact step by step, the eval kernel took
+// 47% more time than the plain one at B = 8 on an H100; the prologue pass
+// keeps activate and its bits.)
+__device__ __forceinline__ float activate_eval(float z, int act) {
+  const float u = __expf(fminf(z, 20.0f));
+  const float n = u * (u + 2.0f);
+  const float mish = z * __fdividef(n, n + 2.0f);
+  return act == kRelu ? fmaxf(z, 0.0f) : mish;
+}
+
+// act((acc + bias) x inv + shift) of output channels co and co + 1 (co even),
+// from stage_eval's table, in fp32 (the caller rounds once).
+__device__ __forceinline__ void eval_pair(float& v0, float& v1, const float* s, int cout, int co, int act) {
+  const float2 b = *reinterpret_cast<const float2*>(s + co);
+  const float2 inv = *reinterpret_cast<const float2*>(s + cout + co);
+  const float2 shift = *reinterpret_cast<const float2*>(s + 2 * cout + co);
+  v0 = activate_eval(__fadd_rn(__fmul_rn(__fadd_rn(v0, b.x), inv.x), shift.x), act);
+  v1 = activate_eval(__fadd_rn(__fmul_rn(__fadd_rn(v1, b.y), inv.y), shift.y), act);
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem) {

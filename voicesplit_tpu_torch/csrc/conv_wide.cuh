@@ -15,6 +15,8 @@
 
 #include <cstddef>
 
+struct EvalParams;  // conv_tile.cuh
+
 namespace wide {
 
 constexpr int kSlab = 64;               // input channels a k-slab (four k16 steps)
@@ -48,7 +50,8 @@ struct FwdTile {
 };
 
 // mode: 0 plain (conv_dilated_fwd), 1 dgrad (conv_dgrad), 2 chain
-// (conv_bn_act_fwd).  False when no tile fits (never for kt <= 7).
+// (conv_bn_act_fwd), 3 eval (conv_bn_act_eval).  False when no tile fits
+// (never for kt <= 7).
 inline bool fwd_tile(int cout, int kt, int kf, int mode, FwdTile* t) {
   t->groups = (cout + 255) / 256;
   t->n = fwd_width((cout + t->groups - 1) / t->groups);
@@ -59,9 +62,11 @@ inline bool fwd_tile(int cout, int kt, int kf, int mode, FwdTile* t) {
   const size_t ring = size_t(t->ring) * round_up(size_t(t->tf + kf - 1) * kSlab * 2, kAlign);
   const size_t slice = size_t(kSlab) * round_up(t->n, 64) * 2;
   // chain: each warp's sums and sums of squares of the group, and its
-  // 512-byte stage of rounded outputs; dgrad: each warp's 64 column sums
+  // 512-byte stage of rounded outputs; dgrad: each warp's 64 column sums;
+  // eval: [bias, inv, shift] of every output channel
   const size_t extra = mode == 2 ? size_t(kWarps) * (2 * t->n + 128) * sizeof(float)
-                       : mode == 1 ? size_t(kWarps) * kSlab * sizeof(float) : 0;
+                       : mode == 1 ? size_t(kWarps) * kSlab * sizeof(float)
+                       : mode == 3 ? size_t(3) * cout * sizeof(float) : 0;
   for (int wb = 4; wb >= 2; --wb) {
     const size_t s = ring + wb * slice + extra + kAlign;
     if (s + kStaticSmem <= kSmemLimit) {
@@ -83,10 +88,11 @@ struct FwdWideInfo {
 cudaError_t conv_fwd_wide_plan(int B, int T, int F, int cin, int cout, int kt, int kf, int dt, int mode,
                                FwdWideInfo* info);
 // x [B, T, F, cin], w [kt, kf, cin, cout], out [B, T, F, cout], bf16; bias
-// (chain) fp32 [cout]; partials fp32 (dgrad, chain): `info.scratch` elements.
+// (chain) fp32 [cout]; partials fp32 (dgrad, chain): `info.scratch` elements;
+// ep (eval, and only there): the layer's fp32 [cout] vectors and activation.
 cudaError_t conv_fwd_wide_launch(int mode, const void* x, const void* w, const float* bias, void* out,
                                  float* partials, int B, int T, int F, int cin, int cout, int kt, int kf,
-                                 int dt, cudaStream_t stream, FwdWideInfo* info);
+                                 int dt, cudaStream_t stream, FwdWideInfo* info, const EvalParams* ep = nullptr);
 
 // ---- weight gradient ----------------------------------------------------------
 //

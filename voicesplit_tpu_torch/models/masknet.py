@@ -36,9 +36,10 @@ With ``VOICESPLIT_PALLAS_CONV=1`` (`ops/conv_cuda.py`, the JAX package's
 switch) the layers that meet `conv_cuda.takes_layer` (``conv2`` … ``conv7``
 and the extra dilated blocks, at any ``conv_channels`` of 64 or more)
 compute their conv, and in training its two gradients, with the dilated-conv
-kernels, in train and in
-eval mode; BatchNorm + activation stay `ops/bn_act.py`, ``conv1`` and the
-1×1 projection the library conv.  The JAX
+kernels; in train mode BatchNorm + activation stay `ops/bn_act.py`, in eval
+mode the block is one `conv_cuda.conv_bn_act_eval` launch (conv, bias,
+BatchNorm with the running statistics and activation in the kernel's
+epilogue).  ``conv1`` and the 1×1 projection take the library conv.  The JAX
 model cannot run both switches at once (the chain drives the folded blocks,
 which the Pallas switch turns off), so a train-mode forward with both set
 raises.
@@ -91,7 +92,9 @@ from voicesplit_tpu_torch.config import Config
 from voicesplit_tpu_torch.device import DeviceLike, resolve_device
 from voicesplit_tpu_torch.models.lstm import BiLSTM, UniLSTM
 from voicesplit_tpu_torch.ops.bn_act import bn_act_eval, bn_act_train, mish
-from voicesplit_tpu_torch.ops.conv_cuda import conv2d_dilated_bias, pallas_conv_enabled, takes_layer
+from voicesplit_tpu_torch.ops.conv_cuda import (
+    conv2d_bn_act_eval, conv2d_dilated_bias, pallas_conv_enabled, takes_layer,
+)
 from voicesplit_tpu_torch.ops.conv_fused import fused_chain_enabled, make_chain
 from voicesplit_tpu_torch.utils.profiling import span
 
@@ -361,16 +364,23 @@ class MaskNet(nn.Module):
 
     def _dilated_conv_features(self, x: torch.Tensor, apply_mask) -> torch.Tensor:
         """Every block in turn, `apply_mask` after each; a layer that
-        `conv_cuda.takes_layer` accepts runs its conv through
-        `conv_cuda.conv2d_dilated_bias` on channels-last ``[B, T, F, C]``.
-        The first such layer copies NCHW to channels-last; after it
-        BatchNorm + activation keep that memory layout, so the later permutes
-        are views."""
+        `conv_cuda.takes_layer` accepts runs on channels-last ``[B, T, F,
+        C]``: in eval mode the whole block as one `conv_cuda.conv2d_bn_act_eval`,
+        in train mode its conv through `conv_cuda.conv2d_dilated_bias`.  The
+        first such layer copies NCHW to channels-last; after it every output
+        keeps that memory layout, so the later permutes are views."""
         for name in self.block_names:
             block = getattr(self, name)
             c = block.conv
             w_shape = (*c.kernel_size, c.in_channels, c.out_channels)
-            if takes_layer(w_shape, c.dilation):
+            if takes_layer(w_shape, c.dilation) and not block.training:
+                y = conv2d_bn_act_eval(
+                    x.to(self.compute_dtype).permute(0, 2, 3, 1).contiguous(),
+                    c.weight.permute(2, 3, 1, 0),  # OIHW → [kt, kf, Cin, Cout]
+                    c.bias, block.bn, block.activation, c.dilation,
+                )
+                x = apply_mask(y.permute(0, 3, 1, 2))
+            elif takes_layer(w_shape, c.dilation):
                 def conv(x, c=c):
                     y = conv2d_dilated_bias(
                         x.to(self.compute_dtype).permute(0, 2, 3, 1).contiguous(),

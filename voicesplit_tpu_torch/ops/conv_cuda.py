@@ -21,7 +21,15 @@ Kernels (each beside its plain version ``*_ref``):
   `conv_fused.conv_dgrad`;
 - ``conv_dilated_wgrad`` replaces `_wgrad_kernel` (`:234`): the fp32 weight
   gradient ``[kt, kf, Cin, Cout]``, by the kernel of `csrc/conv_wgrad.cu`
-  that the fused chain's `conv_wgrad` also launches after its prologue pass.
+  that the fused chain's `conv_wgrad` also launches after its prologue pass;
+- ``conv_bn_act_eval`` is an eval-mode layer whole: the forward kernel's
+  body in its eval mode, which adds the conv bias, applies BatchNorm with
+  the running statistics and the activation to the fp32 sums in its
+  epilogue and rounds once (`_fwd_kernel`, then the bias of `conv_dispatch`
+  and `folded_bn_act_eval`, which the JAX package runs apart).  Its plain
+  version composes the plain conv, the bias add and `bn_act.bn_act_eval`
+  exactly as a train-capable path computes them, so the CPU results keep
+  their bits; ``conv_bn_act_eval_round_once_ref`` has the kernel's rounding.
 
 Layout: activations channels-last ``[B, T, F, C]`` (the JAX package's NHWC),
 weights ``[kt, kf, Cin, Cout]`` (HWIO).  Odd ``kt`` and ``kf``, frequency
@@ -43,7 +51,10 @@ versions run only for tensors on the CPU.  Each kernel launch adds one to
 ``LAUNCHES[name]``.  The forward is the `torch.library` operator
 ``voicesplit::conv_dilated_fwd`` (checks, dispatch and count inside it; a
 fake implementation for `torch.export`), which the differentiable conv calls
-for its forward and its data gradient.  The kernels take every channel count
+for its forward and its data gradient; the eval-mode layer is the operator
+``voicesplit::conv_bn_act_eval`` (the same, and for an eval-mode forward
+that is differentiated a backward by autograd through the composition it
+replaces, recomputed).  The kernels take every channel count
 that `takes_layer` sends them, at least 64 in and out, Cin and Cout apart
 (64 in and out is a compile-time instantiation of its own; other counts in
 bf16 take the wide tiles of `csrc/conv_fwd_wide.cu` and
@@ -68,14 +79,15 @@ import torch
 import torch.nn.functional as F
 
 from voicesplit_tpu_torch.ops import _build
+from voicesplit_tpu_torch.ops.bn_act import bn_act_eval
 from voicesplit_tpu_torch.ops.conv_fused import (
-    CHANNEL_SLAB, _conv_core, _padded, check_fwd_kernel_takes, launch_wgrad_kernel,
+    _ACT_CODE, CHANNEL_SLAB, _conv_core, _padded, check_fwd_kernel_takes, launch_wgrad_kernel,
 )
 
 # kernel launches per wrapper, for showing that a run went through them
-LAUNCHES = {"conv_dilated_fwd": 0, "conv_dilated_wgrad": 0}
+LAUNCHES = {"conv_dilated_fwd": 0, "conv_dilated_wgrad": 0, "conv_bn_act_eval": 0}
 # launches whose operands were zero-padded to a multiple of CHANNEL_ALIGN
-CHANNEL_PADS = {"conv_dilated_fwd": 0, "conv_dilated_wgrad": 0}
+CHANNEL_PADS = {"conv_dilated_fwd": 0, "conv_dilated_wgrad": 0, "conv_bn_act_eval": 0}
 CHANNEL_ALIGN = 8  # channels of one 16-byte bf16 copy: the kernels take multiples of it
 
 _WGRAD_KF = (1, 3, 5)  # frequency tap counts the weight-gradient kernel is built for
@@ -91,7 +103,7 @@ SMEM_LIMIT = 232448  # dynamic shared memory bytes a block may take on an H100 (
 ACCUMULATOR_LIMIT = 192  # fp32 accumulators a thread that a tile may take
 FWD_WIDTHS = (64, 96, 128, 192, 256)  # wgmma widths of the wide forward (conv_fwd_wide.cu)
 WGRAD_WIDTHS = (64, 96, 128)  # and of the wide weight gradient (conv_wgrad_wide.cu)
-FWD_MODES = {"plain": 0, "dgrad": 1, "chain": 2}
+FWD_MODES = {"plain": 0, "dgrad": 1, "chain": 2, "eval": 3}
 _ALIGN, _WARPS, _STAGES = 1024, 8, 3
 _STATIC = 1024  # kept for the wide kernels' static shared memory (their mbarriers)
 
@@ -116,6 +128,7 @@ def _library() -> ctypes.CDLL:
         ip, lp = ctypes.POINTER(i), ctypes.POINTER(ctypes.c_longlong)
         _build.declare({
             "conv_dilated_fwd": [p] * 3 + [i] * 9 + [p],
+            "conv_bn_act_eval": [p] * 8 + [i] * 8 + [ctypes.c_float] + [i] * 2 + [p],
             "conv_fwd_wide_tile": [i] * 4 + [ip] * 7 + [lp],
             "conv_wgrad_wide_tile": [i] * 3 + [ip] * 7 + [lp],
             "conv_fwd_wide_attributes": [i] * 3 + [ip] * 2,
@@ -148,7 +161,8 @@ def _fwd_width(channels: int) -> int:
 def fwd_tile(cin: int, cout: int, kt: int, kf: int, dtype: torch.dtype, mode: str = "plain") -> dict:
     """The forward / data-gradient kernel's tile for ``[kt, kf, cin, cout]``
     weights in `dtype` and `mode` ("plain": `conv_dilated_fwd`, "dgrad":
-    `conv_fused.conv_dgrad`, "chain": `conv_fused.conv_bn_act_fwd`), as the C
+    `conv_fused.conv_dgrad`, "chain": `conv_fused.conv_bn_act_fwd`, "eval":
+    `conv_bn_act_eval`), as the C
     planner picks it before the launch: the ``route`` ("64": the C = 64
     instantiation, "slab": fp32 at other widths in 64-wide slabs and groups,
     "tiles": bf16 at other widths, `conv_fwd_wide.cu`) and, on "tiles", the
@@ -165,7 +179,7 @@ def fwd_tile(cin: int, cout: int, kt: int, kf: int, dtype: torch.dtype, mode: st
     tf, ring = 64 * mt, kt + 3
     ring_bytes = ring * _round_up((tf + kf - 1) * CHANNEL_SLAB * 2, _ALIGN)  # 1024-byte slots
     slice_bytes = CHANNEL_SLAB * _round_up(n, 64) * 2
-    extra = {"chain": _WARPS * (2 * n + 128) * 4, "dgrad": _WARPS * CHANNEL_SLAB * 4}.get(mode, 0)
+    extra = {"chain": _WARPS * (2 * n + 128) * 4, "dgrad": _WARPS * CHANNEL_SLAB * 4, "eval": 3 * cout * 4}.get(mode, 0)
     for wbufs in (4, 3, 2):
         smem = ring_bytes + wbufs * slice_bytes + extra + _ALIGN
         if smem + _STATIC <= SMEM_LIMIT:
@@ -234,7 +248,7 @@ def wide_kernel_attributes() -> dict:
     for kf in _WGRAD_KF:
         for mode, code in FWD_MODES.items():
             for n in FWD_WIDTHS:
-                if mode != "plain" and n < 128:
+                if mode in ("dgrad", "chain") and n < 128:
                     continue
                 err = lib.conv_fwd_wide_attributes(kf, code, n, ctypes.byref(regs), ctypes.byref(local))
                 _build.raise_on(err, f"conv_fwd_wide_attributes({kf}, {mode}, {n})")
@@ -277,6 +291,44 @@ def conv_dilated_fwd_round_once_ref(x: torch.Tensor, w: torch.Tensor, dt: int) -
     `conv_dilated_fwd_ref` up to summation order; in bf16 it is what the
     kernel is held to without the Pallas kernel's per-tap roundings."""
     return _conv_core(x, w, dt).to(x.dtype).contiguous()
+
+
+def conv_bn_act_eval_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, scale: torch.Tensor,
+                         beta: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, eps: float,
+                         act: str, dt: int) -> torch.Tensor:
+    """An eval-mode layer on ``x [B, T, F, Cin]`` with ``w [kt, kf, Cin,
+    Cout]`` (one type) and fp32 ``[Cout]`` vectors (conv bias `b`, BatchNorm
+    `scale`, `beta`, running `mean`, `var`) → ``[B, T, F, Cout]``, the
+    composition it replaces op for op: `conv_dilated_fwd_ref`, the bias
+    added in the operand type, `bn_act.bn_act_eval` (its constants rounded to
+    the operand type, each op rounded)."""
+    y = conv_dilated_fwd_ref(x, w, dt) + b.to(x.dtype)
+    z = bn_act_eval(y.permute(0, 3, 1, 2), scale, beta, mean, var, act, eps)
+    return z.permute(0, 2, 3, 1).contiguous()
+
+
+def conv_bn_act_eval_round_once_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                                    scale: torch.Tensor, beta: torch.Tensor, mean: torch.Tensor,
+                                    var: torch.Tensor, eps: float, act: str, dt: int) -> torch.Tensor:
+    """The same layer with the CUDA kernel's arithmetic: the conv summed in
+    fp32, then ``act((sum + b)·inv + shift)`` in fp32 with ``inv = scale ·
+    (1 / sqrt(var + eps))`` and ``shift = beta − mean·inv``, mish as ``z·n /
+    (n + 2)`` with ``n = u·(u + 2)``, ``u = e^min(z, 20)`` (the kernel takes
+    the card's fast exponential and division, a few fp32 ulps from these),
+    rounded once to the operand type.  What the kernel is held to on the
+    card."""
+    inv = scale * (1.0 / torch.sqrt(var + eps))
+    shift = beta - mean * inv
+    z = (_conv_core(x, w, dt) + b) * inv + shift
+    if act == "mish":
+        u = torch.exp(torch.clamp(z, max=20.0))
+        n = u * (u + 2.0)
+        z = z * (n / (n + 2.0))
+    elif act == "relu":
+        z = torch.clamp(z, min=0.0)
+    else:
+        raise ValueError(f"unknown activation {act!r}")
+    return z.to(x.dtype).contiguous()
 
 
 def conv_dilated_wgrad_ref(x: torch.Tensor, dy: torch.Tensor, kt: int, kf: int,
@@ -377,6 +429,29 @@ def _launch_conv_dilated_wgrad(x, dy, kt, kf, dt):
     return dw if (cin_a, cout_a) == (cin, cout) else dw[:, :, :cin, :cout].contiguous()
 
 
+def _launch_conv_bn_act_eval(x, w, b, scale, beta, mean, var, eps, act, dt):
+    B, T, F_, cin = x.shape
+    kt, kf, _, cout = w.shape
+    _check_kernel_takes(cin, cout, kt, kf, wgrad=False)
+    cin_a, cout_a = _aligned(cin), _aligned(cout)
+    vecs = (b, scale, beta, mean, var)
+    if (cin_a, cout_a) != (cin, cout):
+        CHANNEL_PADS["conv_bn_act_eval"] += 1
+        x, w = _pad_last(x, cin_a - cin), _pad_last(w, cout_a - cout, cin_a - cin)
+        vecs = tuple(_pad_last(v, cout_a - cout) for v in vecs)  # var 0 + eps: inv 0 there
+    out = x.new_empty((B, T, F_, cout_a))
+    lib = _library()
+    with torch.cuda.device(x.device):
+        err = lib.conv_bn_act_eval(
+            x.data_ptr(), w.data_ptr(), *(v.data_ptr() for v in vecs), out.data_ptr(),
+            B, T, F_, cin_a, cout_a, kt, kf, dt, eps, _ACT_CODE[act],
+            int(x.dtype == torch.bfloat16), _build.stream(x),
+        )
+    _build.raise_on(err, "conv_bn_act_eval")
+    LAUNCHES["conv_bn_act_eval"] += 1
+    return out if cout_a == cout else out[..., :cout].contiguous()
+
+
 @torch.library.custom_op(
     "voicesplit::conv_dilated_fwd", mutates_args=(), schema="(Tensor x, Tensor w, int dt) -> Tensor"
 )
@@ -398,6 +473,62 @@ def conv_dilated_fwd(x: torch.Tensor, w: torch.Tensor, dt: int) -> torch.Tensor:
     """The "same" time-dilated conv without bias (kernel on CUDA, plain
     version on the CPU); see `conv_dilated_fwd_ref` for shapes and types."""
     return torch.ops.voicesplit.conv_dilated_fwd(x, w, int(dt))
+
+
+@torch.library.custom_op(
+    "voicesplit::conv_bn_act_eval", mutates_args=(),
+    schema="(Tensor x, Tensor w, Tensor b, Tensor scale, Tensor beta, Tensor mean, Tensor var, "
+           "float eps, str act, int dt) -> Tensor",
+)
+def _conv_bn_act_eval_op(x, w, b, scale, beta, mean, var, eps, act, dt):
+    if w.dim() != 4:
+        raise ValueError(f"weights must be [kt, kf, Cin, Cout], got {tuple(w.shape)}")
+    kt, kf, _, cout = w.shape
+    cin = x.shape[-1] if x.dim() == 4 else 0
+    _check(x, w, (kt, kf, cin, cout), "weights", kt, kf, dt)
+    if act not in _ACT_CODE:
+        raise ValueError(f"unknown activation {act!r}")
+    for name, v in (("bias", b), ("scale", scale), ("beta", beta), ("mean", mean), ("var", var)):
+        if tuple(v.shape) != (cout,) or v.dtype != torch.float32 or v.device != x.device or not v.is_contiguous():
+            raise ValueError(f"{name} must be contiguous [{cout}] fp32 on {x.device}, "
+                             f"got {tuple(v.shape)} {v.dtype} on {v.device}")
+    fn = _build.dispatch(x.device, _launch_conv_bn_act_eval, conv_bn_act_eval_ref)
+    return fn(x, w, b, scale, beta, mean, var, eps, act, dt)
+
+
+@_conv_bn_act_eval_op.register_fake
+def _(x, w, b, scale, beta, mean, var, eps, act, dt):
+    return x.new_empty((*x.shape[:3], w.shape[3]))
+
+
+def _conv_bn_act_eval_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:7])
+    ctx.eps, ctx.act, ctx.dt = inputs[7:]
+
+
+def _conv_bn_act_eval_backward(ctx, dy):
+    """The gradients of the composition the operator replaces, by autograd
+    through it recomputed: `conv2d_dilated_bias` (the conv kernels on CUDA),
+    then `bn_act.bn_act_eval`."""
+    need = ctx.needs_input_grad[:7]
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+        x, w, b, scale, beta, mean, var = leaves
+        y = conv2d_dilated_bias(x, w, b, (ctx.dt, 1))
+        z = bn_act_eval(y.permute(0, 3, 1, 2), scale, beta, mean, var, ctx.act, ctx.eps)
+        grads = iter(torch.autograd.grad(z.permute(0, 2, 3, 1), [t for t, n in zip(leaves, need) if n], dy))
+    return (*(next(grads) if n else None for n in need), None, None, None)
+
+
+_conv_bn_act_eval_op.register_autograd(_conv_bn_act_eval_backward, setup_context=_conv_bn_act_eval_setup)
+
+
+def conv_bn_act_eval(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, scale: torch.Tensor,
+                     beta: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, act: str,
+                     eps: float, dt: int) -> torch.Tensor:
+    """An eval-mode conv block in one launch (kernel on CUDA, the plain
+    composition on the CPU); see `conv_bn_act_eval_ref` for shapes and types."""
+    return torch.ops.voicesplit.conv_bn_act_eval(x, w, b, scale, beta, mean, var, float(eps), act, int(dt))
 
 
 def conv_dilated_wgrad(x: torch.Tensor, dy: torch.Tensor, kt: int, kf: int,
@@ -494,3 +625,16 @@ def conv2d_dilated_bias(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tens
     if b is not None:
         out = _AddBias.apply(out, b)
     return out
+
+
+def conv2d_bn_act_eval(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, bn, act: str,
+                       dilation: Tuple[int, int]) -> torch.Tensor:
+    """A heavy layer in eval mode as the model calls it: `conv2d_dilated_bias`
+    followed by BatchNorm with `bn`'s running statistics (``scale``,
+    ``bias``, ``mean``, ``var``, ``epsilon``) and `act`, as one
+    `conv_bn_act_eval`; `w` (any layout) is cast and laid out in one copy."""
+    dt, df = dilation
+    if df != 1:
+        raise ValueError(f"frequency dilation must be 1, got {df}")
+    w = w.to(x.dtype, memory_format=torch.contiguous_format).contiguous()  # no second copy
+    return conv_bn_act_eval(x, w, b, bn.scale, bn.bias, bn.mean, bn.var, act, bn.epsilon, dt)
